@@ -1,0 +1,31 @@
+"""repro_torch.engines — the FFT engine registry the planner schedules.
+
+Importing this package registers the built-in engines.
+"""
+
+from repro_torch.engines.registry import (
+    PRECISIONS,
+    CostHints,
+    EngineSpec,
+    get_engine,
+    has_engine,
+    iter_engines,
+    register_alias,
+    register_engine,
+    registered_backends,
+    registered_variants,
+)
+from repro_torch.engines import builtin as _builtin  # noqa: F401
+
+__all__ = [
+    "PRECISIONS",
+    "CostHints",
+    "EngineSpec",
+    "get_engine",
+    "has_engine",
+    "iter_engines",
+    "register_alias",
+    "register_engine",
+    "registered_backends",
+    "registered_variants",
+]

@@ -1,0 +1,117 @@
+"""The built-in engines, registered with their capability envelopes.
+
+Port of ``repro.engines.builtin``. The schedules of ``repro_torch.core``
+(``looped``, ``stockham``, ``radix4``) run under backend ``"torch"`` on any
+device, and ``unrolled`` is an alias of ``looped`` (one eager stage loop
+serves both; the alias lets the reference's wisdom files load); ``fused``/``fused_r4`` run the
+CUDA kernels under backend ``"cuda"`` (their plain versions on a CPU
+tensor), for power-of-two dims, single device, and only while one row of
+the longest transform dim fits a block's shared memory — the 2D kinds'
+composition runs the 1D kernel on each pass, so a row must fit for any
+fused plan. The shared-memory numbers come from the kernels' census
+(``repro_torch.kernels.fft_radix2``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+from repro_torch.engines.registry import CostHints, EngineSpec, register_alias, register_engine
+
+#: Kinds the engines execute (stream, pencil and oaconv kinds wait).
+_KINDS = ("fft1d", "fft2d", "rfft1d", "rfft2d")
+
+
+def _core_ops(name: str):
+    """Op factory shared by the builtin engines: the ``repro_torch.core``
+    entries under a concrete variant."""
+
+    def factory(kind: str, direction: str):
+        inv = direction == "inv"
+        if kind == "fft1d":
+            from repro_torch.core.fft1d import fft_impl, ifft_impl
+
+            return functools.partial(ifft_impl if inv else fft_impl, variant=name)
+        if kind == "fft2d":
+            from repro_torch.core.fft2d import fft2_impl, ifft2_impl
+
+            return functools.partial(ifft2_impl if inv else fft2_impl, variant=name)
+        if kind == "rfft1d":
+            from repro_torch.core.rfft import irfft_impl, rfft_impl
+
+            return functools.partial(irfft_impl if inv else rfft_impl, variant=name)
+        if kind == "rfft2d":
+            from repro_torch.core.rfft import irfft2_impl, rfft2_impl
+
+            return functools.partial(irfft2_impl if inv else rfft2_impl, variant=name)
+        return None
+
+    return factory
+
+
+def _dims(key):
+    if key.kind in ("fft2d", "rfft2d"):
+        return key.shape[-2:] if len(key.shape) >= 2 else None
+    return key.shape[-1:]
+
+
+def _fused_predicate(key) -> bool:
+    """Fused kernels need power-of-two transform dims."""
+    dims = _dims(key)
+    return dims is not None and all(d >= 2 and (d & (d - 1)) == 0 for d in dims)
+
+
+def _fused_working_set(key):
+    """Largest block the fused path launches for ``key`` (bytes of shared
+    memory): the whole frame where a 2D frame fits one block, else one row
+    of each transform dim, in the kernel that row takes."""
+    from repro_torch.kernels import fft_radix2 as census
+
+    dims = _dims(key)
+    if dims is None:
+        return None
+    if key.kind == "rfft1d":
+        n = dims[-1]
+        return max(census.rfft_smem_bytes(n), census.irfft_smem_bytes(n))
+    if key.kind == "rfft2d":
+        h, w = dims
+        if census.rfft2_fits_smem(h, w):
+            return census.rfft2_smem_bytes(h, w)
+        return max(census.rfft_smem_bytes(w), census.irfft_smem_bytes(w),
+                   census.fft_smem_bytes(h))
+    if key.kind == "fft2d" and census.fft2_fits_smem(*dims):
+        return census.fft2_smem_bytes(*dims)
+    return census.fft_smem_bytes(max(dims))
+
+
+def _register_builtin_engines() -> None:
+    schedules = (
+        ("looped", CostHints(traffic_factor=6.0, stage_overhead_s=3.0e-6,
+                             entry_overhead_s=5.0e-6), 2),
+        ("stockham", CostHints(traffic_factor=4.0, stage_overhead_s=0.8e-6), 2),
+        ("radix4", CostHints(traffic_factor=4.0, stage_overhead_s=0.8e-6,
+                             flop_scale=0.85), 4),
+    )
+    for name, cost, radix in schedules:
+        register_engine(EngineSpec(
+            name=name, backend="torch", kinds=_KINDS, radix=radix, cost=cost,
+            ops=_core_ops(name),
+        ))
+    register_alias("unrolled", "looped")
+    for name, radix, flop_scale in (("fused", 2, 1.0), ("fused_r4", 4, 0.85)):
+        register_engine(EngineSpec(
+            name=name,
+            backend="cuda",
+            kinds=_KINDS,
+            radix=radix,
+            fused=True,
+            single_device_only=True,
+            working_set=_fused_working_set,
+            predicate=_fused_predicate,
+            cost=CostHints(traffic_factor=4.0, stage_overhead_s=0.8e-6,
+                           flop_scale=flop_scale),
+            ops=_core_ops(name),
+        ))
+
+
+_register_builtin_engines()

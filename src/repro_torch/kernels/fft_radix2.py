@@ -1,0 +1,560 @@
+"""The fused FFT kernels for Hopper, their plain versions and their census.
+
+Port of ``repro.kernels.fft_radix2``. The TPU kernels kept a row tile or a
+whole frame resident in VMEM and streamed every Stockham stage over it; the
+CUDA kernels in ``csrc/`` keep the tile in one block's shared memory, which
+on an H100 is 227 KB (232,448 bytes) rather than megabytes. Three things
+live here:
+
+* **The census.** The shared memory and threads each CUDA kernel really
+  uses, derived from ``csrc/``: a block holds its P complex values (8 bytes
+  each) once, because each stage is done in place through registers, plus
+  one twiddle ROM. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``,
+  ``kernels.ops`` and the engines' working-set gate all read it.
+* **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
+  ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
+  step for step the Pallas panels, and ``*_plain`` around them. They are
+  what the CPU runs and what the kernels are held against on the card.
+* **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
+  ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``. A CPU tensor takes the plain version. A CUDA tensor
+  launches the kernel or raises; nothing falls back. Each launch adds one
+  to ``LAUNCHES[name]``.
+
+The wrappers take complex64 tensors (``torch.view_as_real`` layout, re/im
+interleaved) where the Pallas ABI took separate planes: on the card the
+interleaved pair is one 8-byte load.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+__all__ = [
+    "LAUNCHES",
+    "SMEM_BUDGET_BYTES",
+    "fft2_fits_smem",
+    "fft2_fused",
+    "fft2_fused_plain",
+    "fft2_smem_bytes",
+    "fft_fits_smem",
+    "fft_fused",
+    "fft_fused_plain",
+    "fft_smem_bytes",
+    "irfft2_fused",
+    "irfft2_fused_plain",
+    "irfft_fused",
+    "irfft_fused_plain",
+    "irfft_smem_bytes",
+    "pick_row_tile",
+    "reset_launches",
+    "rfft2_fits_smem",
+    "rfft2_fused",
+    "rfft2_fused_plain",
+    "rfft2_smem_bytes",
+    "rfft_fused",
+    "rfft_fused_plain",
+    "rfft_smem_bytes",
+]
+
+# ------------------------------- census -----------------------------------
+
+#: Dynamic shared memory one Hopper block may opt into (sm_90: 227 KB).
+SMEM_BUDGET_BYTES = 232_448
+
+#: Most threads a block may have.
+MAX_THREADS = 1024
+
+#: Complex values each thread stages in registers per stage
+#: (``kMaxPerThread`` in ``csrc/stockham.cuh``).
+ELEMS_PER_THREAD = 16
+
+#: Complex values a 1D block aims to hold: 32 KiB, so that several blocks
+#: share an SM and hide each other's loads.
+ROW_TILE_ELEMS = 4096
+
+_COMPLEX_BYTES = 8
+
+
+def _block_bytes(elems: int, rom: int) -> int:
+    """A block's dynamic shared memory: its values plus the twiddle ROM."""
+    return (elems + rom) * _COMPLEX_BYTES
+
+
+def block_threads(elems: int) -> int:
+    """Threads of a block holding ``elems`` values: min(16, elems) each."""
+    return elems // min(ELEMS_PER_THREAD, elems)
+
+
+def fft_smem_bytes(n: int, rows: int = 1) -> int:
+    """``fft_fused``: ``rows`` rows of n values and a ROM of n/2 twiddles."""
+    return _block_bytes(rows * n, n // 2)
+
+
+def rfft_smem_bytes(n: int, rows: int = 1) -> int:
+    """``rfft_fused``: ``rows`` packed rows of N/2 values and a ROM of
+    N/2+1 twiddles W_N^k, shared by the panel and the recombination."""
+    return _block_bytes(rows * (n // 2), n // 2 + 1)
+
+
+def irfft_smem_bytes(n: int, rows: int = 1) -> int:
+    """``irfft_fused``: ``rows`` packed rows of N/2 values and N/2 twiddles."""
+    return _block_bytes(rows * (n // 2), n // 2)
+
+
+def fft2_smem_bytes(h: int, w: int) -> int:
+    """``fft2_fused``: the whole frame and one ROM for the longer side."""
+    return _block_bytes(h * w, max(h, w) // 2)
+
+
+def rfft2_smem_bytes(h: int, w: int) -> int:
+    """``rfft2_fused`` and ``irfft2_fused``: the frame as H rows of W/2
+    packed values (DC and Nyquist share slot 0), and one ROM of
+    max(H, W)/2 + 1 twiddles."""
+    return _block_bytes(h * (w // 2), max(h, w) // 2 + 1)
+
+
+def _fits(smem: int, elems: int) -> bool:
+    return smem <= SMEM_BUDGET_BYTES and block_threads(elems) <= MAX_THREADS
+
+
+def fft_fits_smem(n: int, *, real: bool = False) -> bool:
+    """True when one row of length ``n`` fits a block (complex, or the real
+    pair when ``real``)."""
+    if real:
+        m = max(n // 2, 1)
+        return _fits(max(rfft_smem_bytes(n), irfft_smem_bytes(n)), m)
+    return _fits(fft_smem_bytes(n), n)
+
+
+def fft2_fits_smem(h: int, w: int) -> bool:
+    """True when a whole (H, W) complex frame fits one ``fft2_fused`` block."""
+    return _fits(fft2_smem_bytes(h, w), h * w)
+
+
+def rfft2_fits_smem(h: int, w: int) -> bool:
+    """True when a whole (H, W) real frame fits one ``rfft2_fused`` /
+    ``irfft2_fused`` block."""
+    return _fits(rfft2_smem_bytes(h, w), h * max(w // 2, 1))
+
+
+def pick_row_tile(batch: int, elems_per_row: int) -> int:
+    """Rows per 1D block: a power of two near ``ROW_TILE_ELEMS`` values,
+    at most the batch rounded up to a power of two. The batch need not be
+    a multiple: the last block masks its rows past the batch."""
+    tile = max(1, ROW_TILE_ELEMS // elems_per_row)
+    tile = 1 << (tile.bit_length() - 1)
+    cap = 1 << max(batch - 1, 0).bit_length()
+    return max(1, min(tile, cap))
+
+
+# ------------------------------- launches ---------------------------------
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES: Dict[str, int] = {
+    "fft_fused": 0, "rfft_fused": 0, "irfft_fused": 0, "fft2_fused": 0,
+    "rfft2_fused": 0, "irfft2_fused": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# --------------------------- plain panels ---------------------------------
+
+
+def _stockham_panel(re: torch.Tensor, im: torch.Tensor, n: int):
+    """All log2(N) radix-2 stages over a (tile, N) panel."""
+    stages = int(math.log2(n)) if n > 1 else 0
+    tb = re.shape[0]
+    yr = re.reshape(tb, n, 1)
+    yi = im.reshape(tb, n, 1)
+    if stages == 0:
+        return yr.reshape(tb, n), yi.reshape(tb, n)
+    # One cos/sin table for the largest stage; smaller stages stride it.
+    l_max = n // 2
+    j = torch.arange(l_max, dtype=torch.float32, device=re.device).reshape(1, 1, l_max)
+    ang = (-math.pi / l_max) * j
+    rom_r, rom_i = torch.cos(ang), torch.sin(ang)
+    for s in range(stages):
+        l = 1 << s
+        r = n >> (s + 1)
+        yr = yr.reshape(tb, 2, r, l)
+        yi = yi.reshape(tb, 2, r, l)
+        stride = l_max // l
+        wr = rom_r[..., ::stride]
+        wi = rom_i[..., ::stride]
+        ar, ai = yr[:, 0], yi[:, 0]
+        br, bi = yr[:, 1], yi[:, 1]
+        tr = br * wr - bi * wi
+        ti = br * wi + bi * wr
+        yr = torch.cat([ar + tr, ar - tr], dim=-1)
+        yi = torch.cat([ai + ti, ai - ti], dim=-1)
+    return yr.reshape(tb, n), yi.reshape(tb, n)
+
+
+def _stockham_panel_r4(re: torch.Tensor, im: torch.Tensor, n: int):
+    """Radix-4 panel: one twiddle-free radix-2 stage when log2(N) is odd,
+    then radix 4, with W^2 and W^3 from W by complex multiplication."""
+    stages = int(math.log2(n)) if n > 1 else 0
+    tb = re.shape[0]
+    yr = re.reshape(tb, n, 1)
+    yi = im.reshape(tb, n, 1)
+    if stages == 0:
+        return yr.reshape(tb, n), yi.reshape(tb, n)
+    l = 1
+    if stages % 2:
+        r = n >> 1
+        yr = yr.reshape(tb, 2, r, 1)
+        yi = yi.reshape(tb, 2, r, 1)
+        ar, ai = yr[:, 0], yi[:, 0]
+        br, bi = yr[:, 1], yi[:, 1]
+        yr = torch.cat([ar + br, ar - br], dim=-1)
+        yi = torch.cat([ai + bi, ai - bi], dim=-1)
+        l = 2
+    if l < n:
+        l_max = n // 4
+        j = torch.arange(l_max, dtype=torch.float32, device=re.device).reshape(1, 1, l_max)
+        ang = (-2.0 * math.pi / n) * j
+        rom_r, rom_i = torch.cos(ang), torch.sin(ang)
+    while l < n:
+        r = n // (4 * l)
+        yr = yr.reshape(tb, 4, r, l)
+        yi = yi.reshape(tb, 4, r, l)
+        stride = (n // 4) // l
+        w1r = rom_r[..., ::stride]
+        w1i = rom_i[..., ::stride]
+        w2r = w1r * w1r - w1i * w1i
+        w2i = 2.0 * w1r * w1i
+        w3r = w2r * w1r - w2i * w1i
+        w3i = w2r * w1i + w2i * w1r
+        a0r, a0i = yr[:, 0], yi[:, 0]
+        a1r = yr[:, 1] * w1r - yi[:, 1] * w1i
+        a1i = yr[:, 1] * w1i + yi[:, 1] * w1r
+        a2r = yr[:, 2] * w2r - yi[:, 2] * w2i
+        a2i = yr[:, 2] * w2i + yi[:, 2] * w2r
+        a3r = yr[:, 3] * w3r - yi[:, 3] * w3i
+        a3i = yr[:, 3] * w3i + yi[:, 3] * w3r
+        s02r, s02i = a0r + a2r, a0i + a2i
+        d02r, d02i = a0r - a2r, a0i - a2i
+        s13r, s13i = a1r + a3r, a1i + a3i
+        d13r, d13i = a1r - a3r, a1i - a3i
+        yr = torch.cat([s02r + s13r, d02r + d13i, s02r - s13r, d02r - d13i], dim=-1)
+        yi = torch.cat([s02i + s13i, d02i - d13r, s02i - s13i, d02i + d13r], dim=-1)
+        l *= 4
+    return yr.reshape(tb, n), yi.reshape(tb, n)
+
+
+def _panel(radix: int):
+    if radix not in (2, 4):
+        raise ValueError(f"radix must be 2 or 4, got {radix}")
+    return _stockham_panel_r4 if radix == 4 else _stockham_panel
+
+
+def _rfft_panel(x: torch.Tensor, n: int, radix: int):
+    """Real (tile, N) -> half spectrum (tile, N/2+1) re/im: pack, half-size
+    panel, Hermitian recombination Y[k] = Xe[k] + W_N^k Xo[k]."""
+    m = n // 2
+    zr = x[:, 0::2]
+    zi = x[:, 1::2]
+    zr, zi = _panel(radix)(zr, zi, m)
+    zkr = torch.cat([zr, zr[:, :1]], dim=-1)
+    zki = torch.cat([zi, zi[:, :1]], dim=-1)
+    zmkr = torch.cat([zr[:, :1], torch.flip(zr[:, 1:], dims=(-1,)), zr[:, :1]], dim=-1)
+    zmki = -torch.cat([zi[:, :1], torch.flip(zi[:, 1:], dims=(-1,)), zi[:, :1]], dim=-1)
+    xer = 0.5 * (zkr + zmkr)
+    xei = 0.5 * (zki + zmki)
+    dr = zkr - zmkr
+    di = zki - zmki
+    xor_ = 0.5 * di
+    xoi = -0.5 * dr
+    k = torch.arange(m + 1, dtype=torch.float32, device=x.device).reshape(1, m + 1)
+    ang = (-2.0 * math.pi / n) * k
+    wr, wi = torch.cos(ang), torch.sin(ang)
+    yr = xer + wr * xor_ - wi * xoi
+    yi = xei + wr * xoi + wi * xor_
+    return yr, yi
+
+
+def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int):
+    """Half spectrum (tile, N/2+1) re/im -> real (tile, N)."""
+    tb = yr.shape[0]
+    m = n // 2
+    edge = torch.arange(m + 1, device=yr.device).reshape(1, m + 1)
+    yi = torch.where((edge == 0) | (edge == m), torch.zeros_like(yi), yi)
+    ykr, yki = yr[:, :m], yi[:, :m]
+    ymkr = torch.flip(yr[:, 1:], dims=(-1,))
+    ymki = -torch.flip(yi[:, 1:], dims=(-1,))
+    xer = 0.5 * (ykr + ymkr)
+    xei = 0.5 * (yki + ymki)
+    txr = 0.5 * (ykr - ymkr)
+    txi = 0.5 * (yki - ymki)
+    k = torch.arange(m, dtype=torch.float32, device=yr.device).reshape(1, m)
+    ang = (2.0 * math.pi / n) * k
+    wr, wi = torch.cos(ang), torch.sin(ang)
+    xor_ = txr * wr - txi * wi
+    xoi = txr * wi + txi * wr
+    zr = xer - xoi
+    zi = xei + xor_
+    fr, fi = _panel(radix)(zr, -zi, m)
+    inv = 1.0 / m
+    zr, zi = fr * inv, -fi * inv
+    return torch.stack([zr, zi], dim=-1).reshape(tb, n)
+
+
+# --------------------------- plain versions -------------------------------
+
+
+def _planes(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    v = torch.view_as_real(x.resolve_conj())
+    return v[..., 0], v[..., 1]
+
+
+def _complex(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    return torch.complex(re.contiguous(), im.contiguous())
+
+
+def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor."""
+    re, im = _planes(x)
+    n = x.shape[-1]
+    if inverse:
+        yr, yi = _panel(radix)(re, -im, n)
+        return _complex(yr / n, -yi / n)
+    yr, yi = _panel(radix)(re, im, n)
+    return _complex(yr, yi)
+
+
+def rfft_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Plain version of :func:`rfft_fused`: (B, N) float32 -> (B, N/2+1)."""
+    yr, yi = _rfft_panel(x, x.shape[-1], radix)
+    return _complex(yr, yi)
+
+
+def irfft_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Plain version of :func:`irfft_fused`: (B, N/2+1) -> (B, N) float32."""
+    re, im = _planes(y)
+    return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), radix)
+
+
+def fft2_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """Plain version of :func:`fft2_fused` on (F, H, W) complex64: row
+    panel, corner turn, column panel, turn back."""
+    f, h, w = x.shape
+    re, im = _planes(x)
+    if inverse:
+        im = -im
+    panel = _panel(radix)
+    yr, yi = panel(re.reshape(f * h, w), im.reshape(f * h, w), w)
+    yr = yr.reshape(f, h, w).transpose(-1, -2).reshape(f * w, h)
+    yi = yi.reshape(f, h, w).transpose(-1, -2).reshape(f * w, h)
+    yr, yi = panel(yr, yi, h)
+    yr = yr.reshape(f, w, h).transpose(-1, -2)
+    yi = yi.reshape(f, w, h).transpose(-1, -2)
+    if inverse:
+        return _complex(yr / (h * w), -yi / (h * w))
+    return _complex(yr, yi)
+
+
+def rfft2_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Plain version of :func:`rfft2_fused`: (F, H, W) float32 ->
+    (F, H, W/2+1); row rfft panel, corner turn, column panel, turn back."""
+    f, h, w = x.shape
+    half = w // 2 + 1
+    yr, yi = _rfft_panel(x.reshape(f * h, w), w, radix)
+    yr = yr.reshape(f, h, half).transpose(-1, -2).reshape(f * half, h)
+    yi = yi.reshape(f, h, half).transpose(-1, -2).reshape(f * half, h)
+    yr, yi = _panel(radix)(yr, yi, h)
+    return _complex(yr.reshape(f, half, h).transpose(-1, -2),
+                    yi.reshape(f, half, h).transpose(-1, -2))
+
+
+def irfft2_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Plain version of :func:`irfft2_fused`: (F, H, W/2+1) -> (F, H, W)
+    float32; column inverse by conjugation, corner turn, row irfft panel."""
+    f, h, half = y.shape
+    w = 2 * (half - 1)
+    re, im = _planes(y)
+    yr = re.transpose(-1, -2).reshape(f * half, h)
+    yi = im.transpose(-1, -2).reshape(f * half, h)
+    fr, fi = _panel(radix)(yr, -yi, h)
+    yr = (fr / h).reshape(f, half, h).transpose(-1, -2).reshape(f * h, half)
+    yi = (-fi / h).reshape(f, half, h).transpose(-1, -2).reshape(f * h, half)
+    return _irfft_panel(yr, yi, w, radix).reshape(f, h, w)
+
+
+# ------------------------------ wrappers ----------------------------------
+
+
+def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} takes a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
+    if x.dim() != ndim:
+        raise ValueError(f"{name} takes a {ndim}-D tensor, got shape {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
+
+
+def _check_pow2(n: int, name: str, what: str = "length") -> None:
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"{name}: {what} must be a power of two >= 2, got {n}")
+
+
+def _check_launchable(x: torch.Tensor, name: str) -> None:
+    if x.is_conj() or x.is_neg():
+        raise ValueError(f"{name}: resolve the conjugate/negative view first")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
+    if x.data_ptr() % 8:
+        raise ValueError(f"{name} needs an 8-byte aligned tensor")
+
+
+def _launch(entry: str, name: str, x: torch.Tensor, *args) -> None:
+    """Call one C entry on ``x``'s device and current stream; raise on any
+    CUDA error the launch reports."""
+    from repro_torch.kernels._build import library  # lazy: builds at first use
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(library(), entry)(*args, x.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    LAUNCHES[name] += 1
+
+
+def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """FFT along the last axis of (B, N) complex64; one HBM round trip.
+
+    ``inverse`` conjugates on the way in and out and scales by 1/N: the
+    inverse transform on the same panel, without extra passes over HBM.
+    """
+    _check(x, "fft_fused", torch.complex64, 2)
+    b, n = x.shape
+    _check_pow2(n, "fft_fused")
+    _panel(radix)
+    if not fft_fits_smem(n):
+        raise ValueError(f"fft_fused: length-{n} rows exceed one block's shared memory")
+    if x.device.type == "cpu":
+        return fft_fused_plain(x, radix=radix, inverse=inverse)
+    _check_launchable(x, "fft_fused")
+    out = torch.empty_like(x)
+    if b:
+        rows = pick_row_tile(b, n)
+        _launch("repro_fft_fused", "fft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
+                rows, block_threads(rows * n), fft_smem_bytes(n, rows), int(inverse),
+                1.0 / n if inverse else 1.0)
+    return out
+
+
+def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Real FFT of (B, N) float32 -> (B, N/2+1) complex64, two for one."""
+    _check(x, "rfft_fused", torch.float32, 2)
+    b, n = x.shape
+    _check_pow2(n, "rfft_fused")
+    _panel(radix)
+    if not fft_fits_smem(n, real=True):
+        raise ValueError(f"rfft_fused: length-{n} rows exceed one block's shared memory")
+    if x.device.type == "cpu":
+        return rfft_fused_plain(x, radix=radix)
+    _check_launchable(x, "rfft_fused")
+    out = torch.empty((b, n // 2 + 1), dtype=torch.complex64, device=x.device)
+    if b:
+        m = n // 2
+        rows = pick_row_tile(b, m)
+        _launch("repro_rfft_fused", "rfft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
+                rows, block_threads(rows * m), rfft_smem_bytes(n, rows))
+    return out
+
+
+def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Inverse of :func:`rfft_fused`: (B, N/2+1) complex64 -> (B, N) float32.
+    The imaginary parts at DC and Nyquist are dropped, as numpy does."""
+    _check(y, "irfft_fused", torch.complex64, 2)
+    b, half = y.shape
+    n = 2 * (half - 1)
+    _check_pow2(n, "irfft_fused", "2 * (width - 1)")
+    _panel(radix)
+    if not fft_fits_smem(n, real=True):
+        raise ValueError(f"irfft_fused: length-{n} rows exceed one block's shared memory")
+    if y.device.type == "cpu":
+        return irfft_fused_plain(y, radix=radix)
+    _check_launchable(y, "irfft_fused")
+    out = torch.empty((b, n), dtype=torch.float32, device=y.device)
+    if b:
+        m = n // 2
+        rows = pick_row_tile(b, m)
+        _launch("repro_irfft_fused", "irfft_fused", y, y.data_ptr(), out.data_ptr(), b, n,
+                radix, rows, block_threads(rows * m), irfft_smem_bytes(n, rows))
+    return out
+
+
+def fft2_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """2D FFT of (F, H, W) complex64 frames, one block per frame.
+
+    Only frames that fit one block (:func:`fft2_fits_smem`); ``inverse``
+    as in :func:`fft_fused`, scaled by 1/(H W).
+    """
+    _check(x, "fft2_fused", torch.complex64, 3)
+    f, h, w = x.shape
+    _check_pow2(h, "fft2_fused", "frame height")
+    _check_pow2(w, "fft2_fused", "frame width")
+    _panel(radix)
+    if not fft2_fits_smem(h, w):
+        raise ValueError(f"fft2_fused: frame {(h, w)} exceeds one block's shared memory")
+    if x.device.type == "cpu":
+        return fft2_fused_plain(x, radix=radix, inverse=inverse)
+    _check_launchable(x, "fft2_fused")
+    out = torch.empty_like(x)
+    if f:
+        _launch("repro_fft2_fused", "fft2_fused", x, x.data_ptr(), out.data_ptr(), f, h, w,
+                radix, block_threads(h * w), fft2_smem_bytes(h, w), int(inverse),
+                1.0 / (h * w) if inverse else 1.0)
+    return out
+
+
+def rfft2_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Real 2D FFT of (F, H, W) float32 frames -> (F, H, W/2+1) complex64,
+    one block per frame. Only frames that fit one block
+    (:func:`rfft2_fits_smem`)."""
+    _check(x, "rfft2_fused", torch.float32, 3)
+    f, h, w = x.shape
+    _check_pow2(h, "rfft2_fused", "frame height")
+    _check_pow2(w, "rfft2_fused", "frame width")
+    _panel(radix)
+    if not rfft2_fits_smem(h, w):
+        raise ValueError(f"rfft2_fused: frame {(h, w)} exceeds one block's shared memory")
+    if x.device.type == "cpu":
+        return rfft2_fused_plain(x, radix=radix)
+    _check_launchable(x, "rfft2_fused")
+    out = torch.empty((f, h, w // 2 + 1), dtype=torch.complex64, device=x.device)
+    if f:
+        _launch("repro_rfft2_fused", "rfft2_fused", x, x.data_ptr(), out.data_ptr(), f, h, w,
+                radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
+    return out
+
+
+def irfft2_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Inverse of :func:`rfft2_fused`: (F, H, W/2+1) complex64 -> (F, H, W)
+    float32. The imaginary parts that the row inverse drops (DC and
+    Nyquist, after the column inverse) are dropped, as numpy does."""
+    _check(y, "irfft2_fused", torch.complex64, 3)
+    f, h, half = y.shape
+    w = 2 * (half - 1)
+    _check_pow2(h, "irfft2_fused", "frame height")
+    _check_pow2(w, "irfft2_fused", "2 * (width - 1)")
+    _panel(radix)
+    if not rfft2_fits_smem(h, w):
+        raise ValueError(f"irfft2_fused: frame {(h, w)} exceeds one block's shared memory")
+    if y.device.type == "cpu":
+        return irfft2_fused_plain(y, radix=radix)
+    _check_launchable(y, "irfft2_fused")
+    out = torch.empty((f, h, w), dtype=torch.float32, device=y.device)
+    if f:
+        _launch("repro_irfft2_fused", "irfft2_fused", y, y.data_ptr(), out.data_ptr(), f, h, w,
+                radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
+    return out

@@ -1,0 +1,172 @@
+"""Complex-in/complex-out entry points for the fused FFT kernels.
+
+Port of ``repro.kernels.ops``. Any leading batch dims are flattened into the
+kernels' row or frame batch.
+
+  fft_kernel(x)    — fused 1D FFT along the last axis (``fft_fused``)
+  fft2_kernel(x)   — 2D FFT of (..., H, W): ``fft2_fused`` when the frame
+                     fits one block, else rows, a corner turn in HBM, columns
+  rfft_kernel(x)   — real-input 1D FFT, two-for-one (``rfft_fused``)
+  irfft_kernel(y)  — its inverse (``irfft_fused``)
+  rfft2_kernel(x)  — ``rfft2_fused`` when the real frame fits one block,
+                     else ``rfft_fused`` rows, a corner turn in HBM,
+                     ``fft_fused`` columns
+  irfft2_kernel(y) — ``irfft2_fused`` when it fits, else ``fft_fused``
+                     inverse columns, a corner turn, ``irfft_fused`` rows
+
+The whole-frame-or-composition choice of the 2D entries is made on the
+frame shape alone (:func:`fft2_fits_budget`), as in the reference. Every
+pass runs a kernel; none falls back to plain code, and the planner's
+working-set gate keeps rows too long for a block away from these entry
+points.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.fft_radix2 import (
+    SMEM_BUDGET_BYTES,
+    fft2_fits_smem,
+    fft2_fused,
+    fft2_smem_bytes,
+    fft_fused,
+    irfft2_fused,
+    irfft_fused,
+    rfft2_fits_smem,
+    rfft2_fused,
+    rfft2_smem_bytes,
+    rfft_fused,
+)
+
+__all__ = [
+    "fft_kernel",
+    "fft2_kernel",
+    "rfft_kernel",
+    "irfft_kernel",
+    "rfft2_kernel",
+    "irfft2_kernel",
+    "hbm_traffic_model",
+    "fft2_working_set",
+    "fft2_fits_budget",
+    "smem_budget_bytes",
+]
+
+
+def smem_budget_bytes() -> int:
+    """Shared memory one block may use; kernels, planner and engines all
+    size against this one number."""
+    return SMEM_BUDGET_BYTES
+
+
+def fft2_working_set(h: int, w: int, *, real: bool = False) -> int:
+    """Shared memory (bytes) of one whole-frame block on an (H, W) frame:
+    the frame once (packed to H x W/2 when ``real``), plus the twiddle ROM."""
+    return rfft2_smem_bytes(h, w) if real else fft2_smem_bytes(h, w)
+
+
+def fft2_fits_budget(h: int, w: int, *, real: bool = False) -> bool:
+    """True when an (H, W) frame runs as one whole-frame block — the
+    predicate the 2D entries route on (``real`` for rfft2/irfft2)."""
+    return rfft2_fits_smem(h, w) if real else fft2_fits_smem(h, w)
+
+
+def _launchable(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a contiguous, resolved, 8-byte aligned tensor of ``dtype``."""
+    x = x.to(dtype).resolve_conj().resolve_neg().contiguous()
+    if x.data_ptr() % 8:
+        x = x.clone()
+    return x
+
+
+def _turn(z: torch.Tensor, f: int, a: int, b: int) -> torch.Tensor:
+    """Corner turn through HBM: (f*a, b) rows -> (f*b, a) rows."""
+    return z.reshape(f, a, b).transpose(-1, -2).contiguous().reshape(f * b, a)
+
+
+def fft_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """Fused-kernel FFT along the last axis (any leading batch dims)."""
+    n = x.shape[-1]
+    z = _launchable(x, torch.complex64).reshape(-1, n)
+    return fft_fused(z, radix=radix, inverse=inverse).reshape(x.shape)
+
+
+def fft2_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """2D FFT of (..., H, W): one block per frame when it fits, else the
+    row / turn / column composition on ``fft_fused``."""
+    h, w = x.shape[-2], x.shape[-1]
+    z = _launchable(x, torch.complex64).reshape(-1, h, w)
+    f = z.shape[0]
+    if fft2_fits_budget(h, w):
+        y = fft2_fused(z, radix=radix, inverse=inverse)
+    else:
+        y = fft_fused(z.reshape(f * h, w), radix=radix, inverse=inverse)
+        y = fft_fused(_turn(y, f, h, w), radix=radix, inverse=inverse)
+        y = _turn(y, f, w, h)
+    return y.reshape(x.shape)
+
+
+def rfft_kernel(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Real-input fused FFT along the last axis -> (..., N/2+1) complex."""
+    n = x.shape[-1]
+    y = rfft_fused(_launchable(x, torch.float32).reshape(-1, n), radix=radix)
+    return y.reshape(*x.shape[:-1], n // 2 + 1)
+
+
+def irfft_kernel(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Inverse of :func:`rfft_kernel`: (..., N/2+1) complex -> real (..., N)."""
+    half = y.shape[-1]
+    out = irfft_fused(_launchable(y, torch.complex64).reshape(-1, half), radix=radix)
+    return out.reshape(*y.shape[:-1], out.shape[-1])
+
+
+def rfft2_kernel(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Real 2D FFT of (..., H, W) -> (..., H, W/2+1): one ``rfft2_fused``
+    block per frame when it fits, else ``rfft_fused`` rows, a corner turn
+    in HBM, ``fft_fused`` on the F·(W/2+1) columns."""
+    h, w = x.shape[-2], x.shape[-1]
+    half = w // 2 + 1
+    z = _launchable(x, torch.float32).reshape(-1, h, w)
+    f = z.shape[0]
+    if fft2_fits_budget(h, w, real=True):
+        y = rfft2_fused(z, radix=radix)
+    else:
+        y = rfft_fused(z.reshape(f * h, w), radix=radix)
+        y = fft_fused(_turn(y, f, h, half), radix=radix)
+        y = _turn(y, f, half, h)
+    return y.reshape(*x.shape[:-1], half)
+
+
+def irfft2_kernel(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Inverse of :func:`rfft2_kernel`: (..., H, W/2+1) -> real (..., H, W):
+    one ``irfft2_fused`` block per frame when it fits, else ``fft_fused``
+    inverse on the columns, a corner turn, ``irfft_fused`` rows."""
+    h, half = y.shape[-2], y.shape[-1]
+    w = 2 * (half - 1)
+    z = _launchable(y, torch.complex64).reshape(-1, h, half)
+    f = z.shape[0]
+    if fft2_fits_budget(h, w, real=True):
+        out = irfft2_fused(z, radix=radix)
+    else:
+        z = fft_fused(_turn(z, f, h, half), radix=radix, inverse=True)
+        out = irfft_fused(_turn(z, f, half, h), radix=radix)
+    return out.reshape(*y.shape[:-1], w)
+
+
+def hbm_traffic_model(
+    batch: int, n: int, fused: bool, *, radix: int = 2, real: bool = False
+) -> int:
+    """Bytes moved between HBM and the chip (re+im f32, read+write per pass).
+
+    fused: one round trip. staged: one per stage — the paper's α = 1/log2 N
+    shows up as traffic(fused)/traffic(staged). ``radix=4`` halves the pass
+    count of the staged path; ``real`` halves every pass.
+    """
+    stages = int(math.log2(n))
+    passes = 1 if fused else math.ceil(stages / math.log2(radix))
+    per_pass = batch * n * 4 * 2 * 2
+    if real:
+        per_pass //= 2
+    return passes * per_pass

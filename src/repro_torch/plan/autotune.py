@@ -1,0 +1,162 @@
+"""FFTW-style ESTIMATE planning: an analytic model over registered engines.
+
+Port of the ESTIMATE half of ``repro.plan.autotune``; MEASURE waits.
+Candidates come from the ``repro_torch.engines`` registry, filtered by
+capability. Each candidate's time is a roofline over the paper's analytic
+counts (``butterfly_counts``: (N/2)·log2 N butterflies per transform) plus
+the engine's cost hints.
+
+On a ``"cuda"`` key the candidates are the CUDA kernels only, unless the
+caller scoped ``backend="torch"``: a tensor on the card never plans onto
+plain tensor code by itself. Where no kernel fits (rows longer than one
+block holds, 2^14 complex values), planning raises. The kernels are
+modelled from what the CUDA code does. HBM: each element is read once and
+written once per round trip — one round trip when a 2D frame fits a
+block, three when it takes the row / corner turn / column composition.
+Shared memory: every Stockham pass reads and writes the block's values
+once and ends on two barriers. The kernel's time is the larger of the two
+plus the engine's ``stage_overhead_s`` per pass, so the radix-4 panel, with
+about half the passes, wins wherever both fit, as the kernels' times on
+the card show (``chip_smoke.py``). The schedules and the CPU keep the
+reference's model: a fused kernel on a CPU tensor runs its plain version,
+modelled like its schedule plus call overheads.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+
+from repro_torch.core.fft1d import butterfly_counts
+from repro_torch.launch.roofline import HBM_BW, SMEM_BW, Roofline
+from repro_torch.plan.plan import FFTPlan, ProblemKey
+
+__all__ = ["estimate_plan", "estimate_variant_time", "variant_candidates"]
+
+# Real FLOPs per butterfly: one complex multiply (6) + two complex add/sub (4).
+_FLOPS_PER_BUTTERFLY = 10.0
+
+# Fixed cost of a kernel launch, and of a plain version's extra bookkeeping.
+_KERNEL_LAUNCH_S = 2.0e-6
+_PLAIN_OVERHEAD_S = 20.0e-6
+
+# The host sits far off the card's roofline; only the ranking matters.
+_BACKEND_SLOWDOWN = {"cpu": 40.0}
+
+_REAL_KINDS = ("rfft1d", "rfft2d")
+
+
+def variant_candidates(key: ProblemKey) -> Tuple[str, ...]:
+    """Engines the planner may consider for ``key``: the registry filtered
+    by kind × precision × backend scope × device count × shared-memory fit.
+    A ``"cuda"`` key with no backend scope considers the CUDA kernels only,
+    and raises ``NotImplementedError`` when none fits."""
+    from repro_torch.engines import iter_engines  # lazy: engines is the leaf layer
+
+    on_card = key.backend == "cuda" and not key.backends
+    names = tuple(s.name for s in iter_engines()
+                  if s.supports(key) and (s.backend == "cuda" or not on_card))
+    if not names and on_card:
+        raise NotImplementedError(
+            f"no CUDA kernel serves {key.kind!r} at shape {key.shape}: its rows exceed "
+            "one block's shared memory (2^14 complex values). A multi-block "
+            "fft_fused for longer rows is queued in ROADMAP (queue 2); scope "
+            "xfft.config(backend='torch') to run the plain schedules on the card"
+        )
+    if not names:
+        scope = f" under backend scope {key.backends}" if key.backends else ""
+        raise ValueError(
+            f"no registered engine supports kind {key.kind!r} at precision "
+            f"{key.precision!r}{scope}; registered engines: "
+            f"{tuple(s.name for s in iter_engines())}"
+        )
+    return names
+
+
+def _transform_geometry(key: ProblemKey) -> Tuple[int, int]:
+    """(n, n_transforms): modelled 1D length and 1D transforms per call."""
+    shape = key.shape
+    if key.kind in ("fft1d", "rfft1d"):
+        batch = int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) > 1 else 1
+        return shape[-1], max(batch, 1)
+    h, w = shape[-2], shape[-1]
+    lead = int(np.prod(shape[:-2], dtype=np.int64)) if len(shape) > 2 else 1
+    n = int(2 ** round((math.log2(w) + math.log2(h)) / 2))
+    return n, max(lead, 1) * (h + w)
+
+
+def _stage_passes(stages: int, radix: int) -> int:
+    if radix <= 2:
+        return stages
+    return max(1, math.ceil(stages / math.log2(radix)))
+
+
+def _panel_passes(n: int, radix: int) -> int:
+    """Stockham passes of one panel of length n, as the CUDA panel runs them
+    (radix 4: one radix-2 pass first when log2 n is odd)."""
+    stages = int(math.log2(n))
+    return stages if radix == 2 else stages // 2 + stages % 2
+
+
+def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
+    """Modelled time of the fused kernels on the card: max(HBM, shared
+    memory) over every launch the call makes, plus ``pass_s`` per
+    Stockham pass."""
+    from repro_torch.kernels.ops import fft2_fits_budget  # lazy
+
+    elem_bytes = 16.0 if key.precision == "double" else 8.0
+    elems = float(np.prod(key.shape, dtype=np.int64))
+    if key.kind in ("fft1d", "rfft1d"):
+        n = key.shape[-1]
+        passes = _panel_passes(n // 2 if key.kind == "rfft1d" else n, radix)
+        trips = 1
+    else:
+        h, w = key.shape[-2], key.shape[-1]
+        real = key.kind == "rfft2d"
+        passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
+        trips = 1 if fft2_fits_budget(h, w, real=real) else 3
+    if key.kind in _REAL_KINDS:
+        elems *= 0.5
+    hbm = 2.0 * elem_bytes * elems * trips / HBM_BW
+    smem = 2.0 * elem_bytes * elems * passes / SMEM_BW
+    return max(hbm, smem) + trips * _KERNEL_LAUNCH_S + passes * pass_s
+
+
+def estimate_variant_time(key: ProblemKey, variant: str) -> float:
+    """Modelled execution time (seconds) of one call under ``variant``."""
+    from repro_torch.engines import get_engine  # lazy: engines is the leaf layer
+
+    spec = get_engine(variant)
+    if spec.fused and key.backend == "cuda":
+        return (_fused_cuda_time(key, spec.radix, spec.cost.stage_overhead_s)
+                + spec.cost.entry_overhead_s)
+    n, n_transforms = _transform_geometry(key)
+    counts = butterfly_counts(n, proposed=True)
+    stages = counts["stages"]
+    passes = _stage_passes(stages, spec.radix)
+    flops = _FLOPS_PER_BUTTERFLY * counts["butterfly_units"] * stages * n_transforms
+    flops *= spec.cost.flop_scale
+    elem_bytes = 16.0 if key.precision == "double" else 8.0
+    traffic = spec.cost.traffic_factor * elem_bytes * n * passes * n_transforms
+    if key.kind in _REAL_KINDS:
+        flops *= 0.5
+        traffic *= 0.5
+    rl = Roofline(
+        flops_per_device=flops / key.n_devices,
+        bytes_per_device=traffic / key.n_devices,
+        collective_bytes_per_device=0.0,
+    )
+    t = rl.step_time_s * _BACKEND_SLOWDOWN.get(key.backend, 1.0)
+    if spec.fused:
+        t += _KERNEL_LAUNCH_S + _PLAIN_OVERHEAD_S
+    t += passes * spec.cost.stage_overhead_s
+    return t + spec.cost.entry_overhead_s
+
+
+def estimate_plan(key: ProblemKey) -> FFTPlan:
+    """Analytic (FFTW ``ESTIMATE``) plan: no device work."""
+    times = {v: estimate_variant_time(key, v) for v in variant_candidates(key)}
+    variant = min(times, key=times.get)
+    return FFTPlan(key=key, variant=variant, mode="estimate", est_time_s=times[variant])

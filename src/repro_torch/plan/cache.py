@@ -1,0 +1,148 @@
+"""Plan cache: an in-memory map with versioned JSON persistence.
+
+Port of ``repro.plan.cache``. Files use the reference's wisdom format
+(``file_format`` 1, plan schema v5), so a file either package saves loads
+in the other. Saves are atomic: a temp file in the same directory, fsynced,
+then renamed over the target. Every load is accounted for in a
+:class:`LoadReport`. Events, fault seams and read-only degradation wait
+for the ``obs`` and ``resilience`` slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+from typing import Dict, Optional, Tuple
+
+from repro_torch.plan.plan import PLAN_SCHEMA_VERSION, FFTPlan, ProblemKey
+
+__all__ = ["LoadReport", "PlanCache", "default_cache", "reset_default_cache"]
+
+_FILE_FORMAT = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LoadReport:
+    """Accounting for one :meth:`PlanCache.load`.
+
+    kept         — entries merged into the cache.
+    stale_schema — dropped: cache-key version prefix != current schema.
+    malformed    — dropped: the plan failed to deserialise (this includes
+                   an engine the port has not registered).
+    key_mismatch — dropped: stored key and plan's own key disagree.
+    file_error   — the file was unreadable; ``None`` when it parsed.
+    """
+
+    kept: int = 0
+    stale_schema: int = 0
+    malformed: int = 0
+    key_mismatch: int = 0
+    file_error: Optional[str] = None
+
+    @property
+    def dropped(self) -> int:
+        return self.stale_schema + self.malformed + self.key_mismatch
+
+
+class PlanCache:
+    """Maps ``ProblemKey.cache_key()`` strings to :class:`FFTPlan`."""
+
+    def __init__(self, path: Optional[str] = None):
+        self._plans: Dict[str, FFTPlan] = {}
+        self.path = path
+        self.hits = 0
+        self.misses = 0
+        if path and os.path.exists(path):
+            self.load(path)
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+    def get(self, key: ProblemKey) -> Optional[FFTPlan]:
+        plan = self._plans.get(key.cache_key())
+        if plan is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return plan
+
+    def put(self, plan: FFTPlan) -> FFTPlan:
+        self._plans[plan.key.cache_key()] = plan
+        return plan
+
+    def entries(self) -> Tuple[Tuple[str, FFTPlan], ...]:
+        """(cache_key, plan) pairs, sorted by key."""
+        return tuple(sorted(self._plans.items()))
+
+    def save(self, path: Optional[str] = None) -> str:
+        """Atomically write every plan to ``path`` (default ``self.path``)."""
+        path = path or self.path
+        if not path:
+            raise ValueError("PlanCache.save needs a path (none configured)")
+        payload = {
+            "file_format": _FILE_FORMAT,
+            "plan_schema_version": PLAN_SCHEMA_VERSION,
+            "plans": {k: p.to_dict() for k, p in self._plans.items()},
+        }
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f, indent=1, sort_keys=True)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return path
+
+    def load(self, path: Optional[str] = None) -> LoadReport:
+        """Merge plans from ``path``; returns the kept/dropped accounting."""
+        path = path or self.path
+        if not path:
+            raise ValueError("PlanCache.load needs a path (none configured)")
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            return LoadReport(file_error=str(e))
+        prefix = f"v{PLAN_SCHEMA_VERSION}|"
+        kept = stale = malformed = mismatch = 0
+        for key, plan_dict in payload.get("plans", {}).items():
+            if not key.startswith(prefix):
+                stale += 1
+                continue
+            try:
+                plan = FFTPlan.from_dict(plan_dict)
+            except (KeyError, TypeError, ValueError):
+                malformed += 1
+                continue
+            if plan.key.cache_key() != key:
+                mismatch += 1
+                continue
+            self._plans[key] = plan
+            kept += 1
+        return LoadReport(
+            kept=kept, stale_schema=stale, malformed=malformed, key_mismatch=mismatch
+        )
+
+
+_DEFAULT: Optional[PlanCache] = None
+
+
+def default_cache() -> PlanCache:
+    """The process-wide, memory-only cache ``resolve_call`` uses by default."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = PlanCache()
+    return _DEFAULT
+
+
+def reset_default_cache() -> None:
+    """Drop the process-wide cache."""
+    global _DEFAULT
+    _DEFAULT = None

@@ -1,0 +1,58 @@
+"""The port stands alone: no JAX, no reference package, no library FFT.
+
+``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor ``repro``;
+the package calls neither ``torch.fft`` nor ``torch.compile`` (the smoke
+script may time ``torch.fft`` as its yardstick); and non-tensor input is
+sent to the card, so it raises where CUDA is absent.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+IMPORTS_REFERENCE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+LIBRARY_CALLS = re.compile(r"torch\.(fft|compile)\b|from\s+torch\s+import\s+(fft|compile)\b")
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = (
+        "import sys; import repro_torch; import repro_torch.xfft; "
+        "import repro_torch.kernels.ops; "
+        "bad = [m for m in sys.modules if m in ('jax', 'repro') "
+        "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_reference(path):
+    text = path.read_text()
+    assert not IMPORTS_REFERENCE.search(text)
+    if path.name != "chip_smoke.py":
+        assert not LIBRARY_CALLS.search(text)
+    else:
+        assert "torch.compile" not in text
+
+
+def test_numpy_input_goes_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where CUDA is absent")
+    from repro_torch import xfft
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xfft.fft2(np.zeros((4, 8, 8), np.complex64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xfft.rfft([1.0, 2.0, 3.0, 4.0])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xfft.fftfreq(8)

@@ -1,0 +1,195 @@
+"""repro_torch.plan: ESTIMATE on the card's keys, and wisdom carried across.
+
+The system has no weights; the state it carries is wisdom, the plan cache
+file. Files written by either package must load in the other with equal
+keys and variants. No card is needed: keys name one.
+"""
+
+import json
+import os
+
+import pytest
+import torch
+
+from repro.plan import autotune as jautotune
+from repro.plan import cache as jcache
+from repro.plan import plan as jplan
+from repro_torch import xfft
+from repro_torch.engines import get_engine, has_engine, iter_engines
+from repro_torch.plan import PlanCache, ProblemKey, estimate_plan, resolve_call
+from repro_torch.plan.autotune import variant_candidates
+from repro_torch.plan.plan import FFTPlan
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+SMOKE_KEYS = [
+    ("fft2d", (512, 128, 128), "complex64"),
+    ("fft2d", (16, 1024, 1024), "complex64"),
+    ("rfft2d", (512, 128, 128), "float32"),
+    ("rfft2d", (32, 512, 512), "float32"),
+    ("fft1d", (8192, 2048), "complex64"),
+    ("rfft1d", (8192, 2048), "float32"),
+]
+
+
+@pytest.mark.parametrize("kind,shape,dtype", SMOKE_KEYS)
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_estimate_picks_a_fused_kernel_on_the_card(kind, shape, dtype, direction):
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype=dtype, direction=direction)
+    assert estimate_plan(key).variant in ("fused", "fused_r4")
+
+
+@pytest.mark.parametrize("kind,shape,dtype", SMOKE_KEYS)
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_estimate_picks_the_radix4_kernel_on_the_card(kind, shape, dtype, direction):
+    """The radix-4 panel has about half the Stockham passes of the radix-2
+    one for the same HBM bytes, and runs in about half the time on the
+    card; ESTIMATE must rank it first wherever both fit."""
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype=dtype, direction=direction)
+    assert estimate_plan(key).variant == "fused_r4"
+
+
+@pytest.mark.parametrize("kind,shape", [("fft1d", (1, 2)), ("fft1d", (3, 8)),
+                                        ("fft1d", (2, 16)), ("fft2d", (1, 2, 4)),
+                                        ("rfft1d", (1, 4)), ("rfft2d", (1, 2, 2))])
+def test_tiny_transforms_on_the_card_plan_onto_a_kernel(kind, shape):
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype="complex64")
+    assert set(variant_candidates(key)) == {"fused", "fused_r4"}
+    assert estimate_plan(key).variant in ("fused", "fused_r4")
+
+
+def test_radix4_panel_wins_where_radix2_is_bound_by_shared_memory():
+    key = ProblemKey(kind="fft2d", backend="cuda", device_kind=H100,
+                     shape=(512, 128, 128), dtype="complex64")
+    assert estimate_plan(key).variant == "fused_r4"
+
+
+@pytest.mark.parametrize("kind,n", [("fft1d", 32768), ("rfft1d", 32768), ("fft2d", 32768)])
+def test_rows_over_one_block_exclude_the_kernels(kind, n):
+    shape = (4, n) if kind != "fft2d" else (2, n)
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype="complex64")
+    with pytest.raises(NotImplementedError, match="backend='torch'"):
+        variant_candidates(key)
+    scoped = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                        dtype="complex64", backends=("torch",))
+    names = variant_candidates(scoped)
+    assert "fused" not in names and "fused_r4" not in names
+    assert "stockham" in names
+
+
+def test_scoped_backend_restricts_candidates():
+    with xfft.config(backend="torch"):
+        plan = resolve_call("fft2d", (4, 64, 64), torch.device("cpu"), cache=PlanCache())
+    assert plan.variant in ("looped", "stockham", "radix4")
+    assert plan.key.backends == ("torch",)
+
+
+def test_resolve_call_caches_estimates_and_never_forced_plans():
+    cache = PlanCache()
+    cpu = torch.device("cpu")
+    first = resolve_call("fft1d", (8, 64), cpu, cache=cache)
+    assert resolve_call("fft1d", (8, 64), cpu, cache=cache) == first
+    assert (cache.hits, cache.misses) == (1, 1)
+    other = "fused" if first.variant != "fused" else "stockham"
+    with xfft.config(variant=other):
+        forced = resolve_call("fft1d", (8, 64), cpu, cache=cache)
+    assert forced.variant == other and forced.mode == "forced"
+    assert cache.get(first.key).variant == first.variant
+
+
+def test_measure_and_double_are_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        xfft.config(mode="measure")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        resolve_call("fft1d", (8, 64), torch.device("cpu"), cache=PlanCache(),
+                     mode="measure")
+    with xfft.config(mode="estimate", precision="single"):
+        assert xfft.get_config() == xfft.XFFTConfig()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        xfft.config(precision="double")
+    with pytest.raises(ValueError):
+        xfft.config(variant="reference_x64")
+
+
+def test_unrolled_names_the_looped_engine_and_is_ranked_once():
+    assert has_engine("unrolled") and get_engine("unrolled") is get_engine("looped")
+    assert "unrolled" not in [s.name for s in iter_engines()]
+    with xfft.config(variant="unrolled"):
+        plan = resolve_call("fft1d", (2, 8), torch.device("cpu"), cache=PlanCache())
+    assert plan.variant == "unrolled" and plan.mode == "forced"
+
+
+def test_cache_keys_match_reference():
+    fields = dict(kind="rfft2d", backend="cpu", device_kind="cpu", shape=(3, 16, 32),
+                  dtype="float32", direction="inv")
+    assert ProblemKey(**fields).cache_key() == jplan.ProblemKey(**fields).cache_key()
+
+
+def _jax_keys():
+    return [
+        jplan.ProblemKey(kind=kind, backend="cpu", device_kind="cpu", shape=shape,
+                         dtype=dtype, direction=direction)
+        for kind, shape, dtype in [("fft2d", (4, 64, 64), "complex64"),
+                                   ("fft1d", (2, 8), "complex64"),
+                                   ("rfft2d", (2, 256, 256), "float32"),
+                                   ("rfft1d", (16, 1024), "float32")]
+        for direction in ("fwd", "inv")
+    ]
+
+
+def test_wisdom_written_by_reference_loads_in_port(tmp_path):
+    path = str(tmp_path / "wisdom.json")
+    ref = jcache.PlanCache()
+    for key in _jax_keys():
+        ref.put(jautotune.estimate_plan(key))
+    ref.save(path)
+    port = PlanCache(path)
+    assert len(port) == len(ref)
+    assert [(k, p.variant) for k, p in port.entries()] == \
+        [(k, p.variant) for k, p in ref.entries()]
+
+
+def test_wisdom_written_by_port_loads_in_reference(tmp_path):
+    path = str(tmp_path / "wisdom.json")
+    port = PlanCache()
+    for key in _jax_keys():
+        port.put(estimate_plan(ProblemKey.from_dict(key.to_dict())))
+    port.put(estimate_plan(ProblemKey(kind="fft2d", backend="cuda", device_kind=H100,
+                                      shape=(512, 128, 128), dtype="complex64")))
+    port.save(path)
+    assert [p.name for p in tmp_path.iterdir()] == ["wisdom.json"]  # no temp file left
+    with open(path) as f:
+        assert json.load(f)["plan_schema_version"] == 5
+    ref = jcache.PlanCache()
+    report = ref.load(path)
+    assert report.kept == len(port) and report.dropped == 0
+    assert [(k, p.variant) for k, p in ref.entries()] == \
+        [(k, p.variant) for k, p in port.entries()]
+
+
+def test_engines_the_port_lacks_are_dropped_and_counted(tmp_path):
+    path = str(tmp_path / "wisdom.json")
+    ref = jcache.PlanCache()
+    key = jplan.ProblemKey(kind="fft1d", backend="cpu", device_kind="cpu", shape=(2, 8),
+                           dtype="complex64")
+    ref.put(jplan.FFTPlan(key=key, variant="stockham"))
+    ref.put(jplan.FFTPlan(key=jplan.ProblemKey(kind="fft1d", backend="cpu",
+                                               device_kind="cpu", shape=(2, 16),
+                                               dtype="complex64"),
+                          variant="reference_x64"))
+    ref.save(path)
+    port = PlanCache()
+    report = port.load(path)
+    assert (report.kept, report.malformed) == (1, 1)
+    assert port.get(ProblemKey.from_dict(key.to_dict())).variant == "stockham"
+    assert not os.path.exists(path + ".tmp")
+
+
+def test_plan_round_trips_through_dict():
+    plan = estimate_plan(ProblemKey(kind="fft1d", backend="cuda", device_kind=H100,
+                                    shape=(8192, 2048), dtype="complex64"))
+    assert FFTPlan.from_dict(plan.to_dict()) == plan
