@@ -15,6 +15,19 @@ Phases, each printing one JSON line:
              against the host's cos/sin, and FMA contraction over up to 11
              stages); with the kernel's, the plain version's and the
              ``torch.fft`` yardstick's median times and the HBM bound;
+   kernel  — the same for butterfly_stage on (8192, 2048) planes at every
+             stage, flash_attention_fwd at llama3.2-3b's attention shape
+             (24 heads of 128, 4096 tokens, causal, k/v repeated from 8 kv
+             heads) and mixtral-8x22b's sliding window (4096 of 8192 tokens,
+             8 of its 48 heads), both to 2e-5, and slstm_scan at
+             xlstm-350m's width (D 1024, 4 heads, batch 8, 4096 steps,
+             m0 = -inf) to 1e-4 on hs and the final state, over every
+             window of 16 steps from a common state (the recurrence is
+             chaotic at the reference's init: two float32 runs part after
+             about 100 steps; at steps 32 and 64 of the full run the kernel
+             may leave the plain version by at most 4x the plain version's
+             own distance from float64); with the library yardstick
+             (``scaled_dot_product_attention``) where one exists;
 3. request — requests through ``repro_torch.xfft`` as the streaming service
              of ``examples/serve_fft2d.py`` answers them (drifting-chirp
              frames plus noise, one request per batch). The launch counts
@@ -22,6 +35,16 @@ Phases, each printing one JSON line:
              must raise the counts of the kernels it should use, agree with
              ``torch.fft`` to 2e-5 relative (round trips to 1e-4), and find
              the same dominant bins.
+4. path    — the other entry points of ``repro_torch.kernels``, with the
+             counts set to 0 just before and read just after:
+             ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
+             exactly 11 times and agree with ``torch.fft`` to 2e-5;
+             ``flash_attention_fwd`` on the llama shape must launch once and
+             agree with ``mha_reference`` to 2e-5; ``slstm_scan`` on
+             ``xg = x @ wx``, with weights carried across by
+             ``slstm_weights_from_jax`` from seeded numpy, must launch once
+             and repeat the kernel phase's result. Then the staged against
+             the fused FFT's time, beside ``hbm_traffic_model``'s ratio.
 
 Then one JSON line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -42,6 +65,14 @@ sys.path.insert(0, str(ROOT / "src"))
 TOL_KERNEL = 2e-5
 TOL_REQUEST = 2e-5
 TOL_ROUND_TRIP = 1e-4
+TOL_SLSTM = 1e-4
+SLSTM_WINDOW = 16  # steps from a common state over which slstm_scan is held
+# Steps of the full-length slstm_scan launch at which the kernel's distance
+# from the plain version is held to this factor times the plain version's
+# distance from float64 (both still small there; later the two float32 runs
+# part at O(1), whatever the kernel).
+SLSTM_DIVERGENCE_STEPS = (32, 64)
+SLSTM_DIVERGENCE_FACTOR = 4.0
 
 PEAK_FLOPS_FP32 = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
@@ -141,7 +172,31 @@ KERNELS = {
                     "src/repro/kernels/fft_radix2.py:452"),
     "irfft2_fused": ("src/repro_torch/kernels/csrc/rfft2_fused.cu",
                      "src/repro/kernels/fft_radix2.py:486"),
+    "butterfly_stage": ("src/repro_torch/kernels/csrc/butterfly.cu",
+                        "src/repro/kernels/butterfly.py:64"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:81"),
+    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
+                   "src/repro/kernels/slstm_scan.py:86"),
 }
+
+# llama3.2-3b attention (src/repro/configs/llama3_2_3b.py): 24 query heads
+# of 3072/24 = 128, 8 kv heads, one sequence of 4096 tokens, causal.
+LLAMA = {"heads": 24, "kv_heads": 8, "seq": 4096, "head_dim": 128}
+# mixtral-8x22b (src/repro/configs/mixtral_8x22b.py): head 6144/48 = 128,
+# sliding window 4096; 8 of the 48 heads, 8192 tokens, causal.
+MIXTRAL = {"heads": 8, "seq": 8192, "head_dim": 128, "window": 4096}
+# xlstm-350m (src/repro/configs/xlstm_350m.py): D 1024, 4 sLSTM heads.
+XLSTM = {"batch": 8, "seq": 4096, "d": 1024}
+STAGED = (8192, 2048)
+
+
+def bound(card: str, nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    float32 operations over the card's rate outside the tensor cores."""
+    bytes_ms = nbytes / hbm_bandwidth(card) * 1e3
+    ops_ms = flops / PEAK_FLOPS_FP32 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def kernel_phase(torch, k, card: str):
@@ -173,7 +228,6 @@ def kernel_phase(torch, k, card: str):
                          lambda x: torch.fft.irfft2(x),
                          8 * 512 * 128 * 65 + 4 * 512 * 128 * 128, 2.5 * 512 * 128 * 128 * 14),
     }
-    bw = hbm_bandwidth(card)
     rows = {}
     for name, (x, kernel, plain, library, nbytes, flops) in cases.items():
         by_radix = {}
@@ -192,8 +246,7 @@ def kernel_phase(torch, k, card: str):
                 raise AssertionError(f"{name} radix {radix}: rel err {err} > {TOL_KERNEL}")
             emit({"phase": "kernel", "kernel": name, "radix": radix,
                   "shape": list(x.shape), **by_radix[str(radix)]})
-        bytes_ms = nbytes / bw * 1e3
-        ops_ms = flops / PEAK_FLOPS_FP32 * 1e3
+        bound_ms, bound_by = bound(card, nbytes, flops)
         r4 = by_radix["4"]
         rows[name] = {
             "name": name,
@@ -205,8 +258,8 @@ def kernel_phase(torch, k, card: str):
             "rel_err": max(v["rel_err"] for v in by_radix.values()),
             "ms": r4["ms"],
             "plain_ms": r4["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": time_ms(lambda: library(x)),
             "shape": list(x.shape),
             "by_radix": by_radix,
@@ -214,6 +267,288 @@ def kernel_phase(torch, k, card: str):
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks keep: the work flash attention must do."""
+    total = 0
+    for q in range(sq):
+        lo = 0 if window is None else max(0, q - window + 1)
+        hi = min(q, sk - 1) if causal else sk - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def slstm_inputs(torch, dev):
+    """xlstm-350m sLSTM weights made as the reference's ``init_params``
+    makes ``slstm_skel`` (normal, std = scale / sqrt(shape[0]), zero bias)
+    from seeded numpy, carried across by ``slstm_weights_from_jax``; inputs
+    x ~ 0.5 N(0, 1) and the gate pre-activations xg = x @ wx."""
+    import numpy as np
+
+    from repro_torch.kernels.slstm_scan import slstm_state, slstm_weights_from_jax
+
+    b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+    rng = np.random.default_rng(14)
+    p = {"wx": (rng.standard_normal((d, 4 * d)) / np.sqrt(d)).astype(np.float32),
+         "wr": (rng.standard_normal((4, d // 4, d)) * 0.5 / 2.0).astype(np.float32),
+         "bias": np.zeros(4 * d, np.float32)}
+    w = slstm_weights_from_jax(p, device=dev)
+    x = torch.from_numpy((rng.standard_normal((b, l, d)) * 0.5).astype(np.float32)).to(dev)
+    state = slstm_state(b, d, device=dev)
+    return x @ w["wx"], w, (state["c"], state["n"], state["h"], state["m"])
+
+
+def llama_qkv(torch, dev, gen):
+    """q (24, S, 128) and k/v repeated from 8 kv heads to the 24 query heads."""
+    h, kvh, s, d = LLAMA["heads"], LLAMA["kv_heads"], LLAMA["seq"], LLAMA["head_dim"]
+    q = torch.randn(h, s, d, generator=gen, device=dev)
+    kk = torch.randn(kvh, s, d, generator=gen, device=dev).repeat_interleave(h // kvh, 0)
+    v = torch.randn(kvh, s, d, generator=gen, device=dev).repeat_interleave(h // kvh, 0)
+    return q, kk, v
+
+
+def model_kernel_phase(torch, card: str):
+    """butterfly_stage, flash_attention_fwd and slstm_scan against their
+    plain versions at full width; returns the per-kernel rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain, slstm_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+
+    def row(name, err, rel, ms, plain_ms, nbytes, flops, library_ms, **extra):
+        bound_ms, bound_by = bound(card, nbytes, flops)
+        rows[name] = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+                      "replaces": KERNELS[name][1], "launches": 0, "max_abs_err": err,
+                      "rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms, **extra}
+
+    # butterfly_stage: one stage of (8192, 2048), every stage.
+    b, n = STAGED
+    re = torch.randn(b, n, generator=gen, device=dev)
+    im = torch.randn(b, n, generator=gen, device=dev)
+    stages = []
+    for stage in range(n.bit_length() - 1):
+        got = bf.butterfly_stage(re, im, stage=stage)
+        ref = bf.butterfly_stage_plain(re, im, stage=stage)
+        torch.cuda.synchronize()
+        err = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]))
+        rel = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        line = {"phase": "kernel", "kernel": "butterfly_stage", "stage": stage,
+                "shape": [b, n], "rel_err": rel, "max_abs_err": err,
+                "ms": time_ms(lambda: bf.butterfly_stage(re, im, stage=stage)),
+                "plain_ms": time_ms(lambda: bf.butterfly_stage_plain(re, im, stage=stage),
+                                    reps=2, batches=3)}
+        emit(line)
+        if not rel <= TOL_KERNEL:
+            raise AssertionError(f"butterfly_stage stage {stage}: rel err {rel} > {TOL_KERNEL}")
+        stages.append(line)
+    row("butterfly_stage", max(x["max_abs_err"] for x in stages),
+        max(x["rel_err"] for x in stages), statistics.mean(x["ms"] for x in stages),
+        statistics.mean(x["plain_ms"] for x in stages), 16 * b * n, 5.0 * b * n, None,
+        shape=[b, n], per="stage", ms_by_stage=[x["ms"] for x in stages])
+    del re, im, got, ref
+    torch.cuda.empty_cache()
+
+    # flash_attention_fwd: llama3.2-3b causal, mixtral-8x22b sliding window.
+    s, d = MIXTRAL["seq"], MIXTRAL["head_dim"]
+    pos = torch.arange(s, device=dev)
+    swa = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - MIXTRAL["window"])
+    cases = [
+        ("llama3.2-3b", *llama_qkv(torch, dev, gen), None,
+         lambda q, kk, v: F.scaled_dot_product_attention(q[None], kk[None], v[None],
+                                                         is_causal=True)),
+        ("mixtral-8x22b swa",
+         *(torch.randn(MIXTRAL["heads"], s, d, generator=gen, device=dev) for _ in range(3)),
+         MIXTRAL["window"],
+         lambda q, kk, v: F.scaled_dot_product_attention(q[None], kk[None], v[None],
+                                                         attn_mask=swa)),
+    ]
+    by_case = {}
+    for label, q, kk, v, window, library in cases:
+        got = fa.flash_attention_fwd(q, kk, v, causal=True, window=window)
+        ref = fa.flash_attention_plain(q, kk, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        bh, sq, dh = q.shape
+        pairs = attention_pairs(sq, kk.shape[1], True, window)
+        line = {"phase": "kernel", "kernel": "flash_attention_fwd", "case": label,
+                "shape": list(q.shape), "window": window, "rel_err": rel_err(got, ref),
+                "max_abs_err": max_abs(got, ref),
+                "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=True,
+                                                             window=window), reps=5, batches=3),
+                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=True,
+                                                                     window=window),
+                                    reps=2, batches=3),
+                "library_ms": time_ms(lambda: library(q, kk, v), reps=5, batches=3),
+                "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
+                "flops": bh * pairs * 2.0 * (dh + v.shape[2])}
+        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
+        emit(line)
+        if not line["rel_err"] <= TOL_KERNEL:
+            raise AssertionError(f"flash_attention_fwd {label}: rel err {line['rel_err']}")
+        by_case[label] = line
+        del got, ref
+    main = by_case["llama3.2-3b"]
+    row("flash_attention_fwd", max(x["max_abs_err"] for x in by_case.values()),
+        max(x["rel_err"] for x in by_case.values()), main["ms"], main["plain_ms"],
+        main["bytes"], main["flops"], main["library_ms"], shape=main["shape"],
+        by_case={lb: {kx: x[kx] for kx in ("shape", "window", "rel_err", "ms", "plain_ms",
+                                             "library_ms", "bound_ms", "bound_by")}
+                 for lb, x in by_case.items()})
+    del cases, q, kk, v, swa
+    torch.cuda.empty_cache()
+
+    # slstm_scan at xlstm-350m width. At the reference's init the
+    # recurrence is chaotic: a rounding difference doubles about every 8
+    # steps, so after ~100 steps two float32 runs (the plain version and
+    # float64 too) disagree at O(1). The kernel is therefore held to the
+    # plain version over windows of SLSTM_WINDOW steps that both start from
+    # the plain version's state, covering all 4096 steps and each window's
+    # final state; the window is short enough that the plain version itself
+    # stays within the tolerance of a float64 run (checked below). The
+    # full-length launch is checked for finiteness, |h| <= 1, and against
+    # the first window bit for bit; past that window, at the steps of
+    # SLSTM_DIVERGENCE_STEPS, it may leave the plain version by at most
+    # SLSTM_DIVERGENCE_FACTOR times the plain version's own distance from
+    # float64 at the same step.
+    xg, w, state = slstm_inputs(torch, dev)
+    b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+    hs, final = slstm_scan(xg, w["wr"], w["bias"], *state)
+    ref_hs, _ = slstm_scan_plain(xg, w["wr"], w["bias"], *state)
+    w64 = {"wr": w["wr"].double(), "bias": w["bias"].double()}
+
+    def plain64(seg, start):
+        st = dict(zip("cnhm", (x.double() for x in start)))
+        out = []
+        for t in range(seg.shape[1]):
+            st = slstm_step(w64, st, seg[:, t].double(), d)
+            out.append(st["h"])
+        return torch.stack(out, 1), tuple(st[nm] for nm in "cnhm")
+
+    hs64, _ = plain64(xg, state)
+    divergence = {str(t): {"kernel_vs_plain": max_abs(hs[:, t - 1], ref_hs[:, t - 1]),
+                           "plain_vs_float64": max_abs(ref_hs[:, t - 1].double(),
+                                                       hs64[:, t - 1]),
+                           "kernel_vs_float64": max_abs(hs[:, t - 1].double(),
+                                                        hs64[:, t - 1])}
+                  for t in (1, 4, 16, 32, 64, 128, 256, 1024, 4096) if t <= l}
+    del ref_hs, hs64
+    errs = dict.fromkeys(("hs", "c", "n", "h", "m"), 0.0)
+    plain_errs = dict(errs)
+    abs_err = 0.0
+    start = state
+    for t0 in range(0, l, SLSTM_WINDOW):
+        seg = xg[:, t0:t0 + SLSTM_WINDOW].contiguous()
+        kh, kf = slstm_scan(seg, w["wr"], w["bias"], *start, chunk=SLSTM_WINDOW)
+        ph, pf = slstm_scan_plain(seg, w["wr"], w["bias"], *start)
+        qh, qf = plain64(seg, start)
+        if t0 == 0 and not torch.equal(kh, hs[:, :SLSTM_WINDOW]):
+            raise AssertionError("slstm_scan: the full-length launch and its first window differ")
+        for nm, got, ref, ref64 in zip(errs, (kh, *kf), (ph, *pf), (qh, *qf)):
+            errs[nm] = max(errs[nm], rel_err(got, ref))
+            plain_errs[nm] = max(plain_errs[nm], rel_err(ref, ref64))
+            abs_err = max(abs_err, max_abs(got, ref))
+        start = pf
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(hs).all()) and all(bool(torch.isfinite(x).all())
+                                                    for x in final)
+    h_max = float(hs.abs().max())
+    line = {"phase": "kernel", "kernel": "slstm_scan", "shape": list(xg.shape),
+            "window": SLSTM_WINDOW, "rel_err": errs, "plain_vs_float64_rel_err": plain_errs,
+            "max_abs_err": abs_err, "finite": finite, "max_abs_h": h_max,
+            "divergence_full_run": divergence,
+            "ms": time_ms(lambda: slstm_scan(xg, w["wr"], w["bias"], *state),
+                          reps=2, batches=3),
+            "plain_ms": time_ms(lambda: slstm_scan_plain(xg, w["wr"], w["bias"], *state),
+                                reps=1, batches=3)}
+    emit(line)
+    if not finite or not h_max <= 1.0 or not max(errs.values()) <= TOL_SLSTM:
+        raise AssertionError(f"slstm_scan: window rel errs {errs} (tolerance {TOL_SLSTM}), "
+                             f"finite {finite}, max |h| {h_max}")
+    for t in SLSTM_DIVERGENCE_STEPS:
+        at = divergence[str(t)]
+        if not at["kernel_vs_plain"] <= SLSTM_DIVERGENCE_FACTOR * at["plain_vs_float64"]:
+            raise AssertionError(f"slstm_scan: at step {t} of the full launch the kernel leaves "
+                                 f"the plain version by {at['kernel_vs_plain']}, more than "
+                                 f"{SLSTM_DIVERGENCE_FACTOR} x the plain version's "
+                                 f"{at['plain_vs_float64']} from float64")
+    if not max(plain_errs.values()) <= TOL_SLSTM:
+        raise AssertionError(f"slstm_scan: the plain version leaves float64 by {plain_errs} "
+                             f"within {SLSTM_WINDOW} steps; the window is too long")
+    nbytes = 4 * (xg.numel() + w["wr"].numel() + w["bias"].numel() + 4 * b * d
+                  + hs.numel() + 4 * b * d)
+    row("slstm_scan", abs_err, max(errs.values()), line["ms"], line["plain_ms"], nbytes,
+        2.0 * b * l * d * d, None, shape=list(xg.shape), window=SLSTM_WINDOW,
+        rel_err_by_output=errs)
+    return rows, hs
+
+
+def path_phase(torch, card: str, slstm_hs):
+    """The other entry points of ``repro_torch.kernels`` through the counts;
+    returns the launch counts of the run."""
+    from repro_torch.kernels import (
+        fft_kernel,
+        fft_staged,
+        flash_attention_fwd,
+        hbm_traffic_model,
+        mha_reference,
+        slstm_scan,
+    )
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.complex(torch.randn(*STAGED, generator=gen, device=dev),
+                      torch.randn(*STAGED, generator=gen, device=dev))
+    q, kk, v = llama_qkv(torch, dev, gen)
+    xg, w, state = slstm_inputs(torch, dev)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    spec = fft_staged(x)
+    staged_launches = LAUNCHES["butterfly_stage"]
+    attn = flash_attention_fwd(q, kk, v, causal=True)
+    hs, _ = slstm_scan(xg, w["wr"], w["bias"], *state)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+
+    if staged_launches != STAGED[1].bit_length() - 1:
+        raise AssertionError(f"fft_staged launched butterfly_stage {staged_launches} times")
+    for name in ("flash_attention_fwd", "slstm_scan"):
+        if launches[name] != 1:
+            raise AssertionError(f"{name} launched {launches[name]} times, not once")
+    fft_err = rel_err(spec, torch.fft.fft(x))
+    attn_ok = tuple(attn.shape) == tuple(q.shape) and bool(torch.isfinite(attn).all())
+    attn_err = rel_err(attn, mha_reference(q, kk, v, causal=True))
+    same = bool(torch.equal(hs, slstm_hs))
+    emit({"phase": "path", "launches": launches, "fft_staged_rel_err": fft_err,
+          "flash_rel_err_vs_mha_reference": attn_err, "flash_finite": attn_ok,
+          "slstm_repeats_kernel_phase": same})
+    if not fft_err <= TOL_REQUEST:
+        raise AssertionError(f"fft_staged: rel err {fft_err} > {TOL_REQUEST}")
+    if not attn_ok or not attn_err <= TOL_KERNEL:
+        raise AssertionError(f"flash_attention_fwd: rel err {attn_err}, finite {attn_ok}")
+    if not same:
+        raise AssertionError("slstm_scan gave another result on the same inputs")
+    del attn, q, kk, v, hs, xg
+    torch.cuda.empty_cache()
+
+    b, n = STAGED
+    staged_ms = time_ms(lambda: fft_staged(x))
+    fused_ms = {r: time_ms(lambda: fft_kernel(x, radix=r)) for r in (2, 4)}
+    model = {str(f): hbm_traffic_model(b, n, f) for f in (True, False)}
+    emit({"phase": "path", "staged_vs_fused": {
+        "shape": [b, n], "card": card, "fft_staged_ms": staged_ms,
+        "fft_kernel_r2_ms": fused_ms[2], "fft_kernel_r4_ms": fused_ms[4],
+        "measured_ratio_r2": staged_ms / fused_ms[2], "measured_ratio_r4": staged_ms / fused_ms[4],
+        "hbm_traffic_model_bytes": {"fused": model["True"], "staged": model["False"]},
+        "modelled_ratio": model["False"] / model["True"]}})
+    return launches
 
 
 def request_phase(torch, k, xfft, resolve_call):
@@ -361,12 +696,16 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
     rows = kernel_phase(torch, k, card)
+    model_rows, slstm_hs = model_kernel_phase(torch, card)
+    rows.update(model_rows)
     launches = request_phase(torch, k, xfft, resolve_call)
+    launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
+                     if name in model_rows})
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] < 1:

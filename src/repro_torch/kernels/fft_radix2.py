@@ -18,7 +18,8 @@ live here:
 * **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
   ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``. A CPU tensor takes the plain version. A CUDA tensor
   launches the kernel or raises; nothing falls back. Each launch adds one
-  to ``LAUNCHES[name]``.
+  to ``LAUNCHES[name]`` (the registry of ``kernels._launch``, shared by
+  every wrapper of the port).
 
 The wrappers take complex64 tensors (``torch.view_as_real`` layout, re/im
 interleaved) where the Pallas ABI took separate planes: on the card the
@@ -28,9 +29,12 @@ interleaved pair is one 8-byte load.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
+
+from repro_torch.kernels._launch import LAUNCHES, reset_launches
+from repro_torch.kernels._launch import launch as _launch
 
 __all__ = [
     "LAUNCHES",
@@ -148,20 +152,6 @@ def pick_row_tile(batch: int, elems_per_row: int) -> int:
     tile = 1 << (tile.bit_length() - 1)
     cap = 1 << max(batch - 1, 0).bit_length()
     return max(1, min(tile, cap))
-
-
-# ------------------------------- launches ---------------------------------
-
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {
-    "fft_fused": 0, "rfft_fused": 0, "irfft_fused": 0, "fft2_fused": 0,
-    "rfft2_fused": 0, "irfft2_fused": 0,
-}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # --------------------------- plain panels ---------------------------------
@@ -413,18 +403,6 @@ def _check_launchable(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs a contiguous tensor")
     if x.data_ptr() % 8:
         raise ValueError(f"{name} needs an 8-byte aligned tensor")
-
-
-def _launch(entry: str, name: str, x: torch.Tensor, *args) -> None:
-    """Call one C entry on ``x``'s device and current stream; raise on any
-    CUDA error the launch reports."""
-    from repro_torch.kernels._build import library  # lazy: builds at first use
-
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = getattr(library(), entry)(*args, x.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
 
 
 def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:

@@ -13,6 +13,8 @@ kernels' row or frame batch.
                      ``fft_fused`` columns
   irfft2_kernel(y) — ``irfft2_fused`` when it fits, else ``fft_fused``
                      inverse columns, a corner turn, ``irfft_fused`` rows
+  fft_staged(x)    — stage at a time: a bit-reversal gather, then log2 N
+                     launches of ``butterfly_stage``, log2 N HBM round trips
 
 The whole-frame-or-composition choice of the 2D entries is made on the
 frame shape alone (:func:`fft2_fits_budget`), as in the reference. Every
@@ -27,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.butterfly import butterfly_stage
 from repro_torch.kernels.fft_radix2 import (
     SMEM_BUDGET_BYTES,
     fft2_fits_smem,
@@ -43,6 +46,7 @@ from repro_torch.kernels.fft_radix2 import (
 
 __all__ = [
     "fft_kernel",
+    "fft_staged",
     "fft2_kernel",
     "rfft_kernel",
     "irfft_kernel",
@@ -91,6 +95,21 @@ def fft_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> tor
     n = x.shape[-1]
     z = _launchable(x, torch.complex64).reshape(-1, n)
     return fft_fused(z, radix=radix, inverse=inverse).reshape(x.shape)
+
+
+def fft_staged(x: torch.Tensor) -> torch.Tensor:
+    """Stage-at-a-time FFT along the last axis: log2(N) kernel launches,
+    log2(N) HBM round trips (the paper's column architecture)."""
+    from repro_torch.core.fft1d import bit_reversal_permutation  # lazy: core imports kernels
+
+    n = x.shape[-1]
+    planes = torch.view_as_real(_launchable(x, torch.complex64).reshape(-1, n))
+    rev = torch.from_numpy(bit_reversal_permutation(n)).to(planes.device)
+    re = planes[..., 0].index_select(-1, rev)
+    im = planes[..., 1].index_select(-1, rev)
+    for s in range(int(math.log2(n))):  # the control unit's stage counter
+        re, im = butterfly_stage(re, im, stage=s)
+    return torch.complex(re, im).reshape(x.shape)
 
 
 def fft2_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:

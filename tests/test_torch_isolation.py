@@ -1,9 +1,10 @@
-"""The port stands alone: no JAX, no reference package, no library FFT.
+"""The port stands alone: no JAX, no reference package, no library kernel.
 
 ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor ``repro``;
-the package calls neither ``torch.fft`` nor ``torch.compile`` (the smoke
-script may time ``torch.fft`` as its yardstick); and non-tensor input is
-sent to the card, so it raises where CUDA is absent.
+the package calls neither ``torch.fft``, ``scaled_dot_product_attention``
+nor ``torch.compile`` (the smoke script may time the first two as its
+yardsticks); and non-tensor input is sent to the card, so it raises where
+CUDA is absent.
 """
 
 import re
@@ -18,13 +19,16 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 IMPORTS_REFERENCE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-LIBRARY_CALLS = re.compile(r"torch\.(fft|compile)\b|from\s+torch\s+import\s+(fft|compile)\b")
+LIBRARY_CALLS = re.compile(r"torch\.(fft|compile)\b|from\s+torch\s+import\s+(fft|compile)\b"
+                           r"|scaled_dot_product_attention")
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys; import repro_torch; import repro_torch.xfft; "
-        "import repro_torch.kernels.ops; "
+        "import repro_torch.kernels.ops; import repro_torch.kernels.butterfly; "
+        "import repro_torch.kernels.flash_attention; "
+        "import repro_torch.kernels.slstm_scan; "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
     )

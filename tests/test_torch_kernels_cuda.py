@@ -5,17 +5,29 @@ torch and repro_torch only, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance max|kernel - plain| <= 2e-5 * max|plain|: CUDA ``sincospif``
-against the host's cos/sin, and FMA contraction over up to 14 stages.
+Tolerance max|kernel - plain| <= 2e-5 * max|plain|: for the FFT kernels
+CUDA ``sincospif`` against the host's cos/sin, and FMA contraction over up
+to 14 stages; for flash attention float32 sums over D and the keys taken
+in another order. The sLSTM scan's 1e-4 allows for rounding carried
+through every serial step of the recurrence.
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import xfft
+from repro_torch.kernels import butterfly as bf
 from repro_torch.kernels import fft_radix2 as k
+from repro_torch.kernels import fft_staged
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels._launch import launch
+from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain, slstm_weights_from_jax
 
 TOL = 2e-5
+TOL_SLSTM = 1e-4
 
 
 @pytest.fixture
@@ -58,7 +70,8 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
         assert _rel(k.irfft2_fused(y, radix=radix),
                     k.irfft2_fused_plain(y, radix=radix)) <= TOL
     assert k.LAUNCHES == {"fft_fused": 5, "rfft_fused": 5, "irfft_fused": 5, "fft2_fused": 3,
-                          "rfft2_fused": 7, "irfft2_fused": 7}
+                          "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
+                          "flash_attention_fwd": 0, "slstm_scan": 0}
 
 
 @pytest.mark.cuda
@@ -106,3 +119,94 @@ def test_cuda_tensor_never_plans_onto_plain_code(cuda):
         xfft.fft(long)
     with xfft.config(backend="torch"):
         assert float(xfft.fft(long)[:, 0].real.min()) == 32768.0
+
+
+@pytest.mark.cuda
+def test_cuda_butterfly_stage_matches_plain_and_fft_staged_launches_each_stage(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    k.reset_launches()
+    stages = 0
+    for n in (2, 64, 2048):
+        re = torch.randn(7, n, generator=g, device=cuda)
+        im = torch.randn(7, n, generator=g, device=cuda)
+        for stage in range(int(math.log2(n))):
+            got = bf.butterfly_stage(re, im, stage=stage)
+            ref = bf.butterfly_stage_plain(re, im, stage=stage)
+            assert _rel(got[0], ref[0]) <= TOL and _rel(got[1], ref[1]) <= TOL
+            stages += 1
+    assert k.LAUNCHES["butterfly_stage"] == stages
+    x = torch.complex(torch.randn(5, 1024, generator=g, device=cuda),
+                      torch.randn(5, 1024, generator=g, device=cuda))
+    k.reset_launches()
+    y = fft_staged(x)
+    assert k.LAUNCHES["butterfly_stage"] == 10
+    assert _rel(y, torch.fft.fft(x)) <= TOL
+    with pytest.raises(ValueError):
+        bf.butterfly_stage(re.t(), im.t(), stage=0)  # strided planes
+
+
+# (bh, sq, sk, d, dv, causal, window, block_q, block_k)
+FLASH_CASES = [
+    (2, 64, 64, 32, 32, True, None, 16, 16),
+    (3, 128, 128, 16, 16, True, 32, 32, 32),
+    (1, 48, 96, 8, 8, False, None, 16, 32),
+    (2, 100, 100, 16, 16, True, None, 32, 32),
+    (1, 256, 256, 64, 64, True, None, 64, 128),
+    (2, 80, 80, 24, 16, True, 40, 16, 32),
+    (2, 200, 130, 192, 128, True, 70, 256, 512),  # MLA widths, window, ragged
+    (1, 129, 300, 256, 256, False, None, 256, 512),  # the head-size limit
+    (2, 40, 12, 8, 8, False, 6, 16, 8),  # rows 17.. see no key
+]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    k.reset_launches()
+    for bh, sq, sk, d, dv, causal, window, bq, bk in FLASH_CASES:
+        q = torch.randn(bh, sq, d, generator=g, device=cuda)
+        kk = torch.randn(bh, sk, d, generator=g, device=cuda)
+        v = torch.randn(bh, sk, dv, generator=g, device=cuda)
+        opts = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+        got = fa.flash_attention_fwd(q, kk, v, **opts)
+        ref = fa.flash_attention_plain(q, kk, v, **opts)
+        assert got.shape == (bh, sq, dv)
+        assert _rel(got, ref) <= TOL, (bh, sq, sk, d, dv, causal, window)
+    assert k.LAUNCHES["flash_attention_fwd"] == len(FLASH_CASES)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_raises_on_what_the_kernel_refuses(cuda):
+    q = torch.zeros(1, 8, 320, device=cuda)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 8, 128, device=cuda)
+    out = torch.empty_like(q)
+    k.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):  # nj = 1 covers only dv <= 16
+        launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
+               q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 8, 8, 128, 128, 1, 0, 0,
+               1.0, 8, 1, fa.THREADS, fa.flash_smem_bytes(128, 128))
+    assert k.LAUNCHES["flash_attention_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [(3, 64, 128), (2, 32, 1024), (1, 16, 2048), (1, 8, 36)])
+def test_cuda_slstm_scan_matches_plain(cuda, b, l, d):
+    rng = np.random.default_rng(d)
+    p = {"wx": rng.standard_normal((d, 4 * d)) / math.sqrt(d),
+         "wr": rng.standard_normal((4, d // 4, d)) * 0.25,
+         "bias": rng.standard_normal(4 * d) * 0.1}
+    w = slstm_weights_from_jax(p, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((b, l, d)) * 0.5).float().to(cuda)
+    xg = x @ w["wx"]
+    z = torch.zeros(b, d, device=cuda)
+    m0 = torch.full((b, d), float("-inf"), device=cuda)
+    k.reset_launches()
+    hs, state = slstm_scan(xg, w["wr"], w["bias"], z, z, z, m0, chunk=l)
+    assert k.LAUNCHES["slstm_scan"] == 1
+    ref_hs, ref_state = slstm_scan_plain(xg, w["wr"], w["bias"], z, z, z, m0)
+    assert not torch.isnan(hs).any()
+    assert _rel(hs, ref_hs) <= TOL_SLSTM
+    for got, ref in zip(state, ref_state):
+        assert _rel(got, ref) <= TOL_SLSTM
