@@ -15,6 +15,15 @@ Phases, each printing one JSON line:
              against the host's cos/sin, and FMA contraction over up to 11
              stages); with the kernel's, the plain version's and the
              ``torch.fft`` yardstick's median times and the HBM bound;
+   kernel  — the same for fft_two_pass, the kernels that fft_fused,
+             rfft_fused and irfft_fused launch on rows over one block
+             (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex rows,
+             rfft and irfft on (256, 2^16) real rows, against the two-pass
+             plain versions to 2e-5 (18 stages), two launches per complex
+             call and three per real one; its bound is one HBM round trip
+             (the reference's single residency), and each case's phase line
+             also gives the floor of this design's two or three trips and
+             the time of each pass alone;
    kernel  — the same for butterfly_stage on (8192, 2048) planes at every
              stage, flash_attention_fwd at llama3.2-3b's attention shape
              (24 heads of 128, 4096 tokens, causal, k/v repeated from 8 kv
@@ -34,7 +43,10 @@ Phases, each printing one JSON line:
              are set to 0 just before and read just after; each request
              must raise the counts of the kernels it should use, agree with
              ``torch.fft`` to 2e-5 relative (round trips to 1e-4), and find
-             the same dominant bins.
+             the same dominant bins. Rows over one block: fft/ifft on 64
+             free-induction decays of 2^18 points, rfft/irfft on 256 real
+             lines of 2^16, rfft2/irfft2 on (8, 512, 32768) strip frames;
+             each plans ``fused``/``fused_r4`` and launches fft_two_pass.
 4. path    — the other entry points of ``repro_torch.kernels``, with the
              counts set to 0 just before and read just after:
              ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
@@ -172,6 +184,8 @@ KERNELS = {
                     "src/repro/kernels/fft_radix2.py:452"),
     "irfft2_fused": ("src/repro_torch/kernels/csrc/rfft2_fused.cu",
                      "src/repro/kernels/fft_radix2.py:486"),
+    "fft_two_pass": ("src/repro_torch/kernels/csrc/fft_two_pass.cu",
+                     "src/repro/kernels/fft_radix2.py:279"),
     "butterfly_stage": ("src/repro_torch/kernels/csrc/butterfly.cu",
                         "src/repro/kernels/butterfly.py:64"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -189,6 +203,11 @@ MIXTRAL = {"heads": 8, "seq": 8192, "head_dim": 128, "window": 4096}
 # xlstm-350m (src/repro/configs/xlstm_350m.py): D 1024, 4 sLSTM heads.
 XLSTM = {"batch": 8, "seq": 4096, "d": 1024}
 STAGED = (8192, 2048)
+# Rows over one block: FT-NMR free-induction decays of 256K complex points,
+# and 64K-sample real lines (radar range lines, spectroscopy).
+TWO_PASS_COMPLEX = (64, 2 ** 18)
+TWO_PASS_REAL = (256, 2 ** 16)
+STRIP = (8, 512, 32768)  # line-scan / SAR strip frames, 32768 samples wide
 
 
 def bound(card: str, nbytes: float, flops: float):
@@ -267,6 +286,120 @@ def kernel_phase(torch, k, card: str):
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def two_pass_phase(torch, k, card: str):
+    """fft_two_pass (fft_fused, rfft_fused and irfft_fused on rows over one
+    block) against its plain versions; returns its row. Each call must
+    launch it twice (complex) or three times (real)."""
+    import math
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                             torch.randn(*shape, generator=gen, device=dev))
+
+    bc, nc = TWO_PASS_COMPLEX
+    br, nr = TWO_PASS_REAL
+    x = crandn(bc, nc)
+    stages_c, stages_r = math.log2(nc), math.log2(nr)
+    cases = {  # name: (input, kernel, plain, library, bytes one trip, flops, trips)
+        "fft": (x, k.fft_fused, k.fft_two_pass_plain, torch.fft.fft, 16 * bc * nc,
+                5.0 * bc * nc * stages_c, 2),
+        "ifft": (x, lambda z, radix: k.fft_fused(z, radix=radix, inverse=True),
+                 lambda z, radix: k.fft_two_pass_plain(z, radix=radix, inverse=True),
+                 torch.fft.ifft, 16 * bc * nc, 5.0 * bc * nc * stages_c, 2),
+        "rfft": (torch.randn(br, nr, generator=gen, device=dev), k.rfft_fused,
+                 k.rfft_two_pass_plain, torch.fft.rfft, 4 * br * nr + 8 * br * (nr // 2 + 1),
+                 2.5 * br * nr * stages_r, 3),
+        "irfft": (crandn(br, nr // 2 + 1), k.irfft_fused, k.irfft_two_pass_plain,
+                  torch.fft.irfft, 8 * br * (nr // 2 + 1) + 4 * br * nr,
+                  2.5 * br * nr * stages_r, 3),
+    }
+    by_case = {}
+    for name, (z, kernel, plain, library, nbytes, flops, trips) in cases.items():
+        by_radix = {}
+        for radix in (2, 4):
+            before = k.LAUNCHES["fft_two_pass"]
+            got = kernel(z, radix=radix)
+            launched = k.LAUNCHES["fft_two_pass"] - before
+            ref = plain(z, radix=radix)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            by_radix[str(radix)] = {
+                "rel_err": err,
+                "max_abs_err": max_abs(got, ref),
+                "ms": time_ms(lambda: kernel(z, radix=radix)),
+                "plain_ms": time_ms(lambda: plain(z, radix=radix), reps=2, batches=3),
+            }
+            del got, ref
+            emit({"phase": "kernel", "kernel": "fft_two_pass", "case": name, "radix": radix,
+                  "shape": list(z.shape), "launches_per_call": launched,
+                  **by_radix[str(radix)]})
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f"fft_two_pass {name} radix {radix}: rel err {err} "
+                                     f"> {TOL_KERNEL}")
+            if launched != trips:
+                raise AssertionError(f"fft_two_pass {name}: {launched} launches, not {trips}")
+        bound_ms, bound_by = bound(card, nbytes, flops)
+        by_case[name] = {"shape": list(z.shape), "ms": by_radix["4"]["ms"],
+                         "plain_ms": by_radix["4"]["plain_ms"],
+                         "library_ms": time_ms(lambda: library(z)), "bound_ms": bound_ms,
+                         "bound_by": bound_by, "by_radix": by_radix}
+        emit({"phase": "kernel", "kernel": "fft_two_pass", "case": name,
+              "shape": list(z.shape), "bound_ms": bound_ms, "round_trips": trips,
+              "floor_ms": trips * bound_ms})
+    # Where a complex call's time goes: each pass alone at radix 4, through
+    # the helpers the wrapper launches, beside the bytes one pass must move.
+    from repro_torch.kernels import fft_radix2
+
+    g = k.two_pass_geometry(nc)
+    scratch, out = torch.empty_like(x), torch.empty_like(x)
+    passes = {
+        "columns": lambda: fft_radix2._column_pass(x, x.data_ptr(), scratch.data_ptr(), bc,
+                                                   nc, 4, False),
+        "rows": lambda: fft_radix2._row_pass(x, scratch.data_ptr(), out.data_ptr(), bc, nc,
+                                             4, False, 1.0),
+    }
+    pass_ms = {name: time_ms(fn) for name, fn in passes.items()}
+    emit({"phase": "kernel", "kernel": "fft_two_pass", "case": "fft passes", "radix": 4,
+          "shape": [bc, nc], "split": [g.n1, g.n2], "pass_ms": pass_ms,
+          "one_pass_bound_ms": by_case["fft"]["bound_ms"]})
+    del x, cases, scratch, out
+    torch.cuda.empty_cache()
+    main = by_case["fft"]
+    errs = [r for c in by_case.values() for r in c["by_radix"].values()]
+    return {"name": "fft_two_pass", "route": "cuda", "source": KERNELS["fft_two_pass"][0],
+            "replaces": KERNELS["fft_two_pass"][1],
+            "also_replaces": ["src/repro/kernels/fft_radix2.py:319",
+                              "src/repro/kernels/fft_radix2.py:358"],
+            "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in errs),
+            "rel_err": max(r["rel_err"] for r in errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "pass_ms": pass_ms, "shape": main["shape"], "by_case": by_case}
+
+
+def fid_source(torch, rows: int, n: int, seed: int):
+    """FT-NMR free-induction decays, complex64 on the card: per row six
+    damped complex exponentials (frequency, decay and amplitude from seeded
+    numpy) plus complex noise of 0.01 from a seeded generator."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    freq, decay, amp = (torch.from_numpy(rng.uniform(lo, hi, (6, rows, 1))).to(dev)
+                        for lo, hi in ((-0.45 * n, 0.45 * n), (2.0, 40.0), (0.2, 1.0)))
+    t = torch.arange(n, dtype=torch.float64, device=dev) / n
+    sig = torch.zeros(rows, n, dtype=torch.complex128, device=dev)
+    for f, d, a in zip(freq, decay, amp):
+        sig += a * torch.exp(-d * t) * torch.exp(2j * torch.pi * f * t)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.complex(torch.randn(rows, n, generator=gen, device=dev),
+                          torch.randn(rows, n, generator=gen, device=dev))
+    return sig.to(torch.complex64) + 0.01 * noise
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -675,6 +808,50 @@ def request_phase(torch, k, xfft, resolve_call):
     check(line, max_abs(back, rows) / float(rows.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
     emit(line)
+    del rows, crow, out, half, back
+
+    # Rows over one block: each request plans a fused engine and launches
+    # the two-pass kernels.
+    def two_pass(name, fn, kind, shape, direction="fwd", dtype="complex64"):
+        plan = engine(kind, shape, direction, dtype)
+        if plan not in ("fused", "fused_r4"):
+            raise AssertionError(f"request {name}: planned {plan}, not a fused engine")
+        return request(name, fn, ["fft_two_pass"], plan)
+
+    fid = fid_source(torch, *TWO_PASS_COMPLEX, seed=4)
+    spec, line = two_pass("fft (64,262144)", lambda: xfft.fft(fid), "fft1d", fid.shape)
+    check(line, rel_err(spec, torch.fft.fft(fid)), TOL_REQUEST)
+    emit(line)
+    back, line = two_pass("ifft (64,262144)", lambda: xfft.ifft(spec), "fft1d", fid.shape, "inv")
+    check(line, rel_err(back, torch.fft.ifft(spec)), TOL_REQUEST)
+    check(line, max_abs(back, fid) / float(fid.abs().max()), TOL_ROUND_TRIP, "round_trip_err")
+    emit(line)
+    del fid, spec, back
+    lines = fid_source(torch, *TWO_PASS_REAL, seed=5).real.contiguous()
+    half, line = two_pass("rfft (256,65536)", lambda: xfft.rfft(lines), "rfft1d", lines.shape,
+                          dtype="float32")
+    check(line, rel_err(half, torch.fft.rfft(lines)), TOL_REQUEST)
+    emit(line)
+    back, line = two_pass("irfft (256,32769)", lambda: xfft.irfft(half), "rfft1d", lines.shape,
+                          "inv", "float32")
+    check(line, rel_err(back, torch.fft.irfft(half)), TOL_REQUEST)
+    check(line, max_abs(back, lines) / float(lines.abs().max()), TOL_ROUND_TRIP,
+          "round_trip_err")
+    emit(line)
+    del lines, half, back
+    frames = torch.from_numpy(frame_source(4, *STRIP)).to(dev)
+    half, line = two_pass("rfft2 (8,512,32768)", lambda: xfft.rfft2(frames), "rfft2d",
+                          frames.shape, dtype="float32")
+    check(line, rel_err(half, torch.fft.rfft2(frames)), TOL_REQUEST)
+    emit(line)
+    back, line = two_pass("irfft2 (8,512,32768)", lambda: xfft.irfft2(half), "rfft2d",
+                          frames.shape, "inv", "float32")
+    check(line, rel_err(back, torch.fft.irfft2(half)), TOL_REQUEST)
+    check(line, max_abs(back, frames) / float(frames.abs().max()), TOL_ROUND_TRIP,
+          "round_trip_err")
+    emit(line)
+    del frames, half, back
+    torch.cuda.empty_cache()
     return dict(k.LAUNCHES)
 
 
@@ -701,6 +878,7 @@ def main() -> int:
     print(card, flush=True)
 
     rows = kernel_phase(torch, k, card)
+    rows["fft_two_pass"] = two_pass_phase(torch, k, card)
     model_rows, slstm_hs = model_kernel_phase(torch, card)
     rows.update(model_rows)
     launches = request_phase(torch, k, xfft, resolve_call)

@@ -6,10 +6,10 @@ device, and ``unrolled`` is an alias of ``looped`` (one eager stage loop
 serves both; the alias lets the reference's wisdom files load); ``fused``/``fused_r4`` run the
 CUDA kernels under backend ``"cuda"`` (their plain versions on a CPU
 tensor), for power-of-two dims, single device, and only while one row of
-the longest transform dim fits a block's shared memory — the 2D kinds'
-composition runs the 1D kernel on each pass, so a row must fit for any
-fused plan. The shared-memory numbers come from the kernels' census
-(``repro_torch.kernels.fft_radix2``).
+the longest transform dim is in the 1D kernels' envelope (2^18 values, the
+reference's) — the 2D kinds' composition runs the 1D kernels on each
+pass, so a row must be served for any fused plan. The shared-memory
+numbers come from the kernels' census (``repro_torch.kernels.fft_radix2``).
 """
 
 from __future__ import annotations
@@ -64,24 +64,25 @@ def _fused_predicate(key) -> bool:
 def _fused_working_set(key):
     """Largest block the fused path launches for ``key`` (bytes of shared
     memory): the whole frame where a 2D frame fits one block, else one row
-    of each transform dim, in the kernel that row takes."""
+    of each transform dim, in the kernels that row takes (one block, or the
+    two passes for 2^14 < N <= 2^18). A dim over 2^18 reports a size over
+    the budget, so the envelope is the reference's: one row of the longest
+    transform dim <= 2^18 values."""
     from repro_torch.kernels import fft_radix2 as census
 
     dims = _dims(key)
     if dims is None:
         return None
     if key.kind == "rfft1d":
-        n = dims[-1]
-        return max(census.rfft_smem_bytes(n), census.irfft_smem_bytes(n))
+        return census.row_smem_bytes(dims[-1], real=True)
     if key.kind == "rfft2d":
         h, w = dims
         if census.rfft2_fits_smem(h, w):
             return census.rfft2_smem_bytes(h, w)
-        return max(census.rfft_smem_bytes(w), census.irfft_smem_bytes(w),
-                   census.fft_smem_bytes(h))
+        return max(census.row_smem_bytes(w, real=True), census.row_smem_bytes(h))
     if key.kind == "fft2d" and census.fft2_fits_smem(*dims):
         return census.fft2_smem_bytes(*dims)
-    return census.fft_smem_bytes(max(dims))
+    return max(census.row_smem_bytes(d) for d in dims)
 
 
 def _register_builtin_engines() -> None:

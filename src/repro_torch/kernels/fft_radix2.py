@@ -10,16 +10,20 @@ live here:
   uses, derived from ``csrc/``: a block holds its P complex values (8 bytes
   each) once, because each stage is done in place through registers, plus
   one twiddle ROM. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``,
-  ``kernels.ops`` and the engines' working-set gate all read it.
+  the two-pass geometry, ``kernels.ops`` and the engines' working-set gate
+  all read it. ``fft_fits_fused`` is the reference's envelope of the 1D
+  kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
-  step for step the Pallas panels, and ``*_plain`` around them. They are
+  step for step the Pallas panels, ``_two_pass_panel`` (the four-step
+  FFT of ``csrc/fft_two_pass.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
 * **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
   ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``. A CPU tensor takes the plain version. A CUDA tensor
   launches the kernel or raises; nothing falls back. Each launch adds one
   to ``LAUNCHES[name]`` (the registry of ``kernels._launch``, shared by
-  every wrapper of the port).
+  every wrapper of the port). A 1D row over one block (2^14 < N <= 2^18)
+  takes the two-pass kernels, counted under ``"fft_two_pass"``.
 
 The wrappers take complex64 tensors (``torch.view_as_real`` layout, re/im
 interleaved) where the Pallas ABI took separate planes: on the card the
@@ -28,8 +32,9 @@ interleaved pair is one 8-byte load.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,15 +48,19 @@ __all__ = [
     "fft2_fused",
     "fft2_fused_plain",
     "fft2_smem_bytes",
+    "fft_fits_fused",
     "fft_fits_smem",
     "fft_fused",
     "fft_fused_plain",
     "fft_smem_bytes",
+    "fft_split",
+    "fft_two_pass_plain",
     "irfft2_fused",
     "irfft2_fused_plain",
     "irfft_fused",
     "irfft_fused_plain",
     "irfft_smem_bytes",
+    "irfft_two_pass_plain",
     "pick_row_tile",
     "reset_launches",
     "rfft2_fits_smem",
@@ -61,6 +70,9 @@ __all__ = [
     "rfft_fused",
     "rfft_fused_plain",
     "rfft_smem_bytes",
+    "rfft_two_pass_plain",
+    "row_smem_bytes",
+    "two_pass_geometry",
 ]
 
 # ------------------------------- census -----------------------------------
@@ -142,6 +154,76 @@ def rfft2_fits_smem(h: int, w: int) -> bool:
     """True when a whole (H, W) real frame fits one ``rfft2_fused`` /
     ``irfft2_fused`` block."""
     return _fits(rfft2_smem_bytes(h, w), h * max(w // 2, 1))
+
+
+#: The reference's fused-kernel budget (``repro.kernels.fft_radix2``:
+#: ``_VMEM_BUDGET_BYTES``, and the six float32 row arrays its 1D panel
+#: holds). It sets the envelope of the port's 1D kernels, so that a key
+#: plans onto the fused engines on the card exactly where the reference
+#: plans onto its fused kernels.
+_REFERENCE_BUDGET_BYTES = 8 * 1024 * 1024
+_REFERENCE_ROW_ARRAYS = 6
+
+#: Fewest lines a two-pass block holds: 16 neighbouring complex values are
+#: 128 bytes, so each load and store of a pass moves whole 128-byte lines.
+TWO_PASS_MIN_LINES = 16
+
+
+def fft_fits_fused(n: int) -> bool:
+    """True when ``fft_fused``, ``rfft_fused`` and ``irfft_fused`` serve rows
+    of length ``n``: the reference's rule N·4·6 <= 8 MiB, so N <= 2^18. The
+    reference counts a real row by its N reals, like a complex one."""
+    return n * 4 * _REFERENCE_ROW_ARRAYS <= _REFERENCE_BUDGET_BYTES
+
+
+def fft_split(n: int) -> Tuple[int, int]:
+    """(n1, n2) with n = n1·n2, both powers of two and n2 <= n1 <= 2·n2:
+    the two-pass view of a row as an (n1, n2) matrix (2^18 = 512 x 512)."""
+    n2 = 1 << ((n.bit_length() - 1) // 2)
+    return n // n2, n2
+
+
+class TwoPassGeometry(NamedTuple):
+    """Launch geometry of ``csrc/fft_two_pass.cu`` on rows of n complex
+    values, viewed as (n1, n2)."""
+
+    n1: int
+    n2: int
+    cols: int  # columns of n1 values per column-pass block
+    col_threads: int
+    col_smem: int
+    rows: int  # rows of n2 values per row-pass block
+    row_threads: int
+    row_smem: int
+
+
+def two_pass_geometry(n: int) -> TwoPassGeometry:
+    """The column pass holds ``cols`` columns of n1 values and a ROM of n1/2
+    twiddles; the row pass holds ``rows`` rows of n2 values, each padded by
+    one value so that its transposed store reads shared memory without bank
+    conflicts, and a ROM of n2/2. Each holds at least ``TWO_PASS_MIN_LINES``
+    lines and aims at ``ROW_TILE_ELEMS`` values, as a 1D block does."""
+    n1, n2 = fft_split(n)
+    cols = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n1)
+    rows = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n2)
+    return TwoPassGeometry(
+        n1, n2,
+        cols, block_threads(cols * n1), _block_bytes(cols * n1, n1 // 2),
+        rows, block_threads(rows * n2), _block_bytes(rows * (n2 + 1), n2 // 2),
+    )
+
+
+def row_smem_bytes(n: int, *, real: bool = False) -> int:
+    """Largest block the 1D wrappers launch on rows of length ``n``
+    (``real``: ``rfft_fused`` and ``irfft_fused``): the one block where a
+    row fits one, else the larger two-pass block, at N/2 complex values for
+    a real row. A row outside :func:`fft_fits_fused` has no launch; it
+    reports its one-block size, which is over the budget."""
+    one = max(rfft_smem_bytes(n), irfft_smem_bytes(n)) if real else fft_smem_bytes(n)
+    if fft_fits_smem(n, real=real) or not fft_fits_fused(n):
+        return one
+    g = two_pass_geometry(n // 2 if real else n)
+    return max(g.col_smem, g.row_smem)
 
 
 def pick_row_tile(batch: int, elems_per_row: int) -> int:
@@ -245,13 +327,42 @@ def _panel(radix: int):
     return _stockham_panel_r4 if radix == 4 else _stockham_panel
 
 
-def _rfft_panel(x: torch.Tensor, n: int, radix: int):
+def _two_pass_panel(re: torch.Tensor, im: torch.Tensor, n: int, panel):
+    """Four-step FFT over a (tile, N) panel, as ``csrc/fft_two_pass.cu``
+    computes it on the row viewed as (n1, n2) (:func:`fft_split`):
+    ``panel`` over the n2 columns of length n1, the twiddle W_N^{j2·k1} on
+    element (k1, j2), ``panel`` over the n1 rows of length n2, and the
+    transposed write out[k2·n1 + k1]."""
+    n1, n2 = fft_split(n)
+    tb = re.shape[0]
+
+    def lines(z, a, b):  # (tb, a, b) -> (tb·b, a): the lines along axis a
+        return z.reshape(tb, a, b).transpose(1, 2).reshape(tb * b, a)
+
+    yr, yi = panel(lines(re, n1, n2), lines(im, n1, n2), n1)  # [b, j2, k1]
+    j2 = torch.arange(n2, dtype=torch.int64, device=re.device).reshape(n2, 1)
+    k1 = torch.arange(n1, dtype=torch.int64, device=re.device).reshape(1, n1)
+    ang = (j2 * k1).to(torch.float64) * (-2.0 * math.pi / n)  # j2·k1 < N: exact
+    wr, wi = torch.cos(ang).float(), torch.sin(ang).float()
+    yr, yi = yr.reshape(tb, n2, n1), yi.reshape(tb, n2, n1)
+    yr, yi = yr * wr - yi * wi, yr * wi + yi * wr
+    yr, yi = panel(lines(yr, n2, n1), lines(yi, n2, n1), n2)  # [b, k1, k2]
+    return lines(yr, n1, n2).reshape(tb, n), lines(yi, n1, n2).reshape(tb, n)
+
+
+def _row_panel(radix: int, two_pass: bool):
+    """The panel a row takes: one block's, or the two-pass composition of it."""
+    panel = _panel(radix)
+    return functools.partial(_two_pass_panel, panel=panel) if two_pass else panel
+
+
+def _rfft_panel(x: torch.Tensor, n: int, radix: int, *, two_pass: bool = False):
     """Real (tile, N) -> half spectrum (tile, N/2+1) re/im: pack, half-size
     panel, Hermitian recombination Y[k] = Xe[k] + W_N^k Xo[k]."""
     m = n // 2
     zr = x[:, 0::2]
     zi = x[:, 1::2]
-    zr, zi = _panel(radix)(zr, zi, m)
+    zr, zi = _row_panel(radix, two_pass)(zr, zi, m)
     zkr = torch.cat([zr, zr[:, :1]], dim=-1)
     zki = torch.cat([zi, zi[:, :1]], dim=-1)
     zmkr = torch.cat([zr[:, :1], torch.flip(zr[:, 1:], dims=(-1,)), zr[:, :1]], dim=-1)
@@ -270,7 +381,8 @@ def _rfft_panel(x: torch.Tensor, n: int, radix: int):
     return yr, yi
 
 
-def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int):
+def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int, *,
+                 two_pass: bool = False):
     """Half spectrum (tile, N/2+1) re/im -> real (tile, N)."""
     tb = yr.shape[0]
     m = n // 2
@@ -290,7 +402,7 @@ def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int):
     xoi = txr * wi + txi * wr
     zr = xer - xoi
     zi = xei + xor_
-    fr, fi = _panel(radix)(zr, -zi, m)
+    fr, fi = _row_panel(radix, two_pass)(zr, -zi, m)
     inv = 1.0 / m
     zr, zi = fr * inv, -fi * inv
     return torch.stack([zr, zi], dim=-1).reshape(tb, n)
@@ -308,15 +420,19 @@ def _complex(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.complex(re.contiguous(), im.contiguous())
 
 
-def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
-    """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor."""
+def _fft_plain(x: torch.Tensor, panel, inverse: bool) -> torch.Tensor:
     re, im = _planes(x)
     n = x.shape[-1]
     if inverse:
-        yr, yi = _panel(radix)(re, -im, n)
+        yr, yi = panel(re, -im, n)
         return _complex(yr / n, -yi / n)
-    yr, yi = _panel(radix)(re, im, n)
+    yr, yi = panel(re, im, n)
     return _complex(yr, yi)
+
+
+def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor."""
+    return _fft_plain(x, _panel(radix), inverse)
 
 
 def rfft_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
@@ -329,6 +445,26 @@ def irfft_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`irfft_fused`: (B, N/2+1) -> (B, N) float32."""
     re, im = _planes(y)
     return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), radix)
+
+
+def fft_two_pass_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """Plain version of the two-pass kernels on (B, N) complex64: what
+    :func:`fft_fused` computes for rows over one block."""
+    return _fft_plain(x, _row_panel(radix, True), inverse)
+
+
+def rfft_two_pass_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Plain version of :func:`rfft_fused` for rows over one block: the
+    two-for-one pack, the two passes at N/2, the recombination."""
+    yr, yi = _rfft_panel(x, x.shape[-1], radix, two_pass=True)
+    return _complex(yr, yi)
+
+
+def irfft_two_pass_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
+    """Plain version of :func:`irfft_fused` for rows over one block: the
+    untangling, then the two passes at N/2 by conjugation."""
+    re, im = _planes(y)
+    return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), radix, two_pass=True)
 
 
 def fft2_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
@@ -405,69 +541,130 @@ def _check_launchable(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs an 8-byte aligned tensor")
 
 
-def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
-    """FFT along the last axis of (B, N) complex64; one HBM round trip.
+def _check_fused_row(n: int, name: str, real: bool = False) -> bool:
+    """Raise where the reference's fused kernels raise (N > 2^18); return
+    True when a row fits one block, False when it takes the two passes."""
+    if not fft_fits_fused(n):
+        raise ValueError(
+            f"{name}: length-{n} rows exceed the fused-kernel budget (N <= 2^18, "
+            "the reference's); use an unfused variant"
+        )
+    return fft_fits_smem(n, real=real)
 
+
+def _column_pass(x: torch.Tensor, src: int, scratch: int, b: int, n: int, radix: int,
+                 conj: bool) -> None:
+    """Launch the column pass of ``csrc/fft_two_pass.cu`` on b rows of n
+    complex values at ``src``, into the (b, n1, n2) ``scratch`` (``x`` names
+    the device and stream)."""
+    g = two_pass_geometry(n)
+    _launch("repro_two_pass_columns", "fft_two_pass", x, src, scratch, b, g.n1, g.n2, radix,
+            g.cols, g.col_threads, g.col_smem, int(conj))
+
+
+def _row_pass(x: torch.Tensor, scratch: int, dst: int, b: int, n: int, radix: int,
+              conj: bool, scale: float) -> None:
+    """Launch the row pass of ``csrc/fft_two_pass.cu``: ``scratch`` from the
+    column pass into b rows of n complex values at ``dst``."""
+    g = two_pass_geometry(n)
+    _launch("repro_two_pass_rows", "fft_two_pass", x, scratch, dst, b, g.n1, g.n2, radix,
+            g.rows, g.row_threads, g.row_smem, int(conj), scale)
+
+
+def _two_pass(x: torch.Tensor, src: int, dst: int, b: int, n: int, radix: int,
+              conj: bool, scale: float) -> None:
+    """The column and the row pass on b rows of n complex values at ``src``,
+    into ``dst``. The scratch between the passes is freed on return; the
+    allocator reuses it only for work queued after both passes."""
+    scratch = torch.empty((b, n), dtype=torch.complex64, device=x.device)
+    _column_pass(x, src, scratch.data_ptr(), b, n, radix, conj)
+    _row_pass(x, scratch.data_ptr(), dst, b, n, radix, conj, scale)
+
+
+def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+    """FFT along the last axis of (B, N) complex64, N <= 2^18.
+
+    A row that fits one block costs one HBM round trip. A longer row
+    (2^14 < N) takes the two-pass kernels: two round trips, two launches.
     ``inverse`` conjugates on the way in and out and scales by 1/N: the
-    inverse transform on the same panel, without extra passes over HBM.
+    inverse transform on the same panels, without extra passes over HBM.
     """
     _check(x, "fft_fused", torch.complex64, 2)
     b, n = x.shape
     _check_pow2(n, "fft_fused")
     _panel(radix)
-    if not fft_fits_smem(n):
-        raise ValueError(f"fft_fused: length-{n} rows exceed one block's shared memory")
+    one_block = _check_fused_row(n, "fft_fused")
     if x.device.type == "cpu":
-        return fft_fused_plain(x, radix=radix, inverse=inverse)
+        plain = fft_fused_plain if one_block else fft_two_pass_plain
+        return plain(x, radix=radix, inverse=inverse)
     _check_launchable(x, "fft_fused")
     out = torch.empty_like(x)
-    if b:
+    if b and one_block:
         rows = pick_row_tile(b, n)
         _launch("repro_fft_fused", "fft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
                 rows, block_threads(rows * n), fft_smem_bytes(n, rows), int(inverse),
                 1.0 / n if inverse else 1.0)
+    elif b:
+        _two_pass(x, x.data_ptr(), out.data_ptr(), b, n, radix, inverse,
+                  1.0 / n if inverse else 1.0)
     return out
 
 
 def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
-    """Real FFT of (B, N) float32 -> (B, N/2+1) complex64, two for one."""
+    """Real FFT of (B, N) float32 -> (B, N/2+1) complex64, two for one.
+    Rows over one block take the two passes at N/2 and a recombination
+    pass: three launches."""
     _check(x, "rfft_fused", torch.float32, 2)
     b, n = x.shape
     _check_pow2(n, "rfft_fused")
     _panel(radix)
-    if not fft_fits_smem(n, real=True):
-        raise ValueError(f"rfft_fused: length-{n} rows exceed one block's shared memory")
+    one_block = _check_fused_row(n, "rfft_fused", real=True)
     if x.device.type == "cpu":
-        return rfft_fused_plain(x, radix=radix)
+        plain = rfft_fused_plain if one_block else rfft_two_pass_plain
+        return plain(x, radix=radix)
     _check_launchable(x, "rfft_fused")
     out = torch.empty((b, n // 2 + 1), dtype=torch.complex64, device=x.device)
-    if b:
-        m = n // 2
+    m = n // 2
+    if b and one_block:
         rows = pick_row_tile(b, m)
         _launch("repro_rfft_fused", "rfft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
                 rows, block_threads(rows * m), rfft_smem_bytes(n, rows))
+    elif b:
+        z = torch.empty((b, m), dtype=torch.complex64, device=x.device)
+        _two_pass(x, x.data_ptr(), z.data_ptr(), b, m, radix, False, 1.0)
+        _launch("repro_two_pass_recombine", "fft_two_pass", x, z.data_ptr(), out.data_ptr(),
+                b, m)
     return out
 
 
 def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Inverse of :func:`rfft_fused`: (B, N/2+1) complex64 -> (B, N) float32.
-    The imaginary parts at DC and Nyquist are dropped, as numpy does."""
+    The imaginary parts at DC and Nyquist are dropped, as numpy does. Rows
+    over one block take an untangling pass, then the two passes at N/2:
+    three launches."""
     _check(y, "irfft_fused", torch.complex64, 2)
     b, half = y.shape
     n = 2 * (half - 1)
     _check_pow2(n, "irfft_fused", "2 * (width - 1)")
     _panel(radix)
-    if not fft_fits_smem(n, real=True):
-        raise ValueError(f"irfft_fused: length-{n} rows exceed one block's shared memory")
+    one_block = _check_fused_row(n, "irfft_fused", real=True)
     if y.device.type == "cpu":
-        return irfft_fused_plain(y, radix=radix)
+        plain = irfft_fused_plain if one_block else irfft_two_pass_plain
+        return plain(y, radix=radix)
     _check_launchable(y, "irfft_fused")
     out = torch.empty((b, n), dtype=torch.float32, device=y.device)
-    if b:
-        m = n // 2
+    m = n // 2
+    if b and one_block:
         rows = pick_row_tile(b, m)
         _launch("repro_irfft_fused", "irfft_fused", y, y.data_ptr(), out.data_ptr(), b, n,
                 radix, rows, block_threads(rows * m), irfft_smem_bytes(n, rows))
+    elif b:
+        # The untangled half-size rows go into ``out`` itself (B x N/2
+        # complex is B x N float32); the column pass reads them from there
+        # before the row pass overwrites ``out`` with the result.
+        _launch("repro_two_pass_untangle", "fft_two_pass", y, y.data_ptr(), out.data_ptr(),
+                b, m)
+        _two_pass(y, out.data_ptr(), out.data_ptr(), b, m, radix, True, 1.0 / m)
     return out
 
 

@@ -8,13 +8,15 @@ the engine's cost hints.
 
 On a ``"cuda"`` key the candidates are the CUDA kernels only, unless the
 caller scoped ``backend="torch"``: a tensor on the card never plans onto
-plain tensor code by itself. Where no kernel fits (rows longer than one
-block holds, 2^14 complex values), planning raises. The kernels are
-modelled from what the CUDA code does. HBM: each element is read once and
-written once per round trip — one round trip when a 2D frame fits a
-block, three when it takes the row / corner turn / column composition.
-Shared memory: every Stockham pass reads and writes the block's values
-once and ends on two barriers. The kernel's time is the larger of the two
+plain tensor code by itself. Where no kernel serves the key (a row longer
+than 2^18 values, the reference's fused envelope), planning raises. The
+kernels are modelled from what the CUDA code does. HBM: each element is
+read once and written once per round trip — one round trip for a row or
+a 2D frame that fits a block, two for a complex row over one block (the
+two-pass kernels) and three for a real one (plus its recombination or
+untangling), and a composed 2D frame adds its passes' round trips to one
+for the corner turns. Shared memory: every Stockham pass reads and writes
+the block's values once and ends on two barriers. The kernel's time is the larger of the two
 plus the engine's ``stage_overhead_s`` per pass, so the radix-4 panel, with
 about half the passes, wins wherever both fit, as the kernels' times on
 the card show (``chip_smoke.py``). The schedules and the CPU keep the
@@ -61,8 +63,8 @@ def variant_candidates(key: ProblemKey) -> Tuple[str, ...]:
     if not names and on_card:
         raise NotImplementedError(
             f"no CUDA kernel serves {key.kind!r} at shape {key.shape}: its rows exceed "
-            "one block's shared memory (2^14 complex values). A multi-block "
-            "fft_fused for longer rows is queued in ROADMAP (queue 2); scope "
+            "the fused kernels' envelope (2^18 values, the reference's fused-kernel "
+            "budget, past which the reference plans its jnp engines); scope "
             "xfft.config(backend='torch') to run the plain schedules on the card"
         )
     if not names:
@@ -100,6 +102,19 @@ def _panel_passes(n: int, radix: int) -> int:
     return stages if radix == 2 else stages // 2 + stages % 2
 
 
+def _row_cost(n: int, radix: int, real: bool) -> Tuple[int, int]:
+    """(HBM round trips, Stockham passes) of the 1D kernels on a row of n:
+    one block, or the two-pass kernels on the (n1, n2) view of the row (at
+    N/2 complex values when ``real``, plus one elementwise round trip)."""
+    from repro_torch.kernels.fft_radix2 import fft_fits_smem, fft_split  # lazy
+
+    m = n // 2 if real else n
+    if fft_fits_smem(n, real=real):
+        return 1, _panel_passes(m, radix)
+    n1, n2 = fft_split(m)
+    return 3 if real else 2, _panel_passes(n1, radix) + _panel_passes(n2, radix)
+
+
 def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
     """Modelled time of the fused kernels on the card: max(HBM, shared
     memory) over every launch the call makes, plus ``pass_s`` per
@@ -108,16 +123,20 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
 
     elem_bytes = 16.0 if key.precision == "double" else 8.0
     elems = float(np.prod(key.shape, dtype=np.int64))
+    real = key.kind in _REAL_KINDS
     if key.kind in ("fft1d", "rfft1d"):
-        n = key.shape[-1]
-        passes = _panel_passes(n // 2 if key.kind == "rfft1d" else n, radix)
-        trips = 1
+        trips, passes = _row_cost(key.shape[-1], radix, real)
     else:
         h, w = key.shape[-2], key.shape[-1]
-        real = key.kind == "rfft2d"
-        passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
-        trips = 1 if fft2_fits_budget(h, w, real=real) else 3
-    if key.kind in _REAL_KINDS:
+        if fft2_fits_budget(h, w, real=real):
+            trips = 1
+            passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
+        else:
+            row_trips, row_passes = _row_cost(w, radix, real)
+            col_trips, col_passes = _row_cost(h, radix, False)
+            trips = row_trips + col_trips + 1  # + the two corner turns
+            passes = row_passes + col_passes
+    if real:
         elems *= 0.5
     hbm = 2.0 * elem_bytes * elems * trips / HBM_BW
     smem = 2.0 * elem_bytes * elems * passes / SMEM_BW

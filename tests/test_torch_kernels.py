@@ -219,6 +219,9 @@ def test_census_bounds_follow_the_block_limits():
     assert ops.fft2_working_set(128, 256, real=True) == (128 * 128 + 129) * 8
     assert k.fft_fits_smem(16384) and not k.fft_fits_smem(32768)
     assert k.fft_fits_smem(16384, real=True) and not k.fft_fits_smem(32768, real=True)
+    assert k.fft_fits_fused(2 ** 18) and not k.fft_fits_fused(2 ** 19)
+    assert (k.row_smem_bytes(2 ** 18, real=True) <= k.SMEM_BUDGET_BYTES
+            < k.row_smem_bytes(2 ** 19, real=True))
     for n in (2 ** p for p in range(1, 15)):
         for batch in (1, 3, 8192):
             rows = k.pick_row_tile(batch, n)

@@ -7,8 +7,8 @@ torch and repro_torch only, so it runs on a machine without JAX:
 
 Tolerance max|kernel - plain| <= 2e-5 * max|plain|: for the FFT kernels
 CUDA ``sincospif`` against the host's cos/sin, and FMA contraction over up
-to 14 stages; for flash attention float32 sums over D and the keys taken
-in another order. The sLSTM scan's 1e-4 allows for rounding carried
+to 14 stages (18 in the two passes); for flash attention float32 sums
+over D and the keys taken in another order. The sLSTM scan's 1e-4 allows for rounding carried
 through every serial step of the recurrence.
 """
 
@@ -71,7 +71,33 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
                     k.irfft2_fused_plain(y, radix=radix)) <= TOL
     assert k.LAUNCHES == {"fft_fused": 5, "rfft_fused": 5, "irfft_fused": 5, "fft2_fused": 3,
                           "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
-                          "flash_attention_fwd": 0, "slstm_scan": 0}
+                          "flash_attention_fwd": 0, "slstm_scan": 0, "fft_two_pass": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radix", [2, 4])
+def test_cuda_fft_two_pass_matches_plain(cuda, radix):
+    """Rows over one block take the two-pass kernels: two launches per
+    complex call, three per real one; odd batches, forward and inverse."""
+    g = torch.Generator(device=cuda).manual_seed(10 + radix)
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=cuda),
+                             torch.randn(*shape, generator=g, device=cuda))
+
+    k.reset_launches()
+    for n in (2 ** 15, 2 ** 16, 2 ** 18):
+        x = crandn(3, n)
+        for inverse in (False, True):
+            got = k.fft_fused(x, radix=radix, inverse=inverse)
+            ref = k.fft_two_pass_plain(x, radix=radix, inverse=inverse)
+            assert _rel(got, ref) <= TOL, (n, inverse)
+        r = torch.randn(3, n, generator=g, device=cuda)
+        assert _rel(k.rfft_fused(r, radix=radix), k.rfft_two_pass_plain(r, radix=radix)) <= TOL
+        y = crandn(3, n // 2 + 1)
+        assert _rel(k.irfft_fused(y, radix=radix), k.irfft_two_pass_plain(y, radix=radix)) <= TOL
+    assert k.LAUNCHES["fft_two_pass"] == 3 * (2 * 2 + 3 + 3)
+    assert k.LAUNCHES["fft_fused"] == k.LAUNCHES["rfft_fused"] == k.LAUNCHES["irfft_fused"] == 0
 
 
 @pytest.mark.cuda
@@ -109,16 +135,16 @@ def test_cuda_xfft_plans_onto_the_kernels(cuda):
 
 @pytest.mark.cuda
 def test_cuda_tensor_never_plans_onto_plain_code(cuda):
-    """Tiny transforms plan onto a kernel; rows longer than a block raise
-    unless the caller scopes the plain schedules."""
+    """Tiny transforms plan onto a kernel; rows longer than the fused
+    envelope (2^18) raise unless the caller scopes the plain schedules."""
     k.reset_launches()
     xfft.fft(torch.ones(1, 4, dtype=torch.complex64, device=cuda))
     assert k.LAUNCHES["fft_fused"] == 1
-    long = torch.ones(2, 32768, dtype=torch.complex64, device=cuda)
+    long = torch.ones(2, 2 ** 19, dtype=torch.complex64, device=cuda)
     with pytest.raises(NotImplementedError):
         xfft.fft(long)
     with xfft.config(backend="torch"):
-        assert float(xfft.fft(long)[:, 0].real.min()) == 32768.0
+        assert float(xfft.fft(long)[:, 0].real.min()) == 2.0 ** 19
 
 
 @pytest.mark.cuda

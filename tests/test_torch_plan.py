@@ -29,6 +29,9 @@ SMOKE_KEYS = [
     ("rfft2d", (32, 512, 512), "float32"),
     ("fft1d", (8192, 2048), "complex64"),
     ("rfft1d", (8192, 2048), "float32"),
+    ("fft1d", (64, 262144), "complex64"),
+    ("rfft1d", (256, 65536), "float32"),
+    ("rfft2d", (8, 512, 32768), "float32"),
 ]
 
 
@@ -67,8 +70,10 @@ def test_radix4_panel_wins_where_radix2_is_bound_by_shared_memory():
     assert estimate_plan(key).variant == "fused_r4"
 
 
-@pytest.mark.parametrize("kind,n", [("fft1d", 32768), ("rfft1d", 32768), ("fft2d", 32768)])
+@pytest.mark.parametrize("kind,n", [("fft1d", 2 ** 19), ("rfft1d", 2 ** 19), ("fft2d", 2 ** 19)])
 def test_rows_over_one_block_exclude_the_kernels(kind, n):
+    """Rows past the fused envelope (2^18, the reference's; rows between
+    one block and 2^18 take the two-pass kernels)."""
     shape = (4, n) if kind != "fft2d" else (2, n)
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype="complex64")
