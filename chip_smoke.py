@@ -36,7 +36,11 @@ Phases, each printing one JSON line:
              about 100 steps; at steps 32 and 64 of the full run the kernel
              may leave the plain version by at most 4x the plain version's
              own distance from float64); with the library yardstick
-             (``scaled_dot_product_attention``) where one exists;
+             (``scaled_dot_product_attention``) where one exists. Flash
+             attention's products run on the tensor cores as three TF32
+             products each, so its bound takes a third of the dense TF32
+             rate; each case's line also gives ``simt_bound_ms``, the
+             float32 CUDA-core figure, and one line the blocks an SM holds;
 3. request — requests through ``repro_torch.xfft`` as the streaming service
              of ``examples/serve_fft2d.py`` answers them (drifting-chirp
              frames plus noise, one request per batch). The launch counts
@@ -105,6 +109,14 @@ def hbm_bandwidth(card: str) -> float:
     """Bytes/s of the card's HBM: H100 SXM 3.35 TB/s, H100 PCIe 2.0 TB/s
     (NVIDIA data sheets)."""
     return 2.0e12 if "PCIe" in card else 3.35e12
+
+
+def split_tf32_rate(card: str) -> float:
+    """Float32-accurate products per second on the tensor cores: a third of
+    the dense TF32 rate, each float32 product taken as three TF32 products
+    (H100 SXM 495 TFLOP/s, H100 PCIe 378 TFLOP/s dense TF32; NVIDIA data
+    sheets)."""
+    return (378e12 if "PCIe" in card else 495e12) / 3
 
 
 def rel_err(got, ref) -> float:
@@ -210,11 +222,12 @@ TWO_PASS_REAL = (256, 2 ** 16)
 STRIP = (8, 512, 32768)  # line-scan / SAR strip frames, 32768 samples wide
 
 
-def bound(card: str, nbytes: float, flops: float):
+def bound(card: str, nbytes: float, flops: float, flop_rate: float = PEAK_FLOPS_FP32):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    float32 operations over the card's rate outside the tensor cores."""
+    float32 operations over ``flop_rate``, by default the card's rate
+    outside the tensor cores."""
     bytes_ms = nbytes / hbm_bandwidth(card) * 1e3
-    ops_ms = flops / PEAK_FLOPS_FP32 * 1e3
+    ops_ms = flops / flop_rate * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -454,8 +467,9 @@ def model_kernel_phase(torch, card: str):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
 
-    def row(name, err, rel, ms, plain_ms, nbytes, flops, library_ms, **extra):
-        bound_ms, bound_by = bound(card, nbytes, flops)
+    def row(name, err, rel, ms, plain_ms, nbytes, flops, library_ms,
+            flop_rate=PEAK_FLOPS_FP32, **extra):
+        bound_ms, bound_by = bound(card, nbytes, flops, flop_rate)
         rows[name] = {"name": name, "route": "cuda", "source": KERNELS[name][0],
                       "replaces": KERNELS[name][1], "launches": 0, "max_abs_err": err,
                       "rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -520,16 +534,24 @@ def model_kernel_phase(torch, card: str):
                 "library_ms": time_ms(lambda: library(q, kk, v), reps=5, batches=3),
                 "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
                 "flops": bh * pairs * 2.0 * (dh + v.shape[2])}
-        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
+        # The kernel's products run on the tensor cores, split into three
+        # TF32 products; the CUDA-core float32 figure stays beside it.
+        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
+                                                   split_tf32_rate(card))
+        line["simt_bound_ms"] = bound(card, line["bytes"], line["flops"])[0]
         emit(line)
         if not line["rel_err"] <= TOL_KERNEL:
             raise AssertionError(f"flash_attention_fwd {label}: rel err {line['rel_err']}")
         by_case[label] = line
         del got, ref
     main = by_case["llama3.2-3b"]
+    emit({"phase": "kernel", "kernel": "flash_attention_fwd", "head_dim": d,
+          "blocks_per_sm": fa.flash_blocks_per_sm(d, d), "smem_bytes": fa.flash_smem_bytes(d, d),
+          "threads": fa.THREADS})
     row("flash_attention_fwd", max(x["max_abs_err"] for x in by_case.values()),
         max(x["rel_err"] for x in by_case.values()), main["ms"], main["plain_ms"],
-        main["bytes"], main["flops"], main["library_ms"], shape=main["shape"],
+        main["bytes"], main["flops"], main["library_ms"], split_tf32_rate(card),
+        shape=main["shape"],
         by_case={lb: {kx: x[kx] for kx in ("shape", "window", "rel_err", "ms", "plain_ms",
                                              "library_ms", "bound_ms", "bound_by")}
                  for lb, x in by_case.items()})

@@ -11,11 +11,14 @@ Masks: causal (key <= query) and a sliding window (key > query - window),
 applied as ``NEG_INF = -1e30``, never ``-inf``; l is floored at 1e-20.
 
 * :func:`flash_attention_fwd` — a CPU tensor runs the plain version; a CUDA
-  tensor launches ``csrc/flash_attention.cu`` or raises. ``block_q`` and
-  ``block_k`` are the reference's tile sizes: the plain version walks
-  exactly those blocks, and the card kernel walks its own 64 x 64 tiles,
-  which changes a result only by rounding (the note in the CUDA source says
-  why, and which rows take the padded key count from ``block_k``).
+  tensor launches ``csrc/flash_attention.cu`` or raises. That kernel runs
+  its products on the tensor cores (``mma.sync`` TF32), each float32
+  product split into three TF32 products so that the result stays float32
+  to about 1e-7. ``block_q`` and ``block_k`` are the reference's tile
+  sizes: the plain version walks exactly those blocks, and the card kernel
+  walks its own tiles (128 query rows, 64 where Dv > 128, by 32 keys),
+  which changes a result only by rounding (the note in the CUDA source
+  says why, and which rows take the padded key count from ``block_k``).
 * :func:`flash_attention_plain` — the reference kernel's recurrence in
   torch, block for block.
 * :func:`mha_reference` — the naive oracle.
@@ -35,6 +38,7 @@ __all__ = [
     "NEG_INF",
     "flash_attention_fwd",
     "flash_attention_plain",
+    "flash_blocks_per_sm",
     "flash_smem_bytes",
     "mha_reference",
 ]
@@ -44,27 +48,50 @@ NEG_INF = -1.0e30
 #: Largest D and Dv the CUDA kernel takes (its tiles' shared memory).
 MAX_HEAD_DIM = 256
 
-#: Query and key rows per tile, and threads per block, of the CUDA kernel.
-TILE_Q = 64
-TILE_K = 64
-THREADS = 256
+#: Keys per tile, and threads per block (4 warps), of the CUDA kernel.
+TILE_K = 32
+THREADS = 128
+
+
+def query_tile(dv: int) -> int:
+    """Query rows per block of the CUDA kernel: each of the 4 warps takes
+    two 16-row m-tiles (128 rows), or one where Dv > 128 (64 rows: the
+    output accumulator of two would not fit in registers)."""
+    return 64 if dv > 128 else 128
+
+
+def _row_floats(width: int) -> int:
+    """A shared row: the width padded with zeros to a multiple of 8 (the
+    mma's k and n steps), plus 4 floats (aligned 16-byte copies, fragment
+    reads in distinct banks)."""
+    return -(-width // 8) * 8 + 4
 
 
 def flash_smem_bytes(d: int, dv: int) -> int:
-    """Dynamic shared memory of one CUDA block: Q and K tiles with rows
-    padded to D+1 floats, the V tile, the (64, 65) probability tile and
-    three per-row statistics."""
-    floats = (TILE_Q + TILE_K) * (d + 1) + TILE_K * dv + TILE_Q * (TILE_K + 1) + 3 * TILE_Q
-    return 4 * floats
+    """Dynamic shared memory of one CUDA block: the Q tile, one K tile and
+    one V tile, in padded rows."""
+    return 4 * ((query_tile(dv) + TILE_K) * _row_floats(d) + TILE_K * _row_floats(dv))
+
+
+def flash_blocks_per_sm(d: int, dv: int, device: int = 0) -> int:
+    """Blocks of the CUDA kernel that one SM of ``device`` holds at once at
+    (D, Dv), from CUDA's occupancy calculator (builds the kernels at first
+    use; launches nothing)."""
+    from repro_torch.kernels._build import library  # lazy: builds at first use
+
+    blocks = library().repro_flash_attention_occupancy(dv, flash_smem_bytes(d, dv), device)
+    if blocks < 0:
+        raise RuntimeError(f"flash_blocks_per_sm: CUDA error {-blocks}")
+    return blocks
 
 
 def _acc_columns(dv: int) -> int:
-    """Accumulator columns per thread / 16: the smallest of 1, 2, 4, 8, 16
-    covering Dv."""
-    nj = 1
-    while 16 * nj < dv:
-        nj *= 2
-    return nj
+    """Output accumulator n-tiles of 8 columns per warp: the smallest of 1,
+    2, 4, 8, 16, 32 covering Dv."""
+    nv = 1
+    while 8 * nv < dv:
+        nv *= 2
+    return nv
 
 
 def _blocks(sq: int, sk: int, block_q: int, block_k: int):

@@ -6,6 +6,15 @@ tensors (which runs the plain online-softmax version), held to atol 2e-5,
 the reference's own tolerance (tests/kernels/test_flash_attention.py).
 The CUDA kernel itself is tested on the card by
 tests/test_torch_kernels_cuda.py.
+
+The card kernel's numerical design is tested here in numpy: its products
+run on the tensor cores in TF32, each float32 operand split into a TF32
+``big`` part and a TF32 ``small`` remainder and each product taken as
+three TF32 products. An emulation of that arithmetic on the float32 bits,
+walking the kernel's key tiles in its key order, meets the 2e-5 gate
+against the Pallas kernel, with ``big`` rounded to nearest as ``cvt.rna``
+does and with ``big`` truncated as the kernel takes it; a single TF32
+product does not. The emulation lives only in this file.
 """
 
 import jax.numpy as jnp
@@ -95,5 +104,133 @@ def test_plain_path_launches_nothing():
 
 def test_smem_census_fits_one_block_up_to_the_head_limit():
     assert fa.flash_smem_bytes(fa.MAX_HEAD_DIM, fa.MAX_HEAD_DIM) <= 232_448
-    assert fa.flash_smem_bytes(128, 128) == 4 * (128 * 129 + 64 * 128 + 64 * 65 + 192)
-    assert [fa._acc_columns(dv) for dv in (1, 16, 17, 128, 192, 256)] == [1, 1, 2, 8, 16, 16]
+    assert fa.flash_smem_bytes(fa.MAX_HEAD_DIM, 128) <= 232_448  # the widest query tile
+    # Q tile (128 rows, 64 where Dv > 128) and 32-key K and V tiles, rows
+    # padded to a multiple of 8 plus 4 floats.
+    assert fa.flash_smem_bytes(128, 128) == 4 * ((128 + 32) * 132 + 32 * 132) == 101_376
+    assert fa.flash_smem_bytes(256, 256) == 4 * ((64 + 32) * 260 + 32 * 260) == 133_120
+    assert fa.flash_smem_bytes(256, 128) == 4 * ((128 + 32) * 260 + 32 * 132) == 183_296
+    assert fa.flash_smem_bytes(100, 72) == 4 * ((128 + 32) * 108 + 32 * 76)
+    assert [fa._acc_columns(dv) for dv in (1, 8, 9, 16, 17, 128, 129, 256)] == [
+        1, 1, 2, 2, 4, 16, 32, 32]
+
+
+def test_smem_census_lets_two_blocks_share_an_sm_at_head_128():
+    """The kernel's occupancy target: at D = Dv = 128, two blocks of 4 warps
+    (each with the 1 KiB the card reserves per block) fit one SM's 228 KiB."""
+    assert fa.THREADS == 128
+    assert 2 * (fa.flash_smem_bytes(128, 128) + 1024) <= 233_472
+    assert [fa.query_tile(dv) for dv in (1, 128, 129, 256)] == [128, 128, 64, 64]
+
+
+# --- the card kernel's arithmetic, emulated -------------------------------
+
+def _tf32(x):
+    """TF32 rounding as ``cvt.rna.tf32.f32`` does it: add half of the 14th
+    bit's unit to the float32 bits (ties away from zero) and clear the low
+    13 bits."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_truncate(x):
+    """TF32 by truncation: the low 13 bits of the float32 value cleared.
+    The kernel takes ``big`` so, and the mma reads any operand so."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+ROUNDINGS = {"rna": _tf32, "truncate": _tf32_truncate}
+
+
+def _split_matmul(a, b, tf32=_tf32):
+    """a @ b as three TF32 products, small*big and big*small first,
+    big*big last, summed in float32 (each product of two TF32 values is
+    exact in float32); ``tf32`` makes big from x and small from x - big."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _tf32_matmul(a, b):
+    """a @ b as one TF32 product."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _kernel_attention(q, k, v, *, causal, window, block_k, matmul):
+    """The card kernel's online softmax in numpy: key tiles of 32, within
+    each 8-key slice the keys in the PV product's order
+    (k-column t is key 2t, t + 4 is key 2t + 1), NEG_INF masks, l floored
+    at 1e-20, and rows that see no key divided by Sk padded to block_k.
+    Every tile is visited: the kernel's skips change no row that sees a
+    key."""
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    tile = fa.TILE_K
+    nt = -(-sk // tile)
+    k = np.pad(k, ((0, 0), (0, nt * tile - sk), (0, 0)))
+    v = np.pad(v, ((0, 0), (0, nt * tile - sk), (0, 0)))
+    order = np.concatenate([8 * j + np.r_[0:8:2, 1:8:2] for j in range(tile // 8)])
+    qpos = np.arange(sq)[:, None]
+    scale = np.float32(1.0 / np.sqrt(d))
+    acc = np.zeros((bh, sq, dv), np.float32)
+    m = np.full((bh, sq, 1), fa.NEG_INF, np.float32)
+    l = np.zeros((bh, sq, 1), np.float32)
+    for k0 in range(0, nt * tile, tile):
+        kb, vb = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = matmul(q, kb.transpose(0, 2, 1)) * scale
+        kpos = k0 + np.arange(tile)[None, :]
+        keep = kpos < sk
+        if causal:
+            keep = keep & (kpos <= qpos)
+        if window is not None:
+            keep = keep & (kpos > qpos - window)
+        s = np.where(keep, s, np.float32(fa.NEG_INF))
+        m_new = np.maximum(m, s.max(axis=-1, keepdims=True))
+        p = np.exp(s - m_new)
+        corr = np.exp(m - m_new)
+        l = l * corr + p.sum(axis=-1, keepdims=True)
+        acc = acc * corr + matmul(p[..., order], vb[:, order])
+        m = m_new
+    sk_pad = -(-sk // min(block_k, sk)) * min(block_k, sk)
+    l = np.where(m == np.float32(fa.NEG_INF), np.float32(sk_pad), l)
+    return acc / np.maximum(l, np.float32(1e-20))
+
+
+# D = 128, Sq = Sk = 512, causal: the head width of the models the card
+# path serves, at a length where one TF32 product's error shows.
+WIDE = (2, 512, 512, 128, 128, True, None, 256, 512)
+
+
+def _pallas(q, k, v, causal, window, bq, bk):
+    return np.asarray(jfa.flash_attention_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              causal=causal, window=window, block_q=bq,
+                                              block_k=bk, interpret=True))
+
+
+@pytest.mark.parametrize("rounding", sorted(ROUNDINGS))
+@pytest.mark.parametrize("case", CASES + [WIDE], ids=str)
+def test_split_tf32_attention_matches_pallas(case, rounding):
+    bh, sq, sk, d, dv, causal, window, bq, bk = case
+    q, k, v = _inputs(sum(case[:5]), bh, sq, sk, d, dv)
+    ref = _pallas(q, k, v, causal, window, bq, bk)
+    got = _kernel_attention(q, k, v, causal=causal, window=window, block_k=bk,
+                            matmul=lambda a, b: _split_matmul(a, b, ROUNDINGS[rounding]))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= ATOL
+
+
+def test_one_tf32_product_misses_the_gate():
+    """Without the split, TF32's 11 significant bits leave the result some
+    1e-4 from float32: over the kernel's 2e-5 gate (max|d| / max|ref|)."""
+    bh, sq, sk, d, dv, causal, window, bq, bk = WIDE
+    q, k, v = _inputs(sum(WIDE[:5]), bh, sq, sk, d, dv)
+    ref = _pallas(q, k, v, causal, window, bq, bk)
+    one = _kernel_attention(q, k, v, causal=causal, window=window, block_k=bk,
+                            matmul=_tf32_matmul)
+    split = _kernel_attention(q, k, v, causal=causal, window=window, block_k=bk,
+                              matmul=_split_matmul)
+    rel = lambda x: np.abs(x - ref).max() / np.abs(ref).max()  # noqa: E731
+    assert rel(one) > ATOL
+    assert rel(split) <= ATOL / 20

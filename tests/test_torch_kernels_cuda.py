@@ -182,6 +182,11 @@ FLASH_CASES = [
     (2, 200, 130, 192, 128, True, 70, 256, 512),  # MLA widths, window, ragged
     (1, 129, 300, 256, 256, False, None, 256, 512),  # the head-size limit
     (2, 40, 12, 8, 8, False, 6, 16, 8),  # rows 17.. see no key
+    (2, 150, 170, 100, 72, True, None, 64, 64),  # D, Dv not multiples of 8: zero padding
+    (1, 70, 90, 37, 19, False, 50, 32, 64),  # D, Dv odd: 4-byte copies, window
+    (2, 100, 77, 64, 256, True, None, 256, 512),  # Dv 256: 32-key tiles, ragged Sk
+    (2, 300, 333, 128, 128, True, 100, 128, 128),  # Sk not a multiple of 64, window
+    (300, 70, 70, 32, 32, True, None, 64, 64),  # BH over 132 SMs: blocks queue
 ]
 
 
@@ -209,11 +214,32 @@ def test_cuda_flash_attention_raises_on_what_the_kernel_refuses(cuda):
     q = torch.zeros(1, 8, 128, device=cuda)
     out = torch.empty_like(q)
     k.reset_launches()
-    with pytest.raises(RuntimeError, match="CUDA error"):  # nj = 1 covers only dv <= 16
+    with pytest.raises(RuntimeError, match="CUDA error"):  # nv = 1 covers only dv <= 8
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
                q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 8, 8, 128, 128, 1, 0, 0,
                1.0, 8, 1, fa.THREADS, fa.flash_smem_bytes(128, 128))
     assert k.LAUNCHES["flash_attention_fwd"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_takes_rows_off_16_byte_alignment(cuda):
+    """Tensors that start 4 bytes past an aligned address take the kernel's
+    4-byte copies; the result is the same function."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def shifted(*shape):
+        return torch.randn(math.prod(shape) + 1, generator=g, device=cuda)[1:].view(*shape)
+
+    q, kk, v = shifted(3, 96, 64), shifted(3, 120, 64), shifted(3, 120, 32)
+    assert q.data_ptr() % 16 != 0
+    opts = dict(causal=True, window=50, block_q=64, block_k=64)
+    got = fa.flash_attention_fwd(q, kk, v, **opts)
+    assert _rel(got, fa.flash_attention_plain(q, kk, v, **opts)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_shares_an_sm_between_two_blocks_at_head_128(cuda):
+    assert fa.flash_blocks_per_sm(128, 128, cuda.index or 0) >= 2
 
 
 @pytest.mark.cuda
