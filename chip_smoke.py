@@ -15,6 +15,9 @@ Phases, each printing one JSON line:
              against the host's cos/sin, and FMA contraction over up to 11
              stages); with the kernel's, the plain version's and the
              ``torch.fft`` yardstick's median times and the HBM bound;
+             for fft_fused and rfft_fused (radix 4: the register-pass
+             panel) also the passes, shared-memory exchanges and barriers
+             per row and the recorded time of the stage-at-a-time panel;
    kernel  — the same for fft_two_pass, the kernels that fft_fused,
              rfft_fused and irfft_fused launch on rows over one block
              (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex rows,
@@ -215,6 +218,10 @@ MIXTRAL = {"heads": 8, "seq": 8192, "head_dim": 128, "window": 4096}
 # xlstm-350m (src/repro/configs/xlstm_350m.py): D 1024, 4 sLSTM heads.
 XLSTM = {"batch": 8, "seq": 4096, "d": 1024}
 STAGED = (8192, 2048)
+# The radix-4 times of fft_fused and rfft_fused on (8192, 2048) with the
+# stage-at-a-time panel they ran before the register passes (PERF.md §6,
+# NVIDIA H100 80GB HBM3, 700.00 W); printed beside this run's times.
+STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118}
 # Rows over one block: FT-NMR free-induction decays of 256K complex points,
 # and 64K-sample real lines (radar range lines, spectroscopy).
 TWO_PASS_COMPLEX = (64, 2 ** 18)
@@ -296,6 +303,17 @@ def kernel_phase(torch, k, card: str):
             "shape": list(x.shape),
             "by_radix": by_radix,
         }
+        if name in STAGE_PANEL_R4_MS:
+            real = name == "rfft_fused"
+            emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 4)",
+                  "shape": list(x.shape), "passes_per_row": len(k.regpass_radices(
+                      n // 2 if real else n)),
+                  "exchanges_per_row": k.regpass_exchanges(n, real=real),
+                  "barriers_per_row": k.regpass_barriers(n, real=real),
+                  "mirror_bins_paired_in_registers": (k.rfft_pairs_in_registers(n // 2)
+                                                      if real else None),
+                  "ms": r4["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R4_MS[name],
+                  "library_ms": rows[name]["library_ms"], "bound_ms": bound_ms})
         del x
         torch.cuda.empty_cache()
     return rows

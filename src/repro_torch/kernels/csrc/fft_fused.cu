@@ -11,17 +11,36 @@
 // below the card's float32 rate per byte moved.
 //
 // Design: one block per tile of rows (the host census picks the tile, see
-// repro_torch/kernels/fft_radix2.py). The block loads its rows with
-// neighbouring threads on neighbouring addresses, runs every Stockham stage
-// in shared memory (stockham.cuh), and stores once, so the transform costs
-// one HBM round trip, as the Pallas kernel's one VMEM residency did. The
-// grid takes any batch: the last block masks the rows past the batch. The
-// real kernels read the N reals of a row as N/2 packed complex values (the
-// even/odd pack is a reinterpretation, not a copy) and recombine straight
-// from shared memory into the output row.
+// repro_torch/kernels/fft_radix2.py), so the transform costs one HBM round
+// trip, as the Pallas kernel's one VMEM residency did. The grid takes any
+// batch: the last block masks the rows past the batch. The real kernels
+// read the N reals of a row as N/2 packed complex values (the even/odd pack
+// is a reinterpretation, not a copy).
+//
+// Radix 4 (fft_fused, rfft_fused): the register-pass panel of
+// stockham_regs.cuh. Each pass holds 16 values a thread and does two
+// radix-4 layers in registers per exchange through shared memory; the first
+// pass loads straight from HBM and the last stores straight to HBM. A
+// 2048-point row is three passes, two exchanges and three barriers.
+// rfft_fused's last pass pairs each bin with its mirror in registers and
+// recombines there where its radix is at most 8 (half rows of 2^9, 2^10,
+// 2^11 and 2^13: its 1024-point half row also takes three passes, two
+// exchanges and three barriers); on other half rows the last pass writes
+// the half spectrum to shared memory and the recombination reads it back.
+// One instance per line length, so that every stride, shift and pass is a
+// compile-time constant; blocks of up to 256 threads (every row of up to
+// 4096 values in the census's tiles) may use more than the 64 registers a
+// thread of a 1024-thread block has.
+//
+// Radix 2, and irfft_fused at both radices: the block stages its rows in
+// shared memory, runs every Stockham stage there (stockham.cuh), and stores
+// once; irfft_fused untangles on the way in.
 #include <cuda_runtime.h>
 
+#include <utility>
+
 #include "stockham.cuh"
+#include "stockham_regs.cuh"
 
 namespace repro {
 namespace {
@@ -95,6 +114,187 @@ rfft_fused_kernel(const float2* __restrict__ x,
   }
 }
 
+// Threads a register-pass block may have on lines of 2^log_n values: the
+// census's tiles hold at most 4096 values (256 threads) unless one line is
+// longer.
+__host__ __device__ constexpr int regs_max_threads(int log_n) {
+  return log_n > 12 ? (1 << log_n) / regs::kValues : 256;
+}
+
+// Radix 4: fft_fused on the register-pass panel, rows of n = 2^LOG_N,
+// HBM -> registers -> HBM. out = conj_out(panel(conj_in(x))) * scale.
+template <int LOG_N>
+__global__ void __launch_bounds__(regs_max_threads(LOG_N))
+fft_regs_kernel(const float2* __restrict__ x,
+    float2* __restrict__ y,
+    int batch,
+    int log_rows,
+    int conj,
+    float scale) {
+  extern __shared__ float2 smem[];
+  const int P = 1 << (LOG_N + log_rows);
+  float2* rom = smem + regs::padded(P);
+  regs::build_rom(rom, 1 << (LOG_N - 1));
+  const regs::HbmRows<LOG_N> rows{x, y, static_cast<long long>(blockIdx.x) << log_rows, batch,
+                                  conj, scale};
+  regs::panel<LOG_N, LOG_N - 1>(smem, P, rom, rows, rows);
+}
+
+// True where rfft_fused's last pass pairs mirror groups in registers: a
+// last pass of radix R <= 8 (two or more groups a thread) over a span l of
+// 256 or more (m = 2^9, 2^10, 2^11, 2^13).
+__host__ __device__ constexpr bool rfft_pairs_in_registers(int log_m) {
+  return regs::pass_count(log_m) >= 3 && regs::last_log_radix(log_m) <= 3;
+}
+
+// Input j of group p times W_{R l}^{j p} = rom_twiddle(j e1), of group
+// l - p times W_R^j conj(W_{R l}^{j p}), of group l/2 (p0) times W_{2R}^j.
+template <int R, int J = 1>
+__device__ __forceinline__ void twiddle_pair(float2* va, float2* vb, const float2* rom, int e1,
+                                             int half, bool p0) {
+  if constexpr (J < R) {
+    const float2 wa = regs::rom_twiddle(rom, J * e1, half);
+    va[J] = cmul(va[J], wa);
+    const float2 wb = p0 ? regs::w16<(8 / R) * J>() : regs::mul_w16<(16 / R) * J>(cconj(wa));
+    vb[J] = cmul(vb[J], wb);
+    twiddle_pair<R, J + 1>(va, vb, rom, e1, half, p0);
+  }
+}
+
+// rfft_fused's last pass and recombination in registers. Bin k = t + c l of
+// the half spectrum comes out of group t's output c, and its mirror
+// m - k = (l - t) + (R-1-c) l out of group l - t's output R-1-c. So each
+// thread takes the group pair (p, l - p), p < l/2, and recombines both
+// bins of each pair without a further exchange: Y[k] = Xe + w Xo and
+// Y[m-k] = conj(Xe - w Xo), w = W_{2m}^k. The pair p = 0 holds the groups
+// 0 and l/2, each its own mirror, and also writes Y[m]. The lines are
+// plain here (after a middle pass), so group p's inputs t + j l and group
+// l - p's, 16 consecutive values descending across a half-warp, each fall
+// in 16 bank pairs (lane p = 0's l/2 + j l in the one the others leave).
+// Twiddles: W_{R l}^{j p} from the ROM; group l - p's are W_R^j conj of
+// those, group l/2's the constants W_{2R}^j.
+template <int LOG_M>
+__device__ __forceinline__ void rfft_last_pass_paired(const float2* buf, const float2* rom,
+                                                      float2* __restrict__ y, long long row0,
+                                                      int batch) {
+  using namespace regs;
+  constexpr int NP = pass_count(LOG_M);
+  constexpr int LR = last_log_radix(LOG_M);
+  constexpr int R = 1 << LR;
+  constexpr int LOG_L = 4 * (NP - 1);
+  constexpr int l = 1 << LOG_L;
+  constexpr int m = 1 << LOG_M;
+  constexpr int kShift = LOG_M + 1 - LR - LOG_L;  // ROM: W_{2m}^j, j < m
+#pragma unroll
+  for (int i = 0; i < kValues / (2 * R); ++i) {
+    const int pp = threadIdx.x + i * blockDim.x;
+    const int line = pp >> (LOG_L - 1);
+    const int p = pp & (l / 2 - 1);
+    const float2* in_a = buf + (line << LOG_M) + p;
+    const float2* in_b = buf + (line << LOG_M) + (p == 0 ? l / 2 : l - p);
+    float2 va[R], vb[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      va[j] = in_a[j * l];
+      vb[j] = in_b[j * l];
+    }
+    twiddle_pair<R>(va, vb, rom, p << kShift, m, p == 0);
+    dft<R>(va);
+    dft<R>(vb);
+    if (row0 + line < batch) {
+      float2* out = y + (row0 + line) * (m + 1);
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const float2 za = va[out_reg<R>(c)];
+        const float2 zm = p == 0 ? va[out_reg<R>((R - c) % R)] : vb[out_reg<R>(R - 1 - c)];
+        const float2 w = rom[slot(p) + c * padded(l)];
+        const float2 xe = make_float2(0.5f * (za.x + zm.x), 0.5f * (za.y - zm.y));
+        const float2 xo = make_float2(0.5f * (za.y + zm.y), -0.5f * (za.x - zm.x));
+        const float2 tw = cmul(w, xo);
+        out[p + c * l] = cadd(xe, tw);
+        if (p != 0) {
+          out[m - p - c * l] = cconj(csub(xe, tw));
+        } else {
+          const float2 zb = vb[out_reg<R>(c)];
+          out[l / 2 + c * l] = recombine(zb, cconj(vb[out_reg<R>(R - 1 - c)]),
+                                         rom[slot(l / 2 + c * l)]);
+        }
+      }
+      if (p == 0) out[m] = recombine(va[0], cconj(va[0]), make_float2(-1.f, 0.f));
+    }
+  }
+}
+
+// Radix 4: rfft_fused on the register-pass panel. x: (B, 2m) reals read as
+// (B, m) packed complex, m = 2^LOG_M; y: (B, m+1), Y[k] = Xe + W_{2m}^k Xo
+// from z[k] and conj z[m-k]. Where rfft_pairs_in_registers the last pass
+// recombines in registers; elsewhere it leaves the half spectrum z in
+// shared memory and the recombination reads it back.
+template <int LOG_M>
+__global__ void __launch_bounds__(regs_max_threads(LOG_M))
+rfft_regs_kernel(const float2* __restrict__ x,
+    float2* __restrict__ y,
+    int batch,
+    int log_rows) {
+  extern __shared__ float2 smem[];
+  using regs::slot;
+  constexpr int m = 1 << LOG_M;
+  const int P = m << log_rows;
+  float2* buf = smem;
+  float2* rom = smem + regs::padded(P);  // W_{2m}^j, j < m
+  regs::build_rom(rom, m);
+  const long long row0 = static_cast<long long>(blockIdx.x) << log_rows;
+  const regs::HbmRows<LOG_M> rows{x, nullptr, row0, batch, 0, 1.f};
+  if constexpr (rfft_pairs_in_registers(LOG_M)) {
+    regs::panel_head<LOG_M, LOG_M>(buf, P, rom, rows);
+    rfft_last_pass_paired<LOG_M>(buf, rom, y, row0, batch);
+    return;
+  }
+  // The half spectrum in shared memory: plain after two or more passes,
+  // padded after a single one. Bin k of each line (k < m) from z[k] and
+  // z[(m - k) mod m]; the thread of k = 0 also writes Y[m]. That thread's
+  // mirror is its own z[0]: it reads z[m-1] with its neighbour (one
+  // address) rather than wrap round to z[0], so the mirrored reads of a
+  // half-warp stay consecutive.
+  using Lines = regs::SmemLines<LOG_M, regs::pass_count(LOG_M) == 1>;
+  regs::panel<LOG_M, LOG_M>(buf, P, rom, rows, Lines{buf});
+  __syncthreads();
+  for (int it = threadIdx.x; it < P; it += blockDim.x) {
+    const int line = it >> LOG_M;
+    const int k = it & (m - 1);
+    const float2 zk = buf[Lines::at(it)];
+    const float2 zr = buf[Lines::at((line << LOG_M) + m - max(k, 1))];
+    const float2 zm = cconj(k == 0 ? zk : zr);
+    if (row0 + line < batch) {
+      float2* out = y + (row0 + line) * (m + 1);
+      const float2 w = rom[slot(k)];
+      out[k] = regs::recombine(zk, zm, w);
+      if (k == 0) out[m] = regs::recombine(zk, zm, make_float2(-w.x, -w.y));
+    }
+  }
+}
+
+using FftRegsKernel = void (*)(const float2*, float2*, int, int, int, float);
+using RfftRegsKernel = void (*)(const float2*, float2*, int, int);
+
+// One instance per line length: fft_fused on 2 ... 2^14, rfft_fused on half
+// rows of 1 ... 2^13 (the one-block rows of the census).
+constexpr int kRegsMaxLog = 14;
+
+template <int... I>
+FftRegsKernel fft_regs_kernel_for(int log_n, std::integer_sequence<int, I...>) {
+  FftRegsKernel kernel = nullptr;
+  ((log_n == I + 1 ? (kernel = fft_regs_kernel<I + 1>, 0) : 0), ...);
+  return kernel;
+}
+
+template <int... I>
+RfftRegsKernel rfft_regs_kernel_for(int log_m, std::integer_sequence<int, I...>) {
+  RfftRegsKernel kernel = nullptr;
+  ((log_m == I ? (kernel = rfft_regs_kernel<I>, 0) : 0), ...);
+  return kernel;
+}
+
 // x: (B, m+1) complex half spectra; y: (B, 2m) reals written as (B, m)
 // packed complex. The inverse half-size transform runs on the forward
 // panel by conjugation and is scaled by 1/m.
@@ -155,14 +355,26 @@ extern "C" int repro_fft_fused(const void* x, void* y, int batch, int n, int rad
                                void* stream) {
   if (batch < 1 || n < 2 || !is_pow2(n) || !is_pow2(rows) || (radix != 2 && radix != 4))
     return cudaErrorInvalidValue;
+  const int grid = (batch + rows - 1) / rows;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const float2*>(x);
+  auto* out = static_cast<float2*>(y);
+  if (radix == 4) {
+    if (n > (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
+    if (!repro::regs::geometry_ok(n * rows, threads, smem, n / 2))
+      return cudaErrorInvalidConfiguration;
+    const auto kernel = repro::fft_regs_kernel_for(
+        host_log2(n), std::make_integer_sequence<int, repro::kRegsMaxLog>{});
+    cudaError_t err = repro::prepare(kernel, device, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows), conj, scale);
+    return cudaGetLastError();
+  }
   if (!geometry_ok(n * rows, threads, smem, n / 2)) return cudaErrorInvalidConfiguration;
-  auto kernel = radix == 4 ? repro::fft_fused_kernel<4> : repro::fft_fused_kernel<2>;
+  const auto kernel = repro::fft_fused_kernel<2>;
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  const int grid = (batch + rows - 1) / rows;
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), batch, host_log2(n),
-      host_log2(rows), conj, scale);
+  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(n), host_log2(rows), conj, scale);
   return cudaGetLastError();
 }
 
@@ -171,14 +383,26 @@ extern "C" int repro_rfft_fused(const void* x, void* y, int batch, int n, int ra
   if (batch < 1 || n < 2 || !is_pow2(n) || !is_pow2(rows) || (radix != 2 && radix != 4))
     return cudaErrorInvalidValue;
   const int m = n / 2;
+  const int grid = (batch + rows - 1) / rows;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const float2*>(x);
+  auto* out = static_cast<float2*>(y);
+  if (radix == 4) {
+    if (m >= (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
+    if (!repro::regs::geometry_ok(m * rows, threads, smem, m))
+      return cudaErrorInvalidConfiguration;
+    const auto kernel = repro::rfft_regs_kernel_for(
+        host_log2(m), std::make_integer_sequence<int, repro::kRegsMaxLog>{});
+    cudaError_t err = repro::prepare(kernel, device, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows));
+    return cudaGetLastError();
+  }
   if (!geometry_ok(m * rows, threads, smem, m + 1)) return cudaErrorInvalidConfiguration;
-  auto kernel = radix == 4 ? repro::rfft_fused_kernel<4> : repro::rfft_fused_kernel<2>;
+  const auto kernel = repro::rfft_fused_kernel<2>;
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  const int grid = (batch + rows - 1) / rows;
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), batch, host_log2(m),
-      host_log2(rows));
+  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(m), host_log2(rows));
   return cudaGetLastError();
 }
 

@@ -9,14 +9,18 @@ live here:
 * **The census.** The shared memory and threads each CUDA kernel really
   uses, derived from ``csrc/``: a block holds its P complex values (8 bytes
   each) once, because each stage is done in place through registers, plus
-  one twiddle ROM. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``,
+  one twiddle ROM; for ``fft_fused`` and ``rfft_fused`` both padded by one
+  slot per 16 (:func:`smem_slot`), the layout of their radix-4
+  register-pass panel. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``,
   the two-pass geometry, ``kernels.ops`` and the engines' working-set gate
   all read it. ``fft_fits_fused`` is the reference's envelope of the 1D
   kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
-  step for step the Pallas panels, ``_two_pass_panel`` (the four-step
-  FFT of ``csrc/fft_two_pass.cu``), and ``*_plain`` around them. They are
+  step for step the Pallas panels, ``_regpass_panel`` (the register passes
+  of ``csrc/stockham_regs.cuh``, which ``fft_fused`` and ``rfft_fused`` run
+  at radix 4), ``_two_pass_panel`` (the four-step FFT of
+  ``csrc/fft_two_pass.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
 * **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
   ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``. A CPU tensor takes the plain version. A CUDA tensor
@@ -70,8 +74,13 @@ __all__ = [
     "rfft_fused",
     "rfft_fused_plain",
     "rfft_smem_bytes",
+    "regpass_barriers",
+    "regpass_exchanges",
+    "regpass_radices",
+    "rfft_pairs_in_registers",
     "rfft_two_pass_plain",
     "row_smem_bytes",
+    "smem_slot",
     "two_pass_geometry",
 ]
 
@@ -99,20 +108,38 @@ def _block_bytes(elems: int, rom: int) -> int:
     return (elems + rom) * _COMPLEX_BYTES
 
 
+def smem_slot(i: int) -> int:
+    """Shared-memory slot of value ``i`` in the padded layout of the
+    register-pass panel (``slot`` in ``csrc/stockham_regs.cuh``): one pad
+    slot after every 16 values, which keeps the first pass's stride-16
+    writes free of bank conflicts. The block is sized for its values and
+    its twiddle ROM padded alike; later passes use the plain layout."""
+    return i + (i >> 4)
+
+
+def _padded_block_bytes(elems: int, rom: int) -> int:
+    """A register-pass block: its values and its ROM, each padded."""
+    return (smem_slot(elems) + smem_slot(rom)) * _COMPLEX_BYTES
+
+
 def block_threads(elems: int) -> int:
     """Threads of a block holding ``elems`` values: min(16, elems) each."""
     return elems // min(ELEMS_PER_THREAD, elems)
 
 
 def fft_smem_bytes(n: int, rows: int = 1) -> int:
-    """``fft_fused``: ``rows`` rows of n values and a ROM of n/2 twiddles."""
-    return _block_bytes(rows * n, n // 2)
+    """``fft_fused``: ``rows`` rows of n values and a ROM of n/2 twiddles,
+    each padded for the radix-4 register-pass panel (the radix-2 panel
+    uses the unpadded part)."""
+    return _padded_block_bytes(rows * n, n // 2)
 
 
 def rfft_smem_bytes(n: int, rows: int = 1) -> int:
     """``rfft_fused``: ``rows`` packed rows of N/2 values and a ROM of
-    N/2+1 twiddles W_N^k, shared by the panel and the recombination."""
-    return _block_bytes(rows * (n // 2), n // 2 + 1)
+    N/2+1 twiddles W_N^k, shared by the panel and the recombination, each
+    padded as in :func:`fft_smem_bytes` (the register-pass panel reads
+    only N/2 of the twiddles, W_N^{N/2-k} being -conj W_N^k)."""
+    return _padded_block_bytes(rows * (n // 2), n // 2 + 1)
 
 
 def irfft_smem_bytes(n: int, rows: int = 1) -> int:
@@ -321,10 +348,156 @@ def _stockham_panel_r4(re: torch.Tensor, im: torch.Tensor, n: int):
     return yr.reshape(tb, n), yi.reshape(tb, n)
 
 
+def regpass_radices(n: int) -> Tuple[int, ...]:
+    """Radices of the register passes over a line of n values (``panel`` in
+    ``csrc/stockham_regs.cuh``): passes of 16, the last one taking what is
+    left (8, 4 or 2); a line of at most 16 values is one pass of radix n."""
+    log_n = n.bit_length() - 1
+    if log_n <= 4:
+        return (n,)
+    rest = log_n % 4
+    return (16,) * (log_n // 4) + ((1 << rest,) if rest else ())
+
+
+def rfft_pairs_in_registers(m: int) -> bool:
+    """True where the radix-4 ``rfft_fused`` on half rows of m values pairs
+    the mirror bins k and m - k in registers (``rfft_pairs_in_registers``
+    in ``csrc/fft_fused.cu``): a last pass of radix at most 8 over a span
+    of at least 256 (m = 2^9, 2^10, 2^11, 2^13). Elsewhere its last pass
+    writes the half spectrum to shared memory for the recombination."""
+    radices = regpass_radices(m)
+    return len(radices) >= 3 and radices[-1] <= 8
+
+
+def regpass_exchanges(n: int, *, real: bool = False) -> int:
+    """Exchanges through shared memory of the radix-4 ``fft_fused`` on a
+    row of n (``real``: ``rfft_fused``, on its half row of n/2): the passes
+    less one, as the first pass loads from HBM and the last stores to HBM,
+    plus one for ``rfft_fused``'s recombination where it does not pair the
+    mirror bins in registers."""
+    m = n // 2 if real else n
+    spilled = real and not rfft_pairs_in_registers(m)
+    return len(regpass_radices(m)) - 1 + int(spilled)
+
+
+def regpass_barriers(n: int, *, real: bool = False) -> int:
+    """Block barriers per row tile of the same kernels: one after the first
+    pass, two in each middle pass (in place: read, barrier, write, barrier
+    before the next read), one before the last; where ``rfft_fused``'s last
+    pass writes shared memory it is in place too, and one more precedes
+    the recombination."""
+    m = n // 2 if real else n
+    passes = len(regpass_radices(m))
+    if real and not rfft_pairs_in_registers(m):
+        return 2 * passes - 1 if passes > 1 else 1
+    return max(2 * passes - 3, 0)
+
+
+# cos and sin of 2 pi p / 16 as the kernel's float32 constants.
+_C16 = [float(torch.tensor(math.cos(2 * math.pi * p / 16), dtype=torch.float32))
+        for p in range(16)]
+_S16 = [float(torch.tensor(math.sin(2 * math.pi * p / 16), dtype=torch.float32))
+        for p in range(16)]
+
+
+def _mul_w16(xr, xi, p: int):
+    """(xr, xi) * W_16^p as ``mul_w16`` computes it: quarter turns are
+    swaps, eighth turns two products."""
+    p &= 15
+    if p == 0:
+        return xr, xi
+    if p == 4:
+        return xi, -xr
+    if p == 8:
+        return -xr, -xi
+    if p == 12:
+        return -xi, xr
+    c2 = _C16[2]
+    if p == 2:
+        return c2 * (xr + xi), c2 * (xi - xr)
+    if p == 6:
+        return c2 * (xi - xr), -c2 * (xr + xi)
+    c, s = _C16[p], _S16[p]
+    return xr * c + xi * s, xi * c - xr * s
+
+
+def _bfly4(a):
+    """The radix-4 butterfly on four (re, im) pairs, as ``bfly4``."""
+    (a0r, a0i), (a1r, a1i), (a2r, a2i), (a3r, a3i) = a
+    s02r, s02i, d02r, d02i = a0r + a2r, a0i + a2i, a0r - a2r, a0i - a2i
+    s13r, s13i, d13r, d13i = a1r + a3r, a1i + a3i, a1r - a3r, a1i - a3i
+    return [(s02r + s13r, s02i + s13i), (d02r + d13i, d02i - d13r),
+            (s02r - s13r, s02i - s13i), (d02r - d13i, d02i + d13r)]
+
+
+def _dft_regs(v, radix: int):
+    """The R-point DFT of the list v of R (re, im) pairs in the kernel's
+    layers (``dft`` in ``csrc/stockham_regs.cuh``): R = A·B, j = B·j1 + j2,
+    A-point DFTs over j1, the inner twiddle W_R^{j2·c1}, B-point DFTs over
+    j2; returns the outputs in natural order."""
+    if radix == 1:
+        return v
+    if radix == 2:
+        (ar, ai), (br, bi) = v
+        return [(ar + br, ai + bi), (ar - br, ai - bi)]
+    if radix == 4:
+        return _bfly4(v)
+    b = radix // 4  # A = 4, B = 2 (R = 8) or 4 (R = 16)
+    y = [_bfly4([v[b * j1 + j2] for j1 in range(4)]) for j2 in range(b)]  # y[j2][c1]
+    y = [[_mul_w16(*y[j2][c1], (16 // radix) * j2 * c1) for c1 in range(4)]
+         for j2 in range(b)]
+    out = [None] * radix
+    for c1 in range(4):
+        col = [y[j2][c1] for j2 in range(b)]
+        col = _bfly4(col) if b == 4 else _dft_regs(col, 2)
+        for c2 in range(b):
+            out[c1 + 4 * c2] = col[c2]
+    return out
+
+
+def _regpass_panel(re: torch.Tensor, im: torch.Tensor, n: int):
+    """The register-pass panel of the radix-4 ``fft_fused`` and
+    ``rfft_fused`` kernels over a (tile, N) panel, step for step: passes of
+    :func:`regpass_radices`; in a pass of radix R over span l, group t of a
+    line takes a_j = in[t + j·N/R] · W_{R·l}^{j·k} (k = t mod l, the ROM
+    entry W_N^{e mod N/2} at e = j·k·N/(R·l), negated past the half turn),
+    runs the R-point DFT of :func:`_dft_regs` and writes output c to
+    q·R·l + c·l + k (q = t / l)."""
+    tb = re.shape[0]
+    half = max(n // 2, 1)
+    ang = torch.arange(half, dtype=torch.float64, device=re.device) * (-2.0 * math.pi / n)
+    rom_r, rom_i = torch.cos(ang).float(), torch.sin(ang).float()
+    yr, yi = re.reshape(tb, n), im.reshape(tb, n)
+    l = 1
+    for radix in regpass_radices(n):
+        s = n // radix
+        ar, ai = yr.reshape(tb, radix, s), yi.reshape(tb, radix, s)
+        if l > 1:
+            k = torch.arange(s, device=re.device) % l
+            e = torch.arange(radix, device=re.device).reshape(radix, 1) * k * (n // (radix * l))
+            sign = torch.where(e >= half, -1.0, 1.0)
+            wr, wi = rom_r[e % half] * sign, rom_i[e % half] * sign
+            ar, ai = ar * wr - ai * wi, ar * wi + ai * wr
+        out = _dft_regs([(ar[:, j], ai[:, j]) for j in range(radix)], radix)
+        br = torch.stack([o[0] for o in out], dim=1)  # [b, c, t], t = q·l + k
+        bi = torch.stack([o[1] for o in out], dim=1)
+        yr = br.reshape(tb, radix, s // l, l).transpose(1, 2).reshape(tb, n)
+        yi = bi.reshape(tb, radix, s // l, l).transpose(1, 2).reshape(tb, n)
+        l *= radix
+    return yr, yi
+
+
 def _panel(radix: int):
     if radix not in (2, 4):
         raise ValueError(f"radix must be 2 or 4, got {radix}")
     return _stockham_panel_r4 if radix == 4 else _stockham_panel
+
+
+def _one_block_panel(radix: int):
+    """The panel of the one-block ``fft_fused`` and ``rfft_fused`` kernels:
+    the register passes at radix 4, the Stockham stages at radix 2."""
+    _panel(radix)
+    return _regpass_panel if radix == 4 else _stockham_panel
 
 
 def _two_pass_panel(re: torch.Tensor, im: torch.Tensor, n: int, panel):
@@ -356,13 +529,15 @@ def _row_panel(radix: int, two_pass: bool):
     return functools.partial(_two_pass_panel, panel=panel) if two_pass else panel
 
 
-def _rfft_panel(x: torch.Tensor, n: int, radix: int, *, two_pass: bool = False):
+def _rfft_panel(x: torch.Tensor, n: int, radix: int, *, two_pass: bool = False,
+                panel=None):
     """Real (tile, N) -> half spectrum (tile, N/2+1) re/im: pack, half-size
-    panel, Hermitian recombination Y[k] = Xe[k] + W_N^k Xo[k]."""
+    panel (``panel``, else the Stockham one of ``radix``), Hermitian
+    recombination Y[k] = Xe[k] + W_N^k Xo[k]."""
     m = n // 2
     zr = x[:, 0::2]
     zi = x[:, 1::2]
-    zr, zi = _row_panel(radix, two_pass)(zr, zi, m)
+    zr, zi = (panel or _row_panel(radix, two_pass))(zr, zi, m)
     zkr = torch.cat([zr, zr[:, :1]], dim=-1)
     zki = torch.cat([zi, zi[:, :1]], dim=-1)
     zmkr = torch.cat([zr[:, :1], torch.flip(zr[:, 1:], dims=(-1,)), zr[:, :1]], dim=-1)
@@ -431,13 +606,15 @@ def _fft_plain(x: torch.Tensor, panel, inverse: bool) -> torch.Tensor:
 
 
 def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
-    """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor."""
-    return _fft_plain(x, _panel(radix), inverse)
+    """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor: the
+    register passes at radix 4, the Stockham stages at radix 2."""
+    return _fft_plain(x, _one_block_panel(radix), inverse)
 
 
 def rfft_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
-    """Plain version of :func:`rfft_fused`: (B, N) float32 -> (B, N/2+1)."""
-    yr, yi = _rfft_panel(x, x.shape[-1], radix)
+    """Plain version of :func:`rfft_fused`: (B, N) float32 -> (B, N/2+1),
+    on the panel of :func:`fft_fused_plain`."""
+    yr, yi = _rfft_panel(x, x.shape[-1], radix, panel=_one_block_panel(radix))
     return _complex(yr, yi)
 
 

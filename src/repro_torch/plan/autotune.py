@@ -15,11 +15,17 @@ read once and written once per round trip — one round trip for a row or
 a 2D frame that fits a block, two for a complex row over one block (the
 two-pass kernels) and three for a real one (plus its recombination or
 untangling), and a composed 2D frame adds its passes' round trips to one
-for the corner turns. Shared memory: every Stockham pass reads and writes
-the block's values once and ends on two barriers. The kernel's time is the larger of the two
-plus the engine's ``stage_overhead_s`` per pass, so the radix-4 panel, with
-about half the passes, wins wherever both fit, as the kernels' times on
-the card show (``chip_smoke.py``). The schedules and the CPU keep the
+for the corner turns. Shared memory: every pass reads and writes the
+block's values once. A stage-at-a-time Stockham pass (radix 2; the
+two-pass kernels and ``fft2_fused``) does one butterfly stage, or two
+layers at radix 4. A one-block row at radix 4 runs the register-pass panel
+of ``csrc/stockham_regs.cuh``: four layers a pass, the first loaded from
+HBM and the last stored to HBM, so its exchanges through shared memory are
+its passes less one, plus one where a real row's recombination reads the
+half spectrum back from shared memory. The kernel's
+time is the larger of the two plus the engine's ``stage_overhead_s`` per
+pass, so the radix-4 kernels, with fewer passes, win wherever both fit, as
+the kernels' times on the card show (``chip_smoke.py``). The schedules and the CPU keep the
 reference's model: a fused kernel on a CPU tensor runs its plain version,
 modelled like its schedule plus call overheads.
 """
@@ -102,14 +108,23 @@ def _panel_passes(n: int, radix: int) -> int:
     return stages if radix == 2 else stages // 2 + stages % 2
 
 
-def _row_cost(n: int, radix: int, real: bool) -> Tuple[int, int]:
-    """(HBM round trips, Stockham passes) of the 1D kernels on a row of n:
-    one block, or the two-pass kernels on the (n1, n2) view of the row (at
-    N/2 complex values when ``real``, plus one elementwise round trip)."""
-    from repro_torch.kernels.fft_radix2 import fft_fits_smem, fft_split  # lazy
+def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[int, int]:
+    """(HBM round trips, shared-memory passes) of the 1D kernels on a row of
+    n: one block (at radix 4 the register passes' exchanges, except for
+    ``irfft_fused``, the inverse real row, which keeps the Stockham stages
+    of radix 2), or the two-pass kernels on the (n1, n2) view of the row
+    (at N/2 complex values when ``real``, plus one elementwise round
+    trip)."""
+    from repro_torch.kernels.fft_radix2 import (  # lazy
+        fft_fits_smem,
+        fft_split,
+        regpass_exchanges,
+    )
 
     m = n // 2 if real else n
     if fft_fits_smem(n, real=real):
+        if radix == 4 and not (real and inverse):
+            return 1, regpass_exchanges(n, real=real)
         return 1, _panel_passes(m, radix)
     n1, n2 = fft_split(m)
     return 3 if real else 2, _panel_passes(n1, radix) + _panel_passes(n2, radix)
@@ -118,21 +133,22 @@ def _row_cost(n: int, radix: int, real: bool) -> Tuple[int, int]:
 def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
     """Modelled time of the fused kernels on the card: max(HBM, shared
     memory) over every launch the call makes, plus ``pass_s`` per
-    Stockham pass."""
+    shared-memory pass."""
     from repro_torch.kernels.ops import fft2_fits_budget  # lazy
 
     elem_bytes = 16.0 if key.precision == "double" else 8.0
     elems = float(np.prod(key.shape, dtype=np.int64))
     real = key.kind in _REAL_KINDS
+    inverse = key.direction == "inv"
     if key.kind in ("fft1d", "rfft1d"):
-        trips, passes = _row_cost(key.shape[-1], radix, real)
+        trips, passes = _row_cost(key.shape[-1], radix, real, inverse)
     else:
         h, w = key.shape[-2], key.shape[-1]
         if fft2_fits_budget(h, w, real=real):
             trips = 1
             passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
         else:
-            row_trips, row_passes = _row_cost(w, radix, real)
+            row_trips, row_passes = _row_cost(w, radix, real, inverse)
             col_trips, col_passes = _row_cost(h, radix, False)
             trips = row_trips + col_trips + 1  # + the two corner turns
             passes = row_passes + col_passes

@@ -45,7 +45,11 @@ def _rel(a, b):
 @pytest.mark.parametrize("radix", [2, 4])
 def test_cuda_kernels_match_plain_versions(cuda, radix):
     """Each kernel against its plain version, with odd batches so the
-    masked edge of the last block is exercised."""
+    masked edge of the last block is exercised. fft_fused (forward and
+    inverse) and rfft_fused take every one-block length, at a batch of 7
+    and of one row (blocks of fewer than 16 threads, and of exactly 16,
+    take their own recombination path at radix 4), and are also held to
+    torch.fft."""
     g = torch.Generator(device=cuda).manual_seed(radix)
 
     def crandn(*shape):
@@ -53,11 +57,19 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
                              torch.randn(*shape, generator=g, device=cuda))
 
     k.reset_launches()
+    for n in (2 ** p for p in range(1, 15)):
+        for batch in (7, 1):
+            x = crandn(batch, n)
+            for inverse in (False, True):
+                got = k.fft_fused(x, radix=radix, inverse=inverse)
+                assert _rel(got, k.fft_fused_plain(x, radix=radix, inverse=inverse)) <= TOL, n
+                ref = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+                assert _rel(got, ref) <= TOL, (n, inverse)
+            r = torch.randn(batch, n, generator=g, device=cuda)
+            got = k.rfft_fused(r, radix=radix)
+            assert _rel(got, k.rfft_fused_plain(r, radix=radix)) <= TOL, n
+            assert _rel(got, torch.fft.rfft(r)) <= TOL, n
     for n in (2, 8, 64, 2048, 16384):
-        x = crandn(7, n)
-        assert _rel(k.fft_fused(x, radix=radix), k.fft_fused_plain(x, radix=radix)) <= TOL
-        r = torch.randn(7, n, generator=g, device=cuda)
-        assert _rel(k.rfft_fused(r, radix=radix), k.rfft_fused_plain(r, radix=radix)) <= TOL
         y = crandn(7, n // 2 + 1)
         assert _rel(k.irfft_fused(y, radix=radix), k.irfft_fused_plain(y, radix=radix)) <= TOL
     for hw in ((2, 2), (8, 64), (128, 128)):
@@ -69,7 +81,7 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
         y = crandn(5, hw[0], hw[1] // 2 + 1)
         assert _rel(k.irfft2_fused(y, radix=radix),
                     k.irfft2_fused_plain(y, radix=radix)) <= TOL
-    assert k.LAUNCHES == {"fft_fused": 5, "rfft_fused": 5, "irfft_fused": 5, "fft2_fused": 3,
+    assert k.LAUNCHES == {"fft_fused": 56, "rfft_fused": 28, "irfft_fused": 5, "fft2_fused": 3,
                           "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
                           "flash_attention_fwd": 0, "slstm_scan": 0, "fft_two_pass": 0}
 

@@ -17,7 +17,7 @@ from repro.plan import plan as jplan
 from repro_torch import xfft
 from repro_torch.engines import get_engine, has_engine, iter_engines
 from repro_torch.plan import PlanCache, ProblemKey, estimate_plan, resolve_call
-from repro_torch.plan.autotune import variant_candidates
+from repro_torch.plan.autotune import _row_cost, variant_candidates
 from repro_torch.plan.plan import FFTPlan
 
 H100 = "NVIDIA H100 80GB HBM3"
@@ -52,6 +52,33 @@ def test_estimate_picks_the_radix4_kernel_on_the_card(kind, shape, dtype, direct
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype=dtype, direction=direction)
     assert estimate_plan(key).variant == "fused_r4"
+
+
+# chip_smoke's requests: (kind, shape, direction, dtype), each planned onto
+# the radix-4 kernels before their one-block rows moved to register passes.
+SMOKE_REQUESTS = [(kind, shape, direction, dtype) for kind, shape, dtype in SMOKE_KEYS
+                  for direction in ("fwd", "inv")]
+
+
+@pytest.mark.parametrize("kind,shape,direction,dtype", SMOKE_REQUESTS)
+def test_smoke_requests_keep_their_engine(kind, shape, direction, dtype):
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype=dtype, direction=direction)
+    assert estimate_plan(key).variant == "fused_r4"
+
+
+@pytest.mark.parametrize("n,radix,real,inverse,cost", [
+    (2048, 4, False, False, (1, 2)),   # fft_fused: 16·16·8, two exchanges
+    (2048, 4, True, False, (1, 2)),    # rfft_fused: 16·16·4, mirror bins paired
+    (8192, 4, True, False, (1, 3)),    # 16·16·16 and the recombination's exchange
+    (2048, 4, True, True, (1, 5)),     # irfft_fused keeps its five Stockham passes
+    (2048, 2, False, False, (1, 11)),  # radix 2: one pass a stage
+    (16, 4, False, False, (1, 0)),     # one pass, HBM to HBM
+    (2 ** 18, 4, False, False, (2, 10)),  # two-pass kernels: 512 x 512, 5 + 5
+    (2 ** 16, 4, True, False, (3, 8)),    # real two-pass: 256 x 128 at N/2
+])
+def test_row_cost_counts_the_kernels_shared_memory_passes(n, radix, real, inverse, cost):
+    assert _row_cost(n, radix, real, inverse) == cost
 
 
 @pytest.mark.parametrize("kind,shape", [("fft1d", (1, 2)), ("fft1d", (3, 8)),
