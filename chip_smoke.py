@@ -19,14 +19,25 @@ Phases, each printing one JSON line:
              panel) also the passes, shared-memory exchanges and barriers
              per row and the recorded time of the stage-at-a-time panel;
    kernel  — the same for fft_two_pass, the kernels that fft_fused,
-             rfft_fused and irfft_fused launch on rows over one block
-             (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex rows,
-             rfft and irfft on (256, 2^16) real rows, against the two-pass
-             plain versions to 2e-5 (18 stages), two launches per complex
-             call and three per real one; its bound is one HBM round trip
-             (the reference's single residency), and each case's phase line
-             also gives the floor of this design's two or three trips and
-             the time of each pass alone;
+             rfft_fused and irfft_fused launch at radix 2 on rows over one
+             block (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex
+             rows, rfft and irfft on (256, 2^16) real rows, against the
+             two-pass plain versions to 2e-5 (18 stages), two launches per
+             complex call and three per real one; its bound is one HBM
+             round trip (the reference's single residency), and each case's
+             phase line also gives the floor of this design's two or three
+             trips and the time of each pass alone;
+   kernel  — the same for fft_cluster, the kernel those wrappers launch at
+             radix 4 on the same rows and on the strip frames' rows
+             (rfft and irfft on (4096, 32768), the C 2 instance that
+             rfft2/irfft2 reach): one cluster of CTAs a row, holding
+             it in distributed shared memory, one HBM round trip and one
+             launch per call of every kind, against the cluster plain
+             versions to 2e-5; each case's line also gives the instance
+             (C CTAs of M values), the clusters the card holds at once
+             (``cudaOccupancyMaxActiveClusters``), ptxas's registers and
+             spills, and the rate the DSMEM exchange would need if it
+             took the whole kernel time;
    kernel  — the same for butterfly_stage on (8192, 2048) planes at every
              stage, flash_attention_fwd at llama3.2-3b's attention shape
              (24 heads of 128, 4096 tokens, causal, k/v repeated from 8 kv
@@ -53,7 +64,10 @@ Phases, each printing one JSON line:
              the same dominant bins. Rows over one block: fft/ifft on 64
              free-induction decays of 2^18 points, rfft/irfft on 256 real
              lines of 2^16, rfft2/irfft2 on (8, 512, 32768) strip frames;
-             each plans ``fused``/``fused_r4`` and launches fft_two_pass.
+             each plans ``fused_r4`` and launches fft_cluster and no
+             fft_two_pass; one more ifft on the decays, scoped to
+             ``xfft.config(variant="fused")``, launches fft_two_pass and no
+             fft_cluster.
 4. path    — the other entry points of ``repro_torch.kernels``, with the
              counts set to 0 just before and read just after:
              ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
@@ -201,6 +215,8 @@ KERNELS = {
                      "src/repro/kernels/fft_radix2.py:486"),
     "fft_two_pass": ("src/repro_torch/kernels/csrc/fft_two_pass.cu",
                      "src/repro/kernels/fft_radix2.py:279"),
+    "fft_cluster": ("src/repro_torch/kernels/csrc/fft_cluster.cu",
+                    "src/repro/kernels/fft_radix2.py:279"),
     "butterfly_stage": ("src/repro_torch/kernels/csrc/butterfly.cu",
                         "src/repro/kernels/butterfly.py:64"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -320,9 +336,9 @@ def kernel_phase(torch, k, card: str):
 
 
 def two_pass_phase(torch, k, card: str):
-    """fft_two_pass (fft_fused, rfft_fused and irfft_fused on rows over one
-    block) against its plain versions; returns its row. Each call must
-    launch it twice (complex) or three times (real)."""
+    """fft_two_pass (fft_fused, rfft_fused and irfft_fused at radix 2 on
+    rows over one block) against its plain versions; returns its row. Each
+    call must launch it twice (complex) or three times (real)."""
     import math
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -352,7 +368,7 @@ def two_pass_phase(torch, k, card: str):
     by_case = {}
     for name, (z, kernel, plain, library, nbytes, flops, trips) in cases.items():
         by_radix = {}
-        for radix in (2, 4):
+        for radix in (2,):
             before = k.LAUNCHES["fft_two_pass"]
             got = kernel(z, radix=radix)
             launched = k.LAUNCHES["fft_two_pass"] - before
@@ -375,27 +391,27 @@ def two_pass_phase(torch, k, card: str):
             if launched != trips:
                 raise AssertionError(f"fft_two_pass {name}: {launched} launches, not {trips}")
         bound_ms, bound_by = bound(card, nbytes, flops)
-        by_case[name] = {"shape": list(z.shape), "ms": by_radix["4"]["ms"],
-                         "plain_ms": by_radix["4"]["plain_ms"],
+        by_case[name] = {"shape": list(z.shape), "ms": by_radix["2"]["ms"],
+                         "plain_ms": by_radix["2"]["plain_ms"],
                          "library_ms": time_ms(lambda: library(z)), "bound_ms": bound_ms,
                          "bound_by": bound_by, "by_radix": by_radix}
         emit({"phase": "kernel", "kernel": "fft_two_pass", "case": name,
               "shape": list(z.shape), "bound_ms": bound_ms, "round_trips": trips,
               "floor_ms": trips * bound_ms})
-    # Where a complex call's time goes: each pass alone at radix 4, through
-    # the helpers the wrapper launches, beside the bytes one pass must move.
+    # Where a complex call's time goes: each pass alone, through the
+    # helpers the wrapper launches, beside the bytes one pass must move.
     from repro_torch.kernels import fft_radix2
 
     g = k.two_pass_geometry(nc)
     scratch, out = torch.empty_like(x), torch.empty_like(x)
     passes = {
         "columns": lambda: fft_radix2._column_pass(x, x.data_ptr(), scratch.data_ptr(), bc,
-                                                   nc, 4, False),
+                                                   nc, 2, False),
         "rows": lambda: fft_radix2._row_pass(x, scratch.data_ptr(), out.data_ptr(), bc, nc,
-                                             4, False, 1.0),
+                                             2, False, 1.0),
     }
     pass_ms = {name: time_ms(fn) for name, fn in passes.items()}
-    emit({"phase": "kernel", "kernel": "fft_two_pass", "case": "fft passes", "radix": 4,
+    emit({"phase": "kernel", "kernel": "fft_two_pass", "case": "fft passes", "radix": 2,
           "shape": [bc, nc], "split": [g.n1, g.n2], "pass_ms": pass_ms,
           "one_pass_bound_ms": by_case["fft"]["bound_ms"]})
     del x, cases, scratch, out
@@ -411,6 +427,123 @@ def two_pass_phase(torch, k, card: str):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "pass_ms": pass_ms, "shape": main["shape"], "by_case": by_case}
+
+
+def cluster_ptxas(log: str):
+    """Registers and spill bytes of each fft_cluster_kernel instance, from
+    the build's ``-Xptxas -v`` output: {(log2 C, log2 M, kind): {...}}."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        entry = re.search(
+            r"Compiling entry function '.*fft_cluster_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if entry:
+            key = tuple(int(v) for v in entry.groups())
+            out[key] = {}
+        elif key is not None and "spill stores" in line:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[key].update(spill_stores=int(spills[1]), spill_loads=int(spills[2]))
+        elif key is not None and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return out
+
+
+def cluster_phase(torch, k, card: str):
+    """fft_cluster (fft_fused, rfft_fused and irfft_fused at radix 4 on rows
+    over one block: one cluster of CTAs a row, one HBM round trip) against
+    its plain versions; returns its row. Each call must launch it once and
+    nothing else. Each case's line also gives the instance (C, M), the
+    clusters the card holds at once, ptxas's registers and spills, and the
+    rate at which DSMEM carried the exchange (the values read from peers)
+    if it took the whole kernel time (a floor of the network's rate)."""
+    import math
+
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dev = torch.device("cuda")
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                             torch.randn(*shape, generator=gen, device=dev))
+
+    bc, nc = TWO_PASS_COMPLEX
+    br, nr = TWO_PASS_REAL
+    x = crandn(bc, nc)
+    stages_c, stages_r = math.log2(nc), math.log2(nr)
+    cases = {  # name: (input, kernel, plain, library, bytes, flops, m, kind)
+        "fft": (x, lambda z: k.fft_fused(z, radix=4), k.fft_cluster_plain, torch.fft.fft,
+                16 * bc * nc, 5.0 * bc * nc * stages_c, nc, "fft"),
+        "ifft": (x, lambda z: k.fft_fused(z, radix=4, inverse=True),
+                 lambda z: k.fft_cluster_plain(z, inverse=True), torch.fft.ifft,
+                 16 * bc * nc, 5.0 * bc * nc * stages_c, nc, "fft"),
+        "rfft": (torch.randn(br, nr, generator=gen, device=dev),
+                 lambda z: k.rfft_fused(z, radix=4), k.rfft_cluster_plain, torch.fft.rfft,
+                 4 * br * nr + 8 * br * (nr // 2 + 1), 2.5 * br * nr * stages_r, nr // 2, "rfft"),
+        "irfft": (crandn(br, nr // 2 + 1), lambda z: k.irfft_fused(z, radix=4),
+                  k.irfft_cluster_plain, torch.fft.irfft, 8 * br * (nr // 2 + 1) + 4 * br * nr,
+                  2.5 * br * nr * stages_r, nr // 2, "irfft"),
+    }
+    # The strip frames' rows, which rfft2/irfft2 hand the kernel: their own
+    # instance (C 2, M 2^13), with its own load geometry.
+    bs, ns = STRIP[0] * STRIP[1], STRIP[2]
+    stages_s = math.log2(ns)
+    cases["rfft strip"] = (torch.randn(bs, ns, generator=gen, device=dev),
+                           lambda z: k.rfft_fused(z, radix=4), k.rfft_cluster_plain,
+                           torch.fft.rfft, 4 * bs * ns + 8 * bs * (ns // 2 + 1),
+                           2.5 * bs * ns * stages_s, ns // 2, "rfft")
+    cases["irfft strip"] = (crandn(bs, ns // 2 + 1), lambda z: k.irfft_fused(z, radix=4),
+                            k.irfft_cluster_plain, torch.fft.irfft,
+                            8 * bs * (ns // 2 + 1) + 4 * bs * ns, 2.5 * bs * ns * stages_s,
+                            ns // 2, "irfft")
+    ptxas = cluster_ptxas(_build.build_log())
+    by_case = {}
+    for name, (z, kernel, plain, library, nbytes, flops, m, kind) in cases.items():
+        before = dict(k.LAUNCHES)
+        got = kernel(z)
+        delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                 if k.LAUNCHES[kn] != before[kn]}
+        ref = plain(z)
+        torch.cuda.synchronize()
+        g = k.cluster_geometry(m)
+        bound_ms, bound_by = bound(card, nbytes, flops)
+        line = {"phase": "kernel", "kernel": "fft_cluster", "case": name, "radix": 4,
+                "shape": list(z.shape), "launches_per_call": delta,
+                "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
+                "ms": time_ms(lambda: kernel(z)),
+                "plain_ms": time_ms(lambda: plain(z), reps=2, batches=3),
+                "library_ms": time_ms(lambda: library(z)), "bound_ms": bound_ms,
+                "bound_by": bound_by, "ctas": g.ctas, "values": g.values, "threads": g.threads,
+                "smem_bytes": g.smem, "active_clusters": k.cluster_occupancy(m, kind),
+                "ptxas": ptxas.get((g.ctas.bit_length() - 1, g.values.bit_length() - 1,
+                                    k.CLUSTER_KINDS[kind])),
+                "dsmem_bytes": 8 * z.shape[0] * m * (g.ctas - 1) // g.ctas}
+        line["dsmem_rate_floor_gbps"] = line["dsmem_bytes"] / line["ms"] / 1e6
+        del got, ref
+        emit(line)
+        if not line["rel_err"] <= TOL_KERNEL:
+            raise AssertionError(f"fft_cluster {name}: rel err {line['rel_err']} > {TOL_KERNEL}")
+        if delta != {"fft_cluster": 1}:
+            raise AssertionError(f"fft_cluster {name}: launches {delta}, not one fft_cluster")
+        by_case[name] = line
+    del x, cases
+    torch.cuda.empty_cache()
+    main = by_case["fft"]
+    return {"name": "fft_cluster", "route": "cuda", "source": KERNELS["fft_cluster"][0],
+            "replaces": KERNELS["fft_cluster"][1],
+            "also_replaces": ["src/repro/kernels/fft_radix2.py:319",
+                              "src/repro/kernels/fft_radix2.py:358"],
+            "launches": 0, "max_abs_err": max(c["max_abs_err"] for c in by_case.values()),
+            "rel_err": max(c["rel_err"] for c in by_case.values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            "by_case": {n: {kx: c[kx] for kx in ("shape", "ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "rel_err", "ctas", "values",
+                                                  "active_clusters")}
+                        for n, c in by_case.items()}}
 
 
 def fid_source(torch, rows: int, n: int, seed: int):
@@ -731,7 +864,7 @@ def request_phase(torch, k, xfft, resolve_call):
     def engine(kind, shape, direction="fwd", dtype="complex64"):
         return resolve_call(kind, tuple(shape), dev, dtype=dtype, direction=direction).variant
 
-    def request(name, fn, expect, plan):
+    def request(name, fn, expect, plan, forbid=()):
         before = dict(k.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -742,6 +875,9 @@ def request_phase(torch, k, xfft, resolve_call):
         for kn in expect:
             if delta[kn] < 1:
                 raise AssertionError(f"request {name}: {kn} was not launched ({delta})")
+        for kn in forbid:
+            if delta[kn]:
+                raise AssertionError(f"request {name}: {kn} was launched ({delta})")
         return out, {"phase": "request", "name": name, "engine": plan, "launches": delta,
                      "ms": ms}
 
@@ -850,42 +986,51 @@ def request_phase(torch, k, xfft, resolve_call):
     emit(line)
     del rows, crow, out, half, back
 
-    # Rows over one block: each request plans a fused engine and launches
-    # the two-pass kernels.
-    def two_pass(name, fn, kind, shape, direction="fwd", dtype="complex64"):
+    # Rows over one block: each request plans fused_r4 and launches the
+    # cluster kernel, never the two-pass kernels; one request scoped to the
+    # radix-2 engine keeps those on a path.
+    def long_rows(name, fn, kind, shape, direction="fwd", dtype="complex64"):
         plan = engine(kind, shape, direction, dtype)
-        if plan not in ("fused", "fused_r4"):
-            raise AssertionError(f"request {name}: planned {plan}, not a fused engine")
-        return request(name, fn, ["fft_two_pass"], plan)
+        if plan != "fused_r4":
+            raise AssertionError(f"request {name}: planned {plan}, not fused_r4")
+        return request(name, fn, ["fft_cluster"], plan, forbid=["fft_two_pass"])
 
     fid = fid_source(torch, *TWO_PASS_COMPLEX, seed=4)
-    spec, line = two_pass("fft (64,262144)", lambda: xfft.fft(fid), "fft1d", fid.shape)
+    spec, line = long_rows("fft (64,262144)", lambda: xfft.fft(fid), "fft1d", fid.shape)
     check(line, rel_err(spec, torch.fft.fft(fid)), TOL_REQUEST)
     emit(line)
-    back, line = two_pass("ifft (64,262144)", lambda: xfft.ifft(spec), "fft1d", fid.shape, "inv")
+    back, line = long_rows("ifft (64,262144)", lambda: xfft.ifft(spec), "fft1d", fid.shape,
+                           "inv")
+    check(line, rel_err(back, torch.fft.ifft(spec)), TOL_REQUEST)
+    check(line, max_abs(back, fid) / float(fid.abs().max()), TOL_ROUND_TRIP, "round_trip_err")
+    emit(line)
+    with xfft.config(variant="fused"):
+        back, line = request("ifft variant=fused (64,262144)", lambda: xfft.ifft(spec),
+                             ["fft_two_pass"], engine("fft1d", fid.shape, "inv"),
+                             forbid=["fft_cluster"])
     check(line, rel_err(back, torch.fft.ifft(spec)), TOL_REQUEST)
     check(line, max_abs(back, fid) / float(fid.abs().max()), TOL_ROUND_TRIP, "round_trip_err")
     emit(line)
     del fid, spec, back
     lines = fid_source(torch, *TWO_PASS_REAL, seed=5).real.contiguous()
-    half, line = two_pass("rfft (256,65536)", lambda: xfft.rfft(lines), "rfft1d", lines.shape,
-                          dtype="float32")
+    half, line = long_rows("rfft (256,65536)", lambda: xfft.rfft(lines), "rfft1d",
+                           lines.shape, dtype="float32")
     check(line, rel_err(half, torch.fft.rfft(lines)), TOL_REQUEST)
     emit(line)
-    back, line = two_pass("irfft (256,32769)", lambda: xfft.irfft(half), "rfft1d", lines.shape,
-                          "inv", "float32")
+    back, line = long_rows("irfft (256,32769)", lambda: xfft.irfft(half), "rfft1d",
+                           lines.shape, "inv", "float32")
     check(line, rel_err(back, torch.fft.irfft(half)), TOL_REQUEST)
     check(line, max_abs(back, lines) / float(lines.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
     emit(line)
     del lines, half, back
     frames = torch.from_numpy(frame_source(4, *STRIP)).to(dev)
-    half, line = two_pass("rfft2 (8,512,32768)", lambda: xfft.rfft2(frames), "rfft2d",
-                          frames.shape, dtype="float32")
+    half, line = long_rows("rfft2 (8,512,32768)", lambda: xfft.rfft2(frames), "rfft2d",
+                           frames.shape, dtype="float32")
     check(line, rel_err(half, torch.fft.rfft2(frames)), TOL_REQUEST)
     emit(line)
-    back, line = two_pass("irfft2 (8,512,32768)", lambda: xfft.irfft2(half), "rfft2d",
-                          frames.shape, "inv", "float32")
+    back, line = long_rows("irfft2 (8,512,32768)", lambda: xfft.irfft2(half), "rfft2d",
+                           frames.shape, "inv", "float32")
     check(line, rel_err(back, torch.fft.irfft2(half)), TOL_REQUEST)
     check(line, max_abs(back, frames) / float(frames.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
@@ -919,6 +1064,7 @@ def main() -> int:
 
     rows = kernel_phase(torch, k, card)
     rows["fft_two_pass"] = two_pass_phase(torch, k, card)
+    rows["fft_cluster"] = cluster_phase(torch, k, card)
     model_rows, slstm_hs = model_kernel_phase(torch, card)
     rows.update(model_rows)
     launches = request_phase(torch, k, xfft, resolve_call)

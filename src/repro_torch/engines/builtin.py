@@ -10,6 +10,10 @@ the longest transform dim is in the 1D kernels' envelope (2^18 values, the
 reference's) — the 2D kinds' composition runs the 1D kernels on each
 pass, so a row must be served for any fused plan. The shared-memory
 numbers come from the kernels' census (``repro_torch.kernels.fft_radix2``).
+``fused_r4`` runs rows of 2^14 < N <= 2^18 on thread-block clusters, so on
+a CUDA key it also needs the card to hold one cluster of each instance the
+key launches (``cluster_occupancy``); where it cannot, the key plans
+``fused``, whose radix-2 rows take the two-pass kernels.
 """
 
 from __future__ import annotations
@@ -61,28 +65,68 @@ def _fused_predicate(key) -> bool:
     return dims is not None and all(d >= 2 and (d & (d - 1)) == 0 for d in dims)
 
 
-def _fused_working_set(key):
+def _fused_working_set(key, radix: int = 2):
     """Largest block the fused path launches for ``key`` (bytes of shared
     memory): the whole frame where a 2D frame fits one block, else one row
-    of each transform dim, in the kernels that row takes (one block, or the
-    two passes for 2^14 < N <= 2^18). A dim over 2^18 reports a size over
-    the budget, so the envelope is the reference's: one row of the longest
-    transform dim <= 2^18 values."""
+    of each transform dim, in the kernels that row takes at ``radix`` (one
+    block; for 2^14 < N <= 2^18 the two passes at radix 2, one CTA of the
+    cluster at radix 4). A dim over 2^18 reports a size over the budget, so
+    the envelope is the reference's: one row of the longest transform dim
+    <= 2^18 values."""
     from repro_torch.kernels import fft_radix2 as census
 
     dims = _dims(key)
     if dims is None:
         return None
     if key.kind == "rfft1d":
-        return census.row_smem_bytes(dims[-1], real=True)
+        return census.row_smem_bytes(dims[-1], real=True, radix=radix)
     if key.kind == "rfft2d":
         h, w = dims
         if census.rfft2_fits_smem(h, w):
             return census.rfft2_smem_bytes(h, w)
-        return max(census.row_smem_bytes(w, real=True), census.row_smem_bytes(h))
+        return max(census.row_smem_bytes(w, real=True, radix=radix),
+                   census.row_smem_bytes(h, radix=radix))
     if key.kind == "fft2d" and census.fft2_fits_smem(*dims):
         return census.fft2_smem_bytes(*dims)
-    return max(census.row_smem_bytes(d) for d in dims)
+    return max(census.row_smem_bytes(d, radix=radix) for d in dims)
+
+
+def _cluster_rows(key):
+    """(m, kind) of each row of ``key`` that the radix-4 fused path runs on
+    the cluster kernel (``csrc/fft_cluster.cu``): rows of 2^14 < N <= 2^18,
+    a real row at its m = N/2 packed values."""
+    from repro_torch.kernels import fft_radix2 as census
+
+    dims = _dims(key)
+    real = key.kind in ("rfft1d", "rfft2d")
+    if key.kind == "fft2d" and census.fft2_fits_smem(*dims):
+        return []
+    if key.kind == "rfft2d" and census.rfft2_fits_smem(*dims):
+        return []
+    rows = []
+    for i, n in enumerate(dims):
+        row_real = real and i == len(dims) - 1
+        if census.fft_fits_fused(n) and not census.fft_fits_smem(n, real=row_real):
+            kind = ("irfft" if key.direction == "inv" else "rfft") if row_real else "fft"
+            rows.append((n // 2 if row_real else n, kind))
+    return rows
+
+
+def _clusters_run(key) -> bool:
+    """False where the card reports that it cannot hold one cluster of an
+    instance ``key`` would launch (``cudaOccupancyMaxActiveClusters`` is 0,
+    as on a MIG slice): the planner then takes the radix-2 ``fused``
+    engine, before any launch. A CPU key, or no card in sight, asks
+    nothing."""
+    if key.backend != "cuda":
+        return True
+    from repro_torch.kernels import fft_radix2 as census
+
+    return all(census.cluster_occupancy(m, kind) != 0 for m, kind in _cluster_rows(key))
+
+
+def _fused_r4_predicate(key) -> bool:
+    return _fused_predicate(key) and _clusters_run(key)
 
 
 def _register_builtin_engines() -> None:
@@ -99,7 +143,8 @@ def _register_builtin_engines() -> None:
             ops=_core_ops(name),
         ))
     register_alias("unrolled", "looped")
-    for name, radix, flop_scale in (("fused", 2, 1.0), ("fused_r4", 4, 0.85)):
+    for name, radix, flop_scale, predicate in (("fused", 2, 1.0, _fused_predicate),
+                                               ("fused_r4", 4, 0.85, _fused_r4_predicate)):
         register_engine(EngineSpec(
             name=name,
             backend="cuda",
@@ -107,8 +152,8 @@ def _register_builtin_engines() -> None:
             radix=radix,
             fused=True,
             single_device_only=True,
-            working_set=_fused_working_set,
-            predicate=_fused_predicate,
+            working_set=functools.partial(_fused_working_set, radix=radix),
+            predicate=predicate,
             cost=CostHints(traffic_factor=4.0, stage_overhead_s=0.8e-6,
                            flop_scale=flop_scale),
             ops=_core_ops(name),

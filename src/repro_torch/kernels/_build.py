@@ -45,6 +45,8 @@ _SIGNATURES = {
     "repro_two_pass_rows": (_P, _P, *(_I,) * 8, _F, _I, _P),
     "repro_two_pass_recombine": (_P, _P, _I, _I, _I, _P),
     "repro_two_pass_untangle": (_P, _P, _I, _I, _I, _P),
+    "repro_fft_cluster": (_P, _P, *(_I,) * 8, _F, _I, _P),
+    "repro_fft_cluster_occupancy": (*(_I,) * 7,),
     "repro_fft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "repro_rfft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_irfft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

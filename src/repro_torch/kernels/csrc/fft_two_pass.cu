@@ -1,5 +1,8 @@
 // Two-pass (four-step) FFT kernels: fft_fused, rfft_fused and irfft_fused
-// on rows longer than one block holds (2^14 < N <= 2^18).
+// at radix 2 on rows longer than one block holds (2^14 < N <= 2^18): the
+// radix-2 `fused` engine's route, which the planner also takes where the
+// card holds no cluster of fft_cluster.cu, the radix-4 route of the same
+// rows.
 //
 // Replaces, over the rows one block cannot hold
 // (src/repro/kernels/fft_radix2.py):
@@ -14,8 +17,8 @@
 // and writes each row once. This design moves a complex row twice (x ->
 // scratch -> out) and a real row three times (an elementwise recombination
 // or untangling pass on top), so its floor is two or three times the
-// one-trip bound. Keeping the row on chip across the two passes (thread
-// block clusters with distributed shared memory) is later work.
+// one-trip bound. fft_cluster.cu keeps the row on chip across both steps
+// (thread-block clusters with distributed shared memory): one trip.
 //
 // Design: a row of N = n1 * n2 values is an (n1, n2) matrix x[j1, j2], and
 //   X[k1 + n1 k2] = sum_j2 W_n2^(j2 k2) W_N^(j2 k1) sum_j1 W_n1^(j1 k1) x[j1, j2].

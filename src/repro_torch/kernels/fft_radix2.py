@@ -12,22 +12,24 @@ live here:
   one twiddle ROM; for ``fft_fused`` and ``rfft_fused`` both padded by one
   slot per 16 (:func:`smem_slot`), the layout of their radix-4
   register-pass panel. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``,
-  the two-pass geometry, ``kernels.ops`` and the engines' working-set gate
-  all read it. ``fft_fits_fused`` is the reference's envelope of the 1D
-  kernels: rows of up to 2^18 values.
+  the two-pass and cluster geometries, ``kernels.ops``, the engines' gate
+  and the planner all read it. ``fft_fits_fused`` is the reference's
+  envelope of the 1D kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
   step for step the Pallas panels, ``_regpass_panel`` (the register passes
   of ``csrc/stockham_regs.cuh``, which ``fft_fused`` and ``rfft_fused`` run
   at radix 4), ``_two_pass_panel`` (the four-step FFT of
-  ``csrc/fft_two_pass.cu``), and ``*_plain`` around them. They are
+  ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
+  FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
 * **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
   ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``. A CPU tensor takes the plain version. A CUDA tensor
   launches the kernel or raises; nothing falls back. Each launch adds one
   to ``LAUNCHES[name]`` (the registry of ``kernels._launch``, shared by
   every wrapper of the port). A 1D row over one block (2^14 < N <= 2^18)
-  takes the two-pass kernels, counted under ``"fft_two_pass"``.
+  takes one cluster of CTAs at radix 4, counted under ``"fft_cluster"``,
+  and the two-pass kernels at radix 2, counted under ``"fft_two_pass"``.
 
 The wrappers take complex64 tensors (``torch.view_as_real`` layout, re/im
 interleaved) where the Pallas ABI took separate planes: on the card the
@@ -48,11 +50,15 @@ from repro_torch.kernels._launch import launch as _launch
 __all__ = [
     "LAUNCHES",
     "SMEM_BUDGET_BYTES",
+    "cluster_exchanges",
+    "cluster_geometry",
+    "cluster_occupancy",
     "fft2_fits_smem",
     "fft2_fused",
     "fft2_fused_plain",
     "fft2_smem_bytes",
     "fft_fits_fused",
+    "fft_cluster_plain",
     "fft_fits_smem",
     "fft_fused",
     "fft_fused_plain",
@@ -61,6 +67,7 @@ __all__ = [
     "fft_two_pass_plain",
     "irfft2_fused",
     "irfft2_fused_plain",
+    "irfft_cluster_plain",
     "irfft_fused",
     "irfft_fused_plain",
     "irfft_smem_bytes",
@@ -71,6 +78,7 @@ __all__ = [
     "rfft2_fused",
     "rfft2_fused_plain",
     "rfft2_smem_bytes",
+    "rfft_cluster_plain",
     "rfft_fused",
     "rfft_fused_plain",
     "rfft_smem_bytes",
@@ -240,16 +248,95 @@ def two_pass_geometry(n: int) -> TwoPassGeometry:
     )
 
 
-def row_smem_bytes(n: int, *, real: bool = False) -> int:
+#: Values one CTA of a cluster holds (M), and the most CTAs a cluster may
+#: have (16: H100's non-portable limit; 8 is portable).
+CLUSTER_VALUES = 2 ** 13
+MAX_CLUSTER = 16
+
+#: The kinds of ``csrc/fft_cluster.cu`` (its ``Kind``), by name.
+CLUSTER_KINDS = {"fft": 0, "rfft": 1, "irfft": 2}
+
+
+class ClusterGeometry(NamedTuple):
+    """Launch geometry of ``csrc/fft_cluster.cu`` on rows of m complex
+    values (a real row of N as its m = N/2 packed values), viewed as
+    ``lines`` lines of m / lines values: one cluster of ``ctas`` CTAs per
+    row, each holding ``values`` = m / ctas of them as lines / ctas whole
+    lines."""
+
+    m: int
+    ctas: int  # C
+    values: int  # M
+    lines: int  # A
+    threads: int
+    smem: int  # bytes per CTA
+
+
+def cluster_geometry(m: int) -> ClusterGeometry:
+    """M = 2^13 (two CTAs an SM) wherever that needs at most 16 CTAs, else
+    M = 2^14 (one CTA an SM): C = 2, 4, 8, 16 at m = 2^14 ... 2^17 and
+    C = 16 at 2^18. At m = 2^17, C = 16 (a non-portable cluster size) timed
+    faster than C = 8 at M = 2^14 on an H100 (PERF.md). A CTA holds 4
+    lines (8 at C = 2), so that each run of its load is a whole 32-byte
+    sector, and the A = 16, 32 or 64 lines of a row are shared 16 to a
+    thread's DFT. Its shared memory holds its values and the panel's ROM of
+    Q/2 twiddles (Q = m/A), each padded as in :func:`fft_smem_bytes`, the A
+    twiddles W_m^t and the 128 twiddles W_128^p."""
+    values = CLUSTER_VALUES if m // CLUSTER_VALUES <= MAX_CLUSTER else 2 * CLUSTER_VALUES
+    ctas = m // values
+    per_cta = 8 if ctas == 2 else 4
+    lines = ctas * per_cta
+    smem = (_padded_block_bytes(values, values // per_cta // 2)
+            + (lines + 128) * _COMPLEX_BYTES)
+    return ClusterGeometry(m, ctas, values, lines, block_threads(values), smem)
+
+
+def cluster_exchanges(m: int) -> int:
+    """Exchanges through shared memory of ``csrc/fft_cluster.cu`` on a row
+    of m: the panel's over its lines of Q = m/A values, plus the load's
+    regrouping of each CTA's runs into lines (which the panel's first pass
+    reads) and the one read across the cluster between the panel's last
+    pass and the A-point DFTs."""
+    return regpass_exchanges(m // cluster_geometry(m).lines) + 2
+
+
+@functools.lru_cache(maxsize=None)
+def _device_cluster_occupancy(m: int, kind: str, device: int) -> int:
+    g = cluster_geometry(m)
+    from repro_torch.kernels._build import library  # lazy: builds at first use
+
+    active = library().repro_fft_cluster_occupancy(m, CLUSTER_KINDS[kind], g.ctas, g.values,
+                                                   g.threads, g.smem, device)
+    if active < 0:
+        raise RuntimeError(f"cluster_occupancy: CUDA error {-active}")
+    return active
+
+
+def cluster_occupancy(m: int, kind: str = "fft"):
+    """Clusters of the ``kind`` instance for rows of m that the current
+    card holds at once (``cudaOccupancyMaxActiveClusters``; builds the
+    kernels at first use, launches nothing), or None where no card is
+    visible. 0 means the card cannot run the instance (a MIG slice, say):
+    the engines' gate then keeps ``fused_r4`` off such keys."""
+    if not torch.cuda.is_available():
+        return None
+    return _device_cluster_occupancy(m, kind, torch.cuda.current_device())
+
+
+def row_smem_bytes(n: int, *, real: bool = False, radix: int = 2) -> int:
     """Largest block the 1D wrappers launch on rows of length ``n``
     (``real``: ``rfft_fused`` and ``irfft_fused``): the one block where a
-    row fits one, else the larger two-pass block, at N/2 complex values for
-    a real row. A row outside :func:`fft_fits_fused` has no launch; it
-    reports its one-block size, which is over the budget."""
+    row fits one, else the larger two-pass block (radix 2) or one CTA of
+    the cluster (radix 4), at N/2 complex values for a real row. A row
+    outside :func:`fft_fits_fused` has no launch; it reports its one-block
+    size, which is over the budget."""
     one = max(rfft_smem_bytes(n), irfft_smem_bytes(n)) if real else fft_smem_bytes(n)
     if fft_fits_smem(n, real=real) or not fft_fits_fused(n):
         return one
-    g = two_pass_geometry(n // 2 if real else n)
+    m = n // 2 if real else n
+    if radix == 4:
+        return cluster_geometry(m).smem
+    g = two_pass_geometry(m)
     return max(g.col_smem, g.row_smem)
 
 
@@ -523,6 +610,44 @@ def _two_pass_panel(re: torch.Tensor, im: torch.Tensor, n: int, panel):
     return lines(yr, n1, n2).reshape(tb, n), lines(yi, n1, n2).reshape(tb, n)
 
 
+def _cluster_panel(re: torch.Tensor, im: torch.Tensor, n: int):
+    """The radix-4 route of rows over one block over a (tile, N) panel, as
+    ``csrc/fft_cluster.cu`` computes it on the row viewed as A lines of
+    Q = N/A (:func:`cluster_geometry`): line a holds
+    x[a + A·n'], ``_regpass_panel`` runs over each line, element (a, q)
+    takes the twiddle W_N^{a·q}, and the A-point DFT over a = a1 + L·a2
+    (L = A/16) gives X[q + Q·(k2 + 16·k1)]: the 16-point DFT over a2
+    (:func:`_dft_regs`), the twiddle W_A^{a1·k2}, the L-point DFT over a1."""
+    lines_ = cluster_geometry(n).lines
+    q_, l_ = n // lines_, lines_ // 16
+    tb = re.shape[0]
+    dev = re.device
+
+    def lines(z):  # (tb, n) -> (tb·A, Q): line a holds z[a + A·n']
+        return z.reshape(tb, q_, lines_).transpose(1, 2).reshape(tb * lines_, q_)
+
+    def twiddle(zr, zi, e, period):  # z·W_period^e, e exact in float64
+        ang = e.to(torch.float64) * (-2.0 * math.pi / period)
+        wr, wi = torch.cos(ang).float(), torch.sin(ang).float()
+        return zr * wr - zi * wi, zr * wi + zi * wr
+
+    yr, yi = _regpass_panel(lines(re), lines(im), q_)
+    a = torch.arange(lines_, dtype=torch.int64, device=dev).reshape(lines_, 1)
+    q = torch.arange(q_, dtype=torch.int64, device=dev).reshape(1, q_)
+    yr, yi = twiddle(yr.reshape(tb, lines_, q_), yi.reshape(tb, lines_, q_), a * q, n)
+    yr, yi = yr.reshape(tb, 16, l_, q_), yi.reshape(tb, 16, l_, q_)  # [b, a2, a1, q]
+    out = _dft_regs([(yr[:, j], yi[:, j]) for j in range(16)], 16)  # [k2] (tb, L, Q)
+    yr = torch.stack([o[0] for o in out], dim=1)  # [b, k2, a1, q]
+    yi = torch.stack([o[1] for o in out], dim=1)
+    a1k2 = (torch.arange(16, device=dev).reshape(16, 1, 1)
+            * torch.arange(l_, device=dev).reshape(1, l_, 1))
+    yr, yi = twiddle(yr, yi, a1k2, lines_)
+    out = _dft_regs([(yr[:, :, j], yi[:, :, j]) for j in range(l_)], l_)  # [k1] (tb, 16, Q)
+    xr = torch.stack([o[0] for o in out], dim=1).reshape(tb, n)  # [b, k1, k2, q]
+    xi = torch.stack([o[1] for o in out], dim=1).reshape(tb, n)
+    return xr, xi
+
+
 def _row_panel(radix: int, two_pass: bool):
     """The panel a row takes: one block's, or the two-pass composition of it."""
     panel = _panel(radix)
@@ -557,8 +682,10 @@ def _rfft_panel(x: torch.Tensor, n: int, radix: int, *, two_pass: bool = False,
 
 
 def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int, *,
-                 two_pass: bool = False):
-    """Half spectrum (tile, N/2+1) re/im -> real (tile, N)."""
+                 two_pass: bool = False, panel=None):
+    """Half spectrum (tile, N/2+1) re/im -> real (tile, N): untangle, then
+    the half-size inverse by conjugation on ``panel`` (else the Stockham
+    one of ``radix``)."""
     tb = yr.shape[0]
     m = n // 2
     edge = torch.arange(m + 1, device=yr.device).reshape(1, m + 1)
@@ -577,7 +704,7 @@ def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int, *,
     xoi = txr * wi + txi * wr
     zr = xer - xoi
     zi = xei + xor_
-    fr, fi = _row_panel(radix, two_pass)(zr, -zi, m)
+    fr, fi = (panel or _row_panel(radix, two_pass))(zr, -zi, m)
     inv = 1.0 / m
     zr, zi = fr * inv, -fi * inv
     return torch.stack([zr, zi], dim=-1).reshape(tb, n)
@@ -642,6 +769,27 @@ def irfft_two_pass_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     untangling, then the two passes at N/2 by conjugation."""
     re, im = _planes(y)
     return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), radix, two_pass=True)
+
+
+def fft_cluster_plain(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+    """Plain version of the cluster kernel on (B, N) complex64: what the
+    radix-4 :func:`fft_fused` computes for rows over one block."""
+    return _fft_plain(x, _cluster_panel, inverse)
+
+
+def rfft_cluster_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the radix-4 :func:`rfft_fused` for rows over one
+    block: the two-for-one pack, the cluster panel at N/2, the
+    recombination."""
+    yr, yi = _rfft_panel(x, x.shape[-1], 4, panel=_cluster_panel)
+    return _complex(yr, yi)
+
+
+def irfft_cluster_plain(y: torch.Tensor) -> torch.Tensor:
+    """Plain version of the radix-4 :func:`irfft_fused` for rows over one
+    block: the untangling, then the cluster panel at N/2 by conjugation."""
+    re, im = _planes(y)
+    return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), 4, panel=_cluster_panel)
 
 
 def fft2_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
@@ -758,11 +906,22 @@ def _two_pass(x: torch.Tensor, src: int, dst: int, b: int, n: int, radix: int,
     _row_pass(x, scratch.data_ptr(), dst, b, n, radix, conj, scale)
 
 
+def _cluster(x: torch.Tensor, src: int, dst: int, b: int, m: int, kind: str, conj: bool = False,
+             scale: float = 1.0) -> None:
+    """Launch ``csrc/fft_cluster.cu`` on b rows of m complex values (the
+    packed half rows of a real ``kind``): one cluster a row, one HBM round
+    trip."""
+    g = cluster_geometry(m)
+    _launch("repro_fft_cluster", "fft_cluster", x, src, dst, b, m, CLUSTER_KINDS[kind], g.ctas,
+            g.values, g.threads, g.smem, int(conj), scale)
+
+
 def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
     """FFT along the last axis of (B, N) complex64, N <= 2^18.
 
     A row that fits one block costs one HBM round trip. A longer row
-    (2^14 < N) takes the two-pass kernels: two round trips, two launches.
+    (2^14 < N) takes one cluster of CTAs at radix 4 (one round trip, one
+    launch) and the two-pass kernels at radix 2 (two of each).
     ``inverse`` conjugates on the way in and out and scales by 1/N: the
     inverse transform on the same panels, without extra passes over HBM.
     """
@@ -772,33 +931,39 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torc
     _panel(radix)
     one_block = _check_fused_row(n, "fft_fused")
     if x.device.type == "cpu":
-        plain = fft_fused_plain if one_block else fft_two_pass_plain
-        return plain(x, radix=radix, inverse=inverse)
+        if one_block:
+            return fft_fused_plain(x, radix=radix, inverse=inverse)
+        if radix == 4:
+            return fft_cluster_plain(x, inverse=inverse)
+        return fft_two_pass_plain(x, radix=radix, inverse=inverse)
     _check_launchable(x, "fft_fused")
     out = torch.empty_like(x)
+    scale = 1.0 / n if inverse else 1.0
     if b and one_block:
         rows = pick_row_tile(b, n)
         _launch("repro_fft_fused", "fft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
-                rows, block_threads(rows * n), fft_smem_bytes(n, rows), int(inverse),
-                1.0 / n if inverse else 1.0)
+                rows, block_threads(rows * n), fft_smem_bytes(n, rows), int(inverse), scale)
+    elif b and radix == 4:
+        _cluster(x, x.data_ptr(), out.data_ptr(), b, n, "fft", inverse, scale)
     elif b:
-        _two_pass(x, x.data_ptr(), out.data_ptr(), b, n, radix, inverse,
-                  1.0 / n if inverse else 1.0)
+        _two_pass(x, x.data_ptr(), out.data_ptr(), b, n, radix, inverse, scale)
     return out
 
 
 def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Real FFT of (B, N) float32 -> (B, N/2+1) complex64, two for one.
-    Rows over one block take the two passes at N/2 and a recombination
-    pass: three launches."""
+    Rows over one block take one cluster launch at radix 4, which
+    recombines on its way out; at radix 2 the two passes at N/2 and a
+    recombination pass: three launches."""
     _check(x, "rfft_fused", torch.float32, 2)
     b, n = x.shape
     _check_pow2(n, "rfft_fused")
     _panel(radix)
     one_block = _check_fused_row(n, "rfft_fused", real=True)
     if x.device.type == "cpu":
-        plain = rfft_fused_plain if one_block else rfft_two_pass_plain
-        return plain(x, radix=radix)
+        if one_block:
+            return rfft_fused_plain(x, radix=radix)
+        return rfft_cluster_plain(x) if radix == 4 else rfft_two_pass_plain(x, radix=radix)
     _check_launchable(x, "rfft_fused")
     out = torch.empty((b, n // 2 + 1), dtype=torch.complex64, device=x.device)
     m = n // 2
@@ -806,6 +971,8 @@ def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
         rows = pick_row_tile(b, m)
         _launch("repro_rfft_fused", "rfft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
                 rows, block_threads(rows * m), rfft_smem_bytes(n, rows))
+    elif b and radix == 4:
+        _cluster(x, x.data_ptr(), out.data_ptr(), b, m, "rfft")
     elif b:
         z = torch.empty((b, m), dtype=torch.complex64, device=x.device)
         _two_pass(x, x.data_ptr(), z.data_ptr(), b, m, radix, False, 1.0)
@@ -817,7 +984,8 @@ def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Inverse of :func:`rfft_fused`: (B, N/2+1) complex64 -> (B, N) float32.
     The imaginary parts at DC and Nyquist are dropped, as numpy does. Rows
-    over one block take an untangling pass, then the two passes at N/2:
+    over one block take one cluster launch at radix 4, which untangles on
+    its way in; at radix 2 an untangling pass, then the two passes at N/2:
     three launches."""
     _check(y, "irfft_fused", torch.complex64, 2)
     b, half = y.shape
@@ -826,8 +994,9 @@ def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _panel(radix)
     one_block = _check_fused_row(n, "irfft_fused", real=True)
     if y.device.type == "cpu":
-        plain = irfft_fused_plain if one_block else irfft_two_pass_plain
-        return plain(y, radix=radix)
+        if one_block:
+            return irfft_fused_plain(y, radix=radix)
+        return irfft_cluster_plain(y) if radix == 4 else irfft_two_pass_plain(y, radix=radix)
     _check_launchable(y, "irfft_fused")
     out = torch.empty((b, n), dtype=torch.float32, device=y.device)
     m = n // 2
@@ -835,6 +1004,8 @@ def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
         rows = pick_row_tile(b, m)
         _launch("repro_irfft_fused", "irfft_fused", y, y.data_ptr(), out.data_ptr(), b, n,
                 radix, rows, block_threads(rows * m), irfft_smem_bytes(n, rows))
+    elif b and radix == 4:
+        _cluster(y, y.data_ptr(), out.data_ptr(), b, m, "irfft", scale=1.0 / m)
     elif b:
         # The untangled half-size rows go into ``out`` itself (B x N/2
         # complex is B x N float32); the column pass reads them from there

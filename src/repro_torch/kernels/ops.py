@@ -20,8 +20,9 @@ The whole-frame-or-composition choice of the 2D entries is made on the
 frame shape alone (:func:`fft2_fits_budget`), as in the reference. Every
 pass runs a kernel; none falls back to plain code. A row of 2^14 < N <=
 2^18 values, on a 1D entry or on a pass of the composition, takes the
-1D wrappers' two-pass kernels; the planner's working-set gate keeps
-longer rows away from these entry points, as the reference's does.
+1D wrappers' cluster kernel (radix 4) or two-pass kernels (radix 2);
+the planner's working-set gate keeps longer rows away from these entry
+points, as the reference's does.
 """
 
 from __future__ import annotations

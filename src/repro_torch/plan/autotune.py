@@ -12,9 +12,11 @@ plain tensor code by itself. Where no kernel serves the key (a row longer
 than 2^18 values, the reference's fused envelope), planning raises. The
 kernels are modelled from what the CUDA code does. HBM: each element is
 read once and written once per round trip — one round trip for a row or
-a 2D frame that fits a block, two for a complex row over one block (the
+a 2D frame that fits a block, and for a row over one block at radix 4 (the
+cluster kernel of ``csrc/fft_cluster.cu`` holds it in the shared memory
+of C CTAs); at radix 2 two for a complex row over one block (the
 two-pass kernels) and three for a real one (plus its recombination or
-untangling), and a composed 2D frame adds its passes' round trips to one
+untangling); a composed 2D frame adds its passes' round trips to one
 for the corner turns. Shared memory: every pass reads and writes the
 block's values once. A stage-at-a-time Stockham pass (radix 2; the
 two-pass kernels and ``fft2_fused``) does one butterfly stage, or two
@@ -22,10 +24,15 @@ layers at radix 4. A one-block row at radix 4 runs the register-pass panel
 of ``csrc/stockham_regs.cuh``: four layers a pass, the first loaded from
 HBM and the last stored to HBM, so its exchanges through shared memory are
 its passes less one, plus one where a real row's recombination reads the
-half spectrum back from shared memory. The kernel's
-time is the larger of the two plus the engine's ``stage_overhead_s`` per
-pass, so the radix-4 kernels, with fewer passes, win wherever both fit, as
-the kernels' times on the card show (``chip_smoke.py``). The schedules and the CPU keep the
+half spectrum back from shared memory. The cluster kernel runs that
+panel over lines of Q = m/A values (A = 16, 32 or 64 lines a row), so its
+exchanges are the panel's over Q values, plus the load's regrouping of
+each CTA's runs into lines and the one read across the cluster
+(``cluster_exchanges``).
+The kernel's time is the larger of the two plus the engine's
+``stage_overhead_s`` per pass, so the radix-4 kernels, with fewer passes
+and round trips, win wherever both fit, as the kernels' times on the card
+show (``chip_smoke.py``). The schedules and the CPU keep the
 reference's model: a fused kernel on a CPU tensor runs its plain version,
 modelled like its schedule plus call overheads.
 """
@@ -112,10 +119,12 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
     """(HBM round trips, shared-memory passes) of the 1D kernels on a row of
     n: one block (at radix 4 the register passes' exchanges, except for
     ``irfft_fused``, the inverse real row, which keeps the Stockham stages
-    of radix 2), or the two-pass kernels on the (n1, n2) view of the row
-    (at N/2 complex values when ``real``, plus one elementwise round
-    trip)."""
+    of radix 2); over one block at radix 4 the cluster kernel (one round
+    trip, its exchanges), at radix 2 the two-pass kernels on the (n1, n2)
+    view of the row (at N/2 complex values when ``real``, plus one
+    elementwise round trip)."""
     from repro_torch.kernels.fft_radix2 import (  # lazy
+        cluster_exchanges,
         fft_fits_smem,
         fft_split,
         regpass_exchanges,
@@ -126,6 +135,8 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
         if radix == 4 and not (real and inverse):
             return 1, regpass_exchanges(n, real=real)
         return 1, _panel_passes(m, radix)
+    if radix == 4:
+        return 1, cluster_exchanges(m)
     n1, n2 = fft_split(m)
     return 3 if real else 2, _panel_passes(n1, radix) + _panel_passes(n2, radix)
 

@@ -74,11 +74,80 @@ def test_smoke_requests_keep_their_engine(kind, shape, direction, dtype):
     (2048, 4, True, True, (1, 5)),     # irfft_fused keeps its five Stockham passes
     (2048, 2, False, False, (1, 11)),  # radix 2: one pass a stage
     (16, 4, False, False, (1, 0)),     # one pass, HBM to HBM
-    (2 ** 18, 4, False, False, (2, 10)),  # two-pass kernels: 512 x 512, 5 + 5
-    (2 ** 16, 4, True, False, (3, 8)),    # real two-pass: 256 x 128 at N/2
+    (2 ** 18, 4, False, False, (1, 4)),  # cluster: 64 lines of 2^12, 16·16·16 + 1 exchange
+    (2 ** 16, 4, True, False, (1, 4)),   # cluster at N/2: 16 lines of 2^11, 16·16·8 + 1
+    (2 ** 18, 2, False, False, (2, 18)),  # two-pass kernels: 512 x 512, 9 + 9
+    (2 ** 16, 2, True, False, (3, 15)),   # real two-pass: 256 x 128 at N/2
 ])
 def test_row_cost_counts_the_kernels_shared_memory_passes(n, radix, real, inverse, cost):
     assert _row_cost(n, radix, real, inverse) == cost
+
+
+# Keys with rows over one block (2^14 < N <= 2^18): 1D rows and strip frames.
+LONG_ROW_KEYS = [("fft1d", (64, 2 ** 18), "complex64"), ("fft1d", (4, 2 ** 15), "complex64"),
+                 ("rfft1d", (256, 2 ** 16), "float32"), ("rfft1d", (2, 2 ** 18), "float32"),
+                 ("rfft2d", (8, 512, 32768), "float32"), ("fft2d", (2, 8, 2 ** 17), "complex64")]
+
+
+@pytest.mark.parametrize("kind,shape,dtype", LONG_ROW_KEYS)
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_long_rows_on_the_card_plan_the_cluster_kernel_at_one_round_trip(
+        monkeypatch, kind, shape, dtype, direction):
+    """Rows over one block plan ``fused_r4``, whose cluster kernel moves a
+    row through HBM once; where the card reports no active cluster for an
+    instance the key launches, the same key plans ``fused`` (the two-pass
+    kernels) before any launch."""
+    from repro_torch.kernels import fft_radix2
+
+    asked = []
+
+    def occupancy(active):
+        def report(m, kind="fft"):
+            asked.append((m, kind))
+            return active
+        return report
+
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape, dtype=dtype,
+                     direction=direction)
+    monkeypatch.setattr(fft_radix2, "cluster_occupancy", occupancy(4))
+    assert estimate_plan(key).variant == "fused_r4"
+    real = kind.startswith("r")
+    n = shape[-1]
+    trips, _ = _row_cost(n, 4, real, direction == "inv")
+    assert trips == 1
+    assert _row_cost(n, 2, real, direction == "inv")[0] == (3 if real else 2)
+    want = ("irfft" if direction == "inv" else "rfft") if real else "fft"
+    assert (n // 2 if real else n, want) in asked
+    monkeypatch.setattr(fft_radix2, "cluster_occupancy", occupancy(0))
+    assert variant_candidates(key) == ("fused",)
+    assert estimate_plan(key).variant == "fused"
+
+
+def test_cluster_gate_asks_nothing_of_a_cpu_key_or_a_one_block_row(monkeypatch):
+    from repro_torch.kernels import fft_radix2
+
+    monkeypatch.setattr(fft_radix2, "cluster_occupancy", lambda *a, **kw: 0)
+    cpu = ProblemKey(kind="fft1d", backend="cpu", device_kind="cpu", shape=(2, 2 ** 18),
+                     dtype="complex64")
+    assert "fused_r4" in variant_candidates(cpu)
+    for shape in ((8192, 2048), (4, 2 ** 14)):
+        card = ProblemKey(kind="fft1d", backend="cuda", device_kind=H100, shape=shape,
+                          dtype="complex64")
+        assert estimate_plan(card).variant == "fused_r4"
+    frames = ProblemKey(kind="rfft2d", backend="cuda", device_kind=H100,
+                        shape=(512, 128, 128), dtype="float32")
+    assert estimate_plan(frames).variant == "fused_r4"
+
+
+def test_no_active_cluster_keeps_the_over_2_18_wording(monkeypatch):
+    from repro_torch.kernels import fft_radix2
+
+    monkeypatch.setattr(fft_radix2, "cluster_occupancy", lambda *a, **kw: 0)
+    key = ProblemKey(kind="fft1d", backend="cuda", device_kind=H100, shape=(4, 2 ** 19),
+                     dtype="complex64")
+    with pytest.raises(NotImplementedError,
+                       match=r"its rows exceed the fused kernels' envelope \(2\^18 values"):
+        variant_candidates(key)
 
 
 @pytest.mark.parametrize("kind,shape", [("fft1d", (1, 2)), ("fft1d", (3, 8)),
