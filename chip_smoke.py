@@ -17,7 +17,12 @@ Phases, each printing one JSON line:
              ``torch.fft`` yardstick's median times and the HBM bound;
              for fft_fused and rfft_fused (radix 4: the register-pass
              panel) also the passes, shared-memory exchanges and barriers
-             per row and the recorded time of the stage-at-a-time panel;
+             per row and the recorded time of the stage-at-a-time panel,
+             and for fft2_fused and rfft2_fused (the same panel over rows
+             and columns) those per frame, the block's threads and shared
+             memory, and ptxas's registers and spills; fft2_fused also on
+             wide (1024, 64, 256) and rfft2_fused on tall (1024, 256, 64)
+             frames, at both radices;
    kernel  — the same for fft_two_pass, the kernels that fft_fused,
              rfft_fused and irfft_fused launch at radix 2 on rows over one
              block (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex
@@ -86,6 +91,7 @@ exits 2 and prints no result.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -234,10 +240,18 @@ MIXTRAL = {"heads": 8, "seq": 8192, "head_dim": 128, "window": 4096}
 # xlstm-350m (src/repro/configs/xlstm_350m.py): D 1024, 4 sLSTM heads.
 XLSTM = {"batch": 8, "seq": 4096, "d": 1024}
 STAGED = (8192, 2048)
-# The radix-4 times of fft_fused and rfft_fused on (8192, 2048) with the
-# stage-at-a-time panel they ran before the register passes (PERF.md §6,
-# NVIDIA H100 80GB HBM3, 700.00 W); printed beside this run's times.
-STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118}
+# The radix-4 times with the stage-at-a-time panel the kernels ran before
+# the register passes, as PERF.md §6 records them (NVIDIA H100 80GB HBM3,
+# 700.00 W): fft_fused and rfft_fused on (8192, 2048), fft2_fused and
+# rfft2_fused on (512, 128, 128); printed beside this run's.
+STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "fft2_fused": 0.1313,
+                     "rfft2_fused": 0.0725}
+# Non-square frames of the whole-frame kernels: wide complex frames
+# (line-scan tiles) and tall real ones.
+FRAME_WIDE = (1024, 64, 256)
+FRAME_TALL = (1024, 256, 64)
+# The radix-4 whole-frame instances in the build log.
+FRAME_REGS_ENTRIES = {"fft2_fused": "16fft2_regs_kernel", "rfft2_fused": "17rfft2_regs_kernel"}
 # Rows over one block: FT-NMR free-induction decays of 256K complex points,
 # and 64K-sample real lines (radar range lines, spectroscopy).
 TWO_PASS_COMPLEX = (64, 2 ** 18)
@@ -319,7 +333,7 @@ def kernel_phase(torch, k, card: str):
             "shape": list(x.shape),
             "by_radix": by_radix,
         }
-        if name in STAGE_PANEL_R4_MS:
+        if name in ("fft_fused", "rfft_fused"):
             real = name == "rfft_fused"
             emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 4)",
                   "shape": list(x.shape), "passes_per_row": len(k.regpass_radices(
@@ -330,17 +344,109 @@ def kernel_phase(torch, k, card: str):
                                                       if real else None),
                   "ms": r4["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R4_MS[name],
                   "library_ms": rows[name]["library_ms"], "bound_ms": bound_ms})
+        elif name in FRAME_REGS_ENTRIES:
+            frame_line(name, x.shape, r4["ms"], rows[name]["library_ms"], bound_ms)
         del x
         torch.cuda.empty_cache()
+    non_square_frames(torch, k, card, rows, crandn, gen)
     return rows
+
+
+def frame_line(name, shape, ms, library_ms, bound_ms):
+    """The radix-4 whole-frame kernel's design line: passes, exchanges and
+    barriers per frame, threads and shared memory of its block, ptxas's
+    registers and spills of each instance, and the recorded stage-panel
+    time."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fft_radix2 as k
+
+    _, h, w = shape
+    real = name == "rfft2_fused"
+    fp = k.frame_passes(h, w, real=real)
+    values = h * (w // 2 if real else w)
+    emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 4)",
+          "shape": list(shape), "row_passes": list(fp.rows), "column_passes": list(fp.cols),
+          "exchanges_per_frame": fp.exchanges, "barriers_per_frame": fp.barriers,
+          "threads": k.block_threads(values),
+          "smem_bytes": (k.rfft2_smem_bytes if real else k.fft2_smem_bytes)(h, w),
+          "ptxas": {",".join(map(str, args)): v for args, v in
+                    ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES[name]).items()},
+          "ms": ms, "stage_panel_ms_recorded": STAGE_PANEL_R4_MS.get(name),
+          "library_ms": library_ms, "bound_ms": bound_ms})
+
+
+def ptxas_entries(log: str, fragment: str):
+    """Registers and spill bytes ptxas reported for each instance of the
+    kernel whose mangled name holds ``fragment``, keyed by its integer
+    template arguments: {(7, 7): {...}} ((0, 0) the frame kernels' runtime
+    geometry; (log2 C, log2 M, kind) for fft_cluster_kernel)."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            key = None
+            entry = re.search(fragment + r"I((?:Li\d+E)+)E", line)
+            if entry:
+                key = tuple(int(v) for v in re.findall(r"Li(\d+)E", entry[1]))
+                out[key] = {}
+        elif key is not None and "spill stores" in line:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[key].update(spill_stores=int(spills[1]), spill_loads=int(spills[2]))
+        elif key is not None and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return out
+
+
+def non_square_frames(torch, k, card, rows, crandn, gen):
+    """fft2_fused on wide frames and rfft2_fused on tall ones, at radix 2
+    and 4, against their plain versions; each line gives the times beside
+    the library call and the bound, and the kernel's row keeps the case."""
+    dev = torch.device("cuda")
+    fw, hw, ww = FRAME_WIDE
+    ft, ht, wt = FRAME_TALL
+    cases = {  # name: (input, kernel, plain, library, bytes, flops)
+        "fft2_fused": (crandn(*FRAME_WIDE), k.fft2_fused, k.fft2_fused_plain, torch.fft.fft2,
+                       16 * fw * hw * ww, 5.0 * fw * hw * ww * math.log2(hw * ww)),
+        "rfft2_fused": (torch.randn(*FRAME_TALL, generator=gen, device=dev), k.rfft2_fused,
+                        k.rfft2_fused_plain, torch.fft.rfft2,
+                        4 * ft * ht * wt + 8 * ft * ht * (wt // 2 + 1),
+                        2.5 * ft * ht * wt * math.log2(ht * wt)),
+    }
+    for name, (x, kernel, plain, library, nbytes, flops) in cases.items():
+        bound_ms, bound_by = bound(card, nbytes, flops)
+        case = {"shape": list(x.shape), "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": time_ms(lambda: library(x)), "by_radix": {}}
+        for radix in (2, 4):
+            got = kernel(x, radix=radix)
+            ref = plain(x, radix=radix)
+            torch.cuda.synchronize()
+            one = {"rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
+                   "ms": time_ms(lambda: kernel(x, radix=radix)),
+                   "plain_ms": time_ms(lambda: plain(x, radix=radix), reps=2, batches=3)}
+            del got, ref
+            case["by_radix"][str(radix)] = one
+            emit({"phase": "kernel", "kernel": name, "radix": radix, "shape": list(x.shape),
+                  **one})
+            if not one["rel_err"] <= TOL_KERNEL:
+                raise AssertionError(f"{name} {tuple(x.shape)} radix {radix}: rel err "
+                                     f"{one['rel_err']} > {TOL_KERNEL}")
+        r4 = case["by_radix"]["4"]
+        frame_line(name, x.shape, r4["ms"], case["library_ms"], bound_ms)
+        row = rows[name]
+        row["non_square"] = case
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 *(v["max_abs_err"] for v in case["by_radix"].values()))
+        row["rel_err"] = max(row["rel_err"], *(v["rel_err"] for v in case["by_radix"].values()))
+        del x
+        torch.cuda.empty_cache()
 
 
 def two_pass_phase(torch, k, card: str):
     """fft_two_pass (fft_fused, rfft_fused and irfft_fused at radix 2 on
     rows over one block) against its plain versions; returns its row. Each
     call must launch it twice (complex) or three times (real)."""
-    import math
-
     gen = torch.Generator(device="cuda").manual_seed(3)
     dev = torch.device("cuda")
 
@@ -429,27 +535,6 @@ def two_pass_phase(torch, k, card: str):
             "pass_ms": pass_ms, "shape": main["shape"], "by_case": by_case}
 
 
-def cluster_ptxas(log: str):
-    """Registers and spill bytes of each fft_cluster_kernel instance, from
-    the build's ``-Xptxas -v`` output: {(log2 C, log2 M, kind): {...}}."""
-    import re
-
-    out, key = {}, None
-    for line in log.splitlines():
-        entry = re.search(
-            r"Compiling entry function '.*fft_cluster_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
-        if entry:
-            key = tuple(int(v) for v in entry.groups())
-            out[key] = {}
-        elif key is not None and "spill stores" in line:
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            out[key].update(spill_stores=int(spills[1]), spill_loads=int(spills[2]))
-        elif key is not None and "registers" in line:
-            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
-            key = None
-    return out
-
-
 def cluster_phase(torch, k, card: str):
     """fft_cluster (fft_fused, rfft_fused and irfft_fused at radix 4 on rows
     over one block: one cluster of CTAs a row, one HBM round trip) against
@@ -458,8 +543,6 @@ def cluster_phase(torch, k, card: str):
     clusters the card holds at once, ptxas's registers and spills, and the
     rate at which DSMEM carried the exchange (the values read from peers)
     if it took the whole kernel time (a floor of the network's rate)."""
-    import math
-
     from repro_torch.kernels import _build
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -498,7 +581,7 @@ def cluster_phase(torch, k, card: str):
                             k.irfft_cluster_plain, torch.fft.irfft,
                             8 * bs * (ns // 2 + 1) + 4 * bs * ns, 2.5 * bs * ns * stages_s,
                             ns // 2, "irfft")
-    ptxas = cluster_ptxas(_build.build_log())
+    ptxas = ptxas_entries(_build.build_log(), "fft_cluster_kernel")
     by_case = {}
     for name, (z, kernel, plain, library, nbytes, flops, m, kind) in cases.items():
         before = dict(k.LAUNCHES)

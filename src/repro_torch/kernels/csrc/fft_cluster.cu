@@ -122,22 +122,20 @@ struct StridedLines {
   static constexpr bool kShared = true;
   float2* buf;
 
-  template <int R, int S>
-  __device__ __forceinline__ void read(int line, int t, float2* v, bool ok) const {
-    static_assert(S % 16 == 0, "shared-memory reads run over aligned groups of 16");
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
     if (!ok) line = t = 0;
     const float2* p = buf + line * STRIDE + t;
 #pragma unroll
-    for (int j = 0; j < R; ++j) v[j] = p[j * S];
+    for (int j = 0; j < R; ++j) v[j] = p[j * s];
   }
 
-  template <int R, int L>
-  __device__ __forceinline__ void write(int line, int pos, const float2* v, bool ok) const {
-    static_assert(L % 16 == 0, "shared-memory writes run over aligned groups of 16");
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
     if (!ok) return;
     float2* p = buf + line * STRIDE + pos;
 #pragma unroll
-    for (int c = 0; c < R; ++c) p[c * L] = v[regs::out_reg<R>(c)];
+    for (int c = 0; c < R; ++c) p[c * l] = v[regs::out_reg<R>(c)];
   }
 };
 

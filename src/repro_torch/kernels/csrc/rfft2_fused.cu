@@ -16,19 +16,43 @@
 // share slot 0 of each row as DC + i Nyquist. With that the column panel
 // runs on m columns, a power of two, and a two-for-one split of column 0
 // (forward) or a Hermitian pre-pack of columns 0 and m (inverse) recovers
-// both. The recombination and untangling run in place through registers,
-// as the Stockham stages do, and the corner turn is the column panel's
-// indexing (stockham.cuh). Frames that do not fit take the row / HBM turn /
-// column composition (repro_torch/kernels/ops.py).
+// both. Frames that do not fit take the row / HBM turn / column composition
+// (repro_torch/kernels/ops.py).
+//
+// rfft2_fused at radix 4: the register passes of stockham_regs.cuh
+// (frame_panel), as fft2_fused.cu runs them. The row panel loads the packed
+// rows straight from HBM into registers and leaves each row's half-size
+// spectrum Z in shared memory. The column panel's first pass recombines on
+// its way in: column c (consecutive threads take consecutive columns) reads
+// Z[r][c] and the mirror Z[r][m-c], descending runs as free of bank
+// conflicts as the ascending ones, and makes Y[r][c] = Xe + W_W^c Xo, slot 0
+// DC + i Nyquist; so the recombination costs one more read per value and no
+// exchange or barrier of its own. The last column pass stores straight from
+// registers to HBM (rows of m+1 bins: consecutive columns of a row are one
+// run), column 0 still packed. Column 0 needs rows r and H-r together,
+// which the last pass leaves in two threads: after one barrier, one thread
+// per row pair reads both back from the output (L2, H values a frame) and
+// writes the DC and Nyquist columns over it. A 128x128 frame: rows 16·4,
+// columns 16·8, three exchanges and six barriers, where the stage-at-a-time
+// panel and its in-place recombination took about twelve round trips. At
+// most 64 registers a thread, so two blocks of 512 threads (a 128x128
+// frame, 69 KiB) share an SM. One instance serves every frame of the census
+// with a runtime geometry; the 128x128 frame that chip_smoke times also has
+// an instance of its own.
+//
+// irfft2_fused, and rfft2_fused at radix 2: the block stages the frame in
+// shared memory, runs every Stockham stage there (stockham.cuh), and the
+// recombination and untangling run in place through registers; the corner
+// turn is the column panel's indexing.
 #include <cuda_runtime.h>
 
 #include "stockham.cuh"
+#include "stockham_regs.cuh"
 
 namespace repro {
 namespace {
 
 // x: (F, H, 2m) reals read as (F, H, m) packed complex; y: (F, H, m+1).
-template <int RADIX>
 __global__ void __launch_bounds__(kMaxThreads)
 rfft2_fused_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
@@ -47,7 +71,7 @@ rfft2_fused_kernel(const float2* __restrict__ x,
   for (int i = threadIdx.x; i < P; i += blockDim.x) buf[i] = x[base + i];
   __syncthreads();
   const Lines rows{buf, log_m, log_h, m, 1, false};
-  stockham_panel<RADIX>(rows, rom, log_nrom);
+  stockham_panel<2>(rows, rom, log_nrom);
 
   // Recombine each row in place: slot k <- Y[k] for 0 < k < m, slot 0 <-
   // Y[0] + i Y[m] (both real for a real row).
@@ -76,7 +100,7 @@ rfft2_fused_kernel(const float2* __restrict__ x,
   __syncthreads();
 
   const Lines cols{buf, log_h, log_m, 1, m, true};
-  stockham_panel<RADIX>(cols, rom, log_nrom);
+  stockham_panel<2>(cols, rom, log_nrom);
 
   // Column 0 now holds Z = A + iB with A, B the (Hermitian) transforms of
   // the DC and Nyquist columns: A = (Z[r] + conj Z[-r]) / 2,
@@ -100,6 +124,107 @@ rfft2_fused_kernel(const float2* __restrict__ x,
       }
     }
     y[out_base + i] = o;
+  }
+}
+
+// The first column pass of the radix-4 rfft2_fused reads the row panel's
+// half spectra Z (m columns) and recombines on the way in: column c of row r
+// becomes Y[r][c] = Xe + W_W^c Xo from Z[r][c] and conj Z[r][m-c] (W = 2m),
+// column 0 Y[r][0] + i Y[r][m] = (Re + Im) + i (Re - Im) of Z[r][0]. Column
+// 0's mirror read goes to column m-1, as column 1's does (one address).
+// W_W^c = sincospif(-c/m) is the ROM's entry c max(H, W)/W bit for bit
+// (the same float argument), without its bank conflicts on thin frames.
+struct RecombinedCols {
+  static constexpr bool kShared = true;
+  regs::SmemFrame<true> z;
+
+  template <int R>
+  __device__ __forceinline__ void read(int c, int t, int s, float2* v, bool ok) const {
+    if (!ok) c = t = 0;
+    const int m = 1 << z.log_w;
+    float sn, cs;
+    sincospif(-static_cast<float>(c) / static_cast<float>(m), &sn, &cs);
+    const float2 w = make_float2(cs, sn);
+    const bool dc = c == 0;
+    z.run<R>(c, t, s, [&](int j, const float2* p) { v[j] = *p; });
+    z.run<R>(m - max(c, 1), t, s, [&](int j, const float2* p) {
+      const float2 a = v[j];
+      const float2 y = regs::recombine(a, cconj(*p), w);
+      v[j] = dc ? make_float2(a.x + a.y, a.x - a.y) : y;
+    });
+  }
+};
+
+// The last column pass's output: column c of row r at y[r (m+1) + c], column
+// 0 still packed (Z = A + iB) until the split.
+struct RfftCols {
+  static constexpr bool kShared = false;
+  float2* y;
+  int stride;  // m + 1
+
+  template <int R>
+  __device__ __forceinline__ void write(int c, int pos, int l, const float2* v, bool ok) const {
+    if (!ok) return;
+    float2* p = y + static_cast<unsigned>(pos * stride + c);
+#pragma unroll
+    for (int k = 0; k < R; ++k) p[static_cast<unsigned>(k * l * stride)] = v[regs::out_reg<R>(k)];
+  }
+};
+
+// Radix 4: rfft2_fused on the register passes. x: (F, H, 2m) reals read as
+// (F, H, m) packed complex; y: (F, H, m+1). ROM: W_n^j, j < n/2, at
+// n = max(H, W), padded, after the padded frame: both panels' twiddles.
+// <0, 0> takes the frame's geometry at run time; an instance with LOG_H,
+// LOG_M fixed serves that frame with every stride compile-time.
+template <int LOG_H, int LOG_M>
+__global__ void __launch_bounds__(kMaxThreads)
+rfft2_regs_kernel(const float2* __restrict__ x,
+    float2* __restrict__ y,
+    int log_h_arg,
+    int log_m_arg) {
+  const int log_h = LOG_H ? LOG_H : log_h_arg;
+  const int log_m = LOG_M ? LOG_M : log_m_arg;
+  extern __shared__ float2 smem[];
+  const int h = 1 << log_h;
+  const int m = 1 << log_m;
+  const int P = h << log_m;
+  const int log_n = log_h > log_m + 1 ? log_h : log_m + 1;
+  float2* rom = smem + regs::padded(P);
+  regs::build_rom(rom, 1 << (log_n - 1));
+  const long long frame = blockIdx.x;
+  float2* out = y + frame * h * (m + 1);
+  const bool rows_padded = regs::pass_count(log_m) == 1;
+  regs::frame_panel<false>(smem, P, log_m, log_m, log_n - 1, rom,
+                           regs::HbmFrameRows{x + frame * P, log_m, 1.f},
+                           regs::SmemFrame<false>{smem, log_m, rows_padded});
+  __syncthreads();
+  regs::frame_panel<true>(smem, P, log_m, log_h, log_n - 1, rom,
+                          RecombinedCols{{smem, log_m, rows_padded}},
+                          RfftCols{out, m + 1});
+  __syncthreads();
+
+  // Column 0 of the output holds Z = A + iB, A and B the (Hermitian)
+  // transforms of the DC and Nyquist columns: A[r] = (Z[r] + conj Z[-r]) / 2
+  // goes to column 0, B[r] = -i (Z[r] - conj Z[-r]) / 2 to column m, and
+  // A[-r] = conj A[r], B[-r] = conj B[r]. After the barrier, which makes the
+  // last pass's stores visible to the block, thread r (r <= H/2) reads rows
+  // r and -r back (from L2: H values a frame, one round trip a thread) and
+  // writes both rows' DC and Nyquist bins.
+  for (int r = threadIdx.x; 2 * r <= h; r += blockDim.x) {
+    const int rm = (h - r) & (h - 1);
+    float2* o = out + r * (m + 1);
+    float2* om = out + rm * (m + 1);
+    const float2 z = o[0];
+    const float2 zm = cconj(om[0]);
+    const float2 d = csub(z, zm);
+    const float2 a = make_float2(0.5f * (z.x + zm.x), 0.5f * (z.y + zm.y));
+    const float2 b = make_float2(0.5f * d.y, -0.5f * d.x);
+    o[0] = a;
+    o[m] = b;
+    if (rm != r) {
+      om[0] = cconj(a);
+      om[m] = cconj(b);
+    }
   }
 }
 
@@ -187,6 +312,15 @@ irfft2_fused_kernel(const float2* __restrict__ x,
   }
 }
 
+// The 128x128 frame runs an instance of its own (54 registers, not 64;
+// about 7% faster on an H100, PERF.md); every other frame runs <0, 0>.
+using Rfft2RegsKernel = void (*)(const float2*, float2*, int, int);
+
+Rfft2RegsKernel rfft2_regs_instance(int log_h, int log_m) {
+  if (log_h == 7 && log_m == 6) return rfft2_regs_kernel<7, 6>;
+  return rfft2_regs_kernel<0, 0>;
+}
+
 // Shared checks of both entries: a power-of-two frame of at least 2x2 and
 // the geometry of a block holding H*W/2 values and the ROM.
 cudaError_t check(int frames, int h, int w, int radix, int threads, int smem) {
@@ -205,12 +339,23 @@ extern "C" int repro_rfft2_fused(const void* x, void* y, int frames, int h, int 
                                  int threads, int smem, int device, void* stream) {
   cudaError_t err = repro::check(frames, h, w, radix, threads, smem);
   if (err != cudaSuccess) return err;
-  auto kernel = radix == 4 ? repro::rfft2_fused_kernel<4> : repro::rfft2_fused_kernel<2>;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const float2*>(x);
+  auto* out = static_cast<float2*>(y);
+  const int log_h = repro::host_log2(h), log_m = repro::host_log2(w / 2);
+  if (radix == 4) {
+    if (!repro::regs::geometry_ok(h * (w / 2), threads, smem, (h > w ? h : w) / 2))
+      return cudaErrorInvalidConfiguration;
+    const auto kernel = repro::rfft2_regs_instance(log_h, log_m);
+    err = repro::prepare(kernel, device, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<frames, threads, smem, s>>>(in, out, log_h, log_m);
+    return cudaGetLastError();
+  }
+  const auto kernel = repro::rfft2_fused_kernel;
   err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<frames, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), repro::host_log2(h),
-      repro::host_log2(w / 2));
+  kernel<<<frames, threads, smem, s>>>(in, out, log_h, log_m);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
 // The register-pass Stockham panel of the radix-4 fft_fused and rfft_fused
-// kernels (fft_fused.cu): rows of n = 2^log_n values that fit one block.
+// kernels (fft_fused.cu): rows of n = 2^log_n values that fit one block; the
+// lines of the cluster kernel (fft_cluster.cu); and, over a frame's rows and
+// then its columns, the radix-4 fft2_fused and rfft2_fused (the "whole
+// frames" section below).
 //
 // Replaces the in-VMEM radix-4 panel of src/repro/kernels/fft_radix2.py
-// (_stockham_panel_r4) for those two kernels; stockham.cuh's stage-at-a-time
+// (_stockham_panel_r4) for those kernels; stockham.cuh's stage-at-a-time
 // panel stays for the others.
 //
 // A row is factored into passes of 16 values: 16 * 16 * ... * r, with the
@@ -169,14 +172,15 @@ __host__ __device__ constexpr int last_log_radix(int log_n) {
 }
 
 // Where a pass reads its inputs and writes its outputs. Each holds the
-// block's lines; read<R, S> fills v[0..R) from elements t + j S of a line,
-// write<R, L> puts v[out_reg<R>(c)] at element pos + c L. The strides are
-// compile-time constants, so each run of R accesses is one address and
-// immediate offsets.
+// block's lines; read<R>(line, t, s, ...) fills v[0..R) from elements
+// t + j s of a line, write<R>(line, pos, l, ...) puts v[out_reg<R>(c)] at
+// element pos + c l. The one-block and cluster kernels pass compile-time
+// constants for s and l, which fold into immediate offsets: each run of R
+// accesses is one address.
 
 // Shared memory, value i of line `line` at slot(line n + i) when PADDED,
-// else at line n + i. A run of stride S (a multiple of 16) has stride
-// padded(S) when padded; a run of stride 1 stays inside one aligned group
+// else at line n + i. A run of stride s (a multiple of 16) has stride
+// padded(s) when padded; a run of stride 1 stays inside one aligned group
 // of 16 (R | 16, pos a multiple of R).
 template <int LOG_N, bool PADDED>
 struct SmemLines {
@@ -185,22 +189,20 @@ struct SmemLines {
 
   static __device__ __forceinline__ int at(int i) { return PADDED ? slot(i) : i; }
 
-  template <int R, int S>
-  __device__ __forceinline__ void read(int line, int t, float2* v, bool ok) const {
-    static_assert(S % 16 == 0, "shared-memory reads run over aligned groups of 16");
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
     if (!ok) line = t = 0;  // a group past the block's values (blocks under 16 values)
     const float2* p = buf + at((line << LOG_N) + t);
 #pragma unroll
-    for (int j = 0; j < R; ++j) v[j] = p[j * (PADDED ? padded(S) : S)];
+    for (int j = 0; j < R; ++j) v[j] = p[j * (PADDED ? padded(s) : s)];
   }
 
-  template <int R, int L>
-  __device__ __forceinline__ void write(int line, int pos, const float2* v, bool ok) const {
-    static_assert(L % 16 == 0 || L == 1, "shared-memory writes run over aligned groups");
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
     if (!ok) return;
     float2* p = buf + at((line << LOG_N) + pos);
 #pragma unroll
-    for (int c = 0; c < R; ++c) p[c * (L == 1 || !PADDED ? L : padded(L))] = v[out_reg<R>(c)];
+    for (int c = 0; c < R; ++c) p[c * (l == 1 || !PADDED ? l : padded(l))] = v[out_reg<R>(c)];
   }
 };
 
@@ -217,66 +219,94 @@ struct HbmRows {
   int conj;
   float scale;
 
-  template <int R, int S>
-  __device__ __forceinline__ void read(int line, int t, float2* v, bool ok) const {
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
     ok = ok && row0 + line < batch;
     const float2* p = x + ((row0 + line) << LOG_N) + t;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      const float2 a = ok ? p[j * S] : make_float2(0.f, 0.f);
+      const float2 a = ok ? p[j * s] : make_float2(0.f, 0.f);
       v[j] = conj ? cconj(a) : a;
     }
   }
 
-  template <int R, int L>
-  __device__ __forceinline__ void write(int line, int pos, const float2* v, bool ok) const {
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
     if (!ok || row0 + line >= batch) return;
     float2* p = y + ((row0 + line) << LOG_N) + pos;
 #pragma unroll
     for (int c = 0; c < R; ++c) {
       const float2 a = v[out_reg<R>(c)];
-      p[c * L] = make_float2(a.x * scale, (conj ? -a.y : a.y) * scale);
+      p[c * l] = make_float2(a.x * scale, (conj ? -a.y : a.y) * scale);
     }
   }
 };
 
-// One register pass of radix 2^LR over span 2^LOG_L on the block's lines of
-// 2^LOG_N values (P values in all; groups g = threadIdx.x + i blockDim.x).
-// Group t of a line reads in[t + j n/R], multiplies by W_{R l}^{j k} from
-// the ROM (W_{2^(LOG_HALF+1)}^j, j < 2^LOG_HALF), runs the R-point DFT and
-// writes out[q R l + c l + k]. A pass that reads and writes shared memory
-// does it in place: it synchronises between its reads and its writes.
-template <int LOG_N, int LR, int LOG_L, int LOG_HALF, class Src, class Dst>
-__device__ __forceinline__ void pass(int P, const float2* rom, const Src& src, const Dst& dst) {
+// Which thread takes which group of a pass (groups g = threadIdx.x + i
+// blockDim.x). Over lines that are rows (COLS false) consecutive threads
+// take consecutive groups of a line. Over the columns of a frame of rows of
+// w values (fft2_fused.cu, rfft2_fused.cu) they take consecutive columns at
+// the same group t, so that every access of a half-warp covers consecutive
+// columns of one row, or, in a frame narrower than 16, the whole width of
+// consecutive rows: the column panel reads and writes runs of consecutive
+// values, its twiddle reads are broadcasts, and the corner turn is this
+// mapping alone.
+template <bool COLS>
+struct Lanes {
+  int log_w;  // the frame's row length (COLS: its lines are the w columns)
+
+  __device__ __forceinline__ void split(int g, int log_s, int& line, int& t) const {
+    if (COLS) {
+      line = g & ((1 << log_w) - 1);
+      t = g >> log_w;
+    } else {
+      line = g >> log_s;
+      t = g & ((1 << log_s) - 1);
+    }
+  }
+};
+
+// One register pass of radix 2^LR over span 2^log_l on the block's lines of
+// 2^log_n values (P values in all), the groups mapped to threads by
+// `lanes`. Group t of a line reads in[t + j n/R], multiplies by
+// W_{R l}^{j k} from the ROM (W_{2 half}^j, j < half = 2^log_half), runs
+// the R-point DFT and writes out[q R l + c l + k]. A pass that reads and
+// writes shared memory does it in place: it synchronises between its reads
+// and its writes. The one-block and cluster kernels pass compile-time
+// geometry; the frame kernels' may be runtime values.
+template <int LR, bool COLS, class Src, class Dst>
+__device__ __forceinline__ void pass(int P, int log_n, int log_l, int log_half,
+                                     const Lanes<COLS>& lanes, const float2* rom, const Src& src,
+                                     const Dst& dst) {
   constexpr int R = 1 << LR;
   constexpr int G = kValues / R;
-  constexpr int LOG_S = LOG_N - LR;  // n/R groups per line
-  constexpr int S = 1 << LOG_S;
-  constexpr int L = 1 << LOG_L;
+  const int log_s = log_n - LR;  // n/R groups per line
   const int groups = P >> LR;
   float2 v[kValues];
 #pragma unroll
   for (int i = 0; i < G; ++i) {
     const int g = threadIdx.x + i * blockDim.x;
-    src.template read<R, S>(g >> LOG_S, g & (S - 1), v + i * R, g < groups);
+    int line, t;
+    lanes.split(g, log_s, line, t);
+    src.template read<R>(line, t, 1 << log_s, v + i * R, g < groups);
   }
   if constexpr (Src::kShared && Dst::kShared) __syncthreads();
+  const int l = 1 << log_l;
 #pragma unroll
   for (int i = 0; i < G; ++i) {
     const int g = threadIdx.x + i * blockDim.x;
-    const int t = g & (S - 1);
-    const int k = t & (L - 1);
-    if constexpr (LOG_L > 0) {
-      // W_{R l}^{j k} = W_{2 half}^{j e1}, e1 = k << shift
-      constexpr int kShift = LOG_HALF + 1 - LR - LOG_L;
-      const int e1 = k << kShift;
+    int line, t;
+    lanes.split(g, log_s, line, t);
+    const int k = t & (l - 1);
+    if (log_l > 0) {
+      // W_{R l}^{j k} = W_{2 half}^{j e1}, e1 = k << (log_half + 1 - LR - log_l)
+      const int e1 = k << (log_half + 1 - LR - log_l);
 #pragma unroll
       for (int j = 1; j < R; ++j)
-        v[i * R + j] = cmul(v[i * R + j], rom_twiddle(rom, j * e1, 1 << LOG_HALF));
+        v[i * R + j] = cmul(v[i * R + j], rom_twiddle(rom, j * e1, 1 << log_half));
     }
     dft<R>(v + i * R);
-    dst.template write<R, L>(g >> LOG_S, ((t >> LOG_L) << (LOG_L + LR)) + k, v + i * R,
-                             g < groups);
+    dst.template write<R>(line, ((t >> log_l) << (log_l + LR)) + k, l, v + i * R, g < groups);
   }
 }
 
@@ -296,14 +326,15 @@ __device__ __forceinline__ void panel_head(float2* buf, int P, const float2* rom
   static_assert(NP >= 2 && NP <= 4, "lines of 2^5 to 2^16 values");
   const SmemLines<LOG_N, true> padded_lines{buf};
   const SmemLines<LOG_N, false> lines{buf};
-  pass<LOG_N, 4, 0, LOG_HALF>(P, rom, src, padded_lines);
+  const Lanes<false> rows{};
+  pass<4>(P, LOG_N, 0, LOG_HALF, rows, rom, src, padded_lines);
   if constexpr (NP >= 3) {
     __syncthreads();
-    pass<LOG_N, 4, 4, LOG_HALF>(P, rom, padded_lines, lines);
+    pass<4>(P, LOG_N, 4, LOG_HALF, rows, rom, padded_lines, lines);
   }
   if constexpr (NP >= 4) {
     __syncthreads();
-    pass<LOG_N, 4, 8, LOG_HALF>(P, rom, lines, lines);
+    pass<4>(P, LOG_N, 8, LOG_HALF, rows, rom, lines, lines);
   }
   __syncthreads();
 }
@@ -317,12 +348,138 @@ __device__ __forceinline__ void panel(float2* buf, int P, const float2* rom, con
                                       const Dst& dst) {
   constexpr int NP = pass_count(LOG_N);
   if constexpr (NP == 1) {
-    pass<LOG_N, LOG_N, 0, LOG_HALF>(P, rom, src, dst);
+    pass<LOG_N>(P, LOG_N, 0, LOG_HALF, Lanes<false>{}, rom, src, dst);
   } else {
     panel_head<LOG_N, LOG_HALF>(buf, P, rom, src);
-    pass<LOG_N, last_log_radix(LOG_N), 4 * (NP - 1), LOG_HALF>(P, rom, LastLines<LOG_N>{buf},
-                                                               dst);
+    pass<last_log_radix(LOG_N)>(P, LOG_N, 4 * (NP - 1), LOG_HALF, Lanes<false>{}, rom,
+                                LastLines<LOG_N>{buf}, dst);
   }
+}
+
+// ------------------------------ whole frames ------------------------------
+//
+// fft2_fused and rfft2_fused (fft2_fused.cu, rfft2_fused.cu) hold a frame of
+// h rows of w values in shared memory and run the passes over its rows
+// (Lanes<false>), then over its columns (Lanes<true>). One instance serves
+// every frame the census admits, so the line length, span and strides of a
+// pass may be runtime values; the radix stays a compile-time constant, so
+// that a pass's 16 values live in registers. The layouts are those of
+// `panel`: the first pass of each panel writes the padded layout (value i
+// of the frame at slot(i)), the second reads it and writes the plain one,
+// later passes stay plain.
+
+// The frame in shared memory, its lines the rows (element i of row `line` at
+// line w + i) or the columns (element i of column `line` at i w + line), in
+// the padded layout or the plain one. A run of R elements i0 + j step has
+// uniform slots where the layout is plain, where step is a multiple of 16
+// (padded step: padded(step)), or where step is 1 (a pass's stride-1 runs
+// stay inside one aligned group of 16: R | 16, pos a multiple of R); other
+// padded runs (frames under 16 wide or of under 256 values) take the slot of
+// each element.
+template <bool COLS>
+struct SmemFrame {
+  static constexpr bool kShared = true;
+  float2* buf;
+  int log_w;
+  bool padded;
+
+  __device__ __forceinline__ int index(int line, int i) const {
+    return COLS ? (i << log_w) + line : (line << log_w) + i;
+  }
+
+  __device__ __forceinline__ int at(int i) const { return padded ? slot(i) : i; }
+
+  // f(j, pointer to element i0 + j step) for j < R; step in elements of a line.
+  template <int R, class F>
+  __device__ __forceinline__ void run(int line, int i, int step, F f) const {
+    const int i0 = index(line, i);
+    const int st = COLS ? step << log_w : step;
+    if (!padded || st == 1 || (st & 15) == 0) {
+      float2* p = buf + at(i0);
+      const int ps = padded && st != 1 ? regs::padded(st) : st;
+#pragma unroll
+      for (int j = 0; j < R; ++j) f(j, p + j * ps);
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) f(j, buf + slot(i0 + j * st));
+    }
+  }
+
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
+    if (!ok) line = t = 0;
+    run<R>(line, t, s, [&](int j, const float2* p) { v[j] = *p; });
+  }
+
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
+    if (!ok) return;
+    run<R>(line, pos, l, [&](int c, float2* p) { *p = v[out_reg<R>(c)]; });
+  }
+};
+
+// The frame's rows in HBM (x points at the frame), read by the row panel's
+// first pass; the imaginary parts times `sign` (-1 conjugates on the way
+// in). The loads are unpredicated, a group past the frame's values (frames
+// under 16 values) reading value 0, and their offsets 32-bit, so that each
+// address costs one instruction just before its load.
+struct HbmFrameRows {
+  static constexpr bool kShared = false;
+  const float2* x;
+  int log_w;
+  float sign;
+
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
+    if (!ok) line = t = 0;
+    const float2* p = x + static_cast<unsigned>((line << log_w) + t);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float2 a = p[static_cast<unsigned>(j * s)];
+      v[j] = make_float2(a.x, a.y * sign);
+    }
+  }
+};
+
+// pass at the radix 2^lr of a runtime value (a line of 1 to 16 values is
+// one pass of its own length; the last pass of a longer one is 2 to 16).
+template <bool COLS, class Src, class Dst>
+__device__ __forceinline__ void pass_r(int lr, int P, int log_n, int log_l, int log_half,
+                                       const Lanes<COLS>& lanes, const float2* rom,
+                                       const Src& src, const Dst& dst) {
+  switch (lr) {
+    case 0: pass<0>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 1: pass<1>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 2: pass<2>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 3: pass<3>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    default: pass<4>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+  }
+}
+
+// The panel over the frame's lines of 2^log_n values (rows of w = 2^log_w
+// values, or its columns): src -> first pass -> padded frame -> middle passes
+// in place, the first rewriting it plain -> last pass -> dst. One pass where a
+// line holds at most 16 values. The caller synchronises before a shared src
+// is read and after a shared dst is written; the ROM is read only after the
+// first barrier.
+template <bool COLS, class Src, class Dst>
+__device__ __forceinline__ void frame_panel(float2* buf, int P, int log_w, int log_n, int log_half,
+                                            const float2* rom, const Src& src, const Dst& dst) {
+  const Lanes<COLS> lanes{log_w};
+  const int np = pass_count(log_n);
+  if (np == 1) {
+    pass_r(log_n, P, log_n, 0, log_half, lanes, rom, src, dst);
+    return;
+  }
+  pass<4>(P, log_n, 0, log_half, lanes, rom, src, SmemFrame<COLS>{buf, log_w, true});
+  __syncthreads();
+  for (int p = 1; p < np - 1; ++p) {
+    pass<4>(P, log_n, 4 * p, log_half, lanes, rom, SmemFrame<COLS>{buf, log_w, p == 1},
+            SmemFrame<COLS>{buf, log_w, false});
+    __syncthreads();
+  }
+  pass_r(last_log_radix(log_n), P, log_n, 4 * (np - 1), log_half, lanes, rom,
+         SmemFrame<COLS>{buf, log_w, np == 2}, dst);
 }
 
 // Two-for-one recombination Y = Xe + w Xo from z = Z[k] and zm = conj Z[m-k]

@@ -9,18 +9,20 @@ live here:
 * **The census.** The shared memory and threads each CUDA kernel really
   uses, derived from ``csrc/``: a block holds its P complex values (8 bytes
   each) once, because each stage is done in place through registers, plus
-  one twiddle ROM; for ``fft_fused`` and ``rfft_fused`` both padded by one
-  slot per 16 (:func:`smem_slot`), the layout of their radix-4
-  register-pass panel. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``,
-  the two-pass and cluster geometries, ``kernels.ops``, the engines' gate
-  and the planner all read it. ``fft_fits_fused`` is the reference's
+  one twiddle ROM; for ``fft_fused``, ``rfft_fused``, ``fft2_fused`` and
+  ``rfft2_fused`` both padded by one slot per 16 (:func:`smem_slot`), the
+  layout of their radix-4 register-pass panel. ``pick_row_tile``,
+  ``fft_fits_smem``, ``fft2_fits_smem``, the two-pass and cluster
+  geometries, ``kernels.ops``, the engines' gate and the planner all read
+  it. ``fft_fits_fused`` is the reference's
   envelope of the 1D kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
   step for step the Pallas panels, ``_regpass_panel`` (the register passes
   of ``csrc/stockham_regs.cuh``, which ``fft_fused`` and ``rfft_fused`` run
-  at radix 4), ``_two_pass_panel`` (the four-step FFT of
-  ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
+  at radix 4, and ``fft2_fused`` and ``rfft2_fused`` over a frame's rows
+  and columns, with ``_rfft2_regpass``), ``_two_pass_panel`` (the
+  four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
 * **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
@@ -65,6 +67,7 @@ __all__ = [
     "fft_smem_bytes",
     "fft_split",
     "fft_two_pass_plain",
+    "frame_passes",
     "irfft2_fused",
     "irfft2_fused_plain",
     "irfft_cluster_plain",
@@ -156,15 +159,19 @@ def irfft_smem_bytes(n: int, rows: int = 1) -> int:
 
 
 def fft2_smem_bytes(h: int, w: int) -> int:
-    """``fft2_fused``: the whole frame and one ROM for the longer side."""
-    return _block_bytes(h * w, max(h, w) // 2)
+    """``fft2_fused``: the whole frame and one ROM of max(H, W)/2 twiddles
+    for the longer side, each padded for the radix-4 register passes (the
+    radix-2 panel uses the unpadded part)."""
+    return _padded_block_bytes(h * w, max(h, w) // 2)
 
 
 def rfft2_smem_bytes(h: int, w: int) -> int:
     """``rfft2_fused`` and ``irfft2_fused``: the frame as H rows of W/2
     packed values (DC and Nyquist share slot 0), and one ROM of
-    max(H, W)/2 + 1 twiddles."""
-    return _block_bytes(h * (w // 2), max(h, w) // 2 + 1)
+    max(H, W)/2 + 1 twiddles, each padded for the radix-4 ``rfft2_fused``
+    (its register passes read max(H, W)/2 of the twiddles; ``irfft2_fused``
+    and the radix-2 ``rfft2_fused`` use the unpadded part)."""
+    return _padded_block_bytes(h * (w // 2), max(h, w) // 2 + 1)
 
 
 def _fits(smem: int, elems: int) -> bool:
@@ -181,13 +188,16 @@ def fft_fits_smem(n: int, *, real: bool = False) -> bool:
 
 
 def fft2_fits_smem(h: int, w: int) -> bool:
-    """True when a whole (H, W) complex frame fits one ``fft2_fused`` block."""
+    """True when a whole (H, W) complex frame fits one ``fft2_fused`` block:
+    H·W <= 16384, the 1024 threads of 16 values; the padded shared memory
+    of such a frame is at most 174,080 bytes, under the budget."""
     return _fits(fft2_smem_bytes(h, w), h * w)
 
 
 def rfft2_fits_smem(h: int, w: int) -> bool:
     """True when a whole (H, W) real frame fits one ``rfft2_fused`` /
-    ``irfft2_fused`` block."""
+    ``irfft2_fused`` block: H·W/2 <= 16384, the thread limit, as for
+    :func:`fft2_fits_smem` (padded, at most 208,904 bytes)."""
     return _fits(rfft2_smem_bytes(h, w), h * max(w // 2, 1))
 
 
@@ -480,6 +490,30 @@ def regpass_barriers(n: int, *, real: bool = False) -> int:
     return max(2 * passes - 3, 0)
 
 
+class FramePasses(NamedTuple):
+    """The register passes of the radix-4 ``fft2_fused`` / ``rfft2_fused``
+    on one frame (``frame_panel`` in ``csrc/stockham_regs.cuh``)."""
+
+    rows: Tuple[int, ...]  # radices of the row panel (rfft2: over W/2)
+    cols: Tuple[int, ...]  # radices of the column panel
+    exchanges: int  # round trips of the whole frame through shared memory
+    barriers: int  # block barriers per frame
+
+
+def frame_passes(h: int, w: int, *, real: bool = False) -> FramePasses:
+    """Passes, exchanges and barriers of the radix-4 whole-frame kernels on
+    an (H, W) frame. The row panel's first pass loads from HBM and the
+    column panel's last stores to HBM, so T passes make T - 1 exchanges;
+    each boundary between passes is a barrier, and so is the middle of every
+    pass that reads and writes shared memory in place: 2T - 3. ``rfft2_fused``
+    recombines in its first column pass's reads (no exchange of its own) and
+    adds one barrier before it splits column 0 into DC and Nyquist."""
+    rows = regpass_radices(w // 2 if real else w)
+    cols = regpass_radices(h)
+    t = len(rows) + len(cols)
+    return FramePasses(rows, cols, t - 1, 2 * t - 3 + int(real))
+
+
 # cos and sin of 2 pi p / 16 as the kernel's float32 constants.
 _C16 = [float(torch.tensor(math.cos(2 * math.pi * p / 16), dtype=torch.float32))
         for p in range(16)]
@@ -667,18 +701,9 @@ def _rfft_panel(x: torch.Tensor, n: int, radix: int, *, two_pass: bool = False,
     zki = torch.cat([zi, zi[:, :1]], dim=-1)
     zmkr = torch.cat([zr[:, :1], torch.flip(zr[:, 1:], dims=(-1,)), zr[:, :1]], dim=-1)
     zmki = -torch.cat([zi[:, :1], torch.flip(zi[:, 1:], dims=(-1,)), zi[:, :1]], dim=-1)
-    xer = 0.5 * (zkr + zmkr)
-    xei = 0.5 * (zki + zmki)
-    dr = zkr - zmkr
-    di = zki - zmki
-    xor_ = 0.5 * di
-    xoi = -0.5 * dr
     k = torch.arange(m + 1, dtype=torch.float32, device=x.device).reshape(1, m + 1)
     ang = (-2.0 * math.pi / n) * k
-    wr, wi = torch.cos(ang), torch.sin(ang)
-    yr = xer + wr * xor_ - wi * xoi
-    yi = xei + wr * xoi + wi * xor_
-    return yr, yi
+    return _recombine(zkr, zki, zmkr, zmki, torch.cos(ang), torch.sin(ang))
 
 
 def _irfft_panel(yr: torch.Tensor, yi: torch.Tensor, n: int, radix: int, *,
@@ -794,12 +819,13 @@ def irfft_cluster_plain(y: torch.Tensor) -> torch.Tensor:
 
 def fft2_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
     """Plain version of :func:`fft2_fused` on (F, H, W) complex64: row
-    panel, corner turn, column panel, turn back."""
+    panel, corner turn, column panel, turn back; the register passes at
+    radix 4, the Stockham stages at radix 2."""
     f, h, w = x.shape
     re, im = _planes(x)
     if inverse:
         im = -im
-    panel = _panel(radix)
+    panel = _one_block_panel(radix)
     yr, yi = panel(re.reshape(f * h, w), im.reshape(f * h, w), w)
     yr = yr.reshape(f, h, w).transpose(-1, -2).reshape(f * w, h)
     yi = yi.reshape(f, h, w).transpose(-1, -2).reshape(f * w, h)
@@ -811,9 +837,55 @@ def fft2_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) 
     return _complex(yr, yi)
 
 
+def _recombine(zr, zi, mr, mi, wr, wi):
+    """``regs::recombine``: Y = Xe + w·Xo from z = Z[k] and zm = conj Z[m-k]
+    given as (mr, mi)."""
+    xer, xei = 0.5 * (zr + mr), 0.5 * (zi + mi)
+    xor_, xoi = 0.5 * (zi - mi), -0.5 * (zr - mr)
+    return xer + wr * xor_ - wi * xoi, xei + wr * xoi + wi * xor_
+
+
+def _rfft2_regpass(x: torch.Tensor) -> torch.Tensor:
+    """The radix-4 ``rfft2_fused`` kernel (``csrc/rfft2_fused.cu``,
+    ``rfft2_regs_kernel``) step for step: the register passes over the H
+    packed rows of m = W/2; the first column pass's recombination, column c
+    of row r becoming Y[r][c] = Xe + W_W^c·Xo from Z[r][c] and
+    conj Z[r][m-c], column 0 (Re + Im) + i(Re - Im) of Z[r][0] (DC + i
+    Nyquist); the register passes over the m columns; column 0 split into
+    A = (Z[r] + conj Z[-r])/2 (DC) and B = -i(Z[r] - conj Z[-r])/2
+    (Nyquist)."""
+    f, h, w = x.shape
+    m = w // 2
+    packed = x.reshape(f * h, m, 2)
+    zr, zi = _regpass_panel(packed[..., 0], packed[..., 1], m)  # (f·h, m)
+    mirror = (-torch.arange(m, device=x.device)) % m
+    c = torch.arange(m, dtype=torch.float64, device=x.device)
+    ang = c * (-2.0 * math.pi / w)
+    yr, yi = _recombine(zr, zi, zr[:, mirror], -zi[:, mirror], torch.cos(ang).float(),
+                        torch.sin(ang).float())
+    yr[:, 0], yi[:, 0] = zr[:, 0] + zi[:, 0], zr[:, 0] - zi[:, 0]
+
+    def turn(z, a, b):  # (f, a, b) -> (f·b, a)
+        return z.reshape(f, a, b).transpose(1, 2).reshape(f * b, a)
+
+    yr, yi = _regpass_panel(turn(yr, h, m), turn(yi, h, m), h)  # (f·m, h)
+    yr, yi = turn(yr, m, h).reshape(f, h, m), turn(yi, m, h).reshape(f, h, m)
+    rows = (-torch.arange(h, device=x.device)) % h
+    zr, zi = yr[:, :, 0], yi[:, :, 0]
+    mr, mi = zr[:, rows], -zi[:, rows]
+    dc = torch.complex(0.5 * (zr + mr), 0.5 * (zi + mi))
+    ny = torch.complex(0.5 * (zi - mi), -0.5 * (zr - mr))
+    body = _complex(yr[:, :, 1:], yi[:, :, 1:])
+    return torch.cat([dc[:, :, None], body, ny[:, :, None]], dim=-1)
+
+
 def rfft2_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`rfft2_fused`: (F, H, W) float32 ->
-    (F, H, W/2+1); row rfft panel, corner turn, column panel, turn back."""
+    (F, H, W/2+1); row rfft panel, corner turn, column panel, turn back.
+    At radix 4 the kernel's own order (:func:`_rfft2_regpass`): the packed
+    columns DC + i Nyquist go through the column panel together."""
+    if radix == 4:
+        return _rfft2_regpass(x)
     f, h, w = x.shape
     half = w // 2 + 1
     yr, yi = _rfft_panel(x.reshape(f * h, w), w, radix)

@@ -213,10 +213,11 @@ def test_census_bounds_follow_the_block_limits():
     assert ops.smem_budget_bytes() == 232_448
     assert ops.fft2_fits_budget(128, 128) and ops.fft2_fits_budget(64, 256)
     assert not ops.fft2_fits_budget(256, 128) and not ops.fft2_fits_budget(1024, 1024)
-    assert ops.fft2_working_set(128, 128) == (128 * 128 + 64) * 8
+    assert ops.fft2_working_set(128, 128) == (k.smem_slot(128 * 128) + k.smem_slot(64)) * 8
     assert ops.fft2_fits_budget(128, 256, real=True) and ops.fft2_fits_budget(256, 128, real=True)
     assert not ops.fft2_fits_budget(256, 256, real=True)
-    assert ops.fft2_working_set(128, 256, real=True) == (128 * 128 + 129) * 8
+    assert (ops.fft2_working_set(128, 256, real=True)
+            == (k.smem_slot(128 * 128) + k.smem_slot(129)) * 8)
     assert k.fft_fits_smem(16384) and not k.fft_fits_smem(32768)
     assert k.fft_fits_smem(16384, real=True) and not k.fft_fits_smem(32768, real=True)
     assert k.fft_fits_fused(2 ** 18) and not k.fft_fits_fused(2 ** 19)

@@ -160,6 +160,45 @@ def test_cuda_fft_cluster_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_frame_register_passes_match_plain(cuda):
+    """The radix-4 fft2_fused (forward and inverse) and rfft2_fused run the
+    register-pass kernels on every frame the census admits (91 complex, 105
+    real), three frames a call, each within 2e-5 of its plain version and of
+    torch.fft; irfft2_fused (the stage panel) on rfft2_fused's output
+    matches its plain version and returns the input (1e-4, a round trip).
+    Each call launches its kernel once and nothing else."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+
+    def one_launch(name, fn, *args, **kw):
+        before = dict(k.LAUNCHES)
+        out = fn(*args, **kw)
+        delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
+        assert delta == {kn: int(kn == name) for kn in k.LAUNCHES}, delta
+        return out
+
+    frames = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 15)]
+    complex_frames = [hw for hw in frames if k.fft2_fits_smem(*hw)]
+    real_frames = [hw for hw in frames if k.rfft2_fits_smem(*hw)]
+    assert (len(complex_frames), len(real_frames)) == (91, 105)
+    for hw in complex_frames:
+        x = torch.complex(torch.randn(3, *hw, generator=g, device=cuda),
+                          torch.randn(3, *hw, generator=g, device=cuda))
+        for inverse in (False, True):
+            got = one_launch("fft2_fused", k.fft2_fused, x, radix=4, inverse=inverse)
+            assert _rel(got, k.fft2_fused_plain(x, radix=4, inverse=inverse)) <= TOL, hw
+            ref = torch.fft.ifft2(x) if inverse else torch.fft.fft2(x)
+            assert _rel(got, ref) <= TOL, (hw, inverse)
+    for hw in real_frames:
+        r = torch.randn(3, *hw, generator=g, device=cuda)
+        got = one_launch("rfft2_fused", k.rfft2_fused, r, radix=4)
+        assert _rel(got, k.rfft2_fused_plain(r, radix=4)) <= TOL, hw
+        assert _rel(got, torch.fft.rfft2(r)) <= TOL, hw
+        back = one_launch("irfft2_fused", k.irfft2_fused, got, radix=4)
+        assert _rel(back, k.irfft2_fused_plain(got, radix=4)) <= TOL, hw
+        assert _rel(back, r) <= 1e-4, hw
+
+
+@pytest.mark.cuda
 def test_cuda_every_cluster_instance_has_an_active_cluster(cuda):
     """cudaOccupancyMaxActiveClusters is at least 1 for every instance the
     census launches."""
