@@ -15,14 +15,16 @@ Phases, each printing one JSON line:
              against the host's cos/sin, and FMA contraction over up to 11
              stages); with the kernel's, the plain version's and the
              ``torch.fft`` yardstick's median times and the HBM bound;
-             for fft_fused and rfft_fused (radix 4: the register-pass
-             panel) also the passes, shared-memory exchanges and barriers
-             per row and the recorded time of the stage-at-a-time panel,
-             and for fft2_fused and rfft2_fused (the same panel over rows
-             and columns) those per frame, the block's threads and shared
-             memory, and ptxas's registers and spills; fft2_fused also on
-             wide (1024, 64, 256) and rfft2_fused on tall (1024, 256, 64)
-             frames, at both radices;
+             for fft_fused, rfft_fused and irfft_fused (radix 4: the
+             register-pass panel) also the passes, shared-memory exchanges
+             and barriers per row and the recorded time of the
+             stage-at-a-time panel (irfft_fused: with ptxas's registers and
+             spills), and for fft2_fused, rfft2_fused and irfft2_fused (the
+             same panel over rows and columns) those per frame, the block's
+             threads and shared memory, and ptxas's registers and spills;
+             fft2_fused also on wide (1024, 64, 256), rfft2_fused on tall
+             (1024, 256, 64) frames and irfft2_fused on their half spectra
+             (1024, 256, 33), at both radices;
    kernel  — the same for fft_two_pass, the kernels that fft_fused,
              rfft_fused and irfft_fused launch at radix 2 on rows over one
              block (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex
@@ -242,16 +244,20 @@ XLSTM = {"batch": 8, "seq": 4096, "d": 1024}
 STAGED = (8192, 2048)
 # The radix-4 times with the stage-at-a-time panel the kernels ran before
 # the register passes, as PERF.md §6 records them (NVIDIA H100 80GB HBM3,
-# 700.00 W): fft_fused and rfft_fused on (8192, 2048), fft2_fused and
-# rfft2_fused on (512, 128, 128); printed beside this run's.
-STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "fft2_fused": 0.1313,
-                     "rfft2_fused": 0.0725}
+# 700.00 W): fft_fused and rfft_fused on (8192, 2048), irfft_fused on
+# (8192, 1025), fft2_fused and rfft2_fused on (512, 128, 128), irfft2_fused
+# on (512, 128, 65); printed beside this run's.
+STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "irfft_fused": 0.1056,
+                     "fft2_fused": 0.1313, "rfft2_fused": 0.0725, "irfft2_fused": 0.0776}
 # Non-square frames of the whole-frame kernels: wide complex frames
 # (line-scan tiles) and tall real ones.
 FRAME_WIDE = (1024, 64, 256)
 FRAME_TALL = (1024, 256, 64)
-# The radix-4 whole-frame instances in the build log.
-FRAME_REGS_ENTRIES = {"fft2_fused": "16fft2_regs_kernel", "rfft2_fused": "17rfft2_regs_kernel"}
+# The radix-4 register-pass instances in the build log: the whole-frame
+# kernels', and irfft_fused's (one a line length).
+FRAME_REGS_ENTRIES = {"fft2_fused": "16fft2_regs_kernel", "rfft2_fused": "17rfft2_regs_kernel",
+                      "irfft2_fused": "18irfft2_regs_kernel"}
+ROW_REGS_ENTRIES = {"irfft_fused": "17irfft_regs_kernel"}
 # Rows over one block: FT-NMR free-induction decays of 256K complex points,
 # and 64K-sample real lines (radar range lines, spectroscopy).
 TWO_PASS_COMPLEX = (64, 2 ** 18)
@@ -270,6 +276,8 @@ def bound(card: str, nbytes: float, flops: float, flop_rate: float = PEAK_FLOPS_
 
 def kernel_phase(torch, k, card: str):
     """Each kernel against its plain version; returns the per-kernel rows."""
+    from repro_torch.kernels import _build
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
 
@@ -333,17 +341,21 @@ def kernel_phase(torch, k, card: str):
             "shape": list(x.shape),
             "by_radix": by_radix,
         }
-        if name in ("fft_fused", "rfft_fused"):
-            real = name == "rfft_fused"
-            emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 4)",
-                  "shape": list(x.shape), "passes_per_row": len(k.regpass_radices(
-                      n // 2 if real else n)),
-                  "exchanges_per_row": k.regpass_exchanges(n, real=real),
-                  "barriers_per_row": k.regpass_barriers(n, real=real),
-                  "mirror_bins_paired_in_registers": (k.rfft_pairs_in_registers(n // 2)
-                                                      if real else None),
-                  "ms": r4["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R4_MS[name],
-                  "library_ms": rows[name]["library_ms"], "bound_ms": bound_ms})
+        if name in ("fft_fused", "rfft_fused", "irfft_fused"):
+            real, inverse = name != "fft_fused", name == "irfft_fused"
+            line = {"phase": "kernel", "kernel": name, "design": "register passes (radix 4)",
+                    "shape": list(x.shape), "passes_per_row": len(k.regpass_radices(
+                        n // 2 if real else n)),
+                    "exchanges_per_row": k.regpass_exchanges(n, real=real, inverse=inverse),
+                    "barriers_per_row": k.regpass_barriers(n, real=real, inverse=inverse),
+                    "mirror_bins_paired_in_registers": (k.rfft_pairs_in_registers(n // 2)
+                                                        if real and not inverse else None),
+                    "ms": r4["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R4_MS[name],
+                    "library_ms": rows[name]["library_ms"], "bound_ms": bound_ms}
+            if name in ROW_REGS_ENTRIES:
+                line["ptxas"] = ptxas_entries(_build.build_log(), ROW_REGS_ENTRIES[name]).get(
+                    ((n // 2).bit_length() - 1,))
+            emit(line)
         elif name in FRAME_REGS_ENTRIES:
             frame_line(name, x.shape, r4["ms"], rows[name]["library_ms"], bound_ms)
         del x
@@ -361,8 +373,10 @@ def frame_line(name, shape, ms, library_ms, bound_ms):
     from repro_torch.kernels import fft_radix2 as k
 
     _, h, w = shape
-    real = name == "rfft2_fused"
-    fp = k.frame_passes(h, w, real=real)
+    real, inverse = name != "fft2_fused", name == "irfft2_fused"
+    if inverse:  # a half spectrum
+        w = 2 * (w - 1)
+    fp = k.frame_passes(h, w, real=real, inverse=inverse)
     values = h * (w // 2 if real else w)
     emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 4)",
           "shape": list(shape), "row_passes": list(fp.rows), "column_passes": list(fp.cols),
@@ -379,7 +393,8 @@ def ptxas_entries(log: str, fragment: str):
     """Registers and spill bytes ptxas reported for each instance of the
     kernel whose mangled name holds ``fragment``, keyed by its integer
     template arguments: {(7, 7): {...}} ((0, 0) the frame kernels' runtime
-    geometry; (log2 C, log2 M, kind) for fft_cluster_kernel)."""
+    geometry; (log2 m,) for irfft_regs_kernel; (log2 C, log2 M, kind) for
+    fft_cluster_kernel)."""
     import re
 
     out, key = {}, None
@@ -400,9 +415,10 @@ def ptxas_entries(log: str, fragment: str):
 
 
 def non_square_frames(torch, k, card, rows, crandn, gen):
-    """fft2_fused on wide frames and rfft2_fused on tall ones, at radix 2
-    and 4, against their plain versions; each line gives the times beside
-    the library call and the bound, and the kernel's row keeps the case."""
+    """fft2_fused on wide frames, rfft2_fused on tall ones and irfft2_fused
+    on their half spectra, at radix 2 and 4, against their plain versions;
+    each line gives the times beside the library call and the bound, and
+    the kernel's row keeps the case."""
     dev = torch.device("cuda")
     fw, hw, ww = FRAME_WIDE
     ft, ht, wt = FRAME_TALL
@@ -413,6 +429,9 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
                         k.rfft2_fused_plain, torch.fft.rfft2,
                         4 * ft * ht * wt + 8 * ft * ht * (wt // 2 + 1),
                         2.5 * ft * ht * wt * math.log2(ht * wt)),
+        "irfft2_fused": (crandn(ft, ht, wt // 2 + 1), k.irfft2_fused, k.irfft2_fused_plain,
+                         torch.fft.irfft2, 8 * ft * ht * (wt // 2 + 1) + 4 * ft * ht * wt,
+                         2.5 * ft * ht * wt * math.log2(ht * wt)),
     }
     for name, (x, kernel, plain, library, nbytes, flops) in cases.items():
         bound_ms, bound_by = bound(card, nbytes, flops)

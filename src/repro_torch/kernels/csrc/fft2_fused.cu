@@ -69,28 +69,6 @@ fft2_fused_kernel(const float2* __restrict__ x,
   }
 }
 
-// The frame's columns in HBM (y points at the frame), written by the column
-// panel's last pass: element i of column c at y[i w + c], times (scale,
-// yscale): the inverse conjugates and scales (yscale = -scale).
-struct HbmFrameCols {
-  static constexpr bool kShared = false;
-  float2* y;
-  int log_w;
-  float scale;
-  float yscale;
-
-  template <int R>
-  __device__ __forceinline__ void write(int col, int pos, int l, const float2* v, bool ok) const {
-    if (!ok) return;
-    float2* p = y + static_cast<unsigned>((pos << log_w) + col);
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const float2 a = v[regs::out_reg<R>(c)];
-      p[static_cast<unsigned>((c * l) << log_w)] = make_float2(a.x * scale, a.y * yscale);
-    }
-  }
-};
-
 // Radix 4: rows, then columns, on the register passes; HBM -> registers ->
 // shared memory -> ... -> registers -> HBM. ROM: W_n^j, j < n/2, at the
 // longer side n, padded, after the padded frame. <0, 0> takes the frame's
@@ -119,7 +97,7 @@ fft2_regs_kernel(const float2* __restrict__ x,
   __syncthreads();
   regs::frame_panel<true>(smem, P, log_w, log_h, log_half, rom,
                           regs::SmemFrame<true>{smem, log_w, rows_padded},
-                          HbmFrameCols{y + base, log_w, scale, conj ? -scale : scale});
+                          regs::HbmFrameOut<true>{y + base, log_w, scale, conj ? -scale : scale});
 }
 
 // The 128x128 frame runs an instance of its own: with immediate offsets and

@@ -17,24 +17,26 @@
 // read the N reals of a row as N/2 packed complex values (the even/odd pack
 // is a reinterpretation, not a copy).
 //
-// Radix 4 (fft_fused, rfft_fused): the register-pass panel of
-// stockham_regs.cuh. Each pass holds 16 values a thread and does two
-// radix-4 layers in registers per exchange through shared memory; the first
-// pass loads straight from HBM and the last stores straight to HBM. A
-// 2048-point row is three passes, two exchanges and three barriers.
-// rfft_fused's last pass pairs each bin with its mirror in registers and
-// recombines there where its radix is at most 8 (half rows of 2^9, 2^10,
-// 2^11 and 2^13: its 1024-point half row also takes three passes, two
-// exchanges and three barriers); on other half rows the last pass writes
-// the half spectrum to shared memory and the recombination reads it back.
-// One instance per line length, so that every stride, shift and pass is a
-// compile-time constant; blocks of up to 256 threads (every row of up to
-// 4096 values in the census's tiles) may use more than the 64 registers a
-// thread of a 1024-thread block has.
+// Radix 4: the register-pass panel of stockham_regs.cuh. Each pass holds 16
+// values a thread and does two radix-4 layers in registers per exchange
+// through shared memory; the first pass loads straight from HBM and the last
+// stores straight to HBM. A 2048-point row is three passes, two exchanges
+// and three barriers. rfft_fused's last pass pairs each bin with its mirror
+// in registers and recombines there where its radix is at most 8 (half rows
+// of 2^9, 2^10, 2^11 and 2^13: its 1024-point half row also takes three
+// passes, two exchanges and three barriers); on other half rows the last
+// pass writes the half spectrum to shared memory and the recombination reads
+// it back. irfft_fused untangles in its first pass's reads (Y[k] and its
+// mirror Y[m-k] straight from HBM) and stores conj(z) / m from its last: its
+// half row of 1024 is the same three passes, two exchanges and three
+// barriers. One instance per line length, so that every stride, shift and
+// pass is a compile-time constant; blocks of up to 256 threads (every row of
+// up to 4096 values in the census's tiles) may use more than the 64
+// registers a thread of a 1024-thread block has.
 //
-// Radix 2, and irfft_fused at both radices: the block stages its rows in
-// shared memory, runs every Stockham stage there (stockham.cuh), and stores
-// once; irfft_fused untangles on the way in.
+// Radix 2: the block stages its rows in shared memory, runs every Stockham
+// stage there (stockham.cuh), and stores once; irfft_fused untangles on the
+// way in.
 #include <cuda_runtime.h>
 
 #include <utility>
@@ -277,8 +279,8 @@ rfft_regs_kernel(const float2* __restrict__ x,
 using FftRegsKernel = void (*)(const float2*, float2*, int, int, int, float);
 using RfftRegsKernel = void (*)(const float2*, float2*, int, int);
 
-// One instance per line length: fft_fused on 2 ... 2^14, rfft_fused on half
-// rows of 1 ... 2^13 (the one-block rows of the census).
+// One instance per line length: fft_fused on 2 ... 2^14, rfft_fused and
+// irfft_fused on half rows of 1 ... 2^13 (the one-block rows of the census).
 constexpr int kRegsMaxLog = 14;
 
 template <int... I>
@@ -295,10 +297,70 @@ RfftRegsKernel rfft_regs_kernel_for(int log_m, std::integer_sequence<int, I...>)
   return kernel;
 }
 
-// x: (B, m+1) complex half spectra; y: (B, 2m) reals written as (B, m)
-// packed complex. The inverse half-size transform runs on the forward
+// The first pass of the radix-4 irfft_fused reads the half spectra straight
+// from HBM (rows of m + 1 bins) and untangles on its way in: element k of a
+// line becomes regs::untangle(Y[k], Y[m-k], W_{2m}^k), the inverse's input to
+// the forward panel. At k = 0 the mirror is Y[m], the Nyquist bin, so nothing
+// wraps; both lose their imaginary parts, as numpy drops them. Each j is
+// untangled as soon as its two loads are in (16 values live, not 32). The
+// pass runs before the first barrier, so W_{2m}^k comes from sincospif, not
+// the ROM: W_{2m}^t once a group, times a constant (untangle_twiddle). Rows
+// past the batch read row batch - 1 (those lines are never stored), so every
+// load is unpredicated; a group's Y[k] and Y[m-k] runs are one address each.
+template <int LOG_M>
+struct UntangledHalfRows {
+  static constexpr bool kShared = false;
+  const float2* x;
+  long long row0;
+  int batch;
+
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool) const {
+    constexpr int m = 1 << LOG_M;
+    const long long row = min(row0 + line, static_cast<long long>(batch) - 1);
+    const float2* yk = x + row * (m + 1) + t;
+    const float2* ym = x + row * (m + 1) + (m - t);
+    const float2 wt = regs::w_2m(t, m);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float2 a = yk[j * s], b = ym[-j * s];
+      if (j == 0 && t == 0) a.y = b.y = 0.f;  // DC and Nyquist
+      v[j] = regs::untangle(a, b, regs::untangle_twiddle<R>(wt, j));
+    }
+  }
+};
+
+// Radix 4: irfft_fused on the register-pass panel. x: (B, m+1) half spectra,
+// m = 2^LOG_M; y: (B, 2m) reals written as (B, m) packed complex. The first
+// pass untangles (UntangledHalfRows), the panel runs the half-size inverse
+// on the forward passes by conjugation, and the last pass stores conj / m
+// straight to HBM. ROM: W_m^j, j < m/2, padded (the panel's own).
+template <int LOG_M>
+__global__ void __launch_bounds__(regs_max_threads(LOG_M))
+irfft_regs_kernel(const float2* __restrict__ x,
+    float2* __restrict__ y,
+    int batch,
+    int log_rows) {
+  extern __shared__ float2 smem[];
+  constexpr int m = 1 << LOG_M;
+  const int P = m << log_rows;
+  float2* rom = smem + regs::padded(P);
+  regs::build_rom(rom, m / 2);
+  const long long row0 = static_cast<long long>(blockIdx.x) << log_rows;
+  regs::panel<LOG_M, LOG_M - 1>(smem, P, rom, UntangledHalfRows<LOG_M>{x, row0, batch},
+                                regs::HbmRows<LOG_M>{nullptr, y, row0, batch, 1, 1.f / m});
+}
+
+template <int... I>
+RfftRegsKernel irfft_regs_kernel_for(int log_m, std::integer_sequence<int, I...>) {
+  RfftRegsKernel kernel = nullptr;
+  ((log_m == I ? (kernel = irfft_regs_kernel<I>, 0) : 0), ...);
+  return kernel;
+}
+
+// Radix 2. x: (B, m+1) complex half spectra; y: (B, 2m) reals written as
+// (B, m) packed complex. The inverse half-size transform runs on the forward
 // panel by conjugation and is scaled by 1/m.
-template <int RADIX>
 __global__ void __launch_bounds__(kMaxThreads)
 irfft_fused_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
@@ -331,7 +393,7 @@ irfft_fused_kernel(const float2* __restrict__ x,
   }
   __syncthreads();
   const Lines lines{buf, log_m, log_rows, m, 1, false};
-  stockham_panel<RADIX>(lines, rom, log_m + 1);
+  stockham_panel<2>(lines, rom, log_m + 1);
   const float inv = 1.0f / static_cast<float>(m);
   const long long base = row0 * m;
   const long long total = static_cast<long long>(batch) * m;
@@ -411,13 +473,25 @@ extern "C" int repro_irfft_fused(const void* x, void* y, int batch, int n, int r
   if (batch < 1 || n < 2 || !is_pow2(n) || !is_pow2(rows) || (radix != 2 && radix != 4))
     return cudaErrorInvalidValue;
   const int m = n / 2;
+  const int grid = (batch + rows - 1) / rows;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const float2*>(x);
+  auto* out = static_cast<float2*>(y);
+  if (radix == 4) {
+    if (m >= (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
+    if (!repro::regs::geometry_ok(m * rows, threads, smem, m / 2))
+      return cudaErrorInvalidConfiguration;
+    const auto kernel = repro::irfft_regs_kernel_for(
+        host_log2(m), std::make_integer_sequence<int, repro::kRegsMaxLog>{});
+    cudaError_t err = repro::prepare(kernel, device, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows));
+    return cudaGetLastError();
+  }
   if (!geometry_ok(m * rows, threads, smem, m)) return cudaErrorInvalidConfiguration;
-  auto kernel = radix == 4 ? repro::irfft_fused_kernel<4> : repro::irfft_fused_kernel<2>;
+  const auto kernel = repro::irfft_fused_kernel;
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  const int grid = (batch + rows - 1) / rows;
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), batch, host_log2(m),
-      host_log2(rows));
+  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(m), host_log2(rows));
   return cudaGetLastError();
 }

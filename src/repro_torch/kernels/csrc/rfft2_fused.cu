@@ -40,10 +40,20 @@
 // with a runtime geometry; the 128x128 frame that chip_smoke times also has
 // an instance of its own.
 //
-// irfft2_fused, and rfft2_fused at radix 2: the block stages the frame in
-// shared memory, runs every Stockham stage there (stockham.cuh), and the
-// recombination and untangling run in place through registers; the corner
-// turn is the column panel's indexing.
+// irfft2_fused at radix 4: the same passes in the reverse order. The column
+// panel's first pass loads the half spectrum straight from HBM, conjugated,
+// its column-0 lanes packing the Hermitian parts of the DC and Nyquist
+// columns as A + iB (four independent loads a row, no barrier); its last
+// pass leaves the frame in shared memory. The row panel's first pass
+// untangles on its way in (Y[k] and its mirror Y[m-k] from the frame, slot 0
+// DC + i Nyquist), so the untangle costs one more read per value and no
+// exchange or barrier of its own, and its last pass stores the packed reals
+// straight to HBM, conjugated and scaled by 1/(H m). A 128x128 frame:
+// columns 16·8, rows 16·4, three exchanges and five barriers.
+//
+// Radix 2: the block stages the frame in shared memory, runs every Stockham
+// stage there (stockham.cuh), and the recombination and untangling run in
+// place through registers; the corner turn is the column panel's indexing.
 #include <cuda_runtime.h>
 
 #include "stockham.cuh"
@@ -132,8 +142,8 @@ rfft2_fused_kernel(const float2* __restrict__ x,
 // becomes Y[r][c] = Xe + W_W^c Xo from Z[r][c] and conj Z[r][m-c] (W = 2m),
 // column 0 Y[r][0] + i Y[r][m] = (Re + Im) + i (Re - Im) of Z[r][0]. Column
 // 0's mirror read goes to column m-1, as column 1's does (one address).
-// W_W^c = sincospif(-c/m) is the ROM's entry c max(H, W)/W bit for bit
-// (the same float argument), without its bank conflicts on thin frames.
+// W_W^c = W_{2m}^c by regs::w_2m, the ROM's entry c max(H, W)/W bit for
+// bit, without its bank conflicts on thin frames.
 struct RecombinedCols {
   static constexpr bool kShared = true;
   regs::SmemFrame<true> z;
@@ -142,9 +152,7 @@ struct RecombinedCols {
   __device__ __forceinline__ void read(int c, int t, int s, float2* v, bool ok) const {
     if (!ok) c = t = 0;
     const int m = 1 << z.log_w;
-    float sn, cs;
-    sincospif(-static_cast<float>(c) / static_cast<float>(m), &sn, &cs);
-    const float2 w = make_float2(cs, sn);
+    const float2 w = regs::w_2m(c, m);
     const bool dc = c == 0;
     z.run<R>(c, t, s, [&](int j, const float2* p) { v[j] = *p; });
     z.run<R>(m - max(c, 1), t, s, [&](int j, const float2* p) {
@@ -228,10 +236,9 @@ rfft2_regs_kernel(const float2* __restrict__ x,
   }
 }
 
-// x: (F, H, m+1) half spectra; y: (F, H, 2m) reals written as (F, H, m)
-// packed complex. Both inverse panels run on the forward panel by
+// Radix 2. x: (F, H, m+1) half spectra; y: (F, H, 2m) reals written as
+// (F, H, m) packed complex. Both inverse panels run on the forward panel by
 // conjugation; the output is scaled by 1/(H m).
-template <int RADIX>
 __global__ void __launch_bounds__(kMaxThreads)
 irfft2_fused_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
@@ -272,7 +279,7 @@ irfft2_fused_kernel(const float2* __restrict__ x,
   }
   __syncthreads();
   const Lines cols{buf, log_h, log_m, 1, m, true};
-  stockham_panel<RADIX>(cols, rom, log_nrom);
+  stockham_panel<2>(cols, rom, log_nrom);
 
   // buf = conj(H * column inverse). Untangle each row in place into the
   // conjugated packed values of the half-size row inverse, as irfft_fused.
@@ -303,7 +310,7 @@ irfft2_fused_kernel(const float2* __restrict__ x,
   }
   __syncthreads();
   const Lines rows{buf, log_m, log_h, m, 1, false};
-  stockham_panel<RADIX>(rows, rom, log_nrom);
+  stockham_panel<2>(rows, rom, log_nrom);
   const float inv = 1.0f / static_cast<float>(P);
   const long long base = static_cast<long long>(blockIdx.x) * P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -312,8 +319,128 @@ irfft2_fused_kernel(const float2* __restrict__ x,
   }
 }
 
-// The 128x128 frame runs an instance of its own (54 registers, not 64;
-// about 7% faster on an H100, PERF.md); every other frame runs <0, 0>.
+// The first column pass of the radix-4 irfft2_fused reads the half spectrum
+// straight from HBM, conjugated: column c < m of row r at x[r (m+1) + c],
+// consecutive threads on consecutive columns (Lanes<true>). Slot 0 packs the
+// DC column a and the Nyquist column b as A + iB, A = (a[r] + conj a[-r]) / 2
+// and likewise B, their Hermitian parts: the inverse column transform of
+// A + iB is Re(ifft a) + i Re(ifft b), which is what the row inverse keeps of
+// those two bins. Rows r and -r belong to other groups, so column 0's lane
+// (one in m) issues the three more loads each of its rows needs, a[-r], b[r]
+// and b[-r], all independent (no walk, no barrier; L2 hits within the
+// frame). 32-bit offsets and unpredicated loads, as HbmFrameRows; a group
+// past the frame's values (frames under 16 values) reads row 0.
+struct HalfSpectrumCols {
+  static constexpr bool kShared = false;
+  const float2* x;
+  int log_h;
+  int log_m;
+
+  template <int R>
+  __device__ __forceinline__ void read(int c, int t, int s, float2* v, bool ok) const {
+    if (!ok) c = t = 0;
+    const int m = 1 << log_m;
+    const unsigned w = m + 1;
+    const float2* p = x + (static_cast<unsigned>(t) * w + c);
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] = p[static_cast<unsigned>(j * s) * w];
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = t + j * s;
+        const float2* row = x + static_cast<unsigned>(r) * w;
+        const float2* mirror = x + static_cast<unsigned>(-r & ((1 << log_h) - 1)) * w;
+        const float2 a = v[j], am = mirror[0], b = row[m], bm = mirror[m];
+        const float2 A = make_float2(0.5f * (a.x + am.x), 0.5f * (a.y - am.y));
+        const float2 B = make_float2(0.5f * (b.x + bm.x), 0.5f * (b.y - bm.y));
+        v[j] = make_float2(A.x - B.y, A.y + B.x);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] = cconj(v[j]);
+  }
+};
+
+// The first row pass of the radix-4 irfft2_fused reads the column panel's
+// output C = conj(H ifft over the columns) and untangles on its way in:
+// element k of row r becomes regs::untangle(Y[k], Y[m-k], W_W^k), Y = conj C,
+// and at k = 0 the packed slot gives Y[0] = Re C[0] (DC) and Y[m] = -Im C[0]
+// (Nyquist), both real, as numpy drops their imaginary parts. The mirrors
+// m - k of lane t's elements k = t + j s are those of group s - t in reverse
+// (R-1-j), read as one run after the lane's own, each untangled as it
+// arrives (16 values live). Lane 0's mirrors are its own elements
+// (R - j) mod R; it reads group 0 in reverse, whose element R-1-j is the
+// mirror of its next j, carried one step. So every lane's mirror reads fall
+// on the slots of a forward read where a half-warp spans several rows
+// (s < 16: free of bank conflicts in the padded layout), and on 16
+// consecutive values one off the aligned 16 where it takes 16 groups of one
+// row (free of conflicts in the plain layout); the kernel picks C's layout
+// so. W_W^k = W_{2m}^k as in UntangledHalfRows (fft_fused.cu).
+struct UntangledRows {
+  static constexpr bool kShared = true;
+  regs::SmemFrame<false> z;
+
+  template <int R>
+  __device__ __forceinline__ void read(int r, int t, int s, float2* v, bool ok) const {
+    if (!ok) r = t = 0;
+    z.run<R>(r, t, s, [&](int j, const float2* p) { v[j] = *p; });
+    const float2 wt = regs::w_2m(t, 1 << z.log_w);
+    float2 carry = v[0];
+    z.run<R>(r, ((s - t) & (s - 1)) + (R - 1) * s, -s, [&](int j, const float2* p) {
+      const float2 c = v[j], cm = *p;
+      const float2 mirror = t == 0 ? carry : cm;
+      carry = cm;
+      if (j == 0) {  // lane 0: k = 0, the packed DC + i Nyquist
+        v[0] = regs::untangle(t == 0 ? make_float2(c.x, 0.f) : cconj(c),
+                              t == 0 ? make_float2(-c.y, 0.f) : cconj(cm), wt);
+      } else {
+        v[j] = regs::untangle(cconj(c), cconj(mirror), regs::untangle_twiddle<R>(wt, j));
+      }
+    });
+  }
+};
+
+// Radix 4: irfft2_fused on the register passes, rfft2_regs_kernel's order
+// reversed. x: (F, H, m+1) half spectra; y: (F, H, 2m) reals written as
+// (F, H, m) packed complex. The column panel (conjugated in: the inverse on
+// the forward passes) leaves C in shared memory; the row panel
+// untangles in its first pass and stores conj / (H m). ROM: W_n^j, j < n/2,
+// n = max(H, W), padded, after the padded frame. <0, 0> takes the frame's
+// geometry at run time; an instance with LOG_H, LOG_M fixed serves that
+// frame with every stride compile-time.
+template <int LOG_H, int LOG_M>
+__global__ void __launch_bounds__(kMaxThreads)
+irfft2_regs_kernel(const float2* __restrict__ x,
+    float2* __restrict__ y,
+    int log_h_arg,
+    int log_m_arg) {
+  const int log_h = LOG_H ? LOG_H : log_h_arg;
+  const int log_m = LOG_M ? LOG_M : log_m_arg;
+  extern __shared__ float2 smem[];
+  const int h = 1 << log_h;
+  const int m = 1 << log_m;
+  const int P = h << log_m;
+  const int log_n = log_h > log_m + 1 ? log_h : log_m + 1;
+  float2* rom = smem + regs::padded(P);
+  regs::build_rom(rom, 1 << (log_n - 1));
+  const long long frame = blockIdx.x;
+  // C's layout: padded where a half-warp of the first row pass spans several
+  // rows (m/16 groups a row, under 16), plain where it takes 16 consecutive
+  // groups of one row, whose mirror runs are not aligned to 16.
+  const bool padded = log_m < 8;
+  regs::frame_panel<true>(smem, P, log_m, log_h, log_n - 1, rom,
+                          HalfSpectrumCols{x + frame * h * (m + 1), log_h, log_m},
+                          regs::SmemFrame<true>{smem, log_m, padded});
+  __syncthreads();
+  const float scale = 1.f / static_cast<float>(P);
+  regs::frame_panel<false>(smem, P, log_m, log_m, log_n - 1, rom,
+                           UntangledRows{{smem, log_m, padded}},
+                           regs::HbmFrameOut<false>{y + frame * P, log_m, scale, -scale});
+}
+
+// The 128x128 frame runs an instance of its own (rfft2: 54 registers, not
+// 64, and about 7% faster on an H100; irfft2: no spills, where <0, 0>
+// spills 24 bytes; PERF.md); every other frame runs <0, 0>.
 using Rfft2RegsKernel = void (*)(const float2*, float2*, int, int);
 
 Rfft2RegsKernel rfft2_regs_instance(int log_h, int log_m) {
@@ -321,15 +448,31 @@ Rfft2RegsKernel rfft2_regs_instance(int log_h, int log_m) {
   return rfft2_regs_kernel<0, 0>;
 }
 
-// Shared checks of both entries: a power-of-two frame of at least 2x2 and
-// the geometry of a block holding H*W/2 values and the ROM.
-cudaError_t check(int frames, int h, int w, int radix, int threads, int smem) {
+Rfft2RegsKernel irfft2_regs_instance(int log_h, int log_m) {
+  if (log_h == 7 && log_m == 6) return irfft2_regs_kernel<7, 6>;
+  return irfft2_regs_kernel<0, 0>;
+}
+
+// Both entries: a power-of-two frame of at least 2x2, the geometry of a
+// block holding H*W/2 values and the ROM (padded at radix 4), then the
+// launch of the radix-4 instance or the radix-2 kernel.
+cudaError_t launch(Rfft2RegsKernel (*regs_instance)(int, int), Rfft2RegsKernel stage_kernel,
+                   const void* x, void* y, int frames, int h, int w, int radix, int threads,
+                   int smem, int device, void* stream) {
   if (frames < 1 || h < 2 || w < 2 || !is_pow2(h) || !is_pow2(w) ||
       (radix != 2 && radix != 4))
     return cudaErrorInvalidValue;
-  const int rom_len = (h > w ? h : w) / 2 + 1;
-  if (!geometry_ok(h * (w / 2), threads, smem, rom_len)) return cudaErrorInvalidConfiguration;
-  return cudaSuccess;
+  const int half = (h > w ? h : w) / 2;
+  const int log_h = host_log2(h), log_m = host_log2(w / 2);
+  const bool ok = radix == 4 ? regs::geometry_ok(h * (w / 2), threads, smem, half)
+                             : geometry_ok(h * (w / 2), threads, smem, half + 1);
+  if (!ok) return cudaErrorInvalidConfiguration;
+  const auto kernel = radix == 4 ? regs_instance(log_h, log_m) : stage_kernel;
+  const cudaError_t err = prepare(kernel, device, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<frames, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), log_h, log_m);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -337,37 +480,12 @@ cudaError_t check(int frames, int h, int w, int radix, int threads, int smem) {
 
 extern "C" int repro_rfft2_fused(const void* x, void* y, int frames, int h, int w, int radix,
                                  int threads, int smem, int device, void* stream) {
-  cudaError_t err = repro::check(frames, h, w, radix, threads, smem);
-  if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const float2*>(x);
-  auto* out = static_cast<float2*>(y);
-  const int log_h = repro::host_log2(h), log_m = repro::host_log2(w / 2);
-  if (radix == 4) {
-    if (!repro::regs::geometry_ok(h * (w / 2), threads, smem, (h > w ? h : w) / 2))
-      return cudaErrorInvalidConfiguration;
-    const auto kernel = repro::rfft2_regs_instance(log_h, log_m);
-    err = repro::prepare(kernel, device, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<frames, threads, smem, s>>>(in, out, log_h, log_m);
-    return cudaGetLastError();
-  }
-  const auto kernel = repro::rfft2_fused_kernel;
-  err = repro::prepare(kernel, device, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<frames, threads, smem, s>>>(in, out, log_h, log_m);
-  return cudaGetLastError();
+  return repro::launch(repro::rfft2_regs_instance, repro::rfft2_fused_kernel, x, y, frames, h, w,
+                       radix, threads, smem, device, stream);
 }
 
 extern "C" int repro_irfft2_fused(const void* x, void* y, int frames, int h, int w, int radix,
                                   int threads, int smem, int device, void* stream) {
-  cudaError_t err = repro::check(frames, h, w, radix, threads, smem);
-  if (err != cudaSuccess) return err;
-  auto kernel = radix == 4 ? repro::irfft2_fused_kernel<4> : repro::irfft2_fused_kernel<2>;
-  err = repro::prepare(kernel, device, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<frames, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), repro::host_log2(h),
-      repro::host_log2(w / 2));
-  return cudaGetLastError();
+  return repro::launch(repro::irfft2_regs_instance, repro::irfft2_fused_kernel, x, y, frames, h,
+                       w, radix, threads, smem, device, stream);
 }

@@ -1,8 +1,8 @@
-// The register-pass Stockham panel of the radix-4 fft_fused and rfft_fused
-// kernels (fft_fused.cu): rows of n = 2^log_n values that fit one block; the
-// lines of the cluster kernel (fft_cluster.cu); and, over a frame's rows and
-// then its columns, the radix-4 fft2_fused and rfft2_fused (the "whole
-// frames" section below).
+// The register-pass Stockham panel of the radix-4 fft_fused, rfft_fused and
+// irfft_fused kernels (fft_fused.cu): rows of n = 2^log_n values that fit
+// one block; the lines of the cluster kernel (fft_cluster.cu); and, over a
+// frame's rows and its columns, the radix-4 fft2_fused, rfft2_fused and
+// irfft2_fused (the "whole frames" section below).
 //
 // Replaces the in-VMEM radix-4 panel of src/repro/kernels/fft_radix2.py
 // (_stockham_panel_r4) for those kernels; stockham.cuh's stage-at-a-time
@@ -22,8 +22,9 @@
 // panel costs one of each per two butterfly layers.
 //
 // The first pass loads from HBM (l = 1: no twiddles, so the ROM is not read
-// before the first barrier); fft_fused's last pass stores to HBM, at
-// t + c n/R, coalesced (rfft_fused's recombines first, fft_fused.cu).
+// before the first barrier; irfft_fused's untangle takes its twiddles from
+// sincospif, w_2m); fft_fused's last pass stores to HBM, at t + c n/R,
+// coalesced (rfft_fused's recombines first, fft_fused.cu).
 // Between passes the values go through shared memory in place: read,
 // barrier, compute, write, barrier.
 //
@@ -79,6 +80,15 @@ __host__ __device__ constexpr float cos16(int p) {
 }
 
 __host__ __device__ constexpr float sin16(int p) { return cos16(p - 4); }
+
+// cos(2 pi p / 32) for |p| <= 16.
+__host__ __device__ constexpr float cos32(int p) {
+  constexpr float c[17] = {1.f, 0.980785280403230431f, kC1, 0.831469612302545236f, kC2,
+                           0.555570233019602289f, kS1, 0.195090322016128331f, 0.f,
+                           -0.195090322016128331f, -kS1, -0.555570233019602289f, -kC2,
+                           -0.831469612302545236f, -kC1, -0.980785280403230431f, -1.f};
+  return c[p < 0 ? -p : p];
+}
 
 // W_16^P as a constant.
 template <int P>
@@ -360,7 +370,8 @@ __device__ __forceinline__ void panel(float2* buf, int P, const float2* rom, con
 //
 // fft2_fused and rfft2_fused (fft2_fused.cu, rfft2_fused.cu) hold a frame of
 // h rows of w values in shared memory and run the passes over its rows
-// (Lanes<false>), then over its columns (Lanes<true>). One instance serves
+// (Lanes<false>), then over its columns (Lanes<true>); irfft2_fused over its
+// columns, then its rows. One instance serves
 // every frame the census admits, so the line length, span and strides of a
 // pass may be runtime values; the radix stays a compile-time constant, so
 // that a pass's 16 values live in registers. The layouts are those of
@@ -441,6 +452,31 @@ struct HbmFrameRows {
   }
 };
 
+// The frame in HBM (y points at it), written by a panel's last pass: its
+// rows (COLS false, element i of row `line` at y[line w + i]) or its columns
+// (element i of column `line` at y[i w + line]), times (scale, yscale): the
+// inverse conjugates and scales (yscale = -scale). 32-bit offsets.
+template <bool COLS>
+struct HbmFrameOut {
+  static constexpr bool kShared = false;
+  float2* y;
+  int log_w;
+  float scale;
+  float yscale;
+
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
+    if (!ok) return;
+    float2* p = y + static_cast<unsigned>(COLS ? (pos << log_w) + line : (line << log_w) + pos);
+    const int step = COLS ? l << log_w : l;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const float2 a = v[out_reg<R>(c)];
+      p[static_cast<unsigned>(c * step)] = make_float2(a.x * scale, a.y * yscale);
+    }
+  }
+};
+
 // pass at the radix 2^lr of a runtime value (a line of 1 to 16 values is
 // one pass of its own length; the last pass of a longer one is 2 to 16).
 template <bool COLS, class Src, class Dst>
@@ -489,6 +525,31 @@ __device__ __forceinline__ float2 recombine(float2 z, float2 zm, float2 w) {
   const float2 d = csub(z, zm);
   const float2 xo = make_float2(0.5f * d.y, -0.5f * d.x);
   return make_float2(xe.x + w.x * xo.x - w.y * xo.y, xe.y + w.x * xo.y + w.y * xo.x);
+}
+
+// W_{2m}^k = exp(-pi i k / m) by sincospif: the ROM's entry bit for bit (the
+// same float argument), for a first pass, which runs before the first
+// barrier and so before the ROM is built.
+__device__ __forceinline__ float2 w_2m(int k, int m) {
+  float s, c;
+  sincospif(-static_cast<float>(k) / static_cast<float>(m), &s, &c);
+  return make_float2(c, s);
+}
+
+// W_{2m}^k for element k = t + j m/R of a first pass's group t: wt =
+// W_{2m}^t times W_{2R}^j = W_32^{16 j / R}, a constant once the caller's
+// loop over j (< R <= 16) is unrolled.
+template <int R>
+__device__ __forceinline__ float2 untangle_twiddle(float2 wt, int j) {
+  const int p = (16 / R) * j;
+  return j == 0 ? wt : cmul(wt, make_float2(cos32(p), -cos32(p - 8)));
+}
+
+// The inverse real transform's input to the forward panel at bin k (the
+// inverse by conjugation): conj z[k], z[k] = Xe + i Xo untangled from
+// yk = Y[k] and ym = Y[m-k] (stockham.cuh's irfft_untangle), w = W_{2m}^k.
+__device__ __forceinline__ float2 untangle(float2 yk, float2 ym, float2 w) {
+  return cconj(irfft_untangle(yk, cconj(ym), cconj(w)));
 }
 
 // ------------------------------ host side -------------------------------

@@ -9,19 +9,19 @@ live here:
 * **The census.** The shared memory and threads each CUDA kernel really
   uses, derived from ``csrc/``: a block holds its P complex values (8 bytes
   each) once, because each stage is done in place through registers, plus
-  one twiddle ROM; for ``fft_fused``, ``rfft_fused``, ``fft2_fused`` and
-  ``rfft2_fused`` both padded by one slot per 16 (:func:`smem_slot`), the
-  layout of their radix-4 register-pass panel. ``pick_row_tile``,
-  ``fft_fits_smem``, ``fft2_fits_smem``, the two-pass and cluster
-  geometries, ``kernels.ops``, the engines' gate and the planner all read
-  it. ``fft_fits_fused`` is the reference's
+  one twiddle ROM; for the six one-block kernels both padded by one slot
+  per 16 (:func:`smem_slot`), the layout of their radix-4 register-pass
+  panel. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``, the
+  two-pass and cluster geometries, ``kernels.ops``, the engines' gate and
+  the planner all read it. ``fft_fits_fused`` is the reference's
   envelope of the 1D kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
   step for step the Pallas panels, ``_regpass_panel`` (the register passes
-  of ``csrc/stockham_regs.cuh``, which ``fft_fused`` and ``rfft_fused`` run
-  at radix 4, and ``fft2_fused`` and ``rfft2_fused`` over a frame's rows
-  and columns, with ``_rfft2_regpass``), ``_two_pass_panel`` (the
+  of ``csrc/stockham_regs.cuh``, which ``fft_fused``, ``rfft_fused`` and
+  ``irfft_fused`` run at radix 4, and the three whole-frame kernels over a
+  frame's rows and columns, with ``_rfft2_regpass`` and
+  ``_irfft2_regpass``), ``_two_pass_panel`` (the
   four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
@@ -154,8 +154,11 @@ def rfft_smem_bytes(n: int, rows: int = 1) -> int:
 
 
 def irfft_smem_bytes(n: int, rows: int = 1) -> int:
-    """``irfft_fused``: ``rows`` packed rows of N/2 values and N/2 twiddles."""
-    return _block_bytes(rows * (n // 2), n // 2)
+    """``irfft_fused``: ``rows`` packed rows of N/2 values and N/2 twiddles
+    W_N^k (the radix-2 untangle's), each padded as in
+    :func:`fft_smem_bytes` (the radix-4 kernel untangles by ``sincospif``
+    and its panel reads N/4 of the twiddles, W_{N/2}^k)."""
+    return _padded_block_bytes(rows * (n // 2), n // 2)
 
 
 def fft2_smem_bytes(h: int, w: int) -> int:
@@ -168,9 +171,9 @@ def fft2_smem_bytes(h: int, w: int) -> int:
 def rfft2_smem_bytes(h: int, w: int) -> int:
     """``rfft2_fused`` and ``irfft2_fused``: the frame as H rows of W/2
     packed values (DC and Nyquist share slot 0), and one ROM of
-    max(H, W)/2 + 1 twiddles, each padded for the radix-4 ``rfft2_fused``
-    (its register passes read max(H, W)/2 of the twiddles; ``irfft2_fused``
-    and the radix-2 ``rfft2_fused`` use the unpadded part)."""
+    max(H, W)/2 + 1 twiddles, each padded for the radix-4 kernels (their
+    register passes read max(H, W)/2 of the twiddles; the radix-2 kernels
+    use the unpadded part)."""
     return _padded_block_bytes(h * (w // 2), max(h, w) // 2 + 1)
 
 
@@ -466,18 +469,22 @@ def rfft_pairs_in_registers(m: int) -> bool:
     return len(radices) >= 3 and radices[-1] <= 8
 
 
-def regpass_exchanges(n: int, *, real: bool = False) -> int:
+def _spills_recombination(n: int, real: bool, inverse: bool) -> bool:
+    return real and not inverse and not rfft_pairs_in_registers(n // 2)
+
+
+def regpass_exchanges(n: int, *, real: bool = False, inverse: bool = False) -> int:
     """Exchanges through shared memory of the radix-4 ``fft_fused`` on a
-    row of n (``real``: ``rfft_fused``, on its half row of n/2): the passes
-    less one, as the first pass loads from HBM and the last stores to HBM,
-    plus one for ``rfft_fused``'s recombination where it does not pair the
-    mirror bins in registers."""
+    row of n (``real``: ``rfft_fused``, on its half row of n/2; ``real`` and
+    ``inverse``: ``irfft_fused``, which untangles in its first pass's reads):
+    the passes less one, as the first pass loads from HBM and the last
+    stores to HBM, plus one for ``rfft_fused``'s recombination where it does
+    not pair the mirror bins in registers."""
     m = n // 2 if real else n
-    spilled = real and not rfft_pairs_in_registers(m)
-    return len(regpass_radices(m)) - 1 + int(spilled)
+    return len(regpass_radices(m)) - 1 + int(_spills_recombination(n, real, inverse))
 
 
-def regpass_barriers(n: int, *, real: bool = False) -> int:
+def regpass_barriers(n: int, *, real: bool = False, inverse: bool = False) -> int:
     """Block barriers per row tile of the same kernels: one after the first
     pass, two in each middle pass (in place: read, barrier, write, barrier
     before the next read), one before the last; where ``rfft_fused``'s last
@@ -485,14 +492,14 @@ def regpass_barriers(n: int, *, real: bool = False) -> int:
     the recombination."""
     m = n // 2 if real else n
     passes = len(regpass_radices(m))
-    if real and not rfft_pairs_in_registers(m):
+    if _spills_recombination(n, real, inverse):
         return 2 * passes - 1 if passes > 1 else 1
     return max(2 * passes - 3, 0)
 
 
 class FramePasses(NamedTuple):
-    """The register passes of the radix-4 ``fft2_fused`` / ``rfft2_fused``
-    on one frame (``frame_panel`` in ``csrc/stockham_regs.cuh``)."""
+    """The register passes of the radix-4 whole-frame kernels on one frame
+    (``frame_panel`` in ``csrc/stockham_regs.cuh``)."""
 
     rows: Tuple[int, ...]  # radices of the row panel (rfft2: over W/2)
     cols: Tuple[int, ...]  # radices of the column panel
@@ -500,18 +507,21 @@ class FramePasses(NamedTuple):
     barriers: int  # block barriers per frame
 
 
-def frame_passes(h: int, w: int, *, real: bool = False) -> FramePasses:
+def frame_passes(h: int, w: int, *, real: bool = False, inverse: bool = False) -> FramePasses:
     """Passes, exchanges and barriers of the radix-4 whole-frame kernels on
-    an (H, W) frame. The row panel's first pass loads from HBM and the
-    column panel's last stores to HBM, so T passes make T - 1 exchanges;
+    an (H, W) frame. The first panel's first pass loads from HBM and the
+    second panel's last stores to HBM, so T passes make T - 1 exchanges;
     each boundary between passes is a barrier, and so is the middle of every
     pass that reads and writes shared memory in place: 2T - 3. ``rfft2_fused``
     recombines in its first column pass's reads (no exchange of its own) and
-    adds one barrier before it splits column 0 into DC and Nyquist."""
+    adds one barrier before it splits column 0 into DC and Nyquist;
+    ``irfft2_fused`` (``real`` and ``inverse``: columns first) packs them in
+    its first column pass's reads and untangles in its first row pass's,
+    adding neither."""
     rows = regpass_radices(w // 2 if real else w)
     cols = regpass_radices(h)
     t = len(rows) + len(cols)
-    return FramePasses(rows, cols, t - 1, 2 * t - 3 + int(real))
+    return FramePasses(rows, cols, t - 1, 2 * t - 3 + int(real and not inverse))
 
 
 # cos and sin of 2 pi p / 16 as the kernel's float32 constants.
@@ -771,9 +781,11 @@ def rfft_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 
 
 def irfft_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
-    """Plain version of :func:`irfft_fused`: (B, N/2+1) -> (B, N) float32."""
+    """Plain version of :func:`irfft_fused`: (B, N/2+1) -> (B, N) float32,
+    the untangling, then the half-size inverse on the panel of
+    :func:`fft_fused_plain` by conjugation."""
     re, im = _planes(y)
-    return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), radix)
+    return _irfft_panel(re, im, 2 * (y.shape[-1] - 1), radix, panel=_one_block_panel(radix))
 
 
 def fft_two_pass_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
@@ -896,9 +908,42 @@ def rfft2_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
                     yi.reshape(f, half, h).transpose(-1, -2))
 
 
+def _irfft2_regpass(y: torch.Tensor) -> torch.Tensor:
+    """The radix-4 ``irfft2_fused`` kernel (``csrc/rfft2_fused.cu``,
+    ``irfft2_regs_kernel``) step for step: slot 0 of row r packs the
+    Hermitian parts of the DC column a and the Nyquist column b as A + iB,
+    A = (a[r] + conj a[-r])/2, B likewise; the register passes over the m =
+    W/2 columns by conjugation leave C = conj(H·ifft) of each column; the
+    rows see Y = conj C, with Y[0] = Re C[0] (DC) and Y[m] = -Im C[0]
+    (Nyquist), and take the untangling and the register passes over their m
+    values by conjugation; the result is scaled by 1/(H·m)."""
+    f, h, half = y.shape
+    m = half - 1
+    re, im = _planes(y)
+    rows = (-torch.arange(h, device=y.device)) % h
+    ar, ai, br, bi = re[..., 0], im[..., 0], re[..., m], im[..., m]
+    zr, zi = re[..., :m].clone(), im[..., :m].clone()
+    zr[..., 0] = 0.5 * (ar + ar[:, rows]) - 0.5 * (bi - bi[:, rows])
+    zi[..., 0] = 0.5 * (ai - ai[:, rows]) + 0.5 * (br + br[:, rows])
+
+    def turn(z, a, b):  # (f, a, b) -> (f·b, a)
+        return z.reshape(f, a, b).transpose(1, 2).reshape(f * b, a)
+
+    cr, ci = _regpass_panel(turn(zr, h, m), turn(-zi, h, m), h)  # (f·m, h)
+    cr, ci = turn(cr, m, h).reshape(f * h, m), turn(ci, m, h).reshape(f * h, m)
+    yr = torch.cat([cr, -ci[:, :1]], dim=-1)
+    yi = torch.cat([-ci, torch.zeros_like(ci[:, :1])], dim=-1)
+    out = _irfft_panel(yr, yi, 2 * m, 4, panel=_regpass_panel)
+    return (out / h).reshape(f, h, 2 * m)
+
+
 def irfft2_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`irfft2_fused`: (F, H, W/2+1) -> (F, H, W)
-    float32; column inverse by conjugation, corner turn, row irfft panel."""
+    float32; column inverse by conjugation, corner turn, row irfft panel.
+    At radix 4 the kernel's own order (:func:`_irfft2_regpass`): the packed
+    columns DC + i Nyquist go through the column panel together."""
+    if radix == 4:
+        return _irfft2_regpass(y)
     f, h, half = y.shape
     w = 2 * (half - 1)
     re, im = _planes(y)

@@ -164,9 +164,9 @@ def test_cuda_frame_register_passes_match_plain(cuda):
     """The radix-4 fft2_fused (forward and inverse) and rfft2_fused run the
     register-pass kernels on every frame the census admits (91 complex, 105
     real), three frames a call, each within 2e-5 of its plain version and of
-    torch.fft; irfft2_fused (the stage panel) on rfft2_fused's output
-    matches its plain version and returns the input (1e-4, a round trip).
-    Each call launches its kernel once and nothing else."""
+    torch.fft; irfft2_fused on rfft2_fused's output matches its plain
+    version and returns the input (1e-4, a round trip). Each call launches
+    its kernel once and nothing else."""
     g = torch.Generator(device=cuda).manual_seed(20)
 
     def one_launch(name, fn, *args, **kw):
@@ -196,6 +196,58 @@ def test_cuda_frame_register_passes_match_plain(cuda):
         back = one_launch("irfft2_fused", k.irfft2_fused, got, radix=4)
         assert _rel(back, k.irfft2_fused_plain(got, radix=4)) <= TOL, hw
         assert _rel(back, r) <= 1e-4, hw
+
+
+def _hermitian_edges(y, cols):
+    """y with the imaginary parts the inverse drops removed: of a row's DC
+    and Nyquist bins, or (``cols``) the anti-Hermitian parts of a frame's DC
+    and Nyquist columns. torch.fft on the card leaves what it does with them
+    undefined, so it sees this projection."""
+    y = y.clone()
+    for c in (0, -1):
+        if cols:
+            a = y[..., c]
+            mirror = (-torch.arange(a.shape[-1], device=y.device)) % a.shape[-1]
+            y[..., c] = 0.5 * (a + a.conj()[..., mirror])
+        else:
+            y[..., c].imag.zero_()
+    return y
+
+
+@pytest.mark.cuda
+def test_cuda_irfft_register_passes_match_plain(cuda):
+    """The radix-4 irfft_fused on every one-block row (n = 2 ... 2^14,
+    batches 7 and 1) and irfft2_fused on every admitted frame (105, three
+    a call) run the register-pass kernels on half spectra that are not
+    Hermitian: one launch a call and nothing else, within 2e-5 of the
+    twins, and of torch.fft.irfft / irfft2 on the projected input."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=cuda),
+                             torch.randn(*shape, generator=g, device=cuda))
+
+    def one_launch(name, fn, *args, **kw):
+        before = dict(k.LAUNCHES)
+        out = fn(*args, **kw)
+        delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
+        assert delta == {kn: int(kn == name) for kn in k.LAUNCHES}, delta
+        return out
+
+    for n in (2 ** p for p in range(1, 15)):
+        for batch in (7, 1):
+            y = crandn(batch, n // 2 + 1)
+            got = one_launch("irfft_fused", k.irfft_fused, y, radix=4)
+            assert _rel(got, k.irfft_fused_plain(y, radix=4)) <= TOL, n
+            assert _rel(got, torch.fft.irfft(_hermitian_edges(y, False))) <= TOL, n
+    frames = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 15)]
+    real_frames = [hw for hw in frames if k.rfft2_fits_smem(*hw)]
+    assert len(real_frames) == 105
+    for h, w in real_frames:
+        y = crandn(3, h, w // 2 + 1)
+        got = one_launch("irfft2_fused", k.irfft2_fused, y, radix=4)
+        assert _rel(got, k.irfft2_fused_plain(y, radix=4)) <= TOL, (h, w)
+        assert _rel(got, torch.fft.irfft2(_hermitian_edges(y, True))) <= TOL, (h, w)
 
 
 @pytest.mark.cuda

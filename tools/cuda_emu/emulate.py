@@ -11,7 +11,7 @@ chip's build log all the same.
 
     PYTHONPATH=src python tools/cuda_emu/emulate.py 8x8 128x128 16384x2
     PYTHONPATH=src python tools/cuda_emu/emulate.py --all     # every admitted frame
-    PYTHONPATH=src python tools/cuda_emu/emulate.py --rows    # fft_fused / rfft_fused, n = 2 ... 2^14
+    PYTHONPATH=src python tools/cuda_emu/emulate.py --rows    # fft_fused / rfft_fused / irfft_fused, n = 2 ... 2^14
 
 Prints each frame's largest error relative to max|twin| and to numpy, and
 exits 1 if a launch fails or an error vs the twin passes ``--tol``.
@@ -54,7 +54,8 @@ def build(out: Path) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (so.repro_fft2_fused, so.repro_fft_fused):
         fn.argtypes = [P, P, I, I, I, I, I, I, I, F, I, P]
-    for fn in (so.repro_rfft2_fused, so.repro_rfft_fused):
+    for fn in (so.repro_rfft2_fused, so.repro_irfft2_fused, so.repro_rfft_fused,
+               so.repro_irfft_fused):
         fn.argtypes = [P, P, I, I, I, I, I, I, I, P]
     return so
 
@@ -64,7 +65,9 @@ def rel(a, b):
 
 
 def frames(lib, h, w, rng):
-    """(errors vs twin, lines) of fft2 / ifft2 / rfft2 on two (h, w) frames."""
+    """(errors vs twin, lines) of fft2 / ifft2 / rfft2 / irfft2 on two (h, w)
+    frames; irfft2 on a half spectrum that is not Hermitian, whose DC and
+    Nyquist imaginary parts the kernel must drop as numpy does."""
     errs, out = [], []
     if k.fft2_fits_smem(h, w):
         x = (rng.standard_normal((2, h, w)) + 1j * rng.standard_normal((2, h, w))).astype(np.complex64)
@@ -87,11 +90,22 @@ def frames(lib, h, w, rng):
         twin = k.rfft2_fused_plain(torch.from_numpy(r), radix=4).numpy()
         errs.append(rel(y, twin))
         out.append(f"rfft2 {errs[-1]:.1e} np {rel(y, np.fft.rfft2(r.astype(np.float64))):.1e}")
+        z = (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape)).astype(np.complex64)
+        back = np.full((2, h, w), np.nan, np.float32)
+        rc = lib.repro_irfft2_fused(z.ctypes.data, back.ctypes.data, 2, h, w, 4,
+                                    k.block_threads(h * (w // 2)), k.rfft2_smem_bytes(h, w), 0,
+                                    None)
+        assert rc == 0, f"irfft2 {h}x{w}: rc {rc}"
+        twin = k.irfft2_fused_plain(torch.from_numpy(z), radix=4).numpy()
+        errs.append(rel(back, twin))
+        ref = np.fft.irfft2(z.astype(np.complex128), s=(h, w))
+        out.append(f"irfft2 {errs[-1]:.1e} np {rel(back, ref):.1e}")
     return errs, out
 
 
 def rows(lib, n, b, rng):
-    """Errors vs twin of fft / ifft / rfft on (b, n) rows."""
+    """Errors vs twin of fft / ifft / rfft / irfft on (b, n) rows (irfft on a
+    half spectrum that is not Hermitian)."""
     errs = []
     x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(np.complex64)
     t = k.pick_row_tile(b, n)
@@ -106,6 +120,12 @@ def rows(lib, n, b, rng):
     assert lib.repro_rfft_fused(r.ctypes.data, y.ctypes.data, b, n, 4, t, k.block_threads(t * n // 2),
                                 k.rfft_smem_bytes(n, t), 0, None) == 0
     errs.append(rel(y, k.rfft_fused_plain(torch.from_numpy(r), radix=4).numpy()))
+    z = (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape)).astype(np.complex64)
+    back = np.full((b, n), np.nan, np.float32)
+    assert lib.repro_irfft_fused(z.ctypes.data, back.ctypes.data, b, n, 4, t,
+                                 k.block_threads(t * n // 2), k.irfft_smem_bytes(n, t), 0,
+                                 None) == 0
+    errs.append(rel(back, k.irfft_fused_plain(torch.from_numpy(z), radix=4).numpy()))
     return errs
 
 
