@@ -56,8 +56,10 @@ Phases, each printing one JSON line:
              chaotic at the reference's init: two float32 runs part after
              about 100 steps; at steps 32 and 64 of the full run the kernel
              may leave the plain version by at most 4x the plain version's
-             own distance from float64); with the library yardstick
-             (``scaled_dot_product_attention``) where one exists. Flash
+             own distance from float64), with the time a step, the
+             cooperative grid (CTAs, units a CTA, route of wr) and the
+             floor of L grid barriers alone on that grid; with the library
+             yardstick (``scaled_dot_product_attention``) where one exists. Flash
              attention's products run on the tensor cores as three TF32
              products each, so its bound takes a third of the dense TF32
              rate; each case's line also gives ``simt_bound_ms``, the
@@ -90,6 +92,12 @@ Then one JSON line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and the last line is not printed. Without CUDA the script
 exits 2 and prints no result.
+
+    python3 chip_smoke.py --slstm-ab OTHER_ROOT
+
+times ``slstm_scan`` at xlstm-350m from another checkout's ``src`` and from
+this one, one process each, in turns (other, this, this, other), and says
+whether their outputs agree bit for bit (sha256 of hs and the final state).
 """
 
 import json
@@ -714,7 +722,16 @@ def model_kernel_phase(torch, card: str):
 
     from repro_torch.kernels import butterfly as bf
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain, slstm_step
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm_scan import (
+        ROUTES,
+        slstm_barriers,
+        slstm_blocks_per_sm,
+        slstm_card_grid,
+        slstm_scan,
+        slstm_scan_plain,
+        slstm_step,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -866,14 +883,24 @@ def model_kernel_phase(torch, card: str):
     finite = bool(torch.isfinite(hs).all()) and all(bool(torch.isfinite(x).all())
                                                     for x in final)
     h_max = float(hs.abs().max())
+    grid = slstm_card_grid(d, b, dev)
     line = {"phase": "kernel", "kernel": "slstm_scan", "shape": list(xg.shape),
             "window": SLSTM_WINDOW, "rel_err": errs, "plain_vs_float64_rel_err": plain_errs,
             "max_abs_err": abs_err, "finite": finite, "max_abs_h": h_max,
             "divergence_full_run": divergence,
             "ms": time_ms(lambda: slstm_scan(xg, w["wr"], w["bias"], *state),
-                          reps=2, batches=3),
+                          reps=5, batches=3),
             "plain_ms": time_ms(lambda: slstm_scan_plain(xg, w["wr"], w["bias"], *state),
-                                reps=1, batches=3)}
+                                reps=1, batches=3),
+            # the same grid running L barriers and nothing else
+            "barrier_floor_ms": time_ms(lambda: slstm_barriers(b, d, l), reps=5, batches=3),
+            "ctas": grid.ctas, "units": grid.units, "threads": grid.threads,
+            "rows": grid.rows, "groups": grid.groups, "route": grid.route,
+            "smem_bytes": grid.smem_bytes, "blocks_per_sm": slstm_blocks_per_sm(grid),
+            "ptxas": {ROUTES[key[0]]: v for key, v in
+                      ptxas_entries(_build.build_log(), "17slstm_scan_kernel").items()}}
+    line["ms_per_step"] = line["ms"] / l
+    line["barrier_floor_ms_per_step"] = line["barrier_floor_ms"] / l
     emit(line)
     if not finite or not h_max <= 1.0 or not max(errs.values()) <= TOL_SLSTM:
         raise AssertionError(f"slstm_scan: window rel errs {errs} (tolerance {TOL_SLSTM}), "
@@ -890,9 +917,13 @@ def model_kernel_phase(torch, card: str):
                              f"within {SLSTM_WINDOW} steps; the window is too long")
     nbytes = 4 * (xg.numel() + w["wr"].numel() + w["bias"].numel() + 4 * b * d
                   + hs.numel() + 4 * b * d)
+    # The products run on the tensor cores in double, whose dense rate on an
+    # H100 SXM (67 TFLOP/s) is the float32 CUDA-core rate the bound takes.
     row("slstm_scan", abs_err, max(errs.values()), line["ms"], line["plain_ms"], nbytes,
         2.0 * b * l * d * d, None, shape=list(xg.shape), window=SLSTM_WINDOW,
-        rel_err_by_output=errs)
+        rel_err_by_output=errs,
+        **{key: line[key] for key in ("ms_per_step", "ctas", "units", "route",
+                                      "barrier_floor_ms", "barrier_floor_ms_per_step")})
     return rows, hs
 
 
@@ -1142,7 +1173,57 @@ def request_phase(torch, k, xfft, resolve_call):
     return dict(k.LAUNCHES)
 
 
+def slstm_time(root: str) -> int:
+    """``--slstm-time ROOT``: slstm_scan at xlstm-350m from ROOT's ``src``,
+    its time and the sha256 of its outputs, as one JSON line."""
+    import hashlib
+
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import importlib
+
+    module = importlib.import_module("repro_torch.kernels.slstm_scan")
+
+    xg, w, state = slstm_inputs(torch, torch.device("cuda"))
+    hs, final = module.slstm_scan(xg, w["wr"], w["bias"], *state)
+
+    def digest(*ts):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+
+    line = {"root": root, "card": card_info(), "hs_sha256": digest(hs),
+            "final_sha256": digest(*final),
+            "ms": time_ms(lambda: module.slstm_scan(xg, w["wr"], w["bias"], *state),
+                          reps=2, batches=3)}
+    if hasattr(module, "slstm_barriers"):  # the cooperative grid's barriers alone
+        b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+        line["barrier_floor_ms"] = time_ms(lambda: module.slstm_barriers(b, d, l),
+                                           reps=2, batches=3)
+    emit(line)
+    return 0
+
+
+def slstm_ab(other: str) -> int:
+    """``--slstm-ab OTHER_ROOT``: :func:`slstm_time` of OTHER_ROOT and of
+    this checkout, one process each, in turns other, this, this, other."""
+    runs = []
+    for root in (other, str(ROOT), str(ROOT), other):
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slstm-time", root],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    emit({"slstm_ab": runs, "bit_for_bit": len({(r["hs_sha256"], r["final_sha256"])
+                                                 for r in runs}) == 1})
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--slstm-ab", "--slstm-time"):
+        return (slstm_ab if sys.argv[1] == "--slstm-ab" else slstm_time)(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():

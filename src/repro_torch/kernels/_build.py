@@ -53,7 +53,9 @@ _SIGNATURES = {
     "repro_butterfly_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_fwd": (_P, _P, _P, _P, *(_I,) * 8, _F, *(_I,) * 5, _P),
     "repro_flash_attention_occupancy": (_I, _I, _I),
-    "repro_slstm_scan": (*(_P,) * 12, *(_I,) * 7, _P),
+    "repro_slstm_scan": (*(_P,) * 13, *(_I,) * 10, _P),
+    "repro_slstm_occupancy": (_I, _I, _I, _I),
+    "repro_slstm_barriers": (_P, _I, _I, _I, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

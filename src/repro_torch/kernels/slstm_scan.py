@@ -12,7 +12,9 @@ wr (4, D/4, D) block-diagonal recurrent weights over 4 heads, bias (4D,),
 initial state (B, D) x 4. Returns hs (B, L, D) and the final state.
 
 * :func:`slstm_scan` — a CPU tensor runs the plain version; a CUDA tensor
-  launches ``csrc/slstm_scan.cu`` or raises.
+  launches ``csrc/slstm_scan.cu`` or raises: one cooperative grid of at
+  most one CTA an SM, each owning a block of units with their slice of wr
+  (:func:`slstm_grid` is its geometry).
 * :func:`slstm_scan_plain` — a loop of :func:`slstm_step` over L.
 * :func:`slstm_weights_from_jax` — the reference's ``slstm_skel``
   parameters (numpy arrays) as the port's tensors: the weight
@@ -21,7 +23,8 @@ initial state (B, D) x 4. Returns hs (B, L, D) and the final state.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import functools
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +34,12 @@ from repro_torch.kernels._launch import launch
 
 __all__ = [
     "SLSTM_HEADS",
+    "SlstmGrid",
     "hbm_traffic_estimate",
+    "slstm_barriers",
+    "slstm_blocks_per_sm",
+    "slstm_card_grid",
+    "slstm_grid",
     "slstm_scan",
     "slstm_scan_plain",
     "slstm_state",
@@ -41,9 +49,118 @@ __all__ = [
 
 SLSTM_HEADS = 4
 
-#: Most threads of the CUDA block; each thread owns at most 4 units.
-MAX_THREADS = 1024
-MAX_UNITS = 4
+#: Largest D the CUDA kernel takes.
+MAX_D = 4096
+#: Threads of a CTA, and the shared memory a block may use (227 KB).
+THREADS = 256
+SMEM_LIMIT = 232448
+#: Where a CTA keeps its slice of wr, in the order of ``csrc/slstm_scan.cu``'s
+#: ``Route``: read from device memory every step, or held in shared memory
+#: in float32 or, converted once, in double.
+ROUTES = ("global", "smem_f32", "smem_f64")
+
+
+class SlstmGrid(NamedTuple):
+    """The CUDA kernel's geometry: ``ctas`` CTAs of ``threads`` threads,
+    each owning ``units`` consecutive units (the last CTA the rest) with all
+    four gates; the batch runs in ``groups`` groups of at most ``rows``
+    rows, each over all L steps; ``route`` is one of :data:`ROUTES`;
+    ``smem_bytes`` is the CTA's shared memory."""
+
+    ctas: int
+    units: int
+    threads: int
+    rows: int
+    groups: int
+    route: str
+    smem_bytes: int
+
+
+def _smem_floats(hd: int, units: int, rows: int, route: int) -> int:
+    """Shared memory of a CTA in floats, as ``csrc/slstm_scan.cu``'s
+    ``smem_floats`` lays it out: the wr slice (``route`` floats an element,
+    an index of :data:`ROUTES`), h of ``rows`` rows, the gate products' two
+    halves over K (doubles), gate inputs, bias, and c, n, m; rows of wr and
+    h are ``hd`` rounded up to 4 elements, plus 4."""
+    ws = -(-hd // 4) * 4 + 4
+    return 4 * route * units * ws + 4 * rows * ws + 23 * rows * units + 4 * units
+
+
+def slstm_grid(d: int, batch: int, sms: int, *, smem_limit: int = SMEM_LIMIT) -> SlstmGrid:
+    """The kernel's geometry on a card of ``sms`` SMs.
+
+    At most one CTA an SM: each CTA reads all of h every step, so a second
+    CTA on an SM would read it again and add no work it could not do.
+    ``units`` = ceil(D / sms), ``ctas`` = ceil(D / units). The slice of wr
+    stays in shared memory in double where it fits beside one batch row's
+    buffers, else in float32, else the global route; ``rows`` is then the
+    most batch rows that fit, spread evenly over the groups. ``threads`` is
+    always :data:`THREADS`: 8 warps share the loads of h and run the
+    products as 8 x 8 tiles over half of K each.
+    """
+    if d < SLSTM_HEADS or d % SLSTM_HEADS or batch < 1 or sms < 1:
+        raise ValueError(f"slstm_grid: d={d}, batch={batch}, sms={sms}")
+    hd = d // SLSTM_HEADS
+    units = -(-d // sms)
+    ctas = -(-d // units)
+    route = max(r for r in range(len(ROUTES))
+                if r == 0 or 4 * _smem_floats(hd, units, 1, r) <= smem_limit)
+    fixed = _smem_floats(hd, units, 0, route)
+    per_row = _smem_floats(hd, units, 1, route) - fixed
+    most = (smem_limit // 4 - fixed) // per_row
+    if most < 1:
+        raise NotImplementedError(f"slstm_scan: one batch row of D={d} does not fit a CTA")
+    groups = -(-batch // most)
+    rows = -(-batch // groups)
+    return SlstmGrid(ctas, units, THREADS, rows, groups, ROUTES[route],
+                     4 * _smem_floats(hd, units, rows, route))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(threads: int, smem_bytes: int, route: str, device: int) -> int:
+    from repro_torch.kernels._build import library  # lazy: builds at first use
+
+    blocks = library().repro_slstm_occupancy(threads, smem_bytes, ROUTES.index(route), device)
+    if blocks < 0:
+        raise RuntimeError(f"slstm_scan: CUDA error {-blocks} in the occupancy calculator")
+    return blocks
+
+
+def slstm_card_grid(d: int, batch: int, device: torch.device) -> SlstmGrid:
+    """:func:`slstm_grid` on the SM count of ``device`` (a CUDA device),
+    checked against the occupancy calculator: the card must hold one CTA an
+    SM."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    grid = slstm_grid(d, batch, torch.cuda.get_device_properties(index).multi_processor_count)
+    if slstm_blocks_per_sm(grid, index) < 1:
+        raise RuntimeError(f"slstm_scan: an SM cannot hold one CTA of {grid}")
+    return grid
+
+
+def slstm_blocks_per_sm(grid: SlstmGrid, device: int = 0) -> int:
+    """CTAs of ``grid`` that one SM of ``device`` holds at once, from CUDA's
+    occupancy calculator (builds the kernels at first use)."""
+    return _blocks_per_sm(grid.threads, grid.smem_bytes, grid.route, device)
+
+
+def slstm_barriers(batch: int, d: int, steps: int, *, device="cuda") -> None:
+    """Launch ``steps`` grid barriers and nothing else on the kernel's grid
+    for (batch, D): the floor of its time a step, for timing. Counts no
+    launch of ``slstm_scan``."""
+    from repro_torch.kernels._build import library  # lazy: builds at first use
+
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    grid = slstm_card_grid(d, batch, device)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = library().repro_slstm_barriers(count.data_ptr(), grid.ctas, grid.threads, steps,
+                                        device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"slstm_barriers: CUDA error {rc} at launch")
+
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -127,19 +244,20 @@ def slstm_scan(xg, wr, bias, c0, n0, h0, m0, *, chunk: int = 256) -> Tuple[torch
         raise ValueError(f"L={l} not divisible by chunk={chunk}")
     if xg.device.type == "cpu":
         return slstm_scan_plain(xg, wr, bias, c0, n0, h0, m0)
-    if d > MAX_THREADS * MAX_UNITS:
-        raise NotImplementedError(
-            f"slstm_scan on the card takes D <= {MAX_THREADS * MAX_UNITS}, got {d}")
+    if d > MAX_D:
+        raise NotImplementedError(f"slstm_scan on the card takes D <= {MAX_D}, got {d}")
     xg, wr, bias, c0, n0, h0, m0 = (x.to(torch.float32).contiguous()
                                     for x in (xg, wr, bias, c0, n0, h0, m0))
     hs = torch.empty(b, l, d, dtype=torch.float32, device=xg.device)
     final = tuple(torch.empty(b, d, dtype=torch.float32, device=xg.device) for _ in range(4))
     if b:
-        threads = min(MAX_THREADS, -(-d // 32) * 32)
-        units = -(-d // threads)
+        grid = slstm_card_grid(d, b, xg.device)
+        count = torch.zeros(1, dtype=torch.int64, device=xg.device)
         launch("repro_slstm_scan", "slstm_scan", xg, xg.data_ptr(), wr.data_ptr(),
                bias.data_ptr(), c0.data_ptr(), n0.data_ptr(), h0.data_ptr(), m0.data_ptr(),
-               hs.data_ptr(), *(x.data_ptr() for x in final), b, l, d, units, threads, 8 * d)
+               hs.data_ptr(), *(x.data_ptr() for x in final), count.data_ptr(), b, l, d,
+               grid.ctas, grid.units, grid.threads, grid.rows, ROUTES.index(grid.route),
+               grid.smem_bytes)
     return hs, final
 
 

@@ -24,7 +24,13 @@ from repro_torch.kernels import fft_radix2 as k
 from repro_torch.kernels import fft_staged
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels._launch import launch
-from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain, slstm_weights_from_jax
+from repro_torch.kernels.slstm_scan import (
+    ROUTES,
+    slstm_grid,
+    slstm_scan,
+    slstm_scan_plain,
+    slstm_weights_from_jax,
+)
 
 TOL = 2e-5
 TOL_SLSTM = 1e-4
@@ -404,8 +410,13 @@ def test_cuda_flash_attention_shares_an_sm_between_two_blocks_at_head_128(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,d", [(3, 64, 128), (2, 32, 1024), (1, 16, 2048), (1, 8, 36)])
+@pytest.mark.parametrize("b,l,d", [(3, 64, 128), (2, 32, 1024), (1, 16, 2048), (1, 8, 36),
+                                   (1, 8, 4096), (8, 16, 2048)])
 def test_cuda_slstm_scan_matches_plain(cuda, b, l, d):
+    """The cooperative grid against the plain step loop; D 4096 takes the
+    global route (wr's slice read every step), the others keep it in
+    shared memory; (8, 16, 2048) has more of h a step than the threads'
+    fixed load slots hold."""
     rng = np.random.default_rng(d)
     p = {"wx": rng.standard_normal((d, 4 * d)) / math.sqrt(d),
          "wr": rng.standard_normal((4, d // 4, d)) * 0.25,
@@ -423,3 +434,30 @@ def test_cuda_slstm_scan_matches_plain(cuda, b, l, d):
     assert _rel(hs, ref_hs) <= TOL_SLSTM
     for got, ref in zip(state, ref_state):
         assert _rel(got, ref) <= TOL_SLSTM
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_refuses_a_grid_the_card_cannot_hold(cuda):
+    """4096 CTAs of one unit each (48 KB of shared memory a CTA) cannot all
+    be resident: the cooperative launch is refused
+    (cudaErrorCooperativeLaunchTooLarge, 720, or cudaErrorInvalidConfiguration,
+    9; the entry's own check of the geometry would give 1), it does not hang,
+    and no launch is counted."""
+    b, l, d = 1, 2, 4096
+    xg = torch.zeros(b, l, 4 * d, device=cuda)
+    wr = torch.zeros(4, d // 4, d, device=cuda)
+    bias = torch.zeros(4 * d, device=cuda)
+    z = torch.zeros(b, d, device=cuda)
+    hs = torch.empty(b, l, d, device=cuda)
+    final = [torch.empty(b, d, device=cuda) for _ in range(4)]
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    grid = slstm_grid(d, b, d)  # one unit a CTA
+    assert grid.ctas == d
+    k.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error (9|720) "):
+        launch("repro_slstm_scan", "slstm_scan", xg, xg.data_ptr(), wr.data_ptr(),
+               bias.data_ptr(), *(z.data_ptr() for _ in range(4)), hs.data_ptr(),
+               *(x.data_ptr() for x in final), count.data_ptr(), b, l, d, grid.ctas,
+               grid.units, grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["slstm_scan"] == 0

@@ -1,12 +1,21 @@
-// CPU emulation of the CUDA subset the FFT kernels use: one std::thread per
-// CUDA thread, std::barrier for __syncthreads; dynamic shared memory is a
-// per-block buffer of NaNs with a guard band after it (an overrun fails the
-// launch). See emulate.py.
+// CPU emulation of the CUDA subset the port's kernels use: one std::thread
+// per CUDA thread, std::barrier for __syncthreads; dynamic shared memory is
+// a per-block buffer of NaNs with a guard band after it (an overrun fails
+// the launch). A cooperative launch (cudaLaunchKernelEx with
+// cudaLaunchAttributeCooperative) runs every block's threads at once, so a
+// grid barrier on atomics works as on the card; any other launch runs the
+// blocks one after another. Warp-wide instructions the kernels write as
+// inline PTX (mma_m8n8k4) have stand-ins here, on a barrier per warp; the
+// kernels leave theirs out where REPRO_CUDA_EMU is defined. See emulate.py.
 #pragma once
+#define REPRO_CUDA_EMU 1
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdio>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 #define __device__
@@ -16,9 +25,14 @@
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
 struct float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 struct emu_dim { unsigned x; };
-inline thread_local emu_dim threadIdx, blockIdx, blockDim;
+inline thread_local emu_dim threadIdx, blockIdx, blockDim, gridDim;
 using std::max;
 using std::min;
 inline void sincospif(float x, float* s, float* c) {
@@ -26,40 +40,137 @@ inline void sincospif(float x, float* s, float* c) {
   *s = static_cast<float>(std::sin(a));
   *c = static_cast<float>(std::cos(a));
 }
+// Loads through a cache level are plain loads here; the grid barrier's
+// atomics (cuda/atomic beside this file) order them.
+template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+// Cycles of a 2 GHz clock.
+inline long long clock64() {
+  return 2 * std::chrono::duration_cast<std::chrono::nanoseconds>(
+                 std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+[[noreturn]] inline void __trap() {
+  std::fprintf(stderr, "__trap\n");
+  std::abort();
+}
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorCooperativeLaunchTooLarge = 720,
+};
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
 inline int cudaSetDevice(int) { return 0; }
+// One block an SM: the emulator's "card" holds any grid of one-block SMs.
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 1;
+  return 0;
+}
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union { int cooperative; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 namespace emu {
 inline int last_error = 0;
 inline thread_local float2* g_smem = nullptr;
 inline thread_local std::barrier<>* g_bar = nullptr;
+inline thread_local std::barrier<>* g_warp_bar = nullptr;  // the thread's warp
+inline thread_local double* g_warp_buf = nullptr;          // 64 doubles a warp
 inline long long smem_bytes_max = 232448;
+// Blocks a cooperative launch may hold at once (threads are OS threads).
+inline int cooperative_blocks_max = 64;
+
+// Run blocks first .. first + count - 1 of `grid`, all their threads at once.
+template <class F>
+void run_blocks(int first, int count, int grid, int threads, long long smem, F body) {
+  const int n = static_cast<int>((smem + 7) / 8);
+  const float guard = 12345.f;
+  const int warps = (threads + 31) / 32;
+  std::vector<std::vector<float2>> shm(count);
+  std::vector<std::barrier<>*> bars, warp_bars;
+  std::vector<double> warp_buf(static_cast<size_t>(count) * warps * 64);
+  for (auto& s : shm) {
+    s.assign(n + 64, {NAN, NAN});
+    for (int i = n; i < n + 64; ++i) s[i] = {guard, guard};
+    bars.push_back(new std::barrier<>(threads));
+    for (int w = 0; w < warps; ++w) warp_bars.push_back(new std::barrier<>(min(32, threads - 32 * w)));
+  }
+  std::vector<std::thread> ts;
+  ts.reserve(static_cast<size_t>(count) * threads);
+  for (int k = 0; k < count; ++k)
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, k, t] {
+        threadIdx.x = t; blockIdx.x = first + k; blockDim.x = threads; gridDim.x = grid;
+        g_smem = shm[k].data(); g_bar = bars[k];
+        g_warp_bar = warp_bars[k * warps + t / 32];
+        g_warp_buf = warp_buf.data() + (static_cast<size_t>(k) * warps + t / 32) * 64;
+        body();
+        bars[k]->arrive_and_drop();
+        g_warp_bar->arrive_and_drop();
+      });
+  for (auto& th : ts) th.join();
+  for (auto* b : warp_bars) delete b;
+  for (int k = 0; k < count; ++k) {
+    delete bars[k];
+    for (int i = n; i < n + 64; ++i)
+      if (shm[k][i].x != guard || shm[k][i].y != guard) {
+        std::fprintf(stderr, "smem overrun block %d\n", first + k);
+        last_error = 77;
+      }
+  }
+}
+
 template <class K, class... A>
 void launch(K kernel, int grid, int threads, int smem, cudaStream_t, A... args) {
   if (threads < 1 || threads > 1024 || smem > smem_bytes_max) { last_error = 9; return; }
-  const int n = smem / 8;
-  for (int b = 0; b < grid; ++b) {
-    std::vector<float2> shm(n + 64, {NAN, NAN});
-    const float guard = 12345.f;
-    for (int i = n; i < n + 64; ++i) shm[i] = {guard, guard};
-    std::barrier<> bar(threads);
-    std::vector<std::thread> ts;
-    ts.reserve(threads);
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t; blockIdx.x = b; blockDim.x = threads;
-        g_smem = shm.data(); g_bar = &bar;
-        kernel(args...);
-        bar.arrive_and_drop();
-      });
-    for (auto& th : ts) th.join();
-    for (int i = n; i < n + 64; ++i)
-      if (shm[i].x != guard || shm[i].y != guard) { std::fprintf(stderr, "smem overrun block %d\n", b); last_error = 77; }
-  }
+  for (int b = 0; b < grid; ++b) run_blocks(b, 1, grid, threads, smem, [&] { kernel(args...); });
 }
 }  // namespace emu
+template <class... P, class... A>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A&&... args) {
+  const int grid = static_cast<int>(cfg->gridDim.x), threads = static_cast<int>(cfg->blockDim.x);
+  const long long smem = static_cast<long long>(cfg->dynamicSmemBytes);
+  if (threads < 1 || threads > 1024 || smem > emu::smem_bytes_max) return cudaErrorInvalidConfiguration;
+  bool cooperative = false;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    cooperative |= cfg->attrs[i].id == cudaLaunchAttributeCooperative && cfg->attrs[i].val.cooperative;
+  const auto body = [&] { kernel(args...); };
+  if (!cooperative) {
+    for (int b = 0; b < grid; ++b) emu::run_blocks(b, 1, grid, threads, smem, body);
+  } else {
+    if (grid > emu::cooperative_blocks_max) return cudaErrorCooperativeLaunchTooLarge;
+    emu::run_blocks(0, grid, grid, threads, smem, body);
+  }
+  const int e = emu::last_error;
+  emu::last_error = 0;
+  return e;
+}
 inline void __syncthreads() { emu::g_bar->arrive_and_wait(); }
+// mma.sync m8n8k4 f64 (C += A B, 8 x 8 x 4) over the 32 lanes of a warp:
+// lane l holds A[l / 4][l % 4], B[l % 4][l / 4], C[l / 4][2 (l % 4) + {0, 1}].
+inline void mma_m8n8k4(double& c0, double& c1, double a, double b) {
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  double* buf = emu::g_warp_buf;
+  buf[lane] = a;
+  buf[32 + lane] = b;
+  emu::g_warp_bar->arrive_and_wait();
+  const int r = lane / 4, c = 2 * (lane % 4);
+  for (int k = 0; k < 4; ++k) {
+    c0 += buf[4 * r + k] * buf[32 + 4 * c + k];
+    c1 += buf[4 * r + k] * buf[32 + 4 * (c + 1) + k];
+  }
+  emu::g_warp_bar->arrive_and_wait();
+}
 inline int cudaGetLastError() { int e = emu::last_error; emu::last_error = 0; return e; }

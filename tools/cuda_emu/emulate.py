@@ -7,7 +7,9 @@ The ``.cu`` sources compile with g++ as plain C++ against the stand-in
 are rewritten on the way. The library goes to ``build/cuda_emu`` and is
 called through ctypes with the census's own launch geometry. This checks the
 indexing, barriers and shared-memory bounds, not ptxas or timing: watch the
-chip's build log all the same.
+chip's build log all the same. ``compile_library`` builds any of the
+``.cu`` sources so; ``tests/test_torch_slstm_emu.py`` runs ``slstm_scan.cu``
+through it.
 
     PYTHONPATH=src python tools/cuda_emu/emulate.py 8x8 128x128 16384x2
     PYTHONPATH=src python tools/cuda_emu/emulate.py --all     # every admitted frame
@@ -36,21 +38,30 @@ CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
 SOURCES = ("fft2_fused.cu", "rfft2_fused.cu", "fft_fused.cu")
 
 
-def build(out: Path) -> ctypes.CDLL:
+def compile_library(out: Path, sources, defines=()) -> ctypes.CDLL:
+    """Compile ``sources`` (file names in ``csrc``) with g++ against the
+    stand-in headers, with ``-D`` of each of ``defines``, into
+    ``out/libemu.so`` and load it."""
     out.mkdir(parents=True, exist_ok=True)
     for f in CSRC.glob("*.cuh"):
         (out / f.name).write_text(f.read_text())
     objs = []
-    for name in SOURCES:
+    for name in sources:
         s = (CSRC / name).read_text()
-        s = s.replace("extern __shared__ float2 smem[];", "float2* smem = emu::g_smem;")
+        s = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                   r"\1* \2 = reinterpret_cast<\1*>(emu::g_smem);", s)
         s = re.sub(r"(\w[\w:<>]*)<<<(.*?)>>>\(", r"emu::launch(\1, \2, ", s, flags=re.S)
         (out / (name + ".cpp")).write_text(s)
         objs.append(str(out / (name + ".cpp")))
     lib = out / "libemu.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{HERE}",
-                    f"-I{out}", "-Wno-unknown-pragmas", "-o", str(lib), *objs], check=True)
-    so = ctypes.CDLL(str(lib))
+                    f"-I{out}", "-Wno-unknown-pragmas", *(f"-D{x}" for x in defines), "-o",
+                    str(lib), *objs], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def build(out: Path) -> ctypes.CDLL:
+    so = compile_library(out, SOURCES)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (so.repro_fft2_fused, so.repro_fft_fused):
         fn.argtypes = [P, P, I, I, I, I, I, I, I, F, I, P]
