@@ -77,7 +77,29 @@ Phases, each printing one JSON line:
              fft_two_pass; one more ifft on the decays, scoped to
              ``xfft.config(variant="fused")``, launches fft_two_pass and no
              fft_cluster.
-4. path    — the other entry points of ``repro_torch.kernels``, with the
+4. imaging — ``repro_torch.core.spectral`` and ``repro_torch.imaging``
+             through their public functions at the sizes users send, the
+             counts read around each call: registration and apply_shift on
+             (512, 128, 128) real and complex frames (planted whole-pixel
+             shifts recovered exactly, subpixel ones within 1/10 + 0.05 px
+             at ``upsample_factor=10``), correlate2 on the same frames,
+             psd_decompose and fft2_psd on (32, 512, 512) CT frames, k-space
+             on (8, 4, 256, 256) MRI frames (round trip, Parseval),
+             oaconvolve2 on (16, 1024, 1024) holograms with a 31x31 kernel
+             and matched_filter2 of a 64x64 template in a 4096x4096 scene
+             (the planner's tile; the peak at the planted offset),
+             register_logpolar on a 256x256 frame turned a quarter turn,
+             fourier_mixing at d_model 512 on (8, 2048, 512) (both
+             variants), fftconv on (8, 4096, 768) and stft / log_mel on 8
+             clips of 30 s at 16 kHz. Each call is held to a ``torch.fft``
+             form of its definition (linear outputs 2e-5, convolutions and
+             round trips 1e-4, relative to the largest value), must launch
+             the kernels its shapes lead to and run no plain schedule, and
+             prints one line: the planner's engine or tile, its median
+             CUDA-event time, each kernel launch in it timed alone on the
+             same inputs and their sum (``kernel_ms``, ``kernel_share``),
+             and the launches, which count toward the ``kernels`` line;
+5. path    — the other entry points of ``repro_torch.kernels``, with the
              counts set to 0 just before and read just after:
              ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
              exactly 11 times and agree with ``torch.fft`` to 2e-5;
@@ -271,6 +293,29 @@ ROW_REGS_ENTRIES = {"irfft_fused": "17irfft_regs_kernel"}
 TWO_PASS_COMPLEX = (64, 2 ** 18)
 TWO_PASS_REAL = (256, 2 ** 16)
 STRIP = (8, 512, 32768)  # line-scan / SAR strip frames, 32768 samples wide
+# The spectral and imaging phase, at the sizes users send: registration on
+# 128x128 serving frames, psd on 512x512 CT frames, k-space on 256x256 MRI
+# frames (8 coils x 4 slices), overlap-save on 1024x1024 holograms with a
+# 31x31 kernel, a 64x64 template in a 4096x4096 scene, fourier_lm's mixing
+# width (d_model 512, src/repro/configs/fourier_lm.py) over 2048 tokens,
+# fftconv on 4096 steps of 768 channels, and 30 s clips at 16 kHz.
+REG = (512, 128, 128)
+CT = (32, 512, 512)
+MRI = (8, 4, 256, 256)
+HOLO, HOLO_KERNEL = (16, 1024, 1024), 31
+SCENE, TEMPLATE = 4096, 64
+MIX = (8, 2048, 512)
+CONV = (8, 4096, 768)
+AUDIO = (8, 30 * 16000)
+LOGPOLAR = 256
+UPSAMPLE = 10
+# The fused wrappers the kernel entries of repro_torch.kernels.ops call,
+# and the plain schedules of repro_torch.core.fft1d under every core entry.
+FUSED_WRAPPERS = ("fft_fused", "rfft_fused", "irfft_fused", "fft2_fused", "rfft2_fused",
+                  "irfft2_fused")
+PLAIN_SCHEDULES = ("_fft_panel", "_fft_routed")
+ROW_KERNELS = ("fft_fused", "rfft_fused", "irfft_fused", "fft_two_pass", "fft_cluster")
+FRAME_KERNELS = ("fft2_fused", "rfft2_fused", "irfft2_fused")
 
 
 def bound(card: str, nbytes: float, flops: float, flop_rate: float = PEAK_FLOPS_FP32):
@@ -1173,6 +1218,307 @@ def request_phase(torch, k, xfft, resolve_call):
     return dict(k.LAUNCHES)
 
 
+class KernelTap:
+    """Watches the port's calls during the spectral and imaging phase: every
+    call of a fused wrapper made through ``repro_torch.kernels.ops`` is
+    recorded with its arguments (so that its kernel can be timed alone on
+    the same inputs afterwards), and every call of a plain schedule of
+    ``repro_torch.core.fft1d`` is counted (none may run on the card)."""
+
+    def __init__(self):
+        from repro_torch.core import fft1d
+        from repro_torch.kernels import ops
+
+        self.recorded, self.recording, self.plain_calls = [], False, 0
+        self._saved = [(ops, n, getattr(ops, n)) for n in FUSED_WRAPPERS]
+        self._saved += [(fft1d, n, getattr(fft1d, n)) for n in PLAIN_SCHEDULES]
+        for module, name, fn in self._saved:
+            setattr(module, name, (self._plain if module is fft1d else self._fused)(name, fn))
+
+    def _fused(self, name, fn):
+        def wrapper(*args, **kw):
+            if self.recording:
+                self.recorded.append((name, fn, args, kw))
+            return fn(*args, **kw)
+        return wrapper
+
+    def _plain(self, name, fn):
+        def wrapper(*args, **kw):
+            self.plain_calls += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    def restore(self):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def band_limited_frames(n: int, count: int, seed: int):
+    """``count`` distinct (n, n) band-limited frames from
+    ``repro_torch.imaging.band_limited_frame`` (numpy, made once)."""
+    import numpy as np
+
+    from repro_torch.imaging import band_limited_frame
+
+    return np.stack([band_limited_frame(n, seed=seed + i) for i in range(count)])
+
+
+def padded_conv(torch, image, kernel, mode: str = "same"):
+    """The yardstick of the convolutions: a linear convolution through one
+    size-exact padded ``torch.fft.rfft2``, cropped to scipy's ``mode``."""
+    h, w = image.shape[-2:]
+    kh, kw = kernel.shape[-2:]
+    s = (h + kh - 1, w + kw - 1)
+    full = torch.fft.irfft2(torch.fft.rfft2(image, s=s) * torch.fft.rfft2(kernel, s=s), s=s)
+    if mode == "full":
+        return full
+    top, left = (kh - 1) // 2, (kw - 1) // 2
+    return full[..., top:top + h, left:left + w]
+
+
+def imaging_phase(torch, k, xfft, resolve_call, rows):
+    """``repro_torch.core.spectral`` and ``repro_torch.imaging`` through
+    their public functions on the card, each call held to a ``torch.fft``
+    yardstick; returns the launches of the phase's checked calls."""
+    tap = KernelTap()
+    try:
+        return _imaging_calls(torch, k, xfft, resolve_call, rows, tap)
+    finally:
+        tap.restore()
+
+
+def _imaging_calls(torch, k, xfft, resolve_call, rows, tap):
+    import numpy as np
+
+    from repro_torch import imaging
+    from repro_torch.core import spectral
+    from repro_torch.imaging.registration import register_logpolar
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    total = dict.fromkeys(k.LAUNCHES, 0)
+
+    def engine(kind, shape, direction="fwd", dtype="complex64"):
+        return resolve_call(kind, tuple(shape), dev, dtype=dtype, direction=direction).variant
+
+    def call(name, fn, shape, plan, expect, forbid=()):
+        """Run ``fn`` once with the counts read around it, then time it and
+        each kernel launch it made; returns its output and its line."""
+        before, plain = dict(k.LAUNCHES), tap.plain_calls
+        tap.recording, tap.recorded = True, []
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        tap.recording = False
+        delta = {n: k.LAUNCHES[n] - before[n] for n in k.LAUNCHES if k.LAUNCHES[n] != before[n]}
+        for n in expect:
+            if delta.get(n, 0) < 1:
+                raise AssertionError(f"{name}: {n} was not launched ({delta})")
+        for n in forbid:
+            if delta.get(n, 0):
+                raise AssertionError(f"{name}: {n} was launched ({delta})")
+        if tap.plain_calls != plain:
+            raise AssertionError(f"{name}: ran a plain schedule on the card")
+        for n, c in delta.items():
+            total[n] += c
+        launched, tap.recorded = tap.recorded, []
+        kernels = []
+        for kname, kfn, args, kw in launched:
+            one = {"kernel": kname, "shape": list(args[0].shape), **kw,
+                   "ms": time_ms(lambda: kfn(*args, **kw))}
+            if rows[kname]["shape"] == one["shape"]:
+                one["kernel_phase_ms"] = rows[kname]["ms"]
+            kernels.append(one)
+        del launched
+        ms = time_ms(fn)
+        kernel_ms = sum(kn["ms"] for kn in kernels)
+        return out, {"phase": "imaging", "call": name, "shape": list(shape), "plan": plan,
+                     "ms": ms, "kernel_ms": kernel_ms, "kernel_share": kernel_ms / ms,
+                     "kernels": kernels, "launches": delta}
+
+    def check(line, err, tol, what="rel_err"):
+        line[what] = err
+        if not err <= tol:
+            raise AssertionError(f"{line['call']}: {what} {err} > {tol}")
+
+    whole_frame_real = list(ROW_KERNELS) + ["fft2_fused"]
+    whole_frame_complex = list(ROW_KERNELS) + ["rfft2_fused", "irfft2_fused"]
+    composed = list(FRAME_KERNELS) + ["fft_two_pass", "fft_cluster"]
+
+    # Registration on 128x128 frames: planted whole-pixel shifts come back
+    # exactly, subpixel ones within 1/upsample + 0.05 px.
+    frames = torch.from_numpy(band_limited_frames(REG[-1], REG[0], seed=0)).to(dev)
+    whole = torch.from_numpy(rng.integers(-60, 61, (REG[0], 2)).astype(np.float32)).to(dev)
+    sub = torch.from_numpy(rng.uniform(-20, 20, (REG[0], 2)).astype(np.float32)).to(dev)
+    plan = {"rfft2d": engine("rfft2d", REG, dtype="float32"),
+            "rfft2d inv": engine("rfft2d", REG, "inv", "float32")}
+    fy = torch.fft.fftfreq(REG[1], device=dev)[:, None]
+    fx = torch.fft.rfftfreq(REG[2], device=dev)[None, :]
+
+    def shifted(x, s):
+        ramp = torch.exp(-2j * math.pi * (fy * s[:, 0, None, None] + fx * s[:, 1, None, None]))
+        return torch.fft.irfft2(torch.fft.rfft2(x) * ramp, s=x.shape[-2:])
+
+    for label, shifts in (("whole", whole), ("sub", sub)):
+        mov, line = call(f"apply_shift {label}-pixel", lambda: imaging.apply_shift(frames, shifts),
+                         REG, plan, FRAME_KERNELS[1:], whole_frame_real)
+        check(line, rel_err(mov, shifted(frames, shifts)), TOL_REQUEST)
+        emit(line)
+        upsample = 1 if label == "whole" else UPSAMPLE
+        got, line = call(f"register_phase_correlation {label}-pixel upsample={upsample}",
+                         lambda: imaging.register_phase_correlation(frames, mov, upsample),
+                         REG, plan, FRAME_KERNELS[1:], whole_frame_real)
+        err = float((got + shifts).abs().max())
+        check(line, err, 0.0 if upsample == 1 else 1 / UPSAMPLE + 0.05, "max_shift_err_px")
+        emit(line)
+    cframes = torch.complex(frames, frames.roll(1, 0))
+    cplan = {"fft2d": engine("fft2d", REG), "fft2d inv": engine("fft2d", REG, "inv")}
+    cmov, line = call("apply_shift complex whole-pixel",
+                      lambda: imaging.apply_shift(cframes, whole), REG, cplan, ["fft2_fused"],
+                      whole_frame_complex)
+    check(line, rel_err(cmov, torch.complex(shifted(frames, whole),
+                                            shifted(frames.roll(1, 0), whole))), TOL_REQUEST)
+    emit(line)
+    got, line = call("register_phase_correlation complex whole-pixel",
+                     lambda: imaging.register_phase_correlation(cframes, cmov), REG, cplan,
+                     ["fft2_fused"], whole_frame_complex)
+    check(line, float((got + whole).abs().max()), 0.0, "max_shift_err_px")
+    emit(line)
+    corr, line = call("correlate2", lambda: spectral.correlate2(frames, mov), REG, plan,
+                      FRAME_KERNELS[1:], whole_frame_real)
+    check(line, rel_err(corr, torch.fft.irfft2(torch.fft.rfft2(frames)
+                                               * torch.fft.rfft2(mov).conj())), TOL_REQUEST)
+    emit(line)
+    del frames, cframes, mov, cmov, corr
+
+    # Periodic-plus-smooth on 512x512 CT frames (over one block: composed).
+    i, j = np.mgrid[0:CT[1], 0:CT[2]]
+    ct = torch.from_numpy((0.05 * i / 8 + 0.03 * j / 8 + 0.2 * rng.standard_normal(CT)
+                           ).astype(np.float32)).to(dev)
+    plan = {"rfft2d": engine("rfft2d", CT, dtype="float32"),
+            "rfft2d inv": engine("rfft2d", CT, "inv", "float32"),
+            "rfft1d": engine("rfft1d", (CT[0], CT[2]), dtype="float32")}
+    (periodic, smooth), line = call("psd_decompose", lambda: imaging.psd_decompose(ct), CT, plan,
+                                    ["rfft_fused", "fft_fused", "irfft_fused"], composed)
+    check(line, max_abs(periodic + smooth, ct) / float(ct.abs().max()), TOL_ROUND_TRIP,
+          "sum_err")
+    emit(line)
+    spec, line = call("fft2_psd", lambda: imaging.fft2_psd(ct), CT, plan,
+                      ["rfft_fused", "fft_fused"], composed)
+    check(line, rel_err(spec, torch.fft.fft2(periodic)), TOL_REQUEST)
+    emit(line)
+    del ct, periodic, smooth, spec
+
+    # Centered k-space on (8 coils, 4 slices) of 256x256 MRI frames.
+    img = torch.complex(torch.randn(*MRI, generator=gen, device=dev),
+                        torch.randn(*MRI, generator=gen, device=dev))
+    plan = {"fft2d": engine("fft2d", MRI), "fft2d inv": engine("fft2d", MRI, "inv")}
+    ks, line = call("image_to_kspace", lambda: imaging.image_to_kspace(img), MRI, plan,
+                    ["fft_fused"], composed)
+    dims = (-2, -1)
+    check(line, rel_err(ks, torch.fft.fftshift(torch.fft.fft2(
+        torch.fft.ifftshift(img, dim=dims), norm="ortho"), dim=dims)), TOL_REQUEST)
+    check(line, abs(float(ks.norm() / img.norm()) - 1.0), TOL_ROUND_TRIP, "parseval_err")
+    emit(line)
+    back, line = call("kspace_to_image", lambda: imaging.kspace_to_image(ks), MRI, plan,
+                      ["fft_fused"], composed)
+    check(line, max_abs(back, img) / float(img.abs().max()), TOL_ROUND_TRIP, "round_trip_err")
+    emit(line)
+    del img, ks, back
+
+    # Overlap-save on holograms, and a matched filter over a wide scene: the
+    # tile the planner picks, one batched rfft2 and one irfft2 a direction.
+    holo = torch.from_numpy(frame_source(5, *HOLO)).to(dev)
+    kern = torch.randn(HOLO_KERNEL, HOLO_KERNEL, generator=gen, device=dev) / HOLO_KERNEL
+    key = (HOLO[1], HOLO[2], HOLO_KERNEL, HOLO_KERNEL)
+    tiled = resolve_call("oaconv2d", key, dev, dtype="float32")
+    plan = {"tile": list(tiled.tile), "variant": tiled.variant}
+    out, line = call("oaconvolve2", lambda: imaging.oaconvolve2(holo, kern), HOLO, plan,
+                     FRAME_KERNELS[1:], whole_frame_real)
+    check(line, rel_err(out, padded_conv(torch, holo, kern)), TOL_ROUND_TRIP)
+    emit(line)
+    del holo, out
+    scene = 0.5 * torch.randn(SCENE, SCENE, generator=gen, device=dev)
+    template = torch.randint(0, 2, (TEMPLATE, TEMPLATE), generator=gen, device=dev) * 2.0 - 1
+    at = (SCENE * 3 // 10 + 5, SCENE * 2 // 3 + 3)  # (1233, 2733)
+    scene[at[0]:at[0] + TEMPLATE, at[1]:at[1] + TEMPLATE] += template
+    tiled = resolve_call("oaconv2d", (SCENE, SCENE, TEMPLATE, TEMPLATE), dev, dtype="float32")
+    plan = {"tile": list(tiled.tile), "variant": tiled.variant}
+    corr, line = call("matched_filter2", lambda: imaging.matched_filter2(scene, template),
+                      (SCENE, SCENE), plan, FRAME_KERNELS[1:], whole_frame_real)
+    check(line, rel_err(corr, padded_conv(torch, scene, template.flip(-2, -1))), TOL_ROUND_TRIP)
+    peak = divmod(int(corr.argmax()), SCENE)
+    line["peak"], line["planted_at"] = list(peak), list(at)
+    check(line, float(max(abs(peak[a] - at[a] - TEMPLATE // 2) for a in (0, 1))), 0.0,
+          "peak_offset_px")
+    emit(line)
+    del scene, corr
+
+    # Rotation and scale of a 256x256 frame turned a quarter turn.
+    ref = torch.from_numpy(band_limited_frames(LOGPOLAR, 1, seed=900)[0]).to(dev)
+    plan = {"rfft2d": engine("rfft2d", (LOGPOLAR, LOGPOLAR), dtype="float32")}
+    (angle, scale), line = call("register_logpolar",
+                                lambda: register_logpolar(ref, torch.rot90(ref)),
+                                (LOGPOLAR, LOGPOLAR), plan,
+                                ["rfft_fused", "fft_fused", "irfft_fused"], composed)
+    line["angle"], line["scale"] = angle, scale
+    check(line, abs(abs(angle) - math.pi / 2), 0.03, "angle_err")
+    check(line, abs(scale - 1.0), 0.02, "scale_err")
+    emit(line)
+
+    # The LM-facing entries of core/spectral.
+    x = torch.randn(*MIX, generator=gen, device=dev)
+    want = torch.fft.fft2(x).real
+    plan = {"fft2d": engine("fft2d", MIX)}
+    mix, line = call("fourier_mixing", lambda: spectral.fourier_mixing(x), MIX, plan,
+                     ["fft_fused"], composed)
+    check(line, rel_err(mix, want), TOL_REQUEST)
+    emit(line)
+    plan = {"rfft1d": engine("rfft1d", MIX, dtype="float32"),
+            "fft1d": engine("fft1d", (MIX[0], MIX[2] // 2 + 1, MIX[1]))}
+    mix, line = call("fourier_mixing variant=rfft",
+                     lambda: spectral.fourier_mixing(x, variant="rfft"), MIX, plan,
+                     ["rfft_fused", "fft_fused"], composed)
+    check(line, rel_err(mix, want), TOL_REQUEST)
+    emit(line)
+    del x, want, mix
+    x = torch.randn(*CONV, generator=gen, device=dev)
+    kern = torch.randn(*CONV[1:], generator=gen, device=dev) / math.sqrt(CONV[1])
+    n = 2 * CONV[1]
+    plan = {"rfft1d": engine("rfft1d", (CONV[0], CONV[2], n), dtype="float32")}
+    y, line = call("fftconv", lambda: spectral.fftconv(x, kern), CONV, plan,
+                   ["rfft_fused", "irfft_fused"], ["fft_two_pass", "fft_cluster"])
+    want = torch.fft.irfft(torch.fft.rfft(x.transpose(-1, -2), n)
+                           * torch.fft.rfft(kern.transpose(-1, -2), n), n)[..., :CONV[1]]
+    check(line, rel_err(y, want.transpose(-1, -2)), TOL_ROUND_TRIP)
+    emit(line)
+    del x, kern, y, want
+    t = torch.arange(AUDIO[1], device=dev) / 16000.0
+    tones = torch.tensor([220.0, 440.0, 1000.0, 3000.0], device=dev)
+    audio = (torch.sin(2 * math.pi * tones[:, None, None] * t).sum(0)
+             * torch.rand(AUDIO[0], 1, generator=gen, device=dev)
+             + 0.1 * torch.randn(*AUDIO, generator=gen, device=dev))
+    windows = audio.unfold(-1, 512, 256) * torch.from_numpy(spectral._hann(512)).to(dev)
+    plan = {"fft1d": engine("fft1d", windows.shape)}
+    spec, line = call("stft", lambda: spectral.stft(audio), AUDIO, plan, ["fft_fused"],
+                      ["fft2_fused", "fft_two_pass", "fft_cluster"])
+    want = torch.fft.fft(windows.to(torch.complex64))[..., :257]
+    check(line, rel_err(spec, want), TOL_REQUEST)
+    emit(line)
+    mel, line = call("log_mel", lambda: spectral.log_mel(audio), AUDIO, plan, ["fft_fused"],
+                     ["fft2_fused", "fft_two_pass", "fft_cluster"])
+    fb = torch.from_numpy(spectral._mel_filterbank(257, 80)).to(dev)
+    power = torch.clamp(torch.einsum("...tf,mf->...tm", want.abs() ** 2, fb), min=1e-10)
+    # Held in linear power, the layer's linear output: a mel band 1e-4 of the
+    # loudest one carries float32's error of the loud bins into its log.
+    check(line, rel_err(10.0 ** mel.double(), power), TOL_REQUEST, "mel_power_rel_err")
+    line["max_abs_err_log10"] = max_abs(mel, torch.log10(power))
+    emit(line)
+    torch.cuda.empty_cache()
+    return total
+
+
 def slstm_time(root: str) -> int:
     """``--slstm-time ROOT``: slstm_scan at xlstm-350m from ROOT's ``src``,
     its time and the sha256 of its outputs, as one JSON line."""
@@ -1251,6 +1597,8 @@ def main() -> int:
     model_rows, slstm_hs = model_kernel_phase(torch, card)
     rows.update(model_rows)
     launches = request_phase(torch, k, xfft, resolve_call)
+    for name, n in imaging_phase(torch, k, xfft, resolve_call, rows).items():
+        launches[name] += n
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})
     for name, row in rows.items():

@@ -1,7 +1,8 @@
 """Planner entry points: ``resolve_call`` and ``resolve``.
 
 Port of ``repro.plan.api`` (the resolution half). Every ``repro_torch.xfft``
-transform resolves its call here: the plan cache first, then the scoped
+transform resolves its call here, and ``repro_torch.imaging.oaconvolve2``
+its overlap-save tile (kind ``oaconv2d``): the plan cache first, then the scoped
 ``repro_torch.xfft.config`` overrides, then ESTIMATE on a miss. Nothing
 here runs the transform: the front door calls the chosen engine directly.
 There is no circuit breaker in this port yet, and MEASURE waits.

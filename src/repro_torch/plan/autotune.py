@@ -40,7 +40,7 @@ modelled like its schedule plus call overheads.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -48,7 +48,12 @@ from repro_torch.core.fft1d import butterfly_counts
 from repro_torch.launch.roofline import HBM_BW, SMEM_BW, Roofline
 from repro_torch.plan.plan import FFTPlan, ProblemKey
 
-__all__ = ["estimate_plan", "estimate_variant_time", "variant_candidates"]
+__all__ = [
+    "estimate_plan",
+    "estimate_variant_time",
+    "oaconv_tile_candidates",
+    "variant_candidates",
+]
 
 # Real FLOPs per butterfly: one complex multiply (6) + two complex add/sub (4).
 _FLOPS_PER_BUTTERFLY = 10.0
@@ -201,8 +206,69 @@ def estimate_variant_time(key: ProblemKey, variant: str) -> float:
     return t + spec.cost.entry_overhead_s
 
 
+def oaconv_tile_candidates(key: ProblemKey) -> List[Tuple[int, int]]:
+    """Legal FFT tiles for an overlap-save ``oaconv2d`` problem.
+
+    ``key.shape`` ends ``(H, W, KH, KW)``: image dims, then kernel dims.
+    Per axis, a tile is a power of two at least the kernel extent (else
+    the overlap-save step ``T - K + 1`` vanishes) and at most the padded
+    full-frame transform; jointly, the pair must run as one whole-frame
+    block, within the shared-memory census of ``fft2_fused`` /
+    ``rfft2_fused`` (``repro_torch.kernels.ops.fft2_fits_budget``: real
+    tiles up to 128x256 or 256x128, complex up to 128x128). When even the
+    smallest legal tile is over the census (enormous kernels), the single
+    padded full-frame transform is the fallback: the 2D entries compose it
+    from row and column passes.
+    """
+    if len(key.shape) < 4:
+        raise ValueError(f"oaconv2d keys on (..., H, W, KH, KW); got shape {key.shape}")
+    from repro_torch.core.spectral import _next_pow2  # lazy: spectral builds on xfft
+    from repro_torch.kernels.ops import fft2_fits_budget
+
+    h, w, kh, kw = key.shape[-4:]
+    real = not key.dtype.startswith("complex")
+
+    def axis_cands(dim: int, k: int) -> List[int]:
+        lo, hi = _next_pow2(k), _next_pow2(dim + k - 1)
+        return [1 << p for p in range(lo.bit_length() - 1, hi.bit_length())]
+
+    pairs = [(th, tw) for th in axis_cands(h, kh) for tw in axis_cands(w, kw)
+             if fft2_fits_budget(th, tw, real=real)]
+    return pairs or [(_next_pow2(h + kh - 1), _next_pow2(w + kw - 1))]
+
+
+def _estimate_oaconv_plan(key: ProblemKey) -> FFTPlan:
+    """Pick the overlap-save FFT tile with the best modelled time.
+
+    Modelled cost of a tile = (tiles needed to cover the full-size output)
+    x (forward + inverse transform of one tile under that tile's best
+    engine). Small tiles waste work on the K-1 overlap; big tiles waste it
+    on zero padding, and past the census leave the whole-frame kernels for
+    the composed passes.
+    """
+    h, w, kh, kw = key.shape[-4:]
+    sub_kind = "fft2d" if key.dtype.startswith("complex") else "rfft2d"
+    best: Optional[Tuple[float, str, Tuple[int, int]]] = None
+    for th, tw in oaconv_tile_candidates(key):
+        sub = ProblemKey(kind=sub_kind, backend=key.backend, device_kind=key.device_kind,
+                         shape=(th, tw), dtype=key.dtype, n_devices=key.n_devices,
+                         precision=key.precision, backends=key.backends)
+        times = {v: estimate_variant_time(sub, v) for v in variant_candidates(sub)}
+        variant = min(times, key=times.get)
+        n_tiles = (math.ceil((h + kh - 1) / max(th - kh + 1, 1))
+                   * math.ceil((w + kw - 1) / max(tw - kw + 1, 1)))
+        total = 2.0 * times[variant] * n_tiles  # forward + inverse per tile
+        if best is None or total < best[0]:
+            best = (total, variant, (th, tw))
+    total, variant, tile = best
+    return FFTPlan(key=key, variant=variant, mode="estimate", est_time_s=total, tile=tile)
+
+
 def estimate_plan(key: ProblemKey) -> FFTPlan:
-    """Analytic (FFTW ``ESTIMATE``) plan: no device work."""
+    """Analytic (FFTW ``ESTIMATE``) plan: no device work. An ``oaconv2d``
+    key plans its overlap-save tile (``FFTPlan.tile``)."""
+    if key.kind == "oaconv2d":
+        return _estimate_oaconv_plan(key)
     times = {v: estimate_variant_time(key, v) for v in variant_candidates(key)}
     variant = min(times, key=times.get)
     return FFTPlan(key=key, variant=variant, mode="estimate", est_time_s=times[variant])

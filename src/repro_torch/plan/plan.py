@@ -34,7 +34,9 @@ __all__ = [
 PLAN_SCHEMA_VERSION = 5
 
 #: Problem kinds of the wisdom schema. The port's engines serve the first,
-#: second, fifth and sixth; the others wait for their slices.
+#: second, fifth and sixth; the planner also plans ``oaconv2d`` (the tile
+#: of ``repro_torch.imaging.tiled.oaconvolve2``). The stream and pencil
+#: kinds wait for their slices.
 KINDS = (
     "fft1d", "fft2d", "fft2d_stream", "fft2d_pencil", "rfft1d", "rfft2d",
     "oaconv2d",
@@ -141,8 +143,10 @@ class FFTPlan:
     """One frozen scheduling decision for a :class:`ProblemKey`.
 
     The fields after ``variant`` are the reference's, kept so wisdom round
-    trips between the packages: ``unroll``, ``chunks`` and ``tile`` belong
-    to kinds the port does not run yet, and ``measured_us`` to MEASURE.
+    trips between the packages: ``tile`` is the overlap-save tile of an
+    ``oaconv2d`` plan; ``unroll`` and ``chunks`` belong to the stream and
+    pencil kinds, which the port does not run yet, and ``measured_us`` to
+    MEASURE.
     """
 
     key: ProblemKey

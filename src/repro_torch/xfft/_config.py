@@ -32,8 +32,8 @@ _DOUBLE = ("double", "complex128", "float64")
 
 #: Raised for the settings whose engines are not ported yet.
 _MEASURE_NOT_PORTED = (
-    "mode='measure' is not ported yet (ROADMAP queue 1, item 7: MEASURE timed "
-    "with CUDA events); use mode='estimate'"
+    "mode='measure' is not ported yet (see ROADMAP: MEASURE, timed with CUDA "
+    "events); use mode='estimate'"
 )
 
 
@@ -112,8 +112,8 @@ class config:
         if precision is not None and precision not in _SINGLE:
             if precision in _DOUBLE:
                 raise NotImplementedError(
-                    "precision='double' needs the reference_x64 engine, which is "
-                    "not ported yet (ROADMAP queue 1, item 6)"
+                    "precision='double' needs the reference_x64 engine, the "
+                    "double-precision engine, which is not ported yet (see ROADMAP)"
                 )
             raise ValueError(f"unsupported precision {precision!r}; want one of {_SINGLE}")
         backends = _canon_backends(backend)

@@ -29,6 +29,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.ops; import repro_torch.kernels.butterfly; "
         "import repro_torch.kernels.flash_attention; "
         "import repro_torch.kernels.slstm_scan; "
+        "import repro_torch.core.spectral; import repro_torch.imaging; "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
     )

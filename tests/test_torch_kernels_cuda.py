@@ -461,3 +461,103 @@ def test_cuda_slstm_scan_refuses_a_grid_the_card_cannot_hold(cuda):
                grid.units, grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes)
     torch.cuda.synchronize()
     assert k.LAUNCHES["slstm_scan"] == 0
+
+
+def _launched(before, *names):
+    """Launches of ``names`` since the ``before`` snapshot of the counts."""
+    return {n: k.LAUNCHES[n] - before[n] for n in names}
+
+
+def _imaging_frames(cuda, *shape, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(*shape, generator=g)
+    return x, x.to(cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_kspace_matches_plain(cuda):
+    from repro_torch.imaging import image_to_kspace, kspace_to_image
+
+    x, xd = _imaging_frames(cuda, 4, 2, 64, 64)
+    z, zd = torch.complex(x, x.flip(-1)), torch.complex(xd, xd.flip(-1))
+    before = dict(k.LAUNCHES)
+    got = image_to_kspace(zd)
+    back = kspace_to_image(got)
+    assert _launched(before, "fft2_fused")["fft2_fused"] == 2
+    assert _rel(got.cpu(), image_to_kspace(z)) <= TOL
+    assert _rel(back.cpu(), z) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_psd_matches_plain(cuda):
+    from repro_torch.imaging import fft2_psd, psd_decompose
+
+    x, xd = _imaging_frames(cuda, 3, 64, 128, seed=1)
+    before = dict(k.LAUNCHES)
+    periodic, smooth = psd_decompose(xd)
+    spec = fft2_psd(xd)
+    n = _launched(before, "rfft_fused", "rfft2_fused", "irfft2_fused")
+    assert n["rfft_fused"] >= 4 and n["rfft2_fused"] == 1 and n["irfft2_fused"] == 1
+    p_ref, s_ref = psd_decompose(x)
+    assert _rel(periodic.cpu(), p_ref) <= TOL and _rel(smooth.cpu(), s_ref) <= TOL
+    assert _rel(spec.cpu(), fft2_psd(x)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_registration_matches_plain(cuda):
+    from repro_torch.imaging import apply_shift, band_limited_frame, register_phase_correlation
+
+    ref = torch.from_numpy(band_limited_frame(64, seed=3)).expand(4, 64, 64).contiguous()
+    shifts = torch.tensor([[5.0, 9.0], [-7.0, 3.0], [2.5, -1.25], [0.25, 0.75]])
+    before = dict(k.LAUNCHES)
+    mov = apply_shift(ref.to(cuda), shifts.to(cuda))
+    got = register_phase_correlation(ref.to(cuda), mov, upsample_factor=10)
+    n = _launched(before, "rfft2_fused", "irfft2_fused")
+    assert n["rfft2_fused"] == 3 and n["irfft2_fused"] == 2
+    assert _rel(mov.cpu(), apply_shift(ref, shifts)) <= TOL
+    assert float((got.cpu() + shifts).abs().max()) <= 1 / 10 + 0.05
+    cref = torch.complex(ref[:2], ref[:2].flip(-1)).to(cuda)
+    before = dict(k.LAUNCHES)
+    got = register_phase_correlation(cref, apply_shift(cref, shifts[:2].to(cuda)))
+    assert _launched(before, "fft2_fused")["fft2_fused"] == 5
+    assert torch.equal(got.cpu(), -shifts[:2])
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_matches_plain(cuda):
+    from repro_torch.imaging import fftconv2, matched_filter2, oaconvolve2
+    from repro_torch.plan import resolve_call
+
+    x, xd = _imaging_frames(cuda, 2, 300, 200, seed=2)
+    kern, kernd = _imaging_frames(cuda, 9, 7, seed=3)
+    plan = resolve_call("oaconv2d", (300, 200, 9, 7), cuda, dtype="float32")
+    assert k.rfft2_fits_smem(*plan.tile)
+    before = dict(k.LAUNCHES)
+    got = oaconvolve2(xd, kernd)
+    n = _launched(before, "rfft2_fused", "irfft2_fused", "rfft_fused", "fft_fused")
+    assert n["rfft2_fused"] == 2 and n["irfft2_fused"] == 1
+    assert n["rfft_fused"] == 0 and n["fft_fused"] == 0  # the tiles fit one block
+    want = fftconv2(x, kern, mode="same")
+    assert _rel(got.cpu(), want) <= 1e-4
+    assert _rel(got.cpu(), oaconvolve2(x, kern, tile=plan.tile)) <= TOL
+    corr = matched_filter2(xd, kernd, tile=plan.tile)
+    assert _rel(corr.cpu(), matched_filter2(x, kern, tile=plan.tile)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_matches_plain(cuda):
+    from repro_torch.core import spectral
+
+    x, xd = _imaging_frames(cuda, 2, 256, 64, seed=4)
+    a, ad = _imaging_frames(cuda, 2, 8192, seed=5)
+    before = dict(k.LAUNCHES)
+    mix = spectral.fourier_mixing(xd)
+    mix_r = spectral.fourier_mixing(xd, variant="rfft")
+    conv = spectral.fftconv(xd, xd[0])
+    mel = spectral.log_mel(ad)
+    n = _launched(before, "fft2_fused", "rfft_fused", "fft_fused", "irfft_fused")
+    assert all(v >= 1 for v in n.values()), n
+    assert _rel(mix.cpu(), spectral.fourier_mixing(x)) <= TOL
+    assert _rel(mix_r.cpu(), spectral.fourier_mixing(x)) <= TOL
+    assert _rel(conv.cpu(), spectral.fftconv(x, x[0])) <= TOL
+    assert float((mel.cpu() - spectral.log_mel(a)).abs().max()) <= 1e-4
