@@ -20,6 +20,10 @@ the CUDA kernels are held against on the card.
 
 All compute the same DFT. The engine entries take an explicit variant; the
 planner (``repro_torch.plan``) chooses one for the ``xfft`` front door.
+They compute in complex64 unless ``dtype=torch.complex128`` asks for double
+precision (the ``reference_x64`` engine): the plain schedules then run at
+complex128 with twiddles computed in float64; the fused kernels are single
+precision only.
 """
 
 from __future__ import annotations
@@ -45,6 +49,10 @@ __all__ = [
 ]
 
 BUILTIN_VARIANTS = ("looped", "unrolled", "stockham", "radix4", "fused", "fused_r4")
+_FUSED = ("fused", "fused_r4")
+#: Complex dtypes the schedules compute in: single, and double for the
+#: reference_x64 engine.
+DTYPES = (torch.complex64, torch.complex128)
 
 
 def _check_pow2(n: int, axis: Optional[int] = None) -> int:
@@ -79,13 +87,14 @@ def bit_reversal_permutation(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def fft_routing_tables(n: int):
+def fft_routing_tables(n: int, dtype=np.complex64):
     """Per-stage routing network + twiddle ROM for the looped engine.
 
     Returns numpy arrays, all indexed by stage ``s`` (the Stage Bus value):
       idx_a   (L, N/2) int32 — top input index of each butterfly unit
       idx_b   (L, N/2) int32 — bottom input index (= idx_a + half)
-      twiddle (L, N/2) c64   — W_m^p per butterfly unit
+      twiddle (L, N/2) dtype — W_m^p per butterfly unit, computed in
+                               complex128 and rounded to ``dtype``
       unperm  (L, N)   int32 — position i of the stage output gathers from
                                concat([top_out, bot_out])[unperm[i]]
     """
@@ -93,7 +102,7 @@ def fft_routing_tables(n: int):
     half_n = n // 2
     idx_a = np.zeros((stages, half_n), dtype=np.int32)
     idx_b = np.zeros((stages, half_n), dtype=np.int32)
-    twiddle = np.zeros((stages, half_n), dtype=np.complex64)
+    twiddle = np.zeros((stages, half_n), dtype=dtype)
     unperm = np.zeros((stages, n), dtype=np.int32)
     for s in range(stages):
         half = 1 << s
@@ -106,7 +115,7 @@ def fft_routing_tables(n: int):
                 b = a + half
                 idx_a[s, j] = a
                 idx_b[s, j] = b
-                twiddle[s, j] = np.exp(-2j * np.pi * p / m).astype(np.complex64)
+                twiddle[s, j] = np.exp(-2j * np.pi * p / m).astype(dtype)
                 pos_of[a] = j
                 pos_of[b] = half_n + j
                 j += 1
@@ -130,8 +139,9 @@ def _fft_routed(x: torch.Tensor, n: int) -> torch.Tensor:
     """The paper's engine: bit-reversed input, then per stage the N/2
     butterflies top = A + W·B, bot = A − W·B and the routing shuffle."""
     stages = _check_pow2(n)
+    rom = np.complex128 if x.dtype == torch.complex128 else np.complex64
     idx_a, idx_b, tw, unperm = (
-        torch.from_numpy(t).to(x.device) for t in fft_routing_tables(n)
+        torch.from_numpy(t).to(x.device) for t in fft_routing_tables(n, rom)
     )
     idx_a, idx_b, unperm = idx_a.long(), idx_b.long(), unperm.long()
     rev = torch.from_numpy(bit_reversal_permutation(n)).to(x.device)
@@ -146,24 +156,30 @@ def _fft_routed(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def _fft_panel(x: torch.Tensor, n: int, radix: int) -> torch.Tensor:
     """The Stockham schedules: the fused kernels' plain panel over every
-    row of ``x`` (any leading dims)."""
+    row of ``x`` (any leading dims), in ``x``'s precision."""
     return fft_fused_plain(x.reshape(-1, n), radix=radix).reshape(x.shape)
 
 
-def _check_variant(variant: str) -> None:
+def _check_variant(variant: str, dtype: torch.dtype = torch.complex64) -> None:
     if variant not in BUILTIN_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; want one of {BUILTIN_VARIANTS}")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
+    if dtype == torch.complex128 and variant in _FUSED:
+        raise ValueError(f"variant {variant!r} runs the single-precision CUDA kernels; "
+                         "double precision runs the plain schedules")
 
 
-def fft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham") -> torch.Tensor:
-    """Radix-2 FFT along ``axis`` under ``variant``; returns complex64 on
-    ``x``'s device."""
-    _check_variant(variant)
+def fft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham",
+             dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """Radix-2 FFT along ``axis`` under ``variant``; returns ``dtype``
+    (complex64, or complex128 on a plain schedule) on ``x``'s device."""
+    _check_variant(variant, dtype)
     user_axis = axis
     axis = canonical_axis(axis, x.dim())
     n = x.shape[axis]
     _check_pow2(n, axis=user_axis)
-    x = x.to(torch.complex64)
+    x = x.to(dtype)
     last = axis == x.dim() - 1
     if not last:
         x = x.movedim(axis, -1)
@@ -176,17 +192,18 @@ def fft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham") -> torc
     return y if last else y.movedim(-1, axis)
 
 
-def ifft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham") -> torch.Tensor:
+def ifft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham",
+              dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """Inverse FFT by the conjugation identity on the forward engine; the
     fused kernels conjugate and scale inside the kernel."""
-    _check_variant(variant)
+    _check_variant(variant, dtype)
     axis_n = canonical_axis(axis, x.dim())
     n = x.shape[axis_n]
-    x = x.to(torch.complex64)
-    if variant in ("fused", "fused_r4"):
+    x = x.to(dtype)
+    if variant in _FUSED:
         _check_pow2(n, axis=axis)
         last = axis_n == x.dim() - 1
         z = x if last else x.movedim(axis_n, -1)
         y = fft_kernel(z, radix=4 if variant == "fused_r4" else 2, inverse=True)
         return y if last else y.movedim(-1, axis_n)
-    return torch.conj(fft_impl(torch.conj(x), axis=axis, variant=variant)) / n
+    return torch.conj(fft_impl(torch.conj(x), axis=axis, variant=variant, dtype=dtype)) / n

@@ -20,24 +20,27 @@ def _radix(variant: str) -> int:
     return 4 if variant == "fused_r4" else 2
 
 
-def fft2_impl(x: torch.Tensor, variant: str = "stockham") -> torch.Tensor:
-    """2D FFT over the last two axes under ``variant``; complex64."""
-    _check_variant(variant)
+def fft2_impl(x: torch.Tensor, variant: str = "stockham",
+              dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """2D FFT over the last two axes under ``variant``; ``dtype``
+    (complex64, or complex128 on a plain schedule)."""
+    _check_variant(variant, dtype)
     if variant in ("fused", "fused_r4"):
         return fft2_kernel(x, radix=_radix(variant))
-    y = fft_impl(x, axis=-1, variant=variant)   # rows
-    return fft_impl(y, axis=-2, variant=variant)  # columns
+    y = fft_impl(x, axis=-1, variant=variant, dtype=dtype)   # rows
+    return fft_impl(y, axis=-2, variant=variant, dtype=dtype)  # columns
 
 
-def ifft2_impl(x: torch.Tensor, variant: str = "stockham") -> torch.Tensor:
+def ifft2_impl(x: torch.Tensor, variant: str = "stockham",
+               dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """Inverse 2D FFT. The fused kernels conjugate on the way in and out
     and scale by 1/(H W) inside, the identity the reference applies around
     its kernel; the schedules invert each pass."""
-    _check_variant(variant)
+    _check_variant(variant, dtype)
     if variant in ("fused", "fused_r4"):
         return fft2_kernel(x, radix=_radix(variant), inverse=True)
-    y = ifft_impl(x, axis=-1, variant=variant)
-    return ifft_impl(y, axis=-2, variant=variant)
+    y = ifft_impl(x, axis=-1, variant=variant, dtype=dtype)
+    return ifft_impl(y, axis=-2, variant=variant, dtype=dtype)
 
 
 def fftshift2(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@ Port of ``repro.core.rfft``. N real samples pack as N/2 complex values
 z[j] = x[2j] + i·x[2j+1]; one half-size complex FFT and the symmetry
 recombination Y[k] = Xe[k] + W_N^k · Xo[k], k = 0..N/2, give the
 non-redundant half spectrum. The ``fused`` variants run pack, panel and
-recombination in one CUDA kernel (``repro_torch.kernels``).
+recombination in one CUDA kernel (``repro_torch.kernels``). ``dtype`` is
+the complex dtype of the spectrum: complex128 (real side float64) runs the
+plain schedules in double precision, twiddles computed in float64.
 """
 
 from __future__ import annotations
@@ -19,10 +21,15 @@ __all__ = ["rfft_impl", "irfft_impl", "rfft2_impl", "irfft2_impl"]
 _FUSED = ("fused", "fused_r4")
 
 
-def _ensure_real(x: torch.Tensor, name: str) -> torch.Tensor:
+def _real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.complex128 else torch.float32
+
+
+def _ensure_real(x: torch.Tensor, name: str,
+                 dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     if x.is_complex():
         raise TypeError(f"{name} expects real input; use fft/fft2 for complex")
-    return x.to(torch.float32)
+    return x.to(_real_dtype(dtype))
 
 
 def _radix(variant: str) -> int:
@@ -33,13 +40,13 @@ def _rfft_torch(x: torch.Tensor, n: int, variant: str) -> torch.Tensor:
     """Pack N reals as N/2 complex, half-size FFT, symmetry recombination."""
     m = n // 2
     z = torch.complex(x[..., 0::2].contiguous(), x[..., 1::2].contiguous())
-    zf = fft_impl(z, variant=variant) if m > 1 else z
+    zf = fft_impl(z, variant=variant, dtype=z.dtype) if m > 1 else z
     k = torch.arange(m + 1, device=x.device)
     zk = zf.index_select(-1, k % m)                       # Z[k], Z[M] = Z[0]
     zmk = torch.conj(zf.index_select(-1, (-k) % m))       # conj(Z[(M-k) mod M])
     xe = 0.5 * (zk + zmk)
     xo = -0.5j * (zk - zmk)
-    w = torch.exp(-2j * torch.pi * k.to(torch.float64) / n).to(torch.complex64)
+    w = torch.exp(-2j * torch.pi * k.to(torch.float64) / n).to(zf.dtype)
     return xe + w * xo
 
 
@@ -47,24 +54,25 @@ def _irfft_torch(y: torch.Tensor, n: int, variant: str) -> torch.Tensor:
     """Invert the recombination, one half-size IFFT, de-interleave."""
     m = n // 2
     edge = torch.arange(m + 1, device=y.device)
-    y = torch.where((edge == 0) | (edge == m), torch.real(y).to(torch.complex64), y)
+    y = torch.where((edge == 0) | (edge == m), torch.real(y).to(y.dtype), y)
     k = torch.arange(m, device=y.device)
     yk = y[..., :m]
     ymk = torch.conj(torch.flip(y[..., 1:], dims=(-1,)))
     xe = 0.5 * (yk + ymk)
     xo = 0.5 * (yk - ymk) * torch.exp(
         2j * torch.pi * k.to(torch.float64) / n
-    ).to(torch.complex64)
+    ).to(y.dtype)
     z = xe + 1j * xo
-    zi = ifft_impl(z, variant=variant) if m > 1 else z
+    zi = ifft_impl(z, variant=variant, dtype=y.dtype) if m > 1 else z
     out = torch.stack([torch.real(zi), torch.imag(zi)], dim=-1)
-    return out.reshape(*zi.shape[:-1], n).to(torch.float32)
+    return out.reshape(*zi.shape[:-1], n).to(_real_dtype(y.dtype))
 
 
-def rfft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham") -> torch.Tensor:
-    """Real-input FFT along ``axis`` -> (..., N/2+1) complex64."""
-    _check_variant(variant)
-    x = _ensure_real(x, "rfft")
+def rfft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham",
+              dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """Real-input FFT along ``axis`` -> (..., N/2+1) ``dtype``."""
+    _check_variant(variant, dtype)
+    x = _ensure_real(x, "rfft", dtype)
     user_axis = axis
     axis = axis % x.dim()
     n = x.shape[axis]
@@ -76,9 +84,10 @@ def rfft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham") -> tor
     return y if last else y.movedim(-1, axis)
 
 
-def irfft_impl(y: torch.Tensor, axis: int = -1, variant: str = "stockham") -> torch.Tensor:
+def irfft_impl(y: torch.Tensor, axis: int = -1, variant: str = "stockham",
+               dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """Inverse of :func:`rfft_impl`: (..., N/2+1) half spectrum -> real (..., N)."""
-    _check_variant(variant)
+    _check_variant(variant, dtype)
     user_axis = axis
     axis = axis % y.dim()
     n = 2 * (y.shape[axis] - 1)
@@ -87,7 +96,7 @@ def irfft_impl(y: torch.Tensor, axis: int = -1, variant: str = "stockham") -> to
             f"axis {user_axis} has a half spectrum of width {y.shape[axis]}; "
             "irfft requires width N/2+1 with N a power of two"
         )
-    y = y.to(torch.complex64)
+    y = y.to(dtype)
     last = axis == y.dim() - 1
     if not last:
         y = y.movedim(axis, -1)
@@ -98,21 +107,23 @@ def irfft_impl(y: torch.Tensor, axis: int = -1, variant: str = "stockham") -> to
     return out if last else out.movedim(-1, axis)
 
 
-def rfft2_impl(x: torch.Tensor, variant: str = "stockham") -> torch.Tensor:
+def rfft2_impl(x: torch.Tensor, variant: str = "stockham",
+               dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """2D real-input FFT over the last two axes -> (..., H, W/2+1)."""
-    _check_variant(variant)
-    x = _ensure_real(x, "rfft2")
+    _check_variant(variant, dtype)
+    x = _ensure_real(x, "rfft2", dtype)
     if variant in _FUSED:
         return rfft2_kernel(x, radix=_radix(variant))
-    y = rfft_impl(x, axis=-1, variant=variant)
-    return fft_impl(y, axis=-2, variant=variant)
+    y = rfft_impl(x, axis=-1, variant=variant, dtype=dtype)
+    return fft_impl(y, axis=-2, variant=variant, dtype=dtype)
 
 
-def irfft2_impl(y: torch.Tensor, variant: str = "stockham") -> torch.Tensor:
+def irfft2_impl(y: torch.Tensor, variant: str = "stockham",
+                dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """Inverse of :func:`rfft2_impl`: (..., H, W/2+1) -> real (..., H, W)."""
-    _check_variant(variant)
-    y = y.to(torch.complex64)
+    _check_variant(variant, dtype)
+    y = y.to(dtype)
     if variant in _FUSED:
         return irfft2_kernel(y, radix=_radix(variant))
-    z = ifft_impl(y, axis=-2, variant=variant)
-    return irfft_impl(z, axis=-1, variant=variant)
+    z = ifft_impl(y, axis=-2, variant=variant, dtype=dtype)
+    return irfft_impl(z, axis=-1, variant=variant, dtype=dtype)

@@ -1,6 +1,7 @@
 """repro_torch.engines — the FFT engine registry the planner schedules.
 
-Importing this package registers the built-in engines.
+Importing this package registers the built-in engines and the
+double-precision ``reference_x64`` engine.
 """
 
 from repro_torch.engines.registry import (
@@ -16,6 +17,7 @@ from repro_torch.engines.registry import (
     registered_variants,
 )
 from repro_torch.engines import builtin as _builtin  # noqa: F401
+from repro_torch.engines import x64 as _x64  # noqa: F401
 
 __all__ = [
     "PRECISIONS",

@@ -26,28 +26,29 @@ from repro_torch.engines.registry import CostHints, EngineSpec, register_alias, 
 _KINDS = ("fft1d", "fft2d", "rfft1d", "rfft2d")
 
 
-def _core_ops(name: str):
-    """Op factory shared by the builtin engines: the ``repro_torch.core``
-    entries under a concrete variant."""
+def _core_ops(name: str, **kw):
+    """Op factory shared by the builtin engines and ``reference_x64``: the
+    ``repro_torch.core`` entries under a concrete variant (and ``kw``, the
+    double engine's ``dtype``)."""
 
     def factory(kind: str, direction: str):
         inv = direction == "inv"
         if kind == "fft1d":
             from repro_torch.core.fft1d import fft_impl, ifft_impl
 
-            return functools.partial(ifft_impl if inv else fft_impl, variant=name)
+            return functools.partial(ifft_impl if inv else fft_impl, variant=name, **kw)
         if kind == "fft2d":
             from repro_torch.core.fft2d import fft2_impl, ifft2_impl
 
-            return functools.partial(ifft2_impl if inv else fft2_impl, variant=name)
+            return functools.partial(ifft2_impl if inv else fft2_impl, variant=name, **kw)
         if kind == "rfft1d":
             from repro_torch.core.rfft import irfft_impl, rfft_impl
 
-            return functools.partial(irfft_impl if inv else rfft_impl, variant=name)
+            return functools.partial(irfft_impl if inv else rfft_impl, variant=name, **kw)
         if kind == "rfft2d":
             from repro_torch.core.rfft import irfft2_impl, rfft2_impl
 
-            return functools.partial(irfft2_impl if inv else rfft2_impl, variant=name)
+            return functools.partial(irfft2_impl if inv else rfft2_impl, variant=name, **kw)
         return None
 
     return factory
@@ -140,7 +141,7 @@ def _register_builtin_engines() -> None:
     for name, cost, radix in schedules:
         register_engine(EngineSpec(
             name=name, backend="torch", kinds=_KINDS, radix=radix, cost=cost,
-            ops=_core_ops(name),
+            reliable=(name == "stockham"), ops=_core_ops(name),
         ))
     register_alias("unrolled", "looped")
     for name, radix, flop_scale, predicate in (("fused", 2, 1.0, _fused_predicate),

@@ -4,8 +4,10 @@ Port of ``repro.engines.registry``. An :class:`EngineSpec` declares what an
 engine can do — problem kinds, precisions, backend family, radix, fusion, a
 shared-memory working-set callback and ESTIMATE cost hints — and how to run
 it. ``repro_torch.plan`` enumerates the registry by capability instead of a
-hardcoded variant list. The ``reliable`` and ``requires_x64`` fields of the
-reference wait for the degradation ladder and the double-precision engine.
+hardcoded variant list. ``reliable`` is declared as in the reference; the
+degradation ladder that reads it waits (ROADMAP). The reference's
+``requires_x64`` has no counterpart: PyTorch keeps 64-bit dtypes without a
+mode.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ class EngineSpec:
     dtypes             — canonical I/O dtype names, documentation-grade.
     radix              — butterfly radix (stage count = log_radix N).
     fused              — True for whole-transform-on-chip kernels.
+    reliable           — True marks an always-works degradation rung (plain
+                         tensor ops): the ladder's bottom for its precision.
     single_device_only — engine cannot take part in multi-device plans.
     working_set        — optional ``(ProblemKey) -> bytes|None``: the
                          shared memory one block needs for that problem;
@@ -78,6 +82,7 @@ class EngineSpec:
     dtypes: Tuple[str, ...] = ("complex64", "float32")
     radix: int = 2
     fused: bool = False
+    reliable: bool = False
     single_device_only: bool = False
     working_set: Optional[Callable] = None
     predicate: Optional[Callable] = None

@@ -20,16 +20,17 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import xfft
-from repro_torch.xfft._transforms import _as_tensor
+from repro_torch.xfft._transforms import _as_tensor, _cdtype
 
 __all__ = ["image_to_kspace", "kspace_to_image"]
 
 
 def _complex(x) -> torch.Tensor:
-    """``x`` as a tensor; real input is upcast to complex64, complex input
-    keeps its dtype."""
+    """``x`` as a tensor; real input is upcast to the scope's complex dtype
+    (complex128 under ``xfft.config(precision="double")``), complex input
+    keeps its dtype: complex128 is never cast down here."""
     x = _as_tensor(x)
-    return x if x.is_complex() else x.to(torch.complex64)
+    return x if x.is_complex() else x.to(_cdtype())
 
 
 def image_to_kspace(

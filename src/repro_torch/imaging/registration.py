@@ -213,7 +213,9 @@ def apply_shift(x, shift) -> torch.Tensor:
     """Translate ``x`` by ``shift = (dy, dx)`` (fractional ok) via the
     Fourier shift theorem: ``y[i, j] = x[i − dy, j − dx]`` with circular
     boundary. ``shift`` broadcasts over leading axes (``(..., 2)``); real
-    frames stay on the two-for-one half-spectrum path end to end."""
+    frames stay on the two-for-one half-spectrum path end to end. The
+    transforms keep the scope's precision (complex128 passes through a
+    double scope uncast); the ramp is float32, as the reference's."""
     x = _as_tensor(x)
     if x.dim() < 2:
         raise ValueError(f"need (..., H, W) frames, got shape {tuple(x.shape)}")

@@ -374,9 +374,10 @@ def _stockham_panel(re: torch.Tensor, im: torch.Tensor, n: int):
     yi = im.reshape(tb, n, 1)
     if stages == 0:
         return yr.reshape(tb, n), yi.reshape(tb, n)
-    # One cos/sin table for the largest stage; smaller stages stride it.
+    # One cos/sin table for the largest stage; smaller stages stride it,
+    # computed in the planes' dtype (float64 for the double engine).
     l_max = n // 2
-    j = torch.arange(l_max, dtype=torch.float32, device=re.device).reshape(1, 1, l_max)
+    j = torch.arange(l_max, dtype=re.dtype, device=re.device).reshape(1, 1, l_max)
     ang = (-math.pi / l_max) * j
     rom_r, rom_i = torch.cos(ang), torch.sin(ang)
     for s in range(stages):
@@ -417,7 +418,7 @@ def _stockham_panel_r4(re: torch.Tensor, im: torch.Tensor, n: int):
         l = 2
     if l < n:
         l_max = n // 4
-        j = torch.arange(l_max, dtype=torch.float32, device=re.device).reshape(1, 1, l_max)
+        j = torch.arange(l_max, dtype=re.dtype, device=re.device).reshape(1, 1, l_max)
         ang = (-2.0 * math.pi / n) * j
         rom_r, rom_i = torch.cos(ang), torch.sin(ang)
     while l < n:
@@ -524,11 +525,13 @@ def frame_passes(h: int, w: int, *, real: bool = False, inverse: bool = False) -
     return FramePasses(rows, cols, t - 1, 2 * t - 3 + int(real and not inverse))
 
 
-# cos and sin of 2 pi p / 16 as the kernel's float32 constants.
-_C16 = [float(torch.tensor(math.cos(2 * math.pi * p / 16), dtype=torch.float32))
-        for p in range(16)]
-_S16 = [float(torch.tensor(math.sin(2 * math.pi * p / 16), dtype=torch.float32))
-        for p in range(16)]
+# cos and sin of 2 pi p / 16: the kernel's float32 constants, and float64
+# ones for planes in double precision.
+_W16 = {
+    dtype: ([float(torch.tensor(math.cos(2 * math.pi * p / 16), dtype=dtype)) for p in range(16)],
+            [float(torch.tensor(math.sin(2 * math.pi * p / 16), dtype=dtype)) for p in range(16)])
+    for dtype in (torch.float32, torch.float64)
+}
 
 
 def _mul_w16(xr, xi, p: int):
@@ -543,12 +546,13 @@ def _mul_w16(xr, xi, p: int):
         return -xr, -xi
     if p == 12:
         return -xi, xr
-    c2 = _C16[2]
+    c16, s16 = _W16[xr.dtype]
+    c2 = c16[2]
     if p == 2:
         return c2 * (xr + xi), c2 * (xi - xr)
     if p == 6:
         return c2 * (xi - xr), -c2 * (xr + xi)
-    c, s = _C16[p], _S16[p]
+    c, s = c16[p], s16[p]
     return xr * c + xi * s, xi * c - xr * s
 
 
@@ -597,7 +601,7 @@ def _regpass_panel(re: torch.Tensor, im: torch.Tensor, n: int):
     tb = re.shape[0]
     half = max(n // 2, 1)
     ang = torch.arange(half, dtype=torch.float64, device=re.device) * (-2.0 * math.pi / n)
-    rom_r, rom_i = torch.cos(ang).float(), torch.sin(ang).float()
+    rom_r, rom_i = torch.cos(ang).to(re.dtype), torch.sin(ang).to(re.dtype)
     yr, yi = re.reshape(tb, n), im.reshape(tb, n)
     l = 1
     for radix in regpass_radices(n):
@@ -769,7 +773,9 @@ def _fft_plain(x: torch.Tensor, panel, inverse: bool) -> torch.Tensor:
 
 def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
     """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor: the
-    register passes at radix 4, the Stockham stages at radix 2."""
+    register passes at radix 4, the Stockham stages at radix 2. A complex128
+    tensor runs the same panel in double precision (twiddles computed in
+    float64): the Stockham schedules of the ``reference_x64`` engine."""
     return _fft_plain(x, _one_block_panel(radix), inverse)
 
 

@@ -9,7 +9,10 @@ the engine's cost hints.
 On a ``"cuda"`` key the candidates are the CUDA kernels only, unless the
 caller scoped ``backend="torch"``: a tensor on the card never plans onto
 plain tensor code by itself. Where no kernel serves the key (a row longer
-than 2^18 values, the reference's fused envelope), planning raises. The
+than 2^18 values, the reference's fused envelope), planning raises. A
+double-precision key is served by the ``reference_x64`` engine (backend
+``"x64"``), on the card too: it is the only engine registered for double,
+as in the reference, so planning it is the plan and not a fallback. The
 kernels are modelled from what the CUDA code does. HBM: each element is
 read once and written once per round trip — one round trip for a row or
 a 2D frame that fits a block, and for a row over one block at radix 4 (the
@@ -68,16 +71,23 @@ _BACKEND_SLOWDOWN = {"cpu": 40.0}
 _REAL_KINDS = ("rfft1d", "rfft2d")
 
 
+#: Engine backends a CUDA key plans onto when no backend is scoped: the
+#: hand-written kernels, and the double-precision engine (which serves
+#: double keys only).
+_CARD_BACKENDS = ("cuda", "x64")
+
+
 def variant_candidates(key: ProblemKey) -> Tuple[str, ...]:
     """Engines the planner may consider for ``key``: the registry filtered
     by kind × precision × backend scope × device count × shared-memory fit.
-    A ``"cuda"`` key with no backend scope considers the CUDA kernels only,
-    and raises ``NotImplementedError`` when none fits."""
+    A ``"cuda"`` key with no backend scope considers the CUDA kernels only
+    (and, at double precision, ``reference_x64``), and raises
+    ``NotImplementedError`` when none fits."""
     from repro_torch.engines import iter_engines  # lazy: engines is the leaf layer
 
     on_card = key.backend == "cuda" and not key.backends
     names = tuple(s.name for s in iter_engines()
-                  if s.supports(key) and (s.backend == "cuda" or not on_card))
+                  if s.supports(key) and (s.backend in _CARD_BACKENDS or not on_card))
     if not names and on_card:
         raise NotImplementedError(
             f"no CUDA kernel serves {key.kind!r} at shape {key.shape}: its rows exceed "

@@ -4,8 +4,10 @@ Port of ``repro.plan.cache``. Files use the reference's wisdom format
 (``file_format`` 1, plan schema v5), so a file either package saves loads
 in the other. Saves are atomic: a temp file in the same directory, fsynced,
 then renamed over the target. Every load is accounted for in a
-:class:`LoadReport`. Events, fault seams and read-only degradation wait
-for the ``obs`` and ``resilience`` slices.
+:class:`LoadReport`, emitted as a ``plan.cache.load`` event and counted
+under ``plan.cache.load.*``; every save emits ``plan.cache.save``, as in
+the reference. Fault seams and read-only degradation wait for the
+``resilience`` slice.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import tempfile
 from typing import Dict, Optional, Tuple
 
+from repro_torch import obs
 from repro_torch.plan.plan import PLAN_SCHEMA_VERSION, FFTPlan, ProblemKey
 
 __all__ = ["LoadReport", "PlanCache", "default_cache", "reset_default_cache"]
@@ -98,6 +101,7 @@ class PlanCache:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+        obs.emit("plan.cache.save", path=path, entries=len(self._plans))
         return path
 
     def load(self, path: Optional[str] = None) -> LoadReport:
@@ -109,7 +113,7 @@ class PlanCache:
             with open(path) as f:
                 payload = json.load(f)
         except (OSError, json.JSONDecodeError) as e:
-            return LoadReport(file_error=str(e))
+            return _account_load(path, LoadReport(file_error=str(e)))
         prefix = f"v{PLAN_SCHEMA_VERSION}|"
         kept = stale = malformed = mismatch = 0
         for key, plan_dict in payload.get("plans", {}).items():
@@ -126,9 +130,23 @@ class PlanCache:
                 continue
             self._plans[key] = plan
             kept += 1
-        return LoadReport(
+        return _account_load(path, LoadReport(
             kept=kept, stale_schema=stale, malformed=malformed, key_mismatch=mismatch
-        )
+        ))
+
+
+def _account_load(path: str, report: LoadReport) -> LoadReport:
+    """Emit ``plan.cache.load`` and bump the ``plan.cache.load.*`` counters."""
+    obs.emit("plan.cache.load", path=path, kept=report.kept,
+             stale_schema=report.stale_schema, malformed=report.malformed,
+             key_mismatch=report.key_mismatch, file_error=report.file_error)
+    obs.count("plan.cache.load.kept", report.kept)
+    obs.count("plan.cache.load.stale_schema", report.stale_schema)
+    obs.count("plan.cache.load.malformed", report.malformed)
+    obs.count("plan.cache.load.key_mismatch", report.key_mismatch)
+    if report.file_error is not None:
+        obs.count("plan.cache.load.file_error")
+    return report
 
 
 _DEFAULT: Optional[PlanCache] = None

@@ -98,15 +98,21 @@ class ProblemKey:
         object.__setattr__(self, "backends", tuple(sorted(set(self.backends))))
 
     def cache_key(self) -> str:
-        """Stable, versioned string key for the plan cache (schema v5)."""
-        shape = "x".join(str(s) for s in self.shape)
-        axes = ",".join(str(a) for a in self.axes)
-        engines = ",".join(self.backends) if self.backends else "*"
-        return (
-            f"v{PLAN_SCHEMA_VERSION}|{self.kind}|{self.direction}|{self.backend}"
-            f"|{self.device_kind}|{shape}|{self.dtype}|d{self.n_devices}"
-            f"|ax{axes}|{self.precision}|be{engines}"
-        )
+        """Stable, versioned string key for the plan cache (schema v5).
+        Built once a key: the cache lookup and the ``plan.resolve`` event
+        of one resolution share it."""
+        key = self.__dict__.get("_cache_key")
+        if key is None:
+            shape = "x".join(str(s) for s in self.shape)
+            axes = ",".join(str(a) for a in self.axes)
+            engines = ",".join(self.backends) if self.backends else "*"
+            key = (
+                f"v{PLAN_SCHEMA_VERSION}|{self.kind}|{self.direction}|{self.backend}"
+                f"|{self.device_kind}|{shape}|{self.dtype}|d{self.n_devices}"
+                f"|ax{axes}|{self.precision}|be{engines}"
+            )
+            self.__dict__["_cache_key"] = key  # not a field: eq, hash and repr ignore it
+        return key
 
     def to_dict(self) -> dict:
         return {

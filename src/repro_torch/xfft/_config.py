@@ -1,13 +1,12 @@
 """Context-scoped configuration for the ``repro_torch.xfft`` namespace.
 
-Port of ``repro.xfft._config`` for the fields this slice runs: ``variant``
-and ``backend``. ``mode`` and ``precision`` each have one working value in
-this slice, ESTIMATE and single precision: :func:`config` accepts those and
-raises ``NotImplementedError`` for MEASURE and double precision, which are
-queued in the ROADMAP, and stores neither. :func:`config` applies its overrides
-at once and, used as a context manager, restores the previous configuration
-on exit. Scoping is :mod:`contextvars`-based, so scopes nest and never leak
-between threads.
+Port of ``repro.xfft._config`` for the fields this slice runs: ``variant``,
+``precision`` and ``backend``. ``mode`` has one working value, ESTIMATE:
+:func:`config` accepts it and raises ``NotImplementedError`` for MEASURE,
+which is queued in the ROADMAP (queue 1, item 7), and stores nothing.
+:func:`config` applies its overrides at once and, used as a context
+manager, restores the previous configuration on exit. Scoping is
+:mod:`contextvars`-based, so scopes nest and never leak between threads.
 
     import repro_torch.xfft as xfft
 
@@ -15,6 +14,8 @@ between threads.
         y = xfft.rfft2(frames)
     with xfft.config(backend="torch"):      # planner may pick schedules only
         y = xfft.fft2(frames)
+    with xfft.config(precision="double"):   # complex128 end to end
+        y = xfft.fft2(frames)               # (the reference_x64 engine)
 """
 
 from __future__ import annotations
@@ -27,13 +28,22 @@ from repro_torch.engines import get_engine, has_engine, registered_backends, reg
 
 __all__ = ["XFFTConfig", "config", "get_config"]
 
-_SINGLE = ("single", "complex64", "float32")
-_DOUBLE = ("double", "complex128", "float64")
+#: Accepted spellings per canonical precision. "single" is the paper's
+#: complex64 butterfly datapath; "double" resolves to engines registered
+#: with the "double" capability (``reference_x64``), complex128 end to end.
+_PRECISIONS = {
+    "single": "single",
+    "complex64": "single",
+    "float32": "single",
+    "double": "double",
+    "complex128": "double",
+    "float64": "double",
+}
 
-#: Raised for the settings whose engines are not ported yet.
+#: Raised for the mode whose engine is not ported yet.
 _MEASURE_NOT_PORTED = (
-    "mode='measure' is not ported yet (see ROADMAP: MEASURE, timed with CUDA "
-    "events); use mode='estimate'"
+    "mode='measure' is not ported yet (see ROADMAP, queue 1 item 7: MEASURE, "
+    "timed with CUDA events); use mode='estimate'"
 )
 
 
@@ -43,11 +53,15 @@ class XFFTConfig:
 
     variant   — force a registered engine for every call in scope; ``None``
                 lets ``repro_torch.plan`` decide.
+    precision — ``"single"`` (complex64, the paper's datapath) or
+                ``"double"`` (complex128 through the ``reference_x64``
+                engine); part of every plan key.
     backends  — engine-backend families the planner may consider (e.g.
                 ``("torch",)``); ``()`` means all.
     """
 
     variant: Optional[str] = None
+    precision: str = "single"
     backends: Tuple[str, ...] = ()
 
 
@@ -109,21 +123,30 @@ class config:
                 "or None to inherit"
             )
         check_mode(mode)
-        if precision is not None and precision not in _SINGLE:
-            if precision in _DOUBLE:
-                raise NotImplementedError(
-                    "precision='double' needs the reference_x64 engine, the "
-                    "double-precision engine, which is not ported yet (see ROADMAP)"
+        if precision is not None:
+            if precision not in _PRECISIONS:
+                raise ValueError(
+                    f"unsupported precision {precision!r}; want a spelling of one of "
+                    f"{sorted(set(_PRECISIONS.values()))} (accepted: {sorted(_PRECISIONS)})"
                 )
-            raise ValueError(f"unsupported precision {precision!r}; want one of {_SINGLE}")
+            precision = _PRECISIONS[precision]
         backends = _canon_backends(backend)
         merged = XFFTConfig(
             variant=None if clear_variant else (variant if variant is not None else prev.variant),
+            precision=precision if precision is not None else prev.precision,
             backends=backends if backends is not None else prev.backends,
         )
-        if merged.variant is not None and merged.backends:
+        # A forced variant must be capable of the scope's precision, or a
+        # double scope would compute in complex64 against its contract.
+        if merged.variant is not None:
             spec = get_engine(merged.variant)
-            if spec.backend not in merged.backends:
+            if merged.precision not in spec.precisions:
+                raise ValueError(
+                    f"engine {merged.variant!r} cannot serve precision "
+                    f"{merged.precision!r} (it supports {spec.precisions}); "
+                    "force a capable engine or change precision="
+                )
+            if merged.backends and spec.backend not in merged.backends:
                 raise ValueError(
                     f"engine {merged.variant!r} is on backend {spec.backend!r}, "
                     f"outside the scoped backend restriction {merged.backends}"

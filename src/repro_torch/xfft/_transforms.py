@@ -12,8 +12,13 @@ Port of ``repro.xfft._transforms``. Every transform:
    directly — no retry and no fallback: an engine that fails raises;
 4. applies the ``norm`` scaling on top of the engines' backward convention.
 
-Single precision only: inputs are cast to complex64 (float32 for the real
-transforms' input).
+Precision follows the scoped ``xfft.config(precision=...)``, as the
+reference's ``_precision_scope``, ``_cdtype`` and ``_rdtype`` set it:
+single casts the input to complex64 (float32 for the real transforms'
+input), double to complex128 (float64), the plan key carries the
+precision (so a double call plans ``reference_x64``), the norm scale is a
+float64 factor on double data, and ``fftfreq`` / ``rfftfreq`` default to
+the scope's real dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from repro_torch.core.fft2d import ifftshift2 as _core_ifftshift2
 from repro_torch.engines import get_engine
 from repro_torch.plan.api import resolve_call
 from repro_torch.plan.plan import NORMS
+from repro_torch.xfft._config import get_config
 
 __all__ = [
     "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
@@ -56,15 +62,25 @@ def _as_tensor(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(device)
 
 
+def _cdtype() -> torch.dtype:
+    """The scope's complex dtype (what complex entry points cast input to)."""
+    return torch.complex128 if get_config().precision == "double" else torch.complex64
+
+
+def _rdtype() -> torch.dtype:
+    """The scope's real dtype (what real-input entry points cast to)."""
+    return torch.float64 if get_config().precision == "double" else torch.float32
+
+
 def _complex_input(x) -> torch.Tensor:
-    return _as_tensor(x).to(torch.complex64)
+    return _as_tensor(x).to(_cdtype())
 
 
 def _real_input(x, name: str) -> torch.Tensor:
     x = _as_tensor(x)
     if x.is_complex():
         raise TypeError(f"{name} expects real input; use fft/fft2 for complex")
-    return x.to(torch.float32)
+    return x.to(_rdtype())
 
 
 def _check_norm(norm: Optional[str]) -> str:
@@ -95,7 +111,9 @@ def _resize_axis(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
 
 
 def _scale(y: torch.Tensor, norm: str, n: int, forward: bool) -> torch.Tensor:
-    """Norm correction on top of the engines' backward convention."""
+    """Norm correction on top of the engines' backward convention. The
+    factor is a Python float: PyTorch applies it at the data's width, so a
+    complex128 result is scaled in float64 and a complex64 one in float32."""
     if norm == "backward":
         return y
     if norm == "ortho":
@@ -335,12 +353,14 @@ def ifftshift2(x):
 # ---------------------------- sample frequencies ----------------------------
 
 
-def fftfreq(n, d: float = 1.0, *, dtype=torch.float32, device=None):
+def fftfreq(n, d: float = 1.0, *, dtype=None, device=None):
     """Sample frequencies of an ``n``-point FFT (scipy.fft parity), on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card), in ``dtype`` (default: the scope's real
+    dtype, float64 under ``precision="double"``)."""
     n = int(n)
     if n <= 0:
         raise ValueError(f"fftfreq needs a positive sample count, got {n}")
+    dtype = _rdtype() if dtype is None else dtype
     device = torch.device(device) if device is not None else _default_device()
     k = torch.cat([
         torch.arange(0, (n - 1) // 2 + 1, dtype=dtype, device=device),
@@ -349,10 +369,12 @@ def fftfreq(n, d: float = 1.0, *, dtype=torch.float32, device=None):
     return k / (n * d)
 
 
-def rfftfreq(n, d: float = 1.0, *, dtype=torch.float32, device=None):
-    """Sample frequencies of the :func:`rfft` half spectrum (scipy parity)."""
+def rfftfreq(n, d: float = 1.0, *, dtype=None, device=None):
+    """Sample frequencies of the :func:`rfft` half spectrum (scipy parity),
+    in ``dtype`` (default: the scope's real dtype)."""
     n = int(n)
     if n <= 0:
         raise ValueError(f"rfftfreq needs a positive sample count, got {n}")
+    dtype = _rdtype() if dtype is None else dtype
     device = torch.device(device) if device is not None else _default_device()
     return torch.arange(0, n // 2 + 1, dtype=dtype, device=device) / (n * d)

@@ -561,3 +561,71 @@ def test_cuda_spectral_matches_plain(cuda):
     assert _rel(mix_r.cpu(), spectral.fourier_mixing(x)) <= TOL
     assert _rel(conv.cpu(), spectral.fftconv(x, x[0])) <= TOL
     assert float((mel.cpu() - spectral.log_mel(a)).abs().max()) <= 1e-4
+
+
+def _mri_fixture(coils=8, n=256):
+    from repro_torch import mri
+
+    return torch.from_numpy(mri.shepp_logan(n)), torch.from_numpy(mri.birdcage_maps(coils, n))
+
+
+@pytest.mark.cuda
+def test_cuda_mri_sense_and_cg_match_plain(cuda):
+    """256x256 coil stacks are over one block: every centered transform is
+    the composed fft_fused rows and columns, two launches, and a CG
+    iteration is two transforms; the CG result stays within 1e-4 of the
+    CPU's plain schedules after 4 iterations."""
+    from repro_torch import mri
+
+    ph, sm = _mri_fixture()
+    mask = mri.uniform_mask((256, 256), 4, calib=24)
+    before = dict(k.LAUNCHES)
+    kd = mri.sense_forward(ph.numpy(), sm.numpy(), mask)    # numpy goes to the card
+    assert kd.device.type == "cuda"
+    x = mri.recon_cg_sense(kd, sm.to(cuda), mask, iters=4)
+    n = _launched(before, "fft_fused", "fft2_fused")
+    assert n == {"fft_fused": 2 * (1 + 1 + 2 * 4), "fft2_fused": 0}
+    kc = mri.sense_forward(ph, sm, mask)
+    assert _rel(kd.cpu(), kc) <= TOL
+    assert _rel(x.cpu(), mri.recon_cg_sense(kc, sm, mask, iters=4)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_mri_double_plans_reference_x64(cuda):
+    from repro_torch import mri
+    from repro_torch.plan import resolve_call
+
+    _, sm = _mri_fixture()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    u = torch.randn(256, 256, dtype=torch.complex128, generator=g, device=cuda)
+    v = torch.randn(8, 256, 256, dtype=torch.complex128, generator=g, device=cuda)
+    smaps = sm.to(cuda, torch.complex128)
+    mask = mri.uniform_mask((256, 256), 4, calib=24)
+    before = dict(k.LAUNCHES)
+    with xfft.config(precision="double"):
+        assert resolve_call("fft2d", (8, 256, 256), cuda).variant == "reference_x64"
+        au = mri.sense_forward(u, smaps, mask)
+        ahv = mri.sense_adjoint(v, smaps, mask)
+    assert k.LAUNCHES == before                              # no single-precision kernel
+    assert au.dtype == ahv.dtype == torch.complex128
+    lhs, rhs = torch.vdot(au.flatten(), v.flatten()), torch.vdot(u.flatten(), ahv.flatten())
+    assert float((lhs - rhs).abs()) <= 1e-12 * float(lhs.abs())
+
+
+@pytest.mark.cuda
+def test_cuda_moco_matches_plain_and_finds_the_shift(cuda):
+    from repro_torch import mri
+
+    ph, sm = _mri_fixture()
+    shots = mri.shot_masks(mri.uniform_mask((256, 256), 4, calib=24), 2)
+    shifts = torch.tensor([[0.0, 0.0], [3.0, -2.0]])
+    before = dict(k.LAUNCHES)
+    km = mri.moco_forward(ph.to(cuda), sm.to(cuda), shots, shifts.to(cuda))
+    est = mri.estimate_shot_shifts(km, sm.to(cuda), shots)
+    n = _launched(before, "fft_fused", "rfft_fused", "irfft_fused", "fft2_fused")
+    assert n["rfft_fused"] >= 1 and n["irfft_fused"] >= 1 and n["fft2_fused"] == 0
+    kc = mri.moco_forward(ph, sm, shots, shifts)
+    assert _rel(km.cpu(), kc) <= TOL
+    assert float((est.cpu() - shifts).abs().max()) <= 0.5
+    x = mri.recon_cg_moco(km, sm.to(cuda), shots, shifts.to(cuda), iters=3)
+    assert _rel(x.cpu(), mri.recon_cg_moco(kc, sm, shots, shifts, iters=3)) <= 1e-4
