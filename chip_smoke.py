@@ -127,7 +127,38 @@ Phases, each printing one JSON line:
              Last, ``obs cost``: the k-space frames' fft2 and a cached
              resolve_call with the always-on telemetry installed and
              removed, in turns;
-6. path    — the other entry points of ``repro_torch.kernels``, with the
+   After each of the kernel, request, imaging and mri phases (one
+   ``obs.capture()`` around the four) a ``"check": "no degrade"`` line:
+   no ``resilience.failover``, ``resilience.fault`` or ``plan.degrade``
+   event, no MEASURE candidate skipped, and ``kernel.failover`` (the
+   composed 2D route) only on frames over the shared-memory census;
+6. resilience — faults injected through ``xfft.config(faults=...)``, one
+             line a check, the breaker on an injected clock: an
+             ``engine.apply`` error on ``fused_r4`` for fft2 and rfft2 on
+             (512, 128, 128) and fft on (64, 2^18) fails over to ``fused``
+             (radix-2 ``fft2_fused`` / ``rfft2_fused``, the two-pass
+             kernels), within 2e-5 of ``torch.fft``, opens the breaker, the
+             next call resolves ``quarantined`` while the cache keeps
+             ``fused_r4``, and after the cooldown a half-open probe runs
+             ``fused_r4`` (radix 4, the cluster kernel) and closes it; an
+             error on every engine raises the last ``InjectedFault`` with
+             no plain schedule run; a ``nan`` fault under
+             ``check_health="nan"`` fails over to a finite output, with the
+             guard's host µs a call; a ``vmem`` fault at ``kernel.fused``
+             runs fft2, rfft2 and irfft2 of (512, 128, 128) on the
+             composed route (two 1D kernel launches), within 2e-5, timed
+             against one block; MEASURE (``plan_fft(mode="measure")``) on
+             the request keys in both directions, each candidate's median
+             µs (CUDA events) beside ESTIMATE's pick, the wisdom file
+             loaded by a second process that must hit every key and time
+             nothing, a double key timing ``reference_x64`` alone, and a
+             ``torch.cuda.graph`` capture that degrades
+             (``trace_not_clean``); last the ladder's host µs a call: the
+             front door, ``run_plan`` with and without the telemetry sinks,
+             and the planned engine's op alone, on a (256, 256) fft2 and
+             the (4, 16, 256, 256) k-space frames. Its launches do not
+             count toward the ``kernels`` line;
+7. path    — the other entry points of ``repro_torch.kernels``, with the
              counts set to 0 just before and read just after:
              ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
              exactly 11 times and agree with ``torch.fft`` to 2e-5;
@@ -353,6 +384,17 @@ TOL_CG_F64 = 1e-3     # float32 CG against float64 over 10 iterations
 TOL_X64 = 1e-10       # the reference's double gate (benchmarks/accuracy.py)
 TOL_ADJOINT_X64 = 1e-12
 OBS_GATE_PCT = 3.0     # the reference's telemetry overhead gate (benchmarks/obs_bench.py)
+# The resilience phase: MEASURE on the request phase's keys, both
+# directions (kind, shape, dtype), and a double key on reference_x64.
+MEASURE_KEYS = (("fft2d", REG, "complex64"), ("fft2d", CT, "complex64"),
+                ("fft2d", (16, 1024, 1024), "complex64"), ("rfft2d", REG, "float32"),
+                ("rfft2d", CT, "float32"), ("rfft2d", (16, 1024, 1024), "float32"),
+                ("fft1d", STAGED, "complex64"), ("fft1d", TWO_PASS_COMPLEX, "complex64"),
+                ("rfft1d", TWO_PASS_REAL, "float32"))
+MEASURE_X64_KEY = ("fft2d", (16, 256, 256), "complex64")
+# Events that mark a degrade: none may fire on the main path.
+DEGRADE_EVENTS = ("resilience.failover", "resilience.fault", "plan.degrade")
+COOLDOWN_S = 30.0      # the breaker's cooldown, driven by an injected clock
 # The fused wrappers the kernel entries of repro_torch.kernels.ops call,
 # and the plain schedules of repro_torch.core.fft1d under every core entry.
 FUSED_WRAPPERS = ("fft_fused", "rfft_fused", "irfft_fused", "fft2_fused", "rfft2_fused",
@@ -1876,6 +1918,7 @@ def _obs_cost(torch, xfft, resolve_call):
             telemetry.set_calibration_ledger(saved[1])
 
     states = ("lit", "dark", "bare")
+    outer = obs.push_observe(False)  # out of the main path's capture: bare is bare
     cases = {"fft2 (256, 256)": lambda: fft2_us(frame),
              f"fft2 {tuple(MRI)}": lambda: fft2_us(frames),
              "resolve_call": resolve_us}
@@ -1892,6 +1935,7 @@ def _obs_cost(torch, xfft, resolve_call):
         for base in ("dark", "bare"):
             line[name][f"overhead_pct_vs_{base}"] = (us["lit"] - us[base]) / us[base] * 100.0
         line[name]["within_gate"] = line[name]["overhead_pct_vs_bare"] <= OBS_GATE_PCT
+    obs.pop_observe(outer)
     emit(line)
     del frame, frames
 
@@ -1964,6 +2008,391 @@ def _mri_double(torch, k, xfft, resolve_call, tap):
     torch.cuda.empty_cache()
 
 
+def no_degrade(trace, phase: str, ops) -> None:
+    """The standing check of the main path: no ``resilience.failover``,
+    ``resilience.fault`` or ``plan.degrade`` event, no MEASURE candidate
+    skipped, and the composed 2D route (``kernel.failover``) only on frames
+    over the census. Prints one line for ``phase`` and clears ``trace``."""
+    bad = [e for e in trace if e.name in DEGRADE_EVENTS]
+    skipped = [e for e in trace.select("plan.measure") if e.get("skipped")]
+    composed = {}
+    for e in trace.select("kernel.failover"):
+        h, w = e["shape"]
+        fits = ops.fft2_fits_budget(h, w, real=e["kind"] != "fft2d")
+        name = f"{e['kind']} {h}x{w}" + (" (fits the census)" if fits else "")
+        composed[name] = composed.get(name, 0) + 1
+    line = {"phase": "resilience", "check": "no degrade", "of": phase, "events": len(trace),
+            "engine_apply": len(trace.select("engine.apply")),
+            "degrade_events": len(bad), "skipped_candidates": len(skipped),
+            "kernel_failover": composed}
+    emit(line)
+    if bad or skipped or any(n.endswith("(fits the census)") for n in composed):
+        raise AssertionError(f"{phase}: a degrade on the main path: "
+                             f"{[(e.name, e.fields) for e in (bad + skipped)[:5]]} {composed}")
+    trace.events.clear()
+
+
+class Clock:
+    """The breaker's injected clock: ``clock.now += 31.0`` ends a cooldown."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        return self.now
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host wall time a call of ``fn``, each call waited for."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def rotated_us(cases, reps: int = 21, iters: int = 200):
+    """Median :func:`host_us` of each of ``cases`` ({name: fn}) over
+    ``reps`` rounds that rotate their order, as ``_obs_cost`` does."""
+    names = list(cases)
+    for fn in cases.values():
+        fn()
+    samples = {n: [] for n in names}
+    for rep in range(reps):
+        for n in names[rep % len(names):] + names[:rep % len(names)]:
+            samples[n].append(host_us(cases[n], iters))
+    return {n: statistics.median(v) for n, v in samples.items()}
+
+
+def resilience_phase(torch, k, xfft, card: str) -> None:
+    """The degradation ladder, the census seam and MEASURE on the card, with
+    injected faults; one line a check. Its launches are its own: they do
+    not count toward the ``kernels`` line."""
+    from repro_torch import resilience
+
+    clock = Clock()
+    resilience.reset()
+    resilience.configure(cooldown_s=COOLDOWN_S, clock=clock)
+    tap = KernelTap()
+    try:
+        _failover_checks(torch, k, xfft, tap, clock, card)
+        _census_checks(torch, k, xfft, card)
+        _measure_checks(torch, xfft, card)
+        _ladder_cost(torch, xfft, card)
+    finally:
+        tap.restore()
+        resilience.reset()
+        resilience.configure(cooldown_s=COOLDOWN_S, clock=time.monotonic)
+    torch.cuda.empty_cache()
+
+
+def _tapped(torch, k, tap, fn):
+    """Run ``fn`` once; returns its output, the launches it made and the
+    radices of the fused-wrapper calls it made."""
+    before, tap.recorded, tap.recording = dict(k.LAUNCHES), [], True
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        tap.recording = False
+    launches = {n: k.LAUNCHES[n] - before[n] for n in k.LAUNCHES if k.LAUNCHES[n] != before[n]}
+    radices = sorted({kw.get("radix", 2) for _, _, _, kw in tap.recorded})
+    tap.recorded = []
+    return out, launches, radices
+
+
+def _failover_checks(torch, k, xfft, tap, clock, card: str) -> None:
+    from repro_torch import obs, resilience
+    from repro_torch.plan import default_cache, resolve_call
+    from repro_torch.resilience import FaultPlan, FaultSpec, InjectedFault
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(frame_source(0, *REG)).to(dev)
+    fid = fid_source(torch, *TWO_PASS_COMPLEX, seed=4)
+    cases = (
+        ("fft2", "fft2d", frames.to(torch.complex64), "complex64", xfft.fft2, torch.fft.fft2,
+         {"fft2_fused": 1}, {"fft2_fused": 1}),
+        ("rfft2", "rfft2d", frames, "float32", xfft.rfft2, torch.fft.rfft2,
+         {"rfft2_fused": 1}, {"rfft2_fused": 1}),
+        ("fft", "fft1d", fid, "complex64", xfft.fft, torch.fft.fft,
+         {"fft_two_pass": 2}, {"fft_cluster": 1}),
+    )
+    for name, kind, x, dtype, fn, library, on_fused, on_r4 in cases:
+        resilience.reset()
+        clock.now = 0.0
+        want = library(x)
+        planned = resolve_call(kind, tuple(x.shape), dev, dtype=dtype)
+        fault = FaultPlan(FaultSpec("engine.apply", match={"engine": "fused_r4", "kind": kind},
+                                    times=1))
+        steps = []
+        with obs.capture() as trace, xfft.config(faults=fault):
+            for step, expect, radix in (("failover", on_fused, [2]),
+                                        ("quarantined", on_fused, [2]),
+                                        ("half-open probe", on_r4, [4])):
+                if step == "half-open probe":
+                    clock.now += COOLDOWN_S + 1.0
+                out, launches, radices = _tapped(torch, k, tap, lambda: fn(x))
+                steps.append({"step": step, "launches": launches, "radix": radices,
+                              "rel_err": rel_err(out, want)})
+                if launches != expect or radices != radix or not steps[-1]["rel_err"] <= \
+                        TOL_REQUEST:
+                    raise AssertionError(f"failover {name} {step}: {steps[-1]}, want "
+                                         f"{expect} at radix {radix}")
+                del out
+        (failover,) = trace.select("resilience.failover")
+        line = {"phase": "resilience", "check": "failover", "call": f"{name} {tuple(x.shape)}",
+                "card": card, "planned": planned.variant, "steps": steps,
+                "failover": {f: failover[f] for f in ("engine", "next", "reason", "quarantined")},
+                "outcomes": [e["outcome"] for e in trace.select("plan.resolve")],
+                "breaker": [e["state"] for e in trace.select("resilience.breaker")],
+                "cached": default_cache().get(planned.key).variant}
+        emit(line)
+        if (planned.variant, line["failover"]["next"], line["outcomes"], line["breaker"],
+                line["cached"]) != ("fused_r4", "fused", ["hit", "quarantined", "hit"],
+                                    ["open", "half_open", "closed"], "fused_r4"):
+            raise AssertionError(f"failover {name}: {line}")
+    del fid
+
+    # Every rung fails: the last injected error is raised, and no plain
+    # schedule runs on the card.
+    resilience.reset()
+    x = frames.to(torch.complex64)
+    plain = tap.plain_calls
+    with obs.capture() as trace, xfft.config(faults=FaultPlan(FaultSpec("engine.apply"))):
+        try:
+            _tapped(torch, k, tap, lambda: xfft.fft2(x))
+            raised = None
+        except InjectedFault as e:
+            raised = repr(e)
+    line = {"phase": "resilience", "check": "all rungs fail", "call": f"fft2 {REG}",
+            "raised": raised,
+            "rungs": [(e["engine"], e["next"]) for e in trace.select("resilience.failover")],
+            "engine_apply": len(trace.select("engine.apply")),
+            "plain_schedule_calls": tap.plain_calls - plain}
+    emit(line)
+    if raised is None or line["rungs"] != [("fused_r4", "fused"), ("fused", None)] \
+            or line["plain_schedule_calls"] or line["engine_apply"]:
+        raise AssertionError(f"all rungs fail: {line}")
+
+    # The health guard: a poisoned fused_r4 output fails over to fused;
+    # then its cost a call, host time with the guard and without.
+    resilience.reset()
+    want = torch.fft.fft2(x)
+    nan = FaultPlan(FaultSpec("engine.apply", mode="nan", match={"engine": "fused_r4"},
+                              times=1))
+    with obs.capture() as trace, xfft.config(faults=nan, check_health="nan"):
+        out, launches, radices = _tapped(torch, k, tap, lambda: xfft.fft2(x))
+    (failover,) = trace.select("resilience.failover")
+    resilience.reset()
+
+    def guarded():
+        with xfft.config(check_health="nan"):
+            return xfft.fft2(x)
+
+    def scoped():
+        with xfft.config(check_health="off"):
+            return xfft.fft2(x)
+
+    us = rotated_us({"guard on": guarded, "guard off": scoped}, reps=11)
+    line = {"phase": "resilience", "check": "health guard", "call": f"fft2 {REG}", "card": card,
+            "failover": {f: failover[f] for f in ("engine", "next", "reason")},
+            "finite": bool(torch.isfinite(out).all()), "rel_err": rel_err(out, want),
+            "radix": radices, "host_us_guard_on": us["guard on"],
+            "host_us_guard_off": us["guard off"],
+            "guard_us_per_call": us["guard on"] - us["guard off"],
+            # the guard's check alone, back to back (CUDA events), and the
+            # same check over the real view of the output
+            "isfinite_all_ms": time_ms(lambda: torch.isfinite(out).all()),
+            "isfinite_all_real_view_ms": time_ms(
+                lambda: torch.isfinite(torch.view_as_real(out)).all())}
+    emit(line)
+    if not line["finite"] or line["failover"] != {"engine": "fused_r4", "next": "fused",
+                                                  "reason": "nonfinite"} \
+            or not line["rel_err"] <= TOL_REQUEST:
+        raise AssertionError(f"health guard: {line}")
+    resilience.reset()
+
+
+def _census_checks(torch, k, xfft, card: str) -> None:
+    """An injected ``vmem`` fault at ``kernel.fused`` on frames that fit one
+    block: the composed route (1D kernel passes and two corner turns),
+    timed at its kernel entry against the one-block route."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultPlan, FaultSpec
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(frame_source(5, *REG)).to(dev)
+    half = torch.fft.rfft2(frames)
+    vmem = FaultPlan(FaultSpec("kernel.fused", mode="vmem"))
+    for name, x, frame_kernel, composed in (
+            ("fft2", frames.to(torch.complex64), "fft2_fused", {"fft_fused": 2}),
+            ("rfft2", frames, "rfft2_fused", {"rfft_fused": 1, "fft_fused": 1}),
+            ("irfft2", half, "irfft2_fused", {"fft_fused": 1, "irfft_fused": 1})):
+        fn = getattr(xfft, name)
+        want = getattr(torch.fft, name)(x)
+        before = dict(k.LAUNCHES)
+        with obs.capture() as trace, xfft.config(faults=vmem):
+            got = fn(x)
+            torch.cuda.synchronize()
+        launches = {n: k.LAUNCHES[n] - before[n] for n in k.LAUNCHES
+                    if k.LAUNCHES[n] != before[n]}
+        (event,) = trace.select("kernel.failover")
+
+        entry = getattr(ops, f"{name}_kernel")
+
+        def composed_call():
+            with xfft.config(faults=vmem):
+                return entry(x, radix=4)
+
+        line = {"phase": "resilience", "check": "census seam", "call": f"{name} {REG}",
+                "card": card, "launches": launches, "rel_err": rel_err(got, want),
+                "kernel_failover": {f: event[f] for f in ("kind", "shape", "frames",
+                                                          "working_set", "budget")},
+                "composed_ms": time_ms(composed_call),
+                "one_block_ms": time_ms(lambda: entry(x, radix=4)),
+                "front_door_ms": time_ms(lambda: fn(x))}
+        line["composed_over_one_block"] = line["composed_ms"] / line["one_block_ms"]
+        emit(line)
+        if launches != composed or not line["rel_err"] <= TOL_REQUEST:
+            raise AssertionError(f"census seam {name}: {line}, want {composed}")
+        del got, want
+
+
+# The second process of the wisdom check: loads the file into a fresh
+# PlanCache and plans every key again under mode="measure".
+WISDOM_PROCESS = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch import obs
+from repro_torch.plan import PlanCache, plan_fft
+cache = PlanCache(path=sys.argv[2])
+with obs.capture() as trace:
+    for kind, shape, dtype, direction, precision in json.loads(sys.argv[3]):
+        plan_fft(kind, tuple(shape), torch.device("cuda"), dtype=dtype, mode="measure",
+                 cache=cache, direction=direction, precision=precision)
+print(json.dumps({"outcomes": [e["outcome"] for e in trace.select("plan.resolve")],
+                  "measured": len(trace.select("plan.measure")), "entries": len(cache)}))
+"""
+
+
+def _measure_checks(torch, xfft, card: str) -> None:
+    """MEASURE on the request keys, both directions: each candidate timed
+    with CUDA events, beside ESTIMATE's pick; the wisdom file loads in a
+    second process that times nothing; the double key times
+    ``reference_x64`` alone; a graph capture degrades."""
+    import os
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.plan import PlanCache, plan_fft, resolve_call
+    from repro_torch.plan.autotune import estimate_plan, estimate_variant_time
+
+    dev = torch.device("cuda")
+    keys = [(kind, shape, dtype, direction, "single") for kind, shape, dtype in MEASURE_KEYS
+            for direction in ("fwd", "inv")]
+    keys.append((*MEASURE_X64_KEY, "fwd", "double"))
+    agree = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xfft_plans.json")
+        cache = PlanCache(path=path)
+        for kind, shape, dtype, direction, precision in keys:
+            timings = {}
+            with obs.capture() as trace:
+                plan = plan_fft(kind, shape, dev, dtype=dtype, mode="measure", cache=cache,
+                                timings_out=timings, direction=direction,
+                                precision=precision)
+            (span,) = trace.select("plan.measure")
+            est = estimate_plan(plan.key)
+            line = {"phase": "resilience", "check": "measure", "kind": kind,
+                    "shape": list(shape), "direction": direction, "precision": precision,
+                    "card": card, "timings_us": timings, "measured": plan.variant,
+                    "estimated": est.variant, "agree": plan.variant == est.variant,
+                    "estimate_us": {v: estimate_variant_time(plan.key, v) * 1e6
+                                    for v in timings}}
+            if len(timings) > 1:
+                ranked = sorted(timings.values())
+                line["margin"] = (ranked[1] - ranked[0]) / ranked[0]
+            emit(line)
+            agree += line["agree"]
+            want = {"reference_x64"} if precision == "double" else {"fused", "fused_r4"}
+            if set(timings) != want or plan.mode != "measure" or span.get("skipped"):
+                raise AssertionError(f"measure {kind} {shape} {direction}: {line}, "
+                                     f"{span.fields}")
+        out = subprocess.run([sys.executable, "-c", WISDOM_PROCESS, str(ROOT / "src"), path,
+                              json.dumps(keys)], capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"wisdom process failed: {out.stderr[-2000:]}")
+        second = json.loads(out.stdout.strip().splitlines()[-1])
+    line = {"phase": "resilience", "check": "wisdom", "keys": len(keys),
+            "measure_agrees_with_estimate": agree, "second_process": second}
+    emit(line)
+    if second != {"outcomes": ["hit"] * len(keys), "measured": 0, "entries": len(keys)}:
+        raise AssertionError(f"wisdom: {line}")
+
+    # MEASURE inside a CUDA graph capture degrades and times nothing.
+    x = torch.ones(16, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with obs.capture() as trace:
+        with torch.cuda.graph(graph):
+            y = x * 2.0
+            plan = resolve_call("fft2d", (64, 128, 128), dev, cache=PlanCache(),
+                                mode="measure")
+    graph.replay()
+    torch.cuda.synchronize()
+    line = {"phase": "resilience", "check": "graph capture", "plan_mode": plan.mode,
+            "degrade_reason": plan.degrade_reason,
+            "measured": len(trace.select("plan.measure")), "replayed": float(y.sum())}
+    emit(line)
+    if (plan.degrade_reason, line["measured"], line["replayed"]) != ("trace_not_clean", 0, 32.0):
+        raise AssertionError(f"graph capture: {line}")
+
+
+def _ladder_cost(torch, xfft, card: str) -> None:
+    """Host µs a call of the front door, of ``run_plan`` around the planned
+    engine's op (with the always-on telemetry sinks, and without them:
+    what the ``engine.apply`` span's sinks cost), and of the op alone;
+    each call waited for, 21 reps in rotating order."""
+    from repro_torch.engines import get_engine
+    from repro_torch.obs import telemetry
+    from repro_torch.plan import resolve_call
+    from repro_torch.resilience import run_plan
+
+    def without_sinks(fn):
+        def call():
+            saved = telemetry.flight_recorder(), telemetry.calibration_ledger()
+            telemetry.set_flight_recorder(None)
+            telemetry.set_calibration_ledger(None)
+            try:
+                return fn()
+            finally:
+                telemetry.set_flight_recorder(saved[0])
+                telemetry.set_calibration_ledger(saved[1])
+        return call
+
+    dev = torch.device("cuda")
+    for shape in ((256, 256), RECON):
+        x = torch.randn(*shape, device=dev, dtype=torch.complex64)
+        plan = resolve_call("fft2d", shape, dev)
+        op = get_engine(plan.variant).op("fft2d", "fwd")
+        us = rotated_us({"front door": lambda: xfft.fft2(x),
+                         "run_plan": lambda: run_plan(plan, lambda v: op(x)),
+                         "run_plan no sinks": without_sinks(
+                             lambda: run_plan(plan, lambda v: op(x))),
+                         "engine op": lambda: op(x),
+                         "engine op no sinks": without_sinks(lambda: op(x))})
+        emit({"phase": "resilience", "check": "ladder cost", "call": f"fft2 {shape}",
+              "card": card, "engine": plan.variant,
+              **{f"{n.replace(' ', '_')}_us": v for n, v in us.items()},
+              "ladder_us": us["run_plan"] - us["engine op"],
+              "ladder_no_sinks_us": us["run_plan no sinks"] - us["engine op no sinks"],
+              "front_door_over_op_us": us["front door"] - us["engine op"]})
+        del x
+
+
 def slstm_time(root: str) -> int:
     """``--slstm-time ROOT``: slstm_scan at xlstm-350m from ROOT's ``src``,
     its time and the sha256 of its outputs, as one JSON line."""
@@ -2021,8 +2450,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA card",
               file=sys.stderr)
         return 2
-    from repro_torch import xfft
-    from repro_torch.kernels import _build
+    from repro_torch import obs, xfft
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fft_radix2 as k
     from repro_torch.plan.api import resolve_call
 
@@ -2036,16 +2465,24 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
-    rows = kernel_phase(torch, k, card)
-    rows["fft_two_pass"] = two_pass_phase(torch, k, card)
-    rows["fft_cluster"] = cluster_phase(torch, k, card)
-    model_rows, slstm_hs = model_kernel_phase(torch, card)
-    rows.update(model_rows)
-    launches = request_phase(torch, k, xfft, resolve_call)
-    for name, n in imaging_phase(torch, k, xfft, resolve_call, rows).items():
-        launches[name] += n
-    for name, n in mri_phase(torch, k, xfft, resolve_call, rows).items():
-        launches[name] += n
+    # One capture over the kernel, request, imaging and mri phases: each is
+    # held to no degrade on the main path (no_degrade clears it after each).
+    with obs.capture() as trace:
+        rows = kernel_phase(torch, k, card)
+        rows["fft_two_pass"] = two_pass_phase(torch, k, card)
+        rows["fft_cluster"] = cluster_phase(torch, k, card)
+        model_rows, slstm_hs = model_kernel_phase(torch, card)
+        rows.update(model_rows)
+        no_degrade(trace, "kernel", ops)
+        launches = request_phase(torch, k, xfft, resolve_call)
+        no_degrade(trace, "request", ops)
+        for name, n in imaging_phase(torch, k, xfft, resolve_call, rows).items():
+            launches[name] += n
+        no_degrade(trace, "imaging", ops)
+        for name, n in mri_phase(torch, k, xfft, resolve_call, rows).items():
+            launches[name] += n
+        no_degrade(trace, "mri", ops)
+    resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})
     for name, row in rows.items():

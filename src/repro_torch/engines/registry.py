@@ -4,8 +4,9 @@ Port of ``repro.engines.registry``. An :class:`EngineSpec` declares what an
 engine can do — problem kinds, precisions, backend family, radix, fusion, a
 shared-memory working-set callback and ESTIMATE cost hints — and how to run
 it. ``repro_torch.plan`` enumerates the registry by capability instead of a
-hardcoded variant list. ``reliable`` is declared as in the reference; the
-degradation ladder that reads it waits (ROADMAP). The reference's
+hardcoded variant list. ``reliable`` is declared as in the reference and
+read by the planner's quarantine filter, the degradation ladder's bottom
+(``repro_torch.plan.autotune.variant_candidates``). The reference's
 ``requires_x64`` has no counterpart: PyTorch keeps 64-bit dtypes without a
 mode.
 """
@@ -61,7 +62,9 @@ class EngineSpec:
     radix              — butterfly radix (stage count = log_radix N).
     fused              — True for whole-transform-on-chip kernels.
     reliable           — True marks an always-works degradation rung (plain
-                         tensor ops): the ladder's bottom for its precision.
+                         tensor ops): the ladder's bottom for its precision
+                         (not on a CUDA key without a backend scope, whose
+                         rungs are the kernels).
     single_device_only — engine cannot take part in multi-device plans.
     working_set        — optional ``(ProblemKey) -> bytes|None``: the
                          shared memory one block needs for that problem;

@@ -17,8 +17,14 @@ kernels' row or frame batch.
                      launches of ``butterfly_stage``, log2 N HBM round trips
 
 The whole-frame-or-composition choice of the 2D entries is made on the
-frame shape alone (:func:`fft2_fits_budget`), as in the reference. Every
-pass runs a kernel; none falls back to plain code. A row of 2^14 < N <=
+frame shape (:func:`fft2_fits_budget`) and on the ``kernel.fused`` fault
+seam (``repro_torch.resilience.faults.vmem_exhausted``), as in the
+reference: an injected ``vmem`` fault stands for a frame over the census.
+The composed route emits a ``kernel.failover`` event with the reference's
+fields, ``budget`` being the block's shared-memory budget. It is a
+planned route, visible as an event, not a fallback under a kernel: both
+routes are hand-written kernels, and every pass runs a kernel; none falls
+back to plain code. A row of 2^14 < N <=
 2^18 values, on a 1D entry or on a pass of the composition, takes the
 1D wrappers' cluster kernel (radix 4) or two-pass kernels (radix 2);
 the planner's working-set gate keeps longer rows away from these entry
@@ -31,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.butterfly import butterfly_stage
 from repro_torch.kernels.fft_radix2 import (
     SMEM_BUDGET_BYTES,
@@ -45,6 +52,7 @@ from repro_torch.kernels.fft_radix2 import (
     rfft2_smem_bytes,
     rfft_fused,
 )
+from repro_torch.resilience import faults as _faults
 
 __all__ = [
     "fft_kernel",
@@ -77,6 +85,19 @@ def fft2_fits_budget(h: int, w: int, *, real: bool = False) -> bool:
     """True when an (H, W) frame runs as one whole-frame block — the
     predicate the 2D entries route on (``real`` for rfft2/irfft2)."""
     return rfft2_fits_smem(h, w) if real else fft2_fits_smem(h, w)
+
+
+def _whole_frame(kind: str, h: int, w: int, frames: int, *, real: bool) -> bool:
+    """True when an (H, W) frame runs as one whole-frame block: it fits the
+    census and no ``vmem`` fault fires at ``kernel.fused``. Else emits the
+    ``kernel.failover`` event of the composed route and returns False."""
+    if fft2_fits_budget(h, w, real=real) and not _faults.vmem_exhausted(
+        "kernel.fused", kind=kind, h=h, w=w
+    ):
+        return True
+    obs.emit("kernel.failover", kind=kind, shape=(h, w), frames=frames,
+             working_set=fft2_working_set(h, w, real=real), budget=smem_budget_bytes())
+    return False
 
 
 def _launchable(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -120,7 +141,7 @@ def fft2_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> to
     h, w = x.shape[-2], x.shape[-1]
     z = _launchable(x, torch.complex64).reshape(-1, h, w)
     f = z.shape[0]
-    if fft2_fits_budget(h, w):
+    if _whole_frame("fft2d", h, w, f, real=False):
         y = fft2_fused(z, radix=radix, inverse=inverse)
     else:
         y = fft_fused(z.reshape(f * h, w), radix=radix, inverse=inverse)
@@ -151,7 +172,7 @@ def rfft2_kernel(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     half = w // 2 + 1
     z = _launchable(x, torch.float32).reshape(-1, h, w)
     f = z.shape[0]
-    if fft2_fits_budget(h, w, real=True):
+    if _whole_frame("rfft2d", h, w, f, real=True):
         y = rfft2_fused(z, radix=radix)
     else:
         y = rfft_fused(z.reshape(f * h, w), radix=radix)
@@ -168,7 +189,7 @@ def irfft2_kernel(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     w = 2 * (half - 1)
     z = _launchable(y, torch.complex64).reshape(-1, h, half)
     f = z.shape[0]
-    if fft2_fits_budget(h, w, real=True):
+    if _whole_frame("irfft2d", h, w, f, real=True):
         out = irfft2_fused(z, radix=radix)
     else:
         z = fft_fused(_turn(z, f, h, half), radix=radix, inverse=True)

@@ -4,9 +4,13 @@ Port of ``repro.obs``: the same events, counters, histograms, exporters
 and always-on telemetry, pure Python (``torch.profiler`` takes the place
 of ``jax.profiler`` for span ranges). Decision points of the port emit
 structured events through this package: planner resolution
-(``plan.resolve``, ``plan.degrade`` in ``repro_torch.plan``), wisdom load
-and save (``plan.cache.load`` / ``plan.cache.save``), and each CG
-iteration of MRI reconstruction (``mri.cg.iter`` in ``repro_torch.mri``).
+(``plan.resolve``, ``plan.degrade``, ``plan.measure`` and
+``plan.measure.candidate`` in ``repro_torch.plan``), wisdom load, save,
+attach and read-only degrade (``plan.cache.*``), engine dispatch and
+failover (``engine.apply``, ``resilience.*`` in
+``repro_torch.resilience``), the 2D kernels' composed route
+(``kernel.failover``), and each CG iteration of MRI reconstruction
+(``mri.cg.iter`` in ``repro_torch.mri``).
 
     from repro_torch import obs
     import repro_torch.xfft as xfft

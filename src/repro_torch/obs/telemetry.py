@@ -17,9 +17,10 @@ open — the black box a serving fleet member carries:
   ``plan.measure.candidate`` timings) against *observed* ``engine.apply``
   span durations per (engine, kind, shape, precision): the mispricing
   table (observed/predicted ratio, sample counts) that recalibrating
-  ESTIMATE needs. The port's planner emits ``plan.resolve``; the
-  ``engine.apply`` spans come with the degradation ladder, so until it is
-  ported the table holds predictions only.
+  ESTIMATE needs. The port's planner emits ``plan.resolve`` and MEASURE
+  ``plan.measure.candidate``; the degradation ladder
+  (``repro_torch.resilience.run_plan``) emits an ``engine.apply`` span
+  for every transform it runs.
 
 Both are installed at ``repro_torch.obs`` import (:func:`install_default`)
 — always-on is the default. The recorder reads the reference's

@@ -1,7 +1,8 @@
-"""repro_torch.plan — the FFT planner (ESTIMATE) and its plan cache."""
+"""repro_torch.plan — the FFT planner (ESTIMATE and MEASURE), its plan
+cache and wisdom files, ``plan_fft`` and ``execute``."""
 
-from repro_torch.plan.api import resolve, resolve_call
-from repro_torch.plan.autotune import estimate_plan, variant_candidates
+from repro_torch.plan.api import execute, plan_fft, resolve, resolve_call
+from repro_torch.plan.autotune import estimate_plan, measure_plan, variant_candidates
 from repro_torch.plan.cache import PlanCache, default_cache, reset_default_cache
 from repro_torch.plan.plan import (
     DIRECTIONS,
@@ -23,6 +24,9 @@ __all__ = [
     "ProblemKey",
     "default_cache",
     "estimate_plan",
+    "execute",
+    "measure_plan",
+    "plan_fft",
     "problem_key",
     "reset_default_cache",
     "resolve",

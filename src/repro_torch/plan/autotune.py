@@ -1,10 +1,12 @@
-"""FFTW-style ESTIMATE planning: an analytic model over registered engines.
+"""FFTW-style planning modes: analytic ESTIMATE and timed MEASURE.
 
-Port of the ESTIMATE half of ``repro.plan.autotune``; MEASURE waits.
-Candidates come from the ``repro_torch.engines`` registry, filtered by
-capability. Each candidate's time is a roofline over the paper's analytic
-counts (``butterfly_counts``: (N/2)·log2 N butterflies per transform) plus
-the engine's cost hints.
+Port of ``repro.plan.autotune``. Candidates come from the
+``repro_torch.engines`` registry, filtered by capability and by the
+quarantine breaker (``repro_torch.resilience``). Each candidate's
+ESTIMATE time is a roofline over the paper's analytic counts
+(``butterfly_counts``: (N/2)·log2 N butterflies per transform) plus the
+engine's cost hints; MEASURE times every candidate on the key's device
+and keeps the fastest (CUDA events on the card, see :func:`measure_plan`).
 
 On a ``"cuda"`` key the candidates are the CUDA kernels only, unless the
 caller scoped ``backend="torch"``: a tensor on the card never plans onto
@@ -42,18 +44,26 @@ modelled like its schedule plus call overheads.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.fft1d import butterfly_counts
 from repro_torch.launch.roofline import HBM_BW, SMEM_BW, Roofline
 from repro_torch.plan.plan import FFTPlan, ProblemKey
+from repro_torch.resilience import faults as _faults
+from repro_torch.resilience.breaker import quarantine
 
 __all__ = [
+    "MEASURE_CANDIDATE_BUDGET_S",
+    "MeasureTimeout",
     "estimate_plan",
     "estimate_variant_time",
+    "measure_plan",
     "oaconv_tile_candidates",
     "variant_candidates",
 ]
@@ -82,27 +92,42 @@ def variant_candidates(key: ProblemKey) -> Tuple[str, ...]:
     by kind × precision × backend scope × device count × shared-memory fit.
     A ``"cuda"`` key with no backend scope considers the CUDA kernels only
     (and, at double precision, ``reference_x64``), and raises
-    ``NotImplementedError`` when none fits."""
+    ``NotImplementedError`` when none fits.
+
+    Engines quarantined for this problem key (``repro_torch.resilience``
+    circuit breaker open after a failure) are excluded, so the planner
+    routes around a benched engine until its cooldown admits a probe.
+    When quarantine would empty the list, the ``reliable``-marked rungs
+    come back, and failing those every candidate, as in the reference.
+    On a CUDA key with no backend scope the candidates are the kernels
+    alone, none of them ``reliable``: quarantining both brings both back,
+    and the degradation ladder's rungs stay kernels.
+    """
     from repro_torch.engines import iter_engines  # lazy: engines is the leaf layer
 
     on_card = key.backend == "cuda" and not key.backends
-    names = tuple(s.name for s in iter_engines()
+    specs = tuple(s for s in iter_engines()
                   if s.supports(key) and (s.backend in _CARD_BACKENDS or not on_card))
-    if not names and on_card:
+    if not specs and on_card:
         raise NotImplementedError(
             f"no CUDA kernel serves {key.kind!r} at shape {key.shape}: its rows exceed "
             "the fused kernels' envelope (2^18 values, the reference's fused-kernel "
             "budget, past which the reference plans its jnp engines); scope "
             "xfft.config(backend='torch') to run the plain schedules on the card"
         )
-    if not names:
+    if not specs:
         scope = f" under backend scope {key.backends}" if key.backends else ""
         raise ValueError(
             f"no registered engine supports kind {key.kind!r} at precision "
             f"{key.precision!r}{scope}; registered engines: "
             f"{tuple(s.name for s in iter_engines())}"
         )
-    return names
+    breaker = quarantine()
+    healthy = tuple(s.name for s in specs if not breaker.excluded(s.name, key))
+    if healthy:
+        return healthy
+    reliable = tuple(s.name for s in specs if s.reliable)
+    return reliable or tuple(s.name for s in specs)
 
 
 def _transform_geometry(key: ProblemKey) -> Tuple[int, int]:
@@ -282,3 +307,238 @@ def estimate_plan(key: ProblemKey) -> FFTPlan:
     times = {v: estimate_variant_time(key, v) for v in variant_candidates(key)}
     variant = min(times, key=times.get)
     return FFTPlan(key=key, variant=variant, mode="estimate", est_time_s=times[variant])
+
+
+# ------------------------------- MEASURE ---------------------------------
+
+#: Per-candidate wall-clock budget (seconds) for a MEASURE sweep. A
+#: candidate whose warmup+timing loop exceeds it is skipped and recorded
+#: in the ``plan.measure`` span; a sweep where EVERY candidate blows the
+#: budget degrades to ESTIMATE with reason ``measure_timeout``. The check
+#: runs between calls (a call in flight cannot be preempted from Python),
+#: so the guard bounds sweeps that are slow, not ones that never return.
+MEASURE_CANDIDATE_BUDGET_S = 30.0
+
+#: Kinds MEASURE times, each through its engines' op.
+_MEASURED_KINDS = ("fft1d", "fft2d", "rfft1d", "rfft2d")
+
+
+class MeasureTimeout(Exception):
+    """A MEASURE candidate exceeded its wall-clock budget (sweep guard)."""
+
+
+def _time_us(
+    fn: Callable,
+    x,
+    warmup: int = 1,
+    iters: int = 5,
+    budget_s: Optional[float] = None,
+) -> float:
+    """Median time per call in microseconds (the warmup calls discarded).
+
+    On a CUDA tensor each timed call sits between one pair of CUDA events
+    recorded on the current stream and is waited for before the next; on
+    the CPU each call is timed with ``time.perf_counter``. ``budget_s``
+    bounds the candidate's TOTAL wall clock (warmup included): past it,
+    :class:`MeasureTimeout` aborts the candidate between calls so one
+    pathologically slow schedule cannot hang the whole sweep.
+    """
+    import torch
+
+    start = time.perf_counter()
+    cuda = isinstance(x, torch.Tensor) and x.is_cuda
+
+    def checkpoint():
+        if budget_s is not None and time.perf_counter() - start > budget_s:
+            raise MeasureTimeout(f"candidate exceeded its {budget_s:.1f}s measure budget")
+
+    for _ in range(max(warmup, 1)):
+        fn(x)
+        if cuda:
+            torch.cuda.synchronize(x.device)
+        checkpoint()
+    samples = []
+    for _ in range(max(iters, 1)):
+        if cuda:
+            stream = torch.cuda.current_stream(x.device)
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record(stream)
+            fn(x)
+            end.record(stream)
+            end.synchronize()
+            samples.append(begin.elapsed_time(end) * 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(x)
+            samples.append((time.perf_counter() - t0) * 1e6)
+        checkpoint()
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def _measure_input(key: ProblemKey, seed: int = 0):
+    """A representative input for ``key``, made with numpy from ``seed`` as
+    the reference makes it and moved once to the key's device: real for
+    rfft kinds, complex else, at the key's precision (a double sweep must
+    move double-width bytes); inverse real kinds get the half spectrum
+    their runner consumes."""
+    import torch
+
+    double = key.precision == "double"
+    rdt = np.float64 if double else np.float32
+    cdt = np.complex128 if double else np.complex64
+    rng = np.random.default_rng(seed)
+    if key.kind in _REAL_KINDS:
+        x = rng.standard_normal(key.shape).astype(rdt)
+        if key.direction == "inv":
+            x = np.fft.rfft2(x).astype(cdt) if key.kind == "rfft2d" \
+                else np.fft.rfft(x).astype(cdt)
+    else:
+        x = (rng.standard_normal(key.shape) + 1j * rng.standard_normal(key.shape)).astype(cdt)
+    return torch.from_numpy(x).to(torch.device(key.backend))
+
+
+def _candidate_runners(key: ProblemKey) -> Dict[Tuple[str, int], Callable]:
+    """(variant, unroll) -> the engine's op for this problem kind (no
+    compilation step: the op runs as it is)."""
+    from repro_torch.engines import get_engine  # lazy: engines is the leaf layer
+
+    if key.kind == "fft2d_stream":
+        raise NotImplementedError(
+            "MEASURE of the fft2d_stream kind waits for the stream (ROADMAP queue 1, item 8)"
+        )
+    if key.kind == "fft2d_pencil":
+        raise NotImplementedError(
+            "MEASURE of the fft2d_pencil kind waits for the multi-device slice "
+            "(ROADMAP queue 1, item 11)"
+        )
+    if key.kind not in _MEASURED_KINDS:
+        raise ValueError(
+            f"MEASURE planning is unavailable for kind {key.kind!r} (oaconv2d tile "
+            "choice is analytic); use mode='estimate' instead"
+        )
+    return {(v, 1): get_engine(v).op(key.kind, key.direction) for v in variant_candidates(key)}
+
+
+def measure_plan(
+    key: ProblemKey,
+    warmup: int = 1,
+    iters: int = 5,
+    timings_out: Optional[Dict[str, float]] = None,
+    budget_s: Optional[float] = None,
+) -> FFTPlan:
+    """Timed candidate sweep (FFTW ``MEASURE``): run every candidate engine.
+
+    ``timings_out`` (optional dict) receives per-candidate medians in µs,
+    keyed by the engine's name. On a CUDA key the kernel library is
+    built before the sweep, so no candidate's budget pays for ``nvcc``.
+
+    Each candidate gets ``budget_s`` of wall clock (default
+    :data:`MEASURE_CANDIDATE_BUDGET_S`); candidates that exceed it — or
+    raise — are skipped and recorded in the ``plan.measure`` span rather
+    than hanging or killing the sweep. A sweep with no surviving
+    candidate returns the ESTIMATE plan with ``degrade_reason``
+    ``"measure_timeout"`` (all timed out) or ``"measure_failed"``.
+    """
+    if budget_s is None:
+        budget_s = MEASURE_CANDIDATE_BUDGET_S
+    return _measure_plan_impl(key, warmup, iters, timings_out, budget_s)
+
+
+def _measure_plan_impl(
+    key: ProblemKey,
+    warmup: int,
+    iters: int,
+    timings_out: Optional[Dict[str, float]],
+    budget_s: float,
+) -> FFTPlan:
+    from repro_torch.engines import get_engine  # lazy: engines is the leaf layer
+
+    runners = _candidate_runners(key)
+    if key.backend == "cuda" and any(get_engine(v).backend == "cuda" for v, _ in runners):
+        from repro_torch.kernels._build import library  # lazy: builds at first use
+
+        library()
+    x = _measure_input(key)
+    best: Optional[Tuple[Tuple[str, int], float]] = None
+    timings: Dict[str, float] = {}
+    skipped: Dict[str, str] = {}
+    # One span for the whole sweep (it is the expensive planner action),
+    # with every candidate's median attached to the emitted event.
+    with obs.span(
+        "plan.measure",
+        kind=key.kind,
+        shape=key.shape,
+        dtype=key.dtype,
+        direction=key.direction,
+        precision=key.precision,
+    ) as out:
+        for (variant, unroll), fn in runners.items():
+            label = variant if unroll == 1 else f"{variant}/unroll={unroll}"
+
+            def run(arr, _fn=fn, _variant=variant):
+                # plan.measure fault seam fires per timed call, so an
+                # injected latency accrues against the candidate budget
+                # exactly like a genuinely slow schedule would.
+                _faults.maybe_fail("plan.measure", engine=_variant, kind=key.kind)
+                return _fn(arr)
+
+            try:
+                us = _time_us(run, x, warmup=warmup, iters=iters, budget_s=budget_s)
+            except MeasureTimeout:
+                skipped[label] = "timeout"
+                continue
+            except Exception as e:  # noqa: BLE001 — one bad candidate
+                skipped[label] = f"error: {e!r}"
+                continue
+            timings[label] = us
+            # Per-candidate event: the calibration ledger's measured
+            # prediction for engines the sweep timed but did NOT choose
+            # (the chosen one also rides plan.resolve's measured_us).
+            obs.emit(
+                "plan.measure.candidate",
+                engine=variant,
+                unroll=unroll,
+                label=label,
+                kind=key.kind,
+                shape=key.shape,
+                precision=key.precision,
+                median_us=us,
+            )
+            if timings_out is not None:
+                timings_out[label] = us
+            if best is None or us < best[1]:
+                best = ((variant, unroll), us)
+        out["candidates"] = len(timings) + len(skipped)
+        out["timings"] = dict(timings)
+        if skipped:
+            out["skipped"] = dict(skipped)
+        if best is None:
+            # Nothing survived: fall back to the analytic plan, with the
+            # reason recorded on the plan AND in the degrade vocabulary.
+            reason = (
+                "measure_timeout"
+                if any(r == "timeout" for r in skipped.values())
+                else "measure_failed"
+            )
+            out["chosen"] = None
+            out["degrade_reason"] = reason
+            obs.emit(
+                "plan.degrade", kind=key.kind, shape=key.shape,
+                direction=key.direction, reason=reason,
+            )
+            obs.count(f"plan.degrade.{reason}")
+            return dataclasses.replace(estimate_plan(key), degrade_reason=reason)
+        (variant, unroll), us = best
+        out["chosen"] = variant
+        out["chosen_us"] = us
+    return FFTPlan(
+        key=key,
+        variant=variant,
+        unroll=unroll,
+        chunks=1,
+        mode="measure",
+        est_time_s=estimate_variant_time(key, variant),
+        measured_us=us,
+    )

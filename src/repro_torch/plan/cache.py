@@ -6,24 +6,36 @@ in the other. Saves are atomic: a temp file in the same directory, fsynced,
 then renamed over the target. Every load is accounted for in a
 :class:`LoadReport`, emitted as a ``plan.cache.load`` event and counted
 under ``plan.cache.load.*``; every save emits ``plan.cache.save``, as in
-the reference. Fault seams and read-only degradation wait for the
-``resilience`` slice.
+the reference. Reads and writes consult the ``plan.cache.load`` and
+``plan.cache.save`` fault seams (``repro_torch.resilience``); a write that
+fails, injected or real, degrades the cache to memory-only and says so
+(``plan.cache.readonly``). The process-wide default cache is backed by
+the file named in ``$REPRO_PLAN_CACHE``, read once a process.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import tempfile
 from typing import Dict, Optional, Tuple
 
 from repro_torch import obs
 from repro_torch.plan.plan import PLAN_SCHEMA_VERSION, FFTPlan, ProblemKey
+from repro_torch.resilience import faults as _faults
+from repro_torch.resilience.faults import InjectedFault
 
 __all__ = ["LoadReport", "PlanCache", "default_cache", "reset_default_cache"]
 
+#: Environment variable naming the on-disk cache file for the process-wide
+#: default cache. Unset -> the default cache is memory-only.
+CACHE_ENV_VAR = "REPRO_PLAN_CACHE"
+
 _FILE_FORMAT = 1
+
+_log = logging.getLogger("repro_torch.plan.cache")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,13 +62,20 @@ class LoadReport:
 
 
 class PlanCache:
-    """Maps ``ProblemKey.cache_key()`` strings to :class:`FFTPlan`."""
+    """Maps ``ProblemKey.cache_key()`` strings to :class:`FFTPlan`.
+
+    ``path`` (optional) backs the cache with a JSON file: it is loaded at
+    construction and rewritten atomically by :meth:`save`.
+    """
 
     def __init__(self, path: Optional[str] = None):
         self._plans: Dict[str, FFTPlan] = {}
         self.path = path
         self.hits = 0
         self.misses = 0
+        #: Set when a save hit an unwritable path and the cache degraded
+        #: to memory-only; holds the path that refused the write.
+        self.readonly_path: Optional[str] = None
         if path and os.path.exists(path):
             self.load(path)
 
@@ -79,29 +98,65 @@ class PlanCache:
         """(cache_key, plan) pairs, sorted by key."""
         return tuple(sorted(self._plans.items()))
 
-    def save(self, path: Optional[str] = None) -> str:
-        """Atomically write every plan to ``path`` (default ``self.path``)."""
+    def save(
+        self,
+        path: Optional[str] = None,
+        *,
+        measured_only: bool = False,
+        exclude: Tuple[str, ...] = (),
+    ) -> Optional[str]:
+        """Atomically write the plans to ``path`` (default ``self.path``).
+
+        ``measured_only=True`` writes only MEASURE-mode plans (the form a
+        wisdom artifact ships in); ``exclude`` drops the named cache keys.
+        The write goes to a temp file in the same directory, is fsynced,
+        then renamed over the target, so a killed process never leaves a
+        truncated wisdom file.
+
+        An unwritable path (or an injected ``plan.cache.save`` fault) does
+        NOT raise: the cache degrades to memory-only — ``self.path`` is
+        cleared, the path is kept on :attr:`readonly_path`, and a
+        ``plan.cache.readonly`` event and counter record it. Returns the
+        path written, or ``None`` after a degrade.
+        """
         path = path or self.path
         if not path:
             raise ValueError("PlanCache.save needs a path (none configured)")
+        plans = self._plans
+        if measured_only:
+            plans = {k: p for k, p in plans.items() if p.mode == "measure"}
+        if exclude:
+            dropped = frozenset(exclude)
+            plans = {k: p for k, p in plans.items() if k not in dropped}
         payload = {
             "file_format": _FILE_FORMAT,
             "plan_schema_version": PLAN_SCHEMA_VERSION,
-            "plans": {k: p.to_dict() for k, p in self._plans.items()},
+            "plans": {k: p.to_dict() for k, p in plans.items()},
         }
-        d = os.path.dirname(os.path.abspath(path))
-        os.makedirs(d, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
         try:
-            with os.fdopen(fd, "w") as f:
-                json.dump(payload, f, indent=1, sort_keys=True)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        obs.emit("plan.cache.save", path=path, entries=len(self._plans))
+            _faults.maybe_fail("plan.cache.save", path=path)
+            d = os.path.dirname(os.path.abspath(path))
+            os.makedirs(d, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "w") as f:
+                    json.dump(payload, f, indent=1, sort_keys=True)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        except (OSError, InjectedFault) as e:
+            self.readonly_path = path
+            if self.path == path:
+                self.path = None  # memory-only from here on
+            obs.emit("plan.cache.readonly", path=path, error=str(e), entries=len(self._plans))
+            obs.count("plan.cache.readonly")
+            _log.warning("plan cache path %s is unwritable (%s); degrading to in-memory "
+                         "caching", path, e)
+            return None
+        obs.emit("plan.cache.save", path=path, entries=len(plans))
         return path
 
     def load(self, path: Optional[str] = None) -> LoadReport:
@@ -110,9 +165,10 @@ class PlanCache:
         if not path:
             raise ValueError("PlanCache.load needs a path (none configured)")
         try:
+            _faults.maybe_fail("plan.cache.load", path=path)
             with open(path) as f:
                 payload = json.load(f)
-        except (OSError, json.JSONDecodeError) as e:
+        except (OSError, json.JSONDecodeError, InjectedFault) as e:
             return _account_load(path, LoadReport(file_error=str(e)))
         prefix = f"v{PLAN_SCHEMA_VERSION}|"
         kept = stale = malformed = mismatch = 0
@@ -153,14 +209,25 @@ _DEFAULT: Optional[PlanCache] = None
 
 
 def default_cache() -> PlanCache:
-    """The process-wide, memory-only cache ``resolve_call`` uses by default."""
+    """The process-wide cache ``resolve_call`` uses by default.
+
+    Backed by the file named in ``$REPRO_PLAN_CACHE`` when set, else
+    memory-only. The variable is read once a process, at the first touch,
+    which emits a ``plan.cache.attached`` event (path, entries kept from
+    the wisdom file, source) and logs it: the record of what it resolved
+    to.
+    """
     global _DEFAULT
     if _DEFAULT is None:
-        _DEFAULT = PlanCache()
+        path = os.environ.get(CACHE_ENV_VAR) or None
+        _DEFAULT = PlanCache(path=path)
+        obs.emit("plan.cache.attached", path=path, entries=len(_DEFAULT),
+                 source=CACHE_ENV_VAR if path else "memory")
+        _log.info("default plan cache attached: path=%s entries=%d", path, len(_DEFAULT))
     return _DEFAULT
 
 
 def reset_default_cache() -> None:
-    """Drop the process-wide cache."""
+    """Drop the process-wide cache (tests; or after changing the env var)."""
     global _DEFAULT
     _DEFAULT = None

@@ -1,11 +1,10 @@
 """Context-scoped configuration for the ``repro_torch.xfft`` namespace.
 
-Port of ``repro.xfft._config`` for the fields this slice runs: ``variant``,
-``precision`` and ``backend``. ``mode`` has one working value, ESTIMATE:
-:func:`config` accepts it and raises ``NotImplementedError`` for MEASURE,
-which is queued in the ROADMAP (queue 1, item 7), and stores nothing.
-:func:`config` applies its overrides at once and, used as a context
-manager, restores the previous configuration on exit. Scoping is
+Port of ``repro.xfft._config`` for the fields ``variant``, ``mode``,
+``precision``, ``cache_dir``, ``backend``, ``faults`` and
+``check_health``; ``observe`` and ``flight_recorder`` wait (ROADMAP queue
+1, item 10). :func:`config` applies its overrides at once and, used as a
+context manager, restores the previous configuration on exit. Scoping is
 :mod:`contextvars`-based, so scopes nest and never leak between threads.
 
     import repro_torch.xfft as xfft
@@ -16,15 +15,22 @@ manager, restores the previous configuration on exit. Scoping is
         y = xfft.fft2(frames)
     with xfft.config(precision="double"):   # complex128 end to end
         y = xfft.fft2(frames)               # (the reference_x64 engine)
+    with xfft.config(mode="measure", cache_dir="/srv/wisdom"):
+        y = xfft.fft2(frames)               # time the kernels on a miss, save
+    with xfft.config(faults=FaultPlan(FaultSpec("engine.apply",
+                                                match={"engine": "fused_r4"})),
+                     check_health="nan"):
+        y = xfft.fft2(frames)               # fails over to the radix-2 kernel
 """
 
 from __future__ import annotations
 
 import contextvars
 import dataclasses
-from typing import Optional, Sequence, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 from repro_torch.engines import get_engine, has_engine, registered_backends, registered_variants
+from repro_torch.resilience.faults import FaultPlan, pop_faults, push_faults
 
 __all__ = ["XFFTConfig", "config", "get_config"]
 
@@ -40,29 +46,42 @@ _PRECISIONS = {
     "float64": "double",
 }
 
-#: Raised for the mode whose engine is not ported yet.
-_MEASURE_NOT_PORTED = (
-    "mode='measure' is not ported yet (see ROADMAP, queue 1 item 7: MEASURE, "
-    "timed with CUDA events); use mode='estimate'"
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class XFFTConfig:
     """One immutable configuration snapshot.
 
     variant   — force a registered engine for every call in scope; ``None``
                 lets ``repro_torch.plan`` decide.
+    mode      — what a plan-cache miss costs: ``"estimate"`` (analytic,
+                instant) or ``"measure"`` (every candidate timed on the
+                device, CUDA events on the card; not while a CUDA graph
+                is being captured).
     precision — ``"single"`` (complex64, the paper's datapath) or
                 ``"double"`` (complex128 through the ``reference_x64``
                 engine); part of every plan key.
+    cache_dir — directory holding the plan-wisdom file for calls in scope
+                (``<cache_dir>/xfft_plans.json``); ``None`` uses the
+                process-wide default cache (``$REPRO_PLAN_CACHE``). Pass
+                ``""`` to :func:`config` to clear an inherited directory.
     backends  — engine-backend families the planner may consider (e.g.
                 ``("torch",)``); ``()`` means all.
+    faults    — chaos policy for calls in scope: a
+                :class:`repro_torch.resilience.FaultPlan` injects its
+                seeded fault schedule into every named seam reached in
+                scope; ``False`` (the default) injects nothing.
+    check_health — ``"nan"`` makes the degradation ladder treat a
+                non-finite transform output as an engine failure (one
+                wait for the card a call); ``"off"`` (the default)
+                trusts outputs.
     """
 
     variant: Optional[str] = None
+    mode: str = "estimate"
     precision: str = "single"
+    cache_dir: Optional[str] = None
     backends: Tuple[str, ...] = ()
+    faults: Any = False
+    check_health: str = "off"
 
 
 _ACTIVE: contextvars.ContextVar[XFFTConfig] = contextvars.ContextVar(
@@ -73,15 +92,6 @@ _ACTIVE: contextvars.ContextVar[XFFTConfig] = contextvars.ContextVar(
 def get_config() -> XFFTConfig:
     """The configuration currently in scope."""
     return _ACTIVE.get()
-
-
-def check_mode(mode: Optional[str]) -> None:
-    """Accept ``None`` or ``"estimate"``; MEASURE raises until it is ported."""
-    if mode is None or mode == "estimate":
-        return
-    if mode == "measure":
-        raise NotImplementedError(_MEASURE_NOT_PORTED)
-    raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
 
 
 def _canon_backends(backend: Union[str, Sequence[str], None]) -> Optional[Tuple[str, ...]]:
@@ -105,6 +115,9 @@ class config:
 
     Unspecified fields inherit from the configuration active at call time;
     ``variant="auto"`` and ``backend="auto"`` clear an outer override.
+    An explicit ``faults=`` arms a fresh seeded fault state for the scope
+    (``False`` pushes a cleared one); inheriting leaves the enclosing
+    scope's firing state alone.
     """
 
     def __init__(
@@ -112,9 +125,21 @@ class config:
         variant: Optional[str] = None,
         mode: Optional[str] = None,
         precision: Optional[str] = None,
+        cache_dir: Optional[str] = None,
         backend: Union[str, Sequence[str], None] = None,
+        faults: Any = None,
+        check_health: Optional[str] = None,
     ):
         prev = _ACTIVE.get()
+        if faults is not None and faults is not False and not isinstance(faults, FaultPlan):
+            raise ValueError(
+                f"faults must be a repro_torch.resilience.FaultPlan, False (off) or None "
+                f"(inherit); got {faults!r}"
+            )
+        if check_health is not None and check_health not in ("nan", "off"):
+            raise ValueError(
+                f'check_health must be "nan", "off" or None (inherit); got {check_health!r}'
+            )
         clear_variant = variant == "auto"
         if variant is not None and not clear_variant and not has_engine(variant):
             raise ValueError(
@@ -122,7 +147,8 @@ class config:
                 f"{registered_variants()}, 'auto' to clear an outer override, "
                 "or None to inherit"
             )
-        check_mode(mode)
+        if mode is not None and mode not in ("estimate", "measure"):
+            raise ValueError(f"mode must be 'estimate' or 'measure', got {mode!r}")
         if precision is not None:
             if precision not in _PRECISIONS:
                 raise ValueError(
@@ -133,8 +159,14 @@ class config:
         backends = _canon_backends(backend)
         merged = XFFTConfig(
             variant=None if clear_variant else (variant if variant is not None else prev.variant),
+            mode=mode if mode is not None else prev.mode,
             precision=precision if precision is not None else prev.precision,
+            # "" clears an inherited directory; None inherits, as for every field.
+            cache_dir=(None if cache_dir == "" else
+                       cache_dir if cache_dir is not None else prev.cache_dir),
             backends=backends if backends is not None else prev.backends,
+            faults=faults if faults is not None else prev.faults,
+            check_health=check_health if check_health is not None else prev.check_health,
         )
         # A forced variant must be capable of the scope's precision, or a
         # double scope would compute in complex64 against its contract.
@@ -152,6 +184,10 @@ class config:
                     f"outside the scoped backend restriction {merged.backends}"
                 )
         self._token = _ACTIVE.set(merged)
+        self._faults_token = (
+            push_faults(faults if isinstance(faults, FaultPlan) else None)
+            if faults is not None else None
+        )
 
     def __enter__(self) -> "config":
         return self
@@ -161,6 +197,9 @@ class config:
 
     def restore(self) -> None:
         """Undo this call's overrides (automatic when used as a context)."""
+        if self._faults_token is not None:
+            pop_faults(self._faults_token)
+            self._faults_token = None
         if self._token is not None:
             _ACTIVE.reset(self._token)
             self._token = None

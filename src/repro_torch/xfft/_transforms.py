@@ -8,8 +8,12 @@ Port of ``repro.xfft._transforms``. Every transform:
 2. validates axes and norm, and crops or zero-pads to ``n``/``s`` (scipy
    style); errors name the offending axis and size;
 3. moves the transform axes last, resolves the call through
-   :func:`repro_torch.plan.api.resolve_call` and calls the chosen engine
-   directly — no retry and no fallback: an engine that fails raises;
+   :func:`repro_torch.plan.api.resolve_call` (under the scope's ``mode``)
+   and runs the chosen engine through the degradation ladder
+   (:func:`repro_torch.resilience.run_plan`): an engine that fails is
+   quarantined for the key and the call retries the next-best rung — on
+   the card another hand-written kernel, never the plain schedules unless
+   the scope asked for ``backend="torch"``;
 4. applies the ``norm`` scaling on top of the engines' backward convention.
 
 Precision follows the scoped ``xfft.config(precision=...)``, as the
@@ -36,6 +40,7 @@ from repro_torch.core.fft2d import ifftshift2 as _core_ifftshift2
 from repro_torch.engines import get_engine
 from repro_torch.plan.api import resolve_call
 from repro_torch.plan.plan import NORMS
+from repro_torch.resilience.ladder import run_plan
 from repro_torch.xfft._config import get_config
 
 __all__ = [
@@ -125,10 +130,11 @@ def _scale(y: torch.Tensor, norm: str, n: int, forward: bool) -> torch.Tensor:
 
 def _run(kind: str, x: torch.Tensor, key_shape, *, inverse: bool,
          dtype: str = "complex64") -> torch.Tensor:
-    """Plan the call and run the chosen engine on ``x`` (axes last)."""
+    """Plan the call and run the chosen engine on ``x`` (axes last) through
+    the degradation ladder."""
     direction = "inv" if inverse else "fwd"
     plan = resolve_call(kind, tuple(key_shape), x.device, dtype=dtype, direction=direction)
-    return get_engine(plan.variant).op(kind, direction)(x)
+    return run_plan(plan, lambda v: get_engine(v).op(kind, direction)(x))
 
 
 # ------------------------------ 1D complex ------------------------------

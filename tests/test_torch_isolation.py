@@ -31,6 +31,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.slstm_scan; "
         "import repro_torch.core.spectral; import repro_torch.imaging; "
         "import repro_torch.obs; import repro_torch.mri; import repro_torch.engines.x64; "
+        "import repro_torch.resilience; "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
     )

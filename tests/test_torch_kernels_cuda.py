@@ -13,6 +13,7 @@ through every serial step of the recurrence.
 """
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -629,3 +630,134 @@ def test_cuda_moco_matches_plain_and_finds_the_shift(cuda):
     assert float((est.cpu() - shifts).abs().max()) <= 0.5
     x = mri.recon_cg_moco(km, sm.to(cuda), shots, shifts.to(cuda), iters=3)
     assert _rel(x.cpu(), mri.recon_cg_moco(kc, sm, shots, shifts, iters=3)) <= 1e-4
+
+
+def _radices(monkeypatch, name):
+    """Record the radix of every call of the fused wrapper ``name`` made
+    through ``repro_torch.kernels.ops``."""
+    from repro_torch.kernels import ops
+
+    seen, fn = [], getattr(ops, name)
+
+    def tapped(*args, radix=2, **kw):
+        seen.append(radix)
+        return fn(*args, radix=radix, **kw)
+
+    monkeypatch.setattr(ops, name, tapped)
+    return seen
+
+
+@pytest.fixture
+def clean_breaker():
+    from repro_torch import resilience
+
+    resilience.reset()
+    yield resilience
+    resilience.reset()
+    resilience.configure(cooldown_s=30.0, clock=time.monotonic)
+
+
+class _Clock:
+    """A settable clock: ``clock.now += 31.0`` drives a cooldown."""
+
+    now = 0.0
+
+    def __call__(self):
+        return self.now
+
+
+@pytest.mark.cuda
+def test_cuda_failover_fused_r4_to_fused(cuda, clean_breaker, monkeypatch):
+    """An injected engine.apply error on fused_r4 for a (512, 128, 128)
+    fft2: the ladder lands on fused, a radix-2 fft2_fused, within 2e-5 of
+    torch.fft; the breaker opens, the next resolve reports quarantined
+    and the cache keeps fused_r4; after the cooldown a half-open probe
+    runs fused_r4 and closes the breaker."""
+    from repro_torch import obs
+    from repro_torch.plan import PlanCache, resolve_call
+    from repro_torch.resilience import FaultPlan, FaultSpec
+
+    from repro_torch.plan import cache as cache_mod
+
+    clock = _Clock()
+    clean_breaker.configure(cooldown_s=30.0, clock=clock)
+    x = torch.randn(512, 128, 128, dtype=torch.complex64, device=cuda)
+    want = torch.fft.fft2(x)
+    cache = PlanCache()
+    monkeypatch.setattr(cache_mod, "_DEFAULT", cache)
+    first = resolve_call("fft2d", x.shape, cuda)
+    assert first.variant == "fused_r4"
+    radices = _radices(monkeypatch, "fft2_fused")
+    fault = FaultPlan(FaultSpec("engine.apply", match={"engine": "fused_r4"}, times=1))
+    with obs.capture() as trace, xfft.config(faults=fault):
+        got = xfft.fft2(x)
+        assert radices == [2] and _rel(got, want) <= TOL
+        again = xfft.fft2(x)
+        assert radices == [2, 2] and _rel(again, want) <= TOL
+        clock.now += 31.0
+        probe = xfft.fft2(x)
+        assert radices == [2, 2, 4] and _rel(probe, want) <= TOL
+    (failover,) = trace.select("resilience.failover")
+    assert (failover["engine"], failover["next"], failover["quarantined"]) == (
+        "fused_r4", "fused", True)
+    assert [e["outcome"] for e in trace.select("plan.resolve")] == ["hit", "quarantined", "hit"]
+    assert [e["state"] for e in trace.select("resilience.breaker")] == [
+        "open", "half_open", "closed"]
+    assert cache.get(first.key).variant == "fused_r4"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fft2", "rfft2", "irfft2"])
+def test_cuda_census_seam_runs_the_composed_route(cuda, name):
+    """A vmem fault at kernel.fused on (512, 128, 128): two 1D kernel passes
+    and two corner turns instead of one whole-frame launch, a
+    kernel.failover event, and the result within 2e-5 of torch.fft."""
+    from repro_torch import obs
+    from repro_torch.resilience import FaultPlan, FaultSpec
+
+    real = torch.randn(512, 128, 128, device=cuda)
+    x = torch.fft.rfft2(real) if name == "irfft2" else (
+        real if name == "rfft2" else real.to(torch.complex64))
+    before = dict(k.LAUNCHES)
+    with obs.capture() as trace, xfft.config(faults=FaultPlan(FaultSpec("kernel.fused",
+                                                                        mode="vmem"))):
+        got = getattr(xfft, name)(x)
+    n = {kn: c - before[kn] for kn, c in k.LAUNCHES.items() if c != before[kn]}
+    assert not any(kn.endswith("2_fused") for kn in n) and sum(n.values()) == 2, n
+    (event,) = trace.select("kernel.failover")
+    assert event["shape"] == (128, 128) and event["frames"] == 512
+    assert _rel(got, getattr(torch.fft, name)(x)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_measure_times_the_kernels_with_cuda_events(cuda):
+    from repro_torch.plan import PlanCache, plan_fft
+
+    timings = {}
+    plan = plan_fft("fft1d", (8192, 2048), cuda, mode="measure", cache=PlanCache(),
+                    timings_out=timings)
+    assert plan.mode == "measure" and plan.measured_us > 0
+    assert set(timings) == {"fused", "fused_r4"} and plan.measured_us == min(timings.values())
+    double = {}
+    plan_fft("fft2d", (16, 256, 256), cuda, mode="measure", cache=PlanCache(),
+             precision="double", timings_out=double)
+    assert set(double) == {"reference_x64"}
+
+
+@pytest.mark.cuda
+def test_cuda_measure_inside_graph_capture_degrades(cuda):
+    from repro_torch import obs
+    from repro_torch.plan import PlanCache, resolve_call
+
+    x = torch.ones(16, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with obs.capture() as trace:
+        with torch.cuda.graph(graph):
+            y = x * 2.0
+            plan = resolve_call("fft2d", (64, 128, 128), cuda, cache=PlanCache(),
+                                mode="measure")
+    graph.replay()
+    assert float(y.sum()) == 32.0
+    assert plan.mode == "estimate" and plan.degrade_reason == "trace_not_clean"
+    assert trace.select("plan.measure") == []
+    assert [e["reason"] for e in trace.select("plan.degrade")] == ["trace_not_clean"]

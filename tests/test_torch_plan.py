@@ -204,14 +204,22 @@ def test_resolve_call_caches_estimates_and_never_forced_plans():
 
 
 def test_measure_and_double_are_not_ported_yet():
-    """MEASURE is still to port and raises. Double precision is ported (the
-    reference_x64 engine): the config accepts it, and a single-precision
-    scope refuses to force the double engine, as the reference's does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        xfft.config(mode="measure")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_call("fft1d", (8, 64), torch.device("cpu"), cache=PlanCache(),
-                     mode="measure")
+    """MEASURE is ported: ``xfft.config(mode="measure")`` scopes the mode
+    (and restores the outer one), an unknown mode raises, and
+    ``resolve_call`` under the scope times the candidates of a cache miss.
+    Double precision is ported (the reference_x64 engine): the config
+    accepts it, and a single-precision scope refuses to force the double
+    engine, as the reference's does."""
+    with xfft.config(mode="measure"):
+        assert xfft.get_config().mode == "measure"
+        plan = resolve_call("fft1d", (8, 64), torch.device("cpu"), cache=PlanCache())
+        assert plan.mode == "measure" and plan.measured_us > 0
+        with xfft.config(mode="estimate"):
+            assert xfft.get_config().mode == "estimate"
+        assert xfft.get_config().mode == "measure"
+    assert xfft.get_config().mode == "estimate"
+    with pytest.raises(ValueError, match="mode must be"):
+        xfft.config(mode="exhaustive")
     with xfft.config(mode="estimate", precision="single"):
         assert xfft.get_config() == xfft.XFFTConfig()
     with xfft.config(precision="double"):
