@@ -25,6 +25,20 @@ Phases, each printing one JSON line:
              fft2_fused also on wide (1024, 64, 256), rfft2_fused on tall
              (1024, 256, 64) frames and irfft2_fused on their half spectra
              (1024, 256, 33), at both radices;
+   kernel  — the same for fft2_columns, the column pass of the composed
+             2D route, on the (32, 512, 512) CT frames (its library call
+             ``torch.fft.fft(x, dim=-2)``), then on half-spectrum widths
+             with a partial last panel, 2048- and 4096-row frames (panels of
+             8 and 4 columns) and 8-row frames (one pass), at both radices,
+             in place and not; then the composed route itself at the kernel
+             entries, fft2, rfft2 and irfft2 on (64, 256, 256),
+             (32, 512, 512) and (16, 1024, 1024): one row kernel and one
+             fft2_columns launch a call, within 2e-5 of the plain route and
+             of ``torch.fft``, its time beside its row and column passes
+             alone, the turn route it replaced (rows, a transpose through
+             HBM, ``fft_fused`` on the columns as rows, a transpose back;
+             each transpose timed alone), ``torch.fft``, the one-trip bound
+             and the floor of its two trips;
    kernel  — the same for fft_two_pass, the kernels that fft_fused,
              rfft_fused and irfft_fused launch at radix 2 on rows over one
              block (2^14 < N <= 2^18): fft and ifft on (64, 2^18) complex
@@ -146,14 +160,16 @@ Phases, each printing one JSON line:
              ``check_health="nan"`` fails over to a finite output, with the
              guard's host µs a call; a ``vmem`` fault at ``kernel.fused``
              runs fft2, rfft2 and irfft2 of (512, 128, 128) on the
-             composed route (two 1D kernel launches), within 2e-5, timed
-             against one block; MEASURE (``plan_fft(mode="measure")``) on
+             composed route (the row kernel and fft2_columns, one launch
+             each), within 2e-5, timed against one block; MEASURE (``plan_fft(mode="measure")``) on
              the request keys in both directions, each candidate's median
              µs (CUDA events) beside ESTIMATE's pick, the wisdom file
              loaded by a second process that must hit every key and time
              nothing, a double key timing ``reference_x64`` alone, and a
              ``torch.cuda.graph`` capture that degrades
-             (``trace_not_clean``); last the ladder's host µs a call: the
+             (``trace_not_clean``), an fft2 of (512, 128, 128) captured in
+             a graph under ``check_health="nan"`` (the guard reads nothing
+             there: no failover; the replay within 2e-5); last the ladder's host µs a call: the
              front door, ``run_plan`` with and without the telemetry sinks,
              and the planned engine's op alone, on a (256, 256) fft2 and
              the (4, 16, 256, 256) k-space frames. Its launches do not
@@ -265,6 +281,19 @@ def time_ms(fn, reps: int = 10, batches: int = 5) -> float:
     return statistics.median(samples)
 
 
+def enqueue_ms(torch, fn, reps: int = 20) -> float:
+    """Host wall time a call of ``fn`` takes to return (its launches
+    enqueued, not waited for), over ``reps`` calls after a warmup."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def frame_source(step: int, batch: int, h: int, w: int, seed: int = 0):
     """The synthetic camera of examples/serve_fft2d.py: a drifting 2-D chirp
     plus noise, frame shape (h, w)."""
@@ -314,6 +343,8 @@ KERNELS = {
                      "src/repro/kernels/fft_radix2.py:279"),
     "fft_cluster": ("src/repro_torch/kernels/csrc/fft_cluster.cu",
                     "src/repro/kernels/fft_radix2.py:279"),
+    "fft2_columns": ("src/repro_torch/kernels/csrc/fft2_columns.cu",
+                     "src/repro/kernels/ops.py:177"),
     "butterfly_stage": ("src/repro_torch/kernels/csrc/butterfly.cu",
                         "src/repro/kernels/butterfly.py:64"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -398,10 +429,20 @@ COOLDOWN_S = 30.0      # the breaker's cooldown, driven by an injected clock
 # The fused wrappers the kernel entries of repro_torch.kernels.ops call,
 # and the plain schedules of repro_torch.core.fft1d under every core entry.
 FUSED_WRAPPERS = ("fft_fused", "rfft_fused", "irfft_fused", "fft2_fused", "rfft2_fused",
-                  "irfft2_fused")
+                  "irfft2_fused", "fft2_columns")
 PLAIN_SCHEDULES = ("_fft_panel", "_fft_routed")
 ROW_KERNELS = ("fft_fused", "rfft_fused", "irfft_fused", "fft_two_pass", "fft_cluster")
 FRAME_KERNELS = ("fft2_fused", "rfft2_fused", "irfft2_fused")
+# The composed 2D route's column pass, and the frames over one block on
+# which the route is timed against the turn route it replaced and against
+# torch.fft: MRI k-space, CT and hologram sizes.
+COLUMNS = "fft2_columns"
+COMPOSED_SHAPES = ((64, 256, 256), (32, 512, 512), (16, 1024, 1024))
+# fft2_columns against its plain version beyond the kernel phase's
+# (32, 512, 512): half-spectrum widths (a partial last panel), panels of 8
+# and 4 columns (H 2048, 4096) and one-pass columns (H 8).
+COLUMN_SHAPES = ((64, 256, 129), (16, 1024, 513), (8, 2048, 512), (4, 4096, 257),
+                 (512, 8, 4096))
 
 
 def bound(card: str, nbytes: float, flops: float, flop_rate: float = PEAK_FLOPS_FP32):
@@ -443,6 +484,11 @@ def kernel_phase(torch, k, card: str):
         "irfft2_fused": (crandn(512, 128, 65), k.irfft2_fused, k.irfft2_fused_plain,
                          lambda x: torch.fft.irfft2(x),
                          8 * 512 * 128 * 65 + 4 * 512 * 128 * 128, 2.5 * 512 * 128 * 128 * 14),
+        # The column pass alone on the CT frames: its library call is the
+        # column FFT (dim -2); one read and one write of every value.
+        COLUMNS: (crandn(*CT), k.fft2_columns, k.fft2_columns_plain,
+                  lambda x: torch.fft.fft(x, dim=-2), 16 * math.prod(CT),
+                  5.0 * math.prod(CT) * math.log2(CT[1])),
     }
     rows = {}
     for name, (x, kernel, plain, library, nbytes, flops) in cases.items():
@@ -497,6 +543,8 @@ def kernel_phase(torch, k, card: str):
             emit(line)
         elif name in FRAME_REGS_ENTRIES:
             frame_line(name, x.shape, r4["ms"], rows[name]["library_ms"], bound_ms)
+        elif name == COLUMNS:
+            column_lines(torch, k, rows[name], crandn, card)
         del x
         torch.cuda.empty_cache()
     non_square_frames(torch, k, card, rows, crandn, gen)
@@ -528,21 +576,64 @@ def frame_line(name, shape, ms, library_ms, bound_ms):
           "library_ms": library_ms, "bound_ms": bound_ms})
 
 
+def column_lines(torch, k, row, crandn, card):
+    """fft2_columns's design line (the panel's columns, threads and shared
+    memory, ptxas's registers and spills of both instances) on the CT
+    frames, then the kernel against its plain version on COLUMN_SHAPES, at
+    both radices, in place and into a new buffer; the worst error joins
+    its row."""
+    from repro_torch.kernels import _build
+
+    f, h, w = CT
+    g = k.fft2_columns_geometry(h, w)
+    log = _build.build_log()
+    emit({"phase": "kernel", "kernel": COLUMNS, "design": "column panels in place (radix 4: "
+          "register passes)", "shape": list(CT), "card": card, "cols": g.cols,
+          "panels_per_frame": g.tiles, "threads": g.threads, "smem_bytes": g.smem,
+          "column_passes": list(k.regpass_radices(h)),
+          "ptxas": {"radix 4": ptxas_entries(log, "24fft2_columns_regs_kernel").get(()),
+                    "radix 2": ptxas_entries(log, "19fft2_columns_kernel").get(())},
+          "ms": row["ms"], "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]})
+    for shape in COLUMN_SHAPES:
+        x = crandn(*shape)
+        for radix in (2, 4):
+            for inverse in (False, True):
+                ref = k.fft2_columns_plain(x, radix=radix, inverse=inverse)
+                got = k.fft2_columns(x, radix=radix, inverse=inverse)
+                same = x.clone()
+                k.fft2_columns(same, radix=radix, inverse=inverse, out=same)
+                torch.cuda.synchronize()
+                err = max(rel_err(got, ref), rel_err(same, ref))
+                one = {"phase": "kernel", "kernel": COLUMNS, "shape": list(shape),
+                       "radix": radix, "inverse": inverse,
+                       "cols": k.fft2_columns_geometry(shape[1], shape[2]).cols,
+                       "rel_err": err, "max_abs_err": max(max_abs(got, ref), max_abs(same, ref))}
+                emit(one)
+                if not err <= TOL_KERNEL:
+                    raise AssertionError(f"fft2_columns {shape} radix {radix} inverse "
+                                         f"{inverse}: rel err {err} > {TOL_KERNEL}")
+                row["rel_err"] = max(row["rel_err"], err)
+                row["max_abs_err"] = max(row["max_abs_err"], one["max_abs_err"])
+                del ref, got, same
+        del x
+        torch.cuda.empty_cache()
+
+
 def ptxas_entries(log: str, fragment: str):
     """Registers and spill bytes ptxas reported for each instance of the
     kernel whose mangled name holds ``fragment``, keyed by its integer
     template arguments: {(7, 7): {...}} ((0, 0) the frame kernels' runtime
     geometry; (log2 m,) for irfft_regs_kernel; (log2 C, log2 M, kind) for
-    fft_cluster_kernel)."""
+    fft_cluster_kernel; () for a kernel that is no template)."""
     import re
 
     out, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             key = None
-            entry = re.search(fragment + r"I((?:Li\d+E)+)E", line)
+            entry = re.search(fragment + r"(?:I((?:Li\d+E)+)E)?", line)
             if entry:
-                key = tuple(int(v) for v in re.findall(r"Li(\d+)E", entry[1]))
+                key = tuple(int(v) for v in re.findall(r"Li(\d+)E", entry[1] or ""))
                 out[key] = {}
         elif key is not None and "spill stores" in line:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -598,6 +689,139 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
                                  *(v["max_abs_err"] for v in case["by_radix"].values()))
         row["rel_err"] = max(row["rel_err"], *(v["rel_err"] for v in case["by_radix"].values()))
         del x
+        torch.cuda.empty_cache()
+
+
+def composed_phase(torch, k, card: str):
+    """The composed 2D route on frames over one block (COMPOSED_SHAPES), at
+    the kernel entries ``ops.fft2_kernel`` / ``rfft2_kernel`` /
+    ``irfft2_kernel`` (radix 4): one row kernel and one fft2_columns launch
+    a call, held to the plain route (the row pass's and fft2_columns's
+    plain versions) and to ``torch.fft`` at 2e-5. Each line gives the
+    route's time at the entry and the host's time to enqueue a call there
+    (where that is the larger, the entry is host-bound), the route's two
+    launches called directly (``direct_ms``), its row pass and column pass
+    alone, the turn route it replaced (composed here from the same wrappers
+    and torch transposes: rows, a turn, ``fft_fused`` on the columns as
+    rows, a turn back; each turn's time alone; set against ``direct_ms``),
+    ``torch.fft``'s time, the one-trip HBM bound (input read and output
+    written once) and the floor of the route's two trips."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    dev = torch.device("cuda")
+    rows_of = {"fft2": "fft_fused", "rfft2": "rfft_fused", "irfft2": "irfft_fused"}
+
+    def turn(z, f, a, b):  # (f, a, b) -> (f, b, a), through HBM
+        return z.reshape(f, a, b).transpose(-1, -2).contiguous()
+
+    for shape in COMPOSED_SHAPES:
+        f, h, w = shape
+        n, half = f * h * w, w // 2 + 1
+        nh = f * h * half
+        real = torch.randn(*shape, generator=gen, device=dev)
+        cases = {  # the kind's input
+            "fft2": real.to(torch.complex64),
+            "rfft2": real,
+            "irfft2": torch.fft.rfft2(real),
+        }
+        for name, x in cases.items():
+            entry = getattr(ops, f"{name}_kernel")
+            if name == "fft2":
+                rows_in = x.reshape(f * h, w)
+                one_trip, two_trip = 16 * n, 32 * n
+                row = lambda: k.fft_fused(rows_in, radix=4)
+                mid = row()
+                cols = lambda: k.fft2_columns(mid.reshape(f, h, w), radix=4)
+                plain = lambda: k.fft2_columns_plain(
+                    k.fft_fused_plain(rows_in, radix=4).reshape(f, h, w), radix=4)
+                turn_in, t_a, t_b = mid, (f, h, w), (f, w, h)
+                turned = lambda z: k.fft_fused(z.reshape(f * w, h), radix=4)
+
+                def turn_route():
+                    y = k.fft_fused(rows_in, radix=4)
+                    y = k.fft_fused(turn(y, f, h, w).reshape(f * w, h), radix=4)
+                    return turn(y, f, w, h)
+
+                def direct():
+                    y = k.fft_fused(rows_in, radix=4).reshape(f, h, w)
+                    return k.fft2_columns(y, radix=4, out=y)
+            elif name == "rfft2":
+                rows_in = x.reshape(f * h, w)
+                one_trip, two_trip = 4 * n + 8 * nh, 4 * n + 24 * nh
+                row = lambda: k.rfft_fused(rows_in, radix=4)
+                mid = row()
+                cols = lambda: k.fft2_columns(mid.reshape(f, h, half), radix=4)
+                plain = lambda: k.fft2_columns_plain(
+                    k.rfft_fused_plain(rows_in, radix=4).reshape(f, h, half), radix=4)
+                turn_in, t_a, t_b = mid, (f, h, half), (f, half, h)
+                turned = lambda z: k.fft_fused(z.reshape(f * half, h), radix=4)
+
+                def turn_route():
+                    y = k.rfft_fused(rows_in, radix=4)
+                    y = k.fft_fused(turn(y, f, h, half).reshape(f * half, h), radix=4)
+                    return turn(y, f, half, h)
+
+                def direct():
+                    y = k.rfft_fused(rows_in, radix=4).reshape(f, h, half)
+                    return k.fft2_columns(y, radix=4, out=y)
+            else:
+                one_trip, two_trip = 8 * nh + 4 * n, 24 * nh + 4 * n
+                mid = k.fft2_columns(x, radix=4, inverse=True)
+                cols = lambda: k.fft2_columns(x, radix=4, inverse=True)
+                row = lambda: k.irfft_fused(mid.reshape(f * h, half), radix=4)
+                plain = lambda: k.irfft_fused_plain(k.fft2_columns_plain(
+                    x, radix=4, inverse=True).reshape(f * h, half), radix=4).reshape(f, h, w)
+                turn_in, t_a, t_b = x, (f, h, half), (f, half, h)
+                turned = lambda z: k.fft_fused(z.reshape(f * half, h), radix=4, inverse=True)
+
+                def turn_route():
+                    y = k.fft_fused(turn(x, f, h, half).reshape(f * half, h), radix=4,
+                                    inverse=True)
+                    return k.irfft_fused(turn(y, f, half, h).reshape(f * h, half), radix=4)
+
+                def direct():
+                    y = k.fft2_columns(x, radix=4, inverse=True)
+                    return k.irfft_fused(y.reshape(f * h, half), radix=4)
+            before = dict(k.LAUNCHES)
+            got = entry(x, radix=4)
+            torch.cuda.synchronize()
+            launches = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                        if k.LAUNCHES[kn] != before[kn]}
+            ref = plain()
+            lib = getattr(torch.fft, name)(x)
+            old = turn_route().reshape(got.shape)
+            second_in = turned(turn(turn_in, *t_a))
+            bound_ms = one_trip / hbm_bandwidth(card) * 1e3
+            line = {"phase": "kernel", "kernel": COLUMNS, "route": f"composed {name}",
+                    "shape": list(x.shape), "card": card, "radix": 4,
+                    "launches_per_call": launches,
+                    "rel_err_vs_plain": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
+                    "rel_err_vs_library": rel_err(got, lib),
+                    "turn_route_rel_err_vs_library": rel_err(old, lib),
+                    "ms": time_ms(lambda: entry(x, radix=4)),
+                    "host_ms": enqueue_ms(torch, lambda: entry(x, radix=4)),
+                    "direct_ms": time_ms(direct),
+                    "row_ms": time_ms(row), "columns_ms": time_ms(cols),
+                    "turn_route_ms": time_ms(turn_route),
+                    "turn_ms": [time_ms(lambda: turn(turn_in, *t_a)),
+                                time_ms(lambda: turn(second_in, *t_b))],
+                    "library_ms": time_ms(lambda: getattr(torch.fft, name)(x)),
+                    "one_trip_bound_ms": bound_ms,
+                    "two_trip_floor_ms": two_trip / hbm_bandwidth(card) * 1e3}
+            line["over_two_trip_floor"] = line["ms"] / line["two_trip_floor_ms"]
+            line["turn_route_over_route"] = line["turn_route_ms"] / line["direct_ms"]
+            emit(line)
+            want = {rows_of[name]: 1, COLUMNS: 1}
+            if launches != want:
+                raise AssertionError(f"composed {name} {shape}: launches {launches}, "
+                                     f"want {want}")
+            for what in ("rel_err_vs_plain", "rel_err_vs_library"):
+                if not line[what] <= TOL_KERNEL:
+                    raise AssertionError(f"composed {name} {shape}: {what} {line[what]} "
+                                         f"> {TOL_KERNEL}")
+            del got, ref, lib, old, mid, second_in, x
+        del real, cases
         torch.cuda.empty_cache()
 
 
@@ -1160,7 +1384,7 @@ def request_phase(torch, k, xfft, resolve_call):
     # 128x128 serving frames: the whole frame in one block, complex and real.
     frames = torch.from_numpy(frame_source(0, 512, 128, 128)).to(dev)
     spec, line = request("fft2 (512,128,128)", lambda: xfft.fft2(frames), ["fft2_fused"],
-                         engine("fft2d", frames.shape))
+                         engine("fft2d", frames.shape), forbid=[COLUMNS])
     ref = torch.fft.fft2(frames)
     check(line, rel_err(spec, ref), TOL_REQUEST)
     check_peaks(line, spec, ref)
@@ -1183,48 +1407,48 @@ def request_phase(torch, k, xfft, resolve_call):
     check(line, rel_err(out, torch.fft.fft2(turned, dim=(0, 1))), TOL_REQUEST)
     emit(line)
     half, line = request("rfft2 (512,128,128)", lambda: xfft.rfft2(frames), ["rfft2_fused"],
-                         engine("rfft2d", frames.shape, dtype="float32"))
+                         engine("rfft2d", frames.shape, dtype="float32"), forbid=[COLUMNS])
     ref = torch.fft.rfft2(frames)
     check(line, rel_err(half, ref), TOL_REQUEST)
     check_peaks(line, half, ref, full=False)
     emit(line)
     back, line = request("irfft2 (512,128,128)", lambda: xfft.irfft2(half), ["irfft2_fused"],
-                         engine("rfft2d", frames.shape, "inv", "float32"))
+                         engine("rfft2d", frames.shape, "inv", "float32"), forbid=[COLUMNS])
     check(line, rel_err(back, torch.fft.irfft2(half)), TOL_REQUEST)
     check(line, max_abs(back, frames) / float(frames.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
     emit(line)
     del frames, spec, back, out, turned, half, ref
 
-    # 1024x1024 holograms: two fft_fused passes with an HBM corner turn.
+    # 1024x1024 holograms: fft_fused rows, then fft2_columns in place.
     frames = torch.from_numpy(frame_source(1, 16, 1024, 1024)).to(dev)
-    spec, line = request("fft2 (16,1024,1024)", lambda: xfft.fft2(frames), ["fft_fused"],
-                         engine("fft2d", frames.shape))
+    spec, line = request("fft2 (16,1024,1024)", lambda: xfft.fft2(frames),
+                         ["fft_fused", COLUMNS], engine("fft2d", frames.shape))
     ref = torch.fft.fft2(frames)
     check(line, rel_err(spec, ref), TOL_REQUEST)
     check_peaks(line, spec, ref)
     emit(line)
-    back, line = request("ifft2 (16,1024,1024)", lambda: xfft.ifft2(spec), ["fft_fused"],
-                         engine("fft2d", spec.shape, "inv"))
+    back, line = request("ifft2 (16,1024,1024)", lambda: xfft.ifft2(spec),
+                         ["fft_fused", COLUMNS], engine("fft2d", spec.shape, "inv"))
     check(line, rel_err(back, torch.fft.ifft2(spec)), TOL_REQUEST)
     check(line, max_abs(back.real, frames) / float(frames.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
     emit(line)
     del frames, spec, back, ref
 
-    # 512x512 CT frames, real input: over one block, so rows, an HBM
-    # corner turn and columns.
+    # 512x512 CT frames, real input: over one block, so rfft_fused rows,
+    # then fft2_columns on the half spectra (no fft_fused on the columns).
     frames = torch.from_numpy(frame_source(2, 32, 512, 512)).to(dev)
     half, line = request("rfft2 (32,512,512)", lambda: xfft.rfft2(frames),
-                         ["rfft_fused", "fft_fused"],
-                         engine("rfft2d", frames.shape, dtype="float32"))
+                         ["rfft_fused", COLUMNS],
+                         engine("rfft2d", frames.shape, dtype="float32"), forbid=["fft_fused"])
     ref = torch.fft.rfft2(frames)
     check(line, rel_err(half, ref), TOL_REQUEST)
     check_peaks(line, half, ref, full=False)
     emit(line)
     back, line = request("irfft2 (32,512,512)", lambda: xfft.irfft2(half),
-                         ["fft_fused", "irfft_fused"],
-                         engine("rfft2d", frames.shape, "inv", "float32"))
+                         [COLUMNS, "irfft_fused"],
+                         engine("rfft2d", frames.shape, "inv", "float32"), forbid=["fft_fused"])
     check(line, rel_err(back, torch.fft.irfft2(half)), TOL_REQUEST)
     check(line, max_abs(back, frames) / float(frames.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
@@ -1253,11 +1477,11 @@ def request_phase(torch, k, xfft, resolve_call):
     # Rows over one block: each request plans fused_r4 and launches the
     # cluster kernel, never the two-pass kernels; one request scoped to the
     # radix-2 engine keeps those on a path.
-    def long_rows(name, fn, kind, shape, direction="fwd", dtype="complex64"):
+    def long_rows(name, fn, kind, shape, direction="fwd", dtype="complex64", also=()):
         plan = engine(kind, shape, direction, dtype)
         if plan != "fused_r4":
             raise AssertionError(f"request {name}: planned {plan}, not fused_r4")
-        return request(name, fn, ["fft_cluster"], plan, forbid=["fft_two_pass"])
+        return request(name, fn, ["fft_cluster", *also], plan, forbid=["fft_two_pass"])
 
     fid = fid_source(torch, *TWO_PASS_COMPLEX, seed=4)
     spec, line = long_rows("fft (64,262144)", lambda: xfft.fft(fid), "fft1d", fid.shape)
@@ -1290,11 +1514,11 @@ def request_phase(torch, k, xfft, resolve_call):
     del lines, half, back
     frames = torch.from_numpy(frame_source(4, *STRIP)).to(dev)
     half, line = long_rows("rfft2 (8,512,32768)", lambda: xfft.rfft2(frames), "rfft2d",
-                           frames.shape, dtype="float32")
+                           frames.shape, dtype="float32", also=[COLUMNS])
     check(line, rel_err(half, torch.fft.rfft2(frames)), TOL_REQUEST)
     emit(line)
     back, line = long_rows("irfft2 (8,512,32768)", lambda: xfft.irfft2(half), "rfft2d",
-                           frames.shape, "inv", "float32")
+                           frames.shape, "inv", "float32", also=[COLUMNS])
     check(line, rel_err(back, torch.fft.irfft2(half)), TOL_REQUEST)
     check(line, max_abs(back, frames) / float(frames.abs().max()), TOL_ROUND_TRIP,
           "round_trip_err")
@@ -1324,7 +1548,11 @@ class KernelTap:
     def _fused(self, name, fn):
         def wrapper(*args, **kw):
             if self.recording:
-                self.recorded.append((name, fn, args, kw))
+                # An in-place call (fft2_columns on the row pass's output) is
+                # recorded with a copy of its input; a replay writes a new
+                # tensor.
+                rec = (args[0].clone(), *args[1:]) if kw.get("out") is not None else args
+                self.recorded.append((name, fn, rec, {a: v for a, v in kw.items() if a != "out"}))
             return fn(*args, **kw)
         return wrapper
 
@@ -1367,7 +1595,7 @@ def plain_twin(k, name: str, x, kw):
     card's ``x``: its plain version where a row fits one block, else the
     cluster's (radix 4) or the two passes' (radix 2). Returns the name of
     the kernel row the wrapper's launch belongs to and the plain output."""
-    if name in FRAME_KERNELS:
+    if name in FRAME_KERNELS or name == COLUMNS:
         return name, getattr(k, f"{name}_plain")(x, **kw)
     n = 2 * (x.shape[-1] - 1) if name == "irfft_fused" else x.shape[-1]
     if k.fft_fits_smem(n, real=name != "fft_fused"):
@@ -1481,9 +1709,10 @@ def _imaging_calls(torch, xfft, resolve_call, call):
     def engine(kind, shape, direction="fwd", dtype="complex64"):
         return resolve_call(kind, tuple(shape), dev, dtype=dtype, direction=direction).variant
 
-    whole_frame_real = list(ROW_KERNELS) + ["fft2_fused"]
-    whole_frame_complex = list(ROW_KERNELS) + ["rfft2_fused", "irfft2_fused"]
+    whole_frame_real = list(ROW_KERNELS) + ["fft2_fused", COLUMNS]
+    whole_frame_complex = list(ROW_KERNELS) + ["rfft2_fused", "irfft2_fused", COLUMNS]
     composed = list(FRAME_KERNELS) + ["fft_two_pass", "fft_cluster"]
+    rows_only = ["fft_two_pass", "fft_cluster", COLUMNS]
 
     # Registration on 128x128 frames: planted whole-pixel shifts come back
     # exactly, subpixel ones within 1/upsample + 0.05 px.
@@ -1539,12 +1768,13 @@ def _imaging_calls(torch, xfft, resolve_call, call):
             "rfft2d inv": engine("rfft2d", CT, "inv", "float32"),
             "rfft1d": engine("rfft1d", (CT[0], CT[2]), dtype="float32")}
     (periodic, smooth), line = call("psd_decompose", lambda: imaging.psd_decompose(ct), CT, plan,
-                                    ["rfft_fused", "fft_fused", "irfft_fused"], composed)
+                                    ["rfft_fused", COLUMNS, "irfft_fused"],
+                                    composed + ["fft_fused"])
     check(line, max_abs(periodic + smooth, ct) / float(ct.abs().max()), TOL_ROUND_TRIP,
           "sum_err")
     emit(line)
     spec, line = call("fft2_psd", lambda: imaging.fft2_psd(ct), CT, plan,
-                      ["rfft_fused", "fft_fused"], composed)
+                      ["rfft_fused", COLUMNS], composed + ["fft_fused"])
     check(line, rel_err(spec, torch.fft.fft2(periodic)), TOL_REQUEST)
     emit(line)
     del ct, periodic, smooth, spec
@@ -1554,14 +1784,14 @@ def _imaging_calls(torch, xfft, resolve_call, call):
                         torch.randn(*MRI, generator=gen, device=dev))
     plan = {"fft2d": engine("fft2d", MRI), "fft2d inv": engine("fft2d", MRI, "inv")}
     ks, line = call("image_to_kspace", lambda: imaging.image_to_kspace(img), MRI, plan,
-                    ["fft_fused"], composed)
+                    ["fft_fused", COLUMNS], composed)
     dims = (-2, -1)
     check(line, rel_err(ks, torch.fft.fftshift(torch.fft.fft2(
         torch.fft.ifftshift(img, dim=dims), norm="ortho"), dim=dims)), TOL_REQUEST)
     check(line, abs(float(ks.norm() / img.norm()) - 1.0), TOL_ROUND_TRIP, "parseval_err")
     emit(line)
     back, line = call("kspace_to_image", lambda: imaging.kspace_to_image(ks), MRI, plan,
-                      ["fft_fused"], composed)
+                      ["fft_fused", COLUMNS], composed)
     check(line, max_abs(back, img) / float(img.abs().max()), TOL_ROUND_TRIP, "round_trip_err")
     emit(line)
     del img, ks, back
@@ -1600,7 +1830,7 @@ def _imaging_calls(torch, xfft, resolve_call, call):
     (angle, scale), line = call("register_logpolar",
                                 lambda: register_logpolar(ref, torch.rot90(ref)),
                                 (LOGPOLAR, LOGPOLAR), plan,
-                                ["rfft_fused", "fft_fused", "irfft_fused"], composed)
+                                ["rfft_fused", COLUMNS, "irfft_fused"], composed + ["fft_fused"])
     line["angle"], line["scale"] = angle, scale
     check(line, abs(abs(angle) - math.pi / 2), 0.03, "angle_err")
     check(line, abs(scale - 1.0), 0.02, "scale_err")
@@ -1611,14 +1841,14 @@ def _imaging_calls(torch, xfft, resolve_call, call):
     want = torch.fft.fft2(x).real
     plan = {"fft2d": engine("fft2d", MIX)}
     mix, line = call("fourier_mixing", lambda: spectral.fourier_mixing(x), MIX, plan,
-                     ["fft_fused"], composed)
+                     ["fft_fused", COLUMNS], composed)
     check(line, rel_err(mix, want), TOL_REQUEST)
     emit(line)
     plan = {"rfft1d": engine("rfft1d", MIX, dtype="float32"),
             "fft1d": engine("fft1d", (MIX[0], MIX[2] // 2 + 1, MIX[1]))}
     mix, line = call("fourier_mixing variant=rfft",
                      lambda: spectral.fourier_mixing(x, variant="rfft"), MIX, plan,
-                     ["rfft_fused", "fft_fused"], composed)
+                     ["rfft_fused", "fft_fused"], composed + [COLUMNS])
     check(line, rel_err(mix, want), TOL_REQUEST)
     emit(line)
     del x, want, mix
@@ -1627,7 +1857,7 @@ def _imaging_calls(torch, xfft, resolve_call, call):
     n = 2 * CONV[1]
     plan = {"rfft1d": engine("rfft1d", (CONV[0], CONV[2], n), dtype="float32")}
     y, line = call("fftconv", lambda: spectral.fftconv(x, kern), CONV, plan,
-                   ["rfft_fused", "irfft_fused"], ["fft_two_pass", "fft_cluster"])
+                   ["rfft_fused", "irfft_fused"], rows_only)
     want = torch.fft.irfft(torch.fft.rfft(x.transpose(-1, -2), n)
                            * torch.fft.rfft(kern.transpose(-1, -2), n), n)[..., :CONV[1]]
     check(line, rel_err(y, want.transpose(-1, -2)), TOL_ROUND_TRIP)
@@ -1641,12 +1871,12 @@ def _imaging_calls(torch, xfft, resolve_call, call):
     windows = audio.unfold(-1, 512, 256) * torch.from_numpy(spectral._hann(512)).to(dev)
     plan = {"fft1d": engine("fft1d", windows.shape)}
     spec, line = call("stft", lambda: spectral.stft(audio), AUDIO, plan, ["fft_fused"],
-                      ["fft2_fused", "fft_two_pass", "fft_cluster"])
+                      ["fft2_fused"] + rows_only)
     want = torch.fft.fft(windows.to(torch.complex64))[..., :257]
     check(line, rel_err(spec, want), TOL_REQUEST)
     emit(line)
     mel, line = call("log_mel", lambda: spectral.log_mel(audio), AUDIO, plan, ["fft_fused"],
-                     ["fft2_fused", "fft_two_pass", "fft_cluster"])
+                     ["fft2_fused"] + rows_only)
     fb = torch.from_numpy(spectral._mel_filterbank(257, 80)).to(dev)
     power = torch.clamp(torch.einsum("...tf,mf->...tm", want.abs() ** 2, fb), min=1e-10)
     # Held in linear power, the layer's linear output: a mel band 1e-4 of the
@@ -1739,12 +1969,12 @@ def _mri_calls(torch, xfft, resolve_call, call):
                   "variable_density_R": mri.acceleration(vd_np), "calib_rows": CALIB}
 
     ks, line = call("sense_forward", lambda: mri.sense_forward(img, smaps, uniform), RECON, plan,
-                    ["fft_fused"], composed)
+                    ["fft_fused", COLUMNS], composed)
     check(line, rel_err(ks, centered(torch, smaps * img[:, None]) * uniform), TOL_REQUEST)
     line["masks"] = masks_line
     emit(line)
     zf, line = call("sense_adjoint", lambda: mri.sense_adjoint(ks, smaps, uniform), RECON, plan,
-                    ["fft_fused"], composed)
+                    ["fft_fused", COLUMNS], composed)
     want = (smaps.conj() * centered(torch, ks * uniform, inverse=True)).sum(-3)
     check(line, rel_err(zf, want), TOL_REQUEST)
     emit(line)
@@ -1754,7 +1984,7 @@ def _mri_calls(torch, xfft, resolve_call, call):
     # block: on the object, held to the torch.fft definition and to the truth.
     kvd = mri.sense_forward(img, smaps, vd)
     est, line = call("estimate_sensitivities", lambda: mri.estimate_sensitivities(
-        kvd, calib=CALIB, mask=vd_np), RECON, plan, ["fft_fused"], composed)
+        kvd, calib=CALIB, mask=vd_np), RECON, plan, ["fft_fused", COLUMNS], composed)
     win = np.zeros(h, np.float32)
     win[(h - CALIB) // 2:(h + CALIB) // 2] = np.hanning(CALIB + 2)[1:-1]
     low = centered(torch, kvd * torch.from_numpy(np.outer(win, win)).to(dev), inverse=True)
@@ -1780,7 +2010,8 @@ def _mri_calls(torch, xfft, resolve_call, call):
     # updates add to it), against a float64 torch.fft CG of the same steps.
     with obs.capture() as trace:
         x, line = call("recon_cg_sense uniform", lambda: mri.recon_cg_sense(
-            ks, smaps, uniform, iters=CG_ITERS), RECON, plan, ["fft_fused"], composed, 3, 3)
+            ks, smaps, uniform, iters=CG_ITERS), RECON, plan, ["fft_fused", COLUMNS], composed,
+            3, 3)
     line["iters"] = CG_ITERS
     line["ms_per_iter"] = line["ms"] / CG_ITERS
     line["normal_op_ms"] = time_ms(lambda: mri.sense_adjoint(
@@ -1801,7 +2032,8 @@ def _mri_calls(torch, xfft, resolve_call, call):
     vd_ref = torch.from_numpy(vd_ref_np).to(dev)
     kref = mri.sense_forward(img, smaps, vd_ref)
     x, line = call("recon_cg_sense variable-density", lambda: mri.recon_cg_sense(
-        kref, smaps, vd_ref, iters=CG_ITERS), RECON, plan, ["fft_fused"], composed, 3, 3)
+        kref, smaps, vd_ref, iters=CG_ITERS), RECON, plan, ["fft_fused", COLUMNS], composed,
+        3, 3)
     line["iters"] = CG_ITERS
     line["ms_per_iter"] = line["ms"] / CG_ITERS
     line["mask"] = {"R": mri.acceleration(vd_ref_np), "seed": 0, "calib_rows": 16}
@@ -1825,7 +2057,8 @@ def _mri_calls(torch, xfft, resolve_call, call):
     # no R ~4 margin; so here the ratios are recorded, CG must improve on
     # zero-filled, and the image is held to a float64 CG.
     x, line = call("recon_cg_sense variable-density estimated maps", lambda: mri.recon_cg_sense(
-        kvd, est, vd, iters=CG_ITERS, lam=1e-3), RECON, plan, ["fft_fused"], composed, 3, 3)
+        kvd, est, vd, iters=CG_ITERS, lam=1e-3), RECON, plan, ["fft_fused", COLUMNS],
+        composed, 3, 3)
     line["iters"] = CG_ITERS
     line["ms_per_iter"] = line["ms"] / CG_ITERS
     zf_est = mri.recon_zero_filled(kvd, est, vd)
@@ -1841,20 +2074,20 @@ def _mri_calls(torch, xfft, resolve_call, call):
     shifts = torch.tensor(MOCO_SHIFTS, dtype=torch.float32, device=dev)
     one, moco_shape = img[0], (len(MOCO_SHIFTS), c, h, w)
     km, line = call("moco_forward", lambda: mri.moco_forward(one, smaps, shots, shifts),
-                    moco_shape, plan, ["fft_fused"], composed)
+                    moco_shape, plan, ["fft_fused", COLUMNS], composed)
     moved = fourier_shift(torch, one.to(torch.complex64), shifts)
     check(line, rel_err(km, (centered(torch, smaps * moved[:, None]) * shots[:, None]).sum(0)),
           TOL_REQUEST)
     emit(line)
     recon, line = call("recon_cg_moco", lambda: mri.recon_cg_moco(
-        km, smaps, shots, shifts, iters=MOCO_ITERS), moco_shape, plan, ["fft_fused"], composed,
-        3, 3)
+        km, smaps, shots, shifts, iters=MOCO_ITERS), moco_shape, plan, ["fft_fused", COLUMNS],
+        composed, 3, 3)
     line["iters"] = MOCO_ITERS
     line["ms_per_iter"] = line["ms"] / MOCO_ITERS
     blind = mri.recon_cg_sense(km, smaps, uniform, iters=MOCO_ITERS)
     gate(line, recon[None], blind[None], 0.5, "motion_blind")
     emit(line)
-    real_rows = ["fft_fused", "rfft_fused", "irfft_fused"]
+    real_rows = ["fft_fused", "rfft_fused", "irfft_fused", COLUMNS]
     est, line = call("estimate_shot_shifts", lambda: mri.estimate_shot_shifts(km, smaps, shots),
                      moco_shape, {**plan, "rfft2d": resolve_call(
                          "rfft2d", (len(MOCO_SHIFTS), h, w), dev, dtype="float32").variant},
@@ -2217,8 +2450,8 @@ def _failover_checks(torch, k, xfft, tap, clock, card: str) -> None:
 
 def _census_checks(torch, k, xfft, card: str) -> None:
     """An injected ``vmem`` fault at ``kernel.fused`` on frames that fit one
-    block: the composed route (1D kernel passes and two corner turns),
-    timed at its kernel entry against the one-block route."""
+    block: the composed route (the row kernel and fft2_columns, no corner
+    turn), timed at its kernel entry against the one-block route."""
     from repro_torch import obs
     from repro_torch.kernels import ops
     from repro_torch.resilience import FaultPlan, FaultSpec
@@ -2228,9 +2461,9 @@ def _census_checks(torch, k, xfft, card: str) -> None:
     half = torch.fft.rfft2(frames)
     vmem = FaultPlan(FaultSpec("kernel.fused", mode="vmem"))
     for name, x, frame_kernel, composed in (
-            ("fft2", frames.to(torch.complex64), "fft2_fused", {"fft_fused": 2}),
-            ("rfft2", frames, "rfft2_fused", {"rfft_fused": 1, "fft_fused": 1}),
-            ("irfft2", half, "irfft2_fused", {"fft_fused": 1, "irfft_fused": 1})):
+            ("fft2", frames.to(torch.complex64), "fft2_fused", {"fft_fused": 1, COLUMNS: 1}),
+            ("rfft2", frames, "rfft2_fused", {"rfft_fused": 1, COLUMNS: 1}),
+            ("irfft2", half, "irfft2_fused", {COLUMNS: 1, "irfft_fused": 1})):
         fn = getattr(xfft, name)
         want = getattr(torch.fft, name)(x)
         before = dict(k.LAUNCHES)
@@ -2349,6 +2582,28 @@ def _measure_checks(torch, xfft, card: str) -> None:
     emit(line)
     if (plan.degrade_reason, line["measured"], line["replayed"]) != ("trace_not_clean", 0, 32.0):
         raise AssertionError(f"graph capture: {line}")
+
+    # The output-health guard inside a graph capture: it reads nothing while
+    # the stream captures, so the captured call runs its kernel rung and no
+    # rung is charged a failure; the replay is held to torch.fft.
+    frames = torch.from_numpy(frame_source(6, *REG)).to(dev).to(torch.complex64)
+    with xfft.config(check_health="nan"):
+        xfft.fft2(frames)  # plans, and opts the kernel into its shared memory
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with obs.capture() as trace:
+            with torch.cuda.graph(graph):
+                out = xfft.fft2(frames)
+    graph.replay()
+    torch.cuda.synchronize()
+    line = {"phase": "resilience", "check": "health guard in graph capture",
+            "call": f"fft2 {REG}", "check_health": "nan",
+            "engines": [e["engine"] for e in trace.select("engine.apply")],
+            "failovers": len(trace.select("resilience.failover")),
+            "rel_err": rel_err(out, torch.fft.fft2(frames))}
+    emit(line)
+    if line["failovers"] or not line["rel_err"] <= TOL_REQUEST:
+        raise AssertionError(f"health guard in graph capture: {line}")
 
 
 def _ladder_cost(torch, xfft, card: str) -> None:
@@ -2469,6 +2724,7 @@ def main() -> int:
     # held to no degrade on the main path (no_degrade clears it after each).
     with obs.capture() as trace:
         rows = kernel_phase(torch, k, card)
+        composed_phase(torch, k, card)
         rows["fft_two_pass"] = two_pass_phase(torch, k, card)
         rows["fft_cluster"] = cluster_phase(torch, k, card)
         model_rows, slstm_hs = model_kernel_phase(torch, card)

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "repro_fft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "repro_rfft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_irfft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_fft2_columns": (_P, _P, *(_I,) * 8, _F, _I, _P),
     "repro_butterfly_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_fwd": (_P, _P, _P, _P, *(_I,) * 8, _F, *(_I,) * 5, _P),
     "repro_flash_attention_occupancy": (_I, _I, _I),

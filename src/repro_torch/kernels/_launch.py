@@ -18,6 +18,7 @@ LAUNCHES: Dict[str, int] = {
     "fft_fused": 0, "rfft_fused": 0, "irfft_fused": 0, "fft2_fused": 0,
     "rfft2_fused": 0, "irfft2_fused": 0, "butterfly_stage": 0,
     "flash_attention_fwd": 0, "slstm_scan": 0, "fft_two_pass": 0, "fft_cluster": 0,
+    "fft2_columns": 0,
 }
 
 

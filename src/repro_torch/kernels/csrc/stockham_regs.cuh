@@ -2,7 +2,8 @@
 // irfft_fused kernels (fft_fused.cu): rows of n = 2^log_n values that fit
 // one block; the lines of the cluster kernel (fft_cluster.cu); and, over a
 // frame's rows and its columns, the radix-4 fft2_fused, rfft2_fused and
-// irfft2_fused (the "whole frames" section below).
+// irfft2_fused (the "whole frames" section below), and, over a panel of
+// columns of a frame in HBM, the radix-4 fft2_columns (fft2_columns.cu).
 //
 // Replaces the in-VMEM radix-4 panel of src/repro/kernels/fft_radix2.py
 // (_stockham_panel_r4) for those kernels; stockham.cuh's stage-at-a-time
@@ -473,6 +474,52 @@ struct HbmFrameOut {
     for (int c = 0; c < R; ++c) {
       const float2 a = v[out_reg<R>(c)];
       p[static_cast<unsigned>(c * step)] = make_float2(a.x * scale, a.y * yscale);
+    }
+  }
+};
+
+// A panel of neighbouring columns of one frame in HBM (fft2_columns.cu),
+// read by the column panel's first pass and written by its last: the
+// frame's rows hold `stride` values (W, or the W/2+1 of a half spectrum),
+// and element i of panel column `line` is x[i stride + c0 + line] (x and y
+// point at the frame; they may be the same frame). Consecutive lines are
+// consecutive columns, so a half-warp's accesses are runs of consecutive
+// values of one row. Columns at or past `stride` (the last panel of a width
+// that is not a multiple of the panel's) read as zero and are not written.
+// Reads take the imaginary parts times `sign` (-1 conjugates on the way
+// in); writes times (scale, yscale), as HbmFrameOut. 32-bit offsets: a
+// frame holds fewer than 2^31 values.
+struct HbmColumns {
+  static constexpr bool kShared = false;
+  const float2* x;
+  float2* y;
+  int stride;
+  int c0;
+  float sign;
+  float scale;
+  float yscale;
+
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
+    ok = ok && c0 + line < stride;
+    const float2* p = x + static_cast<unsigned>(t * stride + c0 + line);
+    const unsigned step = static_cast<unsigned>(s * stride);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float2 a = ok ? p[j * step] : make_float2(0.f, 0.f);
+      v[j] = make_float2(a.x, a.y * sign);
+    }
+  }
+
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
+    if (!ok || c0 + line >= stride) return;
+    float2* p = y + static_cast<unsigned>(pos * stride + c0 + line);
+    const unsigned step = static_cast<unsigned>(l * stride);
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const float2 a = v[out_reg<R>(c)];
+      p[c * step] = make_float2(a.x * scale, a.y * yscale);
     }
   }
 };

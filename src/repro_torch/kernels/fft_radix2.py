@@ -12,7 +12,7 @@ live here:
   one twiddle ROM; for the six one-block kernels both padded by one slot
   per 16 (:func:`smem_slot`), the layout of their radix-4 register-pass
   panel. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``, the
-  two-pass and cluster geometries, ``kernels.ops``, the engines' gate and
+  two-pass, cluster and column-panel geometries, ``kernels.ops``, the engines' gate and
   the planner all read it. ``fft_fits_fused`` is the reference's
   envelope of the 1D kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
@@ -26,7 +26,10 @@ live here:
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
 * **The wrappers** ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
-  ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``. A CPU tensor takes the plain version. A CUDA tensor
+  ``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``, and
+  ``fft2_columns``, the column pass of the composed 2D route on frames over
+  one block (``csrc/fft2_columns.cu``: panels of neighbouring columns read
+  in place from HBM, no corner turn). A CPU tensor takes the plain version. A CUDA tensor
   launches the kernel or raises; nothing falls back. Each launch adds one
   to ``LAUNCHES[name]`` (the registry of ``kernels._launch``, shared by
   every wrapper of the port). A 1D row over one block (2^14 < N <= 2^18)
@@ -55,6 +58,10 @@ __all__ = [
     "cluster_exchanges",
     "cluster_geometry",
     "cluster_occupancy",
+    "fft2_columns",
+    "fft2_columns_geometry",
+    "fft2_columns_plain",
+    "fft2_columns_serves",
     "fft2_fits_smem",
     "fft2_fused",
     "fft2_fused_plain",
@@ -334,6 +341,51 @@ def cluster_occupancy(m: int, kind: str = "fft"):
     if not torch.cuda.is_available():
         return None
     return _device_cluster_occupancy(m, kind, torch.cuda.current_device())
+
+
+#: Most values one ``fft2_columns`` block holds (C columns of H): 1024
+#: threads of 16; and its narrowest panel, 4 complex values a row, one
+#: whole 32-byte sector a run.
+COLUMN_PANEL_VALUES = 2 ** 14
+COLUMN_PANEL_MIN_COLS = 4
+
+
+class ColumnGeometry(NamedTuple):
+    """Launch geometry of ``csrc/fft2_columns.cu`` on frames of H rows of
+    ``width`` values: one block a panel of ``cols`` neighbouring columns of
+    one frame, ``tiles`` panels a frame (the last masked where ``cols`` does
+    not divide the width)."""
+
+    cols: int  # C
+    tiles: int
+    threads: int
+    smem: int
+
+
+def fft2_columns_serves(h: int) -> bool:
+    """True when ``fft2_columns`` runs columns of length ``h``: a power of
+    two of which at least ``COLUMN_PANEL_MIN_COLS`` columns fit one block
+    (2 <= H <= 4096). The composed 2D route takes the corner turns through
+    HBM for longer columns (``repro_torch.kernels.ops``)."""
+    return h >= 2 and not h & (h - 1) and h * COLUMN_PANEL_MIN_COLS <= COLUMN_PANEL_VALUES
+
+
+def fft2_columns_geometry(h: int, width: int) -> ColumnGeometry:
+    """C = ``ROW_TILE_ELEMS``/H but at least 16 where H <= 1024 (so that
+    several blocks share an SM, as a 1D block aims, and each run of a row
+    is a whole 128-byte line: 64 columns at H = 64, 16 at 256 to 1024), and
+    ``COLUMN_PANEL_VALUES``/H above (8 at 2048, 4 at 4096: whole 32-byte
+    sectors); never wider than the width rounded up to a power of two.
+    Threads: 16 values each. Shared memory: the panel and a ROM of H/2
+    twiddles, each padded (:func:`fft_smem_bytes`; the radix-2 panel uses
+    the unpadded part)."""
+    if h * TWO_PASS_MIN_LINES <= COLUMN_PANEL_VALUES:
+        cols = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // h)
+    else:
+        cols = COLUMN_PANEL_VALUES // h
+    cols = min(cols, 1 << max(width - 1, 0).bit_length())
+    return ColumnGeometry(cols, -(-width // cols), block_threads(cols * h),
+                          _padded_block_bytes(cols * h, h // 2))
 
 
 def row_smem_bytes(n: int, *, real: bool = False, radix: int = 2) -> int:
@@ -855,6 +907,18 @@ def fft2_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) 
     return _complex(yr, yi)
 
 
+def fft2_columns_plain(x: torch.Tensor, *, radix: int = 2,
+                       inverse: bool = False) -> torch.Tensor:
+    """Plain version of :func:`fft2_columns` on (F, H, Wc) complex64: the
+    panel of :func:`fft_fused_plain` (the register passes at radix 4, the
+    Stockham stages at radix 2) down each of the Wc columns; ``inverse`` by
+    conjugation, scaled by 1/H."""
+    f, h, wc = x.shape
+    cols = x.transpose(-1, -2).reshape(f * wc, h)
+    y = _fft_plain(cols, _one_block_panel(radix), inverse)
+    return y.reshape(f, wc, h).transpose(-1, -2).contiguous()
+
+
 def _recombine(zr, zi, mr, mi, wr, wi):
     """``regs::recombine``: Y = Xe + w·Xo from z = Z[k] and zm = conj Z[m-k]
     given as (mr, mi)."""
@@ -1203,4 +1267,43 @@ def irfft2_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     if f:
         _launch("repro_irfft2_fused", "irfft2_fused", y, y.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
+    return out
+
+
+def fft2_columns(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """FFT down the columns of (F, H, Wc) complex64 frames: the column pass
+    of the composed 2D route, after the rows (fft2, rfft2) or before them
+    (irfft2). Wc is any width (W, or W/2+1 for a half spectrum); H a power
+    of two that :func:`fft2_columns_serves`.
+
+    Writes ``out`` (a new tensor when None); ``out`` may be ``x`` itself,
+    which the kernel transforms in place. One launch, one HBM round trip:
+    each block reads a panel of neighbouring columns as runs of whole rows,
+    so the corner turn is addressing. ``inverse`` conjugates on the way in
+    and out and scales by 1/H.
+    """
+    _check(x, "fft2_columns", torch.complex64, 3)
+    f, h, wc = x.shape
+    _check_pow2(h, "fft2_columns", "frame height")
+    _panel(radix)
+    if not fft2_columns_serves(h):
+        raise ValueError(f"fft2_columns: columns of {h} values exceed one block's panel "
+                         f"(H <= {COLUMN_PANEL_VALUES // COLUMN_PANEL_MIN_COLS})")
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or out.device != x.device):
+        raise ValueError(f"fft2_columns: out must match x, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    if x.device.type == "cpu":
+        y = fft2_columns_plain(x, radix=radix, inverse=inverse)
+        return y if out is None else out.copy_(y)
+    _check_launchable(x, "fft2_columns")
+    if out is None:
+        out = torch.empty_like(x)
+    _check_launchable(out, "fft2_columns")
+    if f and wc:
+        g = fft2_columns_geometry(h, wc)
+        _launch("repro_fft2_columns", "fft2_columns", x, x.data_ptr(), out.data_ptr(), f, h,
+                wc, radix, g.cols, g.threads, g.smem, int(inverse),
+                1.0 / h if inverse else 1.0)
     return out

@@ -5,14 +5,15 @@ kernels' row or frame batch.
 
   fft_kernel(x)    — fused 1D FFT along the last axis (``fft_fused``)
   fft2_kernel(x)   — 2D FFT of (..., H, W): ``fft2_fused`` when the frame
-                     fits one block, else rows, a corner turn in HBM, columns
+                     fits one block, else ``fft_fused`` rows, then
+                     ``fft2_columns`` in place on their output
   rfft_kernel(x)   — real-input 1D FFT, two-for-one (``rfft_fused``)
   irfft_kernel(y)  — its inverse (``irfft_fused``)
   rfft2_kernel(x)  — ``rfft2_fused`` when the real frame fits one block,
-                     else ``rfft_fused`` rows, a corner turn in HBM,
-                     ``fft_fused`` columns
-  irfft2_kernel(y) — ``irfft2_fused`` when it fits, else ``fft_fused``
-                     inverse columns, a corner turn, ``irfft_fused`` rows
+                     else ``rfft_fused`` rows, then ``fft2_columns`` in
+                     place on the F·H·(W/2+1) half spectra
+  irfft2_kernel(y) — ``irfft2_fused`` when it fits, else ``fft2_columns``
+                     inverse into a new buffer, then ``irfft_fused`` rows
   fft_staged(x)    — stage at a time: a bit-reversal gather, then log2 N
                      launches of ``butterfly_stage``, log2 N HBM round trips
 
@@ -24,7 +25,13 @@ The composed route emits a ``kernel.failover`` event with the reference's
 fields, ``budget`` being the block's shared-memory budget. It is a
 planned route, visible as an event, not a fallback under a kernel: both
 routes are hand-written kernels, and every pass runs a kernel; none falls
-back to plain code. A row of 2^14 < N <=
+back to plain code. The composed route is two HBM round trips: the row
+pass, and ``fft2_columns``, which reads panels of neighbouring columns
+straight from the row pass's layout, so the corner turn is addressing.
+Columns longer than that kernel's panel (H > 4096,
+:func:`~repro_torch.kernels.fft_radix2.fft2_columns_serves`) take the
+planned turn route instead: a corner turn through HBM, ``fft_fused`` on the
+columns as rows, a turn back. A row of 2^14 < N <=
 2^18 values, on a 1D entry or on a pass of the composition, takes the
 1D wrappers' cluster kernel (radix 4) or two-pass kernels (radix 2);
 the planner's working-set gate keeps longer rows away from these entry
@@ -41,6 +48,8 @@ from repro_torch import obs
 from repro_torch.kernels.butterfly import butterfly_stage
 from repro_torch.kernels.fft_radix2 import (
     SMEM_BUDGET_BYTES,
+    fft2_columns,
+    fft2_columns_serves,
     fft2_fits_smem,
     fft2_fused,
     fft2_smem_bytes,
@@ -109,8 +118,24 @@ def _launchable(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _turn(z: torch.Tensor, f: int, a: int, b: int) -> torch.Tensor:
-    """Corner turn through HBM: (f*a, b) rows -> (f*b, a) rows."""
+    """Corner turn through HBM: (f*a, b) rows -> (f*b, a) rows. Only the
+    turn route of columns longer than ``fft2_columns`` serves runs it."""
     return z.reshape(f, a, b).transpose(-1, -2).contiguous().reshape(f * b, a)
+
+
+def _columns(z: torch.Tensor, f: int, h: int, wc: int, *, radix: int,
+             inverse: bool = False, in_place: bool = True) -> torch.Tensor:
+    """The column FFT of ``z`` viewed as (f, h, wc) frames, back as (f*h, wc)
+    rows: ``fft2_columns`` (in place on ``z`` unless ``in_place`` is False,
+    which leaves ``z`` as it was), or, for columns longer than it serves,
+    the turn route."""
+    if fft2_columns_serves(h):
+        frames = z.reshape(f, h, wc)
+        y = fft2_columns(frames, radix=radix, inverse=inverse,
+                         out=frames if in_place else None)
+        return y.reshape(f * h, wc)
+    y = fft_fused(_turn(z, f, h, wc), radix=radix, inverse=inverse)
+    return _turn(y, f, wc, h)
 
 
 def fft_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
@@ -136,8 +161,8 @@ def fft_staged(x: torch.Tensor) -> torch.Tensor:
 
 
 def fft2_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
-    """2D FFT of (..., H, W): one block per frame when it fits, else the
-    row / turn / column composition on ``fft_fused``."""
+    """2D FFT of (..., H, W): one block per frame when it fits, else
+    ``fft_fused`` rows and the column pass in place on their output."""
     h, w = x.shape[-2], x.shape[-1]
     z = _launchable(x, torch.complex64).reshape(-1, h, w)
     f = z.shape[0]
@@ -145,8 +170,7 @@ def fft2_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> to
         y = fft2_fused(z, radix=radix, inverse=inverse)
     else:
         y = fft_fused(z.reshape(f * h, w), radix=radix, inverse=inverse)
-        y = fft_fused(_turn(y, f, h, w), radix=radix, inverse=inverse)
-        y = _turn(y, f, w, h)
+        y = _columns(y, f, h, w, radix=radix, inverse=inverse)
     return y.reshape(x.shape)
 
 
@@ -166,8 +190,8 @@ def irfft_kernel(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 
 def rfft2_kernel(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Real 2D FFT of (..., H, W) -> (..., H, W/2+1): one ``rfft2_fused``
-    block per frame when it fits, else ``rfft_fused`` rows, a corner turn
-    in HBM, ``fft_fused`` on the F·(W/2+1) columns."""
+    block per frame when it fits, else ``rfft_fused`` rows and the column
+    pass in place on the F·(W/2+1) columns of their half spectra."""
     h, w = x.shape[-2], x.shape[-1]
     half = w // 2 + 1
     z = _launchable(x, torch.float32).reshape(-1, h, w)
@@ -176,15 +200,15 @@ def rfft2_kernel(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
         y = rfft2_fused(z, radix=radix)
     else:
         y = rfft_fused(z.reshape(f * h, w), radix=radix)
-        y = fft_fused(_turn(y, f, h, half), radix=radix)
-        y = _turn(y, f, half, h)
+        y = _columns(y, f, h, half, radix=radix)
     return y.reshape(*x.shape[:-1], half)
 
 
 def irfft2_kernel(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Inverse of :func:`rfft2_kernel`: (..., H, W/2+1) -> real (..., H, W):
-    one ``irfft2_fused`` block per frame when it fits, else ``fft_fused``
-    inverse on the columns, a corner turn, ``irfft_fused`` rows."""
+    one ``irfft2_fused`` block per frame when it fits, else the inverse
+    column pass into a new buffer (the caller's spectrum stays as it was),
+    then ``irfft_fused`` rows."""
     h, half = y.shape[-2], y.shape[-1]
     w = 2 * (half - 1)
     z = _launchable(y, torch.complex64).reshape(-1, h, half)
@@ -192,8 +216,8 @@ def irfft2_kernel(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     if _whole_frame("irfft2d", h, w, f, real=True):
         out = irfft2_fused(z, radix=radix)
     else:
-        z = fft_fused(_turn(z, f, h, half), radix=radix, inverse=True)
-        out = irfft_fused(_turn(z, f, half, h), radix=radix)
+        z = _columns(z, f, h, half, radix=radix, inverse=True, in_place=False)
+        out = irfft_fused(z, radix=radix)
     return out.reshape(*y.shape[:-1], w)
 
 

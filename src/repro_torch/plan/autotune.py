@@ -21,8 +21,12 @@ a 2D frame that fits a block, and for a row over one block at radix 4 (the
 cluster kernel of ``csrc/fft_cluster.cu`` holds it in the shared memory
 of C CTAs); at radix 2 two for a complex row over one block (the
 two-pass kernels) and three for a real one (plus its recombination or
-untangling); a composed 2D frame adds its passes' round trips to one
-for the corner turns. Shared memory: every pass reads and writes the
+untangling); a composed 2D frame is its row pass's round trips plus one
+for the column pass (``csrc/fft2_columns.cu`` reads the columns where the
+row pass wrote them, in one panel a block, whose passes and exchanges are
+those of a one-block row of H values), and where the columns are longer
+than that kernel serves (H > 4096) the column rows' trips plus one for the
+two corner turns through HBM. Shared memory: every pass reads and writes the
 block's values once. A stage-at-a-time Stockham pass (radix 2; the
 two-pass kernels and ``fft2_fused``) does one butterfly stage, or two
 layers at radix 4. A one-block row at radix 4 runs the register-pass panel
@@ -185,7 +189,8 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
     """Modelled time of the fused kernels on the card: max(HBM, shared
     memory) over every launch the call makes, plus ``pass_s`` per
     shared-memory pass."""
-    from repro_torch.kernels.ops import fft2_fits_budget  # lazy
+    from repro_torch.kernels.fft_radix2 import fft2_columns_serves  # lazy
+    from repro_torch.kernels.ops import fft2_fits_budget
 
     elem_bytes = 16.0 if key.precision == "double" else 8.0
     elems = float(np.prod(key.shape, dtype=np.int64))
@@ -200,8 +205,10 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
             passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
         else:
             row_trips, row_passes = _row_cost(w, radix, real, inverse)
+            # fft2_columns costs what a one-block row of H does: one trip,
+            # its panel's passes; longer columns add the two corner turns.
             col_trips, col_passes = _row_cost(h, radix, False)
-            trips = row_trips + col_trips + 1  # + the two corner turns
+            trips = row_trips + col_trips + (0 if fft2_columns_serves(h) else 1)
             passes = row_passes + col_passes
     if real:
         elems *= 0.5

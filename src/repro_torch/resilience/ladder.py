@@ -25,7 +25,9 @@ never waits for the card.
 The opt-in output-health guard (``xfft.config(check_health="nan")``)
 treats a non-finite output the same way: the producing engine takes a
 failure, the call retries one rung down. On the card the check is one
-wait for the card a call, paid only under the guard. If every rung
+wait for the card a call, paid only under the guard; inside a CUDA
+graph capture, where no wait is legal, it reads nothing and counts the
+output healthy, as the reference does a traced one. If every rung
 yields non-finite values the last output is returned as-is — at that
 point the *input* is poisoned and no engine can do better.
 
@@ -53,11 +55,16 @@ def _check_health_enabled() -> bool:
 
 def _is_finite(out: Any) -> bool:
     """False only when ``out`` is a tensor holding a non-finite value
-    (on the card: one wait for the card); any other payload counts as
+    (on the card: one wait for the card). Any other payload counts as
+    healthy, and so does every output while a CUDA graph is captured or
+    ``torch.compiler`` traces the call (``plan.api._trace_safe``): its
+    values cannot be read there, as the reference counts a tracer
     healthy."""
     import torch  # lazy: the ladder module itself needs no torch
 
-    if not isinstance(out, torch.Tensor):
+    from repro_torch.plan.api import _trace_safe  # lazy: plan sits above resilience
+
+    if not isinstance(out, torch.Tensor) or not _trace_safe():
         return True
     return bool(torch.isfinite(out).all())
 

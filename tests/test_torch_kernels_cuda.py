@@ -91,7 +91,7 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
     assert k.LAUNCHES == {"fft_fused": 56, "rfft_fused": 28, "irfft_fused": 5, "fft2_fused": 3,
                           "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
                           "flash_attention_fwd": 0, "slstm_scan": 0, "fft_two_pass": 0,
-                          "fft_cluster": 0}
+                          "fft_cluster": 0, "fft2_columns": 0}
 
 
 @pytest.mark.cuda
@@ -297,7 +297,8 @@ def test_cuda_xfft_plans_onto_the_kernels(cuda):
     k.reset_launches()
     back = xfft.irfft2(xfft.rfft2(big))
     assert k.LAUNCHES["rfft_fused"] == 1 and k.LAUNCHES["irfft_fused"] == 1
-    assert k.LAUNCHES["fft_fused"] == 2 and k.LAUNCHES["rfft2_fused"] == 0
+    assert k.LAUNCHES["fft2_columns"] == 2 and k.LAUNCHES["fft_fused"] == 0
+    assert k.LAUNCHES["rfft2_fused"] == 0
     assert float((back - big).abs().max()) <= 1e-4 * float(big.abs().max())
 
 
@@ -573,8 +574,8 @@ def _mri_fixture(coils=8, n=256):
 @pytest.mark.cuda
 def test_cuda_mri_sense_and_cg_match_plain(cuda):
     """256x256 coil stacks are over one block: every centered transform is
-    the composed fft_fused rows and columns, two launches, and a CG
-    iteration is two transforms; the CG result stays within 1e-4 of the
+    the composed route, fft_fused rows and one fft2_columns launch, and a
+    CG iteration is two transforms; the CG result stays within 1e-4 of the
     CPU's plain schedules after 4 iterations."""
     from repro_torch import mri
 
@@ -584,8 +585,8 @@ def test_cuda_mri_sense_and_cg_match_plain(cuda):
     kd = mri.sense_forward(ph.numpy(), sm.numpy(), mask)    # numpy goes to the card
     assert kd.device.type == "cuda"
     x = mri.recon_cg_sense(kd, sm.to(cuda), mask, iters=4)
-    n = _launched(before, "fft_fused", "fft2_fused")
-    assert n == {"fft_fused": 2 * (1 + 1 + 2 * 4), "fft2_fused": 0}
+    n = _launched(before, "fft_fused", "fft2_columns", "fft2_fused")
+    assert n == {"fft_fused": 1 + 1 + 2 * 4, "fft2_columns": 1 + 1 + 2 * 4, "fft2_fused": 0}
     kc = mri.sense_forward(ph, sm, mask)
     assert _rel(kd.cpu(), kc) <= TOL
     assert _rel(x.cpu(), mri.recon_cg_sense(kc, sm, mask, iters=4)) <= 1e-4
@@ -709,9 +710,10 @@ def test_cuda_failover_fused_r4_to_fused(cuda, clean_breaker, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fft2", "rfft2", "irfft2"])
 def test_cuda_census_seam_runs_the_composed_route(cuda, name):
-    """A vmem fault at kernel.fused on (512, 128, 128): two 1D kernel passes
-    and two corner turns instead of one whole-frame launch, a
-    kernel.failover event, and the result within 2e-5 of torch.fft."""
+    """A vmem fault at kernel.fused on (512, 128, 128): one 1D kernel pass
+    on the rows and one fft2_columns launch instead of one whole-frame
+    launch, a kernel.failover event, and the result within 2e-5 of
+    torch.fft."""
     from repro_torch import obs
     from repro_torch.resilience import FaultPlan, FaultSpec
 
@@ -723,7 +725,8 @@ def test_cuda_census_seam_runs_the_composed_route(cuda, name):
                                                                         mode="vmem"))):
         got = getattr(xfft, name)(x)
     n = {kn: c - before[kn] for kn, c in k.LAUNCHES.items() if c != before[kn]}
-    assert not any(kn.endswith("2_fused") for kn in n) and sum(n.values()) == 2, n
+    row = {"fft2": "fft_fused", "rfft2": "rfft_fused", "irfft2": "irfft_fused"}[name]
+    assert n == {row: 1, "fft2_columns": 1}, n
     (event,) = trace.select("kernel.failover")
     assert event["shape"] == (128, 128) and event["frames"] == 512
     assert _rel(got, getattr(torch.fft, name)(x)) <= TOL
@@ -761,3 +764,71 @@ def test_cuda_measure_inside_graph_capture_degrades(cuda):
     assert plan.mode == "estimate" and plan.degrade_reason == "trace_not_clean"
     assert trace.select("plan.measure") == []
     assert [e["reason"] for e in trace.select("plan.degrade")] == ["trace_not_clean"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radix", [2, 4])
+def test_cuda_fft2_columns_matches_plain(cuda, radix):
+    """fft2_columns against its plain version on panels of 64, 16, 8 and 4
+    columns, partial last panels and one-pass columns, in place and into a
+    new buffer (which leaves the input as it was), forward and inverse."""
+    g = torch.Generator(device=cuda).manual_seed(11 + radix)
+    for shape in ((3, 64, 129), (2, 256, 256), (2, 512, 257), (1, 1024, 513), (1, 2048, 40),
+                  (1, 4096, 9), (4, 8, 1000), (2, 2, 3)):
+        x = torch.complex(torch.randn(*shape, generator=g, device=cuda),
+                          torch.randn(*shape, generator=g, device=cuda))
+        for inverse in (False, True):
+            want = k.fft2_columns_plain(x, radix=radix, inverse=inverse)
+            keep = x.clone()
+            got = k.fft2_columns(x, radix=radix, inverse=inverse)
+            assert torch.equal(x, keep) and _rel(got, want) <= TOL, (shape, inverse)
+            ref = torch.fft.ifft(x, dim=1) if inverse else torch.fft.fft(x, dim=1)
+            assert _rel(got, ref) <= TOL, (shape, inverse)
+            same = k.fft2_columns(keep, radix=radix, inverse=inverse, out=keep)
+            torch.cuda.synchronize()
+            assert same is keep and _rel(keep, want) <= TOL, (shape, inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fft2", "rfft2", "irfft2"])
+def test_cuda_composed_route_is_one_row_pass_and_one_column_pass(cuda, name):
+    """Frames over one block (256x512, 512x256, 1024x1024 and 2048x128) at
+    both radices: exactly one row kernel and one fft2_columns launch a call,
+    within 2e-5 of torch.fft."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    row = {"fft2": "fft_fused", "rfft2": "rfft_fused", "irfft2": "irfft_fused"}[name]
+    for shape in ((2, 256, 512), (2, 512, 256), (1, 1024, 1024), (2, 2048, 128)):
+        real = torch.randn(*shape, generator=g, device=cuda)
+        x = torch.fft.rfft2(real) if name == "irfft2" else (
+            real if name == "rfft2" else real.to(torch.complex64))
+        for radix in (2, 4):
+            before = dict(k.LAUNCHES)
+            got = getattr(ops, f"{name}_kernel")(x, radix=radix)
+            n = {kn: c - before[kn] for kn, c in k.LAUNCHES.items() if c != before[kn]}
+            assert n == {row: 1, "fft2_columns": 1}, (shape, radix, n)
+            assert _rel(got, getattr(torch.fft, name)(x)) <= TOL, (shape, radix)
+
+
+@pytest.mark.cuda
+def test_cuda_health_guard_inside_graph_capture(cuda):
+    """Under check_health="nan" a call captured in a CUDA graph runs its
+    kernel rung: the guard reads nothing while the stream captures, so no
+    rung is charged a failure, and the replay matches torch.fft."""
+    from repro_torch import obs, resilience
+
+    resilience.reset()
+    x = torch.randn(512, 128, 128, device=cuda).to(torch.complex64)
+    with xfft.config(check_health="nan"):
+        xfft.fft2(x)  # builds, plans and opts the kernel into its shared memory
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with obs.capture() as trace:
+            with torch.cuda.graph(graph):
+                y = xfft.fft2(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert trace.select("resilience.failover") == []
+    assert _rel(y, torch.fft.fft2(x)) <= TOL
+    resilience.reset()

@@ -538,6 +538,25 @@ def test_health_guard_off_by_default(torch_scope):
     assert trace.select("resilience.failover") == []
 
 
+def test_health_guard_reads_a_cpu_tensor_and_skips_what_it_cannot_read(monkeypatch):
+    """On a CPU tensor the guard still reads the values: a NaN or an inf is
+    unhealthy. While a CUDA graph is captured or torch.compiler traces the
+    call (``plan.api._trace_safe`` false) it reads nothing and counts the
+    output healthy, as the reference counts a tracer; a payload that is
+    not a tensor is healthy too."""
+    from repro_torch.plan import api
+
+    bad = torch.tensor([1.0, float("nan")])
+    assert not ladder._is_finite(bad)
+    assert not ladder._is_finite(torch.tensor([1.0, float("inf")], dtype=torch.complex64))
+    assert ladder._is_finite(torch.ones(3)) and ladder._is_finite(np.array([np.nan]))
+    monkeypatch.setattr(api, "_trace_safe", lambda: False)
+    assert ladder._is_finite(bad)
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    assert ladder._is_finite(bad)
+
+
 def test_all_rungs_nonfinite_returns_last_output(torch_scope):
     x = _frame()
     with obs.capture() as trace, xfft.config(faults=FaultPlan(FaultSpec("engine.apply",
@@ -642,7 +661,7 @@ def test_cuda_key_double_rung_is_reference_x64_and_a_torch_scope_widens():
                                             ("irfft2_kernel", "irfft2d", True)])
 def test_census_seam_takes_the_composed_route(name, kind, real):
     """A vmem fault at ``kernel.fused`` on a frame that fits one block runs
-    the composed route (rows, corner turn, columns: here the kernels'
+    the composed route (rows, then the column pass: here the kernels'
     plain versions on CPU tensors), emits ``kernel.failover`` with the
     reference's fields, and gives the one-block route's result (1e-5 of
     the largest value)."""

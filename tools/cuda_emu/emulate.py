@@ -9,7 +9,7 @@ called through ctypes with the census's own launch geometry. This checks the
 indexing, barriers and shared-memory bounds, not ptxas or timing: watch the
 chip's build log all the same. ``compile_library`` builds any of the
 ``.cu`` sources so; ``tests/test_torch_slstm_emu.py`` runs ``slstm_scan.cu``
-through it.
+through it, and ``tests/test_torch_fft2_columns.py`` ``fft2_columns.cu``.
 
     PYTHONPATH=src python tools/cuda_emu/emulate.py 8x8 128x128 16384x2
     PYTHONPATH=src python tools/cuda_emu/emulate.py --all     # every admitted frame
