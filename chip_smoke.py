@@ -139,14 +139,36 @@ Phases, each printing one JSON line:
              adjointness at 16 x 256^2 to 1e-12, every key planned on
              ``reference_x64`` and no single-precision kernel launched.
              Last, ``obs cost``: the k-space frames' fft2 and a cached
-             resolve_call with the always-on telemetry installed and
-             removed, in turns;
-   After each of the kernel, request, imaging and mri phases (one
-   ``obs.capture()`` around the four) a ``"check": "no degrade"`` line:
+             resolve_call with the always-on telemetry installed, dark
+             (``xfft.config(flight_recorder=False)``, the reference's
+             baseline) and removed, in turns;
+6. stream  — the paper's ping-pong processor, ``repro_torch.core.fft2d.
+             fft2_stream``, called as its users call it (variant and unroll
+             planned: ``fused_r4`` on the card): examples/serve_fft2d.py's 8
+             requests of 8 real 128x128 camera frames (each within 2e-5 of
+             ``torch.fft.fft2``, the same dominant bins), 64 CT slices of
+             512x512, 16 holograms of 1024x1024 and 16 time steps of 16
+             coils at 256x256 (c64). Each call must launch ceil(T/u)
+             ``fft_fused`` on one CUDA stream and as many ``fft2_columns``
+             on another, neither the caller's. One line a shape: the plan,
+             the error against ``torch.fft.fft2`` and against the plain
+             stream on the card (2e-5), and at unroll 1 and 2 the eager
+             two-stream call's time, the same steps on one stream, the
+             call captured in a CUDA graph and replayed (equal to the eager
+             call, bit for bit) and the one-stream steps replayed so, the
+             host's time to enqueue a call, and
+             frames/s (``benchmarks/throughput.py``'s metric); beside them
+             the batched route over all T frames at once
+             (``ops.fft2_kernel``), ``torch.fft.fft2`` and the two-trip
+             floor. Then the double stream on (8, 256, 256) under
+             ``xfft.config(precision="double")``: ``reference_x64``,
+             complex128, 1e-10, no kernel launched;
+   After each of the kernel, request, imaging, mri and stream phases (one
+   ``obs.capture()`` around the five) a ``"check": "no degrade"`` line:
    no ``resilience.failover``, ``resilience.fault`` or ``plan.degrade``
    event, no MEASURE candidate skipped, and ``kernel.failover`` (the
    composed 2D route) only on frames over the shared-memory census;
-6. resilience — faults injected through ``xfft.config(faults=...)``, one
+7. resilience — faults injected through ``xfft.config(faults=...)``, one
              line a check, the breaker on an injected clock: an
              ``engine.apply`` error on ``fused_r4`` for fft2 and rfft2 on
              (512, 128, 128) and fft on (64, 2^18) fails over to ``fused``
@@ -174,7 +196,7 @@ Phases, each printing one JSON line:
              and the planned engine's op alone, on a (256, 256) fft2 and
              the (4, 16, 256, 256) k-space frames. Its launches do not
              count toward the ``kernels`` line;
-7. path    — the other entry points of ``repro_torch.kernels``, with the
+8. path    — the other entry points of ``repro_torch.kernels``, with the
              counts set to 0 just before and read just after:
              ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
              exactly 11 times and agree with ``torch.fft`` to 2e-5;
@@ -423,6 +445,16 @@ MEASURE_KEYS = (("fft2d", REG, "complex64"), ("fft2d", CT, "complex64"),
                 ("fft1d", STAGED, "complex64"), ("fft1d", TWO_PASS_COMPLEX, "complex64"),
                 ("rfft1d", TWO_PASS_REAL, "float32"))
 MEASURE_X64_KEY = ("fft2d", (16, 256, 256), "complex64")
+# The stream phase: the paper's ping-pong processor (fft2_stream) at the
+# sizes its users send: examples/serve_fft2d.py's requests (8 requests of 8
+# real 128x128 camera frames), 64 CT slices of 512x512, 16 holograms of
+# 1024x1024, 16 time steps of 16 coils at 256x256, and the double stream on
+# (8, 256, 256); each timed at unroll 1 and 2. Its two engines' kernels.
+STREAM_SERVE = (8, 8, 128, 128)  # requests, frames a request, H, W
+STREAM_SHAPES = ((64, 512, 512), (16, 1024, 1024), (16, 16, 256, 256))
+STREAM_X64 = (8, 256, 256)
+STREAM_UNROLLS = (1, 2)
+STREAM_KERNELS = ("fft_fused", "fft2_columns")
 # Events that mark a degrade: none may fire on the main path.
 DEGRADE_EVENTS = ("resilience.failover", "resilience.fault", "plan.degrade")
 COOLDOWN_S = 30.0      # the breaker's cooldown, driven by an injected clock
@@ -2111,7 +2143,8 @@ def _obs_cost(torch, xfft, resolve_call):
     ``resolve_call`` alone. Three states, in reps that rotate their order:
     ``lit`` (the flight recorder and calibration ledger installed at
     ``repro_torch.obs`` import, and a capture scope), ``dark`` (the
-    reference's baseline: the flight recorder removed) and ``bare`` (both
+    reference's baseline, as ``benchmarks/obs_bench.py`` makes it:
+    ``xfft.config(flight_recorder=False)``, no scope) and ``bare`` (both
     sinks removed; the planner still builds its event's fields). The
     medians are set against the reference's 3% gate and recorded, not held."""
     from repro_torch import obs
@@ -2136,15 +2169,16 @@ def _obs_cost(torch, xfft, resolve_call):
         return (time.perf_counter() - t0) / (10 * iters) * 1e6
 
     def run(state, fn):
+        if state == "lit":
+            with obs.capture():
+                return fn()
+        if state == "dark":
+            with xfft.config(flight_recorder=False):
+                return fn()
         saved = telemetry.flight_recorder(), telemetry.calibration_ledger()
-        if state != "lit":
-            telemetry.set_flight_recorder(None)
-        if state == "bare":
-            telemetry.set_calibration_ledger(None)
+        telemetry.set_flight_recorder(None)
+        telemetry.set_calibration_ledger(None)
         try:
-            if state == "lit":
-                with obs.capture():
-                    return fn()
             return fn()
         finally:
             telemetry.set_flight_recorder(saved[0])
@@ -2168,6 +2202,7 @@ def _obs_cost(torch, xfft, resolve_call):
         for base in ("dark", "bare"):
             line[name][f"overhead_pct_vs_{base}"] = (us["lit"] - us[base]) / us[base] * 100.0
         line[name]["within_gate"] = line[name]["overhead_pct_vs_bare"] <= OBS_GATE_PCT
+        line[name]["within_gate_vs_dark"] = line[name]["overhead_pct_vs_dark"] <= OBS_GATE_PCT
     obs.pop_observe(outer)
     emit(line)
     del frame, frames
@@ -2239,6 +2274,187 @@ def _mri_double(torch, k, xfft, resolve_call, tap):
         raise AssertionError("double: the plain schedules never ran")
     emit(line)
     torch.cuda.empty_cache()
+
+
+def stream_engines(torch, k):
+    """Patch the wrappers' launch to record each launch's CUDA stream;
+    returns (records, restore): records is a list of (kernel, stream)."""
+    seen, launch = [], k._launch
+
+    def spy(entry, name, x, *args):
+        seen.append((name, torch.cuda.current_stream(x.device).cuda_stream))
+        return launch(entry, name, x, *args)
+
+    k._launch = spy
+
+    def restore():
+        k._launch = launch
+
+    return seen, restore
+
+
+def one_stream(ops, z, unroll: int, radix: int):
+    """The stream's steps in the same order, all on the caller's stream:
+    what the two engines' concurrency is set against."""
+    h, w = z.shape[-2], z.shape[-1]
+    out = z.new_empty(z.shape)
+    steps = -(-z.shape[0] // unroll)
+
+    def view(a, s):
+        return a[s * unroll:(s + 1) * unroll].reshape(-1, h, w)
+
+    for s in range(steps + 1):
+        if s:
+            ops.stream_columns(view(out, s - 1), radix=radix)
+        if s < steps:
+            ops.stream_rows(view(z, s), view(out, s), radix=radix)
+    return out
+
+
+def captured(torch, fn):
+    """``fn`` captured in a CUDA graph (warmed up on a side stream first, as
+    PyTorch asks); returns (graph, its output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def stream_phase(torch, k, card: str):
+    """The paper's ping-pong processor: ``repro_torch.core.fft2d.fft2_stream``
+    as its users call it (variant and unroll planned), on
+    examples/serve_fft2d.py's requests, CT slices, holograms and coil time
+    series, then the double stream. Returns the launches of the checked
+    calls (the main path's), for the ``kernels`` line."""
+    from repro_torch.core.fft2d import fft2_stream
+    from repro_torch.kernels import ops
+    from repro_torch.plan.api import resolve
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    total = {kn: 0 for kn in STREAM_KERNELS}
+
+    def planned_call(name, x):
+        """One call as the user makes it; its launches and their streams
+        checked: ceil(T/u) of each engine, rows on one stream, columns on
+        another, neither the caller's."""
+        plan = resolve("fft2d_stream", tuple(x.shape), dev)
+        if plan.variant not in ("fused", "fused_r4"):
+            raise AssertionError(f"stream {name}: planned {plan.variant}, not a kernel")
+        seen, restore = stream_engines(torch, k)
+        before = dict(k.LAUNCHES)
+        try:
+            got = fft2_stream(x)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                    if k.LAUNCHES[kn] != before[kn]}
+        steps = -(-x.shape[0] // plan.unroll)
+        if launches != {kn: steps for kn in STREAM_KERNELS}:
+            raise AssertionError(f"stream {name}: launches {launches}, want {steps} of each "
+                                 f"of {STREAM_KERNELS}")
+        streams = {kn: {s for n, s in seen if n == kn} for kn in STREAM_KERNELS}
+        caller = torch.cuda.current_stream(dev).cuda_stream
+        rows, cols = (streams[kn] for kn in STREAM_KERNELS)
+        if len(rows) != 1 or len(cols) != 1 or rows == cols or caller in rows | cols:
+            raise AssertionError(f"stream {name}: engines not on two side streams: {streams}")
+        for kn in STREAM_KERNELS:
+            total[kn] += launches[kn]
+        return got, plan, launches
+
+    def line_for(name, x, got, plan, launches):
+        v, u = plan.variant, plan.unroll
+        radix = 4 if v == "fused_r4" else 2
+        frames = x.shape[0]
+        lib = torch.fft.fft2(x)
+        plain = fft2_stream(x, variant="radix4" if radix == 4 else "stockham", unroll=u)
+        z = x.to(torch.complex64)
+        n = z.numel()
+        line = {"phase": "stream", "call": name, "shape": list(x.shape),
+                "dtype": str(x.dtype).replace("torch.", ""), "card": card, "variant": v,
+                "unroll": u, "launches_per_call": launches,
+                "rel_err_vs_library": rel_err(got, lib), "max_abs_err_vs_library":
+                max_abs(got, lib), "rel_err_vs_plain_stream": rel_err(got, plain),
+                "by_unroll": {}}
+        for uu in STREAM_UNROLLS:
+            eager = lambda: fft2_stream(x, variant=v, unroll=uu)  # noqa: E731
+            ref = eager()
+            graph, replayed = captured(torch, eager)
+            graph.replay()
+            torch.cuda.synchronize()
+            single = lambda: one_stream(ops, z, uu, radix)  # noqa: E731
+            graph1, _ = captured(torch, single)
+            row = {"ms": time_ms(eager), "one_stream_ms": time_ms(single),
+                   "graph_ms": time_ms(graph.replay),
+                   "one_stream_graph_ms": time_ms(graph1.replay),
+                   "host_ms": enqueue_ms(torch, eager),
+                   "replay_equal": bool(torch.equal(replayed, ref))}
+            row["frames_per_s"] = frames / row["ms"] * 1e3
+            row["graph_frames_per_s"] = frames / row["graph_ms"] * 1e3
+            line["by_unroll"][uu] = row
+            if not row["replay_equal"]:
+                raise AssertionError(f"stream {name} unroll {uu}: graph replay differs")
+            del graph, graph1, replayed, ref
+        line["planned_ms"] = time_ms(lambda: fft2_stream(x))
+        line["frames_per_s"] = frames / line["planned_ms"] * 1e3
+        line["batched_route_ms"] = time_ms(lambda: ops.fft2_kernel(z, radix=radix))
+        line["library_ms"] = time_ms(lambda: torch.fft.fft2(x))
+        line["two_trip_floor_ms"] = 32 * n / hbm_bandwidth(card) * 1e3
+        for what in ("rel_err_vs_library", "rel_err_vs_plain_stream"):
+            if not line[what] <= TOL_KERNEL:
+                raise AssertionError(f"stream {name}: {what} {line[what]} > {TOL_KERNEL}")
+        emit(line)
+        del lib, plain, z
+        torch.cuda.empty_cache()
+
+    # examples/serve_fft2d.py: each request a stream of real camera frames.
+    requests, batch, h, w = STREAM_SERVE
+    worst, peaks_agree = 0.0, True
+    for step in range(0, requests * batch, batch):
+        x = torch.from_numpy(frame_source(step, batch, h, w)).to(dev)
+        got, plan, launches = planned_call("serve", x)
+        ref = torch.fft.fft2(x)
+        worst = max(worst, rel_err(got, ref))
+        peaks_agree &= bool(torch.equal(peaks(got), peaks(ref)))
+    if not (worst <= TOL_KERNEL and peaks_agree):
+        raise AssertionError(f"stream serve: rel_err {worst}, peaks agree {peaks_agree}")
+    line_for(f"serve_fft2d ({requests} requests)", x, got, plan, launches)
+    for shape in STREAM_SHAPES:
+        x = torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                          torch.randn(*shape, generator=gen, device=dev))
+        got, plan, launches = planned_call(str(shape), x)
+        line_for(str(tuple(shape)), x, got, plan, launches)
+        del x, got
+    # The double stream: reference_x64's pipeline at complex128, no kernel.
+    from repro_torch import xfft
+
+    x = torch.complex(torch.randn(*STREAM_X64, generator=gen, device=dev, dtype=torch.float64),
+                      torch.randn(*STREAM_X64, generator=gen, device=dev, dtype=torch.float64))
+    before = dict(k.LAUNCHES)
+    with xfft.config(precision="double"):
+        plan = resolve("fft2d_stream", STREAM_X64, dev)
+        got = fft2_stream(x)
+        ms = time_ms(lambda: fft2_stream(x), 3, 3)
+    launched = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                if k.LAUNCHES[kn] != before[kn]}
+    line = {"phase": "stream", "call": "double", "shape": list(STREAM_X64), "card": card,
+            "variant": plan.variant, "dtype": str(got.dtype).replace("torch.", ""),
+            "rel_err_vs_library": rel_err(got, torch.fft.fft2(x)), "ms": ms,
+            "library_ms": time_ms(lambda: torch.fft.fft2(x), 3, 3), "launches": launched}
+    emit(line)
+    if plan.variant != "reference_x64" or got.dtype != torch.complex128 or launched:
+        raise AssertionError(f"stream double: {line}")
+    if not line["rel_err_vs_library"] <= TOL_X64:
+        raise AssertionError(f"stream double: rel_err {line['rel_err_vs_library']}")
+    del x, got
+    torch.cuda.empty_cache()
+    return total
 
 
 def no_degrade(trace, phase: str, ops) -> None:
@@ -2720,8 +2936,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
-    # One capture over the kernel, request, imaging and mri phases: each is
-    # held to no degrade on the main path (no_degrade clears it after each).
+    # One capture over the kernel, request, imaging, mri and stream phases:
+    # each is held to no degrade on the main path (no_degrade clears it
+    # after each).
     with obs.capture() as trace:
         rows = kernel_phase(torch, k, card)
         composed_phase(torch, k, card)
@@ -2738,6 +2955,9 @@ def main() -> int:
         for name, n in mri_phase(torch, k, xfft, resolve_call, rows).items():
             launches[name] += n
         no_degrade(trace, "mri", ops)
+        for name, n in stream_phase(torch, k, card).items():
+            launches[name] += n
+        no_degrade(trace, "stream", ops)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})

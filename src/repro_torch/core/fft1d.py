@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core._deprecation import forward
 from repro_torch.kernels.fft_radix2 import fft_fused_plain
 from repro_torch.kernels.ops import fft_kernel
 
@@ -43,8 +44,10 @@ __all__ = [
     "bit_reversal_permutation",
     "butterfly_counts",
     "canonical_axis",
+    "fft",
     "fft_impl",
     "fft_routing_tables",
+    "ifft",
     "ifft_impl",
 ]
 
@@ -207,3 +210,16 @@ def ifft_impl(x: torch.Tensor, axis: int = -1, variant: str = "stockham",
         y = fft_kernel(z, radix=4 if variant == "fused_r4" else 2, inverse=True)
         return y if last else y.movedim(-1, axis_n)
     return torch.conj(fft_impl(torch.conj(x), axis=axis, variant=variant, dtype=dtype)) / n
+
+
+def fft(x, axis: int = -1, variant: Optional[str] = None):
+    """Deprecated alias of :func:`repro_torch.xfft.fft` (kept for old call
+    sites). ``None``/``"auto"`` lets the planner pick; a concrete variant is
+    honoured by scoping ``repro_torch.xfft.config(variant=...)`` around the
+    call."""
+    return forward("repro_torch.core.fft1d.fft", "fft", x, variant, axis=axis)
+
+
+def ifft(x, axis: int = -1, variant: Optional[str] = None):
+    """Deprecated alias of :func:`repro_torch.xfft.ifft` (kept for old call sites)."""
+    return forward("repro_torch.core.fft1d.ifft", "ifft", x, variant, axis=axis)

@@ -11,12 +11,16 @@ plain schedules in double precision, twiddles computed in float64.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core._deprecation import forward
 from repro_torch.core.fft1d import _check_pow2, _check_variant, fft_impl, ifft_impl
 from repro_torch.kernels.ops import irfft2_kernel, irfft_kernel, rfft2_kernel, rfft_kernel
 
-__all__ = ["rfft_impl", "irfft_impl", "rfft2_impl", "irfft2_impl"]
+__all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfft_impl", "irfft_impl", "rfft2_impl",
+           "irfft2_impl"]
 
 _FUSED = ("fused", "fused_r4")
 
@@ -127,3 +131,23 @@ def irfft2_impl(y: torch.Tensor, variant: str = "stockham",
         return irfft2_kernel(y, radix=_radix(variant))
     z = ifft_impl(y, axis=-2, variant=variant, dtype=dtype)
     return irfft_impl(z, axis=-1, variant=variant, dtype=dtype)
+
+
+def rfft(x, axis: int = -1, variant: Optional[str] = None):
+    """Deprecated alias of :func:`repro_torch.xfft.rfft` (kept for old call sites)."""
+    return forward("repro_torch.core.rfft.rfft", "rfft", x, variant, axis=axis)
+
+
+def irfft(y, axis: int = -1, variant: Optional[str] = None):
+    """Deprecated alias of :func:`repro_torch.xfft.irfft` (kept for old call sites)."""
+    return forward("repro_torch.core.rfft.irfft", "irfft", y, variant, axis=axis)
+
+
+def rfft2(x, variant: Optional[str] = None):
+    """Deprecated alias of :func:`repro_torch.xfft.rfft2` (kept for old call sites)."""
+    return forward("repro_torch.core.rfft.rfft2", "rfft2", x, variant)
+
+
+def irfft2(y, variant: Optional[str] = None):
+    """Deprecated alias of :func:`repro_torch.xfft.irfft2` (kept for old call sites)."""
+    return forward("repro_torch.core.rfft.irfft2", "irfft2", y, variant)

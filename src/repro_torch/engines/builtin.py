@@ -14,6 +14,14 @@ numbers come from the kernels' census (``repro_torch.kernels.fft_radix2``).
 a CUDA key it also needs the card to hold one cluster of each instance the
 key launches (``cluster_occupancy``); where it cannot, the key plans
 ``fused``, whose radix-2 rows take the two-pass kernels.
+
+Every engine serves the streaming kind ``fft2d_stream``
+(``repro_torch.core.fft2d.fft2_stream``, forward only). The reference's
+fused kernels do not serve it; here ``fused``/``fused_r4`` serve it on
+CUDA keys only, where the stream runs their row and column kernels on two
+CUDA streams. A CPU key therefore plans the stream exactly as the
+reference does, on the schedules, and an unscoped CUDA key on the kernels
+(ROADMAP queue 3, divergence 6).
 """
 
 from __future__ import annotations
@@ -22,8 +30,11 @@ import functools
 
 from repro_torch.engines.registry import CostHints, EngineSpec, register_alias, register_engine
 
-#: Kinds the engines execute (stream, pencil and oaconv kinds wait).
-_KINDS = ("fft1d", "fft2d", "rfft1d", "rfft2d")
+#: Kinds the engines execute (the pencil kind waits; oaconv2d plans a tile
+#: and runs the 2D kinds).
+_KINDS = ("fft1d", "fft2d", "fft2d_stream", "rfft1d", "rfft2d")
+#: Kinds whose transform dims are the last two.
+_2D_KINDS = ("fft2d", "fft2d_stream", "rfft2d")
 
 
 def _core_ops(name: str, **kw):
@@ -49,19 +60,26 @@ def _core_ops(name: str, **kw):
             from repro_torch.core.rfft import irfft2_impl, rfft2_impl
 
             return functools.partial(irfft2_impl if inv else rfft2_impl, variant=name, **kw)
+        if kind == "fft2d_stream" and not inv:
+            from repro_torch.core.fft2d import fft2_stream
+
+            return functools.partial(fft2_stream, variant=name, unroll=1, **kw)
         return None
 
     return factory
 
 
 def _dims(key):
-    if key.kind in ("fft2d", "rfft2d"):
+    if key.kind in _2D_KINDS:
         return key.shape[-2:] if len(key.shape) >= 2 else None
     return key.shape[-1:]
 
 
 def _fused_predicate(key) -> bool:
-    """Fused kernels need power-of-two transform dims."""
+    """Fused kernels need power-of-two transform dims, and serve the stream
+    on CUDA keys only (divergence 6)."""
+    if key.kind == "fft2d_stream" and key.backend != "cuda":
+        return False
     dims = _dims(key)
     return dims is not None and all(d >= 2 and (d & (d - 1)) == 0 for d in dims)
 
@@ -142,7 +160,7 @@ def _register_builtin_engines() -> None:
         register_engine(EngineSpec(
             name=name, backend="torch", kinds=_KINDS, radix=radix, cost=cost,
             reliable=(name == "stockham"), ops=_core_ops(name),
-        ))
+        ), _protect=True)
     register_alias("unrolled", "looped")
     for name, radix, flop_scale, predicate in (("fused", 2, 1.0, _fused_predicate),
                                                ("fused_r4", 4, 0.85, _fused_r4_predicate)):
@@ -158,7 +176,7 @@ def _register_builtin_engines() -> None:
             cost=CostHints(traffic_factor=4.0, stage_overhead_s=0.8e-6,
                            flop_scale=flop_scale),
             ops=_core_ops(name),
-        ))
+        ), _protect=True)
 
 
 _register_builtin_engines()

@@ -20,6 +20,7 @@ __all__ = [
     "PRECISIONS",
     "CostHints",
     "EngineSpec",
+    "engine",
     "get_engine",
     "has_engine",
     "iter_engines",
@@ -27,6 +28,7 @@ __all__ = [
     "register_engine",
     "registered_backends",
     "registered_variants",
+    "unregister_engine",
 ]
 
 #: Numeric precisions an engine may declare.
@@ -130,11 +132,18 @@ class EngineSpec:
 _REGISTRY: Dict[str, EngineSpec] = {}
 #: Other names of registered engines; never enumerated by the planner.
 _ALIASES: Dict[str, str] = {}
+#: The builtin engines, whose bodies the ``repro_torch.core`` dispatch
+#: chains run by name: replacing or removing one would leave dispatch
+#: running the original while the registry advertised another, so the
+#: registry refuses both, as the reference's does.
+_PROTECTED: set = set()
 
 
-def register_engine(spec: EngineSpec, *, replace: bool = False) -> EngineSpec:
+def register_engine(spec: EngineSpec, *, replace: bool = False,
+                    _protect: bool = False) -> EngineSpec:
     """Add ``spec`` to the registry, validating kinds and precisions, and
-    refusing a duplicate name unless ``replace=True``."""
+    refusing a duplicate name unless ``replace=True``; a builtin engine
+    cannot be replaced at all (register under a new name instead)."""
     if not spec.name or not isinstance(spec.name, str):
         raise ValueError(f"engine name must be a non-empty string, got {spec.name!r}")
     if not spec.kinds:
@@ -152,12 +161,45 @@ def register_engine(spec: EngineSpec, *, replace: bool = False) -> EngineSpec:
                 f"engine {spec.name!r} declares unknown precision {precision!r}; "
                 f"want members of {PRECISIONS}"
             )
-    if spec.name in _REGISTRY and not replace:
-        raise ValueError(
-            f"engine {spec.name!r} is already registered (pass replace=True to override)"
-        )
+    if spec.name in _ALIASES:
+        raise ValueError(f"{spec.name!r} is an alias of engine {_ALIASES[spec.name]!r}")
+    if spec.name in _REGISTRY:
+        if spec.name in _PROTECTED:
+            raise ValueError(
+                f"engine {spec.name!r} is a builtin fused into the core dispatch chains "
+                "and cannot be replaced; register your engine under a new name"
+            )
+        if not replace:
+            raise ValueError(
+                f"engine {spec.name!r} is already registered (pass replace=True to override)"
+            )
     _REGISTRY[spec.name] = spec
+    if _protect:
+        _PROTECTED.add(spec.name)
     return spec
+
+
+def unregister_engine(name: str) -> None:
+    """Remove an engine (plugin teardown, tests); an unknown name is a
+    no-op. Builtin engines, and their aliases, cannot be removed: core
+    dispatch would keep running them while the planner denied they exist."""
+    if _ALIASES.get(name, name) in _PROTECTED:
+        raise ValueError(f"builtin engine {name!r} cannot be unregistered")
+    _REGISTRY.pop(name, None)
+    for alias in [a for a, target in _ALIASES.items() if target == name]:
+        del _ALIASES[alias]
+
+
+def engine(name: str, **fields):
+    """Decorator-based registration: the decorated function is the spec's
+    ``ops`` factory (it receives ``(kind, direction)`` and returns the
+    transform callable, or None for a combination it cannot serve).
+    Returns the registered :class:`EngineSpec`."""
+
+    def deco(ops_factory: Callable) -> EngineSpec:
+        return register_engine(EngineSpec(name=name, ops=ops_factory, **fields))
+
+    return deco
 
 
 def register_alias(alias: str, name: str) -> None:

@@ -15,8 +15,11 @@ on the CPU and on the card alike: a double key on a CUDA tensor plans it
 (``plan.autotune.variant_candidates``), and it launches no single-precision
 kernel. ``reliable`` marks it, as in the reference, the double ladder's
 always-works rung. The reference's ``requires_x64`` has no counterpart:
-PyTorch keeps 64-bit dtypes without a mode. The ``fft2d_stream`` kind comes
-with the stream (ROADMAP).
+PyTorch keeps 64-bit dtypes without a mode. Its ``fft2d_stream`` op is the
+ping-pong pipeline of ``repro_torch.core.fft2d.fft2_stream`` on the same
+schedules at complex128 (the reference's ``x64.py`` stream, forward only):
+the row pass of frame t and the column pass of frame t-1 in one step, the
+carried rows at complex128 too.
 """
 
 from __future__ import annotations

@@ -1053,6 +1053,14 @@ def _check_launchable(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs an 8-byte aligned tensor")
 
 
+def _check_out(x: torch.Tensor, out: torch.Tensor | None, name: str) -> None:
+    """An ``out=`` buffer must match ``x`` in shape, dtype and device."""
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or out.device != x.device):
+        raise ValueError(f"{name}: out must match x, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+
+
 def _check_fused_row(n: int, name: str, real: bool = False) -> bool:
     """Raise where the reference's fused kernels raise (N > 2^18); return
     True when a row fits one block, False when it takes the two passes."""
@@ -1103,7 +1111,8 @@ def _cluster(x: torch.Tensor, src: int, dst: int, b: int, m: int, kind: str, con
             g.values, g.threads, g.smem, int(conj), scale)
 
 
-def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
+def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """FFT along the last axis of (B, N) complex64, N <= 2^18.
 
     A row that fits one block costs one HBM round trip. A longer row
@@ -1111,20 +1120,28 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torc
     launch) and the two-pass kernels at radix 2 (two of each).
     ``inverse`` conjugates on the way in and out and scales by 1/N: the
     inverse transform on the same panels, without extra passes over HBM.
+    Writes ``out`` (a new tensor when None): a buffer of ``x``'s shape,
+    dtype and device that does not overlap ``x``, such as a slice of a
+    larger output.
     """
     _check(x, "fft_fused", torch.complex64, 2)
     b, n = x.shape
     _check_pow2(n, "fft_fused")
     _panel(radix)
     one_block = _check_fused_row(n, "fft_fused")
+    _check_out(x, out, "fft_fused")
     if x.device.type == "cpu":
         if one_block:
-            return fft_fused_plain(x, radix=radix, inverse=inverse)
-        if radix == 4:
-            return fft_cluster_plain(x, inverse=inverse)
-        return fft_two_pass_plain(x, radix=radix, inverse=inverse)
+            y = fft_fused_plain(x, radix=radix, inverse=inverse)
+        elif radix == 4:
+            y = fft_cluster_plain(x, inverse=inverse)
+        else:
+            y = fft_two_pass_plain(x, radix=radix, inverse=inverse)
+        return y if out is None else out.copy_(y)
     _check_launchable(x, "fft_fused")
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    _check_launchable(out, "fft_fused")
     scale = 1.0 / n if inverse else 1.0
     if b and one_block:
         rows = pick_row_tile(b, n)
@@ -1290,10 +1307,7 @@ def fft2_columns(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
     if not fft2_columns_serves(h):
         raise ValueError(f"fft2_columns: columns of {h} values exceed one block's panel "
                          f"(H <= {COLUMN_PANEL_VALUES // COLUMN_PANEL_MIN_COLS})")
-    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
-                            or out.device != x.device):
-        raise ValueError(f"fft2_columns: out must match x, got {tuple(out.shape)} "
-                         f"{out.dtype} on {out.device}")
+    _check_out(x, out, "fft2_columns")
     if x.device.type == "cpu":
         y = fft2_columns_plain(x, radix=radix, inverse=inverse)
         return y if out is None else out.copy_(y)

@@ -16,6 +16,11 @@ kernels' row or frame batch.
                      inverse into a new buffer, then ``irfft_fused`` rows
   fft_staged(x)    — stage at a time: a bit-reversal gather, then log2 N
                      launches of ``butterfly_stage``, log2 N HBM round trips
+  stream_rows(z, out)  — engine 1 of the paper's ping-pong processor (fig.
+                     3): the row FFTs of frames into their output slots
+                     (``fft_fused`` with ``out=``)
+  stream_columns(y)    — engine 2: the column FFTs of those slots in place
+                     (``fft2_columns``, or the turn route for H > 4096)
 
 The whole-frame-or-composition choice of the 2D entries is made on the
 frame shape (:func:`fft2_fits_budget`) and on the ``kernel.fused`` fault
@@ -67,6 +72,8 @@ __all__ = [
     "fft_kernel",
     "fft_staged",
     "fft2_kernel",
+    "stream_rows",
+    "stream_columns",
     "rfft_kernel",
     "irfft_kernel",
     "rfft2_kernel",
@@ -172,6 +179,28 @@ def fft2_kernel(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> to
         y = fft_fused(z.reshape(f * h, w), radix=radix, inverse=inverse)
         y = _columns(y, f, h, w, radix=radix, inverse=inverse)
     return y.reshape(x.shape)
+
+
+def stream_rows(z: torch.Tensor, out: torch.Tensor, *, radix: int = 2) -> None:
+    """Engine 1 of the ping-pong processor: the row FFTs of (F, H, W)
+    contiguous complex64 frames ``z``, written into ``out`` (the write RAM,
+    a slot of the stream's output): one ``fft_fused`` call, nothing
+    allocated (rows over one block at radix 2 take the two-pass kernels and
+    their scratch, as on every entry)."""
+    f, h, w = z.shape
+    fft_fused(z.reshape(f * h, w), radix=radix, out=out.reshape(f * h, w))
+
+
+def stream_columns(y: torch.Tensor, *, radix: int = 2) -> None:
+    """Engine 2: the column FFTs of (F, H, W) contiguous complex64 frames
+    ``y`` in place (the read RAM, holding the previous step's rows):
+    ``fft2_columns`` on ``y`` itself; columns longer than it serves take the
+    turn route, whose result is copied back."""
+    f, h, w = y.shape
+    rows = y.reshape(f * h, w)
+    cols = _columns(rows, f, h, w, radix=radix)
+    if not fft2_columns_serves(h):
+        rows.copy_(cols)
 
 
 def rfft_kernel(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:

@@ -290,10 +290,11 @@ def execute(plan: FFTPlan, x, mesh=None, axis: str = "data"):
     ladder (:func:`repro_torch.resilience.run_plan`): an engine failure is
     quarantined and the call retries the next-best healthy rung. An
     ``oaconv2d`` plan takes ``x=(image, kernel)`` and runs
-    ``repro_torch.imaging.tiled.oaconvolve2`` on the plan's tile. The
-    stream and pencil kinds wait for their slices (ROADMAP queue 1, items
-    8 and 11). A tensor runs on its own device; other input goes to the
-    card.
+    ``repro_torch.imaging.tiled.oaconvolve2`` on the plan's tile. An
+    ``fft2d_stream`` plan runs ``repro_torch.core.fft2d.fft2_stream`` under
+    the plan's variant and unroll, through the ladder too. The pencil kind
+    waits for the multi-device slice (ROADMAP queue 1, item 11). A tensor
+    runs on its own device; other input goes to the card.
     """
     kind = plan.key.kind
     if kind in ("fft1d", "fft2d", "rfft1d", "rfft2d"):
@@ -311,9 +312,11 @@ def execute(plan: FFTPlan, x, mesh=None, axis: str = "data"):
         image, kernel = x
         return oaconvolve2(image, kernel, tile=plan.tile)
     if kind == "fft2d_stream":
-        raise NotImplementedError(
-            "execute() of an fft2d_stream plan waits for the stream (ROADMAP queue 1, item 8)"
-        )
+        from repro_torch.core.fft2d import fft2_stream  # lazy: core imports plan lazily
+        from repro_torch.xfft._transforms import _as_tensor
+
+        x = _as_tensor(x)
+        return run_plan(plan, lambda v: fft2_stream(x, variant=v, unroll=plan.unroll))
     if kind == "fft2d_pencil":
         raise NotImplementedError(
             "execute() of an fft2d_pencil plan waits for the multi-device slice "

@@ -38,7 +38,10 @@ panel over lines of Q = m/A values (A = 16, 32 or 64 lines a row), so its
 exchanges are the panel's over Q values, plus the load's regrouping of
 each CTA's runs into lines and the one read across the cluster
 (``cluster_exchanges``).
-The kernel's time is the larger of the two plus the engine's
+The streaming kind (``fft2d_stream``) always runs the composed route, rows
+then ``fft2_columns``, frame by frame on two CUDA streams, and its
+``unroll`` (frames a step) comes from :func:`_estimate_unroll`, the
+reference's rule. The kernel's time is the larger of the two plus the engine's
 ``stage_overhead_s`` per pass, so the radix-4 kernels, with fewer passes
 and round trips, win wherever both fit, as the kernels' times on the card
 show (``chip_smoke.py``). The schedules and the CPU keep the
@@ -49,6 +52,7 @@ modelled like its schedule plus call overheads.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -188,7 +192,8 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
 def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
     """Modelled time of the fused kernels on the card: max(HBM, shared
     memory) over every launch the call makes, plus ``pass_s`` per
-    shared-memory pass."""
+    shared-memory pass. The stream never runs a frame in one block, and
+    launches its row and column kernels once a step."""
     from repro_torch.kernels.fft_radix2 import fft2_columns_serves  # lazy
     from repro_torch.kernels.ops import fft2_fits_budget
 
@@ -200,7 +205,7 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
         trips, passes = _row_cost(key.shape[-1], radix, real, inverse)
     else:
         h, w = key.shape[-2], key.shape[-1]
-        if fft2_fits_budget(h, w, real=real):
+        if key.kind != "fft2d_stream" and fft2_fits_budget(h, w, real=real):
             trips = 1
             passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
         else:
@@ -214,7 +219,10 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
         elems *= 0.5
     hbm = 2.0 * elem_bytes * elems * trips / HBM_BW
     smem = 2.0 * elem_bytes * elems * passes / SMEM_BW
-    return max(hbm, smem) + trips * _KERNEL_LAUNCH_S + passes * pass_s
+    launches = trips
+    if key.kind == "fft2d_stream":
+        launches *= math.ceil(key.shape[0] / _estimate_unroll(key))
+    return max(hbm, smem) + launches * _KERNEL_LAUNCH_S + passes * pass_s
 
 
 def estimate_variant_time(key: ProblemKey, variant: str) -> float:
@@ -246,6 +254,17 @@ def estimate_variant_time(key: ProblemKey, variant: str) -> float:
         t += _KERNEL_LAUNCH_S + _PLAIN_OVERHEAD_S
     t += passes * spec.cost.stage_overhead_s
     return t + spec.cost.entry_overhead_s
+
+
+def _estimate_unroll(key: ProblemKey) -> int:
+    """Frames a step of the stream (the reference's scan unroll): 2 for
+    short frames of at most 128 x 128 values when the stream holds two
+    frames or more, else 1; every other kind 1."""
+    if key.kind != "fft2d_stream" or len(key.shape) < 3:
+        return 1
+    if key.shape[0] >= 2 and key.shape[-2] * key.shape[-1] <= 128 * 128:
+        return 2
+    return 1
 
 
 def oaconv_tile_candidates(key: ProblemKey) -> List[Tuple[int, int]]:
@@ -313,7 +332,8 @@ def estimate_plan(key: ProblemKey) -> FFTPlan:
         return _estimate_oaconv_plan(key)
     times = {v: estimate_variant_time(key, v) for v in variant_candidates(key)}
     variant = min(times, key=times.get)
-    return FFTPlan(key=key, variant=variant, mode="estimate", est_time_s=times[variant])
+    return FFTPlan(key=key, variant=variant, unroll=_estimate_unroll(key), mode="estimate",
+                   est_time_s=times[variant])
 
 
 # ------------------------------- MEASURE ---------------------------------
@@ -326,8 +346,10 @@ def estimate_plan(key: ProblemKey) -> FFTPlan:
 #: so the guard bounds sweeps that are slow, not ones that never return.
 MEASURE_CANDIDATE_BUDGET_S = 30.0
 
-#: Kinds MEASURE times, each through its engines' op.
-_MEASURED_KINDS = ("fft1d", "fft2d", "rfft1d", "rfft2d")
+#: Kinds MEASURE times, each through its engines' op (the stream also at
+#: each unroll of :data:`STREAM_UNROLLS` on the builtin engines).
+_MEASURED_KINDS = ("fft1d", "fft2d", "fft2d_stream", "rfft1d", "rfft2d")
+STREAM_UNROLLS = (1, 2)
 
 
 class MeasureTimeout(Exception):
@@ -408,13 +430,11 @@ def _measure_input(key: ProblemKey, seed: int = 0):
 
 def _candidate_runners(key: ProblemKey) -> Dict[Tuple[str, int], Callable]:
     """(variant, unroll) -> the engine's op for this problem kind (no
-    compilation step: the op runs as it is)."""
+    compilation step: the op runs as it is). The stream's builtin engines
+    run at each unroll of :data:`STREAM_UNROLLS`; a registry engine runs its
+    own stream op once, as in the reference."""
     from repro_torch.engines import get_engine  # lazy: engines is the leaf layer
 
-    if key.kind == "fft2d_stream":
-        raise NotImplementedError(
-            "MEASURE of the fft2d_stream kind waits for the stream (ROADMAP queue 1, item 8)"
-        )
     if key.kind == "fft2d_pencil":
         raise NotImplementedError(
             "MEASURE of the fft2d_pencil kind waits for the multi-device slice "
@@ -425,6 +445,16 @@ def _candidate_runners(key: ProblemKey) -> Dict[Tuple[str, int], Callable]:
             f"MEASURE planning is unavailable for kind {key.kind!r} (oaconv2d tile "
             "choice is analytic); use mode='estimate' instead"
         )
+    if key.kind == "fft2d_stream":
+        from repro_torch.core.fft1d import BUILTIN_VARIANTS
+        from repro_torch.core.fft2d import fft2_stream  # lazy: core imports plan lazily
+
+        runners = {}
+        for v in variant_candidates(key):
+            for u in STREAM_UNROLLS if v in BUILTIN_VARIANTS else (1,):
+                runners[(v, u)] = (functools.partial(fft2_stream, variant=v, unroll=u)
+                                   if v in BUILTIN_VARIANTS else get_engine(v).op(key.kind))
+        return runners
     return {(v, 1): get_engine(v).op(key.kind, key.direction) for v in variant_candidates(key)}
 
 

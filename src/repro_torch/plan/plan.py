@@ -33,10 +33,10 @@ __all__ = [
 #: backend scope in the key).
 PLAN_SCHEMA_VERSION = 5
 
-#: Problem kinds of the wisdom schema. The port's engines serve the first,
-#: second, fifth and sixth; the planner also plans ``oaconv2d`` (the tile
-#: of ``repro_torch.imaging.tiled.oaconvolve2``). The stream and pencil
-#: kinds wait for their slices.
+#: Problem kinds of the wisdom schema. The port's engines serve all but
+#: the pencil kind, which waits for the multi-device slice; the planner
+#: also plans ``oaconv2d`` (the tile of
+#: ``repro_torch.imaging.tiled.oaconvolve2``).
 KINDS = (
     "fft1d", "fft2d", "fft2d_stream", "fft2d_pencil", "rfft1d", "rfft2d",
     "oaconv2d",
@@ -150,9 +150,9 @@ class FFTPlan:
 
     The fields after ``variant`` are the reference's, kept so wisdom round
     trips between the packages: ``tile`` is the overlap-save tile of an
-    ``oaconv2d`` plan; ``unroll`` and ``chunks`` belong to the stream and
-    pencil kinds, which the port does not run yet, and ``measured_us`` to
-    MEASURE.
+    ``oaconv2d`` plan; ``unroll`` is the stream's frames a step, ``chunks``
+    belongs to the pencil kind, which the port does not run yet, and
+    ``measured_us`` to MEASURE.
     """
 
     key: ProblemKey

@@ -2,7 +2,7 @@
 
 Port of ``repro.xfft``: eight transforms (``fft``/``ifft``, ``fft2``/
 ``ifft2``, ``rfft``/``irfft``, ``rfft2``/``irfft2``), ``fftn``/``ifftn``,
-``rfftn``/``irfftn`` over one or two axes, the shifts and the sample
+``rfftn``/``irfftn`` over any number of axes, the shifts and the sample
 frequencies, with ``norm="backward"|"ortho"|"forward"``, ``axes=`` and
 ``n``/``s`` resizing. Every transform is planned by ``repro_torch.plan``
 over the ``repro_torch.engines`` registry; on the card the planner's fused

@@ -1,11 +1,12 @@
 """Context-scoped configuration for the ``repro_torch.xfft`` namespace.
 
-Port of ``repro.xfft._config`` for the fields ``variant``, ``mode``,
-``precision``, ``cache_dir``, ``backend``, ``faults`` and
-``check_health``; ``observe`` and ``flight_recorder`` wait (ROADMAP queue
-1, item 10). :func:`config` applies its overrides at once and, used as a
-context manager, restores the previous configuration on exit. Scoping is
-:mod:`contextvars`-based, so scopes nest and never leak between threads.
+Port of ``repro.xfft._config``: the fields ``variant``, ``mode``,
+``precision``, ``cache_dir``, ``backend``, ``observe``, ``faults`` and
+``check_health``, and the ``flight_recorder`` argument. :func:`config`
+applies its overrides at once and, used as a context manager, restores the
+previous configuration on exit. Scoping is :mod:`contextvars`-based, so
+scopes nest and never leak between threads; the flight recorder is
+process-wide state, swapped by the scope and restored on its exit.
 
     import repro_torch.xfft as xfft
 
@@ -21,6 +22,8 @@ context manager, restores the previous configuration on exit. Scoping is
                                                 match={"engine": "fused_r4"})),
                      check_health="nan"):
         y = xfft.fft2(frames)               # fails over to the radix-2 kernel
+    with xfft.config(flight_recorder=False):
+        y = xfft.fft2(frames)               # the always-on recorder off here
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import contextvars
 import dataclasses
 from typing import Any, Optional, Sequence, Tuple, Union
 
+from repro_torch import obs
 from repro_torch.engines import get_engine, has_engine, registered_backends, registered_variants
+from repro_torch.obs import telemetry as _telemetry
 from repro_torch.resilience.faults import FaultPlan, pop_faults, push_faults
 
 __all__ = ["XFFTConfig", "config", "get_config"]
@@ -65,6 +70,12 @@ class XFFTConfig:
                 ``""`` to :func:`config` to clear an inherited directory.
     backends  — engine-backend families the planner may consider (e.g.
                 ``("torch",)``); ``()`` means all.
+    observe   — observability policy for calls in scope: a
+                :class:`repro_torch.obs.Trace` collects every event emitted
+                in scope into that trace; ``True`` turns spans into
+                ``torch.profiler`` ranges; ``False`` (the default) disables
+                both. ``repro_torch.obs.capture()`` is the usual spelling;
+                this field lets a long-lived scope stream into one trace.
     faults    — chaos policy for calls in scope: a
                 :class:`repro_torch.resilience.FaultPlan` injects its
                 seeded fault schedule into every named seam reached in
@@ -73,6 +84,9 @@ class XFFTConfig:
                 non-finite transform output as an engine failure (one
                 wait for the card a call); ``"off"`` (the default)
                 trusts outputs.
+
+    ``flight_recorder=`` is an argument of :func:`config`, not a field: the
+    recorder is process-wide state, not part of the planning configuration.
     """
 
     variant: Optional[str] = None
@@ -80,6 +94,7 @@ class XFFTConfig:
     precision: str = "single"
     cache_dir: Optional[str] = None
     backends: Tuple[str, ...] = ()
+    observe: Any = False
     faults: Any = False
     check_health: str = "off"
 
@@ -116,8 +131,12 @@ class config:
     Unspecified fields inherit from the configuration active at call time;
     ``variant="auto"`` and ``backend="auto"`` clear an outer override.
     An explicit ``faults=`` arms a fresh seeded fault state for the scope
-    (``False`` pushes a cleared one); inheriting leaves the enclosing
-    scope's firing state alone.
+    (``False`` pushes a cleared one), and an explicit ``observe=`` pushes
+    its policy; inheriting leaves the enclosing scope's state alone.
+    ``flight_recorder`` installs a recorder for the scope: ``True`` a fresh
+    default one, ``False`` none (the black box off), an int a fresh one of
+    that capacity, or a :class:`repro_torch.obs.FlightRecorder`; the
+    previous recorder comes back on exit.
     """
 
     def __init__(
@@ -127,10 +146,31 @@ class config:
         precision: Optional[str] = None,
         cache_dir: Optional[str] = None,
         backend: Union[str, Sequence[str], None] = None,
+        observe: Any = None,
         faults: Any = None,
         check_health: Optional[str] = None,
+        flight_recorder: Any = None,
     ):
         prev = _ACTIVE.get()
+        if flight_recorder is None:
+            recorder = None
+        elif isinstance(flight_recorder, bool):
+            recorder = _telemetry.FlightRecorder() if flight_recorder else None
+        elif isinstance(flight_recorder, int):
+            recorder = _telemetry.FlightRecorder(capacity=flight_recorder)
+        elif isinstance(flight_recorder, _telemetry.FlightRecorder):
+            recorder = flight_recorder
+        else:
+            raise ValueError(
+                f"flight_recorder must be a repro_torch.obs.FlightRecorder, True (fresh "
+                f"default recorder), False (off), an int capacity, or None (inherit); "
+                f"got {flight_recorder!r}"
+            )
+        if observe is not None and not isinstance(observe, (bool, obs.Trace)):
+            raise ValueError(
+                f"observe must be a repro_torch.obs.Trace, True (profiler ranges), False "
+                f"(off) or None (inherit); got {observe!r}"
+            )
         if faults is not None and faults is not False and not isinstance(faults, FaultPlan):
             raise ValueError(
                 f"faults must be a repro_torch.resilience.FaultPlan, False (off) or None "
@@ -165,6 +205,7 @@ class config:
             cache_dir=(None if cache_dir == "" else
                        cache_dir if cache_dir is not None else prev.cache_dir),
             backends=backends if backends is not None else prev.backends,
+            observe=observe if observe is not None else prev.observe,
             faults=faults if faults is not None else prev.faults,
             check_health=check_health if check_health is not None else prev.check_health,
         )
@@ -184,6 +225,11 @@ class config:
                     f"outside the scoped backend restriction {merged.backends}"
                 )
         self._token = _ACTIVE.set(merged)
+        # Only an explicit observe= pushes obs scope state: a Trace pushed
+        # again by an inheriting scope would record every event twice.
+        self._obs_tokens = obs.push_observe(observe) if observe is not None else None
+        self._flight_prev = ((_telemetry.set_flight_recorder(recorder),)
+                             if flight_recorder is not None else None)
         self._faults_token = (
             push_faults(faults if isinstance(faults, FaultPlan) else None)
             if faults is not None else None
@@ -197,9 +243,15 @@ class config:
 
     def restore(self) -> None:
         """Undo this call's overrides (automatic when used as a context)."""
+        if self._flight_prev is not None:
+            _telemetry.set_flight_recorder(self._flight_prev[0])
+            self._flight_prev = None
         if self._faults_token is not None:
             pop_faults(self._faults_token)
             self._faults_token = None
+        if self._obs_tokens is not None:
+            obs.pop_observe(self._obs_tokens)
+            self._obs_tokens = None
         if self._token is not None:
             _ACTIVE.reset(self._token)
             self._token = None

@@ -301,26 +301,51 @@ def irfft2(x, s=None, axes=(-2, -1), norm: Optional[str] = None):
 
 
 def rfftn(x, s=None, axes=None, norm: Optional[str] = None):
-    """N-D real-input FFT over one or two axes (the ``rfft1d``/``rfft2d``
-    kinds); more axes are not ported yet."""
+    """N-D real-input FFT: the two-for-one :func:`rfft` along the last of
+    ``axes``, complex :func:`fft` passes over the rest, so a real array
+    never round-trips through a full complex ``fftn``. One- and two-axis
+    calls take the ``rfft1d``/``rfft2d`` kinds."""
     x = _real_input(x, "rfftn")
     axes = _fftn_axes(x, s, axes, "rfftn")
     if len(axes) == 1:
         return rfft(x, n=None if s is None else int(s[0]), axis=axes[0], norm=norm)
     if len(axes) == 2:
         return rfft2(x, s=s, axes=axes, norm=norm)
-    raise NotImplementedError("rfftn over more than two axes is not ported yet")
+    norm = _check_norm(norm)
+    canon = _canon_axes(axes, x.dim(), "rfftn")
+    if s is not None:
+        for target, ax in zip(s, canon):
+            x = _resize_axis(x, int(target), ax)
+    total = math.prod(x.shape[ax] for ax in canon)
+    y = rfft(x, axis=canon[-1])
+    for ax in canon[:-1]:
+        y = fft(y, axis=ax)
+    return _scale(y, norm, total, forward=True)
 
 
 def irfftn(x, s=None, axes=None, norm: Optional[str] = None):
-    """Inverse of :func:`rfftn` over one or two axes."""
+    """Inverse of :func:`rfftn`: complex inverse passes over the leading
+    axes, then the half-spectrum :func:`irfft` along the last, to a real
+    output."""
     x = _complex_input(x)
     axes = _fftn_axes(x, s, axes, "irfftn")
     if len(axes) == 1:
         return irfft(x, n=None if s is None else int(s[0]), axis=axes[0], norm=norm)
     if len(axes) == 2:
         return irfft2(x, s=s, axes=axes, norm=norm)
-    raise NotImplementedError("irfftn over more than two axes is not ported yet")
+    norm = _check_norm(norm)
+    canon = _canon_axes(axes, x.dim(), "irfftn")
+    total = 1
+    for i, ax in enumerate(canon[:-1]):
+        if s is not None:
+            x = _resize_axis(x, int(s[i]), ax)
+        total *= x.shape[ax]
+        x = ifft(x, axis=ax)
+    last = canon[-1]
+    n_last = int(s[-1]) if s is not None else 2 * (x.shape[last] - 1)
+    total *= n_last
+    y = irfft(x, n=n_last, axis=last)
+    return _scale(y, norm, total, forward=False)
 
 
 # ------------------------------- shifts -------------------------------

@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import fft1d, fft2d, rfft
+from repro_torch.core import fft1d, fft2d
 
-# repro.core re-exports functions named like its modules; take the modules.
+# repro.core and repro_torch.core re-export functions named like their
+# modules (``rfft``); take the modules.
+rfft = importlib.import_module("repro_torch.core.rfft")
 jfft1d = importlib.import_module("repro.core.fft1d")
 jfft2d = importlib.import_module("repro.core.fft2d")
 jrfft = importlib.import_module("repro.core.rfft")

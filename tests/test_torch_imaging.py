@@ -708,7 +708,10 @@ def test_convolution_resolves_through_plan(plan_calls, rng, frame):
 def test_forced_dispatch_reaches_imaging_ops(rng, monkeypatch):
     """A scoped variant override reroutes the transforms INSIDE the imaging
     ops: their FFTs go through resolve_call, not around it."""
-    import repro_torch.core.rfft as core_rfft
+    import importlib
+
+    # repro_torch.core re-exports the function rfft over its module's name.
+    core_rfft = importlib.import_module("repro_torch.core.rfft")
 
     kernel_calls = []
     real_kernel = core_rfft.rfft2_kernel

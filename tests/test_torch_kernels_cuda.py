@@ -832,3 +832,114 @@ def test_cuda_health_guard_inside_graph_capture(cuda):
     assert trace.select("resilience.failover") == []
     assert _rel(y, torch.fft.fft2(x)) <= TOL
     resilience.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radix", [2, 4])
+def test_cuda_fft_fused_writes_out(cuda, radix):
+    """fft_fused(out=) writes a slice of a larger buffer and nothing around
+    it, one block and over one block, and refuses an out that does not
+    match."""
+    g = torch.Generator(device=cuda).manual_seed(27 + radix)
+    for n in (1024, 2 ** 16):
+        x = torch.complex(torch.randn(6, n, generator=g, device=cuda),
+                          torch.randn(6, n, generator=g, device=cuda))
+        big = torch.zeros(10, n, dtype=torch.complex64, device=cuda)
+        got = k.fft_fused(x, radix=radix, out=big[2:8])
+        torch.cuda.synchronize()
+        assert got.data_ptr() == big[2:8].data_ptr()
+        assert _rel(big[2:8], k.fft_fused(x, radix=radix)) == 0.0
+        assert _rel(big[2:8], torch.fft.fft(x)) <= TOL
+        assert not big[:2].any() and not big[8:].any()
+    with pytest.raises(ValueError, match="out must match"):
+        k.fft_fused(x, radix=radix, out=torch.empty(6, n, dtype=torch.complex64))
+
+
+def _stream_launches(monkeypatch):
+    """Record the CUDA stream of every kernel launch: (kernel, stream)."""
+    seen = []
+    launch_fn = k._launch
+
+    def spy(entry, name, x, *args):
+        seen.append((name, torch.cuda.current_stream(x.device).cuda_stream))
+        return launch_fn(entry, name, x, *args)
+
+    monkeypatch.setattr(k, "_launch", spy)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 2])
+@pytest.mark.parametrize("shape", [(64, 512, 512), (16, 1024, 1024)])
+def test_cuda_stream_runs_two_engines_on_two_streams(cuda, monkeypatch, shape, unroll):
+    """fft2_stream under fused_r4: ceil(T/u) fft_fused launches on one CUDA
+    stream and as many fft2_columns launches on another, neither the
+    caller's; the output within 2e-5 of torch.fft.fft2 and equal to the
+    batched composed route's passes."""
+    from repro_torch.core.fft2d import fft2_stream
+
+    x = torch.randn(*shape, device=cuda).to(torch.complex64)
+    fft2_stream(x, variant="fused_r4", unroll=unroll)  # build, create the streams
+    seen = _stream_launches(monkeypatch)
+    k.reset_launches()
+    y = fft2_stream(x, variant="fused_r4", unroll=unroll)
+    torch.cuda.synchronize()
+    steps = -(-shape[0] // unroll)
+    assert k.LAUNCHES["fft_fused"] == steps and k.LAUNCHES["fft2_columns"] == steps
+    rows = {s for name, s in seen if name == "fft_fused"}
+    cols = {s for name, s in seen if name == "fft2_columns"}
+    caller = torch.cuda.current_stream(cuda).cuda_stream
+    assert len(rows) == 1 and len(cols) == 1 and rows != cols and caller not in rows | cols
+    assert _rel(y, torch.fft.fft2(x)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_stream_plans_the_kernels_and_serves_4d_batches(cuda):
+    """An unscoped stream on the card plans fused_r4 and its unroll; a
+    (T, B, H, W) batch and a stream of one frame run; the plain schedules on
+    the card give the same spectra."""
+    from repro_torch.core.fft2d import fft2_stream
+    from repro_torch.plan.api import resolve
+
+    for shape in ((16, 4, 256, 256), (1, 512, 512), (8, 128, 128)):
+        x = torch.randn(*shape, device=cuda).to(torch.complex64)
+        plan = resolve("fft2d_stream", shape, cuda)
+        assert plan.variant == "fused_r4"
+        assert plan.unroll == (2 if shape[-1] * shape[-2] <= 128 * 128 and shape[0] > 1 else 1)
+        y = fft2_stream(x)
+        assert _rel(y, torch.fft.fft2(x)) <= TOL
+        assert _rel(y, fft2_stream(x, variant="radix4", unroll=1)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_stream_captures_in_a_graph_and_replays(cuda):
+    """The two-stream pipeline captured in a CUDAGraph (both streams forked
+    from and joined back into the capture stream) replays to the eager
+    call's output, with no failover and no degrade."""
+    from repro_torch import obs, resilience
+    from repro_torch.core.fft2d import fft2_stream
+    from repro_torch.plan import FFTPlan, execute, problem_key
+
+    resilience.reset()
+    x = torch.randn(16, 512, 512, device=cuda).to(torch.complex64)
+    plan = FFTPlan(key=problem_key("fft2d_stream", tuple(x.shape), cuda), variant="fused_r4",
+                   unroll=2)
+    eager = execute(plan, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fft2_stream(x, variant="fused_r4", unroll=2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with obs.capture() as trace, xfft.config(check_health="nan"):
+        with torch.cuda.graph(graph):
+            y = execute(plan, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert trace.select("resilience.failover") == [] and trace.select("plan.degrade") == []
+    assert torch.equal(y, eager)
+    x.copy_(torch.randn_like(x))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _rel(y, torch.fft.fft2(x)) <= TOL
+    resilience.reset()

@@ -225,13 +225,24 @@ def test_trace_not_clean_degrades(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["fft2d_stream", "fft2d_pencil"])
 def test_stream_and_pencil_measure_name_their_queue_items(kind):
+    """The pencil kind still raises, naming its queue item (11); the stream
+    (item 8, ported) is measured at each unroll and executed."""
     key = ProblemKey(kind=kind, backend="cpu", device_kind="cpu", shape=(2, 8, 8),
                      dtype="complex64")
-    item = "item 8" if kind == "fft2d_stream" else "item 11"
-    with pytest.raises(NotImplementedError, match=item):
-        measure_plan(key)
-    with pytest.raises(NotImplementedError, match=item):
-        execute(FFTPlan(key=key, variant="stockham"), torch.zeros(2, 8, 8))
+    if kind == "fft2d_pencil":
+        with pytest.raises(NotImplementedError, match="item 11"):
+            measure_plan(key)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            execute(FFTPlan(key=key, variant="stockham"), torch.zeros(2, 8, 8))
+        return
+    timings = {}
+    plan = measure_plan(key, iters=1, timings_out=timings)
+    assert plan.mode == "measure" and plan.unroll in (1, 2)
+    assert set(timings) == {f"{v}{s}" for v in ("looped", "stockham", "radix4")
+                            for s in ("", "/unroll=2")}
+    x = np.random.default_rng(8).standard_normal((2, 8, 8)).astype(np.complex64)
+    got = execute(plan, torch.from_numpy(x)).numpy()
+    assert np.abs(got - np.fft.fft2(x)).max() <= TOL * np.abs(np.fft.fft2(x)).max()
 
 
 # ------------------------------ plan_fft ----------------------------------

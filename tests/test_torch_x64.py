@@ -153,7 +153,7 @@ def test_engine_declares_the_reference_capabilities():
     spec = get_engine("reference_x64")
     assert (spec.precisions, spec.dtypes, spec.reliable, spec.backend) == \
         (("double",), ("complex128", "float64"), True, "x64")
-    assert spec.kinds == ("fft1d", "fft2d", "rfft1d", "rfft2d")
+    assert spec.kinds == ("fft1d", "fft2d", "fft2d_stream", "rfft1d", "rfft2d")
     assert get_engine("stockham").reliable and not get_engine("fused_r4").reliable
 
 
