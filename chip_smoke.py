@@ -163,12 +163,40 @@ Phases, each printing one JSON line:
              floor. Then the double stream on (8, 256, 256) under
              ``xfft.config(precision="double")``: ``reference_x64``,
              complex128, 1e-10, no kernel launched;
-   After each of the kernel, request, imaging, mri and stream phases (one
-   ``obs.capture()`` around the five) a ``"check": "no degrade"`` line:
-   no ``resilience.failover``, ``resilience.fault`` or ``plan.degrade``
-   event, no MEASURE candidate skipped, and ``kernel.failover`` (the
-   composed 2D route) only on frames over the shared-memory census;
-7. resilience — faults injected through ``xfft.config(faults=...)``, one
+7. serve   — ``repro_torch.serve`` as its users call it, one line a call:
+             ``SpectrumService`` on 256 interleaved real and complex
+             128x128 frames under ``BatchPolicy(max_batch=16)``, call-scoped
+             (``serve()`` on arrival-order chunks of 16) and streaming
+             (``loop.submit`` and ``drain``): dispatches, requests/s, p50/p99
+             of the lanes' ``LatencyHistogram`` beside the raw samples' p99
+             (within one bucket), the loop dispatching no more batches than
+             the call-scoped run; where a 128x128 lane's host time goes
+             (stack, plan, the engine's op, the wait) beside the op's and
+             the kernel's card time; a lane of 32 complex 512x512 CT frames
+             and one of 16 real 1024x1024 holograms (the composed route);
+             one ``ImagingService`` queue of registrations (256x256, upsample
+             1 and 10), "same" convolutions of 1024x1024 holograms with
+             31x31 kernels, CG-SENSE recons of (16, 256, 256) k-space with
+             the mask on the card, and 128x128 spectra, each lane's result
+             within 2e-5 of the direct call on the same stacked batch; a
+             started loop fed by 4 threads, its tickets checked, ``stop()``
+             draining, the loop thread's events held to no degrade from
+             the flight recorder; ``pretune`` into a fresh cache, ``export``,
+             ``warm_start`` and a MEASURE-mode service on the covered shapes
+             (no ``plan.measure`` span, every ``plan.resolve`` a hit,
+             ``xfft.report`` rendered). Spectra within 2e-5 of
+             ``torch.fft``; per lane the kernels launched. Its services'
+             launches count toward the ``kernels`` line;
+   After each of the kernel, request, imaging, mri, stream and serve
+   phases (one ``obs.capture()`` around the six) a ``"check": "no
+   degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
+   ``plan.degrade`` event, no MEASURE candidate skipped, and
+   ``kernel.failover`` (the composed 2D route) only on frames over the
+   shared-memory census. Then ``"call": "fault"``: a ``serve.batch``
+   fault firing once is retried once and the lanes are right; a
+   ``max_queue`` under the call's depth sheds it with ``Overloaded``
+   before any lane runs (outside the capture);
+8. resilience — faults injected through ``xfft.config(faults=...)``, one
              line a check, the breaker on an injected clock: an
              ``engine.apply`` error on ``fused_r4`` for fft2 and rfft2 on
              (512, 128, 128) and fft on (64, 2^18) fails over to ``fused``
@@ -196,7 +224,7 @@ Phases, each printing one JSON line:
              and the planned engine's op alone, on a (256, 256) fft2 and
              the (4, 16, 256, 256) k-space frames. Its launches do not
              count toward the ``kernels`` line;
-8. path    — the other entry points of ``repro_torch.kernels``, with the
+9. path    — the other entry points of ``repro_torch.kernels``, with the
              counts set to 0 just before and read just after:
              ``fft_staged`` on (8192, 2048) must launch ``butterfly_stage``
              exactly 11 times and agree with ``torch.fft`` to 2e-5;
@@ -455,6 +483,28 @@ STREAM_SHAPES = ((64, 512, 512), (16, 1024, 1024), (16, 16, 256, 256))
 STREAM_X64 = (8, 256, 256)
 STREAM_UNROLLS = (1, 2)
 STREAM_KERNELS = ("fft_fused", "fft2_columns")
+# The serve phase (repro_torch.serve) at the sizes of PERF.md §1 and the
+# traffic of benchmarks/serve_bench.py and examples/serve_loop.py: 256
+# interleaved real and complex 128x128 frames (serve_bench's two-lane worst
+# case) under max_batch 16, call-scoped and streaming; a lane of 32 complex
+# 512x512 CT slices and one of 16 real 1024x1024 holograms (the composed
+# route); one mixed ImagingService queue: 8 registration pairs of 256x256 at
+# upsample 1 and 8 at 10, 4 "same" convolutions of 1024x1024 holograms with
+# 31x31 kernels, 4 recon requests of (16, 256, 256) k-space at R 4 with 10
+# CG iterations and the mask on the card, 16 spectra of 128x128; a started
+# loop at max_batch 8 and a 2 ms window fed by 4 threads of 32 mixed
+# 128x128 frames; wisdom pretuned at 128, 256 and 512. The kernels the
+# phase must launch.
+SERVE_MIX = (256, 128, 128)
+SERVE_BATCH = 16
+SERVE_CT = (32, 512, 512)
+SERVE_HOLO = (16, 1024, 1024)
+SERVE_REG = (8, 256, 10)           # pairs a lane, side, upsample of the fine lane
+SERVE_CONV = (4, 1024, 31)         # requests, side, kernel side
+SERVE_RECON = (4, 16, 256, 256)    # requests, coils, H, W
+SERVE_LOOP = (4, 32, 8, 0.002)     # submitter threads, frames each, max_batch, max_wait_s
+SERVE_WISDOM = (128, 256, 512)
+SERVE_KERNELS = ("fft2_fused", "rfft2_fused", "fft_fused", "rfft_fused", "fft2_columns")
 # Events that mark a degrade: none may fire on the main path.
 DEGRADE_EVENTS = ("resilience.failover", "resilience.fault", "plan.degrade")
 COOLDOWN_S = 30.0      # the breaker's cooldown, driven by an injected clock
@@ -1997,7 +2047,7 @@ def _mri_calls(torch, xfft, resolve_call, call):
     plan = {"fft2d": resolve_call("fft2d", RECON, dev).variant,
             "fft2d inv": resolve_call("fft2d", RECON, dev, direction="inv").variant}
     composed = list(FRAME_KERNELS) + ["fft_two_pass", "fft_cluster", "rfft_fused", "irfft_fused"]
-    masks_line = {"uniform_R": mri.acceleration(uniform.cpu().numpy()),
+    masks_line = {"uniform_R": mri.acceleration(uniform),
                   "variable_density_R": mri.acceleration(vd_np), "calib_rows": CALIB}
 
     ks, line = call("sense_forward", lambda: mri.sense_forward(img, smaps, uniform), RECON, plan,
@@ -2102,7 +2152,7 @@ def _mri_calls(torch, xfft, resolve_call, call):
     del ks, zf, kvd, est, x, zf_est, want
 
     # Two shots, the second moved by (3, -2) px, on the uniform mask: one study.
-    shots = torch.from_numpy(mri.shot_masks(uniform.cpu().numpy(), len(MOCO_SHIFTS))).to(dev)
+    shots = torch.from_numpy(mri.shot_masks(uniform, len(MOCO_SHIFTS))).to(dev)
     shifts = torch.tensor(MOCO_SHIFTS, dtype=torch.float32, device=dev)
     one, moco_shape = img[0], (len(MOCO_SHIFTS), c, h, w)
     km, line = call("moco_forward", lambda: mri.moco_forward(one, smaps, shots, shifts),
@@ -2455,6 +2505,515 @@ def stream_phase(torch, k, card: str):
     del x, got
     torch.cuda.empty_cache()
     return total
+
+
+class LaneTap:
+    """Wraps a service loop's executor: per lane label, its batches, the
+    requests they held, the wall ms of each batch (the executor waits for
+    the card) and, while ``counting``, the kernels its batches launched."""
+
+    def __init__(self, k, svc):
+        self.k, self.lanes, self.counting = k, {}, True
+        inner = svc.loop.execute
+
+        def execute(lane, members):
+            before, t0 = dict(k.LAUNCHES), time.perf_counter()
+            try:
+                inner(lane, members)
+            finally:
+                row = self.lanes.setdefault(lane.label(), {"batches": 0, "requests": 0,
+                                                           "ms": [], "kernels": {}})
+                row["batches"] += 1
+                row["requests"] += len(members)
+                row["ms"].append((time.perf_counter() - t0) * 1e3)
+                if self.counting:
+                    for n in k.LAUNCHES:
+                        if k.LAUNCHES[n] != before[n]:
+                            row["kernels"][n] = row["kernels"].get(n, 0) + k.LAUNCHES[n] - before[n]
+
+        svc.loop.execute = execute
+
+    def clear(self):
+        self.lanes = {}
+
+    def launches(self):
+        total = {}
+        for row in self.lanes.values():
+            for n, c in row["kernels"].items():
+                total[n] = total.get(n, 0) + c
+        return total
+
+    def summary(self):
+        return {label: {"batches": r["batches"], "requests": r["requests"],
+                        "ms_median": statistics.median(r["ms"]), "kernels": r["kernels"]}
+                for label, r in self.lanes.items()}
+
+
+def raw_latencies(loop):
+    """Tee the loop's lane histograms: returns the list every recorded
+    admission-to-completion sample (µs) is appended to, as the histogram
+    sees it."""
+    raw, lane_histogram = [], loop._lane_histogram
+
+    class Tee:
+        def __init__(self, h):
+            self.h = h
+
+        def record(self, us):
+            raw.append(us)
+            self.h.record(us)
+
+        def __getattr__(self, name):
+            return getattr(self.h, name)
+
+    loop._lane_histogram = lambda lane: Tee(lane_histogram(lane))
+    return raw
+
+
+def latency_line(obs, prefix: str, raw):
+    """p50/p99 of the lanes' merged ``LatencyHistogram`` beside the raw
+    samples' nearest-rank p99, and how many buckets apart the two p99 lie."""
+    merged = obs.LatencyHistogram()
+    for h in obs.histograms(prefix=prefix).values():
+        merged.merge(h)
+    ranked = sorted(raw)
+    raw_p99 = ranked[max(1, math.ceil(0.99 * len(ranked))) - 1]
+    p99 = merged.percentile(99)
+    return {"hist_n": merged.count, "hist_p50_us": merged.percentile(50), "hist_p99_us": p99,
+            "raw_p50_us": ranked[max(1, math.ceil(0.5 * len(ranked))) - 1],
+            "raw_p99_us": raw_p99,
+            "p99_bucket_gap": abs(merged.bucket_index(p99) - merged.bucket_index(raw_p99))}
+
+
+def card_ms(torch, fn, reps: int = 20) -> float:
+    """Card time of one call of ``fn``: queued behind a sleep kernel, so the
+    host's enqueue is hidden and the events bracket the card's work alone."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        torch.cuda._sleep(4_000_000)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop))
+    return statistics.median(samples)
+
+
+def mixed_frames(torch, dev, count: int, h: int, w: int, seed: int):
+    """``count`` frames on the card, real float32 and complex64 in turns."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    frames = []
+    for i in range(count):
+        re = torch.randn(h, w, generator=g, device=dev)
+        frames.append(re if i % 2 == 0 else
+                      torch.complex(re, torch.randn(h, w, generator=g, device=dev)))
+    return frames
+
+
+def spectrum_of(torch, frame):
+    return torch.fft.fft2(frame) if frame.is_complex() else torch.fft.rfft2(frame)
+
+
+def worst_spectrum_err(torch, reqs):
+    worst = max(rel_err(r.spectrum, spectrum_of(torch, r.frame)) for r in reqs)
+    if not (worst <= TOL_REQUEST and all(r.done and r.spectrum.is_cuda for r in reqs)):
+        raise AssertionError(f"serve: spectra off by {worst} (or not done on the card)")
+    return worst
+
+
+def serve_phase(torch, k, card: str):
+    """``repro_torch.serve`` as its users call it: SpectrumService
+    call-scoped and streaming, the composed-route lanes, one mixed
+    ImagingService queue, a started loop fed by four threads, and a
+    warm-started MEASURE service. Returns the launches of the services'
+    checked calls (the main path's), for the ``kernels`` line."""
+    from repro_torch import obs
+
+    total = {}
+    for part in (_serve_spectrum, _serve_imaging, _serve_loop, _serve_wisdom):
+        for n, c in part(torch, k, card).items():
+            total[n] = total.get(n, 0) + c
+    missing = [n for n in SERVE_KERNELS if not total.get(n)]
+    if missing:
+        raise AssertionError(f"serve: {missing} never launched ({total})")
+    obs.reset_histograms()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _serve_spectrum(torch, k, card: str):
+    from repro_torch import obs
+    from repro_torch.plan import execute
+    from repro_torch.serve import BatchPolicy, SpectrumRequest, SpectrumService
+    from repro_torch.serve.engine import _stack
+
+    dev = torch.device("cuda")
+    n, h, w = SERVE_MIX
+    frames = mixed_frames(torch, dev, n, h, w, seed=28)
+    launched, runs = {}, {}
+    for style in ("call-scoped", "streaming"):
+        svc = SpectrumService(batch=BatchPolicy(max_batch=SERVE_BATCH))
+        tap = LaneTap(k, svc)
+        raw = raw_latencies(svc.loop)
+        svc.serve([SpectrumRequest(frame=f) for f in frames[:2]])  # plan both lanes
+        obs.reset_histograms()
+        tap.clear()
+        raw.clear()
+        reqs = [SpectrumRequest(frame=f) for f in frames]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if style == "call-scoped":
+            for i in range(0, n, SERVE_BATCH):
+                svc.serve(reqs[i:i + SERVE_BATCH])
+        else:
+            for r in reqs:
+                svc.loop.submit(r)
+            svc.loop.drain()
+        wall = time.perf_counter() - t0
+        lanes = tap.summary()
+        line = {"phase": "serve", "call": f"spectrum {style}", "card": card,
+                "frames": [n, h, w], "max_batch": SERVE_BATCH,
+                "dispatches": sum(r["batches"] for r in lanes.values()),
+                "requests_per_s": n / wall, "wall_ms": wall * 1e3,
+                **latency_line(obs, "serve.lane.spectrum.", raw),
+                "rel_err": worst_spectrum_err(torch, reqs), "lanes": lanes}
+        emit(line)
+        if line["p99_bucket_gap"] > 1:
+            raise AssertionError(f"serve {style}: histogram p99 {line['hist_p99_us']} more than "
+                                 f"one bucket from the raw p99 {line['raw_p99_us']}")
+        runs[style] = line
+        for name, c in tap.launches().items():
+            launched[name] = launched.get(name, 0) + c
+    if runs["streaming"]["dispatches"] > runs["call-scoped"]["dispatches"]:
+        raise AssertionError(f"serve: the loop dispatched {runs['streaming']['dispatches']} "
+                             f"batches, the call-scoped run {runs['call-scoped']['dispatches']}")
+
+    # Where a 128² lane's host time goes: stack, plan (memo hit), the
+    # engine's op enqueued, the wait; beside the op's card time.
+    svc = SpectrumService()
+    for real in (True, False):
+        members = [SpectrumRequest(frame=f) for f in frames[(0 if real else 1)::2][:SERVE_BATCH]]
+        lane = svc._classify(members[0])
+        shape, _, _ = lane.signature
+        kind, dtype = ("rfft2d", "float32") if real else ("fft2d", "complex64")
+        xdtype = torch.float32 if real else torch.complex64
+        svc._execute_lane(lane, members)
+        split = {"stack": [], "plan": [], "op_enqueue": [], "wait": [], "executor": []}
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = _stack([r.frame for r in members], dev, xdtype)
+            t1 = time.perf_counter()
+            plan = svc._plan_for(kind, shape, dtype, dev)
+            t2 = time.perf_counter()
+            execute(plan, batch)
+            t3 = time.perf_counter()
+            torch.cuda.current_stream().synchronize()
+            t4 = time.perf_counter()
+            svc._execute_lane(lane, members)
+            t5 = time.perf_counter()
+            for key, a, b in (("stack", t0, t1), ("plan", t1, t2), ("op_enqueue", t2, t3),
+                              ("wait", t3, t4), ("executor", t4, t5)):
+                split[key].append((b - a) * 1e6)
+        kernel = (lambda: k.rfft2_fused(batch, radix=4)) if real else (
+            lambda: k.fft2_fused(batch, radix=4))
+        emit({"phase": "serve", "call": "host split", "lane": lane.label(), "card": card,
+              "batch": len(members), "variant": plan.variant,
+              **{f"{key}_us": statistics.median(v) for key, v in split.items()},
+              "op_card_us": card_ms(torch, lambda: execute(plan, batch)) * 1e3,
+              "kernel_card_us": card_ms(torch, kernel) * 1e3})
+
+    # Frames over one block: a lane of CT slices and one of holograms, each
+    # on the composed route (a row kernel, then fft2_columns).
+    for name, shape, real, want in (
+            ("CT", SERVE_CT, False, {"fft_fused", COLUMNS}),
+            ("holograms", SERVE_HOLO, True, {"rfft_fused", COLUMNS})):
+        b, h, w = shape
+        g = torch.Generator(device=dev).manual_seed(b)
+        x = torch.randn(b, h, w, generator=g, device=dev)
+        if not real:
+            x = torch.complex(x, torch.randn(b, h, w, generator=g, device=dev))
+        svc = SpectrumService()
+        # The lane's first batch, step by step: a new shape's first call.
+        kind, dtype = ("rfft2d", "float32") if real else ("fft2d", "complex64")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = _stack(list(x), dev, x.dtype)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plan = svc._plan_for(kind, (h, w), dtype, dev)
+        t2 = time.perf_counter()
+        execute(plan, batch)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        first = {"stack_ms": (t1 - t0) * 1e3, "plan_ms": (t2 - t1) * 1e3,
+                 "op_enqueue_ms": (t3 - t2) * 1e3, "wait_ms": (t4 - t3) * 1e3}
+        del batch
+        tap = LaneTap(k, svc)
+        reqs = [SpectrumRequest(frame=f) for f in x]
+        svc.serve(reqs)
+        lanes = tap.summary()
+        kernels = tap.launches()
+        if set(kernels) != want:
+            raise AssertionError(f"serve {name}: launched {kernels}, want {sorted(want)}")
+        for n_, c in kernels.items():
+            launched[n_] = launched.get(n_, 0) + c
+        err = worst_spectrum_err(torch, reqs)
+        tap.counting = False
+        emit({"phase": "serve", "call": f"spectrum {name}", "card": card, "shape": list(shape),
+              "dtype": str(x.dtype).replace("torch.", ""), "rel_err": err,
+              "first_batch": first, "lanes": lanes,
+              "serve_ms": time_ms(lambda: svc.serve(reqs), 3, 3),
+              "library_ms": time_ms(lambda: spectrum_of(torch, x), 3, 3)})
+        del x, reqs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _serve_imaging(torch, k, card: str):
+    import numpy as np
+
+    from repro_torch import mri, obs
+    from repro_torch.imaging import apply_shift, oaconvolve2, register_phase_correlation
+    from repro_torch.serve import (ConvolutionRequest, ImagingService, ReconRequest,
+                                   RegistrationRequest, SpectrumRequest)
+
+    dev = torch.device("cuda")
+    pairs, side, up = SERVE_REG
+    refs = torch.from_numpy(band_limited_frames(side, pairs, seed=28)).to(dev)
+    whole = torch.tensor([[3.0 + i, -2.0 - 2 * i] for i in range(pairs)], device=dev)
+    sub = torch.tensor([[1.5 + 0.3 * i, -0.7 + 0.2 * i] for i in range(pairs)], device=dev)
+    movs1, movs10 = apply_shift(refs, whole), apply_shift(refs, sub)
+    n_conv, hside, ksize = SERVE_CONV
+    g = torch.Generator(device=dev).manual_seed(31)
+    images = torch.randn(n_conv, hside, hside, generator=g, device=dev)
+    kernels = torch.randn(n_conv, ksize, ksize, generator=g, device=dev)
+    n_rec, coils, rh, rw = SERVE_RECON
+    phantom = mri.shepp_logan(rh)
+    studies = torch.from_numpy(np.stack([phantom, phantom[::-1], phantom[:, ::-1],
+                                         np.roll(phantom, rh // 16, 0)])[:n_rec].copy()).to(dev)
+    smaps = torch.from_numpy(mri.birdcage_maps(coils, rh)).to(dev)
+    mask = torch.from_numpy(mri.uniform_mask((rh, rw), ACCEL, calib=CALIB)).to(dev)  # on the card
+    kspace = mri.sense_forward(studies, smaps, mask)
+    families = {
+        "registration": [RegistrationRequest(ref=refs[i], mov=movs1[i]) for i in range(pairs)],
+        "upsampled": [RegistrationRequest(ref=refs[i], mov=movs10[i], upsample=up)
+                      for i in range(pairs)],
+        "convolution": [ConvolutionRequest(image=images[i], kernel=kernels[i])
+                        for i in range(n_conv)],
+        "recon": [ReconRequest(kspace=kspace[i], smaps=smaps, mask=mask, iters=CG_ITERS)
+                  for i in range(n_rec)],
+        "spectrum": [SpectrumRequest(frame=f)
+                     for f in mixed_frames(torch, dev, 16, 128, 128, seed=16)],
+    }
+    reqs = [r for fam in families.values() for r in fam]
+    reqs = [reqs[i] for i in np.random.default_rng(28).permutation(len(reqs))]
+    svc = ImagingService()
+    tap = LaneTap(k, svc)
+    with obs.capture() as trace:
+        svc.serve(reqs)
+    lanes = tap.summary()
+    launched = tap.launches()
+    (queue,) = trace.select("serve.queue")
+    coarse = torch.stack([r.shift for r in families["registration"]])
+    fine = torch.stack([r.shift for r in families["upsampled"]])
+    recons = torch.stack([r.image for r in families["recon"]])
+    conv_plan = next(p for p in svc.plans.values() if p.key.kind == "oaconv2d")
+    errs = {
+        "registration": rel_err(coarse, register_phase_correlation(refs, movs1)),
+        "registration_upsampled": rel_err(
+            fine, register_phase_correlation(refs, movs10, upsample_factor=up)),
+        "convolution": rel_err(torch.stack([r.out for r in families["convolution"]]),
+                               oaconvolve2(images, kernels, mode="same", tile=conv_plan.tile)),
+        "recon": rel_err(recons, mri.recon_cg_sense(
+            kspace, smaps[None].expand(n_rec, -1, -1, -1),
+            mask=mask[None, None].expand(n_rec, 1, -1, -1), iters=CG_ITERS)),
+        "spectrum": worst_spectrum_err(torch, families["spectrum"]),
+    }
+    zero_filled = mri.recon_zero_filled(kspace, smaps, mask)
+    line = {"phase": "serve", "call": "imaging", "card": card, "requests": len(reqs),
+            "serve_queue": {f: queue[f] for f in ("spectra", "registrations", "convolutions",
+                                                   "recons")},
+            "rel_err": errs, "lanes": lanes, "conv_tile": list(conv_plan.tile),
+            "whole_shift_err_px": float((coarse + whole).abs().max()),
+            "subpixel_shift_err_px": float((fine + sub).abs().max()),
+            "recon_nrmse_over_zero_filled": [
+                mri.nrmse(recons[i], studies[i]) / mri.nrmse(zero_filled[i], studies[i])
+                for i in range(n_rec)]}
+    tap.counting = False
+    line["serve_ms"] = time_ms(lambda: svc.serve(reqs), 1, 3)
+    emit(line)
+    bad = {n: e for n, e in errs.items() if not e <= TOL_REQUEST}
+    if bad or line["whole_shift_err_px"] != 0.0 or len(lanes) != 6:
+        raise AssertionError(f"serve imaging: {bad}, whole-pixel shifts off by "
+                             f"{line['whole_shift_err_px']}, lanes {list(lanes)}")
+    del kspace, images, refs, families, reqs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _serve_loop(torch, k, card: str):
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchPolicy, SpectrumRequest, SpectrumService
+
+    dev = torch.device("cuda")
+    threads, each, max_batch, max_wait = SERVE_LOOP
+    frames = mixed_frames(torch, dev, threads * each, 128, 128, seed=4)
+    svc = SpectrumService(batch=BatchPolicy(max_batch=max_batch, max_wait_s=max_wait))
+    svc.serve([SpectrumRequest(frame=f) for f in frames[:2]])  # plan both lanes
+    tap = LaneTap(k, svc)
+    tap.clear()
+    raw = raw_latencies(svc.loop)
+    obs.reset_histograms()
+    recorder = obs.flight_recorder()
+    if recorder is None:
+        raise AssertionError("serve loop: the flight recorder is off")
+    tickets, lock = [], threading.Lock()
+
+    def submitter(part):
+        for f in part:
+            t = svc.loop.submit(SpectrumRequest(frame=f))
+            with lock:
+                tickets.append(t)
+
+    t_start = time.perf_counter()
+    svc.loop.start()
+    loop_tid = svc.loop._thread.ident
+    workers = [threading.Thread(target=submitter, args=(frames[i::threads],))
+               for i in range(threads)]
+    for th in workers:
+        th.start()
+    for th in workers:
+        th.join()
+    for t in tickets:
+        t.result(timeout=60.0)
+    wall = time.perf_counter() - t_start
+    svc.loop.stop(timeout=5.0)
+    if svc.loop.queue.depth() or not all(t.done for t in tickets) or len(tickets) != len(frames):
+        raise AssertionError("serve loop: stop() left work behind")
+    window = [e for e in recorder.events() if e.t >= t_start]
+    if recorder.stats()["recorded_total"] - len(recorder.events()) and (
+            not recorder.events() or recorder.events()[0].t >= t_start):
+        raise AssertionError("serve loop: the flight recorder dropped part of the window")
+    loop_events = [e for e in window if e.tid == loop_tid]
+    lanes = tap.summary()
+    line = {"phase": "serve", "call": "loop", "card": card, "submitters": threads,
+            "frames_each": each, "max_batch": max_batch, "max_wait_s": max_wait,
+            "dispatches": sum(r["batches"] for r in lanes.values()),
+            "requests_per_s": len(frames) / wall, "wall_ms": wall * 1e3,
+            **latency_line(obs, "serve.lane.spectrum.", raw),
+            "rel_err": worst_spectrum_err(torch, [t.request for t in tickets]),
+            "recorder_window_events": len(window), "loop_thread_events": len(loop_events),
+            "lanes": lanes}
+    emit(line)
+    if not loop_events or not any(e.name == "serve.loop.tick" for e in loop_events):
+        raise AssertionError("serve loop: no tick of the loop thread reached the recorder")
+    trace = obs.Trace()
+    for e in window:
+        trace.append(e)
+    no_degrade(trace, "serve loop (flight recorder)", ops)
+    return tap.launches()
+
+
+def _serve_wisdom(torch, k, card: str):
+    import os
+    import tempfile
+
+    from repro_torch import obs, xfft
+    from repro_torch.plan import PlanCache
+    from repro_torch.serve import SpectrumRequest, SpectrumService, wisdom
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    tuned = wisdom.pretune(SERVE_WISDOM, cache=PlanCache(), device=dev)
+    pretune_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = wisdom.export(os.path.join(d, "cuda.json"), tuned)
+        warm = PlanCache()
+        report = wisdom.warm_start(path, cache=warm)
+    frames = []
+    for n in SERVE_WISDOM:
+        frames += mixed_frames(torch, dev, 4, n, n, seed=n)
+    svc = SpectrumService(plan_mode="measure", cache=warm)
+    tap = LaneTap(k, svc)
+    reqs = [SpectrumRequest(frame=f) for f in frames]
+    with obs.capture() as trace:
+        svc.serve(reqs)
+    outcomes = [e["outcome"] for e in trace.select("plan.resolve")]
+    data = xfft.report_data(cache=warm)
+    hits = {e["key"]: e["hits"] for e in data["cache"]["entries"]}
+    text = xfft.report(cache=warm)
+    packaged = wisdom.artifact_path("cuda")
+    shipped = None
+    if packaged is not None:
+        ship = PlanCache()
+        rep = wisdom.warm_start(packaged, cache=ship)
+        shipped = {"kept": rep.kept, "file_error": rep.file_error,
+                   "this_card": sum(p.key.device_kind == torch.cuda.get_device_name(dev)
+                                    for _, p in ship.entries())}
+    line = {"phase": "serve", "call": "wisdom", "card": card, "sizes": list(SERVE_WISDOM),
+            "pretune_s": pretune_s,
+            "tuned": {kk: p.variant for kk, p in tuned.entries()},
+            "warm_start": report.to_dict(), "plan_measure_spans": len(trace.select("plan.measure")),
+            "resolve_outcomes": outcomes, "hits": hits, "report_lines": len(text.splitlines()),
+            "rel_err": worst_spectrum_err(torch, reqs), "lanes": tap.summary(),
+            "packaged_cuda_artifact": shipped}
+    emit(line)
+    if (report.kept != 2 * len(SERVE_WISDOM) or line["plan_measure_spans"]
+            or set(outcomes) != {"hit"} or len(outcomes) != 2 * len(SERVE_WISDOM)
+            or min(hits.values()) < 1 or len(hits) != 2 * len(SERVE_WISDOM)):
+        raise AssertionError(f"serve wisdom: {line}")
+    return tap.launches()
+
+
+def serve_fault_phase(torch, k, card: str) -> None:
+    """The serve layer's fault seam and shedding, outside the main path's
+    capture: a ``serve.batch`` fault firing once is retried and the lane
+    is right; a ``max_queue`` smaller than the call sheds it with
+    ``Overloaded`` before any lane runs."""
+    from repro_torch import obs, xfft
+    from repro_torch.resilience import FaultPlan, FaultSpec, Overloaded, ServicePolicy
+    from repro_torch.serve import BatchPolicy, SpectrumRequest, SpectrumService
+
+    dev = torch.device("cuda")
+    frames = mixed_frames(torch, dev, 2 * SERVE_BATCH, 128, 128, seed=5)
+    svc = SpectrumService(policy=ServicePolicy(max_retries=1, backoff_s=0.0),
+                          batch=BatchPolicy(max_batch=SERVE_BATCH))
+    reqs = [SpectrumRequest(frame=f) for f in frames]
+    with obs.capture() as trace, xfft.config(
+            faults=FaultPlan(FaultSpec("serve.batch", mode="error", times=1))):
+        svc.serve(reqs)
+    line = {"phase": "serve", "call": "fault", "card": card,
+            "retries": len(trace.select("resilience.retry")),
+            "faults": len(trace.select("resilience.fault")),
+            "batches": len(trace.select("serve.batch")),
+            "rel_err": worst_spectrum_err(torch, reqs)}
+    shed_svc = SpectrumService(policy=ServicePolicy(max_queue=SERVE_BATCH // 2))
+    shed_reqs = [SpectrumRequest(frame=f) for f in frames[:SERVE_BATCH]]
+    before = dict(k.LAUNCHES)
+    with obs.capture() as shed_trace:
+        try:
+            shed_svc.serve(shed_reqs)
+            shed = None
+        except Overloaded as e:
+            shed = {"depth": e.depth, "limit": e.limit}
+    line["shed"] = shed
+    line["shed_batches"] = len(shed_trace.select("serve.batch"))
+    line["shed_events"] = len(shed_trace.select("serve.shed"))
+    line["shed_launches"] = sum(k.LAUNCHES[n] - before[n] for n in k.LAUNCHES)
+    emit(line)
+    if (line["retries"] != 1 or line["faults"] != 1 or shed != {"depth": SERVE_BATCH,
+                                                                  "limit": SERVE_BATCH // 2}
+            or line["shed_batches"] or line["shed_launches"] or line["shed_events"] != 1
+            or any(r.done for r in shed_reqs)):
+        raise AssertionError(f"serve fault: {line}")
 
 
 def no_degrade(trace, phase: str, ops) -> None:
@@ -2936,7 +3495,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
-    # One capture over the kernel, request, imaging, mri and stream phases:
+    # One capture over the kernel, request, imaging, mri, stream and serve phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -2958,6 +3517,10 @@ def main() -> int:
         for name, n in stream_phase(torch, k, card).items():
             launches[name] += n
         no_degrade(trace, "stream", ops)
+        for name, n in serve_phase(torch, k, card).items():
+            launches[name] += n
+        no_degrade(trace, "serve", ops)
+    serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})

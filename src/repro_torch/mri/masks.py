@@ -24,7 +24,7 @@ ESPIRiT eigen-decomposition.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -104,19 +104,24 @@ def variable_density_mask(
 
 
 def acceleration(mask) -> float:
-    """The realised acceleration factor ``R = size / samples`` of a mask."""
-    mask = np.asarray(mask)
-    kept = float((mask != 0).sum())
+    """The realised acceleration factor ``R = size / samples`` of a mask.
+
+    A tensor mask is counted where it lies, with one host read."""
+    if isinstance(mask, torch.Tensor):
+        size, kept = mask.numel(), float((mask != 0).sum().item())
+    else:
+        mask = np.asarray(mask)
+        size, kept = mask.size, float((mask != 0).sum())
     if kept == 0:
         raise ValueError("mask keeps no samples")
-    return mask.size / kept
+    return size / kept
 
 
 def estimate_sensitivities(
     kspace,
     calib: int = 16,
     eps: float = 1e-6,
-    mask: Optional[np.ndarray] = None,
+    mask=None,
 ) -> torch.Tensor:
     """ESPIRiT-lite sensitivity maps from the calibration region.
 
@@ -143,8 +148,9 @@ def estimate_sensitivities(
     if not 0 < calib <= min(h, w):
         raise ValueError(f"calib must be in 1..{min(h, w)}, got {calib}")
     if mask is not None:
-        block = np.asarray(mask)[_calib_rows(h, calib), :]
-        if not np.all(block != 0):
+        block = (mask if isinstance(mask, torch.Tensor) else np.asarray(mask))[
+            _calib_rows(h, calib), :]
+        if not bool((block != 0).all()):
             raise ValueError(
                 "mask does not fully sample the calibration block "
                 f"(central {calib} rows)"

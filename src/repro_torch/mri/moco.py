@@ -47,9 +47,9 @@ def shot_masks(mask, n_shots: int) -> np.ndarray:
     Sampled phase-encode rows are dealt round-robin to shots (the
     standard interleaved multi-shot ordering), so the per-shot masks are
     disjoint and sum back to ``mask``. Returns float32
-    ``(n_shots, H, W)``.
+    ``(n_shots, H, W)`` on the host; a tensor mask is copied there first.
     """
-    mask = np.asarray(mask)
+    mask = mask.detach().cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
     if mask.ndim != 2:
         raise ValueError(f"mask must be (H, W), got shape {mask.shape}")
     if n_shots < 1:

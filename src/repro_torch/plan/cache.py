@@ -11,6 +11,13 @@ the reference. Reads and writes consult the ``plan.cache.load`` and
 fails, injected or real, degrades the cache to memory-only and says so
 (``plan.cache.readonly``). The process-wide default cache is backed by
 the file named in ``$REPRO_PLAN_CACHE``, read once a process.
+
+The cache keeps the reference's accounting: hits per key (what
+``repro_torch.xfft.report`` shows), the sum of every load's report, and
+the wisdom staleness of loaded entries — a live MEASURE ``put`` that
+disagrees with a loaded entry's engine emits ``serve.wisdom.stale`` and
+counts one more consecutive loss against it
+(``repro_torch.serve.wisdom.export`` ages such entries out).
 """
 
 from __future__ import annotations
@@ -60,43 +67,95 @@ class LoadReport:
     def dropped(self) -> int:
         return self.stale_schema + self.malformed + self.key_mismatch
 
+    def __add__(self, other: "LoadReport") -> "LoadReport":
+        return LoadReport(
+            kept=self.kept + other.kept,
+            stale_schema=self.stale_schema + other.stale_schema,
+            malformed=self.malformed + other.malformed,
+            key_mismatch=self.key_mismatch + other.key_mismatch,
+            file_error=other.file_error or self.file_error,
+        )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 class PlanCache:
     """Maps ``ProblemKey.cache_key()`` strings to :class:`FFTPlan`.
 
     ``path`` (optional) backs the cache with a JSON file: it is loaded at
-    construction and rewritten atomically by :meth:`save`.
+    construction (unless ``autoload=False``) and rewritten atomically by
+    :meth:`save`. Besides the aggregate ``hits``/``misses``, the cache
+    counts hits per key (:meth:`hit_count`) and sums the accounting of
+    every :meth:`load` on :attr:`load_report`.
     """
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, autoload: bool = True):
         self._plans: Dict[str, FFTPlan] = {}
         self.path = path
         self.hits = 0
         self.misses = 0
+        self.key_hits: Dict[str, int] = {}
+        self.load_report: Optional[LoadReport] = None
         #: Set when a save hit an unwritable path and the cache degraded
         #: to memory-only; holds the path that refused the write.
         self.readonly_path: Optional[str] = None
-        if path and os.path.exists(path):
+        #: The engine each loaded entry arrived with, and how many
+        #: consecutive live MEASURE re-tunes disagreed with it.
+        self._artifact_variants: Dict[str, str] = {}
+        self.stale_losses: Dict[str, int] = {}
+        if path and autoload and os.path.exists(path):
             self.load(path)
 
     def __len__(self) -> int:
         return len(self._plans)
 
+    def __contains__(self, key: ProblemKey) -> bool:
+        return key.cache_key() in self._plans
+
     def get(self, key: ProblemKey) -> Optional[FFTPlan]:
-        plan = self._plans.get(key.cache_key())
+        ck = key.cache_key()
+        plan = self._plans.get(ck)
         if plan is None:
             self.misses += 1
         else:
             self.hits += 1
+            self.key_hits[ck] = self.key_hits.get(ck, 0) + 1
         return plan
 
     def put(self, plan: FFTPlan) -> FFTPlan:
-        self._plans[plan.key.cache_key()] = plan
+        ck = plan.key.cache_key()
+        loaded = self._artifact_variants.get(ck)
+        if loaded is not None and plan.mode == "measure":
+            if plan.variant != loaded:
+                # A live MEASURE sweep beat the loaded entry: one more loss.
+                losses = self.stale_losses.get(ck, 0) + 1
+                self.stale_losses[ck] = losses
+                obs.emit("serve.wisdom.stale", key=ck, artifact_variant=loaded,
+                         measured_variant=plan.variant, losses=losses)
+                obs.count("serve.wisdom.stale")
+            elif ck in self.stale_losses:
+                # The loaded choice was confirmed: losses are consecutive.
+                del self.stale_losses[ck]
+        self._plans[ck] = plan
         return plan
+
+    def clear(self) -> None:
+        self._plans.clear()
+        self.key_hits.clear()
+        self.hits = 0
+        self.misses = 0
+        self.load_report = None
+        self._artifact_variants.clear()
+        self.stale_losses.clear()
 
     def entries(self) -> Tuple[Tuple[str, FFTPlan], ...]:
         """(cache_key, plan) pairs, sorted by key."""
         return tuple(sorted(self._plans.items()))
+
+    def hit_count(self, cache_key: str) -> int:
+        """How many :meth:`get` hits the entry under ``cache_key`` served."""
+        return self.key_hits.get(cache_key, 0)
 
     def save(
         self,
@@ -169,7 +228,7 @@ class PlanCache:
             with open(path) as f:
                 payload = json.load(f)
         except (OSError, json.JSONDecodeError, InjectedFault) as e:
-            return _account_load(path, LoadReport(file_error=str(e)))
+            return self._account_load(path, LoadReport(file_error=str(e)))
         prefix = f"v{PLAN_SCHEMA_VERSION}|"
         kept = stale = malformed = mismatch = 0
         for key, plan_dict in payload.get("plans", {}).items():
@@ -185,24 +244,26 @@ class PlanCache:
                 mismatch += 1
                 continue
             self._plans[key] = plan
+            self._artifact_variants[key] = plan.variant
             kept += 1
-        return _account_load(path, LoadReport(
+        return self._account_load(path, LoadReport(
             kept=kept, stale_schema=stale, malformed=malformed, key_mismatch=mismatch
         ))
 
-
-def _account_load(path: str, report: LoadReport) -> LoadReport:
-    """Emit ``plan.cache.load`` and bump the ``plan.cache.load.*`` counters."""
-    obs.emit("plan.cache.load", path=path, kept=report.kept,
-             stale_schema=report.stale_schema, malformed=report.malformed,
-             key_mismatch=report.key_mismatch, file_error=report.file_error)
-    obs.count("plan.cache.load.kept", report.kept)
-    obs.count("plan.cache.load.stale_schema", report.stale_schema)
-    obs.count("plan.cache.load.malformed", report.malformed)
-    obs.count("plan.cache.load.key_mismatch", report.key_mismatch)
-    if report.file_error is not None:
-        obs.count("plan.cache.load.file_error")
-    return report
+    def _account_load(self, path: str, report: LoadReport) -> LoadReport:
+        """Add ``report`` to :attr:`load_report`, emit ``plan.cache.load``
+        and bump the ``plan.cache.load.*`` counters."""
+        self.load_report = report if self.load_report is None else self.load_report + report
+        obs.emit("plan.cache.load", path=path, kept=report.kept,
+                 stale_schema=report.stale_schema, malformed=report.malformed,
+                 key_mismatch=report.key_mismatch, file_error=report.file_error)
+        obs.count("plan.cache.load.kept", report.kept)
+        obs.count("plan.cache.load.stale_schema", report.stale_schema)
+        obs.count("plan.cache.load.malformed", report.malformed)
+        obs.count("plan.cache.load.key_mismatch", report.key_mismatch)
+        if report.file_error is not None:
+            obs.count("plan.cache.load.file_error")
+        return report
 
 
 _DEFAULT: Optional[PlanCache] = None

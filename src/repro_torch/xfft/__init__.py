@@ -7,10 +7,13 @@ frequencies, with ``norm="backward"|"ortho"|"forward"``, ``axes=`` and
 ``n``/``s`` resizing. Every transform is planned by ``repro_torch.plan``
 over the ``repro_torch.engines`` registry; on the card the planner's fused
 engines run the hand-written CUDA kernels. A CPU tensor runs on the CPU;
-anything else runs on ``torch.device("cuda")``.
+anything else runs on ``torch.device("cuda")``. ``report()`` renders the
+live plan cache, quarantine table, telemetry and counters; it touches no
+device.
 """
 
 from repro_torch.xfft._config import XFFTConfig, config, get_config
+from repro_torch.xfft._report import report, report_data
 from repro_torch.xfft._transforms import (
     fft,
     fft2,
@@ -53,5 +56,7 @@ __all__ = [
     "rfftfreq",
     "config",
     "get_config",
+    "report",
+    "report_data",
     "XFFTConfig",
 ]

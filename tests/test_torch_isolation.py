@@ -31,7 +31,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.slstm_scan; "
         "import repro_torch.core.spectral; import repro_torch.imaging; "
         "import repro_torch.obs; import repro_torch.mri; import repro_torch.engines.x64; "
-        "import repro_torch.resilience; "
+        "import repro_torch.resilience; import repro_torch.serve; "
+        "import repro_torch.serve.queue, repro_torch.serve.loop, repro_torch.serve.engine; "
+        "import repro_torch.serve.imaging, repro_torch.serve.wisdom; "
+        "import repro_torch.xfft._report; from repro_torch.xfft import report, report_data; "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -943,3 +943,107 @@ def test_cuda_stream_captures_in_a_graph_and_replays(cuda):
     torch.cuda.synchronize()
     assert _rel(y, torch.fft.fft2(x)) <= TOL
     resilience.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_mask_helpers_take_a_card_mask(cuda):
+    """ROADMAP queue 3, F2: ``acceleration``, ``estimate_sensitivities(mask=)``
+    and ``shot_masks`` take a mask on the card and give what the numpy mask
+    gives."""
+    from repro_torch import mri
+
+    n = 64
+    mask = mri.uniform_mask((n, n), 4, calib=16)
+    card = torch.from_numpy(mask).to(cuda)
+    assert mri.acceleration(card) == mri.acceleration(mask)
+    np.testing.assert_array_equal(mri.shot_masks(card, 3), mri.shot_masks(mask, 3))
+    x = torch.from_numpy(mri.shepp_logan(n)).to(cuda)
+    smaps = torch.from_numpy(mri.birdcage_maps(4, n)).to(cuda)
+    k = mri.sense_forward(x, smaps)
+    assert torch.equal(mri.estimate_sensitivities(k, calib=16, mask=card),
+                       mri.estimate_sensitivities(k, calib=16, mask=mask))
+    with pytest.raises(ValueError, match="calibration block"):
+        mri.estimate_sensitivities(k, calib=32, mask=card)
+
+
+@pytest.mark.cuda
+def test_cuda_spectrum_service_returns_card_tensors(cuda):
+    """SpectrumService on card tensors: one lane a realness and shape, the
+    lanes' kernels launched, each spectrum a card tensor within 2e-5 of
+    torch.fft; numpy frames are sent to the card and lane apart."""
+    from repro_torch.serve import SpectrumRequest, SpectrumService
+
+    g = torch.Generator(device=cuda).manual_seed(28)
+    real = [torch.randn(128, 128, generator=g, device=cuda) for _ in range(5)]
+    cplx = [torch.randn(128, 128, generator=g, device=cuda).to(torch.complex64) * (1 + 1j)
+            for _ in range(3)]
+    big = [torch.randn(512, 512, generator=g, device=cuda).to(torch.complex64)
+           for _ in range(2)]
+    host = np.random.default_rng(0).standard_normal((128, 128)).astype(np.float32)
+    reqs = [SpectrumRequest(frame=f) for f in real + cplx + big] + [SpectrumRequest(frame=host)]
+    before = dict(k.LAUNCHES)
+    SpectrumService().serve(reqs)
+    launched = {n: k.LAUNCHES[n] - before[n] for n in k.LAUNCHES if k.LAUNCHES[n] != before[n]}
+    assert launched.get("rfft2_fused") == 2 and launched.get("fft2_fused") == 1, launched
+    assert launched.get("fft_fused") == 1 and launched.get("fft2_columns") == 1, launched
+    for r in reqs:
+        assert r.done and r.spectrum.is_cuda
+        frame = torch.as_tensor(r.frame).to(cuda)
+        want = torch.fft.rfft2(frame) if not frame.is_complex() else torch.fft.fft2(frame)
+        assert _rel(r.spectrum, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_started_loop_tickets_complete_on_the_card(cuda):
+    """A started loop serves submitters on other threads; each ticket is done
+    only once the card has finished its batch, and stop() drains."""
+    import threading
+
+    from repro_torch.serve import BatchPolicy, SpectrumRequest, SpectrumService
+
+    svc = SpectrumService(batch=BatchPolicy(max_batch=8, max_wait_s=0.002))
+    frames = [torch.randn(128, 128, device=cuda) for _ in range(32)]
+    tickets, lock = [], threading.Lock()
+
+    def submit(part):
+        for f in part:
+            t = svc.loop.submit(SpectrumRequest(frame=f))
+            with lock:
+                tickets.append((t, f))
+
+    svc.loop.start()
+    try:
+        threads = [threading.Thread(target=submit, args=(frames[i::4],)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for t, f in tickets:
+            r = t.result(timeout=30.0)
+            assert r.spectrum.is_cuda
+            assert _rel(r.spectrum, torch.fft.rfft2(f)) <= TOL
+    finally:
+        svc.loop.stop()
+    assert svc.loop.queue.depth() == 0 and len(tickets) == 32
+
+
+@pytest.mark.cuda
+def test_cuda_imaging_service_recon_lane_with_card_masks(cuda):
+    """An ImagingService recon lane whose masks live on the card classifies
+    (F2), runs one batched CG-SENSE solve on the card and matches the
+    direct call."""
+    from repro_torch import mri, obs
+    from repro_torch.serve import ImagingService, ReconRequest
+
+    n, coils = 64, 4
+    x = torch.from_numpy(mri.shepp_logan(n)).to(cuda)
+    smaps = torch.from_numpy(mri.birdcage_maps(coils, n)).to(cuda)
+    mask = torch.from_numpy(mri.uniform_mask((n, n), 2, calib=8)).to(cuda)
+    kspace = mri.sense_forward(x, smaps, mask)
+    reqs = [ReconRequest(kspace=kspace, smaps=smaps, mask=mask) for _ in range(2)]
+    with obs.capture() as trace:
+        ImagingService().serve(reqs)
+    assert [(e["service"], e["batch"]) for e in trace.select("serve.batch")] == [("recon", 2)]
+    direct = mri.recon_cg_sense(kspace, smaps, mask)
+    for r in reqs:
+        assert r.image.is_cuda and _rel(r.image, direct) <= 1e-5

@@ -167,6 +167,31 @@ def test_mask_contracts():
         mri.uniform_mask((64, 64), 2, calib=100)
 
 
+@pytest.mark.parametrize("make", [
+    lambda: mri.uniform_mask((64, 64), 4, calib=16),
+    lambda: mri.variable_density_mask((64, 64), 4, calib=16, seed=7),
+    lambda: mri.uniform_mask((64, 64), 2, calib=0) != 0,
+], ids=["uniform", "variable_density", "bool"])
+def test_mask_helpers_take_a_tensor_mask(phantom, smaps, make):
+    """ROADMAP queue 3, F2: ``acceleration``, ``estimate_sensitivities(mask=)``
+    and ``shot_masks`` take a tensor mask and give what the numpy mask
+    gives, bit for bit (the card's case is in test_torch_kernels_cuda.py)."""
+    mask = make()
+    assert mri.acceleration(T(mask)) == mri.acceleration(mask)
+    np.testing.assert_array_equal(mri.shot_masks(T(mask), 3), mri.shot_masks(mask, 3))
+    k = T(np_sense_forward(phantom, smaps))
+    if mask.dtype == bool:  # no calibration rows: both refuse the block
+        with pytest.raises(ValueError, match="calibration block"):
+            mri.estimate_sensitivities(k, calib=16, mask=mask)
+        with pytest.raises(ValueError, match="calibration block"):
+            mri.estimate_sensitivities(k, calib=16, mask=T(mask))
+    else:
+        assert torch.equal(mri.estimate_sensitivities(k, calib=16, mask=T(mask)),
+                           mri.estimate_sensitivities(k, calib=16, mask=mask))
+    with pytest.raises(ValueError, match="no samples"):
+        mri.acceleration(torch.zeros(8, 8))
+
+
 # ------------------------------- operators -------------------------------
 
 
