@@ -187,8 +187,29 @@ Phases, each printing one JSON line:
              ``xfft.report`` rendered). Spectra within 2e-5 of
              ``torch.fft``; per lane the kernels launched. Its services'
              launches count toward the ``kernels`` line;
-   After each of the kernel, request, imaging, mri, stream and serve
-   phases (one ``obs.capture()`` around the six) a ``"check": "no
+7b. pencil — the multi-device 2D FFT, ``repro_torch.core.distributed``:
+             one rank on an ``nccl`` group (a ``FileStore`` in a temporary
+             directory, ``make_mesh((1,), ("data",))``, destroyed after) on
+             4 real 4096x4096 holograms and one real 8192x8192 frame (its
+             columns take the turn route): ``fft2_pencil`` and
+             ``fft2_pencil_overlapped`` under the plan's variant and
+             chunks, the overlapped one also at chunks 4. One line a call:
+             the error against ``torch.fft.fft2`` and against the same call
+             under the plain schedules on the card (2e-5), CUDA-event ms
+             beside ``xfft.fft2`` (the composed route) and ``torch.fft.fft2``
+             on the same frames and the HBM floor of the call's round
+             trips; the ``fft_fused`` and ``fft2_columns`` launches, the
+             ``all_to_all_single`` calls (must equal chunks) and the gathers
+             (1 overlapped, 0 plain). Then gloo groups of 2 and 4 ranks
+             sharing the card (NCCL takes one rank a card), each rank a
+             process of its own (``--pencil-rank``, a deadline each) on a
+             4096x4096 frame sharded by rows, its passes on the card's
+             kernels: the gathered result within 2e-5 of ``torch.fft.fft2``
+             here; host ms a call, gloo's, which stages the exchange
+             through the host. The NCCL calls' launches count toward the
+             ``kernels`` line;
+   After each of the kernel, request, imaging, mri, stream, serve and
+   pencil phases (one ``obs.capture()`` around the seven) a ``"check": "no
    degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
    ``plan.degrade`` event, no MEASURE candidate skipped, and
    ``kernel.failover`` (the composed 2D route) only on frames over the
@@ -495,6 +516,17 @@ STREAM_KERNELS = ("fft_fused", "fft2_columns")
 # loop at max_batch 8 and a 2 ms window fed by 4 threads of 32 mixed
 # 128x128 frames; wisdom pretuned at 128, 256 and 512. The kernels the
 # phase must launch.
+# The pencil phase (PR 29): one NCCL rank on 4 holograms of 4096x4096
+# (512 MiB complex) and one 8192x8192 frame (512 MiB; holography and
+# astronomy sizes), the overlapped variant also at 4 slabs; gloo groups of
+# 2 and 4 ranks on one 4096x4096 frame, each rank given a deadline.
+PENCIL_FRAMES = ((4, 4096, 4096), (8192, 8192))
+PENCIL_CHUNKS = 4
+PENCIL_GROUP = (4096, 4096)
+PENCIL_WORLDS = (2, 4)
+PENCIL_GROUP_CHUNKS = 2
+PENCIL_KERNELS = ("fft_fused", "fft2_columns")
+PENCIL_DEADLINE_S = 300.0
 SERVE_MIX = (256, 128, 128)
 SERVE_BATCH = 16
 SERVE_CT = (32, 512, 512)
@@ -3016,6 +3048,238 @@ def serve_fault_phase(torch, k, card: str) -> None:
         raise AssertionError(f"serve fault: {line}")
 
 
+def pencil_trips(shape, chunks, overlapped: bool) -> float:
+    """HBM round trips (complex64, read and write) of a world-1 pencil call
+    on real frames: the cast (0.75 of a trip), the rows, NCCL's
+    self-exchange copy and the columns (in place, or the turn route's turn,
+    rows, turn); the overlapped call adds the gather's copy and its
+    reorder, and with several slabs their pack."""
+    from repro_torch.kernels import fft_radix2 as k
+
+    trips = 0.75 + 1 + 1 + (1 if k.fft2_columns_serves(shape[-2]) else 3)
+    if overlapped:
+        trips += 2 + (chunks > 1)
+    return trips
+
+
+def composed_trips(shape) -> float:
+    """The same for ``xfft.fft2``: the cast, the rows and the columns."""
+    from repro_torch.kernels import fft_radix2 as k
+
+    return 0.75 + 1 + (1 if k.fft2_columns_serves(shape[-2]) else 3)
+
+
+def pencil_input(torch, dev, shape, seed: int):
+    """Real frames from a seeded generator on the card: the same tensor in
+    every process on the same card."""
+    return torch.randn(*shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+
+
+def pencil_phase(torch, k, card: str):
+    """The multi-device pencil FFT on the card: one rank on NCCL at the
+    users' sizes, then gloo groups of several ranks sharing the card.
+    Returns the NCCL calls' launches (the main path's), for the
+    ``kernels`` line."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import xfft
+    from repro_torch.compat import make_mesh
+    from repro_torch.core import distributed as pencil
+    from repro_torch.plan.api import resolve
+
+    dev = torch.device("cuda")
+    total = {kn: 0 for kn in PENCIL_KERNELS}
+    bw = hbm_bandwidth(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh((1,), ("data",))
+            for i, shape in enumerate(PENCIL_FRAMES):
+                x = pencil_input(torch, dev, shape, seed=29 + i)
+                plan = resolve("fft2d_pencil", shape, dev, n_devices=1)
+                if plan.variant not in ("fused", "fused_r4"):
+                    raise AssertionError(f"pencil {shape}: planned {plan.variant}, not a kernel")
+                plain_variant = "radix4" if plan.variant == "fused_r4" else "stockham"
+                lib = torch.fft.fft2(x)
+                n = lib.numel()
+                yardsticks = {"composed_ms": time_ms(lambda: xfft.fft2(x), 5, 5),
+                              "library_ms": time_ms(lambda: torch.fft.fft2(x), 5, 5),
+                              "composed_floor_ms": composed_trips(shape) * 16 * n / bw * 1e3}
+                for name, chunks in (("fft2_pencil", None), ("fft2_pencil_overlapped", plan.chunks),
+                                     ("fft2_pencil_overlapped", PENCIL_CHUNKS)):
+                    fn = getattr(pencil, name)
+                    kw = {} if chunks is None else {"chunks": chunks}
+                    c = chunks or 1
+
+                    def run(variant, fn=fn, kw=kw):
+                        return fn(x, mesh, variant=variant, **kw).to_local()
+
+                    before = dict(k.LAUNCHES)
+                    pencil.reset_collectives()
+                    got = run(plan.variant)
+                    torch.cuda.synchronize()
+                    launches = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                                if k.LAUNCHES[kn] != before[kn]}
+                    collectives = dict(pencil.COLLECTIVES)
+                    plain = run(plain_variant)
+                    trips = pencil_trips(shape, c, chunks is not None)
+                    line = {"phase": "pencil", "call": name, "shape": list(shape), "world": 1,
+                            "backend": "nccl", "card": card, "variant": plan.variant,
+                            "plan_chunks": plan.chunks, "chunks": c, "launches": launches,
+                            "collectives": collectives,
+                            "rel_err_vs_library": rel_err(got, lib),
+                            "max_abs_err_vs_library": max_abs(got, lib),
+                            "rel_err_vs_plain": rel_err(got, plain),
+                            "ms": time_ms(lambda: run(plan.variant), 5, 5), **yardsticks,
+                            "trips": trips, "hbm_floor_ms": trips * 16 * n / bw * 1e3}
+                    line["over_composed"] = line["ms"] / line["composed_ms"]
+                    line["over_floor"] = line["ms"] / line["hbm_floor_ms"]
+                    emit(line)
+                    del got, plain
+                    columns = k.fft2_columns_serves(shape[-2])
+                    want_launches = {"fft_fused": 1 + (0 if columns else c)}
+                    if columns:
+                        want_launches["fft2_columns"] = c
+                    want_collectives = {"all_to_all_single": c,
+                                        "all_gather_into_tensor": int(chunks is not None)}
+                    if launches != want_launches or collectives != want_collectives:
+                        raise AssertionError(f"pencil {name} {shape}: launches {launches}, "
+                                             f"collectives {collectives}, want {want_launches}, "
+                                             f"{want_collectives}")
+                    for what in ("rel_err_vs_library", "rel_err_vs_plain"):
+                        if not line[what] <= TOL_KERNEL:
+                            raise AssertionError(f"pencil {name} {shape}: {what} {line[what]}")
+                    for kn in PENCIL_KERNELS:
+                        total[kn] += launches.get(kn, 0)
+                del x, lib
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    for world in PENCIL_WORLDS:
+        pencil_group(torch, card, world)
+    return total
+
+
+def pencil_group(torch, card: str, world: int) -> None:
+    """``world`` gloo ranks sharing the card, each a process running
+    :func:`pencil_rank`; a failing or late rank fails the phase. The
+    library is built already (``main`` builds it first), so the ranks only
+    load it."""
+    import os
+    import tempfile
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--pencil-rank", str(r),
+                     str(world), tmp], stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PENCIL_DEADLINE_S
+        for r, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    raise AssertionError(f"pencil group of {world}: rank {r} exit {rc}: "
+                                         f"{f.read()[-3000:]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        blocks = [torch.load(os.path.join(tmp, f"fft2_pencil{r}.pt")) for r in range(world)]
+        wholes = [torch.load(os.path.join(tmp, f"fft2_pencil_overlapped{r}.pt"))
+                  for r in range(world)]
+    x = pencil_input(torch, dev, PENCIL_GROUP, seed=290)
+    lib = torch.fft.fft2(x).cpu()
+    line = {"phase": "pencil", "call": "gloo group", "world": world, "backend": "gloo",
+            "card": card, "shape": list(PENCIL_GROUP), "variant": ranks[0]["variant"],
+            "rel_err_vs_library": rel_err(torch.cat(blocks, dim=-1), lib),
+            "overlapped_rel_err_vs_library": max(rel_err(w, lib) for w in wholes),
+            "ranks": ranks,
+            "note": "gloo stages the exchange through host memory: not the NCCL number"}
+    emit(line)
+    c = PENCIL_GROUP_CHUNKS
+    want = {"fft2_pencil": ({"fft_fused": 1, "fft2_columns": 1},
+                            {"all_to_all_single": 1, "all_gather_into_tensor": 0}),
+            "fft2_pencil_overlapped": ({"fft_fused": 1, "fft2_columns": c},
+                                       {"all_to_all_single": c, "all_gather_into_tensor": 1})}
+    for rank in ranks:
+        for name, (launches, collectives) in want.items():
+            if (rank[name]["launches"], rank[name]["collectives"]) != (launches, collectives):
+                raise AssertionError(f"pencil group of {world}: rank {rank['rank']} {name}: "
+                                     f"{rank[name]}, want {launches}, {collectives}")
+    for what in ("rel_err_vs_library", "overlapped_rel_err_vs_library"):
+        if not line[what] <= TOL_KERNEL:
+            raise AssertionError(f"pencil group of {world}: {what} {line[what]}")
+
+
+def pencil_rank(rank: int, world: int, tmp: str) -> int:
+    """``--pencil-rank RANK WORLD DIR``: one rank of a gloo group on the
+    card (a ``FileStore`` in DIR): ``fft2_pencil`` and
+    ``fft2_pencil_overlapped`` on the group's frame, as planned; writes its
+    blocks, launches, collectives and host ms a call to DIR."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.compat import make_mesh
+        from repro_torch.core import distributed as pencil
+        from repro_torch.kernels import fft_radix2 as k
+        from repro_torch.plan.api import resolve
+
+        dev = torch.device("cuda")
+        mesh = make_mesh((world,), ("data",))
+        x = pencil_input(torch, dev, PENCIL_GROUP, seed=290)
+        plan = resolve("fft2d_pencil", PENCIL_GROUP, dev, n_devices=world)
+        out = {"rank": rank, "variant": plan.variant, "plan_chunks": plan.chunks}
+        for name, kw in (("fft2_pencil", {}),
+                         ("fft2_pencil_overlapped", {"chunks": PENCIL_GROUP_CHUNKS})):
+            fn = getattr(pencil, name)
+            before = dict(k.LAUNCHES)
+            pencil.reset_collectives()
+            y = fn(x, mesh, variant=plan.variant, **kw).to_local()
+            torch.cuda.synchronize()
+            result = {"launches": {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                                   if k.LAUNCHES[kn] != before[kn]},
+                      "collectives": dict(pencil.COLLECTIVES)}
+            torch.save(y.cpu(), os.path.join(tmp, f"{name}{rank}.pt"))
+            samples = []
+            for _ in range(5):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn(x, mesh, variant=plan.variant, **kw)
+                torch.cuda.synchronize()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            result["host_ms_median"] = statistics.median(samples)
+            out[name] = result
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def no_degrade(trace, phase: str, ops) -> None:
     """The standing check of the main path: no ``resilience.failover``,
     ``resilience.fault`` or ``plan.degrade`` event, no MEASURE candidate
@@ -3474,6 +3738,8 @@ def slstm_ab(other: str) -> int:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] in ("--slstm-ab", "--slstm-time"):
         return (slstm_ab if sys.argv[1] == "--slstm-ab" else slstm_time)(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--pencil-rank":
+        return pencil_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import torch
 
     if not torch.cuda.is_available():
@@ -3520,6 +3786,9 @@ def main() -> int:
         for name, n in serve_phase(torch, k, card).items():
             launches[name] += n
         no_degrade(trace, "serve", ops)
+        for name, n in pencil_phase(torch, k, card).items():
+            launches[name] += n
+        no_degrade(trace, "pencil", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()

@@ -5,10 +5,10 @@ Port of ``repro.engines.builtin``. The schedules of ``repro_torch.core``
 device, and ``unrolled`` is an alias of ``looped`` (one eager stage loop
 serves both; the alias lets the reference's wisdom files load); ``fused``/``fused_r4`` run the
 CUDA kernels under backend ``"cuda"`` (their plain versions on a CPU
-tensor), for power-of-two dims, single device, and only while one row of
-the longest transform dim is in the 1D kernels' envelope (2^18 values, the
-reference's) — the 2D kinds' composition runs the 1D kernels on each
-pass, so a row must be served for any fused plan. The shared-memory
+tensor), for power-of-two dims, single device (but see the pencil below),
+and only while one row of the longest transform dim is in the 1D kernels'
+envelope (2^18 values, the reference's) — the 2D kinds' composition runs
+the 1D kernels on each pass, so a row must be served for any fused plan. The shared-memory
 numbers come from the kernels' census (``repro_torch.kernels.fft_radix2``).
 ``fused_r4`` runs rows of 2^14 < N <= 2^18 on thread-block clusters, so on
 a CUDA key it also needs the card to hold one cluster of each instance the
@@ -22,6 +22,16 @@ CUDA keys only, where the stream runs their row and column kernels on two
 CUDA streams. A CPU key therefore plans the stream exactly as the
 reference does, on the schedules, and an unscoped CUDA key on the kernels
 (ROADMAP queue 3, divergence 6).
+
+Every engine but ``reference_x64`` also serves the multi-device pencil
+kind ``fft2d_pencil`` (``repro_torch.core.distributed``), whose op is
+``None``: the pencil runs at the plan level (``repro_torch.plan.execute``)
+with a mesh, as in the reference. The schedules serve it on every device.
+The reference's fused kernels do not; here ``fused``/``fused_r4`` serve it
+on CUDA keys only, whatever ``n_devices`` is, since each rank's passes are
+one card's row and column kernels (divergence 11). Their shared-memory
+gate for it is one row of each transform dim, never the whole frame: a
+rank never runs the frame in one block.
 """
 
 from __future__ import annotations
@@ -30,11 +40,14 @@ import functools
 
 from repro_torch.engines.registry import CostHints, EngineSpec, register_alias, register_engine
 
-#: Kinds the engines execute (the pencil kind waits; oaconv2d plans a tile
-#: and runs the 2D kinds).
+#: Kinds the single-device engines execute (oaconv2d plans a tile and
+#: runs the 2D kinds).
 _KINDS = ("fft1d", "fft2d", "fft2d_stream", "rfft1d", "rfft2d")
+#: The builtin engines' kinds: those, and the pencil, planned here and run
+#: at the plan level.
+_BUILTIN_KINDS = _KINDS + ("fft2d_pencil",)
 #: Kinds whose transform dims are the last two.
-_2D_KINDS = ("fft2d", "fft2d_stream", "rfft2d")
+_2D_KINDS = ("fft2d", "fft2d_stream", "fft2d_pencil", "rfft2d")
 
 
 def _core_ops(name: str, **kw):
@@ -64,6 +77,8 @@ def _core_ops(name: str, **kw):
             from repro_torch.core.fft2d import fft2_stream
 
             return functools.partial(fft2_stream, variant=name, unroll=1, **kw)
+        # fft2d_pencil needs a mesh: it runs at the plan level
+        # (repro_torch.plan.execute), not here.
         return None
 
     return factory
@@ -77,8 +92,11 @@ def _dims(key):
 
 def _fused_predicate(key) -> bool:
     """Fused kernels need power-of-two transform dims, and serve the stream
-    on CUDA keys only (divergence 6)."""
-    if key.kind == "fft2d_stream" and key.backend != "cuda":
+    (divergence 6) and the pencil (divergence 11) on CUDA keys only; they
+    take part in a multi-device plan as the pencil's per-rank passes only."""
+    if key.kind in ("fft2d_stream", "fft2d_pencil") and key.backend != "cuda":
+        return False
+    if key.n_devices != 1 and key.kind != "fft2d_pencil":
         return False
     dims = _dims(key)
     return dims is not None and all(d >= 2 and (d & (d - 1)) == 0 for d in dims)
@@ -91,7 +109,8 @@ def _fused_working_set(key, radix: int = 2):
     block; for 2^14 < N <= 2^18 the two passes at radix 2, one CTA of the
     cluster at radix 4). A dim over 2^18 reports a size over the budget, so
     the envelope is the reference's: one row of the longest transform dim
-    <= 2^18 values."""
+    <= 2^18 values. A pencil (``fft2d_pencil``) always takes the rows: no
+    rank runs its frame in one block."""
     from repro_torch.kernels import fft_radix2 as census
 
     dims = _dims(key)
@@ -158,7 +177,7 @@ def _register_builtin_engines() -> None:
     )
     for name, cost, radix in schedules:
         register_engine(EngineSpec(
-            name=name, backend="torch", kinds=_KINDS, radix=radix, cost=cost,
+            name=name, backend="torch", kinds=_BUILTIN_KINDS, radix=radix, cost=cost,
             reliable=(name == "stockham"), ops=_core_ops(name),
         ), _protect=True)
     register_alias("unrolled", "looped")
@@ -167,10 +186,10 @@ def _register_builtin_engines() -> None:
         register_engine(EngineSpec(
             name=name,
             backend="cuda",
-            kinds=_KINDS,
+            kinds=_BUILTIN_KINDS,
             radix=radix,
             fused=True,
-            single_device_only=True,
+            # multi-device keys: the predicate admits the pencil's alone
             working_set=functools.partial(_fused_working_set, radix=radix),
             predicate=predicate,
             cost=CostHints(traffic_factor=4.0, stage_overhead_s=0.8e-6,

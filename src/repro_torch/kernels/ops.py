@@ -22,6 +22,10 @@ kernels' row or frame batch.
   stream_columns(y)    — engine 2: the column FFTs of those slots in place
                      (``fft2_columns``, or the turn route for H > 4096)
 
+The multi-device pencil (``repro_torch.core.distributed``) runs the same
+two engines on each rank: ``stream_rows`` on the rank's (..., H/d, W) rows,
+``stream_columns`` on its turned (..., H, W/d) columns.
+
 The whole-frame-or-composition choice of the 2D entries is made on the
 frame shape (:func:`fft2_fits_budget`) and on the ``kernel.fused`` fault
 seam (``repro_torch.resilience.faults.vmem_exhausted``), as in the

@@ -1,5 +1,6 @@
 """repro_torch.plan — the FFT planner (ESTIMATE and MEASURE), its plan
-cache and wisdom files, ``plan_fft`` and ``execute``.
+cache and wisdom files, ``plan_fft`` and ``execute``, and the pencil's
+``chunk_candidates``.
 
 ``PLAN_VARIANTS`` is the reference's deprecation alias of the engine list:
 the single-precision engines of the live registry, read at each access."""
@@ -7,6 +8,7 @@ the single-precision engines of the live registry, read at each access."""
 from repro_torch.engines.registry import PRECISIONS
 from repro_torch.plan.api import execute, plan_fft, resolve, resolve_call
 from repro_torch.plan.autotune import (
+    chunk_candidates,
     estimate_plan,
     measure_plan,
     oaconv_tile_candidates,
@@ -33,6 +35,7 @@ __all__ = [
     "PRECISIONS",
     "PlanCache",
     "ProblemKey",
+    "chunk_candidates",
     "default_cache",
     "estimate_plan",
     "execute",

@@ -292,9 +292,12 @@ def execute(plan: FFTPlan, x, mesh=None, axis: str = "data"):
     ``oaconv2d`` plan takes ``x=(image, kernel)`` and runs
     ``repro_torch.imaging.tiled.oaconvolve2`` on the plan's tile. An
     ``fft2d_stream`` plan runs ``repro_torch.core.fft2d.fft2_stream`` under
-    the plan's variant and unroll, through the ladder too. The pencil kind
-    waits for the multi-device slice (ROADMAP queue 1, item 11). A tensor
-    runs on its own device; other input goes to the card.
+    the plan's variant and unroll, through the ladder too. An
+    ``fft2d_pencil`` plan runs
+    ``repro_torch.core.distributed.fft2_pencil_overlapped`` on ``mesh``
+    along ``axis`` under the plan's variant and chunks (no ladder, as in
+    the reference), and raises ``ValueError`` without a mesh. A tensor runs
+    on its own device; other input goes to the card.
     """
     kind = plan.key.kind
     if kind in ("fft1d", "fft2d", "rfft1d", "rfft2d"):
@@ -318,8 +321,10 @@ def execute(plan: FFTPlan, x, mesh=None, axis: str = "data"):
         x = _as_tensor(x)
         return run_plan(plan, lambda v: fft2_stream(x, variant=v, unroll=plan.unroll))
     if kind == "fft2d_pencil":
-        raise NotImplementedError(
-            "execute() of an fft2d_pencil plan waits for the multi-device slice "
-            "(ROADMAP queue 1, item 11)"
-        )
+        if mesh is None:
+            raise ValueError("execute() needs mesh=... for a pencil plan")
+        from repro_torch.core.distributed import fft2_pencil_overlapped  # lazy: core imports plan
+
+        return fft2_pencil_overlapped(x, mesh, axis=axis, variant=plan.variant,
+                                      chunks=plan.chunks)
     raise ValueError(f"plan has unknown kind {kind!r}")

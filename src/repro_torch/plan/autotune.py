@@ -41,12 +41,20 @@ each CTA's runs into lines and the one read across the cluster
 The streaming kind (``fft2d_stream``) always runs the composed route, rows
 then ``fft2_columns``, frame by frame on two CUDA streams, and its
 ``unroll`` (frames a step) comes from :func:`_estimate_unroll`, the
-reference's rule. The kernel's time is the larger of the two plus the engine's
-``stage_overhead_s`` per pass, so the radix-4 kernels, with fewer passes
-and round trips, win wherever both fit, as the kernels' times on the card
-show (``chip_smoke.py``). The schedules and the CPU keep the
-reference's model: a fused kernel on a CPU tensor runs its plain version,
-modelled like its schedule plus call overheads.
+reference's rule. The pencil kind (``fft2d_pencil``) runs that route on
+each rank's 1/d of the frame, plus the trips of its exchange (the
+``all_to_all_single`` reads and writes each element once; at d > 1 the
+pack into the send buffer, and with several frames the unpack, one more
+each), and its corner turn crosses the mesh once: every model, fused or
+not, takes ``max`` with that collective term, each element's bytes over
+``n_devices`` at ``NVLINK_BW``, as the reference does at ``ICI_LINK_BW``.
+Its ``chunks`` (the overlapped variant's slabs) come from
+:func:`_estimate_chunks`, the reference's rule. The kernel's time is the
+larger of the two plus the engine's ``stage_overhead_s`` per pass, so the
+radix-4 kernels, with fewer passes and round trips, win wherever both fit,
+as the kernels' times on the card show (``chip_smoke.py``). The schedules
+and the CPU keep the reference's model: a fused kernel on a CPU tensor runs
+its plain version, modelled like its schedule plus call overheads.
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core.fft1d import butterfly_counts
-from repro_torch.launch.roofline import HBM_BW, SMEM_BW, Roofline
+from repro_torch.launch.roofline import HBM_BW, NVLINK_BW, SMEM_BW, Roofline
 from repro_torch.plan.plan import FFTPlan, ProblemKey
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience.breaker import quarantine
@@ -69,6 +77,7 @@ from repro_torch.resilience.breaker import quarantine
 __all__ = [
     "MEASURE_CANDIDATE_BUDGET_S",
     "MeasureTimeout",
+    "chunk_candidates",
     "estimate_plan",
     "estimate_variant_time",
     "measure_plan",
@@ -87,6 +96,8 @@ _PLAIN_OVERHEAD_S = 20.0e-6
 _BACKEND_SLOWDOWN = {"cpu": 40.0}
 
 _REAL_KINDS = ("rfft1d", "rfft2d")
+#: 2D kinds that never run a frame in one block.
+_COMPOSED_KINDS = ("fft2d_stream", "fft2d_pencil")
 
 
 #: Engine backends a CUDA key plans onto when no backend is scoped: the
@@ -205,7 +216,7 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
         trips, passes = _row_cost(key.shape[-1], radix, real, inverse)
     else:
         h, w = key.shape[-2], key.shape[-1]
-        if key.kind != "fft2d_stream" and fft2_fits_budget(h, w, real=real):
+        if key.kind not in _COMPOSED_KINDS and fft2_fits_budget(h, w, real=real):
             trips = 1
             passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
         else:
@@ -217,12 +228,35 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
             passes = row_passes + col_passes
     if real:
         elems *= 0.5
+    if key.kind == "fft2d_pencil":
+        trips += _pencil_copies(key)
+        elems /= key.n_devices
     hbm = 2.0 * elem_bytes * elems * trips / HBM_BW
     smem = 2.0 * elem_bytes * elems * passes / SMEM_BW
     launches = trips
     if key.kind == "fft2d_stream":
         launches *= math.ceil(key.shape[0] / _estimate_unroll(key))
-    return max(hbm, smem) + launches * _KERNEL_LAUNCH_S + passes * pass_s
+    return (max(hbm, smem, _collective_bytes(key) / NVLINK_BW)
+            + launches * _KERNEL_LAUNCH_S + passes * pass_s)
+
+
+def _pencil_copies(key: ProblemKey) -> int:
+    """HBM round trips of a pencil rank beside its passes: the exchange;
+    at d > 1 the pack into the send buffer, and with several frames the
+    unpack (one frame receives in place; d = 1 packs and unpacks views)."""
+    lead = int(np.prod(key.shape[:-2], dtype=np.int64)) if len(key.shape) > 2 else 1
+    d = key.n_devices
+    return 1 + (d > 1) + (d > 1 and lead > 1)
+
+
+def _collective_bytes(key: ProblemKey) -> float:
+    """Bytes a device sends across the mesh in one call: the pencil's
+    corner turn moves each element once, divided over ``n_devices``
+    (the reference's term); 0 for every other kind and for one device."""
+    if key.kind != "fft2d_pencil" or key.n_devices <= 1:
+        return 0.0
+    elem_bytes = 16.0 if key.precision == "double" else 8.0
+    return elem_bytes * float(np.prod(key.shape, dtype=np.int64)) / key.n_devices
 
 
 def estimate_variant_time(key: ProblemKey, variant: str) -> float:
@@ -247,13 +281,41 @@ def estimate_variant_time(key: ProblemKey, variant: str) -> float:
     rl = Roofline(
         flops_per_device=flops / key.n_devices,
         bytes_per_device=traffic / key.n_devices,
-        collective_bytes_per_device=0.0,
+        collective_bytes_per_device=_collective_bytes(key),
     )
     t = rl.step_time_s * _BACKEND_SLOWDOWN.get(key.backend, 1.0)
     if spec.fused:
         t += _KERNEL_LAUNCH_S + _PLAIN_OVERHEAD_S
     t += passes * spec.cost.stage_overhead_s
     return t + spec.cost.entry_overhead_s
+
+
+def chunk_candidates(w: int, n_devices: int, limit: int = 16) -> List[int]:
+    """Legal corner-turn slab counts: c | W and d | (W/c)."""
+    out = [c for c in range(1, limit + 1)
+           if w % c == 0 and (w // c) % max(n_devices, 1) == 0]
+    return out or [1]
+
+
+def _estimate_chunks(key: ProblemKey) -> int:
+    """The slab count that best overlaps the all_to_all with the column
+    FFTs: enough slabs that slab i's exchange hides behind slab i-1's
+    butterflies, c ~ collective / compute (the ``stockham`` model of the
+    2D frame), clamped to the legal counts; ties favour more slabs. The
+    reference's rule, with the mesh's ``NVLINK_BW``."""
+    cands = chunk_candidates(key.shape[-1], key.n_devices)
+    if len(cands) == 1:
+        return cands[0]
+    compute_s = estimate_variant_time(
+        ProblemKey(kind="fft2d", backend=key.backend, device_kind=key.device_kind,
+                   shape=key.shape, dtype=key.dtype, n_devices=key.n_devices,
+                   precision=key.precision),
+        "stockham",
+    )
+    collective_s = 8.0 * float(np.prod(key.shape, dtype=np.int64)) / (
+        key.n_devices * NVLINK_BW)
+    ideal = max(1.0, collective_s / max(compute_s, 1e-12))
+    return min(cands, key=lambda c: (abs(c - ideal), -c))
 
 
 def _estimate_unroll(key: ProblemKey) -> int:
@@ -327,13 +389,15 @@ def _estimate_oaconv_plan(key: ProblemKey) -> FFTPlan:
 
 def estimate_plan(key: ProblemKey) -> FFTPlan:
     """Analytic (FFTW ``ESTIMATE``) plan: no device work. An ``oaconv2d``
-    key plans its overlap-save tile (``FFTPlan.tile``)."""
+    key plans its overlap-save tile (``FFTPlan.tile``), a pencil key its
+    corner turn's slabs (``FFTPlan.chunks``)."""
     if key.kind == "oaconv2d":
         return _estimate_oaconv_plan(key)
     times = {v: estimate_variant_time(key, v) for v in variant_candidates(key)}
     variant = min(times, key=times.get)
-    return FFTPlan(key=key, variant=variant, unroll=_estimate_unroll(key), mode="estimate",
-                   est_time_s=times[variant])
+    return FFTPlan(key=key, variant=variant, unroll=_estimate_unroll(key),
+                   chunks=_estimate_chunks(key) if key.kind == "fft2d_pencil" else 1,
+                   mode="estimate", est_time_s=times[variant])
 
 
 # ------------------------------- MEASURE ---------------------------------
@@ -435,15 +499,10 @@ def _candidate_runners(key: ProblemKey) -> Dict[Tuple[str, int], Callable]:
     own stream op once, as in the reference."""
     from repro_torch.engines import get_engine  # lazy: engines is the leaf layer
 
-    if key.kind == "fft2d_pencil":
-        raise NotImplementedError(
-            "MEASURE of the fft2d_pencil kind waits for the multi-device slice "
-            "(ROADMAP queue 1, item 11)"
-        )
     if key.kind not in _MEASURED_KINDS:
         raise ValueError(
-            f"MEASURE planning is unavailable for kind {key.kind!r} (oaconv2d tile "
-            "choice is analytic); use mode='estimate' instead"
+            f"MEASURE planning is unavailable for kind {key.kind!r} (pencil problems need "
+            "a live mesh; oaconv2d tile choice is analytic); use mode='estimate' instead"
         )
     if key.kind == "fft2d_stream":
         from repro_torch.core.fft1d import BUILTIN_VARIANTS

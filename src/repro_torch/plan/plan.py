@@ -33,10 +33,8 @@ __all__ = [
 #: backend scope in the key).
 PLAN_SCHEMA_VERSION = 5
 
-#: Problem kinds of the wisdom schema. The port's engines serve all but
-#: the pencil kind, which waits for the multi-device slice; the planner
-#: also plans ``oaconv2d`` (the tile of
-#: ``repro_torch.imaging.tiled.oaconvolve2``).
+#: Problem kinds of the wisdom schema. The planner also plans ``oaconv2d``
+#: (the tile of ``repro_torch.imaging.tiled.oaconvolve2``).
 KINDS = (
     "fft1d", "fft2d", "fft2d_stream", "fft2d_pencil", "rfft1d", "rfft2d",
     "oaconv2d",
@@ -151,8 +149,8 @@ class FFTPlan:
     The fields after ``variant`` are the reference's, kept so wisdom round
     trips between the packages: ``tile`` is the overlap-save tile of an
     ``oaconv2d`` plan; ``unroll`` is the stream's frames a step, ``chunks``
-    belongs to the pencil kind, which the port does not run yet, and
-    ``measured_us`` to MEASURE.
+    the pencil's corner-turn slabs, and ``measured_us`` belongs to
+    MEASURE.
     """
 
     key: ProblemKey

@@ -35,6 +35,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.serve.queue, repro_torch.serve.loop, repro_torch.serve.engine; "
         "import repro_torch.serve.imaging, repro_torch.serve.wisdom; "
         "import repro_torch.xfft._report; from repro_torch.xfft import report, report_data; "
+        "import repro_torch.compat, repro_torch.core.distributed, repro_torch.checkpoint; "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1047,3 +1047,50 @@ def test_cuda_imaging_service_recon_lane_with_card_masks(cuda):
     direct = mri.recon_cg_sense(kspace, smaps, mask)
     for r in reqs:
         assert r.image.is_cuda and _rel(r.image, direct) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_pencil_on_one_nccl_rank(cuda, tmp_path):
+    """The pencil on a world-1 NCCL group, plain and overlapped (chunks 2),
+    as planned (``fused_r4``): within 2e-5 of ``torch.fft.fft2``, one
+    ``fft_fused`` launch for the rows and one ``fft2_columns`` launch a
+    slab, one ``all_to_all_single`` a slab."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.core import distributed as pencil
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1,), ("data",))
+        x = torch.randn(2, 1024, 1024, device=cuda)
+        want = torch.fft.fft2(x)
+        for fn, kw, chunks in ((pencil.fft2_pencil, {}, 1),
+                               (pencil.fft2_pencil_overlapped, {"chunks": 2}, 2)):
+            before = dict(k.LAUNCHES)
+            pencil.reset_collectives()
+            y = fn(x, mesh, variant="auto", **kw).to_local()
+            torch.cuda.synchronize()
+            launched = {n: k.LAUNCHES[n] - before[n] for n in k.LAUNCHES
+                        if k.LAUNCHES[n] != before[n]}
+            assert launched == {"fft_fused": 1, "fft2_columns": chunks}
+            assert pencil.COLLECTIVES["all_to_all_single"] == chunks
+            assert y.is_cuda and _rel(y, want) <= TOL
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_pencil_key_plans_the_kernels(cuda):
+    """Divergence 11: an unscoped CUDA pencil key plans ``fused_r4``, at any
+    device count; scoped to the plain schedules it plans one of them."""
+    from repro_torch.plan import estimate_plan, problem_key
+
+    for shape, d in (((4, 4096, 4096), 1), ((8192, 8192), 4), ((64, 32), 8)):
+        assert estimate_plan(problem_key("fft2d_pencil", shape, cuda, n_devices=d)).variant \
+            == "fused_r4"
+        scoped = problem_key("fft2d_pencil", shape, cuda, n_devices=d, backends=("torch",))
+        assert estimate_plan(scoped).variant in ("looped", "stockham", "radix4")

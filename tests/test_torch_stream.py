@@ -283,8 +283,8 @@ def test_measure_labels_are_the_references_less_its_unrolled_engine():
 
 
 def test_execute_dispatch_matches_direct_calls():
-    """Mirrors tests/plan/test_plan_api.py:131 (its stream part; the pencil
-    kind is not ported)."""
+    """Mirrors tests/plan/test_plan_api.py:131 (its stream part; the
+    pencil's run on a mesh is in tests/test_torch_distributed.py)."""
     cache = PlanCache()
     frames = np.random.default_rng(5).standard_normal((3, 16, 16)).astype(np.complex64)
     ps = plan_fft("fft2d_stream", (3, 16, 16), device=CPU, cache=cache)
@@ -297,7 +297,7 @@ def test_execute_dispatch_matches_direct_calls():
     _close(execute(pm, torch.from_numpy(frames)).numpy(),
            np.fft.fft2(frames.astype(np.complex128)))
     pencil = problem_key("fft2d_pencil", (64, 32), CPU, n_devices=8)
-    with pytest.raises(NotImplementedError, match="item 11"):  # waits for its slice
+    with pytest.raises(ValueError, match="needs mesh="):  # the reference's message
         execute(FFTPlan(key=pencil, variant="stockham"), torch.zeros(64, 32))
 
 

@@ -179,7 +179,9 @@ def test_packages_export_what_the_reference_exports():
     assert set(core.__all__) == set(jcore.__all__)
     for name in core.__all__:
         assert callable(getattr(core, name)), name
-    assert set(jplan.__all__) - set(plan.__all__) == {"chunk_candidates"}  # item 11
+    assert set(jplan.__all__) <= set(plan.__all__)  # chunk_candidates came with item 11
+    assert plan.chunk_candidates is importlib.import_module(
+        "repro_torch.plan.autotune").chunk_candidates
     assert set(jengines.__all__) <= set(engines.__all__)
     assert plan.PRECISIONS == jplan.PRECISIONS == ("single", "double")
     assert set(plan.PLAN_VARIANTS) == set(jplan.PLAN_VARIANTS) - {"unrolled"}
