@@ -208,8 +208,31 @@ Phases, each printing one JSON line:
              here; host ms a call, gloo's, which stages the exchange
              through the host. The NCCL calls' launches count toward the
              ``kernels`` line;
-   After each of the kernel, request, imaging, mri, stream, serve and
-   pencil phases (one ``obs.capture()`` around the seven) a ``"check": "no
+7c. lm    — repro_torch's LM serving at llama3.2-3b's full width (28
+             layers, d_model 3072, vocab 128256, bf16 compute over 12.85 GB
+             of float32 weights from a seeded generator on the card):
+             ``ServeEngine.serve_queue`` on the launcher's default queue
+             (8 requests of 16 tokens, batch 4, 16 new) and one lane of 4
+             prompts of 1024 tokens, the counts set to 0 just before and
+             read just after: ``flash_attention_fwd`` 28 times a lane
+             batch's prefill, never on a decode step, no other kernel;
+             the kernel against its plain version at the lanes' shapes
+             ((96, 16, 128) and (96, 1024, 128), the config's blocks, q
+             scaled first as the route calls it) to 2e-5 on Gaussian
+             operands, and on the model's own layer-0 operands against
+             float64 (within 4x the plain version's distance); the same
+             queues served again (the same tokens), timed: tokens/s,
+             prefill ms a lane batch, decode ms a step, the kernel's share
+             of the prefill, the weights' cast; decode after a prefill of
+             s tokens against the prefill of s + 1 at float32 (2e-3) and
+             at bf16 (within 2x the gap of the reference's own function as
+             the prefill attention, under 0.5), the first served token the
+             prefill's argmax; a 2-layer full-width float32 copy card
+             against CPU (logits 1e-3, tokens equal wherever the CPU's
+             top-2 margin exceeds that). Its launches count toward the
+             ``kernels`` line;
+   After each of the kernel, request, imaging, mri, stream, serve, pencil
+   and lm phases (one ``obs.capture()`` around the eight) a ``"check": "no
    degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
    ``plan.degrade`` event, no MEASURE candidate skipped, and
    ``kernel.failover`` (the composed 2D route) only on frames over the
@@ -268,6 +291,7 @@ this one, one process each, in turns (other, this, this, other), and says
 whether their outputs agree bit for bit (sha256 of hs and the final state).
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -527,6 +551,41 @@ PENCIL_WORLDS = (2, 4)
 PENCIL_GROUP_CHUNKS = 2
 PENCIL_KERNELS = ("fft_fused", "fft2_columns")
 PENCIL_DEADLINE_S = 300.0
+# The lm phase (PR 30): repro_torch's LM serving at llama3.2-3b's full
+# width (28 layers, d_model 3072, 24 heads of 128, 8 kv heads, vocab
+# 128256, bf16 compute over float32 weights; 3.21 B parameters, random
+# from a seeded generator on the card). Two queues through
+# ServeEngine.serve_queue: the launcher's default (8 requests of 16-token
+# prompts, batch 4, max_new 16, max_len 128) and one lane of 4 prompts of
+# 1024 tokens (max_len 2048): (label, requests, prompt length, batch,
+# max_new, max_len).
+LM_ARCH = "llama3.2-3b"
+LM_QUEUES = (("launcher", 8, 16, 4, 16, 128), ("long prompts", 4, 1024, 4, 16, 2048))
+# Card against CPU: a copy of the config cut to 2 layers at full width, at
+# float32 compute, the same weights on both; logits within 1e-3 of the
+# CPU's largest, greedy tokens (LM_CHECK_NEW a request) equal wherever the
+# CPU's top-2 margin exceeds that.
+LM_CHECK_LAYERS = 2
+LM_CHECK_NEW = 8
+TOL_LM_CPU = 1e-3
+# The card against itself (tests/models/test_arch_smoke.py's golden test):
+# decode logits after a prefill of s tokens against the prefill of s + 1.
+# At float32 compute (the same weights) within the reference test's 2e-3
+# of the largest logit. At bf16 the two routes round differently (2^-8)
+# through 28 layers, and at the reference's init the scores are ~1e2, so
+# the gap grows layer by layer even for the reference's own function: the
+# port's gap is held to LM_BF16_FACTOR times that of the reference's
+# function (``flash_attention_blocks``) run as the prefill attention on
+# the same card tensors, and under LM_BF16_CEILING (a route that read a
+# wrong slot or position gives logits unrelated to the prefill's, off by
+# ~1 of the largest).
+TOL_LM_F32_GOLDEN = 2e-3
+LM_BF16_FACTOR = 2.0
+LM_BF16_CEILING = 0.5
+# The kernel on the model's own layer-0 operands, where the softmax is
+# nearly one-hot and rounding of a score moves the output: its distance
+# from float64 at most this factor times the plain version's (or 2e-5).
+LM_FLOAT64_FACTOR = 4.0
 SERVE_MIX = (256, 128, 128)
 SERVE_BATCH = 16
 SERVE_CT = (32, 512, 512)
@@ -3280,6 +3339,318 @@ def pencil_rank(rank: int, world: int, tmp: str) -> int:
     return 0
 
 
+class LmTap:
+    """A ``Model`` whose ``prefill_fn`` and ``decode_fn`` record, for each
+    call, the ``flash_attention_fwd`` launches it made and CUDA events
+    around it (``self.model``; ``calls`` in order)."""
+
+    def __init__(self, torch, model):
+        import dataclasses
+
+        from repro_torch.kernels._launch import LAUNCHES
+
+        self.torch, self.launches, self.calls = torch, LAUNCHES, []
+        self.model = dataclasses.replace(model, prefill_fn=self._wrap("prefill", model.prefill_fn),
+                                         decode_fn=self._wrap("decode", model.decode_fn))
+
+    def _wrap(self, kind, fn):
+        def run(*args, **kw):
+            before = self.launches["flash_attention_fwd"]
+            start = self.torch.cuda.Event(enable_timing=True)
+            stop = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            self.calls.append((kind, self.launches["flash_attention_fwd"] - before, start, stop))
+            return out
+
+        return run
+
+    def take(self):
+        """{kind: [(launches, ms), ...]} of the calls since the last take."""
+        self.torch.cuda.synchronize()
+        out = {"prefill": [], "decode": []}
+        for kind, n, start, stop in self.calls:
+            out[kind].append((n, start.elapsed_time(stop)))
+        self.calls.clear()
+        return out
+
+
+@contextlib.contextmanager
+def reference_attention(attn):
+    """The model's prefill attention as the reference's function in plain
+    tensor ops (``flash_attention_blocks``, in the compute dtype) on the
+    card's tensors: a yardstick, which launches nothing."""
+    route = attn.flash_attention
+    attn.flash_attention = attn.flash_attention_blocks
+    try:
+        yield
+    finally:
+        attn.flash_attention = route
+
+
+def lm_golden(torch, model, params, toks, max_len: int):
+    """Decode logits after a prefill of all but the last token, the prefill
+    of all, and the prefill of all but the last's logits."""
+    b, s = toks.shape[0], toks.shape[1] - 1
+    dev = toks.device
+    full, _ = model.prefill_fn(params, {"tokens": toks},
+                               model.init_cache_fn(b, max_len, torch.float32, dev))
+    pre, caches = model.prefill_fn(params, {"tokens": toks[:, :s]},
+                                   model.init_cache_fn(b, max_len, torch.float32, dev))
+    dec, _ = model.decode_fn(params, toks[:, s:], s, caches)
+    return dec, full, pre
+
+
+def lm_queue(cfg, requests: int, prompt_len: int, max_new: int):
+    """The launcher's queue (src/repro_torch/launch/serve.py): prompts from
+    ``np.random.default_rng(0)``."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(0, cfg.vocab, (prompt_len,)).astype(np.int32),
+                    max_new=max_new) for _ in range(requests)]
+
+
+def lm_phase(torch, card: str, rows) -> int:
+    """repro_torch's LM serving at llama3.2-3b's full width; returns the
+    ``flash_attention_fwd`` launches of the serving run."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models import attention as attn
+    from repro_torch.models.build import build
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.param import param_bytes, tree_leaves, tree_map
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = phase_t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"phase": "lm", "call": "init", "arch": cfg.name, "n_params": model.n_params,
+          "param_bytes": param_bytes(model.skeleton), "seconds": time.perf_counter() - t0,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab, "compute_dtype": cfg.compute_dtype,
+          "card": card})
+
+    # Serve both queues with the counts set to 0 just before and read just
+    # after: every lane batch's prefill launches the kernel once a layer,
+    # a decode step never; no other kernel runs.
+    tap = LmTap(torch, model)
+    engines = [ServeEngine(tap.model, params, batch=batch, max_len=max_len, dtype=torch.float32)
+               for _, _, _, batch, _, max_len in LM_QUEUES]
+    queues = [lm_queue(cfg, n, plen, max_new) for _, n, plen, _, max_new, _ in LM_QUEUES]
+    torch.cuda.synchronize()
+    reset_launches()
+    for eng, queue in zip(engines, queues):
+        eng.serve_queue(queue)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    counted = tap.take()
+    lane_batches = sum(-(-n // batch) for _, n, _, batch, _, _ in LM_QUEUES)
+    per_prefill = [n for n, _ in counted["prefill"]]
+    per_decode = [n for n, _ in counted["decode"]]
+    others = {name: n for name, n in launches.items() if n and name != "flash_attention_fwd"}
+    emit({"phase": "lm", "call": "launches", "flash_attention_fwd": launches["flash_attention_fwd"],
+          "lane_batches": lane_batches, "per_prefill": per_prefill,
+          "decode_steps": len(per_decode), "decode_launches": sum(per_decode), "others": others})
+    if (per_prefill != [cfg.n_layers] * lane_batches or any(per_decode) or others
+            or launches["flash_attention_fwd"] != cfg.n_layers * lane_batches):
+        raise AssertionError(f"lm: flash_attention_fwd launched {per_prefill} a prefill, "
+                             f"{sum(per_decode)} on decode steps, others {others}")
+    for queue, (label, _, _, _, max_new, _) in zip(queues, LM_QUEUES):
+        if not all(r.done and len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out)
+                   for r in queue):
+            raise AssertionError(f"lm {label}: a request was not served in full")
+
+    # The kernel against its plain version at the lanes' shapes (B·H 96,
+    # S 16 and 1024, D 128, causal, the config's blocks): seeded Gaussian
+    # operands, k and v from 8 kv heads, at 2e-5; and the model's own
+    # layer-0 operands on the lanes' prompts, held to float64.
+    dt = getattr(torch, cfg.compute_dtype)
+    dh = cfg.resolved_head_dim
+    blocks = {"block_q": cfg.attn_block_q, "block_k": cfg.attn_block_k}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p0 = tree_map(lambda t: t[0], params["dense_layers"])
+    kernel_ms = {}
+    for queue, (label, _, s, b, _, _) in zip(queues, LM_QUEUES):
+        # as the card route calls it: q scaled in its own dtype, scale 1
+        q, kk, v = attn.gqa_to_heads(
+            torch.randn(b, s, cfg.n_heads, dh, generator=gen, device=dev) / math.sqrt(dh),
+            torch.randn(b, s, cfg.n_kv_heads, dh, generator=gen, device=dev),
+            torch.randn(b, s, cfg.n_kv_heads, dh, generator=gen, device=dev))
+        got = fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0, **blocks)
+        ref = fa.flash_attention_plain(q, kk, v, causal=True, scale=1.0, **blocks)
+        toks = torch.from_numpy(np.stack([r.prompt for r in queue[:b]])).to(dev)
+        h = rmsnorm(p0["ln1"], embed(params["embed"], toks, dt), cfg.rms_eps)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        mq, mk, mv = attn.gqa_qkv(p0["attn"], h, cfg, positions)
+        mq, mk, mv = attn.gqa_to_heads(mq * (1.0 / math.sqrt(dh)), mk, mv)
+        m_got = fa.flash_attention_fwd(mq, mk, mv, causal=True, scale=1.0, **blocks)
+        m_ref = fa.flash_attention_plain(mq, mk, mv, causal=True, scale=1.0, **blocks)
+        m64 = fa.mha_reference(mq.double() * math.sqrt(dh), mk.double(), mv.double(),
+                               causal=True)
+        torch.cuda.synchronize()
+        bh = q.shape[0]
+        line = {"phase": "lm", "kernel": "flash_attention_fwd", "case": f"{LM_ARCH} lm prefill",
+                "lane": label, "shape": list(q.shape), "window": None, "blocks": blocks,
+                "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
+                "model_operands": {"rel_err_vs_plain": rel_err(m_got, m_ref),
+                                   "rel_err_vs_float64": rel_err(m_got, m64),
+                                   "plain_rel_err_vs_float64": rel_err(m_ref, m64),
+                                   # the init's scores, q k / sqrt(D)
+                                   "max_abs_score": float((mq @ mk.transpose(1, 2)).abs().max())},
+                "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0,
+                                                             **blocks)),
+                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=True,
+                                                                     scale=1.0, **blocks),
+                                    reps=2, batches=3),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q[None], kk[None], v[None], is_causal=True, scale=1.0)),
+                "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
+                "flops": bh * attention_pairs(s, s, True, None) * 2.0 * (dh + dh),
+                "card": card}
+        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
+                                                   split_tf32_rate(card))
+        emit(line)
+        model_ops = line["model_operands"]
+        if not line["rel_err"] <= TOL_KERNEL:
+            raise AssertionError(f"flash_attention_fwd at the {label} lane: rel err "
+                                 f"{line['rel_err']} > {TOL_KERNEL}")
+        if not model_ops["rel_err_vs_float64"] <= max(
+                TOL_KERNEL, LM_FLOAT64_FACTOR * model_ops["plain_rel_err_vs_float64"]):
+            raise AssertionError(f"flash_attention_fwd on the model's operands: {model_ops}")
+        kernel_ms[s] = line["ms"]
+        row = rows["flash_attention_fwd"]
+        row["by_case"][f"{LM_ARCH} lm prefill S={s}"] = {
+            key: line[key] for key in ("shape", "window", "rel_err", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}
+        row["max_abs_err"] = max(row["max_abs_err"], line["max_abs_err"])
+        row["rel_err"] = max(row["rel_err"], line["rel_err"])
+        del q, kk, v, got, ref, mq, mk, mv, m_got, m_ref, m64
+    torch.cuda.empty_cache()
+
+    # Timed: each queue served again (the same tokens), wall clock around
+    # serve_queue, CUDA events around each prefill and decode step.
+    weight_cast_ms = time_ms(lambda: [t.to(dt) for t in tree_leaves(params)], reps=2, batches=3)
+    for eng, queue, (label, n, plen, batch, max_new, max_len) in zip(engines, queues, LM_QUEUES):
+        again = [Request(prompt=r.prompt, max_new=r.max_new) for r in queue]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve_queue(again)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = tap.take()
+        if [r.out for r in again] != [r.out for r in queue]:
+            raise AssertionError(f"lm {label}: the same queue served again gave other tokens")
+        prefill_ms = [ms for _, ms in calls["prefill"]]
+        decode_ms = [ms for _, ms in calls["decode"]]
+        tokens = sum(len(r.out) for r in again)
+        emit({"phase": "lm", "call": "serve", "queue": label, "requests": n, "prompt_len": plen,
+              "batch": batch, "max_new": max_new, "max_len": max_len, "tokens": tokens,
+              "wall_s": wall, "tokens_per_s": tokens / wall, "lane_batches": len(prefill_ms),
+              "prefill_ms": prefill_ms,
+              # a decode step gives the next token of every request in the batch
+              "decode_ms_per_token_median": statistics.median(decode_ms),
+              "decode_ms_per_token_range": [min(decode_ms), max(decode_ms)],
+              "decode_wall_ms_per_token": (wall * 1e3 - sum(prefill_ms)) / len(decode_ms),
+              "kernel_ms": kernel_ms[plen],
+              "kernel_share_of_prefill": cfg.n_layers * kernel_ms[plen]
+              / statistics.median(prefill_ms),
+              "weight_cast_ms": weight_cast_ms, "card": card})
+
+    # The card against itself: decode after a prefill of s tokens against
+    # the prefill of s + 1 (the next token being the one served), at bf16
+    # beside the reference's function as the prefill attention, and at
+    # float32 on the same weights; the first served token is the argmax of
+    # the prefill's last logits.
+    model32 = build(cfg.scaled(compute_dtype="float32"))
+    for queue, (label, _, s, b, _, max_len) in zip(queues, LM_QUEUES):
+        toks = torch.from_numpy(np.stack([np.append(r.prompt, r.out[0]) for r in queue[:b]])
+                                .astype(np.int32)).to(dev)
+        dec, full, pre = lm_golden(torch, model, params, toks, max_len)
+        finite = all(bool(torch.isfinite(x).all()) for x in (full, pre, dec))
+        first = torch.argmax(pre, -1).tolist() == [r.out[0] for r in queue[:b]]
+        with reference_attention(attn):
+            r_dec, r_full, _ = lm_golden(torch, model, params, toks, max_len)
+        f_dec, f_full, _ = lm_golden(torch, model32, params, toks, max_len)
+        line = {"phase": "lm", "check": "decode vs prefill", "lane": label, "s": s,
+                "rel_err": rel_err(dec, full), "reference_attention_rel_err": rel_err(r_dec, r_full),
+                "factor": LM_BF16_FACTOR, "ceiling": LM_BF16_CEILING,
+                "float32_rel_err": rel_err(f_dec, f_full), "float32_tolerance": TOL_LM_F32_GOLDEN,
+                "argmax_agree": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
+                "first_token_is_prefill_argmax": first, "finite": finite}
+        emit(line)
+        if not (finite and first and line["float32_rel_err"] <= TOL_LM_F32_GOLDEN
+                and line["rel_err"] <= LM_BF16_CEILING
+                and line["rel_err"] <= LM_BF16_FACTOR * line["reference_attention_rel_err"]):
+            raise AssertionError(f"lm {label}: {line}")
+        del dec, full, pre, r_dec, r_full, f_dec, f_full
+    peak = torch.cuda.max_memory_allocated()
+    n_flash = launches["flash_attention_fwd"]
+    del engines, tap, params, p0
+    torch.cuda.empty_cache()
+
+    # The card against the CPU at float32 compute, 2 layers at full width,
+    # the same weights on both (the CPU runs the plain twins).
+    cfg2 = cfg.scaled(n_layers=LM_CHECK_LAYERS, compute_dtype="float32")
+    m2 = build(cfg2)
+    p2 = m2.init(torch.Generator(device=dev).manual_seed(1))
+    c2 = tree_map(lambda t: t.cpu(), p2)
+    prompts = [r.prompt for r in queues[0][:LM_QUEUES[0][3]]]
+    b, s = len(prompts), len(prompts[0])
+    toks = torch.from_numpy(np.stack(prompts)).to(dev)
+    logits, _, _ = lm_forward(p2, toks, cfg2)
+    ref, _, _ = lm_forward(c2, toks.cpu(), cfg2)
+    forward_err = rel_err(logits.cpu(), ref)
+    _, caches = m2.prefill_fn(p2, {"tokens": toks[:, :-1]},
+                              m2.init_cache_fn(b, 128, torch.float32, dev))
+    _, c_caches = m2.prefill_fn(c2, {"tokens": toks[:, :-1].cpu()},
+                                m2.init_cache_fn(b, 128, torch.float32, "cpu"))
+    dec, _ = m2.decode_fn(p2, toks[:, -1:], s - 1, caches)
+    dec_ref, _ = m2.decode_fn(c2, toks[:, -1:].cpu(), s - 1, c_caches)
+    decode_err = rel_err(dec.cpu(), dec_ref)
+    card_out = ServeEngine(m2, p2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=p, max_new=LM_CHECK_NEW) for p in prompts])
+    cpu_out = ServeEngine(m2, c2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=p, max_new=LM_CHECK_NEW) for p in prompts])
+    parted = []
+    for i, (x, y) in enumerate(zip(card_out, cpu_out)):
+        t = next((j for j, (u, w) in enumerate(zip(x.out, y.out)) if u != w), None)
+        if t is not None:  # the CPU's top-2 margin where the two part
+            seq = torch.from_numpy(np.append(prompts[i], y.out[:t]).astype(np.int32))[None]
+            last, _ = m2.prefill_fn(c2, {"tokens": seq},
+                                    m2.init_cache_fn(1, 128, torch.float32, "cpu"))
+            top = torch.topk(last[0], 2).values
+            parted.append({"request": i, "step": t,
+                           "margin": float(top[0] - top[1]),
+                           "tolerance": TOL_LM_CPU * float(last.abs().max())})
+    line = {"phase": "lm", "check": "card vs cpu", "layers": LM_CHECK_LAYERS,
+            "compute_dtype": "float32", "forward_rel_err": forward_err,
+            "decode_rel_err": decode_err, "tolerance": TOL_LM_CPU,
+            "tokens_equal": [x.out == y.out for x, y in zip(card_out, cpu_out)],
+            "parted": parted, "peak_gb": peak / 1e9,
+            "phase_seconds": time.perf_counter() - phase_t0, "card": card}
+    emit(line)
+    if not (forward_err <= TOL_LM_CPU and decode_err <= TOL_LM_CPU
+            and all(pt["margin"] <= pt["tolerance"] for pt in parted)):
+        raise AssertionError(f"lm card vs cpu: {line}")
+    del p2, c2, caches, logits, dec
+    torch.cuda.empty_cache()
+    return n_flash
+
+
 def no_degrade(trace, phase: str, ops) -> None:
     """The standing check of the main path: no ``resilience.failover``,
     ``resilience.fault`` or ``plan.degrade`` event, no MEASURE candidate
@@ -3761,7 +4132,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
-    # One capture over the kernel, request, imaging, mri, stream and serve phases:
+    # One capture over the kernel, request, imaging, mri, stream, serve, pencil and lm phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -3789,10 +4160,13 @@ def main() -> int:
         for name, n in pencil_phase(torch, k, card).items():
             launches[name] += n
         no_degrade(trace, "pencil", ops)
+        lm_launches = lm_phase(torch, card, rows)
+        no_degrade(trace, "lm", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})
+    launches["flash_attention_fwd"] += lm_launches
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] < 1:

@@ -141,16 +141,18 @@ def flash_attention_plain(
     window: Optional[int] = None,
     block_q: int = 256,
     block_k: int = 512,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The reference kernel's online softmax over its padded key blocks, all
-    query rows at once (a query block only pads, and padded rows are cut)."""
+    query rows at once (a query block only pads, and padded rows are cut).
+    Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference."""
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
     _, block_k, sq_pad, sk_pad = _blocks(sq, sk, block_q, block_k)
     q = torch.nn.functional.pad(q.float(), (0, 0, 0, sq_pad - sq))
     k = torch.nn.functional.pad(k.float(), (0, 0, 0, sk_pad - sk))
     v = torch.nn.functional.pad(v.float(), (0, 0, 0, sk_pad - sk))
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qpos = torch.arange(sq_pad, device=q.device).reshape(sq_pad, 1)
     acc = torch.zeros(bh, sq_pad, dv, dtype=torch.float32, device=q.device)
     m = torch.full((bh, sq_pad, 1), NEG_INF, dtype=torch.float32, device=q.device)
@@ -191,16 +193,19 @@ def flash_attention_fwd(
     window: Optional[int] = None,
     block_q: int = 256,
     block_k: int = 512,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv) -> (BH, Sq, Dv) float32.
 
-    On a CUDA tensor D and Dv may be at most 256 (``NotImplementedError``
-    above that) and BH at most 65535.
+    Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference
+    (a caller that scaled q already passes 1). On a CUDA tensor D and Dv may
+    be at most 256 (``NotImplementedError`` above that) and BH at most
+    65535.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     block_q=block_q, block_k=block_k)
+                                     block_q=block_q, block_k=block_k, scale=scale)
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
@@ -218,6 +223,7 @@ def flash_attention_fwd(
         w = 0 if window is None else max(-sk, min(int(window), sq + sk + 1))
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk, d, dv, int(causal),
-               int(window is not None), w, 1.0 / math.sqrt(d), sk_pad, _acc_columns(dv),
+               int(window is not None), w, 1.0 / math.sqrt(d) if scale is None else scale,
+               sk_pad, _acc_columns(dv),
                THREADS, flash_smem_bytes(d, dv))
     return out

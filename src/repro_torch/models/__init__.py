@@ -1,0 +1,7 @@
+"""repro_torch.models — the LM stack's models (port of ``repro.models``).
+
+``config`` (every architecture's dataclass), ``param`` (skeletons, init,
+the weight carrier ``params_from_numpy``), ``layers``, ``attention`` (GQA,
+prefill on the hand-written ``flash_attention_fwd`` on the card),
+``transformer`` (the dense decoder) and ``build`` (the ``Model`` bundle).
+"""

@@ -1,0 +1,258 @@
+"""Attention: flash-style online softmax, GQA, and the KV caches.
+
+Port of ``repro.models.attention``, the GQA part. Prefill attention is
+:func:`flash_attention`:
+
+* on a CUDA tensor it runs the hand-written kernel
+  ``repro_torch.kernels.flash_attention.flash_attention_fwd`` in float32
+  (query head h reads kv head h // g, laid out as (B·H, S, D); the result
+  is cast back to the compute dtype). q is scaled in the compute dtype
+  first, the reference's rounding step, and the kernel takes scale 1. The
+  reference's model runs a jnp function in the compute dtype; the kernel
+  computes the same function, keeping the softmax weights in float32
+  where the reference rounds them to the compute dtype (ROADMAP,
+  divergence 13). ``q_offset != 0`` raises there: the kernel has no query
+  offset;
+* on a CPU tensor it runs :func:`flash_attention_blocks`, a plain twin of
+  the reference's function in the compute dtype, with its rounding steps
+  (q scaled before the product, the weights ``p`` cast to v's dtype).
+
+Decode scores one query against a cache with plain tensor ops, as the
+reference's jnp ``decode_attention`` does: a dense buffer for full
+attention, a ring buffer (size = window) for sliding-window attention.
+Caches are written in place (:func:`_cache_insert`), where the reference
+returns new arrays (ROADMAP, divergence 14).
+
+Cross-attention (audio), MLA (moe) and ``flash_attention_cp`` (sharding)
+come with the slices that need them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.param import ParamDef, _device
+
+__all__ = [
+    "NEG_INF",
+    "decode_attention",
+    "flash_attention",
+    "flash_attention_blocks",
+    "gqa_apply",
+    "gqa_from_heads",
+    "gqa_qkv",
+    "gqa_skel",
+    "gqa_to_heads",
+    "make_cache",
+]
+
+NEG_INF = -1.0e30
+
+
+# ------------------------- flash attention -------------------------
+
+def gqa_to_heads(q, k, v):
+    """(B, S, H, D) q and (B, S, KV, D) k, v as the kernel's (B·H, S, D)
+    float32 operands: query head h reads kv head h // g."""
+    b, _, h, _ = q.shape
+    g = h // k.shape[2]
+
+    def heads(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], x.shape[3]).float()
+
+    return heads(q), heads(k.repeat_interleave(g, dim=2)), heads(v.repeat_interleave(g, dim=2))
+
+
+def gqa_from_heads(out, b: int):
+    """The kernel's (B·H, S, Dv) output as (B, S, H, Dv)."""
+    bh, s, dv = out.shape
+    return out.reshape(b, bh // b, s, dv).permute(0, 2, 1, 3)
+
+
+def flash_attention_blocks(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                           q_offset: int = 0, block_q: int = 512, block_k: int = 1024):
+    """The reference's ``flash_attention`` as plain tensor ops: an online
+    softmax over its padded key blocks in the compute dtype, products
+    accumulated in float32. Every query row runs the reference's recurrence
+    (its query blocks only pad, and padded rows are cut), so all rows go at
+    once."""
+    b, sq0, h, dk = q.shape
+    _, sk0, kv, _ = k.shape
+    dv = v.shape[-1]
+    g = h // kv
+    block_k = min(block_k, sk0)
+    # Padded k positions are masked out; no query padding is needed here.
+    pad_k = (-sk0) % block_k
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nk = (sk0 + pad_k) // block_k
+    scale = 1.0 / math.sqrt(dk)
+    dev = q.device
+
+    qs = (q * scale).reshape(b, sq0, kv, g, dk).float()
+    qpos = q_offset + torch.arange(sq0, device=dev)
+    acc = torch.zeros(b, sq0, kv, g, dv, dtype=torch.float32, device=dev)
+    m = torch.full((b, sq0, kv, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(b, sq0, kv, g, dtype=torch.float32, device=dev)
+    for j in range(nk):
+        kj = k[:, j * block_k:(j + 1) * block_k]
+        vj = v[:, j * block_k:(j + 1) * block_k]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qs, kj.float())
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        mask = (kpos[None, :] < sk0).expand(sq0, block_k)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vj.dtype).float(), vj.float()
+        )
+        m = m_new
+    out = (acc / torch.clamp(l[..., None], min=1e-20)).to(q.dtype)
+    return out.reshape(b, sq0, h, dv)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, block_q: int = 512, block_k: int = 1024):
+    """q: (B, Sq, H, Dk); k: (B, Sk, KV, Dk); v: (B, Sk, KV, Dv). GQA via
+    H = KV·g. A CUDA tensor launches ``flash_attention_fwd`` or raises; a
+    CPU tensor runs :func:`flash_attention_blocks`."""
+    if q.device.type != "cuda":
+        return flash_attention_blocks(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, block_q=block_q, block_k=block_k)
+    if q_offset != 0:
+        raise NotImplementedError(
+            "flash_attention on the card takes q_offset 0: flash_attention_fwd has no "
+            "query offset (only context-parallel attention uses one)"
+        )
+    qs = q * (1.0 / math.sqrt(q.shape[-1]))  # rounded to the compute dtype, as the reference
+    out = fa.flash_attention_fwd(*gqa_to_heads(qs, k, v), causal=causal, window=window,
+                                 block_q=block_q, block_k=block_k, scale=1.0)
+    return gqa_from_heads(out, q.shape[0]).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos):
+    """One-token attention over a cache buffer.
+
+    q: (B, 1, H, Dk); caches (B, S, KV, D*); slot_pos (S,) giving the global
+    position stored in each slot (−1 = empty) — valid for both dense caches
+    (slot_pos = arange) and SWA ring caches (rotating slots). The products
+    run in float32 on the operands as given (JAX promotes a bf16 query
+    against a float32 cache to float32), the weights cast to the cache's
+    dtype first, the result cast to q's dtype.
+    """
+    b, _, h, dk = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(dk)
+    qh = q.reshape(b, kv, g, dk) * scale
+    s = torch.einsum("bhgd,bshd->bhgs", qh.float(), k_cache.float())
+    valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+# ----------------------------- GQA layer -----------------------------
+
+def gqa_skel(cfg: ModelConfig) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((h, dh, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    """Dense or ring (SWA) KV cache for one layer, empty (slot_pos −1), on
+    ``device`` (default: the card)."""
+    device = _device(device)
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, size, kv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, kv, dh), dtype=dtype, device=device),
+        "slot_pos": torch.full((size,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _cache_insert(cache: dict, k_new, v_new, pos: int):
+    """Insert (B, S_new, KV, Dh) at global position ``pos`` (ring-aware),
+    writing into the cache's tensors; returns the cache."""
+    size = cache["k"].shape[1]
+    s_new = k_new.shape[1]
+    if s_new == 1:
+        slot = pos % size
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        cache["slot_pos"][slot] = pos
+    else:
+        # prefill: keep the last ``size`` entries (ring) or all (dense)
+        take = min(s_new, size)
+        cache["k"][:, :take] = k_new[:, s_new - take:].to(cache["k"].dtype)
+        cache["v"][:, :take] = v_new[:, s_new - take:].to(cache["v"].dtype)
+        cache["slot_pos"][:take] = torch.arange(
+            s_new - take, s_new, dtype=torch.int32, device=cache["slot_pos"].device
+        )
+    return cache
+
+
+def _project(x, w):
+    """einsum("bsd,dhk->bshk", x, w) as one matmul."""
+    d, h, k = w.shape
+    return torch.matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def gqa_qkv(p: dict, x, cfg: ModelConfig, positions):
+    """q (B, S, H, Dh), k, v (B, S, KV, Dh) of x (B, S, D), rotated."""
+    dt = x.dtype
+    q = _project(x, p["wq"].to(dt))
+    k = _project(x, p["wk"].to(dt))
+    v = _project(x, p["wv"].to(dt))
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+
+
+def gqa_apply(p: dict, x, cfg: ModelConfig, *, positions, causal: bool = True,
+              cache: dict | None = None, decode: bool = False, pos: Optional[int] = None):
+    """Returns (out, new_cache). x: (B, S, D); positions (B, S). ``pos``,
+    the first position, is read from ``positions`` where the caller does
+    not give it (a host read of a card tensor)."""
+    dt = x.dtype
+    q, k, v = gqa_qkv(p, x, cfg, positions)
+    new_cache = None
+    if cache is not None and pos is None:
+        pos = int(positions[0, 0]) if positions.ndim == 2 else int(positions[0])
+    if decode:
+        if cache is None:
+            raise ValueError("gqa_apply: decode needs a cache")
+        new_cache = _cache_insert(cache, k, v, pos)
+        out = decode_attention(q, new_cache["k"], new_cache["v"], new_cache["slot_pos"], pos)
+    else:
+        out = flash_attention(
+            q, k, v,
+            causal=causal,
+            window=cfg.sliding_window,
+            block_q=cfg.attn_block_q,
+            block_k=cfg.attn_block_k,
+        )
+        if cache is not None:
+            new_cache = _cache_insert(cache, k, v, pos)
+    h, dh, d = p["wo"].shape
+    y = torch.matmul(out.reshape(*out.shape[:2], h * dh), p["wo"].to(dt).reshape(h * dh, d))
+    return y, new_cache

@@ -1,0 +1,97 @@
+"""config → Model bundle: init / abstract / loss / prefill / decode.
+
+Port of ``repro.models.build``. The serving layer only ever talks to a
+``Model``. ``build`` serves the dense and vlm families (one forward,
+``lm_forward``); every other family raises ``NotImplementedError`` naming
+its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import softmax_xent
+from repro_torch.models.param import abstract_params, init_params, param_count
+
+__all__ = ["Model", "build"]
+
+#: ROADMAP queue 1, item 12's sub-item that ports each family still missing.
+PENDING = {
+    "ssm": "12 (b)",
+    "moe": "12 (c)",
+    "hybrid": "12 (d)",
+    "audio": "12 (e)",
+    "spectral": "12 (f)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    skeleton: Any
+    loss_fn: Callable          # (params, batch) -> (loss, metrics)
+    prefill_fn: Callable       # (params, batch, caches) -> (logits, caches)
+    decode_fn: Callable | None # (params, token, pos, caches, extras) -> (logits, caches)
+    init_cache_fn: Callable | None  # (batch, max_len, dtype, device) -> caches
+
+    def init(self, generator: torch.Generator, dtype=None, device=None):
+        return init_params(self.skeleton, generator, dtype, device)
+
+    def abstract(self, dtype=None):
+        return abstract_params(self.skeleton, dtype)
+
+    @property
+    def n_params(self) -> int:
+        return param_count(self.skeleton)
+
+
+def _lm_like(cfg: ModelConfig, forward, skel, init_cache):
+    """Bundle for decoder-style LMs (dense/vlm)."""
+
+    def loss_fn(params, batch):
+        extras = {}
+        if "patches" in batch:
+            extras["prefix_embeds"] = batch["patches"]
+        logits, _, aux = forward(params, batch["tokens"], cfg, **extras)
+        n_prefix = logits.shape[1] - batch["tokens"].shape[1]
+        logits_tok = logits[:, n_prefix:]
+        loss = softmax_xent(logits_tok[:, :-1], batch["tokens"][:, 1:])
+        metrics = {"xent": loss, "loss": loss}
+        return loss, metrics
+
+    def prefill_fn(params, batch, caches):
+        extras = {}
+        if "patches" in batch:
+            extras["prefix_embeds"] = batch["patches"]
+        logits, caches, _ = forward(
+            params, batch["tokens"], cfg, caches=caches, **extras
+        )
+        return logits[:, -1], caches
+
+    def decode_fn(params, token, pos, caches, extras=None):
+        logits, caches, _ = forward(
+            params, token, cfg, pos0=pos, caches=caches, decode=True
+        )
+        return logits[:, -1], caches
+
+    return Model(cfg, skel, loss_fn, prefill_fn, decode_fn, init_cache)
+
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.family in ("dense", "vlm"):
+        return _lm_like(
+            cfg, T.lm_forward, T.lm_skel(cfg),
+            lambda b, s, dtype=torch.bfloat16, device=None: T.lm_init_cache(
+                cfg, b, s, dtype, device),
+        )
+    if cfg.family in PENDING:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"(ROADMAP, queue 1, item {PENDING[cfg.family]})"
+        )
+    raise ValueError(f"unknown family {cfg.family}")

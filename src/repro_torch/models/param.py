@@ -1,0 +1,157 @@
+"""Module-less parameter system: models are (skeleton, pure functions).
+
+Port of ``repro.models.param``. A *skeleton* is a tree (nested dicts) of
+``ParamDef`` describing every weight: shape, dtype, init and **logical
+axes** (names like "embed", "heads", "mlp"). From a skeleton we derive:
+
+  * ``init_params``       — concrete tensors, drawn from a caller's
+                            ``torch.Generator`` on the device they go to
+  * ``abstract_params``   — ``meta`` tensors (shapes and dtypes, no storage)
+  * ``params_from_numpy`` — a reference parameter tree of numpy leaves
+                            carried across as tensors, same keys and shapes
+
+The init is the reference's, quirk included: ``fan_in = shape[0]``, which
+for a stacked layer weight is the layer count (ROADMAP, observations).
+The draws are torch's, not JAX's: parity with the reference goes through
+``params_from_numpy``. (``partition_specs`` comes with the sharding slice.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+__all__ = [
+    "ParamDef",
+    "abstract_params",
+    "default_device",
+    "init_params",
+    "param_bytes",
+    "param_count",
+    "params_from_numpy",
+    "stack_defs",
+    "stack_skeleton",
+    "tree_leaves",
+    "tree_map",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
+    dtype: Any = torch.float32
+    init: str = "normal"  # "normal" | "zeros" | "ones" | "scaled"
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical_axes):
+            raise ValueError(
+                f"rank mismatch: shape {self.shape} vs axes {self.logical_axes}"
+            )
+
+
+def default_device() -> torch.device:
+    """The card: where the LM stack runs unless the caller names a device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch.models runs on torch.device('cuda') unless a device is "
+            "given, and CUDA is not available; pass device='cpu' to compute on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def _device(device) -> torch.device:
+    return torch.device(device) if device is not None else default_device()
+
+
+# ------------------------------ trees ------------------------------
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (dict keys
+    in sorted order, as ``jax.tree`` walks them); ``rest`` are trees of the
+    same structure whose leaves are passed alongside."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+# ------------------------------ params ------------------------------
+
+
+def init_params(skeleton, generator: torch.Generator, dtype=None, device=None):
+    """Materialise a skeleton into tensors on ``device`` (default: the
+    generator's), drawn from ``generator`` leaf by leaf in tree order."""
+    device = torch.device(device) if device is not None else generator.device
+
+    def one(d: ParamDef):
+        dt = dtype or d.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=device)
+        fan_in = d.shape[0] if d.shape else 1
+        std = d.scale * (1.0 / math.sqrt(max(fan_in, 1)))
+        x = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=device)
+        return (x * std).to(dt)
+
+    return tree_map(one, skeleton)
+
+
+def abstract_params(skeleton, dtype=None):
+    """``meta`` tensor tree: shapes and dtypes, no storage."""
+    return tree_map(
+        lambda d: torch.empty(d.shape, dtype=dtype or d.dtype, device="meta"), skeleton
+    )
+
+
+def _from_numpy(x, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """A reference parameter tree with numpy leaves (``jax.tree.map(
+    np.asarray, params)``) as tensors on ``device`` (default: the card),
+    same keys, shapes and dtypes."""
+    device = _device(device)
+    return tree_map(lambda x: _from_numpy(x, device), tree)
+
+
+def param_count(skeleton) -> int:
+    return int(sum(math.prod(d.shape) for d in tree_leaves(skeleton)))
+
+
+def param_bytes(skeleton) -> int:
+    return int(sum(
+        math.prod(d.shape) * torch.empty((), dtype=d.dtype).element_size()
+        for d in tree_leaves(skeleton)
+    ))
+
+
+def stack_defs(d: ParamDef, n: int, axis_name: str = "layers") -> ParamDef:
+    """Add a leading stacked-layer dimension (one tensor over all layers)."""
+    return dataclasses.replace(
+        d,
+        shape=(n, *d.shape),
+        logical_axes=(axis_name, *d.logical_axes),
+    )
+
+
+def stack_skeleton(skel, n: int, axis_name: str = "layers"):
+    return tree_map(lambda d: stack_defs(d, n, axis_name), skel)

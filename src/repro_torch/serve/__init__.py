@@ -1,15 +1,15 @@
 """repro_torch.serve — one continuous-batching loop behind every service.
 
-Port of ``repro.serve``: ``SpectrumService`` and ``ImagingService`` share
-the :class:`~repro_torch.serve.loop.ServeLoop` scheduler (per-problem-key
-lanes, coalescing, round-robin fairness, ``Overloaded`` backpressure);
-:mod:`repro_torch.serve.wisdom` ships pre-tuned plan caches as artifacts
-so a fresh process serves with zero MEASURE cost. The reference's LM
-``ServeEngine`` and ``Request`` come with the LM stack.
+Port of ``repro.serve``: ``SpectrumService``, ``ImagingService`` and the
+LM ``ServeEngine`` share the :class:`~repro_torch.serve.loop.ServeLoop`
+scheduler (per-problem-key lanes, coalescing, round-robin fairness,
+``Overloaded`` backpressure); :mod:`repro_torch.serve.wisdom` ships
+pre-tuned plan caches as artifacts so a fresh process serves with zero
+MEASURE cost.
 """
 
 from repro_torch.serve import wisdom
-from repro_torch.serve.engine import SpectrumRequest, SpectrumService
+from repro_torch.serve.engine import Request, ServeEngine, SpectrumRequest, SpectrumService
 from repro_torch.serve.imaging import (
     ConvolutionRequest,
     ImagingService,
@@ -27,6 +27,8 @@ __all__ = [
     "LaneKey",
     "ReconRequest",
     "RegistrationRequest",
+    "Request",
+    "ServeEngine",
     "ServeLoop",
     "SpectrumRequest",
     "SpectrumService",

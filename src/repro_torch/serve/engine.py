@@ -1,7 +1,19 @@
-"""Plan-aware 2D-FFT serving over the shared continuous-batching loop.
+"""Batched serving engines over the shared continuous-batching loop.
 
-Port of ``repro.serve.engine``'s :class:`SpectrumService`: the paper's
-2D-FFT processor as a service. Plan-aware batching groups frame requests
+Port of ``repro.serve.engine``:
+
+* :class:`ServeEngine` — LM serving: prefill, then greedy decode steps
+  over the ``Model`` API (``repro_torch.models.build``). Requests route
+  through the same :class:`~repro_torch.serve.loop.ServeLoop` lane
+  machinery as the FFT services; lanes are power-of-two prompt-length
+  buckets, and a lane batch is left-padded to its longest prompt, as the
+  reference pads. The engine runs where its parameters lie (on the card,
+  prefill attention launches ``flash_attention_fwd`` once a layer). Its
+  caches are written in place, so each lane batch starts by emptying
+  them: every batch starts from empty caches, as in the reference, whose
+  caches are never mutated.
+* :class:`SpectrumService` — the paper's 2D-FFT processor as a service.
+  Plan-aware batching groups frame requests
 by problem key (shape × realness × device), plans ONE transform per group
 through ``repro_torch.plan``, and runs each group as a single batched
 transform. Real frames take the two-for-one ``rfft2`` path, complex
@@ -12,8 +24,7 @@ around ``serve()`` steers the whole service (and its wisdom keys).
 The service delegates admission, lane queues, coalescing and fairness to
 its :class:`~repro_torch.serve.loop.ServeLoop` (``svc.loop``): ``serve()``
 is the call-scoped contract, ``svc.loop.submit()`` / ``svc.loop.start()``
-the streaming one. (The reference's LM ``ServeEngine`` comes with the LM
-stack.)
+the streaming one.
 
 Where frames live:
 
@@ -42,11 +53,12 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.models.param import tree_leaves
 from repro_torch.resilience.policies import ServicePolicy, execute_with_policy
 from repro_torch.serve.loop import LaneKey, ServeLoop, record_lane_key
 from repro_torch.serve.queue import BatchPolicy
 
-__all__ = ["SpectrumRequest", "SpectrumService"]
+__all__ = ["Request", "ServeEngine", "SpectrumRequest", "SpectrumService"]
 
 #: The lane source of input that is not a tensor: it runs on the card.
 NUMPY = "numpy"
@@ -106,6 +118,149 @@ def _finished(out):
     if isinstance(out, torch.Tensor) and out.is_cuda:
         torch.cuda.current_stream(out.device).synchronize()
     return out
+
+
+# ------------------------------- LM serving -------------------------------
+
+
+def _host_tokens(prompt) -> np.ndarray:
+    if isinstance(prompt, torch.Tensor):
+        return prompt.detach().cpu().numpy()
+    return np.asarray(prompt)
+
+
+def _empty(caches: dict) -> None:
+    """Reset caches to what the model's ``init_cache_fn`` makes: zeros, and
+    ``slot_pos`` −1 (no slot filled)."""
+    for key, t in caches.items():
+        if isinstance(t, dict):
+            _empty(t)
+        else:
+            t.fill_(-1 if key == "slot_pos" else 0)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: Any                   # (S,) int: numpy array, list or tensor
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    name = "lm"
+
+    def __init__(self, model, params, *, batch: int, max_len: int, dtype=torch.float32,
+                 policy: ServicePolicy | None = None,
+                 batch_policy: BatchPolicy | None = None):
+        self.model = model
+        self.params = params
+        self.batch = batch
+        self.max_len = max_len
+        self.device = tree_leaves(params)[0].device
+        # Serving hardening (repro_torch.resilience): per-batch deadline,
+        # bounded retry with jittered backoff, queue-depth load shedding. The
+        # default policy is maximally permissive.
+        self.policy = policy if policy is not None else ServicePolicy()
+        self.caches = model.init_cache_fn(batch, max_len, dtype, self.device)
+        self._extras: dict | None = None
+        if batch_policy is None:
+            batch_policy = BatchPolicy(max_batch=batch)
+        elif batch_policy.max_batch is None or batch_policy.max_batch > batch:
+            # the caches hold `batch` slots; a lane batch can never exceed them
+            batch_policy = dataclasses.replace(batch_policy, max_batch=batch)
+        self.loop = ServeLoop(
+            self._classify, self._execute_lane, service=self.name,
+            policy=self.policy, batch=batch_policy,
+            queue_fields=self._queue_fields,
+        )
+
+    def generate(self, prompts: List[Any], max_new: int = 16,
+                 extras: dict | None = None) -> List[List[int]]:
+        """Greedy generation for a single batch of equal-length prompts,
+        from empty caches."""
+        if len(prompts) != self.batch:
+            raise ValueError(f"generate takes {self.batch} prompts (the engine's slots), "
+                             f"got {len(prompts)}")
+        s = len(prompts[0])
+        tokens = np.stack([_host_tokens(p) for p in prompts]).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+        if extras:
+            batch.update({k: torch.as_tensor(v, device=self.device) for k, v in extras.items()})
+        _empty(self.caches)
+        logits, caches = self.model.prefill_fn(self.params, batch, self.caches)
+        outs: List[List[int]] = [[] for _ in prompts]
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        pos = s
+        for _ in range(max_new):
+            for i, t in enumerate(tok[:, 0].tolist()):
+                outs[i].append(int(t))
+            logits, caches = self.model.decode_fn(self.params, tok, pos, caches)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            pos += 1
+        return outs
+
+    # --------------------------- lane machinery ---------------------------
+
+    def _classify(self, r: Any) -> LaneKey:
+        if not isinstance(r, Request):
+            raise TypeError(f"expected Request, got {type(r)!r}")
+        s = len(_host_tokens(r.prompt))
+        if not 0 < s <= self.max_len:
+            raise ValueError(
+                f"prompt length must be in 1..{self.max_len}, got {s}"
+            )
+        # pow2 length buckets: prompts in one lane pad to at most 2x the
+        # shortest member, instead of to the longest prompt in the call
+        bucket = min(1 << (s - 1).bit_length(), self.max_len)
+        return LaneKey(self.name, (bucket,))
+
+    def _queue_fields(self, requests, lanes) -> dict:
+        return {"slots": self.batch, "lanes": len(set(lanes))}
+
+    def _execute_lane(self, lane: LaneKey, members: List[Request]) -> None:
+        prompts = [_host_tokens(a.prompt) for a in members]
+        s = max(len(p) for p in prompts)
+        toks = np.zeros((self.batch, s), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, s - len(p):] = p
+        with obs.span(
+            "serve.batch",
+            service=self.name,
+            batch=len(members),
+            slots=self.batch,
+            queued=self.loop.queue.depth(),
+            prompt_len=s,
+        ):
+            outs = execute_with_policy(
+                self.policy,
+                lambda: self.generate(
+                    [toks[i] for i in range(self.batch)],
+                    max_new=max(a.max_new for a in members),
+                    extras=self._extras,
+                ),
+                service=self.name,
+            )
+        for i, a in enumerate(members):
+            a.out = outs[i][: a.max_new]
+            a.done = True
+
+    def serve_queue(self, queue: List[Request], extras: dict | None = None) -> List[Request]:
+        """Continuous batching: serve a request queue through the loop's
+        prompt-length lanes, at most ``batch`` requests per execution.
+
+        Under a bounding :class:`~repro_torch.resilience.ServicePolicy`, a
+        queue deeper than ``max_queue`` is rejected whole with
+        ``Overloaded`` (shed at admission — no request is half-served), and
+        each batch step runs with the policy's deadline/retry envelope.
+        """
+        requests = list(queue)
+        self._extras = extras
+        try:
+            self.loop.serve(requests)
+        finally:
+            self._extras = None
+        return requests
 
 
 # ----------------------- plan-aware 2D-FFT serving ------------------------

@@ -95,6 +95,23 @@ def test_flash_checks_its_input():
         fa.flash_attention_fwd(q.int(), torch.zeros(2, 8, 4), torch.zeros(2, 8, 4))
 
 
+@pytest.mark.parametrize("factor", [1.0, 0.25])
+def test_scale_argument_scales_the_scores(factor):
+    """``scale`` replaces the default 1/sqrt(D): q pre-multiplied by
+    ``factor`` / sqrt(D) with scale 1 gives the default at ``factor`` 1, and
+    the oracle on the scaled q otherwise (the model's card route passes a
+    q scaled in its own dtype, and 1)."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(3, 2, 48, 48, 16, 16))
+    d = q.shape[-1]
+    got = fa.flash_attention_fwd(q * (factor / np.sqrt(d)), k, v, causal=True,
+                                 block_q=16, block_k=16, scale=1.0)
+    ref = fa.mha_reference(q * factor, k, v, causal=True)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
+    if factor == 1.0:
+        default = fa.flash_attention_fwd(q, k, v, causal=True, block_q=16, block_k=16)
+        np.testing.assert_allclose(got.numpy(), default.numpy(), atol=1e-6)
+
+
 def test_plain_path_launches_nothing():
     reset_launches()
     q = torch.ones(1, 8, 4)

@@ -36,6 +36,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.serve.imaging, repro_torch.serve.wisdom; "
         "import repro_torch.xfft._report; from repro_torch.xfft import report, report_data; "
         "import repro_torch.compat, repro_torch.core.distributed, repro_torch.checkpoint; "
+        "import repro_torch.models.config, repro_torch.models.param, repro_torch.models.layers; "
+        "import repro_torch.models.attention, repro_torch.models.transformer; "
+        "import repro_torch.models.build, repro_torch.configs, repro_torch.data; "
+        "import repro_torch.launch.serve; from repro_torch.serve import ServeEngine, Request; "
+        "from repro_torch.configs import get_config; get_config('llama3.2-3b'); "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1094,3 +1094,87 @@ def test_cuda_pencil_key_plans_the_kernels(cuda):
             == "fused_r4"
         scoped = problem_key("fft2d_pencil", shape, cuda, n_devices=d, backends=("torch",))
         assert estimate_plan(scoped).variant in ("looped", "stockham", "radix4")
+
+
+def _smoke_lm(cuda, arch="llama3.2-3b"):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.build import build
+    from repro_torch.models.param import tree_map
+
+    cfg = smoke_config(arch)  # float32 compute
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    return cfg, model, params, tree_map(lambda t: t.cpu(), params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "internvl2-76b"])
+def test_cuda_lm_prefill_launches_flash_once_per_layer(cuda, arch):
+    """Divergence 13: on the card every prefill layer's attention launches
+    ``flash_attention_fwd`` once and a decode step none; the logits agree
+    with the CPU's plain twins on the same weights to 1e-4 of their
+    largest value (float32 compute)."""
+    from repro_torch.kernels._launch import LAUNCHES
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda, arch)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s = 2, 12
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g, device=cuda,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(b, cfg.n_patches, cfg.d_model, generator=g, device=cuda)
+    caches = model.init_cache_fn(b, 32, torch.float32, cuda)
+    cpu_caches = model.init_cache_fn(b, 32, torch.float32, "cpu")
+    before = LAUNCHES["flash_attention_fwd"]
+    logits, caches = model.prefill_fn(params, batch, caches)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] - before == cfg.n_layers
+    ref, cpu_caches = model.prefill_fn(cpu_params, {k: v.cpu() for k, v in batch.items()},
+                                       cpu_caches)
+    assert _rel(logits.cpu(), ref) <= 1e-4
+    tok = torch.argmax(ref, -1).to(torch.int32)[:, None]
+    before = LAUNCHES["flash_attention_fwd"]
+    d, _ = model.decode_fn(params, tok.to(cuda), s, caches)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == before
+    d_ref, _ = model.decode_fn(cpu_params, tok, s, cpu_caches)
+    assert _rel(d.cpu(), d_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_gives_the_cpu_tokens(cuda):
+    """``ServeEngine`` runs where its parameters lie: the card's tokens are
+    the CPU's on the same weights and queue (float32 compute)."""
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda)
+    rng = np.random.default_rng(3)
+    lengths = [3, 5, 8, 12, 17, 30, 6]
+
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32) for n in lengths]
+
+    def queue():
+        return [Request(prompt=p, max_new=4) for p in prompts]
+
+    card = ServeEngine(model, params, batch=3, max_len=64)
+    host = ServeEngine(model, cpu_params, batch=3, max_len=64)
+    assert card.device.type == "cuda" and host.device.type == "cpu"
+    got, want = card.serve_queue(queue()), host.serve_queue(queue())
+    assert [r.out for r in got] == [r.out for r in want]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_with_a_query_offset_raises(cuda):
+    """Divergence 13: the kernel has no query offset, so the model's
+    ``flash_attention`` raises on a CUDA tensor with ``q_offset != 0``
+    (the CPU twin takes one)."""
+    from repro_torch.models import attention as attn
+
+    q = torch.randn(1, 16, 4, 8, device=cuda)
+    kv = torch.randn(1, 32, 2, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        attn.flash_attention(q, kv, kv, q_offset=16)
+    out = attn.flash_attention(q.cpu(), kv.cpu(), kv.cpu(), q_offset=16)
+    assert out.shape == (1, 16, 4, 8)

@@ -1,0 +1,93 @@
+"""Where the port's LM serving spends its host and card time: one lane
+batch's prefill and one decode step at llama3.2-3b's full width (bf16
+compute over float32 weights, random from a seeded generator), on one
+NVIDIA card.
+
+    python3 tools/lm_profile.py --batch 4 --prompt-lens 16,1024
+
+For each prompt length one JSON line with, for ``prefill`` (``prefill_fn``
+on the batch's prompts) and ``decode`` (``decode_fn`` at the next
+position, after that prefill):
+
+- ``host_ms``: host wall time a call takes to return, enqueued and not
+  waited for, over 5 back-to-back calls; ``top``: the 12 functions with
+  the most own host time under ``cProfile`` (µs a call);
+- ``card``: a ``torch.profiler`` trace of 3 back-to-back calls (the
+  kernels, their busy µs, the union of busy time over the window from the
+  first kernel's start to the last one's end, and the idle share of that
+  window), read as ``tools/stream_profile.py`` reads its traces;
+- ``wall_ms``: one call waited for (``torch.cuda.synchronize``).
+
+Prints the card's name and power limit first. Needs CUDA; exits 2 without.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
+
+from stream_profile import card, host  # noqa: E402  (the same trace reading)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-lens", default="16,1024")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("lm_profile: CUDA is not available; this script needs one NVIDIA card",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.build import build
+
+    _build.library()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    cfg = get_config(args.arch)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    for s in (int(n) for n in args.prompt_lens.split(",")):
+        b = args.batch
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+        caches = model.init_cache_fn(b, 2 * s, torch.float32, dev)
+        logits, caches = model.prefill_fn(params, {"tokens": toks}, caches)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        calls = {
+            "prefill": lambda: model.prefill_fn(params, {"tokens": toks}, caches),
+            "decode": lambda: model.decode_fn(params, tok, s, caches),
+        }
+        line = {"arch": cfg.name, "batch": b, "prompt_len": s, "compute_dtype": cfg.compute_dtype}
+        for name, fn in calls.items():
+            host_us, top = host(torch, fn, 1, calls=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            line[name] = {"host_ms": host_us / 1e3, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "card": card(torch, fn, calls=3),
+                          "top": [dict(row, own_us_per_call=row.pop("own_us_per_step"),
+                                       calls_per_call=row.pop("calls_per_step")) for row in top]}
+        print(json.dumps(line), flush=True)
+        del caches, logits
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
