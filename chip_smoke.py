@@ -231,9 +231,39 @@ Phases, each printing one JSON line:
              against CPU (logits 1e-3, tokens equal wherever the CPU's
              top-2 margin exceeds that). Its launches count toward the
              ``kernels`` line;
-   After each of the kernel, request, imaging, mri, stream, serve, pencil
-   and lm phases (one ``obs.capture()`` around the eight) a ``"check": "no
-   degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
+7d. lm state — the same for the recurrent-state families, one after the
+             other, each at full width with bf16 compute over float32
+             weights from a seeded card generator (after the lm phase's
+             llama weights are freed): xlstm-350m (24 layers of mLSTM /
+             sLSTM, d_model 1024, vocab 50304), whose every sLSTM prefill
+             launches ``slstm_scan`` (12 a lane batch at (4, S, 4096)), and
+             zamba2-2.7b (54 Mamba2 layers, d_model 2560, vocab 32000, one
+             shared attention block of 32 heads of 160 every 6 layers),
+             whose shared block's prefill launches ``flash_attention_fwd``
+             (9 a lane batch at (128, S, 160)); neither on a decode step,
+             no other kernel. The kernel on the model's own operands at
+             each lane's shape: ``slstm_scan`` on layer 0's ``xg`` against
+             its plain version over every 16-step window from a common
+             state (1e-4), ``flash_attention_fwd`` on Gaussian operands
+             (2e-5) and on the first invocation's own q, k, v against
+             float64; each timed beside its plain version (and SDPA) and
+             its bound. The timed serve (tokens/s, prefill ms a lane
+             batch, decode ms a step, the kernel's share of the prefill,
+             peak memory); decode against the prefill of s + 1 at full
+             depth, bf16 and float32, beside the reference's route for the
+             kernel (the plain step loop or ``flash_attention_blocks``),
+             printed and held finite with the first token the prefill's
+             argmax (these models amplify a rounding to O(0.1-1) over
+             their depth at this init), and at the cut depth below at
+             float32 within 2e-3; a copy cut in depth
+             (one mLSTM / sLSTM pair; one group of 2 Mamba2 layers and
+             the shared block after it) card against CPU at float32
+             (1e-3, tokens equal wherever the CPU's top-2 margin exceeds
+             that). Its
+             launches count toward the ``kernels`` line;
+   After each of the kernel, request, imaging, mri, stream, serve, pencil,
+   lm and lm state phases (one ``obs.capture()`` around the nine) a
+   ``"check": "no degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
    ``plan.degrade`` event, no MEASURE candidate skipped, and
    ``kernel.failover`` (the composed 2D route) only on frames over the
    shared-memory census. Then ``"call": "fault"``: a ``serve.batch``
@@ -586,6 +616,25 @@ LM_BF16_CEILING = 0.5
 # nearly one-hot and rounding of a score moves the output: its distance
 # from float64 at most this factor times the plain version's (or 2e-5).
 LM_FLOAT64_FACTOR = 4.0
+# The recurrent-state lm phase: xlstm-350m (24 layers of
+# alternating mLSTM / sLSTM, d_model 1024, 4 heads, vocab 50304; 0.427 B
+# parameters) and zamba2-2.7b (54 Mamba2 layers, d_model 2560, one shared
+# attention block of 32 heads of 160 re-invoked every 6 layers, vocab
+# 32000; 2.59 B), each at full width, bf16 compute over float32 weights
+# random from a seeded card generator, served on LM_QUEUES in turn and
+# held as the lm phase holds llama3.2-3b. (arch, the kernel its prefill
+# launches, launches a prefill, layers of the copy cut in depth: one
+# mLSTM / sLSTM pair; one group of 2 Mamba2 layers, which the shared block
+# follows as it follows every group.)
+LM_STATE_ARCHS = (("xlstm-350m", "slstm_scan", 12, 2),
+                  ("zamba2-2.7b", "flash_attention_fwd", 9, 2))
+# At their random init these models amplify a rounding: a relative change
+# of 1e-7 in the embeddings moves the float32 last logits by this much of
+# the largest (tools/lm_sensitivity.py, CPU): xlstm-350m 2.9e-5 at one
+# pair, 2.5e-2 at 24 layers; zamba2-2.7b 6.4e-6 at 2 layers, 1.3e-3 at 6
+# (each Mamba2 layer replaces x, no residual), O(1) at 54. So the gates of
+# 1e-3 (card against CPU) and 2e-3 (decode against prefill) hold at those
+# cut depths only; at full depth the gaps are printed.
 SERVE_MIX = (256, 128, 128)
 SERVE_BATCH = 16
 SERVE_CT = (32, 512, 512)
@@ -1243,6 +1292,77 @@ def llama_qkv(torch, dev, gen):
     return q, kk, v
 
 
+def slstm_plain64(torch, w, seg, start):
+    """The plain step loop in float64 over ``seg`` (B, L, 4D) from the
+    state ``start``: (hs, final state)."""
+    from repro_torch.kernels.slstm_scan import slstm_step
+
+    w64 = {"wr": w["wr"].double(), "bias": w["bias"].double()}
+    d = seg.shape[-1] // 4
+    st = dict(zip("cnhm", (x.double() for x in start)))
+    out = []
+    for t in range(seg.shape[1]):
+        st = slstm_step(w64, st, seg[:, t].double(), d)
+        out.append(st["h"])
+    return torch.stack(out, 1), tuple(st[nm] for nm in "cnhm")
+
+
+def slstm_windows(torch, xg, w, state, hs):
+    """slstm_scan against its plain version over every SLSTM_WINDOW-step
+    window of ``xg``, each from the plain version's state where the window
+    starts (the recurrence is chaotic at the reference's init, see
+    model_kernel_phase); ``hs`` is the full-length launch, which must equal
+    the first window bit for bit. Returns the worst relative errors by
+    output (hs and the final c, n, h, m), the plain version's own worst
+    distance from float64, and the worst absolute error."""
+    from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
+
+    errs = dict.fromkeys(("hs", "c", "n", "h", "m"), 0.0)
+    plain_errs = dict(errs)
+    abs_err = 0.0
+    start = state
+    for t0 in range(0, xg.shape[1], SLSTM_WINDOW):
+        seg = xg[:, t0:t0 + SLSTM_WINDOW].contiguous()
+        kh, kf = slstm_scan(seg, w["wr"], w["bias"], *start, chunk=seg.shape[1])
+        ph, pf = slstm_scan_plain(seg, w["wr"], w["bias"], *start)
+        qh, qf = slstm_plain64(torch, w, seg, start)
+        if t0 == 0 and not torch.equal(kh, hs[:, :seg.shape[1]]):
+            raise AssertionError("slstm_scan: the full-length launch and its first window differ")
+        for nm, got, ref, ref64 in zip(errs, (kh, *kf), (ph, *pf), (qh, *qf)):
+            errs[nm] = max(errs[nm], rel_err(got, ref))
+            plain_errs[nm] = max(plain_errs[nm], rel_err(ref, ref64))
+            abs_err = max(abs_err, max_abs(got, ref))
+        start = pf
+    torch.cuda.synchronize()
+    return errs, plain_errs, abs_err
+
+
+def check_slstm_windows(what: str, errs, plain_errs, finite: bool, h_max: float) -> None:
+    """The window gate: every window within TOL_SLSTM of the plain version,
+    the plain version itself within TOL_SLSTM of float64 (else the window is
+    too long to hold the kernel to), hs finite with |h| <= 1."""
+    if not finite or not h_max <= 1.0 or not max(errs.values()) <= TOL_SLSTM:
+        raise AssertionError(f"{what}: window rel errs {errs} (tolerance {TOL_SLSTM}), "
+                             f"finite {finite}, max |h| {h_max}")
+    if not max(plain_errs.values()) <= TOL_SLSTM:
+        raise AssertionError(f"{what}: the plain version leaves float64 by {plain_errs} "
+                             f"within {SLSTM_WINDOW} steps; the window is too long")
+
+
+def slstm_work(xg, w):
+    """(bytes, operations) slstm_scan must move and do on these inputs: xg,
+    wr, bias and the four initial states read once, hs and the four final
+    states written once; the recurrent product, 2 D^2 a step and batch
+    row. The products run on the tensor cores in double, whose dense rate
+    on an H100 SXM (67 TFLOP/s) is the float32 CUDA-core rate the bound
+    takes."""
+    b, l, d4 = xg.shape
+    d = d4 // 4
+    nbytes = 4 * (xg.numel() + w["wr"].numel() + w["bias"].numel() + 4 * b * d
+                  + b * l * d + 4 * b * d)
+    return nbytes, 2.0 * b * l * d * d
+
+
 def model_kernel_phase(torch, card: str):
     """butterfly_stage, flash_attention_fwd and slstm_scan against their
     plain versions at full width; returns the per-kernel rows."""
@@ -1258,7 +1378,6 @@ def model_kernel_phase(torch, card: str):
         slstm_card_grid,
         slstm_scan,
         slstm_scan_plain,
-        slstm_step,
     )
 
     dev = torch.device("cuda")
@@ -1373,17 +1492,7 @@ def model_kernel_phase(torch, card: str):
     b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
     hs, final = slstm_scan(xg, w["wr"], w["bias"], *state)
     ref_hs, _ = slstm_scan_plain(xg, w["wr"], w["bias"], *state)
-    w64 = {"wr": w["wr"].double(), "bias": w["bias"].double()}
-
-    def plain64(seg, start):
-        st = dict(zip("cnhm", (x.double() for x in start)))
-        out = []
-        for t in range(seg.shape[1]):
-            st = slstm_step(w64, st, seg[:, t].double(), d)
-            out.append(st["h"])
-        return torch.stack(out, 1), tuple(st[nm] for nm in "cnhm")
-
-    hs64, _ = plain64(xg, state)
+    hs64, _ = slstm_plain64(torch, w, xg, state)
     divergence = {str(t): {"kernel_vs_plain": max_abs(hs[:, t - 1], ref_hs[:, t - 1]),
                            "plain_vs_float64": max_abs(ref_hs[:, t - 1].double(),
                                                        hs64[:, t - 1]),
@@ -1391,23 +1500,7 @@ def model_kernel_phase(torch, card: str):
                                                         hs64[:, t - 1])}
                   for t in (1, 4, 16, 32, 64, 128, 256, 1024, 4096) if t <= l}
     del ref_hs, hs64
-    errs = dict.fromkeys(("hs", "c", "n", "h", "m"), 0.0)
-    plain_errs = dict(errs)
-    abs_err = 0.0
-    start = state
-    for t0 in range(0, l, SLSTM_WINDOW):
-        seg = xg[:, t0:t0 + SLSTM_WINDOW].contiguous()
-        kh, kf = slstm_scan(seg, w["wr"], w["bias"], *start, chunk=SLSTM_WINDOW)
-        ph, pf = slstm_scan_plain(seg, w["wr"], w["bias"], *start)
-        qh, qf = plain64(seg, start)
-        if t0 == 0 and not torch.equal(kh, hs[:, :SLSTM_WINDOW]):
-            raise AssertionError("slstm_scan: the full-length launch and its first window differ")
-        for nm, got, ref, ref64 in zip(errs, (kh, *kf), (ph, *pf), (qh, *qf)):
-            errs[nm] = max(errs[nm], rel_err(got, ref))
-            plain_errs[nm] = max(plain_errs[nm], rel_err(ref, ref64))
-            abs_err = max(abs_err, max_abs(got, ref))
-        start = pf
-    torch.cuda.synchronize()
+    errs, plain_errs, abs_err = slstm_windows(torch, xg, w, state, hs)
     finite = bool(torch.isfinite(hs).all()) and all(bool(torch.isfinite(x).all())
                                                     for x in final)
     h_max = float(hs.abs().max())
@@ -1430,9 +1523,7 @@ def model_kernel_phase(torch, card: str):
     line["ms_per_step"] = line["ms"] / l
     line["barrier_floor_ms_per_step"] = line["barrier_floor_ms"] / l
     emit(line)
-    if not finite or not h_max <= 1.0 or not max(errs.values()) <= TOL_SLSTM:
-        raise AssertionError(f"slstm_scan: window rel errs {errs} (tolerance {TOL_SLSTM}), "
-                             f"finite {finite}, max |h| {h_max}")
+    check_slstm_windows("slstm_scan", errs, plain_errs, finite, h_max)
     for t in SLSTM_DIVERGENCE_STEPS:
         at = divergence[str(t)]
         if not at["kernel_vs_plain"] <= SLSTM_DIVERGENCE_FACTOR * at["plain_vs_float64"]:
@@ -1440,15 +1531,9 @@ def model_kernel_phase(torch, card: str):
                                  f"the plain version by {at['kernel_vs_plain']}, more than "
                                  f"{SLSTM_DIVERGENCE_FACTOR} x the plain version's "
                                  f"{at['plain_vs_float64']} from float64")
-    if not max(plain_errs.values()) <= TOL_SLSTM:
-        raise AssertionError(f"slstm_scan: the plain version leaves float64 by {plain_errs} "
-                             f"within {SLSTM_WINDOW} steps; the window is too long")
-    nbytes = 4 * (xg.numel() + w["wr"].numel() + w["bias"].numel() + 4 * b * d
-                  + hs.numel() + 4 * b * d)
-    # The products run on the tensor cores in double, whose dense rate on an
-    # H100 SXM (67 TFLOP/s) is the float32 CUDA-core rate the bound takes.
+    nbytes, flops = slstm_work(xg, w)
     row("slstm_scan", abs_err, max(errs.values()), line["ms"], line["plain_ms"], nbytes,
-        2.0 * b * l * d * d, None, shape=list(xg.shape), window=SLSTM_WINDOW,
+        flops, None, shape=list(xg.shape), window=SLSTM_WINDOW,
         rel_err_by_output=errs,
         **{key: line[key] for key in ("ms_per_step", "ctas", "units", "route",
                                       "barrier_floor_ms", "barrier_floor_ms_per_step")})
@@ -3341,27 +3426,27 @@ def pencil_rank(rank: int, world: int, tmp: str) -> int:
 
 class LmTap:
     """A ``Model`` whose ``prefill_fn`` and ``decode_fn`` record, for each
-    call, the ``flash_attention_fwd`` launches it made and CUDA events
-    around it (``self.model``; ``calls`` in order)."""
+    call, the launches of ``kernel`` it made and CUDA events around it
+    (``self.model``; ``calls`` in order)."""
 
-    def __init__(self, torch, model):
+    def __init__(self, torch, model, kernel: str = "flash_attention_fwd"):
         import dataclasses
 
         from repro_torch.kernels._launch import LAUNCHES
 
-        self.torch, self.launches, self.calls = torch, LAUNCHES, []
+        self.torch, self.launches, self.calls, self.kernel = torch, LAUNCHES, [], kernel
         self.model = dataclasses.replace(model, prefill_fn=self._wrap("prefill", model.prefill_fn),
                                          decode_fn=self._wrap("decode", model.decode_fn))
 
     def _wrap(self, kind, fn):
         def run(*args, **kw):
-            before = self.launches["flash_attention_fwd"]
+            before = self.launches[self.kernel]
             start = self.torch.cuda.Event(enable_timing=True)
             stop = self.torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kw)
             stop.record()
-            self.calls.append((kind, self.launches["flash_attention_fwd"] - before, start, stop))
+            self.calls.append((kind, self.launches[self.kernel] - before, start, stop))
             return out
 
         return run
@@ -3418,10 +3503,8 @@ def lm_phase(torch, card: str, rows) -> int:
     """repro_torch's LM serving at llama3.2-3b's full width; returns the
     ``flash_attention_fwd`` launches of the serving run."""
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels._launch import LAUNCHES, reset_launches
     from repro_torch.models import attention as attn
     from repro_torch.models.build import build
@@ -3458,15 +3541,15 @@ def lm_phase(torch, card: str, rows) -> int:
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     counted = tap.take()
-    lane_batches = sum(-(-n // batch) for _, n, _, batch, _, _ in LM_QUEUES)
+    lane_batches = [-(-n // batch) for _, n, _, batch, _, _ in LM_QUEUES]
     per_prefill = [n for n, _ in counted["prefill"]]
     per_decode = [n for n, _ in counted["decode"]]
     others = {name: n for name, n in launches.items() if n and name != "flash_attention_fwd"}
     emit({"phase": "lm", "call": "launches", "flash_attention_fwd": launches["flash_attention_fwd"],
-          "lane_batches": lane_batches, "per_prefill": per_prefill,
+          "lane_batches": sum(lane_batches), "per_prefill": per_prefill,
           "decode_steps": len(per_decode), "decode_launches": sum(per_decode), "others": others})
-    if (per_prefill != [cfg.n_layers] * lane_batches or any(per_decode) or others
-            or launches["flash_attention_fwd"] != cfg.n_layers * lane_batches):
+    if (per_prefill != [cfg.n_layers] * sum(lane_batches) or any(per_decode) or others
+            or launches["flash_attention_fwd"] != cfg.n_layers * sum(lane_batches)):
         raise AssertionError(f"lm: flash_attention_fwd launched {per_prefill} a prefill, "
                              f"{sum(per_decode)} on decode steps, others {others}")
     for queue, (label, _, _, _, max_new, _) in zip(queues, LM_QUEUES):
@@ -3479,66 +3562,15 @@ def lm_phase(torch, card: str, rows) -> int:
     # operands, k and v from 8 kv heads, at 2e-5; and the model's own
     # layer-0 operands on the lanes' prompts, held to float64.
     dt = getattr(torch, cfg.compute_dtype)
-    dh = cfg.resolved_head_dim
-    blocks = {"block_q": cfg.attn_block_q, "block_k": cfg.attn_block_k}
-    gen = torch.Generator(device=dev).manual_seed(3)
     p0 = tree_map(lambda t: t[0], params["dense_layers"])
     kernel_ms = {}
-    for queue, (label, _, s, b, _, _) in zip(queues, LM_QUEUES):
-        # as the card route calls it: q scaled in its own dtype, scale 1
-        q, kk, v = attn.gqa_to_heads(
-            torch.randn(b, s, cfg.n_heads, dh, generator=gen, device=dev) / math.sqrt(dh),
-            torch.randn(b, s, cfg.n_kv_heads, dh, generator=gen, device=dev),
-            torch.randn(b, s, cfg.n_kv_heads, dh, generator=gen, device=dev))
-        got = fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0, **blocks)
-        ref = fa.flash_attention_plain(q, kk, v, causal=True, scale=1.0, **blocks)
+    for queue, nb, (label, _, s, b, _, _) in zip(queues, lane_batches, LM_QUEUES):
         toks = torch.from_numpy(np.stack([r.prompt for r in queue[:b]])).to(dev)
         h = rmsnorm(p0["ln1"], embed(params["embed"], toks, dt), cfg.rms_eps)
         positions = torch.arange(s, device=dev)[None].expand(b, s)
-        mq, mk, mv = attn.gqa_qkv(p0["attn"], h, cfg, positions)
-        mq, mk, mv = attn.gqa_to_heads(mq * (1.0 / math.sqrt(dh)), mk, mv)
-        m_got = fa.flash_attention_fwd(mq, mk, mv, causal=True, scale=1.0, **blocks)
-        m_ref = fa.flash_attention_plain(mq, mk, mv, causal=True, scale=1.0, **blocks)
-        m64 = fa.mha_reference(mq.double() * math.sqrt(dh), mk.double(), mv.double(),
-                               causal=True)
-        torch.cuda.synchronize()
-        bh = q.shape[0]
-        line = {"phase": "lm", "kernel": "flash_attention_fwd", "case": f"{LM_ARCH} lm prefill",
-                "lane": label, "shape": list(q.shape), "window": None, "blocks": blocks,
-                "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
-                "model_operands": {"rel_err_vs_plain": rel_err(m_got, m_ref),
-                                   "rel_err_vs_float64": rel_err(m_got, m64),
-                                   "plain_rel_err_vs_float64": rel_err(m_ref, m64),
-                                   # the init's scores, q k / sqrt(D)
-                                   "max_abs_score": float((mq @ mk.transpose(1, 2)).abs().max())},
-                "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0,
-                                                             **blocks)),
-                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=True,
-                                                                     scale=1.0, **blocks),
-                                    reps=2, batches=3),
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    q[None], kk[None], v[None], is_causal=True, scale=1.0)),
-                "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
-                "flops": bh * attention_pairs(s, s, True, None) * 2.0 * (dh + dh),
-                "card": card}
-        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
-                                                   split_tf32_rate(card))
-        emit(line)
-        model_ops = line["model_operands"]
-        if not line["rel_err"] <= TOL_KERNEL:
-            raise AssertionError(f"flash_attention_fwd at the {label} lane: rel err "
-                                 f"{line['rel_err']} > {TOL_KERNEL}")
-        if not model_ops["rel_err_vs_float64"] <= max(
-                TOL_KERNEL, LM_FLOAT64_FACTOR * model_ops["plain_rel_err_vs_float64"]):
-            raise AssertionError(f"flash_attention_fwd on the model's operands: {model_ops}")
-        kernel_ms[s] = line["ms"]
-        row = rows["flash_attention_fwd"]
-        row["by_case"][f"{LM_ARCH} lm prefill S={s}"] = {
-            key: line[key] for key in ("shape", "window", "rel_err", "ms", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_by")}
-        row["max_abs_err"] = max(row["max_abs_err"], line["max_abs_err"])
-        row["rel_err"] = max(row["rel_err"], line["rel_err"])
-        del q, kk, v, got, ref, mq, mk, mv, m_got, m_ref, m64
+        kernel_ms[s] = flash_model_case(torch, card, rows, "lm", f"{LM_ARCH} lm prefill", cfg,
+                                        attn.gqa_qkv(p0["attn"], h, cfg, positions),
+                                        cfg.n_layers * nb, label)
     torch.cuda.empty_cache()
 
     # Timed: each queue served again (the same tokens), wall clock around
@@ -3599,7 +3631,7 @@ def lm_phase(torch, card: str, rows) -> int:
         del dec, full, pre, r_dec, r_full, f_dec, f_full
     peak = torch.cuda.max_memory_allocated()
     n_flash = launches["flash_attention_fwd"]
-    del engines, tap, params, p0
+    del engines, eng, tap, params
     torch.cuda.empty_cache()
 
     # The card against the CPU at float32 compute, 2 layers at full width,
@@ -3649,6 +3681,378 @@ def lm_phase(torch, card: str, rows) -> int:
     del p2, c2, caches, logits, dec
     torch.cuda.empty_cache()
     return n_flash
+
+
+@contextlib.contextmanager
+def reference_scan(xlstm):
+    """The xLSTM prefill's sLSTM as the reference's model runs it, the plain
+    step loop (``slstm_scan_plain``, the ``lax.scan`` of ``_slstm_step``),
+    on the card's tensors: a yardstick, which launches nothing."""
+    from repro_torch.kernels.slstm_scan import slstm_scan_plain
+
+    route = xlstm.slstm_scan
+    xlstm.slstm_scan = lambda xg, wr, bias, c, n, h, m, chunk: slstm_scan_plain(
+        xg, wr, bias, c, n, h, m)
+    try:
+        yield
+    finally:
+        xlstm.slstm_scan = route
+
+
+def lm_state_phase(torch, card: str, rows) -> dict:
+    """repro_torch's LM serving of the recurrent-state families at full
+    width, one arch after the other; returns the kernels' launches of the
+    serving runs."""
+    import gc
+
+    launches = {"slstm_scan": 0, "flash_attention_fwd": 0}
+    for arch, kernel, per_prefill, check_layers in LM_STATE_ARCHS:
+        # The previous model's weights and caches go first: a ServeEngine
+        # and its loop hold each other (bound methods), so only the cyclic
+        # collector frees them.
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[kernel] += lm_state_arch(torch, card, rows, arch, kernel, per_prefill,
+                                          check_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slstm_model_case(torch, card, rows, cfg, params, toks, launches: int):
+    """slstm_scan on layer 0's own gate pre-activations of a lane (embed,
+    the pre-norm, mLSTM layer 0, the residual, the pre-norm, x @ wx) from
+    the initial state, held to its plain version over every window, timed
+    beside it; returns its ms."""
+    from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import embed
+    from repro_torch.models.param import tree_map
+    from repro_torch.models.transformer import rmsnorm_like
+
+    dt = getattr(torch, cfg.compute_dtype)
+    b, l = toks.shape
+    d = cfg.d_model
+    x = embed(params["embed"], toks, dt)
+    dm, _ = xlstm.mlstm_apply(tree_map(lambda t: t[0], params["mlstm_layers"]),
+                              rmsnorm_like(x, cfg), cfg)
+    x = x + dm
+    p0 = tree_map(lambda t: t[0], params["slstm_layers"])
+    xg = torch.matmul(rmsnorm_like(x, cfg).float(), p0["wx"].float())
+    w = {"wr": p0["wr"].float(), "bias": p0["bias"].float()}
+    st = xlstm.slstm_state(cfg, b, device=xg.device)
+    state = (st["c"], st["n"], st["h"], st["m"])
+    hs, final = slstm_scan(xg, w["wr"], w["bias"], *state, chunk=l)
+    errs, plain_errs, abs_err = slstm_windows(torch, xg, w, state, hs)
+    finite = bool(torch.isfinite(hs).all()) and all(bool(torch.isfinite(t).all()) for t in final)
+    h_max = float(hs.abs().max())
+    line = {"phase": "lm state", "kernel": "slstm_scan", "case": f"{cfg.name} slstm prefill",
+            "shape": list(xg.shape), "window": SLSTM_WINDOW, "rel_err": errs,
+            "plain_vs_float64_rel_err": plain_errs, "max_abs_err": abs_err, "finite": finite,
+            "max_abs_h": h_max,
+            "ms": time_ms(lambda: slstm_scan(xg, w["wr"], w["bias"], *state, chunk=l),
+                          reps=5, batches=3),
+            "plain_ms": time_ms(lambda: slstm_scan_plain(xg, w["wr"], w["bias"], *state),
+                                reps=1, batches=3),
+            "library_ms": None, "launches": launches, "card": card}
+    line["bytes"], line["flops"] = slstm_work(xg, w)
+    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
+    line["ms_per_step"] = line["ms"] / l
+    emit(line)
+    check_slstm_windows(f"slstm_scan on {cfg.name}'s layer-0 operands", errs, plain_errs,
+                        finite, h_max)
+    row = rows["slstm_scan"]
+    row.setdefault("by_case", {})[f"{cfg.name} slstm prefill S={l}"] = {
+        "rel_err": max(errs.values()),
+        **{key: line[key] for key in ("shape", "ms", "ms_per_step", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "launches")}}
+    row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+    row["rel_err"] = max(row["rel_err"], max(errs.values()))
+    return line["ms"]
+
+
+def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launches: int,
+                     lane: str):
+    """flash_attention_fwd at a prefill's shape (B·H, S, D), causal, as the
+    card route calls it (q scaled first, scale 1, the config's blocks):
+    seeded Gaussian operands (k and v from cfg's kv heads) against its plain
+    version at 2e-5, and the model's own q, k, v (``qkv``, (B, S, H, D)
+    rotated) against float64, within LM_FLOAT64_FACTOR of the plain
+    version's distance; timed beside its plain version and SDPA. One line;
+    the case joins the ``kernels`` line's flash row. Returns its ms."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+
+    mq, mk, mv = qkv
+    dev = mq.device
+    b, s, h, dh = mq.shape
+    blocks = {"block_q": cfg.attn_block_q, "block_k": cfg.attn_block_k}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, kk, v = attn.gqa_to_heads(
+        torch.randn(b, s, h, dh, generator=gen, device=dev) / math.sqrt(dh),
+        torch.randn(b, s, mk.shape[2], dh, generator=gen, device=dev),
+        torch.randn(b, s, mk.shape[2], dh, generator=gen, device=dev))
+    got = fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0, **blocks)
+    ref = fa.flash_attention_plain(q, kk, v, causal=True, scale=1.0, **blocks)
+    mq, mk, mv = attn.gqa_to_heads(mq * (1.0 / math.sqrt(dh)), mk, mv)
+    m_got = fa.flash_attention_fwd(mq, mk, mv, causal=True, scale=1.0, **blocks)
+    m_ref = fa.flash_attention_plain(mq, mk, mv, causal=True, scale=1.0, **blocks)
+    m64 = fa.mha_reference(mq.double() * math.sqrt(dh), mk.double(), mv.double(), causal=True)
+    torch.cuda.synchronize()
+    line = {"phase": phase, "kernel": "flash_attention_fwd", "case": case, "lane": lane,
+            "shape": list(q.shape), "window": None, "blocks": blocks,
+            "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
+            "model_operands": {"rel_err_vs_plain": rel_err(m_got, m_ref),
+                               "rel_err_vs_float64": rel_err(m_got, m64),
+                               "plain_rel_err_vs_float64": rel_err(m_ref, m64),
+                               # the init's scores, q k / sqrt(D)
+                               "max_abs_score": float((mq @ mk.transpose(1, 2)).abs().max())},
+            "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0,
+                                                         **blocks)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=True,
+                                                                 scale=1.0, **blocks),
+                                reps=2, batches=3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], kk[None], v[None], is_causal=True, scale=1.0)),
+            "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
+            "flops": q.shape[0] * attention_pairs(s, s, True, None) * 2.0 * (dh + dh),
+            "launches": launches, "card": card}
+    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
+                                               split_tf32_rate(card))
+    emit(line)
+    model_ops = line["model_operands"]
+    if not line["rel_err"] <= TOL_KERNEL:
+        raise AssertionError(f"flash_attention_fwd at {case} ({lane}): rel err "
+                             f"{line['rel_err']} > {TOL_KERNEL}")
+    if not model_ops["rel_err_vs_float64"] <= max(
+            TOL_KERNEL, LM_FLOAT64_FACTOR * model_ops["plain_rel_err_vs_float64"]):
+        raise AssertionError(f"flash_attention_fwd on the operands of {case}: {model_ops}")
+    row = rows["flash_attention_fwd"]
+    row["by_case"][f"{case} S={s}"] = {
+        key: line[key] for key in ("shape", "window", "rel_err", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "launches")}
+    row["max_abs_err"] = max(row["max_abs_err"], line["max_abs_err"])
+    row["rel_err"] = max(row["rel_err"], line["rel_err"])
+    return line["ms"]
+
+
+def zamba2_qkv(torch, cfg, params, toks):
+    """The first shared-block invocation's own q, k, v on ``toks``: embed,
+    the first group of Mamba2 layers, concat with the embeddings, ln1."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.param import tree_map
+    from repro_torch.models.transformer import _n_shared_invocations, _shared_block_cfg
+
+    dt = getattr(torch, cfg.compute_dtype)
+    b, s = toks.shape
+    x0 = x = embed(params["embed"], toks, dt)
+    for i in range(cfg.n_layers // _n_shared_invocations(cfg)):
+        x, _ = ssm.mamba2_apply(tree_map(lambda t: t[i], params["mamba_layers"]), x, cfg)
+    h = rmsnorm(params["shared"]["ln1"], torch.cat([x, x0], dim=-1), cfg.rms_eps)
+    positions = torch.arange(s, device=toks.device)[None].expand(b, s)
+    return attn.gqa_qkv(params["shared"]["attn"], h, _shared_block_cfg(cfg), positions)
+
+
+def lm_state_arch(torch, card: str, rows, arch: str, kernel: str, per_prefill: int,
+                  check_layers: int) -> int:
+    """One recurrent-state arch through ServeEngine at full width, as
+    lm_phase drives llama3.2-3b; returns ``kernel``'s launches of the
+    serving run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm
+    from repro_torch.models.build import build
+    from repro_torch.models.param import param_bytes, tree_map
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    model = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = phase_t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"phase": "lm state", "call": "init", "arch": cfg.name, "family": cfg.family,
+          "allocated_gb_before": allocated_before / 1e9,
+          "n_params": model.n_params, "param_bytes": param_bytes(model.skeleton),
+          "seconds": time.perf_counter() - t0, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "vocab": cfg.vocab, "compute_dtype": cfg.compute_dtype,
+          "kernel": kernel, "card": card})
+
+    # Serve both queues with the counts set to 0 just before and read just
+    # after: every lane batch's prefill launches the kernel per_prefill
+    # times, a decode step never; no other kernel runs.
+    tap = LmTap(torch, model, kernel)
+    engines = [ServeEngine(tap.model, params, batch=batch, max_len=max_len, dtype=torch.float32)
+               for _, _, _, batch, _, max_len in LM_QUEUES]
+    queues = [lm_queue(cfg, n, plen, max_new) for _, n, plen, _, max_new, _ in LM_QUEUES]
+    torch.cuda.synchronize()
+    reset_launches()
+    for eng, queue in zip(engines, queues):
+        eng.serve_queue(queue)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    counted = tap.take()
+    lane_batches = [-(-n // batch) for _, n, _, batch, _, _ in LM_QUEUES]
+    per_call = [n for n, _ in counted["prefill"]]
+    per_decode = [n for n, _ in counted["decode"]]
+    others = {name: n for name, n in launches.items() if n and name != kernel}
+    emit({"phase": "lm state", "call": "launches", "arch": cfg.name, kernel: launches[kernel],
+          "lane_batches": sum(lane_batches), "per_prefill": per_call,
+          "decode_steps": len(per_decode), "decode_launches": sum(per_decode), "others": others})
+    if (per_call != [per_prefill] * sum(lane_batches) or any(per_decode) or others
+            or launches[kernel] != per_prefill * sum(lane_batches)):
+        raise AssertionError(f"lm state {cfg.name}: {kernel} launched {per_call} a prefill, "
+                             f"{sum(per_decode)} on decode steps, others {others}")
+    for queue, (label, _, _, _, max_new, _) in zip(queues, LM_QUEUES):
+        if not all(r.done and len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out)
+                   for r in queue):
+            raise AssertionError(f"lm state {cfg.name} {label}: a request was not served in full")
+
+    # The kernel on the model's own operands at each lane's shape.
+    kernel_ms = {}
+    for queue, nb, (label, _, s, b, _, _) in zip(queues, lane_batches, LM_QUEUES):
+        toks = torch.from_numpy(np.stack([r.prompt for r in queue[:b]])).to(dev)
+        if kernel == "slstm_scan":
+            kernel_ms[s] = slstm_model_case(torch, card, rows, cfg, params, toks, per_prefill * nb)
+        else:
+            kernel_ms[s] = flash_model_case(torch, card, rows, "lm state",
+                                            f"{cfg.name} shared block prefill", cfg,
+                                            zamba2_qkv(torch, cfg, params, toks),
+                                            per_prefill * nb, label)
+    torch.cuda.empty_cache()
+
+    # Timed: each queue served again (the same tokens), wall clock around
+    # serve_queue, CUDA events around each prefill and decode step.
+    for eng, queue, (label, n, plen, batch, max_new, max_len) in zip(engines, queues, LM_QUEUES):
+        again = [Request(prompt=r.prompt, max_new=r.max_new) for r in queue]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve_queue(again)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = tap.take()
+        if [r.out for r in again] != [r.out for r in queue]:
+            raise AssertionError(f"lm state {cfg.name} {label}: the same queue served again "
+                                 "gave other tokens")
+        prefill_ms = [ms for _, ms in calls["prefill"]]
+        decode_ms = [ms for _, ms in calls["decode"]]
+        tokens = sum(len(r.out) for r in again)
+        emit({"phase": "lm state", "call": "serve", "arch": cfg.name, "queue": label,
+              "requests": n, "prompt_len": plen, "batch": batch, "max_new": max_new,
+              "max_len": max_len, "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+              "lane_batches": len(prefill_ms), "prefill_ms": prefill_ms,
+              "launches_per_prefill": per_prefill, "launches_per_decode_step": 0,
+              # a decode step gives the next token of every request in the batch
+              "decode_ms_per_token_median": statistics.median(decode_ms),
+              "decode_ms_per_token_range": [min(decode_ms), max(decode_ms)],
+              "decode_wall_ms_per_token": (wall * 1e3 - sum(prefill_ms)) / len(decode_ms),
+              "kernel_ms": kernel_ms[plen],
+              "kernel_share_of_prefill": per_prefill * kernel_ms[plen]
+              / statistics.median(prefill_ms),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+
+    # The card against itself: decode after a prefill of s tokens against
+    # the prefill of s + 1. At full depth these models amplify a rounding
+    # (see LM_STATE_ARCHS), so the two, which round the first s positions
+    # in products of other shapes, part at O(0.1-1) of the largest logit
+    # even at float32: the full-depth gaps are printed beside the
+    # reference route's (the plain step loop / flash_attention_blocks) and
+    # held only to be finite with the first served token the prefill's
+    # argmax; the gate (float32, 2e-3) is held on the card-against-CPU
+    # copy's depth, on the same weights.
+    def yardstick():
+        return reference_scan(xlstm) if kernel == "slstm_scan" else reference_attention(attn)
+
+    model32 = build(cfg.scaled(compute_dtype="float32"))
+    cut32 = build(cfg.scaled(n_layers=check_layers, compute_dtype="float32"))
+    for queue, (label, _, s, b, _, max_len) in zip(queues, LM_QUEUES):
+        toks = torch.from_numpy(np.stack([np.append(r.prompt, r.out[0]) for r in queue[:b]])
+                                .astype(np.int32)).to(dev)
+        dec, full, pre = lm_golden(torch, model, params, toks, max_len)
+        finite = all(bool(torch.isfinite(x).all()) for x in (full, pre, dec))
+        first = torch.argmax(pre, -1).tolist() == [r.out[0] for r in queue[:b]]
+        with yardstick():
+            r_dec, r_full, _ = lm_golden(torch, model, params, toks, max_len)
+        f_dec, f_full, _ = lm_golden(torch, model32, params, toks, max_len)
+        with yardstick():
+            fr_dec, fr_full, _ = lm_golden(torch, model32, params, toks, max_len)
+        c_dec, c_full, _ = lm_golden(torch, cut32, params, toks, max_len)
+        line = {"phase": "lm state", "check": "decode vs prefill", "arch": cfg.name,
+                "lane": label, "s": s, "bf16_rel_err": rel_err(dec, full),
+                "bf16_reference_route_rel_err": rel_err(r_dec, r_full),
+                "float32_rel_err": rel_err(f_dec, f_full),
+                "float32_reference_route_rel_err": rel_err(fr_dec, fr_full),
+                "argmax_agree": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
+                "first_token_is_prefill_argmax": first, "finite": finite,
+                "cut_layers": check_layers, "cut_float32_rel_err": rel_err(c_dec, c_full),
+                "cut_float32_tolerance": TOL_LM_F32_GOLDEN}
+        emit(line)
+        if not (finite and first and line["cut_float32_rel_err"] <= TOL_LM_F32_GOLDEN):
+            raise AssertionError(f"lm state {cfg.name} {label}: {line}")
+        del dec, full, pre, r_dec, r_full, f_dec, f_full, fr_dec, fr_full, c_dec, c_full
+    peak = torch.cuda.max_memory_allocated()
+    n_launched = launches[kernel]
+    del engines, eng, tap, params
+    torch.cuda.empty_cache()
+
+    # The card against the CPU at float32 compute, cut in depth only, the
+    # same weights on both (the CPU runs the plain versions).
+    cfg2 = cfg.scaled(n_layers=check_layers, compute_dtype="float32")
+    m2 = build(cfg2)
+    forward = T.xlstm_forward if cfg.family == "ssm" else T.hybrid_forward
+    p2 = m2.init(torch.Generator(device=dev).manual_seed(1))
+    c2 = tree_map(lambda t: t.cpu(), p2)
+    prompts = [r.prompt for r in queues[0][:LM_QUEUES[0][3]]]
+    b, s = len(prompts), len(prompts[0])
+    toks = torch.from_numpy(np.stack(prompts)).to(dev)
+    logits, _, _ = forward(p2, toks, cfg2)
+    ref, _, _ = forward(c2, toks.cpu(), cfg2)
+    forward_err = rel_err(logits.cpu(), ref)
+    _, caches = m2.prefill_fn(p2, {"tokens": toks[:, :-1]},
+                              m2.init_cache_fn(b, 128, torch.float32, dev))
+    _, c_caches = m2.prefill_fn(c2, {"tokens": toks[:, :-1].cpu()},
+                                m2.init_cache_fn(b, 128, torch.float32, "cpu"))
+    dec, _ = m2.decode_fn(p2, toks[:, -1:], s - 1, caches)
+    dec_ref, _ = m2.decode_fn(c2, toks[:, -1:].cpu(), s - 1, c_caches)
+    decode_err = rel_err(dec.cpu(), dec_ref)
+    card_out = ServeEngine(m2, p2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=p, max_new=LM_CHECK_NEW) for p in prompts])
+    cpu_out = ServeEngine(m2, c2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=p, max_new=LM_CHECK_NEW) for p in prompts])
+    parted = []
+    for i, (x, y) in enumerate(zip(card_out, cpu_out)):
+        t = next((j for j, (u, w) in enumerate(zip(x.out, y.out)) if u != w), None)
+        if t is not None:  # the CPU's top-2 margin where the two part
+            seq = torch.from_numpy(np.append(prompts[i], y.out[:t]).astype(np.int32))[None]
+            last, _ = m2.prefill_fn(c2, {"tokens": seq},
+                                    m2.init_cache_fn(1, 128, torch.float32, "cpu"))
+            top = torch.topk(last[0], 2).values
+            parted.append({"request": i, "step": t, "margin": float(top[0] - top[1]),
+                           "tolerance": TOL_LM_CPU * float(last.abs().max())})
+    line = {"phase": "lm state", "check": "card vs cpu", "arch": cfg.name,
+            "layers": check_layers, "compute_dtype": "float32", "forward_rel_err": forward_err,
+            "decode_rel_err": decode_err, "tolerance": TOL_LM_CPU,
+            "tokens_equal": [x.out == y.out for x, y in zip(card_out, cpu_out)],
+            "parted": parted, "peak_gb": peak / 1e9,
+            "phase_seconds": time.perf_counter() - phase_t0, "card": card}
+    emit(line)
+    if not (forward_err <= TOL_LM_CPU and decode_err <= TOL_LM_CPU
+            and all(pt["margin"] <= pt["tolerance"] for pt in parted)):
+        raise AssertionError(f"lm state {cfg.name} card vs cpu: {line}")
+    del p2, c2, caches, logits, dec
+    torch.cuda.empty_cache()
+    return n_launched
 
 
 def no_degrade(trace, phase: str, ops) -> None:
@@ -4132,7 +4536,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
-    # One capture over the kernel, request, imaging, mri, stream, serve, pencil and lm phases:
+    # One capture over the kernel, request, imaging, mri, stream, serve, pencil, lm and lm
+    # state phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -4162,11 +4567,15 @@ def main() -> int:
         no_degrade(trace, "pencil", ops)
         lm_launches = lm_phase(torch, card, rows)
         no_degrade(trace, "lm", ops)
+        state_launches = lm_state_phase(torch, card, rows)
+        no_degrade(trace, "lm state", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})
     launches["flash_attention_fwd"] += lm_launches
+    for name, n in state_launches.items():
+        launches[name] += n
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] < 1:

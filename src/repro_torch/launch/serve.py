@@ -4,9 +4,12 @@ Port of ``repro.launch.serve``, with ``--device`` (default ``cuda``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --batch 4 --prompt-len 16 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-Weights are random, drawn on the device from a generator seeded 0.
+Every family ``build`` serves goes through the same path (dense, vlm,
+ssm, hybrid). Weights are random, drawn on the device from a generator
+seeded 0.
 """
 
 from __future__ import annotations

@@ -3,5 +3,7 @@
 ``config`` (every architecture's dataclass), ``param`` (skeletons, init,
 the weight carrier ``params_from_numpy``), ``layers``, ``attention`` (GQA,
 prefill on the hand-written ``flash_attention_fwd`` on the card),
-``transformer`` (the dense decoder) and ``build`` (the ``Model`` bundle).
+``xlstm`` (mLSTM, and sLSTM with its prefill on the hand-written
+``slstm_scan``), ``ssm`` (Mamba2), ``transformer`` (the dense decoder, the
+xLSTM and hybrid stacks) and ``build`` (the ``Model`` bundle).
 """

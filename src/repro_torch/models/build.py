@@ -1,9 +1,10 @@
 """config → Model bundle: init / abstract / loss / prefill / decode.
 
 Port of ``repro.models.build``. The serving layer only ever talks to a
-``Model``. ``build`` serves the dense and vlm families (one forward,
-``lm_forward``); every other family raises ``NotImplementedError`` naming
-its ROADMAP item.
+``Model``. ``build`` serves the dense and vlm families (``lm_forward``),
+the hybrid family (``hybrid_forward``, zamba2) and the ssm family
+(``xlstm_forward``); every other family raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,9 +23,7 @@ __all__ = ["Model", "build"]
 
 #: ROADMAP queue 1, item 12's sub-item that ports each family still missing.
 PENDING = {
-    "ssm": "12 (b)",
     "moe": "12 (c)",
-    "hybrid": "12 (d)",
     "audio": "12 (e)",
     "spectral": "12 (f)",
 }
@@ -51,7 +50,7 @@ class Model:
 
 
 def _lm_like(cfg: ModelConfig, forward, skel, init_cache):
-    """Bundle for decoder-style LMs (dense/vlm)."""
+    """Bundle for decoder-style LMs (dense/vlm/hybrid/ssm)."""
 
     def loss_fn(params, batch):
         extras = {}
@@ -87,6 +86,19 @@ def build(cfg: ModelConfig) -> Model:
         return _lm_like(
             cfg, T.lm_forward, T.lm_skel(cfg),
             lambda b, s, dtype=torch.bfloat16, device=None: T.lm_init_cache(
+                cfg, b, s, dtype, device),
+        )
+    if cfg.family == "hybrid":
+        return _lm_like(
+            cfg, T.hybrid_forward, T.hybrid_skel(cfg),
+            lambda b, s, dtype=torch.bfloat16, device=None: T.hybrid_init_cache(
+                cfg, b, s, dtype, device),
+        )
+    if cfg.family == "ssm":
+        # float32 states whatever dtype is asked for, as the reference's
+        return _lm_like(
+            cfg, T.xlstm_forward, T.xlstm_skel(cfg),
+            lambda b, s, dtype=torch.float32, device=None: T.xlstm_init_cache(
                 cfg, b, s, dtype, device),
         )
     if cfg.family in PENDING:

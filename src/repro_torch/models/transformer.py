@@ -1,23 +1,29 @@
 """Model stacks, assembled from the component layers.
 
-Port of ``repro.models.transformer``, the dense part: the pre-norm GQA
-decoder (dense and vlm families; vlm prepends the stub frontend's patch
-embeddings). Layer weights are stacked along a leading layer axis, as in
+Port of ``repro.models.transformer``: the pre-norm GQA decoder (dense
+and vlm families; vlm prepends the stub frontend's patch embeddings), the
+hybrid stack (zamba2: Mamba2 layers with one shared attention block
+re-invoked every k layers) and the xLSTM stack (alternating mLSTM and
+sLSTM blocks). Layer weights are stacked along a leading layer axis, as in
 the reference, whose ``lax.scan`` over them becomes a loop over the layer
 index here; a stacked cache is walked the same way, each layer writing
-into its slice.
+its new cache or state into its slice, a view of the stacked tensors.
 
-The moe block, ``mtp_logits`` and the hybrid, xlstm, encoder-decoder and
-spectral stacks come with their slices (ROADMAP, queue 1, item 12).
+The moe block, ``mtp_logits`` and the encoder-decoder and spectral stacks
+come with their slices (ROADMAP, queue 1, item 12).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     embed,
@@ -29,14 +35,22 @@ from repro_torch.models.layers import (
     unembed,
     unembed_skel,
 )
-from repro_torch.models.param import stack_skeleton, tree_map
+from repro_torch.models.param import ParamDef, _device, stack_skeleton, tree_leaves, tree_map
 
 __all__ = [
     "decoder_block_apply",
     "decoder_block_skel",
+    "hybrid_forward",
+    "hybrid_init_cache",
+    "hybrid_skel",
     "lm_forward",
     "lm_init_cache",
     "lm_skel",
+    "rmsnorm_like",
+    "shared_block_apply",
+    "xlstm_forward",
+    "xlstm_init_cache",
+    "xlstm_skel",
 ]
 
 
@@ -150,7 +164,168 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
     """Empty stacked caches: every layer's ``make_cache`` along a leading
     layer axis."""
     _dense_only(cfg)
-    one = attn.make_cache(cfg, batch, max_len, dtype, device)
-    return {"dense_layers": tree_map(
-        lambda a: a.unsqueeze(0).repeat(cfg.n_layers, *([1] * a.dim())), one
-    )}
+    return {"dense_layers": _stacked(attn.make_cache(cfg, batch, max_len, dtype, device),
+                                     cfg.n_layers)}
+
+
+def _stacked(one: dict, n: int) -> dict:
+    """``n`` copies of a layer's cache along a leading layer axis."""
+    return tree_map(lambda a: a.unsqueeze(0).repeat(n, *([1] * a.dim())), one)
+
+
+def _write(slot: dict, new: dict) -> None:
+    """Copy a block's new state into its slice of the stacked cache."""
+    for dst, src in zip(tree_leaves(slot), tree_leaves(new)):
+        dst.copy_(src)
+
+
+# ------------------------------ hybrid (zamba2) ------------------------------
+
+def hybrid_skel(cfg: ModelConfig) -> dict:
+    """Mamba2 stack + ONE shared attention/MLP block over concat(x, x0)."""
+    shared_cfg = _shared_block_cfg(cfg)
+    return {
+        "embed": embedding_skel(cfg.vocab, cfg.d_model),
+        "final_norm": rmsnorm_skel(cfg.d_model),
+        "unembed": unembed_skel(cfg.vocab, cfg.d_model),
+        "mamba_layers": stack_skeleton(ssm_mod.mamba2_skel(cfg), cfg.n_layers),
+        "shared": {
+            "ln1": rmsnorm_skel(shared_cfg.d_model),
+            "attn": attn.gqa_skel(shared_cfg),
+            "ln2": rmsnorm_skel(shared_cfg.d_model),
+            "mlp": mlp_skel(shared_cfg.d_model, cfg.d_ff, cfg.act),
+            "proj": {
+                "down": ParamDef((shared_cfg.d_model, cfg.d_model), ("mlp", "embed"))
+            },
+        },
+    }
+
+
+def _shared_block_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(
+        cfg,
+        d_model=2 * cfg.d_model,
+        head_dim=2 * cfg.d_model // cfg.n_heads,
+        attention="gqa",
+    )
+
+
+def _n_shared_invocations(cfg: ModelConfig) -> int:
+    return max(1, cfg.n_layers // cfg.shared_attn_every)
+
+
+def shared_block_apply(p: dict, x, x0, cfg: ModelConfig, *, positions, cache=None,
+                       decode: bool = False, pos: int = 0):
+    """zamba2's shared attention/MLP block on concat(x, x0), projected back
+    to d_model and added to x. ``cache`` is this invocation's KV cache,
+    written in place."""
+    xa = torch.cat([x, x0], dim=-1)
+    h = rmsnorm(p["ln1"], xa, cfg.rms_eps)
+    a_out, _ = attn.gqa_apply(p["attn"], h, _shared_block_cfg(cfg), positions=positions,
+                              cache=cache, decode=decode, pos=pos)
+    xa = xa + a_out
+    xa = xa + mlp(p["mlp"], rmsnorm(p["ln2"], xa, cfg.rms_eps), cfg.act)
+    return x + torch.matmul(xa, p["proj"]["down"].to(x.dtype))
+
+
+def hybrid_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, decode=False,
+                   **_):
+    """Returns (logits, caches, aux). Each group of ``n_layers // n_inv``
+    Mamba2 layers is followed by the shared block on concat(x, x0), x0 the
+    token embeddings; its prefill attention is ``gqa_apply``'s (on the card
+    ``flash_attention_fwd``). As in the reference, layers past
+    ``n_inv * group`` are not run."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = embed(params["embed"], tokens, dt)
+    x0 = x  # the embeddings, re-fed to every shared-block invocation
+    b, s, _ = x.shape
+    pos0 = int(pos0)
+    positions = (pos0 + torch.arange(s, dtype=torch.int32, device=x.device))[None, :]
+    positions = positions.expand(b, s)
+
+    n_inv = _n_shared_invocations(cfg)
+    group = cfg.n_layers // n_inv
+    layers = params["mamba_layers"]
+    for gi in range(n_inv):
+        for i in range(gi * group, (gi + 1) * group):
+            st = tree_map(lambda t: t[i], caches["mamba"]) if caches is not None else None
+            x, st_new = ssm_mod.mamba2_apply(tree_map(lambda t: t[i], layers), x, cfg,
+                                             state=st, decode=decode)
+            if st is not None:
+                _write(st, st_new)
+
+        # the shared block, its weights reused every invocation
+        c_sh = tree_map(lambda t: t[gi], caches["shared"]) if caches is not None else None
+        x = shared_block_apply(params["shared"], x, x0, cfg, positions=positions, cache=c_sh,
+                               decode=decode, pos=pos0)
+
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return (unembed(params["unembed"], x), caches,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                      device=None):
+    """Float32 Mamba2 states for every layer, and a KV cache in ``dtype``
+    for every shared-block invocation."""
+    device = _device(device)
+    return {
+        "mamba": _stacked(ssm_mod.mamba2_state(cfg, batch, device=device), cfg.n_layers),
+        "shared": _stacked(attn.make_cache(_shared_block_cfg(cfg), batch, max_len, dtype,
+                                           device), _n_shared_invocations(cfg)),
+    }
+
+
+# -------------------------------- ssm (xlstm) --------------------------------
+
+def xlstm_skel(cfg: ModelConfig) -> dict:
+    n_pairs = cfg.n_layers // 2
+    return {
+        "embed": embedding_skel(cfg.vocab, cfg.d_model),
+        "final_norm": rmsnorm_skel(cfg.d_model),
+        "unembed": unembed_skel(cfg.vocab, cfg.d_model),
+        "mlstm_layers": stack_skeleton(xlstm_mod.mlstm_skel(cfg), n_pairs),
+        "slstm_layers": stack_skeleton(xlstm_mod.slstm_skel(cfg), n_pairs),
+    }
+
+
+def xlstm_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, decode=False,
+                  **_):
+    """Returns (logits, caches, aux): the (mLSTM, sLSTM) pairs in turn,
+    each block behind a parameter-free pre-norm and a residual."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = embed(params["embed"], tokens, dt)
+    for i in range(cfg.n_layers // 2):
+        cm = tree_map(lambda t: t[i], caches["mlstm"]) if caches is not None else None
+        cs = tree_map(lambda t: t[i], caches["slstm"]) if caches is not None else None
+        dm, sm = xlstm_mod.mlstm_apply(tree_map(lambda t: t[i], params["mlstm_layers"]),
+                                       rmsnorm_like(x, cfg), cfg, state=cm, decode=decode)
+        x = x + dm
+        ds, ss = xlstm_mod.slstm_apply(tree_map(lambda t: t[i], params["slstm_layers"]),
+                                       rmsnorm_like(x, cfg), cfg, state=cs, decode=decode)
+        x = x + ds
+        if caches is not None:
+            _write(cm, sm)
+            _write(cs, ss)
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return (unembed(params["unembed"], x), caches,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def rmsnorm_like(x, cfg: ModelConfig):
+    """Parameter-free pre-norm inside the xLSTM residual blocks (the blocks
+    carry their own learned norms)."""
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + cfg.rms_eps).to(x.dtype)
+
+
+def xlstm_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
+                     device=None):
+    """Float32 mLSTM and sLSTM states for every pair, whatever ``dtype``
+    (as the reference's), m at −inf."""
+    device = _device(device)
+    n_pairs = cfg.n_layers // 2
+    return {
+        "mlstm": _stacked(xlstm_mod.mlstm_state(cfg, batch, device=device), n_pairs),
+        "slstm": _stacked(xlstm_mod.slstm_state(cfg, batch, device=device), n_pairs),
+    }

@@ -8,10 +8,13 @@ Port of ``repro.serve.engine``:
   machinery as the FFT services; lanes are power-of-two prompt-length
   buckets, and a lane batch is left-padded to its longest prompt, as the
   reference pads. The engine runs where its parameters lie (on the card,
-  prefill attention launches ``flash_attention_fwd`` once a layer). Its
-  caches are written in place, so each lane batch starts by emptying
-  them: every batch starts from empty caches, as in the reference, whose
-  caches are never mutated.
+  prefill attention launches ``flash_attention_fwd`` once a layer, an
+  xLSTM prefill ``slstm_scan`` once an sLSTM layer). Its caches are
+  written in place, so each lane batch starts by returning every cache
+  leaf to the value the model's ``init_cache_fn`` gave it (recorded when
+  the engine is built: zeros, ``slot_pos`` −1, a recurrent state's
+  stabiliser at −inf): every batch starts from empty caches, as in the
+  reference, whose caches are never mutated.
 * :class:`SpectrumService` — the paper's 2D-FFT processor as a service.
   Plan-aware batching groups frame requests
 by problem key (shape × realness × device), plans ONE transform per group
@@ -129,14 +132,15 @@ def _host_tokens(prompt) -> np.ndarray:
     return np.asarray(prompt)
 
 
-def _empty(caches: dict) -> None:
-    """Reset caches to what the model's ``init_cache_fn`` makes: zeros, and
-    ``slot_pos`` −1 (no slot filled)."""
-    for key, t in caches.items():
-        if isinstance(t, dict):
-            _empty(t)
-        else:
-            t.fill_(-1 if key == "slot_pos" else 0)
+def _initial(t: torch.Tensor) -> torch.Tensor:
+    """The one value every element of ``t`` holds as the model's
+    ``init_cache_fn`` made it (zeros, a stabiliser at −inf, ``slot_pos``
+    −1), as a 0-d tensor."""
+    value = t.reshape(-1)[:1].reshape(()).clone()
+    if not bool((t == value).all()):
+        raise ValueError("ServeEngine: init_cache_fn made a cache leaf that does not hold "
+                         "one value throughout")
+    return value
 
 
 @dataclasses.dataclass
@@ -163,6 +167,8 @@ class ServeEngine:
         # default policy is maximally permissive.
         self.policy = policy if policy is not None else ServicePolicy()
         self.caches = model.init_cache_fn(batch, max_len, dtype, self.device)
+        # each lane batch starts from these values (see _empty)
+        self._initial = [_initial(t) for t in tree_leaves(self.caches)]
         self._extras: dict | None = None
         if batch_policy is None:
             batch_policy = BatchPolicy(max_batch=batch)
@@ -187,7 +193,7 @@ class ServeEngine:
         batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
         if extras:
             batch.update({k: torch.as_tensor(v, device=self.device) for k, v in extras.items()})
-        _empty(self.caches)
+        self._empty()
         logits, caches = self.model.prefill_fn(self.params, batch, self.caches)
         outs: List[List[int]] = [[] for _ in prompts]
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -199,6 +205,11 @@ class ServeEngine:
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
             pos += 1
         return outs
+
+    def _empty(self) -> None:
+        """Return every cache leaf to the value ``init_cache_fn`` gave it."""
+        for t, value in zip(tree_leaves(self.caches), self._initial):
+            t.copy_(value)
 
     # --------------------------- lane machinery ---------------------------
 

@@ -1178,3 +1178,80 @@ def test_cuda_flash_attention_with_a_query_offset_raises(cuda):
         attn.flash_attention(q, kv, kv, q_offset=16)
     out = attn.flash_attention(q.cpu(), kv.cpu(), kv.cpu(), q_offset=16)
     assert out.shape == (1, 16, 4, 8)
+
+
+#: Each recurrent-state family's kernel and its launches a prefill at full
+#: width: xlstm-350m's 12 sLSTM layers, zamba2-2.7b's 9 shared-block
+#: invocations.
+RECURRENT = {"xlstm-350m": ("slstm_scan", 12), "zamba2-2.7b": ("flash_attention_fwd", 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_cuda_recurrent_lm_launches_its_kernel_at_full_width(cuda, arch):
+    """At full width (bf16 compute, float32 weights from a seeded card
+    generator) a prefill launches its family's kernel once a layer that
+    has one (12 ``slstm_scan``, 9 ``flash_attention_fwd`` at (2·32, 16,
+    160)) and nothing else; a decode step launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models.build import build
+
+    name, per_prefill = RECURRENT[arch]
+    cfg = get_config(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s = 2, 16
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device=cuda, dtype=torch.int32)
+    caches = model.init_cache_fn(b, 32, torch.float32, cuda)
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, caches = model.prefill_fn(params, {"tokens": toks}, caches)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {name: per_prefill}
+    assert logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all())
+    reset_launches()
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    d, _ = model.decode_fn(params, tok, s, caches)
+    torch.cuda.synchronize()
+    assert not any(LAUNCHES.values())
+    assert bool(torch.isfinite(d).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_cuda_recurrent_lm_smoke_matches_the_cpu(cuda, arch):
+    """The smoke model on the card against its plain twins on the CPU on the
+    same weights (float32 compute): prefill of 13 (zamba2: a padded SSD
+    chunk), then two decode steps, logits to 1e-4 of their largest value;
+    the prefill launches the kernel once an sLSTM layer (xlstm) or a
+    shared-block invocation (zamba2). xlstm is cut to one mLSTM / sLSTM
+    pair: at 4 layers its init amplifies the scan's rounding (1e-4 of the
+    plain version, a state in float64 products) past 1e-4 at the logits."""
+    from repro_torch.kernels._launch import LAUNCHES
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda, arch)
+    if arch == "xlstm-350m":
+        from repro_torch.models.build import build
+
+        cfg = cfg.scaled(n_layers=2)
+        model = build(cfg)
+    name, _ = RECURRENT[arch]
+    launches = cfg.n_layers // 2 if arch == "xlstm-350m" else cfg.n_layers // cfg.shared_attn_every
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, s = 2, 13
+    toks = torch.randint(0, cfg.vocab, (b, s + 2), generator=g, device=cuda, dtype=torch.int32)
+    caches = model.init_cache_fn(b, 32, torch.float32, cuda)
+    cpu_caches = model.init_cache_fn(b, 32, torch.float32, "cpu")
+    before = LAUNCHES[name]
+    logits, caches = model.prefill_fn(params, {"tokens": toks[:, :s]}, caches)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] - before == launches
+    ref, cpu_caches = model.prefill_fn(cpu_params, {"tokens": toks[:, :s].cpu()}, cpu_caches)
+    assert _rel(logits.cpu(), ref) <= 1e-4
+    for i in range(2):
+        tok = toks[:, s + i:s + i + 1]
+        d, caches = model.decode_fn(params, tok, s + i, caches)
+        d_ref, cpu_caches = model.decode_fn(cpu_params, tok.cpu(), s + i, cpu_caches)
+        assert _rel(d.cpu(), d_ref) <= 1e-4

@@ -5,10 +5,13 @@ the same queue goes through the reference's engine and the port's on the
 same weights, drawn by the reference and carried by ``params_from_numpy``,
 and must give the same tokens, token for token (float32 compute; the
 logits agree to 1e-4 of their largest value, tests/test_torch_models.py,
-and greedy argmax takes no tolerance). The reference's
-``tests/serve/test_engine.py`` is ported one for one. The port writes its
-caches in place, so each lane batch must start from empty caches.
+test_torch_xlstm.py and test_torch_ssm.py, and greedy argmax takes no
+tolerance). The reference's ``tests/serve/test_engine.py`` is ported one
+for one. The port writes its caches in place, so each lane batch must
+start from the caches ``init_cache_fn`` makes (recurrent states too).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from repro_torch.data.pipeline import patches_for
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.build import build
 from repro_torch.models.param import params_from_numpy
+from repro_torch.models.param import tree_leaves as param_tree_leaves
 from repro_torch.resilience import Overloaded, ServicePolicy
 from repro_torch.serve import Request, ServeEngine
 
@@ -135,10 +139,14 @@ def _queue(cfg, lengths, seed, cls):
             for i, n in enumerate(lengths)]
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-3b", "glm4-9b", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-3b", "glm4-9b", "internvl2-76b",
+                                  "xlstm-350m", "zamba2-2.7b"])
 def test_serve_queue_gives_the_reference_tokens(arch):
     """Mixed prompt lengths over several lanes, left-padded in each, and
-    (internvl2) patch embeddings prepended: token for token."""
+    (internvl2) patch embeddings prepended: token for token. xlstm's and
+    zamba2's caches are recurrent states (and zamba2's shared-block KV
+    caches); xlstm's only match once every lane batch starts its
+    stabilisers at −inf again."""
     cfg, jeng, eng = _pair(arch, batch=3, max_len=64)
     lengths = [3, 5, 8, 12, 17, 30, 6, 9]
     jextras = extras = None
@@ -200,6 +208,78 @@ def test_each_lane_batch_starts_from_empty_caches():
         assert not bool(eng.caches["dense_layers"][key][:, :, 6 + 6:].any())
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])
+def test_each_lane_batch_starts_from_the_initial_state_caches(arch):
+    """Every prefill, the first lane batch's too, finds every cache leaf as
+    the model's ``init_cache_fn`` made it: xlstm's stabilisers ``m`` all at
+    −inf, zamba2's ``slot_pos`` −1, every other leaf 0. After each lane
+    batch the states hold that batch's values (m finite), so the reset is
+    what brings m back to −inf. Two lane batches in one call give the
+    tokens two fresh engines give."""
+    cfg, _, eng = _pair(arch, batch=2, max_len=64, seed=4)
+    fresh = param_tree_leaves(eng.model.init_cache_fn(2, 64, torch.float32, "cpu"))
+    seen = []
+    run = eng.model.prefill_fn
+
+    def prefill(params, batch, caches):
+        leaves = param_tree_leaves(caches)
+        seen.append([torch.equal(t, f) for t, f in zip(leaves, fresh)])
+        if arch == "xlstm-350m":
+            seen[-1].append([bool(torch.isneginf(caches[n]["m"]).all())
+                             for n in ("mlstm", "slstm")])
+        return run(params, batch, caches)
+
+    eng.model = dataclasses.replace(eng.model, prefill_fn=prefill)
+    long = _queue(cfg, [14, 13], 9, Request)
+    short = _queue(cfg, [6, 5], 10, Request)
+    eng.serve_queue(long + short)
+    assert len(seen) == 2
+    for leaves in seen:
+        assert all(leaves[:len(fresh)])
+        if arch == "xlstm-350m":
+            assert leaves[-1] == [True, True]
+    if arch == "xlstm-350m":  # the last batch's states are its own, m finite
+        assert bool(torch.isfinite(eng.caches["mlstm"]["m"]).all())
+        assert bool(torch.isfinite(eng.caches["slstm"]["m"]).all())
+    for group in (long, short):
+        _, _, alone = _pair(arch, batch=2, max_len=64, seed=4)
+        again = alone.serve_queue([Request(prompt=r.prompt, max_new=r.max_new) for r in group])
+        assert [r.out for r in group] == [r.out for r in again]
+
+
+def test_xlstm_tokens_need_the_stabilisers_back_at_minus_inf():
+    """The stabiliser m cancels out of the mLSTM's output and of the sLSTM's
+    c / n, except where the sLSTM's floor n >= 1e-6 binds: with its input
+    gates shut (bias −20 on the i block, the same weights in both
+    packages), the first step gives n = 1 from m = −inf but n = e^−19 from
+    m = 0, and the tokens part. So the reference's tokens come back only if
+    every lane batch, the first too, starts m at −inf."""
+    cfg, jeng, eng = _pair("xlstm-350m", batch=3, max_len=64)
+    d = cfg.d_model
+    jeng.params["slstm_layers"]["bias"] = jeng.params["slstm_layers"]["bias"].at[:, :d].set(-20.0)
+    eng.params["slstm_layers"]["bias"][:, :d] = -20.0
+    lengths = [3, 5, 8, 12, 17, 30, 6, 9]
+    ref = jeng.serve_queue(_queue(cfg, lengths, 7, JRequest))
+    got = eng.serve_queue(_queue(cfg, lengths, 7, Request))
+    assert [r.out for r in got] == [r.out for r in ref]
+
+
+def test_engine_refuses_an_initial_cache_it_could_not_restore(engine):
+    """The engine records one value a cache leaf, the value every element
+    held when ``init_cache_fn`` made it; a leaf that holds several is
+    refused when the engine is built, not reset wrongly later."""
+    cfg, model, params, _ = engine
+
+    def init_cache(b, s, dtype=torch.float32, device=None):
+        caches = model.init_cache_fn(b, s, dtype, device)
+        caches["dense_layers"]["slot_pos"] = torch.arange(s, dtype=torch.int32)
+        return caches
+
+    with pytest.raises(ValueError, match="one value throughout"):
+        ServeEngine(dataclasses.replace(model, init_cache_fn=init_cache), params, batch=2,
+                    max_len=64)
+
+
 def test_tensor_prompts_serve_as_numpy_prompts(engine):
     cfg, model, params, eng = engine
     queue = _queue(cfg, [6, 7, 12], 11, Request)
@@ -229,7 +309,7 @@ def test_generate_takes_one_prompt_a_slot(engine):
 # ------------------------------ the launcher ------------------------------
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "internvl2-76b", "xlstm-350m", "zamba2-2.7b"])
 def test_launcher_serves_smoke_config_on_the_cpu(arch, capsys):
     done = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
                               "--batch", "2", "--max-new", "4"])

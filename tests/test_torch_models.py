@@ -39,6 +39,10 @@ from repro_torch.models.build import PENDING, build
 
 SERVED = ["llama3.2-3b", "starcoder2-3b", "glm4-9b", "internvl2-76b"]
 DENSE_AND_VLM = [a for a in reg.ALL_IDS if reg.get_config(a).family in ("dense", "vlm")]
+PORTED = [a for a in reg.ALL_IDS if reg.get_config(a).family not in PENDING]
+#: each ported family's skeleton function in the port and in the reference
+SKELETONS = {"dense": (T.lm_skel, jT.lm_skel), "vlm": (T.lm_skel, jT.lm_skel),
+             "hybrid": (T.hybrid_skel, jT.hybrid_skel), "ssm": (T.xlstm_skel, jT.xlstm_skel)}
 
 
 def _t(a):
@@ -263,10 +267,10 @@ def test_prefill_and_decode_logits_match_reference(arch, compute_dtype):
     assert abs(float(loss) - float(jloss)) <= tol * abs(float(jloss))
 
 
-@pytest.mark.parametrize("arch", DENSE_AND_VLM)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_then_decode(arch):
     """tests/models/test_arch_smoke.py::test_prefill_then_decode, ported
-    (the dense and vlm families)."""
+    (the dense, vlm, hybrid and ssm families)."""
     cfg = reg.smoke_config(arch)
     model = build(cfg)
     rng = np.random.default_rng(1)
@@ -283,7 +287,7 @@ def test_prefill_then_decode(arch):
     assert bool(torch.isfinite(logits2).all()), arch
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-2.7b", "xlstm-350m"])
 def test_decode_matches_full_forward(arch):
     """tests/models/test_arch_smoke.py::test_decode_matches_full_forward,
     ported: prefill + decode logits == full-sequence forward logits."""
@@ -323,13 +327,22 @@ def test_full_configs_have_exact_assignment_numbers():
         28, 3072, 24, 8, 128256)
 
 
-@pytest.mark.parametrize("arch", [a for a in reg.ALL_IDS
-                                  if reg.get_config(a).family not in ("dense", "vlm")])
+@pytest.mark.parametrize("arch", [a for a in reg.ALL_IDS if reg.get_config(a).family in PENDING])
 def test_other_families_raise_naming_their_roadmap_item(arch):
     cfg = reg.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=r"item 12 \([b-f]\)"):
+    with pytest.raises(NotImplementedError, match=r"item 12 \([c-f]\)"):
         build(cfg)
-    assert PENDING[cfg.family] in {"12 (b)", "12 (c)", "12 (d)", "12 (e)", "12 (f)"}
+    assert PENDING[cfg.family] in {"12 (c)", "12 (e)", "12 (f)"}
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])
+def test_recurrent_state_families_build_at_full_width(arch):
+    """``build`` serves the ssm and hybrid families (``PENDING`` names
+    neither) with the reference's parameter count: 0.427 B and 2.593 B."""
+    assert "ssm" not in PENDING and "hybrid" not in PENDING
+    model, jmodel = build(reg.get_config(arch)), jbuild(jreg.get_config(arch))
+    assert model.n_params == jmodel.n_params
+    assert round(model.n_params / 1e9, 3) == {"xlstm-350m": 0.427, "zamba2-2.7b": 2.593}[arch]
 
 
 # ------------------------- configs and params -------------------------
@@ -358,13 +371,14 @@ def test_configs_match_reference_field_for_field(arch):
             assert str(spec.dtype).split(".")[-1] == str(ref[key].dtype)
 
 
-@pytest.mark.parametrize("arch", DENSE_AND_VLM)
+@pytest.mark.parametrize("arch", PORTED)
 def test_skeletons_match_reference(arch):
     """Full width, no allocation: the same leaves, shapes, logical axes,
     init and counts as the reference's skeleton (meta tensors for the
     abstract tree)."""
     cfg, jcfg = reg.get_config(arch), jreg.get_config(arch)
-    skel, jskel = T.lm_skel(cfg), jT.lm_skel(jcfg)
+    fn, jfn = SKELETONS[cfg.family]
+    skel, jskel = fn(cfg), jfn(jcfg)
     leaves = param.tree_leaves(skel)
     jleaves = jax.tree.leaves(jskel, is_leaf=lambda x: isinstance(x, jparam.ParamDef))
     assert [(d.shape, d.logical_axes, d.init, d.scale) for d in leaves] == [

@@ -1,9 +1,11 @@
 """Where the port's LM serving spends its host and card time: one lane
-batch's prefill and one decode step at llama3.2-3b's full width (bf16
-compute over float32 weights, random from a seeded generator), on one
-NVIDIA card.
+batch's prefill and one decode step at an architecture's full width
+(``--arch``, default llama3.2-3b; any family ``build`` serves: dense, vlm,
+ssm, hybrid; bf16 compute over float32 weights, random from a seeded
+generator), on one NVIDIA card.
 
     python3 tools/lm_profile.py --batch 4 --prompt-lens 16,1024
+    python3 tools/lm_profile.py --arch xlstm-350m --batch 4 --prompt-lens 16,1024
 
 For each prompt length one JSON line with, for ``prefill`` (``prefill_fn``
 on the batch's prompts) and ``decode`` (``decode_fn`` at the next
@@ -16,6 +18,8 @@ position, after that prefill):
   kernels, their busy µs, the union of busy time over the window from the
   first kernel's start to the last one's end, and the idle share of that
   window), read as ``tools/stream_profile.py`` reads its traces;
+- ``card_top``: the 8 kernel names with the most card µs in one traced
+  call (summed over their launches), with their launch counts;
 - ``wall_ms``: one call waited for (``torch.cuda.synchronize``).
 
 Prints the card's name and power limit first. Needs CUDA; exits 2 without.
@@ -35,6 +39,31 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from stream_profile import card, host  # noqa: E402  (the same trace reading)
+
+
+def card_top(torch, fn, top: int = 8):
+    """Card µs and launches by kernel name over one traced call of ``fn``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            row = by_name.setdefault(e["name"][:120], {"us": 0.0, "launches": 0})
+            row["us"] += e["dur"]
+            row["launches"] += 1
+    rows = sorted(by_name.items(), key=lambda kv: kv[1]["us"], reverse=True)[:top]
+    return [{"kernel": name, **row} for name, row in rows]
 
 
 def main() -> int:
@@ -80,7 +109,7 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             line[name] = {"host_ms": host_us / 1e3, "wall_ms": (time.perf_counter() - t0) * 1e3,
-                          "card": card(torch, fn, calls=3),
+                          "card": card(torch, fn, calls=3), "card_top": card_top(torch, fn),
                           "top": [dict(row, own_us_per_call=row.pop("own_us_per_step"),
                                        calls_per_call=row.pop("calls_per_step")) for row in top]}
         print(json.dumps(line), flush=True)

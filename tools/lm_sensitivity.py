@@ -1,0 +1,65 @@
+"""How far an LM at its random init amplifies a rounding-sized change.
+
+    PYTHONPATH=src python tools/lm_sensitivity.py --arch xlstm-350m --layers 2,24
+    PYTHONPATH=src python tools/lm_sensitivity.py --arch zamba2-2.7b --layers 6 --device cpu
+
+For each depth: the architecture's full-width config cut to that many
+layers, at float32 compute, weights from a generator seeded 0, 2 prompts
+of 16 tokens; the embedding table multiplied by (1 + eps N(0, 1)) for
+each ``--eps``; one JSON line with the change of the last position's
+logits relative to their largest value. A change of 1e-7 is a float32
+rounding: where it moves the logits by more than a gate, two evaluations
+that round in different places (two products of other shapes, a kernel
+and its plain version) cannot be held to that gate at that depth.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="xlstm-350m")
+    ap.add_argument("--layers", default="2,24")
+    ap.add_argument("--eps", default="1e-7,1e-6")
+    ap.add_argument("--device", default="cpu")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.build import build
+
+    dev = torch.device(args.device)
+    for layers in (int(n) for n in args.layers.split(",")):
+        cfg = get_config(args.arch).scaled(n_layers=layers, compute_dtype="float32")
+        forward = {"ssm": T.xlstm_forward, "hybrid": T.hybrid_forward}.get(cfg.family,
+                                                                         T.lm_forward)
+        params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+                                .astype(np.int32)).to(dev)
+        base = forward(params, toks, cfg)[0][:, -1]
+        table = params["embed"]["table"].clone()
+        noise = torch.randn(table.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                            device=dev)
+        line = {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+                "device": str(dev), "change": {}}
+        for eps in (float(e) for e in args.eps.split(",")):
+            params["embed"]["table"] = table * (1 + eps * noise)
+            out = forward(params, toks, cfg)[0][:, -1]
+            line["change"][str(eps)] = float((out - base).abs().max() / base.abs().max())
+        params["embed"]["table"] = table
+        print(json.dumps(line), flush=True)
+        del params
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
