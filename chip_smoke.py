@@ -261,8 +261,39 @@ Phases, each printing one JSON line:
              (1e-3, tokens equal wherever the CPU's top-2 margin exceeds
              that). Its
              launches count toward the ``kernels`` line;
+7e. lm audio — whisper-medium at full width (24 encoder and 24 decoder
+             layers, d_model 1024, 16 heads of 64, vocab 51865; 0.811 B
+             parameters, bf16 compute over float32 weights) through
+             ``ServeEngine`` on two queues of 8 requests at batch 4 (16- and
+             128-token prompts, 16 new), every lane batch carrying
+             ``frames_for``'s (4, 1500, 1024) frames: ``flash_attention_fwd``
+             72 times a prefill (encoder, decoder self- and
+             cross-attention) and 24 a decode step (cross-attention), no
+             other kernel; the kernel on the model's own operands at
+             (64, 1500, 64) non-causal, (64, S, 64) causal, (64, S→1500, 64)
+             and (64, 1→1500, 64), each against its plain version (2e-5 on
+             Gaussian operands, float64 on the model's), timed beside it,
+             SDPA and its bound; the timed serve (tokens/s, prefill ms,
+             decode ms a step, the kernel's share of each); decode against
+             the prefill of s + 1 at full depth printed beside the plain
+             attention route's gap, gated at float32 (2e-3) on one encoder
+             and one decoder layer; that copy card against CPU (decode
+             logits 1e-3, tokens, the forward within 2x of the plain route's
+             distance from the CPU: see AUDIO_QUEUES);
+7f. lm spectral — fourier_lm at full width (12 FNet blocks, d_model 512,
+             vocab 32768) on ``make_batch``'s MLM batch of (8, 2048) under
+             ``torch.no_grad()``: ``loss_fn`` and ``prefill_fn`` each
+             launch, per block, the kernels of one planned fft2 of (8,
+             2048, 512) as the census gives them (the composed route: one
+             ``fft_fused`` and one ``fft2_columns``), nothing else; the
+             forward again with every launch recorded, held against its
+             plain twin (2e-5) and timed alone: forward ms, tokens/s, the
+             kernels' and the mixing calls' share; card against CPU at
+             float32, full depth, 2 sequences (logits and loss, 1e-3).
+             Its launches count toward the ``kernels`` line;
    After each of the kernel, request, imaging, mri, stream, serve, pencil,
-   lm and lm state phases (one ``obs.capture()`` around the nine) a
+   lm, lm state, lm audio and lm spectral phases (one ``obs.capture()``
+   around the eleven) a
    ``"check": "no degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
    ``plan.degrade`` event, no MEASURE candidate skipped, and
    ``kernel.failover`` (the composed 2D route) only on frames over the
@@ -635,6 +666,44 @@ LM_STATE_ARCHS = (("xlstm-350m", "slstm_scan", 12, 2),
 # (each Mamba2 layer replaces x, no residual), O(1) at 54. So the gates of
 # 1e-3 (card against CPU) and 2e-3 (decode against prefill) hold at those
 # cut depths only; at full depth the gaps are printed.
+# whisper-medium (src/repro_torch/configs/whisper_medium.py): 24 encoder
+# and 24 decoder layers, d_model 1024, 16 heads of 64, vocab 51865; 0.811 B
+# parameters (3.24 GB float32), bf16 compute over float32 weights random
+# from a seeded card generator. Two queues through ServeEngine.serve_queue,
+# every lane batch carrying frames_for's (4, 1500, 1024) frame embeddings:
+# the launcher's (8 requests of 16-token prompts, batch 4, 16 new) and 8
+# requests of 128-token prompts: (label, requests, prompt length, batch,
+# max_new, max_len). A prefill launches flash_attention_fwd n_enc + 2
+# n_layers = 72 times (the encoder, the decoder's self- and
+# cross-attention), a decode step n_layers = 24 (its cross-attention, as
+# the reference's decode runs it); the cross K/V caches hold 295 MB a
+# batch row. At its random init whisper amplifies a rounding: a relative
+# change of 1e-7 in the frames moves the float32 last logits by 2.3e-4 of
+# the largest at one encoder and one decoder layer, 3.4e-2 at two of each,
+# 0.74 at 24 (tools/lm_sensitivity.py on the card; the attention scores
+# reach ~200, so a softmax turns a rounding of a score into a change of its
+# weights). So decode against prefill (float32, 2e-3) is gated on a copy
+# cut to AUDIO_CHECK_LAYERS encoder and decoder layer at full width, and
+# at full depth printed. Card against CPU runs on such a copy: the decode
+# logits within TOL_LM_CPU, tokens equal where the CPU's top-2 margin
+# exceeds it, and the forward's logits at every position within
+# AUDIO_ROUTE_FACTOR of the distance the card's plain attention route
+# (``flash_attention_blocks``, the CPU's function) keeps from the CPU, or
+# TOL_LM_CPU: a 1e-7 change moves them 1.8e-3 there, over the gate itself.
+AUDIO_ARCH = "whisper-medium"
+AUDIO_QUEUES = (("launcher", 8, 16, 4, 16, 128), ("long prompts", 8, 128, 4, 16, 256))
+AUDIO_CHECK_LAYERS = 1
+AUDIO_ROUTE_FACTOR = 2.0
+# fourier_lm (src/repro_torch/configs/fourier_lm.py): 12 FNet blocks,
+# d_model 512, d_ff 2048, vocab 32768; 58.7 M parameters, bf16 compute over
+# float32 weights. make_batch's MLM batch of 8 sequences of 2048 tokens:
+# each block's Re(FFT2) is one planned complex fft2 of (8, 2048, 512), the
+# composed route (fft_fused rows, fft2_columns) by the census. Card against
+# CPU at float32 compute, full depth, on the batch's first
+# SPECTRAL_CHECK_BATCH sequences, within TOL_LM_CPU.
+SPECTRAL_ARCH = "fourier_lm"
+SPECTRAL_BATCH = (8, 2048)
+SPECTRAL_CHECK_BATCH = 2
 SERVE_MIX = (256, 128, 128)
 SERVE_BATCH = 16
 SERVE_CT = (32, 512, 512)
@@ -3474,14 +3543,16 @@ def reference_attention(attn):
         attn.flash_attention = route
 
 
-def lm_golden(torch, model, params, toks, max_len: int):
+def lm_golden(torch, model, params, toks, max_len: int, extras=None):
     """Decode logits after a prefill of all but the last token, the prefill
-    of all, and the prefill of all but the last's logits."""
+    of all, and the prefill of all but the last's logits (``extras``, such
+    as whisper's frames, go with both prefills)."""
     b, s = toks.shape[0], toks.shape[1] - 1
     dev = toks.device
-    full, _ = model.prefill_fn(params, {"tokens": toks},
+    extras = extras or {}
+    full, _ = model.prefill_fn(params, {"tokens": toks, **extras},
                                model.init_cache_fn(b, max_len, torch.float32, dev))
-    pre, caches = model.prefill_fn(params, {"tokens": toks[:, :s]},
+    pre, caches = model.prefill_fn(params, {"tokens": toks[:, :s], **extras},
                                    model.init_cache_fn(b, max_len, torch.float32, dev))
     dec, _ = model.decode_fn(params, toks[:, s:], s, caches)
     return dec, full, pre
@@ -3772,14 +3843,15 @@ def slstm_model_case(torch, card, rows, cfg, params, toks, launches: int):
 
 
 def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launches: int,
-                     lane: str):
-    """flash_attention_fwd at a prefill's shape (B·H, S, D), causal, as the
-    card route calls it (q scaled first, scale 1, the config's blocks):
-    seeded Gaussian operands (k and v from cfg's kv heads) against its plain
-    version at 2e-5, and the model's own q, k, v (``qkv``, (B, S, H, D)
-    rotated) against float64, within LM_FLOAT64_FACTOR of the plain
-    version's distance; timed beside its plain version and SDPA. One line;
-    the case joins the ``kernels`` line's flash row. Returns its ms."""
+                     lane: str, causal: bool = True):
+    """flash_attention_fwd at a prefill's shape (B·H, S, D) (cross-attention:
+    Sq queries against Sk keys), as the card route calls it (q scaled first,
+    scale 1, the config's blocks): seeded Gaussian operands (k and v from
+    cfg's kv heads) against its plain version at 2e-5, and the model's own
+    q, k, v (``qkv``, (B, S, H, D), rotated where the model rotates them)
+    against float64, within LM_FLOAT64_FACTOR of the plain version's
+    distance; timed beside its plain version and SDPA. One line; the case
+    joins the ``kernels`` line's flash row. Returns its ms."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3788,36 +3860,38 @@ def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launche
     mq, mk, mv = qkv
     dev = mq.device
     b, s, h, dh = mq.shape
+    sk = mk.shape[1]
     blocks = {"block_q": cfg.attn_block_q, "block_k": cfg.attn_block_k}
     gen = torch.Generator(device=dev).manual_seed(3)
     q, kk, v = attn.gqa_to_heads(
         torch.randn(b, s, h, dh, generator=gen, device=dev) / math.sqrt(dh),
-        torch.randn(b, s, mk.shape[2], dh, generator=gen, device=dev),
-        torch.randn(b, s, mk.shape[2], dh, generator=gen, device=dev))
-    got = fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0, **blocks)
-    ref = fa.flash_attention_plain(q, kk, v, causal=True, scale=1.0, **blocks)
+        torch.randn(b, sk, mk.shape[2], dh, generator=gen, device=dev),
+        torch.randn(b, sk, mk.shape[2], dh, generator=gen, device=dev))
+    got = fa.flash_attention_fwd(q, kk, v, causal=causal, scale=1.0, **blocks)
+    ref = fa.flash_attention_plain(q, kk, v, causal=causal, scale=1.0, **blocks)
     mq, mk, mv = attn.gqa_to_heads(mq * (1.0 / math.sqrt(dh)), mk, mv)
-    m_got = fa.flash_attention_fwd(mq, mk, mv, causal=True, scale=1.0, **blocks)
-    m_ref = fa.flash_attention_plain(mq, mk, mv, causal=True, scale=1.0, **blocks)
-    m64 = fa.mha_reference(mq.double() * math.sqrt(dh), mk.double(), mv.double(), causal=True)
+    m_got = fa.flash_attention_fwd(mq, mk, mv, causal=causal, scale=1.0, **blocks)
+    m_ref = fa.flash_attention_plain(mq, mk, mv, causal=causal, scale=1.0, **blocks)
+    m64 = fa.mha_reference(mq.double() * math.sqrt(dh), mk.double(), mv.double(), causal=causal)
     torch.cuda.synchronize()
     line = {"phase": phase, "kernel": "flash_attention_fwd", "case": case, "lane": lane,
-            "shape": list(q.shape), "window": None, "blocks": blocks,
+            "shape": list(q.shape), "keys": sk, "causal": causal, "window": None,
+            "blocks": blocks,
             "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
             "model_operands": {"rel_err_vs_plain": rel_err(m_got, m_ref),
                                "rel_err_vs_float64": rel_err(m_got, m64),
                                "plain_rel_err_vs_float64": rel_err(m_ref, m64),
                                # the init's scores, q k / sqrt(D)
                                "max_abs_score": float((mq @ mk.transpose(1, 2)).abs().max())},
-            "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=True, scale=1.0,
+            "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=causal, scale=1.0,
                                                          **blocks)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=True,
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=causal,
                                                                  scale=1.0, **blocks),
                                 reps=2, batches=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q[None], kk[None], v[None], is_causal=True, scale=1.0)),
+                q[None], kk[None], v[None], is_causal=causal, scale=1.0)),
             "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
-            "flops": q.shape[0] * attention_pairs(s, s, True, None) * 2.0 * (dh + dh),
+            "flops": q.shape[0] * attention_pairs(s, sk, causal, None) * 2.0 * (dh + dh),
             "launches": launches, "card": card}
     line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
                                                split_tf32_rate(card))
@@ -3830,9 +3904,9 @@ def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launche
             TOL_KERNEL, LM_FLOAT64_FACTOR * model_ops["plain_rel_err_vs_float64"]):
         raise AssertionError(f"flash_attention_fwd on the operands of {case}: {model_ops}")
     row = rows["flash_attention_fwd"]
-    row["by_case"][f"{case} S={s}"] = {
-        key: line[key] for key in ("shape", "window", "rel_err", "ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by", "launches")}
+    row["by_case"][f"{case} S={s}" if s == sk else f"{case} S={s}->{sk}"] = {
+        key: line[key] for key in ("shape", "keys", "causal", "window", "rel_err", "ms",
+                                   "plain_ms", "library_ms", "bound_ms", "bound_by", "launches")}
     row["max_abs_err"] = max(row["max_abs_err"], line["max_abs_err"])
     row["rel_err"] = max(row["rel_err"], line["rel_err"])
     return line["ms"]
@@ -4053,6 +4127,393 @@ def lm_state_arch(torch, card: str, rows, arch: str, kernel: str, per_prefill: i
     del p2, c2, caches, logits, dec
     torch.cuda.empty_cache()
     return n_launched
+
+
+def lm_audio_phase(torch, card, rows) -> int:
+    """repro_torch's LM serving of the audio family at whisper-medium's full
+    width; returns the ``flash_attention_fwd`` launches of the serving run."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import frames_for
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.build import build
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.param import param_bytes, tree_leaves, tree_map
+    from repro_torch.serve import Request, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config(AUDIO_ARCH)
+    n_enc = cfg.n_enc_layers or cfg.n_layers
+    per_prefill, per_step = n_enc + 2 * cfg.n_layers, cfg.n_layers
+    model = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = phase_t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"phase": "lm audio", "call": "init", "arch": cfg.name, "family": cfg.family,
+          "allocated_gb_before": allocated_before / 1e9, "n_params": model.n_params,
+          "param_bytes": param_bytes(model.skeleton), "seconds": time.perf_counter() - t0,
+          "enc_layers": n_enc, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab,
+          "enc_frames": cfg.enc_frames, "compute_dtype": cfg.compute_dtype, "card": card})
+
+    # Serve both queues with the counts set to 0 just before and read just
+    # after: every prefill launches the kernel per_prefill times, every
+    # decode step per_step times; no other kernel runs.
+    tap = LmTap(torch, model)
+    engines = [ServeEngine(tap.model, params, batch=batch, max_len=max_len, dtype=torch.float32)
+               for _, _, _, batch, _, max_len in AUDIO_QUEUES]
+    cross_bytes = sum(t.numel() * t.element_size() for key in ("cross_k", "cross_v")
+                      for t in tree_leaves(engines[0].caches["dec"][key]))
+    frames = frames_for(cfg, AUDIO_QUEUES[0][3], 0, device=dev)
+    extras = {"frames": frames}
+    queues = [lm_queue(cfg, n, plen, max_new) for _, n, plen, _, max_new, _ in AUDIO_QUEUES]
+    torch.cuda.synchronize()
+    reset_launches()
+    for eng, queue in zip(engines, queues):
+        eng.serve_queue(queue, extras=extras)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    counted = tap.take()
+    lane_batches = [-(-n // batch) for _, n, _, batch, _, _ in AUDIO_QUEUES]
+    steps = sum(nb * max_new for nb, (_, _, _, _, max_new, _) in zip(lane_batches, AUDIO_QUEUES))
+    per_call = [n for n, _ in counted["prefill"]]
+    per_decode = [n for n, _ in counted["decode"]]
+    others = {name: n for name, n in launches.items() if n and name != "flash_attention_fwd"}
+    emit({"phase": "lm audio", "call": "launches", "arch": cfg.name,
+          "flash_attention_fwd": launches["flash_attention_fwd"],
+          "lane_batches": sum(lane_batches), "per_prefill": per_call,
+          "decode_steps": len(per_decode), "per_decode_step": sorted(set(per_decode)),
+          "decode_launches": sum(per_decode), "others": others,
+          "cross_kv_gb_per_row": cross_bytes / AUDIO_QUEUES[0][3] / 1e9, "frames": list(frames.shape)})
+    if (per_call != [per_prefill] * sum(lane_batches) or per_decode != [per_step] * steps
+            or others or launches["flash_attention_fwd"]
+            != per_prefill * sum(lane_batches) + per_step * steps):
+        raise AssertionError(f"lm audio: flash_attention_fwd launched {per_call} a prefill, "
+                             f"{sorted(set(per_decode))} a decode step ({len(per_decode)} "
+                             f"steps), others {others}")
+    for queue, (label, _, _, _, max_new, _) in zip(queues, AUDIO_QUEUES):
+        if not all(r.done and len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out)
+                   for r in queue):
+            raise AssertionError(f"lm audio {label}: a request was not served in full")
+
+    # The kernel on the model's own operands at each of its shapes: layer 0
+    # of the encoder on the frames (B·H 64, 1500 positions, non-causal);
+    # for each lane, decoder layer 0's self-attention (causal) and its
+    # cross-attention over the encoder output (S queries, 1500 keys); a
+    # decode step's cross-attention (one query, the last prompt position's).
+    dt = getattr(torch, cfg.compute_dtype)
+    b, t = frames.shape[0], frames.shape[1]
+    p_enc = tree_map(lambda w: w[0], params["enc_layers"])
+    p_dec = tree_map(lambda w: w[0], params["dec_layers"])
+    enc_pos = torch.arange(t, device=dev)[None].expand(b, t)
+    h = rmsnorm(p_enc["ln1"], frames.to(dt), cfg.rms_eps)
+    enc_ms = flash_model_case(torch, card, rows, "lm audio", f"{cfg.name} encoder", cfg,
+                              attn.gqa_qkv(p_enc["attn"], h, cfg, enc_pos),
+                              n_enc * sum(lane_batches), "both queues", causal=False)
+    kx, vx = attn.cross_kv(p_dec["xattn"], T.encoder_forward(params, frames, cfg), dt)
+    prefill_kernel_ms, q_last = {}, None
+    for queue, nb, (label, _, s, _, _, _) in zip(queues, lane_batches, AUDIO_QUEUES):
+        toks = torch.from_numpy(np.stack([r.prompt for r in queue[:b]])).to(dev)
+        x = embed(params["embed"], toks, dt)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        h = rmsnorm(p_dec["ln1"], x, cfg.rms_eps)
+        self_ms = flash_model_case(torch, card, rows, "lm audio", f"{cfg.name} decoder self",
+                                   cfg, attn.gqa_qkv(p_dec["attn"], h, cfg, positions),
+                                   cfg.n_layers * nb, label)
+        a, _ = attn.gqa_apply(p_dec["attn"], h, cfg, positions=positions)
+        hx = rmsnorm(p_dec["lnx"], x + a, cfg.rms_eps)
+        q = attn._project(hx, p_dec["xattn"]["wq"].to(dt))
+        cross_ms = flash_model_case(torch, card, rows, "lm audio", f"{cfg.name} cross", cfg,
+                                    (q, kx, vx), cfg.n_layers * nb, label, causal=False)
+        prefill_kernel_ms[s] = n_enc * enc_ms + cfg.n_layers * (self_ms + cross_ms)
+        q_last = q[:, -1:] if q_last is None else q_last
+    step_ms = flash_model_case(torch, card, rows, "lm audio", f"{cfg.name} cross decode", cfg,
+                               (q_last, kx, vx), per_step * steps, "both queues", causal=False)
+    del h, kx, vx, q, q_last, a, hx, x
+    torch.cuda.empty_cache()
+
+    # Timed: each queue served again (the same tokens), wall clock around
+    # serve_queue, CUDA events around each prefill and decode step.
+    for eng, queue, (label, n, plen, batch, max_new, max_len) in zip(engines, queues,
+                                                                      AUDIO_QUEUES):
+        again = [Request(prompt=r.prompt, max_new=r.max_new) for r in queue]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve_queue(again, extras=extras)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = tap.take()
+        if [r.out for r in again] != [r.out for r in queue]:
+            raise AssertionError(f"lm audio {label}: the same queue served again gave other "
+                                 "tokens")
+        prefill_ms = [ms for _, ms in calls["prefill"]]
+        decode_ms = [ms for _, ms in calls["decode"]]
+        tokens = sum(len(r.out) for r in again)
+        emit({"phase": "lm audio", "call": "serve", "arch": cfg.name, "queue": label,
+              "requests": n, "prompt_len": plen, "batch": batch, "max_new": max_new,
+              "max_len": max_len, "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+              "lane_batches": len(prefill_ms), "prefill_ms": prefill_ms,
+              "launches_per_prefill": per_prefill, "launches_per_decode_step": per_step,
+              # a decode step gives the next token of every request in the batch
+              "decode_ms_per_token_median": statistics.median(decode_ms),
+              "decode_ms_per_token_range": [min(decode_ms), max(decode_ms)],
+              "decode_wall_ms_per_token": (wall * 1e3 - sum(prefill_ms)) / len(decode_ms),
+              "kernel_ms_per_prefill": prefill_kernel_ms[plen],
+              "kernel_share_of_prefill": prefill_kernel_ms[plen] / statistics.median(prefill_ms),
+              "kernel_ms_per_decode_step": per_step * step_ms,
+              "kernel_share_of_decode_step": per_step * step_ms / statistics.median(decode_ms),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+
+    # The card against itself: decode after a prefill of s tokens against
+    # the prefill of s + 1 (the next token being the one served). At full
+    # depth (48 layers) whisper amplifies a rounding as the recurrent-state
+    # models do (see AUDIO_QUEUES), so the full-depth gaps, bf16 and
+    # float32, are printed beside the reference's function as the attention
+    # (``flash_attention_blocks``) and held finite with the first served
+    # token the prefill's argmax; the gate (float32, 2e-3) is held on the
+    # card-against-CPU copy's depth, on the same weights.
+    model32 = build(cfg.scaled(compute_dtype="float32"))
+    cut32 = build(cfg.scaled(n_layers=AUDIO_CHECK_LAYERS, n_enc_layers=AUDIO_CHECK_LAYERS,
+                             compute_dtype="float32"))
+    for queue, (label, _, s, b, _, max_len) in zip(queues, AUDIO_QUEUES):
+        toks = torch.from_numpy(np.stack([np.append(r.prompt, r.out[0]) for r in queue[:b]])
+                                .astype(np.int32)).to(dev)
+        dec, full, pre = lm_golden(torch, model, params, toks, max_len, extras)
+        finite = all(bool(torch.isfinite(x).all()) for x in (full, pre, dec))
+        first = torch.argmax(pre, -1).tolist() == [r.out[0] for r in queue[:b]]
+        with reference_attention(attn):
+            r_dec, r_full, _ = lm_golden(torch, model, params, toks, max_len, extras)
+        f_dec, f_full, _ = lm_golden(torch, model32, params, toks, max_len, extras)
+        with reference_attention(attn):
+            fr_dec, fr_full, _ = lm_golden(torch, model32, params, toks, max_len, extras)
+        c_dec, c_full, _ = lm_golden(torch, cut32, params, toks, max_len, extras)
+        line = {"phase": "lm audio", "check": "decode vs prefill", "arch": cfg.name,
+                "lane": label, "s": s, "bf16_rel_err": rel_err(dec, full),
+                "bf16_reference_route_rel_err": rel_err(r_dec, r_full),
+                "float32_rel_err": rel_err(f_dec, f_full),
+                "float32_reference_route_rel_err": rel_err(fr_dec, fr_full),
+                "argmax_agree": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
+                "first_token_is_prefill_argmax": first, "finite": finite,
+                "cut_layers": AUDIO_CHECK_LAYERS, "cut_float32_rel_err": rel_err(c_dec, c_full),
+                "cut_float32_tolerance": TOL_LM_F32_GOLDEN}
+        emit(line)
+        if not (finite and first and line["cut_float32_rel_err"] <= TOL_LM_F32_GOLDEN):
+            raise AssertionError(f"lm audio {label}: {line}")
+        del dec, full, pre, r_dec, r_full, f_dec, f_full, fr_dec, fr_full, c_dec, c_full
+    peak = torch.cuda.max_memory_allocated()
+    n_flash = launches["flash_attention_fwd"]
+    del engines, eng, tap, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The card against the CPU at float32 compute, cut in depth only, the
+    # same weights and frames on both (the CPU runs the plain twins).
+    cfg2 = cfg.scaled(n_layers=AUDIO_CHECK_LAYERS, n_enc_layers=AUDIO_CHECK_LAYERS,
+                      compute_dtype="float32")
+    m2 = build(cfg2)
+    p2 = m2.init(torch.Generator(device=dev).manual_seed(1))
+    c2 = tree_map(lambda w: w.cpu(), p2)
+    prompts = [r.prompt for r in queues[0][:AUDIO_QUEUES[0][3]]]
+    b, s = len(prompts), len(prompts[0])
+    toks = torch.from_numpy(np.stack(prompts)).to(dev)
+    logits, _, _ = T.encdec_forward(p2, toks, cfg2, frames=frames)
+    ref, _, _ = T.encdec_forward(c2, toks.cpu(), cfg2, frames=frames.cpu())
+    forward_err = rel_err(logits.cpu(), ref)
+    by_position = (logits.cpu() - ref).abs().amax(-1) / ref.abs().amax(-1)
+    enc_err = rel_err(T.encoder_forward(p2, frames, cfg2).cpu(),
+                      T.encoder_forward(c2, frames.cpu(), cfg2))
+    with reference_attention(attn):
+        r_logits, _, _ = T.encdec_forward(p2, toks, cfg2, frames=frames)
+    noise = torch.randn(frames.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                        device=dev)
+    nudged, _, _ = T.encdec_forward(p2, toks, cfg2, frames=frames * (1 + 1e-7 * noise))
+    diag = {"positions": by_position.numel(),
+            "positions_over_tolerance": int((by_position > TOL_LM_CPU).sum()),
+            "median_position_rel_err": float(by_position.median()), "encoder_rel_err": enc_err,
+            "reference_route_forward_rel_err": rel_err(r_logits.cpu(), ref),
+            "route_factor": AUDIO_ROUTE_FACTOR,
+            "card_change_at_1e-7_of_frames": rel_err(nudged, logits)}
+    del r_logits, nudged, noise
+    pre = {"tokens": toks[:, :-1], "frames": frames}
+    _, caches = m2.prefill_fn(p2, pre, m2.init_cache_fn(b, 128, torch.float32, dev))
+    _, c_caches = m2.prefill_fn(c2, {key: v.cpu() for key, v in pre.items()},
+                                m2.init_cache_fn(b, 128, torch.float32, "cpu"))
+    dec, _ = m2.decode_fn(p2, toks[:, -1:], s - 1, caches)
+    dec_ref, _ = m2.decode_fn(c2, toks[:, -1:].cpu(), s - 1, c_caches)
+    decode_err = rel_err(dec.cpu(), dec_ref)
+    card_out = ServeEngine(m2, p2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=q, max_new=LM_CHECK_NEW) for q in prompts], extras=extras)
+    cpu_out = ServeEngine(m2, c2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=q, max_new=LM_CHECK_NEW) for q in prompts],
+        extras={"frames": frames.cpu()})
+    parted = []
+    for i, (x, y) in enumerate(zip(card_out, cpu_out)):
+        t = next((j for j, (u, w) in enumerate(zip(x.out, y.out)) if u != w), None)
+        if t is not None:  # the CPU's top-2 margin where the two part
+            seq = torch.from_numpy(np.append(prompts[i], y.out[:t]).astype(np.int32))[None]
+            last, _ = m2.prefill_fn(c2, {"tokens": seq, "frames": frames[i:i + 1].cpu()},
+                                    m2.init_cache_fn(1, 128, torch.float32, "cpu"))
+            top = torch.topk(last[0], 2).values
+            parted.append({"request": i, "step": t, "margin": float(top[0] - top[1]),
+                           "tolerance": TOL_LM_CPU * float(last.abs().max())})
+    line = {"phase": "lm audio", "check": "card vs cpu", "arch": cfg.name,
+            "enc_layers": AUDIO_CHECK_LAYERS, "layers": AUDIO_CHECK_LAYERS,
+            "compute_dtype": "float32", "forward_rel_err": forward_err, **diag,
+            "decode_rel_err": decode_err, "tolerance": TOL_LM_CPU,
+            "tokens_equal": [x.out == y.out for x, y in zip(card_out, cpu_out)],
+            "parted": parted, "peak_gb": peak / 1e9,
+            "phase_seconds": time.perf_counter() - phase_t0, "card": card}
+    emit(line)
+    if not (forward_err <= max(TOL_LM_CPU, AUDIO_ROUTE_FACTOR
+                               * diag["reference_route_forward_rel_err"])
+            and decode_err <= TOL_LM_CPU
+            and all(pt["margin"] <= pt["tolerance"] for pt in parted)):
+        raise AssertionError(f"lm audio card vs cpu: {line}")
+    del p2, c2, caches, logits, dec, card_out, cpu_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_flash
+
+
+def lm_spectral_phase(torch, k, card, rows) -> dict:
+    """fourier_lm's forward at full width on the card: each block's mixing
+    planned onto the FFT kernels; returns the kernels' launches of the
+    gated run."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import spectral
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.models.build import build
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.param import param_bytes, tree_map
+    from repro_torch.plan.api import resolve_call
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config(SPECTRAL_ARCH)
+    model = build(cfg)
+    b, s = SPECTRAL_BATCH
+    d = cfg.d_model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = phase_t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"phase": "lm spectral", "call": "init", "arch": cfg.name, "family": cfg.family,
+          "n_params": model.n_params, "param_bytes": param_bytes(model.skeleton),
+          "seconds": time.perf_counter() - t0, "layers": cfg.n_layers, "d_model": d,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "fft_variant": cfg.fft_variant,
+          "compute_dtype": cfg.compute_dtype, "card": card})
+    batch = make_batch(cfg, b, s, 0, device=dev)
+
+    # What one planned fft2 of a (b, s, d) stack launches, by the census.
+    if ops.fft2_fits_budget(s, d):
+        per_mix = {"fft2_fused": 1}
+    elif k.fft2_columns_serves(s):
+        per_mix = {"fft_fused": 1, COLUMNS: 1}
+    else:
+        per_mix = {"fft_fused": 2}
+    expect = {name: cfg.n_layers * n for name, n in per_mix.items()}
+    plan = resolve_call("fft2d", (b, s, d), dev, dtype="complex64").variant
+    with torch.no_grad():
+        # loss_fn and prefill_fn, each with the counts set to 0 just before
+        # and read just after: the census's kernels once a block, no other.
+        seen = {}
+        for name, fn in (("loss_fn", lambda: model.loss_fn(params, batch)[0]),
+                         ("prefill_fn", lambda: model.prefill_fn(params, batch, None)[0])):
+            torch.cuda.synchronize()
+            reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            seen[name] = {n: c for n, c in LAUNCHES.items() if c}
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"lm spectral: {name} is not finite")
+            if name == "loss_fn":
+                loss = float(out)
+            else:
+                last_shape = list(out.shape)
+        emit({"phase": "lm spectral", "call": "launches", "arch": cfg.name, "batch": [b, s],
+              "plan": plan, "per_mixing": per_mix, "expected": expect, **seen,
+              "loss": loss, "prefill_logits": last_shape})
+        if any(got != expect for got in seen.values()) or last_shape != [b, cfg.vocab]:
+            raise AssertionError(f"lm spectral: launched {seen}, the census gives {expect}")
+        launches = dict(seen["prefill_fn"])
+        for name, n in seen["loss_fn"].items():
+            launches[name] += n
+
+        # The forward again with every fused-wrapper call recorded: each
+        # launch held against its plain twin on the same inputs (2e-5) and
+        # timed alone; the forward's time, tokens/s and the kernels' share.
+        tap = KernelTap()
+        try:
+            calls = TappedCalls(torch, k, tap, rows, "lm spectral")
+            _, line = calls("spectral_forward",
+                            lambda: T.spectral_forward(params, batch["tokens"], cfg)[0],
+                            (b, s, d), {"fft2d": plan}, list(expect),
+                            forbid=[n for n in ("fft2_fused", "flash_attention_fwd")
+                                    if n not in expect], reps=3, batches=3)
+        finally:
+            tap.restore()
+        dt = getattr(torch, cfg.compute_dtype)
+        h = rmsnorm(tree_map(lambda w: w[0], params["layers"])["ln1"],
+                    embed(params["embed"], batch["tokens"], dt), cfg.rms_eps)
+        mixing_ms = time_ms(lambda: spectral.fourier_mixing(h, variant=cfg.fft_variant))
+        loss_ms = time_ms(lambda: model.loss_fn(params, batch)[0], reps=3, batches=3)
+        line.update({"arch": cfg.name, "layers": cfg.n_layers, "tokens": b * s,
+                     "tokens_per_s": b * s / (line["ms"] / 1e3), "loss_ms": loss_ms,
+                     "mixing_ms": mixing_ms,
+                     "mixing_share": cfg.n_layers * mixing_ms / line["ms"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+        emit(line)
+        for kn in line["kernels"]:
+            rows[kn["kernel"]].setdefault("by_case", {})[
+                f"{cfg.name} mixing {tuple(kn['shape'])}"] = {
+                    "shape": kn["shape"], "ms": kn["ms"], "rel_err": kn["rel_err"],
+                    "launches": expect[kn["kernel"]]}
+        del h
+
+        # The card against the CPU at float32 compute, full depth, the same
+        # weights, on the first SPECTRAL_CHECK_BATCH sequences (the CPU plans
+        # its plain schedules).
+        cfg32 = cfg.scaled(compute_dtype="float32")
+        model32 = build(cfg32)
+        sub = {key: v[:SPECTRAL_CHECK_BATCH] for key, v in batch.items()}
+        cpu_params = tree_map(lambda w: w.cpu(), params)
+        logits, _, _ = T.spectral_forward(params, sub["tokens"], cfg32)
+        ref, _, _ = T.spectral_forward(cpu_params, sub["tokens"].cpu(), cfg32)
+        bf16, _, _ = T.spectral_forward(params, sub["tokens"], cfg)
+        card_loss = float(model32.loss_fn(params, sub)[0])
+        cpu_loss = float(model32.loss_fn(cpu_params, {key: v.cpu() for key, v in sub.items()})[0])
+        line = {"phase": "lm spectral", "check": "card vs cpu", "arch": cfg.name,
+                "layers": cfg.n_layers, "batch": [SPECTRAL_CHECK_BATCH, s],
+                "compute_dtype": "float32", "logits_rel_err": rel_err(logits.cpu(), ref),
+                "max_abs_logit": float(ref.abs().max()),
+                "loss": card_loss, "cpu_loss": cpu_loss,
+                "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+                "tolerance": TOL_LM_CPU, "bf16_vs_cpu_float32_rel_err": rel_err(bf16.cpu(), ref),
+                "phase_seconds": time.perf_counter() - phase_t0, "card": card}
+        emit(line)
+        if not (line["logits_rel_err"] <= TOL_LM_CPU and line["loss_rel_err"] <= TOL_LM_CPU):
+            raise AssertionError(f"lm spectral card vs cpu: {line}")
+    del params, cpu_params, batch, logits, ref, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def no_degrade(trace, phase: str, ops) -> None:
@@ -4536,8 +4997,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
     print(card, flush=True)
 
-    # One capture over the kernel, request, imaging, mri, stream, serve, pencil, lm and lm
-    # state phases:
+    # One capture over the kernel, request, imaging, mri, stream, serve, pencil, lm, lm
+    # state, lm audio and lm spectral phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -4569,6 +5030,11 @@ def main() -> int:
         no_degrade(trace, "lm", ops)
         state_launches = lm_state_phase(torch, card, rows)
         no_degrade(trace, "lm state", ops)
+        state_launches["flash_attention_fwd"] += lm_audio_phase(torch, card, rows)
+        no_degrade(trace, "lm audio", ops)
+        for name, n in lm_spectral_phase(torch, k, card, rows).items():
+            launches[name] += n
+        no_degrade(trace, "lm spectral", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()

@@ -23,6 +23,12 @@
 // nearest as cvt.rna does: small then carries the difference exactly, the
 // error is of the same size, and the split, which runs once for every
 // fragment element a warp reads, costs two instructions instead of four.
+// The output accumulator takes each 8-key slice's three products as one
+// sum from zero, added on the CUDA cores (mma_split_add): chained through
+// the tensor core over every slice, it drifted with the core's truncation
+// to 1.8e-5 of max|out| over 1500 keys (5.4e-6 so; on an H100, 4-7% more
+// time at llama's and zamba2's shapes, 2% at whisper's encoder, none at
+// its cross-attention: tools/flash_ab.py).
 // The least time for the work is the flops over a third of the dense TF32
 // rate (495 / 3 = 165 TFLOP/s on an H100 SXM): 0.625 ms for llama3.2-3b's
 // 24 heads of 4096 causal tokens.
@@ -133,6 +139,22 @@ __device__ __forceinline__ void mma_split(float (&c)[4], const uint32_t (&a_big)
   mma_tf32(c, a_small, b_big[0], b_big[1]);
   mma_tf32(c, a_big, b_small[0], b_small[1]);
   mma_tf32(c, a_big, b_big[0], b_big[1]);
+}
+
+// c += a * b as mma_split takes it, but the three products summed from
+// zero and that sum added to c on the CUDA cores, rounded to nearest. The
+// tensor core truncates as it adds into its accumulator, so the output
+// accumulator, chained through every 8-key slice of the keys, drifted by
+// that bias: 1.1e-5 to 1.8e-5 of max|out| over whisper's 1500 keys, where
+// the plain version is 3e-7 to 2e-6 from float64.
+__device__ __forceinline__ void mma_split_add(float (&c)[4], const uint32_t (&a_big)[4],
+                                              const uint32_t (&a_small)[4],
+                                              const uint32_t (&b_big)[2],
+                                              const uint32_t (&b_small)[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_split(part, a_big, a_small, b_big, b_small);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += part[e];
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
@@ -404,7 +426,7 @@ flash_attention_kernel(const float* __restrict__ q,
           split(vb[ldv + 8 * n], b_big[1], b_small[1]);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma_split(acc[mt][n], p_big[mt], p_small[mt], b_big, b_small);
+            mma_split_add(acc[mt][n], p_big[mt], p_small[mt], b_big, b_small);
         }
       }
     }

@@ -5,11 +5,14 @@ Port of ``repro.launch.serve``, with ``--device`` (default ``cuda``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --batch 4 --prompt-len 16 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Every family ``build`` serves goes through the same path (dense, vlm,
-ssm, hybrid). Weights are random, drawn on the device from a generator
-seeded 0.
+ssm, hybrid, audio: whisper's lane batches carry ``frames_for`` frame
+embeddings for the encoder). A model with no decode step (the spectral
+fourier_lm) exits. Weights are random, drawn on the device from a
+generator seeded 0.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ def main(argv=None):
     import torch
 
     from repro_torch.configs.registry import get_config, smoke_config
-    from repro_torch.data.pipeline import patches_for
+    from repro_torch.data.pipeline import frames_for, patches_for
     from repro_torch.models.build import build
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -48,6 +51,8 @@ def main(argv=None):
         model, params, batch=args.batch, max_len=args.max_len, dtype=torch.float32
     )
     extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = frames_for(cfg, args.batch, 0, device=device)
     if cfg.family == "vlm":
         extras["patches"] = patches_for(cfg, args.batch, 0, device=device)
 

@@ -23,8 +23,13 @@ attention, a ring buffer (size = window) for sliding-window attention.
 Caches are written in place (:func:`_cache_insert`), where the reference
 returns new arrays (ROADMAP, divergence 14).
 
-Cross-attention (audio), MLA (moe) and ``flash_attention_cp`` (sharding)
-come with the slices that need them.
+Cross-attention (the audio family's decoder over the encoder output) runs
+:func:`flash_attention` non-causally, in prefill and in every decode step
+alike, as the reference's does: on the card each call launches
+``flash_attention_fwd`` (ROADMAP, divergence 17).
+
+MLA (moe) and ``flash_attention_cp`` (sharding) come with the slices that
+need them.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ from repro_torch.models.param import ParamDef, _device
 
 __all__ = [
     "NEG_INF",
+    "cross_attn_apply",
+    "cross_attn_skel",
+    "cross_kv",
     "decode_attention",
     "flash_attention",
     "flash_attention_blocks",
@@ -256,3 +264,46 @@ def gqa_apply(p: dict, x, cfg: ModelConfig, *, positions, causal: bool = True,
     h, dh, d = p["wo"].shape
     y = torch.matmul(out.reshape(*out.shape[:2], h * dh), p["wo"].to(dt).reshape(h * dh, d))
     return y, new_cache
+
+
+# ------------------------- cross attention -------------------------
+
+def cross_attn_skel(cfg: ModelConfig) -> dict:
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, h, dh), ("embed", "heads", "head_dim")),
+        "wv": ParamDef((d, h, dh), ("embed", "heads", "head_dim")),
+        "wo": ParamDef((h, dh, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def _project_promoted(x, w, dt):
+    """einsum("btd,dhk->bthk", x, w.astype(dt)) with JAX's promotion: the
+    product runs in the wider of x's dtype and ``dt``."""
+    pt = torch.promote_types(x.dtype, dt)
+    return _project(x.to(pt), w.to(dt).to(pt))
+
+
+def cross_attn_apply(p: dict, x, enc_kv, cfg: ModelConfig):
+    """x: (B, S, D); enc_kv: precomputed (k, v), each (B, T, H, Dh), or the
+    encoder output (B, T, D). Full (non-causal) attention over the T
+    encoder positions through :func:`flash_attention`."""
+    dt = x.dtype
+    q = _project(x, p["wq"].to(dt))
+    if isinstance(enc_kv, tuple):
+        k, v = enc_kv
+    else:
+        k = _project_promoted(enc_kv, p["wk"], dt)
+        v = _project_promoted(enc_kv, p["wv"], dt)
+    out = flash_attention(q, k, v, causal=False, block_q=cfg.attn_block_q,
+                          block_k=min(cfg.attn_block_k, k.shape[1]))
+    h, dh, d = p["wo"].shape
+    return torch.matmul(out.reshape(*out.shape[:2], h * dh), p["wo"].to(dt).reshape(h * dh, d))
+
+
+def cross_kv(p: dict, enc_out, dtype):
+    """The cross-attention's k, v (B, T, H, Dh) of the encoder output, in
+    ``dtype``."""
+    enc = enc_out.to(dtype)
+    return _project(enc, p["wk"].to(dtype)), _project(enc, p["wv"].to(dtype))

@@ -2,8 +2,11 @@
 
 Port of ``repro.models.build``. The serving layer only ever talks to a
 ``Model``. ``build`` serves the dense and vlm families (``lm_forward``),
-the hybrid family (``hybrid_forward``, zamba2) and the ssm family
-(``xlstm_forward``); every other family raises ``NotImplementedError``
+the hybrid family (``hybrid_forward``, zamba2), the ssm family
+(``xlstm_forward``) and the audio family (``encdec_forward``, whisper: a
+prefill runs the encoder on ``batch["frames"]``), and builds the spectral
+family (``spectral_forward``, fourier_lm: a masked LM with a loss and a
+prefill, no decode step); the moe family raises ``NotImplementedError``
 naming its ROADMAP item.
 """
 
@@ -22,11 +25,7 @@ from repro_torch.models.param import abstract_params, init_params, param_count
 __all__ = ["Model", "build"]
 
 #: ROADMAP queue 1, item 12's sub-item that ports each family still missing.
-PENDING = {
-    "moe": "12 (c)",
-    "audio": "12 (e)",
-    "spectral": "12 (f)",
-}
+PENDING = {"moe": "12 (c)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +80,47 @@ def _lm_like(cfg: ModelConfig, forward, skel, init_cache):
     return Model(cfg, skel, loss_fn, prefill_fn, decode_fn, init_cache)
 
 
+def _encdec(cfg: ModelConfig) -> Model:
+    """Bundle for the encoder-decoder (audio): prefill runs the encoder on
+    ``batch["frames"]`` and fills the cross K/V caches; decode reads them."""
+
+    def loss_fn(params, batch):
+        logits, _, _ = T.encdec_forward(params, batch["tokens"], cfg, frames=batch["frames"])
+        loss = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+        return loss, {"xent": loss, "loss": loss}
+
+    def prefill_fn(params, batch, caches):
+        enc_out = T.encoder_forward(params, batch["frames"], cfg)
+        logits, caches, _ = T.encdec_forward(params, batch["tokens"], cfg, enc_out=enc_out,
+                                             caches=caches)
+        return logits[:, -1], caches
+
+    def decode_fn(params, token, pos, caches, extras=None):
+        logits, caches, _ = T.encdec_forward(params, token, cfg, pos0=pos, caches=caches,
+                                             decode=True)
+        return logits[:, -1], caches
+
+    def init_cache(batch, max_len, dtype=torch.bfloat16, device=None):
+        return T.encdec_init_cache(cfg, batch, max_len, dtype, device)
+
+    return Model(cfg, T.encdec_skel(cfg), loss_fn, prefill_fn, decode_fn, init_cache)
+
+
+def _spectral(cfg: ModelConfig) -> Model:
+    """FNet-style masked LM (bidirectional mixing, so no causal decode)."""
+
+    def loss_fn(params, batch):
+        logits, _, _ = T.spectral_forward(params, batch["tokens"], cfg)
+        loss = softmax_xent(logits, batch.get("targets", batch["tokens"]), batch.get("mlm_mask"))
+        return loss, {"xent": loss, "loss": loss}
+
+    def prefill_fn(params, batch, caches):
+        logits, _, _ = T.spectral_forward(params, batch["tokens"], cfg)
+        return logits[:, -1], caches
+
+    return Model(cfg, T.spectral_skel(cfg), loss_fn, prefill_fn, None, None)
+
+
 def build(cfg: ModelConfig) -> Model:
     if cfg.family in ("dense", "vlm"):
         return _lm_like(
@@ -101,6 +141,10 @@ def build(cfg: ModelConfig) -> Model:
             lambda b, s, dtype=torch.float32, device=None: T.xlstm_init_cache(
                 cfg, b, s, dtype, device),
         )
+    if cfg.family == "audio":
+        return _encdec(cfg)
+    if cfg.family == "spectral":
+        return _spectral(cfg)
     if cfg.family in PENDING:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "

@@ -3,14 +3,18 @@
 Port of ``repro.models.transformer``: the pre-norm GQA decoder (dense
 and vlm families; vlm prepends the stub frontend's patch embeddings), the
 hybrid stack (zamba2: Mamba2 layers with one shared attention block
-re-invoked every k layers) and the xLSTM stack (alternating mLSTM and
-sLSTM blocks). Layer weights are stacked along a leading layer axis, as in
-the reference, whose ``lax.scan`` over them becomes a loop over the layer
-index here; a stacked cache is walked the same way, each layer writing
-its new cache or state into its slice, a view of the stacked tensors.
+re-invoked every k layers), the xLSTM stack (alternating mLSTM and sLSTM
+blocks), the encoder-decoder (audio: whisper's encoder over precomputed
+frame embeddings, a decoder with self- and cross-attention) and the
+spectral stack (fourier_lm: FNet blocks whose token mixing is Re(FFT2)
+through ``repro_torch.core.spectral.fourier_mixing``). Layer weights are
+stacked along a leading layer axis, as in the reference, whose
+``lax.scan`` over them becomes a loop over the layer index here; a
+stacked cache is walked the same way, each layer writing its new cache or
+state into its slice, a view of the stacked tensors.
 
-The moe block, ``mtp_logits`` and the encoder-decoder and spectral stacks
-come with their slices (ROADMAP, queue 1, item 12).
+The moe block and ``mtp_logits`` come with their slice (ROADMAP, queue 1,
+item 12 (c)).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.spectral import fourier_mixing
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -40,6 +45,12 @@ from repro_torch.models.param import ParamDef, _device, stack_skeleton, tree_lea
 __all__ = [
     "decoder_block_apply",
     "decoder_block_skel",
+    "encdec_block_apply",
+    "encdec_forward",
+    "encdec_init_cache",
+    "encdec_skel",
+    "encoder_block_apply",
+    "encoder_forward",
     "hybrid_forward",
     "hybrid_init_cache",
     "hybrid_skel",
@@ -48,6 +59,8 @@ __all__ = [
     "lm_skel",
     "rmsnorm_like",
     "shared_block_apply",
+    "spectral_forward",
+    "spectral_skel",
     "xlstm_forward",
     "xlstm_init_cache",
     "xlstm_skel",
@@ -329,3 +342,172 @@ def xlstm_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.flo
         "mlstm": _stacked(xlstm_mod.mlstm_state(cfg, batch, device=device), n_pairs),
         "slstm": _stacked(xlstm_mod.slstm_state(cfg, batch, device=device), n_pairs),
     }
+
+
+# ------------------------------ audio (whisper) ------------------------------
+
+def encdec_skel(cfg: ModelConfig) -> dict:
+    enc_block = {
+        "ln1": rmsnorm_skel(cfg.d_model),
+        "attn": attn.gqa_skel(cfg),
+        "ln2": rmsnorm_skel(cfg.d_model),
+        "mlp": mlp_skel(cfg.d_model, cfg.d_ff, "gelu"),
+    }
+    dec_block = {
+        "ln1": rmsnorm_skel(cfg.d_model),
+        "attn": attn.gqa_skel(cfg),
+        "lnx": rmsnorm_skel(cfg.d_model),
+        "xattn": attn.cross_attn_skel(cfg),
+        "ln2": rmsnorm_skel(cfg.d_model),
+        "mlp": mlp_skel(cfg.d_model, cfg.d_ff, "gelu"),
+    }
+    return {
+        "embed": embedding_skel(cfg.vocab, cfg.d_model),
+        "enc_norm": rmsnorm_skel(cfg.d_model),
+        "final_norm": rmsnorm_skel(cfg.d_model),
+        "unembed": unembed_skel(cfg.vocab, cfg.d_model),
+        "enc_layers": stack_skeleton(enc_block, cfg.n_enc_layers or cfg.n_layers),
+        "dec_layers": stack_skeleton(dec_block, cfg.n_layers),
+    }
+
+
+def _positions(b: int, s: int, pos0: int, device):
+    return (pos0 + torch.arange(s, dtype=torch.int32, device=device))[None, :].expand(b, s)
+
+
+def encoder_forward(params, frames, cfg: ModelConfig):
+    """frames: (B, T, D), the stub frontend's precomputed frame embeddings.
+    Pre-norm blocks of full (non-causal) self-attention with RoPE over the
+    T positions, then the encoder's final norm."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = frames.to(dt)
+    b, t, _ = x.shape
+    positions = _positions(b, t, 0, x.device)
+    layers = params["enc_layers"]
+    for i in range(cfg.n_enc_layers or cfg.n_layers):
+        x = encoder_block_apply(tree_map(lambda w: w[i], layers), x, cfg, positions=positions)
+    return rmsnorm(params["enc_norm"], x, cfg.rms_eps)
+
+
+def encoder_block_apply(p, x, cfg: ModelConfig, *, positions):
+    """One encoder block: pre-norm non-causal self-attention, then the MLP."""
+    a, _ = attn.gqa_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.rms_eps), cfg,
+                          positions=positions, causal=False)
+    x = x + a
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps), "gelu")
+
+
+def encdec_block_apply(p, x, cross, cfg: ModelConfig, *, positions, cache=None,
+                       decode: bool = False, pos: int = 0):
+    """One decoder block: pre-norm causal self-attention (``cache`` written
+    in place), cross-attention over ``cross`` (the (k, v) pair or the
+    encoder output), then the MLP."""
+    a, _ = attn.gqa_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.rms_eps), cfg,
+                          positions=positions, cache=cache, decode=decode, pos=pos)
+    x = x + a
+    x = x + attn.cross_attn_apply(p["xattn"], rmsnorm(p["lnx"], x, cfg.rms_eps), cross, cfg)
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps), "gelu")
+
+
+def _fit_cross(stacked: dict, frames: int) -> None:
+    """Give the stacked cross K/V buffers ``frames`` positions: a prefill
+    over another number of encoder frames than the cache was made for
+    replaces them (in the caller's dict), as the reference's prefill
+    returns cross K/V of any length."""
+    for key in ("cross_k", "cross_v"):
+        buf = stacked[key]
+        if buf.shape[2] != frames:
+            stacked[key] = buf.new_zeros((*buf.shape[:2], frames, *buf.shape[3:]))
+
+
+def encdec_forward(params, tokens, cfg: ModelConfig, *, frames=None, enc_out=None, pos0=0,
+                   caches=None, decode=False, **_):
+    """Decoder forward; returns (logits, caches, aux). ``enc_out`` (or
+    ``frames``, run through :func:`encoder_forward`) feeds every layer's
+    cross-attention. With caches, a prefill writes each layer's cross K/V
+    into them and a decode step reads them back, cast to the compute
+    dtype: the buffers hold at least that precision (``encdec_init_cache``),
+    so the round trip is exact and decode reads the values the
+    reference's prefill returns (ROADMAP, divergence 16)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    if enc_out is None and frames is not None:
+        enc_out = encoder_forward(params, frames, cfg)
+    x = embed(params["embed"], tokens, dt)
+    b, s, _ = x.shape
+    pos0 = int(pos0)
+    positions = _positions(b, s, pos0, x.device)
+
+    stacked = caches["dec"] if caches is not None else None
+    if stacked is not None and not decode:
+        _fit_cross(stacked, enc_out.shape[1])
+    layers = params["dec_layers"]
+    for i in range(cfg.n_layers):
+        p_l = tree_map(lambda w: w[i], layers)
+        c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
+        if c_l is not None and decode:
+            kx, vx = c_l["cross_k"].to(dt), c_l["cross_v"].to(dt)
+        else:
+            kx, vx = attn.cross_kv(p_l["xattn"], enc_out, dt)
+            if c_l is not None:
+                c_l["cross_k"].copy_(kx)
+                c_l["cross_v"].copy_(vx)
+        x = encdec_block_apply(p_l, x, (kx, vx), cfg, positions=positions,
+                               cache=c_l["self"] if c_l is not None else None,
+                               decode=decode, pos=pos0)
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return (unembed(params["unembed"], x), caches,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                      device=None):
+    """Every decoder layer's self-attention KV cache in ``dtype`` and its
+    cross K/V over ``cfg.enc_frames`` positions, zeros, along a leading
+    layer axis. The cross K/V are held in the wider of ``dtype`` and the
+    compute dtype (the reference's prefill returns them in the compute
+    dtype whatever ``dtype`` is)."""
+    device = _device(device)
+    cross = torch.promote_types(dtype, getattr(torch, cfg.compute_dtype))
+    shape = (batch, cfg.enc_frames, cfg.n_heads, cfg.resolved_head_dim)
+    per_layer = {
+        "self": attn.make_cache(cfg, batch, max_len, dtype, device),
+        "cross_k": torch.zeros(shape, dtype=cross, device=device),
+        "cross_v": torch.zeros(shape, dtype=cross, device=device),
+    }
+    return {"dec": _stacked(per_layer, cfg.n_layers)}
+
+
+# ----------------------------- spectral (fourier) -----------------------------
+
+def spectral_skel(cfg: ModelConfig) -> dict:
+    block = {
+        "ln1": rmsnorm_skel(cfg.d_model),
+        "ln2": rmsnorm_skel(cfg.d_model),
+        "mlp": mlp_skel(cfg.d_model, cfg.d_ff, "gelu"),
+    }
+    return {
+        "embed": embedding_skel(cfg.vocab, cfg.d_model),
+        "final_norm": rmsnorm_skel(cfg.d_model),
+        "unembed": unembed_skel(cfg.vocab, cfg.d_model),
+        "layers": stack_skeleton(block, cfg.n_layers),
+    }
+
+
+def spectral_forward(params, tokens, cfg: ModelConfig, **_):
+    """FNet-style encoder LM; returns (logits, None, aux). Each block's
+    token mixing is Re(FFT2) over (seq, d_model) under ``cfg.fft_variant``
+    (``"auto"`` plans it through ``repro_torch.xfft``: on the card the FFT
+    kernels). Both axes must be powers of two: as in the reference, the
+    sequence is not padded here (``seq_pad_to_pow2`` is the caller's)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = embed(params["embed"], tokens, dt)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        p_l = tree_map(lambda w: w[i], layers)
+        h = rmsnorm(p_l["ln1"], x, cfg.rms_eps)
+        x = x + fourier_mixing(h, variant=cfg.fft_variant)
+        h = rmsnorm(p_l["ln2"], x, cfg.rms_eps)
+        x = x + mlp(p_l["mlp"], h, "gelu")
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return unembed(params["unembed"], x), None, torch.zeros((), dtype=torch.float32,
+                                                             device=x.device)

@@ -356,7 +356,14 @@ FLASH_CASES = [
     (2, 100, 77, 64, 256, True, None, 256, 512),  # Dv 256: 32-key tiles, ragged Sk
     (2, 300, 333, 128, 128, True, 100, 128, 128),  # Sk not a multiple of 64, window
     (300, 70, 70, 32, 32, True, None, 64, 64),  # BH over 132 SMs: blocks queue
+    # whisper-medium (16 heads of 64, batch 4, 1500 encoder frames, blocks
+    # 512 / min(1024, Sk)): the encoder's self-attention, a 16-token
+    # prefill's cross-attention and a decode step's
+    (64, 1500, 1500, 64, 64, False, None, 512, 1024),
+    (64, 16, 1500, 64, 64, False, None, 512, 1024),
+    (64, 1, 1500, 64, 64, False, None, 512, 1024),
 ]
+WHISPER_FLASH_CASES = FLASH_CASES[-3:]
 
 
 @pytest.mark.cuda
@@ -373,6 +380,30 @@ def test_cuda_flash_attention_matches_plain(cuda):
         assert got.shape == (bh, sq, dv)
         assert _rel(got, ref) <= TOL, (bh, sq, sk, d, dv, causal, window)
     assert k.LAUNCHES["flash_attention_fwd"] == len(FLASH_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WHISPER_FLASH_CASES, ids=str)
+def test_cuda_flash_attention_at_whisper_shapes_matches_float64(cuda, case):
+    """D 64 against 1500 keys (not a multiple of the kernel's 32-key tile,
+    nor of the reference's 1024-key block): the kernel and its plain version
+    each within 2e-5 of ``mha_reference`` in float64, one launch. Its output
+    accumulator chained through the tensor core over all 188 key slices
+    drifted to 1.8e-5 of float64 here; it now adds each slice's sum on the
+    CUDA cores."""
+    bh, sq, sk, d, dv, causal, window, bq, bk = case
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn(bh, sq, d, generator=g, device=cuda)
+    kk = torch.randn(bh, sk, d, generator=g, device=cuda)
+    v = torch.randn(bh, sk, dv, generator=g, device=cuda)
+    opts = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+    k.reset_launches()
+    got = fa.flash_attention_fwd(q, kk, v, **opts)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention_fwd"] == 1 and got.shape == (bh, sq, dv)
+    exact = fa.mha_reference(q.double(), kk.double(), v.double(), causal=causal, window=window)
+    assert _rel(got.double(), exact) <= TOL
+    assert _rel(fa.flash_attention_plain(q, kk, v, **opts).double(), exact) <= TOL
 
 
 @pytest.mark.cuda
@@ -1255,3 +1286,118 @@ def test_cuda_recurrent_lm_smoke_matches_the_cpu(cuda, arch):
         d, caches = model.decode_fn(params, tok, s + i, caches)
         d_ref, cpu_caches = model.decode_fn(cpu_params, tok.cpu(), s + i, cpu_caches)
         assert _rel(d.cpu(), d_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_smoke_launches_flash_in_prefill_and_decode(cuda):
+    """Divergence 17: a whisper prefill launches ``flash_attention_fwd``
+    n_enc + 2 n_layers times (encoder, decoder self- and cross-attention)
+    and each decode step n_layers times (cross-attention, as the
+    reference's decode runs it), nothing else; the logits agree with the
+    CPU's plain twins on the same weights to 1e-4 of their largest value
+    (float32 compute)."""
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda, "whisper-medium")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s = 2, 12
+    toks = torch.randint(0, cfg.vocab, (b, s + 2), generator=g, device=cuda, dtype=torch.int32)
+    frames = torch.randn(b, cfg.enc_frames, cfg.d_model, generator=g, device=cuda)
+    caches = model.init_cache_fn(b, 32, torch.float32, cuda)
+    cpu_caches = model.init_cache_fn(b, 32, torch.float32, "cpu")
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, caches = model.prefill_fn(params, {"tokens": toks[:, :s], "frames": frames}, caches)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        "flash_attention_fwd": cfg.n_enc_layers + 2 * cfg.n_layers}
+    ref, cpu_caches = model.prefill_fn(cpu_params, {"tokens": toks[:, :s].cpu(),
+                                                    "frames": frames.cpu()}, cpu_caches)
+    assert _rel(logits.cpu(), ref) <= 1e-4
+    for i in range(2):
+        reset_launches()
+        d, caches = model.decode_fn(params, toks[:, s + i:s + i + 1], s + i, caches)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == {"flash_attention_fwd": cfg.n_layers}
+        d_ref, cpu_caches = model.decode_fn(cpu_params, toks[:, s + i:s + i + 1].cpu(), s + i,
+                                            cpu_caches)
+        assert _rel(d.cpu(), d_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_serves_the_cpu_tokens_with_frames(cuda):
+    """``ServeEngine`` with frames as extras: the card's tokens are the
+    CPU's on the same weights, queue and frames (float32 compute)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import frames_for
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda, "whisper-medium")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32) for n in (3, 5, 8, 12, 17)]
+    frames = frames_for(cfg, 3, 0, device=cuda)
+
+    def queue():
+        return [Request(prompt=q, max_new=4) for q in prompts]
+
+    got = ServeEngine(model, params, batch=3, max_len=64).serve_queue(
+        queue(), extras={"frames": frames})
+    want = ServeEngine(model, cpu_params, batch=3, max_len=64).serve_queue(
+        queue(), extras={"frames": frames.cpu()})
+    assert [r.out for r in got] == [r.out for r in want]
+
+
+def _mixing_launches(cfg, s):
+    """The FFT kernels one planned fft2 of a (B, S, d_model) frame stack
+    launches at radix 4, from the census: ``fft2_fused`` where the frame
+    fits one block, else the composed route's row ``fft_fused`` and one
+    ``fft2_columns`` (the turn route's row kernel where H > 4096)."""
+    from repro_torch.kernels.fft_radix2 import fft2_columns_serves
+    from repro_torch.kernels.ops import fft2_fits_budget
+
+    if fft2_fits_budget(s, cfg.d_model):
+        return {"fft2_fused": 1}
+    if fft2_columns_serves(s):
+        return {"fft_fused": 1, "fft2_columns": 1}
+    return {"fft_fused": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["smoke", "full"])
+def test_cuda_fourier_lm_mixes_on_the_fft_kernels(cuda, width):
+    """fourier_lm under "auto": every block's Re(FFT2) plans onto the FFT
+    kernels (the smoke model's (16, 32) frames: ``fft2_fused`` once a
+    block; full width, (2048, 512) frames: the composed route, ``fft_fused``
+    and ``fft2_columns`` once a block), no flash attention; the logits
+    agree with the CPU's (plain schedules) on the same weights to 1e-4 of
+    their largest value at float32 compute (the smoke model; at full width
+    the card's launches and finite logits)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models.build import build
+    from repro_torch.models.param import tree_map
+
+    cfg = smoke_config("fourier_lm") if width == "smoke" else get_config("fourier_lm")
+    b, s = (2, 16) if width == "smoke" else (2, 2048)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device=cuda, dtype=torch.int32)
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        loss, _ = model.loss_fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        per_call = {n: cfg.n_layers * c for n, c in _mixing_launches(cfg, s).items()}
+        assert {n: c for n, c in LAUNCHES.items() if c} == per_call
+        assert bool(torch.isfinite(loss))
+        if width == "smoke":
+            reset_launches()
+            last, _ = model.prefill_fn(params, {"tokens": toks}, None)
+            assert {n: c for n, c in LAUNCHES.items() if c} == per_call
+            cpu = tree_map(lambda t: t.cpu(), params)
+            ref, _ = model.prefill_fn(cpu, {"tokens": toks.cpu()}, None)
+            assert _rel(last.cpu(), ref) <= 1e-4
+            ref_loss, _ = model.loss_fn(cpu, {"tokens": toks.cpu()})
+            assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))

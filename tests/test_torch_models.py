@@ -42,7 +42,9 @@ DENSE_AND_VLM = [a for a in reg.ALL_IDS if reg.get_config(a).family in ("dense",
 PORTED = [a for a in reg.ALL_IDS if reg.get_config(a).family not in PENDING]
 #: each ported family's skeleton function in the port and in the reference
 SKELETONS = {"dense": (T.lm_skel, jT.lm_skel), "vlm": (T.lm_skel, jT.lm_skel),
-             "hybrid": (T.hybrid_skel, jT.hybrid_skel), "ssm": (T.xlstm_skel, jT.xlstm_skel)}
+             "hybrid": (T.hybrid_skel, jT.hybrid_skel), "ssm": (T.xlstm_skel, jT.xlstm_skel),
+             "audio": (T.encdec_skel, jT.encdec_skel),
+             "spectral": (T.spectral_skel, jT.spectral_skel)}
 
 
 def _t(a):
@@ -228,6 +230,8 @@ def _batch(cfg, rng, b, s):
     batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((b, cfg.enc_frames, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -267,10 +271,11 @@ def test_prefill_and_decode_logits_match_reference(arch, compute_dtype):
     assert abs(float(loss) - float(jloss)) <= tol * abs(float(jloss))
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "fourier_lm"])
 def test_prefill_then_decode(arch):
     """tests/models/test_arch_smoke.py::test_prefill_then_decode, ported
-    (the dense, vlm, hybrid and ssm families)."""
+    (the dense, vlm, hybrid, ssm and audio families; fourier_lm has no
+    decode step, as in the reference)."""
     cfg = reg.smoke_config(arch)
     model = build(cfg)
     rng = np.random.default_rng(1)
@@ -329,10 +334,12 @@ def test_full_configs_have_exact_assignment_numbers():
 
 @pytest.mark.parametrize("arch", [a for a in reg.ALL_IDS if reg.get_config(a).family in PENDING])
 def test_other_families_raise_naming_their_roadmap_item(arch):
+    """Only the moe family is still to be ported (mixtral-8x22b and
+    deepseek-v3-671b)."""
     cfg = reg.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=r"item 12 \([c-f]\)"):
+    with pytest.raises(NotImplementedError, match=r"item 12 \(c\)"):
         build(cfg)
-    assert PENDING[cfg.family] in {"12 (c)", "12 (e)", "12 (f)"}
+    assert PENDING == {"moe": "12 (c)"}
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])

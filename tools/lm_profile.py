@@ -1,15 +1,21 @@
 """Where the port's LM serving spends its host and card time: one lane
 batch's prefill and one decode step at an architecture's full width
 (``--arch``, default llama3.2-3b; any family ``build`` serves: dense, vlm,
-ssm, hybrid; bf16 compute over float32 weights, random from a seeded
-generator), on one NVIDIA card.
+ssm, hybrid, audio; bf16 compute over float32 weights, random from a
+seeded generator), on one NVIDIA card. whisper's prefill takes
+``frames_for``'s frame embeddings (its encoder runs in every prefill);
+fourier_lm, which has no decode step, gives its forward (``prefill_fn``,
+every block's mixing on the FFT kernels) under ``forward`` instead, its
+sequence a power of two.
 
     python3 tools/lm_profile.py --batch 4 --prompt-lens 16,1024
     python3 tools/lm_profile.py --arch xlstm-350m --batch 4 --prompt-lens 16,1024
+    python3 tools/lm_profile.py --arch whisper-medium --batch 4 --prompt-lens 16,128
+    python3 tools/lm_profile.py --arch fourier_lm --batch 8 --prompt-lens 2048
 
 For each prompt length one JSON line with, for ``prefill`` (``prefill_fn``
 on the batch's prompts) and ``decode`` (``decode_fn`` at the next
-position, after that prefill):
+position, after that prefill), or ``forward``:
 
 - ``host_ms``: host wall time a call takes to return, enqueued and not
   waited for, over 5 back-to-back calls; ``top``: the 12 functions with
@@ -80,6 +86,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import frames_for
     from repro_torch.kernels import _build
     from repro_torch.models.build import build
 
@@ -94,13 +101,20 @@ def main() -> int:
     for s in (int(n) for n in args.prompt_lens.split(",")):
         b = args.batch
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
-        caches = model.init_cache_fn(b, 2 * s, torch.float32, dev)
-        logits, caches = model.prefill_fn(params, {"tokens": toks}, caches)
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        calls = {
-            "prefill": lambda: model.prefill_fn(params, {"tokens": toks}, caches),
-            "decode": lambda: model.decode_fn(params, tok, s, caches),
-        }
+        batch = {"tokens": toks}
+        if cfg.family == "audio":
+            batch["frames"] = frames_for(cfg, b, 0, device=dev)
+        if model.decode_fn is None:
+            caches = None
+            calls = {"forward": lambda: model.prefill_fn(params, batch, None)}
+        else:
+            caches = model.init_cache_fn(b, 2 * s, torch.float32, dev)
+            logits, caches = model.prefill_fn(params, batch, caches)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            calls = {
+                "prefill": lambda: model.prefill_fn(params, batch, caches),
+                "decode": lambda: model.decode_fn(params, tok, s, caches),
+            }
         line = {"arch": cfg.name, "batch": b, "prompt_len": s, "compute_dtype": cfg.compute_dtype}
         for name, fn in calls.items():
             host_us, top = host(torch, fn, 1, calls=5)
@@ -113,7 +127,7 @@ def main() -> int:
                           "top": [dict(row, own_us_per_call=row.pop("own_us_per_step"),
                                        calls_per_call=row.pop("calls_per_step")) for row in top]}
         print(json.dumps(line), flush=True)
-        del caches, logits
+        del caches, calls
         torch.cuda.empty_cache()
     return 0
 

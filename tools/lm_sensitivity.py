@@ -2,12 +2,14 @@
 
     PYTHONPATH=src python tools/lm_sensitivity.py --arch xlstm-350m --layers 2,24
     PYTHONPATH=src python tools/lm_sensitivity.py --arch zamba2-2.7b --layers 6 --device cpu
+    python tools/lm_sensitivity.py --arch whisper-medium --layers 2,24 --device cuda
 
 For each depth: the architecture's full-width config cut to that many
-layers, at float32 compute, weights from a generator seeded 0, 2 prompts
-of 16 tokens; the embedding table multiplied by (1 + eps N(0, 1)) for
-each ``--eps``; one JSON line with the change of the last position's
-logits relative to their largest value. A change of 1e-7 is a float32
+layers (whisper: that many encoder and decoder layers, on ``frames_for``'s
+frames), at float32 compute, weights from a generator seeded 0, 2 prompts
+of 16 tokens; the embedding table (whisper: the frames) multiplied by
+(1 + eps N(0, 1)) for each ``--eps``; one JSON line with the change of the
+last position's logits relative to their largest value. A change of 1e-7 is a float32
 rounding: where it moves the logits by more than a gate, two evaluations
 that round in different places (two products of other shapes, a kernel
 and its plain version) cannot be held to that gate at that depth.
@@ -34,28 +36,40 @@ def main() -> int:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import frames_for
     from repro_torch.models import transformer as T
     from repro_torch.models.build import build
 
     dev = torch.device(args.device)
     for layers in (int(n) for n in args.layers.split(",")):
         cfg = get_config(args.arch).scaled(n_layers=layers, compute_dtype="float32")
-        forward = {"ssm": T.xlstm_forward, "hybrid": T.hybrid_forward}.get(cfg.family,
-                                                                         T.lm_forward)
+        if cfg.family == "audio":
+            cfg = cfg.scaled(n_enc_layers=layers)
         params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
         toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
                                 .astype(np.int32)).to(dev)
-        base = forward(params, toks, cfg)[0][:, -1]
-        table = params["embed"]["table"].clone()
-        noise = torch.randn(table.shape, generator=torch.Generator(device=dev).manual_seed(9),
+        if cfg.family == "audio":
+            # the perturbed input is the frames, the encoder's embeddings
+            frames = frames_for(cfg, 2, 0, device=dev)
+
+            def forward(x):
+                return T.encdec_forward(params, toks, cfg, frames=x)[0][:, -1]
+        else:
+            frames = params["embed"]["table"].clone()
+            lm = {"ssm": T.xlstm_forward, "hybrid": T.hybrid_forward}.get(cfg.family,
+                                                                        T.lm_forward)
+
+            def forward(x):
+                params["embed"]["table"] = x
+                return lm(params, toks, cfg)[0][:, -1]
+        base = forward(frames)
+        noise = torch.randn(frames.shape, generator=torch.Generator(device=dev).manual_seed(9),
                             device=dev)
         line = {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
                 "device": str(dev), "change": {}}
         for eps in (float(e) for e in args.eps.split(",")):
-            params["embed"]["table"] = table * (1 + eps * noise)
-            out = forward(params, toks, cfg)[0][:, -1]
+            out = forward(frames * (1 + eps * noise))
             line["change"][str(eps)] = float((out - base).abs().max() / base.abs().max())
-        params["embed"]["table"] = table
         print(json.dumps(line), flush=True)
         del params
     return 0
