@@ -291,9 +291,26 @@ Phases, each printing one JSON line:
              kernels' and the mixing calls' share; card against CPU at
              float32, full depth, 2 sequences (logits and loss, 1e-3).
              Its launches count toward the ``kernels`` line;
+7g. lm moe — the moe family at full width, cut in depth (see MOE_ARCHS):
+             mixtral-8x22b (2 layers, a window of 4096, 8 experts top-2)
+             on the launcher's queue and 2 x 8192 tokens past its window,
+             then deepseek-v3-671b (1 dense + 1 moe MLA layer, 256 bf16
+             routed experts top-8 and one shared, the MTP head) on the
+             launcher's queue and 4 x 1024, and its ``loss_fn`` on (2,
+             1024): ``flash_attention_fwd`` once a layer a prefill (the
+             MTP block once more), never on a decode step, no other
+             kernel; the kernel at each lane's shape (Gaussian operands
+             2e-5, layer 0's own against float64); the timed serve
+             (tokens/s, prefill and decode ms, the kernel's and the moe
+             block's share, peak memory, the share of assignments the
+             prefills dropped at capacity factor 1.25); decode against
+             the prefill of s + 1 (bf16 printed; float32 with nothing
+             dropped, 2e-3); a depth-cut copy (deepseek's also cut to 32
+             routed experts) card against CPU at float32 (1e-3, tokens,
+             expert ids). Its launches count toward the ``kernels`` line;
    After each of the kernel, request, imaging, mri, stream, serve, pencil,
-   lm, lm state, lm audio and lm spectral phases (one ``obs.capture()``
-   around the eleven) a
+   lm, lm state, lm audio, lm spectral and lm moe phases (one
+   ``obs.capture()`` around the twelve) a
    ``"check": "no degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
    ``plan.degrade`` event, no MEASURE candidate skipped, and
    ``kernel.failover`` (the composed 2D route) only on frames over the
@@ -701,6 +718,45 @@ AUDIO_ROUTE_FACTOR = 2.0
 # composed route (fft_fused rows, fft2_columns) by the census. Card against
 # CPU at float32 compute, full depth, on the batch's first
 # SPECTRAL_CHECK_BATCH sequences, within TOL_LM_CPU.
+# The moe lm phase: the moe family at full width on one card, cut
+# in depth (neither fits whole: mixtral-8x22b 140.6 B parameters,
+# deepseek-v3-671b 671.7 B). mixtral: 2 layers of GQA (48 heads of 128, 8
+# kv heads, a sliding window of 4096 with its ring cache) and 8 experts of
+# 16384 top-2, vocab 32768: 5.41 B parameters, float32 weights. deepseek: 1
+# dense MLA layer (d_ff 18432) and 1 MLA layer with 256 routed experts
+# (top-8) of 2048 and one shared, the MTP head, vocab 129280: 14.63 B, the
+# routed experts held and drawn in bf16 (``moe.with_expert_dtype``: the
+# reference casts them to the bf16 compute dtype before every product, so
+# these are its products of float32 weights rounded once; 22.5 GB, not
+# 45), every other leaf float32. bf16 compute, weights from a seeded card
+# generator. (arch, layers, leading dense layers, bf16 experts, queues as
+# LM_QUEUES, (s, rows) of the float32 decode-vs-prefill gate on the served
+# weights, the check copy's (layers, dense layers, routed experts)).
+# mixtral's window lane: 2 prompts of 8192 (a multiple of the window, so
+# the first decode step evicts the oldest slot; see
+# test_ring_decode_after_a_prefill_past_the_window_keeps_the_reference_slots).
+MOE_ARCHS = (
+    ("mixtral-8x22b", 2, 0, False,
+     (("launcher", 8, 16, 4, 16, 128), ("window lane", 2, 8192, 2, 16, 8208)),
+     ((16, 4), (8192, 1)), (1, 0, None)),
+    ("deepseek-v3-671b", 2, 1, True,
+     (("launcher", 8, 16, 4, 16, 128), ("long prompts", 4, 1024, 4, 16, 1040)),
+     (), (2, 1, 32)),
+)
+# deepseek's loss_fn once on (2, 1024) tokens under no_grad: the two layers,
+# then the MTP block, each one flash_attention_fwd.
+MOE_LOSS_BATCH = (2, 1024)
+# Decode against the prefill of s + 1 is gated (float32, TOL_LM_F32_GOLDEN)
+# at capacity factor E / k, where a row's capacity is S and nothing is
+# dropped: at the configs' 1.25 a prefill drops over-capacity assignments
+# and a decode step never does, so the two are different functions (printed
+# at bf16 only). deepseek's gate runs on the check copy (float32 compute on
+# its served weights would cast the bf16 experts to a 45 GB float32 copy):
+# lanes s 16 (4 rows) and 1024 (2 rows). Card against CPU on the check copy
+# at float32: logits within TOL_LM_CPU, tokens equal wherever the CPU's
+# top-2 margin exceeds it, and every moe layer's expert ids equal the
+# CPU's unless the CPU's score margin at the k-th expert is 0 (a tie).
+MOE_CHECK_GOLDEN = ((16, 4), (1024, 2))
 SPECTRAL_ARCH = "fourier_lm"
 SPECTRAL_BATCH = (8, 2048)
 SPECTRAL_CHECK_BATCH = 2
@@ -3842,60 +3898,92 @@ def slstm_model_case(torch, card, rows, cfg, params, toks, launches: int):
     return line["ms"]
 
 
-def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launches: int,
-                     lane: str, causal: bool = True):
-    """flash_attention_fwd at a prefill's shape (B·H, S, D) (cross-attention:
-    Sq queries against Sk keys), as the card route calls it (q scaled first,
-    scale 1, the config's blocks): seeded Gaussian operands (k and v from
-    cfg's kv heads) against its plain version at 2e-5, and the model's own
-    q, k, v (``qkv``, (B, S, H, D), rotated where the model rotates them)
-    against float64, within LM_FLOAT64_FACTOR of the plain version's
-    distance; timed beside its plain version and SDPA. One line; the case
-    joins the ``kernels`` line's flash row. Returns its ms."""
+def float64_attention(fa, q, k, v, causal: bool, window=None, q_scale: float = 1.0,
+                      budget: int = 1 << 30):
+    """``mha_reference`` in float64 on (q·q_scale, k, v), a few batch-heads
+    at a time, so that each (BH, Sq, Sk) score block stays within
+    ``budget`` bytes."""
+    import torch
+
+    q, k, v = q.double() * q_scale, k.double(), v.double()
+    step = max(1, budget // (8 * q.shape[1] * k.shape[1]))
+    return torch.cat([fa.mha_reference(q[i:i + step], k[i:i + step], v[i:i + step],
+                                       causal=causal, window=window)
+                      for i in range(0, q.shape[0], step)])
+
+
+def sdpa_ms(torch, q, k, v, causal: bool, window=None):
+    """CUDA-event ms of ``scaled_dot_product_attention`` on (BH, Sq, D) x
+    (BH, Sk, D) x (BH, Sk, Dv) at scale 1 (a window as a boolean mask), or
+    None where no backend takes the shapes."""
     import torch.nn.functional as F
 
+    kw = {"is_causal": causal}
+    if window is not None:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        kw = {"attn_mask": (kpos > qpos - window) & ((kpos <= qpos) if causal else True)}
+    try:
+        return time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                              scale=1.0, **kw))
+    except RuntimeError:
+        return None
+
+
+def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launches: int,
+                     lane: str, causal: bool = True, window=None):
+    """flash_attention_fwd at a prefill's shape (B·H, S, D) (cross-attention:
+    Sq queries against Sk keys; v of Dv, as MLA's), as the card route calls
+    it (q scaled first, scale 1, the config's blocks and window): seeded
+    Gaussian operands (k and v from the model's kv heads) against its plain
+    version at 2e-5, and the model's own q, k, v (``qkv``, (B, S, H, D),
+    rotated where the model rotates them) against float64, within
+    LM_FLOAT64_FACTOR of the plain version's distance; timed beside its
+    plain version and SDPA. One line; the case joins the ``kernels`` line's
+    flash row. Returns its ms."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
 
     mq, mk, mv = qkv
     dev = mq.device
     b, s, h, dh = mq.shape
-    sk = mk.shape[1]
-    blocks = {"block_q": cfg.attn_block_q, "block_k": cfg.attn_block_k}
+    sk, dv = mk.shape[1], mv.shape[-1]
+    opts = {"causal": causal, "window": window, "block_q": cfg.attn_block_q,
+            "block_k": cfg.attn_block_k}
     gen = torch.Generator(device=dev).manual_seed(3)
     q, kk, v = attn.gqa_to_heads(
         torch.randn(b, s, h, dh, generator=gen, device=dev) / math.sqrt(dh),
         torch.randn(b, sk, mk.shape[2], dh, generator=gen, device=dev),
-        torch.randn(b, sk, mk.shape[2], dh, generator=gen, device=dev))
-    got = fa.flash_attention_fwd(q, kk, v, causal=causal, scale=1.0, **blocks)
-    ref = fa.flash_attention_plain(q, kk, v, causal=causal, scale=1.0, **blocks)
+        torch.randn(b, sk, mk.shape[2], dv, generator=gen, device=dev))
+    got = fa.flash_attention_fwd(q, kk, v, scale=1.0, **opts)
+    ref = fa.flash_attention_plain(q, kk, v, scale=1.0, **opts)
     mq, mk, mv = attn.gqa_to_heads(mq * (1.0 / math.sqrt(dh)), mk, mv)
-    m_got = fa.flash_attention_fwd(mq, mk, mv, causal=causal, scale=1.0, **blocks)
-    m_ref = fa.flash_attention_plain(mq, mk, mv, causal=causal, scale=1.0, **blocks)
-    m64 = fa.mha_reference(mq.double() * math.sqrt(dh), mk.double(), mv.double(), causal=causal)
+    m_got = fa.flash_attention_fwd(mq, mk, mv, scale=1.0, **opts)
+    m_ref = fa.flash_attention_plain(mq, mk, mv, scale=1.0, **opts)
+    m64 = float64_attention(fa, mq, mk, mv, causal, window, q_scale=math.sqrt(dh))
     torch.cuda.synchronize()
     line = {"phase": phase, "kernel": "flash_attention_fwd", "case": case, "lane": lane,
-            "shape": list(q.shape), "keys": sk, "causal": causal, "window": None,
-            "blocks": blocks,
+            "shape": list(q.shape), "keys": sk, "value_dim": dv, "causal": causal,
+            "window": window, "blocks": {k: opts[k] for k in ("block_q", "block_k")},
             "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
             "model_operands": {"rel_err_vs_plain": rel_err(m_got, m_ref),
                                "rel_err_vs_float64": rel_err(m_got, m64),
                                "plain_rel_err_vs_float64": rel_err(m_ref, m64),
                                # the init's scores, q k / sqrt(D)
-                               "max_abs_score": float((mq @ mk.transpose(1, 2)).abs().max())},
-            "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, causal=causal, scale=1.0,
-                                                         **blocks)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=causal,
-                                                                 scale=1.0, **blocks),
+                               "max_abs_score": float(max(
+                                   (mq[i:i + 8] @ mk[i:i + 8].transpose(1, 2)).abs().max()
+                                   for i in range(0, mq.shape[0], 8)))},
+            "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, scale=1.0, **opts)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, scale=1.0, **opts),
                                 reps=2, batches=3),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q[None], kk[None], v[None], is_causal=causal, scale=1.0)),
+            "library_ms": sdpa_ms(torch, q, kk, v, causal, window),
             "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
-            "flops": q.shape[0] * attention_pairs(s, sk, causal, None) * 2.0 * (dh + dh),
+            "flops": q.shape[0] * attention_pairs(s, sk, causal, window) * 2.0 * (dh + dv),
             "launches": launches, "card": card}
     line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
                                                split_tf32_rate(card))
     emit(line)
+    del m64
     model_ops = line["model_operands"]
     if not line["rel_err"] <= TOL_KERNEL:
         raise AssertionError(f"flash_attention_fwd at {case} ({lane}): rel err "
@@ -3905,8 +3993,9 @@ def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launche
         raise AssertionError(f"flash_attention_fwd on the operands of {case}: {model_ops}")
     row = rows["flash_attention_fwd"]
     row["by_case"][f"{case} S={s}" if s == sk else f"{case} S={s}->{sk}"] = {
-        key: line[key] for key in ("shape", "keys", "causal", "window", "rel_err", "ms",
-                                   "plain_ms", "library_ms", "bound_ms", "bound_by", "launches")}
+        key: line[key] for key in ("shape", "keys", "value_dim", "causal", "window", "rel_err",
+                                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "launches")}
     row["max_abs_err"] = max(row["max_abs_err"], line["max_abs_err"])
     row["rel_err"] = max(row["rel_err"], line["rel_err"])
     return line["ms"]
@@ -4383,6 +4472,420 @@ def lm_audio_phase(torch, card, rows) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     return n_flash
+
+
+class MoeTap:
+    """While active, wraps ``repro_torch.models.moe.moe_apply`` (the stack
+    calls it through the module): for each call its sequence length, its
+    dispatch counts (capacity, kept and all assignments, as 0-d tensors),
+    CUDA events around it where ``timed``, and its input and weights where
+    ``inputs``. ``calls`` in order."""
+
+    def __init__(self, torch, timed: bool = False, inputs: bool = False):
+        self.torch, self.timed, self.inputs, self.calls = torch, timed, inputs, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.moe_apply
+
+        def run(p, x, cfg, **kw):
+            stats = {}
+            events = None
+            if self.timed:
+                events = (self.torch.cuda.Event(enable_timing=True),
+                          self.torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            out = self.route(p, x, cfg, stats=stats, **kw)
+            if events:
+                events[1].record()
+            self.calls.append({"s": x.shape[1], "stats": stats, "events": events,
+                               "x": x if self.inputs else None,
+                               "p": p if self.inputs else None})
+            return out
+
+        moe.moe_apply = run
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.route
+
+    def take(self):
+        """{"prefill": [...], "decode": [...]} of the calls since the last
+        take: (ms, assignments, kept) each."""
+        self.torch.cuda.synchronize()
+        out = {"prefill": [], "decode": []}
+        for c in self.calls:
+            ms = c["events"][0].elapsed_time(c["events"][1]) if c["events"] else None
+            out["prefill" if c["s"] > 1 else "decode"].append(
+                (ms, c["stats"]["assignments"], int(c["stats"]["kept"])))
+        self.calls.clear()
+        return out
+
+
+def moe_params(torch, model, bf16_experts: bool, seed: int):
+    """The model's weights from a card generator seeded ``seed``; the routed
+    experts drawn and held in bf16 where ``bf16_experts``."""
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_params
+
+    skel = moe.with_expert_dtype(model.skeleton, torch.bfloat16) if bf16_experts \
+        else model.skeleton
+    return init_params(skel, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def moe_golden(torch, model, params, prompts, max_len: int):
+    """Decode after a prefill of the prompts (B, s) against the prefill of
+    s + 1, the next token being the prefill's argmax: (decode logits, the
+    s + 1 prefill's last logits)."""
+    b, s = prompts.shape
+    dev = prompts.device
+    pre, caches = model.prefill_fn(params, {"tokens": prompts},
+                                   model.init_cache_fn(b, max_len, torch.float32, dev))
+    nxt = torch.argmax(pre, -1).to(torch.int32)[:, None]
+    dec, _ = model.decode_fn(params, nxt, s, caches)
+    del caches
+    full, _ = model.prefill_fn(params, {"tokens": torch.cat([prompts, nxt], 1)},
+                               model.init_cache_fn(b, max_len, torch.float32, dev))
+    return dec, full
+
+
+def moe_cfg(cfg, layers: int, dense: int, experts=None, **moe_kw):
+    """``cfg`` cut to ``layers`` with ``dense`` leading dense layers (and
+    ``experts`` routed experts), its MoEConfig changed by ``moe_kw``."""
+    import dataclasses
+
+    m = dataclasses.replace(cfg.moe, n_dense_layers=dense, **moe_kw)
+    if experts is not None:
+        m = dataclasses.replace(m, n_experts=experts)
+    return cfg.scaled(n_layers=layers, moe=m)
+
+
+def lm_moe_phase(torch, card: str, rows) -> int:
+    """repro_torch's LM serving of the moe family at full width, one arch
+    after the other; returns the ``flash_attention_fwd`` launches of the
+    serving runs."""
+    import gc
+
+    launches = 0
+    for arch, layers, dense, bf16_experts, queues, golden, check in MOE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches += lm_moe_arch(torch, card, rows, arch, layers, dense, bf16_experts, queues,
+                                golden, check)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_moe_arch(torch, card: str, rows, arch: str, layers: int, dense: int, bf16_experts: bool,
+                lane_specs, golden, check) -> int:
+    """One moe arch through ServeEngine at full width, cut in depth, as
+    lm_phase drives llama3.2-3b; returns the ``flash_attention_fwd``
+    launches of its serving run."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models import attention as attn
+    from repro_torch.models.build import build
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    full_cfg = get_config(arch)
+    cfg = moe_cfg(full_cfg, layers, dense)
+    m = cfg.moe
+    model = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = phase_t0 = time.perf_counter()
+    params = moe_params(torch, model, bf16_experts, 0)
+    torch.cuda.synchronize()
+    emit({"phase": "lm moe", "call": "init", "arch": cfg.name, "family": cfg.family,
+          "allocated_gb_before": allocated_before / 1e9, "n_params": model.n_params,
+          "full_n_params": build(full_cfg).n_params,
+          "param_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9,
+          "expert_dtype": str(params["moe_layers"]["moe"]["wg"].dtype),
+          "seconds": time.perf_counter() - t0, "layers": cfg.n_layers, "dense_layers": dense,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "attention": cfg.attention, "window": cfg.sliding_window, "experts": m.n_experts,
+          "top_k": m.top_k, "d_ff_expert": m.d_ff_expert, "shared_experts": m.n_shared_experts,
+          "capacity_factor": m.capacity_factor, "mtp": cfg.mtp, "vocab": cfg.vocab,
+          "compute_dtype": cfg.compute_dtype, "card": card})
+
+    # Serve both queues with the counts set to 0 just before and read just
+    # after: every lane batch's prefill launches the kernel once a layer,
+    # a decode step never; no other kernel runs.
+    tap = LmTap(torch, model)
+    engines = [ServeEngine(tap.model, params, batch=batch, max_len=max_len, dtype=torch.float32)
+               for _, _, _, batch, _, max_len in lane_specs]
+    queues = [lm_queue(cfg, n, plen, max_new) for _, n, plen, _, max_new, _ in lane_specs]
+    torch.cuda.synchronize()
+    with MoeTap(torch) as moe_tap:
+        reset_launches()
+        for eng, queue in zip(engines, queues):
+            eng.serve_queue(queue)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    counted = tap.take()
+    dispatch = moe_tap.take()
+    lane_batches = [-(-n // batch) for _, n, _, batch, _, _ in lane_specs]
+    per_call = [n for n, _ in counted["prefill"]]
+    per_decode = [n for n, _ in counted["decode"]]
+    others = {name: n for name, n in launches.items() if n and name != "flash_attention_fwd"}
+    assignments = sum(a for _, a, _ in dispatch["prefill"])
+    dropped = assignments - sum(kept for _, _, kept in dispatch["prefill"])
+    emit({"phase": "lm moe", "call": "launches", "arch": cfg.name,
+          "flash_attention_fwd": launches["flash_attention_fwd"],
+          "lane_batches": sum(lane_batches), "per_prefill": per_call,
+          "decode_steps": len(per_decode), "decode_launches": sum(per_decode), "others": others,
+          "prefill_assignments": assignments, "prefill_dropped": dropped,
+          "dropped_share": dropped / assignments,
+          "decode_dropped": sum(a - kept for _, a, kept in dispatch["decode"])})
+    if (per_call != [cfg.n_layers] * sum(lane_batches) or any(per_decode) or others
+            or launches["flash_attention_fwd"] != cfg.n_layers * sum(lane_batches)):
+        raise AssertionError(f"lm moe {cfg.name}: flash_attention_fwd launched {per_call} a "
+                             f"prefill, {sum(per_decode)} on decode steps, others {others}")
+    if any(a != kept for _, a, kept in dispatch["decode"]):
+        raise AssertionError(f"lm moe {cfg.name}: a decode step dropped an assignment")
+    for queue, (label, _, _, _, max_new, _) in zip(queues, lane_specs):
+        if not all(r.done and len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out)
+                   for r in queue):
+            raise AssertionError(f"lm moe {cfg.name} {label}: a request was not served in full")
+
+    # deepseek's loss_fn (xent, aux, the MTP loss) once under no_grad: the
+    # layers' prefill attention, then the MTP block's.
+    n_loss = 0
+    if cfg.mtp:
+        b, s = MOE_LOSS_BATCH
+        toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (b, s))
+                                .astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss, metrics = model.loss_fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+        n_loss = LAUNCHES["flash_attention_fwd"]
+        fired = {name: n for name, n in LAUNCHES.items() if n}
+        line = {"phase": "lm moe", "call": "loss_fn", "arch": cfg.name, "batch": [b, s],
+                "launches": fired, "metrics": {k: float(v) for k, v in metrics.items()},
+                "seconds": loss_s, "card": card}
+        emit(line)
+        if fired != {"flash_attention_fwd": cfg.n_layers + 1} or not all(
+                math.isfinite(v) for v in line["metrics"].values()):
+            raise AssertionError(f"lm moe {cfg.name} loss_fn: {line}")
+        del loss, metrics, toks
+
+    # The kernel on each lane's shapes: Gaussian operands against its plain
+    # version, and layer 0's own q, k, v (mixtral: GQA, rotated, the
+    # window; deepseek: MLA's q and k of 192 against v of 128) against
+    # float64.
+    dt = getattr(torch, cfg.compute_dtype)
+    stack = "dense_layers" if dense else "moe_layers"
+    p0 = tree_map(lambda t: t[0], params[stack])
+    kernel_ms = {}
+    for queue, nb, (label, _, s, b, _, _) in zip(queues, lane_batches, lane_specs):
+        toks = torch.from_numpy(np.stack([r.prompt for r in queue[:b]])).to(dev)
+        h = rmsnorm(p0["ln1"], embed(params["embed"], toks, dt), cfg.rms_eps)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        if cfg.attention == "mla":
+            qkv = attn.mla_qkv(p0["attn"], h, cfg, positions)[:3]
+        else:
+            qkv = attn.gqa_qkv(p0["attn"], h, cfg, positions)
+        kernel_ms[s] = flash_model_case(torch, card, rows, "lm moe", f"{cfg.name} prefill",
+                                        cfg, qkv, cfg.n_layers * nb, label,
+                                        window=cfg.sliding_window)
+        del qkv, h
+    torch.cuda.empty_cache()
+
+    # Timed: each queue served again (the same tokens), wall clock around
+    # serve_queue, CUDA events around each prefill and decode step and
+    # around each moe block.
+    for eng, queue, (label, n, plen, batch, max_new, max_len) in zip(engines, queues,
+                                                                     lane_specs):
+        again = [Request(prompt=r.prompt, max_new=r.max_new) for r in queue]
+        torch.cuda.synchronize()
+        with MoeTap(torch, timed=True) as moe_tap:
+            t0 = time.perf_counter()
+            eng.serve_queue(again)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        calls = tap.take()
+        blocks = moe_tap.take()
+        if [r.out for r in again] != [r.out for r in queue]:
+            raise AssertionError(f"lm moe {cfg.name} {label}: the same queue served again "
+                                 "gave other tokens")
+        prefill_ms = [ms for _, ms in calls["prefill"]]
+        decode_ms = [ms for _, ms in calls["decode"]]
+        tokens = sum(len(r.out) for r in again)
+        emit({"phase": "lm moe", "call": "serve", "arch": cfg.name, "queue": label,
+              "requests": n, "prompt_len": plen, "batch": batch, "max_new": max_new,
+              "max_len": max_len, "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+              "lane_batches": len(prefill_ms), "prefill_ms": prefill_ms,
+              "launches_per_prefill": cfg.n_layers, "launches_per_decode_step": 0,
+              # a decode step gives the next token of every request in the batch
+              "decode_ms_per_token_median": statistics.median(decode_ms),
+              "decode_ms_per_token_range": [min(decode_ms), max(decode_ms)],
+              "decode_wall_ms_per_token": (wall * 1e3 - sum(prefill_ms)) / len(decode_ms),
+              "kernel_ms": kernel_ms[plen],
+              "kernel_share_of_prefill": cfg.n_layers * kernel_ms[plen]
+              / statistics.median(prefill_ms),
+              "moe_share_of_prefill": sum(ms for ms, _, _ in blocks["prefill"]) / sum(prefill_ms),
+              "moe_share_of_decode_step": sum(ms for ms, _, _ in blocks["decode"])
+              / sum(decode_ms),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+
+    # The card against itself: decode after a prefill of s tokens against
+    # the prefill of s + 1, the first served token the prefill's argmax; at
+    # bf16 (capacity factor 1.25: printed) and, on the served float32
+    # weights, at float32 with capacity factor E / k (gated).
+    for queue, (label, _, s, b, _, max_len) in zip(queues, lane_specs):
+        toks = torch.from_numpy(np.stack([np.append(r.prompt, r.out[0]) for r in queue[:b]])
+                                .astype(np.int32)).to(dev)
+        dec, full, pre = lm_golden(torch, model, params, toks, max_len)
+        line = {"phase": "lm moe", "check": "decode vs prefill", "arch": cfg.name,
+                "lane": label, "s": s, "compute_dtype": "bfloat16",
+                "capacity_factor": m.capacity_factor, "rel_err": rel_err(dec, full),
+                "argmax_agree": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
+                "first_token_is_prefill_argmax":
+                    torch.argmax(pre, -1).tolist() == [r.out[0] for r in queue[:b]],
+                "finite": all(bool(torch.isfinite(x).all()) for x in (full, pre, dec))}
+        emit(line)
+        if not (line["finite"] and line["first_token_is_prefill_argmax"]):
+            raise AssertionError(f"lm moe {cfg.name} {label}: {line}")
+        del dec, full, pre
+    if golden:
+        keep_all = build(moe_cfg(full_cfg, layers, dense, capacity_factor=m.n_experts / m.top_k)
+                         .scaled(compute_dtype="float32"))
+        for s, b in golden:
+            lane = next(q for q, spec in zip(queues, lane_specs) if spec[2] == s)
+            prompts = torch.from_numpy(np.stack([r.prompt for r in lane[:b]])).to(dev)
+            dec, full = moe_golden(torch, keep_all, params, prompts, s + 16)
+            line = {"phase": "lm moe", "check": "decode vs prefill", "arch": cfg.name, "s": s,
+                    "rows": b, "compute_dtype": "float32",
+                    "capacity_factor": keep_all.cfg.moe.capacity_factor,
+                    "rel_err": rel_err(dec, full), "tolerance": TOL_LM_F32_GOLDEN,
+                    "finite": bool(torch.isfinite(dec).all() and torch.isfinite(full).all())}
+            emit(line)
+            if not (line["finite"] and line["rel_err"] <= TOL_LM_F32_GOLDEN):
+                raise AssertionError(f"lm moe {cfg.name} float32 decode vs prefill: {line}")
+            del dec, full
+            torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    n_flash = launches["flash_attention_fwd"] + n_loss
+    del engines, eng, tap, params, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_check(torch, card, full_cfg, check, peak, phase_t0)
+    return n_flash
+
+
+def moe_check(torch, card: str, full_cfg, check, peak: float, phase_t0: float) -> None:
+    """The check copy (``check``: layers, dense layers, routed experts; every
+    width full) at float32 and capacity factor E / k for the decode gate,
+    card against CPU on the same weights (the CPU runs the plain twins)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.build import build
+    from repro_torch.models.param import tree_map
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    layers, dense, experts = check
+    cfg2 = moe_cfg(full_cfg, layers, dense, experts).scaled(compute_dtype="float32")
+    m2 = build(cfg2)
+    p2 = moe_params(torch, m2, False, 1)
+    line = {"phase": "lm moe", "check": "copy", "arch": cfg2.name, "layers": layers,
+            "dense_layers": dense, "experts": cfg2.moe.n_experts, "top_k": cfg2.moe.top_k,
+            "n_params": m2.n_params, "note": "every width full; "
+            + ("routed experts cut to %d" % experts if experts else "depth cut only")}
+    emit(line)
+    rng = np.random.default_rng(0)
+    if experts:  # deepseek's decode gate runs here (see MOE_CHECK_GOLDEN)
+        keep_all = build(moe_cfg(cfg2, layers, dense,
+                                 capacity_factor=cfg2.moe.n_experts / cfg2.moe.top_k))
+        for s, b in MOE_CHECK_GOLDEN:
+            prompts = torch.from_numpy(rng.integers(0, cfg2.vocab, (b, s)).astype(np.int32))
+            dec, full = moe_golden(torch, keep_all, p2, prompts.to(dev), s + 16)
+            line = {"phase": "lm moe", "check": "decode vs prefill", "arch": cfg2.name,
+                    "copy": True, "s": s, "rows": b, "compute_dtype": "float32",
+                    "capacity_factor": keep_all.cfg.moe.capacity_factor,
+                    "rel_err": rel_err(dec, full), "tolerance": TOL_LM_F32_GOLDEN}
+            emit(line)
+            if not line["rel_err"] <= TOL_LM_F32_GOLDEN:
+                raise AssertionError(f"lm moe {cfg2.name} float32 decode vs prefill: {line}")
+            del dec, full
+    c2 = tree_map(lambda t: t.cpu(), p2)
+    prompts = rng.integers(0, cfg2.vocab, (LM_QUEUES[0][3], LM_QUEUES[0][2])).astype(np.int32)
+    b, s = prompts.shape
+    toks = torch.from_numpy(prompts).to(dev)
+    with MoeTap(torch, inputs=True) as card_tap:
+        logits, _, _ = T.lm_forward(p2, toks, cfg2)
+    with MoeTap(torch, inputs=True) as cpu_tap:
+        ref, _, _ = T.lm_forward(c2, toks.cpu(), cfg2)
+    forward_err = rel_err(logits.cpu(), ref)
+    # each moe layer's expert ids, card against CPU; where they differ, the
+    # CPU's score margin between its k-th and (k+1)-th expert
+    differ, margins = 0, []
+    k = cfg2.moe.top_k
+    for a, c in zip(card_tap.calls, cpu_tap.calls):
+        _, ids, _ = moe._router(a["p"], a["x"], cfg2.moe)
+        _, cids, _ = moe._router(c["p"], c["x"], cfg2.moe)
+        bad = (ids.cpu() != cids).any(-1)
+        if bool(bad.any()):
+            logit = torch.matmul(c["x"].float(), c["p"]["router"].float())
+            score = torch.sigmoid(logit) if cfg2.moe.router_norm == "sigmoid" else logit
+            top = moe.top_k(score, k + 1)[0]
+            differ += int(bad.sum())
+            margins += (top[..., k - 1] - top[..., k])[bad].tolist()
+    del card_tap, cpu_tap
+    _, caches = m2.prefill_fn(p2, {"tokens": toks[:, :-1]},
+                              m2.init_cache_fn(b, 128, torch.float32, dev))
+    _, c_caches = m2.prefill_fn(c2, {"tokens": toks[:, :-1].cpu()},
+                                m2.init_cache_fn(b, 128, torch.float32, "cpu"))
+    dec, _ = m2.decode_fn(p2, toks[:, -1:], s - 1, caches)
+    dec_ref, _ = m2.decode_fn(c2, toks[:, -1:].cpu(), s - 1, c_caches)
+    decode_err = rel_err(dec.cpu(), dec_ref)
+    card_out = ServeEngine(m2, p2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=q, max_new=LM_CHECK_NEW) for q in prompts])
+    cpu_out = ServeEngine(m2, c2, batch=b, max_len=128).serve_queue(
+        [Request(prompt=q, max_new=LM_CHECK_NEW) for q in prompts])
+    parted = []
+    for i, (x, y) in enumerate(zip(card_out, cpu_out)):
+        t = next((j for j, (u, w) in enumerate(zip(x.out, y.out)) if u != w), None)
+        if t is not None:  # the CPU's top-2 margin where the two part
+            seq = torch.from_numpy(np.append(prompts[i], y.out[:t]).astype(np.int32))[None]
+            last, _ = m2.prefill_fn(c2, {"tokens": seq},
+                                    m2.init_cache_fn(1, 128, torch.float32, "cpu"))
+            top = torch.topk(last[0], 2).values
+            parted.append({"request": i, "step": t, "margin": float(top[0] - top[1]),
+                           "tolerance": TOL_LM_CPU * float(last.abs().max())})
+    line = {"phase": "lm moe", "check": "card vs cpu", "arch": cfg2.name, "layers": layers,
+            "dense_layers": dense, "experts": cfg2.moe.n_experts, "compute_dtype": "float32",
+            "forward_rel_err": forward_err, "decode_rel_err": decode_err,
+            "tolerance": TOL_LM_CPU, "expert_ids_differ": differ, "id_margins": margins,
+            "tokens_equal": [x.out == y.out for x, y in zip(card_out, cpu_out)],
+            "parted": parted, "peak_gb": peak / 1e9,
+            "phase_seconds": time.perf_counter() - phase_t0, "card": card}
+    emit(line)
+    if not (forward_err <= TOL_LM_CPU and decode_err <= TOL_LM_CPU
+            and all(mg == 0.0 for mg in margins)
+            and all(pt["margin"] <= pt["tolerance"] for pt in parted)):
+        raise AssertionError(f"lm moe {cfg2.name} card vs cpu: {line}")
+    del p2, c2, caches, c_caches, logits, dec
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def lm_spectral_phase(torch, k, card, rows) -> dict:
@@ -4998,7 +5501,7 @@ def main() -> int:
     print(card, flush=True)
 
     # One capture over the kernel, request, imaging, mri, stream, serve, pencil, lm, lm
-    # state, lm audio and lm spectral phases:
+    # state, lm audio, lm spectral and lm moe phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -5035,6 +5538,8 @@ def main() -> int:
         for name, n in lm_spectral_phase(torch, k, card, rows).items():
             launches[name] += n
         no_degrade(trace, "lm spectral", ops)
+        state_launches["flash_attention_fwd"] += lm_moe_phase(torch, card, rows)
+        no_degrade(trace, "lm moe", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()

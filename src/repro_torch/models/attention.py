@@ -28,8 +28,15 @@ Cross-attention (the audio family's decoder over the encoder output) runs
 alike, as the reference's does: on the card each call launches
 ``flash_attention_fwd`` (ROADMAP, divergence 17).
 
-MLA (moe) and ``flash_attention_cp`` (sharding) come with the slices that
-need them.
+MLA (DeepSeek's multi-head latent attention, the moe family): a prefill
+expands the latent to per-head k (nope, with the one rope head broadcast
+to every head) and v, and runs :func:`flash_attention` at D = nope + rope
+against Dv (on the card ``flash_attention_fwd`` at 192 against 128); its
+cache keeps the latent ``c_kv`` and the rope key only, and a decode step
+is the reference's absorbed one in plain ops (the latent is never
+expanded per head).
+
+``flash_attention_cp`` comes with the sharding slice.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.config import MLAConfig, ModelConfig
+from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import ParamDef, _device
 
 __all__ = [
@@ -58,6 +65,10 @@ __all__ = [
     "gqa_skel",
     "gqa_to_heads",
     "make_cache",
+    "make_mla_cache",
+    "mla_apply",
+    "mla_qkv",
+    "mla_skel",
 ]
 
 NEG_INF = -1.0e30
@@ -307,3 +318,126 @@ def cross_kv(p: dict, enc_out, dtype):
     ``dtype``."""
     enc = enc_out.to(dtype)
     return _project(enc, p["wk"].to(dtype)), _project(enc, p["wv"].to(dtype))
+
+
+# ------------------------------- MLA -------------------------------
+
+def mla_skel(cfg: ModelConfig) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamDef((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": ParamDef((m.q_lora_rank,), ("q_lora",), init="ones"),
+        "wq_b": ParamDef((m.q_lora_rank, h, dq), ("q_lora", "heads", "head_dim")),
+        "wkv_a": ParamDef(
+            (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora")
+        ),
+        "kv_norm": ParamDef((m.kv_lora_rank,), ("kv_lora",), init="ones"),
+        "wk_b": ParamDef(
+            (m.kv_lora_rank, h, m.qk_nope_head_dim), ("kv_lora", "heads", "head_dim")
+        ),
+        "wv_b": ParamDef(
+            (m.kv_lora_rank, h, m.v_head_dim), ("kv_lora", "heads", "head_dim")
+        ),
+        "wo": ParamDef((h, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None):
+    """One layer's latent cache, empty (slot_pos −1), on ``device``
+    (default: the card): the normed latent ``c_kv`` and the rotated rope
+    key, one head."""
+    device = _device(device)
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "slot_pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _mla_project(p: dict, x, cfg: ModelConfig, positions):
+    """MLA's projections of x (B, S, D): q_nope, q_rope (B, S, H, *),
+    rotated; the normed latent c_kv (B, S, r) and the rotated rope key
+    (B, S, rope), one head. The latent norms are the reference's ``_rms``,
+    which computes ``rmsnorm`` (eps 1e-5) with the weight given bare."""
+    m: MLAConfig = cfg.mla
+    dt = x.dtype
+    nope = m.qk_nope_head_dim
+    q = _project(rmsnorm({"scale": p["q_norm"]}, torch.matmul(x, p["wq_a"].to(dt))),
+                 p["wq_b"].to(dt))
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv_full = torch.matmul(x, p["wkv_a"].to(dt))
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, ckv_full[..., :m.kv_lora_rank])
+    k_rope = apply_rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_qkv(p: dict, x, cfg: ModelConfig, positions):
+    """The prefill's attention operands: q and k (B, S, H, nope + rope), the
+    one rope key head broadcast to every head, and v (B, S, H, Dv), the
+    latent expanded per head; also c_kv and k_rope, which the cache keeps."""
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, x, cfg, positions)
+    dt = x.dtype
+    b, s, _ = x.shape
+    k_nope = _project(c_kv, p["wk_b"].to(dt))
+    v = _project(c_kv, p["wv_b"].to(dt))
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, cfg.n_heads,
+                                                             k_rope.shape[-1])], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k_full, v, c_kv, k_rope
+
+
+def mla_apply(p: dict, x, cfg: ModelConfig, *, positions, cache: dict | None = None,
+              decode: bool = False, pos: Optional[int] = None):
+    """DeepSeek Multi-head Latent Attention. Returns (out, new_cache).
+    x: (B, S, D); positions (B, S). The cache is written in place; ``pos``,
+    the first position, is read from ``positions`` where not given."""
+    m: MLAConfig = cfg.mla
+    dt = x.dtype
+    s = x.shape[1]
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    new_cache = None
+    if cache is not None and pos is None:
+        pos = int(positions[0, 0]) if positions.ndim == 2 else int(positions[0])
+
+    if decode:
+        if cache is None:
+            raise ValueError("mla_apply: decode needs a cache")
+        q_nope, q_rope, c_kv, k_rope = _mla_project(p, x, cfg, positions)
+        size = cache["c_kv"].shape[1]
+        slot = pos % size
+        cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][:, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
+        cache["slot_pos"][slot] = pos
+        new_cache = cache
+        c_buf, r_buf, sp = cache["c_kv"].to(dt), cache["k_rope"].to(dt), cache["slot_pos"]
+        # Absorbed decode: never expand per-head K/V from the latent.
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(dt))
+        s_lat = torch.einsum("bshr,btr->bhst", q_abs, c_buf)
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, r_buf)
+        logits = (s_lat + s_rope).float() * scale
+        valid = (sp >= 0) & (sp <= pos)
+        logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btr->bshr", w, c_buf)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(dt))
+    else:
+        q_full, k_full, v, c_kv, k_rope = mla_qkv(p, x, cfg, positions)
+        out = flash_attention(q_full, k_full, v, causal=True,
+                              block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+        if cache is not None:
+            size = cache["c_kv"].shape[1]
+            take = min(s, size)
+            cache["c_kv"][:, :take] = c_kv[:, s - take:].to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :take] = k_rope[:, s - take:].to(cache["k_rope"].dtype)
+            cache["slot_pos"][:take] = torch.arange(
+                s - take, s, dtype=torch.int32, device=cache["slot_pos"].device
+            )
+            new_cache = cache
+
+    h, dv, d = p["wo"].shape
+    y = torch.matmul(out.reshape(*out.shape[:2], h * dv), p["wo"].to(dt).reshape(h * dv, d))
+    return y, new_cache

@@ -1,13 +1,14 @@
 """config → Model bundle: init / abstract / loss / prefill / decode.
 
 Port of ``repro.models.build``. The serving layer only ever talks to a
-``Model``. ``build`` serves the dense and vlm families (``lm_forward``),
-the hybrid family (``hybrid_forward``, zamba2), the ssm family
-(``xlstm_forward``) and the audio family (``encdec_forward``, whisper: a
-prefill runs the encoder on ``batch["frames"]``), and builds the spectral
-family (``spectral_forward``, fourier_lm: a masked LM with a loss and a
-prefill, no decode step); the moe family raises ``NotImplementedError``
-naming its ROADMAP item.
+``Model``. ``build`` serves the dense, moe and vlm families
+(``lm_forward``; the moe family's loss adds the router's aux loss and,
+for deepseek, the multi-token prediction loss), the hybrid family
+(``hybrid_forward``, zamba2), the ssm family (``xlstm_forward``) and the
+audio family (``encdec_forward``, whisper: a prefill runs the encoder on
+``batch["frames"]``), and builds the spectral family
+(``spectral_forward``, fourier_lm: a masked LM with a loss and a prefill,
+no decode step). Every family is ported.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from repro_torch.models.param import abstract_params, init_params, param_count
 
 __all__ = ["Model", "build"]
 
-#: ROADMAP queue 1, item 12's sub-item that ports each family still missing.
-PENDING = {"moe": "12 (c)"}
+#: ROADMAP queue 1, item 12's sub-item that ports each family still
+#: missing: none is (the moe family came last, with item 12 (c)).
+PENDING: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,17 +51,30 @@ class Model:
 
 
 def _lm_like(cfg: ModelConfig, forward, skel, init_cache):
-    """Bundle for decoder-style LMs (dense/vlm/hybrid/ssm)."""
+    """Bundle for decoder-style LMs (dense/moe/vlm/hybrid/ssm)."""
 
     def loss_fn(params, batch):
         extras = {}
         if "patches" in batch:
             extras["prefix_embeds"] = batch["patches"]
-        logits, _, aux = forward(params, batch["tokens"], cfg, **extras)
+        if cfg.mtp:
+            logits, _, aux, hidden = forward(params, batch["tokens"], cfg, return_hidden=True,
+                                             **extras)
+        else:
+            logits, _, aux = forward(params, batch["tokens"], cfg, **extras)
         n_prefix = logits.shape[1] - batch["tokens"].shape[1]
         logits_tok = logits[:, n_prefix:]
         loss = softmax_xent(logits_tok[:, :-1], batch["tokens"][:, 1:])
-        metrics = {"xent": loss, "loss": loss}
+        metrics = {"xent": loss}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux
+            metrics["aux"] = aux
+        if cfg.mtp:
+            ml = T.mtp_logits(params, hidden, batch["tokens"], cfg)
+            mtp_loss = softmax_xent(ml[:, :-1], batch["tokens"][:, 2:])
+            loss = loss + cfg.mtp_weight * mtp_loss
+            metrics["mtp"] = mtp_loss
+        metrics["loss"] = loss
         return loss, metrics
 
     def prefill_fn(params, batch, caches):
@@ -122,7 +137,7 @@ def _spectral(cfg: ModelConfig) -> Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _lm_like(
             cfg, T.lm_forward, T.lm_skel(cfg),
             lambda b, s, dtype=torch.bfloat16, device=None: T.lm_init_cache(

@@ -92,9 +92,16 @@ def tree_leaves(tree) -> list:
 # ------------------------------ params ------------------------------
 
 
+#: Elements of a narrower-than-float32 leaf drawn in float32 at once.
+DRAW_CHUNK = 1 << 26
+
+
 def init_params(skeleton, generator: torch.Generator, dtype=None, device=None):
     """Materialise a skeleton into tensors on ``device`` (default: the
-    generator's), drawn from ``generator`` leaf by leaf in tree order."""
+    generator's), drawn from ``generator`` leaf by leaf in tree order, each
+    in float32 and cast to its dtype (``dtype``, else the leaf's own). A
+    leaf of a narrower dtype is drawn DRAW_CHUNK elements at a time, so
+    no float32 copy of it is ever whole."""
     device = torch.device(device) if device is not None else generator.device
 
     def one(d: ParamDef):
@@ -105,8 +112,16 @@ def init_params(skeleton, generator: torch.Generator, dtype=None, device=None):
             return torch.ones(d.shape, dtype=dt, device=device)
         fan_in = d.shape[0] if d.shape else 1
         std = d.scale * (1.0 / math.sqrt(max(fan_in, 1)))
-        x = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=device)
-        return (x * std).to(dt)
+        if torch.empty((), dtype=dt).element_size() >= 4:
+            x = torch.randn(d.shape, generator=generator, dtype=torch.float32, device=device)
+            return (x * std).to(dt)
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        for lo in range(0, flat.numel(), DRAW_CHUNK):
+            n = min(DRAW_CHUNK, flat.numel() - lo)
+            x = torch.randn(n, generator=generator, dtype=torch.float32, device=device)
+            flat[lo:lo + n] = x * std
+        return out
 
     return tree_map(one, skeleton)
 

@@ -1,7 +1,9 @@
 """Model stacks, assembled from the component layers.
 
-Port of ``repro.models.transformer``: the pre-norm GQA decoder (dense
-and vlm families; vlm prepends the stub frontend's patch embeddings), the
+Port of ``repro.models.transformer``: the pre-norm decoder (dense and vlm
+families with GQA; vlm prepends the stub frontend's patch embeddings; the
+moe family with GQA or MLA attention and the MoE FFN after its leading
+dense layers, and deepseek's multi-token prediction head), the
 hybrid stack (zamba2: Mamba2 layers with one shared attention block
 re-invoked every k layers), the xLSTM stack (alternating mLSTM and sLSTM
 blocks), the encoder-decoder (audio: whisper's encoder over precomputed
@@ -12,9 +14,6 @@ stacked along a leading layer axis, as in the reference, whose
 ``lax.scan`` over them becomes a loop over the layer index here; a
 stacked cache is walked the same way, each layer writing its new cache or
 state into its slice, a view of the stacked tensors.
-
-The moe block and ``mtp_logits`` come with their slice (ROADMAP, queue 1,
-item 12 (c)).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import torch
 
 from repro_torch.core.spectral import fourier_mixing
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
@@ -57,6 +57,7 @@ __all__ = [
     "lm_forward",
     "lm_init_cache",
     "lm_skel",
+    "mtp_logits",
     "rmsnorm_like",
     "shared_block_apply",
     "spectral_forward",
@@ -67,63 +68,67 @@ __all__ = [
 ]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe block is not ported yet (ROADMAP, queue 1, item 12 (c))"
-        )
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention} attention is not ported yet "
-            "(ROADMAP, queue 1, item 12 (c))"
-        )
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the multi-token prediction head is not ported yet "
-            "(ROADMAP, queue 1, item 12 (c))"
-        )
-
-
-# ------------------------- decoder block (dense) -------------------------
+# ------------------------- decoder block (dense/moe) -------------------------
 
 def decoder_block_skel(cfg: ModelConfig, use_moe: bool = False) -> dict:
-    if use_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe block is not ported yet (ROADMAP, queue 1, item 12 (c))"
-        )
-    _dense_only(cfg)
-    return {
+    skel = {
         "ln1": rmsnorm_skel(cfg.d_model),
         "ln2": rmsnorm_skel(cfg.d_model),
-        "attn": attn.gqa_skel(cfg),
-        "mlp": mlp_skel(cfg.d_model, cfg.d_ff, cfg.act),
+        "attn": attn.mla_skel(cfg) if cfg.attention == "mla" else attn.gqa_skel(cfg),
     }
+    if use_moe:
+        skel["moe"] = moe_mod.moe_skel(cfg)
+    else:
+        skel["mlp"] = mlp_skel(cfg.d_model, cfg.d_ff, cfg.act)
+    return skel
 
 
 def decoder_block_apply(p, x, cfg: ModelConfig, *, positions, cache=None, decode=False,
                         pos=None):
-    """Returns (x, new_cache, aux); aux is 0 (no moe)."""
+    """Returns (x, new_cache, aux); aux is the moe block's router loss (0
+    without one)."""
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-    a, new_cache = attn.gqa_apply(
-        p["attn"], h, cfg, positions=positions, cache=cache, decode=decode, pos=pos
-    )
+    apply = attn.mla_apply if cfg.attention == "mla" else attn.gqa_apply
+    a, new_cache = apply(p["attn"], h, cfg, positions=positions, cache=cache, decode=decode,
+                         pos=pos)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.rms_eps)
-    f = mlp(p["mlp"], h, cfg.act)
-    return x + f, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        f, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+    else:
+        f, aux = mlp(p["mlp"], h, cfg.act), torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, new_cache, aux
 
 
 # ----------------------------- decoder-only LM -----------------------------
 
+def _stacks(cfg: ModelConfig):
+    """(name, layers, use_moe) of the decoder's stacks that hold layers: the
+    leading dense layers, then the moe layers."""
+    n_dense = min(cfg.moe.n_dense_layers if cfg.moe else cfg.n_layers, cfg.n_layers)
+    n_moe = cfg.n_layers - n_dense if cfg.moe else 0
+    return [(name, n, use_moe) for name, n, use_moe in (("dense_layers", n_dense, False),
+                                                         ("moe_layers", n_moe, True)) if n]
+
+
 def lm_skel(cfg: ModelConfig) -> dict:
-    _dense_only(cfg)
     skel: dict[str, Any] = {
         "embed": embedding_skel(cfg.vocab, cfg.d_model),
         "final_norm": rmsnorm_skel(cfg.d_model),
-        "dense_layers": stack_skeleton(decoder_block_skel(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         skel["unembed"] = unembed_skel(cfg.vocab, cfg.d_model)
+    for name, n, use_moe in _stacks(cfg):
+        skel[name] = stack_skeleton(decoder_block_skel(cfg, use_moe), n)
+    if cfg.mtp:
+        skel["mtp"] = {
+            "norm_h": rmsnorm_skel(cfg.d_model),
+            "norm_e": rmsnorm_skel(cfg.d_model),
+            "proj": {
+                "down": ParamDef((2 * cfg.d_model, cfg.d_model), ("mlp", "embed"))
+            },
+            "block": decoder_block_skel(cfg, use_moe=False),
+        }
     return skel
 
 
@@ -136,14 +141,13 @@ def _logits(params, x, cfg):
 
 def lm_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, decode=False,
                prefill=False, prefix_embeds=None, return_hidden=False):
-    """Shared forward for dense/vlm LMs.
+    """Shared forward for dense/moe/vlm LMs.
 
-    Returns (logits, new_caches, aux[, hidden]). ``prefix_embeds`` (B, P, D)
-    is the vlm stub frontend's patch embeddings, prepended to the tokens.
-    ``pos0`` is an int or a 0-d tensor; ``caches`` are written in place and
-    returned.
+    Returns (logits, new_caches, aux[, hidden]); aux sums the moe layers'
+    router losses. ``prefix_embeds`` (B, P, D) is the vlm stub frontend's
+    patch embeddings, prepended to the tokens. ``pos0`` is an int or a 0-d
+    tensor; ``caches`` are written in place and returned.
     """
-    _dense_only(cfg)
     dt = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], tokens, dt)
     if prefix_embeds is not None:
@@ -153,32 +157,54 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, decode=
     positions = (pos0 + torch.arange(s, dtype=torch.int32, device=x.device))[None, :]
     positions = positions.expand(b, s)
 
-    layers = params["dense_layers"]
-    stacked = caches["dense_layers"] if caches is not None else None
-    for i in range(cfg.n_layers):
-        c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
-        x, _, _ = decoder_block_apply(
-            tree_map(lambda t: t[i], layers), x, cfg,
-            positions=positions, cache=c_l, decode=decode, pos=pos0,
-        )
-    new_caches = {"dense_layers": stacked} if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, n, _ in _stacks(cfg):
+        layers = params[name]
+        stacked = caches[name] if caches is not None else None
+        for i in range(n):
+            c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
+            x, _, aux = decoder_block_apply(
+                tree_map(lambda t: t[i], layers), x, cfg,
+                positions=positions, cache=c_l, decode=decode, pos=pos0,
+            )
+            aux_total = aux_total + aux
 
     hidden = x
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = _logits(params, x, cfg)
     if return_hidden:
-        return logits, new_caches, aux_total, hidden
-    return logits, new_caches, aux_total
+        return logits, caches, aux_total, hidden
+    return logits, caches, aux_total
+
+
+def mtp_logits(params, hidden, tokens, cfg: ModelConfig):
+    """DeepSeek-V3 multi-token prediction: predict t+2 from (h_t, emb_{t+1}).
+
+    hidden: (B, S, D) pre-final-norm states. Returns logits (B, S-1, V)
+    aligned so position t predicts tokens[t+2]. The block runs without a
+    cache, positions from 0 (its prefill attention is ``flash_attention``:
+    on the card one ``flash_attention_fwd``).
+    """
+    dt = getattr(torch, cfg.compute_dtype)
+    p = params["mtp"]
+    h = rmsnorm(p["norm_h"], hidden[:, :-1], cfg.rms_eps)
+    e = rmsnorm(p["norm_e"], embed(params["embed"], tokens[:, 1:], dt), cfg.rms_eps)
+    x = torch.matmul(torch.cat([h, e], dim=-1), p["proj"]["down"].to(dt))
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    x, _, _ = decoder_block_apply(p["block"], x, cfg, positions=positions)
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return _logits(params, x, cfg)
 
 
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   device=None):
-    """Empty stacked caches: every layer's ``make_cache`` along a leading
-    layer axis."""
-    _dense_only(cfg)
-    return {"dense_layers": _stacked(attn.make_cache(cfg, batch, max_len, dtype, device),
-                                     cfg.n_layers)}
+    """Empty stacked caches: every layer's ``make_cache`` (``make_mla_cache``
+    under MLA) along a leading layer axis, one stack for the dense layers
+    and one for the moe layers."""
+    make = attn.make_mla_cache if cfg.attention == "mla" else attn.make_cache
+    return {name: _stacked(make(cfg, batch, max_len, dtype, device), n)
+            for name, n, _ in _stacks(cfg)}
 
 
 def _stacked(one: dict, n: int) -> dict:

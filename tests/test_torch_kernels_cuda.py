@@ -1401,3 +1401,102 @@ def test_cuda_fourier_lm_mixes_on_the_fft_kernels(cuda, width):
             assert _rel(last.cpu(), ref) <= 1e-4
             ref_loss, _ = model.loss_fn(cpu, {"tokens": toks.cpu()})
             assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_at_the_mla_shape_matches_float64(cuda):
+    """deepseek-v3's MLA prefill: 4 sequences of 128 heads, q and k of
+    D = 128 + 64 against v of Dv = 128, causal, the config's blocks (512,
+    1024): the kernel within 2e-5 of its plain version and of
+    ``mha_reference`` in float64, one launch."""
+    bh, s, d, dv = 512, 64, 192, 128
+    g = torch.Generator(device=cuda).manual_seed(19)
+    q = torch.randn(bh, s, d, generator=g, device=cuda)
+    kk = torch.randn(bh, s, d, generator=g, device=cuda)
+    v = torch.randn(bh, s, dv, generator=g, device=cuda)
+    opts = dict(causal=True, block_q=512, block_k=1024)
+    k.reset_launches()
+    got = fa.flash_attention_fwd(q, kk, v, **opts)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention_fwd"] == 1 and got.shape == (bh, s, dv)
+    assert _rel(got, fa.flash_attention_plain(q, kk, v, **opts)) <= TOL
+    exact = fa.mha_reference(q.double(), kk.double(), v.double(), causal=True)
+    assert _rel(got.double(), exact) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_cuda_moe_smoke_launches_flash_once_a_layer(cuda, arch):
+    """The moe family's smoke models on the card against the CPU's plain
+    twins on the same weights (float32 compute): a prefill of 12 (past
+    mixtral's window of 8: the kernel's window mask, the ring's kept
+    slots) launches ``flash_attention_fwd`` once a layer and nothing else,
+    two decode steps launch nothing; deepseek's ``loss_fn`` once a layer
+    and once more for the MTP block. Logits and the loss to 1e-4 of their
+    largest value."""
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda, arch)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s = 2, 12
+    toks = torch.randint(0, cfg.vocab, (b, s + 2), generator=g, device=cuda, dtype=torch.int32)
+    caches = model.init_cache_fn(b, 32, torch.float32, cuda)
+    cpu_caches = model.init_cache_fn(b, 32, torch.float32, "cpu")
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, caches = model.prefill_fn(params, {"tokens": toks[:, :s]}, caches)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"flash_attention_fwd": cfg.n_layers}
+    ref, cpu_caches = model.prefill_fn(cpu_params, {"tokens": toks[:, :s].cpu()}, cpu_caches)
+    assert _rel(logits.cpu(), ref) <= 1e-4
+    for i in range(2):
+        reset_launches()
+        d, caches = model.decode_fn(params, toks[:, s + i:s + i + 1], s + i, caches)
+        torch.cuda.synchronize()
+        assert not any(LAUNCHES.values())
+        d_ref, cpu_caches = model.decode_fn(cpu_params, toks[:, s + i:s + i + 1].cpu(), s + i,
+                                            cpu_caches)
+        assert _rel(d.cpu(), d_ref) <= 1e-4
+    reset_launches()
+    with torch.no_grad():
+        loss, metrics = model.loss_fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        "flash_attention_fwd": cfg.n_layers + int(cfg.mtp)}
+    ref_loss, ref_metrics = model.loss_fn(cpu_params, {"tokens": toks.cpu()})
+    for key in ref_metrics:
+        assert abs(float(metrics[key]) - float(ref_metrics[key])) <= 1e-4 * abs(
+            float(ref_metrics[key])), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_cuda_moe_apply_matches_the_cpu(cuda, arch):
+    """``moe_apply`` (grouped_local, 16 experts top-4, capacity factor 1.25,
+    so the prefill drops assignments) on the card: the router's expert ids
+    equal the CPU's, the output and aux within 1e-5 of the CPU's, at
+    float32, and two runs bit-equal (the combine sums each token's choices
+    in a fixed order)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_params, tree_map
+
+    cfg = smoke_config(arch).scaled(d_model=256)
+    cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, n_experts=16, top_k=4, d_ff_expert=128,
+                                             capacity_factor=1.25))
+    p = init_params(moe.moe_skel(cfg), torch.Generator(device=cuda).manual_seed(2))
+    cpu_p = tree_map(lambda t: t.cpu(), p)
+    x = torch.randn(3, 64, cfg.d_model, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    _, ids, _ = moe._router(p, x, cfg.moe)
+    _, cpu_ids, _ = moe._router(cpu_p, x.cpu(), cfg.moe)
+    assert torch.equal(ids.cpu(), cpu_ids)
+    stats = {}
+    y, aux = moe.moe_apply(p, x, cfg, stats=stats)
+    again, _ = moe.moe_apply(p, x, cfg)
+    ref, ref_aux = moe.moe_apply(cpu_p, x.cpu(), cfg)
+    assert int(stats["kept"]) < stats["assignments"]
+    assert _rel(y.cpu(), ref) <= 1e-5 and abs(float(aux) - float(ref_aux)) <= 1e-5
+    assert torch.equal(y, again)

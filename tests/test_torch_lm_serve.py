@@ -140,13 +140,16 @@ def _queue(cfg, lengths, seed, cls):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-3b", "glm4-9b", "internvl2-76b",
-                                  "xlstm-350m", "zamba2-2.7b"])
+                                  "xlstm-350m", "zamba2-2.7b", "mixtral-8x22b",
+                                  "deepseek-v3-671b"])
 def test_serve_queue_gives_the_reference_tokens(arch):
     """Mixed prompt lengths over several lanes, left-padded in each, and
     (internvl2) patch embeddings prepended: token for token. xlstm's and
     zamba2's caches are recurrent states (and zamba2's shared-block KV
     caches); xlstm's only match once every lane batch starts its
-    stabilisers at −inf again."""
+    stabilisers at −inf again. mixtral's prompts of 9 to 30 tokens pass
+    its ring of 8 (the reference's slots kept); deepseek's caches are
+    MLA's latents, its prefills drop over-capacity assignments."""
     cfg, jeng, eng = _pair(arch, batch=3, max_len=64)
     lengths = [3, 5, 8, 12, 17, 30, 6, 9]
     jextras = extras = None
@@ -208,11 +211,13 @@ def test_each_lane_batch_starts_from_empty_caches():
         assert not bool(eng.caches["dense_layers"][key][:, :, 6 + 6:].any())
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b", "mixtral-8x22b",
+                                  "deepseek-v3-671b"])
 def test_each_lane_batch_starts_from_the_initial_state_caches(arch):
     """Every prefill, the first lane batch's too, finds every cache leaf as
     the model's ``init_cache_fn`` made it: xlstm's stabilisers ``m`` all at
-    −inf, zamba2's ``slot_pos`` −1, every other leaf 0. After each lane
+    −inf, zamba2's, mixtral's ring and deepseek's MLA ``slot_pos`` −1,
+    every other leaf (MLA's ``c_kv`` and ``k_rope``) 0. After each lane
     batch the states hold that batch's values (m finite), so the reset is
     what brings m back to −inf. Two lane batches in one call give the
     tokens two fresh engines give."""
@@ -309,7 +314,8 @@ def test_generate_takes_one_prompt_a_slot(engine):
 # ------------------------------ the launcher ------------------------------
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "internvl2-76b", "xlstm-350m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "internvl2-76b", "xlstm-350m", "zamba2-2.7b",
+                                  "mixtral-8x22b", "deepseek-v3-671b"])
 def test_launcher_serves_smoke_config_on_the_cpu(arch, capsys):
     done = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
                               "--batch", "2", "--max-new", "4"])
@@ -319,7 +325,3 @@ def test_launcher_serves_smoke_config_on_the_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert f"[serve] 3 requests, 12 tokens" in out and f"arch={cfg.name} device=cpu" in out
 
-
-def test_launcher_names_the_roadmap_item_of_an_unported_family():
-    with pytest.raises(NotImplementedError, match=r"item 12 \(c\)"):
-        launch_serve.main(["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"])

@@ -38,10 +38,12 @@ from repro_torch.models import transformer as T
 from repro_torch.models.build import PENDING, build
 
 SERVED = ["llama3.2-3b", "starcoder2-3b", "glm4-9b", "internvl2-76b"]
+MOE = ["mixtral-8x22b", "deepseek-v3-671b"]
 DENSE_AND_VLM = [a for a in reg.ALL_IDS if reg.get_config(a).family in ("dense", "vlm")]
 PORTED = [a for a in reg.ALL_IDS if reg.get_config(a).family not in PENDING]
 #: each ported family's skeleton function in the port and in the reference
 SKELETONS = {"dense": (T.lm_skel, jT.lm_skel), "vlm": (T.lm_skel, jT.lm_skel),
+             "moe": (T.lm_skel, jT.lm_skel),
              "hybrid": (T.hybrid_skel, jT.hybrid_skel), "ssm": (T.xlstm_skel, jT.xlstm_skel),
              "audio": (T.encdec_skel, jT.encdec_skel),
              "spectral": (T.spectral_skel, jT.spectral_skel)}
@@ -271,6 +273,145 @@ def test_prefill_and_decode_logits_match_reference(arch, compute_dtype):
     assert abs(float(loss) - float(jloss)) <= tol * abs(float(jloss))
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_models_match_reference_at_float32(arch):
+    """The moe family's smoke models (mixtral: GQA, a sliding window of 8,
+    3 moe layers; deepseek: MLA, 1 dense and 2 moe layers, the MTP head):
+    ``loss_fn``'s loss and every metric (xent, aux, mtp), the whole
+    forward's logits, ``prefill_fn``'s and two ``decode_fn`` steps' logits
+    to 1e-4 of their largest reference value."""
+    cfg, jcfg = reg.smoke_config(arch), jreg.smoke_config(arch)
+    jm, m = jbuild(jcfg), build(cfg)
+    jp, p = _carried(jm, 3)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 14)).astype(np.int32)
+    jloss, jmetrics = jm.loss_fn(jp, {"tokens": jnp.asarray(toks)})
+    loss, metrics = m.loss_fn(p, {"tokens": _t(toks)})
+    assert sorted(metrics) == sorted(jmetrics) == sorted(
+        ["xent", "aux", "loss"] + (["mtp"] if cfg.mtp else []))
+    for key in jmetrics:
+        assert abs(float(metrics[key]) - float(jmetrics[key])) <= 1e-4 * abs(
+            float(jmetrics[key])), key
+    assert float(loss) == float(metrics["loss"])
+    jfull, _, jaux = jT.lm_forward(jp, jnp.asarray(toks), jcfg)
+    full, _, aux = T.lm_forward(p, _t(toks), cfg)
+    assert _rel(full, jfull) <= 1e-4 and abs(float(aux) - float(jaux)) <= 1e-6 * float(jaux)
+    s = 12
+    jc, c = jm.init_cache_fn(2, 32, jnp.float32), m.init_cache_fn(2, 32, torch.float32, "cpu")
+    assert sorted(c) == sorted(jc)
+    jl, jc = jm.prefill_fn(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc)
+    l, c = m.prefill_fn(p, {"tokens": _t(toks[:, :s])}, c)
+    assert _rel(l, jl) <= 1e-4
+    for i in range(2):
+        tok = toks[:, s + i:s + i + 1]
+        jd, jc = jm.decode_fn(jp, jnp.asarray(tok), jnp.asarray(s + i, jnp.int32), jc)
+        d, c = m.decode_fn(p, _t(tok), s + i, c)
+        assert _rel(d, jd) <= 1e-4
+        for name in jc:
+            for key in jc[name]:
+                assert _rel(c[name][key], jc[name][key]) <= 1e-4, (name, key)
+
+
+def _ref_blocks(jcfg, jp, name, x, positions, caches, decode):
+    """The reference's blocks of stack ``name`` one at a time (eager):
+    [(layer params, input, input cache, output, output cache)]."""
+    out = []
+    for i in range(jp[name]["ln1"]["scale"].shape[0]):
+        jpl = jax.tree.map(lambda t: t[i], jp[name])
+        jcl = jax.tree.map(lambda t: t[i], caches[name]) if caches is not None else None
+        y, jcn, _ = jT.decoder_block_apply(jpl, x, jcfg, positions=positions, cache=jcl,
+                                           decode=decode)
+        out.append((i, x, jcl, y, jcn))
+        x = y
+    return out, x
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_models_match_reference_at_bf16_block_by_block(arch):
+    """At bfloat16 the loss and every metric agree to 3e-2; the logits are
+    held block by block, each port block (attention, then the moe FFN or
+    the MLP) given the reference's bf16 input and cache, in a prefill of 12
+    and two decode steps, its output and new cache to 3e-2, and the final
+    norm and unembedding on the reference's last hidden state. The whole
+    forward is not held to 3e-2: at their random init these smoke models
+    amplify one bf16 rounding through their near one-hot attention (and a
+    router's choice of experts), so two bf16 evaluations that round in
+    other places part further; the reference's jitted forward and its
+    eager one part by 0.45 of the largest logit on mixtral's (seed 3)."""
+    cfg = reg.smoke_config(arch).scaled(compute_dtype="bfloat16")
+    jcfg = jreg.smoke_config(arch).scaled(compute_dtype="bfloat16")
+    jm, m = jbuild(jcfg), build(cfg)
+    jp, p = _carried(jm, 3)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 14)).astype(np.int32)
+    _, jmetrics = jm.loss_fn(jp, {"tokens": jnp.asarray(toks)})
+    _, metrics = m.loss_fn(p, {"tokens": _t(toks)})
+    for key in jmetrics:
+        assert abs(float(metrics[key]) - float(jmetrics[key])) <= 3e-2 * abs(
+            float(jmetrics[key])), key
+    s = 12
+    jc = jm.init_cache_fn(2, 32, jnp.float32)
+    names = [n for n in ("dense_layers", "moe_layers") if n in jp]
+    for step in range(3):
+        n_tok, pos0 = (s, 0) if step == 0 else (1, s + step - 1)
+        tok = toks[:, pos0:pos0 + n_tok]
+        positions = np.broadcast_to(np.arange(pos0, pos0 + n_tok, dtype=np.int32),
+                                    (2, n_tok)).copy()
+        x = jlayers.embed(jp["embed"], jnp.asarray(tok), jnp.bfloat16)
+        new = {}
+        for name in names:
+            blocks, x = _ref_blocks(jcfg, jp, name, x, jnp.asarray(positions), jc, step > 0)
+            new[name] = jax.tree.map(lambda *ls: jnp.stack(ls), *[b[4] for b in blocks])
+            for i, jx, jcl, jy, jcn in blocks:
+                c_l = {k: _t(v) for k, v in jcl.items()}
+                y, c_new, _ = T.decoder_block_apply(
+                    param.tree_map(lambda t: t[i], p[name]), _t(jx.astype(jnp.float32)).to(
+                        torch.bfloat16), cfg, positions=_t(positions), cache=c_l,
+                    decode=step > 0, pos=pos0)
+                assert y.dtype == torch.bfloat16
+                assert _rel(y, jy) <= 3e-2, (step, name, i)
+                for key in jcn:
+                    assert _rel(c_new[key], jcn[key]) <= 3e-2, (step, name, i, key)
+        jc = new
+        jlogits = jT._logits(jp, jlayers.rmsnorm(jp["final_norm"], x, jcfg.rms_eps), jcfg)
+        logits = T._logits(p, layers.rmsnorm(p["final_norm"], _t(x.astype(jnp.float32)).to(
+            torch.bfloat16), cfg.rms_eps), cfg)
+        assert _rel(logits, jlogits) <= 3e-2
+
+
+@pytest.mark.parametrize("s", [16, 21])
+def test_ring_decode_after_a_prefill_past_the_window_keeps_the_reference_slots(s):
+    """Observation (the reference's behaviour, ported as is): a prefill of
+    s > window tokens writes its last ``window`` k, v into ring slots
+    0..window-1, and the next decode writes slot s % window, which holds
+    an entry still inside the window unless s % window == 0. So on smoke
+    mixtral (window 8) the decode after a prefill of 21 is not the prefill
+    of 22's last logits (the port and the reference both ~1 of the largest
+    logit off), while after 16 it is; the port's decode logits equal the
+    reference's either way (1e-4)."""
+    cfg, jcfg = reg.smoke_config("mixtral-8x22b"), jreg.smoke_config("mixtral-8x22b")
+    assert cfg.sliding_window == 8
+    jm, m = jbuild(jcfg), build(cfg)
+    jp, p = _carried(jm, 0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)).astype(np.int32)
+
+    def decode_vs_prefill(model, params, cast, cache, dt):
+        _, caches = model.prefill_fn(params, {"tokens": cast(toks[:, :s])},
+                                     model.init_cache_fn(2, 32, dt, *cache))
+        dec, _ = model.decode_fn(params, cast(toks[:, s:s + 1]), s if cast is _t else
+                                 jnp.asarray(s, jnp.int32), caches)
+        full, _ = model.prefill_fn(params, {"tokens": cast(toks[:, :s + 1])},
+                                   model.init_cache_fn(2, 32, dt, *cache))
+        return dec, full
+
+    jdec, jfull = decode_vs_prefill(jm, jp, jnp.asarray, (), jnp.float32)
+    dec, full = decode_vs_prefill(m, p, _t, ("cpu",), torch.float32)
+    assert _rel(dec, jdec) <= 1e-4 and _rel(full, jfull) <= 1e-4
+    gap, jgap = _rel(dec, full.numpy()), _rel(jdec, jfull)
+    if s % cfg.sliding_window:
+        assert gap > 0.3 and jgap > 0.3 and abs(gap - jgap) <= 1e-3 * jgap
+    else:
+        assert gap <= 2e-3 and jgap <= 2e-3
+
+
 @pytest.mark.parametrize("arch", [a for a in PORTED if a != "fourier_lm"])
 def test_prefill_then_decode(arch):
     """tests/models/test_arch_smoke.py::test_prefill_then_decode, ported
@@ -332,14 +473,26 @@ def test_full_configs_have_exact_assignment_numbers():
         28, 3072, 24, 8, 128256)
 
 
-@pytest.mark.parametrize("arch", [a for a in reg.ALL_IDS if reg.get_config(a).family in PENDING])
-def test_other_families_raise_naming_their_roadmap_item(arch):
-    """Only the moe family is still to be ported (mixtral-8x22b and
-    deepseek-v3-671b)."""
-    cfg = reg.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=r"item 12 \(c\)"):
-        build(cfg)
-    assert PENDING == {"moe": "12 (c)"}
+def test_build_serves_every_family():
+    """No family is left to port: ``PENDING`` is empty and ``build`` gives
+    every config a Model with a loss and a prefill (and a decode step
+    wherever the reference has one)."""
+    assert PENDING == {}
+    for arch in reg.ALL_IDS:
+        model, jmodel = build(reg.smoke_config(arch)), jbuild(jreg.smoke_config(arch))
+        assert (model.decode_fn is None) == (jmodel.decode_fn is None), arch
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_family_builds_at_full_width_with_the_reference_counts(arch):
+    """mixtral-8x22b's 140.63 B and deepseek-v3-671b's 671.71 B parameters,
+    counted on the skeleton (no allocation), equal the reference's; the
+    abstract tree is meta tensors."""
+    model, jmodel = build(reg.get_config(arch)), jbuild(jreg.get_config(arch))
+    assert model.n_params == jmodel.n_params
+    assert round(model.n_params / 1e9, 2) == {"mixtral-8x22b": 140.63,
+                                              "deepseek-v3-671b": 671.71}[arch]
+    assert all(t.device.type == "meta" for t in param.tree_leaves(model.abstract()))
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b"])

@@ -12,6 +12,14 @@ sequence a power of two.
     python3 tools/lm_profile.py --arch xlstm-350m --batch 4 --prompt-lens 16,1024
     python3 tools/lm_profile.py --arch whisper-medium --batch 4 --prompt-lens 16,128
     python3 tools/lm_profile.py --arch fourier_lm --batch 8 --prompt-lens 2048
+    python3 tools/lm_profile.py --arch mixtral-8x22b --layers 2 --batch 4 --prompt-lens 16,1024
+    python3 tools/lm_profile.py --arch deepseek-v3-671b --layers 2 --dense 1 --bf16-experts \
+        --batch 4 --prompt-lens 16,1024
+
+``--layers`` cuts the config in depth (the moe family: ``--dense`` of them
+dense, the config's own count if not given; ``--bf16-experts`` draws and
+holds the routed experts in bf16, as chip_smoke's lm moe phase does for
+deepseek-v3).
 
 For each prompt length one JSON line with, for ``prefill`` (``prefill_fn``
 on the batch's prompts) and ``decode`` (``decode_fn`` at the next
@@ -26,7 +34,14 @@ position, after that prefill), or ``forward``:
   window), read as ``tools/stream_profile.py`` reads its traces;
 - ``card_top``: the 8 kernel names with the most card µs in one traced
   call (summed over their launches), with their launch counts;
-- ``wall_ms``: one call waited for (``torch.cuda.synchronize``).
+- ``wall_ms``: one call waited for (``torch.cuda.synchronize``);
+- ``ops``: card µs of one traced call by aten operation, from the
+  profiler's ``key_averages``: the 14 with the most card time (the moe
+  block's ``sort``, its scatter ``index_put_`` and grouped products
+  ``bmm``, MLA's absorbed decode products ``einsum``, the weight casts
+  ``_to_copy``, ...), each with its calls. (``record_function`` ranges
+  around the model's blocks were tried: their device time did not add up,
+  the ranges reading more card time than the whole call.)
 
 Prints the card's name and power limit first. Needs CUDA; exits 2 without.
 """
@@ -72,12 +87,36 @@ def card_top(torch, fn, top: int = 8):
     return [{"kernel": name, **row} for name, row in rows]
 
 
+def card_ops(torch, fn, top: int = 14):
+    """Card µs and calls of one traced call of ``fn`` by aten operation
+    (``key_averages``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+    aten = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                  key=device_us, reverse=True)[:top]
+    return [{"op": e.key, "us": device_us(e), "calls": e.count} for e in aten]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-lens", default="16,1024")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--dense", type=int, default=None)
+    ap.add_argument("--bf16-experts", action="store_true")
     args = ap.parse_args()
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -88,15 +127,23 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import frames_for
     from repro_torch.kernels import _build
+    from repro_torch.models import moe
     from repro_torch.models.build import build
+    from repro_torch.models.param import init_params
 
     _build.library()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = cfg.scaled(n_layers=args.layers)
+    if args.dense is not None:
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, n_dense_layers=args.dense))
     model = build(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    skel = moe.with_expert_dtype(model.skeleton, torch.bfloat16) if args.bf16_experts \
+        else model.skeleton
+    params = init_params(skel, torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(0)
     for s in (int(n) for n in args.prompt_lens.split(",")):
         b = args.batch
@@ -115,7 +162,8 @@ def main() -> int:
                 "prefill": lambda: model.prefill_fn(params, batch, caches),
                 "decode": lambda: model.decode_fn(params, tok, s, caches),
             }
-        line = {"arch": cfg.name, "batch": b, "prompt_len": s, "compute_dtype": cfg.compute_dtype}
+        line = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "prompt_len": s,
+                "compute_dtype": cfg.compute_dtype}
         for name, fn in calls.items():
             host_us, top = host(torch, fn, 1, calls=5)
             torch.cuda.synchronize()
@@ -124,6 +172,7 @@ def main() -> int:
             torch.cuda.synchronize()
             line[name] = {"host_ms": host_us / 1e3, "wall_ms": (time.perf_counter() - t0) * 1e3,
                           "card": card(torch, fn, calls=3), "card_top": card_top(torch, fn),
+                          "ops": card_ops(torch, fn),
                           "top": [dict(row, own_us_per_call=row.pop("own_us_per_step"),
                                        calls_per_call=row.pop("calls_per_step")) for row in top]}
         print(json.dumps(line), flush=True)
