@@ -308,9 +308,36 @@ Phases, each printing one JSON line:
              dropped, 2e-3); a depth-cut copy (deepseek's also cut to 32
              routed experts) card against CPU at float32 (1e-3, tokens,
              expert ids). Its launches count toward the ``kernels`` line;
+7h. lm train — training on the card: ``flash_attention_bwd`` (the
+             backward of the model's attention, a kernel with no TPU
+             counterpart) at llama3.2-3b's training lane (48, 1024, 128)
+             causal, with the forward's logsumexp, against its plain version
+             (2e-5) and float64 autograd of ``mha_reference`` (Gaussian
+             operands and the model's own layer-0 q, k, v), and at a window,
+             cross-attention (64, 128->1500, 64), MLA's 192 -> 128 and Dv 160;
+             each timed beside its plain version, SDPA's backward and its
+             bound (the forward's yardstick: a third of the dense TF32 rate,
+             the CUDA-core float32 figure beside it as ``simt_bound_ms``),
+             and the forward with and without the logsumexp. Then
+             llama3.2-3b (2 x 1024, remat) and fourier_lm (8 x 2048) train 3
+             steps each at full width through ``repro_torch.launch.train``'s
+             entry without checkpoints, the counts set to 0 just before and
+             read just after: llama 56 ``flash_attention_fwd`` (forward and
+             recompute) and 28 ``flash_attention_bwd`` a step, fourier_lm 36
+             ``fft_fused`` and 36 ``fft2_columns`` (forward, recompute, and
+             the mixing's backward on the same planned kernels), nothing
+             else; step ms, tokens/s, the kernels' share estimated from
+             their launches and their times alone, peak memory. Card and
+             CPU gradients at float32 (llama's first 2 layers of its
+             full-width init on 2 x 256, fourier_lm at full depth on 2 x
+             2048), each held against the same model in float64 on the CPU
+             (see TRAIN_GRAD_CEILING), the llama copy overfitting one
+             batch, and xlstm's backward refused (``NoBackward``, naming its
+             ROADMAP item; no ``slstm_scan`` launch). Its launches count
+             toward the ``kernels`` line;
    After each of the kernel, request, imaging, mri, stream, serve, pencil,
-   lm, lm state, lm audio, lm spectral and lm moe phases (one
-   ``obs.capture()`` around the twelve) a
+   lm, lm state, lm audio, lm spectral, lm moe and lm train phases (one
+   ``obs.capture()`` around the thirteen) a
    ``"check": "no degrade"`` line: no ``resilience.failover``, ``resilience.fault`` or
    ``plan.degrade`` event, no MEASURE candidate skipped, and
    ``kernel.failover`` (the composed 2D route) only on frames over the
@@ -522,6 +549,9 @@ KERNELS = {
                         "src/repro/kernels/butterfly.py:64"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:81"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "none: the reference differentiates "
+                            "src/repro/models/attention.py:29 by XLA"),
     "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan.py:86"),
 }
@@ -4897,7 +4927,6 @@ def lm_spectral_phase(torch, k, card, rows) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import spectral
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.kernels import ops
     from repro_torch.kernels._launch import LAUNCHES, reset_launches
     from repro_torch.models import transformer as T
     from repro_torch.models.build import build
@@ -4924,13 +4953,7 @@ def lm_spectral_phase(torch, k, card, rows) -> dict:
           "compute_dtype": cfg.compute_dtype, "card": card})
     batch = make_batch(cfg, b, s, 0, device=dev)
 
-    # What one planned fft2 of a (b, s, d) stack launches, by the census.
-    if ops.fft2_fits_budget(s, d):
-        per_mix = {"fft2_fused": 1}
-    elif k.fft2_columns_serves(s):
-        per_mix = {"fft_fused": 1, COLUMNS: 1}
-    else:
-        per_mix = {"fft_fused": 2}
+    per_mix = mixing_census(s, d)
     expect = {name: cfg.n_layers * n for name, n in per_mix.items()}
     plan = resolve_call("fft2d", (b, s, d), dev, dtype="complex64").variant
     with torch.no_grad():
@@ -5016,6 +5039,437 @@ def lm_spectral_phase(torch, k, card, rows) -> dict:
     del params, cpu_params, batch, logits, ref, bf16
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# The training phase (lm train): flash_attention_bwd, the card's only
+# backward kernel, against its plain version (2e-5 on Gaussian operands)
+# and float64 autograd of mha_reference (the model's own layer-0
+# operands at llama3.2-3b's training lane; within LM_FLOAT64_FACTOR of the
+# plain version's distance), timed beside its plain version, SDPA's
+# backward and its bound: (name, B·H, Sq, Sk, D, Dv, causal, window).
+TRAIN_BWD_CASES = (
+    ("window", 32, 1024, 1024, 128, 128, True, 256),
+    ("cross", 64, 128, 1500, 64, 64, False, None),
+    ("mla 192->128", 32, 512, 512, 192, 128, True, None),
+    ("dv 160", 32, 512, 512, 160, 160, True, None),
+)
+# Full-width training through repro_torch.launch.train's entry: (arch,
+# batch, seq, steps). llama3.2-3b remats every layer (cfg.remat, "full"), so
+# a step launches flash_attention_fwd twice a layer (forward, recompute)
+# and flash_attention_bwd once; fourier_lm's mixing plans its FFT kernels
+# in the forward, the recompute and the backward (Re(FFT2) of the
+# cotangent).
+TRAIN_RUNS = (("llama3.2-3b", 2, 1024, 3), ("fourier_lm", 8, 2048, 3))
+# Card against CPU gradients at float32 compute (the same weights): the
+# first TRAIN_CHECK_LAYERS layers of llama3.2-3b's full-width initial
+# weights (a 28-layer init: its fan_in, the stacked layer count, gives them
+# the full model's scale) on 2 sequences of TRAIN_CHECK_SEQ tokens, and
+# fourier_lm at full depth on 2 of 2048. Then the llama copy overfits one
+# batch as the reference's test_adamw_reduces_loss does (12 steps at peak
+# lr 1e-2, warmup 2: the last loss under 0.9 of the first).
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_SEQ = 256
+# The card's gradients and the CPU's float32 ones are each held against
+# the same model run on the CPU in float64 (float64_mode). At llama's init
+# the softmax is nearly one-hot (scores of ~1e2), so dS = P (dP - delta)
+# is a difference of nearly equal numbers and float32 amplifies a rounding
+# in any order of summation: the card passes a leaf within TOL_LM_CPU of
+# float64, or within LM_FLOAT64_FACTOR of the CPU's own distance, and never
+# past this ceiling.
+TRAIN_GRAD_CEILING = 5e-3
+TRAIN_OVERFIT_STEPS = 12
+
+
+def mixing_census(s: int, d: int) -> dict:
+    """The FFT kernels one planned fft2 of (B, s, d) frames launches at
+    radix 4, by the census: one block a frame, else the composed route's
+    row kernel and column pass (two row launches where H > 4096)."""
+    from repro_torch.kernels import fft_radix2 as k
+    from repro_torch.kernels import ops
+
+    if ops.fft2_fits_budget(s, d):
+        return {"fft2_fused": 1}
+    if k.fft2_columns_serves(s):
+        return {"fft_fused": 1, COLUMNS: 1}
+    return {"fft_fused": 2}
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, window=None):
+    """CUDA-event ms of the backward of ``scaled_dot_product_attention`` at
+    scale 1 on (BH, S, D) operands (a window as a boolean mask): the
+    gradients of q, k, v from a retained graph, or None where no backend
+    takes the shapes."""
+    import torch.nn.functional as F
+
+    kw = {"is_causal": causal}
+    if window is not None:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        kw = {"attn_mask": (kpos > qpos - window) & ((kpos <= qpos) if causal else True)}
+    qq, kk, vv = (x.detach()[None].requires_grad_() for x in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qq, kk, vv, scale=1.0, **kw)
+        return time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do[None],
+                                                   retain_graph=True), reps=5, batches=3)
+    except RuntimeError:
+        return None
+
+
+def float64_attention_grads(fa, q, k, v, do, causal: bool, window=None, q_scale: float = 1.0):
+    """Float64 autograd of ``mha_reference`` on (q·q_scale, k, v) with the
+    cotangent ``do``: (dq, dk, dv) at q's own scale."""
+    import torch
+
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    out = fa.mha_reference(q * q_scale, k, v, causal=causal, window=window)
+    return torch.autograd.grad(out, (q, k, v), do.double())
+
+
+def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None):
+    """flash_attention_bwd on (q, k, v, dO) at scale 1 with the forward's
+    logsumexp: against its plain version (2e-5 of its largest gradient)
+    and float64 autograd of ``mha_reference``; ``model`` is the model's
+    own (q, k, v) at the same shape, held to float64 within
+    LM_FLOAT64_FACTOR of the plain version's distance. Timed beside its
+    plain version, SDPA's backward and its bound. Prints one line and
+    returns it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    q_scale = math.sqrt(d)  # the operands are pre-scaled; mha_reference scales by 1/sqrt(D)
+
+    def errors(q, k, v, do):
+        o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **opts)
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **opts)
+        exact = float64_attention_grads(fa, q, k, v, do, opts["causal"], opts["window"], q_scale)
+        return {"rel_err": max(rel_err(a, b) for a, b in zip(got, plain)),
+                "max_abs_err": max(max_abs(a, b) for a, b in zip(got, plain)),
+                "rel_err_vs_float64": max(rel_err(a, b) for a, b in zip(got, exact)),
+                "plain_rel_err_vs_float64": max(rel_err(a, b) for a, b in zip(plain, exact))}
+
+    line = {"phase": "lm train", "kernel": "flash_attention_bwd", "case": case,
+            "shape": [bh, sq, d], "keys": sk, "value_dim": dv, "causal": opts["causal"],
+            "window": opts["window"], **errors(q, k, v, do)}
+    if model is not None:
+        mq, mk, mv = model
+        line["model_operands"] = errors(mq, mk, mv, do)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    line.update({
+        "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **opts), reps=5,
+                      batches=3),
+        "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **opts),
+                            reps=2, batches=3),
+        "library_ms": sdpa_bwd_ms(torch, q, k, v, do, opts["causal"], opts["window"]),
+        "forward_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **opts),
+                              reps=5, batches=3),
+        "forward_no_lse_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **opts), reps=5,
+                                     batches=3),
+        # each input read once, each gradient written once
+        "bytes": 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * o.numel()
+                      + lse.numel()),
+        # per kept pair: the scores again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each)
+        "flops": bh * attention_pairs(sq, sk, opts["causal"], opts["window"]) * (6.0 * d
+                                                                                + 4.0 * dv),
+        "card": card})
+    # The same float32-accurate products as the forward's, so the same
+    # yardstick: the card's rate for them on the tensor cores (three TF32
+    # products each), with the CUDA-core float32 figure beside it.
+    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
+                                               split_tf32_rate(card))
+    line["simt_bound_ms"] = bound(card, line["bytes"], line["flops"])[0]
+    emit(line)
+    worst = [line] + ([line["model_operands"]] if model is not None else [])
+    if not line["rel_err"] <= TOL_KERNEL or not all(
+            x["rel_err_vs_float64"] <= max(TOL_KERNEL, LM_FLOAT64_FACTOR
+                                           * x["plain_rel_err_vs_float64"]) for x in worst):
+        raise AssertionError(f"flash_attention_bwd at {case}: {line}")
+    return line
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Dotted key paths of a dict tree's leaves, in tree order."""
+    if isinstance(tree, dict):
+        return [n for key in sorted(tree) for n in leaf_names(tree[key], f"{prefix}{key}.")]
+    return [prefix[:-1]]
+
+
+def float64_mode(torch):
+    """A ``TorchFunctionMode`` that runs the port's float32 model in float64
+    (the oracle of lm train's gradient check): every float32, bfloat16 or
+    complex64 dtype handed to a torch function, and ``Tensor.float``, is
+    widened to float64 or complex128; ``narrow`` counts the tensors that
+    still come out narrower. Autograd's backward formulas follow the
+    forward's dtypes; a Python ``backward`` runs outside the mode (the
+    Re(FFT2) mixing's casts its cotangent to complex64, so for fourier_lm
+    the oracle is float32's in that one step)."""
+    from torch.overrides import TorchFunctionMode
+
+    wider = {torch.float32: torch.float64, torch.bfloat16: torch.float64,
+             torch.float16: torch.float64, torch.complex64: torch.complex128}
+    widen = lambda a: wider.get(a, a) if isinstance(a, torch.dtype) else a  # noqa: E731
+
+    class Float64(TorchFunctionMode):
+        narrow = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.float:
+                func = torch.Tensor.double
+            out = func(*map(widen, args), **{k: widen(v) for k, v in (kwargs or {}).items()})
+            if isinstance(out, torch.Tensor) and out.dtype in wider:
+                self.narrow += 1
+            return out
+
+    return Float64()
+
+
+def grads_vs_cpu(torch, model, params, batch) -> dict:
+    """``loss_fn``'s loss and gradients on the card (launches counted from
+    0) and on the CPU at float32, on copies of the same weights and batch,
+    each leaf held against the same model in float64 on the CPU
+    (:func:`float64_mode`, default dtype float64, without remat, which
+    changes no value): its gap relative to
+    the largest float64 value. A leaf passes where the card's gap is at
+    most TRAIN_GRAD_CEILING and at most TOL_LM_CPU or LM_FLOAT64_FACTOR
+    times the CPU's. The card's gap from the CPU's float32 gradients is
+    printed beside (``grad_rel_err``)."""
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models.build import build
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.train.loop import value_and_grad
+
+    torch.cuda.synchronize()
+    reset_launches()
+    loss, _, grads = value_and_grad(model.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    grads = [g.cpu() for g in tree_leaves(grads)]
+    cpu = tree_map(lambda t: t.cpu(), params)
+    cpu_batch = {key: v.cpu() for key, v in batch.items()}
+    cpu_loss, _, ref = value_and_grad(model.loss_fn, cpu, cpu_batch)
+    ref = tree_leaves(ref)
+    wide = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    cpu, cpu_batch = tree_map(wide, cpu), tree_map(wide, cpu_batch)
+    mode, default = float64_mode(torch), torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:  # without remat: its recompute runs in the backward, outside the mode
+        with mode:
+            exact_loss, _, exact = value_and_grad(build(model.cfg.scaled(remat=False)).loss_fn,
+                                                  cpu, cpu_batch)
+    finally:
+        torch.set_default_dtype(default)
+    exact = tree_leaves(exact)
+    names = leaf_names(params)
+    vs_cpu = {n: rel_err(a, b) for n, a, b in zip(names, grads, ref)}
+    card = {n: rel_err(a, b) for n, a, b in zip(names, grads, exact)}
+    own = {n: rel_err(a, b) for n, a, b in zip(names, ref, exact)}
+    limit = {n: min(TRAIN_GRAD_CEILING, max(TOL_LM_CPU, LM_FLOAT64_FACTOR * own[n]))
+             for n in names}
+    return {"loss": float(loss), "cpu_loss": float(cpu_loss), "float64_loss": float(exact_loss),
+            "loss_rel_err": abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss)),
+            "grad_rel_err": max(vs_cpu.values()),
+            "grad_rel_err_vs_float64": max(card.values()),
+            "cpu_grad_rel_err_vs_float64": max(own.values()),
+            "by_leaf": {n: {"vs_cpu": vs_cpu[n], "vs_float64": card[n],
+                            "cpu_vs_float64": own[n], "limit": limit[n]} for n in names},
+            "float64_narrow": mode.narrow,
+            "passes": mode.narrow == 0 and all(card[n] <= limit[n] for n in names),
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads), "launches": launches}
+
+
+def lm_train_phase(torch, card, rows) -> dict:
+    """Training on the card: flash_attention_bwd's checks and times, the two
+    full-width runs through ``repro_torch.launch.train`` (their launches are
+    returned), card against CPU gradients, an overfit, and xlstm's backward
+    refused."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._launch import LAUNCHES, NoBackward, reset_launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention as attn
+    from repro_torch.models.build import build
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.param import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainState, make_train_step, value_and_grad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    # The kernel at llama3.2-3b's training lane (B·H 48, S 1024, D 128,
+    # causal, the config's blocks), Gaussian and the model's own layer-0
+    # operands, and at the other families' shapes.
+    cfg = get_config("llama3.2-3b")
+    lane_b, lane_s = TRAIN_RUNS[0][1], TRAIN_RUNS[0][2]
+    copy = cfg.scaled(n_layers=1)
+    params = build(copy).init(torch.Generator(device=dev).manual_seed(0))
+    dt = getattr(torch, cfg.compute_dtype)
+    toks = make_batch(cfg, lane_b, lane_s, 0, device=dev)["tokens"]
+    p0 = tree_map(lambda t: t[0], params["dense_layers"])
+    h = rmsnorm(p0["ln1"], embed(params["embed"], toks, dt), cfg.rms_eps)
+    positions = torch.arange(lane_s, device=dev)[None].expand(lane_b, lane_s)
+    mq, mk, mv = attn.gqa_qkv(p0["attn"], h, cfg, positions)
+    hd = cfg.resolved_head_dim
+    model_ops = attn.gqa_to_heads(mq * (1.0 / math.sqrt(hd)), mk, mv)
+    del params, h, mq, mk, mv
+    bh = lane_b * cfg.n_heads
+    q = torch.randn(bh, lane_s, hd, generator=gen, device=dev) / math.sqrt(hd)
+    kk = torch.randn(bh, lane_s, hd, generator=gen, device=dev)
+    v = torch.randn(bh, lane_s, hd, generator=gen, device=dev)
+    do = torch.randn(bh, lane_s, hd, generator=gen, device=dev)
+    opts = {"causal": True, "window": None, "block_q": cfg.attn_block_q,
+            "block_k": cfg.attn_block_k, "scale": 1.0}
+    main = flash_bwd_case(torch, card, f"{cfg.name} train lane", q, kk, v, do, opts,
+                          model=model_ops)
+    del q, kk, v, do, model_ops
+    by_case = {"llama3.2-3b train lane": main}
+    for name, bh, sq, sk, d, dv, causal, window in TRAIN_BWD_CASES:
+        q = torch.randn(bh, sq, d, generator=gen, device=dev) / math.sqrt(d)
+        kk = torch.randn(bh, sk, d, generator=gen, device=dev)
+        v = torch.randn(bh, sk, dv, generator=gen, device=dev)
+        do = torch.randn(bh, sq, dv, generator=gen, device=dev)
+        by_case[name] = flash_bwd_case(torch, card, name, q, kk, v, do,
+                                       {"causal": causal, "window": window, "block_q": 512,
+                                        "block_k": 1024, "scale": 1.0})
+    del q, kk, v, do
+    keep = ("shape", "keys", "value_dim", "causal", "window", "rel_err", "rel_err_vs_float64",
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "simt_bound_ms",
+            "forward_ms", "forward_no_lse_ms")
+    rows["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda", "source": KERNELS["flash_attention_bwd"][0],
+        "replaces": KERNELS["flash_attention_bwd"][1], "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in by_case.values()),
+        "rel_err": max(c["rel_err"] for c in by_case.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "simt_bound_ms": main["simt_bound_ms"],
+        "library_ms": main["library_ms"],
+        "shape": main["shape"], "by_case": {n: {x: c[x] for x in keep} for n, c in by_case.items()}}
+
+    # The two full-width runs through the launcher's entry, without
+    # checkpoints (llama's state is 51 GB), the counts set to 0 just before
+    # and read just after.
+    fft_one = {}
+    launches = {}
+    for arch, b, s, steps in TRAIN_RUNS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        reset_launches()
+        out = launch_train.main(["--arch", arch, "--steps", str(steps), "--batch", str(b),
+                                 "--seq", str(s), "--ckpt", "", "--device", "cuda"])
+        torch.cuda.synchronize()
+        seen = {n: c for n, c in LAUNCHES.items() if c}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loop, losses = out["loop"], out["losses"]
+        step_s = [loop.seconds[i] for i in sorted(loop.seconds)]
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        layers = cfg.n_layers
+        if cfg.family == "spectral":
+            per_step = {n: 3 * layers * c for n, c in mixing_census(s, cfg.d_model).items()}
+            z = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(torch.complex64)
+            fft_one = {"ms": time_ms(lambda: ops.fft2_kernel(z, radix=4), reps=5, batches=3)}
+            kernel_ms = 3 * layers * fft_one["ms"]
+            del z
+        else:
+            per_step = {"flash_attention_fwd": 2 * layers, "flash_attention_bwd": layers}
+            kernel_ms = 2 * layers * main["forward_ms"] + layers * main["ms"]
+        expect = {n: steps * c for n, c in per_step.items()}
+        line = {"phase": "lm train", "call": "train", "arch": arch, "layers": layers,
+                "d_model": cfg.d_model, "vocab": cfg.vocab, "n_params": out["model"].n_params,
+                "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+                "compute_dtype": cfg.compute_dtype, "batch": [b, s], "steps": steps,
+                "launches": seen, "expected": expect, "losses": [losses[i] for i in sorted(losses)],
+                "step_ms": step_ms, "first_step_ms": step_s[0] * 1e3,
+                "step_ms_all": [x * 1e3 for x in step_s], "tokens_per_s": b * s / (step_ms / 1e3),
+                "kernel_ms_estimate": kernel_ms, "kernel_share_estimate": kernel_ms / step_ms,
+                "peak_gb": peak, "held_before_gb": held_gb,
+                "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9, "card": card}
+        emit(line)
+        del out, loop
+        if seen != expect or not all(np.isfinite(line["losses"])):
+            raise AssertionError(f"lm train {arch}: launched {seen}, expected {expect}; "
+                                 f"losses {line['losses']}")
+        for n, c in seen.items():
+            launches[n] = launches.get(n, 0) + c
+    if fft_one:
+        for name in ("fft_fused", COLUMNS):
+            rows[name].setdefault("by_case", {})["fourier_lm train (8, 2048, 512)"] = {
+                "launches": launches.get(name, 0), "fft2_kernel_ms": fft_one["ms"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Card against CPU gradients at float32, then the overfit.
+    for arch, cut, seq in (("llama3.2-3b", {"n_layers": TRAIN_CHECK_LAYERS}, TRAIN_CHECK_SEQ),
+                           ("fourier_lm", {}, 2048)):
+        params = build(get_config(arch)).init(torch.Generator(device=dev).manual_seed(0))
+        cfg = get_config(arch).scaled(compute_dtype="float32", **cut)
+        if cut:  # the full init's first layers
+            params["dense_layers"] = tree_map(lambda t: t[:cfg.n_layers].clone(),
+                                              params["dense_layers"])
+            torch.cuda.empty_cache()
+        model = build(cfg)
+        batch = make_batch(cfg, 2, seq, 1, device=dev)
+        t0 = time.perf_counter()
+        line = {"phase": "lm train", "check": "card vs cpu", "arch": arch, "layers": cfg.n_layers,
+                "batch": [2, seq], "compute_dtype": "float32",
+                **grads_vs_cpu(torch, model, params, batch), "tolerance": TOL_LM_CPU,
+                "factor": LM_FLOAT64_FACTOR, "ceiling": TRAIN_GRAD_CEILING,
+                "seconds": time.perf_counter() - t0, "card": card}
+        emit(line)
+        if not (line["finite"] and line["passes"] and line["loss_rel_err"] <= TOL_LM_CPU):
+            raise AssertionError(f"lm train card vs cpu: {line}")
+        expect = ({n: 3 * cfg.n_layers * c for n, c in mixing_census(seq, cfg.d_model).items()}
+                  if cfg.family == "spectral" else
+                  {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers})
+        if line["launches"] != expect:
+            raise AssertionError(f"lm train card vs cpu: launched {line['launches']}, "
+                                 f"expected {expect}")
+        if arch == "llama3.2-3b":
+            state = TrainState(params, adamw_init(params))
+            step = make_train_step(model.loss_fn, peak_lr=1e-2, warmup=2, total=100)
+            losses = []
+            for _ in range(TRAIN_OVERFIT_STEPS):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            emit({"phase": "lm train", "check": "overfit", "arch": arch, "layers": cfg.n_layers,
+                  "batch": [2, seq], "losses": losses, "ratio": losses[-1] / losses[0],
+                  "card": card})
+            if not losses[-1] < 0.9 * losses[0]:
+                raise AssertionError(f"lm train overfit: {losses}")
+            del state
+        del model, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # xlstm: its sLSTM prefill launches slstm_scan, which has no backward.
+    cfg = smoke_config("xlstm-350m")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = make_batch(cfg, 2, 16, 0, device=dev)
+    reset_launches()
+    try:
+        value_and_grad(model.loss_fn, params, batch)
+        raised = None
+    except NoBackward as e:
+        raised = str(e)
+    emit({"phase": "lm train", "check": "xlstm backward refused", "raised": raised,
+          "launches": {n: c for n, c in LAUNCHES.items() if c},
+          "phase_seconds": time.perf_counter() - phase_t0, "card": card})
+    if raised is None or "item 13" not in raised or LAUNCHES["slstm_scan"]:
+        raise AssertionError(f"lm train: xlstm's backward was not refused ({raised})")
     return launches
 
 
@@ -5501,7 +5955,7 @@ def main() -> int:
     print(card, flush=True)
 
     # One capture over the kernel, request, imaging, mri, stream, serve, pencil, lm, lm
-    # state, lm audio, lm spectral and lm moe phases:
+    # state, lm audio, lm spectral, lm moe and lm train phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -5540,12 +5994,14 @@ def main() -> int:
         no_degrade(trace, "lm spectral", ops)
         state_launches["flash_attention_fwd"] += lm_moe_phase(torch, card, rows)
         no_degrade(trace, "lm moe", ops)
+        train_launches = lm_train_phase(torch, card, rows)
+        no_degrade(trace, "lm train", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})
     launches["flash_attention_fwd"] += lm_launches
-    for name, n in state_launches.items():
+    for name, n in (*state_launches.items(), *train_launches.items()):
         launches[name] += n
     for name, row in rows.items():
         row["launches"] = launches[name]

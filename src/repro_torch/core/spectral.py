@@ -12,6 +12,14 @@ Port of ``repro.core.spectral``:
 * ``stft`` / ``log_mel`` — a real spectrogram frontend for the audio arch:
   a streamed bank of 1D FFTs.
 
+``fourier_mixing`` and ``fourier_mixing_rfft`` carry their gradient in an
+``autograd.Function`` (:class:`ReFFT2`) on every device: for real x,
+y = Re(F x) with F = F_S ⊗ F_D the 2D DFT matrix, which is symmetric, so
+dL/dx = Re(F g), the same mixing applied to the cotangent g, with the
+reference's casts (g to complex64, the real part back to x's dtype). On
+the card the backward therefore runs the same planned FFT kernels as the
+forward; no kernel's output reaches autograd without a backward.
+
 ``variant="auto"`` plans every transform through :mod:`repro_torch.xfft`
 (on the card: the fused CUDA kernels); an explicit variant runs the
 ``repro_torch.core`` entries under that engine, as the reference's
@@ -33,7 +41,7 @@ from repro_torch.core.fft2d import fft2_impl, ifft2_impl
 from repro_torch.core.rfft import irfft2_impl, irfft_impl, rfft2_impl, rfft_impl
 from repro_torch.xfft._transforms import _as_tensor
 
-__all__ = ["fourier_mixing", "fftconv", "correlate2", "stft", "log_mel"]
+__all__ = ["ReFFT2", "fourier_mixing", "fftconv", "correlate2", "stft", "log_mel"]
 
 
 _CORE_ENTRIES = {
@@ -50,16 +58,36 @@ def _transform(name: str, x: torch.Tensor, variant: str, **kw) -> torch.Tensor:
     return _CORE_ENTRIES[name](x, variant=variant, **kw)
 
 
+class ReFFT2(torch.autograd.Function):
+    """y = ``mix(x)``, a real mixing Re(F x) by a symmetric F, whose
+    backward is ``mix`` of the cotangent (forward and backward each run
+    with grad disabled, so the FFT kernels see no graph)."""
+
+    @staticmethod
+    def forward(ctx, x, mix):
+        ctx.mix = mix
+        return mix(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mix(g), None
+
+
 def fourier_mixing(x, variant: str = "auto") -> torch.Tensor:
     """FNet mixing sublayer: real part of the 2D FFT over (seq, hidden).
 
     x: (..., seq, d) real. Both dims must be powers of two (pad upstream).
     variant="rfft" uses the real-input specialisation: about half the
-    FLOPs and bytes, by conjugate symmetry.
+    FLOPs and bytes, by conjugate symmetry. Differentiable through
+    :class:`ReFFT2`.
     """
     x = _as_tensor(x)
     if variant == "rfft":
         return fourier_mixing_rfft(x)
+    return ReFFT2.apply(x, functools.partial(_re_fft2, variant=variant))
+
+
+def _re_fft2(x: torch.Tensor, variant: str) -> torch.Tensor:
     return torch.real(_transform("fft2", x.to(torch.complex64), variant)).to(x.dtype)
 
 
@@ -75,8 +103,14 @@ def fourier_mixing_rfft(x, variant: str = "auto") -> torch.Tensor:
     half of the d-spectrum and mirroring the real part back:
 
       Re(Y)[s, k] = Re(Y)[(S−s) mod S, D−k]   for k > D/2
+
+    Differentiable through :class:`ReFFT2` (the same function as
+    :func:`fourier_mixing`, so the same symmetric backward).
     """
-    x = _as_tensor(x)
+    return ReFFT2.apply(_as_tensor(x), functools.partial(_re_fft2_half, variant=variant))
+
+
+def _re_fft2_half(x: torch.Tensor, variant: str) -> torch.Tensor:
     s, d = x.shape[-2], x.shape[-1]
     xh = rfft_last_axis(x, variant=variant)          # (..., S, D/2+1)
     re = torch.real(_transform("fft", xh, variant, axis=-2))  # seq-axis complex FFT

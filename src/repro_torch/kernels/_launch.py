@@ -3,6 +3,13 @@
 Each wrapper calls :func:`launch` where it launches its kernel, and
 nowhere else, so ``LAUNCHES`` counts kernel launches only: a run can show
 that its path went through the kernels and not through plain code.
+
+A kernel writes into a tensor its wrapper allocated, so its output has no
+``grad_fn``: on the card each wrapper calls :func:`refuse_grad` before it
+launches, and raises :class:`NoBackward` where autograd would otherwise
+lose a gradient without a word (ROADMAP, divergence 19). The kernels with
+a backward run inside their ``autograd.Function``, whose forward and
+backward run with grad disabled.
 """
 
 from __future__ import annotations
@@ -11,15 +18,39 @@ from typing import Dict
 
 import torch
 
-__all__ = ["LAUNCHES", "launch", "reset_launches"]
+__all__ = ["LAUNCHES", "NoBackward", "launch", "refuse_grad", "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {
     "fft_fused": 0, "rfft_fused": 0, "irfft_fused": 0, "fft2_fused": 0,
     "rfft2_fused": 0, "irfft2_fused": 0, "butterfly_stage": 0,
-    "flash_attention_fwd": 0, "slstm_scan": 0, "fft_two_pass": 0, "fft_cluster": 0,
+    "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0, "fft_two_pass": 0, "fft_cluster": 0,
     "fft2_columns": 0,
 }
+
+
+#: Where each kernel without a backward gets one, named when it refuses.
+BACKWARD_ITEM = {"slstm_scan": "ROADMAP queue 2, item 13 (slstm_scan's backward)"}
+
+
+class NoBackward(NotImplementedError):
+    """A kernel entry reached under grad with an input that requires grad,
+    where the kernel has no backward: the call's engine is not at fault,
+    so the resilience ladder re-raises it at once."""
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise :class:`NoBackward` when grad is enabled and one of
+    ``tensors`` requires grad: the kernel ``name`` has no backward here,
+    and its output would silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        where = BACKWARD_ITEM.get(name, "ROADMAP, divergence 19")
+        raise NoBackward(
+            f"{name} on the card has no backward: under grad its output would carry no "
+            f"gradient ({where}); run under torch.no_grad(), or differentiate a route "
+            "that has one (kernels.flash_attention.flash_attention, "
+            "core.spectral.fourier_mixing)"
+        )
 
 
 def reset_launches() -> None:

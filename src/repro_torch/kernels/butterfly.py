@@ -23,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._launch import launch
+from repro_torch.kernels._launch import launch, refuse_grad
 
 __all__ = ["THREADS", "butterfly_stage", "butterfly_stage_plain", "stage_grid"]
 
@@ -93,6 +93,7 @@ def butterfly_stage(
     _check(re, im, stage)
     if re.device.type == "cpu":
         return butterfly_stage_plain(re, im, stage=stage)
+    refuse_grad("butterfly_stage", re, im)
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("butterfly_stage needs contiguous planes")
     b, n = re.shape

@@ -218,6 +218,7 @@ flash_attention_kernel(const float* __restrict__ q,
     const float* __restrict__ k,
     const float* __restrict__ v,
     float* __restrict__ o,
+    float* __restrict__ lse,
     int n_heads,
     int sq,
     int sk,
@@ -443,6 +444,10 @@ flash_attention_kernel(const float* __restrict__ q,
     const int row = q0 + r0 + 8 * ri + g;
     if (row >= sq) continue;
     const float denom = fmaxf(m[ri] == kNegInf ? static_cast<float>(sk_pad) : l[ri], 1e-20f);
+    // Each row's logsumexp, for the backward (m + log l; -1e30 where the
+    // row sees no key), only when the caller asks: serving passes null.
+    if (lse != nullptr && t == 0)
+      lse[static_cast<size_t>(bh) * sq + row] = m[ri] + logf(denom);
     float* out = oh + static_cast<size_t>(row) * dv;
 #pragma unroll
     for (int n = 0; n < NV; ++n)
@@ -455,7 +460,8 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 template <int NV>
-cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, int bh,
+cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, float* lse,
+                         int bh,
                          int sq, int sk, int d, int dv, int causal, int has_window, int window,
                          float scale, int sk_pad, int vec_qk, int vec_v, int smem,
                          cudaStream_t stream) {
@@ -469,7 +475,8 @@ cudaError_t launch_flash(const float* q, const float* k, const float* v, float* 
   const int bq = query_tile(dv);
   const int blocks = (sq + bq - 1) / bq * bh;
   flash_attention_kernel<NV><<<blocks, kThreads, smem, stream>>>(
-      q, k, v, o, bh, sq, sk, d, dv, causal, has_window, window, scale, sk_pad, vec_qk, vec_v);
+      q, k, v, o, lse, bh, sq, sk, d, dv, causal, has_window, window, scale, sk_pad, vec_qk,
+      vec_v);
   return cudaGetLastError();
 }
 
@@ -494,11 +501,11 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace repro
 
 // q (bh, sq, d), k (bh, sk, d), v (bh, sk, dv), o (bh, sq, dv): float32,
-// contiguous. nv: output accumulator n-tiles of 8 columns, the smallest
+// contiguous; lse (bh, sq) float32 takes each row's logsumexp, or is null. nv: output accumulator n-tiles of 8 columns, the smallest
 // power of two covering dv; threads and smem as the wrapper's census gives
 // them.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int bh, int sq, int sk, int d, int dv, int causal,
+                                         void* lse, int bh, int sq, int sk, int d, int dv, int causal,
                                          int has_window, int window, float scale, int sk_pad,
                                          int nv, int threads, int smem, int device,
                                          void* stream) {
@@ -515,12 +522,13 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   auto* op = static_cast<float*>(o);
+  auto* lp = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   const int vec_qk = d % 4 == 0 && repro::aligned16(q) && repro::aligned16(k);
   const int vec_v = dv % 4 == 0 && repro::aligned16(v);
 #define REPRO_FLASH_CASE(N)                                                                  \
   case N:                                                                                    \
-    return repro::launch_flash<N>(qp, kp, vp, op, bh, sq, sk, d, dv, causal, has_window,     \
+    return repro::launch_flash<N>(qp, kp, vp, op, lp, bh, sq, sk, d, dv, causal, has_window, \
                                   window, scale, sk_pad, vec_qk, vec_v, smem, s);
   switch (nv) {
     REPRO_FLASH_CASE(1)

@@ -49,7 +49,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import LAUNCHES, reset_launches
+from repro_torch.kernels._launch import LAUNCHES, refuse_grad, reset_launches
 from repro_torch.kernels._launch import launch as _launch
 
 __all__ = [
@@ -1045,6 +1045,7 @@ def _check_pow2(n: int, name: str, what: str = "length") -> None:
 
 
 def _check_launchable(x: torch.Tensor, name: str) -> None:
+    refuse_grad(name, x)
     if x.is_conj() or x.is_neg():
         raise ValueError(f"{name}: resolve the conjugate/negative view first")
     if not x.is_contiguous():

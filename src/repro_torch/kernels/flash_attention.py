@@ -22,23 +22,48 @@ applied as ``NEG_INF = -1e30``, never ``-inf``; l is floored at 1e-20.
 * :func:`flash_attention_plain` — the reference kernel's recurrence in
   torch, block for block.
 * :func:`mha_reference` — the naive oracle.
+
+The backward has no TPU counterpart (the reference differentiates its
+model's jnp attention by XLA):
+
+* :func:`flash_attention_bwd` — (dq, dk, dv) from q, k, v, the output, its
+  cotangent and each query row's logsumexp, which the forward writes when
+  asked (``return_lse=True``; serving never asks, so it pays nothing). The
+  forward holds m and l at its end, so the logsumexp costs one float a
+  row there; recomputing it in the backward would take one more pass
+  over every score (2 D flops a pair, a fifth of the backward's work). A
+  CPU tensor runs :func:`flash_attention_bwd_plain`; a CUDA tensor launches
+  ``csrc/flash_attention_bwd.cu`` (a dQ pass and a dK/dV pass, float32 FMA
+  on the CUDA cores, no atomics: the same bits every run) or raises.
+* :func:`flash_attention` — the differentiable entry: under grad an
+  ``autograd.Function`` whose forward is :func:`flash_attention_fwd` and
+  whose backward is :func:`flash_attention_bwd`, else the forward alone.
+
+Called under grad with an input that requires grad, outside that
+Function, the card's forward raises (:class:`NoBackward`) rather than
+return a tensor with no ``grad_fn`` (ROADMAP, divergence 19).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import launch
+from repro_torch.kernels._launch import launch, refuse_grad
 
 __all__ = [
     "MAX_HEAD_DIM",
     "NEG_INF",
+    "FlashAttention",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_plain",
     "flash_blocks_per_sm",
+    "flash_bwd_smem_bytes",
     "flash_smem_bytes",
     "mha_reference",
 ]
@@ -142,21 +167,25 @@ def flash_attention_plain(
     block_q: int = 256,
     block_k: int = 512,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The reference kernel's online softmax over its padded key blocks, all
     query rows at once (a query block only pads, and padded rows are cut).
-    Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference."""
+    Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference.
+    Runs in float32 (float64 for float64 input, for ``gradcheck``); with
+    ``return_lse`` also returns each row's logsumexp m + log l, (BH, Sq)."""
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
     _, block_k, sq_pad, sk_pad = _blocks(sq, sk, block_q, block_k)
-    q = torch.nn.functional.pad(q.float(), (0, 0, 0, sq_pad - sq))
-    k = torch.nn.functional.pad(k.float(), (0, 0, 0, sk_pad - sk))
-    v = torch.nn.functional.pad(v.float(), (0, 0, 0, sk_pad - sk))
+    dt = _work_dtype(q)
+    q = torch.nn.functional.pad(q.to(dt), (0, 0, 0, sq_pad - sq))
+    k = torch.nn.functional.pad(k.to(dt), (0, 0, 0, sk_pad - sk))
+    v = torch.nn.functional.pad(v.to(dt), (0, 0, 0, sk_pad - sk))
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qpos = torch.arange(sq_pad, device=q.device).reshape(sq_pad, 1)
-    acc = torch.zeros(bh, sq_pad, dv, dtype=torch.float32, device=q.device)
-    m = torch.full((bh, sq_pad, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros(bh, sq_pad, 1, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(bh, sq_pad, dv, dtype=dt, device=q.device)
+    m = torch.full((bh, sq_pad, 1), NEG_INF, dtype=dt, device=q.device)
+    l = torch.zeros(bh, sq_pad, 1, dtype=dt, device=q.device)
     for k0 in range(0, sk_pad, block_k):
         kb = k[:, k0:k0 + block_k]
         vb = v[:, k0:k0 + block_k]
@@ -169,7 +198,16 @@ def flash_attention_plain(
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p, vb)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-20))[:, :sq]
+    denom = torch.clamp(l, min=1e-20)
+    out = (acc / denom)[:, :sq]
+    if return_lse:
+        return out, (m + torch.log(denom))[:, :sq, 0]
+    return out
+
+
+def _work_dtype(x: torch.Tensor) -> torch.dtype:
+    """float64 for float64 input, else float32: the plain versions' type."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def mha_reference(q, k, v, *, causal: bool = True, window: Optional[int] = None):
@@ -194,18 +232,22 @@ def flash_attention_fwd(
     block_q: int = 256,
     block_k: int = 512,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv) -> (BH, Sq, Dv) float32.
+    return_lse: bool = False,
+):
+    """q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv) -> (BH, Sq, Dv) float32,
+    and with ``return_lse`` each row's logsumexp (BH, Sq) float32 too.
 
     Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference
     (a caller that scaled q already passes 1). On a CUDA tensor D and Dv may
     be at most 256 (``NotImplementedError`` above that) and BH at most
-    65535.
+    65535; under grad, an input that requires grad raises
+    :class:`NoBackward` (call :func:`flash_attention`).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     block_q=block_q, block_k=block_k, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, block_q=block_q,
+                                     block_k=block_k, scale=scale, return_lse=return_lse)
+    refuse_grad("flash_attention_fwd", q, k, v)
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
@@ -216,14 +258,190 @@ def flash_attention_fwd(
         raise NotImplementedError(f"flash_attention_fwd on the card takes BH <= 65535, got {bh}")
     q, k, v = (x.to(torch.float32).contiguous() for x in (q, k, v))
     out = torch.empty(bh, sq, dv, dtype=torch.float32, device=q.device)
+    lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device) if return_lse else None
     if bh and sq:
         sk_pad = _blocks(sq, sk, block_q, block_k)[3]
-        # Any window beyond these limits masks as the limit does; the clamp
-        # keeps it a C int.
-        w = 0 if window is None else max(-sk, min(int(window), sq + sk + 1))
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
-               k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk, d, dv, int(causal),
-               int(window is not None), w, 1.0 / math.sqrt(d) if scale is None else scale,
-               sk_pad, _acc_columns(dv),
+               k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               None if lse is None else lse.data_ptr(), bh, sq, sk, d, dv, int(causal),
+               int(window is not None), _c_window(window, sq, sk),
+               1.0 / math.sqrt(d) if scale is None else scale, sk_pad, _acc_columns(dv),
                THREADS, flash_smem_bytes(d, dv))
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _c_window(window: Optional[int], sq: int, sk: int) -> int:
+    """The window as the kernels take it: any window beyond these limits
+    masks as the limit does, and the clamp keeps it a C int."""
+    return 0 if window is None else max(-sk, min(int(window), sq + sk + 1))
+
+
+# ------------------------------ backward ------------------------------
+
+#: Threads per block of both backward kernels (16 x 16).
+BWD_THREADS = 256
+
+
+def bwd_width(d: int, dv: int) -> int:
+    """The backward kernels' width instance: the smallest of 32, 64, 128
+    and 256 covering D and Dv (their register accumulators' columns)."""
+    return next(w for w in (32, 64, 128, 256) if max(d, dv) <= w)
+
+
+def bwd_tile(d: int, dv: int) -> int:
+    """Rows of a backward tile, queries and keys alike: 64, or 32 at width
+    256 (where the tiles of 64 rows would not fit in shared memory)."""
+    return 32 if bwd_width(d, dv) > 128 else 64
+
+
+def flash_bwd_smem_bytes(d: int, dv: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the dQ kernel's and the dK/dV kernel's
+    blocks: their tiles in rows padded to an odd float count (q, dO, k, v;
+    dS, and P in the dK/dV kernel), and each query row's lse and delta."""
+    t = bwd_tile(d, dv)
+    tiles = 2 * (d + 1) + 2 * (dv + 1)
+    return 4 * t * (tiles + (t + 1) + 2), 4 * t * (tiles + 2 * (t + 1) + 2)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: int = 256,
+    block_k: int = 512,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward over the reference's key blocks, all query rows at once:
+    P recomputed from ``lse``, delta = rowsum(dO o O), dV = P^T dO, dS = P o
+    (dO V^T - delta), dQ = scale dS K, dK = scale dS^T Q. A row that sees no
+    key took the mean of the ``sk_pad`` padded values in the forward: P is
+    1/sk_pad on every real key and dS is 0. Float32 (float64 for float64
+    input)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    _, block_k, _, sk_pad = _blocks(sq, sk, block_q, block_k)
+    dt = _work_dtype(q)
+    q, k, v, o, do, lse = (x.to(dt) for x in (q, k, v, o, do, lse))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    qpos = torch.arange(sq, device=q.device).reshape(sq, 1)
+    blind = ~_mask(qpos, torch.arange(sk, device=q.device).reshape(1, sk), sk, causal,
+                   window).any(dim=-1, keepdim=True)
+    dq = torch.zeros_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for k0 in range(0, sk, block_k):
+        kb, vb = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        kpos = k0 + torch.arange(kb.shape[1], device=q.device).reshape(1, -1)
+        keep = _mask(qpos, kpos, sk, causal, window)
+        s = torch.matmul(q, kb.transpose(-1, -2)) * scale
+        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+        p = torch.where(blind, 1.0 / sk_pad, p)
+        dp = torch.matmul(do, vb.transpose(-1, -2))
+        ds = torch.where(keep, p * (dp - delta), 0.0)
+        dv[:, k0:k0 + block_k] = torch.matmul(p.transpose(-1, -2), do)
+        dk[:, k0:k0 + block_k] = torch.matmul(ds.transpose(-1, -2), q) * scale
+        dq += torch.matmul(ds, kb) * scale
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: int = 256,
+    block_k: int = 512,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_fwd` at (q, k, v), given its
+    output ``o`` (BH, Sq, Dv), the cotangent ``do`` of that output and the
+    logsumexp ``lse`` (BH, Sq) it returned; the same options as the
+    forward. Float32 gradients of q's, k's and v's shapes. A CPU tensor runs
+    the plain version; a CUDA tensor launches ``csrc/flash_attention_bwd.cu``
+    (one launch: the dQ pass, then the dK/dV pass) or raises."""
+    _check(q, k, v)
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    for name, x, shape in (("o", o, (bh, sq, dv)), ("do", do, (bh, sq, dv)),
+                           ("lse", lse, (bh, sq))):
+        if tuple(x.shape) != shape or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be {shape} on {q.device}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    opts = {"causal": causal, "window": window, "block_q": block_q, "block_k": block_k,
+            "scale": scale}
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, **opts)
+    refuse_grad("flash_attention_bwd", q, k, v, o, do, lse)
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash_attention_bwd on the card takes D, Dv <= {MAX_HEAD_DIM}, got {d}, {dv}"
+        )
+    q, k, v, o, do, lse = (x.to(torch.float32).contiguous() for x in (q, k, v, o, do, lse))
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if bh and sq:
+        delta = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+        sk_pad = _blocks(sq, sk, block_q, block_k)[3]
+        launch("repro_flash_attention_bwd", "flash_attention_bwd", q, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), bh, sq, sk, d,
+               dv, int(causal), int(window is not None), _c_window(window, sq, sk),
+               1.0 / math.sqrt(d) if scale is None else scale, sk_pad, bwd_width(d, dv),
+               BWD_THREADS, *flash_bwd_smem_bytes(d, dv))
+    else:
+        dk.zero_()
+        dvv.zero_()
+    return dq, dk, dvv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention_fwd` with :func:`flash_attention_bwd` as its
+    backward, at the (BH, S, D) layout. Saves q, k, v, the output and the
+    logsumexp; the gradients come back in q's, k's and v's dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_k, scale):
+        ctx.opts = {"causal": causal, "window": window, "block_q": block_q,
+                    "block_k": block_k, "scale": scale}
+        out, lse = flash_attention_fwd(q, k, v, return_lse=True, **ctx.opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, **ctx.opts)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: int = 256,
+    block_k: int = 512,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Differentiable :func:`flash_attention_fwd`: under grad, with an input
+    that requires it, :class:`FlashAttention` (the backward on
+    :func:`flash_attention_bwd`); else the forward alone, which writes no
+    logsumexp."""
+    opts = (causal, window, block_q, block_k, scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, *opts)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window, block_q=block_q,
+                               block_k=block_k, scale=scale)

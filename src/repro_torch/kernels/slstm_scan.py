@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._launch import launch
+from repro_torch.kernels._launch import launch, refuse_grad
 
 __all__ = [
     "SLSTM_HEADS",
@@ -244,6 +244,7 @@ def slstm_scan(xg, wr, bias, c0, n0, h0, m0, *, chunk: int = 256) -> Tuple[torch
         raise ValueError(f"L={l} not divisible by chunk={chunk}")
     if xg.device.type == "cpu":
         return slstm_scan_plain(xg, wr, bias, c0, n0, h0, m0)
+    refuse_grad("slstm_scan", xg, wr, bias, c0, n0, h0, m0)
     if d > MAX_D:
         raise NotImplementedError(f"slstm_scan on the card takes D <= {MAX_D}, got {d}")
     xg, wr, bias, c0, n0, h0, m0 = (x.to(torch.float32).contiguous()

@@ -6,7 +6,11 @@ Port of ``repro.models.attention``, the GQA part. Prefill attention is
 * on a CUDA tensor it runs the hand-written kernel
   ``repro_torch.kernels.flash_attention.flash_attention_fwd`` in float32
   (query head h reads kv head h // g, laid out as (B·H, S, D); the result
-  is cast back to the compute dtype). q is scaled in the compute dtype
+  is cast back to the compute dtype), under grad inside the kernels'
+  ``FlashAttention`` Function, whose backward launches
+  ``flash_attention_bwd``; the group's repeat, the casts and the query's
+  scale stay ordinary ops outside it, so autograd sums dK and dV over each
+  group and casts them back. q is scaled in the compute dtype
   first, the reference's rounding step, and the kernel takes scale 1. The
   reference's model runs a jnp function in the compute dtype; the kernel
   computes the same function, keeping the softmax weights in float32
@@ -146,8 +150,9 @@ def flash_attention_blocks(q, k, v, *, causal: bool = True, window: Optional[int
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, block_q: int = 512, block_k: int = 1024):
     """q: (B, Sq, H, Dk); k: (B, Sk, KV, Dk); v: (B, Sk, KV, Dv). GQA via
-    H = KV·g. A CUDA tensor launches ``flash_attention_fwd`` or raises; a
-    CPU tensor runs :func:`flash_attention_blocks`."""
+    H = KV·g. A CUDA tensor launches ``flash_attention_fwd`` (under grad
+    with ``flash_attention_bwd`` as its backward) or raises; a CPU tensor
+    runs :func:`flash_attention_blocks`, differentiated by autograd."""
     if q.device.type != "cuda":
         return flash_attention_blocks(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, block_q=block_q, block_k=block_k)
@@ -157,8 +162,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
             "query offset (only context-parallel attention uses one)"
         )
     qs = q * (1.0 / math.sqrt(q.shape[-1]))  # rounded to the compute dtype, as the reference
-    out = fa.flash_attention_fwd(*gqa_to_heads(qs, k, v), causal=causal, window=window,
-                                 block_q=block_q, block_k=block_k, scale=1.0)
+    out = fa.flash_attention(*gqa_to_heads(qs, k, v), causal=causal, window=window,
+                             block_q=block_q, block_k=block_k, scale=1.0)
     return gqa_from_heads(out, q.shape[0]).to(q.dtype)
 
 

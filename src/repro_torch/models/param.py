@@ -89,6 +89,23 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_like(tree, leaves):
+    """``leaves`` (in tree order) in ``tree``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def unstack(stacked, n: int) -> list:
+    """The ``n`` layers of stacked weights, one tree each, every leaf
+    unbound once along its leading layer axis. Under autograd the stacked
+    gradient is then assembled in one pass at the end of the backward;
+    indexing each layer's slice instead has autograd zero-fill a gradient
+    of the whole stack for every layer and add them up (on llama3.2-3b's
+    training step 60% of the card's time)."""
+    unbound = [t.unbind(0) for t in tree_leaves(stacked)]
+    return [tree_like(stacked, [u[i] for u in unbound]) for i in range(n)]
+
+
 # ------------------------------ params ------------------------------
 
 

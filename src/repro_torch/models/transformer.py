@@ -11,9 +11,20 @@ frame embeddings, a decoder with self- and cross-attention) and the
 spectral stack (fourier_lm: FNet blocks whose token mixing is Re(FFT2)
 through ``repro_torch.core.spectral.fourier_mixing``). Layer weights are
 stacked along a leading layer axis, as in the reference, whose
-``lax.scan`` over them becomes a loop over the layer index here; a
-stacked cache is walked the same way, each layer writing its new cache or
-state into its slice, a view of the stacked tensors.
+``lax.scan`` over them becomes a loop over the layers here, each leaf
+unbound once (``param.unstack``); a stacked cache is walked by index, each
+layer writing its new cache or state into its slice, a view of the
+stacked tensors.
+
+Remat: where the reference wraps its scanned block in ``jax.checkpoint``
+(``cfg.remat``; ``_maybe_remat``), :func:`_remat` wraps the same block in
+``torch.utils.checkpoint`` (non-reentrant): ``remat_policy="full"`` keeps
+only the block's inputs and runs its forward again in the backward;
+``"dots"`` also keeps the outputs of the matrix products without batch
+dimensions (``aten.mm`` / ``addmm``, as ``dots_with_no_batch_dims_saveable``
+keeps ``dot_general``'s). It applies only to a forward without caches run
+while grad is enabled: serving and every call under ``no_grad`` run the
+blocks as they are.
 """
 
 from __future__ import annotations
@@ -21,8 +32,14 @@ from __future__ import annotations
 from typing import Any
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.core.spectral import fourier_mixing
 from repro_torch.models import attention as attn
@@ -40,7 +57,14 @@ from repro_torch.models.layers import (
     unembed,
     unembed_skel,
 )
-from repro_torch.models.param import ParamDef, _device, stack_skeleton, tree_leaves, tree_map
+from repro_torch.models.param import (
+    ParamDef,
+    _device,
+    stack_skeleton,
+    tree_leaves,
+    tree_map,
+    unstack,
+)
 
 __all__ = [
     "decoder_block_apply",
@@ -60,12 +84,35 @@ __all__ = [
     "mtp_logits",
     "rmsnorm_like",
     "shared_block_apply",
+    "spectral_block_apply",
     "spectral_forward",
     "spectral_skel",
     "xlstm_forward",
     "xlstm_init_cache",
+    "xlstm_pair_apply",
     "xlstm_skel",
 ]
+
+
+# ----------------------------------- remat -----------------------------------
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep matrix products without batch dims."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig, caches=None):
+    """``fn`` under activation checkpointing per ``cfg.remat`` /
+    ``cfg.remat_policy`` (the reference's ``_maybe_remat``) when grad is
+    enabled and the forward carries no caches; else ``fn`` itself."""
+    if not cfg.remat or caches is not None or not torch.is_grad_enabled():
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, **kw)
 
 
 # ------------------------- decoder block (dense/moe) -------------------------
@@ -158,13 +205,14 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, decode=
     positions = positions.expand(b, s)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(decoder_block_apply, cfg, caches)
     for name, n, _ in _stacks(cfg):
-        layers = params[name]
+        layers = unstack(params[name], n)
         stacked = caches[name] if caches is not None else None
         for i in range(n):
             c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
-            x, _, aux = decoder_block_apply(
-                tree_map(lambda t: t[i], layers), x, cfg,
+            x, _, aux = block(
+                layers[i], x, cfg,
                 positions=positions, cache=c_l, decode=decode, pos=pos0,
             )
             aux_total = aux_total + aux
@@ -284,12 +332,12 @@ def hybrid_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, dec
 
     n_inv = _n_shared_invocations(cfg)
     group = cfg.n_layers // n_inv
-    layers = params["mamba_layers"]
+    layers = unstack(params["mamba_layers"], cfg.n_layers)
+    mamba = _remat(ssm_mod.mamba2_apply, cfg, caches)
     for gi in range(n_inv):
         for i in range(gi * group, (gi + 1) * group):
             st = tree_map(lambda t: t[i], caches["mamba"]) if caches is not None else None
-            x, st_new = ssm_mod.mamba2_apply(tree_map(lambda t: t[i], layers), x, cfg,
-                                             state=st, decode=decode)
+            x, st_new = mamba(layers[i], x, cfg, state=st, decode=decode)
             if st is not None:
                 _write(st, st_new)
 
@@ -334,21 +382,29 @@ def xlstm_forward(params, tokens, cfg: ModelConfig, *, pos0=0, caches=None, deco
     each block behind a parameter-free pre-norm and a residual."""
     dt = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], tokens, dt)
-    for i in range(cfg.n_layers // 2):
+    pair = _remat(xlstm_pair_apply, cfg, caches)
+    n_pairs = cfg.n_layers // 2
+    mlstm = unstack(params["mlstm_layers"], n_pairs)
+    slstm = unstack(params["slstm_layers"], n_pairs)
+    for i in range(n_pairs):
         cm = tree_map(lambda t: t[i], caches["mlstm"]) if caches is not None else None
         cs = tree_map(lambda t: t[i], caches["slstm"]) if caches is not None else None
-        dm, sm = xlstm_mod.mlstm_apply(tree_map(lambda t: t[i], params["mlstm_layers"]),
-                                       rmsnorm_like(x, cfg), cfg, state=cm, decode=decode)
-        x = x + dm
-        ds, ss = xlstm_mod.slstm_apply(tree_map(lambda t: t[i], params["slstm_layers"]),
-                                       rmsnorm_like(x, cfg), cfg, state=cs, decode=decode)
-        x = x + ds
+        x, sm, ss = pair(mlstm[i], slstm[i], x, cfg, cm=cm, cs=cs, decode=decode)
         if caches is not None:
             _write(cm, sm)
             _write(cs, ss)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return (unembed(params["unembed"], x), caches,
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def xlstm_pair_apply(pm, ps, x, cfg: ModelConfig, *, cm=None, cs=None, decode=False):
+    """One (mLSTM, sLSTM) pair, each behind a parameter-free pre-norm and a
+    residual; returns (x, mLSTM state, sLSTM state)."""
+    dm, sm = xlstm_mod.mlstm_apply(pm, rmsnorm_like(x, cfg), cfg, state=cm, decode=decode)
+    x = x + dm
+    ds, ss = xlstm_mod.slstm_apply(ps, rmsnorm_like(x, cfg), cfg, state=cs, decode=decode)
+    return x + ds, sm, ss
 
 
 def rmsnorm_like(x, cfg: ModelConfig):
@@ -409,9 +465,9 @@ def encoder_forward(params, frames, cfg: ModelConfig):
     x = frames.to(dt)
     b, t, _ = x.shape
     positions = _positions(b, t, 0, x.device)
-    layers = params["enc_layers"]
-    for i in range(cfg.n_enc_layers or cfg.n_layers):
-        x = encoder_block_apply(tree_map(lambda w: w[i], layers), x, cfg, positions=positions)
+    block = _remat(encoder_block_apply, cfg)
+    for p_l in unstack(params["enc_layers"], cfg.n_enc_layers or cfg.n_layers):
+        x = block(p_l, x, cfg, positions=positions)
     return rmsnorm(params["enc_norm"], x, cfg.rms_eps)
 
 
@@ -433,6 +489,13 @@ def encdec_block_apply(p, x, cross, cfg: ModelConfig, *, positions, cache=None,
     x = x + a
     x = x + attn.cross_attn_apply(p["xattn"], rmsnorm(p["lnx"], x, cfg.rms_eps), cross, cfg)
     return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps), "gelu")
+
+
+def _encdec_block_with_cross(p, x, enc_out, cfg: ModelConfig, *, positions):
+    """A decoder block without a cache, its cross K/V computed from the
+    encoder output inside it."""
+    kv = attn.cross_kv(p["xattn"], enc_out, getattr(torch, cfg.compute_dtype))
+    return encdec_block_apply(p, x, kv, cfg, positions=positions)
 
 
 def _fit_cross(stacked: dict, frames: int) -> None:
@@ -466,19 +529,21 @@ def encdec_forward(params, tokens, cfg: ModelConfig, *, frames=None, enc_out=Non
     stacked = caches["dec"] if caches is not None else None
     if stacked is not None and not decode:
         _fit_cross(stacked, enc_out.shape[1])
-    layers = params["dec_layers"]
-    for i in range(cfg.n_layers):
-        p_l = tree_map(lambda w: w[i], layers)
-        c_l = tree_map(lambda t: t[i], stacked) if stacked is not None else None
-        if c_l is not None and decode:
+    # Without caches (training) the block computes its cross K/V inside, one
+    # remat unit as the reference's scanned body.
+    block = _remat(_encdec_block_with_cross, cfg)
+    for i, p_l in enumerate(unstack(params["dec_layers"], cfg.n_layers)):
+        if stacked is None:
+            x = block(p_l, x, enc_out, cfg, positions=positions)
+            continue
+        c_l = tree_map(lambda t: t[i], stacked)
+        if decode:
             kx, vx = c_l["cross_k"].to(dt), c_l["cross_v"].to(dt)
         else:
             kx, vx = attn.cross_kv(p_l["xattn"], enc_out, dt)
-            if c_l is not None:
-                c_l["cross_k"].copy_(kx)
-                c_l["cross_v"].copy_(vx)
-        x = encdec_block_apply(p_l, x, (kx, vx), cfg, positions=positions,
-                               cache=c_l["self"] if c_l is not None else None,
+            c_l["cross_k"].copy_(kx)
+            c_l["cross_v"].copy_(vx)
+        x = encdec_block_apply(p_l, x, (kx, vx), cfg, positions=positions, cache=c_l["self"],
                                decode=decode, pos=pos0)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return (unembed(params["unembed"], x), caches,
@@ -519,6 +584,12 @@ def spectral_skel(cfg: ModelConfig) -> dict:
     }
 
 
+def spectral_block_apply(p, x, cfg: ModelConfig):
+    """One FNet block: pre-norm Re(FFT2) mixing, then the MLP."""
+    x = x + fourier_mixing(rmsnorm(p["ln1"], x, cfg.rms_eps), variant=cfg.fft_variant)
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.rms_eps), "gelu")
+
+
 def spectral_forward(params, tokens, cfg: ModelConfig, **_):
     """FNet-style encoder LM; returns (logits, None, aux). Each block's
     token mixing is Re(FFT2) over (seq, d_model) under ``cfg.fft_variant``
@@ -527,13 +598,9 @@ def spectral_forward(params, tokens, cfg: ModelConfig, **_):
     sequence is not padded here (``seq_pad_to_pow2`` is the caller's)."""
     dt = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], tokens, dt)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        p_l = tree_map(lambda w: w[i], layers)
-        h = rmsnorm(p_l["ln1"], x, cfg.rms_eps)
-        x = x + fourier_mixing(h, variant=cfg.fft_variant)
-        h = rmsnorm(p_l["ln2"], x, cfg.rms_eps)
-        x = x + mlp(p_l["mlp"], h, "gelu")
+    block = _remat(spectral_block_apply, cfg)
+    for p_l in unstack(params["layers"], cfg.n_layers):
+        x = block(p_l, x, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return unembed(params["unembed"], x), None, torch.zeros((), dtype=torch.float32,
                                                              device=x.device)

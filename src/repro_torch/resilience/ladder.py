@@ -41,6 +41,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Set
 
 from repro_torch import obs
+from repro_torch.kernels._launch import NoBackward
 from repro_torch.resilience import faults
 from repro_torch.resilience.breaker import quarantine
 
@@ -157,6 +158,8 @@ def run_plan(plan, runner: Callable[[str], Any]):
                 return out
             reason = "nonfinite"
             unhealthy_out = out
+        except NoBackward:
+            raise  # the caller differentiates through a kernel: no engine would do better
         except Exception as e:  # noqa: BLE001 — the ladder exists to catch
             err = e
         attempted.add(variant)

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no reference package, no library kernel.
 
-``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor ``repro``;
+``repro_torch``, ``chip_smoke.py`` and ``examples/torch`` import neither
+``jax`` nor ``repro``;
 the package calls neither ``torch.fft``, ``scaled_dot_product_attention``
 nor ``torch.compile`` (the smoke script may time the first two as its
 yardsticks); and non-tensor input is sent to the card, so it raises where
@@ -40,6 +41,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.models.attention, repro_torch.models.transformer; "
         "import repro_torch.models.build, repro_torch.configs, repro_torch.data; "
         "import repro_torch.launch.serve; from repro_torch.serve import ServeEngine, Request; "
+        "import repro_torch.optim, repro_torch.optim.compression, repro_torch.train; "
+        "import repro_torch.train.loop, repro_torch.launch.train; "
         "from repro_torch.configs import get_config; get_config('llama3.2-3b'); "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
@@ -50,7 +53,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples" / "torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_reference(path):
     text = path.read_text()

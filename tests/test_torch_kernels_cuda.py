@@ -90,8 +90,8 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
                     k.irfft2_fused_plain(y, radix=radix)) <= TOL
     assert k.LAUNCHES == {"fft_fused": 56, "rfft_fused": 28, "irfft_fused": 5, "fft2_fused": 3,
                           "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
-                          "flash_attention_fwd": 0, "slstm_scan": 0, "fft_two_pass": 0,
-                          "fft_cluster": 0, "fft2_columns": 0}
+                          "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0,
+                          "fft_two_pass": 0, "fft_cluster": 0, "fft2_columns": 0}
 
 
 @pytest.mark.cuda
@@ -416,7 +416,7 @@ def test_cuda_flash_attention_raises_on_what_the_kernel_refuses(cuda):
     k.reset_launches()
     with pytest.raises(RuntimeError, match="CUDA error"):  # nv = 1 covers only dv <= 8
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
-               q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 8, 8, 128, 128, 1, 0, 0,
+               q.data_ptr(), q.data_ptr(), out.data_ptr(), None, 1, 8, 8, 128, 128, 1, 0, 0,
                1.0, 8, 1, fa.THREADS, fa.flash_smem_bytes(128, 128))
     assert k.LAUNCHES["flash_attention_fwd"] == 0
 
@@ -1500,3 +1500,174 @@ def test_cuda_moe_apply_matches_the_cpu(cuda, arch):
     assert int(stats["kept"]) < stats["assignments"]
     assert _rel(y.cpu(), ref) <= 1e-5 and abs(float(aux) - float(ref_aux)) <= 1e-5
     assert torch.equal(y, again)
+
+
+# (bh, sq, sk, d, dv, causal, window, block_q, block_k)
+FLASH_BWD_CASES = [
+    (48, 256, 256, 128, 128, True, None, 512, 1024),  # llama's head width, causal
+    (8, 300, 300, 128, 128, True, 100, 512, 1024),  # a window, partial tiles
+    (16, 16, 150, 64, 64, False, None, 512, 1024),  # cross-attention, Sq != Sk
+    (8, 130, 130, 192, 128, True, None, 512, 1024),  # MLA's D 192 -> Dv 128
+    (8, 100, 100, 160, 160, True, None, 512, 1024),  # zamba2's Dv 160
+    (4, 70, 45, 37, 19, False, 8, 16, 16),  # odd widths; rows that see no key, Sk padded
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_cuda_flash_attention_bwd_matches_plain(cuda, case):
+    """flash_attention_bwd against its plain version on the same operands,
+    the logsumexp from the card's forward: one launch a call, dq, dk, dv
+    within 2e-5 of the plain version's largest value, and the same bits on
+    a second call (no atomics)."""
+    bh, sq, sk, d, dv, causal, window, bq, bk = case
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn(bh, sq, d, generator=g, device=cuda) / math.sqrt(d)
+    kk = torch.randn(bh, sk, d, generator=g, device=cuda)
+    v = torch.randn(bh, sk, dv, generator=g, device=cuda)
+    do = torch.randn(bh, sq, dv, generator=g, device=cuda)
+    opts = dict(causal=causal, window=window, block_q=bq, block_k=bk, scale=1.0)
+    o, lse = fa.flash_attention_fwd(q, kk, v, return_lse=True, **opts)
+    k.reset_launches()
+    got = fa.flash_attention_bwd(q, kk, v, o, do, lse, **opts)
+    again = fa.flash_attention_bwd(q, kk, v, o, do, lse, **opts)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention_bwd"] == 2
+    ref = fa.flash_attention_bwd_plain(q, kk, v, o, do, lse, **opts)
+    for name, a, b, c in zip("qkv", got, ref, again):
+        assert _rel(a, b) <= TOL, (name, _rel(a, b))
+        assert torch.equal(a, c), name
+    o_ref, lse_ref = fa.flash_attention_plain(q, kk, v, return_lse=True, **opts)
+    assert float((lse - lse_ref).abs().max()) <= 1e-5 * float(lse_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_function_launches_forward_and_backward(cuda):
+    """Under grad the model route's Function launches the forward (with the
+    logsumexp) and the backward once each; without grad the forward only."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, kk, v = (torch.randn(8, 64, 32, generator=g, device=cuda).requires_grad_()
+                for _ in range(3))
+    k.reset_launches()
+    out = fa.flash_attention(q, kk, v, causal=True)
+    (out * out).sum().backward()
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention_fwd"] == 1 and k.LAUNCHES["flash_attention_bwd"] == 1
+    ref = [x.detach().cpu().requires_grad_() for x in (q, kk, v)]
+    r = fa.flash_attention(*ref, causal=True)
+    (r * r).sum().backward()
+    for a, b in zip((q, kk, v), ref):
+        assert _rel(a.grad.cpu(), b.grad) <= 1e-4
+    k.reset_launches()
+    with torch.no_grad():
+        fa.flash_attention(q, kk, v, causal=True)
+    assert k.LAUNCHES["flash_attention_fwd"] == 1 and k.LAUNCHES["flash_attention_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_entries_without_a_backward_raise_under_grad(cuda):
+    """Divergence 19: an input that requires grad, with grad enabled, makes
+    every kernel entry without a backward raise NoBackward before it
+    launches; the front door re-raises it without a failover."""
+    from repro_torch import obs
+    from repro_torch.kernels._launch import NoBackward
+
+    z = torch.randn(4, 64, dtype=torch.complex64, device=cuda, requires_grad=True)
+    r = torch.randn(4, 64, device=cuda, requires_grad=True)
+    f = torch.randn(2, 16, 16, dtype=torch.complex64, device=cuda, requires_grad=True)
+    calls = [
+        lambda: k.fft_fused(z, radix=4), lambda: k.rfft_fused(r, radix=4),
+        lambda: k.fft2_fused(f, radix=4), lambda: k.fft2_columns(f, radix=4),
+        lambda: bf.butterfly_stage(r, r, stage=0),
+        lambda: fa.flash_attention_fwd(r[None], r[None], r[None]),
+        lambda: slstm_scan(torch.randn(1, 4, 64, device=cuda, requires_grad=True),
+                           torch.randn(4, 4, 16, device=cuda), torch.zeros(64, device=cuda),
+                           *(torch.zeros(1, 16, device=cuda) for _ in range(4)), chunk=4),
+    ]
+    k.reset_launches()
+    for call in calls:
+        with pytest.raises(NoBackward):
+            call()
+    with obs.capture() as trace, pytest.raises(NoBackward):
+        xfft.fft2(f)
+    assert not trace.select("resilience.failover")
+    assert not any(k.LAUNCHES.values())
+    with torch.no_grad():
+        k.fft_fused(z, radix=4)
+    assert k.LAUNCHES["fft_fused"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_lm_gradients_run_on_the_kernels_and_match_the_cpu(cuda, remat):
+    """llama's smoke model at float32: loss_fn's gradients on the card
+    launch flash_attention_fwd once a layer (twice under remat) and
+    flash_attention_bwd once a layer, and agree with the CPU's autograd of
+    the plain route on the same weights to 1e-4 of each leaf's largest."""
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models.build import build
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.train.loop import value_and_grad
+
+    cfg, model, params, cpu_params = _smoke_lm(cuda)
+    model = build(cfg.scaled(remat=remat))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24), generator=g, device=cuda,
+                                     dtype=torch.int32)}
+    torch.cuda.synchronize()
+    reset_launches()
+    loss, _, grads = value_and_grad(model.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        "flash_attention_fwd": cfg.n_layers * (2 if remat else 1),
+        "flash_attention_bwd": cfg.n_layers}
+    ref_loss, _, ref = value_and_grad(model.loss_fn, cpu_params,
+                                       {"tokens": batch["tokens"].cpu()})
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert _rel(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_fourier_lm_gradients_run_on_the_fft_kernels(cuda):
+    """fourier_lm's smoke model under "auto": the mixing's backward plans the
+    same FFT kernels as its forward (one fft2 a block each way), and the
+    gradients agree with the CPU's to 1e-4 of each leaf's largest."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models.build import build
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.train.loop import value_and_grad
+
+    cfg = smoke_config("fourier_lm")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=cuda, dtype=torch.int32)
+    torch.cuda.synchronize()
+    reset_launches()
+    _, _, grads = value_and_grad(model.loss_fn, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    per_call = {n: 2 * cfg.n_layers * c for n, c in _mixing_launches(cfg, 16).items()}
+    assert {n: c for n, c in LAUNCHES.items() if c} == per_call
+    _, _, ref = value_and_grad(model.loss_fn, tree_map(lambda t: t.cpu(), params),
+                                {"tokens": toks.cpu()})
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert _rel(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_loss_backward_raises_naming_its_item(cuda):
+    """xlstm's sLSTM prefill launches slstm_scan, which has no backward yet:
+    its loss under grad raises (ROADMAP queue 2, item 13), under no_grad
+    it runs."""
+    from repro_torch.kernels._launch import NoBackward
+    from repro_torch.train.loop import value_and_grad
+
+    cfg, model, params, _ = _smoke_lm(cuda, "xlstm-350m")
+    toks = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(NoBackward, match="item 13"):
+        value_and_grad(model.loss_fn, params, {"tokens": toks})
+    with torch.no_grad():
+        loss, _ = model.loss_fn(params, {"tokens": toks})
+    assert bool(torch.isfinite(loss))

@@ -16,6 +16,14 @@ sequence a power of two.
     python3 tools/lm_profile.py --arch deepseek-v3-671b --layers 2 --dense 1 --bf16-experts \
         --batch 4 --prompt-lens 16,1024
 
+``--train`` profiles one training step instead (``make_train_step`` of
+the model's ``loss_fn`` on ``make_batch``'s batch of ``--batch`` x each
+prompt length, AdamW state beside the weights, remat as configured) under
+``train_step``:
+
+    python3 tools/lm_profile.py --train --batch 2 --prompt-lens 1024
+    python3 tools/lm_profile.py --train --arch fourier_lm --batch 8 --prompt-lens 2048
+
 ``--layers`` cuts the config in depth (the moe family: ``--dense`` of them
 dense, the config's own count if not given; ``--bf16-experts`` draws and
 holds the routed experts in bf16, as chip_smoke's lm moe phase does for
@@ -114,6 +122,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--dense", type=int, default=None)
     ap.add_argument("--bf16-experts", action="store_true")
+    ap.add_argument("--train", action="store_true", help="profile a training step")
     args = ap.parse_args()
     import dataclasses
 
@@ -125,7 +134,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import frames_for
+    from repro_torch.data.pipeline import frames_for, make_batch
     from repro_torch.kernels import _build
     from repro_torch.models import moe
     from repro_torch.models.build import build
@@ -151,7 +160,16 @@ def main() -> int:
         batch = {"tokens": toks}
         if cfg.family == "audio":
             batch["frames"] = frames_for(cfg, b, 0, device=dev)
-        if model.decode_fn is None:
+        if args.train:
+            from repro_torch.optim import adamw_init
+            from repro_torch.train.loop import TrainState, make_train_step
+
+            caches = None
+            state = TrainState(params, adamw_init(params))
+            step, train_batch = make_train_step(model.loss_fn), make_batch(cfg, b, s, 0,
+                                                                            device=dev)
+            calls = {"train_step": lambda: step(state, train_batch)}
+        elif model.decode_fn is None:
             caches = None
             calls = {"forward": lambda: model.prefill_fn(params, batch, None)}
         else:
