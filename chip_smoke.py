@@ -318,7 +318,9 @@ Phases, each printing one JSON line:
              each timed beside its plain version, SDPA's backward and its
              bound (the forward's yardstick: a third of the dense TF32 rate,
              the CUDA-core float32 figure beside it as ``simt_bound_ms``),
-             and the forward with and without the logsumexp. Then
+             and the forward with and without the logsumexp; the kernel's
+             row also gives ptxas's registers and spills of each pass at
+             each width instance (none spilled at widths 32 to 128). Then
              llama3.2-3b (2 x 1024, remat) and fourier_lm (8 x 2048) train 3
              steps each at full width through ``repro_torch.launch.train``'s
              entry without checkpoints, the counts set to 0 just before and
@@ -327,7 +329,8 @@ Phases, each printing one JSON line:
              ``fft_fused`` and 36 ``fft2_columns`` (forward, recompute, and
              the mixing's backward on the same planned kernels), nothing
              else; step ms, tokens/s, the kernels' share estimated from
-             their launches and their times alone, peak memory. Card and
+             their launches and their times alone (llama's backward kernel
+             alone too), peak memory. Card and
              CPU gradients at float32 (llama's first 2 layers of its
              full-width init on 2 x 256, fourier_lm at full depth on 2 x
              2048), each held against the same model in float64 on the CPU
@@ -5095,6 +5098,23 @@ def mixing_census(s: int, d: int) -> dict:
     return {"fft_fused": 2}
 
 
+# flash_attention_bwd's kernels by their template arguments (width
+# instance, resident keys, what they accumulate): a dQ and a dK/dV pass at
+# each width, the dK/dV pass as a dV and a dK kernel at 256.
+FLASH_BWD_PASSES = {(32, 0, 1): "dq 32", (32, 1, 3): "dkdv 32", (64, 0, 1): "dq 64",
+                    (64, 1, 3): "dkdv 64", (128, 0, 1): "dq 128", (128, 1, 3): "dkdv 128",
+                    (256, 0, 1): "dq 256", (256, 1, 2): "dv 256", (256, 1, 1): "dk 256"}
+
+
+def flash_bwd_ptxas() -> dict:
+    """ptxas's registers and spill bytes of each of flash_attention_bwd's
+    kernels, by pass and width instance."""
+    from repro_torch.kernels import _build
+
+    found = ptxas_entries(_build.build_log(), "16flash_bwd_kernel")
+    return {FLASH_BWD_PASSES[k]: v for k, v in sorted(found.items()) if k in FLASH_BWD_PASSES}
+
+
 def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, window=None):
     """CUDA-event ms of the backward of ``scaled_dot_product_attention`` at
     scale 1 on (BH, S, D) operands (a window as a boolean mask): the
@@ -5345,6 +5365,7 @@ def lm_train_phase(torch, card, rows) -> dict:
     keep = ("shape", "keys", "value_dim", "causal", "window", "rel_err", "rel_err_vs_float64",
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "simt_bound_ms",
             "forward_ms", "forward_no_lse_ms")
+    ptxas = flash_bwd_ptxas()
     rows["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda", "source": KERNELS["flash_attention_bwd"][0],
         "replaces": KERNELS["flash_attention_bwd"][1], "launches": 0,
@@ -5353,7 +5374,12 @@ def lm_train_phase(torch, card, rows) -> dict:
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "simt_bound_ms": main["simt_bound_ms"],
         "library_ms": main["library_ms"],
-        "shape": main["shape"], "by_case": {n: {x: c[x] for x in keep} for n, c in by_case.items()}}
+        "shape": main["shape"], "by_case": {n: {x: c[x] for x in keep} for n, c in by_case.items()},
+        "ptxas": ptxas}
+    spilled = {n: e for n, e in ptxas.items()
+               if int(n.split()[-1]) <= 128 and e.get("spill_stores", 1) + e.get("spill_loads", 1)}
+    if len(ptxas) != len(FLASH_BWD_PASSES) or spilled:
+        raise AssertionError(f"flash_attention_bwd's passes: ptxas {ptxas}; spilled {spilled}")
 
     # The two full-width runs through the launcher's entry, without
     # checkpoints (llama's state is 51 GB), the counts set to 0 just before
@@ -5386,6 +5412,7 @@ def lm_train_phase(torch, card, rows) -> dict:
         else:
             per_step = {"flash_attention_fwd": 2 * layers, "flash_attention_bwd": layers}
             kernel_ms = 2 * layers * main["forward_ms"] + layers * main["ms"]
+            bwd_ms = layers * main["ms"]
         expect = {n: steps * c for n, c in per_step.items()}
         line = {"phase": "lm train", "call": "train", "arch": arch, "layers": layers,
                 "d_model": cfg.d_model, "vocab": cfg.vocab, "n_params": out["model"].n_params,
@@ -5395,6 +5422,8 @@ def lm_train_phase(torch, card, rows) -> dict:
                 "step_ms": step_ms, "first_step_ms": step_s[0] * 1e3,
                 "step_ms_all": [x * 1e3 for x in step_s], "tokens_per_s": b * s / (step_ms / 1e3),
                 "kernel_ms_estimate": kernel_ms, "kernel_share_estimate": kernel_ms / step_ms,
+                **({} if cfg.family == "spectral" else {
+                    "bwd_ms_estimate": bwd_ms, "bwd_share_estimate": bwd_ms / step_ms}),
                 "peak_gb": peak, "held_before_gb": held_gb,
                 "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9, "card": card}
         emit(line)

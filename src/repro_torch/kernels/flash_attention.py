@@ -33,8 +33,9 @@ model's jnp attention by XLA):
   row there; recomputing it in the backward would take one more pass
   over every score (2 D flops a pair, a fifth of the backward's work). A
   CPU tensor runs :func:`flash_attention_bwd_plain`; a CUDA tensor launches
-  ``csrc/flash_attention_bwd.cu`` (a dQ pass and a dK/dV pass, float32 FMA
-  on the CUDA cores, no atomics: the same bits every run) or raises.
+  ``csrc/flash_attention_bwd.cu`` (a dQ pass and a dK/dV pass, every
+  product split-TF32 on the tensor cores as the forward's, no atomics: the
+  same bits every run) or raises.
 * :func:`flash_attention` — the differentiable entry: under grad an
   ``autograd.Function`` whose forward is :func:`flash_attention_fwd` and
   whose backward is :func:`flash_attention_bwd`, else the forward alone.
@@ -278,8 +279,8 @@ def _c_window(window: Optional[int], sq: int, sk: int) -> int:
 
 # ------------------------------ backward ------------------------------
 
-#: Threads per block of both backward kernels (16 x 16).
-BWD_THREADS = 256
+#: Threads per block of the backward's kernels (4 warps).
+BWD_THREADS = 128
 
 
 def bwd_width(d: int, dv: int) -> int:
@@ -288,19 +289,21 @@ def bwd_width(d: int, dv: int) -> int:
     return next(w for w in (32, 64, 128, 256) if max(d, dv) <= w)
 
 
-def bwd_tile(d: int, dv: int) -> int:
-    """Rows of a backward tile, queries and keys alike: 64, or 32 at width
-    256 (where the tiles of 64 rows would not fit in shared memory)."""
-    return 32 if bwd_width(d, dv) > 128 else 64
+def bwd_tile(d: int, dv: int) -> Tuple[int, int]:
+    """Rows of the backward's tiles: (resident, streamed). A block keeps 64
+    rows resident (16 a warp: queries in the dQ pass, keys in the dK/dV
+    pass) and streams the other side past them 32 rows at a time, or 16 at
+    width 256 (where the dK/dV pass is two kernels, dV's and dK's)."""
+    return 64, (16 if bwd_width(d, dv) > 128 else 32)
 
 
 def flash_bwd_smem_bytes(d: int, dv: int) -> Tuple[int, int]:
-    """Dynamic shared memory of the dQ kernel's and the dK/dV kernel's
-    blocks: their tiles in rows padded to an odd float count (q, dO, k, v;
-    dS, and P in the dK/dV kernel), and each query row's lse and delta."""
-    t = bwd_tile(d, dv)
-    tiles = 2 * (d + 1) + 2 * (dv + 1)
-    return 4 * t * (tiles + (t + 1) + 2), 4 * t * (tiles + 2 * (t + 1) + 2)
+    """Dynamic shared memory of the dQ pass's and the dK/dV pass's blocks:
+    the resident and the streamed tiles of both widths in padded rows, and
+    in the dK/dV pass the streamed queries' lse and delta."""
+    res, st = bwd_tile(d, dv)
+    tiles = 4 * (res + st) * (_row_floats(d) + _row_floats(dv))
+    return tiles, tiles + 4 * 2 * st
 
 
 def flash_attention_bwd_plain(

@@ -22,10 +22,14 @@ guard on kernel entries without a backward, and remat, on the CPU.
   side is in ``tests/test_torch_kernels_cuda.py``).
 * Remat on and off (``"full"`` and ``"dots"``): equal gradients, bit for
   bit, and each block's forward run twice under remat.
-* ``csrc/flash_attention_bwd.cu`` (no inline PTX) compiled with g++
-  against ``tools/cuda_emu`` and run through its C entry against the plain
-  version at 2e-5: every width instance, partial tiles, windows, cross
-  shapes, rows that see no key with a padded key count. Skips without g++.
+* ``csrc/flash_attention_bwd.cu`` compiled with g++ against
+  ``tools/cuda_emu`` (stand-ins for its TF32 ``mma.sync``, which read each
+  operand's top 19 bits as the tensor core does, ``ldmatrix``, warp
+  shuffles and ``cp.async``, whose copies land only at their wait) and run
+  through its C entry against the plain version at 2e-5: every width
+  instance, partial tiles one past the resident and the streamed tile,
+  windows, cross shapes, D 40 against Dv 33, rows that see no key with a
+  padded key count at widths 32 and 256. Skips without g++.
 """
 
 import ctypes
@@ -289,6 +293,13 @@ EMU_CASES = {
     "dv 160": (1, 40, 40, 160, 160, True, None, 256, 512),
     # rows that see no key; keys padded from 30 to 32
     "no key": (2, 40, 30, 8, 8, False, 5, 16, 16),
+    # Sq and Sk one past a resident tile (64 rows) and a streamed one (32)
+    "one past a tile": (1, 65, 65, 16, 16, True, None, 256, 512),
+    "one past a streamed tile": (1, 33, 97, 24, 24, False, None, 256, 512),
+    # D 40 and Dv 33 (padded to 40), causal, partial tiles
+    "d 40 dv 33": (1, 70, 70, 40, 33, True, None, 256, 512),
+    # width 256 with a window and rows that see no key: keys padded 24 -> 32
+    "window no key 256": (1, 40, 24, 136, 200, False, 6, 16, 16),
 }
 
 
@@ -313,14 +324,22 @@ def test_emulated_cuda_backward_matches_plain(emu_lib, case):
 
 
 def test_emulated_entry_refuses_a_wrong_census(emu_lib):
+    """The entry launches nothing unless the width instance, the threads
+    (4 warps) and both passes' shared memory are the census's."""
     q = torch.zeros(1, 8, 16)
     lse = torch.zeros(1, 8)
     ptrs = [x.data_ptr() for x in (q, q, q, q, q, lse, lse, q, q, q)]
     smem = fa.flash_bwd_smem_bytes(16, 16)
-    assert emu_lib.repro_flash_attention_bwd(*ptrs, 1, 8, 8, 16, 16, 1, 0, 0, 0.25, 8, 64,
-                                             fa.BWD_THREADS, *smem, 0, None) != 0  # width 32
-    assert emu_lib.repro_flash_attention_bwd(*ptrs, 1, 8, 8, 16, 16, 1, 0, 0, 0.25, 8, 32,
-                                             fa.BWD_THREADS, smem[0] + 4, smem[1], 0, None) != 0
+
+    def call(width, threads, smem_dq, smem_dkdv):
+        return emu_lib.repro_flash_attention_bwd(*ptrs, 1, 8, 8, 16, 16, 1, 0, 0, 0.25, 8, width,
+                                                 threads, smem_dq, smem_dkdv, 0, None)
+
+    assert call(64, fa.BWD_THREADS, *smem) != 0  # width 32
+    assert call(32, 256, *smem) != 0  # 16 x 16 threads
+    assert call(32, fa.BWD_THREADS, smem[0] + 4, smem[1]) != 0
+    assert call(32, fa.BWD_THREADS, smem[0], smem[0]) != 0  # no room for lse and delta
+    assert call(32, fa.BWD_THREADS, *smem) == 0
 
 
 @pytest.mark.parametrize("d,dv", [(16, 16), (64, 64), (128, 128), (192, 128), (160, 160),
@@ -328,5 +347,5 @@ def test_emulated_entry_refuses_a_wrong_census(emu_lib):
 def test_backward_census_fits_one_block(d, dv):
     dq, dkdv = fa.flash_bwd_smem_bytes(d, dv)
     assert max(dq, dkdv) <= 232448  # an H100 block's dynamic shared memory
-    assert fa.bwd_tile(d, dv) == (32 if max(d, dv) > 128 else 64)
+    assert fa.bwd_tile(d, dv) == (64, 16 if max(d, dv) > 128 else 32)
     assert fa.bwd_width(d, dv) >= max(d, dv)

@@ -1504,7 +1504,11 @@ def test_cuda_moe_apply_matches_the_cpu(cuda, arch):
 
 # (bh, sq, sk, d, dv, causal, window, block_q, block_k)
 FLASH_BWD_CASES = [
+    (48, 1024, 1024, 128, 128, True, None, 512, 1024),  # llama3.2-3b's training lane
     (48, 256, 256, 128, 128, True, None, 512, 1024),  # llama's head width, causal
+    (8, 200, 200, 32, 32, True, None, 512, 1024),  # width 32
+    (8, 190, 190, 64, 64, True, 50, 512, 1024),  # width 64, a window
+    (4, 97, 97, 256, 256, True, None, 512, 1024),  # width 256 at D = Dv = 256
     (8, 300, 300, 128, 128, True, 100, 512, 1024),  # a window, partial tiles
     (16, 16, 150, 64, 64, False, None, 512, 1024),  # cross-attention, Sq != Sk
     (8, 130, 130, 192, 128, True, None, 512, 1024),  # MLA's D 192 -> Dv 128
@@ -1539,6 +1543,28 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, case):
         assert torch.equal(a, c), name
     o_ref, lse_ref = fa.flash_attention_plain(q, kk, v, return_lse=True, **opts)
     assert float((lse - lse_ref).abs().max()) <= 1e-5 * float(lse_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_float64_gap_at_llamas_lane(cuda):
+    """At llama3.2-3b's training lane (48, 1024, 128) causal, the kernel's
+    gradients sit within 2x the plain version's distance from float64
+    autograd of ``mha_reference`` (on the same operands, lse from the
+    card's forward)."""
+    bh, s, d = 48, 1024, 128
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(bh, s, d, generator=g, device=cuda) / math.sqrt(d)
+    kk, v, do = (torch.randn(bh, s, d, generator=g, device=cuda) for _ in range(3))
+    opts = dict(causal=True, window=None, block_q=512, block_k=1024, scale=1.0)
+    o, lse = fa.flash_attention_fwd(q, kk, v, return_lse=True, **opts)
+    got = fa.flash_attention_bwd(q, kk, v, o, do, lse, **opts)
+    plain = fa.flash_attention_bwd_plain(q, kk, v, o, do, lse, **opts)
+    q64, k64, v64 = (x.double().requires_grad_() for x in (q, kk, v))
+    out = fa.mha_reference(q64 * math.sqrt(d), k64, v64, causal=True)
+    exact = torch.autograd.grad(out, (q64, k64, v64), do.double())
+    for name, a, p, e in zip("qkv", got, plain, exact):
+        assert _rel(a.double(), e) <= 2 * _rel(p.double(), e), (name, _rel(a.double(), e),
+                                                                _rel(p.double(), e))
 
 
 @pytest.mark.cuda
