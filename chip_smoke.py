@@ -72,7 +72,16 @@ Phases, each printing one JSON line:
              may leave the plain version by at most 4x the plain version's
              own distance from float64), with the time a step, the
              cooperative grid (CTAs, units a CTA, route of wr) and the
-             floor of L grid barriers alone on that grid; with the library
+             floor of L grid barriers alone on that grid; slstm_scan_bwd at
+             the same width, on the saving forward of inputs at the model's
+             stacked init scale (wr's fan_in 12) with Gaussian cotangents
+             of hs and the four final states, to 1e-4 of its plain version
+             over every 16-step window from the saved state before it, each
+             window's plain version within 1e-4 of float64, the full-length
+             launch finite and its last window equal to the window's launch
+             bit for bit, timed beside its plain version, its bound, the
+             barrier floor and the saving forward, with ptxas's registers
+             and spills of each route (none spilled); with the library
              yardstick (``scaled_dot_product_attention``) where one exists. Flash
              attention's products run on the tensor cores as three TF32
              products each, so its bound takes a third of the dense TF32
@@ -321,23 +330,25 @@ Phases, each printing one JSON line:
              and the forward with and without the logsumexp; the kernel's
              row also gives ptxas's registers and spills of each pass at
              each width instance (none spilled at widths 32 to 128). Then
-             llama3.2-3b (2 x 1024, remat) and fourier_lm (8 x 2048) train 3
-             steps each at full width through ``repro_torch.launch.train``'s
-             entry without checkpoints, the counts set to 0 just before and
-             read just after: llama 56 ``flash_attention_fwd`` (forward and
+             llama3.2-3b (2 x 1024, remat), fourier_lm (8 x 2048) and
+             xlstm-350m (4 x 4096, remat) train 3 steps each at full width
+             through ``repro_torch.launch.train``'s entry without
+             checkpoints, the counts set to 0 just before and read just
+             after: llama 56 ``flash_attention_fwd`` (forward and
              recompute) and 28 ``flash_attention_bwd`` a step, fourier_lm 36
              ``fft_fused`` and 36 ``fft2_columns`` (forward, recompute, and
-             the mixing's backward on the same planned kernels), nothing
-             else; step ms, tokens/s, the kernels' share estimated from
-             their launches and their times alone (llama's backward kernel
-             alone too), peak memory. Card and
-             CPU gradients at float32 (llama's first 2 layers of its
-             full-width init on 2 x 256, fourier_lm at full depth on 2 x
-             2048), each held against the same model in float64 on the CPU
-             (see TRAIN_GRAD_CEILING), the llama copy overfitting one
-             batch, and xlstm's backward refused (``NoBackward``, naming its
-             ROADMAP item; no ``slstm_scan`` launch). Its launches count
-             toward the ``kernels`` line;
+             the mixing's backward on the same planned kernels), xlstm 24
+             ``slstm_scan`` (forward and recompute) and 12
+             ``slstm_scan_bwd`` a step, nothing else; step ms, tokens/s,
+             the kernels' share estimated from their launches and their
+             times alone (the backward kernels alone too), peak memory
+             (under 85 GB). Card and CPU gradients at float32 (llama's
+             first 2 layers of its full-width init on 2 x 256, fourier_lm
+             at full depth on 2 x 2048, xlstm's first mLSTM / sLSTM pair on
+             2 x 64), each held against the same model in float64 on the
+             CPU (see TRAIN_GRAD_CEILING), with its launches, and the llama
+             copy overfitting one batch. Its launches count toward the
+             ``kernels`` line;
    After each of the kernel, request, imaging, mri, stream, serve, pencil,
    lm, lm state, lm audio, lm spectral, lm moe and lm train phases (one
    ``obs.capture()`` around the thirteen) a
@@ -392,11 +403,13 @@ Then one JSON line with every kernel's numbers, and last
 code is not 0 and the last line is not printed. Without CUDA the script
 exits 2 and prints no result.
 
-    python3 chip_smoke.py --slstm-ab OTHER_ROOT
+    python3 chip_smoke.py --slstm-ab OTHER_ROOT [--backward]
 
 times ``slstm_scan`` at xlstm-350m from another checkout's ``src`` and from
 this one, one process each, in turns (other, this, this, other), and says
-whether their outputs agree bit for bit (sha256 of hs and the final state).
+whether their outputs agree bit for bit (sha256 of hs and the final state);
+with ``--backward``, ``slstm_scan_bwd`` (dxg and the initial states'
+gradients) at the model's init scale.
 """
 
 import contextlib
@@ -557,6 +570,9 @@ KERNELS = {
                             "src/repro/models/attention.py:29 by XLA"),
     "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan.py:86"),
+    "slstm_scan_bwd": ("src/repro_torch/kernels/csrc/slstm_scan_bwd.cu",
+                       "none: the reference differentiates its lax.scan over _slstm_step "
+                       "(src/repro/models/xlstm.py:272) by XLA"),
 }
 
 # llama3.2-3b attention (src/repro/configs/llama3_2_3b.py): 24 query heads
@@ -567,6 +583,13 @@ LLAMA = {"heads": 24, "kv_heads": 8, "seq": 4096, "head_dim": 128}
 MIXTRAL = {"heads": 8, "seq": 8192, "head_dim": 128, "window": 4096}
 # xlstm-350m (src/repro/configs/xlstm_350m.py): D 1024, 4 sLSTM heads.
 XLSTM = {"batch": 8, "seq": 4096, "d": 1024}
+# xlstm-350m's init draws its stacked sLSTM weights (12 pairs, 4, 256,
+# 1024) with fan_in = shape[0] = 12 (models/param.py), so wr's std is
+# 0.5 / sqrt(12); slstm_scan's kernel check takes one layer's skeleton
+# alone (fan_in 4: std 0.25), where the recurrence is chaotic and the
+# backward's cotangents grow without bound over L steps. The backward's
+# check takes the scale the model trains from.
+XLSTM_TRAIN_FAN_IN = 12
 STAGED = (8192, 2048)
 # The radix-4 times with the stage-at-a-time panel the kernels ran before
 # the register passes, as PERF.md §6 records them (NVIDIA H100 80GB HBM3,
@@ -1421,19 +1444,21 @@ def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return total
 
 
-def slstm_inputs(torch, dev):
+def slstm_inputs(torch, dev, fan_in: int = 4, batch=None):
     """xlstm-350m sLSTM weights made as the reference's ``init_params``
     makes ``slstm_skel`` (normal, std = scale / sqrt(shape[0]), zero bias)
     from seeded numpy, carried across by ``slstm_weights_from_jax``; inputs
-    x ~ 0.5 N(0, 1) and the gate pre-activations xg = x @ wx."""
+    x ~ 0.5 N(0, 1) and the gate pre-activations xg = x @ wx. ``fan_in``
+    is wr's: 4 for one layer's skeleton, XLSTM_TRAIN_FAN_IN in the model's
+    stacked init; ``batch`` by default XLSTM's."""
     import numpy as np
 
     from repro_torch.kernels.slstm_scan import slstm_state, slstm_weights_from_jax
 
-    b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+    b, l, d = batch or XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
     rng = np.random.default_rng(14)
     p = {"wx": (rng.standard_normal((d, 4 * d)) / np.sqrt(d)).astype(np.float32),
-         "wr": (rng.standard_normal((4, d // 4, d)) * 0.5 / 2.0).astype(np.float32),
+         "wr": (rng.standard_normal((4, d // 4, d)) * 0.5 / np.sqrt(fan_in)).astype(np.float32),
          "bias": np.zeros(4 * d, np.float32)}
     w = slstm_weights_from_jax(p, device=dev)
     x = torch.from_numpy((rng.standard_normal((b, l, d)) * 0.5).astype(np.float32)).to(dev)
@@ -1519,6 +1544,134 @@ def slstm_work(xg, w):
     nbytes = 4 * (xg.numel() + w["wr"].numel() + w["bias"].numel() + 4 * b * d
                   + b * l * d + 4 * b * d)
     return nbytes, 2.0 * b * l * d * d
+
+
+def rel_or_abs(got, ref) -> float:
+    """rel_err where ref has a nonzero value, else the largest |got|."""
+    return rel_err(got, ref) if bool(ref.abs().max() > 0) else float(got.abs().max())
+
+
+def slstm_bwd_windows(torch, saved, w, state, dhs, dfinal, dxg):
+    """slstm_scan_bwd against its plain version over every SLSTM_WINDOW-step
+    window of the saved forward, from the last window back: each window
+    starts from the saved state before it (the initial state for the
+    first) and takes the cotangents of hs in it and, at its end, the
+    plain version's initial-state gradients of the window after (the final
+    states' cotangents for the last). ``dxg`` is the full-length launch,
+    whose last window must equal the per-window launch bit for bit.
+    Returns the worst relative errors by output (dxg, dc0, dn0, dh0, dm0),
+    the plain version's own worst distance from float64, and the worst
+    absolute error."""
+    from repro_torch.kernels.slstm_scan import slstm_scan_bwd, slstm_scan_bwd_plain
+
+    names = ("dxg", "dc0", "dn0", "dh0", "dm0")
+    errs = dict.fromkeys(names, 0.0)
+    plain_errs = dict(errs)
+    abs_err = 0.0
+    l = dhs.shape[1]
+    end = dfinal
+    for t0 in reversed(range(0, l, SLSTM_WINDOW)):
+        t1 = min(l, t0 + SLSTM_WINDOW)
+        seg = tuple(x[:, t0:t1].contiguous() for x in saved)
+        start = state if t0 == 0 else tuple(x[:, t0 - 1].contiguous() for x in saved[1:])
+        args = (w["wr"], *start, dhs[:, t0:t1].contiguous())
+        kx, kg = slstm_scan_bwd(seg, *args, end)
+        px, pg = slstm_scan_bwd_plain(seg, *args, end)
+        qx, qg = slstm_scan_bwd_plain(tuple(x.double() for x in seg),
+                                      *(x.double() for x in args), tuple(x.double() for x in end))
+        if t1 == l and not torch.equal(kx, dxg[:, t0:t1]):
+            raise AssertionError("slstm_scan_bwd: the full-length launch and its last window "
+                                 "differ")
+        for nm, got, ref, ref64 in zip(names, (kx, *kg), (px, *pg), (qx, *qg)):
+            errs[nm] = max(errs[nm], rel_or_abs(got, ref))
+            plain_errs[nm] = max(plain_errs[nm], rel_or_abs(ref.double(), ref64))
+            abs_err = max(abs_err, max_abs(got, ref))
+        end = pg
+    torch.cuda.synchronize()
+    return errs, plain_errs, abs_err
+
+
+def slstm_bwd_work(saved, dhs, w):
+    """(bytes, operations) slstm_scan_bwd must move and do on these
+    inputs: the saved gates and c, n, m, dhs, wr, the three initial and
+    four final-state cotangents read once, dxg and the four initial-state
+    gradients written once; the transposed product, 2 D^2 a step and
+    batch row."""
+    gates = saved[0]
+    b, l, d4 = gates.shape
+    d = d4 // 4
+    nbytes = 4 * (sum(x.numel() for x in saved) + dhs.numel() + w["wr"].numel() + 7 * b * d
+                  + gates.numel() + 4 * b * d)
+    return nbytes, 2.0 * b * l * d * d
+
+
+def slstm_bwd_case(torch, card: str):
+    """slstm_scan_bwd at xlstm-350m's width (8, 4096, 1024) from the saving
+    forward on inputs at the model's init scale, with Gaussian cotangents
+    of hs and of the four final states: held over windows
+    (slstm_bwd_windows), the full-length launch finite, timed beside its
+    plain version, its bound and the grid's L barriers alone, with ptxas's
+    registers and spills of each route. Prints one line and returns it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm_scan import (
+        ROUTES,
+        slstm_barriers,
+        slstm_bwd_blocks_per_sm,
+        slstm_bwd_card_grid,
+        slstm_scan_bwd,
+        slstm_scan_bwd_plain,
+        slstm_scan_saving,
+    )
+
+    dev = torch.device("cuda")
+    xg, w, state = slstm_inputs(torch, dev, fan_in=XLSTM_TRAIN_FAN_IN)
+    b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    dhs = torch.randn(b, l, d, generator=gen, device=dev)
+    dfinal = tuple(torch.randn(b, d, generator=gen, device=dev) for _ in range(4))
+    _, _, saved = slstm_scan_saving(xg, w["wr"], w["bias"], *state)
+    start = (state[0], state[1], state[3])
+    dxg, grads = slstm_scan_bwd(saved, w["wr"], *start, dhs, dfinal)
+    errs, plain_errs, abs_err = slstm_bwd_windows(torch, saved, w, start, dhs, dfinal, dxg)
+    finite = bool(torch.isfinite(dxg).all()) and all(bool(torch.isfinite(g).all())
+                                                     for g in grads)
+    plain_x, plain_g = slstm_scan_bwd_plain(saved, w["wr"], *start, dhs, dfinal)
+    grid = slstm_bwd_card_grid(d, b, dev)
+    ptxas = {ROUTES[key[0]]: v for key, v in
+             ptxas_entries(_build.build_log(), "21slstm_scan_bwd_kernel").items()}
+    steps_back = {str(t): float(dxg[:, l - t].abs().max()) for t in (1, 16, 256, 1024, l)
+                  if t <= l}
+    line = {"phase": "kernel", "kernel": "slstm_scan_bwd", "shape": [b, l, 4 * d],
+            "wr_fan_in": XLSTM_TRAIN_FAN_IN, "window": SLSTM_WINDOW, "rel_err": errs,
+            "plain_vs_float64_rel_err": plain_errs, "max_abs_err": abs_err, "finite": finite,
+            "full_run_vs_plain_rel_err": max(rel_or_abs(dxg, plain_x),
+                                             *(rel_or_abs(a, r) for a, r in zip(grads, plain_g))),
+            "max_abs_dxg_steps_back": steps_back,
+            "ms": time_ms(lambda: slstm_scan_bwd(saved, w["wr"], *start, dhs, dfinal),
+                          reps=5, batches=3),
+            "plain_ms": time_ms(lambda: slstm_scan_bwd_plain(saved, w["wr"], *start, dhs,
+                                                             dfinal), reps=1, batches=3),
+            "forward_saving_ms": time_ms(lambda: slstm_scan_saving(xg, w["wr"], w["bias"],
+                                                                   *state), reps=5, batches=3),
+            "barrier_floor_ms": time_ms(lambda: slstm_barriers(b, d, l), reps=5, batches=3),
+            "ctas": grid.ctas, "units": grid.units, "threads": grid.threads,
+            "rows": grid.rows, "groups": grid.groups, "route": grid.route,
+            "smem_bytes": grid.smem_bytes, "blocks_per_sm": slstm_bwd_blocks_per_sm(grid),
+            "ptxas": ptxas, "card": card}
+    line["ms_per_step"] = line["ms"] / l
+    line["bytes"], line["flops"] = slstm_bwd_work(saved, dhs, w)
+    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
+    emit(line)
+    spilled = {r: e for r, e in ptxas.items() if e.get("spill_stores", 1) + e.get("spill_loads", 1)}
+    if len(ptxas) != len(ROUTES) or spilled:
+        raise AssertionError(f"slstm_scan_bwd: ptxas {ptxas}; spilled {spilled}")
+    if not finite or not max(errs.values()) <= TOL_SLSTM:
+        raise AssertionError(f"slstm_scan_bwd: window rel errs {errs} (tolerance {TOL_SLSTM}), "
+                             f"finite {finite}")
+    if not max(plain_errs.values()) <= TOL_SLSTM:
+        raise AssertionError(f"slstm_scan_bwd: the plain version leaves float64 by "
+                             f"{plain_errs} within {SLSTM_WINDOW} steps")
+    return line
 
 
 def model_kernel_phase(torch, card: str):
@@ -1676,7 +1829,7 @@ def model_kernel_phase(torch, card: str):
             "ctas": grid.ctas, "units": grid.units, "threads": grid.threads,
             "rows": grid.rows, "groups": grid.groups, "route": grid.route,
             "smem_bytes": grid.smem_bytes, "blocks_per_sm": slstm_blocks_per_sm(grid),
-            "ptxas": {ROUTES[key[0]]: v for key, v in
+            "ptxas": {ROUTES[key[0]] + (" saving" if key[1] else ""): v for key, v in
                       ptxas_entries(_build.build_log(), "17slstm_scan_kernel").items()}}
     line["ms_per_step"] = line["ms"] / l
     line["barrier_floor_ms_per_step"] = line["barrier_floor_ms"] / l
@@ -1693,8 +1846,19 @@ def model_kernel_phase(torch, card: str):
     row("slstm_scan", abs_err, max(errs.values()), line["ms"], line["plain_ms"], nbytes,
         flops, None, shape=list(xg.shape), window=SLSTM_WINDOW,
         rel_err_by_output=errs,
-        **{key: line[key] for key in ("ms_per_step", "ctas", "units", "route",
+        grid_route=line["route"],
+        **{key: line[key] for key in ("ms_per_step", "ctas", "units",
                                       "barrier_floor_ms", "barrier_floor_ms_per_step")})
+    del xg, final
+    torch.cuda.empty_cache()
+
+    # slstm_scan_bwd at the same width, from the saving forward.
+    back = slstm_bwd_case(torch, card)
+    row("slstm_scan_bwd", back["max_abs_err"], max(back["rel_err"].values()), back["ms"],
+        back["plain_ms"], back["bytes"], back["flops"], None, shape=back["shape"],
+        window=SLSTM_WINDOW, rel_err_by_output=back["rel_err"], grid_route=back["route"],
+        **{key: back[key] for key in ("ms_per_step", "ctas", "units", "barrier_floor_ms",
+                                      "forward_saving_ms")})
     return rows, hs
 
 
@@ -5062,17 +5226,22 @@ TRAIN_BWD_CASES = (
 # a step launches flash_attention_fwd twice a layer (forward, recompute)
 # and flash_attention_bwd once; fourier_lm's mixing plans its FFT kernels
 # in the forward, the recompute and the backward (Re(FFT2) of the
-# cotangent).
-TRAIN_RUNS = (("llama3.2-3b", 2, 1024, 3), ("fourier_lm", 8, 2048, 3))
+# cotangent); xlstm-350m (the reference's train_4k sequence, the batch cut
+# to one card) launches slstm_scan twice an sLSTM layer and slstm_scan_bwd
+# once.
+TRAIN_RUNS = (("llama3.2-3b", 2, 1024, 3), ("fourier_lm", 8, 2048, 3),
+              ("xlstm-350m", 4, 4096, 3))
 # Card against CPU gradients at float32 compute (the same weights): the
 # first TRAIN_CHECK_LAYERS layers of llama3.2-3b's full-width initial
 # weights (a 28-layer init: its fan_in, the stacked layer count, gives them
 # the full model's scale) on 2 sequences of TRAIN_CHECK_SEQ tokens, and
-# fourier_lm at full depth on 2 of 2048. Then the llama copy overfits one
+# fourier_lm at full depth on 2 of 2048, and xlstm-350m's first (mLSTM,
+# sLSTM) pair on 2 of TRAIN_XLSTM_SEQ. Then the llama copy overfits one
 # batch as the reference's test_adamw_reduces_loss does (12 steps at peak
 # lr 1e-2, warmup 2: the last loss under 0.9 of the first).
 TRAIN_CHECK_LAYERS = 2
 TRAIN_CHECK_SEQ = 256
+TRAIN_XLSTM_SEQ = 64
 # The card's gradients and the CPU's float32 ones are each held against
 # the same model run on the CPU in float64 (float64_mode). At llama's init
 # the softmax is nearly one-hot (scores of ~1e2), so dS = P (dP - delta)
@@ -5081,6 +5250,7 @@ TRAIN_CHECK_SEQ = 256
 # float64, or within LM_FLOAT64_FACTOR of the CPU's own distance, and never
 # past this ceiling.
 TRAIN_GRAD_CEILING = 5e-3
+TRAIN_PEAK_GB = 85.0
 TRAIN_OVERFIT_STEPS = 12
 
 
@@ -5299,26 +5469,60 @@ def grads_vs_cpu(torch, model, params, batch) -> dict:
             "finite": all(bool(torch.isfinite(g).all()) for g in grads), "launches": launches}
 
 
+def train_census(cfg, seq: int) -> dict:
+    """Kernel launches of one training step of ``cfg`` on sequences of
+    ``seq`` tokens under remat: the forward and the recompute each launch
+    the forward kernels, the backward its own (fourier_lm: the mixing's
+    planned FFT kernels in all three)."""
+    if cfg.family == "spectral":
+        return {n: 3 * cfg.n_layers * c for n, c in mixing_census(seq, cfg.d_model).items()}
+    if cfg.name == "xlstm-350m":
+        pairs = cfg.n_layers // cfg.slstm_every
+        return {"slstm_scan": 2 * pairs, "slstm_scan_bwd": pairs}
+    return {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+
+
+def slstm_train_times(torch, batch: int) -> dict:
+    """The saving slstm_scan and slstm_scan_bwd alone at xlstm-350m's
+    training shape (batch, 4096, 1024), at the model's init scale: ms a
+    launch (CUDA events)."""
+    from repro_torch.kernels.slstm_scan import slstm_scan_bwd, slstm_scan_saving
+
+    dev = torch.device("cuda")
+    xg, w, state = slstm_inputs(torch, dev, fan_in=XLSTM_TRAIN_FAN_IN, batch=batch)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dhs = torch.randn(xg.shape[0], xg.shape[1], xg.shape[2] // 4, generator=gen, device=dev)
+    dfinal = tuple(torch.zeros_like(state[0]) for _ in range(4))
+    _, _, saved = slstm_scan_saving(xg, w["wr"], w["bias"], *state)
+    start = (state[0], state[1], state[3])
+    out = {"forward_saving_ms": time_ms(lambda: slstm_scan_saving(xg, w["wr"], w["bias"], *state),
+                                        reps=3, batches=3),
+           "ms": time_ms(lambda: slstm_scan_bwd(saved, w["wr"], *start, dhs, dfinal), reps=3,
+                         batches=3)}
+    del xg, saved, dhs
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_train_phase(torch, card, rows) -> dict:
-    """Training on the card: flash_attention_bwd's checks and times, the two
-    full-width runs through ``repro_torch.launch.train`` (their launches are
-    returned), card against CPU gradients, an overfit, and xlstm's backward
-    refused."""
+    """Training on the card: flash_attention_bwd's checks and times, the
+    three full-width runs through ``repro_torch.launch.train`` (their
+    launches are returned), card against CPU gradients and an overfit."""
     import gc
 
     import numpy as np
 
-    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import ops
-    from repro_torch.kernels._launch import LAUNCHES, NoBackward, reset_launches
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
     from repro_torch.launch import train as launch_train
     from repro_torch.models import attention as attn
     from repro_torch.models.build import build
     from repro_torch.models.layers import embed, rmsnorm
     from repro_torch.models.param import tree_map
     from repro_torch.optim import adamw_init
-    from repro_torch.train.loop import TrainState, make_train_step, value_and_grad
+    from repro_torch.train.loop import TrainState, make_train_step
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5403,14 +5607,18 @@ def lm_train_phase(torch, card, rows) -> dict:
         step_s = [loop.seconds[i] for i in sorted(loop.seconds)]
         step_ms = statistics.median(step_s[1:]) * 1e3
         layers = cfg.n_layers
+        per_step = train_census(cfg, s)
         if cfg.family == "spectral":
-            per_step = {n: 3 * layers * c for n, c in mixing_census(s, cfg.d_model).items()}
             z = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(torch.complex64)
             fft_one = {"ms": time_ms(lambda: ops.fft2_kernel(z, radix=4), reps=5, batches=3)}
             kernel_ms = 3 * layers * fft_one["ms"]
             del z
+        elif "slstm_scan" in per_step:
+            scan_one = slstm_train_times(torch, b)
+            kernel_ms = (per_step["slstm_scan"] * scan_one["forward_saving_ms"]
+                         + per_step["slstm_scan_bwd"] * scan_one["ms"])
+            bwd_ms = per_step["slstm_scan_bwd"] * scan_one["ms"]
         else:
-            per_step = {"flash_attention_fwd": 2 * layers, "flash_attention_bwd": layers}
             kernel_ms = 2 * layers * main["forward_ms"] + layers * main["ms"]
             bwd_ms = layers * main["ms"]
         expect = {n: steps * c for n, c in per_step.items()}
@@ -5426,13 +5634,19 @@ def lm_train_phase(torch, card, rows) -> dict:
                     "bwd_ms_estimate": bwd_ms, "bwd_share_estimate": bwd_ms / step_ms}),
                 "peak_gb": peak, "held_before_gb": held_gb,
                 "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9, "card": card}
+        if "slstm_scan" in per_step:
+            line["slstm_scan_bwd_one"] = scan_one
         emit(line)
         del out, loop
-        if seen != expect or not all(np.isfinite(line["losses"])):
+        if (seen != expect or not all(np.isfinite(line["losses"]))
+                or not peak <= TRAIN_PEAK_GB):
             raise AssertionError(f"lm train {arch}: launched {seen}, expected {expect}; "
-                                 f"losses {line['losses']}")
+                                 f"losses {line['losses']}; peak {peak} GB")
         for n, c in seen.items():
             launches[n] = launches.get(n, 0) + c
+        if "slstm_scan_bwd" in per_step:
+            rows["slstm_scan_bwd"].setdefault("by_case", {})[f"{arch} train {[b, s, 4 * cfg.d_model]}"] = {
+                "launches_a_step": per_step["slstm_scan_bwd"], "step_ms": step_ms, **scan_one}
     if fft_one:
         for name in ("fft_fused", COLUMNS):
             rows[name].setdefault("by_case", {})["fourier_lm train (8, 2048, 512)"] = {
@@ -5442,12 +5656,15 @@ def lm_train_phase(torch, card, rows) -> dict:
 
     # Card against CPU gradients at float32, then the overfit.
     for arch, cut, seq in (("llama3.2-3b", {"n_layers": TRAIN_CHECK_LAYERS}, TRAIN_CHECK_SEQ),
-                           ("fourier_lm", {}, 2048)):
+                           ("fourier_lm", {}, 2048),
+                           ("xlstm-350m", {"n_layers": 2}, TRAIN_XLSTM_SEQ)):
         params = build(get_config(arch)).init(torch.Generator(device=dev).manual_seed(0))
         cfg = get_config(arch).scaled(compute_dtype="float32", **cut)
-        if cut:  # the full init's first layers
-            params["dense_layers"] = tree_map(lambda t: t[:cfg.n_layers].clone(),
-                                              params["dense_layers"])
+        if cut:  # the full init's first layers (xlstm: its first pair)
+            for name, n in (("dense_layers", cfg.n_layers), ("mlstm_layers", cfg.n_layers // 2),
+                            ("slstm_layers", cfg.n_layers // 2)):
+                if name in params:
+                    params[name] = tree_map(lambda t: t[:n].clone(), params[name])
             torch.cuda.empty_cache()
         model = build(cfg)
         batch = make_batch(cfg, 2, seq, 1, device=dev)
@@ -5460,9 +5677,7 @@ def lm_train_phase(torch, card, rows) -> dict:
         emit(line)
         if not (line["finite"] and line["passes"] and line["loss_rel_err"] <= TOL_LM_CPU):
             raise AssertionError(f"lm train card vs cpu: {line}")
-        expect = ({n: 3 * cfg.n_layers * c for n, c in mixing_census(seq, cfg.d_model).items()}
-                  if cfg.family == "spectral" else
-                  {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers})
+        expect = train_census(cfg, seq)
         if line["launches"] != expect:
             raise AssertionError(f"lm train card vs cpu: launched {line['launches']}, "
                                  f"expected {expect}")
@@ -5483,22 +5698,8 @@ def lm_train_phase(torch, card, rows) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # xlstm: its sLSTM prefill launches slstm_scan, which has no backward.
-    cfg = smoke_config("xlstm-350m")
-    model = build(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    batch = make_batch(cfg, 2, 16, 0, device=dev)
-    reset_launches()
-    try:
-        value_and_grad(model.loss_fn, params, batch)
-        raised = None
-    except NoBackward as e:
-        raised = str(e)
-    emit({"phase": "lm train", "check": "xlstm backward refused", "raised": raised,
-          "launches": {n: c for n, c in LAUNCHES.items() if c},
-          "phase_seconds": time.perf_counter() - phase_t0, "card": card})
-    if raised is None or "item 13" not in raised or LAUNCHES["slstm_scan"]:
-        raise AssertionError(f"lm train: xlstm's backward was not refused ({raised})")
+    emit({"phase": "lm train", "check": "phase", "seconds": time.perf_counter() - phase_t0,
+          "launches": launches, "card": card})
     return launches
 
 
@@ -5909,9 +6110,12 @@ def _ladder_cost(torch, xfft, card: str) -> None:
         del x
 
 
-def slstm_time(root: str) -> int:
-    """``--slstm-time ROOT``: slstm_scan at xlstm-350m from ROOT's ``src``,
-    its time and the sha256 of its outputs, as one JSON line."""
+def slstm_time(root: str, backward: bool = False) -> int:
+    """``--slstm-time ROOT [--backward]``: slstm_scan at xlstm-350m from
+    ROOT's ``src``, its time and the sha256 of its outputs, as one JSON
+    line; with ``--backward`` slstm_scan_bwd's instead, from the saving
+    forward at the model's init scale (``"ms": null`` where ROOT has no
+    backward kernel)."""
     import hashlib
 
     sys.path.insert(0, str(Path(root).resolve() / "src"))
@@ -5923,11 +6127,29 @@ def slstm_time(root: str) -> int:
 
     module = importlib.import_module("repro_torch.kernels.slstm_scan")
 
-    xg, w, state = slstm_inputs(torch, torch.device("cuda"))
-    hs, final = module.slstm_scan(xg, w["wr"], w["bias"], *state)
-
     def digest(*ts):
         return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+
+    if backward:
+        line = {"root": root, "card": card_info(), "hs_sha256": None, "final_sha256": None,
+                "ms": None}
+        if hasattr(module, "slstm_scan_bwd"):
+            xg, w, state = slstm_inputs(torch, torch.device("cuda"), fan_in=XLSTM_TRAIN_FAN_IN)
+            gen = torch.Generator(device=xg.device).manual_seed(15)
+            b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+            dhs = torch.randn(b, l, d, generator=gen, device=xg.device)
+            dfinal = tuple(torch.randn(b, d, generator=gen, device=xg.device) for _ in range(4))
+            _, _, saved = module.slstm_scan_saving(xg, w["wr"], w["bias"], *state)
+            args = (saved, w["wr"], state[0], state[1], state[3], dhs, dfinal)
+            dxg, grads = module.slstm_scan_bwd(*args)
+            line.update({"hs_sha256": digest(dxg), "final_sha256": digest(*grads),
+                         "ms": time_ms(lambda: module.slstm_scan_bwd(*args), reps=2,
+                                       batches=3)})
+        emit(line)
+        return 0
+
+    xg, w, state = slstm_inputs(torch, torch.device("cuda"))
+    hs, final = module.slstm_scan(xg, w["wr"], w["bias"], *state)
 
     line = {"root": root, "card": card_info(), "hs_sha256": digest(hs),
             "final_sha256": digest(*final),
@@ -5941,12 +6163,14 @@ def slstm_time(root: str) -> int:
     return 0
 
 
-def slstm_ab(other: str) -> int:
-    """``--slstm-ab OTHER_ROOT``: :func:`slstm_time` of OTHER_ROOT and of
-    this checkout, one process each, in turns other, this, this, other."""
+def slstm_ab(other: str, backward: bool = False) -> int:
+    """``--slstm-ab OTHER_ROOT [--backward]``: :func:`slstm_time` of
+    OTHER_ROOT and of this checkout, one process each, in turns other,
+    this, this, other."""
     runs = []
     for root in (other, str(ROOT), str(ROOT), other):
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slstm-time", root],
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slstm-time", root,
+                              *(["--backward"] if backward else [])],
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
@@ -5958,8 +6182,12 @@ def slstm_ab(other: str) -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--slstm-ab", "--slstm-time"):
-        return (slstm_ab if sys.argv[1] == "--slstm-ab" else slstm_time)(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] in ("--slstm-ab", "--slstm-time"):
+        if len(sys.argv) == 4 and sys.argv[3] != "--backward":
+            print(f"chip_smoke: unknown option {sys.argv[3]}", file=sys.stderr)
+            return 2
+        return (slstm_ab if sys.argv[1] == "--slstm-ab" else slstm_time)(
+            sys.argv[2], len(sys.argv) == 4)
     if len(sys.argv) == 5 and sys.argv[1] == "--pencil-rank":
         return pencil_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import torch

@@ -24,13 +24,14 @@ __all__ = ["LAUNCHES", "NoBackward", "launch", "refuse_grad", "reset_launches"]
 LAUNCHES: Dict[str, int] = {
     "fft_fused": 0, "rfft_fused": 0, "irfft_fused": 0, "fft2_fused": 0,
     "rfft2_fused": 0, "irfft2_fused": 0, "butterfly_stage": 0,
-    "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0, "fft_two_pass": 0, "fft_cluster": 0,
-    "fft2_columns": 0,
+    "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0,
+    "fft_two_pass": 0, "fft_cluster": 0, "fft2_columns": 0,
 }
 
 
-#: Where each kernel without a backward gets one, named when it refuses.
-BACKWARD_ITEM = {"slstm_scan": "ROADMAP queue 2, item 13 (slstm_scan's backward)"}
+#: Where a kernel without a backward gets one, named when it refuses; the
+#: others refuse naming ROADMAP's divergence 19.
+BACKWARD_ITEM: Dict[str, str] = {}
 
 
 class NoBackward(NotImplementedError):
@@ -49,7 +50,7 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name} on the card has no backward: under grad its output would carry no "
             f"gradient ({where}); run under torch.no_grad(), or differentiate a route "
             "that has one (kernels.flash_attention.flash_attention, "
-            "core.spectral.fourier_mixing)"
+            "kernels.slstm_scan.slstm_scan, core.spectral.fourier_mixing)"
         )
 
 

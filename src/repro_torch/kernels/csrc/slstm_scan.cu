@@ -48,6 +48,10 @@
 //   batch fits the same code; batches whose rows, with the slice, do not
 //   fit run in groups of `rows`, one after another, each over all L steps.
 //   m0 = -inf gives f = exp(-inf) = 0 and no NaN, as in the reference.
+// - A second instance (kSave; entry repro_slstm_scan_save) also writes
+//   each step's gate pre-activations and c, n, m after it: what the
+//   backward (slstm_scan_bwd.cu) reads, so that its steps need no forward
+//   product.
 //
 // Rejected:
 // - One thread-block cluster holding wr in distributed shared memory:
@@ -61,12 +65,12 @@
 //   card (PERF.md section 6).
 #include <cuda_runtime.h>
 
-#include <cuda/atomic>
-
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "slstm_grid.cuh"
 
 namespace repro {
 namespace {
@@ -85,8 +89,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kHSlots = 8 * REPRO_SLSTM_SLOTS;
 constexpr int kXSlots = REPRO_SLSTM_SLOTS;
 constexpr long long kSmemLimit = 232448;  // 227 KB a block
-// Clock cycles a CTA waits on one grid barrier before it traps (~10 s).
-constexpr long long kBarrierPatience = 20000000000LL;
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -115,17 +117,6 @@ __host__ __device__ inline long long smem_floats(int hd, int units, int rows, in
          3LL * rows * units;
 }
 
-#ifndef REPRO_CUDA_EMU
-// C += A B for one 8 x 8 x 4 tile in double on the tensor cores (mma.sync
-// m8n8k4): lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and
-// C[l / 4][2 (l % 4) + {0, 1}].
-__device__ __forceinline__ void mma_m8n8k4(double& c0, double& c1, double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-               : "+d"(c0), "+d"(c1)
-               : "d"(a), "d"(b));
-}
-#endif
-
 struct ScanArgs {
   const float* xg;    // (batch, len, 4 d)
   const float* wr;    // (4, hd, d)
@@ -139,31 +130,16 @@ struct ScanArgs {
   float* nf;
   float* hf;
   float* mf;
+  // What the backward (slstm_scan_bwd.cu) reads, written by the saving
+  // instance only: each step's gate pre-activations, bias included
+  // (batch, len, 4 d), and c, n, m after it (batch, len, d) each.
+  float* gates;
+  float* cs;
+  float* ns;
+  float* ms;
   unsigned long long* count;  // the grid barrier's count, 0 at launch
   int batch, len, d, units, rows;
 };
-
-// Every thread of the CTA has passed __syncthreads(), so the CTA's stores
-// are ordered before one thread counts the CTA in with release semantics
-// (atom.add.release.gpu).
-__device__ __forceinline__ void grid_arrive(unsigned long long* count) {
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> ref(*count);
-    ref.fetch_add(1ULL, cuda::std::memory_order_release);
-  }
-}
-
-// One thread polls with an acquire load until all `target` arrivals are
-// in; the CTA's later reads are ordered after it by __syncthreads().
-__device__ __forceinline__ void grid_wait(unsigned long long* count, unsigned long long target) {
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> ref(*count);
-    const long long start = clock64();
-    while (ref.load(cuda::std::memory_order_acquire) < target)
-      if (clock64() - start > kBarrierPatience) __trap();
-  }
-  __syncthreads();
-}
 
 // Element i of a step's h (in units of V, float4 where hd allows it):
 // batch row b = r / 4, gate g = r % 4 for r = i / (hd / kV), so that
@@ -245,7 +221,7 @@ __device__ __forceinline__ Item item_of(int item, int nb, int cnt) {
           8 * nt + 2 * tig};
 }
 
-template <int kRoute>
+template <int kRoute, int kSave>
 __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(ScanArgs a) {
   using W = std::conditional_t<kRoute == kSmemF64, double, float>;
   extern __shared__ float4 smem4[];
@@ -421,6 +397,17 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(ScanArgs a) {
         m_s[s] = m;
         const size_t row = static_cast<size_t>(b0 + b);
         a.hs[(row * len + t) * d + u0 + uu] = h;
+        if constexpr (kSave) {
+          const size_t o = row * len + t;
+          float* gp = a.gates + o * kHeads * d + u0 + uu;
+          gp[0] = it;
+          gp[d] = ft;
+          gp[2 * d] = zt;
+          gp[3 * d] = ot;
+          a.cs[o * d + u0 + uu] = c;
+          a.ns[o * d + u0 + uu] = n;
+          a.ms[o * d + u0 + uu] = m;
+        }
         if (t == len - 1) {
           const size_t f = row * d + u0 + uu;
           a.cf[f] = c;
@@ -456,26 +443,15 @@ slstm_barrier_kernel(unsigned long long* count, int steps) {
 
 using ScanKernel = void (*)(ScanArgs);
 
-ScanKernel scan_kernel(int route) {
-  return route == kSmemF64 ? slstm_scan_kernel<kSmemF64>
-         : route == kSmemF32 ? slstm_scan_kernel<kSmemF32>
-                             : slstm_scan_kernel<kGlobal>;
+template <int kSave>
+ScanKernel scan_instance(int route) {
+  return route == kSmemF64 ? slstm_scan_kernel<kSmemF64, kSave>
+         : route == kSmemF32 ? slstm_scan_kernel<kSmemF32, kSave>
+                             : slstm_scan_kernel<kGlobal, kSave>;
 }
 
-template <class... P, class... A>
-cudaError_t launch_cooperative(void (*kernel)(P...), int ctas, int threads, int smem,
-                               cudaStream_t stream, A... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
-  cfg.blockDim = dim3(static_cast<unsigned>(threads));
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+ScanKernel scan_kernel(int route, bool save = false) {
+  return save ? scan_instance<1>(route) : scan_instance<0>(route);
 }
 
 // The geometry the host computed (slstm_grid) must cover d once and match
@@ -495,6 +471,32 @@ bool valid_geometry(int batch, int d, int ctas, int units, int threads, int rows
 }  // namespace
 }  // namespace repro
 
+namespace repro {
+namespace {
+
+// Both entries: save = the saving instance, which also writes gates, cs,
+// ns and ms.
+int launch_scan(const ScanArgs& args, bool save, int ctas, int threads, int route, int smem,
+                int device, void* stream) {
+  // A geometry slstm_grid did not give is an invalid value; a grid the card
+  // cannot hold at once is the cooperative launch's own error.
+  if (args.len < 1 || !valid_geometry(args.batch, args.d, ctas, args.units, threads, args.rows,
+                                      route, smem))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto kernel = scan_kernel(route, save);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return launch_cooperative(kernel, ctas, threads, smem, static_cast<cudaStream_t>(stream), args);
+}
+
+const float* in(const void* p) { return static_cast<const float*>(p); }
+float* out(void* p) { return static_cast<float*>(p); }
+
+}  // namespace
+}  // namespace repro
+
 // xg (batch, len, 4d); wr (4, d/4, d); bias (4d); c0, n0, h0, m0 and the
 // final states (batch, d); hs (batch, len, d); all float32, contiguous;
 // count one zeroed uint64. ctas CTAs of `units` units and `threads`
@@ -505,22 +507,32 @@ extern "C" int repro_slstm_scan(const void* xg, const void* wr, const void* bias
                                 void* cf, void* nf, void* hf, void* mf, void* count, int batch,
                                 int len, int d, int ctas, int units, int threads, int rows,
                                 int route, int smem, int device, void* stream) {
-  // A geometry slstm_grid did not give is an invalid value; a grid the card
-  // cannot hold at once is the cooperative launch's own error.
-  if (len < 1 || !repro::valid_geometry(batch, d, ctas, units, threads, rows, route, smem))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const auto kernel = repro::scan_kernel(route);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const auto g = [](void* p) { return static_cast<float*>(p); };
-  const repro::ScanArgs args{f(xg), f(wr), f(bias), f(c0), f(n0), f(h0), f(m0), g(hs), g(cf),
-                             g(nf), g(hf), g(mf), static_cast<unsigned long long*>(count),
-                             batch, len, d, units, rows};
-  return repro::launch_cooperative(kernel, ctas, threads, smem,
-                                   static_cast<cudaStream_t>(stream), args);
+  using repro::in;
+  using repro::out;
+  const repro::ScanArgs args{in(xg), in(wr), in(bias), in(c0), in(n0), in(h0), in(m0), out(hs),
+                             out(cf), out(nf), out(hf), out(mf), nullptr, nullptr, nullptr,
+                             nullptr, static_cast<unsigned long long*>(count), batch, len, d,
+                             units, rows};
+  return repro::launch_scan(args, false, ctas, threads, route, smem, device, stream);
+}
+
+// repro_slstm_scan that also writes what slstm_scan_bwd.cu reads: gates
+// (batch, len, 4d), each step's pre-activations with the bias, and cs, ns,
+// ms (batch, len, d), the state after each step.
+extern "C" int repro_slstm_scan_save(const void* xg, const void* wr, const void* bias,
+                                     const void* c0, const void* n0, const void* h0,
+                                     const void* m0, void* hs, void* cf, void* nf, void* hf,
+                                     void* mf, void* gates, void* cs, void* ns, void* ms,
+                                     void* count, int batch, int len, int d, int ctas, int units,
+                                     int threads, int rows, int route, int smem, int device,
+                                     void* stream) {
+  using repro::in;
+  using repro::out;
+  const repro::ScanArgs args{in(xg), in(wr), in(bias), in(c0), in(n0), in(h0), in(m0), out(hs),
+                             out(cf), out(nf), out(hf), out(mf), out(gates), out(cs), out(ns),
+                             out(ms), static_cast<unsigned long long*>(count), batch, len, d,
+                             units, rows};
+  return repro::launch_scan(args, true, ctas, threads, route, smem, device, stream);
 }
 
 // Blocks of the scan kernel of `route` that one SM holds at `threads`

@@ -14,8 +14,16 @@ initial state (B, D) x 4. Returns hs (B, L, D) and the final state.
 * :func:`slstm_scan` — a CPU tensor runs the plain version; a CUDA tensor
   launches ``csrc/slstm_scan.cu`` or raises: one cooperative grid of at
   most one CTA an SM, each owning a block of units with their slice of wr
-  (:func:`slstm_grid` is its geometry).
+  (:func:`slstm_grid` is its geometry). Under grad, with an input that
+  requires it, a CUDA tensor goes through :class:`SlstmScan`.
 * :func:`slstm_scan_plain` — a loop of :func:`slstm_step` over L.
+* :class:`SlstmScan` — the autograd Function: its forward
+  (:func:`slstm_scan_saving`) also writes each step's gate pre-activations
+  and c, n, m; its backward runs the reverse recurrence in
+  :func:`slstm_scan_bwd` (``csrc/slstm_scan_bwd.cu`` on the card, on the
+  forward's grid; :func:`slstm_bwd_grid`) and forms dwr and dbias from
+  its dxg. :func:`slstm_scan_bwd_plain` is the reverse recurrence step by
+  step in torch.
 * :func:`slstm_weights_from_jax` — the reference's ``slstm_skel``
   parameters (numpy arrays) as the port's tensors: the weight
   carry-across of the sLSTM layer.
@@ -35,13 +43,20 @@ from repro_torch.kernels._launch import launch, refuse_grad
 __all__ = [
     "SLSTM_HEADS",
     "SlstmGrid",
+    "SlstmScan",
     "hbm_traffic_estimate",
     "slstm_barriers",
     "slstm_blocks_per_sm",
+    "slstm_bwd_blocks_per_sm",
+    "slstm_bwd_card_grid",
+    "slstm_bwd_grid",
     "slstm_card_grid",
     "slstm_grid",
     "slstm_scan",
+    "slstm_scan_bwd",
+    "slstm_scan_bwd_plain",
     "slstm_scan_plain",
+    "slstm_scan_saving",
     "slstm_state",
     "slstm_step",
     "slstm_weights_from_jax",
@@ -98,50 +113,112 @@ def slstm_grid(d: int, batch: int, sms: int, *, smem_limit: int = SMEM_LIMIT) ->
     always :data:`THREADS`: 8 warps share the loads of h and run the
     products as 8 x 8 tiles over half of K each.
     """
+    units, ctas = _shard(d, batch, sms)
+    hd = d // SLSTM_HEADS
+    return _fit(ctas, units, batch, smem_limit, lambda rows, route: _smem_floats(hd, units, rows, route))
+
+
+def _shard(d: int, batch: int, sms: int) -> Tuple[int, int]:
+    """(units, ctas): ceil(D / sms) units a CTA, the CTAs that cover D."""
     if d < SLSTM_HEADS or d % SLSTM_HEADS or batch < 1 or sms < 1:
         raise ValueError(f"slstm_grid: d={d}, batch={batch}, sms={sms}")
-    hd = d // SLSTM_HEADS
     units = -(-d // sms)
-    ctas = -(-d // units)
-    route = max(r for r in range(len(ROUTES))
-                if r == 0 or 4 * _smem_floats(hd, units, 1, r) <= smem_limit)
-    fixed = _smem_floats(hd, units, 0, route)
-    per_row = _smem_floats(hd, units, 1, route) - fixed
-    most = (smem_limit // 4 - fixed) // per_row
+    return units, -(-d // units)
+
+
+def _fit(ctas: int, units: int, batch: int, smem_limit: int, floats) -> SlstmGrid:
+    """The grid whose route is the widest of :data:`ROUTES` that holds one
+    batch row, with as many rows as fit, spread evenly over the groups;
+    ``floats(rows, route)`` is a CTA's shared memory in floats."""
+    route = max(r for r in range(len(ROUTES)) if r == 0 or 4 * floats(1, r) <= smem_limit)
+    fixed = floats(0, route)
+    most = (smem_limit // 4 - fixed) // (floats(1, route) - fixed)
     if most < 1:
-        raise NotImplementedError(f"slstm_scan: one batch row of D={d} does not fit a CTA")
+        raise NotImplementedError(f"slstm_scan: one batch row of {units} units does not fit a CTA")
     groups = -(-batch // most)
     rows = -(-batch // groups)
-    return SlstmGrid(ctas, units, THREADS, rows, groups, ROUTES[route],
-                     4 * _smem_floats(hd, units, rows, route))
+    return SlstmGrid(ctas, units, THREADS, rows, groups, ROUTES[route], 4 * floats(rows, route))
+
+
+#: Parts of K each tile of the backward's transposed product is cut into
+#: (``csrc/slstm_scan_bwd.cu``'s ``kSplits``, one a warp).
+BWD_SPLITS = THREADS // 32
+
+
+def _heads_spanned(d: int, units: int) -> int:
+    """The most heads the units of one CTA belong to: the blocks of gate
+    gradients it reads a step."""
+    hd = d // SLSTM_HEADS
+    return max((min(u0 + units, d) - 1) // hd - u0 // hd + 1 for u0 in range(0, d, units))
+
+
+def _bwd_smem_floats(d: int, units: int, rows: int, route: int, span: int) -> int:
+    """Shared memory of a backward CTA in floats, as
+    ``csrc/slstm_scan_bwd.cu``'s ``bwd_smem_floats`` lays it out: its rows
+    of wr (``route`` floats an element), the gate gradients of ``span``
+    heads and ``rows`` rows (rows of D + 4 floats), the products' parts
+    (doubles) and the carries dc, dn, dm."""
+    ws = d + 4
+    return (route * units * ws + span * rows * ws + 2 * BWD_SPLITS * rows * units
+            + 3 * rows * units)
+
+
+def slstm_bwd_grid(d: int, batch: int, sms: int, *, smem_limit: int = SMEM_LIMIT) -> SlstmGrid:
+    """The backward kernel's geometry on a card of ``sms`` SMs: the
+    forward's CTAs and units (:func:`slstm_grid`), since a CTA's transposed
+    product yields the units it owns in the elementwise step; its units'
+    rows of wr (D each) in shared memory in double where they fit beside
+    one batch row's buffers, else in float32, else the global route, and
+    as many batch rows as fit."""
+    units, ctas = _shard(d, batch, sms)
+    span = _heads_spanned(d, units)
+    return _fit(ctas, units, batch, smem_limit,
+                lambda rows, route: _bwd_smem_floats(d, units, rows, route, span))
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(threads: int, smem_bytes: int, route: str, device: int) -> int:
+def _blocks_per_sm(entry: str, threads: int, smem_bytes: int, route: str, device: int) -> int:
     from repro_torch.kernels._build import library  # lazy: builds at first use
 
-    blocks = library().repro_slstm_occupancy(threads, smem_bytes, ROUTES.index(route), device)
+    blocks = getattr(library(), entry)(threads, smem_bytes, ROUTES.index(route), device)
     if blocks < 0:
-        raise RuntimeError(f"slstm_scan: CUDA error {-blocks} in the occupancy calculator")
+        raise RuntimeError(f"{entry}: CUDA error {-blocks} in the occupancy calculator")
     return blocks
+
+
+def _card_grid(geometry, blocks_per_sm, d: int, batch: int, device) -> SlstmGrid:
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    grid = geometry(d, batch, torch.cuda.get_device_properties(index).multi_processor_count)
+    if blocks_per_sm(grid, index) < 1:
+        raise RuntimeError(f"slstm_scan: an SM cannot hold one CTA of {grid}")
+    return grid
 
 
 def slstm_card_grid(d: int, batch: int, device: torch.device) -> SlstmGrid:
     """:func:`slstm_grid` on the SM count of ``device`` (a CUDA device),
     checked against the occupancy calculator: the card must hold one CTA an
     SM."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    grid = slstm_grid(d, batch, torch.cuda.get_device_properties(index).multi_processor_count)
-    if slstm_blocks_per_sm(grid, index) < 1:
-        raise RuntimeError(f"slstm_scan: an SM cannot hold one CTA of {grid}")
-    return grid
+    return _card_grid(slstm_grid, slstm_blocks_per_sm, d, batch, device)
+
+
+def slstm_bwd_card_grid(d: int, batch: int, device: torch.device) -> SlstmGrid:
+    """:func:`slstm_bwd_grid` on the SM count of ``device``, checked as
+    :func:`slstm_card_grid` checks the forward's."""
+    return _card_grid(slstm_bwd_grid, slstm_bwd_blocks_per_sm, d, batch, device)
 
 
 def slstm_blocks_per_sm(grid: SlstmGrid, device: int = 0) -> int:
     """CTAs of ``grid`` that one SM of ``device`` holds at once, from CUDA's
     occupancy calculator (builds the kernels at first use)."""
-    return _blocks_per_sm(grid.threads, grid.smem_bytes, grid.route, device)
+    return _blocks_per_sm("repro_slstm_occupancy", grid.threads, grid.smem_bytes, grid.route,
+                          device)
+
+
+def slstm_bwd_blocks_per_sm(grid: SlstmGrid, device: int = 0) -> int:
+    """:func:`slstm_blocks_per_sm` of the backward kernel."""
+    return _blocks_per_sm("repro_slstm_bwd_occupancy", grid.threads, grid.smem_bytes,
+                          grid.route, device)
 
 
 def slstm_barriers(batch: int, d: int, steps: int, *, device="cuda") -> None:
@@ -176,10 +253,20 @@ def slstm_step(p: Mapping[str, torch.Tensor], s: Mapping[str, torch.Tensor],
                x_t: torch.Tensor, d: int) -> Dict[str, torch.Tensor]:
     """One sLSTM time step (exponential gating, m-stabilised); ``p`` holds
     ``wr`` and ``bias``. Head k's product is gate block k (head-major)."""
+    return _cell(_gates(p, s["h"], x_t, d), s, d)
+
+
+def _gates(p: Mapping[str, torch.Tensor], h: torch.Tensor, x_t: torch.Tensor,
+           d: int) -> torch.Tensor:
+    """A step's gate pre-activations (B, 4D): x_t + the recurrent product
+    of h + the bias."""
     hd = d // SLSTM_HEADS
-    hprev = s["h"].reshape(-1, SLSTM_HEADS, hd)
-    rec = torch.einsum("bhk,hkj->bhj", hprev, p["wr"]).reshape(-1, 4 * d)
-    gates = x_t + rec + p["bias"]
+    rec = torch.einsum("bhk,hkj->bhj", h.reshape(-1, SLSTM_HEADS, hd), p["wr"]).reshape(-1, 4 * d)
+    return x_t + rec + p["bias"]
+
+
+def _cell(gates: torch.Tensor, s: Mapping[str, torch.Tensor], d: int) -> Dict[str, torch.Tensor]:
+    """The state after a step from its gate pre-activations."""
     it, ft, zt, ot = torch.split(gates, d, dim=-1)
     log_f = F.logsigmoid(ft)
     m_new = torch.maximum(log_f + s["m"], it)
@@ -201,6 +288,75 @@ def slstm_scan_plain(xg, wr, bias, c0, n0, h0, m0) -> Tuple[torch.Tensor, State]
         s = slstm_step(p, s, xg[:, t].float(), d)
         hs.append(s["h"])
     return torch.stack(hs, dim=1), (s["c"], s["n"], s["h"], s["m"])
+
+
+def _scan_saving_plain(xg, wr, bias, c0, n0, h0, m0):
+    """Plain version of :func:`slstm_scan_saving`, in float32 or, for
+    float64 inputs, in float64: :func:`slstm_step` over L, keeping each
+    step's gates and state."""
+    dt = torch.promote_types(xg.dtype, torch.float32)
+    d = xg.shape[-1] // 4
+    p = {"wr": wr.to(dt), "bias": bias.to(dt)}
+    s = {"c": c0.to(dt), "n": n0.to(dt), "h": h0.to(dt), "m": m0.to(dt)}
+    out = {"gates": [], "c": [], "n": [], "m": [], "h": []}
+    for t in range(xg.shape[1]):
+        gates = _gates(p, s["h"], xg[:, t].to(dt), d)
+        s = _cell(gates, s, d)
+        out["gates"].append(gates)
+        for name in "cnmh":
+            out[name].append(s[name])
+    hs, gates, cs, ns, ms = (torch.stack(out[n], dim=1) for n in ("h", "gates", "c", "n", "m"))
+    return hs, (s["c"], s["n"], s["h"], s["m"]), (gates, cs, ns, ms)
+
+
+def slstm_scan_bwd_plain(saved, wr, c0, n0, m0, dhs, dfinal) -> Tuple[torch.Tensor, State]:
+    """Plain version of :func:`slstm_scan_bwd`: the reverse recurrence step
+    by step, as autograd runs :func:`slstm_step`'s backward, in the dtype
+    of ``saved``'s tensors. ``saved`` is (gates, cs, ns, ms) as
+    :func:`slstm_scan_saving` returns them; ``dfinal`` the cotangents of
+    the final (c, n, h, m). Returns dxg (B, L, 4D) and the gradients of
+    the initial (c, n, h, m)."""
+    gates, cs, ns, ms = saved
+    b, l, d4 = gates.shape
+    d = d4 // 4
+    dt = gates.dtype
+    wr = wr.to(dt)
+    dc, dn, rec, dm = (x.to(dt) for x in dfinal)
+    dxg = torch.empty_like(gates)
+    for t in reversed(range(l)):
+        ig, fg, zg, og = torch.split(gates[:, t], d, dim=-1)
+        c, n = cs[:, t], ns[:, t]
+        cp, np_, mp = (cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t else (
+            c0.to(dt), n0.to(dt), m0.to(dt))
+        dh = dhs[:, t].to(dt) + rec
+        # the forward's values
+        a = F.logsigmoid(fg) + mp
+        m = torch.maximum(a, ig)
+        i_sc = torch.exp(ig - m)
+        f_sc = torch.exp(a - m)
+        tz = torch.tanh(zg)
+        so = torch.sigmoid(og)
+        ncl = torch.clamp(n, min=1e-6)
+        # h = (so c) / max(n, 1e-6)
+        q = dh / ncl
+        dso = q * c
+        dc = dc + q * so
+        dn = dn + torch.where(n >= 1e-6, -dh * ((so * c / ncl) / ncl), 0.0)
+        # c = f_sc cp + i_sc tanh(z), n = f_sc np + i_sc
+        e_i = (dc * tz + dn) * i_sc
+        e_f = (dc * cp + dn * np_) * f_sc
+        # m = max(a, i): the whole gradient to the larger, half each on a tie
+        dm = dm - e_i - e_f
+        half = 0.5 * dm
+        zero = torch.zeros_like(dm)
+        da = e_f + torch.where(a > ig, dm, torch.where(a == ig, half, zero))
+        di = e_i + torch.where(ig > a, dm, torch.where(a == ig, half, zero))
+        dg = torch.cat([di, da * torch.sigmoid(-fg), dc * i_sc * (1 - tz * tz),
+                        dso * (1 - so) * so], dim=-1)
+        dxg[:, t] = dg
+        rec = torch.einsum("bhj,hkj->bhk", dg.reshape(b, SLSTM_HEADS, d), wr).reshape(b, d)
+        dc, dn, dm = dc * f_sc, dn * f_sc, da
+    return dxg, (dc, dn, rec, dm)
 
 
 def _check(xg, wr, bias, states) -> None:
@@ -234,32 +390,131 @@ def slstm_scan(xg, wr, bias, c0, n0, h0, m0, *, chunk: int = 256) -> Tuple[torch
 
     ``chunk`` is the reference's time tile and must divide L; the card
     kernel holds the state for the whole sequence, so it changes nothing
-    there. On a CUDA tensor D may be at most 4096.
+    there. On a CUDA tensor D may be at most 4096; under grad, with an
+    input that requires it, the call goes through :class:`SlstmScan`.
     """
     _check(xg, wr, bias, (c0, n0, h0, m0))
-    b, l, d4 = xg.shape
-    d = d4 // 4
+    l = xg.shape[1]
     chunk = min(chunk, l)
     if chunk < 1 or l % chunk:
         raise ValueError(f"L={l} not divisible by chunk={chunk}")
     if xg.device.type == "cpu":
         return slstm_scan_plain(xg, wr, bias, c0, n0, h0, m0)
-    refuse_grad("slstm_scan", xg, wr, bias, c0, n0, h0, m0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (xg, wr, bias, c0, n0, h0, m0)):
+        hs, *final = SlstmScan.apply(xg, wr, bias, c0, n0, h0, m0)
+        return hs, tuple(final)
+    return _scan_card(xg, wr, bias, (c0, n0, h0, m0), save=False)[:2]
+
+
+def slstm_scan_saving(xg, wr, bias, c0, n0, h0, m0):
+    """:func:`slstm_scan` that also returns what :func:`slstm_scan_bwd`
+    reads: (hs, final state, (gates, cs, ns, ms)), with each step's gate
+    pre-activations, bias included (B, L, 4D), and c, n, m after it (B, L,
+    D) each. A CPU tensor runs the plain version (float64 stays float64);
+    a CUDA tensor launches the saving instance of ``csrc/slstm_scan.cu``
+    (counted as ``slstm_scan``) or raises."""
+    _check(xg, wr, bias, (c0, n0, h0, m0))
+    if xg.device.type == "cpu":
+        return _scan_saving_plain(xg, wr, bias, c0, n0, h0, m0)
+    return _scan_card(xg, wr, bias, (c0, n0, h0, m0), save=True)
+
+
+def _scan_card(xg, wr, bias, states, *, save: bool):
+    refuse_grad("slstm_scan", xg, wr, bias, *states)
+    b, l, d4 = xg.shape
+    d = d4 // 4
     if d > MAX_D:
         raise NotImplementedError(f"slstm_scan on the card takes D <= {MAX_D}, got {d}")
-    xg, wr, bias, c0, n0, h0, m0 = (x.to(torch.float32).contiguous()
-                                    for x in (xg, wr, bias, c0, n0, h0, m0))
-    hs = torch.empty(b, l, d, dtype=torch.float32, device=xg.device)
-    final = tuple(torch.empty(b, d, dtype=torch.float32, device=xg.device) for _ in range(4))
+    xg, wr, bias, *states = (x.to(torch.float32).contiguous() for x in (xg, wr, bias, *states))
+    new = functools.partial(torch.empty, dtype=torch.float32, device=xg.device)
+    hs = new(b, l, d)
+    final = tuple(new(b, d) for _ in range(4))
+    saved = (new(b, l, d4), new(b, l, d), new(b, l, d), new(b, l, d)) if save else ()
     if b:
         grid = slstm_card_grid(d, b, xg.device)
         count = torch.zeros(1, dtype=torch.int64, device=xg.device)
-        launch("repro_slstm_scan", "slstm_scan", xg, xg.data_ptr(), wr.data_ptr(),
-               bias.data_ptr(), c0.data_ptr(), n0.data_ptr(), h0.data_ptr(), m0.data_ptr(),
-               hs.data_ptr(), *(x.data_ptr() for x in final), count.data_ptr(), b, l, d,
-               grid.ctas, grid.units, grid.threads, grid.rows, ROUTES.index(grid.route),
-               grid.smem_bytes)
-    return hs, final
+        launch("repro_slstm_scan_save" if save else "repro_slstm_scan", "slstm_scan", xg,
+               *(x.data_ptr() for x in (xg, wr, bias, *states, hs, *final, *saved, count)),
+               b, l, d, grid.ctas, grid.units, grid.threads, grid.rows,
+               ROUTES.index(grid.route), grid.smem_bytes)
+    return hs, final, saved
+
+
+def slstm_scan_bwd(saved, wr, c0, n0, m0, dhs, dfinal) -> Tuple[torch.Tensor, State]:
+    """The reverse recurrence of :func:`slstm_scan`: dxg (B, L, 4D) and the
+    gradients of the initial (c, n, h, m), given ``saved`` = (gates, cs,
+    ns, ms) from :func:`slstm_scan_saving`, wr, the initial c, n, m, the
+    cotangent ``dhs`` (B, L, D) of hs and ``dfinal``, those of the final
+    (c, n, h, m). dwr and dbias follow from dxg (:class:`SlstmScan`). A CPU
+    tensor runs :func:`slstm_scan_bwd_plain`; a CUDA tensor launches
+    ``csrc/slstm_scan_bwd.cu`` or raises."""
+    gates = saved[0]
+    if gates.dim() != 3 or gates.shape[2] % (4 * SLSTM_HEADS):
+        raise ValueError(f"slstm_scan_bwd: gates must be (B, L, 4D), got {tuple(gates.shape)}")
+    b, l, d4 = gates.shape
+    d = d4 // 4
+    shapes = {"gates": (b, l, d4), "cs": (b, l, d), "ns": (b, l, d), "ms": (b, l, d),
+              "wr": (SLSTM_HEADS, d // SLSTM_HEADS, d), "c0": (b, d), "n0": (b, d),
+              "m0": (b, d), "dhs": (b, l, d), "dcf": (b, d), "dnf": (b, d), "dhf": (b, d),
+              "dmf": (b, d)}
+    tensors = (*saved, wr, c0, n0, m0, dhs, *dfinal)
+    for (name, shape), x in zip(shapes.items(), tensors):
+        if tuple(x.shape) != shape or x.device != gates.device:
+            raise ValueError(f"slstm_scan_bwd: {name} must be {shape} on {gates.device}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    if gates.device.type == "cpu":
+        return slstm_scan_bwd_plain(saved, wr, c0, n0, m0, dhs, dfinal)
+    refuse_grad("slstm_scan_bwd", *tensors)
+    if d > MAX_D:
+        raise NotImplementedError(f"slstm_scan_bwd on the card takes D <= {MAX_D}, got {d}")
+    tensors = tuple(x.to(torch.float32).contiguous() for x in tensors)
+    dxg = torch.empty(b, l, d4, dtype=torch.float32, device=gates.device)
+    grads = tuple(torch.empty(b, d, dtype=torch.float32, device=gates.device) for _ in range(4))
+    if b:
+        grid = slstm_bwd_card_grid(d, b, gates.device)
+        count = torch.zeros(1, dtype=torch.int64, device=gates.device)
+        launch("repro_slstm_scan_bwd", "slstm_scan_bwd", gates,
+               *(x.data_ptr() for x in (*tensors, dxg, *grads, count)), b, l, d, grid.ctas,
+               grid.units, grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes)
+    return dxg, grads
+
+
+def _dwr(hs, h0, dxg):
+    """dwr[k] = sum over (b, t) of h_{t-1}[head k]^T dg_t[block k], with
+    h_{-1} = h0: one batched product over the heads."""
+    b, l, d = hs.shape
+    hd = d // SLSTM_HEADS
+    hprev = torch.cat([h0[:, None].to(hs.dtype), hs[:, :-1]], dim=1)
+    hprev = hprev.reshape(b * l, SLSTM_HEADS, hd).permute(1, 2, 0)
+    return torch.bmm(hprev, dxg.reshape(b * l, SLSTM_HEADS, d).transpose(0, 1))
+
+
+class SlstmScan(torch.autograd.Function):
+    """:func:`slstm_scan` with its backward: the forward is
+    :func:`slstm_scan_saving`, the backward :func:`slstm_scan_bwd` (the
+    serial reverse recurrence), then dwr by :func:`_dwr` and dbias as the
+    sum of dxg over (B, L), which lie off the serial chain. Saves the
+    gates and states the forward wrote and hs; accepts cotangents on hs
+    and on the four final states; the gradients come back in the inputs'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, xg, wr, bias, c0, n0, h0, m0):
+        hs, final, saved = slstm_scan_saving(xg, wr, bias, c0, n0, h0, m0)
+        ctx.save_for_backward(wr, c0, n0, h0, m0, hs, *saved)
+        ctx.dtypes = tuple(x.dtype for x in (xg, wr, bias, c0, n0, h0, m0))
+        return (hs, *final)
+
+    @staticmethod
+    def backward(ctx, dhs, dcf, dnf, dhf, dmf):
+        wr, c0, n0, h0, m0, hs, *saved = ctx.saved_tensors
+        dxg, (dc0, dn0, dh0, dm0) = slstm_scan_bwd(saved, wr, c0, n0, m0, dhs,
+                                                   (dcf, dnf, dhf, dmf))
+        need = ctx.needs_input_grad
+        grads = (dxg, _dwr(hs, h0, dxg) if need[1] else None,
+                 dxg.sum(dim=(0, 1)) if need[2] else None, dc0, dn0, dh0, dm0)
+        return tuple(None if g is None or not n else g.to(dt)
+                     for g, n, dt in zip(grads, need, ctx.dtypes))
 
 
 def slstm_weights_from_jax(p: Mapping[str, object], *, device="cuda") -> Dict[str, torch.Tensor]:

@@ -13,7 +13,9 @@ m-stabiliser, block-diagonal recurrent weights over 4 heads). Its prefill
 runs the hand-written ``repro_torch.kernels.slstm_scan.slstm_scan`` on the
 gate pre-activations ``xg = x @ wx``: on a CUDA tensor the kernel, on a
 CPU tensor its plain version, where the reference's model runs a
-``lax.scan`` of ``_slstm_step`` (ROADMAP, divergence 15). Its decode is one
+``lax.scan`` of ``_slstm_step`` (ROADMAP, divergence 15). Under grad the
+card's scan runs as ``SlstmScan``, whose backward is the hand-written
+reverse scan ``slstm_scan_bwd``. Its decode is one
 :func:`~repro_torch.kernels.slstm_scan.slstm_step`.
 
 Both blocks return new state tensors; the stack writes them into its

@@ -29,7 +29,10 @@ from repro_torch.kernels.slstm_scan import (
     ROUTES,
     slstm_grid,
     slstm_scan,
+    slstm_scan_bwd,
+    slstm_scan_bwd_plain,
     slstm_scan_plain,
+    slstm_scan_saving,
     slstm_weights_from_jax,
 )
 
@@ -91,7 +94,8 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
     assert k.LAUNCHES == {"fft_fused": 56, "rfft_fused": 28, "irfft_fused": 5, "fft2_fused": 3,
                           "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
                           "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0,
-                          "fft_two_pass": 0, "fft_cluster": 0, "fft2_columns": 0}
+                          "slstm_scan_bwd": 0, "fft_two_pass": 0, "fft_cluster": 0,
+                          "fft2_columns": 0}
 
 
 @pytest.mark.cuda
@@ -494,6 +498,74 @@ def test_cuda_slstm_scan_refuses_a_grid_the_card_cannot_hold(cuda):
                grid.units, grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes)
     torch.cuda.synchronize()
     assert k.LAUNCHES["slstm_scan"] == 0
+
+
+def _slstm_operands(cuda, b, l, d, seed, wr_std):
+    """Seeded (xg, wr, bias, c0, n0, h0, m0) on the card, m0 = -inf, and
+    cotangents of hs and the final (c, n, h, m)."""
+    rng = np.random.default_rng(seed)
+    p = {"wx": rng.standard_normal((d, 4 * d)) / math.sqrt(d),
+         "wr": rng.standard_normal((4, d // 4, d)) * wr_std,
+         "bias": rng.standard_normal(4 * d) * 0.1}
+    w = slstm_weights_from_jax(p, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((b, l, d)) * 0.5).float().to(cuda)
+    z = torch.zeros(b, d, device=cuda)
+    ins = (x @ w["wx"], w["wr"], w["bias"], z, z.clone(), z.clone(),
+           torch.full((b, d), float("-inf"), device=cuda))
+    cots = [torch.from_numpy(rng.standard_normal(shape)).float().to(cuda)
+            for shape in ((b, l, d), *((b, d),) * 4)]
+    return ins, cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [(3, 64, 128), (2, 32, 1024), (4, 16, 2048), (1, 8, 36),
+                                   (1, 8, 4096), (8, 16, 1024)])
+def test_cuda_slstm_scan_bwd_matches_plain(cuda, b, l, d):
+    """The saving forward's gates and states against the plain forward's,
+    and the reverse scan on them against its plain version: D 2048 keeps
+    its rows of wr in float32, D 4096 reads them every step (the global
+    route), D 36 has CTAs whose units straddle two heads. Weights at the
+    model's stacked init scale (0.5 / sqrt(12)), which keeps the backward
+    from amplifying a rounding over L steps."""
+    ins, cots = _slstm_operands(cuda, b, l, d, seed=d + b, wr_std=0.5 / math.sqrt(12))
+    k.reset_launches()
+    hs, final, saved = slstm_scan_saving(*ins)
+    dxg, grads = slstm_scan_bwd(saved, ins[1], ins[3], ins[4], ins[6], cots[0], tuple(cots[1:]))
+    torch.cuda.synchronize()
+    assert {n: c for n, c in k.LAUNCHES.items() if c} == {"slstm_scan": 1, "slstm_scan_bwd": 1}
+    ref_hs, _, ref_saved = slstm_scan_saving(*(x.cpu() for x in ins))
+    assert _rel(hs, ref_hs.to(cuda)) <= TOL_SLSTM
+    for got, ref in zip(saved, ref_saved):
+        assert _rel(got, ref.to(cuda)) <= TOL_SLSTM
+    ref_dxg, ref_grads = slstm_scan_bwd_plain(saved, ins[1], ins[3], ins[4], ins[6], cots[0],
+                                              tuple(cots[1:]))
+    assert bool(torch.isfinite(dxg).all())
+    assert _rel(dxg, ref_dxg) <= TOL_SLSTM
+    for got, ref in zip(grads[2:3], ref_grads[2:3]):  # dc0, dn0, dm0 are 0 at m0 = -inf
+        assert _rel(got, ref) <= TOL_SLSTM
+    for got in (grads[0], grads[1], grads[3]):
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_under_grad_runs_the_function_and_matches_the_cpu(cuda):
+    """Under grad slstm_scan goes through SlstmScan: one forward and one
+    backward launch, every input's gradient within 1e-4 of the CPU's
+    autograd of the plain step loop."""
+    b, l, d = 2, 24, 128
+    ins, cots = _slstm_operands(cuda, b, l, d, seed=7, wr_std=0.5 / math.sqrt(12))
+    ins = tuple(x.clone().requires_grad_() for x in ins[:3]) + ins[3:]
+    k.reset_launches()
+    hs, final = slstm_scan(*ins, chunk=l)
+    assert type(hs.grad_fn).__name__ == "SlstmScanBackward"
+    grads = torch.autograd.grad((hs, *final), ins[:3], cots)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in k.LAUNCHES.items() if c} == {"slstm_scan": 1, "slstm_scan_bwd": 1}
+    cpu = tuple(x.detach().cpu().requires_grad_(i < 3) for i, x in enumerate(ins))
+    ref_hs, ref_final = slstm_scan_plain(*cpu)
+    ref = torch.autograd.grad((ref_hs, *ref_final), cpu[:3], [c.cpu() for c in cots])
+    for got, want in zip(grads, ref):
+        assert _rel(got.cpu(), want) <= TOL_SLSTM
 
 
 def _launched(before, *names):
@@ -1606,9 +1678,6 @@ def test_cuda_kernel_entries_without_a_backward_raise_under_grad(cuda):
         lambda: k.fft2_fused(f, radix=4), lambda: k.fft2_columns(f, radix=4),
         lambda: bf.butterfly_stage(r, r, stage=0),
         lambda: fa.flash_attention_fwd(r[None], r[None], r[None]),
-        lambda: slstm_scan(torch.randn(1, 4, 64, device=cuda, requires_grad=True),
-                           torch.randn(4, 4, 16, device=cuda), torch.zeros(64, device=cuda),
-                           *(torch.zeros(1, 16, device=cuda) for _ in range(4)), chunk=4),
     ]
     k.reset_launches()
     for call in calls:
@@ -1621,6 +1690,12 @@ def test_cuda_kernel_entries_without_a_backward_raise_under_grad(cuda):
     with torch.no_grad():
         k.fft_fused(z, radix=4)
     assert k.LAUNCHES["fft_fused"] == 1
+    # the sLSTM scan has a backward: under grad it runs SlstmScan
+    hs, _ = slstm_scan(torch.randn(1, 4, 64, device=cuda, requires_grad=True),
+                       torch.randn(4, 4, 16, device=cuda), torch.zeros(64, device=cuda),
+                       *(torch.zeros(1, 16, device=cuda) for _ in range(3)),
+                       torch.full((1, 16), float("-inf"), device=cuda), chunk=4)
+    assert hs.grad_fn is not None and k.LAUNCHES["slstm_scan"] == 1
 
 
 @pytest.mark.cuda
@@ -1683,17 +1758,26 @@ def test_cuda_fourier_lm_gradients_run_on_the_fft_kernels(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_xlstm_loss_backward_raises_naming_its_item(cuda):
-    """xlstm's sLSTM prefill launches slstm_scan, which has no backward yet:
-    its loss under grad raises (ROADMAP queue 2, item 13), under no_grad
-    it runs."""
-    from repro_torch.kernels._launch import NoBackward
+def test_cuda_xlstm_loss_backward_runs_the_scan_backward(cuda):
+    """xlstm's smoke loss_fn at float32: on the card each sLSTM layer's
+    prefill launches slstm_scan once and its backward slstm_scan_bwd once,
+    and the loss and every gradient agree with the CPU's autograd of the
+    plain scan on the same weights to 1e-4 of each leaf's largest value."""
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models.param import tree_leaves
     from repro_torch.train.loop import value_and_grad
 
-    cfg, model, params, _ = _smoke_lm(cuda, "xlstm-350m")
-    toks = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
-    with pytest.raises(NoBackward, match="item 13"):
-        value_and_grad(model.loss_fn, params, {"tokens": toks})
-    with torch.no_grad():
-        loss, _ = model.loss_fn(params, {"tokens": toks})
-    assert bool(torch.isfinite(loss))
+    cfg, model, params, cpu_params = _smoke_lm(cuda, "xlstm-350m")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=cuda, dtype=torch.int32)
+    torch.cuda.synchronize()
+    reset_launches()
+    loss, _, grads = value_and_grad(model.loss_fn, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    pairs = cfg.n_layers // cfg.slstm_every
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"slstm_scan": pairs,
+                                                          "slstm_scan_bwd": pairs}
+    ref_loss, _, ref = value_and_grad(model.loss_fn, cpu_params, {"tokens": toks.cpu()})
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert _rel(a.cpu(), b) <= 1e-4
