@@ -72,10 +72,15 @@ Phases, each printing one JSON line:
              may leave the plain version by at most 4x the plain version's
              own distance from float64), with the time a step, the
              cooperative grid (CTAs, units a CTA, route of wr) and the
-             floor of L grid barriers alone on that grid; slstm_scan_bwd at
-             the same width, on the saving forward of inputs at the model's
-             stacked init scale (wr's fan_in 12) with Gaussian cotangents
-             of hs and the four final states, to 1e-4 of its plain version
+             floor of L grid barriers alone on that grid; the saving
+             slstm_scan (the instance training runs) at the same width, its
+             hs and final state equal to the forward instance's bit for bit
+             and its stores (hs, gates, c, n, m) to 1e-4 of the plain
+             saving forward over every 16-step window from the state it
+             stored before the window; slstm_scan_bwd at the same width, on
+             that saving forward of inputs at the model's stacked init
+             scale (wr's fan_in 12) with Gaussian cotangents of hs and the
+             four final states, to 1e-4 of its plain version
              over every 16-step window from the saved state before it, each
              window's plain version within 1e-4 of float64, the full-length
              launch finite and its last window equal to the window's launch
@@ -341,7 +346,9 @@ Phases, each printing one JSON line:
              ``slstm_scan`` (forward and recompute) and 12
              ``slstm_scan_bwd`` a step, nothing else; step ms, tokens/s,
              the kernels' share estimated from their launches and their
-             times alone (the backward kernels alone too), peak memory
+             times alone (the backward kernels alone too; xlstm's from the
+             saving slstm_scan and slstm_scan_bwd checked as in the kernel
+             phase at its training shape, 4 x 4096), peak memory
              (under 85 GB). Card and CPU gradients at float32 (llama's
              first 2 layers of its full-width init on 2 x 256, fourier_lm
              at full depth on 2 x 2048, xlstm's first mLSTM / sLSTM pair on
@@ -1551,6 +1558,40 @@ def rel_or_abs(got, ref) -> float:
     return rel_err(got, ref) if bool(ref.abs().max() > 0) else float(got.abs().max())
 
 
+def slstm_saving_windows(torch, xg, w, state, hs, final, saved):
+    """The stores of the full-length launch of the saving slstm_scan over
+    every SLSTM_WINDOW-step window: hs, gates, cs, ns and ms of the window
+    (and the final state, in the last) against the plain saving forward
+    from the state the launch stored before the window (the initial state
+    for the first). Returns the worst relative errors by output, the plain
+    version's own worst distance from float64, and the worst absolute
+    error."""
+    from repro_torch.kernels.slstm_scan import _scan_saving_plain
+
+    names = ("hs", "gates", "cs", "ns", "ms", "c", "n", "h", "m")
+    errs = dict.fromkeys(names, 0.0)
+    plain_errs = dict(errs)
+    abs_err = 0.0
+    gates, cs, ns, ms = saved
+    l = xg.shape[1]
+    for t0 in range(0, l, SLSTM_WINDOW):
+        t1 = min(l, t0 + SLSTM_WINDOW)
+        seg = xg[:, t0:t1]
+        start = state if t0 == 0 else tuple(x[:, t0 - 1] for x in (cs, ns, hs, ms))
+        ph, pf, ps = _scan_saving_plain(seg, w["wr"], w["bias"], *start)
+        qh, qf, qs = _scan_saving_plain(seg.double(), w["wr"], w["bias"], *start)
+        got = [hs[:, t0:t1], *(x[:, t0:t1] for x in saved)]
+        ref, ref64 = [ph, *ps], [qh, *qs]
+        if t1 == l:
+            got, ref, ref64 = got + list(final), ref + list(pf), ref64 + list(qf)
+        for nm, a, r, q in zip(names, got, ref, ref64):
+            errs[nm] = max(errs[nm], rel_or_abs(a, r))
+            plain_errs[nm] = max(plain_errs[nm], rel_or_abs(r.double(), q))
+            abs_err = max(abs_err, max_abs(a, r))
+    torch.cuda.synchronize()
+    return errs, plain_errs, abs_err
+
+
 def slstm_bwd_windows(torch, saved, w, state, dhs, dfinal, dxg):
     """slstm_scan_bwd against its plain version over every SLSTM_WINDOW-step
     window of the saved forward, from the last window back: each window
@@ -1605,31 +1646,44 @@ def slstm_bwd_work(saved, dhs, w):
     return nbytes, 2.0 * b * l * d * d
 
 
-def slstm_bwd_case(torch, card: str):
-    """slstm_scan_bwd at xlstm-350m's width (8, 4096, 1024) from the saving
-    forward on inputs at the model's init scale, with Gaussian cotangents
-    of hs and of the four final states: held over windows
-    (slstm_bwd_windows), the full-length launch finite, timed beside its
-    plain version, its bound and the grid's L barriers alone, with ptxas's
-    registers and spills of each route. Prints one line and returns it."""
+def slstm_bwd_case(torch, card: str, batch=None):
+    """slstm_scan_bwd at xlstm-350m's width (batch, 4096, 1024), by default
+    XLSTM's batch, from the saving forward on inputs at the model's init
+    scale, with Gaussian cotangents of hs and of the four final states.
+    The saving forward's hs and final state must equal the forward
+    instance's bit for bit, and its stores hold over windows
+    (slstm_saving_windows); the backward holds over windows
+    (slstm_bwd_windows), its full-length launch finite, timed beside its
+    plain version, its bound and the grid's L barriers alone, with
+    ptxas's registers and spills of each route. Prints one line and
+    returns it."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.slstm_scan import (
         ROUTES,
         slstm_barriers,
         slstm_bwd_blocks_per_sm,
         slstm_bwd_card_grid,
+        slstm_scan,
         slstm_scan_bwd,
         slstm_scan_bwd_plain,
         slstm_scan_saving,
     )
 
     dev = torch.device("cuda")
-    xg, w, state = slstm_inputs(torch, dev, fan_in=XLSTM_TRAIN_FAN_IN)
-    b, l, d = XLSTM["batch"], XLSTM["seq"], XLSTM["d"]
+    xg, w, state = slstm_inputs(torch, dev, fan_in=XLSTM_TRAIN_FAN_IN, batch=batch)
+    b, l, d = xg.shape[0], XLSTM["seq"], XLSTM["d"]
     gen = torch.Generator(device=dev).manual_seed(15)
     dhs = torch.randn(b, l, d, generator=gen, device=dev)
     dfinal = tuple(torch.randn(b, d, generator=gen, device=dev) for _ in range(4))
-    _, _, saved = slstm_scan_saving(xg, w["wr"], w["bias"], *state)
+    hs, final, saved = slstm_scan_saving(xg, w["wr"], w["bias"], *state)
+    fwd_hs, fwd_final = slstm_scan(xg, w["wr"], w["bias"], *state)
+    same = bool(torch.equal(hs, fwd_hs)) and all(bool(torch.equal(a, r))
+                                                 for a, r in zip(final, fwd_final))
+    del fwd_hs, fwd_final
+    save_finite = all(bool(torch.isfinite(x).all()) for x in (hs, *final, *saved))
+    h_max = float(hs.abs().max())
+    save_errs, save_plain_errs, save_abs = slstm_saving_windows(torch, xg, w, state, hs, final,
+                                                                saved)
     start = (state[0], state[1], state[3])
     dxg, grads = slstm_scan_bwd(saved, w["wr"], *start, dhs, dfinal)
     errs, plain_errs, abs_err = slstm_bwd_windows(torch, saved, w, start, dhs, dfinal, dxg)
@@ -1644,6 +1698,9 @@ def slstm_bwd_case(torch, card: str):
     line = {"phase": "kernel", "kernel": "slstm_scan_bwd", "shape": [b, l, 4 * d],
             "wr_fan_in": XLSTM_TRAIN_FAN_IN, "window": SLSTM_WINDOW, "rel_err": errs,
             "plain_vs_float64_rel_err": plain_errs, "max_abs_err": abs_err, "finite": finite,
+            "saving_equals_forward": same, "saving_finite": save_finite, "max_abs_h": h_max,
+            "saving_rel_err": save_errs,
+            "saving_plain_vs_float64_rel_err": save_plain_errs, "saving_max_abs_err": save_abs,
             "full_run_vs_plain_rel_err": max(rel_or_abs(dxg, plain_x),
                                              *(rel_or_abs(a, r) for a, r in zip(grads, plain_g))),
             "max_abs_dxg_steps_back": steps_back,
@@ -1662,9 +1719,15 @@ def slstm_bwd_case(torch, card: str):
     line["bytes"], line["flops"] = slstm_bwd_work(saved, dhs, w)
     line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
     emit(line)
+    del xg, hs, saved, dhs, dxg, plain_x
+    torch.cuda.empty_cache()
     spilled = {r: e for r, e in ptxas.items() if e.get("spill_stores", 1) + e.get("spill_loads", 1)}
     if len(ptxas) != len(ROUTES) or spilled:
         raise AssertionError(f"slstm_scan_bwd: ptxas {ptxas}; spilled {spilled}")
+    if not same:
+        raise AssertionError("slstm_scan: the saving instance's hs or final state differs from "
+                             "the forward instance's")
+    check_slstm_windows("slstm_scan (saving)", save_errs, save_plain_errs, save_finite, h_max)
     if not finite or not max(errs.values()) <= TOL_SLSTM:
         raise AssertionError(f"slstm_scan_bwd: window rel errs {errs} (tolerance {TOL_SLSTM}), "
                              f"finite {finite}")
@@ -5476,32 +5539,10 @@ def train_census(cfg, seq: int) -> dict:
     planned FFT kernels in all three)."""
     if cfg.family == "spectral":
         return {n: 3 * cfg.n_layers * c for n, c in mixing_census(seq, cfg.d_model).items()}
-    if cfg.name == "xlstm-350m":
+    if cfg.family == "ssm":  # xlstm: an sLSTM layer every slstm_every
         pairs = cfg.n_layers // cfg.slstm_every
         return {"slstm_scan": 2 * pairs, "slstm_scan_bwd": pairs}
     return {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
-
-
-def slstm_train_times(torch, batch: int) -> dict:
-    """The saving slstm_scan and slstm_scan_bwd alone at xlstm-350m's
-    training shape (batch, 4096, 1024), at the model's init scale: ms a
-    launch (CUDA events)."""
-    from repro_torch.kernels.slstm_scan import slstm_scan_bwd, slstm_scan_saving
-
-    dev = torch.device("cuda")
-    xg, w, state = slstm_inputs(torch, dev, fan_in=XLSTM_TRAIN_FAN_IN, batch=batch)
-    gen = torch.Generator(device=dev).manual_seed(16)
-    dhs = torch.randn(xg.shape[0], xg.shape[1], xg.shape[2] // 4, generator=gen, device=dev)
-    dfinal = tuple(torch.zeros_like(state[0]) for _ in range(4))
-    _, _, saved = slstm_scan_saving(xg, w["wr"], w["bias"], *state)
-    start = (state[0], state[1], state[3])
-    out = {"forward_saving_ms": time_ms(lambda: slstm_scan_saving(xg, w["wr"], w["bias"], *state),
-                                        reps=3, batches=3),
-           "ms": time_ms(lambda: slstm_scan_bwd(saved, w["wr"], *start, dhs, dfinal), reps=3,
-                         batches=3)}
-    del xg, saved, dhs
-    torch.cuda.empty_cache()
-    return out
 
 
 def lm_train_phase(torch, card, rows) -> dict:
@@ -5614,7 +5655,10 @@ def lm_train_phase(torch, card, rows) -> dict:
             kernel_ms = 3 * layers * fft_one["ms"]
             del z
         elif "slstm_scan" in per_step:
-            scan_one = slstm_train_times(torch, b)
+            case = slstm_bwd_case(torch, card, b)
+            scan_one = {k: case[k] for k in ("ms", "plain_ms", "forward_saving_ms",
+                                             "barrier_floor_ms", "bound_ms", "rel_err",
+                                             "saving_rel_err", "max_abs_err")}
             kernel_ms = (per_step["slstm_scan"] * scan_one["forward_saving_ms"]
                          + per_step["slstm_scan_bwd"] * scan_one["ms"])
             bwd_ms = per_step["slstm_scan_bwd"] * scan_one["ms"]

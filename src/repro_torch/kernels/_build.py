@@ -55,8 +55,7 @@ _SIGNATURES = {
     "repro_flash_attention_fwd": (_P, _P, _P, _P, _P, *(_I,) * 8, _F, *(_I,) * 5, _P),
     "repro_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 8, _F, *(_I,) * 6, _P),
     "repro_flash_attention_occupancy": (_I, _I, _I),
-    "repro_slstm_scan": (*(_P,) * 13, *(_I,) * 10, _P),
-    "repro_slstm_scan_save": (*(_P,) * 17, *(_I,) * 10, _P),
+    "repro_slstm_scan": (*(_P,) * 17, *(_I,) * 10, _P),
     "repro_slstm_occupancy": (_I, _I, _I, _I),
     "repro_slstm_scan_bwd": (*(_P,) * 19, *(_I,) * 10, _P),
     "repro_slstm_bwd_occupancy": (_I, _I, _I, _I),

@@ -48,10 +48,10 @@
 //   batch fits the same code; batches whose rows, with the slice, do not
 //   fit run in groups of `rows`, one after another, each over all L steps.
 //   m0 = -inf gives f = exp(-inf) = 0 and no NaN, as in the reference.
-// - A second instance (kSave; entry repro_slstm_scan_save) also writes
-//   each step's gate pre-activations and c, n, m after it: what the
-//   backward (slstm_scan_bwd.cu) reads, so that its steps need no forward
-//   product.
+// - A second instance (kSave; the same entry, given gates, cs, ns and ms)
+//   also writes each step's gate pre-activations and c, n, m after it:
+//   what the backward (slstm_scan_bwd.cu) reads, so that its steps need no
+//   forward product.
 //
 // Rejected:
 // - One thread-block cluster holding wr in distributed shared memory:
@@ -474,23 +474,6 @@ bool valid_geometry(int batch, int d, int ctas, int units, int threads, int rows
 namespace repro {
 namespace {
 
-// Both entries: save = the saving instance, which also writes gates, cs,
-// ns and ms.
-int launch_scan(const ScanArgs& args, bool save, int ctas, int threads, int route, int smem,
-                int device, void* stream) {
-  // A geometry slstm_grid did not give is an invalid value; a grid the card
-  // cannot hold at once is the cooperative launch's own error.
-  if (args.len < 1 || !valid_geometry(args.batch, args.d, ctas, args.units, threads, args.rows,
-                                      route, smem))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const auto kernel = scan_kernel(route, save);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return launch_cooperative(kernel, ctas, threads, smem, static_cast<cudaStream_t>(stream), args);
-}
-
 const float* in(const void* p) { return static_cast<const float*>(p); }
 float* out(void* p) { return static_cast<float*>(p); }
 
@@ -499,40 +482,38 @@ float* out(void* p) { return static_cast<float*>(p); }
 
 // xg (batch, len, 4d); wr (4, d/4, d); bias (4d); c0, n0, h0, m0 and the
 // final states (batch, d); hs (batch, len, d); all float32, contiguous;
-// count one zeroed uint64. ctas CTAs of `units` units and `threads`
-// threads, batch rows in groups of `rows`, wr's slice where `route` (Route)
-// says; smem bytes as smem_floats gives them.
+// count one zeroed uint64. gates (batch, len, 4d), each step's
+// pre-activations with the bias, and cs, ns, ms (batch, len, d), the state
+// after each step, are what slstm_scan_bwd.cu reads: all four null, or all
+// four set, which launches the saving instance. ctas CTAs of `units` units
+// and `threads` threads, batch rows in groups of `rows`, wr's slice where
+// `route` (Route) says; smem bytes as smem_floats gives them.
 extern "C" int repro_slstm_scan(const void* xg, const void* wr, const void* bias, const void* c0,
                                 const void* n0, const void* h0, const void* m0, void* hs,
-                                void* cf, void* nf, void* hf, void* mf, void* count, int batch,
-                                int len, int d, int ctas, int units, int threads, int rows,
-                                int route, int smem, int device, void* stream) {
+                                void* cf, void* nf, void* hf, void* mf, void* gates, void* cs,
+                                void* ns, void* ms, void* count, int batch, int len, int d,
+                                int ctas, int units, int threads, int rows, int route, int smem,
+                                int device, void* stream) {
   using repro::in;
   using repro::out;
-  const repro::ScanArgs args{in(xg), in(wr), in(bias), in(c0), in(n0), in(h0), in(m0), out(hs),
-                             out(cf), out(nf), out(hf), out(mf), nullptr, nullptr, nullptr,
-                             nullptr, static_cast<unsigned long long*>(count), batch, len, d,
-                             units, rows};
-  return repro::launch_scan(args, false, ctas, threads, route, smem, device, stream);
-}
-
-// repro_slstm_scan that also writes what slstm_scan_bwd.cu reads: gates
-// (batch, len, 4d), each step's pre-activations with the bias, and cs, ns,
-// ms (batch, len, d), the state after each step.
-extern "C" int repro_slstm_scan_save(const void* xg, const void* wr, const void* bias,
-                                     const void* c0, const void* n0, const void* h0,
-                                     const void* m0, void* hs, void* cf, void* nf, void* hf,
-                                     void* mf, void* gates, void* cs, void* ns, void* ms,
-                                     void* count, int batch, int len, int d, int ctas, int units,
-                                     int threads, int rows, int route, int smem, int device,
-                                     void* stream) {
-  using repro::in;
-  using repro::out;
+  const bool save = gates != nullptr;
+  // A geometry slstm_grid did not give is an invalid value; a grid the card
+  // cannot hold at once is the cooperative launch's own error.
+  if (len < 1 || (cs != nullptr) != save || (ns != nullptr) != save ||
+      (ms != nullptr) != save ||
+      !repro::valid_geometry(batch, d, ctas, units, threads, rows, route, smem))
+    return cudaErrorInvalidValue;
   const repro::ScanArgs args{in(xg), in(wr), in(bias), in(c0), in(n0), in(h0), in(m0), out(hs),
                              out(cf), out(nf), out(hf), out(mf), out(gates), out(cs), out(ns),
                              out(ms), static_cast<unsigned long long*>(count), batch, len, d,
                              units, rows};
-  return repro::launch_scan(args, true, ctas, threads, route, smem, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto kernel = repro::scan_kernel(route, save);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return repro::launch_cooperative(kernel, ctas, threads, smem, static_cast<cudaStream_t>(stream),
+                                   args);
 }
 
 // Blocks of the scan kernel of `route` that one SM holds at `threads`

@@ -442,9 +442,9 @@ bool valid_bwd_geometry(int batch, int d, int ctas, int units, int threads, int 
 }  // namespace repro
 
 // gates (batch, len, 4d), cs, ns, ms (batch, len, d): what
-// repro_slstm_scan_save wrote; wr (4, d/4, d); c0, n0, m0, dcf, dnf, dhf,
-// dmf, dc0, dn0, dh0, dm0 (batch, d); dhs (batch, len, d); dxg (batch,
-// len, 4d); all float32, contiguous; count one zeroed uint64. The grid as
+// repro_slstm_scan's saving instance wrote; wr (4, d/4, d); c0, n0, m0,
+// dcf, dnf, dhf, dmf, dc0, dn0, dh0, dm0 (batch, d); dhs (batch, len, d);
+// dxg (batch, len, 4d); all float32, contiguous; count one zeroed uint64. The grid as
 // slstm_bwd_grid gives it; smem bytes as bwd_smem_floats.
 extern "C" int repro_slstm_scan_bwd(const void* gates, const void* cs, const void* ns,
                                     const void* ms, const void* wr, const void* c0,

@@ -280,33 +280,33 @@ def _cell(gates: torch.Tensor, s: Mapping[str, torch.Tensor], d: int) -> Dict[st
 
 def slstm_scan_plain(xg, wr, bias, c0, n0, h0, m0) -> Tuple[torch.Tensor, State]:
     """Plain version of :func:`slstm_scan`: :func:`slstm_step` over L."""
-    d = xg.shape[-1] // 4
-    p = {"wr": wr.float(), "bias": bias.float()}
-    s = {"c": c0.float(), "n": n0.float(), "h": h0.float(), "m": m0.float()}
-    hs = []
-    for t in range(xg.shape[1]):
-        s = slstm_step(p, s, xg[:, t].float(), d)
-        hs.append(s["h"])
-    return torch.stack(hs, dim=1), (s["c"], s["n"], s["h"], s["m"])
+    return _scan_plain(xg, wr, bias, (c0, n0, h0, m0), torch.float32)
 
 
 def _scan_saving_plain(xg, wr, bias, c0, n0, h0, m0):
     """Plain version of :func:`slstm_scan_saving`, in float32 or, for
-    float64 inputs, in float64: :func:`slstm_step` over L, keeping each
-    step's gates and state."""
-    dt = torch.promote_types(xg.dtype, torch.float32)
+    float64 inputs, in float64: the loop of :func:`slstm_scan_plain`,
+    keeping each step's gates and state."""
+    keep = []
+    hs, final = _scan_plain(xg, wr, bias, (c0, n0, h0, m0),
+                            torch.promote_types(xg.dtype, torch.float32), keep)
+    return hs, final, tuple(torch.stack(x, dim=1) for x in zip(*keep))
+
+
+def _scan_plain(xg, wr, bias, states, dt, keep=None) -> Tuple[torch.Tensor, State]:
+    """:func:`slstm_step` over L in ``dt``: (hs, final state). Each step's
+    (gates, c, n, m) is appended to ``keep`` where it is a list."""
     d = xg.shape[-1] // 4
     p = {"wr": wr.to(dt), "bias": bias.to(dt)}
-    s = {"c": c0.to(dt), "n": n0.to(dt), "h": h0.to(dt), "m": m0.to(dt)}
-    out = {"gates": [], "c": [], "n": [], "m": [], "h": []}
+    s = dict(zip("cnhm", (x.to(dt) for x in states)))
+    hs = []
     for t in range(xg.shape[1]):
         gates = _gates(p, s["h"], xg[:, t].to(dt), d)
         s = _cell(gates, s, d)
-        out["gates"].append(gates)
-        for name in "cnmh":
-            out[name].append(s[name])
-    hs, gates, cs, ns, ms = (torch.stack(out[n], dim=1) for n in ("h", "gates", "c", "n", "m"))
-    return hs, (s["c"], s["n"], s["h"], s["m"]), (gates, cs, ns, ms)
+        hs.append(s["h"])
+        if keep is not None:
+            keep.append((gates, s["c"], s["n"], s["m"]))
+    return torch.stack(hs, dim=1), (s["c"], s["n"], s["h"], s["m"])
 
 
 def slstm_scan_bwd_plain(saved, wr, c0, n0, m0, dhs, dfinal) -> Tuple[torch.Tensor, State]:
@@ -433,8 +433,9 @@ def _scan_card(xg, wr, bias, states, *, save: bool):
     if b:
         grid = slstm_card_grid(d, b, xg.device)
         count = torch.zeros(1, dtype=torch.int64, device=xg.device)
-        launch("repro_slstm_scan_save" if save else "repro_slstm_scan", "slstm_scan", xg,
-               *(x.data_ptr() for x in (xg, wr, bias, *states, hs, *final, *saved, count)),
+        launch("repro_slstm_scan", "slstm_scan", xg,
+               *(x.data_ptr() for x in (xg, wr, bias, *states, hs, *final)),
+               *((x.data_ptr() for x in saved) if save else (None,) * 4), count.data_ptr(),
                b, l, d, grid.ctas, grid.units, grid.threads, grid.rows,
                ROUTES.index(grid.route), grid.smem_bytes)
     return hs, final, saved

@@ -494,8 +494,9 @@ def test_cuda_slstm_scan_refuses_a_grid_the_card_cannot_hold(cuda):
     with pytest.raises(RuntimeError, match="CUDA error (9|720) "):
         launch("repro_slstm_scan", "slstm_scan", xg, xg.data_ptr(), wr.data_ptr(),
                bias.data_ptr(), *(z.data_ptr() for _ in range(4)), hs.data_ptr(),
-               *(x.data_ptr() for x in final), count.data_ptr(), b, l, d, grid.ctas,
-               grid.units, grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes)
+               *(x.data_ptr() for x in final), *(None,) * 4, count.data_ptr(), b, l, d,
+               grid.ctas, grid.units, grid.threads, grid.rows, ROUTES.index(grid.route),
+               grid.smem_bytes)
     torch.cuda.synchronize()
     assert k.LAUNCHES["slstm_scan"] == 0
 

@@ -263,7 +263,7 @@ def lib(request, tmp_path_factory):
     spec.loader.exec_module(emulate)
     so = emulate.compile_library(tmp_path_factory.mktemp("slstm_bwd_emu"),
                                  ("slstm_scan.cu", "slstm_scan_bwd.cu"), request.param)
-    for name in ("repro_slstm_scan_save", "repro_slstm_scan_bwd"):
+    for name in ("repro_slstm_scan", "repro_slstm_scan_bwd"):
         fn = getattr(so, name)
         fn.argtypes = list(_build._SIGNATURES[name])
         fn.restype = ctypes.c_int
@@ -279,9 +279,9 @@ def _emu_forward(lib, grid, ins):
     saved = [np.full((b, l, d4), np.nan, f)] + [np.full((b, l, d), np.nan, f) for _ in range(3)]
     count = np.zeros(1, np.uint64)
     args = [np.ascontiguousarray(ins[n]) for n in NAMES] + [hs, *final, *saved, count]
-    rc = lib.repro_slstm_scan_save(*(x.ctypes.data for x in args), b, l, d, grid.ctas,
-                                   grid.units, grid.threads, grid.rows, ROUTES.index(grid.route),
-                                   grid.smem_bytes, 0, None)
+    rc = lib.repro_slstm_scan(*(x.ctypes.data for x in args), b, l, d, grid.ctas, grid.units,
+                              grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes,
+                              0, None)
     assert rc == 0, f"rc {rc}"
     return hs, saved
 

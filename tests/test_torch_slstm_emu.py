@@ -76,7 +76,8 @@ def _run(lib, grid, xg, wr, bias, c0, n0, h0, m0):
     count = np.zeros(1, np.uint64)
     ins = [np.ascontiguousarray(x) for x in (xg, wr, bias, c0, n0, h0, m0)]
     rc = lib.repro_slstm_scan(*(x.ctypes.data for x in ins), hs.ctypes.data,
-                              *(x.ctypes.data for x in final), count.ctypes.data, b, l, d,
+                              *(x.ctypes.data for x in final), *(None,) * 4,
+                              count.ctypes.data, b, l, d,
                               grid.ctas, grid.units, grid.threads, grid.rows,
                               ROUTES.index(grid.route), grid.smem_bytes, 0, None)
     assert rc == 0, f"rc {rc}"
