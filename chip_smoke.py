@@ -1441,10 +1441,11 @@ def fid_source(torch, rows: int, n: int, seed: int):
     return sig.to(torch.complex64) + 0.01 * noise
 
 
-def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks keep: the work flash attention must do."""
+def attention_pairs(sq: int, sk: int, causal: bool, window, q_offset: int = 0) -> int:
+    """(query, key) pairs the masks keep: the work flash attention must do
+    (query row r at position q_offset + r)."""
     total = 0
-    for q in range(sq):
+    for q in range(q_offset, q_offset + sq):
         lo = 0 if window is None else max(0, q - window + 1)
         hi = min(q, sk - 1) if causal else sk - 1
         total += max(0, hi - lo + 1)
@@ -5348,18 +5349,25 @@ def flash_bwd_ptxas() -> dict:
     return {FLASH_BWD_PASSES[k]: v for k, v in sorted(found.items()) if k in FLASH_BWD_PASSES}
 
 
-def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, window=None):
+def sdpa_mask(torch, sq: int, sk: int, causal: bool, window, q_offset: int, device):
+    """The boolean mask of (query row r at q_offset + r, key c) pairs kept."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    keep = (kpos <= qpos) if causal else torch.ones(sq, sk, dtype=torch.bool, device=device)
+    return keep & (kpos > qpos - window) if window is not None else keep
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, window=None, q_offset: int = 0):
     """CUDA-event ms of the backward of ``scaled_dot_product_attention`` at
-    scale 1 on (BH, S, D) operands (a window as a boolean mask): the
-    gradients of q, k, v from a retained graph, or None where no backend
-    takes the shapes."""
+    scale 1 on (BH, S, D) operands (a window or a query offset as a
+    boolean mask): the gradients of q, k, v from a retained graph, or None
+    where no backend takes the shapes."""
     import torch.nn.functional as F
 
     kw = {"is_causal": causal}
-    if window is not None:
-        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
-        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-        kw = {"attn_mask": (kpos > qpos - window) & ((kpos <= qpos) if causal else True)}
+    if window is not None or q_offset:
+        kw = {"attn_mask": sdpa_mask(torch, q.shape[1], k.shape[1], causal, window, q_offset,
+                                     q.device)}
     qq, kk, vv = (x.detach()[None].requires_grad_() for x in (q, k, v))
     try:
         out = F.scaled_dot_product_attention(qq, kk, vv, scale=1.0, **kw)
@@ -5369,17 +5377,18 @@ def sdpa_bwd_ms(torch, q, k, v, do, causal: bool, window=None):
         return None
 
 
-def float64_attention_grads(fa, q, k, v, do, causal: bool, window=None, q_scale: float = 1.0):
+def float64_attention_grads(fa, q, k, v, do, causal: bool, window=None, q_scale: float = 1.0,
+                            q_offset: int = 0):
     """Float64 autograd of ``mha_reference`` on (q·q_scale, k, v) with the
     cotangent ``do``: (dq, dk, dv) at q's own scale."""
     import torch
 
     q, k, v = (x.double().requires_grad_() for x in (q, k, v))
-    out = fa.mha_reference(q * q_scale, k, v, causal=causal, window=window)
+    out = fa.mha_reference(q * q_scale, k, v, causal=causal, window=window, q_offset=q_offset)
     return torch.autograd.grad(out, (q, k, v), do.double())
 
 
-def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None):
+def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None, phase="lm train"):
     """flash_attention_bwd on (q, k, v, dO) at scale 1 with the forward's
     logsumexp: against its plain version (2e-5 of its largest gradient)
     and float64 autograd of ``mha_reference``; ``model`` is the model's
@@ -5397,15 +5406,17 @@ def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None):
         o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, **opts)
         plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **opts)
-        exact = float64_attention_grads(fa, q, k, v, do, opts["causal"], opts["window"], q_scale)
+        exact = float64_attention_grads(fa, q, k, v, do, opts["causal"], opts["window"], q_scale,
+                                        opts.get("q_offset", 0))
         return {"rel_err": max(rel_err(a, b) for a, b in zip(got, plain)),
                 "max_abs_err": max(max_abs(a, b) for a, b in zip(got, plain)),
                 "rel_err_vs_float64": max(rel_err(a, b) for a, b in zip(got, exact)),
                 "plain_rel_err_vs_float64": max(rel_err(a, b) for a, b in zip(plain, exact))}
 
-    line = {"phase": "lm train", "kernel": "flash_attention_bwd", "case": case,
+    off = opts.get("q_offset", 0)
+    line = {"phase": phase, "kernel": "flash_attention_bwd", "case": case,
             "shape": [bh, sq, d], "keys": sk, "value_dim": dv, "causal": opts["causal"],
-            "window": opts["window"], **errors(q, k, v, do)}
+            "window": opts["window"], "q_offset": off, **errors(q, k, v, do)}
     if model is not None:
         mq, mk, mv = model
         line["model_operands"] = errors(mq, mk, mv, do)
@@ -5415,7 +5426,7 @@ def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None):
                       batches=3),
         "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **opts),
                             reps=2, batches=3),
-        "library_ms": sdpa_bwd_ms(torch, q, k, v, do, opts["causal"], opts["window"]),
+        "library_ms": sdpa_bwd_ms(torch, q, k, v, do, opts["causal"], opts["window"], off),
         "forward_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **opts),
                               reps=5, batches=3),
         "forward_no_lse_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **opts), reps=5,
@@ -5424,8 +5435,8 @@ def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None):
         "bytes": 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * o.numel()
                       + lse.numel()),
         # per kept pair: the scores again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each)
-        "flops": bh * attention_pairs(sq, sk, opts["causal"], opts["window"]) * (6.0 * d
-                                                                                + 4.0 * dv),
+        "flops": bh * attention_pairs(sq, sk, opts["causal"], opts["window"], off) * (
+            6.0 * d + 4.0 * dv),
         "card": card})
     # The same float32-accurate products as the forward's, so the same
     # yardstick: the card's rate for them on the tensor cores (three TF32
@@ -5743,6 +5754,535 @@ def lm_train_phase(torch, card, rows) -> dict:
         torch.cuda.empty_cache()
 
     emit({"phase": "lm train", "check": "phase", "seconds": time.perf_counter() - phase_t0,
+          "launches": launches, "card": card})
+    return launches
+
+
+# --------------------------------- lm dist ---------------------------------
+#
+# The sharding slice on the card: both flash kernels at a query offset (a
+# context-parallel rank's slice of the queries), context-parallel prefill
+# and expert-parallel MoE on gloo ranks sharing the card, and
+# launch.train --distributed (world 1 on NCCL, 2 gloo ranks) against one
+# process.
+#
+# flash_attention_fwd at an offset: (label, B·H, Sq, Sk, window, q_offset):
+# llama3.2-3b's two CP ranks of an 8192-token prefill (24 heads of 128),
+# mixtral-8x22b's second rank past its 4096 window (96 = 2 x 48 heads).
+DIST_FWD_CASES = (
+    ("llama3.2-3b cp rank 0", 24, 4096, 8192, None, 0),
+    ("llama3.2-3b cp rank 1", 24, 4096, 8192, None, 4096),
+    ("mixtral-8x22b window cp rank 1", 96, 4096, 8192, 4096, 4096),
+)
+# flash_attention_bwd at llama's training lane halved: the second rank of
+# 1024 tokens, (label, B·H, Sq, Sk, q_offset).
+DIST_BWD_CASE = ("llama3.2-3b train lane cp rank 1", 48, 512, 1024, 512)
+# Context-parallel prefill: llama3.2-3b at full width cut to LM_CHECK_LAYERS
+# layers (as the lm phase's check copy), float32 compute, one sequence of
+# DIST_CP_SEQ tokens over DIST_WORLD ranks of a (1, DIST_WORLD) ("data",
+# "model") mesh, cp over "model".
+DIST_WORLD = 2
+DIST_CP_SEQ = 8192
+DIST_CP_SEED = 1
+# Expert-parallel MoE: one mixtral-8x22b moe layer at full width (8 experts
+# of d 6144 -> 16384, bf16, drawn an expert at a time from seed
+# DIST_EP_SEED + e), float32 tokens (DIST_EP_TOKENS), capacity factor 8 so
+# nothing drops, ep_axes ("data",) over DIST_WORLD ranks.
+DIST_EP_TOKENS = (2, 256)
+DIST_EP_SEED = 1000
+DIST_EP_CF = 8.0
+TOL_EP = 1e-4       # output, token and router gradients (float32)
+TOL_EP_BF16 = 1e-2  # the bf16 experts' gradients (each rounded to bf16 once)
+# launch.train --distributed: fourier_lm at full width, the lm train
+# phase's batch, against one process on the whole batch.
+DIST_TRAIN_ARGS = ("--arch", "fourier_lm", "--steps", "3", "--batch", "8", "--seq", "2048",
+                   "--ckpt", "")
+TOL_DIST_LOSS = 1e-5
+DIST_DEADLINE_S = 300.0
+
+
+def flash_fwd_ptxas() -> dict:
+    """ptxas's registers and spill bytes of each flash_attention_fwd
+    instance (its output accumulator's n-tiles)."""
+    from repro_torch.kernels import _build
+
+    return {f"nv {k[0]}": v for k, v in
+            sorted(ptxas_entries(_build.build_log(), "22flash_attention_kernel").items())}
+
+
+def dist_kernel_lines(torch, card: str, rows) -> None:
+    """Both flash kernels at a query offset, at full width, against their
+    plain versions on the card; timed beside SDPA with the same mask and
+    the bound; both kernels' ptxas gated on 0 spills."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    d = LLAMA["head_dim"]
+    for label, bh, sq, sk, window, off in DIST_FWD_CASES:
+        q, kk, v = (torch.randn(bh, n, d, generator=gen, device=dev) for n in (sq, sk, sk))
+        opts = dict(causal=True, window=window, q_offset=off)
+        got = fa.flash_attention_fwd(q, kk, v, **opts)
+        ref = fa.flash_attention_plain(q, kk, v, **opts)
+        torch.cuda.synchronize()
+        mask = sdpa_mask(torch, sq, sk, True, window, off, dev)
+        line = {"phase": "lm dist", "kernel": "flash_attention_fwd", "case": label,
+                "shape": [bh, sq, d], "keys": sk, "window": window, "q_offset": off,
+                "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
+                "ms": time_ms(lambda: fa.flash_attention_fwd(q, kk, v, **opts), reps=5,
+                              batches=3),
+                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, **opts), reps=2,
+                                    batches=3),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q[None], kk[None], v[None], attn_mask=mask), reps=5, batches=3),
+                "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
+                "flops": bh * attention_pairs(sq, sk, True, window, off) * 4.0 * d, "card": card}
+        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
+                                                   split_tf32_rate(card))
+        emit(line)
+        if not line["rel_err"] <= TOL_KERNEL:
+            raise AssertionError(f"flash_attention_fwd {label}: rel err {line['rel_err']}")
+        rows["flash_attention_fwd"].setdefault("by_case", {})[label] = {
+            x: line[x] for x in ("shape", "keys", "window", "q_offset", "rel_err", "ms",
+                                 "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        del q, kk, v, got, ref, mask
+        torch.cuda.empty_cache()
+    label, bh, sq, sk, off = DIST_BWD_CASE
+    q = torch.randn(bh, sq, d, generator=gen, device=dev) / math.sqrt(d)
+    kk, v = (torch.randn(bh, sk, d, generator=gen, device=dev) for _ in range(2))
+    do = torch.randn(bh, sq, d, generator=gen, device=dev)
+    line = flash_bwd_case(torch, card, label, q, kk, v, do,
+                          {"causal": True, "window": None, "block_q": 512, "block_k": 1024,
+                           "scale": 1.0, "q_offset": off}, phase="lm dist")
+    rows["flash_attention_bwd"].setdefault("by_case", {})[label] = {
+        x: line[x] for x in ("shape", "keys", "q_offset", "rel_err", "rel_err_vs_float64", "ms",
+                             "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    # Gated: the forward instances the models run (Dv 64, 128 and 160 / 256:
+    # 8, 16 and 32 n-tiles; the Dv <= 32 instance, nv 4, spilled before the
+    # query offset came and runs on no main path) and the backward's widths
+    # up to 128, as the lm train phase gates them.
+    fwd, bwd = flash_fwd_ptxas(), flash_bwd_ptxas()
+    gated = {**{n: e for n, e in fwd.items() if int(n.split()[-1]) >= 8},
+             **{n: e for n, e in bwd.items() if int(n.split()[-1]) <= 128}}
+    spilled = {n: e for n, e in gated.items() if e.get("spill_stores", 1) + e.get("spill_loads", 1)}
+    emit({"phase": "lm dist", "check": "ptxas", "flash_attention_fwd": fwd,
+          "flash_attention_bwd": bwd, "spilled": spilled, "card": card})
+    if not fwd or spilled:
+        raise AssertionError(f"flash kernels spill: {spilled}")
+
+
+def dist_cp_model(torch, dev):
+    """The CP prefill's model, its weights and its tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.build import build
+
+    cfg = get_config(LM_ARCH).scaled(n_layers=LM_CHECK_LAYERS, compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(DIST_CP_SEED))
+    gen = torch.Generator(device=dev).manual_seed(DIST_CP_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (1, DIST_CP_SEQ), generator=gen, device=dev)
+    return cfg, model, params, toks.to(torch.int32)
+
+
+def dist_ep_cfg():
+    """mixtral-8x22b's config, its moe layer on ``ep_a2a`` over ("data",)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mixtral-8x22b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl="ep_a2a", ep_axes=("data",), capacity_factor=DIST_EP_CF))
+
+
+def dist_ep_inputs(torch, dev, experts):
+    """The EP layer's config, its router and tokens (float32, every rank the
+    same) and the bf16 experts numbered ``experts`` (wg, wu, wd stacked),
+    each drawn from its own seed, so a rank draws only its own."""
+    cfg = dist_ep_cfg()
+    d, f, e = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    gen = torch.Generator(device=dev).manual_seed(DIST_EP_SEED - 1)
+    router = torch.randn(d, e, generator=gen, device=dev) / math.sqrt(d)
+    x = torch.randn(*DIST_EP_TOKENS, d, generator=gen, device=dev)
+    w = {n: torch.empty(len(experts), *shape, dtype=torch.bfloat16, device=dev)
+         for n, shape in (("wg", (d, f)), ("wu", (d, f)), ("wd", (f, d)))}
+    for i, ex in enumerate(experts):
+        g = torch.Generator(device=dev).manual_seed(DIST_EP_SEED + ex)
+        for n in ("wg", "wu", "wd"):
+            fan_in = w[n].shape[1]
+            w[n][i] = torch.randn(*w[n].shape[1:], generator=g, device=dev) / math.sqrt(fan_in)
+    return cfg, router, x, w
+
+
+def dist_ep_grads(torch, moe, cfg, p, x):
+    """y and the gradients of sum(y²) for x, the router and the experts."""
+    y, _ = moe.moe_apply(p, x, cfg)
+    leaves = [x, p["router"], p["wg"], p["wu"], p["wd"]]
+    return y, dict(zip(("x", "router", "wg", "wu", "wd"),
+                       torch.autograd.grad((y ** 2).sum(), leaves)))
+
+
+def dist_rank(kind: str, rank: int, world: int, tmp: str) -> int:
+    """``--dist-rank KIND RANK WORLD DIR``: one rank of the lm dist phase on
+    the card. ``cp`` and ``ep`` join a gloo group (a ``FileStore`` in DIR);
+    ``train`` runs ``launch.train --distributed`` on gloo, its group from
+    the environment its parent set. Writes its result to DIR."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"rank": rank, "world": world}
+    if kind == "train":
+        from repro_torch.launch import train as launch_train
+
+        reset_launches()
+        res = launch_train.main(["--distributed", "--dist-backend", "gloo", "--device", "cuda",
+                                 *DIST_TRAIN_ARGS])
+        torch.cuda.synchronize()
+        out.update(losses=[res["losses"][i] for i in sorted(res["losses"])],
+                   launches={n: c for n, c in LAUNCHES.items() if c},
+                   step_ms=[res["loop"].seconds[i] * 1e3 for i in sorted(res["loop"].seconds)],
+                   writes=res["loop"].ckpt is not None)
+    else:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"store_{kind}"),
+                                                             world),
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            out.update((dist_cp_rank if kind == "cp" else dist_ep_rank)(torch, dev, rank, world,
+                                                                         tmp))
+        finally:
+            dist.destroy_process_group()
+    with open(os.path.join(tmp, f"{kind}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dist_cp_rank(torch, dev, rank: int, world: int, tmp: str) -> dict:
+    """The CP prefill on this rank: its launches, the offsets its attention
+    ran at, its collectives; rank 0 saves the logits and layer 0's
+    gathered attention output."""
+    import os
+
+    from repro_torch import compat
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.models import attention as attn
+    from repro_torch.sharding.ctx import activation_sharding
+
+    cfg, model, params, toks = dist_cp_model(torch, dev)
+    mesh = compat.make_mesh((1, world), ("data", "model"))
+    offsets, layer0, inner, inner_cp = [], [], attn.flash_attention, attn.flash_attention_cp
+
+    def spy(*a, **kw):
+        offsets.append(kw.get("q_offset", 0))
+        return inner(*a, **kw)
+
+    def cp_spy(*a, **kw):
+        y = inner_cp(*a, **kw)
+        if not layer0:
+            layer0.append(y)
+        return y
+
+    attn.flash_attention, attn.flash_attention_cp = spy, cp_spy
+    try:
+        with torch.no_grad(), compat.set_mesh(mesh), activation_sharding(
+                dp=("data",), dp_sizes=(1,), tp=None, tp_size=1, cp="model", cp_size=world):
+            model.prefill_fn(params, {"tokens": toks}, None)  # warm
+            torch.cuda.synchronize()
+            offsets.clear()
+            layer0.clear()
+            torch.cuda.reset_peak_memory_stats()
+            compat.reset_collectives()
+            reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill_fn(params, {"tokens": toks}, None)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {n: c for n, c in LAUNCHES.items() if c}
+            collectives = dict(compat.COLLECTIVES)
+    finally:
+        attn.flash_attention, attn.flash_attention_cp = inner, inner_cp
+    if rank == 0:
+        torch.save({"logits": logits.cpu(), "layer0": layer0[0].cpu()},
+                   os.path.join(tmp, "cp_out.pt"))
+    return {"launches": launches, "offsets": offsets, "collectives": collectives,
+            "host_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "layers": cfg.n_layers}
+
+
+def dist_ep_rank(torch, dev, rank: int, world: int, tmp: str) -> dict:
+    """The EP layer on this rank: its experts as DTensor shards, y and the
+    gradients; rank 0 saves y and the token and router gradients, every
+    rank its experts' gradients' first 256 x 256 block and norms."""
+    import os
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import compat
+    from repro_torch.compat import P, to_placements
+    from repro_torch.models import moe
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = compat.make_mesh((world,), ("data",))
+    e_loc = dist_ep_cfg().moe.n_experts // world
+    mine = range(rank * e_loc, (rank + 1) * e_loc)
+    cfg, router, x, w = dist_ep_inputs(torch, dev, mine)
+    placed = to_placements(P("data", None, None), mesh)
+    p = {"router": router.requires_grad_(),
+         **{n: DTensor.from_local(t, mesh, placed).requires_grad_() for n, t in w.items()}}
+    x.requires_grad_()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    with compat.set_mesh(mesh):
+        compat.reset_collectives()
+        y, aux = moe.moe_apply(p, x, cfg)
+        forward = dict(compat.COLLECTIVES)
+        grads = torch.autograd.grad((y ** 2).sum(), [x, p["router"], p["wg"], p["wu"], p["wd"]])
+        torch.cuda.synchronize()
+    total = dict(compat.COLLECTIVES)
+    experts = {}
+    for n, g in zip(("wg", "wu", "wd"), grads[2:]):
+        g = g.to_local()
+        experts[n] = {"block": g[:, :256, :256].float().cpu(),
+                      "norms": g.float().norm(dim=(1, 2)).cpu()}
+    torch.save(experts, os.path.join(tmp, f"ep_experts{rank}.pt"))
+    if rank == 0:
+        torch.save({"y": y.detach().cpu(), "x": grads[0].cpu(), "router": grads[1].cpu(),
+                    "aux": aux.detach().cpu()}, os.path.join(tmp, "ep_out.pt"))
+    return {"experts": list(mine), "local_shape": list(p["wg"].to_local().shape),
+            "expert_gb": sum(t.to_local().numel() * 2 for n, t in p.items() if n != "router")
+            / 1e9, "held_gb": held_gb, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "forward_collectives": forward, "collectives": total}
+
+
+def dist_group(kind: str, tmp: str, world: int, env=None):
+    """Start ``world`` ``--dist-rank`` processes of ``kind`` (their logs in
+    ``tmp``)."""
+    import os
+
+    procs = []
+    for r in range(world):
+        extra = {} if env is None else env(r)
+        with open(os.path.join(tmp, f"{kind}{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dist-rank", kind, str(r),
+                 str(world), tmp], stdout=log, stderr=subprocess.STDOUT,
+                env={**os.environ, **extra}))
+    return procs
+
+
+def dist_join(groups: dict, tmp: str) -> dict:
+    """Wait for every rank of ``groups`` ({kind: procs}) within the phase's
+    deadline; a failing or late rank fails the phase. Returns each kind's
+    ranks' results."""
+    import os
+
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    every = [(k, r, p) for k, procs in groups.items() for r, p in enumerate(procs)]
+    for kind, r, proc in every:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            for _, _, q in every:
+                q.kill()
+                q.wait()
+            with open(os.path.join(tmp, f"{kind}{r}.log")) as f:
+                raise AssertionError(f"lm dist {kind}: rank {r} exit {rc}: {f.read()[-3000:]}")
+    out = {}
+    for kind, procs in groups.items():
+        out[kind] = []
+        for r in range(len(procs)):
+            with open(os.path.join(tmp, f"{kind}{r}.json")) as f:
+                out[kind].append(json.load(f))
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def lm_dist_phase(torch, card: str, rows) -> dict:
+    """The lm dist lines; returns the launches of the phase's main-path runs
+    (the CP ranks' prefills, the distributed training runs)."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    dist_kernel_lines(torch, card, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Each group's one-process reference runs while its ranks do.
+        groups = {"cp": dist_group("cp", tmp, DIST_WORLD)}
+        cfg, model, params, toks = dist_cp_model(torch, dev)
+        first, inner = [], attn.flash_attention
+
+        def spy(*a, **kw):
+            y = inner(*a, **kw)
+            if not first:
+                first.append(y)
+            return y
+
+        attn.flash_attention = spy
+        try:
+            with torch.no_grad():
+                single, _ = model.prefill_fn(params, {"tokens": toks}, None)
+        finally:
+            attn.flash_attention = inner
+        single, single_layer0 = single.cpu(), first[0].cpu()
+        del model, params, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = dist_join(groups, tmp)
+        groups = {"ep": dist_group("ep", tmp, DIST_WORLD)}
+        ep_cfg, router, x, w = dist_ep_inputs(torch, dev, range(dist_ep_cfg().moe.n_experts))
+        g_cfg = dataclasses.replace(ep_cfg, moe=dataclasses.replace(ep_cfg.moe,
+                                                                   impl="grouped_local"))
+        p = {"router": router.requires_grad_(), **{n: t.requires_grad_() for n, t in w.items()}}
+        x.requires_grad_()
+        y_g, g_g = dist_ep_grads(torch, moe, g_cfg, p, x)
+        torch.cuda.synchronize()
+        ranks.update(dist_join(groups, tmp))
+
+        # context-parallel prefill
+        cp_out = torch.load(os.path.join(tmp, "cp_out.pt"))
+        per_rank = DIST_CP_SEQ // DIST_WORLD
+        line = {"phase": "lm dist", "call": "cp prefill", "arch": LM_ARCH, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "heads": cfg.n_heads, "compute_dtype": cfg.compute_dtype,
+                "tokens": list(toks.shape), "mesh": [1, DIST_WORLD], "backend": "gloo",
+                "logits_rel_err_vs_one_rank": rel_err(cp_out["logits"], single),
+                "layer0_attention_rel_err": rel_err(cp_out["layer0"], single_layer0),
+                "ranks": ranks["cp"], "tolerance": TOL_LM_CPU, "card": card,
+                "note": "gloo stages the gather through host memory: not the NCCL number"}
+        emit(line)
+        for r, res in enumerate(ranks["cp"]):
+            if (res["launches"] != {"flash_attention_fwd": cfg.n_layers}
+                    or res["offsets"] != [r * per_rank] * cfg.n_layers
+                    or res["collectives"]["all_gather"] != cfg.n_layers):
+                raise AssertionError(f"lm dist cp prefill: rank {r}: {res}")
+            launches["flash_attention_fwd"] = (launches.get("flash_attention_fwd", 0)
+                                               + res["launches"]["flash_attention_fwd"])
+        if not (line["logits_rel_err_vs_one_rank"] <= TOL_LM_CPU
+                and line["layer0_attention_rel_err"] <= TOL_LM_CPU
+                and bool(torch.isfinite(cp_out["logits"]).all())):
+            raise AssertionError(f"lm dist cp prefill: {line}")
+        rows["flash_attention_fwd"].setdefault("by_case", {})["llama3.2-3b cp prefill ranks"] = {
+            "launches": launches["flash_attention_fwd"], "q_offsets": [r["offsets"][0]
+                                                                       for r in ranks["cp"]]}
+
+        # expert-parallel moe layer
+        ep = torch.load(os.path.join(tmp, "ep_out.pt"))
+        errs = {"y": rel_err(ep["y"], y_g.detach().cpu()), "x": rel_err(ep["x"], g_g["x"].cpu()),
+                "router": rel_err(ep["router"], g_g["router"].cpu())}
+        for r, res in enumerate(ranks["ep"]):
+            mine = torch.load(os.path.join(tmp, f"ep_experts{r}.pt"))
+            for n in ("wg", "wu", "wd"):
+                whole = g_g[n][res["experts"][0]:res["experts"][-1] + 1]
+                errs[f"{n} rank {r}"] = max(
+                    rel_err(mine[n]["block"], whole[:, :256, :256].float().cpu()),
+                    rel_err(mine[n]["norms"], whole.float().norm(dim=(1, 2)).cpu()))
+        line = {"phase": "lm dist", "call": "ep moe layer", "arch": "mixtral-8x22b",
+                "d_model": ep_cfg.d_model, "experts": ep_cfg.moe.n_experts,
+                "d_ff_expert": ep_cfg.moe.d_ff_expert, "expert_dtype": "bfloat16",
+                "tokens": list(DIST_EP_TOKENS), "capacity_factor": DIST_EP_CF,
+                "ep_axes": ["data"], "backend": "gloo", "rel_err_vs_grouped_local": errs,
+                "ranks": ranks["ep"], "one_process_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "tolerance": TOL_EP, "bf16_tolerance": TOL_EP_BF16, "card": card}
+        emit(line)
+        n_exp = ep_cfg.moe.n_experts
+        expert_gb = 3 * n_exp * ep_cfg.d_model * ep_cfg.moe.d_ff_expert * 2 / 1e9
+        for r, res in enumerate(ranks["ep"]):
+            if (res["local_shape"][0] != n_exp // DIST_WORLD
+                    or abs(res["expert_gb"] - expert_gb / DIST_WORLD) > 1e-6
+                    or res["forward_collectives"]["all_to_all"] != 3):
+                raise AssertionError(f"lm dist ep: rank {r}: {res}")
+        bad = {k: e for k, e in errs.items()
+               if not e <= (TOL_EP if k in ("y", "x", "router") else TOL_EP_BF16)}
+        if bad:
+            raise AssertionError(f"lm dist ep: {bad}")
+        del p, x, w, router, y_g, g_g, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # launch.train --distributed: 2 gloo ranks, world 1 on NCCL, one process
+        port = free_port()
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(DIST_WORLD)}
+        groups = {"train": dist_group("train", tmp, DIST_WORLD,
+                                      lambda r: {**env, "RANK": str(r), "LOCAL_RANK": str(r)})}
+        args = [*DIST_TRAIN_ARGS, "--device", "cuda"]
+        one = launch_train.main(args)["losses"]
+        saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                                 "MASTER_ADDR", "MASTER_PORT")}
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(free_port()))
+        try:
+            reset_launches()
+            nccl = launch_train.main(["--distributed", *args])
+            torch.cuda.synchronize()
+            nccl_launches = {n: c for n, c in LAUNCHES.items() if c}
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        ranks.update(dist_join(groups, tmp))
+    one = [one[i] for i in sorted(one)]
+    nccl_losses = [nccl["losses"][i] for i in sorted(nccl["losses"])]
+    step_ms = [nccl["loop"].seconds[i] * 1e3 for i in sorted(nccl["loop"].seconds)]
+
+    def worst(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+
+    from repro_torch.configs import get_config
+
+    t_cfg = get_config(DIST_TRAIN_ARGS[1])
+    census = {n: int(DIST_TRAIN_ARGS[3]) * c
+              for n, c in train_census(t_cfg, int(DIST_TRAIN_ARGS[7])).items()}
+    line = {"phase": "lm dist", "call": "train --distributed", "arch": t_cfg.name,
+            "batch": [int(DIST_TRAIN_ARGS[5]), int(DIST_TRAIN_ARGS[7])], "one_process": one,
+            "nccl_world_1": {"losses": nccl_losses, "rel_err": worst(nccl_losses),
+                             "step_ms": step_ms, "launches": nccl_launches},
+            "gloo_world_2": [{"rel_err": worst(r["losses"]), **r} for r in ranks["train"]],
+            "census": census, "tolerance": TOL_DIST_LOSS, "card": card}
+    emit(line)
+    if not (line["nccl_world_1"]["rel_err"] <= TOL_DIST_LOSS and nccl_launches == census
+            and all(r["rel_err"] <= TOL_DIST_LOSS and r["launches"] == census
+                    and r["writes"] is False for r in line["gloo_world_2"])
+            and all(np.isfinite(one))):
+        raise AssertionError(f"lm dist train: {line}")
+    for res in [{"launches": nccl_launches}, *ranks["train"]]:
+        for n, c in res["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    emit({"phase": "lm dist", "check": "phase", "seconds": time.perf_counter() - phase_t0,
           "launches": launches, "card": card})
     return launches
 
@@ -6234,6 +6774,8 @@ def main() -> int:
             sys.argv[2], len(sys.argv) == 4)
     if len(sys.argv) == 5 and sys.argv[1] == "--pencil-rank":
         return pencil_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) == 6 and sys.argv[1] == "--dist-rank":
+        return dist_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     import torch
 
     if not torch.cuda.is_available():
@@ -6256,7 +6798,7 @@ def main() -> int:
     print(card, flush=True)
 
     # One capture over the kernel, request, imaging, mri, stream, serve, pencil, lm, lm
-    # state, lm audio, lm spectral, lm moe and lm train phases:
+    # state, lm audio, lm spectral, lm moe, lm train and lm dist phases:
     # each is held to no degrade on the main path (no_degrade clears it
     # after each).
     with obs.capture() as trace:
@@ -6297,12 +6839,14 @@ def main() -> int:
         no_degrade(trace, "lm moe", ops)
         train_launches = lm_train_phase(torch, card, rows)
         no_degrade(trace, "lm train", ops)
+        dist_launches = lm_dist_phase(torch, card, rows)
+        no_degrade(trace, "lm dist", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()
                      if name in model_rows})
     launches["flash_attention_fwd"] += lm_launches
-    for name, n in (*state_launches.items(), *train_launches.items()):
+    for name, n in (*state_launches.items(), *train_launches.items(), *dist_launches.items()):
         launches[name] += n
     for name, row in rows.items():
         row["launches"] = launches[name]

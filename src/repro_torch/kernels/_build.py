@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 #: C entry points and their argument types (every pointer and the stream
 #: as ``c_void_p``, so ctypes never cuts them to 32 bits).
@@ -52,8 +53,8 @@ _SIGNATURES = {
     "repro_irfft2_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_fft2_columns": (_P, _P, *(_I,) * 8, _F, _I, _P),
     "repro_butterfly_stage": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "repro_flash_attention_fwd": (_P, _P, _P, _P, _P, *(_I,) * 8, _F, *(_I,) * 5, _P),
-    "repro_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 8, _F, *(_I,) * 6, _P),
+    "repro_flash_attention_fwd": (_P, _P, _P, _P, _P, *(_I,) * 8, _LL, _F, *(_I,) * 5, _P),
+    "repro_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 8, _LL, _F, *(_I,) * 6, _P),
     "repro_flash_attention_occupancy": (_I, _I, _I),
     "repro_slstm_scan": (*(_P,) * 17, *(_I,) * 10, _P),
     "repro_slstm_occupancy": (_I, _I, _I, _I),

@@ -70,6 +70,14 @@
 // kernel with acc = sum of v and l = Sk padded to block_k; a query tile
 // that holds such a row visits every key tile, and the row divides by that
 // padded Sk (sk_pad, from the wrapper) as the TPU kernel does.
+//
+// Query offset. Row r of q sits at position q = q_offset + r, as in the
+// reference model's flash_attention (src/repro/models/attention.py:29,
+// q_offset=): a context-parallel rank holds the queries of its slice of
+// the sequence and every key (flash_attention_cp). The offset moves each
+// row's key range, the block's tile range and the test above; positions
+// are long long where the offset is added, and key ranges are clamped to
+// [0, Sk) before they become ints.
 #include <cuda_runtime.h>
 
 #include <limits.h>
@@ -141,6 +149,7 @@ flash_attention_kernel(const float* __restrict__ q,
     int causal,
     int has_window,
     int window,
+    long long q_offset,
     float scale,
     int sk_pad,
     int vec_qk,
@@ -174,14 +183,16 @@ flash_attention_kernel(const float* __restrict__ q,
   float* oh = o + static_cast<size_t>(bh) * sq * dv;
 
   // Key tiles: [t_lo, t_hi) when every real row of the tile sees a key,
-  // else all of them (see the note at the top of the file).
-  const long long q_last = min(q0 + BQ, sq) - 1;
+  // else all of them (see the note at the top of the file). Row r sits at
+  // position q_offset + r (a context-parallel rank's slice of the queries).
+  const long long q_first = q_offset + q0;
+  const long long q_last = q_offset + min(q0 + BQ, sq) - 1;
   const bool every_row_sees_a_key =
       !has_window || (q_last - window + 1 <= sk - 1 && (!causal || window >= 1));
   int t_lo = 0;
   int t_hi = (sk + BK - 1) / BK;
   if (every_row_sees_a_key) {
-    const long long lo = has_window ? max(0LL, static_cast<long long>(q0) - window + 1) : 0;
+    const long long lo = has_window ? max(0LL, q_first - window + 1) : 0;
     const long long hi = causal ? min(static_cast<long long>(sk - 1), q_last) : sk - 1;
     t_lo = static_cast<int>(lo / BK);
     t_hi = static_cast<int>(hi / BK) + 1;
@@ -192,7 +203,7 @@ flash_attention_kernel(const float* __restrict__ q,
   int key_lo[R], key_hi[R];
 #pragma unroll
   for (int ri = 0; ri < R; ++ri) {
-    const long long qpos = q0 + r0 + 8 * ri + g;
+    const long long qpos = q_first + r0 + 8 * ri + g;
     key_lo[ri] = has_window ? static_cast<int>(min(static_cast<long long>(INT_MAX),
                                                    max(0LL, qpos - window + 1)))
                             : 0;
@@ -377,8 +388,8 @@ template <int NV>
 cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, float* lse,
                          int bh,
                          int sq, int sk, int d, int dv, int causal, int has_window, int window,
-                         float scale, int sk_pad, int vec_qk, int vec_v, int smem,
-                         cudaStream_t stream) {
+                         long long q_offset, float scale, int sk_pad, int vec_qk, int vec_v,
+                         int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -389,8 +400,8 @@ cudaError_t launch_flash(const float* q, const float* k, const float* v, float* 
   const int bq = query_tile(dv);
   const int blocks = (sq + bq - 1) / bq * bh;
   flash_attention_kernel<NV><<<blocks, kThreads, smem, stream>>>(
-      q, k, v, o, lse, bh, sq, sk, d, dv, causal, has_window, window, scale, sk_pad, vec_qk,
-      vec_v);
+      q, k, v, o, lse, bh, sq, sk, d, dv, causal, has_window, window, q_offset, scale, sk_pad,
+      vec_qk, vec_v);
   return cudaGetLastError();
 }
 
@@ -415,16 +426,18 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace repro
 
 // q (bh, sq, d), k (bh, sk, d), v (bh, sk, dv), o (bh, sq, dv): float32,
-// contiguous; lse (bh, sq) float32 takes each row's logsumexp, or is null. nv: output accumulator n-tiles of 8 columns, the smallest
-// power of two covering dv; threads and smem as the wrapper's census gives
-// them.
+// contiguous; lse (bh, sq) float32 takes each row's logsumexp, or is null.
+// Query row r sits at position q_offset + r (>= 0; the masks compare it
+// with the key positions 0 .. sk - 1). nv: output accumulator n-tiles of 8
+// columns, the smallest power of two covering dv; threads and smem as the
+// wrapper's census gives them.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int bh, int sq, int sk, int d, int dv, int causal,
-                                         int has_window, int window, float scale, int sk_pad,
-                                         int nv, int threads, int smem, int device,
-                                         void* stream) {
+                                         int has_window, int window, long long q_offset,
+                                         float scale, int sk_pad, int nv, int threads, int smem,
+                                         int device, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || d > 256 || dv < 1 || dv > 256 ||
-      sk_pad < sk ||
+      sk_pad < sk || q_offset < 0 || q_offset > INT_MAX ||
       static_cast<long long>((sq + 63) / 64) * bh > INT_MAX)
     return cudaErrorInvalidValue;
   if (threads != repro::kThreads || nv != repro::acc_tiles(dv) ||
@@ -443,7 +456,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
 #define REPRO_FLASH_CASE(N)                                                                  \
   case N:                                                                                    \
     return repro::launch_flash<N>(qp, kp, vp, op, lp, bh, sq, sk, d, dv, causal, has_window, \
-                                  window, scale, sk_pad, vec_qk, vec_v, smem, s);
+                                  window, q_offset, scale, sk_pad, vec_qk, vec_v, smem, s);
   switch (nv) {
     REPRO_FLASH_CASE(1)
     REPRO_FLASH_CASE(2)

@@ -69,7 +69,7 @@
 // shared memory, so two blocks (8 warps) share an SM.
 //
 // Masks as in the forward: causal (key <= query), the window (key > query
-// - window), keys past Sk. A row that sees no key (only with a window)
+// - window), keys past Sk, with query row r at position q_offset + r. A row that sees no key (only with a window)
 // took in the forward the mean of the padded keys' values: acc = sum of v
 // over Sk keys, divided by sk_pad. Its P is then 1 / sk_pad on every real
 // key and its scores get no gradient (dS = 0): dV gains dO / sk_pad there
@@ -127,6 +127,7 @@ struct BwdArgs {
   float* dk;
   float* dv;
   int n_heads, sq, sk, d1, d2, causal, has_window, window;
+  long long q_offset;  // query row r sits at position q_offset + r
   float scale, blind_p;
   int vec1, vec2;  // 16-byte copies of q and k (d1 % 4 == 0, aligned), of v and dO
 };
@@ -141,11 +142,12 @@ __device__ __forceinline__ int key_hi(long long q, int sk, int causal) {
   return causal ? static_cast<int>(min(static_cast<long long>(sk - 1), q)) : sk - 1;
 }
 
-// The first query row that sees no key: every row from it on does.
+// The first query row that sees no key: every row from it on does (its
+// position q_offset + row is at least sk + window - 1).
 __device__ __forceinline__ long long blind_from(const BwdArgs& a) {
   if (!a.has_window) return a.sq;
   if (a.causal && a.window < 1) return 0;
-  return max(0LL, static_cast<long long>(a.sk) + a.window - 1);
+  return max(0LL, static_cast<long long>(a.sk) + a.window - 1 - a.q_offset);
 }
 
 // Tiles come in by cp.async, rows at or past `avail` zero-filled, in
@@ -336,18 +338,21 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_kernel(const BwdArgs a)
   const long long blind = blind_from(a);
 
   // The streamed rows [lo, hi] that rows [first, last] see (in the dK/dV
-  // pass also every row that sees no key).
+  // pass also every row that sees no key). Query row r sits at position
+  // q_offset + r: in the dK/dV pass the first query row that sees key c
+  // (causal) is c - q_offset, the last (window) c + window - 1 - q_offset.
   auto seen = [&](long long first, long long last, long long& lo, long long& hi) {
     if (first > last) {
       lo = 1;
       hi = 0;
     } else if (!KEYS) {
-      lo = key_lo(first, a.has_window, a.window);
-      hi = key_hi(last, a.sk, a.causal);
+      lo = key_lo(first + a.q_offset, a.has_window, a.window);
+      hi = key_hi(last + a.q_offset, a.sk, a.causal);
     } else {
-      lo = a.causal ? first : 0;
-      hi = a.has_window ? min(last + a.window - 1, static_cast<long long>(a.sq - 1))
-                        : static_cast<long long>(a.sq - 1);
+      lo = a.causal ? max(0LL, first - a.q_offset) : 0;
+      hi = a.has_window
+               ? min(last + a.window - 1 - a.q_offset, static_cast<long long>(a.sq - 1))
+               : static_cast<long long>(a.sq - 1);
       if (blind < a.sq) {
         lo = min(lo, blind);
         hi = a.sq - 1;
@@ -411,8 +416,8 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_kernel(const BwdArgs a)
     klo[ri] = 1;
     khi[ri] = 0;
     if (!KEYS && row < a.sq) {
-      klo[ri] = key_lo(row, a.has_window, a.window);
-      khi[ri] = key_hi(row, a.sk, a.causal);
+      klo[ri] = key_lo(row + a.q_offset, a.has_window, a.window);
+      khi[ri] = key_hi(row + a.q_offset, a.sk, a.causal);
       lse_r[ri] = a.lse[qoff + row];
     }
   }
@@ -478,8 +483,9 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_kernel(const BwdArgs a)
             l = lse_r[ri];
             dl = delta_r[ri];
           } else {
-            const int lo_c = key_lo(col, a.has_window, a.window);
-            const int hi_c = key_hi(col, a.sk, a.causal);
+            const long long qpos = col + a.q_offset;
+            const int lo_c = key_lo(qpos, a.has_window, a.window);
+            const int hi_c = key_hi(qpos, a.sk, a.causal);
             const bool real = col < a.sq && key[ri] < a.sk;
             keep = real && key[ri] >= lo_c && key[ri] <= hi_c;
             blind_row = real && lo_c > hi_c;
@@ -581,18 +587,20 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // q (bh, sq, d), k (bh, sk, d), v (bh, sk, dv), o and dout (bh, sq, dv),
 // lse (bh, sq): float32, contiguous. delta (bh, sq) is scratch; dq, dk, dv
-// take the gradients. dm: the width instance (32, 64, 128 or 256, the
-// smallest covering d and dv); threads and the two passes' shared memory
-// as the wrapper's census gives them.
+// take the gradients. Query row r sits at position q_offset + r (>= 0), as
+// in the forward. dm: the width instance (32, 64, 128 or 256, the smallest
+// covering d and dv); threads and the two passes' shared memory as the
+// wrapper's census gives them.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv_out, int bh,
                                          int sq, int sk, int d, int dv, int causal,
-                                         int has_window, int window, float scale, int sk_pad,
-                                         int dm, int threads, int smem_dq, int smem_dkdv,
-                                         int device, void* stream) {
+                                         int has_window, int window, long long q_offset,
+                                         float scale, int sk_pad, int dm, int threads,
+                                         int smem_dq, int smem_dkdv, int device, void* stream) {
   using repro::kRes;
   if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 || dv < 1 || dv > 256 || sk_pad < sk ||
+      q_offset < 0 || q_offset > INT_MAX ||
       static_cast<long long>((sq + kRes - 1) / kRes) * bh > INT_MAX ||
       static_cast<long long>((sk + kRes - 1) / kRes) * bh > INT_MAX)
     return cudaErrorInvalidValue;
@@ -608,7 +616,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                    static_cast<const float*>(dout), static_cast<const float*>(lse),
                    static_cast<float*>(delta), static_cast<float*>(dq), static_cast<float*>(dk),
                    static_cast<float*>(dv_out), bh, sq, sk, d, dv, causal, has_window, window,
-                   scale, 1.f / static_cast<float>(sk_pad),
+                   q_offset, scale, 1.f / static_cast<float>(sk_pad),
                    d % 4 == 0 && repro::aligned16(q) && repro::aligned16(k),
                    dv % 4 == 0 && repro::aligned16(v) && repro::aligned16(dout)};
   const int q_blocks = (sq + kRes - 1) / kRes * bh;

@@ -9,6 +9,9 @@ Layout as in the reference: q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv),
 float32; grouped-query callers repeat k and v to the query heads first.
 Masks: causal (key <= query) and a sliding window (key > query - window),
 applied as ``NEG_INF = -1e30``, never ``-inf``; l is floored at 1e-20.
+Query row r sits at position ``q_offset + r`` (default 0), as in the
+reference model's ``flash_attention``: a context-parallel rank attends its
+slice of the queries against every key.
 
 * :func:`flash_attention_fwd` — a CPU tensor runs the plain version; a CUDA
   tensor launches ``csrc/flash_attention.cu`` or raises. That kernel runs
@@ -169,6 +172,7 @@ def flash_attention_plain(
     block_k: int = 512,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    q_offset: int = 0,
 ):
     """The reference kernel's online softmax over its padded key blocks, all
     query rows at once (a query block only pads, and padded rows are cut).
@@ -183,7 +187,7 @@ def flash_attention_plain(
     k = torch.nn.functional.pad(k.to(dt), (0, 0, 0, sk_pad - sk))
     v = torch.nn.functional.pad(v.to(dt), (0, 0, 0, sk_pad - sk))
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    qpos = torch.arange(sq_pad, device=q.device).reshape(sq_pad, 1)
+    qpos = q_offset + torch.arange(sq_pad, device=q.device).reshape(sq_pad, 1)
     acc = torch.zeros(bh, sq_pad, dv, dtype=dt, device=q.device)
     m = torch.full((bh, sq_pad, 1), NEG_INF, dtype=dt, device=q.device)
     l = torch.zeros(bh, sq_pad, 1, dtype=dt, device=q.device)
@@ -211,13 +215,14 @@ def _work_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def mha_reference(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+def mha_reference(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0):
     """Naive oracle: softmax(q k^T / sqrt(D), masked) v on the whole score
     matrix, (BH, Sq, D) x (BH, Sk, D) x (BH, Sk, Dv)."""
     sq, d = q.shape[1], q.shape[2]
     sk = k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q, k) / math.sqrt(d)
-    qpos = torch.arange(sq, device=q.device).reshape(sq, 1)
+    qpos = q_offset + torch.arange(sq, device=q.device).reshape(sq, 1)
     kpos = torch.arange(sk, device=q.device).reshape(1, sk)
     s = torch.where(_mask(qpos, kpos, sk, causal, window)[None], s, NEG_INF)
     return torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1), v)
@@ -234,20 +239,24 @@ def flash_attention_fwd(
     block_k: int = 512,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    q_offset: int = 0,
 ):
     """q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv) -> (BH, Sq, Dv) float32,
     and with ``return_lse`` each row's logsumexp (BH, Sq) float32 too.
 
     Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference
-    (a caller that scaled q already passes 1). On a CUDA tensor D and Dv may
-    be at most 256 (``NotImplementedError`` above that) and BH at most
-    65535; under grad, an input that requires grad raises
-    :class:`NoBackward` (call :func:`flash_attention`).
+    (a caller that scaled q already passes 1); query row r sits at position
+    ``q_offset + r``. On a CUDA tensor D and Dv may be at most 256
+    (``NotImplementedError`` above that) and BH at most 65535; under grad,
+    an input that requires grad raises :class:`NoBackward` (call
+    :func:`flash_attention`).
     """
     _check(q, k, v)
+    _check_offset(q_offset, q.shape[1], k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, block_q=block_q,
-                                     block_k=block_k, scale=scale, return_lse=return_lse)
+                                     block_k=block_k, scale=scale, return_lse=return_lse,
+                                     q_offset=q_offset)
     refuse_grad("flash_attention_fwd", q, k, v)
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
@@ -265,16 +274,29 @@ def flash_attention_fwd(
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(),
                None if lse is None else lse.data_ptr(), bh, sq, sk, d, dv, int(causal),
-               int(window is not None), _c_window(window, sq, sk),
+               int(window is not None), _c_window(window, sq, sk, q_offset), q_offset,
                1.0 / math.sqrt(d) if scale is None else scale, sk_pad, _acc_columns(dv),
                THREADS, flash_smem_bytes(d, dv))
     return (out, lse) if return_lse else out
 
 
-def _c_window(window: Optional[int], sq: int, sk: int) -> int:
+def _c_window(window: Optional[int], sq: int, sk: int, q_offset: int = 0) -> int:
     """The window as the kernels take it: any window beyond these limits
-    masks as the limit does, and the clamp keeps it a C int."""
-    return 0 if window is None else max(-sk, min(int(window), sq + sk + 1))
+    (the last query position and one key past it, or -Sk) masks as the
+    limit does, and the clamp keeps it a C int."""
+    return 0 if window is None else max(-sk, min(int(window), q_offset + sq + sk + 1))
+
+
+#: The largest C int: the kernels keep key positions, and the window, in it.
+_INT_MAX = 2 ** 31 - 1
+
+
+def _check_offset(q_offset, sq: int, sk: int) -> None:
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash attention: q_offset must be an int >= 0, got {q_offset!r}")
+    if q_offset + sq + sk + 1 > _INT_MAX:
+        raise NotImplementedError(
+            f"flash attention takes q_offset + Sq + Sk < 2^31 - 1, got {q_offset} + {sq} + {sk}")
 
 
 # ------------------------------ backward ------------------------------
@@ -319,6 +341,7 @@ def flash_attention_bwd_plain(
     block_q: int = 256,
     block_k: int = 512,
     scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward over the reference's key blocks, all query rows at once:
     P recomputed from ``lse``, delta = rowsum(dO o O), dV = P^T dO, dS = P o
@@ -333,7 +356,7 @@ def flash_attention_bwd_plain(
     q, k, v, o, do, lse = (x.to(dt) for x in (q, k, v, o, do, lse))
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     delta = (do * o).sum(dim=-1, keepdim=True)
-    qpos = torch.arange(sq, device=q.device).reshape(sq, 1)
+    qpos = q_offset + torch.arange(sq, device=q.device).reshape(sq, 1)
     blind = ~_mask(qpos, torch.arange(sk, device=q.device).reshape(1, sk), sk, causal,
                    window).any(dim=-1, keepdim=True)
     dq = torch.zeros_like(q)
@@ -367,6 +390,7 @@ def flash_attention_bwd(
     block_q: int = 256,
     block_k: int = 512,
     scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_fwd` at (q, k, v), given its
     output ``o`` (BH, Sq, Dv), the cotangent ``do`` of that output and the
@@ -382,8 +406,9 @@ def flash_attention_bwd(
         if tuple(x.shape) != shape or x.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} must be {shape} on {q.device}, "
                              f"got {tuple(x.shape)} on {x.device}")
+    _check_offset(q_offset, sq, sk)
     opts = {"causal": causal, "window": window, "block_q": block_q, "block_k": block_k,
-            "scale": scale}
+            "scale": scale, "q_offset": q_offset}
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, **opts)
     refuse_grad("flash_attention_bwd", q, k, v, o, do, lse)
@@ -399,8 +424,9 @@ def flash_attention_bwd(
         launch("repro_flash_attention_bwd", "flash_attention_bwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), bh, sq, sk, d,
-               dv, int(causal), int(window is not None), _c_window(window, sq, sk),
-               1.0 / math.sqrt(d) if scale is None else scale, sk_pad, bwd_width(d, dv),
+               dv, int(causal), int(window is not None), _c_window(window, sq, sk, q_offset),
+               q_offset, 1.0 / math.sqrt(d) if scale is None else scale, sk_pad,
+               bwd_width(d, dv),
                BWD_THREADS, *flash_bwd_smem_bytes(d, dv))
     else:
         dk.zero_()
@@ -414,9 +440,9 @@ class FlashAttention(torch.autograd.Function):
     logsumexp; the gradients come back in q's, k's and v's dtypes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_q, block_k, scale):
+    def forward(ctx, q, k, v, causal, window, block_q, block_k, scale, q_offset=0):
         ctx.opts = {"causal": causal, "window": window, "block_q": block_q,
-                    "block_k": block_k, "scale": scale}
+                    "block_k": block_k, "scale": scale, "q_offset": q_offset}
         out, lse = flash_attention_fwd(q, k, v, return_lse=True, **ctx.opts)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -425,7 +451,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, **ctx.opts)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
+                None)
 
 
 def flash_attention(
@@ -438,13 +465,14 @@ def flash_attention(
     block_q: int = 256,
     block_k: int = 512,
     scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Differentiable :func:`flash_attention_fwd`: under grad, with an input
     that requires it, :class:`FlashAttention` (the backward on
     :func:`flash_attention_bwd`); else the forward alone, which writes no
     logsumexp."""
-    opts = (causal, window, block_q, block_k, scale)
+    opts = (causal, window, block_q, block_k, scale, q_offset)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, *opts)
     return flash_attention_fwd(q, k, v, causal=causal, window=window, block_q=block_q,
-                               block_k=block_k, scale=scale)
+                               block_k=block_k, scale=scale, q_offset=q_offset)

@@ -15,8 +15,8 @@ Port of ``repro.models.attention``, the GQA part. Prefill attention is
   reference's model runs a jnp function in the compute dtype; the kernel
   computes the same function, keeping the softmax weights in float32
   where the reference rounds them to the compute dtype (ROADMAP,
-  divergence 13). ``q_offset != 0`` raises there: the kernel has no query
-  offset;
+  divergence 13). ``q_offset`` goes to the kernel: query row r sits at
+  position ``q_offset + r``;
 * on a CPU tensor it runs :func:`flash_attention_blocks`, a plain twin of
   the reference's function in the compute dtype, with its rounding steps
   (q scaled before the product, the weights ``p`` cast to v's dtype).
@@ -40,20 +40,28 @@ cache keeps the latent ``c_kv`` and the rope key only, and a decode step
 is the reference's absorbed one in plain ops (the latent is never
 expanded per head).
 
-``flash_attention_cp`` comes with the sharding slice.
+Context-parallel attention (:func:`flash_attention_cp`) runs under
+``repro_torch.compat.shard_map``: each rank of the axis attends its slice
+of the queries, at its own ``q_offset``, against every key, and the
+slices are gathered. ``gqa_apply`` takes it where the activation-sharding
+context names a context-parallel axis that the batch cannot fill
+(``repro_torch.sharding.ctx.cp_axis_for``), as the reference does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.config import MLAConfig, ModelConfig
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import ParamDef, _device
+from repro_torch.sharding.ctx import cp_axis_for
 
 __all__ = [
     "NEG_INF",
@@ -63,6 +71,7 @@ __all__ = [
     "decode_attention",
     "flash_attention",
     "flash_attention_blocks",
+    "flash_attention_cp",
     "gqa_apply",
     "gqa_from_heads",
     "gqa_qkv",
@@ -156,15 +165,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     if q.device.type != "cuda":
         return flash_attention_blocks(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, block_q=block_q, block_k=block_k)
-    if q_offset != 0:
-        raise NotImplementedError(
-            "flash_attention on the card takes q_offset 0: flash_attention_fwd has no "
-            "query offset (only context-parallel attention uses one)"
-        )
     qs = q * (1.0 / math.sqrt(q.shape[-1]))  # rounded to the compute dtype, as the reference
     out = fa.flash_attention(*gqa_to_heads(qs, k, v), causal=causal, window=window,
-                             block_q=block_q, block_k=block_k, scale=1.0)
+                             block_q=block_q, block_k=block_k, scale=1.0, q_offset=q_offset)
     return gqa_from_heads(out, q.shape[0]).to(q.dtype)
+
+
+def flash_attention_cp(q, k, v, axis: str, **kw):
+    """Context-parallel flash attention: Q sequence-sharded over the mesh
+    axis ``axis``, K and V whole (each rank attends its query slice,
+    at ``q_offset = axis_index(axis) · Sq_loc``, against every key); the
+    output is gathered back along the sequence. Under the ambient mesh of
+    ``compat.set_mesh``; every rank of the mesh calls it with the same
+    q, k, v."""
+    P = compat.P
+    mesh = compat.get_abstract_mesh()
+
+    @functools.partial(compat.shard_map, mesh=mesh,
+                       in_specs=(P(None, axis, None, None), P(), P()),
+                       out_specs=P(None, axis, None, None), axis_names={axis})
+    def run(q_loc, k_full, v_full):
+        off = compat.axis_index(axis) * q_loc.shape[1]
+        return flash_attention(q_loc, k_full, v_full, q_offset=off, **kw)
+
+    return run(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos):
@@ -268,13 +292,13 @@ def gqa_apply(p: dict, x, cfg: ModelConfig, *, positions, causal: bool = True,
         new_cache = _cache_insert(cache, k, v, pos)
         out = decode_attention(q, new_cache["k"], new_cache["v"], new_cache["slot_pos"], pos)
     else:
-        out = flash_attention(
-            q, k, v,
-            causal=causal,
-            window=cfg.sliding_window,
-            block_q=cfg.attn_block_q,
-            block_k=cfg.attn_block_k,
-        )
+        opts = dict(causal=causal, window=cfg.sliding_window, block_q=cfg.attn_block_q,
+                    block_k=cfg.attn_block_k)
+        cp = cp_axis_for(q.shape[0], q.shape[1])
+        if cp is not None and q.shape[1] == k.shape[1]:
+            out = flash_attention_cp(q, k, v, cp, **opts)
+        else:
+            out = flash_attention(q, k, v, **opts)
         if cache is not None:
             new_cache = _cache_insert(cache, k, v, pos)
     h, dh, d = p["wo"].shape

@@ -21,7 +21,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import softmax_xent
-from repro_torch.models.param import abstract_params, init_params, param_count
+from repro_torch.models.param import abstract_params, init_params, param_count, partition_specs
 
 __all__ = ["Model", "build"]
 
@@ -44,6 +44,9 @@ class Model:
 
     def abstract(self, dtype=None):
         return abstract_params(self.skeleton, dtype)
+
+    def specs(self, rules: dict):
+        return partition_specs(self.skeleton, rules)
 
     @property
     def n_params(self) -> int:

@@ -1,18 +1,20 @@
 """Mixture-of-Experts: token-choice top-k routing.
 
-Port of ``repro.models.moe``. Two dispatch paths run on one device:
+Port of ``repro.models.moe``, with three dispatch paths:
 
   * ``dense_small``   — every expert on every token (tiny E, smoke tests).
   * ``grouped_local`` — capacity-grouped batched products per batch row,
-    the path of the moe configs.
+    the path of the moe configs on one device.
+  * ``ep_a2a``        — expert parallelism under ``compat.shard_map``:
+    tokens and experts sharded over ``ep_axes``, tokens sent to their
+    experts' ranks and back with two ``all_to_all`` (and one for the
+    expert ids), each rank running only its own experts. As in the
+    reference, without a mesh, or with one that lacks the expert axes, it
+    runs ``grouped_local``. A parameter passed as a ``DTensor`` sharded
+    over ``ep_axes`` is used as its local experts, so a rank holds only
+    those.
 
-``ep_a2a`` (expert parallelism, tokens exchanged with all-to-all under
-``shard_map``) comes with the sharding slice (ROADMAP, queue 1, item
-12 (h)): as in the reference, without a mesh, or with one that lacks the
-expert axes, it runs ``grouped_local``; under a mesh that has them it
-raises ``NotImplementedError`` (ROADMAP, divergence 18).
-
-Both paths share the router and the (E, D, F) expert weight layout, drop
+The paths share the router and the (E, D, F) expert weight layout, drop
 over-capacity assignments (standard dropped-token semantics) and return
 the Switch-style load-balance loss. As in the reference, a prefill of S
 tokens groups at capacity ``max(1, int(S·k/E·cf))`` a row, so it may drop
@@ -33,12 +35,19 @@ Where the port must match JAX's choices exactly:
   expert outputs back through the inverse permutation and sums them in
   the order of the router's choice, so it is the same on every run (the
   reference scatter-adds them in the sorted order: the sums differ by
-  rounding only).
+  rounding only);
+* ``ep_a2a``'s expert-id buffer is written as the reference's
+  ``.at[slot].set`` is on its CPU backend: where several assignments clip
+  to one slot, the last in sorted order wins. An assignment over a rank's
+  send capacity clips to its segment's last slot, so under overflow that
+  slot's id becomes -1 and the kept assignment there is dropped as well
+  (the reference's behaviour, ported as is).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -118,6 +127,121 @@ def _router(p, x, m: MoEConfig):
     return gates.to(x.dtype), ids.to(torch.int32), aux
 
 
+def _expert_ffn(wg, wu, wd, h, act: str = "swiglu"):
+    """h: (E, C, D) grouped tokens; per-expert FFN (the ep_a2a path), the
+    weights cast to h's dtype at use."""
+    dt = h.dtype
+    a = _act(torch.bmm(h, wg.to(dt)), torch.bmm(h, wu.to(dt)), act)
+    return torch.bmm(a, wd.to(dt))
+
+
+def _group_by_expert(ids_flat, n_experts: int, capacity: int):
+    """Sort assignment slots by expert; compute each slot's position in its
+    expert group (the running max of its group's start).
+
+    Returns (order, slot, keep): ``order`` sorts assignments by expert
+    (stable), ``slot`` is the flat (e*C + pos) destination (clipped),
+    ``keep`` masks assignments that fit under capacity.
+    """
+    a = ids_flat.shape[0]
+    order = torch.sort(ids_flat, stable=True).indices
+    sorted_ids = ids_flat[order]
+    idx = torch.arange(a, device=ids_flat.device)
+    is_start = torch.ones(a, dtype=torch.bool, device=ids_flat.device)
+    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    pos = idx - seg_start
+    keep = pos < capacity
+    slot = sorted_ids * capacity + torch.clamp(pos, max=capacity - 1)
+    return order, slot, keep
+
+
+def _set_last(n: int, slot, values, fill: int):
+    """``full(n, fill).at[slot].set(values)`` with the last write to a slot
+    winning, as the reference's scatter on its CPU backend."""
+    writer = torch.full((n,), -1, dtype=torch.long, device=slot.device).scatter_reduce(
+        0, slot, torch.arange(slot.shape[0], device=slot.device), reduce="amax")
+    out = torch.full((n,), fill, dtype=values.dtype, device=slot.device)
+    has = writer >= 0
+    out[has] = values[writer[has]]
+    return out
+
+
+def _moe_ep_a2a(p, x, m: MoEConfig, act: str, ep_axis):
+    """Expert-parallel dispatch on this rank's tokens and experts (inside
+    ``shard_map``): route local tokens, bucket them by destination rank
+    (fixed send capacity), all_to_all, run local experts, all_to_all back,
+    combine."""
+    axis_size = compat.axis_size(ep_axis)
+    e_loc = m.n_experts // axis_size
+    b, s, d = x.shape  # local shapes
+    gates, ids, aux = _router(p, x, m)
+    k = m.top_k
+    t = b * s
+    dev = x.device
+    x_flat = x.reshape(t, d)
+    ids_flat = ids.reshape(t * k).long()
+    gates_flat = gates.reshape(t * k)
+    tok_of_a = torch.arange(t, device=dev).repeat_interleave(k)
+
+    # Bucket assignments by destination EP rank, fixed capacity per rank.
+    cap_send = max(1, int(t * k / axis_size * m.capacity_factor))
+    dest = ids_flat // e_loc
+    order, slot, keep = _group_by_expert(dest, axis_size, cap_send)
+    send_x = torch.zeros(axis_size * cap_send, d, dtype=x.dtype, device=dev)
+    send_x = send_x.index_add(0, slot, torch.where(keep[:, None], x_flat[tok_of_a[order]], 0.0))
+    send_eid = _set_last(axis_size * cap_send, slot,
+                         torch.where(keep, ids_flat[order] % e_loc, -1), -1)
+    # Exchange tokens.
+    recv_x = compat.all_to_all(send_x.reshape(axis_size, cap_send, d), ep_axis, 0, 0)
+    recv_x = recv_x.reshape(axis_size * cap_send, d)
+    recv_eid = compat.all_to_all(send_eid.reshape(axis_size, cap_send), ep_axis, 0, 0)
+    recv_eid = recv_eid.reshape(axis_size * cap_send)
+
+    # Group received tokens by local expert and run the FFN.
+    cap_e = max(1, int(recv_x.shape[0] * m.capacity_factor / e_loc))
+    r_order, r_slot, r_keep = _group_by_expert(
+        torch.where(recv_eid >= 0, recv_eid, e_loc), e_loc + 1, cap_e)
+    grouped = torch.zeros((e_loc + 1) * cap_e, d, dtype=x.dtype, device=dev)
+    grouped = grouped.index_add(0, r_slot, torch.where(r_keep[:, None], recv_x[r_order], 0.0))
+    h = _expert_ffn(p["wg"], p["wu"], p["wd"],
+                    grouped.reshape(e_loc + 1, cap_e, d)[:e_loc], act)
+    h_flat = torch.cat([h.reshape(e_loc * cap_e, d), torch.zeros(cap_e, d, dtype=h.dtype,
+                                                                  device=dev)])
+    y_recv = torch.zeros_like(recv_x).index_add(
+        0, r_order, torch.where(r_keep[:, None], h_flat[r_slot], 0.0))
+    # Send results home.
+    back = compat.all_to_all(y_recv.reshape(axis_size, cap_send, d), ep_axis, 0, 0)
+    back = back.reshape(axis_size * cap_send, d)
+    y_assign = back[slot] * torch.where(keep, gates_flat[order], 0.0)[:, None]
+    y_flat = torch.zeros_like(x_flat).index_add(0, tok_of_a[order], y_assign)
+    return y_flat.reshape(b, s, d), aux
+
+
+def _moe_ep_shard_map(p, x, m: MoEConfig, act: str, ep_axes: tuple):
+    """The EP dispatch under ``shard_map``: tokens and experts sharded over
+    ``ep_axes``, the router whole (its gradient summed over the ranks);
+    aux is the mean over the ranks. Collectives a layer: three
+    ``all_to_all`` forward (tokens, expert ids, results), two backward."""
+    P = compat.P
+    mesh = compat.get_abstract_mesh()
+    axis_name = ep_axes if len(ep_axes) > 1 else ep_axes[0]
+
+    @functools.partial(
+        compat.shard_map, mesh=mesh,
+        in_specs=({"router": P(), "wg": P(ep_axes, None, None), "wu": P(ep_axes, None, None),
+                   "wd": P(ep_axes, None, None)}, P(ep_axes, None, None)),
+        out_specs=(P(ep_axes, None, None), P()),
+        axis_names=set(ep_axes),
+    )
+    def inner(p_loc, x_loc):
+        y, aux = _moe_ep_a2a(p_loc, x_loc, m, act, axis_name)
+        return y, compat.pmean(aux, axis_name)
+
+    routed = {k: p[k] for k in ("router", "wg", "wu", "wd")}
+    return inner(routed, x)
+
+
 def _expert_ffn_batched(wg, wu, wd, h, act: str = "swiglu"):
     """h: (B, E, C, D) grouped tokens; per-expert FFN, the weights cast to
     h's dtype at use. Runs as (E, B·C, D) batched products."""
@@ -195,7 +319,9 @@ def _moe_dense_small(p, x, m: MoEConfig, act: str):
 def moe_apply(p: dict, x, cfg: ModelConfig, *, ep_axis: Any = None, stats: dict | None = None):
     """Returns (y, aux_loss). Adds shared experts if configured. ``stats``
     (``grouped_local`` only) receives the capacity and the kept
-    assignments."""
+    assignments. ``ep_a2a`` runs its dispatch under the ambient mesh of
+    ``compat.set_mesh`` when the mesh has every axis of ``ep_axes``
+    (``ep_axis`` or the config's); every rank of the mesh calls it."""
     m: MoEConfig = cfg.moe
     impl = m.impl
     ep_axes = tuple(ep_axis) if ep_axis else tuple(m.ep_axes)
@@ -204,13 +330,10 @@ def moe_apply(p: dict, x, cfg: ModelConfig, *, ep_axis: Any = None, stats: dict 
         names = (mesh.mesh_dim_names or ()) if mesh is not None else ()
         if not ep_axes or mesh is None or any(a not in names for a in ep_axes):
             impl = "grouped_local"  # no mesh context (one device)
-        else:
-            raise NotImplementedError(
-                f"{cfg.name}: expert-parallel dispatch (ep_a2a over {ep_axes}) is not "
-                "ported yet (ROADMAP, queue 1, item 12 (h))"
-            )
     if impl == "dense_small":
         y, aux = _moe_dense_small(p, x, m, cfg.act)
+    elif impl == "ep_a2a":
+        y, aux = _moe_ep_shard_map(p, x, m, cfg.act, ep_axes)
     else:
         y, aux = _moe_grouped_rows(p, x, m, cfg.act, stats)
     if m.n_shared_experts:

@@ -9,11 +9,13 @@ axes** (names like "embed", "heads", "mlp"). From a skeleton we derive:
   * ``abstract_params``   — ``meta`` tensors (shapes and dtypes, no storage)
   * ``params_from_numpy`` — a reference parameter tree of numpy leaves
                             carried across as tensors, same keys and shapes
+  * ``partition_specs``   — a ``PartitionSpec`` per leaf, via per-config
+                            sharding rules (``repro_torch.sharding.rules``)
 
 The init is the reference's, quirk included: ``fan_in = shape[0]``, which
 for a stacked layer weight is the layer count (ROADMAP, observations).
 The draws are torch's, not JAX's: parity with the reference goes through
-``params_from_numpy``. (``partition_specs`` comes with the sharding slice.)
+``params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ __all__ = [
     "param_bytes",
     "param_count",
     "params_from_numpy",
+    "partition_specs",
     "stack_defs",
     "stack_skeleton",
     "tree_leaves",
@@ -163,6 +166,32 @@ def params_from_numpy(tree, device=None):
     same keys, shapes and dtypes."""
     device = _device(device)
     return tree_map(lambda x: _from_numpy(x, device), tree)
+
+
+def partition_specs(skeleton, rules: dict[str, Any]):
+    """logical axes -> ``PartitionSpec`` using a {logical_name: mesh_axes}
+    map. Unknown logical names are replicated. ``rules`` values may be
+    None, a mesh-axis name, or a tuple of mesh-axis names; a mesh axis
+    appears at most once in a spec (the first use wins)."""
+    from repro_torch.compat import P
+
+    def one(d: ParamDef):
+        spec = []
+        used: set[str] = set()
+        for a in d.logical_axes:
+            r = rules.get(a) if a is not None else None
+            axes = (r,) if isinstance(r, str) else tuple(r or ())
+            axes = tuple(ax for ax in axes if ax not in used)
+            used.update(axes)
+            if not axes:
+                spec.append(None)
+            elif len(axes) == 1:
+                spec.append(axes[0])
+            else:
+                spec.append(axes)
+        return P(*spec)
+
+    return tree_map(one, skeleton)
 
 
 def param_count(skeleton) -> int:

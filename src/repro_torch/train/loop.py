@@ -20,6 +20,15 @@ What differs from the reference, in PyTorch's idiom:
   (no second tree of gradients; the same bits as the reference's clip).
 * ``jax.random.PRNGKey`` becomes a seeded ``torch.Generator``: the model
   draws its weights from it on the generator's device.
+* Data parallelism (``group``, from ``launch/train.py --distributed``)
+  replaces GSPMD's batch sharding: each rank differentiates its slice of
+  the global batch at replicated parameters, and the gradients are summed
+  over the group, each rank's weighted by its share of what the loss
+  averages over (:func:`loss_weight`: masked positions of a masked-LM
+  batch, else rows), so the step is the one process's on the whole batch
+  up to the order of the sums. A loss that is not such an average (the
+  moe family's aux loss) is averaged per rank the same way (ROADMAP,
+  divergence 21).
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.optim.adamw import global_norm_scale
 from repro_torch.optim.compression import compressed_mean, init_error_state
 
-__all__ = ["StragglerMonitor", "TrainLoop", "TrainState", "make_train_step", "value_and_grad"]
+__all__ = ["StragglerMonitor", "TrainLoop", "TrainState", "loss_weight", "make_train_step",
+           "value_and_grad"]
 
 
 @dataclasses.dataclass
@@ -78,6 +88,40 @@ def value_and_grad(loss_fn: Callable, params, batch, cast_params=None):
     return loss.detach(), {k: detach(m) for k, m in metrics.items()}, grads
 
 
+def loss_weight(batch) -> float:
+    """What a batch's loss averages over: the masked positions of a
+    masked-LM batch (``mlm_mask``), else its rows (every row the same
+    positions)."""
+    if "mlm_mask" in batch:
+        return float(batch["mlm_mask"].sum())
+    return float(batch["tokens"].shape[0])
+
+
+def _share(batch, group) -> float:
+    """This rank's share of the group's :func:`loss_weight` (the global
+    average's denominator floored at 1, as ``softmax_xent``'s)."""
+    import torch.distributed as dist
+
+    w = loss_weight(batch)
+    total = torch.tensor([w], dtype=torch.float64, device=batch["tokens"].device)
+    dist.all_reduce(total, group=group)
+    return w / max(float(total), 1.0)
+
+
+def _all_sum(tensors, group) -> None:
+    """Sum each of ``tensors`` over ``group`` in place (float32 on the
+    wire for narrower floats)."""
+    import torch.distributed as dist
+
+    for t in tensors:
+        if t.dtype in (torch.float16, torch.bfloat16):
+            wide = t.float()
+            dist.all_reduce(wide, group=group)
+            t.copy_(wide)
+        else:
+            dist.all_reduce(t, group=group)
+
+
 def make_train_step(
     loss_fn: Callable,
     *,
@@ -88,25 +132,43 @@ def make_train_step(
     total: int = 10_000,
     compress: bool = False,
     cast_params=None,
+    group=None,
 ):
     """(state, batches) -> (state, metrics). ``batches`` is a dict whose
     leaves carry a leading [accum] dim when accum > 1.
 
     ``cast_params=torch.bfloat16`` differentiates at a bf16 view of the
     float32 master weights, as the reference's does (there it halves the
-    FSDP gathers and gradient reductions)."""
+    FSDP gathers and gradient reductions).
+
+    ``group`` (a ``torch.distributed`` process group): ``batches`` is this
+    rank's slice of the global batch; gradients, the loss and the scalar
+    metrics are summed over the group, each rank's weighted by its share
+    of :func:`loss_weight` (one all-reduce a leaf, or ``compressed_mean``
+    over the group under ``compress``), giving every rank the whole
+    batch's values."""
+
+    def one(params, batch):
+        loss, metrics, grads = value_and_grad(loss_fn, params, batch, cast_params)
+        if group is not None:
+            share = _share(batch, group)
+            tree_map(lambda g: g.mul_(share), grads)
+            loss = loss * share
+            metrics = {k: m * share if isinstance(m, torch.Tensor) and m.dim() == 0 else m
+                       for k, m in metrics.items()}
+        return loss, metrics, grads
 
     def step(state: TrainState, batches) -> tuple[TrainState, dict]:
         params = state.params
         if accum == 1:
-            loss, metrics, grads = value_and_grad(loss_fn, params, batches, cast_params)
+            loss, metrics, grads = one(params, batches)
         else:
             g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
             l_sum = None
             for i in range(accum):
                 micro = tree_map(lambda x: x[i], batches)
-                loss, _, grads = value_and_grad(loss_fn, params, micro, cast_params)
+                loss, _, grads = one(params, micro)
                 tree_map(torch.Tensor.add_, g_sum, grads)
                 l_sum = loss if l_sum is None else l_sum + loss
                 del grads
@@ -115,10 +177,25 @@ def make_train_step(
             metrics = {"loss": loss}
 
         error_fb = state.error_fb
+        if group is not None:
+            scalars = {k: m for k, m in metrics.items()
+                       if isinstance(m, torch.Tensor) and m.dim() == 0}
+            stacked = torch.stack([loss.float(), *(m.float() for m in scalars.values())])
+            _all_sum([stacked], group)
+            loss = stacked[0]
+            metrics = {**metrics, **dict(zip(scalars, stacked[1:]))}
+            metrics["loss"] = loss
         if compress:
             if error_fb is None:
                 error_fb = init_error_state(grads)
-            grads, error_fb = compressed_mean(grads, error_fb)
+            if group is not None:  # compressed_mean averages: hand it world x the share
+                import torch.distributed as dist
+
+                world = dist.get_world_size(group)
+                tree_map(lambda g: g.mul_(world), grads)
+            grads, error_fb = compressed_mean(grads, error_fb, group)
+        elif group is not None:
+            _all_sum(tree_leaves(grads), group)
 
         scale, gnorm = global_norm_scale(grads, max_norm)
         new_params, new_opt = adamw_update(
@@ -156,7 +233,10 @@ class TrainLoop:
     """Checkpointed, restartable loop around a train step. ``ckpt_dir``
     None (or empty) runs without checkpoints: nothing is restored or
     written. ``seconds`` holds each step's wall time (the loss is read back
-    every step, so it covers the card's work)."""
+    every step, so it covers the card's work). With ``group`` (data
+    parallelism, ``batch_fn`` giving this rank's slice) the step reduces
+    over the group and rank 0 alone writes the checkpoints, which every
+    rank restores from."""
 
     def __init__(
         self,
@@ -169,16 +249,22 @@ class TrainLoop:
         accum: int = 1,
         peak_lr: float = 3e-4,
         compress: bool = False,
+        group=None,
     ):
         self.model = model
         self.ckpt_dir = ckpt_dir or None
         self.batch_fn = batch_fn
         self.save_every = save_every
-        self.ckpt = AsyncCheckpointer(ckpt_dir) if self.ckpt_dir else None
+        writes = True
+        if group is not None:
+            import torch.distributed as dist
+
+            writes = dist.get_rank() == 0
+        self.ckpt = AsyncCheckpointer(ckpt_dir) if self.ckpt_dir and writes else None
         self.monitor = StragglerMonitor()
         self.seconds: Dict[int, float] = {}
         self.step_fn = step_fn or make_train_step(
-            model.loss_fn, accum=accum, peak_lr=peak_lr, compress=compress
+            model.loss_fn, accum=accum, peak_lr=peak_lr, compress=compress, group=group
         )
 
     def init_or_restore(self, key: torch.Generator) -> tuple[TrainState, int]:

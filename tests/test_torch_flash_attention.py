@@ -17,12 +17,19 @@ does and with ``big`` truncated as the kernel takes it; a single TF32
 product does not. The emulation lives only in this file.
 """
 
+import ctypes
+import importlib.util
+import math
+import shutil
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels._launch import LAUNCHES, reset_launches
 
@@ -251,3 +258,107 @@ def test_one_tf32_product_misses_the_gate():
     rel = lambda x: np.abs(x - ref).max() / np.abs(ref).max()  # noqa: E731
     assert rel(one) > ATOL
     assert rel(split) <= ATOL / 20
+
+
+# --- a query offset (context-parallel attention's slice of the queries) ---
+
+# (bh, sq, sk, d, dv, causal, window, block_q, block_k, q_offset)
+OFFSET_CASES = {
+    "causal, second half": (2, 32, 64, 16, 16, True, None, 16, 16, 32),
+    "window, second half": (2, 48, 96, 16, 16, True, 24, 16, 32, 48),
+    "non-causal": (1, 20, 40, 8, 8, False, None, 16, 16, 20),
+    "past every key": (2, 16, 24, 16, 8, True, None, 16, 16, 40),
+    "window, rows that see no key": (1, 24, 20, 8, 8, False, 6, 16, 8, 10),
+}
+
+
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_plain_with_a_query_offset_is_the_whole_attention_s_rows(case):
+    """Rows [off, off + Sq) of the attention over every position are the
+    plain version's at ``q_offset=off`` on those rows' queries, and the
+    oracle's at that offset; where queries [0, Sk) cover the offset the
+    Pallas kernel on the whole gives the same rows."""
+    bh, sq, sk, d, dv, causal, window, bq, bk, off = OFFSET_CASES[case]
+    q, k, v = (torch.from_numpy(x) for x in _inputs(11, bh, off + sq, sk, d, dv))
+    opts = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+    whole = fa.flash_attention_fwd(q, k, v, **opts)
+    got = fa.flash_attention_fwd(q[:, off:].contiguous(), k, v, q_offset=off, **opts)
+    assert got.shape == (bh, sq, dv)
+    np.testing.assert_allclose(got.numpy(), whole[:, off:].numpy(), atol=1e-6)
+    oracle = fa.mha_reference(q[:, off:], k, v, causal=causal, window=window, q_offset=off)
+    seen = fa._mask(off + torch.arange(sq)[:, None], torch.arange(sk)[None], sk, causal,
+                    window).expand(sq, sk).any(dim=-1)
+    np.testing.assert_allclose(got[:, seen].numpy(), oracle[:, seen].numpy(), atol=ATOL)
+    ref = jfa.flash_attention_fwd(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                  interpret=True, **opts)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, off:], atol=ATOL)
+
+
+def test_query_offset_is_checked():
+    q = torch.zeros(1, 8, 4)
+    for bad in (-1, 1.5, True):
+        with pytest.raises(ValueError, match="q_offset"):
+            fa.flash_attention_fwd(q, q, q, q_offset=bad)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        fa.flash_attention_fwd(q, q, q, q_offset=2 ** 31)
+    assert fa._c_window(10 ** 9, 8, 8, 100) == 100 + 8 + 8 + 1
+    assert fa._c_window(-50, 8, 8, 100) == -8
+
+
+# --- csrc/flash_attention.cu through tools/cuda_emu ----------------------
+
+EMU = Path(__file__).resolve().parents[1] / "tools" / "cuda_emu" / "emulate.py"
+
+
+@pytest.fixture(scope="module")
+def emu_fwd(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the CUDA source for the CPU")
+    spec = importlib.util.spec_from_file_location("cuda_emulate", EMU)
+    emulate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emulate)
+    so = emulate.compile_library(tmp_path_factory.mktemp("flash_fwd_emu"),
+                                 ("flash_attention.cu",))
+    fn = so.repro_flash_attention_fwd
+    fn.argtypes = list(_build._SIGNATURES["repro_flash_attention_fwd"])
+    fn.restype = ctypes.c_int
+    return so
+
+
+def _emu_forward(lib, q, k, v, *, causal, window, block_q, block_k, q_offset):
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    out = torch.full((bh, sq, dv), float("nan"))
+    lse = torch.full((bh, sq), float("nan"))
+    rc = lib.repro_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, sq, sk,
+        d, dv, int(causal), int(window is not None), fa._c_window(window, sq, sk, q_offset),
+        q_offset, 1 / math.sqrt(d), fa._blocks(sq, sk, block_q, block_k)[3],
+        fa._acc_columns(dv), fa.THREADS, fa.flash_smem_bytes(d, dv), 0, None)
+    assert rc == 0
+    return out, lse
+
+
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_emulated_cuda_forward_with_a_query_offset_matches_plain(emu_fwd, case):
+    """The kernel's tile range, per-row key ranges and the every-row-sees-
+    a-key test at a query offset, run on the CPU (each product split into
+    three TF32 products, emulated): within 2e-5 of the plain version, the
+    logsumexp too."""
+    bh, sq, sk, d, dv, causal, window, bq, bk, off = OFFSET_CASES[case]
+    q, k, v = (torch.from_numpy(x) for x in _inputs(12, bh, sq, sk, d, dv))
+    opts = dict(causal=causal, window=window, block_q=bq, block_k=bk, q_offset=off)
+    out, lse = _emu_forward(emu_fwd, q, k, v, **opts)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **opts)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_emulated_cuda_forward_without_an_offset_matches_plain(emu_fwd):
+    """Offset 0 over two query tiles (128 rows each) and a window: the
+    kernel as the model runs it."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(13, 1, 160, 160, 16, 16))
+    opts = dict(causal=True, window=40, block_q=64, block_k=64, q_offset=0)
+    out, _ = _emu_forward(emu_fwd, q, k, v, **opts)
+    np.testing.assert_allclose(out.numpy(), fa.flash_attention_plain(q, k, v, **opts).numpy(),
+                               atol=ATOL)

@@ -315,7 +315,7 @@ def test_emulated_cuda_backward_matches_plain(emu_lib, case):
     delta = torch.full((bh, sq), float("nan"))
     rc = emu_lib.repro_flash_attention_bwd(
         *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, *outs)),
-        bh, sq, sk, d, dv, int(causal), int(window is not None), fa._c_window(window, sq, sk),
+        bh, sq, sk, d, dv, int(causal), int(window is not None), fa._c_window(window, sq, sk), 0,
         1 / math.sqrt(d), fa._blocks(sq, sk, bq, bk)[3], fa.bwd_width(d, dv), fa.BWD_THREADS,
         *fa.flash_bwd_smem_bytes(d, dv), 0, None)
     assert rc == 0
@@ -333,8 +333,8 @@ def test_emulated_entry_refuses_a_wrong_census(emu_lib):
     smem = fa.flash_bwd_smem_bytes(16, 16)
 
     def call(width, threads, smem_dq, smem_dkdv):
-        return emu_lib.repro_flash_attention_bwd(*ptrs, 1, 8, 8, 16, 16, 1, 0, 0, 0.25, 8, width,
-                                                 threads, smem_dq, smem_dkdv, 0, None)
+        return emu_lib.repro_flash_attention_bwd(*ptrs, 1, 8, 8, 16, 16, 1, 0, 0, 0, 0.25, 8,
+                                                 width, threads, smem_dq, smem_dkdv, 0, None)
 
     assert call(64, fa.BWD_THREADS, *smem) != 0  # width 32
     assert call(32, 256, *smem) != 0  # 16 x 16 threads
@@ -350,3 +350,59 @@ def test_backward_census_fits_one_block(d, dv):
     assert max(dq, dkdv) <= 232448  # an H100 block's dynamic shared memory
     assert fa.bwd_tile(d, dv) == (64, 16 if max(d, dv) > 128 else 32)
     assert fa.bwd_width(d, dv) >= max(d, dv)
+
+
+# ------------------------------ a query offset ------------------------------
+
+# (bh, sq, sk, d, dv, causal, window, block_q, block_k, q_offset)
+OFFSET_CASES = {
+    "causal second half": (2, 32, 64, 16, 16, True, None, 16, 16, 32),
+    "window second half, width 128": (1, 40, 80, 128, 128, True, 24, 16, 16, 40),
+    "non-causal cross": (1, 20, 37, 40, 33, False, None, 16, 16, 17),
+    "past every key": (2, 16, 24, 16, 8, True, None, 16, 16, 40),
+    "window, rows that see no key": (1, 24, 20, 8, 8, False, 6, 16, 8, 10),
+    "width 256 window": (1, 24, 48, 192, 128, True, 12, 16, 16, 24),
+}
+
+
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_plain_backward_with_a_query_offset_matches_float64_autograd(case):
+    """At ``q_offset`` the plain backward is float64 autograd of the plain
+    forward at that offset (which divides a row that sees no key by the
+    padded key count, as the TPU kernel does), and the FlashAttention
+    Function carries the offset to it."""
+    bh, sq, sk, d, dv, causal, window, bq, bk, off = OFFSET_CASES[case]
+    q, k, v, do = _operands(4, bh, sq, sk, d, dv)
+    opts = {"causal": causal, "window": window, "block_q": bq, "block_k": bk, "q_offset": off}
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **opts)
+    got = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **opts)
+    ref = _float64_grads(lambda q, k, v: fa.flash_attention_plain(q, k, v, **opts), q, k, v, do)
+    for name, a, b in zip("qkv", got, ref):
+        assert _rel(a, b) <= TOL, (name, _rel(a, b))
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, **opts)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    for a, b in zip(torch.autograd.grad(out, (tq, tk, tv), do), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_emulated_cuda_backward_with_a_query_offset_matches_plain(emu_lib, case):
+    """The dQ pass's per-row key ranges and the dK/dV pass's first and last
+    query rows that see a key, c - q_offset and c + window - 1 - q_offset,
+    run on the CPU: within 2e-5 of the plain backward."""
+    bh, sq, sk, d, dv, causal, window, bq, bk, off = OFFSET_CASES[case]
+    q, k, v, do = _operands(6, bh, sq, sk, d, dv)
+    opts = {"causal": causal, "window": window, "block_q": bq, "block_k": bk, "q_offset": off}
+    o, lse = (x.contiguous() for x in fa.flash_attention_plain(q, k, v, return_lse=True, **opts))
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **opts)
+    outs = [torch.full_like(x, float("nan")) for x in (q, k, v)]
+    delta = torch.full((bh, sq), float("nan"))
+    rc = emu_lib.repro_flash_attention_bwd(
+        *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, *outs)),
+        bh, sq, sk, d, dv, int(causal), int(window is not None),
+        fa._c_window(window, sq, sk, off), off, 1 / math.sqrt(d), fa._blocks(sq, sk, bq, bk)[3],
+        fa.bwd_width(d, dv), fa.BWD_THREADS, *fa.flash_bwd_smem_bytes(d, dv), 0, None)
+    assert rc == 0
+    for name, a, b in zip("qkv", outs, ref):
+        assert _rel(a, b) <= TOL, (name, _rel(a, b))

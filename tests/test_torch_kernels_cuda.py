@@ -421,7 +421,7 @@ def test_cuda_flash_attention_raises_on_what_the_kernel_refuses(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):  # nv = 1 covers only dv <= 8
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
                q.data_ptr(), q.data_ptr(), out.data_ptr(), None, 1, 8, 8, 128, 128, 1, 0, 0,
-               1.0, 8, 1, fa.THREADS, fa.flash_smem_bytes(128, 128))
+               0, 1.0, 8, 1, fa.THREADS, fa.flash_smem_bytes(128, 128))
     assert k.LAUNCHES["flash_attention_fwd"] == 0
 
 
@@ -1269,19 +1269,64 @@ def test_cuda_serve_engine_gives_the_cpu_tokens(cuda):
     assert [r.out for r in got] == [r.out for r in want]
 
 
+#: (bh, sq, sk, d, dv, causal, window, q_offset): a context-parallel rank's
+#: slice of the queries against every key.
+OFFSET_CASES = [
+    (8, 256, 512, 128, 128, True, None, 256),    # the second of two causal ranks
+    (4, 200, 640, 64, 64, True, 96, 440),         # a window, ragged tiles
+    (4, 96, 160, 192, 128, True, None, 64),       # MLA's widths (64-row tiles, width 256)
+    (2, 64, 100, 32, 32, False, 20, 70),          # rows that see no key
+    (2, 64, 48, 16, 16, True, None, 100),         # past every key
+]
+
+
 @pytest.mark.cuda
-def test_cuda_flash_attention_with_a_query_offset_raises(cuda):
-    """Divergence 13: the kernel has no query offset, so the model's
-    ``flash_attention`` raises on a CUDA tensor with ``q_offset != 0``
-    (the CPU twin takes one)."""
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_cuda_flash_attention_with_a_query_offset_raises(cuda, case):
+    """Divergence 13's offset clause, closed: both kernels take a query
+    offset (row r at position q_offset + r). The forward (with its
+    logsumexp) and the backward, one launch each, within 2e-5 of their
+    plain versions on the same operands; from float64 the forward within
+    2e-5, the gradients within 2e-5 or 2x the plain backward's distance;
+    the model's
+    ``flash_attention`` at that offset launches the forward once."""
     from repro_torch.models import attention as attn
 
-    q = torch.randn(1, 16, 4, 8, device=cuda)
-    kv = torch.randn(1, 32, 2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        attn.flash_attention(q, kv, kv, q_offset=16)
-    out = attn.flash_attention(q.cpu(), kv.cpu(), kv.cpu(), q_offset=16)
-    assert out.shape == (1, 16, 4, 8)
+    bh, sq, sk, d, dv, causal, window, off = case
+    g = torch.Generator(device=cuda).manual_seed(sq + off)
+    q = torch.randn(bh, sq, d, generator=g, device=cuda) / math.sqrt(d)
+    kk = torch.randn(bh, sk, d, generator=g, device=cuda)
+    v = torch.randn(bh, sk, dv, generator=g, device=cuda)
+    do = torch.randn(bh, sq, dv, generator=g, device=cuda)
+    opts = dict(causal=causal, window=window, block_q=64, block_k=64, scale=1.0, q_offset=off)
+    k.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, kk, v, return_lse=True, **opts)
+    grads = fa.flash_attention_bwd(q, kk, v, o, do, lse, **opts)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention_fwd"] == 1 and k.LAUNCHES["flash_attention_bwd"] == 1
+    o_plain, lse_plain = fa.flash_attention_plain(q, kk, v, return_lse=True, **opts)
+    assert _rel(o, o_plain) <= TOL
+    assert float((lse - lse_plain).abs().max()) <= 1e-5 * float(lse_plain.abs().max())
+    plain = fa.flash_attention_bwd_plain(q, kk, v, o, do, lse, **opts)
+    q64, k64, v64 = (x.double().requires_grad_() for x in (q, kk, v))
+    o64 = fa.flash_attention_plain(q64, k64, v64, **opts)
+    exact = torch.autograd.grad(o64, (q64, k64, v64), do.double())
+    assert _rel(o.double(), o64) <= TOL
+    for name, a, p, e in zip("qkv", grads, plain, exact):
+        assert _rel(a, p) <= TOL, (name, _rel(a, p))
+        assert _rel(a.double(), e) <= max(TOL, 2 * _rel(p.double(), e)), name
+    b = 2
+    qm = torch.randn(b, sq, bh // b, d, generator=g, device=cuda)
+    km = torch.randn(b, sk, bh // b, d, generator=g, device=cuda)
+    vm = torch.randn(b, sk, bh // b, dv, generator=g, device=cuda)
+    k.reset_launches()
+    got = attn.flash_attention(qm, km, vm, causal=causal, window=window, q_offset=off,
+                               block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention_fwd"] == 1
+    want = attn.flash_attention(qm.cpu(), km.cpu(), vm.cpu(), causal=causal, window=window,
+                                q_offset=off, block_q=64, block_k=64)
+    assert _rel(got.cpu(), want) <= TOL
 
 
 #: Each recurrent-state family's kernel and its launches a prefill at full

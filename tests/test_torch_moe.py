@@ -215,13 +215,16 @@ def test_prefill_drops_over_capacity_assignments_and_decode_never_does():
 
 
 def test_divergence_18_ep_a2a_under_a_mesh_with_its_axes_raises(tmp_path):
-    """Divergence 18: under a mesh that has the expert axes the reference
-    runs its shard_map all-to-all dispatch; the port raises naming item
-    12 (h) (sharding). Under a mesh without them it runs grouped_local, as
-    the reference does."""
+    """Divergence 18, closed: under a mesh that has the expert axes the port
+    runs the reference's shard_map all-to-all dispatch (here a one-rank
+    mesh, where every expert is local), which at this capacity equals
+    grouped_local, aux included; under a mesh without them it runs
+    grouped_local, as the reference does. (Many ranks:
+    tests/test_torch_sharding.py.)"""
     import torch.distributed as dist
 
     cfg, _ = _cfgs("mixtral-8x22b", impl="ep_a2a", ep_axes=("data",))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     jp_cfg = reg.smoke_config("mixtral-8x22b")
     p = param.init_params(moe.moe_skel(jp_cfg), torch.Generator().manual_seed(0), device="cpu")
     x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator().manual_seed(1))
@@ -229,15 +232,20 @@ def test_divergence_18_ep_a2a_under_a_mesh_with_its_axes_raises(tmp_path):
     dist.init_process_group("gloo", store=store, rank=0, world_size=1)
     try:
         with compat.set_mesh(compat.make_mesh((1,), ("data",), device_type="cpu")):
-            with pytest.raises(NotImplementedError, match=r"item 12 \(h\)"):
-                moe.moe_apply(p, x, cfg)
+            compat.reset_collectives()
+            y_ep, aux_ep = moe.moe_apply(p, x, cfg)
+            assert compat.COLLECTIVES["all_to_all"] == 3
         with compat.set_mesh(compat.make_mesh((1,), ("model",), device_type="cpu")):
+            compat.reset_collectives()
             y, _ = moe.moe_apply(p, x, cfg)
+            assert compat.COLLECTIVES["all_to_all"] == 0
     finally:
         dist.destroy_process_group()
-    ref, _ = moe.moe_apply(p, x, dataclasses.replace(cfg, moe=dataclasses.replace(
+    ref, aux = moe.moe_apply(p, x, dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, impl="grouped_local")))
     assert torch.equal(y, ref)
+    torch.testing.assert_close(y_ep, ref, rtol=0, atol=1e-6)
+    torch.testing.assert_close(aux_ep, aux, rtol=0, atol=1e-7)
 
 
 def test_bf16_experts_are_drawn_a_chunk_at_a_time(monkeypatch):

@@ -439,8 +439,31 @@ def test_launcher_trains_the_smoke_config_on_the_cpu(tmp_path):
     assert all(np.isfinite(list(out["losses"].values())))
 
 
-def test_launcher_distributed_waits_for_the_sharding_slice():
+def test_launcher_distributed_waits_for_the_sharding_slice(monkeypatch):
+    """``--distributed`` (the sharding slice has come): without torchrun's
+    environment it says what it needs; at world 1 on gloo it trains the
+    one process's losses bit for bit and writes the checkpoint from rank 0
+    (two ranks: tests/test_torch_sharding.py)."""
+    import socket
+
     from repro_torch.launch import train as launch_train
 
-    with pytest.raises(NotImplementedError, match=r"item 12 \(h\)"):
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="RANK"):
         launch_train.main(["--distributed", "--device", "cpu"])
+    args = ["--arch", "llama3.2-3b", "--smoke", "--device", "cpu", "--steps", "2", "--batch",
+            "2", "--seq", "16", "--ckpt", ""]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(port))
+    dist = launch_train.main(["--distributed", *args])
+    one = launch_train.main(args)
+    assert dist["world"] == 1 and dist["losses"] == one["losses"]
+    import torch.distributed
+
+    assert not torch.distributed.is_initialized()
