@@ -356,6 +356,17 @@ Phases, each printing one JSON line:
              CPU (see TRAIN_GRAD_CEILING), with its launches, and the llama
              copy overfitting one batch. Its launches count toward the
              ``kernels`` line;
+7i. dryrun — after lm dist: ``repro_torch.launch.dryrun`` counts
+             llama3.2-3b's training lane (2 x 1024) on meta tensors on a
+             one-card (1x1) mesh, then the same step runs on the card
+             under the same ``CostCounter``, the counts set to 0 just
+             before: its argument bytes must equal the bytes of the live
+             TrainState and batch, the flops on meta the flops on the card
+             exactly (kernel charges included), the card's peak
+             (``max_memory_allocated``) within DRYRUN_PEAK_BAND of the
+             predicted argument + temp bytes; the roofline step ms (H100
+             data-sheet rates) beside the measured step ms. Its launches
+             count toward the ``kernels`` line;
    After each of the kernel, request, imaging, mri, stream, serve, pencil,
    lm, lm state, lm audio, lm spectral, lm moe and lm train phases (one
    ``obs.capture()`` around the thirteen) a
@@ -878,30 +889,25 @@ def kernel_phase(torch, k, card: str):
     b, n = 8192, 2048
     cases = {
         "fft_fused": (crandn(b, n), k.fft_fused, k.fft_fused_plain,
-                      lambda x: torch.fft.fft(x), 16 * b * n, 5.0 * b * n * 11),
+                      lambda x: torch.fft.fft(x), k.fft_cost(b, n)),
         "rfft_fused": (torch.randn(b, n, generator=gen, device=dev), k.rfft_fused,
-                       k.rfft_fused_plain, lambda x: torch.fft.rfft(x),
-                       4 * b * n + 8 * b * (n // 2 + 1), 2.5 * b * n * 11),
+                       k.rfft_fused_plain, lambda x: torch.fft.rfft(x), k.rfft_cost(b, n)),
         "irfft_fused": (crandn(b, n // 2 + 1), k.irfft_fused, k.irfft_fused_plain,
-                        lambda x: torch.fft.irfft(x), 8 * b * (n // 2 + 1) + 4 * b * n,
-                        2.5 * b * n * 11),
+                        lambda x: torch.fft.irfft(x), k.rfft_cost(b, n)),
         "fft2_fused": (crandn(512, 128, 128), k.fft2_fused, k.fft2_fused_plain,
-                       lambda x: torch.fft.fft2(x), 16 * 512 * 128 * 128,
-                       5.0 * 512 * 128 * 128 * 14),
+                       lambda x: torch.fft.fft2(x), k.fft2_cost(512, 128, 128)),
         "rfft2_fused": (torch.randn(512, 128, 128, generator=gen, device=dev), k.rfft2_fused,
                         k.rfft2_fused_plain, lambda x: torch.fft.rfft2(x),
-                        4 * 512 * 128 * 128 + 8 * 512 * 128 * 65, 2.5 * 512 * 128 * 128 * 14),
+                        k.rfft2_cost(512, 128, 128)),
         "irfft2_fused": (crandn(512, 128, 65), k.irfft2_fused, k.irfft2_fused_plain,
-                         lambda x: torch.fft.irfft2(x),
-                         8 * 512 * 128 * 65 + 4 * 512 * 128 * 128, 2.5 * 512 * 128 * 128 * 14),
+                         lambda x: torch.fft.irfft2(x), k.rfft2_cost(512, 128, 128)),
         # The column pass alone on the CT frames: its library call is the
         # column FFT (dim -2); one read and one write of every value.
         COLUMNS: (crandn(*CT), k.fft2_columns, k.fft2_columns_plain,
-                  lambda x: torch.fft.fft(x, dim=-2), 16 * math.prod(CT),
-                  5.0 * math.prod(CT) * math.log2(CT[1])),
+                  lambda x: torch.fft.fft(x, dim=-2), k.fft2_columns_cost(*CT)),
     }
     rows = {}
-    for name, (x, kernel, plain, library, nbytes, flops) in cases.items():
+    for name, (x, kernel, plain, library, (flops, nbytes)) in cases.items():
         by_radix = {}
         for radix in (2, 4):
             got = kernel(x, radix=radix)
@@ -1062,18 +1068,15 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
     dev = torch.device("cuda")
     fw, hw, ww = FRAME_WIDE
     ft, ht, wt = FRAME_TALL
-    cases = {  # name: (input, kernel, plain, library, bytes, flops)
+    cases = {  # name: (input, kernel, plain, library, (flops, bytes))
         "fft2_fused": (crandn(*FRAME_WIDE), k.fft2_fused, k.fft2_fused_plain, torch.fft.fft2,
-                       16 * fw * hw * ww, 5.0 * fw * hw * ww * math.log2(hw * ww)),
+                       k.fft2_cost(fw, hw, ww)),
         "rfft2_fused": (torch.randn(*FRAME_TALL, generator=gen, device=dev), k.rfft2_fused,
-                        k.rfft2_fused_plain, torch.fft.rfft2,
-                        4 * ft * ht * wt + 8 * ft * ht * (wt // 2 + 1),
-                        2.5 * ft * ht * wt * math.log2(ht * wt)),
+                        k.rfft2_fused_plain, torch.fft.rfft2, k.rfft2_cost(ft, ht, wt)),
         "irfft2_fused": (crandn(ft, ht, wt // 2 + 1), k.irfft2_fused, k.irfft2_fused_plain,
-                         torch.fft.irfft2, 8 * ft * ht * (wt // 2 + 1) + 4 * ft * ht * wt,
-                         2.5 * ft * ht * wt * math.log2(ht * wt)),
+                         torch.fft.irfft2, k.rfft2_cost(ft, ht, wt)),
     }
-    for name, (x, kernel, plain, library, nbytes, flops) in cases.items():
+    for name, (x, kernel, plain, library, (flops, nbytes)) in cases.items():
         bound_ms, bound_by = bound(card, nbytes, flops)
         case = {"shape": list(x.shape), "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": time_ms(lambda: library(x)), "by_radix": {}}
@@ -1249,22 +1252,18 @@ def two_pass_phase(torch, k, card: str):
     bc, nc = TWO_PASS_COMPLEX
     br, nr = TWO_PASS_REAL
     x = crandn(bc, nc)
-    stages_c, stages_r = math.log2(nc), math.log2(nr)
-    cases = {  # name: (input, kernel, plain, library, bytes one trip, flops, trips)
-        "fft": (x, k.fft_fused, k.fft_two_pass_plain, torch.fft.fft, 16 * bc * nc,
-                5.0 * bc * nc * stages_c, 2),
+    cases = {  # name: (input, kernel, plain, library, (flops, bytes one trip), trips)
+        "fft": (x, k.fft_fused, k.fft_two_pass_plain, torch.fft.fft, k.fft_cost(bc, nc), 2),
         "ifft": (x, lambda z, radix: k.fft_fused(z, radix=radix, inverse=True),
                  lambda z, radix: k.fft_two_pass_plain(z, radix=radix, inverse=True),
-                 torch.fft.ifft, 16 * bc * nc, 5.0 * bc * nc * stages_c, 2),
+                 torch.fft.ifft, k.fft_cost(bc, nc), 2),
         "rfft": (torch.randn(br, nr, generator=gen, device=dev), k.rfft_fused,
-                 k.rfft_two_pass_plain, torch.fft.rfft, 4 * br * nr + 8 * br * (nr // 2 + 1),
-                 2.5 * br * nr * stages_r, 3),
+                 k.rfft_two_pass_plain, torch.fft.rfft, k.rfft_cost(br, nr), 3),
         "irfft": (crandn(br, nr // 2 + 1), k.irfft_fused, k.irfft_two_pass_plain,
-                  torch.fft.irfft, 8 * br * (nr // 2 + 1) + 4 * br * nr,
-                  2.5 * br * nr * stages_r, 3),
+                  torch.fft.irfft, k.rfft_cost(br, nr), 3),
     }
     by_case = {}
-    for name, (z, kernel, plain, library, nbytes, flops, trips) in cases.items():
+    for name, (z, kernel, plain, library, (flops, nbytes), trips) in cases.items():
         by_radix = {}
         for radix in (2,):
             before = k.LAUNCHES["fft_two_pass"]
@@ -1347,35 +1346,30 @@ def cluster_phase(torch, k, card: str):
     bc, nc = TWO_PASS_COMPLEX
     br, nr = TWO_PASS_REAL
     x = crandn(bc, nc)
-    stages_c, stages_r = math.log2(nc), math.log2(nr)
-    cases = {  # name: (input, kernel, plain, library, bytes, flops, m, kind)
+    cases = {  # name: (input, kernel, plain, library, (flops, bytes), m, kind)
         "fft": (x, lambda z: k.fft_fused(z, radix=4), k.fft_cluster_plain, torch.fft.fft,
-                16 * bc * nc, 5.0 * bc * nc * stages_c, nc, "fft"),
+                k.fft_cost(bc, nc), nc, "fft"),
         "ifft": (x, lambda z: k.fft_fused(z, radix=4, inverse=True),
                  lambda z: k.fft_cluster_plain(z, inverse=True), torch.fft.ifft,
-                 16 * bc * nc, 5.0 * bc * nc * stages_c, nc, "fft"),
+                 k.fft_cost(bc, nc), nc, "fft"),
         "rfft": (torch.randn(br, nr, generator=gen, device=dev),
                  lambda z: k.rfft_fused(z, radix=4), k.rfft_cluster_plain, torch.fft.rfft,
-                 4 * br * nr + 8 * br * (nr // 2 + 1), 2.5 * br * nr * stages_r, nr // 2, "rfft"),
+                 k.rfft_cost(br, nr), nr // 2, "rfft"),
         "irfft": (crandn(br, nr // 2 + 1), lambda z: k.irfft_fused(z, radix=4),
-                  k.irfft_cluster_plain, torch.fft.irfft, 8 * br * (nr // 2 + 1) + 4 * br * nr,
-                  2.5 * br * nr * stages_r, nr // 2, "irfft"),
+                  k.irfft_cluster_plain, torch.fft.irfft, k.rfft_cost(br, nr), nr // 2, "irfft"),
     }
     # The strip frames' rows, which rfft2/irfft2 hand the kernel: their own
     # instance (C 2, M 2^13), with its own load geometry.
     bs, ns = STRIP[0] * STRIP[1], STRIP[2]
-    stages_s = math.log2(ns)
     cases["rfft strip"] = (torch.randn(bs, ns, generator=gen, device=dev),
                            lambda z: k.rfft_fused(z, radix=4), k.rfft_cluster_plain,
-                           torch.fft.rfft, 4 * bs * ns + 8 * bs * (ns // 2 + 1),
-                           2.5 * bs * ns * stages_s, ns // 2, "rfft")
+                           torch.fft.rfft, k.rfft_cost(bs, ns), ns // 2, "rfft")
     cases["irfft strip"] = (crandn(bs, ns // 2 + 1), lambda z: k.irfft_fused(z, radix=4),
-                            k.irfft_cluster_plain, torch.fft.irfft,
-                            8 * bs * (ns // 2 + 1) + 4 * bs * ns, 2.5 * bs * ns * stages_s,
+                            k.irfft_cluster_plain, torch.fft.irfft, k.rfft_cost(bs, ns),
                             ns // 2, "irfft")
     ptxas = ptxas_entries(_build.build_log(), "fft_cluster_kernel")
     by_case = {}
-    for name, (z, kernel, plain, library, nbytes, flops, m, kind) in cases.items():
+    for name, (z, kernel, plain, library, (flops, nbytes), m, kind) in cases.items():
         before = dict(k.LAUNCHES)
         got = kernel(z)
         delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
@@ -1441,15 +1435,10 @@ def fid_source(torch, rows: int, n: int, seed: int):
     return sig.to(torch.complex64) + 0.01 * noise
 
 
-def attention_pairs(sq: int, sk: int, causal: bool, window, q_offset: int = 0) -> int:
-    """(query, key) pairs the masks keep: the work flash attention must do
-    (query row r at position q_offset + r)."""
-    total = 0
-    for q in range(q_offset, q_offset + sq):
-        lo = 0 if window is None else max(0, q - window + 1)
-        hi = min(q, sk - 1) if causal else sk - 1
-        total += max(0, hi - lo + 1)
-    return total
+def work(cost) -> dict:
+    """{"bytes", "flops"} of a kernel's ``cost(...)`` (flops, bytes): the
+    kernel modules' formulas, which the dry-run charges too."""
+    return {"bytes": cost[1], "flops": cost[0]}
 
 
 def slstm_inputs(torch, dev, fan_in: int = 4, batch=None):
@@ -1541,17 +1530,17 @@ def check_slstm_windows(what: str, errs, plain_errs, finite: bool, h_max: float)
 
 
 def slstm_work(xg, w):
-    """(bytes, operations) slstm_scan must move and do on these inputs: xg,
-    wr, bias and the four initial states read once, hs and the four final
-    states written once; the recurrent product, 2 D^2 a step and batch
-    row. The products run on the tensor cores in double, whose dense rate
-    on an H100 SXM (67 TFLOP/s) is the float32 CUDA-core rate the bound
-    takes."""
+    """(bytes, operations) slstm_scan must move and do on these inputs
+    (``kernels.slstm_scan.scan_cost``: xg, wr, bias and the four initial
+    states read once, hs and the four final states written once; the
+    recurrent product, 2 D^2 a step and batch row). The products run on the
+    tensor cores in double, whose dense rate on an H100 SXM (67 TFLOP/s) is
+    the float32 CUDA-core rate the bound takes."""
+    from repro_torch.kernels.slstm_scan import scan_cost
+
     b, l, d4 = xg.shape
-    d = d4 // 4
-    nbytes = 4 * (xg.numel() + w["wr"].numel() + w["bias"].numel() + 4 * b * d
-                  + b * l * d + 4 * b * d)
-    return nbytes, 2.0 * b * l * d * d
+    flops, nbytes = scan_cost(b, l, d4 // 4)
+    return nbytes, flops
 
 
 def rel_or_abs(got, ref) -> float:
@@ -1635,16 +1624,15 @@ def slstm_bwd_windows(torch, saved, w, state, dhs, dfinal, dxg):
 
 def slstm_bwd_work(saved, dhs, w):
     """(bytes, operations) slstm_scan_bwd must move and do on these
-    inputs: the saved gates and c, n, m, dhs, wr, the three initial and
-    four final-state cotangents read once, dxg and the four initial-state
-    gradients written once; the transposed product, 2 D^2 a step and
-    batch row."""
-    gates = saved[0]
-    b, l, d4 = gates.shape
-    d = d4 // 4
-    nbytes = 4 * (sum(x.numel() for x in saved) + dhs.numel() + w["wr"].numel() + 7 * b * d
-                  + gates.numel() + 4 * b * d)
-    return nbytes, 2.0 * b * l * d * d
+    inputs (``kernels.slstm_scan.scan_bwd_cost``: the saved gates and c, n,
+    m, dhs, wr, the three initial and four final-state cotangents read
+    once, dxg and the four initial-state gradients written once; the
+    transposed product, 2 D^2 a step and batch row)."""
+    from repro_torch.kernels.slstm_scan import scan_bwd_cost
+
+    b, l, d4 = saved[0].shape
+    flops, nbytes = scan_bwd_cost(b, l, d4 // 4)
+    return nbytes, flops
 
 
 def slstm_bwd_case(torch, card: str, batch=None):
@@ -1789,7 +1777,7 @@ def model_kernel_phase(torch, card: str):
         stages.append(line)
     row("butterfly_stage", max(x["max_abs_err"] for x in stages),
         max(x["rel_err"] for x in stages), statistics.mean(x["ms"] for x in stages),
-        statistics.mean(x["plain_ms"] for x in stages), 16 * b * n, 5.0 * b * n, None,
+        statistics.mean(x["plain_ms"] for x in stages), *reversed(bf.stage_cost(b, n)), None,
         shape=[b, n], per="stage", ms_by_stage=[x["ms"] for x in stages])
     del re, im, got, ref
     torch.cuda.empty_cache()
@@ -1814,7 +1802,6 @@ def model_kernel_phase(torch, card: str):
         ref = fa.flash_attention_plain(q, kk, v, causal=True, window=window)
         torch.cuda.synchronize()
         bh, sq, dh = q.shape
-        pairs = attention_pairs(sq, kk.shape[1], True, window)
         line = {"phase": "kernel", "kernel": "flash_attention_fwd", "case": label,
                 "shape": list(q.shape), "window": window, "rel_err": rel_err(got, ref),
                 "max_abs_err": max_abs(got, ref),
@@ -1824,8 +1811,8 @@ def model_kernel_phase(torch, card: str):
                                                                      window=window),
                                     reps=2, batches=3),
                 "library_ms": time_ms(lambda: library(q, kk, v), reps=5, batches=3),
-                "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
-                "flops": bh * pairs * 2.0 * (dh + v.shape[2])}
+                **work(fa.fwd_cost(bh, sq, kk.shape[1], dh, v.shape[2], causal=True,
+                                   window=window))}
         # The kernel's products run on the tensor cores, split into three
         # TF32 products; the CUDA-core float32 figure stays beside it.
         line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
@@ -4238,8 +4225,7 @@ def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launche
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, scale=1.0, **opts),
                                 reps=2, batches=3),
             "library_ms": sdpa_ms(torch, q, kk, v, causal, window),
-            "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
-            "flops": q.shape[0] * attention_pairs(s, sk, causal, window) * 2.0 * (dh + dv),
+            **work(fa.fwd_cost(q.shape[0], s, sk, dh, dv, causal=causal, window=window)),
             "launches": launches, "card": card}
     line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
                                                split_tf32_rate(card))
@@ -5431,12 +5417,10 @@ def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None, phase=
                               reps=5, batches=3),
         "forward_no_lse_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **opts), reps=5,
                                      batches=3),
-        # each input read once, each gradient written once
-        "bytes": 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * o.numel()
-                      + lse.numel()),
-        # per kept pair: the scores again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each)
-        "flops": bh * attention_pairs(sq, sk, opts["causal"], opts["window"], off) * (
-            6.0 * d + 4.0 * dv),
+        # each input read once, each gradient written once; per kept pair the
+        # scores again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each)
+        **work(fa.bwd_cost(bh, sq, sk, d, dv, causal=opts["causal"], window=opts["window"],
+                           q_offset=off)),
         "card": card})
     # The same float32-accurate products as the forward's, so the same
     # yardstick: the card's rate for them on the tensor cores (three TF32
@@ -5837,8 +5821,8 @@ def dist_kernel_lines(torch, card: str, rows) -> None:
                                     batches=3),
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     q[None], kk[None], v[None], attn_mask=mask), reps=5, batches=3),
-                "bytes": 4 * (q.numel() + kk.numel() + v.numel() + got.numel()),
-                "flops": bh * attention_pairs(sq, sk, True, window, off) * 4.0 * d, "card": card}
+                **work(fa.fwd_cost(bh, sq, sk, d, d, causal=True, window=window, q_offset=off)),
+                "card": card}
         line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
                                                    split_tf32_rate(card))
         emit(line)
@@ -6284,6 +6268,81 @@ def lm_dist_phase(torch, card: str, rows) -> dict:
             launches[n] = launches.get(n, 0) + c
     emit({"phase": "lm dist", "check": "phase", "seconds": time.perf_counter() - phase_t0,
           "launches": launches, "card": card})
+    return launches
+
+
+# --------------------------------- dryrun ---------------------------------
+
+# The dry-run's cell held against the card: llama3.2-3b's training lane
+# (arch, global batch, sequence) on a one-card mesh.
+DRYRUN_CELL = ("llama3.2-3b", 2, 1024)
+# The card's peak over the dry-run's prediction (argument + temp bytes):
+# the caching allocator rounds each block up to 512 bytes and holds the
+# cuBLAS workspace, which the count does not see (PERF.md, PR 38).
+DRYRUN_PEAK_BAND = (0.99, 1.03)
+
+
+def dryrun_phase(torch, card: str) -> dict:
+    """The dryrun line: the dry-run of DRYRUN_CELL on meta tensors against
+    the same step on the card (module docstring, 7i); returns the card
+    step's launches."""
+    import gc
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels._launch import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import TrainState
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    arch, b, s = DRYRUN_CELL
+    res = dryrun.run_cell(arch, "train_4k", mesh="card_1x1", seq=s, batch=b)
+    meta_s = time.perf_counter() - phase_t0
+    cell = dryrun.build_cell(arch, "train_4k", "card_1x1", seq=s, batch=b)
+    meta, _ = dryrun.count_step(cell)
+    dev = torch.device("cuda")
+    params = cell.model.init(torch.Generator(device=dev).manual_seed(0))
+    state = TrainState(params, adamw_init(params))
+    batch = {k: v.to(torch.int32) for k, v in make_batch(cell.cfg, b, s, 0, device=dev).items()}
+    live = sum(t.numel() * t.element_size() for t in tree_leaves((state.tree(), batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    card_count, _ = dryrun.count_step(cell, (state, batch))
+    torch.cuda.synchronize()
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = time_ms(lambda: cell.step(state, batch), reps=1, batches=3)
+    predicted = res["memory"]["argument_bytes"] + res["memory"]["temp_bytes"]
+    diff = {op: (row["flops"], card_count.ops.get(op, {}).get("flops"))
+            for op, row in meta.ops.items()
+            if row["flops"] != card_count.ops.get(op, {}).get("flops")}
+    line = {"phase": "dryrun", "arch": arch, "batch": b, "seq": s, "mesh": "card_1x1",
+            "argument_bytes": res["memory"]["argument_bytes"], "live_state_bytes": live,
+            "flops_meta": meta.flops, "flops_card": card_count.flops,
+            "flops_run_cell": res["cost"]["flops"], "flops_by_op_differing": diff,
+            "bytes_meta": meta.bytes, "bytes_card": card_count.bytes,
+            "kernels_meta": meta.kernels, "kernels_card": card_count.kernels,
+            "temp_bytes": res["memory"]["temp_bytes"], "temp_bytes_card_count":
+            card_count.peak_bytes, "predicted_peak_gb": predicted / 1e9,
+            "peak_gb": peak / 1e9, "peak_ratio": peak / predicted, "band": DRYRUN_PEAK_BAND,
+            "roofline": res["roofline"], "roofline_step_ms": res["roofline"]["roofline_step_s"]
+            * 1e3, "step_ms": step_ms, "counted_step_ms": counted_ms, "launches": launches,
+            "meta_seconds": meta_s, "seconds": time.perf_counter() - phase_t0, "card": card}
+    emit(line)
+    census = train_census(cell.cfg, s)
+    del state, params, batch, cell, card_count, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (live == line["argument_bytes"] and line["flops_meta"] == line["flops_card"]
+            == line["flops_run_cell"] and not diff and launches == census
+            and DRYRUN_PEAK_BAND[0] <= line["peak_ratio"] <= DRYRUN_PEAK_BAND[1]):
+        raise AssertionError(f"dryrun: {line}")
     return launches
 
 
@@ -6841,6 +6900,9 @@ def main() -> int:
         no_degrade(trace, "lm train", ops)
         dist_launches = lm_dist_phase(torch, card, rows)
         no_degrade(trace, "lm dist", ops)
+        for name, n in dryrun_phase(torch, card).items():
+            dist_launches[name] = dist_launches.get(name, 0) + n
+        no_degrade(trace, "dryrun", ops)
     serve_fault_phase(torch, k, card)
     resilience_phase(torch, k, xfft, card)
     launches.update({name: n for name, n in path_phase(torch, card, slstm_hs).items()

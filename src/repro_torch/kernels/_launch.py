@@ -10,15 +10,23 @@ launches, and raises :class:`NoBackward` where autograd would otherwise
 lose a gradient without a word (ROADMAP, divergence 19). The kernels with
 a backward run inside their ``autograd.Function``, whose forward and
 backward run with grad disabled.
+
+On a ``meta`` tensor (the dry-run, ``repro_torch.launch.dryrun``) a
+wrapper takes its card route up to the launch: the same casts and the same
+outputs, allocated on the meta device. :func:`launch` then launches
+nothing and counts nothing. Each wrapper calls :func:`charge` with its
+kernel's ``cost`` on the card and on meta alike, so a cost counter (a
+``TorchDispatchMode`` with a ``charge_kernel`` method, such as
+``repro_torch.launch.hlo_cost.CostCounter``) sees the same work on both.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "NoBackward", "launch", "refuse_grad", "reset_launches"]
+__all__ = ["LAUNCHES", "NoBackward", "charge", "launch", "refuse_grad", "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {
@@ -54,6 +62,18 @@ def refuse_grad(name: str, *tensors) -> None:
         )
 
 
+def charge(name: str, cost: Tuple[float, float]) -> None:
+    """Hand the kernel ``name``'s ``cost`` (flops, bytes) to every active
+    dispatch mode that counts kernels (``charge_kernel``); nothing where
+    none is active."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        counter = getattr(mode, "charge_kernel", None)
+        if counter is not None:
+            counter(name, *cost)
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -62,7 +82,9 @@ def reset_launches() -> None:
 def launch(entry: str, name: str, x: torch.Tensor, *args) -> None:
     """Call the C entry ``entry`` with ``args``, then ``x``'s device and
     current stream; raise on any CUDA error the launch reports, else count
-    one launch of ``name``."""
+    one launch of ``name``. On a meta ``x`` nothing is launched or counted."""
+    if x.device.type == "meta":
+        return
     from repro_torch.kernels._build import library  # lazy: builds at first use
 
     stream = torch.cuda.current_stream(x.device).cuda_stream

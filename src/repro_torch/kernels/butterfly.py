@@ -13,7 +13,9 @@ through HBM, where ``fft_fused`` makes one.
 
 The TPU kernel's tile picker (``pick_block_tile``) has no counterpart: the
 CUDA kernel (``csrc/butterfly.cu``) runs one thread per butterfly over a
-grid-stride loop, and the wrapper sizes the grid.
+grid-stride loop, and the wrapper sizes the grid. :func:`stage_cost` is
+one stage's work; a meta tensor takes the card route, launches nothing and
+charges it to an active cost counter (``kernels._launch``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._launch import launch, refuse_grad
+from repro_torch.kernels._launch import charge, launch, refuse_grad
 
-__all__ = ["THREADS", "butterfly_stage", "butterfly_stage_plain", "stage_grid"]
+__all__ = ["THREADS", "butterfly_stage", "butterfly_stage_plain", "stage_cost", "stage_grid"]
 
 #: Threads per block of the CUDA kernel.
 THREADS = 256
@@ -41,6 +43,13 @@ def stage_grid(batch: int, n: int) -> int:
     return max(1, min(MAX_BLOCKS, -(-(batch * n // 2) // THREADS)))
 
 
+def stage_cost(batch: int, n: int) -> Tuple[float, float]:
+    """(flops, bytes) of one stage on B rows of N: a butterfly's complex
+    multiply and two adds, 10 flops for every two values; both float32
+    planes read and written once."""
+    return 5.0 * batch * n, float(16 * batch * n)
+
+
 def _check(re: torch.Tensor, im: torch.Tensor, stage: int) -> None:
     for name, x in (("re", re), ("im", im)):
         if not isinstance(x, torch.Tensor):
@@ -49,8 +58,8 @@ def _check(re: torch.Tensor, im: torch.Tensor, stage: int) -> None:
             raise TypeError(f"butterfly_stage takes float32 planes, got {name} {x.dtype}")
         if x.dim() != 2:
             raise ValueError(f"butterfly_stage takes (B, N) planes, got {tuple(x.shape)}")
-        if x.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"butterfly_stage runs on cpu or cuda tensors, got {x.device}")
+        if x.device.type not in ("cpu", "cuda", "meta"):
+            raise ValueError(f"butterfly_stage runs on cpu, cuda or meta tensors, got {x.device}")
     if re.shape != im.shape or re.device != im.device:
         raise ValueError("butterfly_stage: re and im differ in shape or device")
     n = re.shape[1]
@@ -100,6 +109,7 @@ def butterfly_stage(
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     if b:
+        charge("butterfly_stage", stage_cost(b, n))
         launch("repro_butterfly_stage", "butterfly_stage", re, re.data_ptr(), im.data_ptr(),
                out_re.data_ptr(), out_im.data_ptr(), b, n, stage, stage_grid(b, n), THREADS)
     return out_re, out_im

@@ -35,6 +35,10 @@ live here:
   every wrapper of the port). A 1D row over one block (2^14 < N <= 2^18)
   takes one cluster of CTAs at radix 4, counted under ``"fft_cluster"``,
   and the two-pass kernels at radix 2, counted under ``"fft_two_pass"``.
+  A meta tensor takes the card route up to the launch, launches nothing
+  and charges the call's cost (``fft_cost``, ``rfft_cost``, ``fft2_cost``,
+  ``rfft2_cost``, ``fft2_columns_cost``: the transform's bytes in and out)
+  to an active cost counter, as the card route does (``kernels._launch``).
 
 The wrappers take complex64 tensors (``torch.view_as_real`` layout, re/im
 interleaved) where the Pallas ABI took separate planes: on the card the
@@ -49,7 +53,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import LAUNCHES, refuse_grad, reset_launches
+from repro_torch.kernels._launch import LAUNCHES, charge, refuse_grad, reset_launches
 from repro_torch.kernels._launch import launch as _launch
 
 __all__ = [
@@ -59,13 +63,16 @@ __all__ = [
     "cluster_geometry",
     "cluster_occupancy",
     "fft2_columns",
+    "fft2_columns_cost",
     "fft2_columns_geometry",
     "fft2_columns_plain",
     "fft2_columns_serves",
+    "fft2_cost",
     "fft2_fits_smem",
     "fft2_fused",
     "fft2_fused_plain",
     "fft2_smem_bytes",
+    "fft_cost",
     "fft_fits_fused",
     "fft_cluster_plain",
     "fft_fits_smem",
@@ -84,11 +91,13 @@ __all__ = [
     "irfft_two_pass_plain",
     "pick_row_tile",
     "reset_launches",
+    "rfft2_cost",
     "rfft2_fits_smem",
     "rfft2_fused",
     "rfft2_fused_plain",
     "rfft2_smem_bytes",
     "rfft_cluster_plain",
+    "rfft_cost",
     "rfft_fused",
     "rfft_fused_plain",
     "rfft_smem_bytes",
@@ -1028,6 +1037,44 @@ def irfft2_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 # ------------------------------ wrappers ----------------------------------
 
 
+def fft_cost(rows: int, n: int) -> Tuple[float, float]:
+    """(flops, bytes) of a complex FFT of (rows, N), whatever its route:
+    5 N log2 N a row; every complex64 value read and written once."""
+    return 5.0 * rows * n * math.log2(n), float(16 * rows * n)
+
+
+def rfft_cost(rows: int, n: int) -> Tuple[float, float]:
+    """(flops, bytes) of a real FFT of (rows, N) float32 to (rows, N/2+1)
+    complex64 (and of its inverse): half a complex FFT's operations; the
+    input read and the output written once."""
+    return 2.5 * rows * n * math.log2(n), float(4 * rows * n + 8 * rows * (n // 2 + 1))
+
+
+def fft2_cost(frames: int, h: int, w: int) -> Tuple[float, float]:
+    """(flops, bytes) of a 2D complex FFT of (F, H, W): 5 HW log2(HW) a
+    frame, every value read and written once."""
+    return 5.0 * frames * h * w * math.log2(h * w), float(16 * frames * h * w)
+
+
+def rfft2_cost(frames: int, h: int, w: int) -> Tuple[float, float]:
+    """(flops, bytes) of a real 2D FFT of (F, H, W) float32 to (F, H,
+    W/2+1) complex64 (and of its inverse)."""
+    return (2.5 * frames * h * w * math.log2(h * w),
+            float(4 * frames * h * w + 8 * frames * h * (w // 2 + 1)))
+
+
+def fft2_columns_cost(frames: int, h: int, wc: int) -> Tuple[float, float]:
+    """(flops, bytes) of the column FFTs of (F, H, Wc): 5 H log2 H a
+    column, every value read and written once."""
+    return 5.0 * frames * h * wc * math.log2(h), float(16 * frames * h * wc)
+
+
+def _row_kernel(one_block: bool, radix: int, fused: str) -> str:
+    """The kernel a row call launches: ``fused`` within one block, else the
+    cluster (radix 4) or the two passes."""
+    return fused if one_block else ("fft_cluster" if radix == 4 else "fft_two_pass")
+
+
 def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} takes a torch.Tensor, got {type(x).__name__}")
@@ -1035,8 +1082,8 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name} takes a {ndim}-D tensor, got shape {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cpu, cuda or meta tensors, got {x.device}")
 
 
 def _check_pow2(n: int, name: str, what: str = "length") -> None:
@@ -1144,6 +1191,8 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
         out = torch.empty_like(x)
     _check_launchable(out, "fft_fused")
     scale = 1.0 / n if inverse else 1.0
+    if b:
+        charge(_row_kernel(one_block, radix, "fft_fused"), fft_cost(b, n))
     if b and one_block:
         rows = pick_row_tile(b, n)
         _launch("repro_fft_fused", "fft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
@@ -1172,6 +1221,8 @@ def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _check_launchable(x, "rfft_fused")
     out = torch.empty((b, n // 2 + 1), dtype=torch.complex64, device=x.device)
     m = n // 2
+    if b:
+        charge(_row_kernel(one_block, radix, "rfft_fused"), rfft_cost(b, n))
     if b and one_block:
         rows = pick_row_tile(b, m)
         _launch("repro_rfft_fused", "rfft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
@@ -1205,6 +1256,8 @@ def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _check_launchable(y, "irfft_fused")
     out = torch.empty((b, n), dtype=torch.float32, device=y.device)
     m = n // 2
+    if b:
+        charge(_row_kernel(one_block, radix, "irfft_fused"), rfft_cost(b, n))
     if b and one_block:
         rows = pick_row_tile(b, m)
         _launch("repro_irfft_fused", "irfft_fused", y, y.data_ptr(), out.data_ptr(), b, n,
@@ -1239,6 +1292,7 @@ def fft2_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> tor
     _check_launchable(x, "fft2_fused")
     out = torch.empty_like(x)
     if f:
+        charge("fft2_fused", fft2_cost(f, h, w))
         _launch("repro_fft2_fused", "fft2_fused", x, x.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * w), fft2_smem_bytes(h, w), int(inverse),
                 1.0 / (h * w) if inverse else 1.0)
@@ -1261,6 +1315,7 @@ def rfft2_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _check_launchable(x, "rfft2_fused")
     out = torch.empty((f, h, w // 2 + 1), dtype=torch.complex64, device=x.device)
     if f:
+        charge("rfft2_fused", rfft2_cost(f, h, w))
         _launch("repro_rfft2_fused", "rfft2_fused", x, x.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
     return out
@@ -1283,6 +1338,7 @@ def irfft2_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _check_launchable(y, "irfft2_fused")
     out = torch.empty((f, h, w), dtype=torch.float32, device=y.device)
     if f:
+        charge("irfft2_fused", rfft2_cost(f, h, w))
         _launch("repro_irfft2_fused", "irfft2_fused", y, y.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
     return out
@@ -1317,6 +1373,7 @@ def fft2_columns(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
         out = torch.empty_like(x)
     _check_launchable(out, "fft2_columns")
     if f and wc:
+        charge("fft2_columns", fft2_columns_cost(f, h, wc))
         g = fft2_columns_geometry(h, wc)
         _launch("repro_fft2_columns", "fft2_columns", x, x.data_ptr(), out.data_ptr(), f, h,
                 wc, radix, g.cols, g.threads, g.smem, int(inverse),

@@ -43,6 +43,11 @@ model's jnp attention by XLA):
   ``autograd.Function`` whose forward is :func:`flash_attention_fwd` and
   whose backward is :func:`flash_attention_bwd`, else the forward alone.
 
+:func:`fwd_cost` and :func:`bwd_cost` give each kernel's work (flops,
+bytes) on given shapes: the card's bound, and what a meta tensor's call
+charges a cost counter (a meta tensor takes the card route and launches
+nothing; ``kernels._launch``).
+
 Called under grad with an input that requires grad, outside that
 Function, the card's forward raises (:class:`NoBackward`) rather than
 return a tensor with no ``grad_fn`` (ROADMAP, divergence 19).
@@ -55,12 +60,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import launch, refuse_grad
+from repro_torch.kernels._launch import charge, launch, refuse_grad
 
 __all__ = [
     "MAX_HEAD_DIM",
     "NEG_INF",
     "FlashAttention",
+    "attention_pairs",
+    "bwd_cost",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
@@ -69,6 +76,7 @@ __all__ = [
     "flash_blocks_per_sm",
     "flash_bwd_smem_bytes",
     "flash_smem_bytes",
+    "fwd_cost",
     "mha_reference",
 ]
 
@@ -140,8 +148,8 @@ def _check(q, k, v) -> None:
             raise TypeError(f"flash_attention_fwd: {name} must be floating point, got {x.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError("flash_attention_fwd: q, k and v lie on different devices")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention_fwd runs on cpu or cuda tensors, got {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention_fwd runs on cpu, cuda or meta tensors, got {q.device}")
     bh, _, d = q.shape
     if k.shape[0] != bh or v.shape[0] != bh or k.shape[2] != d or v.shape[1] != k.shape[1]:
         raise ValueError(
@@ -159,6 +167,41 @@ def _mask(qpos, kpos, sk: int, causal: bool, window: Optional[int]):
     if window is not None:
         keep = keep & (kpos > qpos - window)
     return keep
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                    q_offset: int = 0) -> int:
+    """(query, key) pairs the masks keep: the work flash attention must do
+    (query row r at position q_offset + r)."""
+    import numpy as np
+
+    qpos = np.arange(q_offset, q_offset + sq, dtype=np.int64)
+    lo = np.zeros_like(qpos) if window is None else np.maximum(0, qpos - window + 1)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full_like(qpos, sk - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def fwd_cost(bh: int, sq: int, sk: int, d: int, dv: int, *, causal: bool = True,
+             window: Optional[int] = None, q_offset: int = 0,
+             lse: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of :func:`flash_attention_fwd`: 2 (D + Dv) a kept pair
+    (the scores and the output product); q, k, v read once and the float32
+    output (and the logsumexp, where asked) written once."""
+    pairs = attention_pairs(sq, sk, causal, window, q_offset)
+    nbytes = 4 * (bh * sq * d + bh * sk * d + bh * sk * dv + bh * sq * dv + (bh * sq if lse else 0))
+    return bh * pairs * 2.0 * (d + dv), float(nbytes)
+
+
+def bwd_cost(bh: int, sq: int, sk: int, d: int, dv: int, *, causal: bool = True,
+             window: Optional[int] = None, q_offset: int = 0) -> Tuple[float, float]:
+    """(flops, bytes) of :func:`flash_attention_bwd`: a kept pair's scores
+    again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each); q, k, v, the
+    output and its cotangent and the logsumexp read once, each gradient
+    written once."""
+    pairs = attention_pairs(sq, sk, causal, window, q_offset)
+    nbytes = 4 * (2 * bh * sq * d + 2 * bh * sk * d + 2 * bh * sk * dv + 2 * bh * sq * dv
+                  + bh * sq)
+    return bh * pairs * (6.0 * d + 4.0 * dv), float(nbytes)
 
 
 def flash_attention_plain(
@@ -246,7 +289,8 @@ def flash_attention_fwd(
 
     Scores are ``q k^T * scale``, by default 1/sqrt(D) as in the reference
     (a caller that scaled q already passes 1); query row r sits at position
-    ``q_offset + r``. On a CUDA tensor D and Dv may be at most 256
+    ``q_offset + r``. A meta tensor takes the card route, launches nothing
+    and charges :func:`fwd_cost`. On a CUDA tensor D and Dv may be at most 256
     (``NotImplementedError`` above that) and BH at most 65535; under grad,
     an input that requires grad raises :class:`NoBackward` (call
     :func:`flash_attention`).
@@ -270,6 +314,8 @@ def flash_attention_fwd(
     out = torch.empty(bh, sq, dv, dtype=torch.float32, device=q.device)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device) if return_lse else None
     if bh and sq:
+        charge("flash_attention_fwd", fwd_cost(bh, sq, sk, d, dv, causal=causal, window=window,
+                                               q_offset=q_offset, lse=return_lse))
         sk_pad = _blocks(sq, sk, block_q, block_k)[3]
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -397,7 +443,8 @@ def flash_attention_bwd(
     logsumexp ``lse`` (BH, Sq) it returned; the same options as the
     forward. Float32 gradients of q's, k's and v's shapes. A CPU tensor runs
     the plain version; a CUDA tensor launches ``csrc/flash_attention_bwd.cu``
-    (one launch: the dQ pass, then the dK/dV pass) or raises."""
+    (one launch: the dQ pass, then the dK/dV pass) or raises; a meta
+    tensor gives the kernel's outputs and charges :func:`bwd_cost`."""
     _check(q, k, v)
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
@@ -420,6 +467,8 @@ def flash_attention_bwd(
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if bh and sq:
         delta = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+        charge("flash_attention_bwd", bwd_cost(bh, sq, sk, d, dv, causal=causal, window=window,
+                                               q_offset=q_offset))
         sk_pad = _blocks(sq, sk, block_q, block_k)[3]
         launch("repro_flash_attention_bwd", "flash_attention_bwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),

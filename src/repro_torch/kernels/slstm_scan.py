@@ -24,6 +24,10 @@ initial state (B, D) x 4. Returns hs (B, L, D) and the final state.
   forward's grid; :func:`slstm_bwd_grid`) and forms dwr and dbias from
   its dxg. :func:`slstm_scan_bwd_plain` is the reverse recurrence step by
   step in torch.
+* :func:`scan_cost`, :func:`scan_bwd_cost` — each kernel's work (flops,
+  bytes): the card's bound, and what a meta tensor's call charges a cost
+  counter (a meta tensor takes the card route up to the launch and
+  launches nothing; ``kernels._launch``).
 * :func:`slstm_weights_from_jax` — the reference's ``slstm_skel``
   parameters (numpy arrays) as the port's tensors: the weight
   carry-across of the sLSTM layer.
@@ -38,13 +42,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._launch import launch, refuse_grad
+from repro_torch.kernels._launch import charge, launch, refuse_grad
 
 __all__ = [
     "SLSTM_HEADS",
     "SlstmGrid",
     "SlstmScan",
     "hbm_traffic_estimate",
+    "scan_bwd_cost",
+    "scan_cost",
     "slstm_barriers",
     "slstm_blocks_per_sm",
     "slstm_bwd_blocks_per_sm",
@@ -369,8 +375,8 @@ def _check(xg, wr, bias, states) -> None:
             raise TypeError(f"slstm_scan: {name} must be floating point, got {x.dtype}")
         if x.device != xg.device:
             raise ValueError("slstm_scan: the inputs lie on different devices")
-    if xg.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"slstm_scan runs on cpu or cuda tensors, got {xg.device}")
+    if xg.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"slstm_scan runs on cpu, cuda or meta tensors, got {xg.device}")
     if xg.dim() != 3 or xg.shape[2] % (4 * SLSTM_HEADS):
         raise ValueError(f"slstm_scan: xg must be (B, L, 4D) with 4 | D, got {tuple(xg.shape)}")
     b, _, d4 = xg.shape
@@ -431,8 +437,10 @@ def _scan_card(xg, wr, bias, states, *, save: bool):
     final = tuple(new(b, d) for _ in range(4))
     saved = (new(b, l, d4), new(b, l, d), new(b, l, d), new(b, l, d)) if save else ()
     if b:
-        grid = slstm_card_grid(d, b, xg.device)
+        charge("slstm_scan", scan_cost(b, l, d, save=save))
         count = torch.zeros(1, dtype=torch.int64, device=xg.device)
+    if b and not xg.is_meta:
+        grid = slstm_card_grid(d, b, xg.device)
         launch("repro_slstm_scan", "slstm_scan", xg,
                *(x.data_ptr() for x in (xg, wr, bias, *states, hs, *final)),
                *((x.data_ptr() for x in saved) if save else (None,) * 4), count.data_ptr(),
@@ -472,12 +480,34 @@ def slstm_scan_bwd(saved, wr, c0, n0, m0, dhs, dfinal) -> Tuple[torch.Tensor, St
     dxg = torch.empty(b, l, d4, dtype=torch.float32, device=gates.device)
     grads = tuple(torch.empty(b, d, dtype=torch.float32, device=gates.device) for _ in range(4))
     if b:
-        grid = slstm_bwd_card_grid(d, b, gates.device)
+        charge("slstm_scan_bwd", scan_bwd_cost(b, l, d))
         count = torch.zeros(1, dtype=torch.int64, device=gates.device)
+    if b and not gates.is_meta:
+        grid = slstm_bwd_card_grid(d, b, gates.device)
         launch("repro_slstm_scan_bwd", "slstm_scan_bwd", gates,
                *(x.data_ptr() for x in (*tensors, dxg, *grads, count)), b, l, d, grid.ctas,
                grid.units, grid.threads, grid.rows, ROUTES.index(grid.route), grid.smem_bytes)
     return dxg, grads
+
+
+def scan_cost(b: int, l: int, d: int, *, save: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of :func:`slstm_scan` on (B, L, 4D): the recurrent
+    product, 2 D^2 a step and batch row; xg, wr, bias and the four initial
+    states read once, hs and the four final states written once (and, for
+    the saving instance, the gates and c, n, m of every step)."""
+    nbytes = 4 * (b * l * 4 * d + d * d + 4 * d + 4 * b * d + b * l * d + 4 * b * d
+                  + (b * l * 4 * d + 3 * b * l * d if save else 0))
+    return 2.0 * b * l * d * d, float(nbytes)
+
+
+def scan_bwd_cost(b: int, l: int, d: int) -> Tuple[float, float]:
+    """(flops, bytes) of :func:`slstm_scan_bwd`: the transposed product, 2
+    D^2 a step and batch row; the saved gates and c, n, m, dhs, wr, the
+    three initial states and four final-state cotangents read once, dxg and
+    the four initial-state gradients written once."""
+    saved = b * l * 4 * d + 3 * b * l * d
+    nbytes = 4 * (saved + b * l * d + d * d + 7 * b * d + b * l * 4 * d + 4 * b * d)
+    return 2.0 * b * l * d * d, float(nbytes)
 
 
 def _dwr(hs, h0, dxg):

@@ -160,9 +160,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
                     q_offset: int = 0, block_q: int = 512, block_k: int = 1024):
     """q: (B, Sq, H, Dk); k: (B, Sk, KV, Dk); v: (B, Sk, KV, Dv). GQA via
     H = KV·g. A CUDA tensor launches ``flash_attention_fwd`` (under grad
-    with ``flash_attention_bwd`` as its backward) or raises; a CPU tensor
+    with ``flash_attention_bwd`` as its backward) or raises; a meta tensor
+    (the dry-run) takes the same route and launches nothing; a CPU tensor
     runs :func:`flash_attention_blocks`, differentiated by autograd."""
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         return flash_attention_blocks(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, block_q=block_q, block_k=block_k)
     qs = q * (1.0 / math.sqrt(q.shape[-1]))  # rounded to the compute dtype, as the reference

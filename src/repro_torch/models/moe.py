@@ -120,8 +120,12 @@ def _router(p, x, m: MoEConfig):
     e = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     n_tok = ids[..., 0].numel()
-    # fraction routed per expert (x k): one-hot counts are exact in float32
-    frac = torch.bincount(ids.reshape(-1), minlength=e).float() / n_tok
+    # fraction routed per expert (x k): one-hot counts are exact in float32;
+    # scatter_add_ of ones gives bincount's counts and runs on meta tensors
+    flat = ids.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat.long(), torch.ones_like(flat, dtype=torch.int64))
+    frac = counts.float() / n_tok
     mean_prob = probs.reshape(-1, e).mean(dim=0)
     aux = e * torch.sum(frac / m.top_k * mean_prob)
     return gates.to(x.dtype), ids.to(torch.int32), aux

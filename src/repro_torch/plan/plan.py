@@ -228,11 +228,13 @@ def problem_key(
     precision: str = "single",
     backends: Tuple[str, ...] = (),
 ) -> ProblemKey:
-    """Build a :class:`ProblemKey` for a transform that runs on ``device``."""
+    """Build a :class:`ProblemKey` for a transform that runs on ``device``.
+    A meta device (the dry-run, ``repro_torch.launch.dryrun``) keys as the
+    card: it plans what a CUDA tensor runs, and its kernels launch nothing."""
     device = torch.device(device)
     return ProblemKey(
         kind=kind,
-        backend=device.type,
+        backend="cuda" if device.type == "meta" else device.type,
         device_kind=device_kind(device),
         shape=tuple(shape),
         dtype=str(dtype),

@@ -43,6 +43,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.launch.serve; from repro_torch.serve import ServeEngine, Request; "
         "import repro_torch.optim, repro_torch.optim.compression, repro_torch.train; "
         "import repro_torch.train.loop, repro_torch.launch.train; "
+        "import repro_torch.launch.dryrun, repro_torch.launch.report; "
+        "import repro_torch.launch.hlo_cost, repro_torch.launch.hlo_analysis; "
         "from repro_torch.configs import get_config; get_config('llama3.2-3b'); "
         "bad = [m for m in sys.modules if m in ('jax', 'repro') "
         "or m.startswith(('jax.', 'repro.'))]; print(bad); sys.exit(1 if bad else 0)"
