@@ -866,12 +866,13 @@ COLUMN_SHAPES = ((64, 256, 129), (16, 1024, 513), (8, 2048, 512), (4, 4096, 257)
                  (512, 8, 4096))
 
 
-def bound(card: str, nbytes: float, flops: float, flop_rate: float = PEAK_FLOPS_FP32):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    float32 operations over ``flop_rate``, by default the card's rate
+def bound(card: str, cost, flop_rate: float = PEAK_FLOPS_FP32):
+    """(bound_ms, bound_by) of a kernel's ``cost`` (the ``Cost`` of its
+    module's cost function): the larger of its bytes over HBM bandwidth and
+    its float32 operations over ``flop_rate``, by default the card's rate
     outside the tensor cores."""
-    bytes_ms = nbytes / hbm_bandwidth(card) * 1e3
-    ops_ms = flops / flop_rate * 1e3
+    bytes_ms = cost.bytes / hbm_bandwidth(card) * 1e3
+    ops_ms = cost.flops / flop_rate * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -907,7 +908,7 @@ def kernel_phase(torch, k, card: str):
                   lambda x: torch.fft.fft(x, dim=-2), k.fft2_columns_cost(*CT)),
     }
     rows = {}
-    for name, (x, kernel, plain, library, (flops, nbytes)) in cases.items():
+    for name, (x, kernel, plain, library, cost) in cases.items():
         by_radix = {}
         for radix in (2, 4):
             got = kernel(x, radix=radix)
@@ -924,7 +925,7 @@ def kernel_phase(torch, k, card: str):
                 raise AssertionError(f"{name} radix {radix}: rel err {err} > {TOL_KERNEL}")
             emit({"phase": "kernel", "kernel": name, "radix": radix,
                   "shape": list(x.shape), **by_radix[str(radix)]})
-        bound_ms, bound_by = bound(card, nbytes, flops)
+        bound_ms, bound_by = bound(card, cost)
         r4 = by_radix["4"]
         rows[name] = {
             "name": name,
@@ -1068,7 +1069,7 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
     dev = torch.device("cuda")
     fw, hw, ww = FRAME_WIDE
     ft, ht, wt = FRAME_TALL
-    cases = {  # name: (input, kernel, plain, library, (flops, bytes))
+    cases = {  # name: (input, kernel, plain, library, cost)
         "fft2_fused": (crandn(*FRAME_WIDE), k.fft2_fused, k.fft2_fused_plain, torch.fft.fft2,
                        k.fft2_cost(fw, hw, ww)),
         "rfft2_fused": (torch.randn(*FRAME_TALL, generator=gen, device=dev), k.rfft2_fused,
@@ -1076,8 +1077,8 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
         "irfft2_fused": (crandn(ft, ht, wt // 2 + 1), k.irfft2_fused, k.irfft2_fused_plain,
                          torch.fft.irfft2, k.rfft2_cost(ft, ht, wt)),
     }
-    for name, (x, kernel, plain, library, (flops, nbytes)) in cases.items():
-        bound_ms, bound_by = bound(card, nbytes, flops)
+    for name, (x, kernel, plain, library, cost) in cases.items():
+        bound_ms, bound_by = bound(card, cost)
         case = {"shape": list(x.shape), "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": time_ms(lambda: library(x)), "by_radix": {}}
         for radix in (2, 4):
@@ -1252,7 +1253,7 @@ def two_pass_phase(torch, k, card: str):
     bc, nc = TWO_PASS_COMPLEX
     br, nr = TWO_PASS_REAL
     x = crandn(bc, nc)
-    cases = {  # name: (input, kernel, plain, library, (flops, bytes one trip), trips)
+    cases = {  # name: (input, kernel, plain, library, cost of one trip, trips)
         "fft": (x, k.fft_fused, k.fft_two_pass_plain, torch.fft.fft, k.fft_cost(bc, nc), 2),
         "ifft": (x, lambda z, radix: k.fft_fused(z, radix=radix, inverse=True),
                  lambda z, radix: k.fft_two_pass_plain(z, radix=radix, inverse=True),
@@ -1263,7 +1264,7 @@ def two_pass_phase(torch, k, card: str):
                   torch.fft.irfft, k.rfft_cost(br, nr), 3),
     }
     by_case = {}
-    for name, (z, kernel, plain, library, (flops, nbytes), trips) in cases.items():
+    for name, (z, kernel, plain, library, cost, trips) in cases.items():
         by_radix = {}
         for radix in (2,):
             before = k.LAUNCHES["fft_two_pass"]
@@ -1287,7 +1288,7 @@ def two_pass_phase(torch, k, card: str):
                                      f"> {TOL_KERNEL}")
             if launched != trips:
                 raise AssertionError(f"fft_two_pass {name}: {launched} launches, not {trips}")
-        bound_ms, bound_by = bound(card, nbytes, flops)
+        bound_ms, bound_by = bound(card, cost)
         by_case[name] = {"shape": list(z.shape), "ms": by_radix["2"]["ms"],
                          "plain_ms": by_radix["2"]["plain_ms"],
                          "library_ms": time_ms(lambda: library(z)), "bound_ms": bound_ms,
@@ -1346,7 +1347,7 @@ def cluster_phase(torch, k, card: str):
     bc, nc = TWO_PASS_COMPLEX
     br, nr = TWO_PASS_REAL
     x = crandn(bc, nc)
-    cases = {  # name: (input, kernel, plain, library, (flops, bytes), m, kind)
+    cases = {  # name: (input, kernel, plain, library, cost, m, kind)
         "fft": (x, lambda z: k.fft_fused(z, radix=4), k.fft_cluster_plain, torch.fft.fft,
                 k.fft_cost(bc, nc), nc, "fft"),
         "ifft": (x, lambda z: k.fft_fused(z, radix=4, inverse=True),
@@ -1369,7 +1370,7 @@ def cluster_phase(torch, k, card: str):
                             ns // 2, "irfft")
     ptxas = ptxas_entries(_build.build_log(), "fft_cluster_kernel")
     by_case = {}
-    for name, (z, kernel, plain, library, (flops, nbytes), m, kind) in cases.items():
+    for name, (z, kernel, plain, library, cost, m, kind) in cases.items():
         before = dict(k.LAUNCHES)
         got = kernel(z)
         delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
@@ -1377,7 +1378,7 @@ def cluster_phase(torch, k, card: str):
         ref = plain(z)
         torch.cuda.synchronize()
         g = k.cluster_geometry(m)
-        bound_ms, bound_by = bound(card, nbytes, flops)
+        bound_ms, bound_by = bound(card, cost)
         line = {"phase": "kernel", "kernel": "fft_cluster", "case": name, "radix": 4,
                 "shape": list(z.shape), "launches_per_call": delta,
                 "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
@@ -1433,12 +1434,6 @@ def fid_source(torch, rows: int, n: int, seed: int):
     noise = torch.complex(torch.randn(rows, n, generator=gen, device=dev),
                           torch.randn(rows, n, generator=gen, device=dev))
     return sig.to(torch.complex64) + 0.01 * noise
-
-
-def work(cost) -> dict:
-    """{"bytes", "flops"} of a kernel's ``cost(...)`` (flops, bytes): the
-    kernel modules' formulas, which the dry-run charges too."""
-    return {"bytes": cost[1], "flops": cost[0]}
 
 
 def slstm_inputs(torch, dev, fan_in: int = 4, batch=None):
@@ -1530,7 +1525,7 @@ def check_slstm_windows(what: str, errs, plain_errs, finite: bool, h_max: float)
 
 
 def slstm_work(xg, w):
-    """(bytes, operations) slstm_scan must move and do on these inputs
+    """The ``Cost`` of slstm_scan on these inputs
     (``kernels.slstm_scan.scan_cost``: xg, wr, bias and the four initial
     states read once, hs and the four final states written once; the
     recurrent product, 2 D^2 a step and batch row). The products run on the
@@ -1539,8 +1534,7 @@ def slstm_work(xg, w):
     from repro_torch.kernels.slstm_scan import scan_cost
 
     b, l, d4 = xg.shape
-    flops, nbytes = scan_cost(b, l, d4 // 4)
-    return nbytes, flops
+    return scan_cost(b, l, d4 // 4)
 
 
 def rel_or_abs(got, ref) -> float:
@@ -1623,16 +1617,15 @@ def slstm_bwd_windows(torch, saved, w, state, dhs, dfinal, dxg):
 
 
 def slstm_bwd_work(saved, dhs, w):
-    """(bytes, operations) slstm_scan_bwd must move and do on these
-    inputs (``kernels.slstm_scan.scan_bwd_cost``: the saved gates and c, n,
-    m, dhs, wr, the three initial and four final-state cotangents read
-    once, dxg and the four initial-state gradients written once; the
-    transposed product, 2 D^2 a step and batch row)."""
+    """The ``Cost`` of slstm_scan_bwd on these inputs
+    (``kernels.slstm_scan.scan_bwd_cost``: the saved gates and c, n, m,
+    dhs, wr, the three initial and four final-state cotangents read once,
+    dxg and the four initial-state gradients written once; the transposed
+    product, 2 D^2 a step and batch row)."""
     from repro_torch.kernels.slstm_scan import scan_bwd_cost
 
     b, l, d4 = saved[0].shape
-    flops, nbytes = scan_bwd_cost(b, l, d4 // 4)
-    return nbytes, flops
+    return scan_bwd_cost(b, l, d4 // 4)
 
 
 def slstm_bwd_case(torch, card: str, batch=None):
@@ -1705,8 +1698,9 @@ def slstm_bwd_case(torch, card: str, batch=None):
             "smem_bytes": grid.smem_bytes, "blocks_per_sm": slstm_bwd_blocks_per_sm(grid),
             "ptxas": ptxas, "card": card}
     line["ms_per_step"] = line["ms"] / l
-    line["bytes"], line["flops"] = slstm_bwd_work(saved, dhs, w)
-    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
+    cost = slstm_bwd_work(saved, dhs, w)
+    line.update(cost._asdict())
+    line["bound_ms"], line["bound_by"] = bound(card, cost)
     emit(line)
     del xg, hs, saved, dhs, dxg, plain_x
     torch.cuda.empty_cache()
@@ -1734,6 +1728,7 @@ def model_kernel_phase(torch, card: str):
     from repro_torch.kernels import butterfly as bf
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import _build
+    from repro_torch.kernels._launch import Cost
     from repro_torch.kernels.slstm_scan import (
         ROUTES,
         slstm_barriers,
@@ -1747,9 +1742,9 @@ def model_kernel_phase(torch, card: str):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
 
-    def row(name, err, rel, ms, plain_ms, nbytes, flops, library_ms,
-            flop_rate=PEAK_FLOPS_FP32, **extra):
-        bound_ms, bound_by = bound(card, nbytes, flops, flop_rate)
+    def row(name, err, rel, ms, plain_ms, cost, library_ms, flop_rate=PEAK_FLOPS_FP32,
+            **extra):
+        bound_ms, bound_by = bound(card, cost, flop_rate)
         rows[name] = {"name": name, "route": "cuda", "source": KERNELS[name][0],
                       "replaces": KERNELS[name][1], "launches": 0, "max_abs_err": err,
                       "rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1777,7 +1772,7 @@ def model_kernel_phase(torch, card: str):
         stages.append(line)
     row("butterfly_stage", max(x["max_abs_err"] for x in stages),
         max(x["rel_err"] for x in stages), statistics.mean(x["ms"] for x in stages),
-        statistics.mean(x["plain_ms"] for x in stages), *reversed(bf.stage_cost(b, n)), None,
+        statistics.mean(x["plain_ms"] for x in stages), bf.stage_cost(b, n), None,
         shape=[b, n], per="stage", ms_by_stage=[x["ms"] for x in stages])
     del re, im, got, ref
     torch.cuda.empty_cache()
@@ -1796,12 +1791,14 @@ def model_kernel_phase(torch, card: str):
          lambda q, kk, v: F.scaled_dot_product_attention(q[None], kk[None], v[None],
                                                          attn_mask=swa)),
     ]
-    by_case = {}
+    by_case, costs = {}, {}
     for label, q, kk, v, window, library in cases:
         got = fa.flash_attention_fwd(q, kk, v, causal=True, window=window)
         ref = fa.flash_attention_plain(q, kk, v, causal=True, window=window)
         torch.cuda.synchronize()
         bh, sq, dh = q.shape
+        costs[label] = cost = fa.fwd_cost(bh, sq, kk.shape[1], dh, v.shape[2], causal=True,
+                                          window=window)
         line = {"phase": "kernel", "kernel": "flash_attention_fwd", "case": label,
                 "shape": list(q.shape), "window": window, "rel_err": rel_err(got, ref),
                 "max_abs_err": max_abs(got, ref),
@@ -1811,13 +1808,11 @@ def model_kernel_phase(torch, card: str):
                                                                      window=window),
                                     reps=2, batches=3),
                 "library_ms": time_ms(lambda: library(q, kk, v), reps=5, batches=3),
-                **work(fa.fwd_cost(bh, sq, kk.shape[1], dh, v.shape[2], causal=True,
-                                   window=window))}
+                **cost._asdict()}
         # The kernel's products run on the tensor cores, split into three
         # TF32 products; the CUDA-core float32 figure stays beside it.
-        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
-                                                   split_tf32_rate(card))
-        line["simt_bound_ms"] = bound(card, line["bytes"], line["flops"])[0]
+        line["bound_ms"], line["bound_by"] = bound(card, cost, split_tf32_rate(card))
+        line["simt_bound_ms"] = bound(card, cost)[0]
         emit(line)
         if not line["rel_err"] <= TOL_KERNEL:
             raise AssertionError(f"flash_attention_fwd {label}: rel err {line['rel_err']}")
@@ -1829,7 +1824,7 @@ def model_kernel_phase(torch, card: str):
           "threads": fa.THREADS})
     row("flash_attention_fwd", max(x["max_abs_err"] for x in by_case.values()),
         max(x["rel_err"] for x in by_case.values()), main["ms"], main["plain_ms"],
-        main["bytes"], main["flops"], main["library_ms"], split_tf32_rate(card),
+        costs["llama3.2-3b"], main["library_ms"], split_tf32_rate(card),
         shape=main["shape"],
         by_case={lb: {kx: x[kx] for kx in ("shape", "window", "rel_err", "ms", "plain_ms",
                                              "library_ms", "bound_ms", "bound_by")}
@@ -1893,9 +1888,8 @@ def model_kernel_phase(torch, card: str):
                                  f"the plain version by {at['kernel_vs_plain']}, more than "
                                  f"{SLSTM_DIVERGENCE_FACTOR} x the plain version's "
                                  f"{at['plain_vs_float64']} from float64")
-    nbytes, flops = slstm_work(xg, w)
-    row("slstm_scan", abs_err, max(errs.values()), line["ms"], line["plain_ms"], nbytes,
-        flops, None, shape=list(xg.shape), window=SLSTM_WINDOW,
+    row("slstm_scan", abs_err, max(errs.values()), line["ms"], line["plain_ms"],
+        slstm_work(xg, w), None, shape=list(xg.shape), window=SLSTM_WINDOW,
         rel_err_by_output=errs,
         grid_route=line["route"],
         **{key: line[key] for key in ("ms_per_step", "ctas", "units",
@@ -1906,7 +1900,8 @@ def model_kernel_phase(torch, card: str):
     # slstm_scan_bwd at the same width, from the saving forward.
     back = slstm_bwd_case(torch, card)
     row("slstm_scan_bwd", back["max_abs_err"], max(back["rel_err"].values()), back["ms"],
-        back["plain_ms"], back["bytes"], back["flops"], None, shape=back["shape"],
+        back["plain_ms"], Cost(flops=back["flops"], bytes=back["bytes"]), None,
+        shape=back["shape"],
         window=SLSTM_WINDOW, rel_err_by_output=back["rel_err"], grid_route=back["route"],
         **{key: back[key] for key in ("ms_per_step", "ctas", "units", "barrier_floor_ms",
                                       "forward_saving_ms")})
@@ -4130,8 +4125,9 @@ def slstm_model_case(torch, card, rows, cfg, params, toks, launches: int):
             "plain_ms": time_ms(lambda: slstm_scan_plain(xg, w["wr"], w["bias"], *state),
                                 reps=1, batches=3),
             "library_ms": None, "launches": launches, "card": card}
-    line["bytes"], line["flops"] = slstm_work(xg, w)
-    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"])
+    cost = slstm_work(xg, w)
+    line.update(cost._asdict())
+    line["bound_ms"], line["bound_by"] = bound(card, cost)
     line["ms_per_step"] = line["ms"] / l
     emit(line)
     check_slstm_windows(f"slstm_scan on {cfg.name}'s layer-0 operands", errs, plain_errs,
@@ -4210,6 +4206,7 @@ def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launche
     m_ref = fa.flash_attention_plain(mq, mk, mv, scale=1.0, **opts)
     m64 = float64_attention(fa, mq, mk, mv, causal, window, q_scale=math.sqrt(dh))
     torch.cuda.synchronize()
+    cost = fa.fwd_cost(q.shape[0], s, sk, dh, dv, causal=causal, window=window)
     line = {"phase": phase, "kernel": "flash_attention_fwd", "case": case, "lane": lane,
             "shape": list(q.shape), "keys": sk, "value_dim": dv, "causal": causal,
             "window": window, "blocks": {k: opts[k] for k in ("block_q", "block_k")},
@@ -4225,10 +4222,8 @@ def flash_model_case(torch, card, rows, phase: str, case: str, cfg, qkv, launche
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, kk, v, scale=1.0, **opts),
                                 reps=2, batches=3),
             "library_ms": sdpa_ms(torch, q, kk, v, causal, window),
-            **work(fa.fwd_cost(q.shape[0], s, sk, dh, dv, causal=causal, window=window)),
-            "launches": launches, "card": card}
-    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
-                                               split_tf32_rate(card))
+            **cost._asdict(), "launches": launches, "card": card}
+    line["bound_ms"], line["bound_by"] = bound(card, cost, split_tf32_rate(card))
     emit(line)
     del m64
     model_ops = line["model_operands"]
@@ -5407,6 +5402,10 @@ def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None, phase=
         mq, mk, mv = model
         line["model_operands"] = errors(mq, mk, mv, do)
     o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    # each input read once, each gradient written once; per kept pair the
+    # scores again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each)
+    cost = fa.bwd_cost(bh, sq, sk, d, dv, causal=opts["causal"], window=opts["window"],
+                       q_offset=off)
     line.update({
         "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **opts), reps=5,
                       batches=3),
@@ -5417,17 +5416,12 @@ def flash_bwd_case(torch, card, case: str, q, k, v, do, opts, model=None, phase=
                               reps=5, batches=3),
         "forward_no_lse_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **opts), reps=5,
                                      batches=3),
-        # each input read once, each gradient written once; per kept pair the
-        # scores again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each)
-        **work(fa.bwd_cost(bh, sq, sk, d, dv, causal=opts["causal"], window=opts["window"],
-                           q_offset=off)),
-        "card": card})
+        **cost._asdict(), "card": card})
     # The same float32-accurate products as the forward's, so the same
     # yardstick: the card's rate for them on the tensor cores (three TF32
     # products each), with the CUDA-core float32 figure beside it.
-    line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
-                                               split_tf32_rate(card))
-    line["simt_bound_ms"] = bound(card, line["bytes"], line["flops"])[0]
+    line["bound_ms"], line["bound_by"] = bound(card, cost, split_tf32_rate(card))
+    line["simt_bound_ms"] = bound(card, cost)[0]
     emit(line)
     worst = [line] + ([line["model_operands"]] if model is not None else [])
     if not line["rel_err"] <= TOL_KERNEL or not all(
@@ -5812,6 +5806,7 @@ def dist_kernel_lines(torch, card: str, rows) -> None:
         ref = fa.flash_attention_plain(q, kk, v, **opts)
         torch.cuda.synchronize()
         mask = sdpa_mask(torch, sq, sk, True, window, off, dev)
+        cost = fa.fwd_cost(bh, sq, sk, d, d, causal=True, window=window, q_offset=off)
         line = {"phase": "lm dist", "kernel": "flash_attention_fwd", "case": label,
                 "shape": [bh, sq, d], "keys": sk, "window": window, "q_offset": off,
                 "rel_err": rel_err(got, ref), "max_abs_err": max_abs(got, ref),
@@ -5821,10 +5816,8 @@ def dist_kernel_lines(torch, card: str, rows) -> None:
                                     batches=3),
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     q[None], kk[None], v[None], attn_mask=mask), reps=5, batches=3),
-                **work(fa.fwd_cost(bh, sq, sk, d, d, causal=True, window=window, q_offset=off)),
-                "card": card}
-        line["bound_ms"], line["bound_by"] = bound(card, line["bytes"], line["flops"],
-                                                   split_tf32_rate(card))
+                **cost._asdict(), "card": card}
+        line["bound_ms"], line["bound_by"] = bound(card, cost, split_tf32_rate(card))
         emit(line)
         if not line["rel_err"] <= TOL_KERNEL:
             raise AssertionError(f"flash_attention_fwd {label}: rel err {line['rel_err']}")

@@ -15,18 +15,20 @@ On a ``meta`` tensor (the dry-run, ``repro_torch.launch.dryrun``) a
 wrapper takes its card route up to the launch: the same casts and the same
 outputs, allocated on the meta device. :func:`launch` then launches
 nothing and counts nothing. Each wrapper calls :func:`charge` with its
-kernel's ``cost`` on the card and on meta alike, so a cost counter (a
-``TorchDispatchMode`` with a ``charge_kernel`` method, such as
-``repro_torch.launch.hlo_cost.CostCounter``) sees the same work on both.
+kernel's ``cost`` function on the card and on meta alike, so a cost
+counter in :data:`COUNTERS` (``repro_torch.launch.hlo_cost.CostCounter``
+enters itself there) sees the same work on both. With no counter in force
+the cost is not computed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, NamedTuple
 
 import torch
 
-__all__ = ["LAUNCHES", "NoBackward", "charge", "launch", "refuse_grad", "reset_launches"]
+__all__ = ["COUNTERS", "Cost", "LAUNCHES", "NoBackward", "charge", "launch", "refuse_grad",
+           "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {
@@ -35,6 +37,20 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0,
     "fft_two_pass": 0, "fft_cluster": 0, "fft2_columns": 0,
 }
+
+
+class Cost(NamedTuple):
+    """A kernel call's work: the ``flops`` it does and the ``bytes`` it must
+    move (each input read once, each output written once)."""
+
+    flops: float
+    bytes: float
+
+
+#: The cost counters in force, innermost last. A global list and not the
+#: thread's dispatch-mode stack: autograd runs a CUDA backward on a thread
+#: of its own, whose kernels are charged too.
+COUNTERS: List = []
 
 
 #: Where a kernel without a backward gets one, named when it refuses; the
@@ -62,16 +78,14 @@ def refuse_grad(name: str, *tensors) -> None:
         )
 
 
-def charge(name: str, cost: Tuple[float, float]) -> None:
-    """Hand the kernel ``name``'s ``cost`` (flops, bytes) to every active
-    dispatch mode that counts kernels (``charge_kernel``); nothing where
-    none is active."""
-    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
-
-    for mode in _get_current_dispatch_mode_stack():
-        counter = getattr(mode, "charge_kernel", None)
-        if counter is not None:
-            counter(name, *cost)
+def charge(name: str, cost: Callable[..., Cost], *args, **kwargs) -> None:
+    """Hand every counter in :data:`COUNTERS` the kernel ``name``'s
+    ``cost(*args, **kwargs)``; where none is in force, nothing is computed."""
+    if not COUNTERS:
+        return
+    work = cost(*args, **kwargs)
+    for counter in COUNTERS:
+        counter.charge_kernel(name, work)
 
 
 def reset_launches() -> None:

@@ -25,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._launch import charge, launch, refuse_grad
+from repro_torch.kernels._launch import Cost, charge, launch, refuse_grad
 
 __all__ = ["THREADS", "butterfly_stage", "butterfly_stage_plain", "stage_cost", "stage_grid"]
 
@@ -43,11 +43,11 @@ def stage_grid(batch: int, n: int) -> int:
     return max(1, min(MAX_BLOCKS, -(-(batch * n // 2) // THREADS)))
 
 
-def stage_cost(batch: int, n: int) -> Tuple[float, float]:
-    """(flops, bytes) of one stage on B rows of N: a butterfly's complex
+def stage_cost(batch: int, n: int) -> Cost:
+    """The flops and bytes of one stage on B rows of N: a butterfly's complex
     multiply and two adds, 10 flops for every two values; both float32
     planes read and written once."""
-    return 5.0 * batch * n, float(16 * batch * n)
+    return Cost(5.0 * batch * n, float(16 * batch * n))
 
 
 def _check(re: torch.Tensor, im: torch.Tensor, stage: int) -> None:
@@ -109,7 +109,7 @@ def butterfly_stage(
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     if b:
-        charge("butterfly_stage", stage_cost(b, n))
+        charge("butterfly_stage", stage_cost, b, n)
         launch("repro_butterfly_stage", "butterfly_stage", re, re.data_ptr(), im.data_ptr(),
                out_re.data_ptr(), out_im.data_ptr(), b, n, stage, stage_grid(b, n), THREADS)
     return out_re, out_im

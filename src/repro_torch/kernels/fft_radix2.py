@@ -53,7 +53,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import LAUNCHES, charge, refuse_grad, reset_launches
+from repro_torch.kernels._launch import LAUNCHES, Cost, charge, refuse_grad, reset_launches
 from repro_torch.kernels._launch import launch as _launch
 
 __all__ = [
@@ -1037,41 +1037,43 @@ def irfft2_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 # ------------------------------ wrappers ----------------------------------
 
 
-def fft_cost(rows: int, n: int) -> Tuple[float, float]:
-    """(flops, bytes) of a complex FFT of (rows, N), whatever its route:
+def fft_cost(rows: int, n: int) -> Cost:
+    """The flops and bytes of a complex FFT of (rows, N), whatever its route:
     5 N log2 N a row; every complex64 value read and written once."""
-    return 5.0 * rows * n * math.log2(n), float(16 * rows * n)
+    return Cost(5.0 * rows * n * math.log2(n), float(16 * rows * n))
 
 
-def rfft_cost(rows: int, n: int) -> Tuple[float, float]:
-    """(flops, bytes) of a real FFT of (rows, N) float32 to (rows, N/2+1)
+def rfft_cost(rows: int, n: int) -> Cost:
+    """The flops and bytes of a real FFT of (rows, N) float32 to (rows, N/2+1)
     complex64 (and of its inverse): half a complex FFT's operations; the
     input read and the output written once."""
-    return 2.5 * rows * n * math.log2(n), float(4 * rows * n + 8 * rows * (n // 2 + 1))
+    return Cost(2.5 * rows * n * math.log2(n), float(4 * rows * n + 8 * rows * (n // 2 + 1)))
 
 
-def fft2_cost(frames: int, h: int, w: int) -> Tuple[float, float]:
-    """(flops, bytes) of a 2D complex FFT of (F, H, W): 5 HW log2(HW) a
+def fft2_cost(frames: int, h: int, w: int) -> Cost:
+    """The flops and bytes of a 2D complex FFT of (F, H, W): 5 HW log2(HW) a
     frame, every value read and written once."""
-    return 5.0 * frames * h * w * math.log2(h * w), float(16 * frames * h * w)
+    return Cost(5.0 * frames * h * w * math.log2(h * w), float(16 * frames * h * w))
 
 
-def rfft2_cost(frames: int, h: int, w: int) -> Tuple[float, float]:
-    """(flops, bytes) of a real 2D FFT of (F, H, W) float32 to (F, H,
+def rfft2_cost(frames: int, h: int, w: int) -> Cost:
+    """The flops and bytes of a real 2D FFT of (F, H, W) float32 to (F, H,
     W/2+1) complex64 (and of its inverse)."""
-    return (2.5 * frames * h * w * math.log2(h * w),
-            float(4 * frames * h * w + 8 * frames * h * (w // 2 + 1)))
+    return Cost(2.5 * frames * h * w * math.log2(h * w),
+                float(4 * frames * h * w + 8 * frames * h * (w // 2 + 1)))
 
 
-def fft2_columns_cost(frames: int, h: int, wc: int) -> Tuple[float, float]:
-    """(flops, bytes) of the column FFTs of (F, H, Wc): 5 H log2 H a
+def fft2_columns_cost(frames: int, h: int, wc: int) -> Cost:
+    """The flops and bytes of the column FFTs of (F, H, Wc): 5 H log2 H a
     column, every value read and written once."""
-    return 5.0 * frames * h * wc * math.log2(h), float(16 * frames * h * wc)
+    return Cost(5.0 * frames * h * wc * math.log2(h), float(16 * frames * h * wc))
 
 
 def _row_kernel(one_block: bool, radix: int, fused: str) -> str:
-    """The kernel a row call launches: ``fused`` within one block, else the
-    cluster (radix 4) or the two passes."""
+    """The kernel a row call launches, and the name it is charged and
+    counted under: ``fused`` within one block, else the cluster (radix 4)
+    or the two passes. The one routing decision of the row entries, on
+    every device."""
     return fused if one_block else ("fft_cluster" if radix == 4 else "fft_two_pass")
 
 
@@ -1176,12 +1178,12 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
     b, n = x.shape
     _check_pow2(n, "fft_fused")
     _panel(radix)
-    one_block = _check_fused_row(n, "fft_fused")
+    route = _row_kernel(_check_fused_row(n, "fft_fused"), radix, "fft_fused")
     _check_out(x, out, "fft_fused")
     if x.device.type == "cpu":
-        if one_block:
+        if route == "fft_fused":
             y = fft_fused_plain(x, radix=radix, inverse=inverse)
-        elif radix == 4:
+        elif route == "fft_cluster":
             y = fft_cluster_plain(x, inverse=inverse)
         else:
             y = fft_two_pass_plain(x, radix=radix, inverse=inverse)
@@ -1192,12 +1194,12 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
     _check_launchable(out, "fft_fused")
     scale = 1.0 / n if inverse else 1.0
     if b:
-        charge(_row_kernel(one_block, radix, "fft_fused"), fft_cost(b, n))
-    if b and one_block:
+        charge(route, fft_cost, b, n)
+    if b and route == "fft_fused":
         rows = pick_row_tile(b, n)
         _launch("repro_fft_fused", "fft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
                 rows, block_threads(rows * n), fft_smem_bytes(n, rows), int(inverse), scale)
-    elif b and radix == 4:
+    elif b and route == "fft_cluster":
         _cluster(x, x.data_ptr(), out.data_ptr(), b, n, "fft", inverse, scale)
     elif b:
         _two_pass(x, x.data_ptr(), out.data_ptr(), b, n, radix, inverse, scale)
@@ -1213,21 +1215,23 @@ def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     b, n = x.shape
     _check_pow2(n, "rfft_fused")
     _panel(radix)
-    one_block = _check_fused_row(n, "rfft_fused", real=True)
+    route = _row_kernel(_check_fused_row(n, "rfft_fused", real=True), radix, "rfft_fused")
     if x.device.type == "cpu":
-        if one_block:
+        if route == "rfft_fused":
             return rfft_fused_plain(x, radix=radix)
-        return rfft_cluster_plain(x) if radix == 4 else rfft_two_pass_plain(x, radix=radix)
+        if route == "fft_cluster":
+            return rfft_cluster_plain(x)
+        return rfft_two_pass_plain(x, radix=radix)
     _check_launchable(x, "rfft_fused")
     out = torch.empty((b, n // 2 + 1), dtype=torch.complex64, device=x.device)
     m = n // 2
     if b:
-        charge(_row_kernel(one_block, radix, "rfft_fused"), rfft_cost(b, n))
-    if b and one_block:
+        charge(route, rfft_cost, b, n)
+    if b and route == "rfft_fused":
         rows = pick_row_tile(b, m)
         _launch("repro_rfft_fused", "rfft_fused", x, x.data_ptr(), out.data_ptr(), b, n, radix,
                 rows, block_threads(rows * m), rfft_smem_bytes(n, rows))
-    elif b and radix == 4:
+    elif b and route == "fft_cluster":
         _cluster(x, x.data_ptr(), out.data_ptr(), b, m, "rfft")
     elif b:
         z = torch.empty((b, m), dtype=torch.complex64, device=x.device)
@@ -1248,21 +1252,23 @@ def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     n = 2 * (half - 1)
     _check_pow2(n, "irfft_fused", "2 * (width - 1)")
     _panel(radix)
-    one_block = _check_fused_row(n, "irfft_fused", real=True)
+    route = _row_kernel(_check_fused_row(n, "irfft_fused", real=True), radix, "irfft_fused")
     if y.device.type == "cpu":
-        if one_block:
+        if route == "irfft_fused":
             return irfft_fused_plain(y, radix=radix)
-        return irfft_cluster_plain(y) if radix == 4 else irfft_two_pass_plain(y, radix=radix)
+        if route == "fft_cluster":
+            return irfft_cluster_plain(y)
+        return irfft_two_pass_plain(y, radix=radix)
     _check_launchable(y, "irfft_fused")
     out = torch.empty((b, n), dtype=torch.float32, device=y.device)
     m = n // 2
     if b:
-        charge(_row_kernel(one_block, radix, "irfft_fused"), rfft_cost(b, n))
-    if b and one_block:
+        charge(route, rfft_cost, b, n)
+    if b and route == "irfft_fused":
         rows = pick_row_tile(b, m)
         _launch("repro_irfft_fused", "irfft_fused", y, y.data_ptr(), out.data_ptr(), b, n,
                 radix, rows, block_threads(rows * m), irfft_smem_bytes(n, rows))
-    elif b and radix == 4:
+    elif b and route == "fft_cluster":
         _cluster(y, y.data_ptr(), out.data_ptr(), b, m, "irfft", scale=1.0 / m)
     elif b:
         # The untangled half-size rows go into ``out`` itself (B x N/2
@@ -1292,7 +1298,7 @@ def fft2_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> tor
     _check_launchable(x, "fft2_fused")
     out = torch.empty_like(x)
     if f:
-        charge("fft2_fused", fft2_cost(f, h, w))
+        charge("fft2_fused", fft2_cost, f, h, w)
         _launch("repro_fft2_fused", "fft2_fused", x, x.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * w), fft2_smem_bytes(h, w), int(inverse),
                 1.0 / (h * w) if inverse else 1.0)
@@ -1315,7 +1321,7 @@ def rfft2_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _check_launchable(x, "rfft2_fused")
     out = torch.empty((f, h, w // 2 + 1), dtype=torch.complex64, device=x.device)
     if f:
-        charge("rfft2_fused", rfft2_cost(f, h, w))
+        charge("rfft2_fused", rfft2_cost, f, h, w)
         _launch("repro_rfft2_fused", "rfft2_fused", x, x.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
     return out
@@ -1338,7 +1344,7 @@ def irfft2_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     _check_launchable(y, "irfft2_fused")
     out = torch.empty((f, h, w), dtype=torch.float32, device=y.device)
     if f:
-        charge("irfft2_fused", rfft2_cost(f, h, w))
+        charge("irfft2_fused", rfft2_cost, f, h, w)
         _launch("repro_irfft2_fused", "irfft2_fused", y, y.data_ptr(), out.data_ptr(), f, h, w,
                 radix, block_threads(h * (w // 2)), rfft2_smem_bytes(h, w))
     return out
@@ -1373,7 +1379,7 @@ def fft2_columns(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
         out = torch.empty_like(x)
     _check_launchable(out, "fft2_columns")
     if f and wc:
-        charge("fft2_columns", fft2_columns_cost(f, h, wc))
+        charge("fft2_columns", fft2_columns_cost, f, h, wc)
         g = fft2_columns_geometry(h, wc)
         _launch("repro_fft2_columns", "fft2_columns", x, x.data_ptr(), out.data_ptr(), f, h,
                 wc, radix, g.cols, g.threads, g.smem, int(inverse),

@@ -60,7 +60,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import charge, launch, refuse_grad
+from repro_torch.kernels._launch import Cost, charge, launch, refuse_grad
 
 __all__ = [
     "MAX_HEAD_DIM",
@@ -183,25 +183,25 @@ def attention_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
 
 def fwd_cost(bh: int, sq: int, sk: int, d: int, dv: int, *, causal: bool = True,
              window: Optional[int] = None, q_offset: int = 0,
-             lse: bool = False) -> Tuple[float, float]:
-    """(flops, bytes) of :func:`flash_attention_fwd`: 2 (D + Dv) a kept pair
+             lse: bool = False) -> Cost:
+    """The flops and bytes of :func:`flash_attention_fwd`: 2 (D + Dv) a kept pair
     (the scores and the output product); q, k, v read once and the float32
     output (and the logsumexp, where asked) written once."""
     pairs = attention_pairs(sq, sk, causal, window, q_offset)
     nbytes = 4 * (bh * sq * d + bh * sk * d + bh * sk * dv + bh * sq * dv + (bh * sq if lse else 0))
-    return bh * pairs * 2.0 * (d + dv), float(nbytes)
+    return Cost(bh * pairs * 2.0 * (d + dv), float(nbytes))
 
 
 def bwd_cost(bh: int, sq: int, sk: int, d: int, dv: int, *, causal: bool = True,
-             window: Optional[int] = None, q_offset: int = 0) -> Tuple[float, float]:
-    """(flops, bytes) of :func:`flash_attention_bwd`: a kept pair's scores
+             window: Optional[int] = None, q_offset: int = 0) -> Cost:
+    """The flops and bytes of :func:`flash_attention_bwd`: a kept pair's scores
     again (2 D), dP and dV (2 Dv each), dQ and dK (2 D each); q, k, v, the
     output and its cotangent and the logsumexp read once, each gradient
     written once."""
     pairs = attention_pairs(sq, sk, causal, window, q_offset)
     nbytes = 4 * (2 * bh * sq * d + 2 * bh * sk * d + 2 * bh * sk * dv + 2 * bh * sq * dv
                   + bh * sq)
-    return bh * pairs * (6.0 * d + 4.0 * dv), float(nbytes)
+    return Cost(bh * pairs * (6.0 * d + 4.0 * dv), float(nbytes))
 
 
 def flash_attention_plain(
@@ -314,8 +314,8 @@ def flash_attention_fwd(
     out = torch.empty(bh, sq, dv, dtype=torch.float32, device=q.device)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device) if return_lse else None
     if bh and sq:
-        charge("flash_attention_fwd", fwd_cost(bh, sq, sk, d, dv, causal=causal, window=window,
-                                               q_offset=q_offset, lse=return_lse))
+        charge("flash_attention_fwd", fwd_cost, bh, sq, sk, d, dv, causal=causal, window=window,
+               q_offset=q_offset, lse=return_lse)
         sk_pad = _blocks(sq, sk, block_q, block_k)[3]
         launch("repro_flash_attention_fwd", "flash_attention_fwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -467,8 +467,8 @@ def flash_attention_bwd(
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if bh and sq:
         delta = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
-        charge("flash_attention_bwd", bwd_cost(bh, sq, sk, d, dv, causal=causal, window=window,
-                                               q_offset=q_offset))
+        charge("flash_attention_bwd", bwd_cost, bh, sq, sk, d, dv, causal=causal, window=window,
+               q_offset=q_offset)
         sk_pad = _blocks(sq, sk, block_q, block_k)[3]
         launch("repro_flash_attention_bwd", "flash_attention_bwd", q, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),

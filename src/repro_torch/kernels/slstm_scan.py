@@ -24,8 +24,8 @@ initial state (B, D) x 4. Returns hs (B, L, D) and the final state.
   forward's grid; :func:`slstm_bwd_grid`) and forms dwr and dbias from
   its dxg. :func:`slstm_scan_bwd_plain` is the reverse recurrence step by
   step in torch.
-* :func:`scan_cost`, :func:`scan_bwd_cost` — each kernel's work (flops,
-  bytes): the card's bound, and what a meta tensor's call charges a cost
+* :func:`scan_cost`, :func:`scan_bwd_cost` — each kernel's work (a
+  ``Cost`` of flops and bytes): the card's bound, and what a meta tensor's call charges a cost
   counter (a meta tensor takes the card route up to the launch and
   launches nothing; ``kernels._launch``).
 * :func:`slstm_weights_from_jax` — the reference's ``slstm_skel``
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._launch import charge, launch, refuse_grad
+from repro_torch.kernels._launch import Cost, charge, launch, refuse_grad
 
 __all__ = [
     "SLSTM_HEADS",
@@ -437,7 +437,7 @@ def _scan_card(xg, wr, bias, states, *, save: bool):
     final = tuple(new(b, d) for _ in range(4))
     saved = (new(b, l, d4), new(b, l, d), new(b, l, d), new(b, l, d)) if save else ()
     if b:
-        charge("slstm_scan", scan_cost(b, l, d, save=save))
+        charge("slstm_scan", scan_cost, b, l, d, save=save)
         count = torch.zeros(1, dtype=torch.int64, device=xg.device)
     if b and not xg.is_meta:
         grid = slstm_card_grid(d, b, xg.device)
@@ -480,7 +480,7 @@ def slstm_scan_bwd(saved, wr, c0, n0, m0, dhs, dfinal) -> Tuple[torch.Tensor, St
     dxg = torch.empty(b, l, d4, dtype=torch.float32, device=gates.device)
     grads = tuple(torch.empty(b, d, dtype=torch.float32, device=gates.device) for _ in range(4))
     if b:
-        charge("slstm_scan_bwd", scan_bwd_cost(b, l, d))
+        charge("slstm_scan_bwd", scan_bwd_cost, b, l, d)
         count = torch.zeros(1, dtype=torch.int64, device=gates.device)
     if b and not gates.is_meta:
         grid = slstm_bwd_card_grid(d, b, gates.device)
@@ -490,24 +490,24 @@ def slstm_scan_bwd(saved, wr, c0, n0, m0, dhs, dfinal) -> Tuple[torch.Tensor, St
     return dxg, grads
 
 
-def scan_cost(b: int, l: int, d: int, *, save: bool = False) -> Tuple[float, float]:
-    """(flops, bytes) of :func:`slstm_scan` on (B, L, 4D): the recurrent
+def scan_cost(b: int, l: int, d: int, *, save: bool = False) -> Cost:
+    """The flops and bytes of :func:`slstm_scan` on (B, L, 4D): the recurrent
     product, 2 D^2 a step and batch row; xg, wr, bias and the four initial
     states read once, hs and the four final states written once (and, for
     the saving instance, the gates and c, n, m of every step)."""
     nbytes = 4 * (b * l * 4 * d + d * d + 4 * d + 4 * b * d + b * l * d + 4 * b * d
                   + (b * l * 4 * d + 3 * b * l * d if save else 0))
-    return 2.0 * b * l * d * d, float(nbytes)
+    return Cost(2.0 * b * l * d * d, float(nbytes))
 
 
-def scan_bwd_cost(b: int, l: int, d: int) -> Tuple[float, float]:
-    """(flops, bytes) of :func:`slstm_scan_bwd`: the transposed product, 2
+def scan_bwd_cost(b: int, l: int, d: int) -> Cost:
+    """The flops and bytes of :func:`slstm_scan_bwd`: the transposed product, 2
     D^2 a step and batch row; the saved gates and c, n, m, dhs, wr, the
     three initial states and four final-state cotangents read once, dxg and
     the four initial-state gradients written once."""
     saved = b * l * 4 * d + 3 * b * l * d
     nbytes = 4 * (saved + b * l * d + d * d + 7 * b * d + b * l * 4 * d + 4 * b * d)
-    return 2.0 * b * l * d * d, float(nbytes)
+    return Cost(2.0 * b * l * d * d, float(nbytes))
 
 
 def _dwr(hs, h0, dxg):

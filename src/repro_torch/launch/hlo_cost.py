@@ -15,9 +15,9 @@ dry-run is held to a real step). The rules are the reference's:
                  read, one write); an allocation alone (``empty``) costs
                  nothing
   views, metadata  nothing
-  kernels        the kernel entries charge their ``cost(...)`` (flops,
-                 bytes; ``kernels._launch.charge``), as XLA costs a
-                 custom call
+  kernels        the kernel entries charge their ``cost(...)`` (a
+                 ``kernels._launch.Cost`` of flops and bytes;
+                 ``kernels._launch.charge``), as XLA costs a custom call
 
 Eager order already multiplies the loops XLA keeps as ``while`` bodies:
 every layer runs, and remat's recompute runs again under
@@ -40,8 +40,12 @@ from typing import Dict, List
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.kernels._launch import COUNTERS, Cost
+
 __all__ = ["CostCounter", "loop_aware_cost", "top_collectives"]
 
+#: Devices whose storages count toward the live bytes: the dry-run's and the card's.
+_TRACKED = ("meta", "cuda")
 #: Ops that allocate without writing: no bytes.
 _ALLOCATIONS = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
 #: Data movement tagged pointwise: bytes, no flops.
@@ -92,12 +96,12 @@ class CostCounter(TorchDispatchMode):
     ops among them; ``kernels``:
     {name: {"calls", "flops", "bytes"}} of the charges; ``ops``: {aten op:
     {"count", "flops", "bytes"}}; ``peak_bytes``: the most bytes the step's
-    own storages held at once (storages on a device in ``devices``; the
-    inputs it was handed are not its own)."""
+    own storages held at once (storages on a meta or CUDA device; the
+    inputs it was handed are not its own). Entered, it is in force for the
+    kernel entries' charges (``kernels._launch.COUNTERS``)."""
 
-    def __init__(self, devices=("meta", "cuda")):
+    def __init__(self):
         super().__init__()
-        self.devices = tuple(devices)
         self.flops = 0.0
         self.bytes = 0.0
         self.transcendentals = 0.0
@@ -107,14 +111,23 @@ class CostCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self._live: Dict[int, int] = {}
 
+    def __enter__(self):
+        super().__enter__()
+        COUNTERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        COUNTERS.remove(self)
+        return super().__exit__(*exc)
+
     # ---- kernel charges (kernels._launch.charge) ----
-    def charge_kernel(self, name: str, flops: float, nbytes: float) -> None:
+    def charge_kernel(self, name: str, cost: Cost) -> None:
         row = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
         row["calls"] += 1
-        row["flops"] += flops
-        row["bytes"] += nbytes
-        self.flops += flops
-        self.bytes += nbytes
+        row["flops"] += cost.flops
+        row["bytes"] += cost.bytes
+        self.flops += cost.flops
+        self.bytes += cost.bytes
 
     # ---- live storages ----
     def _free(self, key: int) -> None:
@@ -122,7 +135,7 @@ class CostCounter(TorchDispatchMode):
 
     def _track(self, out) -> None:
         for t in _tensors(out):
-            if t.device.type not in self.devices:
+            if t.device.type not in _TRACKED:
                 continue
             storage = t.untyped_storage()
             key = id(storage)

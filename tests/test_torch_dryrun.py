@@ -424,10 +424,8 @@ def test_meta_key_plans_the_cards_route():
         y = xfft.fft2(x)
     assert y.shape == x.shape and y.device.type == "meta"
     assert counter.kernels == {
-        "fft_fused": {"calls": 1, "flops": fr.fft_cost(8 * 2048, 512)[0],
-                      "bytes": fr.fft_cost(8 * 2048, 512)[1]},
-        "fft2_columns": {"calls": 1, "flops": fr.fft2_columns_cost(8, 2048, 512)[0],
-                         "bytes": fr.fft2_columns_cost(8, 2048, 512)[1]}}
+        "fft_fused": {"calls": 1, **fr.fft_cost(8 * 2048, 512)._asdict()},
+        "fft2_columns": {"calls": 1, **fr.fft2_columns_cost(8, 2048, 512)._asdict()}}
 
 
 # ------------------------------ cost formulas ------------------------------
@@ -438,7 +436,7 @@ def test_cost_formulas_give_perf_md_bounds():
     over 3.35 TB/s, operations over 67 TFLOP/s (flash: 165, a third of
     dense TF32), to the digits the table prints."""
     def ms(cost, rate=67e12):
-        return max(cost[1] / 3.35e12, cost[0] / rate) * 1e3
+        return max(cost.bytes / 3.35e12, cost.flops / rate) * 1e3
 
     for got, table in ((ms(fa.fwd_cost(24, 4096, 4096, 128, 128), 165e12), 0.625),
                        (ms(fa.fwd_cost(24, 4096, 8192, 128, 128, q_offset=4096), 165e12), 1.874),
@@ -467,6 +465,25 @@ def test_counter_rules():
         del y
     assert c.flops == 2 * 20 * 6 + 20 and c.transcendentals == 20
     assert c.bytes == 2 * 80 + 2 * 80 and c.peak_bytes == 160
+
+
+def test_charge_computes_a_cost_only_under_a_counter():
+    """A kernel call outside a counter computes no cost; nested counters
+    each get the charge once, and leave the registry as they found it."""
+    calls = []
+
+    def cost(*args, **kwargs):
+        calls.append((args, kwargs))
+        return _launch.Cost(flops=3.0, bytes=8.0)
+
+    _launch.charge("fft_fused", cost, 2, n=4)
+    assert calls == [] and _launch.COUNTERS == []
+    with CostCounter() as outer, CostCounter() as inner:
+        _launch.charge("fft_fused", cost, 2, n=4)
+    assert calls == [((2,), {"n": 4})] and _launch.COUNTERS == []
+    for c in (outer, inner):
+        assert c.kernels == {"fft_fused": {"calls": 1, "flops": 3.0, "bytes": 8.0}}
+        assert (c.flops, c.bytes) == (3.0, 8.0)
 
 
 # ------------------------------ roofline, report, moe ------------------------------
