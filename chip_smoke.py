@@ -616,6 +616,13 @@ STAGED = (8192, 2048)
 # on (512, 128, 65); printed beside this run's.
 STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "irfft_fused": 0.1056,
                      "fft2_fused": 0.1313, "rfft2_fused": 0.0725, "irfft2_fused": 0.0776}
+# The same for the radix-2 fft_fused and rfft_fused on (8192, 2048), which
+# ran the stage-at-a-time panel until their register passes, as PERF.md §6
+# records them (NVIDIA H100 80GB HBM3, 700.00 W).
+STAGE_PANEL_R2_MS = {"fft_fused": 0.3892, "rfft_fused": 0.2101}
+# The register-pass instances of fft_fused and rfft_fused in the build log,
+# one a line length and radix: (log2 n, radix) and (log2 m, radix).
+ROW_PASS_ENTRIES = {"fft_fused": "15fft_regs_kernel", "rfft_fused": "16rfft_regs_kernel"}
 # Non-square frames of the whole-frame kernels: wide complex frames
 # (line-scan tiles) and tall real ones.
 FRAME_WIDE = (1024, 64, 256)
@@ -958,6 +965,8 @@ def kernel_phase(torch, k, card: str):
                 line["ptxas"] = ptxas_entries(_build.build_log(), ROW_REGS_ENTRIES[name]).get(
                     ((n // 2).bit_length() - 1,))
             emit(line)
+            if name in ROW_PASS_ENTRIES:
+                radix2_rows(torch, k, name, rows[name], crandn, gen)
         elif name in FRAME_REGS_ENTRIES:
             frame_line(name, x.shape, r4["ms"], rows[name]["library_ms"], bound_ms)
         elif name == COLUMNS:
@@ -966,6 +975,61 @@ def kernel_phase(torch, k, card: str):
         torch.cuda.empty_cache()
     non_square_frames(torch, k, card, rows, crandn, gen)
     return rows
+
+
+def radix2_rows(torch, k, name, row, crandn, gen):
+    """The radix-2 register-pass kernel's design line (passes, exchanges
+    and barriers a row; ptxas's registers and spills of each instance, 0
+    spilled the gate; the recorded stage-panel time beside this run's, the
+    library's and the bound), then the kernel against its plain version at
+    every one-block length n = 2 ... 2^14 (fft_fused forward and inverse),
+    on a batch that leaves the last row tile masked wherever a tile holds
+    more than one row; the worst error joins the kernel's row."""
+    from repro_torch.kernels import _build
+
+    b, n = row["shape"]
+    real = name == "rfft_fused"
+    line_len = n // 2 if real else n
+    instances = {args[0]: v for args, v in
+                 ptxas_entries(_build.build_log(), ROW_PASS_ENTRIES[name]).items()
+                 if len(args) == 2 and args[1] == 2}
+    want = range(0, 14) if real else range(1, 15)
+    spilled = {lg: v for lg, v in instances.items() if v.get("spill_stores")}
+    line = {"phase": "kernel", "kernel": name, "design": "register passes (radix 2)",
+            "shape": [b, n], "passes": list(k.regpass_radices(line_len)),
+            "passes_per_row": len(k.regpass_radices(line_len)),
+            "exchanges_per_row": k.regpass_exchanges(n, real=real, radix=2),
+            "barriers_per_row": k.regpass_barriers(n, real=real, radix=2),
+            "mirror_bins_paired_in_registers": (k.rfft_pairs_in_registers(line_len)
+                                                if real else None),
+            "ptxas": {str(lg): instances[lg] for lg in sorted(instances)},
+            "ms": row["by_radix"]["2"]["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R2_MS[name],
+            "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]}
+    emit(line)
+    if sorted(instances) != list(want):
+        raise AssertionError(f"{name} radix 2: instances {sorted(instances)} in the build log, "
+                             f"want log2 lengths {list(want)}")
+    if spilled:
+        raise AssertionError(f"{name} radix 2: instances spill registers: {spilled}")
+    worst = 0.0
+    for p in range(1, 15):
+        m = 2 ** p
+        tile = k.pick_row_tile(1 << 30, m // 2 if real else m)
+        batch = 2 * tile - 1 if tile > 1 else 3
+        if real:
+            x = torch.randn(batch, m, generator=gen, device="cuda")
+            errs = [rel_err(k.rfft_fused(x, radix=2), k.rfft_fused_plain(x, radix=2))]
+        else:
+            x = crandn(batch, m)
+            errs = [rel_err(k.fft_fused(x, radix=2, inverse=inv),
+                            k.fft_fused_plain(x, radix=2, inverse=inv)) for inv in (False, True)]
+        worst = max(worst, *errs)
+        if not max(errs) <= TOL_KERNEL:
+            raise AssertionError(f"{name} radix 2 at n {m}, batch {batch}: rel err {max(errs)} "
+                                 f"> {TOL_KERNEL}")
+    emit({"phase": "kernel", "kernel": name, "radix": 2, "every_length": [2, 2 ** 14],
+          "rel_err": worst})
+    row["rel_err"] = max(row["rel_err"], worst)
 
 
 def frame_line(name, shape, ms, library_ms, bound_ms):

@@ -34,9 +34,14 @@
 // up to 4096 values in the census's tiles) may use more than the 64
 // registers a thread of a 1024-thread block has.
 //
-// Radix 2: the block stages its rows in shared memory, runs every Stockham
-// stage there (stockham.cuh), and stores once; irfft_fused untangles on the
-// way in.
+// Radix 2: fft_fused and rfft_fused run the same passes, each doing its four
+// (or fewer) radix-2 Stockham stages in registers (regs::r2_layers): the
+// butterflies and twiddles of the stage-at-a-time panel, a 2048-point row in
+// three passes, two exchanges and three barriers where the stage panel took
+// eleven stages and 22 barriers. rfft_fused recombines as at radix 4, its
+// W_{2m}^k by sincospif. irfft_fused at radix 2 stages its rows in shared
+// memory, untangling on the way in, runs every Stockham stage there
+// (stockham.cuh) and stores once.
 #include <cuda_runtime.h>
 
 #include <utility>
@@ -47,86 +52,20 @@
 namespace repro {
 namespace {
 
-// out = conj_out(panel(conj_in(x))) * scale, rows of length n = 2^log_n.
-template <int RADIX>
-__global__ void __launch_bounds__(kMaxThreads)
-fft_fused_kernel(const float2* __restrict__ x,
-    float2* __restrict__ y,
-    int batch,
-    int log_n,
-    int log_rows,
-    int conj,
-    float scale) {
-  extern __shared__ float2 smem[];
-  const int n = 1 << log_n;
-  const int P = n << log_rows;
-  float2* buf = smem;
-  float2* rom = smem + P;
-  build_rom(rom, n >> 1, n);
-  const long long base = static_cast<long long>(blockIdx.x) * P;
-  const long long total = static_cast<long long>(batch) * n;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const long long g = base + i;
-    float2 v = g < total ? x[g] : make_float2(0.f, 0.f);
-    buf[i] = conj ? cconj(v) : v;
-  }
-  __syncthreads();
-  const Lines lines{buf, log_n, log_rows, n, 1, false};
-  stockham_panel<RADIX>(lines, rom, log_n);
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const long long g = base + i;
-    if (g < total) {
-      const float2 v = buf[i];
-      y[g] = make_float2(v.x * scale, (conj ? -v.y : v.y) * scale);
-    }
-  }
-}
-
-// x: (B, 2m) reals read as (B, m) packed complex; y: (B, m+1) complex.
-template <int RADIX>
-__global__ void __launch_bounds__(kMaxThreads)
-rfft_fused_kernel(const float2* __restrict__ x,
-    float2* __restrict__ y,
-    int batch,
-    int log_m,
-    int log_rows) {
-  extern __shared__ float2 smem[];
-  const int m = 1 << log_m;
-  const int P = m << log_rows;
-  float2* buf = smem;
-  float2* rom = smem + P;  // W_{2m}^j, j <= m: the panel's and the recombination's
-  build_rom(rom, m + 1, 2 * m);
-  const long long base = static_cast<long long>(blockIdx.x) * P;
-  const long long total = static_cast<long long>(batch) * m;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const long long g = base + i;
-    buf[i] = g < total ? x[g] : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-  const Lines lines{buf, log_m, log_rows, m, 1, false};
-  stockham_panel<RADIX>(lines, rom, log_m + 1);
-  const int out_w = m + 1;
-  const long long row0 = static_cast<long long>(blockIdx.x) << log_rows;
-  for (int i = threadIdx.x; i < (out_w << log_rows); i += blockDim.x) {
-    const int line = i / out_w;
-    const int k = i - line * out_w;
-    if (row0 + line < batch) {
-      y[(row0 + line) * out_w + k] = rfft_recombine(buf + line * m, m, k, rom[k]);
-    }
-  }
-}
-
 // Threads a register-pass block may have on lines of 2^log_n values: the
 // census's tiles hold at most 4096 values (256 threads) unless one line is
-// longer.
+// longer. fft_regs_kernel and rfft_regs_kernel also name one block an SM as
+// their minimum: without it ptxas held several instances to 64 registers
+// and spilled.
 __host__ __device__ constexpr int regs_max_threads(int log_n) {
   return log_n > 12 ? (1 << log_n) / regs::kValues : 256;
 }
 
-// Radix 4: fft_fused on the register-pass panel, rows of n = 2^LOG_N,
-// HBM -> registers -> HBM. out = conj_out(panel(conj_in(x))) * scale.
-template <int LOG_N>
-__global__ void __launch_bounds__(regs_max_threads(LOG_N))
+// fft_fused on the register-pass panel, rows of n = 2^LOG_N, HBM ->
+// registers -> HBM, its passes' layers of radix RADIX (regs::pass).
+// out = conj_out(panel(conj_in(x))) * scale.
+template <int LOG_N, int RADIX>
+__global__ void __launch_bounds__(regs_max_threads(LOG_N), 1)
 fft_regs_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
     int batch,
@@ -139,7 +78,7 @@ fft_regs_kernel(const float2* __restrict__ x,
   regs::build_rom(rom, 1 << (LOG_N - 1));
   const regs::HbmRows<LOG_N> rows{x, y, static_cast<long long>(blockIdx.x) << log_rows, batch,
                                   conj, scale};
-  regs::panel<LOG_N, LOG_N - 1>(smem, P, rom, rows, rows);
+  regs::panel<LOG_N, LOG_N - 1, RADIX>(smem, P, rom, rows, rows);
 }
 
 // True where rfft_fused's last pass pairs mirror groups in registers: a
@@ -173,9 +112,11 @@ __device__ __forceinline__ void twiddle_pair(float2* va, float2* vb, const float
 // plain here (after a middle pass), so group p's inputs t + j l and group
 // l - p's, 16 consecutive values descending across a half-warp, each fall
 // in 16 bank pairs (lane p = 0's l/2 + j l in the one the others leave).
-// Twiddles: W_{R l}^{j p} from the ROM; group l - p's are W_R^j conj of
-// those, group l/2's the constants W_{2R}^j.
-template <int LOG_M>
+// Radix 4: twiddles W_{R l}^{j p} from the ROM; group l - p's are W_R^j
+// conj of those, group l/2's the constants W_{2R}^j; w from the ROM.
+// Radix 2: each group runs regs::r2_layers on its own k (its twiddles from
+// the ROM), and w comes from sincospif (regs::w_2m).
+template <int LOG_M, int RADIX>
 __device__ __forceinline__ void rfft_last_pass_paired(const float2* buf, const float2* rom,
                                                       float2* __restrict__ y, long long row0,
                                                       int batch) {
@@ -200,16 +141,21 @@ __device__ __forceinline__ void rfft_last_pass_paired(const float2* buf, const f
       va[j] = in_a[j * l];
       vb[j] = in_b[j * l];
     }
-    twiddle_pair<R>(va, vb, rom, p << kShift, m, p == 0);
-    dft<R>(va);
-    dft<R>(vb);
+    if constexpr (RADIX == 2) {
+      r2_layers<LR>(va, p, LOG_L, LOG_M, rom);
+      r2_layers<LR>(vb, p == 0 ? l / 2 : l - p, LOG_L, LOG_M, rom);
+    } else {
+      twiddle_pair<R>(va, vb, rom, p << kShift, m, p == 0);
+      dft<R>(va);
+      dft<R>(vb);
+    }
     if (row0 + line < batch) {
       float2* out = y + (row0 + line) * (m + 1);
 #pragma unroll
       for (int c = 0; c < R; ++c) {
         const float2 za = va[out_reg<R>(c)];
         const float2 zm = p == 0 ? va[out_reg<R>((R - c) % R)] : vb[out_reg<R>(R - 1 - c)];
-        const float2 w = rom[slot(p) + c * padded(l)];
+        const float2 w = RADIX == 2 ? w_2m(p + c * l, m) : rom[slot(p) + c * padded(l)];
         const float2 xe = make_float2(0.5f * (za.x + zm.x), 0.5f * (za.y - zm.y));
         const float2 xo = make_float2(0.5f * (za.y + zm.y), -0.5f * (za.x - zm.x));
         const float2 tw = cmul(w, xo);
@@ -218,8 +164,9 @@ __device__ __forceinline__ void rfft_last_pass_paired(const float2* buf, const f
           out[m - p - c * l] = cconj(csub(xe, tw));
         } else {
           const float2 zb = vb[out_reg<R>(c)];
-          out[l / 2 + c * l] = recombine(zb, cconj(vb[out_reg<R>(R - 1 - c)]),
-                                         rom[slot(l / 2 + c * l)]);
+          out[l / 2 + c * l] = recombine(
+              zb, cconj(vb[out_reg<R>(R - 1 - c)]),
+              RADIX == 2 ? w_2m(l / 2 + c * l, m) : rom[slot(l / 2 + c * l)]);
         }
       }
       if (p == 0) out[m] = recombine(va[0], cconj(va[0]), make_float2(-1.f, 0.f));
@@ -227,13 +174,14 @@ __device__ __forceinline__ void rfft_last_pass_paired(const float2* buf, const f
   }
 }
 
-// Radix 4: rfft_fused on the register-pass panel. x: (B, 2m) reals read as
-// (B, m) packed complex, m = 2^LOG_M; y: (B, m+1), Y[k] = Xe + W_{2m}^k Xo
-// from z[k] and conj z[m-k]. Where rfft_pairs_in_registers the last pass
-// recombines in registers; elsewhere it leaves the half spectrum z in
-// shared memory and the recombination reads it back.
-template <int LOG_M>
-__global__ void __launch_bounds__(regs_max_threads(LOG_M))
+// rfft_fused on the register-pass panel, its layers of radix RADIX. x: (B,
+// 2m) reals read as (B, m) packed complex, m = 2^LOG_M; y: (B, m+1),
+// Y[k] = Xe + W_{2m}^k Xo from z[k] and conj z[m-k]. Where
+// rfft_pairs_in_registers the last pass recombines in registers; elsewhere
+// it leaves the half spectrum z in shared memory and the recombination
+// reads it back. W_{2m}^k from the ROM at radix 4, by sincospif at radix 2.
+template <int LOG_M, int RADIX>
+__global__ void __launch_bounds__(regs_max_threads(LOG_M), 1)
 rfft_regs_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
     int batch,
@@ -248,8 +196,8 @@ rfft_regs_kernel(const float2* __restrict__ x,
   const long long row0 = static_cast<long long>(blockIdx.x) << log_rows;
   const regs::HbmRows<LOG_M> rows{x, nullptr, row0, batch, 0, 1.f};
   if constexpr (rfft_pairs_in_registers(LOG_M)) {
-    regs::panel_head<LOG_M, LOG_M>(buf, P, rom, rows);
-    rfft_last_pass_paired<LOG_M>(buf, rom, y, row0, batch);
+    regs::panel_head<LOG_M, LOG_M, RADIX>(buf, P, rom, rows);
+    rfft_last_pass_paired<LOG_M, RADIX>(buf, rom, y, row0, batch);
     return;
   }
   // The half spectrum in shared memory: plain after two or more passes,
@@ -259,7 +207,7 @@ rfft_regs_kernel(const float2* __restrict__ x,
   // address) rather than wrap round to z[0], so the mirrored reads of a
   // half-warp stay consecutive.
   using Lines = regs::SmemLines<LOG_M, regs::pass_count(LOG_M) == 1>;
-  regs::panel<LOG_M, LOG_M>(buf, P, rom, rows, Lines{buf});
+  regs::panel<LOG_M, LOG_M, RADIX>(buf, P, rom, rows, Lines{buf});
   __syncthreads();
   for (int it = threadIdx.x; it < P; it += blockDim.x) {
     const int line = it >> LOG_M;
@@ -269,7 +217,7 @@ rfft_regs_kernel(const float2* __restrict__ x,
     const float2 zm = cconj(k == 0 ? zk : zr);
     if (row0 + line < batch) {
       float2* out = y + (row0 + line) * (m + 1);
-      const float2 w = rom[slot(k)];
+      const float2 w = RADIX == 2 ? regs::w_2m(k, m) : rom[slot(k)];
       out[k] = regs::recombine(zk, zm, w);
       if (k == 0) out[m] = regs::recombine(zk, zm, make_float2(-w.x, -w.y));
     }
@@ -279,21 +227,22 @@ rfft_regs_kernel(const float2* __restrict__ x,
 using FftRegsKernel = void (*)(const float2*, float2*, int, int, int, float);
 using RfftRegsKernel = void (*)(const float2*, float2*, int, int);
 
-// One instance per line length: fft_fused on 2 ... 2^14, rfft_fused and
-// irfft_fused on half rows of 1 ... 2^13 (the one-block rows of the census).
+// One instance per line length and radix: fft_fused on 2 ... 2^14,
+// rfft_fused and irfft_fused on half rows of 1 ... 2^13 (the one-block rows
+// of the census).
 constexpr int kRegsMaxLog = 14;
 
-template <int... I>
+template <int RADIX, int... I>
 FftRegsKernel fft_regs_kernel_for(int log_n, std::integer_sequence<int, I...>) {
   FftRegsKernel kernel = nullptr;
-  ((log_n == I + 1 ? (kernel = fft_regs_kernel<I + 1>, 0) : 0), ...);
+  ((log_n == I + 1 ? (kernel = fft_regs_kernel<I + 1, RADIX>, 0) : 0), ...);
   return kernel;
 }
 
-template <int... I>
+template <int RADIX, int... I>
 RfftRegsKernel rfft_regs_kernel_for(int log_m, std::integer_sequence<int, I...>) {
   RfftRegsKernel kernel = nullptr;
-  ((log_m == I ? (kernel = rfft_regs_kernel<I>, 0) : 0), ...);
+  ((log_m == I ? (kernel = rfft_regs_kernel<I, RADIX>, 0) : 0), ...);
   return kernel;
 }
 
@@ -421,22 +370,15 @@ extern "C" int repro_fft_fused(const void* x, void* y, int batch, int n, int rad
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const float2*>(x);
   auto* out = static_cast<float2*>(y);
-  if (radix == 4) {
-    if (n > (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
-    if (!repro::regs::geometry_ok(n * rows, threads, smem, n / 2))
-      return cudaErrorInvalidConfiguration;
-    const auto kernel = repro::fft_regs_kernel_for(
-        host_log2(n), std::make_integer_sequence<int, repro::kRegsMaxLog>{});
-    cudaError_t err = repro::prepare(kernel, device, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows), conj, scale);
-    return cudaGetLastError();
-  }
-  if (!geometry_ok(n * rows, threads, smem, n / 2)) return cudaErrorInvalidConfiguration;
-  const auto kernel = repro::fft_fused_kernel<2>;
+  if (n > (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
+  if (!repro::regs::geometry_ok(n * rows, threads, smem, n / 2))
+    return cudaErrorInvalidConfiguration;
+  constexpr auto lengths = std::make_integer_sequence<int, repro::kRegsMaxLog>{};
+  const auto kernel = radix == 4 ? repro::fft_regs_kernel_for<4>(host_log2(n), lengths)
+                                 : repro::fft_regs_kernel_for<2>(host_log2(n), lengths);
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(n), host_log2(rows), conj, scale);
+  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows), conj, scale);
   return cudaGetLastError();
 }
 
@@ -449,22 +391,14 @@ extern "C" int repro_rfft_fused(const void* x, void* y, int batch, int n, int ra
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const float2*>(x);
   auto* out = static_cast<float2*>(y);
-  if (radix == 4) {
-    if (m >= (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
-    if (!repro::regs::geometry_ok(m * rows, threads, smem, m))
-      return cudaErrorInvalidConfiguration;
-    const auto kernel = repro::rfft_regs_kernel_for(
-        host_log2(m), std::make_integer_sequence<int, repro::kRegsMaxLog>{});
-    cudaError_t err = repro::prepare(kernel, device, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows));
-    return cudaGetLastError();
-  }
-  if (!geometry_ok(m * rows, threads, smem, m + 1)) return cudaErrorInvalidConfiguration;
-  const auto kernel = repro::rfft_fused_kernel<2>;
+  if (m >= (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
+  if (!repro::regs::geometry_ok(m * rows, threads, smem, m)) return cudaErrorInvalidConfiguration;
+  constexpr auto lengths = std::make_integer_sequence<int, repro::kRegsMaxLog>{};
+  const auto kernel = radix == 4 ? repro::rfft_regs_kernel_for<4>(host_log2(m), lengths)
+                                 : repro::rfft_regs_kernel_for<2>(host_log2(m), lengths);
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(m), host_log2(rows));
+  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows));
   return cudaGetLastError();
 }
 

@@ -4,10 +4,13 @@
 // frame's rows and its columns, the radix-4 fft2_fused, rfft2_fused and
 // irfft2_fused (the "whole frames" section below), and, over a panel of
 // columns of a frame in HBM, the radix-4 fft2_columns (fft2_columns.cu).
+// The radix-2 fft_fused and rfft_fused run the same passes with radix-2
+// layers in registers (r2_layers below).
 //
-// Replaces the in-VMEM radix-4 panel of src/repro/kernels/fft_radix2.py
-// (_stockham_panel_r4) for those kernels; stockham.cuh's stage-at-a-time
-// panel stays for the others.
+// Replaces the in-VMEM panels of src/repro/kernels/fft_radix2.py
+// (_stockham_panel_r4, and _stockham_panel for the radix-2 fft_fused and
+// rfft_fused) for those kernels; stockham.cuh's stage-at-a-time panel stays
+// for the others.
 //
 // A row is factored into passes of 16 values: 16 * 16 * ... * r, with the
 // last pass taking what is left (r = 8: one radix-2 and one radix-4 layer,
@@ -20,12 +23,16 @@
 // the Stockham position q R l + c l + k. Each thread holds 16 values: one
 // group of 16, or 16/R groups of a smaller radix. So a pass costs one read
 // and one write of the block's values, where a stage-at-a-time radix-4
-// panel costs one of each per two butterfly layers.
+// panel costs one of each per two butterfly layers. The radix-2 kernels run
+// the same passes with the pass's log2 R radix-2 Stockham stages in
+// registers in place of the DFT and its input twiddles (r2_layers).
 //
 // The first pass loads from HBM (l = 1: no twiddles, so the ROM is not read
 // before the first barrier; irfft_fused's untangle takes its twiddles from
-// sincospif, w_2m); fft_fused's last pass stores to HBM, at t + c n/R,
-// coalesced (rfft_fused's recombines first, fft_fused.cu).
+// sincospif, w_2m; a radix-2 first pass reads its constant twiddles from the
+// ROM after a barrier that follows its loads); fft_fused's last pass stores
+// to HBM, at t + c n/R, coalesced (rfft_fused's recombines first,
+// fft_fused.cu).
 // Between passes the values go through shared memory in place: read,
 // barrier, compute, write, barrier.
 //
@@ -42,6 +49,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <utility>
 
 #include "stockham.cuh"
 
@@ -230,14 +239,18 @@ struct HbmRows {
   int conj;
   float scale;
 
+  // The conjugation is a product by -1 or 1, not a select on `conj`, which
+  // ptxas split into two copies of a first pass's loads: the 16384-point
+  // rows' instances then spilled under their 64 registers.
   template <int R>
   __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
     ok = ok && row0 + line < batch;
     const float2* p = x + ((row0 + line) << LOG_N) + t;
+    const float sign = conj ? -1.f : 1.f;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const float2 a = ok ? p[j * s] : make_float2(0.f, 0.f);
-      v[j] = conj ? cconj(a) : a;
+      v[j] = make_float2(a.x, a.y * sign);
     }
   }
 
@@ -277,18 +290,96 @@ struct Lanes {
   }
 };
 
+// The lowest `bits` bits of v in reverse order.
+__host__ __device__ constexpr int bit_reverse(int v, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((v >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+
+// bit_reverse as a compile-time constant.
+template <int V, int BITS>
+constexpr int kBitReverse = bit_reverse(V, BITS);
+
+// The butterflies of stage S of r2_layers at top bits H: the values whose
+// register indices differ by D = R/2^(S+1) are paired, a +- W b, W =
+// W_{2l'}^{k'} at l' = l 2^S and k' = k + l C, C the bit reversal of H (the
+// group's outputs of the earlier stages). Every register index and C are
+// template constants.
+template <int LR, int S, int H>
+__device__ __forceinline__ void r2_butterflies(float2* v, int k, int log_l, int log_half,
+                                               const float2* rom) {
+  constexpr int D = (1 << LR) >> (S + 1);
+  constexpr int C = kBitReverse<H, S>;
+  const bool one = C == 0 && log_l == 0;  // W = 1
+  // e = (k + l C) half / l' = ek + ec: where ec is a multiple of 16, slot(e)
+  // = slot(ek) + padded(ec), one address a stage and a constant offset.
+  const int ek = k << (log_half - log_l - S);
+  const int ec = C << (log_half - S);
+  const float2 w = one ? make_float2(1.f, 0.f)
+                       : rom[(ec & 15) == 0 ? slot(ek) + padded(ec) : slot(ek + ec)];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    float2& a = v[2 * D * H + j];
+    float2& b = v[2 * D * H + j + D];
+    const float2 tb = one ? b : cmul(b, w);
+    b = csub(a, tb);
+    a = cadd(a, tb);
+  }
+}
+
+// Stages S ... LR-1 of r2_layers, stage S's 2^S twiddles one H each.
+template <int LR, int S, int... H>
+__device__ __forceinline__ void r2_stages(float2* v, int k, int log_l, int log_half,
+                                          const float2* rom, std::integer_sequence<int, H...>) {
+  (r2_butterflies<LR, S, H>(v, k, log_l, log_half, rom), ...);
+  if constexpr (S + 1 < LR)
+    r2_stages<LR, S + 1>(v, k, log_l, log_half, rom, std::make_integer_sequence<int, 2 << S>{});
+}
+
+// Output c from register bit_reverse(c) to out_reg<R>(c).
+template <int LR, int... C>
+__device__ __forceinline__ void r2_reorder(float2* v, std::integer_sequence<int, C...>) {
+  const float2 o[] = {v[kBitReverse<C, LR>]...};
+  ((v[out_reg<1 << LR>(C)] = o[C]), ...);
+}
+
+// The radix-2 arithmetic of a pass: the LR radix-2 Stockham stages that the
+// stage-at-a-time panel (stockham.cuh, radix2_stage) runs over half-spans
+// l, 2l, ..., l R/2, done on group t's R values in registers
+// (r2_butterflies): stage S takes 2^S twiddles, 15 in a pass of 16. The
+// same butterflies with the same twiddles in the same stage order as the
+// stage panel; only where each value sits between stages differs. The
+// twiddles are the ROM's, W_{2 half}^e at e = k' half / l' (never past the
+// half turn), none where W = 1; a first pass (l = 1, k = 0) reads the same
+// constants for every group, one broadcast each, after the barrier that
+// follows its loads (pass). Output c ends in register bit_reverse(c); it is
+// moved to out_reg<R>(c), where `write` takes it (renaming registers, no
+// instruction).
+template <int LR>
+__device__ __forceinline__ void r2_layers(float2* v, int k, int log_l, int log_half,
+                                          const float2* rom) {
+  if constexpr (LR > 0) {
+    r2_stages<LR, 0>(v, k, log_l, log_half, rom, std::make_integer_sequence<int, 1>{});
+    r2_reorder<LR>(v, std::make_integer_sequence<int, 1 << LR>{});
+  }
+}
+
 // One register pass of radix 2^LR over span 2^log_l on the block's lines of
 // 2^log_n values (P values in all), the groups mapped to threads by
-// `lanes`. Group t of a line reads in[t + j n/R], multiplies by
-// W_{R l}^{j k} from the ROM (W_{2 half}^j, j < half = 2^log_half), runs
-// the R-point DFT and writes out[q R l + c l + k]. A pass that reads and
-// writes shared memory does it in place: it synchronises between its reads
-// and its writes. The one-block and cluster kernels pass compile-time
-// geometry; the frame kernels' may be runtime values.
-template <int LR, bool COLS, class Src, class Dst>
+// `lanes`. Group t of a line reads in[t + j n/R]; at RADIX 4 it multiplies
+// by W_{R l}^{j k} from the ROM (W_{2 half}^j, j < half = 2^log_half) and
+// runs the R-point DFT, at RADIX 2 it runs r2_layers; then it writes
+// out[q R l + c l + k]. A pass that reads and writes shared memory does it
+// in place: it synchronises between its reads and its writes, and so does
+// a radix-2 first pass of more than one layer, which reads the ROM. The
+// one-block and cluster kernels pass compile-time geometry; the frame
+// kernels' may be runtime values.
+template <int LR, int RADIX = 4, bool COLS, class Src, class Dst>
 __device__ __forceinline__ void pass(int P, int log_n, int log_l, int log_half,
                                      const Lanes<COLS>& lanes, const float2* rom, const Src& src,
                                      const Dst& dst) {
+  static_assert(RADIX == 2 || RADIX == 4, "radix-2 or radix-4 layers");
   constexpr int R = 1 << LR;
   constexpr int G = kValues / R;
   const int log_s = log_n - LR;  // n/R groups per line
@@ -301,7 +392,13 @@ __device__ __forceinline__ void pass(int P, int log_n, int log_l, int log_half,
     lanes.split(g, log_s, line, t);
     src.template read<R>(line, t, 1 << log_s, v + i * R, g < groups);
   }
-  if constexpr (Src::kShared && Dst::kShared) __syncthreads();
+  // In place, or (radix 2) a first pass, whose twiddles are the ROM's
+  // constants: the ROM is written before the panel and read after this.
+  if constexpr (Src::kShared && Dst::kShared) {
+    __syncthreads();
+  } else if constexpr (RADIX == 2 && LR > 1) {
+    if (log_l == 0) __syncthreads();
+  }
   const int l = 1 << log_l;
 #pragma unroll
   for (int i = 0; i < G; ++i) {
@@ -309,14 +406,18 @@ __device__ __forceinline__ void pass(int P, int log_n, int log_l, int log_half,
     int line, t;
     lanes.split(g, log_s, line, t);
     const int k = t & (l - 1);
-    if (log_l > 0) {
-      // W_{R l}^{j k} = W_{2 half}^{j e1}, e1 = k << (log_half + 1 - LR - log_l)
-      const int e1 = k << (log_half + 1 - LR - log_l);
+    if constexpr (RADIX == 2) {
+      r2_layers<LR>(v + i * R, k, log_l, log_half, rom);
+    } else {
+      if (log_l > 0) {
+        // W_{R l}^{j k} = W_{2 half}^{j e1}, e1 = k << (log_half + 1 - LR - log_l)
+        const int e1 = k << (log_half + 1 - LR - log_l);
 #pragma unroll
-      for (int j = 1; j < R; ++j)
-        v[i * R + j] = cmul(v[i * R + j], rom_twiddle(rom, j * e1, 1 << log_half));
+        for (int j = 1; j < R; ++j)
+          v[i * R + j] = cmul(v[i * R + j], rom_twiddle(rom, j * e1, 1 << log_half));
+      }
+      dft<R>(v + i * R);
     }
-    dft<R>(v + i * R);
     dst.template write<R>(line, ((t >> log_l) << (log_l + LR)) + k, l, v + i * R, g < groups);
   }
 }
@@ -330,22 +431,23 @@ using LastLines = SmemLines<LOG_N, pass_count(LOG_N) == 2>;
 // pass -> padded shared memory -> middle passes of 16 in place, the first
 // of them rewriting the lines unpadded, ending on a barrier, so that the
 // last pass may read LastLines. The caller writes the ROM before the call:
-// it is read only after the first barrier.
-template <int LOG_N, int LOG_HALF, class Src>
+// it is read only after the first barrier. RADIX: the passes' layers
+// (pass).
+template <int LOG_N, int LOG_HALF, int RADIX = 4, class Src>
 __device__ __forceinline__ void panel_head(float2* buf, int P, const float2* rom, const Src& src) {
   constexpr int NP = pass_count(LOG_N);
   static_assert(NP >= 2 && NP <= 4, "lines of 2^5 to 2^16 values");
   const SmemLines<LOG_N, true> padded_lines{buf};
   const SmemLines<LOG_N, false> lines{buf};
   const Lanes<false> rows{};
-  pass<4>(P, LOG_N, 0, LOG_HALF, rows, rom, src, padded_lines);
+  pass<4, RADIX>(P, LOG_N, 0, LOG_HALF, rows, rom, src, padded_lines);
   if constexpr (NP >= 3) {
     __syncthreads();
-    pass<4>(P, LOG_N, 4, LOG_HALF, rows, rom, padded_lines, lines);
+    pass<4, RADIX>(P, LOG_N, 4, LOG_HALF, rows, rom, padded_lines, lines);
   }
   if constexpr (NP >= 4) {
     __syncthreads();
-    pass<4>(P, LOG_N, 8, LOG_HALF, rows, rom, lines, lines);
+    pass<4, RADIX>(P, LOG_N, 8, LOG_HALF, rows, rom, lines, lines);
   }
   __syncthreads();
 }
@@ -354,16 +456,16 @@ __device__ __forceinline__ void panel_head(float2* buf, int P, const float2* rom
 // when one pass does the line). With dst in shared memory (rfft_fused) the
 // last pass is in place too, and the caller synchronises before reading the
 // result: unpadded after two or more passes, padded after a single one.
-template <int LOG_N, int LOG_HALF, class Src, class Dst>
+template <int LOG_N, int LOG_HALF, int RADIX = 4, class Src, class Dst>
 __device__ __forceinline__ void panel(float2* buf, int P, const float2* rom, const Src& src,
                                       const Dst& dst) {
   constexpr int NP = pass_count(LOG_N);
   if constexpr (NP == 1) {
-    pass<LOG_N>(P, LOG_N, 0, LOG_HALF, Lanes<false>{}, rom, src, dst);
+    pass<LOG_N, RADIX>(P, LOG_N, 0, LOG_HALF, Lanes<false>{}, rom, src, dst);
   } else {
-    panel_head<LOG_N, LOG_HALF>(buf, P, rom, src);
-    pass<last_log_radix(LOG_N)>(P, LOG_N, 4 * (NP - 1), LOG_HALF, Lanes<false>{}, rom,
-                                LastLines<LOG_N>{buf}, dst);
+    panel_head<LOG_N, LOG_HALF, RADIX>(buf, P, rom, src);
+    pass<last_log_radix(LOG_N), RADIX>(P, LOG_N, 4 * (NP - 1), LOG_HALF, Lanes<false>{}, rom,
+                                       LastLines<LOG_N>{buf}, dst);
   }
 }
 
@@ -576,7 +678,8 @@ __device__ __forceinline__ float2 recombine(float2 z, float2 zm, float2 w) {
 
 // W_{2m}^k = exp(-pi i k / m) by sincospif: the ROM's entry bit for bit (the
 // same float argument), for a first pass, which runs before the first
-// barrier and so before the ROM is built.
+// barrier and so before the ROM is built, and for the radix-2 rfft_fused's
+// recombination.
 __device__ __forceinline__ float2 w_2m(int k, int m) {
   float s, c;
   sincospif(-static_cast<float>(k) / static_cast<float>(m), &s, &c);

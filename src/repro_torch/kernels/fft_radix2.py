@@ -21,7 +21,9 @@ live here:
   of ``csrc/stockham_regs.cuh``, which ``fft_fused``, ``rfft_fused`` and
   ``irfft_fused`` run at radix 4, and the three whole-frame kernels over a
   frame's rows and columns, with ``_rfft2_regpass`` and
-  ``_irfft2_regpass``), ``_two_pass_panel`` (the
+  ``_irfft2_regpass``), ``_regpass_panel_r2`` (the same passes of radix-2
+  layers, which ``fft_fused`` and ``rfft_fused`` run at radix 2, bit for bit
+  ``_stockham_panel``), ``_two_pass_panel`` (the
   four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
@@ -156,16 +158,15 @@ def block_threads(elems: int) -> int:
 
 def fft_smem_bytes(n: int, rows: int = 1) -> int:
     """``fft_fused``: ``rows`` rows of n values and a ROM of n/2 twiddles,
-    each padded for the radix-4 register-pass panel (the radix-2 panel
-    uses the unpadded part)."""
+    each padded for the register-pass panel (both radices)."""
     return _padded_block_bytes(rows * n, n // 2)
 
 
 def rfft_smem_bytes(n: int, rows: int = 1) -> int:
     """``rfft_fused``: ``rows`` packed rows of N/2 values and a ROM of
-    N/2+1 twiddles W_N^k, shared by the panel and the recombination, each
-    padded as in :func:`fft_smem_bytes` (the register-pass panel reads
-    only N/2 of the twiddles, W_N^{N/2-k} being -conj W_N^k)."""
+    N/2+1 twiddles W_N^k, each padded as in :func:`fft_smem_bytes` (the
+    register-pass panel reads only N/2 of the twiddles; the radix-4
+    recombination reads them too, W_N^{N/2-k} being -conj W_N^k)."""
     return _padded_block_bytes(rows * (n // 2), n // 2 + 1)
 
 
@@ -427,6 +428,16 @@ def pick_row_tile(batch: int, elems_per_row: int) -> int:
 # --------------------------- plain panels ---------------------------------
 
 
+def _stockham_rom(n: int, dtype: torch.dtype, device):
+    """The radix-2 panels' cos/sin table W_N^j, j < N/2, for the largest
+    stage (smaller stages stride it), computed in the planes' dtype
+    (float64 for the double engine)."""
+    l_max = n // 2
+    j = torch.arange(l_max, dtype=dtype, device=device).reshape(1, 1, l_max)
+    ang = (-math.pi / l_max) * j
+    return torch.cos(ang), torch.sin(ang)
+
+
 def _stockham_panel(re: torch.Tensor, im: torch.Tensor, n: int):
     """All log2(N) radix-2 stages over a (tile, N) panel."""
     stages = int(math.log2(n)) if n > 1 else 0
@@ -435,12 +446,8 @@ def _stockham_panel(re: torch.Tensor, im: torch.Tensor, n: int):
     yi = im.reshape(tb, n, 1)
     if stages == 0:
         return yr.reshape(tb, n), yi.reshape(tb, n)
-    # One cos/sin table for the largest stage; smaller stages stride it,
-    # computed in the planes' dtype (float64 for the double engine).
     l_max = n // 2
-    j = torch.arange(l_max, dtype=re.dtype, device=re.device).reshape(1, 1, l_max)
-    ang = (-math.pi / l_max) * j
-    rom_r, rom_i = torch.cos(ang), torch.sin(ang)
+    rom_r, rom_i = _stockham_rom(n, re.dtype, re.device)
     for s in range(stages):
         l = 1 << s
         r = n >> (s + 1)
@@ -522,7 +529,7 @@ def regpass_radices(n: int) -> Tuple[int, ...]:
 
 
 def rfft_pairs_in_registers(m: int) -> bool:
-    """True where the radix-4 ``rfft_fused`` on half rows of m values pairs
+    """True where ``rfft_fused`` (either radix) on half rows of m values pairs
     the mirror bins k and m - k in registers (``rfft_pairs_in_registers``
     in ``csrc/fft_fused.cu``): a last pass of radix at most 8 over a span
     of at least 256 (m = 2^9, 2^10, 2^11, 2^13). Elsewhere its last pass
@@ -535,23 +542,36 @@ def _spills_recombination(n: int, real: bool, inverse: bool) -> bool:
     return real and not inverse and not rfft_pairs_in_registers(n // 2)
 
 
-def regpass_exchanges(n: int, *, real: bool = False, inverse: bool = False) -> int:
-    """Exchanges through shared memory of the radix-4 ``fft_fused`` on a
-    row of n (``real``: ``rfft_fused``, on its half row of n/2; ``real`` and
-    ``inverse``: ``irfft_fused``, which untangles in its first pass's reads):
-    the passes less one, as the first pass loads from HBM and the last
-    stores to HBM, plus one for ``rfft_fused``'s recombination where it does
-    not pair the mirror bins in registers."""
+def _check_regpass(real: bool, inverse: bool, radix: int) -> None:
+    if radix not in (2, 4):
+        raise ValueError(f"radix must be 2 or 4, got {radix}")
+    if radix == 2 and real and inverse:
+        raise ValueError("irfft_fused at radix 2 runs the Stockham stages, not register passes")
+
+
+def regpass_exchanges(n: int, *, real: bool = False, inverse: bool = False,
+                      radix: int = 4) -> int:
+    """Exchanges through shared memory of the register-pass ``fft_fused``
+    on a row of n (``real``: ``rfft_fused``, on its half row of n/2; ``real``
+    and ``inverse``: ``irfft_fused``, which untangles in its first pass's
+    reads, at radix 4 only): the passes less one, as the first pass loads
+    from HBM and the last stores to HBM, plus one for ``rfft_fused``'s
+    recombination where it does not pair the mirror bins in registers. The
+    radix-2 and radix-4 layers share the passes, so the ``radix`` changes
+    no count."""
+    _check_regpass(real, inverse, radix)
     m = n // 2 if real else n
     return len(regpass_radices(m)) - 1 + int(_spills_recombination(n, real, inverse))
 
 
-def regpass_barriers(n: int, *, real: bool = False, inverse: bool = False) -> int:
+def regpass_barriers(n: int, *, real: bool = False, inverse: bool = False,
+                     radix: int = 4) -> int:
     """Block barriers per row tile of the same kernels: one after the first
     pass, two in each middle pass (in place: read, barrier, write, barrier
     before the next read), one before the last; where ``rfft_fused``'s last
     pass writes shared memory it is in place too, and one more precedes
     the recombination."""
+    _check_regpass(real, inverse, radix)
     m = n // 2 if real else n
     passes = len(regpass_radices(m))
     if _spills_recombination(n, real, inverse):
@@ -683,17 +703,72 @@ def _regpass_panel(re: torch.Tensor, im: torch.Tensor, n: int):
     return yr, yi
 
 
+def _bit_reverse(v: int, bits: int) -> int:
+    """The lowest ``bits`` bits of v in reverse order (``bit_reverse``)."""
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _regpass_panel_r2(re: torch.Tensor, im: torch.Tensor, n: int):
+    """The register passes of the radix-2 ``fft_fused`` and ``rfft_fused``
+    kernels over a (tile, N) panel (``r2_layers`` in
+    ``csrc/stockham_regs.cuh``): the passes of :func:`regpass_radices`; in a
+    pass of radix R = 2^LR over span l, group t of a line holds its R values
+    in[t + j·N/R] and runs LR radix-2 stages on them, stage s pairing the
+    values whose register indices differ by R/2^(s+1) and taking a ± W·b at
+    W = W_{2l'}^{k'}, l' = l·2^s, k' = k + l·c (k = t mod l, c the bit
+    reversal of the index's top s bits); output c, in register
+    bit_reverse(c), goes to q·R·l + c·l + k. The butterflies and twiddles of
+    :func:`_stockham_panel` (its table, its operations in its order), so the
+    result is the same bit for bit; only where each value sits between
+    stages differs."""
+    tb = re.shape[0]
+    yr, yi = re.reshape(tb, n), im.reshape(tb, n)
+    if n == 1:
+        return yr, yi
+    l_max = n // 2
+    rom_r, rom_i = (w.reshape(l_max) for w in _stockham_rom(n, re.dtype, re.device))
+    log_l = 0
+    for radix in regpass_radices(n):
+        lr = radix.bit_length() - 1
+        s, l = n // radix, 1 << log_l
+        vr, vi = yr.reshape(tb, radix, s), yi.reshape(tb, radix, s)  # [b, register, t]
+        k = torch.arange(s, device=re.device) % l
+        for st in range(lr):
+            h = 1 << st  # twiddles of the stage: one for each value of the top st bits
+            c = torch.tensor([_bit_reverse(v, st) for v in range(h)], device=re.device)
+            e = (k.reshape(1, s) + l * c.reshape(h, 1)) * (l_max // (l << st))
+            wr, wi = rom_r[e].reshape(1, h, 1, s), rom_i[e].reshape(1, h, 1, s)
+            vr = vr.reshape(tb, h, 2, radix // (2 * h), s)
+            vi = vi.reshape(tb, h, 2, radix // (2 * h), s)
+            ar, ai = vr[:, :, 0], vi[:, :, 0]
+            br, bi = vr[:, :, 1], vi[:, :, 1]
+            tr = br * wr - bi * wi
+            ti = br * wi + bi * wr
+            vr = torch.stack([ar + tr, ar - tr], dim=2).reshape(tb, radix, s)
+            vi = torch.stack([ai + ti, ai - ti], dim=2).reshape(tb, radix, s)
+        order = [_bit_reverse(c, lr) for c in range(radix)]  # output c's register
+        yr = vr[:, order].reshape(tb, radix, s // l, l).transpose(1, 2).reshape(tb, n)
+        yi = vi[:, order].reshape(tb, radix, s // l, l).transpose(1, 2).reshape(tb, n)
+        log_l += lr
+    return yr, yi
+
+
 def _panel(radix: int):
     if radix not in (2, 4):
         raise ValueError(f"radix must be 2 or 4, got {radix}")
     return _stockham_panel_r4 if radix == 4 else _stockham_panel
 
 
-def _one_block_panel(radix: int):
-    """The panel of the one-block ``fft_fused`` and ``rfft_fused`` kernels:
-    the register passes at radix 4, the Stockham stages at radix 2."""
+def _one_block_panel(radix: int, *, rows: bool = False):
+    """The panel of the one-block kernels: the register passes at radix 4;
+    at radix 2 the register passes of :func:`_regpass_panel_r2` for
+    ``fft_fused``'s and ``rfft_fused``'s rows (``rows``), the Stockham
+    stages for the others (``irfft_fused``, the whole frames, the column
+    panels)."""
     _panel(radix)
-    return _regpass_panel if radix == 4 else _stockham_panel
+    if radix == 4:
+        return _regpass_panel
+    return _regpass_panel_r2 if rows else _stockham_panel
 
 
 def _two_pass_panel(re: torch.Tensor, im: torch.Tensor, n: int, panel):
@@ -834,16 +909,17 @@ def _fft_plain(x: torch.Tensor, panel, inverse: bool) -> torch.Tensor:
 
 def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
     """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor: the
-    register passes at radix 4, the Stockham stages at radix 2. A complex128
-    tensor runs the same panel in double precision (twiddles computed in
-    float64): the Stockham schedules of the ``reference_x64`` engine."""
-    return _fft_plain(x, _one_block_panel(radix), inverse)
+    register passes, of radix-4 layers (:func:`_regpass_panel`) or of
+    radix-2 ones (:func:`_regpass_panel_r2`). A complex128 tensor runs the
+    same panel in double precision (twiddles computed in float64): the
+    Stockham schedules of the ``reference_x64`` engine."""
+    return _fft_plain(x, _one_block_panel(radix, rows=True), inverse)
 
 
 def rfft_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`rfft_fused`: (B, N) float32 -> (B, N/2+1),
     on the panel of :func:`fft_fused_plain`."""
-    yr, yi = _rfft_panel(x, x.shape[-1], radix, panel=_one_block_panel(radix))
+    yr, yi = _rfft_panel(x, x.shape[-1], radix, panel=_one_block_panel(radix, rows=True))
     return _complex(yr, yi)
 
 

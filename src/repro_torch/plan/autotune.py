@@ -24,16 +24,21 @@ two-pass kernels) and three for a real one (plus its recombination or
 untangling); a composed 2D frame is its row pass's round trips plus one
 for the column pass (``csrc/fft2_columns.cu`` reads the columns where the
 row pass wrote them, in one panel a block, whose passes and exchanges are
-those of a one-block row of H values), and where the columns are longer
-than that kernel serves (H > 4096) the column rows' trips plus one for the
-two corner turns through HBM. Shared memory: every pass reads and writes the
-block's values once. A stage-at-a-time Stockham pass (radix 2; the
-two-pass kernels and ``fft2_fused``) does one butterfly stage, or two
-layers at radix 4. A one-block row at radix 4 runs the register-pass panel
-of ``csrc/stockham_regs.cuh``: four layers a pass, the first loaded from
-HBM and the last stored to HBM, so its exchanges through shared memory are
-its passes less one, plus one where a real row's recombination reads the
-half spectrum back from shared memory. The cluster kernel runs that
+those of its column panel: a one-block row of H values at radix 4, the
+Stockham stages at radix 2), and where the columns are longer than that
+kernel serves (H > 4096) the column rows' trips plus one for the two corner
+turns through HBM. Shared memory: every pass reads and writes the block's
+values once. A stage-at-a-time Stockham pass (radix 2 in the two-pass
+kernels, the frame and column kernels and ``irfft_fused``) does one
+butterfly stage, or two layers at radix 4. A one-block ``fft_fused`` or
+``rfft_fused`` row at either radix, and every one-block row at radix 4,
+runs the register-pass panel of ``csrc/stockham_regs.cuh``: four radix-2
+layers a pass, or two radix-4 ones, the first loaded from HBM and the last
+stored to HBM, so its exchanges through shared memory are its passes less
+one, plus one where a real row's recombination reads the half spectrum
+back from shared memory; the model times both radices alike there, and
+ESTIMATE ranks the radix-4 engine, of fewer operations, first
+(:func:`fastest_variant`). The cluster kernel runs that
 panel over lines of Q = m/A values (A = 16, 32 or 64 lines a row), so its
 exchanges are the panel's over Q values, plus the load's regrouping of
 each CTA's runs into lines and the one read across the cluster
@@ -80,6 +85,7 @@ __all__ = [
     "chunk_candidates",
     "estimate_plan",
     "estimate_variant_time",
+    "fastest_variant",
     "measure_plan",
     "oaconv_tile_candidates",
     "variant_candidates",
@@ -176,11 +182,11 @@ def _panel_passes(n: int, radix: int) -> int:
 
 def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[int, int]:
     """(HBM round trips, shared-memory passes) of the 1D kernels on a row of
-    n: one block (at radix 4 the register passes' exchanges, except for
-    ``irfft_fused``, the inverse real row, which keeps the Stockham stages
-    of radix 2); over one block at radix 4 the cluster kernel (one round
-    trip, its exchanges), at radix 2 the two-pass kernels on the (n1, n2)
-    view of the row (at N/2 complex values when ``real``, plus one
+    n: one block (the register passes' exchanges, the same at both radices,
+    except for ``irfft_fused``, the inverse real row, which keeps the
+    Stockham stages); over one block at radix 4 the cluster kernel (one
+    round trip, its exchanges), at radix 2 the two-pass kernels on the (n1,
+    n2) view of the row (at N/2 complex values when ``real``, plus one
     elementwise round trip)."""
     from repro_torch.kernels.fft_radix2 import (  # lazy
         cluster_exchanges,
@@ -191,13 +197,25 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
 
     m = n // 2 if real else n
     if fft_fits_smem(n, real=real):
-        if radix == 4 and not (real and inverse):
-            return 1, regpass_exchanges(n, real=real)
+        if not (real and inverse):
+            return 1, regpass_exchanges(n, real=real, radix=radix)
         return 1, _panel_passes(m, radix)
     if radix == 4:
         return 1, cluster_exchanges(m)
     n1, n2 = fft_split(m)
     return 3 if real else 2, _panel_passes(n1, radix) + _panel_passes(n2, radix)
+
+
+def _column_cost(h: int, radix: int) -> Tuple[int, int]:
+    """(HBM round trips, shared-memory passes) of the composed route's
+    column pass on columns of H: ``fft2_columns`` where it serves H (one
+    trip; its column panel the register passes at radix 4, the Stockham
+    stages at radix 2), else the row kernels on the turned frame."""
+    from repro_torch.kernels.fft_radix2 import fft2_columns_serves, regpass_exchanges  # lazy
+
+    if fft2_columns_serves(h):
+        return 1, regpass_exchanges(h) if radix == 4 else _panel_passes(h, radix)
+    return _row_cost(h, radix, False)
 
 
 def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
@@ -221,9 +239,9 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
             passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
         else:
             row_trips, row_passes = _row_cost(w, radix, real, inverse)
-            # fft2_columns costs what a one-block row of H does: one trip,
-            # its panel's passes; longer columns add the two corner turns.
-            col_trips, col_passes = _row_cost(h, radix, False)
+            # fft2_columns: one trip and its panel's passes; longer columns
+            # add the two corner turns.
+            col_trips, col_passes = _column_cost(h, radix)
             trips = row_trips + col_trips + (0 if fft2_columns_serves(h) else 1)
             passes = row_passes + col_passes
     if real:
@@ -288,6 +306,20 @@ def estimate_variant_time(key: ProblemKey, variant: str) -> float:
         t += _KERNEL_LAUNCH_S + _PLAIN_OVERHEAD_S
     t += passes * spec.cost.stage_overhead_s
     return t + spec.cost.entry_overhead_s
+
+
+def fastest_variant(key: ProblemKey, variants) -> Tuple[str, float]:
+    """The variant ESTIMATE ranks first among ``variants``, and its modelled
+    time: the least modelled time; on equal time, the engine of fewer
+    butterfly operations (``flop_scale``). The one-block rows run the same
+    register passes at both radices, so their model ties the radix-2 and
+    radix-4 kernels, and the radix-4 one, which does 0.85 of the work, is
+    ranked first."""
+    from repro_torch.engines import get_engine  # lazy: engines is the leaf layer
+
+    times = {v: estimate_variant_time(key, v) for v in variants}
+    best = min(times, key=lambda v: (times[v], get_engine(v).cost.flop_scale))
+    return best, times[best]
 
 
 def chunk_candidates(w: int, n_devices: int, limit: int = 16) -> List[int]:
@@ -376,11 +408,10 @@ def _estimate_oaconv_plan(key: ProblemKey) -> FFTPlan:
         sub = ProblemKey(kind=sub_kind, backend=key.backend, device_kind=key.device_kind,
                          shape=(th, tw), dtype=key.dtype, n_devices=key.n_devices,
                          precision=key.precision, backends=key.backends)
-        times = {v: estimate_variant_time(sub, v) for v in variant_candidates(sub)}
-        variant = min(times, key=times.get)
+        variant, t = fastest_variant(sub, variant_candidates(sub))
         n_tiles = (math.ceil((h + kh - 1) / max(th - kh + 1, 1))
                    * math.ceil((w + kw - 1) / max(tw - kw + 1, 1)))
-        total = 2.0 * times[variant] * n_tiles  # forward + inverse per tile
+        total = 2.0 * t * n_tiles  # forward + inverse per tile
         if best is None or total < best[0]:
             best = (total, variant, (th, tw))
     total, variant, tile = best
@@ -393,11 +424,10 @@ def estimate_plan(key: ProblemKey) -> FFTPlan:
     corner turn's slabs (``FFTPlan.chunks``)."""
     if key.kind == "oaconv2d":
         return _estimate_oaconv_plan(key)
-    times = {v: estimate_variant_time(key, v) for v in variant_candidates(key)}
-    variant = min(times, key=times.get)
+    variant, t = fastest_variant(key, variant_candidates(key))
     return FFTPlan(key=key, variant=variant, unroll=_estimate_unroll(key),
                    chunks=_estimate_chunks(key) if key.kind == "fft2d_pencil" else 1,
-                   mode="estimate", est_time_s=times[variant])
+                   mode="estimate", est_time_s=t)
 
 
 # ------------------------------- MEASURE ---------------------------------

@@ -91,7 +91,7 @@ def _next_rung(key, attempted: Set[str]) -> Optional[str]:
     plan is exactly the plan the planner would have made without the
     benched engine.
     """
-    from repro_torch.plan.autotune import estimate_variant_time, variant_candidates
+    from repro_torch.plan.autotune import fastest_variant, variant_candidates
 
     try:
         names = [v for v in variant_candidates(key) if v not in attempted]
@@ -99,7 +99,7 @@ def _next_rung(key, attempted: Set[str]) -> Optional[str]:
         return None
     if not names:
         return None
-    return min(names, key=lambda v: estimate_variant_time(key, v))
+    return fastest_variant(key, names)[0]
 
 
 def run_plan(plan, runner: Callable[[str], Any]):

@@ -186,8 +186,9 @@ def test_columns_past_the_panel_take_the_turn_route(monkeypatch):
     ("fft2d", (1, 8192, 4), 4, 3)])
 def test_estimate_prices_the_composed_frame_without_corner_turns(kind, shape, radix, trips):
     """ESTIMATE's composed frame: the row pass's round trips plus one for
-    fft2_columns (its passes those of a one-block row of H), and one more
-    for the two corner turns only where the turn route runs (H > 4096)."""
+    fft2_columns (its passes those of its column panel: the register
+    passes at radix 4, the Stockham stages at radix 2), and one more for
+    the two corner turns only where the turn route runs (H > 4096)."""
     from repro_torch.launch.roofline import HBM_BW, SMEM_BW
     from repro_torch.plan import autotune
     from repro_torch.plan.plan import ProblemKey
@@ -197,7 +198,7 @@ def test_estimate_prices_the_composed_frame_without_corner_turns(kind, shape, ra
     real = kind == "rfft2d"
     h, w = shape[-2:]
     _, row_passes = autotune._row_cost(w, radix, real)
-    _, col_passes = autotune._row_cost(h, radix, False)
+    _, col_passes = autotune._column_cost(h, radix)
     elems = float(np.prod(shape)) * (0.5 if real else 1.0)
     passes = row_passes + col_passes
     want = (max(16.0 * elems * trips / HBM_BW, 16.0 * elems * passes / SMEM_BW)

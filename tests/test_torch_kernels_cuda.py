@@ -262,6 +262,34 @@ def test_cuda_irfft_register_passes_match_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_radix2_register_passes_match_plain(cuda):
+    """The radix-2 fft_fused (forward and inverse) and rfft_fused on every
+    one-block row, n = 2 ... 2^14, run their register-pass kernels: one
+    launch a call, within 2e-5 of the plain versions, on a batch of twice
+    the row tile less one, so that the last tile is masked wherever a tile
+    holds more than one row."""
+    g = torch.Generator(device=cuda).manual_seed(39)
+    for n in (2 ** p for p in range(1, 15)):
+        for real in (False, True):
+            tile = k.pick_row_tile(1 << 30, n // 2 if real else n)
+            batch = 2 * tile - 1 if tile > 1 else 3
+            before = dict(k.LAUNCHES)
+            if real:
+                x = torch.randn(batch, n, generator=g, device=cuda)
+                got = [(k.rfft_fused(x, radix=2), k.rfft_fused_plain(x, radix=2))]
+            else:
+                x = torch.complex(torch.randn(batch, n, generator=g, device=cuda),
+                                  torch.randn(batch, n, generator=g, device=cuda))
+                got = [(k.fft_fused(x, radix=2, inverse=inv),
+                        k.fft_fused_plain(x, radix=2, inverse=inv)) for inv in (False, True)]
+            name = "rfft_fused" if real else "fft_fused"
+            delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
+            assert delta == {kn: len(got) * int(kn == name) for kn in k.LAUNCHES}, delta
+            for kernel, plain in got:
+                assert _rel(kernel, plain) <= TOL, (name, n, batch)
+
+
+@pytest.mark.cuda
 def test_cuda_every_cluster_instance_has_an_active_cluster(cuda):
     """cudaOccupancyMaxActiveClusters is at least 1 for every instance the
     census launches."""

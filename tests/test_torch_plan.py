@@ -48,8 +48,9 @@ def test_estimate_picks_a_fused_kernel_on_the_card(kind, shape, dtype, direction
 @pytest.mark.parametrize("direction", ["fwd", "inv"])
 def test_estimate_picks_the_radix4_kernel_on_the_card(kind, shape, dtype, direction):
     """The radix-4 panel has about half the Stockham passes of the radix-2
-    one for the same HBM bytes, and runs in about half the time on the
-    card; ESTIMATE must rank it first wherever both fit."""
+    one for the same HBM bytes where the radix-2 kernel runs the stage
+    panel, and the same register passes with fewer operations on the
+    one-block rows; ESTIMATE must rank it first wherever both fit."""
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype=dtype, direction=direction)
     assert estimate_plan(key).variant == "fused_r4"
@@ -73,7 +74,9 @@ def test_smoke_requests_keep_their_engine(kind, shape, direction, dtype):
     (2048, 4, True, False, (1, 2)),    # rfft_fused: 16·16·4, mirror bins paired
     (8192, 4, True, False, (1, 3)),    # 16·16·16 and the recombination's exchange
     (2048, 4, True, True, (1, 5)),     # irfft_fused keeps its five Stockham passes
-    (2048, 2, False, False, (1, 11)),  # radix 2: one pass a stage
+    (2048, 2, False, False, (1, 2)),   # radix 2: the same register passes, 16·16·8
+    (2048, 2, True, False, (1, 2)),    # radix-2 rfft_fused: 16·16·4, mirror bins paired
+    (2048, 2, True, True, (1, 10)),    # radix-2 irfft_fused keeps one pass a stage
     (16, 4, False, False, (1, 0)),     # one pass, HBM to HBM
     (2 ** 18, 4, False, False, (1, 4)),  # cluster: 64 lines of 2^12, 16·16·16 + 1 exchange
     (2 ** 16, 4, True, False, (1, 4)),   # cluster at N/2: 16 lines of 2^11, 16·16·8 + 1
@@ -159,6 +162,42 @@ def test_tiny_transforms_on_the_card_plan_onto_a_kernel(kind, shape):
                      dtype="complex64")
     assert set(variant_candidates(key)) == {"fused", "fused_r4"}
     assert estimate_plan(key).variant in ("fused", "fused_r4")
+
+
+# Every card key this file plans, with the engine ESTIMATE gives it. The
+# radix-2 fft_fused and rfft_fused run the radix-4 kernels' register passes
+# (the same exchanges), so on one-block rows the model times the two
+# engines alike; ESTIMATE then ranks the engine of fewer operations first
+# (``flop_scale``), and fused_r4 keeps every key it had. The 2-point half
+# row and the 2x2 real frame were ties before as well (both kernels do the
+# same work there) and went to ``fused`` by registry order; they now go to
+# fused_r4 too.
+CARD_KEYS = sorted(set(SMOKE_KEYS) | set(LONG_ROW_KEYS) | {
+    ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
+    ("fft1d", (2, 16), "complex64"), ("fft2d", (1, 2, 4), "complex64"),
+    ("rfft1d", (1, 4), "complex64"), ("rfft2d", (1, 2, 2), "complex64"),
+    ("fft1d", (4, 2 ** 14), "complex64")})
+TIES = {("fft1d", (8192, 2048), "complex64"), ("rfft1d", (8192, 2048), "float32"),
+        ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
+        ("fft1d", (2, 16), "complex64"), ("rfft1d", (1, 4), "complex64"),
+        ("fft1d", (4, 2 ** 14), "complex64"), ("rfft2d", (1, 2, 2), "complex64")}
+
+
+@pytest.mark.parametrize("kind,shape,dtype", CARD_KEYS)
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_estimate_keeps_each_keys_engine(kind, shape, dtype, direction):
+    from repro_torch.plan.autotune import estimate_variant_time
+
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype=dtype, direction=direction)
+    assert estimate_plan(key).variant == "fused_r4"
+    # ties: the one-block rows (an inverse real row of more than 2 values
+    # runs irfft_fused, whose radix-2 kernel keeps its stages) and the 2x2
+    # real frame
+    tie = (kind, shape, dtype) in TIES and not (kind == "rfft1d" and direction == "inv"
+                                                and shape[-1] > 4)
+    times = [estimate_variant_time(key, v) for v in ("fused", "fused_r4")]
+    assert (times[0] == times[1]) == tie, times
 
 
 def test_radix4_panel_wins_where_radix2_is_bound_by_shared_memory():

@@ -13,7 +13,7 @@ through it, and ``tests/test_torch_fft2_columns.py`` ``fft2_columns.cu``.
 
     PYTHONPATH=src python tools/cuda_emu/emulate.py 8x8 128x128 16384x2
     PYTHONPATH=src python tools/cuda_emu/emulate.py --all     # every admitted frame
-    PYTHONPATH=src python tools/cuda_emu/emulate.py --rows    # fft_fused / rfft_fused / irfft_fused, n = 2 ... 2^14
+    PYTHONPATH=src python tools/cuda_emu/emulate.py --rows    # fft_fused / rfft_fused / irfft_fused, n = 2 ... 2^14, radix 4 and 2
 
 Prints each frame's largest error relative to max|twin| and to numpy, and
 exits 1 if a launch fails or an error vs the twin passes ``--tol``.
@@ -114,29 +114,33 @@ def frames(lib, h, w, rng):
     return errs, out
 
 
-def rows(lib, n, b, rng):
-    """Errors vs twin of fft / ifft / rfft / irfft on (b, n) rows (irfft on a
-    half spectrum that is not Hermitian)."""
+def rows(lib, n, b, rng, radix=4):
+    """Errors vs twin of fft / ifft / rfft / irfft on (b, n) rows at ``radix``
+    (irfft on a half spectrum that is not Hermitian), each launched with the
+    census's row tile: a batch of 3 leaves the last tile's fourth row masked
+    where a tile holds four rows or more."""
     errs = []
     x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(np.complex64)
     t = k.pick_row_tile(b, n)
     for inv in (0, 1):
         y = np.full_like(x, np.nan)
-        assert lib.repro_fft_fused(x.ctypes.data, y.ctypes.data, b, n, 4, t, k.block_threads(t * n),
-                                   k.fft_smem_bytes(n, t), inv, 1.0 / n if inv else 1.0, 0, None) == 0
-        errs.append(rel(y, k.fft_fused_plain(torch.from_numpy(x), radix=4, inverse=bool(inv)).numpy()))
+        assert lib.repro_fft_fused(x.ctypes.data, y.ctypes.data, b, n, radix, t,
+                                   k.block_threads(t * n), k.fft_smem_bytes(n, t), inv,
+                                   1.0 / n if inv else 1.0, 0, None) == 0
+        errs.append(rel(y, k.fft_fused_plain(torch.from_numpy(x), radix=radix,
+                                             inverse=bool(inv)).numpy()))
     r = rng.standard_normal((b, n)).astype(np.float32)
     t = k.pick_row_tile(b, n // 2)
     y = np.full((b, n // 2 + 1), np.nan, np.complex64)
-    assert lib.repro_rfft_fused(r.ctypes.data, y.ctypes.data, b, n, 4, t, k.block_threads(t * n // 2),
-                                k.rfft_smem_bytes(n, t), 0, None) == 0
-    errs.append(rel(y, k.rfft_fused_plain(torch.from_numpy(r), radix=4).numpy()))
+    assert lib.repro_rfft_fused(r.ctypes.data, y.ctypes.data, b, n, radix, t,
+                                k.block_threads(t * n // 2), k.rfft_smem_bytes(n, t), 0, None) == 0
+    errs.append(rel(y, k.rfft_fused_plain(torch.from_numpy(r), radix=radix).numpy()))
     z = (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape)).astype(np.complex64)
     back = np.full((b, n), np.nan, np.float32)
-    assert lib.repro_irfft_fused(z.ctypes.data, back.ctypes.data, b, n, 4, t,
+    assert lib.repro_irfft_fused(z.ctypes.data, back.ctypes.data, b, n, radix, t,
                                  k.block_threads(t * n // 2), k.irfft_smem_bytes(n, t), 0,
                                  None) == 0
-    errs.append(rel(back, k.irfft_fused_plain(torch.from_numpy(z), radix=4).numpy()))
+    errs.append(rel(back, k.irfft_fused_plain(torch.from_numpy(z), radix=radix).numpy()))
     return errs
 
 
@@ -144,18 +148,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("frames", nargs="*", help="HxW frames (default 8x8 16x64 128x128)")
     ap.add_argument("--all", action="store_true", help="every frame either census admits")
-    ap.add_argument("--rows", action="store_true", help="the 1D kernels, n = 2 ... 2^14, batches 3 and 1")
+    ap.add_argument("--rows", action="store_true",
+                    help="the 1D kernels, n = 2 ... 2^14, batches 3 and 1, radix 4 and 2")
     ap.add_argument("--tol", type=float, default=2e-5, help="largest error vs the twin")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "cuda_emu")
     args = ap.parse_args(argv)
     lib = build(args.out)
     worst = 0.0
     if args.rows:
-        for n in (2 ** p for p in range(1, 15)):
-            for b in (3, 1):
-                errs = rows(lib, n, b, np.random.default_rng(n + b))
-                worst = max(worst, *errs)
-                print(f"rows n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs), flush=True)
+        for radix in (4, 2):
+            for n in (2 ** p for p in range(1, 15)):
+                for b in (3, 1):
+                    errs = rows(lib, n, b, np.random.default_rng(n + b), radix)
+                    worst = max(worst, *errs)
+                    print(f"rows radix {radix} n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs),
+                          flush=True)
     if args.all:
         shapes = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 16)
                   if k.fft2_fits_smem(1 << a, 1 << b) or k.rfft2_fits_smem(1 << a, 1 << b)]
