@@ -22,8 +22,8 @@ live here:
   ``irfft_fused`` run at radix 4, and the three whole-frame kernels over a
   frame's rows and columns, with ``_rfft2_regpass`` and
   ``_irfft2_regpass``), ``_regpass_panel_r2`` (the same passes of radix-2
-  layers, which ``fft_fused`` and ``rfft_fused`` run at radix 2, bit for bit
-  ``_stockham_panel``), ``_two_pass_panel`` (the
+  layers, the schedule ``fft_fused`` and ``rfft_fused`` run at radix 2, bit
+  for bit ``_stockham_panel``, which stands for it as their plain version), ``_two_pass_panel`` (the
   four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
@@ -759,16 +759,12 @@ def _panel(radix: int):
     return _stockham_panel_r4 if radix == 4 else _stockham_panel
 
 
-def _one_block_panel(radix: int, *, rows: bool = False):
-    """The panel of the one-block kernels: the register passes at radix 4;
-    at radix 2 the register passes of :func:`_regpass_panel_r2` for
-    ``fft_fused``'s and ``rfft_fused``'s rows (``rows``), the Stockham
-    stages for the others (``irfft_fused``, the whole frames, the column
-    panels)."""
+def _one_block_panel(radix: int):
+    """The panel of the one-block kernels: the register passes at radix 4,
+    the Stockham stages at radix 2 (bit for bit the radix-2 kernels'
+    register passes, :func:`_regpass_panel_r2`)."""
     _panel(radix)
-    if radix == 4:
-        return _regpass_panel
-    return _regpass_panel_r2 if rows else _stockham_panel
+    return _regpass_panel if radix == 4 else _stockham_panel
 
 
 def _two_pass_panel(re: torch.Tensor, im: torch.Tensor, n: int, panel):
@@ -909,17 +905,16 @@ def _fft_plain(x: torch.Tensor, panel, inverse: bool) -> torch.Tensor:
 
 def fft_fused_plain(x: torch.Tensor, *, radix: int = 2, inverse: bool = False) -> torch.Tensor:
     """Plain version of :func:`fft_fused` on a (B, N) complex64 tensor: the
-    register passes, of radix-4 layers (:func:`_regpass_panel`) or of
-    radix-2 ones (:func:`_regpass_panel_r2`). A complex128 tensor runs the
-    same panel in double precision (twiddles computed in float64): the
-    Stockham schedules of the ``reference_x64`` engine."""
-    return _fft_plain(x, _one_block_panel(radix, rows=True), inverse)
+    register passes at radix 4, the Stockham stages at radix 2. A complex128
+    tensor runs the same panel in double precision (twiddles computed in
+    float64): the Stockham schedules of the ``reference_x64`` engine."""
+    return _fft_plain(x, _one_block_panel(radix), inverse)
 
 
 def rfft_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`rfft_fused`: (B, N) float32 -> (B, N/2+1),
     on the panel of :func:`fft_fused_plain`."""
-    yr, yi = _rfft_panel(x, x.shape[-1], radix, panel=_one_block_panel(radix, rows=True))
+    yr, yi = _rfft_panel(x, x.shape[-1], radix, panel=_one_block_panel(radix))
     return _complex(yr, yi)
 
 

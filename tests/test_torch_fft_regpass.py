@@ -142,7 +142,8 @@ def test_padded_exchange_is_conflict_free(n, real):
     its first pass and writes before its last (the first loads from HBM, the
     last stores to it); rfft_fused's panel on its half rows, whose last pass
     also writes shared memory. Geometry: chip_smoke's batch of 8192 rows and
-    a single row."""
+    a single row. The radix-2 kernels' register passes exchange through the
+    same slots (their layers differ in registers only)."""
     line = n // 2 if real else n
     passes = _panel_passes(line)
     # rfft_fused's paired last pass reads otherwise (its own test below)

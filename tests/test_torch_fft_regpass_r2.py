@@ -3,9 +3,9 @@
 ``csrc/stockham_regs.cuh`` (``r2_layers``) runs on the card only. Here, on
 the CPU:
 
-* its twin, ``fft_radix2._regpass_panel_r2`` (the plain version of the two
-  kernels at radix 2), is ``torch.equal`` to the stage-at-a-time
-  ``_stockham_panel`` on every power of two from 2 to 16384: the same
+* its twin, ``fft_radix2._regpass_panel_r2``, is ``torch.equal`` to the
+  stage-at-a-time ``_stockham_panel`` (the plain version of the two
+  kernels at radix 2) on every power of two from 2 to 16384: the same
   butterflies with the same twiddles in the same stage order, grouped four
   stages a pass; the plain versions are held to the Pallas kernels in
   interpret mode at max|port - ref| <= 1e-5 * max|ref|;
@@ -13,10 +13,12 @@ the CPU:
   ``tools/cuda_emu`` and run through its C entries at the census's launch
   geometry, is held to the plain versions at 2e-5 of max|plain| (skips
   where g++ is absent);
-* a numpy model of the kernels' shared-memory accesses states the bank
-  ways of each exchange and each twiddle read (8-byte accesses: a
-  half-warp's distinct slots over 16 bank pairs) and gates on none where
-  the padded layout allows it;
+* a numpy model of the kernels' twiddle reads states the bank ways of
+  each (8-byte accesses: a half-warp's distinct slots over 16 bank pairs)
+  and gates on none where the padded ROM allows it; the exchanges are the
+  radix-4 passes' own slots, which
+  ``test_torch_fft_regpass.py::test_padded_exchange_is_conflict_free``
+  holds conflict-free;
 * the census and the planner count the passes that run.
 """
 
@@ -60,15 +62,6 @@ def test_register_passes_are_the_stage_panel_bit_for_bit(n):
         got = k._regpass_panel_r2(re, im, n)
         ref = k._stockham_panel(re, im, n)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (n, dtype)
-
-
-def test_the_rows_plain_versions_take_the_register_passes():
-    """fft_fused and rfft_fused at radix 2 run the register passes; the
-    kernels that keep the stage panel (irfft_fused, the frames, the column
-    panels) keep it as their plain version."""
-    assert k._one_block_panel(2, rows=True) is k._regpass_panel_r2
-    assert k._one_block_panel(2) is k._stockham_panel
-    assert k._one_block_panel(4, rows=True) is k._one_block_panel(4) is k._regpass_panel
 
 
 @pytest.mark.parametrize("n", [16, 256, 2048])
@@ -128,7 +121,7 @@ def test_emulated_kernel_refuses_a_geometry_off_the_census(emulate):
                               k.fft_smem_bytes(2 ** 15), 0, 1.0, 0, None) == 1
 
 
-# ------------------------- the shared-memory accesses -----------------------
+# ------------------------------ the twiddle reads ---------------------------
 
 HALF_WARP = 16
 _slot = k.smem_slot  # works on numpy arrays too
@@ -163,25 +156,12 @@ def _passes(line):
 
 
 def _groups(line, p, threads, radix):
-    """Per group slot a thread holds: (ok, line index, t) arrays."""
+    """Per group slot a thread holds: (ok, t) arrays."""
     s = line // radix
     tid = np.arange(threads)
     for i in range(16 // radix):
         g = tid + i * threads
-        yield g < p // radix, g // s, g % s
-
-
-def _exchange(line, p, threads, radix, log_l, src_padded, dst_padded):
-    """Slots a pass reads (t + j n/R) and writes (q R l + c l + k)."""
-    at = (lambda i, padded: _slot(i) if padded else i)
-    l, s = 1 << log_l, line // radix
-    reads, writes = [], []
-    for ok, ln, t in _groups(line, p, threads, radix):
-        kk, q = t % l, t // l
-        reads += [np.where(ok, at(ln * line + t + j * s, src_padded), -1) for j in range(radix)]
-        writes += [np.where(ok, at(ln * line + q * radix * l + c * l + kk, dst_padded), -1)
-                   for c in range(radix)]
-    return reads, writes
+        yield g < p // radix, g % s
 
 
 def _stage_twiddles(kk, ok, log_l, log_half, lr, rom0):
@@ -222,7 +202,7 @@ def _twiddle_ways(line, p, threads, log_half, paired=False):
                     for st, stage in enumerate(_stage_twiddles(kk, ok, log_l, log_half, lr, rom0)):
                         out.setdefault((idx, st), []).extend(_ways(a, threads) for a in stage)
             continue
-        for ok, _, t in _groups(line, p, threads, radix):
+        for ok, t in _groups(line, p, threads, radix):
             for st, stage in enumerate(_stage_twiddles(t % l, ok, log_l, log_half, lr, rom0)):
                 out.setdefault((idx, st), []).extend(_ways(a, threads) for a in stage)
     return out
@@ -233,32 +213,6 @@ def _padded_ways(stride):
     entries: none up to 16; past that it cannot spread them, stride/16
     lanes to a bank pair, at most 16."""
     return min(16, max(1, stride // 16))
-
-
-@pytest.mark.parametrize("n", [2 ** p for p in range(4, 15)])
-@pytest.mark.parametrize("real", [False, True], ids=["fft_fused", "rfft_fused"])
-def test_exchanges_are_conflict_free(n, real):
-    """The radix-2 passes exchange where the radix-4 ones do: every read
-    after the first pass and every write before the last (rfft_fused's last
-    writes shared memory too where it does not pair the mirror bins), each
-    slot of a layout written once. Geometry: chip_smoke's batch of 8192
-    rows and a single row."""
-    line = n // 2 if real else n
-    paired = real and k.rfft_pairs_in_registers(line)
-    spilled = real and not paired
-    passes = _passes(line)
-    for batch in (8192, 1):
-        p, threads = _geometry(line, batch)
-        for idx, (radix, log_l) in enumerate(passes):
-            last = idx == len(passes) - 1
-            reads, writes = _exchange(line, p, threads, radix, log_l, idx == 1, idx == 0)
-            if idx > 0 and not (paired and last):
-                assert max(_ways(a, threads) for a in reads) == 1, (idx, batch)
-            if not last or spilled:
-                assert max(_ways(a, threads) for a in writes) == 1, (idx, batch)
-                written = np.concatenate([a[a >= 0] for a in writes])
-                at = _slot(np.arange(p)) if idx == 0 else np.arange(p)
-                assert np.array_equal(np.sort(written), at)
 
 
 @pytest.mark.parametrize("n", [2 ** p for p in range(2, 15)])

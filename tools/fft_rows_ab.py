@@ -10,11 +10,9 @@ a hash of the sources). In each process, at chip_smoke.py's (8192, 2048)
 and at radix 2 and 4: ``fft_fused`` forward and inverse and ``rfft_fused``
 on seeded Gaussian rows, each kernel's distance from its plain version
 (max|a - b| / max|b|) and its median CUDA-event time over 5 runs of 10
-launches, beside ``torch.fft.fft`` / ``rfft``; the worst distance of each
-radix over every one-block length n = 2 ... 2^14 on a batch that leaves
-the last row tile masked; and ptxas's stack frame, spills and registers of
-the tree's one-block row kernels. One JSON line a process, after the card's
-name and power limit. Needs CUDA; exits 2 without.
+launches, beside ``torch.fft.fft`` / ``rfft``. One JSON line a process,
+after the card's name and power limit. Needs CUDA; exits 2 without.
+chip_smoke.py checks every length and reads ptxas's registers and spills.
 
     python3 tools/fft_rows_ab.py --once                # this checkout, one process
 """
@@ -29,7 +27,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = r"""
-import json, re, statistics, sys
+import json, statistics, sys
 sys.path.insert(0, sys.argv[1] + "/src")
 import torch
 from repro_torch.kernels import _build
@@ -64,17 +62,6 @@ def crandn(*shape):
                          torch.randn(*shape, generator=g, device=dev))
 
 
-ptxas, name = {}, None
-for line in _build.build_log().splitlines():
-    if "Compiling entry function" in line:
-        m = re.search(r"\d+((?:i?r?fft)_(?:regs|fused)_kernel)(I\w+?E)?E", line)
-        name = m[1] + "".join("," + x for x in re.findall(r"Li(\d+)E", m[2] or "")) if m else None
-    elif name and "spill stores" in line:
-        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-        ptxas[name] = {"stack_bytes": int(frame[1]), "spill_bytes": int(frame[2])}
-    elif name and "registers" in line:
-        ptxas[name]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
-        name = None
 b, n = 8192, 2048
 x = crandn(b, n)
 r = torch.randn(b, n, generator=g, device=dev)
@@ -89,20 +76,8 @@ for radix in (2, 4):
             ("rfft", lambda a: k.rfft_fused(a, radix=radix),
              lambda a: k.rfft_fused_plain(a, radix=radix), r)):
         one[what] = {"ms": ms(lambda: fn(arg)), "kernel_vs_plain": rel(fn(arg), plain(arg))}
-    worst = 0.0
-    for p in range(1, 15):
-        m = 2 ** p
-        tile = k.pick_row_tile(1 << 20, m)
-        rows = 2 * tile - 1 if tile > 1 else 3
-        xs = crandn(rows, m)
-        rs = torch.randn(rows, m, generator=g, device=dev)
-        for inverse in (False, True):
-            worst = max(worst, rel(k.fft_fused(xs, radix=radix, inverse=inverse),
-                                   k.fft_fused_plain(xs, radix=radix, inverse=inverse)))
-        worst = max(worst, rel(k.rfft_fused(rs, radix=radix), k.rfft_fused_plain(rs, radix=radix)))
-    one["every_n_worst_vs_plain"] = worst
     res[f"radix {radix}"] = one
-print(json.dumps({"root": sys.argv[1], "ptxas": ptxas, "shape": [b, n], **res}))
+print(json.dumps({"root": sys.argv[1], "shape": [b, n], **res}))
 """
 
 
