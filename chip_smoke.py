@@ -620,9 +620,17 @@ STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "irfft_fused": 0
 # ran the stage-at-a-time panel until their register passes, as PERF.md §6
 # records them (NVIDIA H100 80GB HBM3, 700.00 W).
 STAGE_PANEL_R2_MS = {"fft_fused": 0.3892, "rfft_fused": 0.2101}
+# The radix-2 fft2_fused on (512, 128, 128) and FRAME_WIDE, and
+# fft_two_pass's kinds on TWO_PASS_COMPLEX and TWO_PASS_REAL, with the
+# stage-at-a-time panel they ran before their register passes, as PERF.md
+# §6 records them (NVIDIA H100 80GB HBM3, 700.00 W).
+STAGE_PANEL_FFT2_R2_MS = {(512, 128, 128): 0.2108, (1024, 64, 256): 0.4281}
+STAGE_PANEL_TWO_PASS_MS = {"fft": 0.5579, "ifft": 0.5574, "rfft": 0.2898, "irfft": 0.2883}
 # The register-pass instances of fft_fused and rfft_fused in the build log,
 # one a line length and radix: (log2 n, radix) and (log2 m, radix).
 ROW_PASS_ENTRIES = {"fft_fused": "15fft_regs_kernel", "rfft_fused": "16rfft_regs_kernel"}
+# The two passes' instances, (log2 n1, log2 C) and (log2 n2, log2 T).
+TWO_PASS_ENTRIES = {"columns": "23two_pass_columns_kernel", "rows": "20two_pass_rows_kernel"}
 # Non-square frames of the whole-frame kernels: wide complex frames
 # (line-scan tiles) and tall real ones.
 FRAME_WIDE = (1024, 64, 256)
@@ -969,6 +977,8 @@ def kernel_phase(torch, k, card: str):
                 radix2_rows(torch, k, name, rows[name], crandn, gen)
         elif name in FRAME_REGS_ENTRIES:
             frame_line(name, x.shape, r4["ms"], rows[name]["library_ms"], bound_ms)
+            if name == "fft2_fused":
+                frame_r2_line(x.shape, by_radix, rows[name]["library_ms"], bound_ms)
         elif name == COLUMNS:
             column_lines(torch, k, rows[name], crandn, card)
         del x
@@ -1055,6 +1065,33 @@ def frame_line(name, shape, ms, library_ms, bound_ms):
                     ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES[name]).items()},
           "ms": ms, "stage_panel_ms_recorded": STAGE_PANEL_R4_MS.get(name),
           "library_ms": library_ms, "bound_ms": bound_ms})
+
+
+def frame_r2_line(shape, by_radix, library_ms, bound_ms):
+    """The radix-2 fft2_fused's design line (its frame passes, ptxas's
+    registers and spills of its two radix-2 instances, 0 spilled the gate)
+    with its time beside radix 4's, the library's, the bound and the
+    recorded stage-panel time."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fft_radix2 as k
+
+    _, h, w = shape
+    fp = k.frame_passes(h, w)
+    ptxas = {args[:2]: v for args, v in
+             ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES["fft2_fused"]).items()
+             if len(args) == 3 and args[2] == 2}
+    emit({"phase": "kernel", "kernel": "fft2_fused", "design": "register passes (radix 2)",
+          "shape": list(shape), "row_passes": list(fp.rows), "column_passes": list(fp.cols),
+          "exchanges_per_frame": fp.exchanges, "barriers_per_frame": fp.barriers,
+          "ptxas": {",".join(map(str, a)): v for a, v in sorted(ptxas.items())},
+          "ms": by_radix["2"]["ms"], "radix4_ms": by_radix["4"]["ms"],
+          "stage_panel_ms_recorded": STAGE_PANEL_FFT2_R2_MS.get(tuple(shape)),
+          "library_ms": library_ms, "bound_ms": bound_ms})
+    if sorted(ptxas) != [(0, 0), (7, 7)]:
+        raise AssertionError(f"fft2_fused radix 2: instances {sorted(ptxas)} in the build log")
+    spilled = {a: v for a, v in ptxas.items() if v.get("spill_stores")}
+    if spilled:
+        raise AssertionError(f"fft2_fused radix 2: instances spill registers: {spilled}")
 
 
 def column_lines(torch, k, row, crandn, card):
@@ -1161,6 +1198,8 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
                                      f"{one['rel_err']} > {TOL_KERNEL}")
         r4 = case["by_radix"]["4"]
         frame_line(name, x.shape, r4["ms"], case["library_ms"], bound_ms)
+        if name == "fft2_fused":
+            frame_r2_line(x.shape, case["by_radix"], case["library_ms"], bound_ms)
         row = rows[name]
         row["non_square"] = case
         row["max_abs_err"] = max(row["max_abs_err"],
@@ -1305,8 +1344,15 @@ def composed_phase(torch, k, card: str):
 
 def two_pass_phase(torch, k, card: str):
     """fft_two_pass (fft_fused, rfft_fused and irfft_fused at radix 2 on
-    rows over one block) against its plain versions; returns its row. Each
-    call must launch it twice (complex) or three times (real)."""
+    rows over one block, both passes on register passes) against its plain
+    versions; returns its row. Each call must launch it twice (complex) or
+    three times (real). Its design line gives each pass's register passes,
+    panel or tile, threads and shared memory, and ptxas's registers and
+    spills of every instance (0 spilled the gate); every kind is also held
+    to its plain version at both shapes and at every row length the two
+    passes serve (N = 2^15 ... 2^18)."""
+    from repro_torch.kernels import _build
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     dev = torch.device("cuda")
 
@@ -1327,6 +1373,27 @@ def two_pass_phase(torch, k, card: str):
         "irfft": (crandn(br, nr // 2 + 1), k.irfft_fused, k.irfft_two_pass_plain,
                   torch.fft.irfft, k.rfft_cost(br, nr), 3),
     }
+    log = _build.build_log()
+    ptxas = {kind: ptxas_entries(log, frag) for kind, frag in TWO_PASS_ENTRIES.items()}
+    geo = {n: k.two_pass_geometry(n) for n in (nc, nr // 2)}
+    emit({"phase": "kernel", "kernel": "fft_two_pass", "design": "register passes (radix 2)",
+          "by_row": {str(n): {"split": [g.n1, g.n2],
+                              "column_passes": list(k.regpass_radices(g.n1)),
+                              "row_passes": list(k.regpass_radices(g.n2)),
+                              "exchanges": [k.regpass_exchanges(g.n1), k.regpass_exchanges(g.n2)],
+                              "cols": g.cols, "col_threads": g.col_threads,
+                              "col_smem": g.col_smem, "rows": g.rows,
+                              "row_threads": g.row_threads, "row_smem": g.row_smem}
+                     for n, g in geo.items()},
+          "ptxas": {kind: {",".join(map(str, a)): v for a, v in sorted(e.items())}
+                    for kind, e in ptxas.items()}})
+    want = {"columns": [(7, 5), (8, 4), (9, 4)], "rows": [(7, 5), (8, 4), (9, 4)]}
+    if {kind: sorted(e) for kind, e in ptxas.items()} != want:
+        raise AssertionError(f"fft_two_pass: instances {ptxas} in the build log, want {want}")
+    spilled = {(kind, a): v for kind, e in ptxas.items() for a, v in e.items()
+               if v.get("spill_stores")}
+    if spilled:
+        raise AssertionError(f"fft_two_pass: instances spill registers: {spilled}")
     by_case = {}
     for name, (z, kernel, plain, library, cost, trips) in cases.items():
         by_radix = {}
@@ -1359,7 +1426,9 @@ def two_pass_phase(torch, k, card: str):
                          "bound_by": bound_by, "by_radix": by_radix}
         emit({"phase": "kernel", "kernel": "fft_two_pass", "case": name,
               "shape": list(z.shape), "bound_ms": bound_ms, "round_trips": trips,
-              "floor_ms": trips * bound_ms})
+              "floor_ms": trips * bound_ms, "ms": by_radix["2"]["ms"],
+              "stage_panel_ms_recorded": STAGE_PANEL_TWO_PASS_MS[name],
+              "library_ms": by_case[name]["library_ms"]})
     # Where a complex call's time goes: each pass alone, through the
     # helpers the wrapper launches, beside the bytes one pass must move.
     from repro_torch.kernels import fft_radix2
@@ -1368,9 +1437,9 @@ def two_pass_phase(torch, k, card: str):
     scratch, out = torch.empty_like(x), torch.empty_like(x)
     passes = {
         "columns": lambda: fft_radix2._column_pass(x, x.data_ptr(), scratch.data_ptr(), bc,
-                                                   nc, 2, False),
+                                                   nc, False),
         "rows": lambda: fft_radix2._row_pass(x, scratch.data_ptr(), out.data_ptr(), bc, nc,
-                                             2, False, 1.0),
+                                             False, 1.0),
     }
     pass_ms = {name: time_ms(fn) for name, fn in passes.items()}
     emit({"phase": "kernel", "kernel": "fft_two_pass", "case": "fft passes", "radix": 2,
@@ -1378,17 +1447,61 @@ def two_pass_phase(torch, k, card: str):
           "one_pass_bound_ms": by_case["fft"]["bound_ms"]})
     del x, cases, scratch, out
     torch.cuda.empty_cache()
+    worst = two_pass_every_length(torch, k, crandn, gen)
     main = by_case["fft"]
     errs = [r for c in by_case.values() for r in c["by_radix"].values()]
     return {"name": "fft_two_pass", "route": "cuda", "source": KERNELS["fft_two_pass"][0],
             "replaces": KERNELS["fft_two_pass"][1],
             "also_replaces": ["src/repro/kernels/fft_radix2.py:319",
                               "src/repro/kernels/fft_radix2.py:358"],
-            "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in errs),
-            "rel_err": max(r["rel_err"] for r in errs), "ms": main["ms"],
+            "launches": 0, "max_abs_err": max(worst["max_abs_err"],
+                                              *(r["max_abs_err"] for r in errs)),
+            "rel_err": max(worst["rel_err"], *(r["rel_err"] for r in errs)), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "pass_ms": pass_ms, "shape": main["shape"], "by_case": by_case}
+
+
+def two_pass_every_length(torch, k, crandn, gen):
+    """Every kind of fft_two_pass against its plain version at every row
+    length the two passes serve (N = 2^15 ... 2^18: complex rows split 256
+    x 128 to 512 x 512, real rows' halves 128 x 128 to 512 x 256), on 3 rows
+    and at both of the phase's shapes, each call launching 2 (complex) or 3
+    (real) times; returns the worst errors."""
+    shapes = [(3, 2 ** p) for p in range(15, 19)] + [TWO_PASS_COMPLEX, TWO_PASS_REAL]
+    worst = {"rel_err": 0.0, "max_abs_err": 0.0}
+    for b, n in shapes:
+        x = crandn(b, n)
+        r = torch.randn(b, n, generator=gen, device="cuda")
+        h = crandn(b, n // 2 + 1)
+        calls = {"fft": (lambda: k.fft_fused(x, radix=2), lambda: k.fft_two_pass_plain(x), 2),
+                 "ifft": (lambda: k.fft_fused(x, radix=2, inverse=True),
+                          lambda: k.fft_two_pass_plain(x, inverse=True), 2),
+                 "rfft": (lambda: k.rfft_fused(r, radix=2), lambda: k.rfft_two_pass_plain(r), 3),
+                 "irfft": (lambda: k.irfft_fused(h, radix=2),
+                           lambda: k.irfft_two_pass_plain(h), 3)}
+        line = {"phase": "kernel", "kernel": "fft_two_pass", "case": "every length",
+                "shape": [b, n], "rel_err": {}}
+        for name, (kernel, plain, trips) in calls.items():
+            before = k.LAUNCHES["fft_two_pass"]
+            got = kernel()
+            launched = k.LAUNCHES["fft_two_pass"] - before
+            ref = plain()
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            line["rel_err"][name] = err
+            worst["rel_err"] = max(worst["rel_err"], err)
+            worst["max_abs_err"] = max(worst["max_abs_err"], max_abs(got, ref))
+            del got, ref
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f"fft_two_pass {name} {(b, n)}: rel err {err} > {TOL_KERNEL}")
+            if launched != trips:
+                raise AssertionError(f"fft_two_pass {name} {(b, n)}: {launched} launches, "
+                                     f"not {trips}")
+        emit(line)
+        del x, r, h
+        torch.cuda.empty_cache()
+    return worst
 
 
 def cluster_phase(torch, k, card: str):

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "repro_fft_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "repro_rfft_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_irfft_fused": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "repro_two_pass_columns": (_P, _P, *(_I,) * 8, _I, _P),
-    "repro_two_pass_rows": (_P, _P, *(_I,) * 8, _F, _I, _P),
+    "repro_two_pass_columns": (_P, _P, *(_I,) * 7, _I, _P),
+    "repro_two_pass_rows": (_P, _P, *(_I,) * 7, _F, _I, _P),
     "repro_two_pass_recombine": (_P, _P, _I, _I, _I, _P),
     "repro_two_pass_untangle": (_P, _P, _I, _I, _I, _P),
     "repro_fft_cluster": (_P, _P, *(_I,) * 8, _F, _I, _P),

@@ -42,8 +42,7 @@
 // that all its reads precede its writes.
 // Radix 2 (the `fused` engine's route): the panel is loaded into shared
 // memory and the Stockham stages of stockham.cuh run down its columns
-// (line stride 1, element stride C), as the column pass of fft_two_pass.cu
-// does without its W_N twiddle, with the row stride a runtime value.
+// (line stride 1, element stride C), with the row stride a runtime value.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -126,7 +125,7 @@ fft2_columns_kernel(const float2* x,
   }
   __syncthreads();
   const Lines lines{buf, log_h, log_c, 1, cols, true};
-  stockham_panel<2>(lines, rom, log_h);
+  stockham_panel(lines, rom, log_h);
   float2* dst = y + at.base + at.c0;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     const int t = i & (cols - 1);

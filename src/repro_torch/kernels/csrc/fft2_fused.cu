@@ -13,24 +13,22 @@
 // an SM). Frames that do not fit take the row / HBM transpose / column
 // composition on fft_fused (repro_torch/kernels/ops.py).
 //
-// Radix 4: the register passes of stockham_regs.cuh (frame_panel), 16
-// values a thread, two radix-4 layers in registers per exchange through
-// shared memory. The row panel's first pass loads straight from HBM into
-// registers (coalesced: consecutive threads take consecutive groups of a
-// row), its later passes run in shared memory; the column panel maps
-// consecutive threads to consecutive columns, so the corner turn is that
-// mapping and each of its accesses covers consecutive slots; its last pass
-// stores straight from registers to HBM, whole rows of consecutive columns,
+// The register passes of stockham_regs.cuh (frame_panel), 16 values a
+// thread, two radix-4 layers (RADIX 4) or four radix-2 Stockham stages
+// (RADIX 2, r2_layers) in registers per exchange through shared memory. The
+// row panel's first pass loads straight from HBM into registers
+// (coalesced: consecutive threads take consecutive groups of a row), its
+// later passes run in shared memory; the column panel maps consecutive
+// threads to consecutive columns, so the corner turn is that mapping and
+// each of its accesses covers consecutive slots; its last pass stores
+// straight from registers to HBM, whole rows of consecutive columns,
 // conjugated and scaled for the inverse. A 128x128 frame is 16·8 on each
 // side: four passes, three exchanges and five barriers, where the
-// stage-at-a-time panel took about ten round trips through shared memory.
-// One instance serves every frame of the census with the line lengths and
-// strides as runtime values and the radix of each pass a compile-time one;
-// the 128x128 frame that chip_smoke times also has an instance of its own.
-//
-// Radix 2: the block stages the frame in shared memory and runs every
-// Stockham stage there (stockham.cuh); the column panel treats the W
-// columns as lines of element stride W and line stride 1.
+// stage-at-a-time panel took about ten round trips through shared memory
+// at radix 4 and fourteen at radix 2. One instance a radix serves every
+// frame of the census with the line lengths and strides as runtime values
+// and the radix of each pass a compile-time one; the 128x128 frame that
+// chip_smoke times also has an instance of its own at each radix.
 #include <cuda_runtime.h>
 
 #include "stockham.cuh"
@@ -39,42 +37,12 @@
 namespace repro {
 namespace {
 
-__global__ void __launch_bounds__(kMaxThreads)
-fft2_fused_kernel(const float2* __restrict__ x,
-    float2* __restrict__ y,
-    int log_h,
-    int log_w,
-    int conj,
-    float scale) {
-  extern __shared__ float2 smem[];
-  const int w = 1 << log_w;
-  const int P = 1 << (log_h + log_w);
-  const int log_nrom = log_h > log_w ? log_h : log_w;
-  float2* buf = smem;
-  float2* rom = smem + P;  // one ROM for both panels, at the longer length
-  build_rom(rom, 1 << (log_nrom - 1), 1 << log_nrom);
-  const long long base = static_cast<long long>(blockIdx.x) * P;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const float2 v = x[base + i];
-    buf[i] = conj ? cconj(v) : v;
-  }
-  __syncthreads();
-  const Lines rows{buf, log_w, log_h, w, 1, false};
-  stockham_panel<2>(rows, rom, log_nrom);
-  const Lines cols{buf, log_h, log_w, 1, w, true};
-  stockham_panel<2>(cols, rom, log_nrom);
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const float2 v = buf[i];
-    y[base + i] = make_float2(v.x * scale, (conj ? -v.y : v.y) * scale);
-  }
-}
-
-// Radix 4: rows, then columns, on the register passes; HBM -> registers ->
-// shared memory -> ... -> registers -> HBM. ROM: W_n^j, j < n/2, at the
-// longer side n, padded, after the padded frame. <0, 0> takes the frame's
-// geometry at run time; an instance with LOG_H, LOG_W fixed serves that
-// frame with every stride compile-time (fft2_regs_instance).
-template <int LOG_H, int LOG_W>
+// Rows, then columns, on the register passes; HBM -> registers -> shared
+// memory -> ... -> registers -> HBM. ROM: W_n^j, j < n/2, at the longer
+// side n, padded, after the padded frame. <0, 0> takes the frame's geometry
+// at run time; an instance with LOG_H, LOG_W fixed serves that frame with
+// every stride compile-time (fft2_regs_instance).
+template <int LOG_H, int LOG_W, int RADIX>
 __global__ void __launch_bounds__(kMaxThreads)
 fft2_regs_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
@@ -92,22 +60,24 @@ fft2_regs_kernel(const float2* __restrict__ x,
   const long long base = static_cast<long long>(blockIdx.x) * P;
   const bool rows_padded = regs::pass_count(log_w) == 1;
   const regs::SmemFrame<false> rows_out{smem, log_w, rows_padded};
-  regs::frame_panel<false>(smem, P, log_w, log_w, log_half, rom,
-                           regs::HbmFrameRows{x + base, log_w, conj ? -1.f : 1.f}, rows_out);
+  regs::frame_panel<false, RADIX>(smem, P, log_w, log_w, log_half, rom,
+                                  regs::HbmFrameRows{x + base, log_w, conj ? -1.f : 1.f},
+                                  rows_out);
   __syncthreads();
-  regs::frame_panel<true>(smem, P, log_w, log_h, log_half, rom,
-                          regs::SmemFrame<true>{smem, log_w, rows_padded},
-                          regs::HbmFrameOut<true>{y + base, log_w, scale, conj ? -scale : scale});
+  regs::frame_panel<true, RADIX>(
+      smem, P, log_w, log_h, log_half, rom, regs::SmemFrame<true>{smem, log_w, rows_padded},
+      regs::HbmFrameOut<true>{y + base, log_w, scale, conj ? -scale : scale});
 }
 
 // The 128x128 frame runs an instance of its own: with immediate offsets and
-// shifts it needs 52 registers, not 64, and runs about 10% faster on an H100
-// (PERF.md); every other frame runs <0, 0>.
+// shifts it needs 52 registers, not 64, at radix 4, and runs about 10%
+// faster on an H100 (PERF.md); every other frame runs <0, 0>.
 using Fft2RegsKernel = void (*)(const float2*, float2*, int, int, int, float);
 
+template <int RADIX>
 Fft2RegsKernel fft2_regs_instance(int log_h, int log_w) {
-  if (log_h == 7 && log_w == 7) return fft2_regs_kernel<7, 7>;
-  return fft2_regs_kernel<0, 0>;
+  if (log_h == 7 && log_w == 7) return fft2_regs_kernel<7, 7, RADIX>;
+  return fft2_regs_kernel<0, 0, RADIX>;
 }
 
 }  // namespace
@@ -121,23 +91,13 @@ extern "C" int repro_fft2_fused(const void* x, void* y, int frames, int h, int w
       (radix != 2 && radix != 4))
     return cudaErrorInvalidValue;
   const int half = (h > w ? h : w) / 2;
+  if (!repro::regs::geometry_ok(h * w, threads, smem, half)) return cudaErrorInvalidConfiguration;
   const int log_h = repro::host_log2(h), log_w = repro::host_log2(w);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const float2*>(x);
-  auto* out = static_cast<float2*>(y);
-  if (radix == 4) {
-    if (!repro::regs::geometry_ok(h * w, threads, smem, half))
-      return cudaErrorInvalidConfiguration;
-    const auto kernel = repro::fft2_regs_instance(log_h, log_w);
-    cudaError_t err = repro::prepare(kernel, device, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<frames, threads, smem, s>>>(in, out, log_h, log_w, conj, scale);
-    return cudaGetLastError();
-  }
-  if (!repro::geometry_ok(h * w, threads, smem, half)) return cudaErrorInvalidConfiguration;
-  const auto kernel = repro::fft2_fused_kernel;
+  const auto kernel = radix == 4 ? repro::fft2_regs_instance<4>(log_h, log_w)
+                                 : repro::fft2_regs_instance<2>(log_h, log_w);
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<frames, threads, smem, s>>>(in, out, log_h, log_w, conj, scale);
+  kernel<<<frames, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), log_h, log_w, conj, scale);
   return cudaGetLastError();
 }

@@ -342,7 +342,7 @@ irfft_fused_kernel(const float2* __restrict__ x,
   }
   __syncthreads();
   const Lines lines{buf, log_m, log_rows, m, 1, false};
-  stockham_panel<2>(lines, rom, log_m + 1);
+  stockham_panel(lines, rom, log_m + 1);
   const float inv = 1.0f / static_cast<float>(m);
   const long long base = row0 * m;
   const long long total = static_cast<long long>(batch) * m;

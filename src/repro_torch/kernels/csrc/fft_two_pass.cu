@@ -22,111 +22,205 @@
 //
 // Design: a row of N = n1 * n2 values is an (n1, n2) matrix x[j1, j2], and
 //   X[k1 + n1 k2] = sum_j2 W_n2^(j2 k2) W_N^(j2 k1) sum_j1 W_n1^(j1 k1) x[j1, j2].
-// Column pass: a block takes `cols` neighbouring columns of one row and
-// loads them as runs of `cols` float2 (coalesced), runs the Stockham panel
-// down the columns (the column mode of fft2_fused.cu: line stride 1,
-// element stride cols), multiplies element (k1, j2) by W_N^(j2 k1) and
-// stores it to the scratch in the same layout. The exponent p = j2 k1 < N
-// is an exact integer and -2p/N is exact in float32 (p < 2^24), so
-// sincospif gives each twiddle to the last bit, with nothing carried from
-// one element to the next.
-// Row pass: a block takes `rows` neighbouring rows k1 of the scratch (one
-// contiguous run), runs the panel along each, and writes out[k2 n1 + k1]:
-// the `rows` values of one k2 are neighbours in the output, so the
-// transposed store coalesces. Each line is padded by one value in shared
-// memory, so that the transposed read has no bank conflicts.
+// Both passes run the register passes of stockham_regs.cuh with radix-2
+// layers (r2_layers: four Stockham stages in registers per exchange through
+// shared memory, 16 values a thread), as the radix-2 fft_fused does.
+// Column pass: a block takes a panel of C neighbouring columns of one row's
+// view, as fft2_columns.cu takes a panel of a frame (frame_panel<true>,
+// consecutive threads on consecutive columns): the first pass loads runs of
+// C values (row stride n2) from HBM straight into registers, the middle
+// passes exchange through the padded frame layout, and the last multiplies
+// element (k1, j2) by W_N^(j2 k1) in registers and stores it straight to the
+// scratch in the same layout. The exponent p = j2 k1 < N is an exact
+// integer and -2p/N is exact in float32 (p < 2^24), so sincospif gives each
+// twiddle to the last bit, with nothing carried from one element to the
+// next.
+// Row pass: the scratch's rows k1 hold n2 contiguous values, but the output
+// is out[k2 n1 + k1], so the corner turn is addressing, as in the paper's
+// RAM controller. A block takes a tile of T neighbouring rows k1 (one
+// contiguous run). Its first pass loads them coalesced, consecutive threads
+// on consecutive groups of a row; every later pass puts consecutive threads
+// on consecutive rows (Lanes<true> over the tile's rows), so that the last
+// stores from registers runs of T consecutive k1 (HbmFrameOut<true> with
+// row stride n1). The tile's rows sit S = padded(n2) + 1 slots apart, each
+// padded inside (value i at slot(i)): the first pass's stride-16 writes
+// spread as in the one-block kernels, and the later passes' accesses of 16
+// consecutive rows fall on 16 bank pairs because S is odd. A row of 128
+// values holds 8 groups, so the first pass's half-warp takes rows q and
+// q + 8, whose slots differ by 8 S = 8 (mod 16) bank pairs
+// (tests/test_torch_two_pass_regpass.py holds a numpy model of every
+// access).
 // An inverse conjugates on the way into the column pass and on the way out
 // of the row pass, scaling by 1/N: no extra pass over HBM.
 // The real kinds run both passes at m = N/2 on the packed row (the N reals
 // read as N/2 complex values, as fft_fused.cu does), with an elementwise
 // recombination after them (rfft) or an untangling before them (irfft).
+// One instance of each pass a line length the census launches (n1, n2 =
+// 128, 256, 512 and their panel and tile widths), so every stride but the
+// other side's is compile-time.
 #include <climits>
 
 #include <cuda_runtime.h>
 
 #include "stockham.cuh"
+#include "stockham_regs.cuh"
 
 namespace repro {
 namespace {
 
 constexpr int kElementwiseThreads = 256;
 
+// The column pass's scratch, written by its last pass: element k1 = pos +
+// c l of panel column `line` (j2 = c0 + line) times W_N^(j2 k1), at
+// y[k1 n2 + j2] (y points at the row's scratch). 32-bit offsets: a row
+// holds at most 2^18 values.
+struct TwiddledColumns {
+  static constexpr bool kShared = false;
+  float2* y;
+  int log_n2;
+  int c0;
+  float inv_half_n;  // 2/N
+
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
+    if (!ok) return;
+    const int j2 = c0 + line;
+    float2* p = y + ((static_cast<unsigned>(pos) << log_n2) + j2);
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      float s, co;
+      sincospif(-static_cast<float>(j2 * (pos + c * l)) * inv_half_n, &s, &co);
+      p[static_cast<unsigned>(c * l) << log_n2] = cmul(v[regs::out_reg<R>(c)], make_float2(co, s));
+    }
+  }
+};
+
 // x, y: (B, n1, n2). y[k1, j2] = W_N^(j2 k1) sum_j1 W_n1^(j1 k1) conj_in(x)[j1, j2].
-template <int RADIX>
+// Shared memory: the padded panel of C = 2^LOG_C columns of n1 = 2^LOG_N1,
+// then the padded ROM of n1/2 twiddles W_n1^j.
+template <int LOG_N1, int LOG_C>
 __global__ void __launch_bounds__(kMaxThreads)
 two_pass_columns_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
-    int log_n1,
     int log_n2,
-    int log_cols,
     int conj) {
   extern __shared__ float2 smem[];
-  const int cols = 1 << log_cols;
-  const int P = 1 << (log_n1 + log_cols);
-  float2* buf = smem;  // buf[j1 * cols + t]: column c0 + t
-  float2* rom = smem + P;  // W_n1^j, j < n1/2
-  build_rom(rom, 1 << (log_n1 - 1), 1 << log_n1);
-  const int log_tiles = log_n2 - log_cols;
+  constexpr int P = 1 << (LOG_N1 + LOG_C);
+  constexpr int kLogHalf = LOG_N1 - 1;
+  float2* rom = smem + regs::padded(P);
+  regs::build_rom(rom, 1 << kLogHalf);
+  const int log_tiles = log_n2 - LOG_C;
   const long long row = blockIdx.x >> log_tiles;
-  const int c0 = static_cast<int>(blockIdx.x & ((1u << log_tiles) - 1)) << log_cols;
-  const long long offset = (row << (log_n1 + log_n2)) + c0;
-  const float2* src = x + offset;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const float2 v = src[(static_cast<long long>(i >> log_cols) << log_n2) + (i & (cols - 1))];
-    buf[i] = conj ? cconj(v) : v;
-  }
-  __syncthreads();
-  const Lines lines{buf, log_n1, log_cols, 1, cols, true};
-  stockham_panel<RADIX>(lines, rom, log_n1);
-  const float inv_half_n = 1.0f / static_cast<float>(1 << (log_n1 + log_n2 - 1));
-  float2* dst = y + offset;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int k1 = i >> log_cols;
-    const int t = i & (cols - 1);
-    float s, c;
-    sincospif(-static_cast<float>((c0 + t) * k1) * inv_half_n, &s, &c);
-    dst[(static_cast<long long>(k1) << log_n2) + t] = cmul(buf[i], make_float2(c, s));
-  }
+  const int c0 = static_cast<int>(blockIdx.x & ((1u << log_tiles) - 1)) << LOG_C;
+  const long long base = row << (LOG_N1 + log_n2);
+  const float inv_half_n = 1.0f / static_cast<float>(1 << (LOG_N1 + log_n2 - 1));
+  regs::frame_panel<true, 2>(
+      smem, P, LOG_C, LOG_N1, kLogHalf, rom,
+      regs::HbmColumns{x + base, nullptr, 1 << log_n2, c0, conj ? -1.f : 1.f, 1.f, 1.f},
+      TwiddledColumns{y + base, log_n2, c0, inv_half_n});
 }
+
+// The row tile in shared memory: element i of tile row `line` at
+// line S + slot(i). Every run a pass reads or writes has stride 1 inside an
+// aligned group of 16 (a first pass's writes) or a multiple of 16 (every
+// later access of a row of more than 16 values), so its slots are uniform.
+struct SmemTile {
+  static constexpr bool kShared = true;
+  float2* buf;
+  int stride;  // S, odd
+
+  template <int R, class F>
+  __device__ __forceinline__ void run(int line, int i, int step, F f) const {
+    float2* p = buf + line * stride + regs::slot(i);
+    const int ps = step == 1 ? 1 : regs::padded(step);
+#pragma unroll
+    for (int j = 0; j < R; ++j) f(j, p + j * ps);
+  }
+
+  template <int R>
+  __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
+    if (!ok) line = t = 0;
+    run<R>(line, t, s, [&](int j, const float2* p) { v[j] = *p; });
+  }
+
+  template <int R>
+  __device__ __forceinline__ void write(int line, int pos, int l, const float2* v, bool ok) const {
+    if (!ok) return;
+    run<R>(line, pos, l, [&](int c, float2* p) { *p = v[regs::out_reg<R>(c)]; });
+  }
+};
+
+// The row pass's first pass: consecutive threads on consecutive groups t of
+// a tile row (Lanes<false>: coalesced loads). Where a row holds 8 groups
+// (n2 = 128) a half-warp covers two rows, and takes q and q + 8 (bits 0 and
+// 3 of the row swapped): their slots differ by 8 S, so the two halves'
+// writes fall on the two halves of the bank pairs.
+struct FirstRowLanes {
+  __device__ __forceinline__ void split(int g, int log_s, int& line, int& t) const {
+    t = g & ((1 << log_s) - 1);
+    const int q = g >> log_s;
+    line = log_s == 3 ? (q & ~9) | ((q & 1) << 3) | ((q >> 3) & 1) : q;
+  }
+};
 
 // x: (B, n1, n2) from the column pass; y: (B, N) with
 // y[k2 n1 + k1] = conj_out(sum_j2 W_n2^(j2 k2) x[k1, j2]) * scale.
-template <int RADIX>
+// A tile of T = 2^LOG_T rows of n2 = 2^LOG_N2; shared memory: the tile (T
+// S slots), then the padded ROM of n2/2 twiddles W_n2^j.
+template <int LOG_N2, int LOG_T>
 __global__ void __launch_bounds__(kMaxThreads)
 two_pass_rows_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
     int log_n1,
-    int log_n2,
-    int log_rows,
     int conj,
     float scale) {
+  static_assert(LOG_N2 > 4 && LOG_T >= 4, "rows of two passes or more, tiles of 16 rows or more");
   extern __shared__ float2 smem[];
-  const int n2 = 1 << log_n2;
-  const int rows = 1 << log_rows;
-  const int stride = n2 + 1;
-  const int P = rows << log_n2;
-  float2* buf = smem;  // buf[r * stride + j2]: row k0 + r
-  float2* rom = smem + rows * stride;  // W_n2^j, j < n2/2
-  build_rom(rom, n2 >> 1, n2);
-  const int log_tiles = log_n1 - log_rows;
+  constexpr int P = 1 << (LOG_T + LOG_N2);
+  constexpr int kStride = regs::padded(1 << LOG_N2) + 1;
+  constexpr int kLogHalf = LOG_N2 - 1;
+  constexpr int NP = regs::pass_count(LOG_N2);
+  float2* rom = smem + (kStride << LOG_T);
+  regs::build_rom(rom, 1 << kLogHalf);
+  const int log_tiles = log_n1 - LOG_T;
   const long long row = blockIdx.x >> log_tiles;
-  const int k0 = static_cast<int>(blockIdx.x & ((1u << log_tiles) - 1)) << log_rows;
-  const long long base = row << (log_n1 + log_n2);
-  const float2* src = x + base + (static_cast<long long>(k0) << log_n2);
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    buf[(i >> log_n2) * stride + (i & (n2 - 1))] = src[i];
-  }
+  const int k0 = static_cast<int>(blockIdx.x & ((1u << log_tiles) - 1)) << LOG_T;
+  const long long base = row << (log_n1 + LOG_N2);
+  const SmemTile tile{smem, kStride};
+  regs::pass<4, 2>(P, LOG_N2, 0, kLogHalf, FirstRowLanes{}, rom,
+                   regs::HbmFrameRows{x + base + (static_cast<long long>(k0) << LOG_N2), LOG_N2,
+                                      1.f},
+                   tile);
   __syncthreads();
-  const Lines lines{buf, log_n2, log_rows, stride, 1, false};
-  stockham_panel<RADIX>(lines, rom, log_n2);
-  float2* dst = y + base + k0;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int r = i & (rows - 1);
-    const int k2 = i >> log_rows;
-    const float2 v = buf[r * stride + k2];
-    dst[(static_cast<long long>(k2) << log_n1) + r] =
-        make_float2(v.x * scale, (conj ? -v.y : v.y) * scale);
+  const regs::Lanes<true> rows{LOG_T};
+#pragma unroll
+  for (int p = 1; p < NP - 1; ++p) {
+    regs::pass<4, 2>(P, LOG_N2, 4 * p, kLogHalf, rows, rom, tile, tile);
+    __syncthreads();
   }
+  regs::pass<regs::last_log_radix(LOG_N2), 2>(
+      P, LOG_N2, 4 * (NP - 1), kLogHalf, rows, rom, tile,
+      regs::HbmFrameOut<true>{y + base + k0, log_n1, scale, conj ? -scale : scale});
+}
+
+using ColumnsKernel = void (*)(const float2*, float2*, int, int);
+using RowsKernel = void (*)(const float2*, float2*, int, int, float);
+
+// The instances of the census (two_pass_geometry in
+// repro_torch/kernels/fft_radix2.py): C = 32 columns of 128 and 16 of 256
+// and 512; T = 32 rows of 128 and 16 of 256 and 512. Null off the census.
+ColumnsKernel columns_instance(int log_n1, int log_c) {
+  if (log_n1 == 7 && log_c == 5) return two_pass_columns_kernel<7, 5>;
+  if (log_n1 == 8 && log_c == 4) return two_pass_columns_kernel<8, 4>;
+  if (log_n1 == 9 && log_c == 4) return two_pass_columns_kernel<9, 4>;
+  return nullptr;
+}
+
+RowsKernel rows_instance(int log_n2, int log_t) {
+  if (log_n2 == 7 && log_t == 5) return two_pass_rows_kernel<7, 5>;
+  if (log_n2 == 8 && log_t == 4) return two_pass_rows_kernel<8, 4>;
+  if (log_n2 == 9 && log_t == 4) return two_pass_rows_kernel<9, 4>;
+  return nullptr;
 }
 
 // rfft: y (B, m+1) from z (B, m), the half-size spectra of the packed rows.
@@ -171,10 +265,9 @@ two_pass_untangle_kernel(const float2* __restrict__ x,
 
 // The two passes' common checks: power-of-two sides, N < 2^24 (exact
 // twiddle exponents), and a grid of at most INT_MAX blocks.
-bool two_pass_ok(int batch, int n1, int n2, int lines, int side, int radix, long long* blocks) {
+bool two_pass_ok(int batch, int n1, int n2, int lines, int side, long long* blocks) {
   if (batch < 1 || n1 < 2 || n2 < 2 || !is_pow2(n1) || !is_pow2(n2) || !is_pow2(lines) ||
-      lines > side || (radix != 2 && radix != 4) ||
-      static_cast<long long>(n1) * n2 >= (1LL << 24))
+      lines > side || static_cast<long long>(n1) * n2 >= (1LL << 24))
     return false;
   *blocks = static_cast<long long>(batch) * (side / lines);
   return *blocks <= INT_MAX;
@@ -183,39 +276,41 @@ bool two_pass_ok(int batch, int n1, int n2, int lines, int side, int radix, long
 }  // namespace
 }  // namespace repro
 
-using repro::geometry_ok;
 using repro::host_log2;
 using repro::is_pow2;
 
-extern "C" int repro_two_pass_columns(const void* x, void* y, int batch, int n1, int n2,
-                                      int radix, int cols, int threads, int smem, int conj,
-                                      int device, void* stream) {
+extern "C" int repro_two_pass_columns(const void* x, void* y, int batch, int n1, int n2, int cols,
+                                      int threads, int smem, int conj, int device, void* stream) {
   long long blocks = 0;
-  if (!repro::two_pass_ok(batch, n1, n2, cols, n2, radix, &blocks)) return cudaErrorInvalidValue;
-  if (!geometry_ok(n1 * cols, threads, smem, n1 / 2)) return cudaErrorInvalidConfiguration;
-  auto kernel =
-      radix == 4 ? repro::two_pass_columns_kernel<4> : repro::two_pass_columns_kernel<2>;
+  if (!repro::two_pass_ok(batch, n1, n2, cols, n2, &blocks)) return cudaErrorInvalidValue;
+  const auto kernel = repro::columns_instance(host_log2(n1), host_log2(cols));
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  if (!repro::regs::geometry_ok(n1 * cols, threads, smem, n1 / 2))
+    return cudaErrorInvalidConfiguration;
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), host_log2(n1), host_log2(n2),
-      host_log2(cols), conj);
+      static_cast<const float2*>(x), static_cast<float2*>(y), host_log2(n2), conj);
   return cudaGetLastError();
 }
 
-extern "C" int repro_two_pass_rows(const void* x, void* y, int batch, int n1, int n2, int radix,
-                                   int rows, int threads, int smem, int conj, float scale,
-                                   int device, void* stream) {
+extern "C" int repro_two_pass_rows(const void* x, void* y, int batch, int n1, int n2, int rows,
+                                   int threads, int smem, int conj, float scale, int device,
+                                   void* stream) {
   long long blocks = 0;
-  if (!repro::two_pass_ok(batch, n1, n2, rows, n1, radix, &blocks)) return cudaErrorInvalidValue;
-  // The padding (one value per line) counts with the ROM.
-  if (!geometry_ok(rows * n2, threads, smem, n2 / 2 + rows)) return cudaErrorInvalidConfiguration;
-  auto kernel = radix == 4 ? repro::two_pass_rows_kernel<4> : repro::two_pass_rows_kernel<2>;
+  if (!repro::two_pass_ok(batch, n1, n2, rows, n1, &blocks)) return cudaErrorInvalidValue;
+  const auto kernel = repro::rows_instance(host_log2(n2), host_log2(rows));
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  // The tile's rows S = padded(n2) + 1 slots apart, then the padded ROM.
+  const int need =
+      (rows * (repro::regs::padded(n2) + 1) + repro::regs::padded(n2 / 2)) *
+      static_cast<int>(sizeof(float2));
+  if (smem < need || !repro::geometry_ok(rows * n2, threads, need, 0))
+    return cudaErrorInvalidConfiguration;
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), host_log2(n1), host_log2(n2),
-      host_log2(rows), conj, scale);
+      static_cast<const float2*>(x), static_cast<float2*>(y), host_log2(n1), conj, scale);
   return cudaGetLastError();
 }
 

@@ -81,7 +81,7 @@ rfft2_fused_kernel(const float2* __restrict__ x,
   for (int i = threadIdx.x; i < P; i += blockDim.x) buf[i] = x[base + i];
   __syncthreads();
   const Lines rows{buf, log_m, log_h, m, 1, false};
-  stockham_panel<2>(rows, rom, log_nrom);
+  stockham_panel(rows, rom, log_nrom);
 
   // Recombine each row in place: slot k <- Y[k] for 0 < k < m, slot 0 <-
   // Y[0] + i Y[m] (both real for a real row).
@@ -110,7 +110,7 @@ rfft2_fused_kernel(const float2* __restrict__ x,
   __syncthreads();
 
   const Lines cols{buf, log_h, log_m, 1, m, true};
-  stockham_panel<2>(cols, rom, log_nrom);
+  stockham_panel(cols, rom, log_nrom);
 
   // Column 0 now holds Z = A + iB with A, B the (Hermitian) transforms of
   // the DC and Nyquist columns: A = (Z[r] + conj Z[-r]) / 2,
@@ -279,7 +279,7 @@ irfft2_fused_kernel(const float2* __restrict__ x,
   }
   __syncthreads();
   const Lines cols{buf, log_h, log_m, 1, m, true};
-  stockham_panel<2>(cols, rom, log_nrom);
+  stockham_panel(cols, rom, log_nrom);
 
   // buf = conj(H * column inverse). Untangle each row in place into the
   // conjugated packed values of the half-size row inverse, as irfft_fused.
@@ -310,7 +310,7 @@ irfft2_fused_kernel(const float2* __restrict__ x,
   }
   __syncthreads();
   const Lines rows{buf, log_m, log_h, m, 1, false};
-  stockham_panel<2>(rows, rom, log_nrom);
+  stockham_panel(rows, rom, log_nrom);
   const float inv = 1.0f / static_cast<float>(P);
   const long long base = static_cast<long long>(blockIdx.x) * P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {

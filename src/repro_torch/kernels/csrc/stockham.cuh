@@ -1,9 +1,11 @@
 // Device functions shared by the fused FFT kernels: complex helpers, the
-// hoisted twiddle ROM, the Stockham panel (radix 2 or 4) over lines held in
-// shared memory, and the two-for-one real recombination / untangling.
+// hoisted twiddle ROM, the radix-2 Stockham panel over lines held in shared
+// memory (the radix-2 irfft_fused, rfft2_fused, irfft2_fused and
+// fft2_columns), and the two-for-one real recombination / untangling.
 //
 // Replaces the in-VMEM panels of src/repro/kernels/fft_radix2.py
-// (_stockham_panel, _stockham_panel_r4, _rfft_panel, _irfft_panel).
+// (_stockham_panel, _rfft_panel, _irfft_panel) for those kernels; the
+// others run the register passes of stockham_regs.cuh.
 //
 // Layout contract with the host census (repro_torch/kernels/fft_radix2.py):
 // a block holds P complex f32 values in dynamic shared memory, followed by
@@ -116,71 +118,11 @@ __device__ __forceinline__ void radix2_stage(const Lines& L, int log_l, const fl
   __syncthreads();
 }
 
-// One radix-4 Stockham stage of span l = 2^log_l: a_j = in[j*n/4 + q*l + k]
-// times W^j (W = W_{4l}^k = rom[k * n_rom/(4l)], W^2 and W^3 by complex
-// multiplication), then the 4-point butterfly whose +-i factors are swaps.
-__device__ __forceinline__ void radix4_stage(const Lines& L, int log_l, const float2* rom,
-                                             int log_nrom) {
-  const int log_span = L.log_n - 2;
-  const int quarter = 1 << log_span;
-  const int per = (1 << (L.log_lines + log_span)) / blockDim.x;
-  const int kmask = (1 << log_l) - 1;
-  const int rshift = log_nrom - 2 - log_l;
-  float2 y[kMaxPerThread];
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread / 4; ++i) {
-    if (i < per) {
-      int line, t;
-      L.split(threadIdx.x + i * blockDim.x, log_span, line, t);
-      const float2 w1 = rom[(t & kmask) << rshift];
-      const float2 w2 = cmul(w1, w1);
-      const float2 w3 = cmul(w2, w1);
-      const float2 a0 = L.at(line, t);
-      const float2 a1 = cmul(L.at(line, t + quarter), w1);
-      const float2 a2 = cmul(L.at(line, t + 2 * quarter), w2);
-      const float2 a3 = cmul(L.at(line, t + 3 * quarter), w3);
-      const float2 s02 = cadd(a0, a2), d02 = csub(a0, a2);
-      const float2 s13 = cadd(a1, a3), d13 = csub(a1, a3);
-      y[4 * i] = cadd(s02, s13);
-      y[4 * i + 1] = make_float2(d02.x + d13.y, d02.y - d13.x);
-      y[4 * i + 2] = csub(s02, s13);
-      y[4 * i + 3] = make_float2(d02.x - d13.y, d02.y + d13.x);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread / 4; ++i) {
-    if (i < per) {
-      int line, t;
-      L.split(threadIdx.x + i * blockDim.x, log_span, line, t);
-      const int o = ((t >> log_l) << (log_l + 2)) + (t & kmask);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) L.at(line, o + (c << log_l)) = y[4 * i + c];
-    }
-  }
-  __syncthreads();
-}
-
-// All stages over the lines, in the order of the Pallas panels: radix 2
-// throughout, or (RADIX == 4) one twiddle-free radix-2 stage when log2 n is
-// odd and radix 4 from there. The caller synchronises after loading `buf`
-// and after writing `rom`; the panel ends synchronised.
-template <int RADIX>
+// All radix-2 stages over the lines, in the order of the Pallas panel. The
+// caller synchronises after loading `buf` and after writing `rom`; the
+// panel ends synchronised.
 __device__ __forceinline__ void stockham_panel(const Lines& L, const float2* rom, int log_nrom) {
-  int log_l = 0;
-  if (RADIX == 4 && (L.log_n & 1)) {
-    radix2_stage(L, 0, rom, log_nrom);
-    log_l = 1;
-  }
-  while (log_l < L.log_n) {
-    if (RADIX == 4) {
-      radix4_stage(L, log_l, rom, log_nrom);
-      log_l += 2;
-    } else {
-      radix2_stage(L, log_l, rom, log_nrom);
-      log_l += 1;
-    }
-  }
+  for (int log_l = 0; log_l < L.log_n; ++log_l) radix2_stage(L, log_l, rom, log_nrom);
 }
 
 // Two-for-one recombination of bin k (0 <= k <= m) of a real length-2m

@@ -4,13 +4,14 @@
 // frame's rows and its columns, the radix-4 fft2_fused, rfft2_fused and
 // irfft2_fused (the "whole frames" section below), and, over a panel of
 // columns of a frame in HBM, the radix-4 fft2_columns (fft2_columns.cu).
-// The radix-2 fft_fused and rfft_fused run the same passes with radix-2
+// The radix-2 fft_fused, rfft_fused and fft2_fused and both passes of the
+// two-pass kernels (fft_two_pass.cu) run the same passes with radix-2
 // layers in registers (r2_layers below).
 //
 // Replaces the in-VMEM panels of src/repro/kernels/fft_radix2.py
-// (_stockham_panel_r4, and _stockham_panel for the radix-2 fft_fused and
-// rfft_fused) for those kernels; stockham.cuh's stage-at-a-time panel stays
-// for the others.
+// (_stockham_panel_r4, and _stockham_panel for the radix-2 fft_fused,
+// rfft_fused, fft2_fused and two passes) for those kernels; stockham.cuh's
+// stage-at-a-time panel stays for the others.
 //
 // A row is factored into passes of 16 values: 16 * 16 * ... * r, with the
 // last pass taking what is left (r = 8: one radix-2 and one radix-4 layer,
@@ -374,11 +375,11 @@ __device__ __forceinline__ void r2_layers(float2* v, int k, int log_l, int log_h
 // in place: it synchronises between its reads and its writes, and so does
 // a radix-2 first pass of more than one layer, which reads the ROM. The
 // one-block and cluster kernels pass compile-time geometry; the frame
-// kernels' may be runtime values.
-template <int LR, int RADIX = 4, bool COLS, class Src, class Dst>
-__device__ __forceinline__ void pass(int P, int log_n, int log_l, int log_half,
-                                     const Lanes<COLS>& lanes, const float2* rom, const Src& src,
-                                     const Dst& dst) {
+// kernels' may be runtime values. `lanes` is a Lanes<COLS> or any mapping
+// with its split (fft_two_pass.cu's first row pass).
+template <int LR, int RADIX = 4, class L, class Src, class Dst>
+__device__ __forceinline__ void pass(int P, int log_n, int log_l, int log_half, const L& lanes,
+                                     const float2* rom, const Src& src, const Dst& dst) {
   static_assert(RADIX == 2 || RADIX == 4, "radix-2 or radix-4 layers");
   constexpr int R = 1 << LR;
   constexpr int G = kValues / R;
@@ -627,17 +628,18 @@ struct HbmColumns {
 };
 
 // pass at the radix 2^lr of a runtime value (a line of 1 to 16 values is
-// one pass of its own length; the last pass of a longer one is 2 to 16).
-template <bool COLS, class Src, class Dst>
+// one pass of its own length; the last pass of a longer one is 2 to 16),
+// with RADIX's layers.
+template <int RADIX = 4, class L, class Src, class Dst>
 __device__ __forceinline__ void pass_r(int lr, int P, int log_n, int log_l, int log_half,
-                                       const Lanes<COLS>& lanes, const float2* rom,
-                                       const Src& src, const Dst& dst) {
+                                       const L& lanes, const float2* rom, const Src& src,
+                                       const Dst& dst) {
   switch (lr) {
-    case 0: pass<0>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
-    case 1: pass<1>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
-    case 2: pass<2>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
-    case 3: pass<3>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
-    default: pass<4>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 0: pass<0, RADIX>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 1: pass<1, RADIX>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 2: pass<2, RADIX>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    case 3: pass<3, RADIX>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
+    default: pass<4, RADIX>(P, log_n, log_l, log_half, lanes, rom, src, dst); break;
   }
 }
 
@@ -646,25 +648,27 @@ __device__ __forceinline__ void pass_r(int lr, int P, int log_n, int log_l, int 
 // in place, the first rewriting it plain -> last pass -> dst. One pass where a
 // line holds at most 16 values. The caller synchronises before a shared src
 // is read and after a shared dst is written; the ROM is read only after the
-// first barrier.
-template <bool COLS, class Src, class Dst>
+// first barrier. RADIX: the passes' layers (pass); at 2 each pass runs
+// r2_layers over its runtime span, and a first pass of more than one layer
+// reads the ROM after the barrier that follows its loads.
+template <bool COLS, int RADIX = 4, class Src, class Dst>
 __device__ __forceinline__ void frame_panel(float2* buf, int P, int log_w, int log_n, int log_half,
                                             const float2* rom, const Src& src, const Dst& dst) {
   const Lanes<COLS> lanes{log_w};
   const int np = pass_count(log_n);
   if (np == 1) {
-    pass_r(log_n, P, log_n, 0, log_half, lanes, rom, src, dst);
+    pass_r<RADIX>(log_n, P, log_n, 0, log_half, lanes, rom, src, dst);
     return;
   }
-  pass<4>(P, log_n, 0, log_half, lanes, rom, src, SmemFrame<COLS>{buf, log_w, true});
+  pass<4, RADIX>(P, log_n, 0, log_half, lanes, rom, src, SmemFrame<COLS>{buf, log_w, true});
   __syncthreads();
   for (int p = 1; p < np - 1; ++p) {
-    pass<4>(P, log_n, 4 * p, log_half, lanes, rom, SmemFrame<COLS>{buf, log_w, p == 1},
-            SmemFrame<COLS>{buf, log_w, false});
+    pass<4, RADIX>(P, log_n, 4 * p, log_half, lanes, rom, SmemFrame<COLS>{buf, log_w, p == 1},
+                   SmemFrame<COLS>{buf, log_w, false});
     __syncthreads();
   }
-  pass_r(last_log_radix(log_n), P, log_n, 4 * (np - 1), log_half, lanes, rom,
-         SmemFrame<COLS>{buf, log_w, np == 2}, dst);
+  pass_r<RADIX>(last_log_radix(log_n), P, log_n, 4 * (np - 1), log_half, lanes, rom,
+                SmemFrame<COLS>{buf, log_w, np == 2}, dst);
 }
 
 // Two-for-one recombination Y = Xe + w Xo from z = Z[k] and zm = conj Z[m-k]

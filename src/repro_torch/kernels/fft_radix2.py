@@ -22,8 +22,9 @@ live here:
   ``irfft_fused`` run at radix 4, and the three whole-frame kernels over a
   frame's rows and columns, with ``_rfft2_regpass`` and
   ``_irfft2_regpass``), ``_regpass_panel_r2`` (the same passes of radix-2
-  layers, the schedule ``fft_fused`` and ``rfft_fused`` run at radix 2, bit
-  for bit ``_stockham_panel``, which stands for it as their plain version), ``_two_pass_panel`` (the
+  layers, the schedule ``fft_fused``, ``rfft_fused``, ``fft2_fused`` and
+  both two passes run at radix 2, bit for bit ``_stockham_panel``, which
+  stands for it as their plain version), ``_two_pass_panel`` (the
   four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
@@ -111,6 +112,7 @@ __all__ = [
     "row_smem_bytes",
     "smem_slot",
     "two_pass_geometry",
+    "two_pass_row_stride",
 ]
 
 # ------------------------------- census -----------------------------------
@@ -130,11 +132,6 @@ ELEMS_PER_THREAD = 16
 ROW_TILE_ELEMS = 4096
 
 _COMPLEX_BYTES = 8
-
-
-def _block_bytes(elems: int, rom: int) -> int:
-    """A block's dynamic shared memory: its values plus the twiddle ROM."""
-    return (elems + rom) * _COMPLEX_BYTES
 
 
 def smem_slot(i: int) -> int:
@@ -180,8 +177,8 @@ def irfft_smem_bytes(n: int, rows: int = 1) -> int:
 
 def fft2_smem_bytes(h: int, w: int) -> int:
     """``fft2_fused``: the whole frame and one ROM of max(H, W)/2 twiddles
-    for the longer side, each padded for the radix-4 register passes (the
-    radix-2 panel uses the unpadded part)."""
+    for the longer side, each padded for the register passes (both
+    radices)."""
     return _padded_block_bytes(h * w, max(h, w) // 2)
 
 
@@ -262,19 +259,31 @@ class TwoPassGeometry(NamedTuple):
     row_smem: int
 
 
+def two_pass_row_stride(n2: int) -> int:
+    """Slots between neighbouring rows of the row pass's tile: the padded
+    row and one more, an odd count, so that 16 consecutive rows fall on 16
+    bank pairs (``SmemTile`` in ``csrc/fft_two_pass.cu``)."""
+    return smem_slot(n2) + 1
+
+
 def two_pass_geometry(n: int) -> TwoPassGeometry:
-    """The column pass holds ``cols`` columns of n1 values and a ROM of n1/2
-    twiddles; the row pass holds ``rows`` rows of n2 values, each padded by
-    one value so that its transposed store reads shared memory without bank
-    conflicts, and a ROM of n2/2. Each holds at least ``TWO_PASS_MIN_LINES``
-    lines and aims at ``ROW_TILE_ELEMS`` values, as a 1D block does."""
+    """The register-pass census of the two passes, 16 values a thread. The
+    column pass holds a panel of ``cols`` columns of n1 values and a ROM of
+    n1/2 twiddles, each padded (:func:`fft_smem_bytes`); the row pass a tile
+    of ``rows`` rows of n2 values, :func:`two_pass_row_stride` slots apart,
+    and a padded ROM of n2/2. Each holds at least ``TWO_PASS_MIN_LINES``
+    lines (every HBM run of the column pass and every store run of the row
+    pass at least 16 values, 128 bytes) and aims at ``ROW_TILE_ELEMS``
+    values, as a 1D block does: 32 lines of 128, 16 of 256 and 512, at
+    most 8192 values and 512 threads a block."""
     n1, n2 = fft_split(n)
     cols = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n1)
     rows = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n2)
     return TwoPassGeometry(
         n1, n2,
-        cols, block_threads(cols * n1), _block_bytes(cols * n1, n1 // 2),
-        rows, block_threads(rows * n2), _block_bytes(rows * (n2 + 1), n2 // 2),
+        cols, block_threads(cols * n1), _padded_block_bytes(cols * n1, n1 // 2),
+        rows, block_threads(rows * n2),
+        (rows * two_pass_row_stride(n2) + smem_slot(n2 // 2)) * _COMPLEX_BYTES,
     )
 
 
@@ -762,7 +771,8 @@ def _panel(radix: int):
 def _one_block_panel(radix: int):
     """The panel of the one-block kernels: the register passes at radix 4,
     the Stockham stages at radix 2 (bit for bit the radix-2 kernels'
-    register passes, :func:`_regpass_panel_r2`)."""
+    register passes, :func:`_regpass_panel_r2`, which ``fft_fused``,
+    ``rfft_fused`` and ``fft2_fused`` run there)."""
     _panel(radix)
     return _regpass_panel if radix == 4 else _stockham_panel
 
@@ -772,7 +782,9 @@ def _two_pass_panel(re: torch.Tensor, im: torch.Tensor, n: int, panel):
     computes it on the row viewed as (n1, n2) (:func:`fft_split`):
     ``panel`` over the n2 columns of length n1, the twiddle W_N^{j2·k1} on
     element (k1, j2), ``panel`` over the n1 rows of length n2, and the
-    transposed write out[k2·n1 + k1]."""
+    transposed write out[k2·n1 + k1]. The kernels run each panel as
+    :func:`_regpass_panel_r2`; the plain version runs
+    :func:`_stockham_panel`, the same bit for bit."""
     n1, n2 = fft_split(n)
     tb = re.shape[0]
 
@@ -1193,33 +1205,33 @@ def _check_fused_row(n: int, name: str, real: bool = False) -> bool:
     return fft_fits_smem(n, real=real)
 
 
-def _column_pass(x: torch.Tensor, src: int, scratch: int, b: int, n: int, radix: int,
+def _column_pass(x: torch.Tensor, src: int, scratch: int, b: int, n: int,
                  conj: bool) -> None:
     """Launch the column pass of ``csrc/fft_two_pass.cu`` on b rows of n
     complex values at ``src``, into the (b, n1, n2) ``scratch`` (``x`` names
     the device and stream)."""
     g = two_pass_geometry(n)
-    _launch("repro_two_pass_columns", "fft_two_pass", x, src, scratch, b, g.n1, g.n2, radix,
+    _launch("repro_two_pass_columns", "fft_two_pass", x, src, scratch, b, g.n1, g.n2,
             g.cols, g.col_threads, g.col_smem, int(conj))
 
 
-def _row_pass(x: torch.Tensor, scratch: int, dst: int, b: int, n: int, radix: int,
+def _row_pass(x: torch.Tensor, scratch: int, dst: int, b: int, n: int,
               conj: bool, scale: float) -> None:
     """Launch the row pass of ``csrc/fft_two_pass.cu``: ``scratch`` from the
     column pass into b rows of n complex values at ``dst``."""
     g = two_pass_geometry(n)
-    _launch("repro_two_pass_rows", "fft_two_pass", x, scratch, dst, b, g.n1, g.n2, radix,
+    _launch("repro_two_pass_rows", "fft_two_pass", x, scratch, dst, b, g.n1, g.n2,
             g.rows, g.row_threads, g.row_smem, int(conj), scale)
 
 
-def _two_pass(x: torch.Tensor, src: int, dst: int, b: int, n: int, radix: int,
+def _two_pass(x: torch.Tensor, src: int, dst: int, b: int, n: int,
               conj: bool, scale: float) -> None:
     """The column and the row pass on b rows of n complex values at ``src``,
     into ``dst``. The scratch between the passes is freed on return; the
     allocator reuses it only for work queued after both passes."""
     scratch = torch.empty((b, n), dtype=torch.complex64, device=x.device)
-    _column_pass(x, src, scratch.data_ptr(), b, n, radix, conj)
-    _row_pass(x, scratch.data_ptr(), dst, b, n, radix, conj, scale)
+    _column_pass(x, src, scratch.data_ptr(), b, n, conj)
+    _row_pass(x, scratch.data_ptr(), dst, b, n, conj, scale)
 
 
 def _cluster(x: torch.Tensor, src: int, dst: int, b: int, m: int, kind: str, conj: bool = False,
@@ -1273,7 +1285,7 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
     elif b and route == "fft_cluster":
         _cluster(x, x.data_ptr(), out.data_ptr(), b, n, "fft", inverse, scale)
     elif b:
-        _two_pass(x, x.data_ptr(), out.data_ptr(), b, n, radix, inverse, scale)
+        _two_pass(x, x.data_ptr(), out.data_ptr(), b, n, inverse, scale)
     return out
 
 
@@ -1306,7 +1318,7 @@ def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
         _cluster(x, x.data_ptr(), out.data_ptr(), b, m, "rfft")
     elif b:
         z = torch.empty((b, m), dtype=torch.complex64, device=x.device)
-        _two_pass(x, x.data_ptr(), z.data_ptr(), b, m, radix, False, 1.0)
+        _two_pass(x, x.data_ptr(), z.data_ptr(), b, m, False, 1.0)
         _launch("repro_two_pass_recombine", "fft_two_pass", x, z.data_ptr(), out.data_ptr(),
                 b, m)
     return out
@@ -1347,7 +1359,7 @@ def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
         # before the row pass overwrites ``out`` with the result.
         _launch("repro_two_pass_untangle", "fft_two_pass", y, y.data_ptr(), out.data_ptr(),
                 b, m)
-        _two_pass(y, out.data_ptr(), out.data_ptr(), b, m, radix, True, 1.0 / m)
+        _two_pass(y, out.data_ptr(), out.data_ptr(), b, m, True, 1.0 / m)
     return out
 
 

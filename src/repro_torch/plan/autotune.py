@@ -187,7 +187,8 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
     Stockham stages); over one block at radix 4 the cluster kernel (one
     round trip, its exchanges), at radix 2 the two-pass kernels on the (n1,
     n2) view of the row (at N/2 complex values when ``real``, plus one
-    elementwise round trip)."""
+    elementwise round trip): the register passes' exchanges of each pass,
+    whose first pass loads from HBM and last stores to HBM."""
     from repro_torch.kernels.fft_radix2 import (  # lazy
         cluster_exchanges,
         fft_fits_smem,
@@ -203,7 +204,19 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
     if radix == 4:
         return 1, cluster_exchanges(m)
     n1, n2 = fft_split(m)
-    return 3 if real else 2, _panel_passes(n1, radix) + _panel_passes(n2, radix)
+    return 3 if real else 2, regpass_exchanges(n1) + regpass_exchanges(n2)
+
+
+def _frame_passes(h: int, w: int, radix: int, real: bool, inverse: bool) -> int:
+    """Shared-memory passes of the whole-frame kernels on an (H, W) frame:
+    the register passes' exchanges (``frame_passes``) where they run, at
+    both radices of ``fft2_fused`` and at radix 4 of ``rfft2_fused`` and
+    ``irfft2_fused``; the radix-2 real frames keep the Stockham stages."""
+    from repro_torch.kernels.fft_radix2 import frame_passes  # lazy
+
+    if radix == 4 or not real:
+        return frame_passes(h, w, real=real, inverse=inverse).exchanges
+    return _panel_passes(w // 2, radix) + _panel_passes(h, radix)
 
 
 def _column_cost(h: int, radix: int) -> Tuple[int, int]:
@@ -236,7 +249,7 @@ def _fused_cuda_time(key: ProblemKey, radix: int, pass_s: float) -> float:
         h, w = key.shape[-2], key.shape[-1]
         if key.kind not in _COMPOSED_KINDS and fft2_fits_budget(h, w, real=real):
             trips = 1
-            passes = _panel_passes(w // 2 if real else w, radix) + _panel_passes(h, radix)
+            passes = _frame_passes(h, w, radix, real, inverse)
         else:
             row_trips, row_passes = _row_cost(w, radix, real, inverse)
             # fft2_columns: one trip and its panel's passes; longer columns

@@ -138,7 +138,9 @@ def test_card_keys_plan_onto_the_kernels_up_to_2_18(kind, shape):
 
 def test_two_pass_geometry_fits_a_block():
     """Both passes of every row the two passes serve hold at least 16 lines
-    and fit one block; the split is exact."""
+    and fit one block; the split is exact. The census is the register
+    passes': the column pass's panel and ROM padded, the row pass's tile
+    rows ``two_pass_row_stride`` slots apart and its ROM padded."""
     for p in range(14, 19):
         n = 2 ** p
         g = k.two_pass_geometry(n)
@@ -147,8 +149,8 @@ def test_two_pass_geometry_fits_a_block():
         assert k.TWO_PASS_MIN_LINES <= g.rows <= g.n1
         assert g.col_threads * k.ELEMS_PER_THREAD == g.cols * g.n1 <= 16 * k.MAX_THREADS
         assert g.row_threads * k.ELEMS_PER_THREAD == g.rows * g.n2 <= 16 * k.MAX_THREADS
-        assert g.col_smem == (g.cols * g.n1 + g.n1 // 2) * 8
-        assert g.row_smem == (g.rows * (g.n2 + 1) + g.n2 // 2) * 8
+        assert g.col_smem == (k.smem_slot(g.cols * g.n1) + k.smem_slot(g.n1 // 2)) * 8
+        assert g.row_smem == (g.rows * k.two_pass_row_stride(g.n2) + k.smem_slot(g.n2 // 2)) * 8
         assert max(g.col_smem, g.row_smem) <= k.SMEM_BUDGET_BYTES
     assert k.fft_split(2 ** 18) == (512, 512)
     assert k.row_smem_bytes(2 ** 14) == k.fft_smem_bytes(2 ** 14)  # one block

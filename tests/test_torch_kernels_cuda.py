@@ -101,9 +101,10 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
 @pytest.mark.cuda
 @pytest.mark.parametrize("radix", [2])
 def test_cuda_fft_two_pass_matches_plain(cuda, radix):
-    """Rows over one block take the two-pass kernels at radix 2: two
-    launches per complex call, three per real one; odd batches, forward
-    and inverse."""
+    """Rows over one block take the two-pass kernels at radix 2 (both
+    passes on register passes): two launches per complex call, three per
+    real one; odd batches, forward and inverse, every row length (every
+    column and row instance)."""
     g = torch.Generator(device=cuda).manual_seed(10 + radix)
 
     def crandn(*shape):
@@ -111,7 +112,8 @@ def test_cuda_fft_two_pass_matches_plain(cuda, radix):
                              torch.randn(*shape, generator=g, device=cuda))
 
     k.reset_launches()
-    for n in (2 ** 15, 2 ** 16, 2 ** 18):
+    lengths = (2 ** 15, 2 ** 16, 2 ** 17, 2 ** 18)
+    for n in lengths:
         x = crandn(3, n)
         for inverse in (False, True):
             got = k.fft_fused(x, radix=radix, inverse=inverse)
@@ -121,7 +123,7 @@ def test_cuda_fft_two_pass_matches_plain(cuda, radix):
         assert _rel(k.rfft_fused(r, radix=radix), k.rfft_two_pass_plain(r, radix=radix)) <= TOL
         y = crandn(3, n // 2 + 1)
         assert _rel(k.irfft_fused(y, radix=radix), k.irfft_two_pass_plain(y, radix=radix)) <= TOL
-    assert k.LAUNCHES["fft_two_pass"] == 3 * (2 * 2 + 3 + 3)
+    assert k.LAUNCHES["fft_two_pass"] == len(lengths) * (2 * 2 + 3 + 3)
     assert k.LAUNCHES["fft_fused"] == k.LAUNCHES["rfft_fused"] == k.LAUNCHES["irfft_fused"] == 0
     assert k.LAUNCHES["fft_cluster"] == 0
 
@@ -207,6 +209,29 @@ def test_cuda_frame_register_passes_match_plain(cuda):
         back = one_launch("irfft2_fused", k.irfft2_fused, got, radix=4)
         assert _rel(back, k.irfft2_fused_plain(got, radix=4)) <= TOL, hw
         assert _rel(back, r) <= 1e-4, hw
+
+
+@pytest.mark.cuda
+def test_cuda_frame_register_passes_r2_match_plain(cuda):
+    """The radix-2 fft2_fused (forward and inverse) runs the register-pass
+    kernel at radix 2 on every frame the census admits (91), three frames a
+    call, each within 2e-5 of its plain version (the stage panel) and of
+    torch.fft; one launch a call and nothing else."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    frames = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 15)]
+    complex_frames = [hw for hw in frames if k.fft2_fits_smem(*hw)]
+    assert len(complex_frames) == 91
+    for hw in complex_frames:
+        x = torch.complex(torch.randn(3, *hw, generator=g, device=cuda),
+                          torch.randn(3, *hw, generator=g, device=cuda))
+        for inverse in (False, True):
+            before = dict(k.LAUNCHES)
+            got = k.fft2_fused(x, radix=2, inverse=inverse)
+            delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
+            assert delta == {kn: int(kn == "fft2_fused") for kn in k.LAUNCHES}, delta
+            assert _rel(got, k.fft2_fused_plain(x, radix=2, inverse=inverse)) <= TOL, hw
+            ref = torch.fft.ifft2(x) if inverse else torch.fft.fft2(x)
+            assert _rel(got, ref) <= TOL, (hw, inverse)
 
 
 def _hermitian_edges(y, cols):

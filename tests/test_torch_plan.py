@@ -8,6 +8,7 @@ keys and variants. No card is needed: keys name one.
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,11 +81,36 @@ def test_smoke_requests_keep_their_engine(kind, shape, direction, dtype):
     (16, 4, False, False, (1, 0)),     # one pass, HBM to HBM
     (2 ** 18, 4, False, False, (1, 4)),  # cluster: 64 lines of 2^12, 16·16·16 + 1 exchange
     (2 ** 16, 4, True, False, (1, 4)),   # cluster at N/2: 16 lines of 2^11, 16·16·8 + 1
-    (2 ** 18, 2, False, False, (2, 18)),  # two-pass kernels: 512 x 512, 9 + 9
-    (2 ** 16, 2, True, False, (3, 15)),   # real two-pass: 256 x 128 at N/2
+    (2 ** 18, 2, False, False, (2, 4)),  # two-pass kernels: 512 x 512, 16·16·2 each, 2 + 2
+    (2 ** 16, 2, True, False, (3, 2)),    # real two-pass: 256 x 128 at N/2, 16·16 and 16·8
 ])
 def test_row_cost_counts_the_kernels_shared_memory_passes(n, radix, real, inverse, cost):
     assert _row_cost(n, radix, real, inverse) == cost
+
+
+@pytest.mark.parametrize("kind,shape,radix,passes", [
+    ("fft2d", (512, 128, 128), 2, 3),   # fft2_fused r2: the frame passes, 16·8 each way
+    ("fft2d", (512, 128, 128), 4, 3),   # the same passes at radix 4
+    ("rfft2d", (512, 128, 128), 4, 3),  # rfft2_fused r4: 16·4 rows, 16·8 columns
+    ("rfft2d", (512, 128, 128), 2, 13),  # rfft2_fused r2 keeps the stage panel: 6 + 7
+])
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+def test_whole_frames_are_priced_by_the_passes_that_run(kind, shape, radix, passes, direction):
+    """ESTIMATE prices a whole frame by its kernel's shared-memory passes:
+    the register passes' exchanges where they run (``fft2_fused`` at both
+    radices, the radix-4 real frames), the stage panel's stages for the
+    radix-2 real frames; one HBM trip, one launch."""
+    from repro_torch.launch.roofline import HBM_BW, SMEM_BW
+    from repro_torch.plan import autotune
+
+    key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
+                     dtype="complex64" if kind == "fft2d" else "float32", direction=direction)
+    real = kind == "rfft2d"
+    assert autotune._frame_passes(*shape[-2:], radix, real, direction == "inv") == passes
+    elems = float(np.prod(shape)) * (0.5 if real else 1.0)
+    want = (max(16.0 * elems / HBM_BW, 16.0 * elems * passes / SMEM_BW)
+            + autotune._KERNEL_LAUNCH_S + passes * 1e-6)
+    assert autotune._fused_cuda_time(key, radix, 1e-6) == pytest.approx(want, rel=1e-12)
 
 
 # Keys with rows over one block (2^14 < N <= 2^18): 1D rows and strip frames.
@@ -171,7 +197,8 @@ def test_tiny_transforms_on_the_card_plan_onto_a_kernel(kind, shape):
 # (``flop_scale``), and fused_r4 keeps every key it had. The 2-point half
 # row and the 2x2 real frame were ties before as well (both kernels do the
 # same work there) and went to ``fused`` by registry order; they now go to
-# fused_r4 too.
+# fused_r4 too. Whole complex frames tie as well since the radix-2
+# fft2_fused runs the radix-4 kernel's frame passes (the same exchanges).
 CARD_KEYS = sorted(set(SMOKE_KEYS) | set(LONG_ROW_KEYS) | {
     ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
     ("fft1d", (2, 16), "complex64"), ("fft2d", (1, 2, 4), "complex64"),
@@ -180,7 +207,8 @@ CARD_KEYS = sorted(set(SMOKE_KEYS) | set(LONG_ROW_KEYS) | {
 TIES = {("fft1d", (8192, 2048), "complex64"), ("rfft1d", (8192, 2048), "float32"),
         ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
         ("fft1d", (2, 16), "complex64"), ("rfft1d", (1, 4), "complex64"),
-        ("fft1d", (4, 2 ** 14), "complex64"), ("rfft2d", (1, 2, 2), "complex64")}
+        ("fft1d", (4, 2 ** 14), "complex64"), ("rfft2d", (1, 2, 2), "complex64"),
+        ("fft2d", (512, 128, 128), "complex64"), ("fft2d", (1, 2, 4), "complex64")}
 
 
 @pytest.mark.parametrize("kind,shape,dtype", CARD_KEYS)

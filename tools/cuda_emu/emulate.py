@@ -14,6 +14,8 @@ through it, and ``tests/test_torch_fft2_columns.py`` ``fft2_columns.cu``.
     PYTHONPATH=src python tools/cuda_emu/emulate.py 8x8 128x128 16384x2
     PYTHONPATH=src python tools/cuda_emu/emulate.py --all     # every admitted frame
     PYTHONPATH=src python tools/cuda_emu/emulate.py --rows    # fft_fused / rfft_fused / irfft_fused, n = 2 ... 2^14, radix 4 and 2
+    PYTHONPATH=src python tools/cuda_emu/emulate.py --two-pass  # fft_two_pass, n = 2^15 ... 2^18
+    PYTHONPATH=src python tools/cuda_emu/emulate.py --radix 2 128x128  # the frames at radix 2
 
 Prints each frame's largest error relative to max|twin| and to numpy, and
 exits 1 if a launch fails or an error vs the twin passes ``--tol``.
@@ -30,12 +32,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import fft_radix2 as k
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
-SOURCES = ("fft2_fused.cu", "rfft2_fused.cu", "fft_fused.cu")
+SOURCES = ("fft2_fused.cu", "rfft2_fused.cu", "fft_fused.cu", "fft_two_pass.cu")
+TWO_PASS_ENTRIES = ("repro_two_pass_columns", "repro_two_pass_rows", "repro_two_pass_recombine",
+                    "repro_two_pass_untangle")
 
 
 def compile_library(out: Path, sources, defines=()) -> ctypes.CDLL:
@@ -68,6 +73,8 @@ def build(out: Path) -> ctypes.CDLL:
     for fn in (so.repro_rfft2_fused, so.repro_irfft2_fused, so.repro_rfft_fused,
                so.repro_irfft_fused):
         fn.argtypes = [P, P, I, I, I, I, I, I, I, P]
+    for name in TWO_PASS_ENTRIES:
+        getattr(so, name).argtypes = list(_build._SIGNATURES[name])
     return so
 
 
@@ -75,39 +82,40 @@ def rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def frames(lib, h, w, rng):
+def frames(lib, h, w, rng, radix=4):
     """(errors vs twin, lines) of fft2 / ifft2 / rfft2 / irfft2 on two (h, w)
-    frames; irfft2 on a half spectrum that is not Hermitian, whose DC and
-    Nyquist imaginary parts the kernel must drop as numpy does."""
+    frames at ``radix``; irfft2 on a half spectrum that is not Hermitian,
+    whose DC and Nyquist imaginary parts the kernel must drop as numpy
+    does."""
     errs, out = [], []
     if k.fft2_fits_smem(h, w):
         x = (rng.standard_normal((2, h, w)) + 1j * rng.standard_normal((2, h, w))).astype(np.complex64)
         for inverse in (False, True):
             y = np.full_like(x, np.nan)
-            rc = lib.repro_fft2_fused(x.ctypes.data, y.ctypes.data, 2, h, w, 4,
+            rc = lib.repro_fft2_fused(x.ctypes.data, y.ctypes.data, 2, h, w, radix,
                                       k.block_threads(h * w), k.fft2_smem_bytes(h, w), int(inverse),
                                       1.0 / (h * w) if inverse else 1.0, 0, None)
             assert rc == 0, f"fft2 {h}x{w}: rc {rc}"
-            twin = k.fft2_fused_plain(torch.from_numpy(x), radix=4, inverse=inverse).numpy()
+            twin = k.fft2_fused_plain(torch.from_numpy(x), radix=radix, inverse=inverse).numpy()
             ref = (np.fft.ifft2 if inverse else np.fft.fft2)(x.astype(np.complex128))
             errs.append(rel(y, twin))
             out.append(f"{'ifft2' if inverse else 'fft2'} {errs[-1]:.1e} np {rel(y, ref):.1e}")
     if k.rfft2_fits_smem(h, w):
         r = rng.standard_normal((2, h, w)).astype(np.float32)
         y = np.full((2, h, w // 2 + 1), np.nan, np.complex64)
-        rc = lib.repro_rfft2_fused(r.ctypes.data, y.ctypes.data, 2, h, w, 4,
+        rc = lib.repro_rfft2_fused(r.ctypes.data, y.ctypes.data, 2, h, w, radix,
                                    k.block_threads(h * (w // 2)), k.rfft2_smem_bytes(h, w), 0, None)
         assert rc == 0, f"rfft2 {h}x{w}: rc {rc}"
-        twin = k.rfft2_fused_plain(torch.from_numpy(r), radix=4).numpy()
+        twin = k.rfft2_fused_plain(torch.from_numpy(r), radix=radix).numpy()
         errs.append(rel(y, twin))
         out.append(f"rfft2 {errs[-1]:.1e} np {rel(y, np.fft.rfft2(r.astype(np.float64))):.1e}")
         z = (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape)).astype(np.complex64)
         back = np.full((2, h, w), np.nan, np.float32)
-        rc = lib.repro_irfft2_fused(z.ctypes.data, back.ctypes.data, 2, h, w, 4,
+        rc = lib.repro_irfft2_fused(z.ctypes.data, back.ctypes.data, 2, h, w, radix,
                                     k.block_threads(h * (w // 2)), k.rfft2_smem_bytes(h, w), 0,
                                     None)
         assert rc == 0, f"irfft2 {h}x{w}: rc {rc}"
-        twin = k.irfft2_fused_plain(torch.from_numpy(z), radix=4).numpy()
+        twin = k.irfft2_fused_plain(torch.from_numpy(z), radix=radix).numpy()
         errs.append(rel(back, twin))
         ref = np.fft.irfft2(z.astype(np.complex128), s=(h, w))
         out.append(f"irfft2 {errs[-1]:.1e} np {rel(back, ref):.1e}")
@@ -144,12 +152,53 @@ def rows(lib, n, b, rng, radix=4):
     return errs
 
 
+def _two_pass(lib, x, y, b, m, conj, scale):
+    """The column and the row pass on b rows of m complex values, x -> y
+    (which may be x), through a scratch, as ``fft_radix2._two_pass``."""
+    g = k.two_pass_geometry(m)
+    scratch = np.full((b, m), np.nan, np.complex64)
+    assert lib.repro_two_pass_columns(x.ctypes.data, scratch.ctypes.data, b, g.n1, g.n2, g.cols,
+                                      g.col_threads, g.col_smem, conj, 0, None) == 0
+    assert lib.repro_two_pass_rows(scratch.ctypes.data, y.ctypes.data, b, g.n1, g.n2, g.rows,
+                                   g.row_threads, g.row_smem, conj, scale, 0, None) == 0
+
+
+def two_pass(lib, n, b, rng):
+    """Errors vs the plain versions of fft / ifft / rfft / irfft on (b, n)
+    rows over one block, each through the C entries the wrappers launch at
+    the census's geometry: the two passes (and the recombination after them,
+    or the untangling before them, into the output itself); irfft on a half
+    spectrum that is not Hermitian."""
+    errs = []
+    x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(np.complex64)
+    for inv in (0, 1):
+        y = np.full_like(x, np.nan)
+        _two_pass(lib, x, y, b, n, inv, 1.0 / n if inv else 1.0)
+        errs.append(rel(y, k.fft_two_pass_plain(torch.from_numpy(x), inverse=bool(inv)).numpy()))
+    m = n // 2
+    r = rng.standard_normal((b, n)).astype(np.float32)
+    z = np.full((b, m), np.nan, np.complex64)
+    _two_pass(lib, r, z, b, m, 0, 1.0)
+    y = np.full((b, m + 1), np.nan, np.complex64)
+    assert lib.repro_two_pass_recombine(z.ctypes.data, y.ctypes.data, b, m, 0, None) == 0
+    errs.append(rel(y, k.rfft_two_pass_plain(torch.from_numpy(r)).numpy()))
+    h = (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape)).astype(np.complex64)
+    back = np.full((b, n), np.nan, np.float32)
+    assert lib.repro_two_pass_untangle(h.ctypes.data, back.ctypes.data, b, m, 0, None) == 0
+    _two_pass(lib, back, back, b, m, 1, 1.0 / m)
+    errs.append(rel(back, k.irfft_two_pass_plain(torch.from_numpy(h)).numpy()))
+    return errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("frames", nargs="*", help="HxW frames (default 8x8 16x64 128x128)")
     ap.add_argument("--all", action="store_true", help="every frame either census admits")
     ap.add_argument("--rows", action="store_true",
                     help="the 1D kernels, n = 2 ... 2^14, batches 3 and 1, radix 4 and 2")
+    ap.add_argument("--two-pass", action="store_true",
+                    help="fft_two_pass, n = 2^15 ... 2^18, batches 3 and 1")
+    ap.add_argument("--radix", type=int, default=4, choices=(2, 4), help="the frames' radix")
     ap.add_argument("--tol", type=float, default=2e-5, help="largest error vs the twin")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "cuda_emu")
     args = ap.parse_args(argv)
@@ -163,15 +212,21 @@ def main(argv=None) -> int:
                     worst = max(worst, *errs)
                     print(f"rows radix {radix} n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs),
                           flush=True)
+    if args.two_pass:
+        for n in (2 ** p for p in range(15, 19)):
+            for b in (3, 1):
+                errs = two_pass(lib, n, b, np.random.default_rng(n + b))
+                worst = max(worst, *errs)
+                print(f"two-pass n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs), flush=True)
     if args.all:
         shapes = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 16)
                   if k.fft2_fits_smem(1 << a, 1 << b) or k.rfft2_fits_smem(1 << a, 1 << b)]
     else:
         shapes = [tuple(int(v) for v in f.split("x")) for f in args.frames]
-        if not shapes and not args.rows:
+        if not shapes and not (args.rows or args.two_pass):
             shapes = [(8, 8), (16, 64), (128, 128)]
     for h, w in shapes:
-        errs, out = frames(lib, h, w, np.random.default_rng(h * 1000 + w))
+        errs, out = frames(lib, h, w, np.random.default_rng(h * 1000 + w), args.radix)
         worst = max([worst, *errs])
         print(f"{h}x{w}: " + " | ".join(out), flush=True)
     print(f"worst vs twin {worst:.2e} (tol {args.tol:g})")

@@ -1,4 +1,4 @@
-"""fft_fused and rfft_fused from two source trees, in turns, on one NVIDIA card.
+"""The radix-2 FFT kernels and their radix-4 neighbours from two source trees, in turns, on one NVIDIA card.
 
     git archive HEAD src | tar -x -C build/parent      # the parent's tree
     python3 tools/fft_rows_ab.py build/parent          # against this checkout
@@ -6,13 +6,22 @@
 
 Runs the trees in turns (other, this, this, other), one process each, so
 that each builds its own kernels (``repro_torch.kernels._build``, keyed by
-a hash of the sources). In each process, at chip_smoke.py's (8192, 2048)
-and at radix 2 and 4: ``fft_fused`` forward and inverse and ``rfft_fused``
-on seeded Gaussian rows, each kernel's distance from its plain version
+a hash of the sources). In each process, on seeded Gaussian inputs at
+chip_smoke.py's shapes, each kernel's distance from its plain version
 (max|a - b| / max|b|) and its median CUDA-event time over 5 runs of 10
-launches, beside ``torch.fft.fft`` / ``rfft``. One JSON line a process,
-after the card's name and power limit. Needs CUDA; exits 2 without.
-chip_smoke.py checks every length and reads ptxas's registers and spills.
+launches, beside the ``torch.fft`` call that computes the same:
+
+* rows (8192, 2048), radix 2 and 4: ``fft_fused`` forward and inverse,
+  ``rfft_fused``;
+* rows over one block, radix 2 (``fft_two_pass``): fft and ifft on
+  TWO_PASS_COMPLEX (64, 2^18), rfft and irfft on TWO_PASS_REAL (256, 2^16);
+* frames (512, 128, 128): ``fft2_fused`` at radix 2 and 4, and the radix-4
+  ``rfft2_fused``, ``irfft2_fused`` (on (512, 128, 65)) and
+  ``fft2_columns`` (on the CT frames (32, 512, 512)).
+
+One JSON line a process, after the card's name and power limit. Needs
+CUDA; exits 2 without. chip_smoke.py checks every length and reads
+ptxas's registers and spills.
 
     python3 tools/fft_rows_ab.py --once                # this checkout, one process
 """
@@ -62,6 +71,15 @@ def crandn(*shape):
                          torch.randn(*shape, generator=g, device=dev))
 
 
+def case(fn, plain, library, arg):
+    got = fn(arg)
+    out = {"ms": ms(lambda: fn(arg)), "kernel_vs_plain": rel(got, plain(arg)),
+           "library_ms": ms(lambda: library(arg))}
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
 b, n = 8192, 2048
 x = crandn(b, n)
 r = torch.randn(b, n, generator=g, device=dev)
@@ -77,6 +95,36 @@ for radix in (2, 4):
              lambda a: k.rfft_fused_plain(a, radix=radix), r)):
         one[what] = {"ms": ms(lambda: fn(arg)), "kernel_vs_plain": rel(fn(arg), plain(arg))}
     res[f"radix {radix}"] = one
+del x, r
+bc, nc = 64, 2 ** 18
+br, nr = 256, 2 ** 16
+x = crandn(bc, nc)
+two = {
+    "fft": case(lambda a: k.fft_fused(a, radix=2), k.fft_two_pass_plain, torch.fft.fft, x),
+    "ifft": case(lambda a: k.fft_fused(a, radix=2, inverse=True),
+                 lambda a: k.fft_two_pass_plain(a, inverse=True), torch.fft.ifft, x),
+}
+del x
+two["rfft"] = case(lambda a: k.rfft_fused(a, radix=2), k.rfft_two_pass_plain, torch.fft.rfft,
+                   torch.randn(br, nr, generator=g, device=dev))
+two["irfft"] = case(lambda a: k.irfft_fused(a, radix=2), k.irfft_two_pass_plain,
+                    torch.fft.irfft, crandn(br, nr // 2 + 1))
+res["two pass radix 2"] = {"shapes": [[bc, nc], [br, nr]], **two}
+f = crandn(512, 128, 128)
+frames = {f"fft2_fused r{radix}": case(lambda a: k.fft2_fused(a, radix=radix),
+                                       lambda a: k.fft2_fused_plain(a, radix=radix),
+                                       torch.fft.fft2, f) for radix in (2, 4)}
+del f
+frames["rfft2_fused r4"] = case(lambda a: k.rfft2_fused(a, radix=4),
+                                lambda a: k.rfft2_fused_plain(a, radix=4), torch.fft.rfft2,
+                                torch.randn(512, 128, 128, generator=g, device=dev))
+frames["irfft2_fused r4"] = case(lambda a: k.irfft2_fused(a, radix=4),
+                                 lambda a: k.irfft2_fused_plain(a, radix=4), torch.fft.irfft2,
+                                 crandn(512, 128, 65))
+frames["fft2_columns r4 (32, 512, 512)"] = case(
+    lambda a: k.fft2_columns(a, radix=4), lambda a: k.fft2_columns_plain(a, radix=4),
+    lambda a: torch.fft.fft(a, dim=-2), crandn(32, 512, 512))
+res["frames (512, 128, 128)"] = frames
 print(json.dumps({"root": sys.argv[1], "shape": [b, n], **res}))
 """
 
