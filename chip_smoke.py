@@ -24,7 +24,12 @@ Phases, each printing one JSON line:
              threads and shared memory, and ptxas's registers and spills;
              fft2_fused also on wide (1024, 64, 256), rfft2_fused on tall
              (1024, 256, 64) frames and irfft2_fused on their half spectra
-             (1024, 256, 33), at both radices;
+             (1024, 256, 33), at both radices; for the radix-2 register
+             passes (fft_fused, rfft_fused, irfft_fused, fft2_fused,
+             rfft2_fused) their design line, ptxas's registers and spills
+             of each instance (0 spilled, or the phase fails) and the
+             recorded stage-panel time, and the rows at every n = 2 ... 2^14
+             on batches that mask the last row tile;
    kernel  — the same for fft2_columns, the column pass of the composed
              2D route, on the (32, 512, 512) CT frames (its library call
              ``torch.fft.fft(x, dim=-2)``), then on half-spectrum widths
@@ -616,30 +621,37 @@ STAGED = (8192, 2048)
 # on (512, 128, 65); printed beside this run's.
 STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "irfft_fused": 0.1056,
                      "fft2_fused": 0.1313, "rfft2_fused": 0.0725, "irfft2_fused": 0.0776}
-# The same for the radix-2 fft_fused and rfft_fused on (8192, 2048), which
-# ran the stage-at-a-time panel until their register passes, as PERF.md §6
-# records them (NVIDIA H100 80GB HBM3, 700.00 W).
-STAGE_PANEL_R2_MS = {"fft_fused": 0.3892, "rfft_fused": 0.2101}
-# The radix-2 fft2_fused on (512, 128, 128) and FRAME_WIDE, and
-# fft_two_pass's kinds on TWO_PASS_COMPLEX and TWO_PASS_REAL, with the
-# stage-at-a-time panel they ran before their register passes, as PERF.md
-# §6 records them (NVIDIA H100 80GB HBM3, 700.00 W).
-STAGE_PANEL_FFT2_R2_MS = {(512, 128, 128): 0.2108, (1024, 64, 256): 0.4281}
+# The same for the radix-2 fft_fused and rfft_fused on (8192, 2048) and
+# irfft_fused on (8192, 1025), which ran the stage-at-a-time panel until
+# their register passes, as PERF.md §6 records them (NVIDIA H100 80GB HBM3,
+# 700.00 W).
+STAGE_PANEL_R2_MS = {"fft_fused": 0.3892, "rfft_fused": 0.2101, "irfft_fused": 0.2049}
+# The radix-2 fft2_fused on (512, 128, 128) and FRAME_WIDE, rfft2_fused on
+# (512, 128, 128) and FRAME_TALL, and fft_two_pass's kinds on
+# TWO_PASS_COMPLEX and TWO_PASS_REAL, with the stage-at-a-time panel they
+# ran before their register passes, as PERF.md §6 records them (NVIDIA H100
+# 80GB HBM3, 700.00 W).
+STAGE_PANEL_FRAME_R2_MS = {("fft2_fused", (512, 128, 128)): 0.2108,
+                           ("fft2_fused", (1024, 64, 256)): 0.4281,
+                           ("rfft2_fused", (512, 128, 128)): 0.1041,
+                           ("rfft2_fused", (1024, 256, 64)): 0.2060}
 STAGE_PANEL_TWO_PASS_MS = {"fft": 0.5579, "ifft": 0.5574, "rfft": 0.2898, "irfft": 0.2883}
-# The register-pass instances of fft_fused and rfft_fused in the build log,
-# one a line length and radix: (log2 n, radix) and (log2 m, radix).
-ROW_PASS_ENTRIES = {"fft_fused": "15fft_regs_kernel", "rfft_fused": "16rfft_regs_kernel"}
+# The register-pass instances of the row kernels in the build log, one a
+# line length and radix: (log2 n, radix) and (log2 m, radix).
+ROW_PASS_ENTRIES = {"fft_fused": "15fft_regs_kernel", "rfft_fused": "16rfft_regs_kernel",
+                    "irfft_fused": "17irfft_regs_kernel"}
 # The two passes' instances, (log2 n1, log2 C) and (log2 n2, log2 T).
 TWO_PASS_ENTRIES = {"columns": "23two_pass_columns_kernel", "rows": "20two_pass_rows_kernel"}
 # Non-square frames of the whole-frame kernels: wide complex frames
 # (line-scan tiles) and tall real ones.
 FRAME_WIDE = (1024, 64, 256)
 FRAME_TALL = (1024, 256, 64)
-# The radix-4 register-pass instances in the build log: the whole-frame
-# kernels', and irfft_fused's (one a line length).
+# The register-pass instances of the whole-frame kernels in the build log:
+# (log2 H, log2 W, radix) of fft2_fused, (log2 H, log2 m, radix) of
+# rfft2_fused, and (log2 H, log2 m) of irfft2_fused, radix 4 only.
 FRAME_REGS_ENTRIES = {"fft2_fused": "16fft2_regs_kernel", "rfft2_fused": "17rfft2_regs_kernel",
                       "irfft2_fused": "18irfft2_regs_kernel"}
-ROW_REGS_ENTRIES = {"irfft_fused": "17irfft_regs_kernel"}
+FRAME_R2_KERNELS = ("fft2_fused", "rfft2_fused")
 # Rows over one block: FT-NMR free-induction decays of 256K complex points,
 # and 64K-sample real lines (radar range lines, spectroscopy).
 TWO_PASS_COMPLEX = (64, 2 ** 18)
@@ -969,16 +981,16 @@ def kernel_phase(torch, k, card: str):
                                                         if real and not inverse else None),
                     "ms": r4["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R4_MS[name],
                     "library_ms": rows[name]["library_ms"], "bound_ms": bound_ms}
-            if name in ROW_REGS_ENTRIES:
-                line["ptxas"] = ptxas_entries(_build.build_log(), ROW_REGS_ENTRIES[name]).get(
-                    ((n // 2).bit_length() - 1,))
+            if inverse:
+                line["ptxas"] = ptxas_entries(_build.build_log(), ROW_PASS_ENTRIES[name]).get(
+                    ((n // 2).bit_length() - 1, 4))
             emit(line)
             if name in ROW_PASS_ENTRIES:
                 radix2_rows(torch, k, name, rows[name], crandn, gen)
         elif name in FRAME_REGS_ENTRIES:
             frame_line(name, x.shape, r4["ms"], rows[name]["library_ms"], bound_ms)
-            if name == "fft2_fused":
-                frame_r2_line(x.shape, by_radix, rows[name]["library_ms"], bound_ms)
+            if name in FRAME_R2_KERNELS:
+                frame_r2_line(name, x.shape, by_radix, rows[name]["library_ms"], bound_ms)
         elif name == COLUMNS:
             column_lines(torch, k, rows[name], crandn, card)
         del x
@@ -992,13 +1004,16 @@ def radix2_rows(torch, k, name, row, crandn, gen):
     and barriers a row; ptxas's registers and spills of each instance, 0
     spilled the gate; the recorded stage-panel time beside this run's, the
     library's and the bound), then the kernel against its plain version at
-    every one-block length n = 2 ... 2^14 (fft_fused forward and inverse),
-    on a batch that leaves the last row tile masked wherever a tile holds
-    more than one row; the worst error joins the kernel's row."""
+    every one-block length n = 2 ... 2^14 (fft_fused forward and inverse;
+    irfft_fused on half spectra that are not Hermitian), on a batch that
+    leaves the last row tile masked wherever a tile holds more than one
+    row; the worst error joins the kernel's row."""
     from repro_torch.kernels import _build
 
-    b, n = row["shape"]
-    real = name == "rfft_fused"
+    n = row["shape"][1]
+    real, inverse = name != "fft_fused", name == "irfft_fused"
+    if inverse:  # a half spectrum
+        n = 2 * (n - 1)
     line_len = n // 2 if real else n
     instances = {args[0]: v for args, v in
                  ptxas_entries(_build.build_log(), ROW_PASS_ENTRIES[name]).items()
@@ -1006,12 +1021,12 @@ def radix2_rows(torch, k, name, row, crandn, gen):
     want = range(0, 14) if real else range(1, 15)
     spilled = {lg: v for lg, v in instances.items() if v.get("spill_stores")}
     line = {"phase": "kernel", "kernel": name, "design": "register passes (radix 2)",
-            "shape": [b, n], "passes": list(k.regpass_radices(line_len)),
+            "shape": row["shape"], "passes": list(k.regpass_radices(line_len)),
             "passes_per_row": len(k.regpass_radices(line_len)),
-            "exchanges_per_row": k.regpass_exchanges(n, real=real, radix=2),
-            "barriers_per_row": k.regpass_barriers(n, real=real, radix=2),
+            "exchanges_per_row": k.regpass_exchanges(n, real=real, inverse=inverse, radix=2),
+            "barriers_per_row": k.regpass_barriers(n, real=real, inverse=inverse, radix=2),
             "mirror_bins_paired_in_registers": (k.rfft_pairs_in_registers(line_len)
-                                                if real else None),
+                                                if real and not inverse else None),
             "ptxas": {str(lg): instances[lg] for lg in sorted(instances)},
             "ms": row["by_radix"]["2"]["ms"], "stage_panel_ms_recorded": STAGE_PANEL_R2_MS[name],
             "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]}
@@ -1026,7 +1041,10 @@ def radix2_rows(torch, k, name, row, crandn, gen):
         m = 2 ** p
         tile = k.pick_row_tile(1 << 30, m // 2 if real else m)
         batch = 2 * tile - 1 if tile > 1 else 3
-        if real:
+        if inverse:
+            y = crandn(batch, m // 2 + 1)
+            errs = [rel_err(k.irfft_fused(y, radix=2), k.irfft_fused_plain(y, radix=2))]
+        elif real:
             x = torch.randn(batch, m, generator=gen, device="cuda")
             errs = [rel_err(k.rfft_fused(x, radix=2), k.rfft_fused_plain(x, radix=2))]
         else:
@@ -1045,9 +1063,8 @@ def radix2_rows(torch, k, name, row, crandn, gen):
 def frame_line(name, shape, ms, library_ms, bound_ms):
     """The radix-4 whole-frame kernel's design line: passes, exchanges and
     barriers per frame, threads and shared memory of its block, ptxas's
-    registers and spills of each instance, and the recorded stage-panel
-    time."""
-    from repro_torch.kernels import _build
+    registers and spills of each radix-4 instance, and the recorded
+    stage-panel time."""
     from repro_torch.kernels import fft_radix2 as k
 
     _, h, w = shape
@@ -1061,37 +1078,50 @@ def frame_line(name, shape, ms, library_ms, bound_ms):
           "exchanges_per_frame": fp.exchanges, "barriers_per_frame": fp.barriers,
           "threads": k.block_threads(values),
           "smem_bytes": (k.rfft2_smem_bytes if real else k.fft2_smem_bytes)(h, w),
-          "ptxas": {",".join(map(str, args)): v for args, v in
-                    ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES[name]).items()},
+          "ptxas": {",".join(map(str, a)): v for a, v in sorted(frame_instances(name, 4).items())},
           "ms": ms, "stage_panel_ms_recorded": STAGE_PANEL_R4_MS.get(name),
           "library_ms": library_ms, "bound_ms": bound_ms})
 
 
-def frame_r2_line(shape, by_radix, library_ms, bound_ms):
-    """The radix-2 fft2_fused's design line (its frame passes, ptxas's
-    registers and spills of its two radix-2 instances, 0 spilled the gate)
-    with its time beside radix 4's, the library's, the bound and the
-    recorded stage-panel time."""
+def frame_instances(name, radix):
+    """ptxas's registers and spills of a whole-frame kernel's instances at
+    ``radix``, keyed (log2 H, log2 of the row's values): the entries whose
+    template arguments end in the radix, or, for irfft2_regs_kernel (radix
+    4 only), that have none."""
     from repro_torch.kernels import _build
+
+    out = {}
+    for args, v in ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES[name]).items():
+        if (args[2] if len(args) == 3 else 4) == radix:
+            out[args[:2]] = v
+    return out
+
+
+def frame_r2_line(name, shape, by_radix, library_ms, bound_ms):
+    """The radix-2 fft2_fused's or rfft2_fused's design line (its frame
+    passes, ptxas's registers and spills of its two radix-2 instances, 0
+    spilled the gate) with its time beside radix 4's, the library's, the
+    bound and the recorded stage-panel time."""
     from repro_torch.kernels import fft_radix2 as k
 
     _, h, w = shape
-    fp = k.frame_passes(h, w)
-    ptxas = {args[:2]: v for args, v in
-             ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES["fft2_fused"]).items()
-             if len(args) == 3 and args[2] == 2}
-    emit({"phase": "kernel", "kernel": "fft2_fused", "design": "register passes (radix 2)",
+    real = name == "rfft2_fused"
+    fp = k.frame_passes(h, w, real=real)
+    ptxas = frame_instances(name, 2)
+    want = [(0, 0), (7, 6) if real else (7, 7)]
+    emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 2)",
           "shape": list(shape), "row_passes": list(fp.rows), "column_passes": list(fp.cols),
           "exchanges_per_frame": fp.exchanges, "barriers_per_frame": fp.barriers,
           "ptxas": {",".join(map(str, a)): v for a, v in sorted(ptxas.items())},
           "ms": by_radix["2"]["ms"], "radix4_ms": by_radix["4"]["ms"],
-          "stage_panel_ms_recorded": STAGE_PANEL_FFT2_R2_MS.get(tuple(shape)),
+          "stage_panel_ms_recorded": STAGE_PANEL_FRAME_R2_MS.get((name, tuple(shape))),
           "library_ms": library_ms, "bound_ms": bound_ms})
-    if sorted(ptxas) != [(0, 0), (7, 7)]:
-        raise AssertionError(f"fft2_fused radix 2: instances {sorted(ptxas)} in the build log")
+    if sorted(ptxas) != want:
+        raise AssertionError(f"{name} radix 2: instances {sorted(ptxas)} in the build log, "
+                             f"want {want}")
     spilled = {a: v for a, v in ptxas.items() if v.get("spill_stores")}
     if spilled:
-        raise AssertionError(f"fft2_fused radix 2: instances spill registers: {spilled}")
+        raise AssertionError(f"{name} radix 2: instances spill registers: {spilled}")
 
 
 def column_lines(torch, k, row, crandn, card):
@@ -1140,9 +1170,9 @@ def column_lines(torch, k, row, crandn, card):
 def ptxas_entries(log: str, fragment: str):
     """Registers and spill bytes ptxas reported for each instance of the
     kernel whose mangled name holds ``fragment``, keyed by its integer
-    template arguments: {(7, 7): {...}} ((0, 0) the frame kernels' runtime
-    geometry; (log2 m,) for irfft_regs_kernel; (log2 C, log2 M, kind) for
-    fft_cluster_kernel; () for a kernel that is no template)."""
+    template arguments: {(7, 7, 4): {...}} ((0, 0, radix) the frame kernels'
+    runtime geometry; (log2 m, radix) for irfft_regs_kernel; (log2 C, log2
+    M, kind) for fft_cluster_kernel; () for a kernel that is no template)."""
     import re
 
     out, key = {}, None
@@ -1198,8 +1228,8 @@ def non_square_frames(torch, k, card, rows, crandn, gen):
                                      f"{one['rel_err']} > {TOL_KERNEL}")
         r4 = case["by_radix"]["4"]
         frame_line(name, x.shape, r4["ms"], case["library_ms"], bound_ms)
-        if name == "fft2_fused":
-            frame_r2_line(x.shape, case["by_radix"], case["library_ms"], bound_ms)
+        if name in FRAME_R2_KERNELS:
+            frame_r2_line(name, x.shape, case["by_radix"], case["library_ms"], bound_ms)
         row = rows[name]
         row["non_square"] = case
         row["max_abs_err"] = max(row["max_abs_err"],

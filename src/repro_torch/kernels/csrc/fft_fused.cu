@@ -34,14 +34,14 @@
 // up to 4096 values in the census's tiles) may use more than the 64
 // registers a thread of a 1024-thread block has.
 //
-// Radix 2: fft_fused and rfft_fused run the same passes, each doing its four
-// (or fewer) radix-2 Stockham stages in registers (regs::r2_layers): the
-// butterflies and twiddles of the stage-at-a-time panel, a 2048-point row in
-// three passes, two exchanges and three barriers where the stage panel took
-// eleven stages and 22 barriers. rfft_fused recombines as at radix 4, its
-// W_{2m}^k by sincospif. irfft_fused at radix 2 stages its rows in shared
-// memory, untangling on the way in, runs every Stockham stage there
-// (stockham.cuh) and stores once.
+// Radix 2: the same passes, each doing its four (or fewer) radix-2
+// Stockham stages in registers (regs::r2_layers): the butterflies and
+// twiddles of the stage-at-a-time panel, a 2048-point row in three passes,
+// two exchanges and three barriers where the stage panel took eleven stages
+// and 22 barriers. rfft_fused recombines as at radix 4, its W_{2m}^k by
+// sincospif; irfft_fused untangles in its first pass's reads as at radix 4
+// (its twiddles by sincospif there too), its 1024-point half row three
+// passes where the stage panel took ten stages.
 #include <cuda_runtime.h>
 
 #include <utility>
@@ -54,9 +54,9 @@ namespace {
 
 // Threads a register-pass block may have on lines of 2^log_n values: the
 // census's tiles hold at most 4096 values (256 threads) unless one line is
-// longer. fft_regs_kernel and rfft_regs_kernel also name one block an SM as
-// their minimum: without it ptxas held several instances to 64 registers
-// and spilled.
+// longer. The three row kernels also name one block an SM as their
+// minimum: without it ptxas held several instances to 64 registers and
+// spilled.
 __host__ __device__ constexpr int regs_max_threads(int log_n) {
   return log_n > 12 ? (1 << log_n) / regs::kValues : 256;
 }
@@ -246,10 +246,10 @@ RfftRegsKernel rfft_regs_kernel_for(int log_m, std::integer_sequence<int, I...>)
   return kernel;
 }
 
-// The first pass of the radix-4 irfft_fused reads the half spectra straight
-// from HBM (rows of m + 1 bins) and untangles on its way in: element k of a
-// line becomes regs::untangle(Y[k], Y[m-k], W_{2m}^k), the inverse's input to
-// the forward panel. At k = 0 the mirror is Y[m], the Nyquist bin, so nothing
+// The first pass of irfft_fused reads the half spectra straight from HBM
+// (rows of m + 1 bins) and untangles on its way in: element k of a line
+// becomes regs::untangle(Y[k], Y[m-k], W_{2m}^k), the inverse's input to the
+// forward panel. At k = 0 the mirror is Y[m], the Nyquist bin, so nothing
 // wraps; both lose their imaginary parts, as numpy drops them. Each j is
 // untangled as soon as its two loads are in (16 values live, not 32). The
 // pass runs before the first barrier, so W_{2m}^k comes from sincospif, not
@@ -279,13 +279,14 @@ struct UntangledHalfRows {
   }
 };
 
-// Radix 4: irfft_fused on the register-pass panel. x: (B, m+1) half spectra,
-// m = 2^LOG_M; y: (B, 2m) reals written as (B, m) packed complex. The first
-// pass untangles (UntangledHalfRows), the panel runs the half-size inverse
-// on the forward passes by conjugation, and the last pass stores conj / m
-// straight to HBM. ROM: W_m^j, j < m/2, padded (the panel's own).
-template <int LOG_M>
-__global__ void __launch_bounds__(regs_max_threads(LOG_M))
+// irfft_fused on the register-pass panel, its layers of radix RADIX. x: (B,
+// m+1) half spectra, m = 2^LOG_M; y: (B, 2m) reals written as (B, m) packed
+// complex. The first pass untangles (UntangledHalfRows), the panel runs the
+// half-size inverse on the forward passes by conjugation, and the last pass
+// stores conj / m straight to HBM. ROM: W_m^j, j < m/2, padded (the panel's
+// own).
+template <int LOG_M, int RADIX>
+__global__ void __launch_bounds__(regs_max_threads(LOG_M), 1)
 irfft_regs_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
     int batch,
@@ -296,68 +297,21 @@ irfft_regs_kernel(const float2* __restrict__ x,
   float2* rom = smem + regs::padded(P);
   regs::build_rom(rom, m / 2);
   const long long row0 = static_cast<long long>(blockIdx.x) << log_rows;
-  regs::panel<LOG_M, LOG_M - 1>(smem, P, rom, UntangledHalfRows<LOG_M>{x, row0, batch},
-                                regs::HbmRows<LOG_M>{nullptr, y, row0, batch, 1, 1.f / m});
+  regs::panel<LOG_M, LOG_M - 1, RADIX>(
+      smem, P, rom, UntangledHalfRows<LOG_M>{x, row0, batch},
+      regs::HbmRows<LOG_M>{nullptr, y, row0, batch, 1, 1.f / m});
 }
 
-template <int... I>
+template <int RADIX, int... I>
 RfftRegsKernel irfft_regs_kernel_for(int log_m, std::integer_sequence<int, I...>) {
   RfftRegsKernel kernel = nullptr;
-  ((log_m == I ? (kernel = irfft_regs_kernel<I>, 0) : 0), ...);
+  ((log_m == I ? (kernel = irfft_regs_kernel<I, RADIX>, 0) : 0), ...);
   return kernel;
-}
-
-// Radix 2. x: (B, m+1) complex half spectra; y: (B, 2m) reals written as
-// (B, m) packed complex. The inverse half-size transform runs on the forward
-// panel by conjugation and is scaled by 1/m.
-__global__ void __launch_bounds__(kMaxThreads)
-irfft_fused_kernel(const float2* __restrict__ x,
-    float2* __restrict__ y,
-    int batch,
-    int log_m,
-    int log_rows) {
-  extern __shared__ float2 smem[];
-  const int m = 1 << log_m;
-  const int P = m << log_rows;
-  float2* buf = smem;
-  float2* rom = smem + P;  // W_{2m}^j, j < m
-  build_rom(rom, m, 2 * m);
-  __syncthreads();
-  const long long row0 = static_cast<long long>(blockIdx.x) << log_rows;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int line = i >> log_m;
-    const int k = i & (m - 1);
-    float2 v = make_float2(0.f, 0.f);
-    if (row0 + line < batch) {
-      const float2* half = x + (row0 + line) * (m + 1);
-      float2 yk = half[k];
-      float2 ym = half[m - k];
-      if (k == 0) {  // DC and Nyquist bins of a Hermitian spectrum are real
-        yk.y = 0.f;
-        ym.y = 0.f;
-      }
-      v = cconj(irfft_untangle(yk, cconj(ym), cconj(rom[k])));
-    }
-    buf[i] = v;
-  }
-  __syncthreads();
-  const Lines lines{buf, log_m, log_rows, m, 1, false};
-  stockham_panel(lines, rom, log_m + 1);
-  const float inv = 1.0f / static_cast<float>(m);
-  const long long base = row0 * m;
-  const long long total = static_cast<long long>(batch) * m;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    if (base + i < total) {
-      const float2 v = buf[i];
-      y[base + i] = make_float2(v.x * inv, -v.y * inv);
-    }
-  }
 }
 
 }  // namespace
 }  // namespace repro
 
-using repro::geometry_ok;
 using repro::host_log2;
 using repro::is_pow2;
 
@@ -411,21 +365,14 @@ extern "C" int repro_irfft_fused(const void* x, void* y, int batch, int n, int r
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const float2*>(x);
   auto* out = static_cast<float2*>(y);
-  if (radix == 4) {
-    if (m >= (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
-    if (!repro::regs::geometry_ok(m * rows, threads, smem, m / 2))
-      return cudaErrorInvalidConfiguration;
-    const auto kernel = repro::irfft_regs_kernel_for(
-        host_log2(m), std::make_integer_sequence<int, repro::kRegsMaxLog>{});
-    cudaError_t err = repro::prepare(kernel, device, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows));
-    return cudaGetLastError();
-  }
-  if (!geometry_ok(m * rows, threads, smem, m)) return cudaErrorInvalidConfiguration;
-  const auto kernel = repro::irfft_fused_kernel;
+  if (m >= (1 << repro::kRegsMaxLog)) return cudaErrorInvalidValue;
+  if (!repro::regs::geometry_ok(m * rows, threads, smem, m / 2))
+    return cudaErrorInvalidConfiguration;
+  constexpr auto lengths = std::make_integer_sequence<int, repro::kRegsMaxLog>{};
+  const auto kernel = radix == 4 ? repro::irfft_regs_kernel_for<4>(host_log2(m), lengths)
+                                 : repro::irfft_regs_kernel_for<2>(host_log2(m), lengths);
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(m), host_log2(rows));
+  kernel<<<grid, threads, smem, s>>>(in, out, batch, host_log2(rows));
   return cudaGetLastError();
 }

@@ -19,11 +19,12 @@
 // both. Frames that do not fit take the row / HBM turn / column composition
 // (repro_torch/kernels/ops.py).
 //
-// rfft2_fused at radix 4: the register passes of stockham_regs.cuh
-// (frame_panel), as fft2_fused.cu runs them. The row panel loads the packed
-// rows straight from HBM into registers and leaves each row's half-size
-// spectrum Z in shared memory. The column panel's first pass recombines on
-// its way in: column c (consecutive threads take consecutive columns) reads
+// rfft2_fused: the register passes of stockham_regs.cuh (frame_panel), as
+// fft2_fused.cu runs them, two radix-4 layers (RADIX 4) or four radix-2
+// Stockham stages (RADIX 2, r2_layers) in registers per exchange. The row
+// panel loads the packed rows straight from HBM into registers and leaves
+// each row's half-size spectrum Z in shared memory. The column panel's
+// first pass recombines on its way in: column c (consecutive threads take consecutive columns) reads
 // Z[r][c] and the mirror Z[r][m-c], descending runs as free of bank
 // conflicts as the ascending ones, and makes Y[r][c] = Xe + W_W^c Xo, slot 0
 // DC + i Nyquist; so the recombination costs one more read per value and no
@@ -36,9 +37,11 @@
 // columns 16·8, three exchanges and six barriers, where the stage-at-a-time
 // panel and its in-place recombination took about twelve round trips. At
 // most 64 registers a thread, so two blocks of 512 threads (a 128x128
-// frame, 69 KiB) share an SM. One instance serves every frame of the census
-// with a runtime geometry; the 128x128 frame that chip_smoke times also has
-// an instance of its own.
+// frame, 69 KiB) share an SM. One instance a radix serves every frame of
+// the census with a runtime geometry; the 128x128 frame that chip_smoke
+// times also has an instance of its own at each radix. The recombination
+// takes its twiddles from sincospif (regs::w_2m) at either radix, and the
+// column-0 split takes none.
 //
 // irfft2_fused at radix 4: the same passes in the reverse order. The column
 // panel's first pass loads the half spectrum straight from HBM, conjugated,
@@ -51,8 +54,8 @@
 // straight to HBM, conjugated and scaled by 1/(H m). A 128x128 frame:
 // columns 16·8, rows 16·4, three exchanges and five barriers.
 //
-// Radix 2: the block stages the frame in shared memory, runs every Stockham
-// stage there (stockham.cuh), and the recombination and untangling run in
+// irfft2_fused at radix 2: the block stages the frame in shared memory, runs
+// every Stockham stage there (stockham.cuh), and the untangling runs in
 // place through registers; the corner turn is the column panel's indexing.
 #include <cuda_runtime.h>
 
@@ -62,82 +65,7 @@
 namespace repro {
 namespace {
 
-// x: (F, H, 2m) reals read as (F, H, m) packed complex; y: (F, H, m+1).
-__global__ void __launch_bounds__(kMaxThreads)
-rfft2_fused_kernel(const float2* __restrict__ x,
-    float2* __restrict__ y,
-    int log_h,
-    int log_m) {
-  extern __shared__ float2 smem[];
-  const int h = 1 << log_h;
-  const int m = 1 << log_m;
-  const int P = h << log_m;
-  const int log_nrom = log_h > log_m + 1 ? log_h : log_m + 1;
-  const int wshift = log_nrom - log_m - 1;  // W_{2m}^k = rom[k << wshift]
-  float2* buf = smem;
-  float2* rom = smem + P;  // one ROM, W^j for j <= n_rom/2: both panels and the recombination
-  build_rom(rom, (1 << (log_nrom - 1)) + 1, 1 << log_nrom);
-  const long long base = static_cast<long long>(blockIdx.x) * P;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) buf[i] = x[base + i];
-  __syncthreads();
-  const Lines rows{buf, log_m, log_h, m, 1, false};
-  stockham_panel(rows, rom, log_nrom);
-
-  // Recombine each row in place: slot k <- Y[k] for 0 < k < m, slot 0 <-
-  // Y[0] + i Y[m] (both real for a real row).
-  const int per = P / blockDim.x;
-  float2 v[kMaxPerThread];
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    if (i < per) {
-      const int idx = threadIdx.x + i * blockDim.x;
-      const int k = idx & (m - 1);
-      const float2* z = buf + (idx >> log_m) * m;
-      if (k == 0) {
-        const float2 dc = rfft_recombine(z, m, 0, rom[0]);
-        const float2 ny = rfft_recombine(z, m, m, rom[m << wshift]);
-        v[i] = make_float2(dc.x, ny.x);
-      } else {
-        v[i] = rfft_recombine(z, m, k, rom[k << wshift]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    if (i < per) buf[threadIdx.x + i * blockDim.x] = v[i];
-  }
-  __syncthreads();
-
-  const Lines cols{buf, log_h, log_m, 1, m, true};
-  stockham_panel(cols, rom, log_nrom);
-
-  // Column 0 now holds Z = A + iB with A, B the (Hermitian) transforms of
-  // the DC and Nyquist columns: A = (Z[r] + conj Z[-r]) / 2,
-  // B = -i (Z[r] - conj Z[-r]) / 2.
-  const int out_w = m + 1;
-  const long long out_base = static_cast<long long>(blockIdx.x) * h * out_w;
-  for (int i = threadIdx.x; i < h * out_w; i += blockDim.x) {
-    const int r = i / out_w;
-    const int k = i - r * out_w;
-    float2 o;
-    if (k != 0 && k != m) {
-      o = buf[r * m + k];
-    } else {
-      const float2 z = buf[r * m];
-      const float2 zm = cconj(buf[((h - r) & (h - 1)) * m]);
-      if (k == 0) {
-        o = make_float2(0.5f * (z.x + zm.x), 0.5f * (z.y + zm.y));
-      } else {
-        const float2 d = csub(z, zm);
-        o = make_float2(0.5f * d.y, -0.5f * d.x);
-      }
-    }
-    y[out_base + i] = o;
-  }
-}
-
-// The first column pass of the radix-4 rfft2_fused reads the row panel's
+// The first column pass of rfft2_fused reads the row panel's
 // half spectra Z (m columns) and recombines on the way in: column c of row r
 // becomes Y[r][c] = Xe + W_W^c Xo from Z[r][c] and conj Z[r][m-c] (W = 2m),
 // column 0 Y[r][0] + i Y[r][m] = (Re + Im) + i (Re - Im) of Z[r][0]. Column
@@ -179,12 +107,14 @@ struct RfftCols {
   }
 };
 
-// Radix 4: rfft2_fused on the register passes. x: (F, H, 2m) reals read as
-// (F, H, m) packed complex; y: (F, H, m+1). ROM: W_n^j, j < n/2, at
-// n = max(H, W), padded, after the padded frame: both panels' twiddles.
-// <0, 0> takes the frame's geometry at run time; an instance with LOG_H,
-// LOG_M fixed serves that frame with every stride compile-time.
-template <int LOG_H, int LOG_M>
+// rfft2_fused on the register passes, their layers of radix RADIX. x: (F,
+// H, 2m) reals read as (F, H, m) packed complex; y: (F, H, m+1). ROM: W_n^j,
+// j < n/2, at n = max(H, W), padded, after the padded frame: both panels'
+// twiddles (the rows' radix-2 stages read it at log_half past log2 m, as
+// fft2_fused's do on a frame wider than tall). <0, 0> takes the frame's
+// geometry at run time; an instance with LOG_H, LOG_M fixed serves that
+// frame with every stride compile-time.
+template <int LOG_H, int LOG_M, int RADIX>
 __global__ void __launch_bounds__(kMaxThreads)
 rfft2_regs_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
@@ -202,13 +132,13 @@ rfft2_regs_kernel(const float2* __restrict__ x,
   const long long frame = blockIdx.x;
   float2* out = y + frame * h * (m + 1);
   const bool rows_padded = regs::pass_count(log_m) == 1;
-  regs::frame_panel<false>(smem, P, log_m, log_m, log_n - 1, rom,
-                           regs::HbmFrameRows{x + frame * P, log_m, 1.f},
-                           regs::SmemFrame<false>{smem, log_m, rows_padded});
+  regs::frame_panel<false, RADIX>(smem, P, log_m, log_m, log_n - 1, rom,
+                                  regs::HbmFrameRows{x + frame * P, log_m, 1.f},
+                                  regs::SmemFrame<false>{smem, log_m, rows_padded});
   __syncthreads();
-  regs::frame_panel<true>(smem, P, log_m, log_h, log_n - 1, rom,
-                          RecombinedCols{{smem, log_m, rows_padded}},
-                          RfftCols{out, m + 1});
+  regs::frame_panel<true, RADIX>(smem, P, log_m, log_h, log_n - 1, rom,
+                                 RecombinedCols{{smem, log_m, rows_padded}},
+                                 RfftCols{out, m + 1});
   __syncthreads();
 
   // Column 0 of the output holds Z = A + iB, A and B the (Hermitian)
@@ -438,14 +368,15 @@ irfft2_regs_kernel(const float2* __restrict__ x,
                            regs::HbmFrameOut<false>{y + frame * P, log_m, scale, -scale});
 }
 
-// The 128x128 frame runs an instance of its own (rfft2: 54 registers, not
-// 64, and about 7% faster on an H100; irfft2: no spills, where <0, 0>
-// spills 24 bytes; PERF.md); every other frame runs <0, 0>.
+// The 128x128 frame runs an instance of its own (radix-4 rfft2: 54
+// registers, not 64, and about 7% faster on an H100; irfft2: no spills,
+// where <0, 0> spills 24 bytes; PERF.md); every other frame runs <0, 0>.
 using Rfft2RegsKernel = void (*)(const float2*, float2*, int, int);
 
+template <int RADIX>
 Rfft2RegsKernel rfft2_regs_instance(int log_h, int log_m) {
-  if (log_h == 7 && log_m == 6) return rfft2_regs_kernel<7, 6>;
-  return rfft2_regs_kernel<0, 0>;
+  if (log_h == 7 && log_m == 6) return rfft2_regs_kernel<7, 6, RADIX>;
+  return rfft2_regs_kernel<0, 0, RADIX>;
 }
 
 Rfft2RegsKernel irfft2_regs_instance(int log_h, int log_m) {
@@ -453,25 +384,24 @@ Rfft2RegsKernel irfft2_regs_instance(int log_h, int log_m) {
   return irfft2_regs_kernel<0, 0>;
 }
 
-// Both entries: a power-of-two frame of at least 2x2, the geometry of a
-// block holding H*W/2 values and the ROM (padded at radix 4), then the
-// launch of the radix-4 instance or the radix-2 kernel.
-cudaError_t launch(Rfft2RegsKernel (*regs_instance)(int, int), Rfft2RegsKernel stage_kernel,
-                   const void* x, void* y, int frames, int h, int w, int radix, int threads,
-                   int smem, int device, void* stream) {
-  if (frames < 1 || h < 2 || w < 2 || !is_pow2(h) || !is_pow2(w) ||
-      (radix != 2 && radix != 4))
-    return cudaErrorInvalidValue;
+// Both entries: a power-of-two frame of at least 2x2 and radix 2 or 4.
+bool frame_ok(int frames, int h, int w, int radix) {
+  return frames >= 1 && h >= 2 && w >= 2 && is_pow2(h) && is_pow2(w) &&
+         (radix == 2 || radix == 4);
+}
+
+// The geometry of a block holding H*W/2 values and the ROM (padded where
+// `kernel` runs the register passes), then the launch.
+cudaError_t launch(Rfft2RegsKernel kernel, bool regs_passes, const void* x, void* y, int frames,
+                   int h, int w, int threads, int smem, int device, void* stream) {
   const int half = (h > w ? h : w) / 2;
-  const int log_h = host_log2(h), log_m = host_log2(w / 2);
-  const bool ok = radix == 4 ? regs::geometry_ok(h * (w / 2), threads, smem, half)
-                             : geometry_ok(h * (w / 2), threads, smem, half + 1);
+  const bool ok = regs_passes ? regs::geometry_ok(h * (w / 2), threads, smem, half)
+                              : geometry_ok(h * (w / 2), threads, smem, half + 1);
   if (!ok) return cudaErrorInvalidConfiguration;
-  const auto kernel = radix == 4 ? regs_instance(log_h, log_m) : stage_kernel;
   const cudaError_t err = prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
   kernel<<<frames, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), log_h, log_m);
+      static_cast<const float2*>(x), static_cast<float2*>(y), host_log2(h), host_log2(w / 2));
   return cudaGetLastError();
 }
 
@@ -480,12 +410,19 @@ cudaError_t launch(Rfft2RegsKernel (*regs_instance)(int, int), Rfft2RegsKernel s
 
 extern "C" int repro_rfft2_fused(const void* x, void* y, int frames, int h, int w, int radix,
                                  int threads, int smem, int device, void* stream) {
-  return repro::launch(repro::rfft2_regs_instance, repro::rfft2_fused_kernel, x, y, frames, h, w,
-                       radix, threads, smem, device, stream);
+  using namespace repro;
+  if (!frame_ok(frames, h, w, radix)) return cudaErrorInvalidValue;
+  const int log_h = host_log2(h), log_m = host_log2(w / 2);
+  const auto kernel = radix == 4 ? rfft2_regs_instance<4>(log_h, log_m)
+                                 : rfft2_regs_instance<2>(log_h, log_m);
+  return launch(kernel, true, x, y, frames, h, w, threads, smem, device, stream);
 }
 
 extern "C" int repro_irfft2_fused(const void* x, void* y, int frames, int h, int w, int radix,
                                   int threads, int smem, int device, void* stream) {
-  return repro::launch(repro::irfft2_regs_instance, repro::irfft2_fused_kernel, x, y, frames, h,
-                       w, radix, threads, smem, device, stream);
+  using namespace repro;
+  if (!frame_ok(frames, h, w, radix)) return cudaErrorInvalidValue;
+  const auto kernel = radix == 4 ? irfft2_regs_instance(host_log2(h), host_log2(w / 2))
+                                 : irfft2_fused_kernel;
+  return launch(kernel, radix == 4, x, y, frames, h, w, threads, smem, device, stream);
 }

@@ -1,7 +1,7 @@
 // Device functions shared by the fused FFT kernels: complex helpers, the
 // hoisted twiddle ROM, the radix-2 Stockham panel over lines held in shared
-// memory (the radix-2 irfft_fused, rfft2_fused, irfft2_fused and
-// fft2_columns), and the two-for-one real recombination / untangling.
+// memory (the radix-2 irfft2_fused and fft2_columns), and the two-for-one
+// real recombination / untangling.
 //
 // Replaces the in-VMEM panels of src/repro/kernels/fft_radix2.py
 // (_stockham_panel, _rfft_panel, _irfft_panel) for those kernels; the

@@ -4,14 +4,14 @@
 // frame's rows and its columns, the radix-4 fft2_fused, rfft2_fused and
 // irfft2_fused (the "whole frames" section below), and, over a panel of
 // columns of a frame in HBM, the radix-4 fft2_columns (fft2_columns.cu).
-// The radix-2 fft_fused, rfft_fused and fft2_fused and both passes of the
-// two-pass kernels (fft_two_pass.cu) run the same passes with radix-2
-// layers in registers (r2_layers below).
+// The radix-2 fft_fused, rfft_fused, irfft_fused, fft2_fused and
+// rfft2_fused and both passes of the two-pass kernels (fft_two_pass.cu) run
+// the same passes with radix-2 layers in registers (r2_layers below).
 //
 // Replaces the in-VMEM panels of src/repro/kernels/fft_radix2.py
 // (_stockham_panel_r4, and _stockham_panel for the radix-2 fft_fused,
-// rfft_fused, fft2_fused and two passes) for those kernels; stockham.cuh's
-// stage-at-a-time panel stays for the others.
+// rfft_fused, irfft_fused, fft2_fused, rfft2_fused and two passes) for
+// those kernels; stockham.cuh's stage-at-a-time panel stays for the others.
 //
 // A row is factored into passes of 16 values: 16 * 16 * ... * r, with the
 // last pass taking what is left (r = 8: one radix-2 and one radix-4 layer,

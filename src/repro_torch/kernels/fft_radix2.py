@@ -22,9 +22,10 @@ live here:
   ``irfft_fused`` run at radix 4, and the three whole-frame kernels over a
   frame's rows and columns, with ``_rfft2_regpass`` and
   ``_irfft2_regpass``), ``_regpass_panel_r2`` (the same passes of radix-2
-  layers, the schedule ``fft_fused``, ``rfft_fused``, ``fft2_fused`` and
-  both two passes run at radix 2, bit for bit ``_stockham_panel``, which
-  stands for it as their plain version), ``_two_pass_panel`` (the
+  layers, the schedule ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
+  ``fft2_fused``, ``rfft2_fused`` and both two passes run at radix 2, bit
+  for bit ``_stockham_panel``, which stands for it as their plain
+  version), ``_two_pass_panel`` (the
   four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
@@ -168,10 +169,10 @@ def rfft_smem_bytes(n: int, rows: int = 1) -> int:
 
 
 def irfft_smem_bytes(n: int, rows: int = 1) -> int:
-    """``irfft_fused``: ``rows`` packed rows of N/2 values and N/2 twiddles
-    W_N^k (the radix-2 untangle's), each padded as in
-    :func:`fft_smem_bytes` (the radix-4 kernel untangles by ``sincospif``
-    and its panel reads N/4 of the twiddles, W_{N/2}^k)."""
+    """``irfft_fused``: ``rows`` packed rows of N/2 values and room for N/2
+    twiddles, each padded as in :func:`fft_smem_bytes`. The kernel (either
+    radix) untangles by ``sincospif`` and its panel reads N/4 of the
+    twiddles, W_{N/2}^k."""
     return _padded_block_bytes(rows * (n // 2), n // 2)
 
 
@@ -185,9 +186,10 @@ def fft2_smem_bytes(h: int, w: int) -> int:
 def rfft2_smem_bytes(h: int, w: int) -> int:
     """``rfft2_fused`` and ``irfft2_fused``: the frame as H rows of W/2
     packed values (DC and Nyquist share slot 0), and one ROM of
-    max(H, W)/2 + 1 twiddles, each padded for the radix-4 kernels (their
-    register passes read max(H, W)/2 of the twiddles; the radix-2 kernels
-    use the unpadded part)."""
+    max(H, W)/2 + 1 twiddles, each padded for the register passes (both
+    radices of ``rfft2_fused`` and radix 4 of ``irfft2_fused`` read
+    max(H, W)/2 of the twiddles; the radix-2 ``irfft2_fused``, on the stage
+    panel, uses the unpadded part)."""
     return _padded_block_bytes(h * (w // 2), max(h, w) // 2 + 1)
 
 
@@ -551,11 +553,9 @@ def _spills_recombination(n: int, real: bool, inverse: bool) -> bool:
     return real and not inverse and not rfft_pairs_in_registers(n // 2)
 
 
-def _check_regpass(real: bool, inverse: bool, radix: int) -> None:
+def _check_regpass(radix: int) -> None:
     if radix not in (2, 4):
         raise ValueError(f"radix must be 2 or 4, got {radix}")
-    if radix == 2 and real and inverse:
-        raise ValueError("irfft_fused at radix 2 runs the Stockham stages, not register passes")
 
 
 def regpass_exchanges(n: int, *, real: bool = False, inverse: bool = False,
@@ -563,12 +563,11 @@ def regpass_exchanges(n: int, *, real: bool = False, inverse: bool = False,
     """Exchanges through shared memory of the register-pass ``fft_fused``
     on a row of n (``real``: ``rfft_fused``, on its half row of n/2; ``real``
     and ``inverse``: ``irfft_fused``, which untangles in its first pass's
-    reads, at radix 4 only): the passes less one, as the first pass loads
-    from HBM and the last stores to HBM, plus one for ``rfft_fused``'s
-    recombination where it does not pair the mirror bins in registers. The
-    radix-2 and radix-4 layers share the passes, so the ``radix`` changes
-    no count."""
-    _check_regpass(real, inverse, radix)
+    reads): the passes less one, as the first pass loads from HBM and the
+    last stores to HBM, plus one for ``rfft_fused``'s recombination where it
+    does not pair the mirror bins in registers. The radix-2 and radix-4
+    layers share the passes, so the ``radix`` changes no count."""
+    _check_regpass(radix)
     m = n // 2 if real else n
     return len(regpass_radices(m)) - 1 + int(_spills_recombination(n, real, inverse))
 
@@ -580,7 +579,7 @@ def regpass_barriers(n: int, *, real: bool = False, inverse: bool = False,
     before the next read), one before the last; where ``rfft_fused``'s last
     pass writes shared memory it is in place too, and one more precedes
     the recombination."""
-    _check_regpass(real, inverse, radix)
+    _check_regpass(radix)
     m = n // 2 if real else n
     passes = len(regpass_radices(m))
     if _spills_recombination(n, real, inverse):
@@ -589,7 +588,7 @@ def regpass_barriers(n: int, *, real: bool = False, inverse: bool = False,
 
 
 class FramePasses(NamedTuple):
-    """The register passes of the radix-4 whole-frame kernels on one frame
+    """The register passes of the whole-frame kernels on one frame
     (``frame_panel`` in ``csrc/stockham_regs.cuh``)."""
 
     rows: Tuple[int, ...]  # radices of the row panel (rfft2: over W/2)
@@ -599,8 +598,11 @@ class FramePasses(NamedTuple):
 
 
 def frame_passes(h: int, w: int, *, real: bool = False, inverse: bool = False) -> FramePasses:
-    """Passes, exchanges and barriers of the radix-4 whole-frame kernels on
-    an (H, W) frame. The first panel's first pass loads from HBM and the
+    """Passes, exchanges and barriers of the register-pass whole-frame
+    kernels on an (H, W) frame: ``fft2_fused`` and ``rfft2_fused`` at either
+    radix (the radix-2 layers take the radix-4 passes), ``irfft2_fused`` at
+    radix 4 (at radix 2 it runs the Stockham stages). The first panel's
+    first pass loads from HBM and the
     second panel's last stores to HBM, so T passes make T - 1 exchanges;
     each boundary between passes is a barrier, and so is the middle of every
     pass that reads and writes shared memory in place: 2T - 3. ``rfft2_fused``
@@ -772,7 +774,8 @@ def _one_block_panel(radix: int):
     """The panel of the one-block kernels: the register passes at radix 4,
     the Stockham stages at radix 2 (bit for bit the radix-2 kernels'
     register passes, :func:`_regpass_panel_r2`, which ``fft_fused``,
-    ``rfft_fused`` and ``fft2_fused`` run there)."""
+    ``rfft_fused``, ``irfft_fused``, ``fft2_fused`` and ``rfft2_fused`` run
+    there)."""
     _panel(radix)
     return _regpass_panel if radix == 4 else _stockham_panel
 
@@ -1019,19 +1022,20 @@ def _recombine(zr, zi, mr, mi, wr, wi):
     return xer + wr * xor_ - wi * xoi, xei + wr * xoi + wi * xor_
 
 
-def _rfft2_regpass(x: torch.Tensor) -> torch.Tensor:
-    """The radix-4 ``rfft2_fused`` kernel (``csrc/rfft2_fused.cu``,
-    ``rfft2_regs_kernel``) step for step: the register passes over the H
-    packed rows of m = W/2; the first column pass's recombination, column c
+def _rfft2_regpass(x: torch.Tensor, panel) -> torch.Tensor:
+    """The ``rfft2_fused`` kernel (``csrc/rfft2_fused.cu``,
+    ``rfft2_regs_kernel``) step for step, its passes on ``panel`` (see
+    :func:`_one_block_panel`): the passes over the H packed rows of m =
+    W/2; the first column pass's recombination, column c
     of row r becoming Y[r][c] = Xe + W_W^c·Xo from Z[r][c] and
     conj Z[r][m-c], column 0 (Re + Im) + i(Re - Im) of Z[r][0] (DC + i
-    Nyquist); the register passes over the m columns; column 0 split into
+    Nyquist); the passes over the m columns; column 0 split into
     A = (Z[r] + conj Z[-r])/2 (DC) and B = -i(Z[r] - conj Z[-r])/2
     (Nyquist)."""
     f, h, w = x.shape
     m = w // 2
     packed = x.reshape(f * h, m, 2)
-    zr, zi = _regpass_panel(packed[..., 0], packed[..., 1], m)  # (f·h, m)
+    zr, zi = panel(packed[..., 0], packed[..., 1], m)  # (f·h, m)
     mirror = (-torch.arange(m, device=x.device)) % m
     c = torch.arange(m, dtype=torch.float64, device=x.device)
     ang = c * (-2.0 * math.pi / w)
@@ -1042,7 +1046,7 @@ def _rfft2_regpass(x: torch.Tensor) -> torch.Tensor:
     def turn(z, a, b):  # (f, a, b) -> (f·b, a)
         return z.reshape(f, a, b).transpose(1, 2).reshape(f * b, a)
 
-    yr, yi = _regpass_panel(turn(yr, h, m), turn(yi, h, m), h)  # (f·m, h)
+    yr, yi = panel(turn(yr, h, m), turn(yi, h, m), h)  # (f·m, h)
     yr, yi = turn(yr, m, h).reshape(f, h, m), turn(yi, m, h).reshape(f, h, m)
     rows = (-torch.arange(h, device=x.device)) % h
     zr, zi = yr[:, :, 0], yi[:, :, 0]
@@ -1055,19 +1059,10 @@ def _rfft2_regpass(x: torch.Tensor) -> torch.Tensor:
 
 def rfft2_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`rfft2_fused`: (F, H, W) float32 ->
-    (F, H, W/2+1); row rfft panel, corner turn, column panel, turn back.
-    At radix 4 the kernel's own order (:func:`_rfft2_regpass`): the packed
-    columns DC + i Nyquist go through the column panel together."""
-    if radix == 4:
-        return _rfft2_regpass(x)
-    f, h, w = x.shape
-    half = w // 2 + 1
-    yr, yi = _rfft_panel(x.reshape(f * h, w), w, radix)
-    yr = yr.reshape(f, h, half).transpose(-1, -2).reshape(f * half, h)
-    yi = yi.reshape(f, h, half).transpose(-1, -2).reshape(f * half, h)
-    yr, yi = _panel(radix)(yr, yi, h)
-    return _complex(yr.reshape(f, half, h).transpose(-1, -2),
-                    yi.reshape(f, half, h).transpose(-1, -2))
+    (F, H, W/2+1) in the kernel's own order (:func:`_rfft2_regpass`) on
+    the panel of :func:`fft_fused_plain`: the packed columns DC + i Nyquist
+    go through the column panel together."""
+    return _rfft2_regpass(x, _one_block_panel(radix))
 
 
 def _irfft2_regpass(y: torch.Tensor) -> torch.Tensor:

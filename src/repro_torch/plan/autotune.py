@@ -28,17 +28,17 @@ those of its column panel: a one-block row of H values at radix 4, the
 Stockham stages at radix 2), and where the columns are longer than that
 kernel serves (H > 4096) the column rows' trips plus one for the two corner
 turns through HBM. Shared memory: every pass reads and writes the block's
-values once. A stage-at-a-time Stockham pass (radix 2 in the two-pass
-kernels, the frame and column kernels and ``irfft_fused``) does one
-butterfly stage, or two layers at radix 4. A one-block ``fft_fused`` or
-``rfft_fused`` row at either radix, and every one-block row at radix 4,
-runs the register-pass panel of ``csrc/stockham_regs.cuh``: four radix-2
-layers a pass, or two radix-4 ones, the first loaded from HBM and the last
-stored to HBM, so its exchanges through shared memory are its passes less
-one, plus one where a real row's recombination reads the half spectrum
-back from shared memory; the model times both radices alike there, and
-ESTIMATE ranks the radix-4 engine, of fewer operations, first
-(:func:`fastest_variant`). The cluster kernel runs that
+values once. A stage-at-a-time Stockham pass (radix 2 in ``irfft2_fused``
+and ``fft2_columns``) does one butterfly stage. Every one-block row
+(``fft_fused``, ``rfft_fused``, ``irfft_fused``), the whole frames of
+``fft2_fused`` and ``rfft2_fused``, and ``irfft2_fused`` at radix 4 run
+the register passes of ``csrc/stockham_regs.cuh`` at either radix: four
+radix-2 layers a pass, or two radix-4 ones, the first loaded from HBM and
+the last stored to HBM, so their exchanges through shared memory are
+their passes less one, plus one where a real row's recombination reads
+the half spectrum back from shared memory; the model times both radices
+alike there, and ESTIMATE ranks the radix-4 engine, of fewer operations,
+first (:func:`fastest_variant`). The cluster kernel runs that
 panel over lines of Q = m/A values (A = 16, 32 or 64 lines a row), so its
 exchanges are the panel's over Q values, plus the load's regrouping of
 each CTA's runs into lines and the one read across the cluster
@@ -182,9 +182,8 @@ def _panel_passes(n: int, radix: int) -> int:
 
 def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[int, int]:
     """(HBM round trips, shared-memory passes) of the 1D kernels on a row of
-    n: one block (the register passes' exchanges, the same at both radices,
-    except for ``irfft_fused``, the inverse real row, which keeps the
-    Stockham stages); over one block at radix 4 the cluster kernel (one
+    n: one block (the register passes' exchanges, the same at both
+    radices); over one block at radix 4 the cluster kernel (one
     round trip, its exchanges), at radix 2 the two-pass kernels on the (n1,
     n2) view of the row (at N/2 complex values when ``real``, plus one
     elementwise round trip): the register passes' exchanges of each pass,
@@ -198,9 +197,7 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
 
     m = n // 2 if real else n
     if fft_fits_smem(n, real=real):
-        if not (real and inverse):
-            return 1, regpass_exchanges(n, real=real, radix=radix)
-        return 1, _panel_passes(m, radix)
+        return 1, regpass_exchanges(n, real=real, inverse=inverse, radix=radix)
     if radix == 4:
         return 1, cluster_exchanges(m)
     n1, n2 = fft_split(m)
@@ -210,11 +207,12 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
 def _frame_passes(h: int, w: int, radix: int, real: bool, inverse: bool) -> int:
     """Shared-memory passes of the whole-frame kernels on an (H, W) frame:
     the register passes' exchanges (``frame_passes``) where they run, at
-    both radices of ``fft2_fused`` and at radix 4 of ``rfft2_fused`` and
-    ``irfft2_fused``; the radix-2 real frames keep the Stockham stages."""
+    both radices of ``fft2_fused`` and ``rfft2_fused`` and at radix 4 of
+    ``irfft2_fused``; the radix-2 ``irfft2_fused`` keeps the Stockham
+    stages."""
     from repro_torch.kernels.fft_radix2 import frame_passes  # lazy
 
-    if radix == 4 or not real:
+    if radix == 4 or not (real and inverse):
         return frame_passes(h, w, real=real, inverse=inverse).exchanges
     return _panel_passes(w // 2, radix) + _panel_passes(h, radix)
 

@@ -59,7 +59,7 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
     inverse) and rfft_fused take every one-block length, at a batch of 7
     and of one row (blocks of fewer than 16 threads, and of exactly 16,
     take their own recombination path at radix 4), and are also held to
-    torch.fft."""
+    torch.fft; irfft_fused takes every one-block length at a batch of 7."""
     g = torch.Generator(device=cuda).manual_seed(radix)
 
     def crandn(*shape):
@@ -79,9 +79,10 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
             got = k.rfft_fused(r, radix=radix)
             assert _rel(got, k.rfft_fused_plain(r, radix=radix)) <= TOL, n
             assert _rel(got, torch.fft.rfft(r)) <= TOL, n
-    for n in (2, 8, 64, 2048, 16384):
+    for n in (2 ** p for p in range(1, 15)):
         y = crandn(7, n // 2 + 1)
-        assert _rel(k.irfft_fused(y, radix=radix), k.irfft_fused_plain(y, radix=radix)) <= TOL
+        got = k.irfft_fused(y, radix=radix)
+        assert _rel(got, k.irfft_fused_plain(y, radix=radix)) <= TOL, n
     for hw in ((2, 2), (8, 64), (128, 128)):
         x = crandn(5, *hw)
         assert _rel(k.fft2_fused(x, radix=radix), k.fft2_fused_plain(x, radix=radix)) <= TOL
@@ -91,7 +92,7 @@ def test_cuda_kernels_match_plain_versions(cuda, radix):
         y = crandn(5, hw[0], hw[1] // 2 + 1)
         assert _rel(k.irfft2_fused(y, radix=radix),
                     k.irfft2_fused_plain(y, radix=radix)) <= TOL
-    assert k.LAUNCHES == {"fft_fused": 56, "rfft_fused": 28, "irfft_fused": 5, "fft2_fused": 3,
+    assert k.LAUNCHES == {"fft_fused": 56, "rfft_fused": 28, "irfft_fused": 14, "fft2_fused": 3,
                           "rfft2_fused": 7, "irfft2_fused": 7, "butterfly_stage": 0,
                           "flash_attention_fwd": 0, "flash_attention_bwd": 0, "slstm_scan": 0,
                           "slstm_scan_bwd": 0, "fft_two_pass": 0, "fft_cluster": 0,
@@ -213,25 +214,36 @@ def test_cuda_frame_register_passes_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_frame_register_passes_r2_match_plain(cuda):
-    """The radix-2 fft2_fused (forward and inverse) runs the register-pass
-    kernel at radix 2 on every frame the census admits (91), three frames a
-    call, each within 2e-5 of its plain version (the stage panel) and of
-    torch.fft; one launch a call and nothing else."""
+    """The radix-2 fft2_fused (forward and inverse) and rfft2_fused run the
+    register-pass kernels at radix 2 on every frame the census admits (91
+    complex, 105 real), three frames a call, each within 2e-5 of its plain
+    version and of torch.fft; one launch a call and nothing else."""
     g = torch.Generator(device=cuda).manual_seed(40)
+
+    def one_launch(name, fn, *args, **kw):
+        before = dict(k.LAUNCHES)
+        out = fn(*args, **kw)
+        delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
+        assert delta == {kn: int(kn == name) for kn in k.LAUNCHES}, delta
+        return out
+
     frames = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 15)]
     complex_frames = [hw for hw in frames if k.fft2_fits_smem(*hw)]
-    assert len(complex_frames) == 91
+    real_frames = [hw for hw in frames if k.rfft2_fits_smem(*hw)]
+    assert (len(complex_frames), len(real_frames)) == (91, 105)
     for hw in complex_frames:
         x = torch.complex(torch.randn(3, *hw, generator=g, device=cuda),
                           torch.randn(3, *hw, generator=g, device=cuda))
         for inverse in (False, True):
-            before = dict(k.LAUNCHES)
-            got = k.fft2_fused(x, radix=2, inverse=inverse)
-            delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
-            assert delta == {kn: int(kn == "fft2_fused") for kn in k.LAUNCHES}, delta
+            got = one_launch("fft2_fused", k.fft2_fused, x, radix=2, inverse=inverse)
             assert _rel(got, k.fft2_fused_plain(x, radix=2, inverse=inverse)) <= TOL, hw
             ref = torch.fft.ifft2(x) if inverse else torch.fft.fft2(x)
             assert _rel(got, ref) <= TOL, (hw, inverse)
+    for hw in real_frames:
+        r = torch.randn(3, *hw, generator=g, device=cuda)
+        got = one_launch("rfft2_fused", k.rfft2_fused, r, radix=2)
+        assert _rel(got, k.rfft2_fused_plain(r, radix=2)) <= TOL, hw
+        assert _rel(got, torch.fft.rfft2(r)) <= TOL, hw
 
 
 def _hermitian_edges(y, cols):
@@ -288,18 +300,23 @@ def test_cuda_irfft_register_passes_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_radix2_register_passes_match_plain(cuda):
-    """The radix-2 fft_fused (forward and inverse) and rfft_fused on every
-    one-block row, n = 2 ... 2^14, run their register-pass kernels: one
-    launch a call, within 2e-5 of the plain versions, on a batch of twice
-    the row tile less one, so that the last tile is masked wherever a tile
-    holds more than one row."""
+    """The radix-2 fft_fused (forward and inverse), rfft_fused and
+    irfft_fused (on half spectra that are not Hermitian) on every one-block
+    row, n = 2 ... 2^14, run their register-pass kernels: one launch a call,
+    within 2e-5 of the plain versions, on a batch of twice the row tile less
+    one, so that the last tile is masked wherever a tile holds more than one
+    row."""
     g = torch.Generator(device=cuda).manual_seed(39)
     for n in (2 ** p for p in range(1, 15)):
-        for real in (False, True):
+        for real, inverse in ((False, False), (True, False), (True, True)):
             tile = k.pick_row_tile(1 << 30, n // 2 if real else n)
             batch = 2 * tile - 1 if tile > 1 else 3
             before = dict(k.LAUNCHES)
-            if real:
+            if inverse:
+                y = torch.complex(torch.randn(batch, n // 2 + 1, generator=g, device=cuda),
+                                  torch.randn(batch, n // 2 + 1, generator=g, device=cuda))
+                got = [(k.irfft_fused(y, radix=2), k.irfft_fused_plain(y, radix=2))]
+            elif real:
                 x = torch.randn(batch, n, generator=g, device=cuda)
                 got = [(k.rfft_fused(x, radix=2), k.rfft_fused_plain(x, radix=2))]
             else:
@@ -307,7 +324,7 @@ def test_cuda_radix2_register_passes_match_plain(cuda):
                                   torch.randn(batch, n, generator=g, device=cuda))
                 got = [(k.fft_fused(x, radix=2, inverse=inv),
                         k.fft_fused_plain(x, radix=2, inverse=inv)) for inv in (False, True)]
-            name = "rfft_fused" if real else "fft_fused"
+            name = "irfft_fused" if inverse else "rfft_fused" if real else "fft_fused"
             delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES}
             assert delta == {kn: len(got) * int(kn == name) for kn in k.LAUNCHES}, delta
             for kernel, plain in got:

@@ -74,10 +74,10 @@ def test_smoke_requests_keep_their_engine(kind, shape, direction, dtype):
     (2048, 4, False, False, (1, 2)),   # fft_fused: 16·16·8, two exchanges
     (2048, 4, True, False, (1, 2)),    # rfft_fused: 16·16·4, mirror bins paired
     (8192, 4, True, False, (1, 3)),    # 16·16·16 and the recombination's exchange
-    (2048, 4, True, True, (1, 5)),     # irfft_fused keeps its five Stockham passes
+    (2048, 4, True, True, (1, 2)),     # irfft_fused: 16·16·4, untangled in the first pass
     (2048, 2, False, False, (1, 2)),   # radix 2: the same register passes, 16·16·8
     (2048, 2, True, False, (1, 2)),    # radix-2 rfft_fused: 16·16·4, mirror bins paired
-    (2048, 2, True, True, (1, 10)),    # radix-2 irfft_fused keeps one pass a stage
+    (2048, 2, True, True, (1, 2)),     # radix-2 irfft_fused: the same passes, 16·16·4
     (16, 4, False, False, (1, 0)),     # one pass, HBM to HBM
     (2 ** 18, 4, False, False, (1, 4)),  # cluster: 64 lines of 2^12, 16·16·16 + 1 exchange
     (2 ** 16, 4, True, False, (1, 4)),   # cluster at N/2: 16 lines of 2^11, 16·16·8 + 1
@@ -92,20 +92,23 @@ def test_row_cost_counts_the_kernels_shared_memory_passes(n, radix, real, invers
     ("fft2d", (512, 128, 128), 2, 3),   # fft2_fused r2: the frame passes, 16·8 each way
     ("fft2d", (512, 128, 128), 4, 3),   # the same passes at radix 4
     ("rfft2d", (512, 128, 128), 4, 3),  # rfft2_fused r4: 16·4 rows, 16·8 columns
-    ("rfft2d", (512, 128, 128), 2, 13),  # rfft2_fused r2 keeps the stage panel: 6 + 7
+    ("rfft2d", (512, 128, 128), 2, (3, 13)),  # r2: rfft2_fused's passes; irfft2_fused's 6 + 7
 ])
 @pytest.mark.parametrize("direction", ["fwd", "inv"])
 def test_whole_frames_are_priced_by_the_passes_that_run(kind, shape, radix, passes, direction):
     """ESTIMATE prices a whole frame by its kernel's shared-memory passes:
-    the register passes' exchanges where they run (``fft2_fused`` at both
-    radices, the radix-4 real frames), the stage panel's stages for the
-    radix-2 real frames; one HBM trip, one launch."""
+    the register passes' exchanges where they run (``fft2_fused`` and
+    ``rfft2_fused`` at both radices, ``irfft2_fused`` at radix 4), the stage
+    panel's stages for the radix-2 ``irfft2_fused`` (``passes`` a pair:
+    forward, inverse); one HBM trip, one launch."""
     from repro_torch.launch.roofline import HBM_BW, SMEM_BW
     from repro_torch.plan import autotune
 
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype="complex64" if kind == "fft2d" else "float32", direction=direction)
     real = kind == "rfft2d"
+    if isinstance(passes, tuple):
+        passes = passes[direction == "inv"]
     assert autotune._frame_passes(*shape[-2:], radix, real, direction == "inv") == passes
     elems = float(np.prod(shape)) * (0.5 if real else 1.0)
     want = (max(16.0 * elems / HBM_BW, 16.0 * elems * passes / SMEM_BW)
@@ -198,7 +201,9 @@ def test_tiny_transforms_on_the_card_plan_onto_a_kernel(kind, shape):
 # row and the 2x2 real frame were ties before as well (both kernels do the
 # same work there) and went to ``fused`` by registry order; they now go to
 # fused_r4 too. Whole complex frames tie as well since the radix-2
-# fft2_fused runs the radix-4 kernel's frame passes (the same exchanges).
+# fft2_fused runs the radix-4 kernel's frame passes (the same exchanges),
+# and so do the inverse real rows and the forward real frames since the
+# radix-2 irfft_fused and rfft2_fused run theirs.
 CARD_KEYS = sorted(set(SMOKE_KEYS) | set(LONG_ROW_KEYS) | {
     ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
     ("fft1d", (2, 16), "complex64"), ("fft2d", (1, 2, 4), "complex64"),
@@ -208,7 +213,8 @@ TIES = {("fft1d", (8192, 2048), "complex64"), ("rfft1d", (8192, 2048), "float32"
         ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
         ("fft1d", (2, 16), "complex64"), ("rfft1d", (1, 4), "complex64"),
         ("fft1d", (4, 2 ** 14), "complex64"), ("rfft2d", (1, 2, 2), "complex64"),
-        ("fft2d", (512, 128, 128), "complex64"), ("fft2d", (1, 2, 4), "complex64")}
+        ("fft2d", (512, 128, 128), "complex64"), ("fft2d", (1, 2, 4), "complex64"),
+        ("rfft2d", (512, 128, 128), "float32")}
 
 
 @pytest.mark.parametrize("kind,shape,dtype", CARD_KEYS)
@@ -219,11 +225,11 @@ def test_estimate_keeps_each_keys_engine(kind, shape, dtype, direction):
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype=dtype, direction=direction)
     assert estimate_plan(key).variant == "fused_r4"
-    # ties: the one-block rows (an inverse real row of more than 2 values
-    # runs irfft_fused, whose radix-2 kernel keeps its stages) and the 2x2
-    # real frame
-    tie = (kind, shape, dtype) in TIES and not (kind == "rfft1d" and direction == "inv"
-                                                and shape[-1] > 4)
+    # ties: the one-block rows and the whole frames that run the same
+    # register passes at both radices (the real frame's inverse runs
+    # irfft2_fused, whose radix-2 kernel keeps its stages, past 2x2)
+    tie = (kind, shape, dtype) in TIES and not (kind == "rfft2d" and direction == "inv"
+                                                and shape[-1] > 2)
     times = [estimate_variant_time(key, v) for v in ("fused", "fused_r4")]
     assert (times[0] == times[1]) == tie, times
 

@@ -209,14 +209,14 @@ def main(argv=None) -> int:
             for n in (2 ** p for p in range(1, 15)):
                 for b in (3, 1):
                     errs = rows(lib, n, b, np.random.default_rng(n + b), radix)
-                    worst = max(worst, *errs)
+                    worst = np.max([worst, *errs])
                     print(f"rows radix {radix} n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs),
                           flush=True)
     if args.two_pass:
         for n in (2 ** p for p in range(15, 19)):
             for b in (3, 1):
                 errs = two_pass(lib, n, b, np.random.default_rng(n + b))
-                worst = max(worst, *errs)
+                worst = np.max([worst, *errs])
                 print(f"two-pass n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs), flush=True)
     if args.all:
         shapes = [(1 << a, 1 << b) for a in range(1, 15) for b in range(1, 16)
@@ -227,8 +227,9 @@ def main(argv=None) -> int:
             shapes = [(8, 8), (16, 64), (128, 128)]
     for h, w in shapes:
         errs, out = frames(lib, h, w, np.random.default_rng(h * 1000 + w), args.radix)
-        worst = max([worst, *errs])
+        worst = np.max([worst, *errs])
         print(f"{h}x{w}: " + " | ".join(out), flush=True)
+    # np.max keeps a NaN (an output the kernel never wrote), which fails the tolerance
     print(f"worst vs twin {worst:.2e} (tol {args.tol:g})")
     return 0 if worst <= args.tol else 1
 

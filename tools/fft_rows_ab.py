@@ -12,12 +12,13 @@ chip_smoke.py's shapes, each kernel's distance from its plain version
 launches, beside the ``torch.fft`` call that computes the same:
 
 * rows (8192, 2048), radix 2 and 4: ``fft_fused`` forward and inverse,
-  ``rfft_fused``;
+  ``rfft_fused``, and ``irfft_fused`` on their half spectra (8192, 1025);
 * rows over one block, radix 2 (``fft_two_pass``): fft and ifft on
   TWO_PASS_COMPLEX (64, 2^18), rfft and irfft on TWO_PASS_REAL (256, 2^16);
-* frames (512, 128, 128): ``fft2_fused`` at radix 2 and 4, and the radix-4
-  ``rfft2_fused``, ``irfft2_fused`` (on (512, 128, 65)) and
-  ``fft2_columns`` (on the CT frames (32, 512, 512)).
+* frames (512, 128, 128): ``fft2_fused`` and ``rfft2_fused`` at radix 2
+  and 4, and the radix-4 ``irfft2_fused`` (on (512, 128, 65)) and
+  ``fft2_columns`` (on the CT frames (32, 512, 512)); ``rfft2_fused`` at
+  radix 2 and 4 also on tall frames (1024, 256, 64).
 
 One JSON line a process, after the card's name and power limit. Needs
 CUDA; exits 2 without. chip_smoke.py checks every length and reads
@@ -83,7 +84,9 @@ def case(fn, plain, library, arg):
 b, n = 8192, 2048
 x = crandn(b, n)
 r = torch.randn(b, n, generator=g, device=dev)
-res = {"library_ms": {"fft": ms(lambda: torch.fft.fft(x)), "rfft": ms(lambda: torch.fft.rfft(r))}}
+half = crandn(b, n // 2 + 1)
+res = {"library_ms": {"fft": ms(lambda: torch.fft.fft(x)), "rfft": ms(lambda: torch.fft.rfft(r)),
+                      "irfft": ms(lambda: torch.fft.irfft(half))}}
 for radix in (2, 4):
     one = {}
     for what, fn, plain, arg in (
@@ -92,10 +95,12 @@ for radix in (2, 4):
             ("ifft", lambda a: k.fft_fused(a, radix=radix, inverse=True),
              lambda a: k.fft_fused_plain(a, radix=radix, inverse=True), x),
             ("rfft", lambda a: k.rfft_fused(a, radix=radix),
-             lambda a: k.rfft_fused_plain(a, radix=radix), r)):
+             lambda a: k.rfft_fused_plain(a, radix=radix), r),
+            ("irfft", lambda a: k.irfft_fused(a, radix=radix),
+             lambda a: k.irfft_fused_plain(a, radix=radix), half)):
         one[what] = {"ms": ms(lambda: fn(arg)), "kernel_vs_plain": rel(fn(arg), plain(arg))}
     res[f"radix {radix}"] = one
-del x, r
+del x, r, half
 bc, nc = 64, 2 ** 18
 br, nr = 256, 2 ** 16
 x = crandn(bc, nc)
@@ -115,9 +120,17 @@ frames = {f"fft2_fused r{radix}": case(lambda a: k.fft2_fused(a, radix=radix),
                                        lambda a: k.fft2_fused_plain(a, radix=radix),
                                        torch.fft.fft2, f) for radix in (2, 4)}
 del f
-frames["rfft2_fused r4"] = case(lambda a: k.rfft2_fused(a, radix=4),
-                                lambda a: k.rfft2_fused_plain(a, radix=4), torch.fft.rfft2,
-                                torch.randn(512, 128, 128, generator=g, device=dev))
+r = torch.randn(512, 128, 128, generator=g, device=dev)
+for radix in (2, 4):
+    frames[f"rfft2_fused r{radix}"] = case(lambda a: k.rfft2_fused(a, radix=radix),
+                                           lambda a: k.rfft2_fused_plain(a, radix=radix),
+                                           torch.fft.rfft2, r)
+r = torch.randn(1024, 256, 64, generator=g, device=dev)
+for radix in (2, 4):
+    frames[f"rfft2_fused r{radix} (1024, 256, 64)"] = case(
+        lambda a: k.rfft2_fused(a, radix=radix), lambda a: k.rfft2_fused_plain(a, radix=radix),
+        torch.fft.rfft2, r)
+del r
 frames["irfft2_fused r4"] = case(lambda a: k.irfft2_fused(a, radix=4),
                                  lambda a: k.irfft2_fused_plain(a, radix=4), torch.fft.irfft2,
                                  crandn(512, 128, 65))
