@@ -26,7 +26,8 @@ Phases, each printing one JSON line:
              (1024, 256, 64) frames and irfft2_fused on their half spectra
              (1024, 256, 33), at both radices; for the radix-2 register
              passes (fft_fused, rfft_fused, irfft_fused, fft2_fused,
-             rfft2_fused) their design line, ptxas's registers and spills
+             rfft2_fused, irfft2_fused) their design line, ptxas's
+             registers and spills
              of each instance (0 spilled, or the phase fails) and the
              recorded stage-panel time, and the rows at every n = 2 ... 2^14
              on batches that mask the last row tile;
@@ -627,14 +628,18 @@ STAGE_PANEL_R4_MS = {"fft_fused": 0.1905, "rfft_fused": 0.1118, "irfft_fused": 0
 # 700.00 W).
 STAGE_PANEL_R2_MS = {"fft_fused": 0.3892, "rfft_fused": 0.2101, "irfft_fused": 0.2049}
 # The radix-2 fft2_fused on (512, 128, 128) and FRAME_WIDE, rfft2_fused on
-# (512, 128, 128) and FRAME_TALL, and fft_two_pass's kinds on
-# TWO_PASS_COMPLEX and TWO_PASS_REAL, with the stage-at-a-time panel they
-# ran before their register passes, as PERF.md §6 records them (NVIDIA H100
-# 80GB HBM3, 700.00 W).
+# (512, 128, 128) and FRAME_TALL, irfft2_fused on their half spectra,
+# fft2_columns on CT, and fft_two_pass's kinds on TWO_PASS_COMPLEX and
+# TWO_PASS_REAL, with the stage-at-a-time panel they ran before their
+# register passes, as PERF.md §6 records them (NVIDIA H100 80GB HBM3,
+# 700.00 W).
 STAGE_PANEL_FRAME_R2_MS = {("fft2_fused", (512, 128, 128)): 0.2108,
                            ("fft2_fused", (1024, 64, 256)): 0.4281,
                            ("rfft2_fused", (512, 128, 128)): 0.1041,
-                           ("rfft2_fused", (1024, 256, 64)): 0.2060}
+                           ("rfft2_fused", (1024, 256, 64)): 0.2060,
+                           ("irfft2_fused", (512, 128, 65)): 0.1054,
+                           ("irfft2_fused", (1024, 256, 33)): 0.2064,
+                           ("fft2_columns", (32, 512, 512)): 0.1316}
 STAGE_PANEL_TWO_PASS_MS = {"fft": 0.5579, "ifft": 0.5574, "rfft": 0.2898, "irfft": 0.2883}
 # The register-pass instances of the row kernels in the build log, one a
 # line length and radix: (log2 n, radix) and (log2 m, radix).
@@ -648,10 +653,15 @@ FRAME_WIDE = (1024, 64, 256)
 FRAME_TALL = (1024, 256, 64)
 # The register-pass instances of the whole-frame kernels in the build log:
 # (log2 H, log2 W, radix) of fft2_fused, (log2 H, log2 m, radix) of
-# rfft2_fused, and (log2 H, log2 m) of irfft2_fused, radix 4 only.
+# rfft2_fused and irfft2_fused ((0, 0, radix) the runtime geometry).
 FRAME_REGS_ENTRIES = {"fft2_fused": "16fft2_regs_kernel", "rfft2_fused": "17rfft2_regs_kernel",
                       "irfft2_fused": "18irfft2_regs_kernel"}
-FRAME_R2_KERNELS = ("fft2_fused", "rfft2_fused")
+FRAME_R2_KERNELS = ("fft2_fused", "rfft2_fused", "irfft2_fused")
+# The radix-2 irfft2_fused's instances: the runtime geometry (the tall
+# frame's), the 128x128 frame, and each frame of 16384 values (1024 threads).
+IRFFT2_R2_INSTANCES = sorted({(0, 0), (7, 6)} | {(a, 14 - a) for a in range(1, 15)})
+# fft2_columns's instances, one a radix (the panel's geometry at run time).
+COLUMNS_ENTRY = "24fft2_columns_regs_kernel"
 # Rows over one block: FT-NMR free-induction decays of 256K complex points,
 # and 64K-sample real lines (radar range lines, spectroscopy).
 TWO_PASS_COMPLEX = (64, 2 ** 18)
@@ -1086,29 +1096,29 @@ def frame_line(name, shape, ms, library_ms, bound_ms):
 def frame_instances(name, radix):
     """ptxas's registers and spills of a whole-frame kernel's instances at
     ``radix``, keyed (log2 H, log2 of the row's values): the entries whose
-    template arguments end in the radix, or, for irfft2_regs_kernel (radix
-    4 only), that have none."""
+    template arguments end in the radix."""
     from repro_torch.kernels import _build
 
-    out = {}
-    for args, v in ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES[name]).items():
-        if (args[2] if len(args) == 3 else 4) == radix:
-            out[args[:2]] = v
-    return out
+    return {args[:2]: v for args, v in
+            ptxas_entries(_build.build_log(), FRAME_REGS_ENTRIES[name]).items()
+            if args[2] == radix}
 
 
 def frame_r2_line(name, shape, by_radix, library_ms, bound_ms):
-    """The radix-2 fft2_fused's or rfft2_fused's design line (its frame
-    passes, ptxas's registers and spills of its two radix-2 instances, 0
-    spilled the gate) with its time beside radix 4's, the library's, the
-    bound and the recorded stage-panel time."""
+    """The radix-2 whole-frame kernel's design line (its frame passes,
+    ptxas's registers and spills of its radix-2 instances, 0 spilled the
+    gate) with its time beside radix 4's, the library's, the bound and the
+    recorded stage-panel time."""
     from repro_torch.kernels import fft_radix2 as k
 
     _, h, w = shape
-    real = name == "rfft2_fused"
-    fp = k.frame_passes(h, w, real=real)
+    real, inverse = name != "fft2_fused", name == "irfft2_fused"
+    if inverse:  # a half spectrum
+        w = 2 * (w - 1)
+    fp = k.frame_passes(h, w, real=real, inverse=inverse)
     ptxas = frame_instances(name, 2)
-    want = [(0, 0), (7, 6) if real else (7, 7)]
+    want = (IRFFT2_R2_INSTANCES if inverse
+            else [(0, 0), (7, 6) if real else (7, 7)])
     emit({"phase": "kernel", "kernel": name, "design": "register passes (radix 2)",
           "shape": list(shape), "row_passes": list(fp.rows), "column_passes": list(fp.cols),
           "exchanges_per_frame": fp.exchanges, "barriers_per_frame": fp.barriers,
@@ -1125,23 +1135,54 @@ def frame_r2_line(name, shape, by_radix, library_ms, bound_ms):
 
 
 def column_lines(torch, k, row, crandn, card):
-    """fft2_columns's design line (the panel's columns, threads and shared
-    memory, ptxas's registers and spills of both instances) on the CT
-    frames, then the kernel against its plain version on COLUMN_SHAPES, at
-    both radices, in place and into a new buffer; the worst error joins
-    its row."""
+    """fft2_columns's design lines on the CT frames (the panel's columns,
+    threads and shared memory, its passes, ptxas's registers and spills of
+    each radix's instance; radix 2 beside radix 4, the library, the bound
+    and the recorded stage-panel time, 0 spilled its gate), then the kernel
+    against its plain version on COLUMN_SHAPES and, at radix 2, at every
+    height the census serves, at both radices, in place and into a new
+    buffer; the worst error joins its row."""
     from repro_torch.kernels import _build
 
     f, h, w = CT
     g = k.fft2_columns_geometry(h, w)
-    log = _build.build_log()
-    emit({"phase": "kernel", "kernel": COLUMNS, "design": "column panels in place (radix 4: "
-          "register passes)", "shape": list(CT), "card": card, "cols": g.cols,
-          "panels_per_frame": g.tiles, "threads": g.threads, "smem_bytes": g.smem,
-          "column_passes": list(k.regpass_radices(h)),
-          "ptxas": {"radix 4": ptxas_entries(log, "24fft2_columns_regs_kernel").get(()),
-                    "radix 2": ptxas_entries(log, "19fft2_columns_kernel").get(())},
-          "ms": row["ms"], "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]})
+    ptxas = {args[0]: v for args, v in ptxas_entries(_build.build_log(), COLUMNS_ENTRY).items()}
+    common = {"phase": "kernel", "kernel": COLUMNS, "shape": list(CT), "card": card,
+              "cols": g.cols, "panels_per_frame": g.tiles, "threads": g.threads,
+              "smem_bytes": g.smem, "column_passes": list(k.regpass_radices(h))}
+    emit({**common, "design": "column panels in place (register passes, radix 4)",
+          "ptxas": ptxas.get(4), "ms": row["ms"], "library_ms": row["library_ms"],
+          "bound_ms": row["bound_ms"]})
+    emit({**common, "design": "column panels in place (register passes, radix 2)",
+          "ptxas": ptxas.get(2), "ms": row["by_radix"]["2"]["ms"], "radix4_ms": row["ms"],
+          "stage_panel_ms_recorded": STAGE_PANEL_FRAME_R2_MS[(COLUMNS, CT)],
+          "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]})
+    if sorted(ptxas) != [2, 4]:
+        raise AssertionError(f"fft2_columns: instances {sorted(ptxas)} in the build log, "
+                             "want radix 2 and 4")
+    if ptxas[2].get("spill_stores"):
+        raise AssertionError(f"fft2_columns radix 2: the instance spills registers: {ptxas[2]}")
+    worst = 0.0
+    for p in range(1, 13):  # H = 2 ... 4096, a width that leaves the last panel masked
+        hh = 2 ** p
+        cols = k.fft2_columns_geometry(hh, 1 << 20).cols
+        x = crandn(3, hh, 2 * cols + 1)
+        for inverse in (False, True):
+            ref = k.fft2_columns_plain(x, radix=2, inverse=inverse)
+            got = k.fft2_columns(x, radix=2, inverse=inverse)
+            same = x.clone()
+            k.fft2_columns(same, radix=2, inverse=inverse, out=same)
+            torch.cuda.synchronize()
+            err = max(rel_err(got, ref), rel_err(same, ref))
+            worst = max(worst, err)
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f"fft2_columns radix 2 at H {hh}, width {2 * cols + 1}, "
+                                     f"inverse {inverse}: rel err {err} > {TOL_KERNEL}")
+            row["max_abs_err"] = max(row["max_abs_err"], max_abs(got, ref), max_abs(same, ref))
+            del ref, got, same
+    emit({"phase": "kernel", "kernel": COLUMNS, "radix": 2, "every_height": [2, 4096],
+          "rel_err": worst})
+    row["rel_err"] = max(row["rel_err"], worst)
     for shape in COLUMN_SHAPES:
         x = crandn(*shape)
         for radix in (2, 4):

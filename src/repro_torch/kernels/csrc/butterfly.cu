@@ -19,7 +19,7 @@
 // exact in float32 because h is a power of two.
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
+#include "fft_common.cuh"
 
 namespace repro {
 namespace {

@@ -34,20 +34,19 @@
 // fft2_columns_geometry in repro_torch/kernels/fft_radix2.py). The last
 // panel of a width that is not a multiple of C masks its missing columns.
 //
-// Radix 4: the register passes of stockham_regs.cuh over the panel as a
-// frame of C columns (frame_panel<true>: consecutive threads on consecutive
-// columns); the first pass loads from HBM straight into registers and the
-// last stores from registers straight to HBM (HbmColumns). A column of at
-// most 16 values is one pass, which goes through shared memory once so
-// that all its reads precede its writes.
-// Radix 2 (the `fused` engine's route): the panel is loaded into shared
-// memory and the Stockham stages of stockham.cuh run down its columns
-// (line stride 1, element stride C), with the row stride a runtime value.
+// The register passes of stockham_regs.cuh over the panel as a frame of C
+// columns (frame_panel<true>: consecutive threads on consecutive columns),
+// two radix-4 layers (RADIX 4) or four radix-2 Stockham stages (RADIX 2,
+// r2_layers; the `fused` engine's route) in registers per exchange; the
+// first pass loads from HBM straight into registers and the last stores
+// from registers straight to HBM (HbmColumns). A column of at most 16
+// values is one pass, which goes through shared memory once so that all
+// its reads precede its writes. H and C are runtime values, so a pass's
+// twiddle addresses take runtime shifts at either radix.
 #include <climits>
 
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
 #include "stockham_regs.cuh"
 
 namespace repro {
@@ -66,8 +65,9 @@ struct PanelOf {
   }
 };
 
-// Radix 4. Shared memory: the padded panel, then the padded ROM of H/2
-// twiddles W_H^j.
+// Shared memory: the padded panel, then the padded ROM of H/2 twiddles
+// W_H^j. RADIX: the passes' layers (regs::pass).
+template <int RADIX>
 __global__ void __launch_bounds__(kMaxThreads)
 fft2_columns_regs_kernel(const float2* x,
     float2* y,
@@ -86,54 +86,16 @@ fft2_columns_regs_kernel(const float2* x,
   const regs::HbmColumns panel{x + at.base, y + at.base, stride, at.c0,
                                conj ? -1.f : 1.f, scale, conj ? -scale : scale};
   if (regs::pass_count(log_h) > 1) {
-    regs::frame_panel<true>(smem, P, log_c, log_h, log_half, rom, panel, panel);
+    regs::frame_panel<true, RADIX>(smem, P, log_c, log_h, log_half, rom, panel, panel);
     return;
   }
   // One pass (H <= 16): HBM -> registers -> shared memory, a barrier, then
   // shared memory -> HBM (a pass of radix 1 is a copy through the scaling).
   const regs::Lanes<true> lanes{log_c};
   const regs::SmemFrame<true> buf{smem, log_c, false};
-  regs::pass_r(log_h, P, log_h, 0, log_half, lanes, rom, panel, buf);
+  regs::pass_r<RADIX>(log_h, P, log_h, 0, log_half, lanes, rom, panel, buf);
   __syncthreads();
-  regs::pass<0>(P, log_h, 0, log_half, lanes, rom, buf, panel);
-}
-
-// Radix 2. Shared memory: the panel (buf[i C + t]: element i of column
-// c0 + t), then the ROM of H/2 twiddles W_H^j.
-__global__ void __launch_bounds__(kMaxThreads)
-fft2_columns_kernel(const float2* x,
-    float2* y,
-    int log_h,
-    int log_c,
-    int stride,
-    int tiles,
-    int conj,
-    float scale) {
-  extern __shared__ float2 smem[];
-  const int cols = 1 << log_c;
-  const int P = 1 << (log_h + log_c);
-  float2* buf = smem;
-  float2* rom = smem + P;
-  build_rom(rom, 1 << (log_h - 1), 1 << log_h);
-  const PanelOf at(1 << log_h, stride, log_c, tiles);
-  const float2* src = x + at.base + at.c0;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int t = i & (cols - 1);
-    float2 v = make_float2(0.f, 0.f);
-    if (at.c0 + t < stride) v = src[static_cast<unsigned>((i >> log_c) * stride + t)];
-    buf[i] = conj ? cconj(v) : v;
-  }
-  __syncthreads();
-  const Lines lines{buf, log_h, log_c, 1, cols, true};
-  stockham_panel(lines, rom, log_h);
-  float2* dst = y + at.base + at.c0;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int t = i & (cols - 1);
-    if (at.c0 + t >= stride) continue;
-    const float2 v = buf[i];
-    dst[static_cast<unsigned>((i >> log_c) * stride + t)] =
-        make_float2(v.x * scale, (conj ? -v.y : v.y) * scale);
-  }
+  regs::pass<0, RADIX>(P, log_h, 0, log_half, lanes, rom, buf, panel);
 }
 
 }  // namespace
@@ -150,10 +112,9 @@ extern "C" int repro_fft2_columns(const void* x, void* y, int frames, int h, int
   const long long blocks = static_cast<long long>(frames) * tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const int P = h * cols;
-  const bool ok = radix == 4 ? repro::regs::geometry_ok(P, threads, smem, h / 2)
-                             : repro::geometry_ok(P, threads, smem, h / 2);
-  if (!ok) return cudaErrorInvalidConfiguration;
-  const auto kernel = radix == 4 ? repro::fft2_columns_regs_kernel : repro::fft2_columns_kernel;
+  if (!repro::regs::geometry_ok(P, threads, smem, h / 2)) return cudaErrorInvalidConfiguration;
+  const auto kernel = radix == 4 ? repro::fft2_columns_regs_kernel<4>
+                                 : repro::fft2_columns_regs_kernel<2>;
   cudaError_t err = repro::prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(

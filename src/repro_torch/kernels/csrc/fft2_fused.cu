@@ -31,7 +31,7 @@
 // chip_smoke times also has an instance of its own at each radix.
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
+#include "fft_common.cuh"
 #include "stockham_regs.cuh"
 
 namespace repro {

@@ -68,7 +68,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
+#include "fft_common.cuh"
 #include "stockham_regs.cuh"
 
 namespace repro {

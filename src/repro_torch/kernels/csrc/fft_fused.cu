@@ -46,7 +46,7 @@
 
 #include <utility>
 
-#include "stockham.cuh"
+#include "fft_common.cuh"
 #include "stockham_regs.cuh"
 
 namespace repro {

@@ -62,7 +62,7 @@
 
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
+#include "fft_common.cuh"
 #include "stockham_regs.cuh"
 
 namespace repro {

@@ -43,23 +43,23 @@
 // takes its twiddles from sincospif (regs::w_2m) at either radix, and the
 // column-0 split takes none.
 //
-// irfft2_fused at radix 4: the same passes in the reverse order. The column
-// panel's first pass loads the half spectrum straight from HBM, conjugated,
-// its column-0 lanes packing the Hermitian parts of the DC and Nyquist
-// columns as A + iB (four independent loads a row, no barrier); its last
-// pass leaves the frame in shared memory. The row panel's first pass
+// irfft2_fused: the same passes in the reverse order, at either radix. The
+// column panel's first pass loads the half spectrum straight from HBM,
+// conjugated, its column-0 lanes packing the Hermitian parts of the DC and
+// Nyquist columns as A + iB (four independent loads a row, no barrier); its
+// last pass leaves the frame in shared memory. The row panel's first pass
 // untangles on its way in (Y[k] and its mirror Y[m-k] from the frame, slot 0
 // DC + i Nyquist), so the untangle costs one more read per value and no
 // exchange or barrier of its own, and its last pass stores the packed reals
 // straight to HBM, conjugated and scaled by 1/(H m). A 128x128 frame:
-// columns 16·8, rows 16·4, three exchanges and five barriers.
-//
-// irfft2_fused at radix 2: the block stages the frame in shared memory, runs
-// every Stockham stage there (stockham.cuh), and the untangling runs in
-// place through registers; the corner turn is the column panel's indexing.
+// columns 16·8, rows 16·4, three exchanges and five barriers. Neither the
+// pack nor the untangle takes a twiddle from the radix (the untangle's are
+// sincospif's, regs::w_2m), so the radix-2 kernel differs from the radix-4
+// one only in its passes' layers.
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
+#include <utility>
+
 #include "stockham_regs.cuh"
 
 namespace repro {
@@ -166,90 +166,7 @@ rfft2_regs_kernel(const float2* __restrict__ x,
   }
 }
 
-// Radix 2. x: (F, H, m+1) half spectra; y: (F, H, 2m) reals written as
-// (F, H, m) packed complex. Both inverse panels run on the forward panel by
-// conjugation; the output is scaled by 1/(H m).
-__global__ void __launch_bounds__(kMaxThreads)
-irfft2_fused_kernel(const float2* __restrict__ x,
-    float2* __restrict__ y,
-    int log_h,
-    int log_m) {
-  extern __shared__ float2 smem[];
-  const int h = 1 << log_h;
-  const int m = 1 << log_m;
-  const int P = h << log_m;
-  const int log_nrom = log_h > log_m + 1 ? log_h : log_m + 1;
-  const int wshift = log_nrom - log_m - 1;
-  float2* buf = smem;
-  float2* rom = smem + P;
-  build_rom(rom, 1 << (log_nrom - 1), 1 << log_nrom);
-
-  // Load conjugated. Slot 0 of row r packs the DC column a and Nyquist
-  // column b as A + iB, A = (a[r] + conj a[-r]) / 2 (likewise B): the
-  // inverse column transform of A + iB is Re(ifft a) + i Re(ifft b), which
-  // is what the row transform keeps of those two bins.
-  const int in_w = m + 1;
-  const long long in_base = static_cast<long long>(blockIdx.x) * h * in_w;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int r = i >> log_m;
-    const int k = i & (m - 1);
-    const float2* row = x + in_base + r * in_w;
-    float2 v;
-    if (k != 0) {
-      v = row[k];
-    } else {
-      const float2* mirror = x + in_base + ((h - r) & (h - 1)) * in_w;
-      const float2 a = row[0], am = cconj(mirror[0]);
-      const float2 b = row[m], bm = cconj(mirror[m]);
-      const float2 A = make_float2(0.5f * (a.x + am.x), 0.5f * (a.y + am.y));
-      const float2 B = make_float2(0.5f * (b.x + bm.x), 0.5f * (b.y + bm.y));
-      v = make_float2(A.x - B.y, A.y + B.x);
-    }
-    buf[i] = cconj(v);
-  }
-  __syncthreads();
-  const Lines cols{buf, log_h, log_m, 1, m, true};
-  stockham_panel(cols, rom, log_nrom);
-
-  // buf = conj(H * column inverse). Untangle each row in place into the
-  // conjugated packed values of the half-size row inverse, as irfft_fused.
-  const int per = P / blockDim.x;
-  float2 v[kMaxPerThread];
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    if (i < per) {
-      const int idx = threadIdx.x + i * blockDim.x;
-      const int k = idx & (m - 1);
-      const float2* row = buf + (idx >> log_m) * m;
-      float2 yk, ym;  // Y[k] and Y[m-k]
-      if (k == 0) {
-        const float2 c = row[0];
-        yk = make_float2(c.x, 0.f);
-        ym = make_float2(-c.y, 0.f);
-      } else {
-        yk = cconj(row[k]);
-        ym = cconj(row[m - k]);
-      }
-      v[i] = cconj(irfft_untangle(yk, cconj(ym), cconj(rom[k << wshift])));
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    if (i < per) buf[threadIdx.x + i * blockDim.x] = v[i];
-  }
-  __syncthreads();
-  const Lines rows{buf, log_m, log_h, m, 1, false};
-  stockham_panel(rows, rom, log_nrom);
-  const float inv = 1.0f / static_cast<float>(P);
-  const long long base = static_cast<long long>(blockIdx.x) * P;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const float2 o = buf[i];
-    y[base + i] = make_float2(o.x * inv, -o.y * inv);
-  }
-}
-
-// The first column pass of the radix-4 irfft2_fused reads the half spectrum
+// The first column pass of irfft2_fused reads the half spectrum
 // straight from HBM, conjugated: column c < m of row r at x[r (m+1) + c],
 // consecutive threads on consecutive columns (Lanes<true>). Slot 0 packs the
 // DC column a and the Nyquist column b as A + iB, A = (a[r] + conj a[-r]) / 2
@@ -291,7 +208,7 @@ struct HalfSpectrumCols {
   }
 };
 
-// The first row pass of the radix-4 irfft2_fused reads the column panel's
+// The first row pass of irfft2_fused reads the column panel's
 // output C = conj(H ifft over the columns) and untangles on its way in:
 // element k of row r becomes regs::untangle(Y[k], Y[m-k], W_W^k), Y = conj C,
 // and at k = 0 the packed slot gives Y[0] = Re C[0] (DC) and Y[m] = -Im C[0]
@@ -330,22 +247,25 @@ struct UntangledRows {
   }
 };
 
-// Radix 4: irfft2_fused on the register passes, rfft2_regs_kernel's order
-// reversed. x: (F, H, m+1) half spectra; y: (F, H, 2m) reals written as
-// (F, H, m) packed complex. The column panel (conjugated in: the inverse on
-// the forward passes) leaves C in shared memory; the row panel
-// untangles in its first pass and stores conj / (H m). ROM: W_n^j, j < n/2,
-// n = max(H, W), padded, after the padded frame. <0, 0> takes the frame's
-// geometry at run time; an instance with LOG_H, LOG_M fixed serves that
-// frame with every stride compile-time.
-template <int LOG_H, int LOG_M>
-__global__ void __launch_bounds__(kMaxThreads)
+// irfft2_fused on the register passes, their layers of radix RADIX,
+// rfft2_regs_kernel's order reversed. x: (F, H, m+1) half spectra; y: (F,
+// H, 2m) reals written as (F, H, m) packed complex. The column panel
+// (conjugated in: the inverse on the forward passes) leaves C in shared
+// memory; the row panel untangles in its first pass and stores conj /
+// (H m). ROM: W_n^j, j < n/2, n = max(H, W), padded, after the padded
+// frame; the rows' radix-2 layers read it at log_half past log2 m, as
+// rfft2_regs_kernel's do. <0, 0> takes the frame's geometry at run time;
+// an instance with LOG_H fixed serves the frame (LOG_H, LOG_M) with every
+// stride compile-time (LOG_M may be 0). The radix-2 <0, 0> is held to 512
+// threads, where it has the registers it needs (irfft2_regs_instance).
+template <int LOG_H, int LOG_M, int RADIX>
+__global__ void __launch_bounds__(LOG_H || RADIX == 4 ? kMaxThreads : kMaxThreads / 2)
 irfft2_regs_kernel(const float2* __restrict__ x,
     float2* __restrict__ y,
     int log_h_arg,
     int log_m_arg) {
   const int log_h = LOG_H ? LOG_H : log_h_arg;
-  const int log_m = LOG_M ? LOG_M : log_m_arg;
+  const int log_m = LOG_H ? LOG_M : log_m_arg;
   extern __shared__ float2 smem[];
   const int h = 1 << log_h;
   const int m = 1 << log_m;
@@ -358,19 +278,20 @@ irfft2_regs_kernel(const float2* __restrict__ x,
   // rows (m/16 groups a row, under 16), plain where it takes 16 consecutive
   // groups of one row, whose mirror runs are not aligned to 16.
   const bool padded = log_m < 8;
-  regs::frame_panel<true>(smem, P, log_m, log_h, log_n - 1, rom,
-                          HalfSpectrumCols{x + frame * h * (m + 1), log_h, log_m},
-                          regs::SmemFrame<true>{smem, log_m, padded});
+  regs::frame_panel<true, RADIX>(smem, P, log_m, log_h, log_n - 1, rom,
+                                 HalfSpectrumCols{x + frame * h * (m + 1), log_h, log_m},
+                                 regs::SmemFrame<true>{smem, log_m, padded});
   __syncthreads();
   const float scale = 1.f / static_cast<float>(P);
-  regs::frame_panel<false>(smem, P, log_m, log_m, log_n - 1, rom,
-                           UntangledRows{{smem, log_m, padded}},
-                           regs::HbmFrameOut<false>{y + frame * P, log_m, scale, -scale});
+  regs::frame_panel<false, RADIX>(smem, P, log_m, log_m, log_n - 1, rom,
+                                  UntangledRows{{smem, log_m, padded}},
+                                  regs::HbmFrameOut<false>{y + frame * P, log_m, scale, -scale});
 }
 
-// The 128x128 frame runs an instance of its own (radix-4 rfft2: 54
-// registers, not 64, and about 7% faster on an H100; irfft2: no spills,
-// where <0, 0> spills 24 bytes; PERF.md); every other frame runs <0, 0>.
+// The 128x128 frame runs an instance of its own at each radix (rfft2 r4: 54
+// registers, not 64, and about 7% faster on an H100; irfft2 r4: no spills,
+// where <0, 0> spills 24 bytes; PERF.md); every other frame runs <0, 0>,
+// but for the radix-2 irfft2's frames of 16384 values below.
 using Rfft2RegsKernel = void (*)(const float2*, float2*, int, int);
 
 template <int RADIX>
@@ -379,9 +300,28 @@ Rfft2RegsKernel rfft2_regs_instance(int log_h, int log_m) {
   return rfft2_regs_kernel<0, 0, RADIX>;
 }
 
+// The radix-2 irfft2 frames of 16384 values (1024 threads: 64 registers a
+// thread) each run an instance of their own, log2 H = 1 ... 14: with its
+// geometry at run time the kernel needs a few more, and ptxas spilled 4-28
+// bytes under 64 however the pack or the layout was written (PERF.md).
+// <0, 0> serves the frames of 512 threads or fewer with the registers it
+// needs (106: one block of 512 an SM where 64 would let two), but for
+// the 128x128 frame, which has an instance of its own.
+template <int... A>
+Rfft2RegsKernel irfft2_r2_full_frame(int log_h, std::integer_sequence<int, A...>) {
+  Rfft2RegsKernel kernel = nullptr;
+  ((log_h == A + 1 ? (kernel = irfft2_regs_kernel<A + 1, 13 - A, 2>, 0) : 0), ...);
+  return kernel;
+}
+
+template <int RADIX>
 Rfft2RegsKernel irfft2_regs_instance(int log_h, int log_m) {
-  if (log_h == 7 && log_m == 6) return irfft2_regs_kernel<7, 6>;
-  return irfft2_regs_kernel<0, 0>;
+  if (log_h == 7 && log_m == 6) return irfft2_regs_kernel<7, 6, RADIX>;
+  if constexpr (RADIX == 2) {
+    if (log_h + log_m == 14)
+      return irfft2_r2_full_frame(log_h, std::make_integer_sequence<int, 14>{});
+  }
+  return irfft2_regs_kernel<0, 0, RADIX>;
 }
 
 // Both entries: a power-of-two frame of at least 2x2 and radix 2 or 4.
@@ -390,14 +330,12 @@ bool frame_ok(int frames, int h, int w, int radix) {
          (radix == 2 || radix == 4);
 }
 
-// The geometry of a block holding H*W/2 values and the ROM (padded where
-// `kernel` runs the register passes), then the launch.
-cudaError_t launch(Rfft2RegsKernel kernel, bool regs_passes, const void* x, void* y, int frames,
-                   int h, int w, int threads, int smem, int device, void* stream) {
-  const int half = (h > w ? h : w) / 2;
-  const bool ok = regs_passes ? regs::geometry_ok(h * (w / 2), threads, smem, half)
-                              : geometry_ok(h * (w / 2), threads, smem, half + 1);
-  if (!ok) return cudaErrorInvalidConfiguration;
+// The geometry of a block holding H*W/2 values and the ROM, each padded,
+// then the launch.
+cudaError_t launch(Rfft2RegsKernel kernel, const void* x, void* y, int frames, int h, int w,
+                   int threads, int smem, int device, void* stream) {
+  if (!regs::geometry_ok(h * (w / 2), threads, smem, (h > w ? h : w) / 2))
+    return cudaErrorInvalidConfiguration;
   const cudaError_t err = prepare(kernel, device, smem);
   if (err != cudaSuccess) return err;
   kernel<<<frames, threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -415,14 +353,15 @@ extern "C" int repro_rfft2_fused(const void* x, void* y, int frames, int h, int 
   const int log_h = host_log2(h), log_m = host_log2(w / 2);
   const auto kernel = radix == 4 ? rfft2_regs_instance<4>(log_h, log_m)
                                  : rfft2_regs_instance<2>(log_h, log_m);
-  return launch(kernel, true, x, y, frames, h, w, threads, smem, device, stream);
+  return launch(kernel, x, y, frames, h, w, threads, smem, device, stream);
 }
 
 extern "C" int repro_irfft2_fused(const void* x, void* y, int frames, int h, int w, int radix,
                                   int threads, int smem, int device, void* stream) {
   using namespace repro;
   if (!frame_ok(frames, h, w, radix)) return cudaErrorInvalidValue;
-  const auto kernel = radix == 4 ? irfft2_regs_instance(host_log2(h), host_log2(w / 2))
-                                 : irfft2_fused_kernel;
-  return launch(kernel, radix == 4, x, y, frames, h, w, threads, smem, device, stream);
+  const int log_h = host_log2(h), log_m = host_log2(w / 2);
+  const auto kernel = radix == 4 ? irfft2_regs_instance<4>(log_h, log_m)
+                                 : irfft2_regs_instance<2>(log_h, log_m);
+  return launch(kernel, x, y, frames, h, w, threads, smem, device, stream);
 }

@@ -1,17 +1,15 @@
-// The register-pass Stockham panel of the radix-4 fft_fused, rfft_fused and
-// irfft_fused kernels (fft_fused.cu): rows of n = 2^log_n values that fit
-// one block; the lines of the cluster kernel (fft_cluster.cu); and, over a
-// frame's rows and its columns, the radix-4 fft2_fused, rfft2_fused and
-// irfft2_fused (the "whole frames" section below), and, over a panel of
-// columns of a frame in HBM, the radix-4 fft2_columns (fft2_columns.cu).
-// The radix-2 fft_fused, rfft_fused, irfft_fused, fft2_fused and
-// rfft2_fused and both passes of the two-pass kernels (fft_two_pass.cu) run
-// the same passes with radix-2 layers in registers (r2_layers below).
+// The register-pass Stockham panel of every FFT kernel, at both radices:
+// rows of n = 2^log_n values that fit one block (fft_fused, rfft_fused and
+// irfft_fused, fft_fused.cu); the lines of the cluster kernel
+// (fft_cluster.cu); both passes of the two-pass kernels (fft_two_pass.cu);
+// over a frame's rows and its columns, fft2_fused, rfft2_fused and
+// irfft2_fused (the "whole frames" section below); and, over a panel of
+// columns of a frame in HBM, fft2_columns (fft2_columns.cu). The radix-4
+// kernels run two radix-4 layers a pass, the radix-2 ones four radix-2
+// Stockham stages (r2_layers below).
 //
-// Replaces the in-VMEM panels of src/repro/kernels/fft_radix2.py
-// (_stockham_panel_r4, and _stockham_panel for the radix-2 fft_fused,
-// rfft_fused, irfft_fused, fft2_fused, rfft2_fused and two passes) for
-// those kernels; stockham.cuh's stage-at-a-time panel stays for the others.
+// Replaces the in-VMEM Stockham panels of src/repro/kernels/fft_radix2.py,
+// the radix-4 one and the radix-2 one.
 //
 // A row is factored into passes of 16 values: 16 * 16 * ... * r, with the
 // last pass taking what is left (r = 8: one radix-2 and one radix-4 layer,
@@ -53,7 +51,7 @@
 
 #include <utility>
 
-#include "stockham.cuh"
+#include "fft_common.cuh"
 
 namespace repro {
 namespace regs {
@@ -345,12 +343,12 @@ __device__ __forceinline__ void r2_reorder(float2* v, std::integer_sequence<int,
   ((v[out_reg<1 << LR>(C)] = o[C]), ...);
 }
 
-// The radix-2 arithmetic of a pass: the LR radix-2 Stockham stages that the
-// stage-at-a-time panel (stockham.cuh, radix2_stage) runs over half-spans
-// l, 2l, ..., l R/2, done on group t's R values in registers
-// (r2_butterflies): stage S takes 2^S twiddles, 15 in a pass of 16. The
-// same butterflies with the same twiddles in the same stage order as the
-// stage panel; only where each value sits between stages differs. The
+// The radix-2 arithmetic of a pass: the LR radix-2 Stockham stages over
+// half-spans l, 2l, ..., l R/2 of the Pallas radix-2 panel, done on group
+// t's R values in registers (r2_butterflies): stage S takes 2^S twiddles,
+// 15 in a pass of 16. The same butterflies with the same twiddles in the
+// same stage order as that panel, which runs one stage at a time; only
+// where each value sits between stages differs. The
 // twiddles are the ROM's, W_{2 half}^e at e = k' half / l' (never past the
 // half turn), none where W = 1; a first pass (l = 1, k = 0) reads the same
 // constants for every group, one broadcast each, after the barrier that
@@ -588,10 +586,13 @@ struct HbmFrameOut {
 // point at the frame; they may be the same frame). Consecutive lines are
 // consecutive columns, so a half-warp's accesses are runs of consecutive
 // values of one row. Columns at or past `stride` (the last panel of a width
-// that is not a multiple of the panel's) read as zero and are not written.
-// Reads take the imaginary parts times `sign` (-1 conjugates on the way
-// in); writes times (scale, yscale), as HbmFrameOut. 32-bit offsets: a
-// frame holds fewer than 2^31 values.
+// that is not a multiple of the panel's) read the frame's last column, and
+// their results are not written: the loads stay unpredicated, which kept
+// the radix-2 instance from spilling (a select a load had cost registers
+// under the 64 that 1024 threads allow). Reads take the imaginary parts
+// times `sign` (-1 conjugates on the way in); writes times (scale,
+// yscale), as HbmFrameOut. 32-bit offsets: a frame holds fewer than 2^31
+// values.
 struct HbmColumns {
   static constexpr bool kShared = false;
   const float2* x;
@@ -604,12 +605,13 @@ struct HbmColumns {
 
   template <int R>
   __device__ __forceinline__ void read(int line, int t, int s, float2* v, bool ok) const {
-    ok = ok && c0 + line < stride;
-    const float2* p = x + static_cast<unsigned>(t * stride + c0 + line);
+    if (!ok) line = t = 0;  // a group past the block's values (panels under 16 values)
+    const int c = min(c0 + line, stride - 1);
+    const float2* p = x + static_cast<unsigned>(t * stride + c);
     const unsigned step = static_cast<unsigned>(s * stride);
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      const float2 a = ok ? p[j * step] : make_float2(0.f, 0.f);
+      const float2 a = p[j * step];
       v[j] = make_float2(a.x, a.y * sign);
     }
   }
@@ -672,7 +674,7 @@ __device__ __forceinline__ void frame_panel(float2* buf, int P, int log_w, int l
 }
 
 // Two-for-one recombination Y = Xe + w Xo from z = Z[k] and zm = conj Z[m-k]
-// (stockham.cuh's rfft_recombine on values already read).
+// (fft_common.cuh's rfft_recombine on values already read).
 __device__ __forceinline__ float2 recombine(float2 z, float2 zm, float2 w) {
   const float2 xe = make_float2(0.5f * (z.x + zm.x), 0.5f * (z.y + zm.y));
   const float2 d = csub(z, zm);
@@ -701,7 +703,7 @@ __device__ __forceinline__ float2 untangle_twiddle(float2 wt, int j) {
 
 // The inverse real transform's input to the forward panel at bin k (the
 // inverse by conjugation): conj z[k], z[k] = Xe + i Xo untangled from
-// yk = Y[k] and ym = Y[m-k] (stockham.cuh's irfft_untangle), w = W_{2m}^k.
+// yk = Y[k] and ym = Y[m-k] (fft_common.cuh's irfft_untangle), w = W_{2m}^k.
 __device__ __forceinline__ float2 untangle(float2 yk, float2 ym, float2 w) {
   return cconj(irfft_untangle(yk, cconj(ym), cconj(w)));
 }

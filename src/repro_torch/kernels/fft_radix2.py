@@ -8,24 +8,23 @@ live here:
 
 * **The census.** The shared memory and threads each CUDA kernel really
   uses, derived from ``csrc/``: a block holds its P complex values (8 bytes
-  each) once, because each stage is done in place through registers, plus
-  one twiddle ROM; for the six one-block kernels both padded by one slot
-  per 16 (:func:`smem_slot`), the layout of their radix-4 register-pass
-  panel. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``, the
+  each) once, because each pass is done in place through registers, plus
+  one twiddle ROM, both padded by one slot per 16 (:func:`smem_slot`), the
+  layout of the register-pass panel that every kernel runs at both
+  radices. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``, the
   two-pass, cluster and column-panel geometries, ``kernels.ops``, the engines' gate and
   the planner all read it. ``fft_fits_fused`` is the reference's
   envelope of the 1D kernels: rows of up to 2^18 values.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
   step for step the Pallas panels, ``_regpass_panel`` (the register passes
-  of ``csrc/stockham_regs.cuh``, which ``fft_fused``, ``rfft_fused`` and
-  ``irfft_fused`` run at radix 4, and the three whole-frame kernels over a
-  frame's rows and columns, with ``_rfft2_regpass`` and
-  ``_irfft2_regpass``), ``_regpass_panel_r2`` (the same passes of radix-2
-  layers, the schedule ``fft_fused``, ``rfft_fused``, ``irfft_fused``,
-  ``fft2_fused``, ``rfft2_fused`` and both two passes run at radix 2, bit
-  for bit ``_stockham_panel``, which stands for it as their plain
-  version), ``_two_pass_panel`` (the
+  of ``csrc/stockham_regs.cuh``, which every kernel of this module runs at
+  radix 4: the rows, the three whole-frame kernels over a frame's rows and
+  columns, with ``_rfft2_regpass`` and ``_irfft2_regpass``, and
+  ``fft2_columns``), ``_regpass_panel_r2`` (the same passes of radix-2
+  layers, the schedule every kernel runs at radix 2, bit for bit
+  ``_stockham_panel``, which stands for it as their plain version),
+  ``_two_pass_panel`` (the
   four-step FFT of ``csrc/fft_two_pass.cu``), ``_cluster_panel`` (the one-trip four-step
   FFT of ``csrc/fft_cluster.cu``), and ``*_plain`` around them. They are
   what the CPU runs and what the kernels are held against on the card.
@@ -124,8 +123,8 @@ SMEM_BUDGET_BYTES = 232_448
 #: Most threads a block may have.
 MAX_THREADS = 1024
 
-#: Complex values each thread stages in registers per stage
-#: (``kMaxPerThread`` in ``csrc/stockham.cuh``).
+#: Complex values each thread holds in registers in a pass
+#: (``kMaxPerThread`` in ``csrc/fft_common.cuh``).
 ELEMS_PER_THREAD = 16
 
 #: Complex values a 1D block aims to hold: 32 KiB, so that several blocks
@@ -187,9 +186,8 @@ def rfft2_smem_bytes(h: int, w: int) -> int:
     """``rfft2_fused`` and ``irfft2_fused``: the frame as H rows of W/2
     packed values (DC and Nyquist share slot 0), and one ROM of
     max(H, W)/2 + 1 twiddles, each padded for the register passes (both
-    radices of ``rfft2_fused`` and radix 4 of ``irfft2_fused`` read
-    max(H, W)/2 of the twiddles; the radix-2 ``irfft2_fused``, on the stage
-    panel, uses the unpadded part)."""
+    kernels read max(H, W)/2 of the twiddles at either radix; the entries'
+    check asks no more)."""
     return _padded_block_bytes(h * (w // 2), max(h, w) // 2 + 1)
 
 
@@ -398,8 +396,7 @@ def fft2_columns_geometry(h: int, width: int) -> ColumnGeometry:
     ``COLUMN_PANEL_VALUES``/H above (8 at 2048, 4 at 4096: whole 32-byte
     sectors); never wider than the width rounded up to a power of two.
     Threads: 16 values each. Shared memory: the panel and a ROM of H/2
-    twiddles, each padded (:func:`fft_smem_bytes`; the radix-2 panel uses
-    the unpadded part)."""
+    twiddles, each padded (:func:`fft_smem_bytes`), at both radices."""
     if h * TWO_PASS_MIN_LINES <= COLUMN_PANEL_VALUES:
         cols = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // h)
     else:
@@ -599,10 +596,9 @@ class FramePasses(NamedTuple):
 
 def frame_passes(h: int, w: int, *, real: bool = False, inverse: bool = False) -> FramePasses:
     """Passes, exchanges and barriers of the register-pass whole-frame
-    kernels on an (H, W) frame: ``fft2_fused`` and ``rfft2_fused`` at either
-    radix (the radix-2 layers take the radix-4 passes), ``irfft2_fused`` at
-    radix 4 (at radix 2 it runs the Stockham stages). The first panel's
-    first pass loads from HBM and the
+    kernels on an (H, W) frame: ``fft2_fused``, ``rfft2_fused`` and
+    ``irfft2_fused`` at either radix (the radix-2 layers take the radix-4
+    passes). The first panel's first pass loads from HBM and the
     second panel's last stores to HBM, so T passes make T - 1 exchanges;
     each boundary between passes is a barrier, and so is the middle of every
     pass that reads and writes shared memory in place: 2T - 3. ``rfft2_fused``
@@ -773,9 +769,8 @@ def _panel(radix: int):
 def _one_block_panel(radix: int):
     """The panel of the one-block kernels: the register passes at radix 4,
     the Stockham stages at radix 2 (bit for bit the radix-2 kernels'
-    register passes, :func:`_regpass_panel_r2`, which ``fft_fused``,
-    ``rfft_fused``, ``irfft_fused``, ``fft2_fused`` and ``rfft2_fused`` run
-    there)."""
+    register passes, :func:`_regpass_panel_r2`, which every one-block
+    kernel and ``fft2_columns`` run there)."""
     _panel(radix)
     return _regpass_panel if radix == 4 else _stockham_panel
 
@@ -1006,8 +1001,9 @@ def fft2_columns_plain(x: torch.Tensor, *, radix: int = 2,
                        inverse: bool = False) -> torch.Tensor:
     """Plain version of :func:`fft2_columns` on (F, H, Wc) complex64: the
     panel of :func:`fft_fused_plain` (the register passes at radix 4, the
-    Stockham stages at radix 2) down each of the Wc columns; ``inverse`` by
-    conjugation, scaled by 1/H."""
+    Stockham stages at radix 2, bit for bit the kernel's radix-2 passes)
+    down each of the Wc columns; ``inverse`` by conjugation, scaled by
+    1/H."""
     f, h, wc = x.shape
     cols = x.transpose(-1, -2).reshape(f * wc, h)
     y = _fft_plain(cols, _one_block_panel(radix), inverse)
@@ -1065,15 +1061,16 @@ def rfft2_fused_plain(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     return _rfft2_regpass(x, _one_block_panel(radix))
 
 
-def _irfft2_regpass(y: torch.Tensor) -> torch.Tensor:
-    """The radix-4 ``irfft2_fused`` kernel (``csrc/rfft2_fused.cu``,
-    ``irfft2_regs_kernel``) step for step: slot 0 of row r packs the
-    Hermitian parts of the DC column a and the Nyquist column b as A + iB,
-    A = (a[r] + conj a[-r])/2, B likewise; the register passes over the m =
-    W/2 columns by conjugation leave C = conj(H·ifft) of each column; the
-    rows see Y = conj C, with Y[0] = Re C[0] (DC) and Y[m] = -Im C[0]
-    (Nyquist), and take the untangling and the register passes over their m
-    values by conjugation; the result is scaled by 1/(H·m)."""
+def _irfft2_regpass(y: torch.Tensor, panel) -> torch.Tensor:
+    """The ``irfft2_fused`` kernel (``csrc/rfft2_fused.cu``,
+    ``irfft2_regs_kernel``) step for step, its passes on ``panel`` (see
+    :func:`_one_block_panel`): slot 0 of row r packs the Hermitian parts of
+    the DC column a and the Nyquist column b as A + iB,
+    A = (a[r] + conj a[-r])/2, B likewise; the passes over the m = W/2
+    columns by conjugation leave C = conj(H·ifft) of each column; the rows
+    see Y = conj C, with Y[0] = Re C[0] (DC) and Y[m] = -Im C[0]
+    (Nyquist), and take the untangling and the passes over their m values
+    by conjugation; the result is scaled by 1/(H·m)."""
     f, h, half = y.shape
     m = half - 1
     re, im = _planes(y)
@@ -1086,30 +1083,20 @@ def _irfft2_regpass(y: torch.Tensor) -> torch.Tensor:
     def turn(z, a, b):  # (f, a, b) -> (f·b, a)
         return z.reshape(f, a, b).transpose(1, 2).reshape(f * b, a)
 
-    cr, ci = _regpass_panel(turn(zr, h, m), turn(-zi, h, m), h)  # (f·m, h)
+    cr, ci = panel(turn(zr, h, m), turn(-zi, h, m), h)  # (f·m, h)
     cr, ci = turn(cr, m, h).reshape(f * h, m), turn(ci, m, h).reshape(f * h, m)
     yr = torch.cat([cr, -ci[:, :1]], dim=-1)
     yi = torch.cat([-ci, torch.zeros_like(ci[:, :1])], dim=-1)
-    out = _irfft_panel(yr, yi, 2 * m, 4, panel=_regpass_panel)
+    out = _irfft_panel(yr, yi, 2 * m, 4, panel=panel)
     return (out / h).reshape(f, h, 2 * m)
 
 
 def irfft2_fused_plain(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Plain version of :func:`irfft2_fused`: (F, H, W/2+1) -> (F, H, W)
-    float32; column inverse by conjugation, corner turn, row irfft panel.
-    At radix 4 the kernel's own order (:func:`_irfft2_regpass`): the packed
-    columns DC + i Nyquist go through the column panel together."""
-    if radix == 4:
-        return _irfft2_regpass(y)
-    f, h, half = y.shape
-    w = 2 * (half - 1)
-    re, im = _planes(y)
-    yr = re.transpose(-1, -2).reshape(f * half, h)
-    yi = im.transpose(-1, -2).reshape(f * half, h)
-    fr, fi = _panel(radix)(yr, -yi, h)
-    yr = (fr / h).reshape(f, half, h).transpose(-1, -2).reshape(f * h, half)
-    yi = (-fi / h).reshape(f, half, h).transpose(-1, -2).reshape(f * h, half)
-    return _irfft_panel(yr, yi, w, radix).reshape(f, h, w)
+    float32 in the kernel's own order (:func:`_irfft2_regpass`) on the
+    panel of :func:`fft_fused_plain`: the packed columns DC + i Nyquist go
+    through the column panel together."""
+    return _irfft2_regpass(y, _one_block_panel(radix))
 
 
 # ------------------------------ wrappers ----------------------------------

@@ -24,21 +24,20 @@ two-pass kernels) and three for a real one (plus its recombination or
 untangling); a composed 2D frame is its row pass's round trips plus one
 for the column pass (``csrc/fft2_columns.cu`` reads the columns where the
 row pass wrote them, in one panel a block, whose passes and exchanges are
-those of its column panel: a one-block row of H values at radix 4, the
-Stockham stages at radix 2), and where the columns are longer than that
-kernel serves (H > 4096) the column rows' trips plus one for the two corner
-turns through HBM. Shared memory: every pass reads and writes the block's
-values once. A stage-at-a-time Stockham pass (radix 2 in ``irfft2_fused``
-and ``fft2_columns``) does one butterfly stage. Every one-block row
+those of its column panel: a one-block row of H values), and where the
+columns are longer than that kernel serves (H > 4096) the column rows'
+trips plus one for the two corner turns through HBM. Shared memory: every
+pass reads and writes the block's values once. Every one-block row
 (``fft_fused``, ``rfft_fused``, ``irfft_fused``), the whole frames of
-``fft2_fused`` and ``rfft2_fused``, and ``irfft2_fused`` at radix 4 run
-the register passes of ``csrc/stockham_regs.cuh`` at either radix: four
-radix-2 layers a pass, or two radix-4 ones, the first loaded from HBM and
-the last stored to HBM, so their exchanges through shared memory are
-their passes less one, plus one where a real row's recombination reads
-the half spectrum back from shared memory; the model times both radices
-alike there, and ESTIMATE ranks the radix-4 engine, of fewer operations,
-first (:func:`fastest_variant`). The cluster kernel runs that
+``fft2_fused``, ``rfft2_fused`` and ``irfft2_fused``, and the column
+panels of ``fft2_columns`` run the register passes of
+``csrc/stockham_regs.cuh`` at either radix: four radix-2 layers a pass, or
+two radix-4 ones, the first loaded from HBM and the last stored to HBM,
+so their exchanges through shared memory are their passes less one, plus
+one where a real row's recombination reads the half spectrum back from
+shared memory; the model times both radices alike there, and ESTIMATE
+ranks the radix-4 engine, of fewer operations, first
+(:func:`fastest_variant`). The cluster kernel runs that
 panel over lines of Q = m/A values (A = 16, 32 or 64 lines a row), so its
 exchanges are the panel's over Q values, plus the load's regrouping of
 each CTA's runs into lines and the one read across the cluster
@@ -173,13 +172,6 @@ def _stage_passes(stages: int, radix: int) -> int:
     return max(1, math.ceil(stages / math.log2(radix)))
 
 
-def _panel_passes(n: int, radix: int) -> int:
-    """Stockham passes of one panel of length n, as the CUDA panel runs them
-    (radix 4: one radix-2 pass first when log2 n is odd)."""
-    stages = int(math.log2(n))
-    return stages if radix == 2 else stages // 2 + stages % 2
-
-
 def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[int, int]:
     """(HBM round trips, shared-memory passes) of the 1D kernels on a row of
     n: one block (the register passes' exchanges, the same at both
@@ -206,26 +198,22 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
 
 def _frame_passes(h: int, w: int, radix: int, real: bool, inverse: bool) -> int:
     """Shared-memory passes of the whole-frame kernels on an (H, W) frame:
-    the register passes' exchanges (``frame_passes``) where they run, at
-    both radices of ``fft2_fused`` and ``rfft2_fused`` and at radix 4 of
-    ``irfft2_fused``; the radix-2 ``irfft2_fused`` keeps the Stockham
-    stages."""
+    the register passes' exchanges (``frame_passes``), which ``fft2_fused``,
+    ``rfft2_fused`` and ``irfft2_fused`` run at both radices."""
     from repro_torch.kernels.fft_radix2 import frame_passes  # lazy
 
-    if radix == 4 or not (real and inverse):
-        return frame_passes(h, w, real=real, inverse=inverse).exchanges
-    return _panel_passes(w // 2, radix) + _panel_passes(h, radix)
+    return frame_passes(h, w, real=real, inverse=inverse).exchanges
 
 
 def _column_cost(h: int, radix: int) -> Tuple[int, int]:
     """(HBM round trips, shared-memory passes) of the composed route's
     column pass on columns of H: ``fft2_columns`` where it serves H (one
-    trip; its column panel the register passes at radix 4, the Stockham
-    stages at radix 2), else the row kernels on the turned frame."""
+    trip; its column panel the register passes at both radices), else the
+    row kernels on the turned frame."""
     from repro_torch.kernels.fft_radix2 import fft2_columns_serves, regpass_exchanges  # lazy
 
     if fft2_columns_serves(h):
-        return 1, regpass_exchanges(h) if radix == 4 else _panel_passes(h, radix)
+        return 1, regpass_exchanges(h, radix=radix)
     return _row_cost(h, radix, False)
 
 

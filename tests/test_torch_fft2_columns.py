@@ -187,8 +187,8 @@ def test_columns_past_the_panel_take_the_turn_route(monkeypatch):
 def test_estimate_prices_the_composed_frame_without_corner_turns(kind, shape, radix, trips):
     """ESTIMATE's composed frame: the row pass's round trips plus one for
     fft2_columns (its passes those of its column panel: the register
-    passes at radix 4, the Stockham stages at radix 2), and one more for
-    the two corner turns only where the turn route runs (H > 4096)."""
+    passes at both radices), and one more for the two corner turns only
+    where the turn route runs (H > 4096)."""
     from repro_torch.launch.roofline import HBM_BW, SMEM_BW
     from repro_torch.plan import autotune
     from repro_torch.plan.plan import ProblemKey
@@ -224,12 +224,14 @@ def lib(tmp_path_factory):
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 129), (1, 256, 48), (1, 32, 33), (1, 8, 20),
-                                   (2, 16, 3), (1, 2048, 9)])
+                                   (2, 16, 3), (1, 2048, 9), (1, 4, 17), (3, 2, 40)])
 @pytest.mark.parametrize("radix", [2, 4])
 def test_emulated_kernel_matches_plain(lib, shape, radix):
-    """Partial last panels (129, 48, 33, 9 and 3 columns), one-pass columns
-    (8, 16), an 8-column panel (2048), in place and into a new buffer, each
-    forward and inverse, at the launch geometry of fft2_columns_geometry."""
+    """Partial last panels (129, 48, 33, 9, 3, 17 and 40 columns), one-pass
+    columns (2, 4, 8, 16: one pass of radix H, then one of radix 1 through
+    shared memory), an 8-column panel (2048), in place and into a new
+    buffer, each forward and inverse, at the launch geometry of
+    fft2_columns_geometry."""
     f, h, wc = shape
     x = _crandn(np.random.default_rng(h + wc + radix), *shape)
     g = k.fft2_columns_geometry(h, wc)
@@ -248,10 +250,17 @@ def test_emulated_kernel_matches_plain(lib, shape, radix):
 
 
 def test_emulated_kernel_refuses_a_geometry_off_the_census(lib):
+    """Both radices take the padded census (panel and ROM padded, 16 values
+    a thread): it launches, and one slot less, twice the threads or the
+    stage panel's unpadded block are refused."""
     x = np.zeros((1, 256, 48), np.complex64)
     g = k.fft2_columns_geometry(256, 48)
-    args = (x.ctypes.data, x.ctypes.data, 1, 256, 48, 4, g.cols)
-    assert lib.repro_fft2_columns(*args, g.threads * 2, g.smem, 0, 1.0, 0, None) == 9
-    assert lib.repro_fft2_columns(*args, g.threads, g.smem - 8, 0, 1.0, 0, None) == 9
-    assert lib.repro_fft2_columns(x.ctypes.data, x.ctypes.data, 1, 96, 48, 4, g.cols,
-                                  g.threads, g.smem, 0, 1.0, 0, None) == 1
+    unpadded = (g.cols * 256 + 256 // 2) * 8
+    for radix in (4, 2):
+        args = (x.ctypes.data, x.ctypes.data, 1, 256, 48, radix, g.cols)
+        assert lib.repro_fft2_columns(*args, g.threads, g.smem, 0, 1.0, 0, None) == 0
+        assert lib.repro_fft2_columns(*args, g.threads * 2, g.smem, 0, 1.0, 0, None) == 9
+        assert lib.repro_fft2_columns(*args, g.threads, g.smem - 8, 0, 1.0, 0, None) == 9
+        assert lib.repro_fft2_columns(*args, g.threads, unpadded, 0, 1.0, 0, None) == 9
+        assert lib.repro_fft2_columns(x.ctypes.data, x.ctypes.data, 1, 96, 48, radix, g.cols,
+                                      g.threads, g.smem, 0, 1.0, 0, None) == 1

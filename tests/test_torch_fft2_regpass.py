@@ -69,7 +69,7 @@ def test_rfft2_regpass_twin_matches_pallas_and_numpy(hw):
     got = k.rfft2_fused(torch.from_numpy(x), radix=4)
     _close(got.numpy(), ref)
     _close(got.numpy(), np.fft.rfft2(x.astype(np.float64)))
-    # the inverse keeps the stage panel; the round trip closes
+    # the inverse on its register passes; the round trip closes
     _close(k.irfft2_fused(got, radix=4).numpy(), x, tol=1e-4)
 
 

@@ -288,12 +288,12 @@ def test_exchange_and_barrier_counts_are_the_radix_4_passes():
 
 def test_planner_prices_the_passes_that_run():
     """A one-block radix-2 fft, rfft or irfft row: the register passes'
-    exchanges; fft2_columns' radix-2 column panels keep their stages (they
-    run the stage panel); columns over 4096 take the row kernels."""
+    exchanges; fft2_columns' radix-2 column panels too (the same passes as
+    radix 4's); columns over 4096 take the row kernels."""
     assert autotune._row_cost(2048, 2, False) == autotune._row_cost(2048, 4, False) == (1, 2)
     assert autotune._row_cost(2048, 2, True) == (1, 2)
     assert autotune._row_cost(2048, 2, True, True) == (1, 2)
     assert autotune._row_cost(8192, 2, True) == (1, 3)  # 16·16·16 and the recombination
-    assert autotune._column_cost(512, 2) == (1, 9)
+    assert autotune._column_cost(512, 2) == (1, 2)
     assert autotune._column_cost(512, 4) == (1, 2)
     assert autotune._column_cost(8192, 2) == autotune._row_cost(8192, 2, False) == (1, 3)

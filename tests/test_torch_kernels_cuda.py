@@ -214,10 +214,12 @@ def test_cuda_frame_register_passes_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_frame_register_passes_r2_match_plain(cuda):
-    """The radix-2 fft2_fused (forward and inverse) and rfft2_fused run the
-    register-pass kernels at radix 2 on every frame the census admits (91
-    complex, 105 real), three frames a call, each within 2e-5 of its plain
-    version and of torch.fft; one launch a call and nothing else."""
+    """The radix-2 fft2_fused (forward and inverse), rfft2_fused and
+    irfft2_fused run the register-pass kernels at radix 2 on every frame
+    the census admits (91 complex, 105 real), three frames a call, each
+    within 2e-5 of its plain version and of torch.fft (irfft2_fused on the
+    rfft2's spectrum, held to the frame too); one launch a call and nothing
+    else."""
     g = torch.Generator(device=cuda).manual_seed(40)
 
     def one_launch(name, fn, *args, **kw):
@@ -244,6 +246,9 @@ def test_cuda_frame_register_passes_r2_match_plain(cuda):
         got = one_launch("rfft2_fused", k.rfft2_fused, r, radix=2)
         assert _rel(got, k.rfft2_fused_plain(r, radix=2)) <= TOL, hw
         assert _rel(got, torch.fft.rfft2(r)) <= TOL, hw
+        back = one_launch("irfft2_fused", k.irfft2_fused, got, radix=2)
+        assert _rel(back, k.irfft2_fused_plain(got, radix=2)) <= TOL, hw
+        assert _rel(back, r) <= 1e-4, hw
 
 
 def _hermitian_edges(y, cols):
@@ -265,10 +270,10 @@ def _hermitian_edges(y, cols):
 @pytest.mark.cuda
 def test_cuda_irfft_register_passes_match_plain(cuda):
     """The radix-4 irfft_fused on every one-block row (n = 2 ... 2^14,
-    batches 7 and 1) and irfft2_fused on every admitted frame (105, three
-    a call) run the register-pass kernels on half spectra that are not
-    Hermitian: one launch a call and nothing else, within 2e-5 of the
-    twins, and of torch.fft.irfft / irfft2 on the projected input."""
+    batches 7 and 1) and irfft2_fused at both radices on every admitted
+    frame (105, three a call) run the register-pass kernels on half spectra
+    that are not Hermitian: one launch a call and nothing else, within 2e-5
+    of the twins, and of torch.fft.irfft / irfft2 on the projected input."""
     g = torch.Generator(device=cuda).manual_seed(21)
 
     def crandn(*shape):
@@ -293,9 +298,11 @@ def test_cuda_irfft_register_passes_match_plain(cuda):
     assert len(real_frames) == 105
     for h, w in real_frames:
         y = crandn(3, h, w // 2 + 1)
-        got = one_launch("irfft2_fused", k.irfft2_fused, y, radix=4)
-        assert _rel(got, k.irfft2_fused_plain(y, radix=4)) <= TOL, (h, w)
-        assert _rel(got, torch.fft.irfft2(_hermitian_edges(y, True))) <= TOL, (h, w)
+        ref = torch.fft.irfft2(_hermitian_edges(y, True))
+        for radix in (4, 2):
+            got = one_launch("irfft2_fused", k.irfft2_fused, y, radix=radix)
+            assert _rel(got, k.irfft2_fused_plain(y, radix=radix)) <= TOL, (h, w, radix)
+            assert _rel(got, ref) <= TOL, (h, w, radix)
 
 
 @pytest.mark.cuda

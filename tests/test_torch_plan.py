@@ -92,15 +92,14 @@ def test_row_cost_counts_the_kernels_shared_memory_passes(n, radix, real, invers
     ("fft2d", (512, 128, 128), 2, 3),   # fft2_fused r2: the frame passes, 16·8 each way
     ("fft2d", (512, 128, 128), 4, 3),   # the same passes at radix 4
     ("rfft2d", (512, 128, 128), 4, 3),  # rfft2_fused r4: 16·4 rows, 16·8 columns
-    ("rfft2d", (512, 128, 128), 2, (3, 13)),  # r2: rfft2_fused's passes; irfft2_fused's 6 + 7
+    ("rfft2d", (512, 128, 128), 2, (3, 3)),  # r2: rfft2_fused's and irfft2_fused's frame passes
 ])
 @pytest.mark.parametrize("direction", ["fwd", "inv"])
 def test_whole_frames_are_priced_by_the_passes_that_run(kind, shape, radix, passes, direction):
     """ESTIMATE prices a whole frame by its kernel's shared-memory passes:
-    the register passes' exchanges where they run (``fft2_fused`` and
-    ``rfft2_fused`` at both radices, ``irfft2_fused`` at radix 4), the stage
-    panel's stages for the radix-2 ``irfft2_fused`` (``passes`` a pair:
-    forward, inverse); one HBM trip, one launch."""
+    the register passes' exchanges, which ``fft2_fused``, ``rfft2_fused``
+    and ``irfft2_fused`` run at both radices (``passes`` a pair: forward,
+    inverse); one HBM trip, one launch."""
     from repro_torch.launch.roofline import HBM_BW, SMEM_BW
     from repro_torch.plan import autotune
 
@@ -202,8 +201,10 @@ def test_tiny_transforms_on_the_card_plan_onto_a_kernel(kind, shape):
 # same work there) and went to ``fused`` by registry order; they now go to
 # fused_r4 too. Whole complex frames tie as well since the radix-2
 # fft2_fused runs the radix-4 kernel's frame passes (the same exchanges),
-# and so do the inverse real rows and the forward real frames since the
-# radix-2 irfft_fused and rfft2_fused run theirs.
+# and so do the inverse real rows and the real frames since the radix-2
+# irfft_fused, rfft2_fused and irfft2_fused run theirs, and the composed
+# frames whose rows fit one block since the radix-2 fft2_columns runs the
+# radix-4 column panel's passes.
 CARD_KEYS = sorted(set(SMOKE_KEYS) | set(LONG_ROW_KEYS) | {
     ("fft1d", (1, 2), "complex64"), ("fft1d", (3, 8), "complex64"),
     ("fft1d", (2, 16), "complex64"), ("fft2d", (1, 2, 4), "complex64"),
@@ -214,7 +215,8 @@ TIES = {("fft1d", (8192, 2048), "complex64"), ("rfft1d", (8192, 2048), "float32"
         ("fft1d", (2, 16), "complex64"), ("rfft1d", (1, 4), "complex64"),
         ("fft1d", (4, 2 ** 14), "complex64"), ("rfft2d", (1, 2, 2), "complex64"),
         ("fft2d", (512, 128, 128), "complex64"), ("fft2d", (1, 2, 4), "complex64"),
-        ("rfft2d", (512, 128, 128), "float32")}
+        ("rfft2d", (512, 128, 128), "float32"), ("fft2d", (16, 1024, 1024), "complex64"),
+        ("rfft2d", (32, 512, 512), "float32")}
 
 
 @pytest.mark.parametrize("kind,shape,dtype", CARD_KEYS)
@@ -225,11 +227,9 @@ def test_estimate_keeps_each_keys_engine(kind, shape, dtype, direction):
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype=dtype, direction=direction)
     assert estimate_plan(key).variant == "fused_r4"
-    # ties: the one-block rows and the whole frames that run the same
-    # register passes at both radices (the real frame's inverse runs
-    # irfft2_fused, whose radix-2 kernel keeps its stages, past 2x2)
-    tie = (kind, shape, dtype) in TIES and not (kind == "rfft2d" and direction == "inv"
-                                                and shape[-1] > 2)
+    # ties: the one-block rows, the whole frames and the composed frames of
+    # one-block rows, which run the same register passes at both radices
+    tie = (kind, shape, dtype) in TIES
     times = [estimate_variant_time(key, v) for v in ("fused", "fused_r4")]
     assert (times[0] == times[1]) == tie, times
 

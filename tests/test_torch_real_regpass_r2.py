@@ -1,8 +1,10 @@
 """The register passes of the radix-2 ``irfft_fused`` and ``rfft2_fused``.
 
 ``csrc/fft_fused.cu`` (``irfft_regs_kernel<LOG_M, 2>``) and
-``csrc/rfft2_fused.cu`` (``rfft2_regs_kernel<LOG_H, LOG_M, 2>``) run on the
-card only. Here, on the CPU:
+``csrc/rfft2_fused.cu`` (``rfft2_regs_kernel<LOG_H, LOG_M, 2>``, and
+``irfft2_regs_kernel<LOG_H, LOG_M, 2>`` beside it, whose own tests are in
+``test_torch_columns_irfft2_regpass_r2.py``) run on the card only. Here,
+on the CPU:
 
 * the plain versions at radix 2 (``irfft_fused_plain``,
   ``rfft2_fused_plain``) are held to the Pallas kernels in interpret mode
@@ -90,7 +92,8 @@ def test_rfft2_plain_matches_pallas_and_numpy(hw):
 @pytest.mark.parametrize("n", [4, 32, 2048, 16384])
 def test_irfft_register_passes_are_the_plain_version_bit_for_bit(n):
     """The kernel's order: untangle, then the half-size inverse on the
-    radix-2 register passes, against the plain version's stage panel."""
+    radix-2 register passes, against the plain version's panel
+    (``_stockham_panel``)."""
     y = torch.from_numpy(_half_spectra(np.random.default_rng(3 * n), 3, n))
     re, im = k._planes(y)
     got = k._irfft_panel(re, im, n, 2, panel=k._regpass_panel_r2)
@@ -139,13 +142,16 @@ def test_emulated_irfft_r2_matches_plain(emulate, n, batch):
     assert np.all(np.asarray(errs) <= TOL_EMU), (n, batch, errs)
 
 
-@pytest.mark.parametrize("hw", [(2, 2), (8, 2), (2, 512), (64, 16), (16, 1024), (128, 128)],
-                         ids=_frame_id)
+@pytest.mark.parametrize("hw", [(2, 2), (8, 2), (2, 512), (64, 16), (16, 1024), (128, 128),
+                                (256, 64), (128, 256)], ids=_frame_id)
 def test_emulated_rfft2_r2_matches_plain(emulate, hw):
     """rfft2_fused at radix 2 (``emulate.frames``, its rfft2 error): the
     128x128 instance and the runtime-geometry one on one-pass, tall, wide
     and thin frames, where the row lines are shorter than the ROM's half
-    turn; the other frame kernels at radix 2 beside it."""
+    turn; the other frame kernels at radix 2 beside it, irfft2_fused among
+    them on the same frames (the tall 256x64 on the runtime-geometry
+    instance) and on a 16384-value frame (128x256), which has an instance
+    of its own."""
     mod, so = emulate
     h, w = hw
     errs, lines = mod.frames(so, h, w, np.random.default_rng(h * 1000 + w), radix=2)
@@ -153,8 +159,10 @@ def test_emulated_rfft2_r2_matches_plain(emulate, hw):
 
 
 def test_emulated_entries_refuse_a_geometry_off_the_census(emulate):
-    """At radix 2 both entries take the register-pass census (padded
-    values and ROM, 16 values a thread) and refuse anything else."""
+    """At radix 2 the entries take the register-pass census (padded values
+    and ROM, 16 values a thread) and refuse anything else: irfft_fused,
+    rfft2_fused and irfft2_fused, which the stage panel's unpadded block
+    no longer launches."""
     _, so = emulate
     n, b = 2048, 4
     t = k.pick_row_tile(b, n // 2)
@@ -172,11 +180,13 @@ def test_emulated_entries_refuse_a_geometry_off_the_census(emulate):
     z = np.zeros((1, h, w // 2 + 1), np.complex64)
     frame = (f.ctypes.data, z.ctypes.data, 1, h, w, 2)
     good = (k.block_threads(h * w // 2), k.rfft2_smem_bytes(h, w))
-    assert so.repro_rfft2_fused(*frame, *good, 0, None) == 0
-    assert so.repro_rfft2_fused(*frame, good[0] // 2, good[1], 0, None) == 9
     unpadded = (h * w // 2 + max(h, w) // 2 + 1) * 8  # the stage panel's block
-    assert so.repro_rfft2_fused(*frame, good[0], unpadded, 0, None) == 9
-    assert so.repro_rfft2_fused(f.ctypes.data, z.ctypes.data, 1, h, 48, 2, *good, 0, None) == 1
+    back = (z.ctypes.data, f.ctypes.data, 1, h, w, 2)
+    for entry, args in ((so.repro_rfft2_fused, frame), (so.repro_irfft2_fused, back)):
+        assert entry(*args, *good, 0, None) == 0
+        assert entry(*args, good[0] // 2, good[1], 0, None) == 9
+        assert entry(*args, good[0], unpadded, 0, None) == 9
+        assert entry(*args[:4], 48, 2, *good, 0, None) == 1
 
 
 # ----------------------------- census and planner ---------------------------
@@ -203,13 +213,14 @@ def test_irfft_passes_are_counted_and_priced_as_at_radix_4(n):
 
 
 def test_real_frames_are_priced_by_their_passes():
-    """Every admitted frame: the forward's radix-2 passes are radix 4's
-    (``frame_passes``); the radix-2 inverse (``irfft2_fused``, the stage
-    panel) keeps one pass a stage."""
+    """Every admitted frame: the radix-2 passes of the forward and of the
+    inverse (``irfft2_fused`` on register passes too) are radix 4's
+    (``frame_passes``)."""
     for h, w in ALL_REAL:
         fwd = k.frame_passes(h, w, real=True).exchanges
         assert autotune._frame_passes(h, w, 2, True, False) == fwd, (h, w)
         assert autotune._frame_passes(h, w, 4, True, False) == fwd, (h, w)
-        stages = (max(w // 2, 1).bit_length() - 1) + (h.bit_length() - 1)
-        assert autotune._frame_passes(h, w, 2, True, True) == stages, (h, w)
+        inv = k.frame_passes(h, w, real=True, inverse=True).exchanges
+        assert autotune._frame_passes(h, w, 2, True, True) == inv, (h, w)
+        assert autotune._frame_passes(h, w, 4, True, True) == inv, (h, w)
     assert k.frame_passes(128, 128, real=True) == ((16, 4), (16, 8), 3, 6)

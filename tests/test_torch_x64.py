@@ -221,7 +221,7 @@ SINGLE_SHA256 = {
     "fused/fft2": "ba41aa1b41f1ff4d3659b53f5e564e9782e85f568dd506dec9933f5acbda3d6e",
     "fused/ifft2": "e32128c7629a80d9ddad9a35b2c98795b861790b28d1c0488ee23a9457f4f4ac",
     "fused/rfft2": "308705aa7be10495d3f71e63d882bf00cbc9b903bf0efeae2dd9a3c52c019e1d",
-    "fused/irfft2": "6a9ec2cd9a50855db5bfef52186fcb1618c9a5f9b96d80c274312886003826c8",
+    "fused/irfft2": "c84a760e0503e50052b4b55c2e7a79220e181d1d8659f0ea786a447f68d60bb3",
     "fused_r4/fft": "84371a8a72e9613e3227550c38498c70e7608e17aea36f3766b9f6b761339d87",
     "fused_r4/ifft": "e79b97fee64148ae013908560398ee7c520ef49412dd2f8f9875961cacc2d941",
     "fused_r4/rfft": "9b3154a07c5f1e87a9b56e77cc4273f537eaa1f4a5eda624b28ee286e8022706",

@@ -15,10 +15,13 @@ launches, beside the ``torch.fft`` call that computes the same:
   ``rfft_fused``, and ``irfft_fused`` on their half spectra (8192, 1025);
 * rows over one block, radix 2 (``fft_two_pass``): fft and ifft on
   TWO_PASS_COMPLEX (64, 2^18), rfft and irfft on TWO_PASS_REAL (256, 2^16);
-* frames (512, 128, 128): ``fft2_fused`` and ``rfft2_fused`` at radix 2
-  and 4, and the radix-4 ``irfft2_fused`` (on (512, 128, 65)) and
-  ``fft2_columns`` (on the CT frames (32, 512, 512)); ``rfft2_fused`` at
-  radix 2 and 4 also on tall frames (1024, 256, 64).
+* frames (512, 128, 128): ``fft2_fused``, ``rfft2_fused`` and
+  ``irfft2_fused`` (on (512, 128, 65)) at radix 2 and 4; ``rfft2_fused``
+  and ``irfft2_fused`` also on tall frames (1024, 256, 64) and their half
+  spectra (1024, 256, 33); ``irfft2_fused`` also on 64x64 half spectra
+  (8192, 64, 33), which like the tall ones the radix-2 kernel serves with
+  its runtime geometry; ``fft2_columns`` at radix 2 and 4 on the CT
+  frames (32, 512, 512) and on fourier_lm's mixing columns (8, 2048, 512).
 
 One JSON line a process, after the card's name and power limit. Needs
 CUDA; exits 2 without. chip_smoke.py checks every length and reads
@@ -131,12 +134,21 @@ for radix in (2, 4):
         lambda a: k.rfft2_fused(a, radix=radix), lambda a: k.rfft2_fused_plain(a, radix=radix),
         torch.fft.rfft2, r)
 del r
-frames["irfft2_fused r4"] = case(lambda a: k.irfft2_fused(a, radix=4),
-                                 lambda a: k.irfft2_fused_plain(a, radix=4), torch.fft.irfft2,
-                                 crandn(512, 128, 65))
-frames["fft2_columns r4 (32, 512, 512)"] = case(
-    lambda a: k.fft2_columns(a, radix=4), lambda a: k.fft2_columns_plain(a, radix=4),
-    lambda a: torch.fft.fft(a, dim=-2), crandn(32, 512, 512))
+for shape in ((512, 128, 65), (1024, 256, 33), (8192, 64, 33)):
+    y = crandn(*shape)
+    for radix in (2, 4):
+        frames[f"irfft2_fused r{radix} {shape}"] = case(
+            lambda a: k.irfft2_fused(a, radix=radix),
+            lambda a: k.irfft2_fused_plain(a, radix=radix), torch.fft.irfft2, y)
+    del y
+for shape in ((32, 512, 512), (8, 2048, 512)):
+    c = crandn(*shape)
+    for radix in (2, 4):
+        frames[f"fft2_columns r{radix} {shape}"] = case(
+            lambda a: k.fft2_columns(a, radix=radix),
+            lambda a: k.fft2_columns_plain(a, radix=radix),
+            lambda a: torch.fft.fft(a, dim=-2), c)
+    del c
 res["frames (512, 128, 128)"] = frames
 print(json.dumps({"root": sys.argv[1], "shape": [b, n], **res}))
 """
