@@ -53,7 +53,15 @@ Phases, each printing one JSON line:
              complex call and three per real one; its bound is one HBM
              round trip (the reference's single residency), and each case's
              phase line also gives the floor of this design's two or three
-             trips and the time of each pass alone;
+             trips and the time of each pass alone; then every kind at
+             N = 2^19 ... 2^24 (2^26 values a case, at both radices:
+             both engines run the two passes there), each within 2e-5 of
+             its plain version and of ``torch.fft``, beside its one-trip
+             bound, its two- or three-trip floor and ``torch.fft``'s time,
+             with ptxas's registers and spills of the new instances (0
+             spilled the gate); one fft of 129 rows of 2^24 (past 2^31
+             values) against ``torch.fft``; and the two passes beside the
+             cluster at complex N = 2^15 ... 2^18;
    kernel  — the same for fft_cluster, the kernel those wrappers launch at
              radix 4 on the same rows and on the strip frames' rows
              (rfft and irfft on (4096, 32768), the C 2 instance that
@@ -110,7 +118,11 @@ Phases, each printing one JSON line:
              each plans ``fused_r4`` and launches fft_cluster and no
              fft_two_pass; one more ifft on the decays, scoped to
              ``xfft.config(variant="fused")``, launches fft_two_pass and no
-             fft_cluster.
+             fft_cluster. Past the reference's envelope (2^18 < N <=
+             2^24): fft on 4 decays of 2^20 points, rfft on 8 records of
+             2^22 samples, fft2 and irfft2 on (2, 8, 2^19) strip frames;
+             each plans ``fused_r4`` and launches fft_two_pass (and
+             fft2_columns on the frames) and no fft_cluster.
 4. imaging — ``repro_torch.core.spectral`` and ``repro_torch.imaging``
              through their public functions at the sizes users send, the
              counts read around each call: registration and apply_shift on
@@ -666,6 +678,22 @@ COLUMNS_ENTRY = "24fft2_columns_regs_kernel"
 # and 64K-sample real lines (radar range lines, spectroscopy).
 TWO_PASS_COMPLEX = (64, 2 ** 18)
 TWO_PASS_REAL = (256, 2 ** 16)
+# Rows past the reference's fused envelope, 2^19 ... 2^24 (2^24 complex
+# values: 134 ms of a 125 MHz radio channel, a 16 M-point FID), on the two
+# passes at both radices: 2^26 values a case, (4, 2^24) the largest. One
+# complex case past 2^31 values (129 rows of 2^24, 17.3 GB a tensor) holds
+# the 64-bit row bases.
+LONG_ROWS = tuple(2 ** p for p in range(19, 25))
+LONG_ROW_VALUES = 2 ** 26
+LONG_PAST_2_31 = (129, 2 ** 24)
+# The instances the long rows add: (log2 n1, log2 C) and (log2 n2, log2 T).
+LONG_ROW_INSTANCES = {"columns": [(10, 4), (11, 3), (12, 2)],
+                      "rows": [(10, 4), (11, 3), (12, 2)]}
+# Requests past 2^18 through xfft: 1 M-point FIDs, 4 M-sample seismic
+# records (2^22 at 100 Hz is 11.6 h), 2^19-wide strip frames.
+LONG_FID = (4, 2 ** 20)
+LONG_RECORDS = (8, 2 ** 22)
+LONG_STRIP = (2, 8, 2 ** 19)
 STRIP = (8, 512, 32768)  # line-scan / SAR strip frames, 32768 samples wide
 # The spectral and imaging phase, at the sizes users send: registration on
 # 128x128 serving frames, psd on 512x512 CT frames, k-space on 256x256 MRI
@@ -1421,7 +1449,9 @@ def two_pass_phase(torch, k, card: str):
     panel or tile, threads and shared memory, and ptxas's registers and
     spills of every instance (0 spilled the gate); every kind is also held
     to its plain version at both shapes and at every row length the two
-    passes serve (N = 2^15 ... 2^18)."""
+    passes serve (N = 2^15 ... 2^18, then 2^19 ... 2^24 at both radices
+    beside torch.fft, and one batch past 2^31 values); then the two passes
+    and the cluster side by side at N = 2^15 ... 2^18."""
     from repro_torch.kernels import _build
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1446,7 +1476,7 @@ def two_pass_phase(torch, k, card: str):
     }
     log = _build.build_log()
     ptxas = {kind: ptxas_entries(log, frag) for kind, frag in TWO_PASS_ENTRIES.items()}
-    geo = {n: k.two_pass_geometry(n) for n in (nc, nr // 2)}
+    geo = {n: k.two_pass_geometry(n) for n in (nc, nr // 2, *LONG_ROWS)}
     emit({"phase": "kernel", "kernel": "fft_two_pass", "design": "register passes (radix 2)",
           "by_row": {str(n): {"split": [g.n1, g.n2],
                               "column_passes": list(k.regpass_radices(g.n1)),
@@ -1458,7 +1488,8 @@ def two_pass_phase(torch, k, card: str):
                      for n, g in geo.items()},
           "ptxas": {kind: {",".join(map(str, a)): v for a, v in sorted(e.items())}
                     for kind, e in ptxas.items()}})
-    want = {"columns": [(7, 5), (8, 4), (9, 4)], "rows": [(7, 5), (8, 4), (9, 4)]}
+    want = {kind: [(7, 5), (8, 4), (9, 4), *LONG_ROW_INSTANCES[kind]]
+            for kind in ("columns", "rows")}
     if {kind: sorted(e) for kind, e in ptxas.items()} != want:
         raise AssertionError(f"fft_two_pass: instances {ptxas} in the build log, want {want}")
     spilled = {(kind, a): v for kind, e in ptxas.items() for a, v in e.items()
@@ -1519,6 +1550,11 @@ def two_pass_phase(torch, k, card: str):
     del x, cases, scratch, out
     torch.cuda.empty_cache()
     worst = two_pass_every_length(torch, k, crandn, gen)
+    long_rows = two_pass_long_rows(torch, k, card, crandn, gen, ptxas)
+    for what in ("rel_err", "max_abs_err"):
+        worst[what] = max(worst[what], *(c[what] for c in long_rows.values()))
+    two_pass_past_2_31(torch, k, crandn)
+    two_pass_beside_cluster(torch, k, card, crandn)
     main = by_case["fft"]
     errs = [r for c in by_case.values() for r in c["by_radix"].values()]
     return {"name": "fft_two_pass", "route": "cuda", "source": KERNELS["fft_two_pass"][0],
@@ -1530,7 +1566,8 @@ def two_pass_phase(torch, k, card: str):
             "rel_err": max(worst["rel_err"], *(r["rel_err"] for r in errs)), "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "pass_ms": pass_ms, "shape": main["shape"], "by_case": by_case}
+            "pass_ms": pass_ms, "shape": main["shape"], "by_case": by_case,
+            "long_rows": long_rows}
 
 
 def two_pass_every_length(torch, k, crandn, gen):
@@ -1573,6 +1610,119 @@ def two_pass_every_length(torch, k, crandn, gen):
         del x, r, h
         torch.cuda.empty_cache()
     return worst
+
+
+def two_pass_long_rows(torch, k, card, crandn, gen, ptxas):
+    """Every kind of fft_two_pass at every row length past the reference's
+    envelope (N = 2^19 ... 2^24, LONG_ROW_VALUES values a case), at both
+    radices (both engines run the two passes there): each call launches 2
+    (complex) or 3 (real) times and nothing else, within TOL_KERNEL of its
+    plain version and of torch.fft; one line a case with its time beside the
+    one-trip bound, the two- or three-trip floor and the library's time, and
+    ptxas's registers and spills of the case's instances (0 spilled, gated
+    in two_pass_phase). Returns {case: line}."""
+    out = {}
+    for n in LONG_ROWS:
+        b = LONG_ROW_VALUES // n
+        g = k.two_pass_geometry(n)
+        x = crandn(b, n)
+        r = torch.randn(b, n, generator=gen, device="cuda")
+        h = torch.fft.rfft(torch.randn(b, n, generator=gen, device="cuda"))  # Hermitian
+        cases = {  # name: (kernel, plain, library, cost, trips, split)
+            "fft": (lambda radix: k.fft_fused(x, radix=radix), lambda: k.fft_two_pass_plain(x),
+                    lambda: torch.fft.fft(x), k.fft_cost(b, n), 2, g),
+            "ifft": (lambda radix: k.fft_fused(x, radix=radix, inverse=True),
+                     lambda: k.fft_two_pass_plain(x, inverse=True), lambda: torch.fft.ifft(x),
+                     k.fft_cost(b, n), 2, g),
+            "rfft": (lambda radix: k.rfft_fused(r, radix=radix), lambda: k.rfft_two_pass_plain(r),
+                     lambda: torch.fft.rfft(r), k.rfft_cost(b, n), 3,
+                     k.two_pass_geometry(n // 2)),
+            "irfft": (lambda radix: k.irfft_fused(h, radix=radix),
+                      lambda: k.irfft_two_pass_plain(h), lambda: torch.fft.irfft(h),
+                      k.rfft_cost(b, n), 3, k.two_pass_geometry(n // 2)),
+        }
+        for name, (kernel, plain, library, cost, trips, split) in cases.items():
+            want = plain()
+            lib = library()
+            line = {"phase": "kernel", "kernel": "fft_two_pass", "case": f"long {name}",
+                    "shape": [b, n], "split": [split.n1, split.n2], "by_radix": {}}
+            for radix in (2, 4):
+                before = dict(k.LAUNCHES)
+                got = kernel(radix)
+                delta = {kn: k.LAUNCHES[kn] - before[kn] for kn in k.LAUNCHES
+                         if k.LAUNCHES[kn] != before[kn]}
+                torch.cuda.synchronize()
+                line["by_radix"][str(radix)] = {
+                    "launches_per_call": delta, "rel_err": rel_err(got, want),
+                    "max_abs_err": max_abs(got, want), "rel_err_vs_library": rel_err(got, lib),
+                    "ms": time_ms(lambda: kernel(radix))}
+                del got
+                if delta != {"fft_two_pass": trips}:
+                    raise AssertionError(f"fft_two_pass long {name} {(b, n)} radix {radix}: "
+                                         f"launches {delta}, not {trips} fft_two_pass")
+            del want, lib
+            bound_ms, bound_by = bound(card, cost)
+            by_radix = line["by_radix"].values()
+            line.update(
+                rel_err=max(v["rel_err"] for v in by_radix),
+                max_abs_err=max(v["max_abs_err"] for v in by_radix),
+                rel_err_vs_library=max(v["rel_err_vs_library"] for v in by_radix),
+                ms=line["by_radix"]["2"]["ms"],
+                plain_ms=time_ms(plain, reps=2, batches=3),
+                library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
+                round_trips=trips, floor_ms=trips * bound_ms,
+                ptxas={"columns": ptxas["columns"].get((split.n1.bit_length() - 1,
+                                                        split.cols.bit_length() - 1)),
+                       "rows": ptxas["rows"].get((split.n2.bit_length() - 1,
+                                                  split.rows.bit_length() - 1))})
+            line["ms_over_floor"] = line["ms"] / line["floor_ms"]
+            emit(line)
+            for what in ("rel_err", "rel_err_vs_library"):
+                if not line[what] <= TOL_KERNEL:
+                    raise AssertionError(f"fft_two_pass long {name} {(b, n)}: {what} "
+                                         f"{line[what]} > {TOL_KERNEL}")
+            out[f"{name} {n}"] = line
+        del x, r, h
+        torch.cuda.empty_cache()
+    return out
+
+
+def two_pass_past_2_31(torch, k, crandn):
+    """A complex batch of more than 2^31 values (LONG_PAST_2_31: 129 rows of
+    2^24) through fft_fused: the rows on either side of the 2^31st value
+    held to torch.fft (2 launches)."""
+    b, n = LONG_PAST_2_31
+    x = crandn(b, n)
+    before = k.LAUNCHES["fft_two_pass"]
+    got = k.fft_fused(x, radix=2)
+    launched = k.LAUNCHES["fft_two_pass"] - before
+    rows = [0, b // 2, b - 2, b - 1]
+    ref = torch.fft.fft(x[rows])
+    line = {"phase": "kernel", "kernel": "fft_two_pass", "case": "past 2^31 values",
+            "shape": [b, n], "values": b * n, "rows_checked": rows,
+            "launches_per_call": launched, "rel_err_vs_library": rel_err(got[rows], ref)}
+    del x, got, ref
+    torch.cuda.empty_cache()
+    emit(line)
+    if launched != 2 or not line["rel_err_vs_library"] <= TOL_KERNEL:
+        raise AssertionError(f"fft_two_pass past 2^31 values: {line}")
+
+
+def two_pass_beside_cluster(torch, k, card, crandn):
+    """The two passes (radix 2) and the cluster (radix 4) side by side on
+    the complex rows both serve (N = 2^15 ... 2^18, 2^24 values a case),
+    beside the one-trip bound and the two-trip floor: what ROADMAP's item
+    on the planner's choice between them reads."""
+    for n in (2 ** p for p in range(15, 19)):
+        b = 2 ** 24 // n
+        x = crandn(b, n)
+        bound_ms, _ = bound(card, k.fft_cost(b, n))
+        emit({"phase": "kernel", "kernel": "fft_two_pass", "case": "beside fft_cluster",
+              "shape": [b, n], "two_pass_ms": time_ms(lambda: k.fft_fused(x, radix=2)),
+              "cluster_ms": time_ms(lambda: k.fft_fused(x, radix=4)), "bound_ms": bound_ms,
+              "two_trip_floor_ms": 2 * bound_ms, "library_ms": time_ms(lambda: torch.fft.fft(x))})
+        del x
+    torch.cuda.empty_cache()
 
 
 def cluster_phase(torch, k, card: str):
@@ -2386,6 +2536,40 @@ def request_phase(torch, k, xfft, resolve_call):
           "round_trip_err")
     emit(line)
     del lines, half, back
+    # Past the reference's envelope (2^18 < N <= 2^24): each request plans
+    # the fused engines (a tie that fused_r4 takes) and launches the two
+    # passes, never the cluster.
+    def past_2_18(name, fn, kind, shape, direction="fwd", dtype="complex64", also=()):
+        plan = engine(kind, shape, direction, dtype)
+        if plan != "fused_r4":
+            raise AssertionError(f"request {name}: planned {plan}, not fused_r4")
+        return request(name, fn, ["fft_two_pass", *also], plan, forbid=["fft_cluster"])
+
+    fid = fid_source(torch, *LONG_FID, seed=6)
+    spec, line = past_2_18(f"fft {LONG_FID}", lambda: xfft.fft(fid), "fft1d", fid.shape)
+    check(line, rel_err(spec, torch.fft.fft(fid)), TOL_REQUEST)
+    emit(line)
+    del fid, spec
+    records = fid_source(torch, *LONG_RECORDS, seed=7).real.contiguous()
+    half, line = past_2_18(f"rfft {LONG_RECORDS}", lambda: xfft.rfft(records), "rfft1d",
+                           records.shape, dtype="float32")
+    check(line, rel_err(half, torch.fft.rfft(records)), TOL_REQUEST)
+    emit(line)
+    del records, half
+    strips = torch.from_numpy(frame_source(5, *LONG_STRIP)).to(dev)
+    cstrips = strips.to(torch.complex64)
+    spec, line = past_2_18(f"fft2 {LONG_STRIP}", lambda: xfft.fft2(cstrips), "fft2d",
+                           strips.shape, also=[COLUMNS])
+    check(line, rel_err(spec, torch.fft.fft2(cstrips)), TOL_REQUEST)
+    emit(line)
+    half = torch.fft.rfft2(strips)
+    back, line = past_2_18(f"irfft2 {LONG_STRIP}", lambda: xfft.irfft2(half), "rfft2d",
+                           strips.shape, "inv", "float32", also=[COLUMNS])
+    check(line, rel_err(back, torch.fft.irfft2(half)), TOL_REQUEST)
+    check(line, max_abs(back, strips) / float(strips.abs().max()), TOL_ROUND_TRIP,
+          "round_trip_err")
+    emit(line)
+    del strips, cstrips, spec, half, back
     frames = torch.from_numpy(frame_source(4, *STRIP)).to(dev)
     half, line = long_rows("rfft2 (8,512,32768)", lambda: xfft.rfft2(frames), "rfft2d",
                            frames.shape, dtype="float32", also=[COLUMNS])

@@ -7,13 +7,19 @@ serves both; the alias lets the reference's wisdom files load); ``fused``/``fuse
 CUDA kernels under backend ``"cuda"`` (their plain versions on a CPU
 tensor), for power-of-two dims, single device (but see the pencil below),
 and only while one row of the longest transform dim is in the 1D kernels'
-envelope (2^18 values, the reference's) — the 2D kinds' composition runs
-the 1D kernels on each pass, so a row must be served for any fused plan. The shared-memory
-numbers come from the kernels' census (``repro_torch.kernels.fft_radix2``).
-``fused_r4`` runs rows of 2^14 < N <= 2^18 on thread-block clusters, so on
-a CUDA key it also needs the card to hold one cluster of each instance the
-key launches (``cluster_occupancy``); where it cannot, the key plans
-``fused``, whose radix-2 rows take the two-pass kernels.
+envelope — the 2D kinds' composition runs the 1D kernels on each pass, so
+a row must be served for any fused plan. That envelope is the reference's
+(2^18 values) on a CPU key, so that it plans exactly as the reference
+does, and the wrappers' own on a CUDA key (2^24 values,
+``fft_fits_card``: rows of 2^18 < N <= 2^24 take the two-pass kernels,
+where the reference plans its jnp schedules; ROADMAP queue 3, divergence
+1). The shared-memory numbers come from the kernels' census
+(``repro_torch.kernels.fft_radix2``). ``fused_r4`` runs rows of 2^14 < N
+<= 2^18 on thread-block clusters, so on a CUDA key it also needs the card
+to hold one cluster of each instance the key launches
+(``cluster_occupancy``); where it cannot, the key plans ``fused``, whose
+radix-2 rows take the two-pass kernels. Past 2^18 both engines run the
+two-pass kernels.
 
 Every engine serves the streaming kind ``fft2d_stream``
 (``repro_torch.core.fft2d.fft2_stream``, forward only). The reference's
@@ -107,26 +113,31 @@ def _fused_working_set(key, radix: int = 2):
     memory): the whole frame where a 2D frame fits one block, else one row
     of each transform dim, in the kernels that row takes at ``radix`` (one
     block; for 2^14 < N <= 2^18 the two passes at radix 2, one CTA of the
-    cluster at radix 4). A dim over 2^18 reports a size over the budget, so
-    the envelope is the reference's: one row of the longest transform dim
-    <= 2^18 values. A pencil (``fft2d_pencil``) always takes the rows: no
-    rank runs its frame in one block."""
+    cluster at radix 4; past 2^18 the two passes). A dim past the key's
+    envelope reports a size over the budget: on a CPU key the reference's
+    (``fft_fits_fused``, 2^18 values), on a CUDA key the wrappers'
+    (``fft_fits_card``, 2^24 values). A pencil (``fft2d_pencil``) always
+    takes the rows: no rank runs its frame in one block."""
     from repro_torch.kernels import fft_radix2 as census
 
     dims = _dims(key)
     if dims is None:
         return None
+    fits = census.fft_fits_card if key.backend == "cuda" else census.fft_fits_fused
+
+    def row(n, real=False):
+        return census.row_smem_bytes(n, real=real, radix=radix, fits=fits)
+
     if key.kind == "rfft1d":
-        return census.row_smem_bytes(dims[-1], real=True, radix=radix)
+        return row(dims[-1], real=True)
     if key.kind == "rfft2d":
         h, w = dims
         if census.rfft2_fits_smem(h, w):
             return census.rfft2_smem_bytes(h, w)
-        return max(census.row_smem_bytes(w, real=True, radix=radix),
-                   census.row_smem_bytes(h, radix=radix))
+        return max(row(w, real=True), row(h))
     if key.kind == "fft2d" and census.fft2_fits_smem(*dims):
         return census.fft2_smem_bytes(*dims)
-    return max(census.row_smem_bytes(d, radix=radix) for d in dims)
+    return max(row(d) for d in dims)
 
 
 def _cluster_rows(key):

@@ -1,17 +1,18 @@
 // Two-pass (four-step) FFT kernels: fft_fused, rfft_fused and irfft_fused
-// at radix 2 on rows longer than one block holds (2^14 < N <= 2^18): the
+// at radix 2 on rows longer than one block holds (2^14 < N <= 2^24): the
 // radix-2 `fused` engine's route, which the planner also takes where the
-// card holds no cluster of fft_cluster.cu, the radix-4 route of the same
-// rows.
+// card holds no cluster of fft_cluster.cu, the radix-4 route of rows up to
+// 2^18; past 2^18 the route of both engines.
 //
 // Replaces, over the rows one block cannot hold
 // (src/repro/kernels/fft_radix2.py):
 //   fft_fused   (:279, pallas_call at :299)  complex (B, N) -> (B, N)
 //   rfft_fused  (:319, pallas_call at :340)  real (B, N) -> (B, N/2+1)
 //   irfft_fused (:358, pallas_call at :379)  (B, N/2+1) -> real (B, N)
-// The Pallas kernels hold a whole row of up to 2^18 values in VMEM. A
-// Hopper block holds at most 227 KB: 2^14 complex values and their ROM,
-// the rows fft_fused.cu serves.
+// The Pallas kernels hold a whole row of up to 2^18 values in VMEM; the
+// reference plans its jnp schedules for longer rows. A Hopper block holds
+// at most 227 KB: 2^14 complex values and their ROM, the rows fft_fused.cu
+// serves.
 //
 // Bound on an H100: HBM bytes, as for fft_fused.cu. The reference reads
 // and writes each row once. This design moves a complex row twice (x ->
@@ -28,36 +29,43 @@
 // Column pass: a block takes a panel of C neighbouring columns of one row's
 // view, as fft2_columns.cu takes a panel of a frame (frame_panel<true>,
 // consecutive threads on consecutive columns): the first pass loads runs of
-// C values (row stride n2) from HBM straight into registers, the middle
+// C values (row stride n2; C = 16 or more up to n1 = 1024, 128 bytes or
+// more, then 8 and 4, whole 32-byte sectors, at 16384 values and 1024
+// threads a block) from HBM straight into registers, the middle
 // passes exchange through the padded frame layout, and the last multiplies
 // element (k1, j2) by W_N^(j2 k1) in registers and stores it straight to the
 // scratch in the same layout. The exponent p = j2 k1 < N is an exact
-// integer and -2p/N is exact in float32 (p < 2^24), so sincospif gives each
-// twiddle to the last bit, with nothing carried from one element to the
-// next.
+// integer and -2p/N is exact in float32 (p <= (n1 - 1)(n2 - 1) < 2^24 for
+// N <= 2^24, and p over a power of two), so sincospif gives each twiddle to
+// the last bit, with nothing carried from one element to the next.
 // Row pass: the scratch's rows k1 hold n2 contiguous values, but the output
 // is out[k2 n1 + k1], so the corner turn is addressing, as in the paper's
 // RAM controller. A block takes a tile of T neighbouring rows k1 (one
-// contiguous run). Its first pass loads them coalesced, consecutive threads
-// on consecutive groups of a row; every later pass puts consecutive threads
-// on consecutive rows (Lanes<true> over the tile's rows), so that the last
-// stores from registers runs of T consecutive k1 (HbmFrameOut<true> with
-// row stride n1). The tile's rows sit S = padded(n2) + 1 slots apart, each
-// padded inside (value i at slot(i)): the first pass's stride-16 writes
-// spread as in the one-block kernels, and the later passes' accesses of 16
-// consecutive rows fall on 16 bank pairs because S is odd. A row of 128
-// values holds 8 groups, so the first pass's half-warp takes rows q and
-// q + 8, whose slots differ by 8 S = 8 (mod 16) bank pairs
-// (tests/test_torch_two_pass_regpass.py holds a numpy model of every
-// access).
+// contiguous run; T sized as C is). Its first pass loads them coalesced,
+// consecutive threads on consecutive groups of a row; every later pass puts
+// consecutive threads on consecutive rows (Lanes<true> over the tile's
+// rows), so that the last stores from registers runs of T consecutive k1
+// (HbmFrameOut<true> with row stride n1). The tile's rows sit S slots
+// apart, each padded inside (value i at slot(i)): the first pass's
+// stride-16 writes spread as in the one-block kernels. A later pass's
+// half-warp takes min(16, T) consecutive rows at 16/T consecutive groups:
+// with S = padded(n2) + 1 (T >= 16) 16 rows fall on 16 bank pairs because
+// S is odd; with S = padded(n2) + 16/T (T = 8, 4 at n2 = 2048, 4096, where
+// padded(n2) is a multiple of 16) row r and group t fall on bank pair
+// r 16/T + t. A row of 128 values holds 8 groups, so the first pass's
+// half-warp takes rows q and q + 8, whose slots differ by 8 S = 8 (mod 16)
+// bank pairs (tests/test_torch_two_pass_regpass.py holds a numpy model of
+// every access of every instance).
 // An inverse conjugates on the way into the column pass and on the way out
 // of the row pass, scaling by 1/N: no extra pass over HBM.
 // The real kinds run both passes at m = N/2 on the packed row (the N reals
 // read as N/2 complex values, as fft_fused.cu does), with an elementwise
 // recombination after them (rfft) or an untangling before them (irfft).
 // One instance of each pass a line length the census launches (n1, n2 =
-// 128, 256, 512 and their panel and tile widths), so every stride but the
-// other side's is compile-time.
+// 128 ... 4096 and their panel and tile widths), so every stride but the
+// other side's is compile-time. Offsets inside a row (below 2^24) are
+// 32-bit, unsigned where shifted (good to 2^32); row bases are long long,
+// so a batch may hold more than 2^31 values.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -73,7 +81,7 @@ constexpr int kElementwiseThreads = 256;
 // The column pass's scratch, written by its last pass: element k1 = pos +
 // c l of panel column `line` (j2 = c0 + line) times W_N^(j2 k1), at
 // y[k1 n2 + j2] (y points at the row's scratch). 32-bit offsets: a row
-// holds at most 2^18 values.
+// holds at most 2^24 values, and the shifts are unsigned.
 struct TwiddledColumns {
   static constexpr bool kShared = false;
   float2* y;
@@ -121,13 +129,14 @@ two_pass_columns_kernel(const float2* __restrict__ x,
 }
 
 // The row tile in shared memory: element i of tile row `line` at
-// line S + slot(i). Every run a pass reads or writes has stride 1 inside an
-// aligned group of 16 (a first pass's writes) or a multiple of 16 (every
-// later access of a row of more than 16 values), so its slots are uniform.
+// line S + slot(i) (S: two_pass_stride below). Every run a pass reads or
+// writes has stride 1 inside an aligned group of 16 (a first pass's
+// writes) or a multiple of 16 (every later access of a row of more than 16
+// values), so its slots are uniform.
 struct SmemTile {
   static constexpr bool kShared = true;
   float2* buf;
-  int stride;  // S, odd
+  int stride;  // S
 
   template <int R, class F>
   __device__ __forceinline__ void run(int line, int i, int step, F f) const {
@@ -163,6 +172,13 @@ struct FirstRowLanes {
   }
 };
 
+// Slots between neighbouring rows of a tile of 2^log_t rows of n2 values
+// (two_pass_row_stride in repro_torch/kernels/fft_radix2.py): the padded row
+// and one more from 16 rows on, else the padded row and 16/T more.
+__host__ __device__ constexpr int two_pass_stride(int n2, int log_t) {
+  return regs::padded(n2) + (log_t >= 4 ? 1 : 16 >> log_t);
+}
+
 // x: (B, n1, n2) from the column pass; y: (B, N) with
 // y[k2 n1 + k1] = conj_out(sum_j2 W_n2^(j2 k2) x[k1, j2]) * scale.
 // A tile of T = 2^LOG_T rows of n2 = 2^LOG_N2; shared memory: the tile (T
@@ -174,10 +190,11 @@ two_pass_rows_kernel(const float2* __restrict__ x,
     int log_n1,
     int conj,
     float scale) {
-  static_assert(LOG_N2 > 4 && LOG_T >= 4, "rows of two passes or more, tiles of 16 rows or more");
+  static_assert(LOG_N2 > 4, "rows of two passes or more");
+  static_assert(LOG_T >= 4 || LOG_N2 >= 8, "a tile under 16 rows needs S - 1 a multiple of 16");
   extern __shared__ float2 smem[];
   constexpr int P = 1 << (LOG_T + LOG_N2);
-  constexpr int kStride = regs::padded(1 << LOG_N2) + 1;
+  constexpr int kStride = two_pass_stride(1 << LOG_N2, LOG_T);
   constexpr int kLogHalf = LOG_N2 - 1;
   constexpr int NP = regs::pass_count(LOG_N2);
   float2* rom = smem + (kStride << LOG_T);
@@ -207,12 +224,15 @@ using ColumnsKernel = void (*)(const float2*, float2*, int, int);
 using RowsKernel = void (*)(const float2*, float2*, int, int, float);
 
 // The instances of the census (two_pass_geometry in
-// repro_torch/kernels/fft_radix2.py): C = 32 columns of 128 and 16 of 256
-// and 512; T = 32 rows of 128 and 16 of 256 and 512. Null off the census.
+// repro_torch/kernels/fft_radix2.py): C = 32 columns of 128, 16 of 256 to
+// 1024, 8 of 2048 and 4 of 4096; T rows of n2 the same. Null off the census.
 ColumnsKernel columns_instance(int log_n1, int log_c) {
   if (log_n1 == 7 && log_c == 5) return two_pass_columns_kernel<7, 5>;
   if (log_n1 == 8 && log_c == 4) return two_pass_columns_kernel<8, 4>;
   if (log_n1 == 9 && log_c == 4) return two_pass_columns_kernel<9, 4>;
+  if (log_n1 == 10 && log_c == 4) return two_pass_columns_kernel<10, 4>;
+  if (log_n1 == 11 && log_c == 3) return two_pass_columns_kernel<11, 3>;
+  if (log_n1 == 12 && log_c == 2) return two_pass_columns_kernel<12, 2>;
   return nullptr;
 }
 
@@ -220,6 +240,9 @@ RowsKernel rows_instance(int log_n2, int log_t) {
   if (log_n2 == 7 && log_t == 5) return two_pass_rows_kernel<7, 5>;
   if (log_n2 == 8 && log_t == 4) return two_pass_rows_kernel<8, 4>;
   if (log_n2 == 9 && log_t == 4) return two_pass_rows_kernel<9, 4>;
+  if (log_n2 == 10 && log_t == 4) return two_pass_rows_kernel<10, 4>;
+  if (log_n2 == 11 && log_t == 3) return two_pass_rows_kernel<11, 3>;
+  if (log_n2 == 12 && log_t == 2) return two_pass_rows_kernel<12, 2>;
   return nullptr;
 }
 
@@ -263,11 +286,12 @@ two_pass_untangle_kernel(const float2* __restrict__ x,
   z[(row << log_m) + k] = irfft_untangle(yk, cconj(ym), make_float2(c, -s));
 }
 
-// The two passes' common checks: power-of-two sides, N < 2^24 (exact
-// twiddle exponents), and a grid of at most INT_MAX blocks.
+// The two passes' common checks: power-of-two sides, N <= 2^24 (exact
+// twiddle exponents: p <= (n1 - 1)(n2 - 1) < 2^24, and -2p/N is p over a
+// power of two), and a grid of at most INT_MAX blocks.
 bool two_pass_ok(int batch, int n1, int n2, int lines, int side, long long* blocks) {
   if (batch < 1 || n1 < 2 || n2 < 2 || !is_pow2(n1) || !is_pow2(n2) || !is_pow2(lines) ||
-      lines > side || static_cast<long long>(n1) * n2 >= (1LL << 24))
+      lines > side || static_cast<long long>(n1) * n2 > (1LL << 24))
     return false;
   *blocks = static_cast<long long>(batch) * (side / lines);
   return *blocks <= INT_MAX;
@@ -301,10 +325,10 @@ extern "C" int repro_two_pass_rows(const void* x, void* y, int batch, int n1, in
   if (!repro::two_pass_ok(batch, n1, n2, rows, n1, &blocks)) return cudaErrorInvalidValue;
   const auto kernel = repro::rows_instance(host_log2(n2), host_log2(rows));
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  // The tile's rows S = padded(n2) + 1 slots apart, then the padded ROM.
-  const int need =
-      (rows * (repro::regs::padded(n2) + 1) + repro::regs::padded(n2 / 2)) *
-      static_cast<int>(sizeof(float2));
+  // The tile's rows S slots apart, then the padded ROM.
+  const int need = (rows * repro::two_pass_stride(n2, host_log2(rows)) +
+                    repro::regs::padded(n2 / 2)) *
+                   static_cast<int>(sizeof(float2));
   if (smem < need || !repro::geometry_ok(rows * n2, threads, need, 0))
     return cudaErrorInvalidConfiguration;
   cudaError_t err = repro::prepare(kernel, device, smem);

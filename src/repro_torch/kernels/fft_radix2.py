@@ -14,7 +14,9 @@ live here:
   radices. ``pick_row_tile``, ``fft_fits_smem``, ``fft2_fits_smem``, the
   two-pass, cluster and column-panel geometries, ``kernels.ops``, the engines' gate and
   the planner all read it. ``fft_fits_fused`` is the reference's
-  envelope of the 1D kernels: rows of up to 2^18 values.
+  envelope of the 1D kernels, rows of up to 2^18 values, which CPU keys
+  plan by; ``fft_fits_card`` is the wrappers' own, rows of up to 2^24
+  values, which CUDA keys plan by.
 * **The plain versions**: ``_stockham_panel``, ``_stockham_panel_r4``,
   ``_rfft_panel`` and ``_irfft_panel`` as torch ops on (re, im) planes,
   step for step the Pallas panels, ``_regpass_panel`` (the register passes
@@ -37,7 +39,9 @@ live here:
   to ``LAUNCHES[name]`` (the registry of ``kernels._launch``, shared by
   every wrapper of the port). A 1D row over one block (2^14 < N <= 2^18)
   takes one cluster of CTAs at radix 4, counted under ``"fft_cluster"``,
-  and the two-pass kernels at radix 2, counted under ``"fft_two_pass"``.
+  and the two-pass kernels at radix 2, counted under ``"fft_two_pass"``;
+  a longer row (2^18 < N <= 2^24) takes the two-pass kernels at both
+  radices.
   A meta tensor takes the card route up to the launch, launches nothing
   and charges the call's cost (``fft_cost``, ``rfft_cost``, ``fft2_cost``,
   ``rfft2_cost``, ``fft2_columns_cost``: the transform's bytes in and out)
@@ -76,6 +80,7 @@ __all__ = [
     "fft2_fused_plain",
     "fft2_smem_bytes",
     "fft_cost",
+    "fft_fits_card",
     "fft_fits_fused",
     "fft_cluster_plain",
     "fft_fits_smem",
@@ -231,16 +236,32 @@ _REFERENCE_ROW_ARRAYS = 6
 TWO_PASS_MIN_LINES = 16
 
 
+#: Longest row the 1D wrappers serve: the two-pass kernels' twiddle
+#: exponents p = j2·k1 <= (n1-1)(n2-1) stay exact float32 integers below
+#: 2^24 (``csrc/fft_two_pass.cu``).
+CARD_ROW_LIMIT = 2 ** 24
+
+
 def fft_fits_fused(n: int) -> bool:
-    """True when ``fft_fused``, ``rfft_fused`` and ``irfft_fused`` serve rows
-    of length ``n``: the reference's rule N·4·6 <= 8 MiB, so N <= 2^18. The
-    reference counts a real row by its N reals, like a complex one."""
+    """True when the reference's fused kernels serve rows of length ``n``:
+    its rule N·4·6 <= 8 MiB, so N <= 2^18. The reference counts a real row
+    by its N reals, like a complex one. The planner holds CPU keys to it."""
     return n * 4 * _REFERENCE_ROW_ARRAYS <= _REFERENCE_BUDGET_BYTES
+
+
+def fft_fits_card(n: int) -> bool:
+    """True when ``fft_fused``, ``rfft_fused`` and ``irfft_fused`` serve rows
+    of length ``n``: N <= 2^24 (``CARD_ROW_LIMIT``), a real row counted by
+    its N reals, as :func:`fft_fits_fused` counts it. Rows past one block
+    take the cluster (radix 4, N <= 2^18) or the two passes. The planner
+    holds CUDA keys to it."""
+    return n <= CARD_ROW_LIMIT
 
 
 def fft_split(n: int) -> Tuple[int, int]:
     """(n1, n2) with n = n1·n2, both powers of two and n2 <= n1 <= 2·n2:
-    the two-pass view of a row as an (n1, n2) matrix (2^18 = 512 x 512)."""
+    the two-pass view of a row as an (n1, n2) matrix (2^18 = 512 x 512,
+    2^24 = 4096 x 4096)."""
     n2 = 1 << ((n.bit_length() - 1) // 2)
     return n // n2, n2
 
@@ -259,11 +280,26 @@ class TwoPassGeometry(NamedTuple):
     row_smem: int
 
 
-def two_pass_row_stride(n2: int) -> int:
-    """Slots between neighbouring rows of the row pass's tile: the padded
-    row and one more, an odd count, so that 16 consecutive rows fall on 16
-    bank pairs (``SmemTile`` in ``csrc/fft_two_pass.cu``)."""
-    return smem_slot(n2) + 1
+def two_pass_row_stride(n2: int, rows: int = TWO_PASS_MIN_LINES) -> int:
+    """Slots between neighbouring rows of the row pass's tile of ``rows``
+    rows (``SmemTile`` in ``csrc/fft_two_pass.cu``). A half-warp of a
+    turned pass takes min(16, T) neighbouring rows at 16/T neighbouring
+    groups t: the padded row and one more (an odd count) where T >= 16, so
+    that 16 rows fall on 16 bank pairs; the padded row and 16/T more where
+    T < 16 (the padded row is a multiple of 16 slots from n2 = 256 on), so
+    that row r and group t fall on bank pair r·16/T + t."""
+    return smem_slot(n2) + max(1, TWO_PASS_MIN_LINES // rows)
+
+
+def _panel_lines(n: int) -> int:
+    """Lines of n values a two-pass block holds: ``ROW_TILE_ELEMS``/n but at
+    least ``TWO_PASS_MIN_LINES`` where 16 lines fit the column panel's
+    ``COLUMN_PANEL_VALUES`` (n <= 1024: every run 128 bytes or more), else
+    ``COLUMN_PANEL_VALUES``/n (8 at 2048, 4 at 4096: whole 32-byte
+    sectors), as :func:`fft2_columns_geometry` sizes its panels."""
+    if n * TWO_PASS_MIN_LINES <= COLUMN_PANEL_VALUES:
+        return max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n)
+    return COLUMN_PANEL_VALUES // n
 
 
 def two_pass_geometry(n: int) -> TwoPassGeometry:
@@ -271,19 +307,17 @@ def two_pass_geometry(n: int) -> TwoPassGeometry:
     column pass holds a panel of ``cols`` columns of n1 values and a ROM of
     n1/2 twiddles, each padded (:func:`fft_smem_bytes`); the row pass a tile
     of ``rows`` rows of n2 values, :func:`two_pass_row_stride` slots apart,
-    and a padded ROM of n2/2. Each holds at least ``TWO_PASS_MIN_LINES``
-    lines (every HBM run of the column pass and every store run of the row
-    pass at least 16 values, 128 bytes) and aims at ``ROW_TILE_ELEMS``
-    values, as a 1D block does: 32 lines of 128, 16 of 256 and 512, at
-    most 8192 values and 512 threads a block."""
+    and a padded ROM of n2/2. Each holds :func:`_panel_lines` lines: 32
+    lines of 128, 16 of 256 to 1024, 8 of 2048 and 4 of 4096, at most
+    16384 values and 1024 threads a block, every HBM run of the column pass
+    and every store run of the row pass at least one 32-byte sector."""
     n1, n2 = fft_split(n)
-    cols = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n1)
-    rows = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // n2)
+    cols, rows = _panel_lines(n1), _panel_lines(n2)
     return TwoPassGeometry(
         n1, n2,
         cols, block_threads(cols * n1), _padded_block_bytes(cols * n1, n1 // 2),
         rows, block_threads(rows * n2),
-        (rows * two_pass_row_stride(n2) + smem_slot(n2 // 2)) * _COMPLEX_BYTES,
+        (rows * two_pass_row_stride(n2, rows) + smem_slot(n2 // 2)) * _COMPLEX_BYTES,
     )
 
 
@@ -390,34 +424,32 @@ def fft2_columns_serves(h: int) -> bool:
 
 
 def fft2_columns_geometry(h: int, width: int) -> ColumnGeometry:
-    """C = ``ROW_TILE_ELEMS``/H but at least 16 where H <= 1024 (so that
-    several blocks share an SM, as a 1D block aims, and each run of a row
-    is a whole 128-byte line: 64 columns at H = 64, 16 at 256 to 1024), and
-    ``COLUMN_PANEL_VALUES``/H above (8 at 2048, 4 at 4096: whole 32-byte
-    sectors); never wider than the width rounded up to a power of two.
-    Threads: 16 values each. Shared memory: the panel and a ROM of H/2
-    twiddles, each padded (:func:`fft_smem_bytes`), at both radices."""
-    if h * TWO_PASS_MIN_LINES <= COLUMN_PANEL_VALUES:
-        cols = max(TWO_PASS_MIN_LINES, ROW_TILE_ELEMS // h)
-    else:
-        cols = COLUMN_PANEL_VALUES // h
-    cols = min(cols, 1 << max(width - 1, 0).bit_length())
+    """C = :func:`_panel_lines` of H (so that several blocks share an SM
+    where H <= 1024, as a 1D block aims, each run of a row a whole 128-byte
+    line: 64 columns at H = 64, 16 at 256 to 1024; 8 at 2048, 4 at 4096:
+    whole 32-byte sectors), never wider than the width rounded up to a
+    power of two. Threads: 16 values each. Shared memory: the panel and a
+    ROM of H/2 twiddles, each padded (:func:`fft_smem_bytes`), at both
+    radices."""
+    cols = min(_panel_lines(h), 1 << max(width - 1, 0).bit_length())
     return ColumnGeometry(cols, -(-width // cols), block_threads(cols * h),
                           _padded_block_bytes(cols * h, h // 2))
 
 
-def row_smem_bytes(n: int, *, real: bool = False, radix: int = 2) -> int:
+def row_smem_bytes(n: int, *, real: bool = False, radix: int = 2,
+                   fits=fft_fits_fused) -> int:
     """Largest block the 1D wrappers launch on rows of length ``n``
     (``real``: ``rfft_fused`` and ``irfft_fused``): the one block where a
-    row fits one, else the larger two-pass block (radix 2) or one CTA of
-    the cluster (radix 4), at N/2 complex values for a real row. A row
-    outside :func:`fft_fits_fused` has no launch; it reports its one-block
-    size, which is over the budget."""
+    row fits one, else one CTA of the cluster (radix 4, N <= 2^18) or the
+    larger two-pass block, at N/2 complex values for a real row. A row
+    outside the envelope ``fits`` (the reference's :func:`fft_fits_fused`
+    by default; CUDA keys pass :func:`fft_fits_card`) reports its one-block
+    size, which is over the budget, so that the engines' gate drops it."""
     one = max(rfft_smem_bytes(n), irfft_smem_bytes(n)) if real else fft_smem_bytes(n)
-    if fft_fits_smem(n, real=real) or not fft_fits_fused(n):
+    if fft_fits_smem(n, real=real) or not fits(n):
         return one
     m = n // 2 if real else n
-    if radix == 4:
+    if radix == 4 and fft_fits_fused(n):
         return cluster_geometry(m).smem
     g = two_pass_geometry(m)
     return max(g.col_smem, g.row_smem)
@@ -1134,12 +1166,15 @@ def fft2_columns_cost(frames: int, h: int, wc: int) -> Cost:
     return Cost(5.0 * frames * h * wc * math.log2(h), float(16 * frames * h * wc))
 
 
-def _row_kernel(one_block: bool, radix: int, fused: str) -> str:
-    """The kernel a row call launches, and the name it is charged and
-    counted under: ``fused`` within one block, else the cluster (radix 4)
-    or the two passes. The one routing decision of the row entries, on
-    every device."""
-    return fused if one_block else ("fft_cluster" if radix == 4 else "fft_two_pass")
+def _row_kernel(n: int, real: bool, radix: int, fused: str) -> str:
+    """The kernel a row call on rows of length ``n`` launches, and the name
+    it is charged and counted under: ``fused`` within one block, else the
+    cluster (radix 4, N <= 2^18, the rows ``cluster_geometry`` serves) or
+    the two passes. The one routing decision of the row entries, on every
+    device."""
+    if fft_fits_smem(n, real=real):
+        return fused
+    return "fft_cluster" if radix == 4 and fft_fits_fused(n) else "fft_two_pass"
 
 
 def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -1176,15 +1211,14 @@ def _check_out(x: torch.Tensor, out: torch.Tensor | None, name: str) -> None:
                          f"{out.dtype} on {out.device}")
 
 
-def _check_fused_row(n: int, name: str, real: bool = False) -> bool:
-    """Raise where the reference's fused kernels raise (N > 2^18); return
-    True when a row fits one block, False when it takes the two passes."""
-    if not fft_fits_fused(n):
+def _check_fused_row(n: int, name: str) -> None:
+    """Raise past the wrappers' envelope (N > 2^24, :func:`fft_fits_card`),
+    in the reference's words."""
+    if not fft_fits_card(n):
         raise ValueError(
-            f"{name}: length-{n} rows exceed the fused-kernel budget (N <= 2^18, "
-            "the reference's); use an unfused variant"
+            f"{name}: length-{n} rows exceed the fused-kernel budget (N <= 2^24, "
+            "the two-pass kernels' exact twiddles); use an unfused variant"
         )
-    return fft_fits_smem(n, real=real)
 
 
 def _column_pass(x: torch.Tensor, src: int, scratch: int, b: int, n: int,
@@ -1228,11 +1262,13 @@ def _cluster(x: torch.Tensor, src: int, dst: int, b: int, m: int, kind: str, con
 
 def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
               out: torch.Tensor | None = None) -> torch.Tensor:
-    """FFT along the last axis of (B, N) complex64, N <= 2^18.
+    """FFT along the last axis of (B, N) complex64, N <= 2^24
+    (:func:`fft_fits_card`).
 
     A row that fits one block costs one HBM round trip. A longer row
-    (2^14 < N) takes one cluster of CTAs at radix 4 (one round trip, one
-    launch) and the two-pass kernels at radix 2 (two of each).
+    (2^14 < N) takes one cluster of CTAs at radix 4 up to 2^18 (one round
+    trip, one launch) and the two-pass kernels at radix 2, and at radix 4
+    past 2^18 (two of each).
     ``inverse`` conjugates on the way in and out and scales by 1/N: the
     inverse transform on the same panels, without extra passes over HBM.
     Writes ``out`` (a new tensor when None): a buffer of ``x``'s shape,
@@ -1243,15 +1279,16 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
     b, n = x.shape
     _check_pow2(n, "fft_fused")
     _panel(radix)
-    route = _row_kernel(_check_fused_row(n, "fft_fused"), radix, "fft_fused")
+    _check_fused_row(n, "fft_fused")
+    route = _row_kernel(n, False, radix, "fft_fused")
     _check_out(x, out, "fft_fused")
     if x.device.type == "cpu":
         if route == "fft_fused":
             y = fft_fused_plain(x, radix=radix, inverse=inverse)
         elif route == "fft_cluster":
             y = fft_cluster_plain(x, inverse=inverse)
-        else:
-            y = fft_two_pass_plain(x, radix=radix, inverse=inverse)
+        else:  # the two passes run radix-2 layers at either radix
+            y = fft_two_pass_plain(x, inverse=inverse)
         return y if out is None else out.copy_(y)
     _check_launchable(x, "fft_fused")
     if out is None:
@@ -1272,21 +1309,22 @@ def fft_fused(x: torch.Tensor, *, radix: int = 2, inverse: bool = False,
 
 
 def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
-    """Real FFT of (B, N) float32 -> (B, N/2+1) complex64, two for one.
-    Rows over one block take one cluster launch at radix 4, which
-    recombines on its way out; at radix 2 the two passes at N/2 and a
-    recombination pass: three launches."""
+    """Real FFT of (B, N) float32 -> (B, N/2+1) complex64, two for one,
+    N <= 2^24. Rows over one block take one cluster launch at radix 4 up
+    to 2^18, which recombines on its way out; at radix 2, and past 2^18,
+    the two passes at N/2 and a recombination pass: three launches."""
     _check(x, "rfft_fused", torch.float32, 2)
     b, n = x.shape
     _check_pow2(n, "rfft_fused")
     _panel(radix)
-    route = _row_kernel(_check_fused_row(n, "rfft_fused", real=True), radix, "rfft_fused")
+    _check_fused_row(n, "rfft_fused")
+    route = _row_kernel(n, True, radix, "rfft_fused")
     if x.device.type == "cpu":
         if route == "rfft_fused":
             return rfft_fused_plain(x, radix=radix)
         if route == "fft_cluster":
             return rfft_cluster_plain(x)
-        return rfft_two_pass_plain(x, radix=radix)
+        return rfft_two_pass_plain(x)
     _check_launchable(x, "rfft_fused")
     out = torch.empty((b, n // 2 + 1), dtype=torch.complex64, device=x.device)
     m = n // 2
@@ -1309,21 +1347,22 @@ def rfft_fused(x: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
 def irfft_fused(y: torch.Tensor, *, radix: int = 2) -> torch.Tensor:
     """Inverse of :func:`rfft_fused`: (B, N/2+1) complex64 -> (B, N) float32.
     The imaginary parts at DC and Nyquist are dropped, as numpy does. Rows
-    over one block take one cluster launch at radix 4, which untangles on
-    its way in; at radix 2 an untangling pass, then the two passes at N/2:
-    three launches."""
+    over one block take one cluster launch at radix 4 up to N = 2^18, which
+    untangles on its way in; at radix 2, and past 2^18, an untangling pass,
+    then the two passes at N/2: three launches."""
     _check(y, "irfft_fused", torch.complex64, 2)
     b, half = y.shape
     n = 2 * (half - 1)
     _check_pow2(n, "irfft_fused", "2 * (width - 1)")
     _panel(radix)
-    route = _row_kernel(_check_fused_row(n, "irfft_fused", real=True), radix, "irfft_fused")
+    _check_fused_row(n, "irfft_fused")
+    route = _row_kernel(n, True, radix, "irfft_fused")
     if y.device.type == "cpu":
         if route == "irfft_fused":
             return irfft_fused_plain(y, radix=radix)
         if route == "fft_cluster":
             return irfft_cluster_plain(y)
-        return irfft_two_pass_plain(y, radix=radix)
+        return irfft_two_pass_plain(y)
     _check_launchable(y, "irfft_fused")
     out = torch.empty((b, n), dtype=torch.float32, device=y.device)
     m = n // 2

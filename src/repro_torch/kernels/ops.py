@@ -42,9 +42,14 @@ Columns longer than that kernel's panel (H > 4096,
 planned turn route instead: a corner turn through HBM, ``fft_fused`` on the
 columns as rows, a turn back. A row of 2^14 < N <=
 2^18 values, on a 1D entry or on a pass of the composition, takes the
-1D wrappers' cluster kernel (radix 4) or two-pass kernels (radix 2);
-the planner's working-set gate keeps longer rows away from these entry
-points, as the reference's does.
+1D wrappers' cluster kernel (radix 4) or two-pass kernels (radix 2), and a
+row of 2^18 < N <= 2^24 the two-pass kernels at both radices: two HBM
+round trips a complex row, three a real one (the recombination or the
+untangling on top). So a frame W > 2^18 wide runs its rows on the two
+passes, then ``fft2_columns`` (H <= 4096) or the turn route; a column
+longer than 2^18 takes the turn route onto those rows. The planner's
+working-set gate keeps rows past 2^24 away from these entry points on a
+CUDA key, and rows past 2^18 on a CPU key, as the reference's does.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from repro_torch.kernels.fft_radix2 import (
     fft2_fits_smem,
     fft2_fused,
     fft2_smem_bytes,
+    fft_fits_fused,
     fft_fused,
     irfft2_fused,
     irfft_fused,
@@ -259,12 +265,18 @@ def hbm_traffic_model(
 ) -> int:
     """Bytes moved between HBM and the chip (re+im f32, read+write per pass).
 
-    fused: one round trip. staged: one per stage — the paper's α = 1/log2 N
-    shows up as traffic(fused)/traffic(staged). ``radix=4`` halves the pass
-    count of the staged path; ``real`` halves every pass.
+    fused: one round trip, as the reference counts it, up to its envelope
+    (N <= 2^18); past it the rows the card serves take the two-pass kernels,
+    two round trips (three when ``real``: the recombination or the
+    untangling). staged: one per stage — the paper's α = 1/log2 N shows up
+    as traffic(fused)/traffic(staged). ``radix=4`` halves the pass count of
+    the staged path; ``real`` halves every pass.
     """
     stages = int(math.log2(n))
-    passes = 1 if fused else math.ceil(stages / math.log2(radix))
+    if fused:
+        passes = 1 if fft_fits_fused(n) else (3 if real else 2)
+    else:
+        passes = math.ceil(stages / math.log2(radix))
     per_pass = batch * n * 4 * 2 * 2
     if real:
         per_pass //= 2

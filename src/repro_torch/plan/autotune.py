@@ -11,17 +11,19 @@ and keeps the fastest (CUDA events on the card, see :func:`measure_plan`).
 On a ``"cuda"`` key the candidates are the CUDA kernels only, unless the
 caller scoped ``backend="torch"``: a tensor on the card never plans onto
 plain tensor code by itself. Where no kernel serves the key (a row longer
-than 2^18 values, the reference's fused envelope), planning raises. A
+than 2^24 values, the two-pass kernels' envelope), planning raises. A
 double-precision key is served by the ``reference_x64`` engine (backend
 ``"x64"``), on the card too: it is the only engine registered for double,
 as in the reference, so planning it is the plan and not a fallback. The
 kernels are modelled from what the CUDA code does. HBM: each element is
 read once and written once per round trip — one round trip for a row or
-a 2D frame that fits a block, and for a row over one block at radix 4 (the
-cluster kernel of ``csrc/fft_cluster.cu`` holds it in the shared memory
-of C CTAs); at radix 2 two for a complex row over one block (the
-two-pass kernels) and three for a real one (plus its recombination or
-untangling); a composed 2D frame is its row pass's round trips plus one
+a 2D frame that fits a block, and for a row of 2^14 < N <= 2^18 at radix
+4 (the cluster kernel of ``csrc/fft_cluster.cu`` holds it in the shared
+memory of C CTAs); at radix 2, and at both radices past 2^18, two for a
+complex row over one block (the two-pass kernels) and three for a real
+one (plus its recombination or untangling), so that the two engines tie
+there and ESTIMATE ranks ``fused_r4`` first; a composed 2D frame is its
+row pass's round trips plus one
 for the column pass (``csrc/fft2_columns.cu`` reads the columns where the
 row pass wrote them, in one panel a block, whose passes and exchanges are
 those of its column panel: a one-block row of H values), and where the
@@ -135,8 +137,8 @@ def variant_candidates(key: ProblemKey) -> Tuple[str, ...]:
     if not specs and on_card:
         raise NotImplementedError(
             f"no CUDA kernel serves {key.kind!r} at shape {key.shape}: its rows exceed "
-            "the fused kernels' envelope (2^18 values, the reference's fused-kernel "
-            "budget, past which the reference plans its jnp engines); scope "
+            "the fused kernels' envelope (2^24 values, past which the two-pass "
+            "kernels' twiddle exponents are no longer exact in float32); scope "
             "xfft.config(backend='torch') to run the plain schedules on the card"
         )
     if not specs:
@@ -175,13 +177,15 @@ def _stage_passes(stages: int, radix: int) -> int:
 def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[int, int]:
     """(HBM round trips, shared-memory passes) of the 1D kernels on a row of
     n: one block (the register passes' exchanges, the same at both
-    radices); over one block at radix 4 the cluster kernel (one
-    round trip, its exchanges), at radix 2 the two-pass kernels on the (n1,
-    n2) view of the row (at N/2 complex values when ``real``, plus one
-    elementwise round trip): the register passes' exchanges of each pass,
-    whose first pass loads from HBM and last stores to HBM."""
+    radices); over one block at radix 4 up to 2^18 the cluster kernel (one
+    round trip, its exchanges); at radix 2, and past 2^18 at both radices,
+    the two-pass kernels on the (n1, n2) view of the row (at N/2 complex
+    values when ``real``, plus one elementwise round trip): the register
+    passes' exchanges of each pass, whose first pass loads from HBM and
+    last stores to HBM."""
     from repro_torch.kernels.fft_radix2 import (  # lazy
         cluster_exchanges,
+        fft_fits_fused,
         fft_fits_smem,
         fft_split,
         regpass_exchanges,
@@ -190,7 +194,7 @@ def _row_cost(n: int, radix: int, real: bool, inverse: bool = False) -> Tuple[in
     m = n // 2 if real else n
     if fft_fits_smem(n, real=real):
         return 1, regpass_exchanges(n, real=real, inverse=inverse, radix=radix)
-    if radix == 4:
+    if radix == 4 and fft_fits_fused(n):
         return 1, cluster_exchanges(m)
     n1, n2 = fft_split(m)
     return 3 if real else 2, regpass_exchanges(n1) + regpass_exchanges(n2)

@@ -414,7 +414,7 @@ def test_divergence_11_fused_engines_serve_cuda_pencil_keys_only(shape, d):
 
 def test_fused_working_set_is_the_row_envelope():
     """A frame that fits one block as an fft2d key is still gated on its
-    rows as a pencil, and a pencil whose rows exceed 2^18 values is over
+    rows as a pencil, and a pencil whose rows exceed 2^24 values is over
     the envelope."""
     from repro_torch.engines import get_engine
     from repro_torch.kernels import fft_radix2 as census
@@ -425,7 +425,7 @@ def test_fused_working_set_is_the_row_envelope():
                      dtype="complex64")
     assert spec.working_set(key) == census.row_smem_bytes(64, radix=4)
     too_long = ProblemKey(kind="fft2d_pencil", backend="cuda", device_kind=H100,
-                          shape=(2 ** 19, 64), dtype="complex64", n_devices=8)
+                          shape=(2 ** 25, 64), dtype="complex64", n_devices=8)
     assert spec.working_set(too_long) > smem_budget_bytes()
     with pytest.raises(NotImplementedError, match="no CUDA kernel serves"):
         variant_candidates(too_long)

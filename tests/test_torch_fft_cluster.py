@@ -136,7 +136,9 @@ def test_census_of_the_clusters():
         assert k.row_smem_bytes(n, radix=4) == k.cluster_geometry(n).smem
         assert k.row_smem_bytes(n, real=True, radix=4) == k.cluster_geometry(n // 2).smem
     assert k.row_smem_bytes(2 ** 14, radix=4) == k.fft_smem_bytes(2 ** 14)  # one block
-    assert k.row_smem_bytes(2 ** 19, radix=4) > k.SMEM_BUDGET_BYTES
+    assert k.row_smem_bytes(2 ** 19, radix=4) > k.SMEM_BUDGET_BYTES  # the reference's
+    assert (k.row_smem_bytes(2 ** 19, radix=4, fits=k.fft_fits_card)
+            == k.two_pass_geometry(2 ** 19).col_smem)  # past 2^18: the two passes
     assert k.cluster_exchanges(2 ** 18) == 2 + k.regpass_exchanges(2 ** 12) == 4
     assert k.cluster_exchanges(2 ** 15) == 2 + k.regpass_exchanges(2 ** 11) == 4
 

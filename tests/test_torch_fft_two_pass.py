@@ -6,8 +6,10 @@ held to the Pallas kernels in interpret mode at N = 2^15 and 2^16 to
 max|port - ref| <= 1e-5 * max|ref| (the reference's own kernel tolerance),
 and to numpy in float64 at N = 2^18, where one Pallas interpret call would
 take most of a minute; round trips to 1e-4. The fused engines' envelope
-must be the reference's. The CUDA kernels are held to these plain versions
-on the card by tests/test_torch_kernels_cuda.py.
+must be the reference's on a CPU key; a CUDA key's reaches 2^24
+(tests/test_torch_long_rows.py holds the rows past 2^18). The CUDA kernels
+are held to these plain versions on the card by
+tests/test_torch_kernels_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -125,44 +127,48 @@ def test_fused_envelope_is_the_references(real):
 @pytest.mark.parametrize("kind,shape", [("fft1d", (4, None)), ("rfft1d", (4, None)),
                                         ("fft2d", (2, None)), ("fft2d", (None, 2)),
                                         ("rfft2d", (1, 8, None)), ("rfft2d", (None, 4))])
-def test_card_keys_plan_onto_the_kernels_up_to_2_18(kind, shape):
+def test_card_keys_plan_onto_the_kernels_up_to_2_24(kind, shape):
     def key(n):
         return ProblemKey(kind=kind, backend="cuda", device_kind=H100,
                           shape=tuple(n if d is None else d for d in shape), dtype="complex64")
 
-    for n in (2 ** 15, 2 ** 18):
+    for n in (2 ** 15, 2 ** 18, 2 ** 19, 2 ** 24):
         assert set(variant_candidates(key(n))) == {"fused", "fused_r4"}, n
-    with pytest.raises(NotImplementedError, match="2\\^18"):
-        variant_candidates(key(2 ** 19))
+    with pytest.raises(NotImplementedError, match="2\\^24"):
+        variant_candidates(key(2 ** 25))
 
 
 def test_two_pass_geometry_fits_a_block():
     """Both passes of every row the two passes serve hold at least 16 lines
     and fit one block; the split is exact. The census is the register
     passes': the column pass's panel and ROM padded, the row pass's tile
-    rows ``two_pass_row_stride`` slots apart and its ROM padded."""
-    for p in range(14, 19):
+    rows ``two_pass_row_stride`` slots apart and its ROM padded. The card's
+    envelope reaches 2^24; the default one stays the reference's."""
+    for p in range(14, 25):
         n = 2 ** p
         g = k.two_pass_geometry(n)
         assert (g.n1, g.n2) == k.fft_split(n) and g.n1 * g.n2 == n and g.n2 <= g.n1 <= 2 * g.n2
-        assert k.TWO_PASS_MIN_LINES <= g.cols <= g.n2
-        assert k.TWO_PASS_MIN_LINES <= g.rows <= g.n1
+        assert k.COLUMN_PANEL_MIN_COLS <= g.cols <= g.n2
+        assert k.COLUMN_PANEL_MIN_COLS <= g.rows <= g.n1
         assert g.col_threads * k.ELEMS_PER_THREAD == g.cols * g.n1 <= 16 * k.MAX_THREADS
         assert g.row_threads * k.ELEMS_PER_THREAD == g.rows * g.n2 <= 16 * k.MAX_THREADS
         assert g.col_smem == (k.smem_slot(g.cols * g.n1) + k.smem_slot(g.n1 // 2)) * 8
-        assert g.row_smem == (g.rows * k.two_pass_row_stride(g.n2) + k.smem_slot(g.n2 // 2)) * 8
+        assert g.row_smem == (g.rows * k.two_pass_row_stride(g.n2, g.rows)
+                              + k.smem_slot(g.n2 // 2)) * 8
         assert max(g.col_smem, g.row_smem) <= k.SMEM_BUDGET_BYTES
     assert k.fft_split(2 ** 18) == (512, 512)
     assert k.row_smem_bytes(2 ** 14) == k.fft_smem_bytes(2 ** 14)  # one block
     assert k.row_smem_bytes(2 ** 18) == k.two_pass_geometry(2 ** 18).row_smem
     assert k.row_smem_bytes(2 ** 15, real=True) == k.two_pass_geometry(2 ** 14).row_smem
     assert k.row_smem_bytes(2 ** 19) > k.SMEM_BUDGET_BYTES
+    assert k.row_smem_bytes(2 ** 24, fits=k.fft_fits_card) == k.two_pass_geometry(2 ** 24).row_smem
+    assert k.row_smem_bytes(2 ** 25, fits=k.fft_fits_card) > k.SMEM_BUDGET_BYTES
 
 
-def test_rows_past_2_18_raise_with_the_references_wording():
+def test_rows_past_2_24_raise_with_the_references_wording():
     with pytest.raises(ValueError, match="exceed the fused-kernel budget.*unfused variant"):
-        k.fft_fused(torch.zeros(1, 2 ** 19, dtype=torch.complex64))
+        k.fft_fused(torch.zeros(1, 2 ** 25, dtype=torch.complex64, device="meta"))
     with pytest.raises(ValueError, match="exceed the fused-kernel budget"):
-        k.rfft_fused(torch.zeros(1, 2 ** 19))
+        k.rfft_fused(torch.zeros(1, 2 ** 25, device="meta"))
     with pytest.raises(ValueError, match="exceed the fused-kernel budget"):
-        k.irfft_fused(torch.zeros(1, 2 ** 18 + 1, dtype=torch.complex64))
+        k.irfft_fused(torch.zeros(1, 2 ** 24 + 1, dtype=torch.complex64, device="meta"))

@@ -129,6 +129,86 @@ def test_cuda_fft_two_pass_matches_plain(cuda, radix):
     assert k.LAUNCHES["fft_cluster"] == 0
 
 
+LONG_ROWS = tuple(2 ** p for p in range(19, 25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radix", [2, 4])
+def test_cuda_long_rows_match_plain_and_library(cuda, radix):
+    """Rows of 2^18 < N <= 2^24 take the two-pass kernels at both radices
+    (the instances n1, n2 = 1024, 2048, 4096 at 1024 threads): 2 launches a
+    complex call and 3 a real one, nothing else, on every N = 2^19 ...
+    2^24 and every kind, within 2e-5 of the plain version and of
+    torch.fft."""
+    g = torch.Generator(device=cuda).manual_seed(20 + radix)
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=cuda),
+                             torch.randn(*shape, generator=g, device=cuda))
+
+    def launched(trips, fn, *args, **kw):
+        before = dict(k.LAUNCHES)
+        out = fn(*args, **kw)
+        delta = {name: k.LAUNCHES[name] - before[name] for name in k.LAUNCHES}
+        assert delta == {name: trips * int(name == "fft_two_pass") for name in k.LAUNCHES}, delta
+        return out
+
+    for n in LONG_ROWS:
+        b = 3 if n <= 2 ** 21 else 2
+        x = crandn(b, n)
+        for inverse in (False, True):
+            got = launched(2, k.fft_fused, x, radix=radix, inverse=inverse)
+            assert _rel(got, k.fft_two_pass_plain(x, inverse=inverse)) <= TOL, (n, inverse)
+            ref = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+            assert _rel(got, ref) <= TOL, (n, inverse)
+        del x, got, ref
+        r = torch.randn(b, n, generator=g, device=cuda)
+        got = launched(3, k.rfft_fused, r, radix=radix)
+        assert _rel(got, k.rfft_two_pass_plain(r)) <= TOL, n
+        assert _rel(got, torch.fft.rfft(r)) <= TOL, n
+        y = crandn(b, n // 2 + 1)
+        y[:, 0].imag.zero_()  # a Hermitian spectrum for torch.fft (see the cluster's test)
+        y[:, -1].imag.zero_()
+        got = launched(3, k.irfft_fused, y, radix=radix)
+        assert _rel(got, k.irfft_two_pass_plain(y)) <= TOL, n
+        assert _rel(got, torch.fft.irfft(y)) <= TOL, n
+        del r, y, got
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_xfft_long_rows_land_on_the_two_passes(cuda):
+    """xfft on CUDA tensors with a transform dim past 2^18 plans the fused
+    engines and launches the two passes (and fft2_columns where a frame has
+    columns it serves), with no failover, fault or degrade event."""
+    from repro_torch import obs
+
+    g = torch.Generator(device=cuda).manual_seed(26)
+    x = torch.complex(torch.randn(4, 2 ** 20, generator=g, device=cuda),
+                      torch.randn(4, 2 ** 20, generator=g, device=cuda))
+    wide = torch.complex(torch.randn(2, 8, 2 ** 19, generator=g, device=cuda),
+                         torch.randn(2, 8, 2 ** 19, generator=g, device=cuda))
+    tall = torch.randn(2 ** 19, 8, generator=g, device=cuda)
+    calls = [("fft", lambda: xfft.fft(x), lambda: torch.fft.fft(x), False),
+             ("rfft", lambda: xfft.rfft(x.real), lambda: torch.fft.rfft(x.real), False),
+             ("irfft", lambda: xfft.irfft(xfft.rfft(x.real)), lambda: x.real, False),
+             ("fft2", lambda: xfft.fft2(wide), lambda: torch.fft.fft2(wide), True),
+             ("rfft2", lambda: xfft.rfft2(tall), lambda: torch.fft.rfft2(tall), False),
+             ("irfft2", lambda: xfft.irfft2(xfft.rfft2(tall)), lambda: tall, False)]
+    with obs.capture() as trace:
+        for name, fn, ref, columns in calls:
+            k.reset_launches()
+            got = fn()
+            assert k.LAUNCHES["fft_two_pass"] >= 2, (name, dict(k.LAUNCHES))
+            assert (k.LAUNCHES["fft2_columns"] > 0) == columns, (name, dict(k.LAUNCHES))
+            assert k.LAUNCHES["fft_cluster"] == 0, name
+            assert _rel(got, ref()) <= (1e-4 if name.startswith("irfft") else TOL), name
+    for event in ("resilience.failover", "resilience.fault", "plan.degrade"):
+        assert not trace.select(event), (event, trace.select(event))
+    plans = {e.fields.get("variant") for e in trace.select("plan.resolve")}
+    assert plans and plans <= {"fused", "fused_r4"}, plans
+
+
 @pytest.mark.cuda
 def test_cuda_fft_cluster_matches_plain(cuda):
     """Rows over one block take the cluster kernel at radix 4: one launch
@@ -386,15 +466,15 @@ def test_cuda_xfft_plans_onto_the_kernels(cuda):
 @pytest.mark.cuda
 def test_cuda_tensor_never_plans_onto_plain_code(cuda):
     """Tiny transforms plan onto a kernel; rows longer than the fused
-    envelope (2^18) raise unless the caller scopes the plain schedules."""
+    envelope (2^24) raise unless the caller scopes the plain schedules."""
     k.reset_launches()
     xfft.fft(torch.ones(1, 4, dtype=torch.complex64, device=cuda))
     assert k.LAUNCHES["fft_fused"] == 1
-    long = torch.ones(2, 2 ** 19, dtype=torch.complex64, device=cuda)
-    with pytest.raises(NotImplementedError):
+    long = torch.ones(1, 2 ** 25, dtype=torch.complex64, device=cuda)
+    with pytest.raises(NotImplementedError, match="2\\^24"):
         xfft.fft(long)
     with xfft.config(backend="torch"):
-        assert float(xfft.fft(long)[:, 0].real.min()) == 2.0 ** 19
+        assert float(xfft.fft(long)[:, 0].real.min()) == 2.0 ** 25
 
 
 @pytest.mark.cuda

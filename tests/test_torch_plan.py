@@ -171,14 +171,17 @@ def test_cluster_gate_asks_nothing_of_a_cpu_key_or_a_one_block_row(monkeypatch):
     assert estimate_plan(frames).variant == "fused_r4"
 
 
-def test_no_active_cluster_keeps_the_over_2_18_wording(monkeypatch):
+def test_no_active_cluster_keeps_the_over_2_24_wording(monkeypatch):
     from repro_torch.kernels import fft_radix2
 
     monkeypatch.setattr(fft_radix2, "cluster_occupancy", lambda *a, **kw: 0)
     key = ProblemKey(kind="fft1d", backend="cuda", device_kind=H100, shape=(4, 2 ** 19),
                      dtype="complex64")
+    assert "fused" in variant_candidates(key)  # no cluster: the two passes
+    key = ProblemKey(kind="fft1d", backend="cuda", device_kind=H100, shape=(4, 2 ** 25),
+                     dtype="complex64")
     with pytest.raises(NotImplementedError,
-                       match=r"its rows exceed the fused kernels' envelope \(2\^18 values"):
+                       match=r"its rows exceed the fused kernels' envelope \(2\^24 values"):
         variant_candidates(key)
 
 
@@ -240,10 +243,10 @@ def test_radix4_panel_wins_where_radix2_is_bound_by_shared_memory():
     assert estimate_plan(key).variant == "fused_r4"
 
 
-@pytest.mark.parametrize("kind,n", [("fft1d", 2 ** 19), ("rfft1d", 2 ** 19), ("fft2d", 2 ** 19)])
+@pytest.mark.parametrize("kind,n", [("fft1d", 2 ** 25), ("rfft1d", 2 ** 25), ("fft2d", 2 ** 25)])
 def test_rows_over_one_block_exclude_the_kernels(kind, n):
-    """Rows past the fused envelope (2^18, the reference's; rows between
-    one block and 2^18 take the two-pass kernels)."""
+    """Rows past the card's fused envelope (2^24; rows between one block
+    and 2^24 take the cluster or the two-pass kernels)."""
     shape = (4, n) if kind != "fft2d" else (2, n)
     key = ProblemKey(kind=kind, backend="cuda", device_kind=H100, shape=shape,
                      dtype="complex64")

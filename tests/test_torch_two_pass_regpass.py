@@ -1,6 +1,7 @@
 """The radix-2 two-pass kernels and the radix-2 ``fft2_fused`` on register passes.
 
-``csrc/fft_two_pass.cu`` (rows of 2^14 < N <= 2^18 at radix 2) and
+``csrc/fft_two_pass.cu`` (rows of 2^14 < N <= 2^18 at radix 2, and past
+2^18 at both radices) and
 ``csrc/fft2_fused.cu`` at radix 2 run the register passes of
 ``csrc/stockham_regs.cuh`` with radix-2 layers, on the card only. Here, on
 the CPU:
@@ -16,10 +17,12 @@ the CPU:
   plain versions at 2e-5 of max|plain| (skips where g++ is absent);
 * a numpy model of every access of the two passes (the column pass's HBM
   loads, its exchanges through the padded frame of C columns, its twiddled
-  stores; the row pass's coalesced loads, its tile of rows S = padded(n2) +
-  1 slots apart, its turned reads and stores) states the bank ways of each
-  shared-memory access and the 32-byte sectors of each warp's HBM access,
-  and gates on none past one way and none past the fewest sectors;
+  stores; the row pass's coalesced loads, its tile of rows S slots apart
+  (``two_pass_row_stride``), its turned reads and stores) states the bank
+  ways of each shared-memory access and the 32-byte sectors of each warp's
+  HBM access, and gates on none past one way (the twiddle reads of the
+  panels of 4 lines: two) and none past the fewest sectors, at every line
+  length the census launches up to 2^24;
 * the census's instances and the wrappers' launches on meta tensors
   (``tests/test_torch_plan.py`` pins the planner's price of the passes).
 """
@@ -39,6 +42,7 @@ from repro_torch.kernels import fft_radix2 as k
 TOL_EMU = 2e-5
 EMU = Path(__file__).resolve().parents[1] / "tools" / "cuda_emu" / "emulate.py"
 TWO_PASS = [2 ** p for p in range(14, 19)]  # the complex rows and the real rows' halves
+LONG = [2 ** p for p in range(19, 25)]  # rows past the reference's envelope, on the card
 
 
 # ------------------------------- the twins ----------------------------------
@@ -294,7 +298,7 @@ def _row_pass_model(n):
     """The same for the row pass: its tile of T rows, S slots apart."""
     g = k.two_pass_geometry(n)
     n1, n2, t_rows = g.n1, g.n2, g.rows
-    stride = k.two_pass_row_stride(n2)
+    stride = k.two_pass_row_stride(n2, t_rows)
     passes = _passes(n2, t_rows, _first_row_lanes, _column_lanes(t_rows))
     rom0 = t_rows * stride
     out, written = {}, []
@@ -350,6 +354,33 @@ def test_two_pass_accesses_are_conflict_free_and_whole_sectors(n, which):
         assert np.array_equal(slots, want), (n, which)
 
 
+@pytest.mark.parametrize("n", LONG)
+@pytest.mark.parametrize("which", ["columns", "rows"])
+def test_long_row_accesses_are_conflict_free_and_whole_sectors(n, which):
+    """The same model at the instances of the rows past 2^18 (n1, n2 = 1024,
+    2048, 4096; 1024 threads a block): panels and tiles of 16, 8 and 4
+    lines, whose half-warps take 16/C (16/T) neighbouring groups t of C (T)
+    lines. The tile's rows S = padded(n2) + 16/T slots apart keep the
+    turned reads and writes on 16 bank pairs; every HBM run is a whole
+    32-byte sector or more; each exchange writes each slot once. The
+    twiddle reads of the 4-line instances (n1 or n2 = 4096) meet 2 ways:
+    the half-warp's 4 groups read 4 ROM entries 2^7 or more apart, whose
+    padded slots fall on 2 bank pairs (fft2_columns.cu's 4096-row panel
+    reads its ROM so too); all others are broadcasts or 1 way."""
+    g = k.two_pass_geometry(n)
+    lines = g.cols if which == "columns" else g.rows
+    model, written = (_column_pass_model if which == "columns" else _row_pass_model)(n)
+    for what, got in model.items():
+        if what in ("loads", "twiddled stores", "turned stores"):
+            assert all(s == f for s, f in got), (n, which, what, max(got))
+        elif what == "twiddle reads":
+            assert max(got) == (2 if lines == 4 else 1), (n, which, what, max(got))
+        else:
+            assert max(got) == 1, (n, which, what, max(got))
+    for slots, want in written:
+        assert np.array_equal(slots, want), (n, which)
+
+
 def test_the_model_sees_the_conflicts_the_layout_removes():
     """The model is not blind: with the rows S = padded(n2) slots apart (an
     even stride) the turned reads of 16 neighbouring rows meet 2 bank
@@ -367,6 +398,22 @@ def test_the_model_sees_the_conflicts_the_layout_removes():
     ways = [_ways(np.where(ok, line * stride + _slot(i), -1), plain.threads)
             for ok, line, i in plain.writes()]
     assert max(ways) == 2
+
+
+@pytest.mark.parametrize("n2,t_rows,ways", [(2048, 8, 2), (4096, 4, 4)])
+def test_the_model_sees_the_conflicts_of_an_odd_stride_under_16_rows(n2, t_rows, ways):
+    """With tiles of T < 16 rows kept S = padded(n2) + 1 slots apart, a
+    half-warp's T rows at 16/T neighbouring groups overlap on the bank
+    pairs (16/T ways); S = padded(n2) + 16/T is what removes it."""
+    ps = _passes(n2, t_rows, _first_row_lanes, _column_lanes(t_rows))
+    odd = _slot(n2) + 1
+    got = [_ways(np.where(ok, line * odd + _slot(i), -1), ps[1].threads)
+           for ok, line, i in ps[1].reads()]
+    assert max(got) == ways
+    stride = k.two_pass_row_stride(n2, t_rows)
+    got = [_ways(np.where(ok, line * stride + _slot(i), -1), ps[1].threads)
+           for ok, line, i in ps[1].reads()]
+    assert max(got) == 1
 
 
 # ------------------------------ census and route -----------------------------

@@ -14,7 +14,7 @@ through it, and ``tests/test_torch_fft2_columns.py`` ``fft2_columns.cu``.
     PYTHONPATH=src python tools/cuda_emu/emulate.py 8x8 128x128 16384x2
     PYTHONPATH=src python tools/cuda_emu/emulate.py --all     # every admitted frame
     PYTHONPATH=src python tools/cuda_emu/emulate.py --rows    # fft_fused / rfft_fused / irfft_fused, n = 2 ... 2^14, radix 4 and 2
-    PYTHONPATH=src python tools/cuda_emu/emulate.py --two-pass  # fft_two_pass, n = 2^15 ... 2^18
+    PYTHONPATH=src python tools/cuda_emu/emulate.py --two-pass  # fft_two_pass, n = 2^15 ... 2^20
     PYTHONPATH=src python tools/cuda_emu/emulate.py --radix 2 128x128  # the frames at radix 2
 
 Prints each frame's largest error relative to max|twin| and to numpy, and
@@ -197,7 +197,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", action="store_true",
                     help="the 1D kernels, n = 2 ... 2^14, batches 3 and 1, radix 4 and 2")
     ap.add_argument("--two-pass", action="store_true",
-                    help="fft_two_pass, n = 2^15 ... 2^18, batches 3 and 1")
+                    help="fft_two_pass, n = 2^15 ... 2^18 on batches 3 and 1, then 2^19 "
+                         "and 2^20 on one row (the 1024-thread instances of n1, n2 = 1024)")
     ap.add_argument("--radix", type=int, default=4, choices=(2, 4), help="the frames' radix")
     ap.add_argument("--tol", type=float, default=2e-5, help="largest error vs the twin")
     ap.add_argument("--out", type=Path, default=REPO / "build" / "cuda_emu")
@@ -213,8 +214,8 @@ def main(argv=None) -> int:
                     print(f"rows radix {radix} n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs),
                           flush=True)
     if args.two_pass:
-        for n in (2 ** p for p in range(15, 19)):
-            for b in (3, 1):
+        for n in (2 ** p for p in range(15, 21)):
+            for b in ((3, 1) if n <= 2 ** 18 else (1,)):
                 errs = two_pass(lib, n, b, np.random.default_rng(n + b))
                 worst = np.max([worst, *errs])
                 print(f"two-pass n={n} b={b}: " + " ".join(f"{e:.1e}" for e in errs), flush=True)
